@@ -25,6 +25,26 @@ It imports nothing of JAX. Phases, each of which raises on failure:
                 (logloss, 30 epochs, float32) must reach the pinned
                 Recall@20 / Recall@50 / NDCG@100, and a checkpoint
                 reload must give the same metrics.
+  7. spd kernel -- the batched SPD-solve kernel against the blocked
+                recursion on the card at ragged shapes (B in {1, 37},
+                d in {1, 7, 64, 128, 130, 200, 256}) and at the iALS
+                shape (B = 16,384, d = 128, systems built as iALS builds
+                them): max abs error and residual, bitwise independence
+                of batch position; median times of the kernel, the
+                blocked recursion and cholesky_ex + cholesky_solve.
+  8. ials slice -- iALS at the full width of tools/bench_ials.py on the
+                same ML-20M-shaped CSR (d=128, alpha 10, lam 3e-3, 8
+                sweeps, seed 0): the objective falls, per-sweep and fit
+                seconds, one kernel launch per chunk per half-sweep,
+                fold-in of 500 training users is bitwise their stored
+                factors, recommend(k=100) is valid, and a save -> load
+                round trip gives identical recommendations.
+  9. ials quality -- the tests/test_ials.py fixture protocol (d=4, alpha
+                30, lam 0.01, 8 sweeps, seed 0) through the kernel must
+                reach Recall@20 > 0.080 and NDCG@100 > 0.120, with
+                identical metrics after a reload; the same fit through
+                the blocked recursion on the card, for the distance
+                between the two.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -33,6 +53,7 @@ before printing any of them.
 """
 
 import csv
+import functools
 import gzip
 import json
 import os
@@ -41,16 +62,22 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DATA_DIR = os.path.join(HERE, 'tests', 'data')
 
-KERNEL_SOURCE = 'recoder_tpu_torch/kernels/fused_decode_loss.cu'
+SOURCES = {
+    'fused_decode_loss_fwd': 'recoder_tpu_torch/kernels/fused_decode_loss.cu',
+    'fused_decode_loss_bwd': 'recoder_tpu_torch/kernels/fused_decode_loss.cu',
+    'spd_solve': 'recoder_tpu_torch/kernels/spd_solve.cu',
+}
 REPLACES = {
     'fused_decode_loss_fwd': 'recoder_tpu/experiments/pallas_loss.py:145',
     'fused_decode_loss_bwd': 'recoder_tpu/experiments/pallas_loss.py:165',
+    'spd_solve': 'recoder_tpu/ops/spd.py:235',
 }
 #: reference values pinned in tests/test_model.py (atol 0.01)
 PINNED = {'Recall@20': 0.1417, 'Recall@50': 0.2393, 'NDCG@100': 0.1684}
@@ -59,6 +86,15 @@ LOSS_RTOL = 1e-4
 GRAD_RTOL = 1e-3
 GRAD_ATOL_FRACTION = 1e-4  # of max |reference|
 PATHS_RTOL = 1e-3
+SPD_ATOL_FRACTION = 1e-4  # of max |x| of the blocked recursion
+SPD_RESIDUAL = 1e-3       # max_i |A x - b| / |b| per system
+#: tools/bench_ials.py's configuration (and fit's default chunk budget)
+IALS_FULL = dict(embedding_size=128, alpha=10.0, lam=3e-3, sweeps=8,
+                 seed=0)
+#: the tests/test_ials.py fixture protocol and its floors
+IALS_FIXTURE = dict(embedding_size=4, alpha=30.0, lam=0.01, sweeps=8,
+                    seed=0)
+IALS_FLOORS = {'Recall@20': 0.080, 'NDCG@100': 0.120}
 
 
 def say(*args):
@@ -87,14 +123,21 @@ def phase_device():
 # -- phase 2 ---------------------------------------------------------------
 
 def phase_build():
+  """Both sources at once, one nvcc each."""
+  from concurrent.futures import ThreadPoolExecutor
+
   from recoder_tpu_torch.kernels import BUILD_LOGS
   from recoder_tpu_torch.ops import fused_decode_loss as fdl
+  from recoder_tpu_torch.ops import spd
   t0 = time.time()
-  fdl._lib()
-  say(f'build: fused_decode_loss in {time.time() - t0:.1f} s')
-  for line in BUILD_LOGS.get('fused_decode_loss', '').splitlines():
-    if 'registers' in line or 'spill' in line or 'Compiling' in line:
-      say('  ' + line.strip())
+  with ThreadPoolExecutor(max_workers=2) as pool:
+    for fut in [pool.submit(fdl._lib), pool.submit(spd._lib)]:
+      fut.result()
+  say(f'build: fused_decode_loss and spd_solve in {time.time() - t0:.1f} s')
+  for name in ('fused_decode_loss', 'spd_solve'):
+    for line in BUILD_LOGS.get(name, '').splitlines():
+      if 'registers' in line or 'spill' in line or 'Compiling' in line:
+        say('  ' + line.strip())
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -395,6 +438,243 @@ def phase_quality(train_m, val_m, device='cuda', epochs=30, atol=0.01):
   return means
 
 
+# -- phase 7 ---------------------------------------------------------------
+
+def ials_systems(B, d, device, seed=0, n_items=20108, L=64, alpha=10.0,
+                 lam=3e-3):
+  """SPD systems as an iALS user half-sweep builds them: the Gram of
+  item factors at the init scale, plus confidence-weighted corrections
+  from L observed items, plus the frequency-scaled ridge."""
+  import torch
+  gen = torch.Generator(device=device).manual_seed(seed)
+  items = torch.randn(n_items, d, device=device, generator=gen) / d ** 0.5
+  cols = torch.randint(0, n_items, (B, L), device=device, generator=gen)
+  counts = torch.randint(1, L + 1, (B,), device=device, generator=gen)
+  valid = (torch.arange(L, device=device) < counts[:, None]).float()
+  f = items[cols] * valid[..., None]
+  w = alpha * valid
+  a = items.t() @ items + torch.einsum('bl,bld,ble->bde', w, f, f)
+  a = a + (lam * (counts + 1.0))[:, None, None] * torch.eye(d, device=device)
+  b = torch.einsum('bl,bld->bd', w + valid, f)
+  return a.contiguous(), b.contiguous()
+
+
+def check_spd(a, b, what):
+  """Kernel against the blocked recursion (base 32, as iALS calls it);
+  returns the max abs error."""
+  import torch
+  from recoder_tpu_torch.ops import spd
+  x = spd.spd_solve_kernel(a, b)
+  ref = spd.spd_solve_blocked(a, b, 32)
+  torch.cuda.synchronize()
+  err = float((x - ref).abs().max())
+  scale = float(ref.abs().max())
+  res = (torch.linalg.vector_norm(torch.einsum('bij,bj->bi', a, x) - b, dim=1)
+         / torch.linalg.vector_norm(b, dim=1))
+  rel = float(res.max())
+  if not (torch.isfinite(x).all() and err <= SPD_ATOL_FRACTION * scale
+          and rel <= SPD_RESIDUAL):
+    raise AssertionError(f'spd_solve {what}: max abs err {err} (max |x| '
+                         f'{scale}), relative residual {rel}')
+  return err, scale, rel
+
+
+def phase_spd(device='cuda', full=(16384, 128)):
+  import torch
+  from recoder_tpu_torch.ops import spd
+  worst = 0.0
+  for B in (1, 37):
+    for d in (1, 7, 64, 128, 130, 200, 256):
+      rng = np.random.default_rng(d)
+      f = rng.standard_normal((B, d + 8, d)).astype(np.float32) / np.sqrt(d)
+      a = np.einsum('blk,blm->bkm', f, f) + 0.05 * np.eye(d)
+      b = rng.standard_normal((B, d)).astype(np.float32)
+      err, scale, _ = check_spd(
+          torch.from_numpy(a.astype(np.float32)).to(device),
+          torch.from_numpy(b).to(device), f'[{B}, {d}]')
+      worst = max(worst, err / scale)
+  say(f'  ragged B in (1, 37) x d in (1, 7, 64, 128, 130, 200, 256): '
+      f'worst max abs err {worst:.3g} of max |x|')
+
+  B, d = full
+  a, b = ials_systems(B, d, device)
+  err, scale, rel = check_spd(a, b, f'iALS shape [{B}, {d}]')
+  say(f'  iALS shape [{B}, {d}]: max abs err {err:.3g} (max |x| '
+      f'{scale:.3g}), worst relative residual {rel:.3g}')
+  # bitwise: a system's x alone, in another batch position, run to run
+  x = spd.spd_solve_kernel(a, b)
+  idx = torch.tensor([5, 0, B - 1, 777], device=device)
+  again = spd.spd_solve_kernel(a, b)
+  sub = spd.spd_solve_kernel(a[idx].contiguous(), b[idx].contiguous())
+  one = spd.spd_solve_kernel(a[777:778].contiguous(),
+                             b[777:778].contiguous())
+  if not (torch.equal(x, again) and torch.equal(sub, x[idx])
+          and torch.equal(one[0], x[777])):
+    raise AssertionError('spd_solve kernel is not bitwise independent of '
+                         'batch position')
+  say('  bitwise equal run to run, alone and at other batch positions')
+
+  def cusolver():
+    l, _ = torch.linalg.cholesky_ex(a)
+    return torch.cholesky_solve(b[..., None], l)
+
+  times = {'kernel': median_ms(lambda: spd.spd_solve_kernel(a, b), reps=10),
+           'blocked': median_ms(lambda: spd.spd_solve_blocked(a, b, 32),
+                                reps=10),
+           'cholesky_ex+cholesky_solve': median_ms(cusolver, reps=10)}
+  say('  time at the iALS shape (median of 10): '
+      + ', '.join(f'{k} {v:.4f} ms' for k, v in times.items()))
+  return err, times
+
+
+# -- phase 8 ---------------------------------------------------------------
+
+def ials_chunks(model, matrix):
+  """Chunks per user and per item half-sweep of ``model``'s plans."""
+  nnz_u = np.diff(matrix.indptr).astype(np.int64)
+  nnz_i = np.bincount(matrix.indices, minlength=matrix.shape[1])
+  return tuple(sum(1 for _ in model._chunk_layout(n.astype(np.int64)))
+               for n in (nnz_u, nnz_i))
+
+
+def check_recommendations(recs, seen, k, n_items):
+  if any(len(r) != k for r in recs):
+    raise AssertionError('recommend returned fewer than k items')
+  for i, r in enumerate(recs):
+    row_seen = seen.indices[seen.indptr[i]:seen.indptr[i + 1]]
+    if (r.min() < 0 or r.max() >= n_items or np.isin(r, row_seen).any()
+        or len(set(r.tolist())) != k):
+      raise AssertionError(f'user {i}: out of range, seen or repeated '
+                           f'recommendations')
+
+
+def phase_ials_slice(matrix, device='cuda'):
+  import torch
+  from recoder_tpu_torch.data import UsersInteractions
+  from recoder_tpu_torch.models import IALS
+  from recoder_tpu_torch.ops import spd
+
+  model = IALS(device=device, **IALS_FULL)
+  sweeps = IALS_FULL['sweeps']
+  n_user_chunks, n_item_chunks = ials_chunks(model, matrix)
+  objectives, sweep_s, objective_s = {}, [], [0.0]
+  clock = [0.0]
+
+  def tick(sweep):
+    torch.cuda.synchronize()
+    sweep_s.append(time.time() - clock[0])
+    if sweep in (0, sweeps - 1):
+      t0 = time.time()
+      objectives[sweep] = model.objective(matrix)
+      objective_s[0] += time.time() - t0
+    clock[0] = time.time()
+
+  spd.LAUNCHES['spd_solve'] = 0
+  t0 = clock[0] = time.time()
+  model.fit(matrix, callback=tick)
+  torch.cuda.synchronize()
+  fit_s = time.time() - t0 - objective_s[0]
+  launches = spd.LAUNCHES['spd_solve']
+  expected = sweeps * (n_user_chunks + n_item_chunks) + n_user_chunks
+  say(f'  fit: {fit_s:.3f} s without the host objective (plan build and '
+      f'final user half-sweep included); sweeps '
+      + ', '.join(f'{t:.3f}' for t in sweep_s) + ' s')
+  say(f'  objective after sweep 1: {objectives[0]:.6g}, after sweep '
+      f'{sweeps}: {objectives[sweeps - 1]:.6g} (host, {objective_s[0]:.1f} s)')
+  if not objectives[sweeps - 1] < objectives[0]:
+    raise AssertionError(f'objective did not fall: {objectives}')
+  say(f'  spd_solve launches: {launches} ({n_user_chunks} user and '
+      f'{n_item_chunks} item chunks per half-sweep)')
+  if launches != expected:
+    raise AssertionError(f'{launches} kernel launches, expected one per '
+                         f'chunk per half-sweep: {expected}')
+  for name in ('user_factors', 'item_factors'):
+    if not torch.isfinite(getattr(model, name)).all():
+      raise AssertionError(f'non-finite {name}')
+
+  users = np.linspace(0, matrix.shape[0] - 1, 500).astype(np.int64)
+  ui = UsersInteractions(users, matrix[users])
+  t0 = time.time()
+  x = model.fold_in(ui)
+  torch.cuda.synchronize()
+  fold_s = time.time() - t0
+  if not torch.equal(x, model.user_factors[torch.from_numpy(users).to(
+      device)]):
+    raise AssertionError('fold-in of training users is not bitwise their '
+                         'stored factors')
+  t0 = time.time()
+  recs = model.recommend(ui, 100)
+  rec_s = time.time() - t0
+  check_recommendations(recs, ui.interactions_matrix, 100, matrix.shape[1])
+  with tempfile.TemporaryDirectory() as tmp:
+    path = model.save(os.path.join(tmp, 'ials.model'))
+    restored = IALS(device=device).load(path)
+  recs2 = restored.recommend(ui, 100)
+  if not all(np.array_equal(p, q) for p, q in zip(recs, recs2)):
+    raise AssertionError('recommendations changed across the checkpoint')
+  say(f'  fold-in of 500 training users: bitwise their stored factors '
+      f'({fold_s:.3f} s); recommend k=100: in range, unseen, no repeats '
+      f'({rec_s:.3f} s), identical after save -> load')
+  return launches, fit_s, sweep_s
+
+
+# -- phase 9 ---------------------------------------------------------------
+
+def phase_ials_quality(train_m, val_m, device='cuda'):
+  import torch
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.metrics import NDCG, Recall, RecommenderEvaluator
+  from recoder_tpu_torch.models import IALS
+  from recoder_tpu_torch.models import ials as ials_lib
+  from recoder_tpu_torch.ops import spd
+  from recoder_tpu_torch.recommender import InferenceRecommender
+
+  val_ds = RecommendationDataset(val_m, train_m)
+  metrics = [Recall(k=20), NDCG(k=100)]
+
+  def evaluate(model):
+    ev = RecommenderEvaluator(InferenceRecommender(model, 100), metrics)
+    res = ev.evaluate(val_ds, batch_size=500)
+    return {str(m): float(np.mean(v)) for m, v in res.items()}
+
+  before = spd.LAUNCHES['spd_solve']
+  t0 = time.time()
+  model = IALS(device=device, **IALS_FIXTURE).fit(train_m)
+  torch.cuda.synchronize()
+  fit_s = time.time() - t0
+  if spd.LAUNCHES['spd_solve'] == before:
+    raise AssertionError('the fixture fit did not launch the kernel')
+  means = evaluate(model)
+  say(f'  kernel: fit {fit_s:.2f} s; ' + ', '.join(
+      f'{k} {v:.4f} (floor {IALS_FLOORS[k]})' for k, v in means.items()))
+  with tempfile.TemporaryDirectory() as tmp:
+    path = model.save(os.path.join(tmp, 'ials.model'))
+    means2 = evaluate(IALS(device=device).load(path))
+  if means2 != means:
+    raise AssertionError(f'metrics changed across the checkpoint: {means} '
+                         f'vs {means2}')
+  short = {k: v for k, v in means.items() if not v > IALS_FLOORS[k]}
+  if short:
+    raise AssertionError(f'iALS fixture quality below the floors: {short}')
+  say('  checkpoint reload: identical metrics')
+
+  blocked = functools.partial(ials_lib.spd_solve, impl='blocked')
+  with mock.patch.object(ials_lib, 'spd_solve', blocked):
+    launches = spd.LAUNCHES['spd_solve']
+    plain = IALS(device=device, **IALS_FIXTURE).fit(train_m)
+    plain_means = evaluate(plain)
+    if spd.LAUNCHES['spd_solve'] != launches:
+      raise AssertionError('the plain-route fit launched the kernel')
+  diff = {name: float((getattr(model, name) - getattr(plain, name))
+                      .abs().max() / getattr(plain, name).abs().max())
+          for name in ('user_factors', 'item_factors')}
+  say(f'  blocked recursion on the card: ' + ', '.join(
+      f'{k} {v:.4f}' for k, v in plain_means.items())
+      + '; kernel vs plain factors, max abs diff / max |plain|: '
+      + ', '.join(f'{k} {v:.3g}' for k, v in diff.items()))
+  return means
+
+
 # -- main ------------------------------------------------------------------
 
 def run(name, fn, *args, **kwargs):
@@ -422,22 +702,31 @@ def main():
   if any(v < 1 for v in launches.values()):
     raise AssertionError(f'the main path did not launch every kernel: '
                          f'{launches}')
-  del matrix
   train_m, val_m = load_fixture()
   run('5 paths', phase_paths, train_m)
   run('6 quality', phase_quality, train_m, val_m)
+  spd_err, spd_times = run('7 spd kernel', phase_spd)
+  launches['spd_solve'], ials_fit_s, ials_sweeps = run(
+      '8 ials slice', phase_ials_slice, matrix)
+  del matrix
+  run('9 ials quality', phase_ials_quality, train_m, val_m)
 
-  kernels = []
-  for name, err, key in (('fused_decode_loss_fwd', loss_err, 'fwd'),
-                         ('fused_decode_loss_bwd', grad_err, 'bwd')):
-    kernels.append({
-        'name': name, 'route': 'cuda', 'source': KERNEL_SOURCE,
-        'replaces': REPLACES[name], 'launches': launches[name],
-        'max_abs_err': err, 'ms': times['kernel'][key],
-        'plain_ms': times['plain'][key]})
+  measured = {
+      'fused_decode_loss_fwd': (loss_err, times['kernel']['fwd'],
+                                times['plain']['fwd']),
+      'fused_decode_loss_bwd': (grad_err, times['kernel']['bwd'],
+                                times['plain']['bwd']),
+      'spd_solve': (spd_err, spd_times['kernel'], spd_times['blocked']),
+  }
+  kernels = [{'name': name, 'route': 'cuda', 'source': SOURCES[name],
+              'replaces': REPLACES[name], 'launches': launches[name],
+              'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
+             for name, (err, ms, plain_ms) in measured.items()]
   say(f'slice: {epoch_rate:.2f} user-batches/s first epoch, steady '
       f'{max(steady):.2f}; fused fwd+bwd {times["kernel"]["fwd_bwd"]:.4f} '
-      f'ms vs plain {times["plain"]["fwd_bwd"]:.4f} ms; card {card}')
+      f'ms vs plain {times["plain"]["fwd_bwd"]:.4f} ms; iALS fit '
+      f'{ials_fit_s:.3f} s, median sweep '
+      f'{statistics.median(ials_sweeps):.3f} s; card {card}')
   say(json.dumps({'kernels': kernels}))
   say(card)
   say(json.dumps({'ok': True, 'device': {

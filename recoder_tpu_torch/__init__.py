@@ -8,7 +8,7 @@ by the differential tests in ``tests/test_torch_*.py``. It imports
 package ``__init__`` imports jax).
 
 Ported so far -- the DynamicAutoencoder training path with full-catalog
-decode, and the serving path it needs:
+decode, the serving path it needs, and iALS:
 
   recoder_tpu/utils.py                  -> recoder_tpu_torch.utils
   recoder_tpu/data/dataset.py           -> recoder_tpu_torch.data.dataset
@@ -26,6 +26,9 @@ decode, and the serving path it needs:
   recoder_tpu/model.py                  -> recoder_tpu_torch.model
   recoder_tpu/metrics.py                -> recoder_tpu_torch.metrics
   recoder_tpu/recommender.py            -> recoder_tpu_torch.recommender
+  recoder_tpu/ops/spd.py                -> recoder_tpu_torch.ops.spd
+                                           + recoder_tpu_torch/kernels/spd_solve.cu
+  recoder_tpu/models/ials.py            -> recoder_tpu_torch.models.ials
 """
 
 __version__ = '0.2.0'

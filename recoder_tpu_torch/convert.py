@@ -11,6 +11,11 @@ Optimizer state follows ``recoder_tpu/optim.py``'s tree
 on the JAX side and ``torch.optim``'s per-parameter state dicts on the
 port's side. The JAX update rules are pinned to torch's
 (``tests/test_optim.py``), so the moments carry over as they are.
+
+iALS factors keep the JAX names too (``user_factors`` [users, d],
+``item_factors`` [items, d]): :func:`ials_factors_from_numpy` puts a
+JAX model's arrays into a port ``IALS``, :func:`ials_factors_to_numpy`
+takes them back out.
 """
 
 import numpy as np
@@ -73,3 +78,28 @@ def opt_state_into_torch(optimizer, named_params, tree, kind):
       state[torch_key] = torch.from_numpy(arr.copy()).to(p.device)
     if kind != 'sgd':
       state['step'] = torch.tensor(float(step), dtype=torch.float32)
+
+
+IALS_KEYS = ('user_factors', 'item_factors')
+
+
+def ials_factors_from_numpy(model, arrays):
+  """Put ``{'user_factors', 'item_factors'}`` numpy arrays into the port
+  ``IALS`` ``model`` as float32 tensors on its device."""
+  for key in IALS_KEYS:
+    setattr(model, key, torch.from_numpy(
+        np.array(arrays[key], np.float32)).to(model.device))
+  model.num_users = int(model.user_factors.shape[0])
+  model.num_items = int(model.item_factors.shape[0])
+  if model.item_factors.shape[1] != model.user_factors.shape[1]:
+    raise ValueError(f'factor widths differ: user '
+                     f'{tuple(model.user_factors.shape)}, item '
+                     f'{tuple(model.item_factors.shape)}')
+  model.embedding_size = int(model.item_factors.shape[1])
+  return model
+
+
+def ials_factors_to_numpy(model):
+  """The port ``IALS`` model's factors as float32 numpy arrays."""
+  return {key: getattr(model, key).detach().float().cpu().numpy()
+          for key in IALS_KEYS}

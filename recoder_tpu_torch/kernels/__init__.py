@@ -10,6 +10,9 @@ source is rebuilt and a stale library is never loaded. The compiler
 writes to a temporary file that is moved into place with ``os.replace``,
 so a process never loads a half-written library.
 
+Each source has a lock of its own, so two sources build at once when
+two threads ask for them.
+
 Nothing here runs at import time: the CPU tests import every module,
 and a machine without a card need not have ``nvcc``.
 """
@@ -27,6 +30,7 @@ NVCC_FLAGS = ('-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _LOCK = threading.Lock()
+_NAME_LOCKS = {}
 _LIBS = {}
 #: name -> the compiler's output (ptxas register / shared-memory report)
 BUILD_LOGS = {}
@@ -43,6 +47,8 @@ def _nvcc():
 def load_library(name):
   """Build (once per process and source) and load ``<name>.cu``."""
   with _LOCK:
+    lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+  with lock:
     lib = _LIBS.get(name)
     if lib is not None:
       return lib
@@ -68,3 +74,4 @@ def load_library(name):
     lib = ctypes.CDLL(out)
     _LIBS[name] = lib
     return lib
+

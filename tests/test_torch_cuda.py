@@ -1,7 +1,9 @@
 """Tests of the port that need a CUDA card: the fused decode-loss
 kernel against its plain PyTorch version at ragged and boundary shapes,
 the wrapper's refusals, and the trainer on the card against the trainer
-on the CPU.
+on the CPU; the SPD-solve kernel against the blocked recursion, its
+batch independence and NaN on an indefinite system, and the iALS fit on
+the card against the fit on the CPU.
 
 Every test skips where ``torch.cuda.is_available()`` is False. The file
 imports neither jax nor the JAX package, so it also runs on a machine
@@ -11,7 +13,9 @@ that has only PyTorch:
 
 Tolerances: loss rtol 1e-4; gradients rtol 1e-3 with an absolute floor
 of 1e-4 times the largest reference entry (float32 FMA sums in another
-order than cuBLAS).
+order than cuBLAS). SPD solve: max abs error within 1e-4 of max |x| of
+the blocked recursion and relative residual |Ax - b| / |b| within 1e-3
+(well-conditioned systems, float32 Cholesky in another order).
 """
 
 import numpy as np
@@ -20,6 +24,7 @@ import scipy.sparse as sp
 import torch
 
 from recoder_tpu_torch.ops import fused_decode_loss as fdl
+from recoder_tpu_torch.ops import spd
 
 pytestmark = pytest.mark.cuda
 
@@ -118,3 +123,103 @@ def test_trainer_on_cuda_matches_cpu(cuda):
     losses[str(device)] = tr.last_epoch_losses
   assert len(losses['cpu']) == 6
   np.testing.assert_allclose(losses['cuda'], losses['cpu'], rtol=1e-4)
+
+
+def _spd_problem(B, d, device, seed=0):
+  """SPD systems as iALS builds them: a Gram of factors at the init
+  scale plus a ridge."""
+  rng = np.random.default_rng(seed)
+  f = rng.standard_normal((B, d + 8, d)).astype(np.float32) / np.sqrt(d)
+  a = np.einsum('blk,blm->bkm', f, f) + 0.05 * np.eye(d, dtype=np.float32)
+  b = rng.standard_normal((B, d)).astype(np.float32)
+  return (torch.from_numpy(a.astype(np.float32)).to(device),
+          torch.from_numpy(b).to(device))
+
+
+@pytest.mark.parametrize('B', [1, 37])
+@pytest.mark.parametrize('d', [1, 7, 64, 128, 130, 200, 256])
+def test_spd_kernel_matches_blocked(cuda, B, d):
+  a, b = _spd_problem(B, d, cuda, seed=d)
+  before = spd.LAUNCHES['spd_solve']
+  x = spd.spd_solve(a, b)
+  assert spd.LAUNCHES['spd_solve'] == before + 1
+  ref = spd.spd_solve(a, b, impl='blocked')
+  assert spd.LAUNCHES['spd_solve'] == before + 1
+  assert x.shape == b.shape
+  err = float((x - ref).abs().max())
+  assert err <= 1e-4 * float(ref.abs().max()), err
+  res = torch.linalg.vector_norm(
+      torch.einsum('bij,bj->bi', a, x) - b, dim=1)
+  rel = res / torch.linalg.vector_norm(b, dim=1)
+  assert float(rel.max()) <= 1e-3
+
+
+def test_spd_kernel_is_batch_independent(cuda):
+  """A system's x is bitwise the same alone, at any position of a batch
+  of 37, and from run to run: fold-in's bit-exact contract rests on it."""
+  a, b = _spd_problem(37, 128, cuda, seed=5)
+  batch = spd.spd_solve_kernel(a, b)
+  np.testing.assert_array_equal(batch.cpu().numpy(),
+                                spd.spd_solve_kernel(a, b).cpu().numpy())
+  for i in (0, 17, 36):
+    alone = spd.spd_solve_kernel(a[i:i + 1].contiguous(),
+                                 b[i:i + 1].contiguous())
+    np.testing.assert_array_equal(alone[0].cpu().numpy(),
+                                  batch[i].cpu().numpy())
+  perm = torch.randperm(37, generator=torch.Generator().manual_seed(0))
+  shuffled = spd.spd_solve_kernel(a[perm.to(cuda)].contiguous(),
+                                  b[perm.to(cuda)].contiguous())
+  np.testing.assert_array_equal(shuffled.cpu().numpy(),
+                                batch[perm.to(cuda)].cpu().numpy())
+
+
+def test_spd_kernel_indefinite_gives_nan(cuda):
+  a, b = _spd_problem(3, 64, cuda, seed=2)
+  a[1] = -a[1]
+  x = spd.spd_solve_kernel(a, b)
+  assert torch.isnan(x[1]).all()
+  assert torch.isfinite(x[0]).all() and torch.isfinite(x[2]).all()
+  assert torch.isnan(spd.spd_solve(a, b, impl='blocked')[1]).all()
+
+
+def test_spd_kernel_refuses_what_it_does_not_take(cuda):
+  a, b = _spd_problem(2, 257, cuda)
+  with pytest.raises(ValueError, match='width'):
+    spd.spd_solve(a, b, impl='kernel')
+  before = spd.LAUNCHES['spd_solve']
+  spd.spd_solve(a, b)  # d > 256 takes the blocked recursion
+  a, b = _spd_problem(2, 16, cuda)
+  spd.spd_solve(a, b[..., None].repeat(1, 1, 3))  # a matrix rhs too
+  assert spd.LAUNCHES['spd_solve'] == before
+  with pytest.raises(ValueError, match='B, d'):
+    spd.spd_solve(a, b[..., None], impl='kernel')
+  with pytest.raises(ValueError, match='contiguous'):
+    spd.spd_solve(a.transpose(1, 2), b, impl='kernel')
+  with pytest.raises(ValueError, match='float32'):
+    spd.spd_solve(a.double(), b.double(), impl='kernel')
+  with pytest.raises(ValueError, match='is on'):
+    spd.spd_solve(a, b.cpu(), impl='kernel')
+
+
+def test_ials_on_cuda_matches_cpu(cuda):
+  """The fit on the card (through the kernel) follows the fit on the CPU
+  (blocked recursion); fold-in of a subset of the training users on the
+  card reproduces their factors bit for bit."""
+  from recoder_tpu_torch.data import UsersInteractions
+  from recoder_tpu_torch.models import IALS
+
+  rng = np.random.default_rng(0)
+  m = sp.csr_matrix((rng.random((300, 120)) < 0.08).astype(np.float32))
+  kw = dict(embedding_size=16, alpha=10.0, lam=0.05, sweeps=3, seed=1)
+  cpu = IALS(**kw).fit(m)
+  before = spd.LAUNCHES['spd_solve']
+  gpu = IALS(device=cuda, **kw).fit(m, chunk_elems=1 << 10)
+  assert spd.LAUNCHES['spd_solve'] > before
+  np.testing.assert_allclose(gpu.item_factors.cpu().numpy(),
+                             cpu.item_factors.numpy(), rtol=1e-3, atol=1e-4)
+  np.testing.assert_allclose(gpu.user_factors.cpu().numpy(),
+                             cpu.user_factors.numpy(), rtol=1e-3, atol=1e-4)
+  users = np.arange(0, 300, 7)
+  ui = UsersInteractions(users, m[users])
+  np.testing.assert_array_equal(gpu.fold_in(ui).cpu().numpy(),
+                                gpu.user_factors[users].cpu().numpy())

@@ -1,6 +1,7 @@
 """The port stands without JAX: with ``jax`` blocked from import, every
-module of ``recoder_tpu_torch`` imports and a tiny training step runs
-on the CPU, and afterwards neither JAX nor the JAX package is loaded."""
+module of ``recoder_tpu_torch`` imports, a tiny training step and a tiny
+iALS fit, fold-in and recommend run on the CPU, and afterwards neither
+JAX nor the JAX package is loaded."""
 
 import os
 import subprocess
@@ -30,6 +31,12 @@ SCRIPT = textwrap.dedent('''
              negative_sampling=True)
     assert len(tr.last_epoch_losses) == 3
     assert all(np.isfinite(tr.last_epoch_losses))
+    from recoder_tpu_torch.data import UsersInteractions
+    from recoder_tpu_torch.models import IALS
+    ials = IALS(embedding_size=4, sweeps=2).fit(m, chunk_elems=1 << 10)
+    ui = UsersInteractions(np.arange(20), m)
+    assert (ials.fold_in(ui) == ials.user_factors).all()
+    assert all(len(r) == 3 for r in ials.recommend(ui, 3))
     loaded = [k for k, v in sys.modules.items() if v is not None and (
         k in ('jax', 'jaxlib', 'recoder_tpu') or k.startswith(
             ('jax.', 'jaxlib.', 'recoder_tpu.')))]
