@@ -45,6 +45,32 @@ It imports nothing of JAX. Phases, each of which raises on failure:
                 identical metrics after a reload; the same fit through
                 the blocked recursion on the card, for the distance
                 between the two.
+ 10. row-scatter kernel -- the kernel against index_copy_ on the card,
+                bitwise, at N in {1, 37, 41,216} x d in {1, 3, 7, 128,
+                200, 256, 1000} x W in {0, 1, 37}, on a misaligned column
+                slice, with a sentinel-duplicate tail, and at the MSD
+                shape (three [41,216, 200] tables, the ids of one MSD
+                block union); untouched rows and data pointers unchanged;
+                device and CUDA-event times of the kernel and of
+                index_copy_ x3.
+ 11. sparse slice -- the sparse-table path at the full width of the MSD
+                configuration (bench.py --dataset msd --sparse: the
+                synthetic 571,355 x 41,140 CSR, DynamicAutoencoder[200]
+                tanh, noise 0.5, sparse=True, logloss, Adam lr 1e-3,
+                weight decay 2e-5, batch 500, negative sampling, block
+                shuffle, float32): one epoch of 1,143 steps with 2
+                row-scatter launches each, then steady epochs
+                (msd_user_batches_per_sec), a profile of steady steps,
+                recommend and a checkpoint round trip.
+ 12. union paths -- 20 steps on the fixture from one init and order,
+                noise off: full decode, the dense union step through the
+                fused kernel on union shapes, the same through the plain
+                MSELoss, and the sparse step; the fused decode-loss
+                kernel timed at an MSD union shape.
+ 13. sparse quality -- the sparse row of tests/test_model.py on the
+                fixture (logloss, 30 epochs, 'users' shuffle, float32)
+                must reach the pinned metrics, identical after a reload
+                into a sparse and into a dense model.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -73,11 +99,13 @@ SOURCES = {
     'fused_decode_loss_fwd': 'recoder_tpu_torch/kernels/fused_decode_loss.cu',
     'fused_decode_loss_bwd': 'recoder_tpu_torch/kernels/fused_decode_loss.cu',
     'spd_solve': 'recoder_tpu_torch/kernels/spd_solve.cu',
+    'row_scatter': 'recoder_tpu_torch/kernels/row_scatter.cu',
 }
 REPLACES = {
     'fused_decode_loss_fwd': 'recoder_tpu/experiments/pallas_loss.py:145',
     'fused_decode_loss_bwd': 'recoder_tpu/experiments/pallas_loss.py:165',
     'spd_solve': 'recoder_tpu/ops/spd.py:235',
+    'row_scatter': 'recoder_tpu/experiments/block_scatter.py:136',
 }
 #: reference values pinned in tests/test_model.py (atol 0.01)
 PINNED = {'Recall@20': 0.1417, 'Recall@50': 0.2393, 'NDCG@100': 0.1684}
@@ -95,6 +123,12 @@ IALS_FULL = dict(embedding_size=128, alpha=10.0, lam=3e-3, sweeps=8,
 IALS_FIXTURE = dict(embedding_size=4, alpha=30.0, lam=0.01, sweeps=8,
                     seed=0)
 IALS_FLOORS = {'Recall@20': 0.080, 'NDCG@100': 0.120}
+#: bench.py --dataset msd --sparse
+MSD_TRAIN = dict(batch_size=500, lr=1e-3, weight_decay=2e-5,
+                 negative_sampling=True, shuffle='blocks')
+SCATTER_NS = (1, 37, 41216)
+SCATTER_DS = (1, 3, 7, 128, 200, 256, 1000)
+SCATTER_WS = (0, 1, 37)
 
 
 def say(*args):
@@ -123,18 +157,20 @@ def phase_device():
 # -- phase 2 ---------------------------------------------------------------
 
 def phase_build():
-  """Both sources at once, one nvcc each."""
+  """Every source at once, one nvcc each."""
   from concurrent.futures import ThreadPoolExecutor
 
   from recoder_tpu_torch.kernels import BUILD_LOGS
   from recoder_tpu_torch.ops import fused_decode_loss as fdl
+  from recoder_tpu_torch.ops import row_scatter as rs
   from recoder_tpu_torch.ops import spd
   t0 = time.time()
-  with ThreadPoolExecutor(max_workers=2) as pool:
-    for fut in [pool.submit(fdl._lib), pool.submit(spd._lib)]:
+  with ThreadPoolExecutor(max_workers=3) as pool:
+    for fut in [pool.submit(lib) for lib in (fdl._lib, spd._lib, rs._lib)]:
       fut.result()
-  say(f'build: fused_decode_loss and spd_solve in {time.time() - t0:.1f} s')
-  for name in ('fused_decode_loss', 'spd_solve'):
+  say(f'build: fused_decode_loss, spd_solve and row_scatter in '
+      f'{time.time() - t0:.1f} s')
+  for name in ('fused_decode_loss', 'spd_solve', 'row_scatter'):
     for line in BUILD_LOGS.get(name, '').splitlines():
       if 'registers' in line or 'spill' in line or 'Compiling' in line:
         say('  ' + line.strip())
@@ -208,6 +244,32 @@ def median_ms(fn, reps=30, warmup=3):
     end.synchronize()
     times.append(start.elapsed_time(end))
   return statistics.median(times)
+
+
+def per_launch_ms(fn, launches=20, reps=10):
+  """Median over ``reps`` of the CUDA-event time of ``launches``
+  back-to-back calls, divided by ``launches``: the device time of one
+  call when the host enqueues faster than the device runs."""
+  return median_ms(lambda: [fn() for _ in range(launches)], reps=reps,
+                   warmup=1) / launches
+
+
+def device_ms(fn, calls=20):
+  """Device time of one call of ``fn``: the sum of the kernels it
+  launches over ``calls`` calls, by torch.profiler, divided by ``calls``
+  (free of the host's time, which ``per_launch_ms`` includes when the
+  host enqueues slower than the device runs)."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(calls):
+      fn()
+    torch.cuda.synchronize()
+  total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if 'CUDA' in str(ev.device_type))
+  return total_us / 1e3 / calls
 
 
 def time_kernel(B, d, W, kind, confidence, device):
@@ -675,6 +737,326 @@ def phase_ials_quality(train_m, val_m, device='cuda'):
   return means
 
 
+# -- phase 10 --------------------------------------------------------------
+
+def scatter_case(N, d, W, device, seed=0, ntables=3):
+  """Tables, ids and rows on the card; a repeated id gets the same
+  payload (the kernel's contract)."""
+  import torch
+  rng = np.random.default_rng(seed)
+  tables = [torch.from_numpy(rng.standard_normal((N, d)).astype(np.float32))
+            .to(device) for _ in range(ntables)]
+  ids = rng.integers(0, N, W).astype(np.int64)
+  rows = [torch.from_numpy(rng.standard_normal((N, d)).astype(np.float32)
+                           [ids]).to(device) for _ in range(ntables)]
+  return tables, torch.from_numpy(ids).to(device), rows
+
+
+def check_scatter(tables, ids, rows, what):
+  """The kernel on copies of ``tables`` against index_copy_, bitwise;
+  untouched rows and data pointers unchanged. Returns the max abs
+  difference (0.0)."""
+  import torch
+  from recoder_tpu_torch.ops import row_scatter as rs
+  kernel = [t.clone() for t in tables]
+  plain = [t.clone() for t in tables]
+  ptrs = [t.data_ptr() for t in kernel]
+  rs.row_scatter_kernel(kernel, ids, rows)
+  rs.row_scatter_plain(plain, ids, rows)
+  torch.cuda.synchronize()
+  err = max(float((a - b).abs().max()) if a.numel() else 0.0
+            for a, b in zip(kernel, plain))
+  untouched = torch.ones(tables[0].shape[0], dtype=torch.bool,
+                         device=ids.device)
+  untouched[ids] = False
+  same = all(torch.equal(a, b) for a, b in zip(kernel, plain))
+  kept = all(torch.equal(a[untouched], t[untouched])
+             for a, t in zip(kernel, tables))
+  if not (same and kept and [t.data_ptr() for t in kernel] == ptrs):
+    raise AssertionError(f'row_scatter {what}: differs from index_copy_ '
+                         f'(max abs {err}) or touched other rows')
+  return err
+
+
+def phase_scatter(msd_ids, device='cuda', d=200):
+  import torch
+  from recoder_tpu_torch.ops import row_scatter as rs
+  worst = 0.0
+  for N in SCATTER_NS:
+    for dd in SCATTER_DS:
+      for W in SCATTER_WS:
+        worst = max(worst, check_scatter(
+            *scatter_case(N, dd, W, device, seed=N + dd + W),
+            f'[{N}, {dd}] W={W}'))
+  base, ids, rows = scatter_case(41216, 201, 37, device, seed=4, ntables=1)
+  sliced = [base[0][:, 1:201]]
+  rows = [rows[0][:, 1:201].contiguous()]
+  if rs.vector_path(sliced, rows):
+    raise AssertionError('a misaligned column slice took the 16-byte path')
+  worst = max(worst, check_scatter(sliced, ids, rows, 'column slice'))
+  say(f'  ragged N x d x W ({len(SCATTER_NS)} x {len(SCATTER_DS)} x '
+      f'{len(SCATTER_WS)}, three tables) and a misaligned column slice: '
+      'bitwise equal to index_copy_, untouched rows and pointers kept')
+
+  # the MSD shape: three tables, the ids of one block union, and the same
+  # ids with a sentinel tail of identical payloads (the JAX layout)
+  rng = np.random.default_rng(11)
+  N = 41216
+  tables = [torch.from_numpy(rng.standard_normal((N, d)).astype(np.float32))
+            .to(device) for _ in range(3)]
+  ids = torch.from_numpy(msd_ids.astype(np.int64)).to(device)
+  rows = [torch.from_numpy(rng.standard_normal((len(msd_ids), d))
+                           .astype(np.float32)).to(device) for _ in range(3)]
+  if not rs.vector_path(tables, rows):
+    raise AssertionError('the MSD shape did not take the 16-byte path')
+  worst = max(worst, check_scatter(tables, ids, rows, 'MSD shape'))
+  tail = torch.cat([ids, torch.full((64,), 41140, device=device)])
+  tail_rows = [torch.cat([r, r[-1:].expand(64, d)]) for r in rows]
+  worst = max(worst, check_scatter(tables, tail, tail_rows,
+                                   'sentinel-duplicate tail'))
+
+  def plain():
+    for t, r in zip(tables, rows):
+      t.index_copy_(0, ids, r)
+
+  def kernel():
+    rs.row_scatter_kernel(tables, ids, rows)
+
+  times = {'kernel': device_ms(kernel), 'plain': device_ms(plain)}
+  wall = {'kernel': per_launch_ms(kernel), 'plain': per_launch_ms(plain)}
+  moved = 3 * 2 * len(msd_ids) * d * 4
+  say(f'  MSD shape: three [{N}, {d}] tables, {len(msd_ids)} ids: bitwise '
+      f'(also with a 64-slot sentinel tail); device time a call (profiler, '
+      f'20 calls) kernel {times["kernel"]:.4f} ms '
+      f'({moved / times["kernel"] / 1e6:.1f} GB/s), index_copy_ x3 '
+      f'{times["plain"]:.4f} ms; CUDA-event time a call (median of 10 x 20 '
+      f'back to back, host included) {wall["kernel"]:.4f} / '
+      f'{wall["plain"]:.4f} ms')
+  return worst, times
+
+
+# -- phase 11 --------------------------------------------------------------
+
+def profile_steps(trainer, steps=10):
+  """torch.profiler over ``steps`` steady sparse steps: the top device
+  kernels and the device-idle share of the window."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  source = trainer._source_cache[2]
+  perm = source.epoch_permutation(trainer.current_epoch)
+  steps = min(steps, source.steps_per_epoch - 3)
+  for s in range(3):  # warm
+    trainer._sparse_step_math(source.build_union_batch(perm, s))
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    t0 = time.time()
+    for s in range(3, 3 + steps):
+      trainer._sparse_step_math(source.build_union_batch(perm, s))
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3
+  events = prof.key_averages()
+  on_device = [ev for ev in events if 'CUDA' in str(ev.device_type)]
+  # a range annotation (e.g. Optimizer.step) is mirrored on the device
+  # timeline over the kernels it launched: count the kernels only
+  host_keys = {ev.key for ev in events if ev not in on_device}
+  rows = sorted(((getattr(ev, 'self_device_time_total', 0) / 1e3,
+                  ev.count, ev.key) for ev in on_device
+                 if ev.key not in host_keys), reverse=True)
+  busy = sum(r[0] for r in rows)
+  say(f'  profile of {steps} steady steps: wall {wall_ms:.3f} ms '
+      f'({wall_ms / steps:.3f} ms/step under the profiler), device kernels '
+      f'{busy:.3f} ms ({busy / steps:.3f} ms/step), device idle '
+      f'{100 * (1 - busy / wall_ms):.1f}% of the profiled window')
+  for ms, count, key in rows[:12]:
+    say(f'    {ms:9.3f} ms  {count:5d}x  {key[:90]}')
+  return wall_ms / steps, busy / steps, rows
+
+
+def phase_sparse_slice(matrix, device='cuda', epochs_timed=2):
+  import torch
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  from recoder_tpu_torch.ops import row_scatter as rs
+
+  dataset = RecommendationDataset(matrix)
+  trainer = Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                       sparse=True),
+                    optimizer_type='adam', loss='logloss', device=device)
+  torch.cuda.reset_peak_memory_stats()
+  rs.LAUNCHES['row_scatter'] = 0
+  t0 = time.time()
+  trainer.train(dataset, num_epochs=1, **MSD_TRAIN)
+  torch.cuda.synchronize()
+  first_call_s = time.time() - t0
+  launches = rs.LAUNCHES['row_scatter']
+
+  steps = -(-matrix.shape[0] // 500)
+  losses = np.asarray(trainer.last_epoch_losses)
+  if len(losses) != steps:
+    raise AssertionError(f'epoch ran {len(losses)} steps, not {steps}')
+  if launches != 2 * steps:
+    raise AssertionError(f'{launches} row-scatter launches in {steps} steps,'
+                         ' expected 2 a step')
+  if not np.all(np.isfinite(losses)):
+    raise AssertionError('non-finite training loss')
+  widths = np.diff(trainer._source_cache[2]._block_unions()['ptr'])
+  epoch_rate = steps / trainer.last_epoch_seconds
+  say(f'  epoch 1: {steps} steps in {trainer.last_epoch_seconds:.3f} s = '
+      f'{epoch_rate:.2f} user-batches/s (first call {first_call_s:.1f} s '
+      f'with the block-union build); mean loss {losses.mean():.4f}; '
+      f'{launches} row-scatter launches')
+  say(f'  union widths: mean {widths.mean():.1f}, min {widths.min()}, max '
+      f'{widths.max()} over {len(widths)} blocks')
+
+  rates, means = [], [float(losses.mean())]
+  for epoch in range(2, epochs_timed + 2):
+    trainer.train(dataset, num_epochs=epoch, **MSD_TRAIN)
+    rates.append(len(trainer.last_epoch_losses)
+                 / trainer.last_epoch_seconds)
+    means.append(float(np.mean(trainer.last_epoch_losses)))
+  if not (np.all(np.isfinite(means)) and means[-1] < means[0]):
+    raise AssertionError(f'the epoch loss did not fall: {means}')
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  say(f'  steady epochs: msd_user_batches_per_sec '
+      f'{", ".join(f"{r:.2f}" for r in rates)}; epoch mean loss '
+      + ' -> '.join(f'{m:.4f}' for m in means)
+      + f'; peak device memory {peak:.2f} GiB')
+  step_ms, busy_ms, _ = profile_steps(trainer)
+  steady_ms = 1e3 / max(rates)
+  say(f'  steady step {steady_ms:.3f} ms without the profiler: the device '
+      f'idle ~{100 * (1 - busy_ms / steady_ms):.1f}% of it')
+
+  users, _ = dataset[np.arange(500)]
+  recs = trainer.recommend(users, 100)
+  check_recommendations([np.asarray(r) for r in recs],
+                        users.interactions_matrix, 100, matrix.shape[1])
+  with tempfile.TemporaryDirectory() as tmp:
+    path = trainer.save_state(os.path.join(tmp, 'msd'))
+    restored = Recoder(DynamicAutoencoder(sparse=True), device=device)
+    restored.init_from_model_file(path)
+    recs2 = restored.recommend(users, 100)
+  if recs != recs2:
+    raise AssertionError('recommendations changed across the checkpoint')
+  say('  recommend k=100 for 500 users: in range, unseen, no repeats, '
+      'identical after save_state -> init_from_model_file')
+  return launches, epoch_rate, rates, step_ms, busy_ms, widths
+
+
+# -- phase 12 --------------------------------------------------------------
+
+def phase_union_paths(train_m, msd_width, device='cuda', steps=20):
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  from recoder_tpu_torch.ops import fused_decode_loss as fdl
+  from recoder_tpu_torch.ops import row_scatter as rs
+  from recoder_tpu_torch.ops.losses import MSELoss
+
+  dataset = RecommendationDataset(train_m)
+  paths = {
+      'full decode': (False, 'mse', True),
+      'dense union, kernel': (False, 'mse', False),
+      'dense union, plain': (False, MSELoss(confidence=3, reduction='sum'),
+                             False),
+      'sparse': (True, 'mse', False),
+  }
+  losses, counts = {}, {}
+  for name, (sparse, loss, fd) in paths.items():
+    trainer = Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.0,
+                                         sparse=sparse),
+                      optimizer_type='adam', loss=loss,
+                      loss_params={'confidence': 3} if loss == 'mse'
+                      else None, device=device)
+    for k in fdl.LAUNCHES:
+      fdl.LAUNCHES[k] = 0
+    rs.LAUNCHES['row_scatter'] = 0
+    trainer.train(dataset, batch_size=500, lr=1e-3, weight_decay=2e-5,
+                  negative_sampling=True, shuffle='users', num_epochs=1,
+                  iters_per_epoch=steps, full_decode=fd)
+    counts[name] = {**fdl.LAUNCHES, **rs.LAUNCHES}
+    losses[name] = np.asarray(trainer.last_epoch_losses)
+    if len(losses[name]) != steps or not np.all(np.isfinite(losses[name])):
+      raise AssertionError(f'{name}: {losses[name]}')
+  ref = losses['full decode']
+  rel = {name: np.abs(l - ref) / np.abs(ref) for name, l in losses.items()}
+  for name in ('dense union, kernel', 'dense union, plain'):
+    if not np.all(rel[name] <= PATHS_RTOL):
+      raise AssertionError(f'{name} vs full decode: max rel '
+                           f'{rel[name].max()} ({losses[name]} vs {ref})')
+  sp_l = losses['sparse']
+  if not (rel['sparse'][0] <= PATHS_RTOL
+          and sp_l[-5:].mean() < sp_l[:5].mean()):
+    raise AssertionError(f'sparse: first step rel {rel["sparse"][0]}, '
+                         f'losses {sp_l}')
+  want = {'dense union, kernel': ('fused_decode_loss_fwd', steps),
+          'sparse': ('row_scatter', 2 * steps)}
+  for name, (kernel, n) in want.items():
+    if counts[name][kernel] != n:
+      raise AssertionError(f'{name}: {counts[name]}')
+  if counts['dense union, plain']['fused_decode_loss_fwd']:
+    raise AssertionError('the plain MSELoss path launched the kernel')
+  for name in paths:
+    say(f'  {name:20s}: loss {losses[name][0]:.5f} -> {losses[name][-1]:.5f}'
+        f', max rel vs full decode {rel[name].max():.3g} (step 1 '
+        f'{rel[name][0]:.3g}); launches {counts[name]}')
+  times = time_kernel(500, 200, msd_width, 'mse', 3.0, device)
+  for name in ('kernel', 'plain'):
+    t = times[name]
+    say(f'  time {name:6s} mse c=3 [500, 200, {msd_width}] (an MSD union): '
+        f'fwd {t["fwd"]:.4f} ms, bwd {t["bwd"]:.4f} ms, fwd+bwd '
+        f'{t["fwd_bwd"]:.4f} ms (median)')
+  return rel, times
+
+
+# -- phase 13 --------------------------------------------------------------
+
+def phase_sparse_quality(train_m, val_m, device='cuda', epochs=30,
+                         atol=0.01):
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.metrics import NDCG, Recall
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+
+  train_ds = RecommendationDataset(train_m)
+  val_ds = RecommendationDataset(val_m, train_m)
+  trainer = Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                       sparse=True),
+                    optimizer_type='adam', loss='logloss', device=device)
+  t0 = time.time()
+  trainer.train(train_ds, batch_size=500, lr=1e-3, weight_decay=2e-5,
+                num_epochs=epochs, negative_sampling=True, shuffle='users')
+  train_s = time.time() - t0
+  metrics = [Recall(k=20), Recall(k=50), NDCG(k=100)]
+
+  def evaluate(tr):
+    res = tr._evaluate(val_ds, 100, metrics, batch_size=500)
+    return {str(m): float(np.mean(v)) for m, v in res.items()}
+
+  means = evaluate(trainer)
+  say(f'  {epochs} epochs in {train_s:.1f} s; '
+      + ', '.join(f'{k} {v:.4f} (pinned {PINNED[k]})'
+                  for k, v in means.items()))
+  with tempfile.TemporaryDirectory() as tmp:
+    path = trainer.save_state(os.path.join(tmp, 'sparse'))
+    for sparse in (True, False):
+      restored = Recoder(DynamicAutoencoder(sparse=sparse), device=device)
+      restored.init_from_model_file(path)
+      again = evaluate(restored)
+      if again != means:
+        raise AssertionError(f'metrics changed across the checkpoint into '
+                             f'a {"sparse" if sparse else "dense"} model: '
+                             f'{means} vs {again}')
+  misses = {k: v for k, v in means.items() if abs(v - PINNED[k]) > atol}
+  if misses:
+    raise AssertionError(f'quality outside atol {atol} of the pinned '
+                         f'values: {misses}')
+  say('  checkpoint reload into a sparse and a dense model: identical '
+      'metrics')
+  return means
+
+
 # -- main ------------------------------------------------------------------
 
 def run(name, fn, *args, **kwargs):
@@ -711,12 +1093,29 @@ def main():
   del matrix
   run('9 ials quality', phase_ials_quality, train_m, val_m)
 
+  t0 = time.time()
+  msd = bench.synthesize(bench.MSD_USERS, bench.MSD_ITEMS,
+                         bench.MSD_MEAN_ITEMS_PER_USER, mean_factor=0.68)
+  msd_ids = np.unique(msd.indices[msd.indptr[0]:msd.indptr[500]])
+  say(f'MSD-shaped CSR {msd.shape}, nnz {msd.nnz:,} '
+      f'({time.time() - t0:.1f} s)')
+  scatter_err, scatter_times = run('10 row-scatter kernel', phase_scatter,
+                                   msd_ids)
+  (launches['row_scatter'], msd_first, msd_rates, msd_step_ms, msd_busy_ms,
+   widths) = run('11 sparse slice', phase_sparse_slice, msd)
+  del msd
+  _, union_times = run('12 union paths', phase_union_paths, train_m,
+                       int(round(widths.mean())))
+  run('13 sparse quality', phase_sparse_quality, train_m, val_m)
+
   measured = {
       'fused_decode_loss_fwd': (loss_err, times['kernel']['fwd'],
                                 times['plain']['fwd']),
       'fused_decode_loss_bwd': (grad_err, times['kernel']['bwd'],
                                 times['plain']['bwd']),
       'spd_solve': (spd_err, spd_times['kernel'], spd_times['blocked']),
+      'row_scatter': (scatter_err, scatter_times['kernel'],
+                      scatter_times['plain']),
   }
   kernels = [{'name': name, 'route': 'cuda', 'source': SOURCES[name],
               'replaces': REPLACES[name], 'launches': launches[name],
@@ -726,7 +1125,14 @@ def main():
       f'{max(steady):.2f}; fused fwd+bwd {times["kernel"]["fwd_bwd"]:.4f} '
       f'ms vs plain {times["plain"]["fwd_bwd"]:.4f} ms; iALS fit '
       f'{ials_fit_s:.3f} s, median sweep '
-      f'{statistics.median(ials_sweeps):.3f} s; card {card}')
+      f'{statistics.median(ials_sweeps):.3f} s; MSD sparse first epoch '
+      f'{msd_first:.2f}, steady msd_user_batches_per_sec '
+      f'{max(msd_rates):.2f} ({msd_step_ms:.3f} ms a profiled step, '
+      f'{msd_busy_ms:.3f} ms of it on the device); row_scatter '
+      f'{scatter_times["kernel"]:.4f} vs index_copy_ x3 '
+      f'{scatter_times["plain"]:.4f} ms; fused fwd+bwd at an MSD union '
+      f'{union_times["kernel"]["fwd_bwd"]:.4f} vs plain '
+      f'{union_times["plain"]["fwd_bwd"]:.4f} ms; card {card}')
   say(json.dumps({'kernels': kernels}))
   say(card)
   say(json.dumps({'ok': True, 'device': {

@@ -12,6 +12,16 @@ on the JAX side and ``torch.optim``'s per-parameter state dicts on the
 port's side. The JAX update rules are pinned to torch's
 (``tests/test_optim.py``), so the moments carry over as they are.
 
+Sparse tables: the JAX package pads a sparse model's embedding tables
+and their row-sparse Adam moments to 128 feature lanes ([N, 256] at
+d0 = 200; ``models/base.py`` ``pad_features``), the port keeps them
+[N, d0]. :func:`fit_table` cuts a padded checkpoint array to the
+port's width and raises if a pad column holds anything but zeros; a port
+checkpoint's [N, d0] arrays load into JAX through its ``_adapt_array``,
+which pads them again. The row-sparse Adam state converts with
+:func:`sparse_state_from_numpy` / :func:`sparse_state_to_numpy`
+(``{table: {'step': int32, 'm': array, 'v': array}}``).
+
 iALS factors keep the JAX names too (``user_factors`` [users, d],
 ``item_factors`` [items, d]): :func:`ials_factors_from_numpy` puts a
 JAX model's arrays into a port ``IALS``, :func:`ials_factors_to_numpy`
@@ -78,6 +88,42 @@ def opt_state_into_torch(optimizer, named_params, tree, kind):
       state[torch_key] = torch.from_numpy(arr.copy()).to(p.device)
     if kind != 'sgd':
       state['step'] = torch.tensor(float(step), dtype=torch.float32)
+
+
+def fit_table(name, shape, arr):
+  """A float32 copy of a checkpoint array for a parameter or moment of
+  ``shape``: as it is, or with a JAX sparse table's zero feature pad cut
+  off."""
+  arr = np.array(arr, np.float32)
+  if (arr.ndim == 2 and len(shape) == 2 and arr.shape[0] == shape[0]
+      and arr.shape[1] > shape[1]):
+    if np.any(arr[:, shape[1]:]):
+      raise ValueError(f'{name}: the feature pad beyond column {shape[1]} '
+                       'is not zero')
+    arr = np.ascontiguousarray(arr[:, :shape[1]])
+  if arr.shape != tuple(shape):
+    raise ValueError(f'checkpoint array {name} has shape {arr.shape}, '
+                     f'the model expects {tuple(shape)}')
+  return arr
+
+
+def sparse_state_from_numpy(tree, table):
+  """One table's row-sparse Adam state from the JAX tree ``{'step', 'm',
+  'v'}``, as float32 tensors beside ``table``."""
+  shape = tuple(table.shape)
+  return {'step': int(np.asarray(tree['step'])),
+          **{k: torch.from_numpy(fit_table(f'sparse_optimizer/{k}', shape,
+                                           tree[k])).to(table.device)
+             for k in ('m', 'v')}}
+
+
+def sparse_state_to_numpy(states):
+  """``{table: {'step', 'm', 'v'}}`` as the JAX tree: int32 step,
+  float32 moments."""
+  return {path: {'step': np.asarray(st['step'], np.int32),
+                 'm': st['m'].detach().float().cpu().numpy(),
+                 'v': st['v'].detach().float().cpu().numpy()}
+          for path, st in states.items()}
 
 
 IALS_KEYS = ('user_factors', 'item_factors')

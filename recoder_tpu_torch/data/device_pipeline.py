@@ -1,32 +1,62 @@
-"""On-device training data for full-decode steps: a resident dense slab.
+"""On-device training data: a resident dense slab, or item-union batches.
 
-Port of the part of ``recoder_tpu/data/device_pipeline.py``'s
-``DeviceDataSource`` that full decode uses. In full-decode mode a
-user's dense input row spans the whole padded catalog and does not
-depend on which batch the user lands in, so the whole densified matrix
-``[num_users_padded, num_items_padded]`` is built on the device once
-(``maybe_cache_slabs``) and each step fetches its ``batch_size`` rows:
-one contiguous slice in 'blocks' mode, one row gather in 'users' mode
-(``build_fd_batch``, the JAX ``_build_fd_from_cache``). Storage is
-bf16 when every stored value round-trips exactly (binary data always
-does), else float32; the step upcasts, so the values -- and the
+Port of the parts of ``recoder_tpu/data/device_pipeline.py``'s
+``DeviceDataSource`` that the port's training paths use.
+
+**Full decode** (``maybe_cache_slabs``, ``build_fd_batch``, the JAX
+``_build_fd_from_cache``): a user's dense input row spans the whole
+padded catalog and does not depend on which batch the user lands in, so
+the whole densified matrix ``[num_users_padded, num_items_padded]`` is
+built on the device once and each step fetches its ``batch_size`` rows:
+one contiguous slice in 'blocks' mode, one row gather in 'users' mode.
+Storage is bf16 when every stored value round-trips exactly (binary data
+always does), else float32; the step upcasts, so the values -- and the
 gradients -- are those of a float32 slab. At the ML-20M shape the slab
 is 117,000 x 20,224 bf16, about 4.7 GB.
+
+**Item-union batches** (``prepare_union``, ``build_union_batch``: the
+negative-sampling union of the reference's collator, ``np.unique(cols,
+return_inverse=True)`` over the batch's interactions). Each step gives
+the batch's sorted item union and its interactions as (row, compressed
+column, value) triplets:
+
+  * 'blocks' mode keeps users in fixed contiguous blocks, so every
+    block's union is epoch-invariant and is computed once on the host
+    (the JAX ``_block_tables``). The compressed column and the row of
+    each interaction are stored aligned with the CSR, so a step serves
+    three contiguous device slices (the JAX precomputed branch of
+    ``build_batch``);
+  * 'users' mode draws fresh users each step: their CSR ranges are
+    gathered on the device and the union is ``torch.unique(sorted=True,
+    return_inverse=True)`` over the gathered columns (the semantics of
+    the JAX ``_unique_union`` / ``_build_epoch_tables``).
+
+The JAX package pads every union to a static width with a sentinel item
+and every interaction list to a static nnz budget, and rebuilds the
+source with larger budgets when a batch overflows them: XLA needs static
+shapes. Each step here has its exact sizes, so nothing overflows and
+nothing is rebuilt. The sentinel slots contribute exactly zero in JAX
+(zero input column, masked loss column, zero gradient that leaves a
+zero-moment row unchanged under Adam), so exact widths change no number
+beyond reduction order.
+
+**Epoch order.** 'users' mode draws the order as the JAX package does
+(``_host_epoch_perm``): numpy ``default_rng([seed + 1, epoch])``, then
+the pad users, so both train the same epochs. 'blocks' mode shuffles
+the block order with a ``torch.Generator``; JAX draws it with
+``jax.random.permutation``, which torch cannot reproduce, so tests
+inject it.
 
 Differences from the JAX source, on purpose:
   * no fallback: a slab that is not eligible, or does not fit the
     'auto' memory budget, raises (the JAX source falls back to a
     per-step triplet scatter, which the port does not have);
   * the slab request is recorded when a cached slab is reused (the
-    JAX source's reuse path returns without updating ``_slab_request``);
-  * the epoch permutation comes from a ``torch.Generator`` (the JAX
-    package draws it with ``jax.random``; the two streams differ, so
-    tests inject permutations).
+    JAX source's reuse path returns without updating ``_slab_request``).
 
-Not ported yet: the union (gathered) batch build and its overflow
-budgets, users-mode per-epoch tables, the packed 1-bit slab tier,
-random extra negatives, dual (target) CSRs, mega-batches wider than one
-compute batch, and mesh sharding.
+Not ported yet: the packed 1-bit slab tier, random extra negatives, dual
+(target) CSRs, mega-batches wider than one compute batch, and mesh
+sharding.
 """
 
 import logging
@@ -51,14 +81,15 @@ class DeviceDataSource:
     shuffle (str): 'users' draws every batch as a fresh random user
       subset; 'blocks' keeps users in fixed contiguous blocks and
       shuffles the block order each epoch.
-    device: where the slab lives.
+    device: where the slab and the union arrays live.
+    seed (int): seed of the epoch orders.
   """
 
   #: fraction of the device's free memory the 'auto' request may claim
   SLAB_CACHE_MEMORY_FRACTION = 0.5
 
   def __init__(self, matrix, batch_size, num_sampling_users, num_items,
-               shuffle='users', device='cpu'):
+               shuffle='users', device='cpu', seed=0):
     if shuffle not in ('users', 'blocks'):
       raise ValueError(f'shuffle={shuffle!r}: expected users or blocks')
     if num_sampling_users != batch_size:
@@ -81,9 +112,15 @@ class DeviceDataSource:
     self.n_pad = math.ceil(self.num_users_total / self.mega) * self.mega
     self.n_blocks = self.n_pad // self.mega
 
+    self.seed = int(seed)
+    self.binary = bool(np.all(matrix.data == 1.0))
+
     self.d_slab = None
     self._slab_width = None
     self._slab_request = None  # the request that established the cache
+
+    self._host_tables = None  # blocks mode: per-block unions (numpy)
+    self._union = None  # device arrays of the union path
 
   # -- resident dense slab ------------------------------------------------
 
@@ -164,22 +201,27 @@ class DeviceDataSource:
 
   # -- per-epoch order and per-step batches -------------------------------
 
-  def epoch_permutation(self, generator):
-    """Per-epoch shuffle (a CPU int64 tensor): shuffled user ids padded
-    with the pad users ('users'), or shuffled block indices ('blocks').
+  def epoch_permutation(self, epoch):
+    """Epoch ``epoch``'s order (a CPU int64 tensor): shuffled user ids
+    padded with the pad users ('users'), or shuffled block indices
+    ('blocks').
 
-    The partially filled tail block is pinned to the last slot: the
-    epoch's ``ceil(num_users / batch_size)`` steps cover every real
-    user only if the block whose trailing rows are padding is the one
-    the last step takes."""
+    'users' mode draws it as the JAX ``_host_epoch_perm`` does, so the
+    two packages train the same epochs. The partially filled tail block
+    is pinned to the last slot: the epoch's ``ceil(num_users /
+    batch_size)`` steps cover every real user only if the block whose
+    trailing rows are padding is the one the last step takes."""
     if self.shuffle == 'blocks':
+      generator = torch.Generator().manual_seed(
+          ((self.seed + 1) << 32) + int(epoch))
       if self.n_pad > self.num_users_total and self.n_blocks > 1:
         head = torch.randperm(self.n_blocks - 1, generator=generator)
         return torch.cat([head, torch.tensor([self.n_blocks - 1])])
       return torch.randperm(self.n_blocks, generator=generator)
-    perm = torch.randperm(self.num_users_total, generator=generator)
-    pad = torch.arange(self.num_users_total, self.n_pad)
-    return torch.cat([perm, pad])
+    rng = np.random.default_rng([self.seed + 1, int(epoch)])
+    return torch.from_numpy(np.concatenate(
+        [rng.permutation(self.num_users_total),
+         np.arange(self.num_users_total, self.n_pad)]).astype(np.int64))
 
   def build_fd_batch(self, perm, step_idx):
     """Step ``step_idx``'s full-decode payload off the slab.
@@ -203,4 +245,118 @@ class DeviceDataSource:
       slab = self.d_slab.index_select(0, idx)
     num_users = int(torch.sum(users < n))
     return {'slab': slab, 'users': torch.clamp(users, max=n),
+            'num_users': float(max(num_users, 1))}
+
+  # -- item-union batches ---------------------------------------------------
+
+  def _block_unions(self):
+    """The per-block unions of 'blocks' mode, on the host, computed once
+    (the JAX ``_block_tables``): for each fixed block of users,
+    ``np.unique(cols, return_inverse=True)`` over its interactions.
+
+    Returns ``{'cols': compressed column of every interaction, 'rows':
+    its user's row within the block (both aligned with the CSR),
+    'unions': the blocks' unions concatenated, 'ptr': block b's union
+    is unions[ptr[b]:ptr[b + 1]]}``."""
+    if self._host_tables is None:
+      m, S, n = self.matrix, self.mega, self.num_users_total
+      indptr = m.indptr.astype(np.int64)
+      cols = np.empty(m.nnz, np.int64)
+      unions = []
+      ptr = np.zeros(self.n_blocks + 1, np.int64)
+      for b in range(self.n_blocks):
+        lo, hi = indptr[b * S], indptr[min((b + 1) * S, n)]
+        u, inv = np.unique(m.indices[lo:hi], return_inverse=True)
+        cols[lo:hi] = inv
+        unions.append(u.astype(np.int64))
+        ptr[b + 1] = ptr[b] + len(u)
+      rows = np.repeat(np.arange(n, dtype=np.int64) % S, np.diff(indptr))
+      self._host_tables = {
+          'cols': cols, 'rows': rows, 'ptr': ptr,
+          'unions': (np.concatenate(unions) if unions
+                     else np.zeros(0, np.int64))}
+    return self._host_tables
+
+  def union_width(self):
+    """The union width by which the JAX trainer's 'auto' rule picks full
+    decode (``num_items_padded <= 4 * union_width``): the largest block
+    union aligned up to 128 in 'blocks' mode (the JAX ``_block_tables``
+    width), the largest union of four sampled random user windows with
+    an 8% margin, aligned up to 256, in 'users' mode (the JAX loader's
+    ``_estimate_widths``)."""
+    if self.shuffle == 'blocks':
+      w = int(np.diff(self._block_unions()['ptr']).max(initial=1))
+      return (w + 127) // 128 * 128
+    m, n = self.matrix, self.num_users_total
+    rng = np.random.default_rng(1234)
+    widest = 1
+    for _ in range(4):
+      idx = rng.choice(n, size=min(self.mega, n), replace=False)
+      cols = [m.indices[m.indptr[i]:m.indptr[i + 1]] for i in idx]
+      if cols:
+        widest = max(widest, len(np.unique(np.concatenate(cols))))
+    return (int(widest * 1.08) + 255) // 256 * 256
+
+  def prepare_union(self):
+    """Put on the device, once, what the union batches read: the
+    per-block compressed columns, rows and unions ('blocks'), or the
+    CSR columns ('users'); and the values unless they are all ones."""
+    if self._union is not None:
+      return
+    m = self.matrix
+    arrays = {}
+    if not self.binary:
+      arrays['vals'] = m.data.astype(np.float32)
+    if self.shuffle == 'blocks':
+      t = self._block_unions()
+      arrays.update(cols=t['cols'], rows=t['rows'], unions=t['unions'])
+    else:
+      arrays['cols'] = m.indices.astype(np.int64)
+      indptr = m.indptr.astype(np.int64)
+      # per-user nnz and CSR start; the pad users' slot n holds 0 and 0
+      self._counts = np.append(np.diff(indptr), 0)
+      self._starts = np.append(indptr[:-1], 0)
+    self._union = {k: torch.from_numpy(v).to(self.device)
+                   for k, v in arrays.items()}
+
+  def build_union_batch(self, perm, step_idx):
+    """Step ``step_idx``'s item-union batch.
+
+    Returns ``{'items': [W] the batch's item union, ascending, on the
+    device; 'rows', 'cols', 'vals': [nnz] row in the batch, index into
+    items and value of each interaction, on the device; 'users': [B] CPU
+    user ids (pad slots hold num_users); 'num_users': valid user count
+    as a float, at least 1}``. The union holds exactly the items the
+    batch's users touched.
+    """
+    self.prepare_union()
+    B, n = self.batch_size, self.num_users_total
+    arrays, dev = self._union, self.device
+    indptr = self.matrix.indptr
+    if self.shuffle == 'blocks':
+      b = int(perm[step_idx])
+      lo = b * self.mega
+      s, e = int(indptr[lo]), int(indptr[min(lo + B, n)])
+      ptr = self._host_tables['ptr']
+      items = arrays['unions'][int(ptr[b]):int(ptr[b + 1])]
+      rows, cols = arrays['rows'][s:e], arrays['cols'][s:e]
+      users = torch.arange(lo, lo + B)
+      src = slice(s, e)
+    else:
+      users = perm[step_idx * B:(step_idx + 1) * B]
+      u = np.minimum(users.numpy(), n)
+      counts, starts = self._counts[u], self._starts[u]
+      nnz = int(counts.sum())
+      adjust = torch.from_numpy(starts - (np.cumsum(counts) - counts))
+      rows = torch.repeat_interleave(
+          torch.arange(B, device=dev), torch.from_numpy(counts).to(dev),
+          output_size=nnz)
+      src = adjust.to(dev)[rows] + torch.arange(nnz, device=dev)
+      items, cols = torch.unique(arrays['cols'][src], sorted=True,
+                                 return_inverse=True)
+    vals = (arrays['vals'][src] if 'vals' in arrays
+            else torch.ones(rows.shape[0], device=dev))
+    num_users = int(torch.sum(users < n))
+    return {'items': items, 'rows': rows, 'cols': cols, 'vals': vals,
+            'users': torch.clamp(users, max=n),
             'num_users': float(max(num_users, 1))}

@@ -1,36 +1,49 @@
 """The Recoder trainer: train / evaluate / predict / recommend / checkpoint.
 
-Port of ``recoder_tpu/model.py``'s dense full-decode training path and
-the serving path it needs:
+Port of ``recoder_tpu/model.py``'s training paths for the autoencoder
+and the serving path they need. A negative-sampling step takes one of
+three paths (``train(full_decode=...)``, the JAX rule):
 
-  * each step fetches ``batch_size`` rows of the resident dense slab
-    (``data/device_pipeline.py``), encodes them with one matmul, and
-    decodes against the WHOLE decoder table; the loss is masked to the
-    columns the batch touched (``any(slab != 0)``, mini-batch negative
-    sampling) and to the logical catalog, summed, and divided by the
-    number of valid users (JAX ``_forward_loss``, full-decode branch);
-  * for 'mse' and 'logistic' the decode and the loss are one fused
-    CUDA kernel (``ops/fused_decode_loss.py``); 'logloss' and custom
-    ``Loss`` instances decode with a matmul and take the loss from
-    ``ops/losses.py``, as in JAX;
-  * Adam and the other optimizers are ``torch.optim`` with the JAX
-    package's rules (``optim.py``);
-  * MultiStepLR(gamma=0.1) with the reference's epoch-start quirk, and
-    ``train`` resuming from ``current_epoch`` inclusive;
-  * ``recommend``: full-catalog scores, seen items and pad columns set
-    to -inf, then ``torch.topk``;
-  * npz checkpoints in the JAX package's format.
+  * **full decode**: the step fetches ``batch_size`` rows of the
+    resident dense slab (``data/device_pipeline.py``), encodes them with
+    one matmul and decodes against the WHOLE decoder table; the loss is
+    masked to the columns the batch touched (``any(slab != 0)``) and to
+    the logical catalog, summed, and divided by the number of valid
+    users (JAX ``_forward_loss``, full-decode branch);
+  * **dense union**: the step densifies its interactions over the
+    batch's item union, gathers the union's table rows with
+    ``index_select`` (whose backward scatters into the whole tables) and
+    every parameter takes a ``torch.optim`` step;
+  * **sparse** (``DynamicAutoencoder(sparse=True)``): the union rows of
+    the embedding tables are gathered as leaves, the dense optimizer
+    steps the other parameters, and row-sparse Adam (``optim.py``
+    ``SparseRowAdam``) updates the touched rows of each table and its
+    moments, written back in place through the row-scatter kernel
+    (JAX ``_sparse_step_math``).
+
+For 'mse' and 'logistic' the decode and the loss are one fused CUDA
+kernel (``ops/fused_decode_loss.py``), over the whole table or the
+union's rows; 'logloss' and custom ``Loss`` instances decode with a
+matmul and take the loss from ``ops/losses.py``, as in JAX. Adam and the
+other optimizers are ``torch.optim`` with the JAX package's rules
+(``optim.py``); MultiStepLR(gamma=0.1) keeps the reference's epoch-start
+quirk, and ``train`` resumes from ``current_epoch`` inclusive.
+``recommend`` scores the full catalog, sets seen items and pad columns
+to -inf and takes ``torch.topk``. Checkpoints are npz files in the JAX
+package's format, sparse ones included.
 
 Randomness comes from explicit generators: the init from a CPU
-generator seeded with ``seed``, each epoch's permutation from a CPU
-generator seeded with ``(seed, epoch)``, each step's dropout from a
-generator on the device seeded with ``(seed, global step)``.
+generator seeded with ``seed``, each epoch's order from the data source
+(numpy ``default_rng([seed + 1, epoch])`` in 'users' mode, as the JAX
+package; a CPU ``torch.Generator`` in 'blocks' mode), each step's
+dropout from a generator on the device seeded with ``(seed, global
+step)``.
 
-Not ported yet: the union (gathered) batches and their overflow
-rebuilds, sparse tables and row-sparse Adam, bf16 compute, moments and
-parameters, the validation loss, random extra negatives, the packed
-slab, dual (target) training matrices, chunked evaluation, the orbax
-backend, meshes and profiling.
+Not ported yet: bf16 compute, moments and parameters, the validation
+loss, random extra negatives, the packed slab, dual (target) training
+matrices, mega-batches wider than one compute batch, sparse tables
+without negative sampling, chunked evaluation, the orbax backend, meshes
+and profiling.
 """
 
 import logging
@@ -48,7 +61,8 @@ from recoder_tpu_torch.models.base import FactorizationModel
 from recoder_tpu_torch.ops import losses as losses_lib
 from recoder_tpu_torch.ops.fused_decode_loss import (fused_decode_loss,
                                                      supported)
-from recoder_tpu_torch.optim import KINDS, make_optimizer
+from recoder_tpu_torch.ops.gather_matmul import decode_matmul
+from recoder_tpu_torch.optim import KINDS, SparseRowAdam, make_optimizer
 from recoder_tpu_torch.recommender import InferenceRecommender
 
 log = logging.getLogger('recoder_tpu_torch')
@@ -66,15 +80,6 @@ def _multistep_lr(base_lr, milestones, epoch, gamma=0.1):
     return base_lr
   count = sum(1 for m in milestones if m <= epoch - 1)
   return base_lr * (gamma ** count)
-
-
-def _checked_array(name, ref, arr):
-  """A float32 checkpoint array for the parameter ``ref``, shape-checked."""
-  arr = np.asarray(arr, np.float32)
-  if arr.shape != tuple(ref.shape):
-    raise ValueError(f'checkpoint array {name} has shape {arr.shape}, '
-                     f'the model expects {tuple(ref.shape)}')
-  return arr
 
 
 class Recoder:
@@ -118,6 +123,9 @@ class Recoder:
     self.device = torch.device(device)
 
     self.optimizer = None
+    self.sparse_adam = SparseRowAdam()
+    #: {table name: {'step', 'm', 'v'}} of the row-sparse Adam
+    self.sparse_states = {}
     self.current_epoch = 1
     self.items = None
     self.users = None
@@ -163,8 +171,18 @@ class Recoder:
     else:
       raise ValueError(f'Unknown loss function {self.loss}')
 
+  def _split_params(self):
+    """``({name: parameter} the dense optimizer steps, sparse table
+    names)``."""
+    sparse = tuple(sorted(self.model.sparse_param_paths()))
+    dense = {k: v for k, v in self.model.params().items() if k not in sparse}
+    return dense, sparse
+
   def _init_optimizer(self, lr, weight_decay):
-    named = self.model.params()
+    named, sparse_paths = self._split_params()
+    if sparse_paths and self.optimizer_type != 'adam':
+      raise ValueError('Sparse gradients optimization only supported '
+                       'with adam (sparse row-wise Adam)')
     prev = self.optimizer
     self.optimizer = make_optimizer(self.optimizer_type, named, lr,
                                     weight_decay)
@@ -174,14 +192,42 @@ class Recoder:
         self.optimizer.state.update(prev.state)
       else:
         log.warning('optimizer type changed; optimizer state reset')
+    tables = self.model.params()
+    self.sparse_states = {p: self.sparse_states.get(p)
+                          or self.sparse_adam.init(tables[p])
+                          for p in sparse_paths}
     if self._pending_opt_arrays is not None:
-      tree = self._pending_opt_arrays
+      tree, sparse = self._pending_opt_arrays
       self._pending_opt_arrays = None
-      tree = {k: ({n: _checked_array(f'optimizer/{k}/{n}', named[n], a)
+      if not self._load_opt_arrays(named, tree, sparse, sparse_paths):
+        # a checkpoint saved under the other sparse / dense split (as
+        # the JAX package): the weights load, the moments restart
+        self.optimizer = make_optimizer(self.optimizer_type, named, lr,
+                                        weight_decay)
+        self.sparse_states = {p: self.sparse_adam.init(tables[p])
+                              for p in sparse_paths}
+        log.warning('checkpoint optimizer state does not match this '
+                    "model's sparse/dense split; optimizer state reset")
+
+  def _load_opt_arrays(self, named, tree, sparse, sparse_paths):
+    """Load checkpoint optimizer arrays; False when they belong to the
+    other sparse / dense split of the model's parameters."""
+    if tree is not None:
+      keys = convert.STATE_KEYS[self.optimizer_type]
+      if any(set(tree.get(k, {})) != set(named) for k in keys):
+        return False
+      tree = {k: ({n: convert.fit_table(f'optimizer/{k}/{n}',
+                                        tuple(named[n].shape), a)
                    for n, a in v.items()} if isinstance(v, dict) else v)
               for k, v in tree.items()}
       convert.opt_state_into_torch(self.optimizer, named, tree,
                                    self.optimizer_type)
+    tables = self.model.params()
+    for p in sparse_paths:
+      if p in sparse:
+        self.sparse_states[p] = convert.sparse_state_from_numpy(
+            sparse[p], tables[p])
+    return True
 
   def _init_training(self, train_dataset, lr, weight_decay):
     if self.items is None:
@@ -221,34 +267,59 @@ class Recoder:
     return None
 
   def _forward_loss(self, batch, training, negative_sampling=True,
-                    generator=None):
-    """Loss of one full-decode batch (the JAX ``_forward_loss`` with a
-    pre-built slab): masked sum over the batch's columns, divided by
-    the number of valid users."""
-    model = self.model
-    slab = batch['slab']
-    # the slab's storage dtype holds every value exactly
-    input_dense = slab.float()
-    B, W = input_dense.shape
-    valid_users = batch['num_users']
-    row_mask = (torch.arange(B, device=slab.device) < valid_users).float()
-    in_catalog = torch.arange(W, device=slab.device) < model.num_items
-    if negative_sampling:
-      # the loss columns: items any user of the batch touched
-      col_mask = (torch.any(slab != 0, dim=0) & in_catalog).float()
-    else:
-      col_mask = in_catalog.float()
+                    generator=None, gathered=None):
+    """Loss of one batch: the masked sum over its loss columns, divided
+    by the number of valid users (the JAX ``_forward_loss``).
 
-    h = model.encode(input_dense, training=training, generator=generator)
-    kind = self._fused_kind()
-    if kind is not None:
-      loss = fused_decode_loss(
-          h, model.decoder_table(), model.de_bias, input_dense, row_mask,
-          col_mask, kind, getattr(self.loss_module, 'confidence', 0.0))
+    A full-decode batch (``'slab'``) decodes the whole catalog and masks
+    the loss to the columns the batch touched (all of the logical
+    catalog without ``negative_sampling``); a union batch (``'items'``)
+    decodes the union's columns, every one of which is a loss column.
+    ``gathered``: the sparse step's union rows (``sparse_entries``
+    names)."""
+    model = self.model
+    valid_users = batch['num_users']
+    if 'slab' in batch:
+      slab = batch['slab']
+      # the slab's storage dtype holds every value exactly
+      input_dense = slab.float()
+      B, W = input_dense.shape
+      in_catalog = torch.arange(W, device=slab.device) < model.num_items
+      if negative_sampling:
+        # the loss columns: items any user of the batch touched
+        col_mask = (torch.any(slab != 0, dim=0) & in_catalog).float()
+      else:
+        col_mask = in_catalog.float()
+      items = None
     else:
-      loss = self.loss_module(model.decode(h), input_dense,
+      items = batch['items']
+      B, W = batch['users'].shape[0], items.shape[0]
+      input_dense = self._densify_union(batch, B, W)
+      col_mask = torch.ones(W, device=items.device)
+    row_mask = (torch.arange(B, device=input_dense.device)
+                < valid_users).float()
+
+    h, rows, bias = model.decode_operands(
+        input_dense, items, items, gathered=gathered, training=training,
+        generator=generator)
+    kind = self._fused_kind()
+    if kind is not None and W > 0:
+      loss = fused_decode_loss(
+          h, rows, bias, input_dense, row_mask, col_mask, kind,
+          getattr(self.loss_module, 'confidence', 0.0))
+    else:
+      # (an empty union has no column for the kernel: its loss is 0)
+      loss = self.loss_module(decode_matmul(h, rows, bias), input_dense,
                               row_mask=row_mask, col_mask=col_mask)
     return loss / valid_users
+
+  @staticmethod
+  def _densify_union(batch, B, W):
+    """The union batch's interactions as a dense ``[B, W]`` float32
+    input (the JAX ``_densify``); each (row, column) pair occurs once."""
+    dense = torch.zeros((B, W), device=batch['items'].device)
+    dense.index_put_((batch['rows'], batch['cols']), batch['vals'])
+    return dense
 
   def _dense_step_math(self, batch, negative_sampling=True):
     """One optimizer update; returns the step's loss (on the device)."""
@@ -261,12 +332,43 @@ class Recoder:
     self.optimizer.step()
     return loss.detach()
 
+  def _sparse_step_math(self, batch):
+    """One sparse-path update of a union batch (the JAX
+    ``_sparse_step_math``): gradients w.r.t. the gathered table rows,
+    the dense optimizer on every other parameter, then row-sparse Adam
+    writes the touched rows of each table and its moments in place.
+    Returns the step's loss (on the device)."""
+    self._dropout_gen.manual_seed((self.seed << 32) + self._global_step)
+    items = batch['items']
+    entries = self.model.sparse_entries(input_items=items,
+                                        target_items=items)
+    tables = self.model.params()
+    with torch.no_grad():
+      gathered = {name: tables[path].index_select(0, ids)
+                  for name, path, ids in entries}
+    for rows in gathered.values():
+      rows.requires_grad_(True)
+    self.optimizer.zero_grad(set_to_none=True)
+    loss = self._forward_loss(batch, training=True,
+                              generator=self._dropout_gen,
+                              gathered=gathered)
+    loss.backward()
+    self.optimizer.step()
+    lr = self.optimizer.param_groups[0]['lr']
+    with torch.no_grad():
+      # after the backward pass: no graph holds the tables
+      for name, path, ids in entries:
+        self.sparse_adam.update_rows(tables[path], self.sparse_states[path],
+                                     ids, gathered[name].grad, lr)
+    return loss.detach()
+
   # ------------------------------------------------------------------
   # training loop
   # ------------------------------------------------------------------
 
   def _data_source(self, matrix, batch_size, num_sampling_users, shuffle):
-    cfg = (batch_size, num_sampling_users, shuffle, self.num_items)
+    cfg = (batch_size, num_sampling_users, shuffle, self.num_items,
+           self.seed)
     cached = self._source_cache
     if cached is not None and cached[0] is matrix and cached[1] == cfg:
       return cached[2]
@@ -274,24 +376,30 @@ class Recoder:
     source = DeviceDataSource(matrix, batch_size=batch_size,
                               num_sampling_users=num_sampling_users,
                               num_items=self.num_items, shuffle=shuffle,
-                              device=self.device)
+                              device=self.device, seed=self.seed)
     self._source_cache = (matrix, cfg, source)
     return source
 
   def train(self, train_dataset, val_dataset=None, lr=0.001,
             weight_decay=0, num_epochs=1, iters_per_epoch=None,
             batch_size=64, lr_milestones=None, negative_sampling=False,
-            num_sampling_users=0, shuffle='users', slab_cache='auto'):
+            num_sampling_users=0, shuffle='users', slab_cache='auto',
+            full_decode='auto'):
     """Train the model (argument semantics follow the JAX package's
     ``Recoder.train``).
 
-    Every step decodes the full catalog from the resident slab
-    (``slab_cache``: 'auto' checks the slab against half the device's
-    free memory and raises when it does not fit; True skips the check).
-    With ``negative_sampling`` the loss covers the columns the batch
-    touched, without it the whole catalog. ``shuffle``: 'users' or
-    'blocks'. ``val_dataset`` must be None: the validation loss is not
-    ported yet.
+    With ``negative_sampling`` a step's loss covers the items its users
+    touched, without it the whole catalog. ``full_decode`` ('auto' |
+    True | False), with negative sampling: decode against the whole item
+    tables from the resident slab, or over the batch's item union
+    (``DeviceDataSource.build_union_batch``); 'auto' takes full decode
+    when the padded catalog is at most 4x the union width (the JAX
+    rule). A sparse model always takes the union path, and needs
+    negative sampling. Without negative sampling a dense model decodes
+    the full catalog. ``slab_cache``: 'auto' checks the slab against
+    half the device's free memory and raises when it does not fit; True
+    skips the check. ``shuffle``: 'users' or 'blocks'. ``val_dataset``
+    must be None: the validation loss is not ported yet.
     """
     if val_dataset is not None:
       raise NotImplementedError('the validation loss is not ported yet')
@@ -300,6 +408,9 @@ class Recoder:
                                 'ported yet')
     if slab_cache is False:
       raise ValueError('the port trains from the resident slab only')
+    if full_decode not in ('auto', True, False):
+      raise ValueError(f"full_decode={full_decode!r}: expected 'auto', "
+                       'True or False')
     if num_sampling_users == 0:
       num_sampling_users = batch_size
     log.info('device %s; model %s; lr %s; weight decay %s; batch %s; '
@@ -308,17 +419,35 @@ class Recoder:
              self.optimizer_type, self.loss, lr_milestones)
 
     self._init_training(train_dataset, lr, weight_decay)
+    sparse = bool(self.model.sparse_param_paths())
+    if sparse and not negative_sampling:
+      raise NotImplementedError('sparse tables train with negative '
+                                'sampling only (the full-catalog sparse '
+                                'step is not ported yet)')
     source = self._data_source(train_dataset.interactions_matrix,
                                batch_size, num_sampling_users, shuffle)
-    source.maybe_cache_slabs(self.model.num_items_padded, request=slab_cache)
+    if not negative_sampling:
+      fd = True
+    elif sparse or full_decode is False:
+      fd = False
+    elif full_decode is True:
+      fd = True
+    else:
+      fd = self.model.num_items_padded <= 4 * source.union_width()
+    if fd:
+      source.maybe_cache_slabs(self.model.num_items_padded,
+                               request=slab_cache)
+    else:
+      source.maybe_cache_slabs(0, request=False)
+      source.prepare_union()
 
     num_batches = source.steps_per_epoch
     if iters_per_epoch is None:
       iters_per_epoch = num_batches
     # a partly consumed epoch carries over only into a call with the
-    # same dataset and batching
+    # same dataset, batching and path
     iter_key = (train_dataset, batch_size, num_sampling_users,
-                negative_sampling, shuffle)
+                negative_sampling, shuffle, fd)
     if self._train_iterator_key != iter_key:
       self._epoch_perm = None
       self._iters_consumed = 0
@@ -330,17 +459,23 @@ class Recoder:
       for group in self.optimizer.param_groups:
         group['lr'] = epoch_lr
       if self._epoch_perm is None or self._iters_consumed >= num_batches:
-        gen = torch.Generator().manual_seed(((self.seed + 1) << 32) + epoch)
-        self._epoch_perm = source.epoch_permutation(gen)
+        self._epoch_perm = source.epoch_permutation(epoch)
         self._iters_consumed = 0
       n_steps = min(iters_per_epoch, num_batches - self._iters_consumed)
 
       t0 = time.time()
       losses = []
       for _ in range(n_steps):
-        batch = source.build_fd_batch(self._epoch_perm, self._iters_consumed)
+        step = self._iters_consumed
+        if fd:
+          batch = source.build_fd_batch(self._epoch_perm, step)
+        else:
+          batch = source.build_union_batch(self._epoch_perm, step)
         self._iters_consumed += 1
-        losses.append(self._dense_step_math(batch, negative_sampling))
+        if sparse:
+          losses.append(self._sparse_step_math(batch))
+        else:
+          losses.append(self._dense_step_math(batch, negative_sampling))
         self._global_step += 1
       # one device sync per epoch
       self.last_epoch_losses = (torch.stack(losses).tolist()
@@ -429,7 +564,7 @@ class Recoder:
         'recoder_version': __version__,
         'model_class': type(self.model).__name__,
         'model_params': self.model.model_params(),
-        'model_sparse': False,
+        'model_sparse': bool(self.model.sparse_param_paths()),
         'last_epoch': self.current_epoch,
         'optimizer_type': self.optimizer_type,
         'num_items': self.num_items,
@@ -440,12 +575,15 @@ class Recoder:
       meta['loss'] = self.loss
       meta['loss_params'] = self.loss_params
 
-    named = self.model.params()
-    arrays = {'model': convert.params_to_numpy(named)}
+    named, _ = self._split_params()
+    arrays = {'model': convert.params_to_numpy(self.model.params())}
     if self.optimizer is not None:
       arrays['optimizer'] = convert.opt_state_to_numpy(
           self.optimizer, named, self.optimizer_type,
           sgd_step=self._global_step)
+    if self.sparse_states:
+      arrays['sparse_optimizer'] = convert.sparse_state_to_numpy(
+          self.sparse_states)
     if self.items is not None:
       arrays['items'] = np.asarray(self.items)
     if self.users is not None:
@@ -455,14 +593,16 @@ class Recoder:
 
   def init_from_model_file(self, model_file):
     """Restore model, optimizer and training state from an npz
-    checkpoint written by this package or by the JAX package."""
+    checkpoint written by this package or by the JAX package.
+
+    Sparse and dense checkpoints load into sparse and dense models alike
+    (a JAX sparse checkpoint's feature-padded tables are cut to the
+    model's width, ``convert.fit_table``); optimizer state saved under
+    the other sparse / dense split restarts fresh, as in JAX."""
     log.info('Loading model from: %s', model_file)
     if not os.path.isfile(model_file):
       raise FileNotFoundError(f'No state file found in {model_file}')
     arrays, meta = load_checkpoint(model_file)
-    if meta.get('model_sparse'):
-      raise NotImplementedError('sparse-table checkpoints are not ported '
-                                'yet')
 
     self.current_epoch = meta['last_epoch']
     self._global_step = meta.get('global_step', 0)
@@ -473,11 +613,13 @@ class Recoder:
     self.num_users = meta.get('num_users')
     self.items = arrays.get('items')
     self.users = arrays.get('users')
-    self._pending_opt_arrays = arrays.get('optimizer')
+    self._pending_opt_arrays = (arrays.get('optimizer'),
+                                arrays.get('sparse_optimizer') or {})
+    self.sparse_states = {}
 
     self.model.load_model_params(meta['model_params'])
     self._init_model()
     with torch.no_grad():
       for name, p in self.model.params().items():
-        p.copy_(torch.from_numpy(
-            _checked_array(f'model/{name}', p, arrays['model'][name])))
+        p.copy_(torch.from_numpy(convert.fit_table(
+            f'model/{name}', tuple(p.shape), arrays['model'][name])))

@@ -1,21 +1,34 @@
-"""Dynamic autoencoder, full-catalog path.
+"""Dynamic autoencoder: the full-catalog path and the item-union path.
 
 Port of ``recoder_tpu/models/autoencoder.py`` (``DynamicAutoencoder``)
 as an ``nn.Module``:
 
-  l2-normalize rows -> noise dropout -> encode (z @ E_en + b_en)
+  l2-normalize rows -> noise dropout -> encode (z @ E_en[items] + b_en)
   -> activation and hidden Linears (with bottleneck dropout)
-  -> decode (h @ E_de.T + b_de)
+  -> decode (h @ E_de[items].T + b_de[items])
 
-Parameters keep the JAX names and shapes (item tables padded to
-``pad_dim(num_items)`` rows), so ``convert.py`` and the npz checkpoints
-move them either way as they are. The trainer asks for the bottleneck
-``h`` (:meth:`encode`) and hands it, the decoder table and its bias to
-the fused decode-loss kernel; :meth:`forward` decodes with a plain
-matmul (inference and the 'logloss' training loss).
+With ``items`` None the products take the whole tables (full decode);
+with an item union they take its gathered rows, so encode and decode
+cost grows with the union, not with the catalog. Parameters keep the JAX
+names and shapes (item tables padded to ``pad_dim(num_items)`` rows), so
+``convert.py`` and the npz checkpoints move them either way.
 
-Not ported yet: the union (gathered) path -- ``apply_gathered``,
-``sparse_entries`` -- and the chunked inference pair ``encode_coo`` /
+:meth:`decode_operands` gives the bottleneck ``h`` with the decoder rows
+and bias, so that the scores are ``h @ rows.T + bias``; the trainer hands
+the three to the fused decode-loss kernel, and :meth:`apply` /
+:meth:`apply_gathered` / :meth:`forward` decode them with a matmul.
+
+``sparse=True`` marks the embedding tables for row-sparse Adam
+(:meth:`sparse_param_paths`): they are then not trained by autograd
+through the module (``requires_grad`` is False); the trainer gathers
+their union rows as leaves (:meth:`sparse_entries`), runs the forward on
+them (``gathered``, as :meth:`apply_gathered` does) and writes the
+updated rows back. The JAX package pads a sparse table's feature axis
+to 128 lanes (``pad_features``) for XLA:TPU's row scatters; the port
+keeps it [N, d0], and ``convert.py`` bridges the pad when a checkpoint
+moves between the packages.
+
+Not ported yet: the chunked inference pair ``encode_coo`` /
 ``decode_slice``; bf16 compute and bf16 parameters.
 """
 
@@ -25,7 +38,8 @@ from torch import nn
 from recoder_tpu_torch.models.base import (FactorizationModel, activation,
                                            dropout, l2_normalize_rows,
                                            pad_dim, xavier_uniform)
-from recoder_tpu_torch.ops.gather_matmul import decode_matmul, encode_matmul
+from recoder_tpu_torch.ops.gather_matmul import (decode_matmul,
+                                                  encode_matmul, take_rows)
 
 
 class DynamicAutoencoder(FactorizationModel):
@@ -39,17 +53,17 @@ class DynamicAutoencoder(FactorizationModel):
     is_constrained (bool): tie decoder weights to encoder transposes.
     dropout_prob (float): bottleneck dropout.
     noise_prob (float): input (denoising) dropout.
-    sparse, compute_dtype, params_dtype: accepted for the JAX
-      package's signature; only the float32 dense configuration
-      (False, None, None) is ported.
+    sparse (bool): train the embedding tables with row-sparse Adam
+      (torch SparseAdam's rule; ``optim.SparseRowAdam``).
+    compute_dtype, params_dtype: accepted for the JAX package's
+      signature; only float32 (None) is ported.
   """
 
   def __init__(self, hidden_layers=None, activation_type='tanh',
                is_constrained=False, dropout_prob=0.0, noise_prob=0.0,
                sparse=False, compute_dtype=None, params_dtype=None):
     super().__init__()
-    if sparse:
-      raise NotImplementedError('sparse embedding tables are not ported yet')
+    self.sparse = bool(sparse)
     for name, dt in (('compute_dtype', compute_dtype),
                      ('params_dtype', params_dtype)):
       if dt not in (None, 'float32'):
@@ -99,8 +113,10 @@ class DynamicAutoencoder(FactorizationModel):
     params['de_bias'] = torch.zeros(self.num_items_padded)
 
     self._parameters.clear()
+    sparse = self.sparse_param_paths()
     for name, value in params.items():
-      self.register_parameter(name, nn.Parameter(value))
+      self.register_parameter(
+          name, nn.Parameter(value, requires_grad=name not in sparse))
     return self.params()
 
   def model_params(self):
@@ -120,6 +136,25 @@ class DynamicAutoencoder(FactorizationModel):
     self.is_constrained = model_params['is_constrained']
     self.dropout_prob = model_params['dropout_prob']
     self.noise_prob = model_params['noise_prob']
+
+  def sparse_param_paths(self):
+    """The tables row-sparse Adam trains when ``sparse`` (none
+    otherwise)."""
+    if not self.sparse:
+      return ()
+    return (('en_embedding',) if self.is_constrained
+            else ('en_embedding', 'de_embedding'))
+
+  def sparse_entries(self, input_items=None, target_items=None):
+    """Row-gather plan of the sparse step: ``[(name, table, ids)]``. A
+    decoder tied to the encoder that decodes the same union collapses
+    into the one 'en_rows' entry, so both uses' gradients meet in one
+    row-sparse update (torch's coalesced sparse gradient)."""
+    entries = [('en_rows', 'en_embedding', input_items)]
+    de_table = 'en_embedding' if self.is_constrained else 'de_embedding'
+    if not (de_table == 'en_embedding' and target_items is input_items):
+      entries.append(('de_rows', de_table, target_items))
+    return entries
 
   # -- forward -----------------------------------------------------------
 
@@ -147,25 +182,58 @@ class DynamicAutoencoder(FactorizationModel):
                      self.activation_type)
     return z
 
-  def encode(self, input, training=False, generator=None):
-    """Bottleneck ``h [B, d0]`` of a dense ``[B, W]`` input (W may be
-    the logical catalog; it is zero-padded to the table).
+  def encode(self, input, training=False, generator=None, rows=None):
+    """Bottleneck ``h [B, d0]`` of a dense input.
 
-    ``generator`` drives the noise and bottleneck dropout when
-    ``training``.
+    ``rows`` are the encoder rows the input's columns index: the whole
+    table by default (the input may then be narrower than the table and
+    is zero-padded to it), or gathered union rows ``[W, d0]`` for an
+    input ``[B, W]``. ``generator`` drives the noise and bottleneck
+    dropout when ``training``.
     """
-    if input.shape[1] < self.num_items_padded:
-      input = nn.functional.pad(
-          input, (0, self.num_items_padded - input.shape[1]))
+    if rows is None:
+      rows = self.en_embedding
+    if input.shape[1] < rows.shape[0]:
+      input = nn.functional.pad(input, (0, rows.shape[0] - input.shape[1]))
     z = l2_normalize_rows(input)
     if training and self.noise_prob > 0:
       z = dropout(z, self.noise_prob, generator)
-    z = encode_matmul(z, self.en_embedding, self.en_bias)
+    z = encode_matmul(z, rows, self.en_bias)
     return self._hidden_stack(z, training, generator)
 
-  def decode(self, h):
-    """Scores ``[B, num_items_padded]`` for bottleneck ``h``."""
-    return decode_matmul(h, self.decoder_table(), self.de_bias)
+  def decode_operands(self, input, input_items=None, target_items=None,
+                      gathered=None, training=False, generator=None):
+    """``(h, rows, bias)`` with scores ``h @ rows.T + bias``.
+
+    ``input_items`` / ``target_items``: the item ids of the input's and
+    the scores' columns (None: the whole catalog). ``gathered``: the
+    union rows of the sparse step, by :meth:`sparse_entries` name; the
+    tables are then not read, except for the decoder bias.
+    """
+    if gathered is not None:
+      en_rows = gathered['en_rows']
+      rows = gathered.get('de_rows', en_rows)
+    else:
+      en_rows = take_rows(self.en_embedding, input_items)
+      rows = take_rows(self.decoder_table(), target_items)
+    h = self.encode(input, training, generator, rows=en_rows)
+    return h, rows, take_rows(self.de_bias, target_items)
+
+  def apply(self, input, input_items=None, target_items=None,
+            training=False, generator=None):
+    """Scores of the ``target_items`` columns (all by default) for an
+    input over the ``input_items`` columns."""
+    return decode_matmul(*self.decode_operands(
+        input, input_items, target_items, training=training,
+        generator=generator))
+
+  def apply_gathered(self, gathered, input, target_items=None,
+                     training=False, generator=None):
+    """:meth:`apply` with the table rows pre-gathered (the
+    differentiable leaves of the sparse step)."""
+    return decode_matmul(*self.decode_operands(
+        input, target_items=target_items, gathered=gathered,
+        training=training, generator=generator))
 
   def forward(self, input, training=False, generator=None):
-    return self.decode(self.encode(input, training, generator))
+    return self.apply(input, training=training, generator=generator)

@@ -145,6 +145,6 @@ def test_noise_applies_only_in_training():
 
 def test_unported_configurations_raise():
   with pytest.raises(NotImplementedError):
-    DynamicAutoencoder([8], sparse=True)
-  with pytest.raises(NotImplementedError):
     DynamicAutoencoder([8], compute_dtype='bfloat16')
+  with pytest.raises(NotImplementedError):
+    DynamicAutoencoder([8], params_dtype='bfloat16')

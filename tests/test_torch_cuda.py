@@ -3,7 +3,11 @@ kernel against its plain PyTorch version at ragged and boundary shapes,
 the wrapper's refusals, and the trainer on the card against the trainer
 on the CPU; the SPD-solve kernel against the blocked recursion, its
 batch independence and NaN on an indefinite system, and the iALS fit on
-the card against the fit on the CPU.
+the card against the fit on the CPU; the row-scatter kernel against
+``index_copy_`` (bitwise: it is a copy) at ragged shapes, on a
+misaligned column slice and with an empty id vector, and the sparse
+training step through the kernel against the same step through the
+plain twin (bitwise).
 
 Every test skips where ``torch.cuda.is_available()`` is False. The file
 imports neither jax nor the JAX package, so it also runs on a machine
@@ -24,6 +28,7 @@ import scipy.sparse as sp
 import torch
 
 from recoder_tpu_torch.ops import fused_decode_loss as fdl
+from recoder_tpu_torch.ops import row_scatter as rs
 from recoder_tpu_torch.ops import spd
 
 pytestmark = pytest.mark.cuda
@@ -223,3 +228,135 @@ def test_ials_on_cuda_matches_cpu(cuda):
   ui = UsersInteractions(users, m[users])
   np.testing.assert_array_equal(gpu.fold_in(ui).cpu().numpy(),
                                 gpu.user_factors[users].cpu().numpy())
+
+
+def _scatter_case(N, d, W, device, seed=0, ntables=3):
+  """Tables, ids and rows; a repeated id gets the same payload."""
+  rng = np.random.default_rng(seed)
+  tables = [torch.from_numpy(rng.standard_normal((N, d)).astype(np.float32))
+            .to(device) for _ in range(ntables)]
+  ids = rng.integers(0, N, W).astype(np.int64)
+  payload = [rng.standard_normal((N, d)).astype(np.float32)
+             for _ in range(ntables)]
+  rows = [torch.from_numpy(p[ids]).to(device) for p in payload]
+  return tables, torch.from_numpy(ids).to(device), rows
+
+
+def _scatter_both(tables, ids, rows):
+  kernel = [t.clone() for t in tables]
+  plain = [t.clone() for t in tables]
+  ptrs = [t.data_ptr() for t in kernel]
+  before = rs.LAUNCHES['row_scatter']
+  rs.row_scatter_(kernel, ids, rows)
+  launched = rs.LAUNCHES['row_scatter'] - before
+  rs.row_scatter_plain(plain, ids, rows)
+  torch.cuda.synchronize()
+  assert [t.data_ptr() for t in kernel] == ptrs
+  for a, b in zip(kernel, plain):
+    assert torch.equal(a, b)
+  return kernel, launched
+
+
+@pytest.mark.parametrize('W', [0, 1, 37])
+@pytest.mark.parametrize('d', [1, 3, 7, 128, 200, 256, 1000])
+@pytest.mark.parametrize('N', [1, 37, 41216])
+def test_row_scatter_matches_index_copy(cuda, N, d, W):
+  tables, ids, rows = _scatter_case(N, d, W, cuda, seed=N + d + W)
+  out, launched = _scatter_both(tables, ids, rows)
+  assert launched == (1 if W else 0)
+  untouched = torch.ones(N, dtype=torch.bool, device=cuda)
+  untouched[ids] = False
+  for a, b in zip(out, tables):
+    assert torch.equal(a[untouched], b[untouched])
+
+
+def test_row_scatter_misaligned_column_slice(cuda):
+  """A column slice starts 4 bytes past a 16-byte boundary: the kernel
+  takes the scalar path and writes the same bytes as index_copy_, and
+  the columns outside the slice stay put."""
+  base, ids, rows = _scatter_case(41216, 201, 37, cuda, seed=4, ntables=1)
+  tables = [base[0][:, 1:201]]
+  rows = [r[:, 1:201].contiguous() for r in rows]
+  assert not rs.vector_path(tables, rows)
+  out, launched = _scatter_both(tables, ids, rows)
+  assert launched == 1
+  whole = base[0].clone()
+  rs.row_scatter_([whole[:, 1:201]], ids, rows)
+  torch.cuda.synchronize()
+  assert torch.equal(whole[:, 0], base[0][:, 0])
+  assert torch.equal(whole[:, 1:201], out[0])
+  wide = torch.zeros((8, 204), device=cuda)
+  assert rs.vector_path([wide[:, 4:200]],
+                        [torch.zeros((3, 196), device=cuda)])
+
+
+def test_row_scatter_sentinel_tail_and_msd_shape(cuda):
+  """Three [41,216, 200] tables, sorted unique ids with a sentinel tail
+  of identical payloads (the JAX union layout)."""
+  rng = np.random.default_rng(7)
+  N, d = 41216, 200
+  ids = np.sort(rng.choice(41140, 18000, replace=False))
+  ids = np.concatenate([ids, np.full(48, 41140)]).astype(np.int64)
+  tables = [torch.from_numpy(rng.standard_normal((N, d)).astype(np.float32))
+            .to(cuda) for _ in range(3)]
+  rows = []
+  for _ in range(3):
+    r = rng.standard_normal((len(ids), d)).astype(np.float32)
+    r[18000:] = r[18000]
+    rows.append(torch.from_numpy(r).to(cuda))
+  ids = torch.from_numpy(ids).to(cuda)
+  assert rs.vector_path(tables, rows)
+  _scatter_both(tables, ids, rows)
+
+
+def test_row_scatter_refuses_what_it_does_not_take(cuda):
+  tables, ids, rows = _scatter_case(10, 8, 4, cuda)
+  with pytest.raises(ValueError, match='int64'):
+    rs.row_scatter_(tables, ids.int(), rows)
+  with pytest.raises(ValueError, match='float32'):
+    rs.row_scatter_([t.double() for t in tables], ids,
+                    [r.double() for r in rows])
+  with pytest.raises(ValueError, match='column stride'):
+    rs.row_scatter_([t.t().contiguous().t() for t in tables], ids, rows)
+  with pytest.raises(ValueError, match='is on'):
+    rs.row_scatter_(tables, ids, [rows[0].cpu()] + rows[1:])
+  with pytest.raises(ValueError, match='tables'):
+    rs.row_scatter_(tables + tables[:1], ids, rows + rows[:1])
+
+
+def test_sparse_step_kernel_matches_plain_twin(cuda):
+  """Three sparse steps on the card through the kernel and through
+  index_copy_: the same tables, moments and losses, bit for bit."""
+  from unittest import mock
+
+  from recoder_tpu_torch import optim
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+
+  rng = np.random.default_rng(0)
+  m = sp.csr_matrix((rng.random((90, 300)) < 0.05).astype(np.float32))
+  out = {}
+  for route in ('kernel', 'plain'):
+    tr = Recoder(DynamicAutoencoder([32], noise_prob=0.5, sparse=True),
+                 optimizer_type='adam', loss='logloss', device=cuda)
+    patch = (mock.patch.object(optim, 'row_scatter_', rs.row_scatter_plain)
+             if route == 'plain' else mock.MagicMock())
+    before = rs.LAUNCHES['row_scatter']
+    with patch:
+      tr.train(RecommendationDataset(m), batch_size=32, lr=1e-2,
+               weight_decay=2e-5, negative_sampling=True, shuffle='users',
+               num_epochs=1)
+    launched = rs.LAUNCHES['row_scatter'] - before
+    assert launched == (6 if route == 'kernel' else 0)
+    out[route] = (tr.last_epoch_losses,
+                  {k: v.cpu() for k, v in tr.model.params().items()},
+                  {p: (s['m'].cpu(), s['v'].cpu())
+                   for p, s in tr.sparse_states.items()})
+  (lk, pk, sk), (lp, pp, spl) = out['kernel'], out['plain']
+  assert lk == lp
+  for name in pk:
+    assert torch.equal(pk[name], pp[name]), name
+  for p in sk:
+    assert torch.equal(sk[p][0], spl[p][0]) and torch.equal(sk[p][1],
+                                                            spl[p][1])

@@ -1,7 +1,8 @@
 """The port stands without JAX: with ``jax`` blocked from import, every
-module of ``recoder_tpu_torch`` imports, a tiny training step and a tiny
-iALS fit, fold-in and recommend run on the CPU, and afterwards neither
-JAX nor the JAX package is loaded."""
+module of ``recoder_tpu_torch`` imports, a tiny training step, a tiny
+iALS fit, fold-in and recommend, a sparse-table and a dense union
+training and a row scatter run on the CPU, and afterwards neither JAX
+nor the JAX package is loaded."""
 
 import os
 import subprocess
@@ -37,6 +38,18 @@ SCRIPT = textwrap.dedent('''
     ui = UsersInteractions(np.arange(20), m)
     assert (ials.fold_in(ui) == ials.user_factors).all()
     assert all(len(r) == 3 for r in ials.recommend(ui, 3))
+    for sparse in (True, False):
+        tr = Recoder(DynamicAutoencoder([8], noise_prob=0.5, sparse=sparse),
+                     optimizer_type='adam', loss='logloss')
+        tr.train(RecommendationDataset(m), batch_size=8, num_epochs=2,
+                 negative_sampling=True, shuffle='users', full_decode=False)
+        assert all(np.isfinite(tr.last_epoch_losses))
+        assert len(tr.sparse_states) == (2 if sparse else 0)
+    from recoder_tpu_torch.ops.row_scatter import row_scatter_
+    import torch
+    t = torch.zeros(4, 3)
+    row_scatter_([t], torch.tensor([2]), [torch.ones(1, 3)])
+    assert t.sum() == 3
     loaded = [k for k, v in sys.modules.items() if v is not None and (
         k in ('jax', 'jaxlib', 'recoder_tpu') or k.startswith(
             ('jax.', 'jaxlib.', 'recoder_tpu.')))]
