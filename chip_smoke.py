@@ -7,17 +7,26 @@ Run from the root of a checkout on a machine with one CUDA card:
 It imports nothing of JAX. Phases, each of which raises on failure:
 
   1. device  -- requires CUDA; prints the card's name and power limit.
-  2. build   -- compiles the port's CUDA kernels from this checkout.
-  3. kernels -- the fused decode-loss kernel (forward and backward)
-                against its plain PyTorch version on the card, for 'mse'
-                (c=0, c=3) and 'logistic', at a ragged shape and at the
-                training shape; median times of both.
+  2. build   -- compiles the port's CUDA kernels from this checkout;
+                the ptxas report of each kernel, and the tensor-core
+                instructions (HMMA / HGMMA) of each decode-loss kernel
+                counted in the library's SASS (cuobjdump -sass): a
+                decode-loss kernel without any, or with register spills,
+                fails.
+  3. kernels -- the fused decode-loss kernels (forward and backward)
+                against their plain PyTorch version on the card, for
+                'mse' (c=0, c=3) and 'logistic', at a ragged shape, the
+                training shape and an odd union width, with float32 and
+                bfloat16 targets (the bfloat16 run bitwise equal to the
+                float32 one); device and CUDA-event times of kernel and
+                plain, taken in turns, beside each kernel's bound.
   4. slice   -- the training path at the full width of the ML-20M-shaped
                 configuration (bench.py's synthetic CSR, 116,677 users x
                 20,108 items): DynamicAutoencoder[200], MSE confidence 3,
                 Adam, batch 500, negative sampling, block shuffle, one
-                epoch through the kernel; then recommend and a
-                checkpoint round trip.
+                epoch through the kernel, steady epochs and a profile of
+                steady steps; then recommend and a checkpoint round
+                trip.
   5. paths   -- 20 training steps on the fixture through the kernel and
                 through the plain decode + loss, from the same init,
                 permutation and noise: the losses must agree.
@@ -52,7 +61,7 @@ It imports nothing of JAX. Phases, each of which raises on failure:
                 shape (three [41,216, 200] tables, the ids of one MSD
                 block union); untouched rows and data pointers unchanged;
                 device and CUDA-event times of the kernel and of
-                index_copy_ x3.
+                index_copy_ x3, the device times each from a cold L2.
  11. sparse slice -- the sparse-table path at the full width of the MSD
                 configuration (bench.py --dataset msd --sparse: the
                 synthetic 571,355 x 41,140 CSR, DynamicAutoencoder[200]
@@ -83,6 +92,7 @@ import functools
 import gzip
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -109,6 +119,14 @@ REPLACES = {
 }
 #: reference values pinned in tests/test_model.py (atol 0.01)
 PINNED = {'Recall@20': 0.1417, 'Recall@50': 0.2393, 'NDCG@100': 0.1684}
+
+#: the decode-loss kernels of the training step (kernels/fused_decode_loss.cu)
+DECODE_LOSS_KERNELS = ('decode_loss_fwd_kernel', 'drows_dbias_kernel',
+                       'dh_splitk_kernel')
+#: published peaks of one H100 SXM: TF32 tensor cores (the fastest rate
+#: at which it takes float32 operands) and HBM3
+PEAK_FLOPS = 495e12
+PEAK_BYTES = 3.35e12
 
 LOSS_RTOL = 1e-4
 GRAD_RTOL = 1e-3
@@ -157,7 +175,8 @@ def phase_device():
 # -- phase 2 ---------------------------------------------------------------
 
 def phase_build():
-  """Every source at once, one nvcc each."""
+  """Every source at once, one nvcc each; then the decode-loss kernels'
+  spills and tensor-core instructions."""
   from concurrent.futures import ThreadPoolExecutor
 
   from recoder_tpu_torch.kernels import BUILD_LOGS
@@ -174,6 +193,59 @@ def phase_build():
     for line in BUILD_LOGS.get(name, '').splitlines():
       if 'registers' in line or 'spill' in line or 'Compiling' in line:
         say('  ' + line.strip())
+
+  frames = ptxas_frames(BUILD_LOGS.get('fused_decode_loss', ''))
+  opcodes = sass_opcodes(fdl._lib()._name)
+  for kernel in DECODE_LOSS_KERNELS:
+    found = {f: ops for f, ops in opcodes.items() if kernel in f}
+    if not found:
+      raise AssertionError(f'{kernel} is not in the library\'s SASS')
+    for func, ops in sorted(found.items()):
+      n = ops['HMMA'] + ops['HGMMA']
+      stack, stores, loads = frames.get(func, (None, None, None))
+      say(f'  {func}: {n} tensor-core instructions (HMMA/HGMMA); stack '
+          f'frame {stack} B, spill stores {stores} B, spill loads {loads} '
+          f'B; most frequent opcodes {dict(ops.most_common(8))}')
+      if n == 0:
+        raise AssertionError(f'{func} has no tensor-core instruction')
+      if stores is None or stores or loads:
+        raise AssertionError(f'{func}: register spills, or no ptxas report')
+
+
+def ptxas_frames(log):
+  """{function: (stack frame, spill stores, spill loads) in bytes} from
+  the ptxas report of a build."""
+  frames, func = {}, None
+  for line in log.splitlines():
+    if 'Function properties for' in line:
+      func = line.split('Function properties for')[1].strip()
+    elif func is not None and 'stack frame' in line:
+      frames[func] = tuple(int(x) for x in re.findall(r'(\d+) bytes',
+                                                       line)[:3])
+      func = None
+  return frames
+
+
+def sass_opcodes(library):
+  """{function: Counter of its SASS opcodes} in a built library, by the
+  toolkit's cuobjdump -sass."""
+  import collections
+  from torch.utils.cpp_extension import CUDA_HOME
+  sass = subprocess.run(
+      [os.path.join(CUDA_HOME, 'bin', 'cuobjdump'), '-sass', library],
+      capture_output=True, text=True, check=True).stdout
+  counts, func = {}, None
+  for line in sass.splitlines():
+    if 'Function :' in line:
+      func = line.split('Function :')[1].strip()
+      counts[func] = collections.Counter()
+    elif func is not None and re.match(r'\s+/\*[0-9a-f]{4}\*/', line):
+      words = line.split('*/', 1)[1].replace(';', ' ').split()
+      if words and words[0].startswith('@'):  # a predicate
+        words = words[1:]
+      if words:
+        counts[func][words[0].split('.')[0]] += 1
+  return counts
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -197,13 +269,16 @@ def _close(got, ref, rtol, atol):
   return bool((err <= atol + rtol * ref.abs()).all()), float(err.max())
 
 
-def compare_kernel(B, d, W, kind, confidence, device):
+def compare_kernel(B, d, W, kind, confidence, device, target_dtype=None):
   """Kernel loss and gradients against autograd through the plain
-  version; returns the largest abs errors (loss, grads)."""
+  version; returns the largest abs errors (loss, grads) and the kernel's
+  (loss, dh, drows, dbias)."""
   import torch
   from recoder_tpu_torch.ops.fused_decode_loss import (
       fused_decode_loss, fused_decode_loss_plain)
   h, rows, bias, target, rm, cm = make_problem(B, d, W, device)
+  if target_dtype is not None:
+    target = target.to(target_dtype)
   results = {}
   for name, fn in (('kernel', fused_decode_loss),
                    ('plain', fused_decode_loss_plain)):
@@ -212,22 +287,22 @@ def compare_kernel(B, d, W, kind, confidence, device):
     loss.backward()
     results[name] = (loss.detach(), hh.grad, rr.grad, bb.grad)
   (lk, *gk), (lp, *gp) = results['kernel'], results['plain']
+  what = f'{kind} c={confidence} [{B},{d},{W}] target {target.dtype}'
   ok, loss_err = _close(lk, lp, LOSS_RTOL, 0.0)
   if not ok:
-    raise AssertionError(f'{kind} c={confidence} [{B},{d},{W}]: loss '
-                         f'{float(lk)} vs plain {float(lp)}')
+    raise AssertionError(f'{what}: loss {float(lk)} vs plain {float(lp)}')
   grad_err = 0.0
   for gname, a, b in zip(('dh', 'drows', 'dbias'), gk, gp):
     atol = GRAD_ATOL_FRACTION * float(b.abs().max())
     ok, err = _close(a, b, GRAD_RTOL, atol)
     grad_err = max(grad_err, err)
     if not ok:
-      raise AssertionError(f'{kind} c={confidence} [{B},{d},{W}]: {gname} '
-                           f'max abs err {err} (atol {atol})')
-  say(f'  {kind:8s} c={confidence:<3} [{B}, {d}, {W}]: loss {float(lk):.6g} '
-      f'(plain {float(lp):.6g}), max abs err loss {loss_err:.3g} '
-      f'grads {grad_err:.3g}')
-  return loss_err, grad_err
+      raise AssertionError(f'{what}: {gname} max abs err {err} (atol '
+                           f'{atol})')
+  say(f'  {kind:8s} c={confidence:<3} [{B}, {d}, {W}] {str(target.dtype)[6:]:8s}'
+      f': loss {float(lk):.6g} (plain {float(lp):.6g}), max abs err loss '
+      f'{loss_err:.3g} grads {grad_err:.3g}')
+  return loss_err, grad_err, results['kernel']
 
 
 def median_ms(fn, reps=30, warmup=3):
@@ -254,39 +329,74 @@ def per_launch_ms(fn, launches=20, reps=10):
                    warmup=1) / launches
 
 
-def device_ms(fn, calls=20):
+def device_ms(fn, calls=20, between=None, skip=None, tries=3):
   """Device time of one call of ``fn``: the sum of the kernels it
   launches over ``calls`` calls, by torch.profiler, divided by ``calls``
   (free of the host's time, which ``per_launch_ms`` includes when the
-  host enqueues slower than the device runs)."""
+  host enqueues slower than the device runs). ``between`` runs before
+  each call, and kernels whose name holds ``skip`` are left out. A
+  profile that recorded fewer kernels than calls (the profiler at times
+  drops a window's device events) is taken again."""
   import torch
   from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    for _ in range(calls):
-      fn()
-    torch.cuda.synchronize()
-  total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                 if 'CUDA' in str(ev.device_type))
-  return total_us / 1e3 / calls
+  for _ in range(tries):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      for _ in range(calls):
+        if between is not None:
+          between()
+        fn()
+      torch.cuda.synchronize()
+    kernels = [ev for ev in prof.key_averages()
+               if 'CUDA' in str(ev.device_type)
+               and (skip is None or skip not in ev.key)]
+    if sum(ev.count for ev in kernels) >= calls:
+      return sum(ev.self_device_time_total for ev in kernels) / 1e3 / calls
+  raise AssertionError(f'the profiler recorded fewer than {calls} kernels '
+                       f'in {tries} tries')
+
+
+def bound(flops, nbytes):
+  """(least ms on the card, what sets it): operations at the TF32 peak
+  against bytes at the HBM peak."""
+  ops_ms, bytes_ms = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+  return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms,
+                                                             'bytes')
+
+
+def decode_loss_bounds(B, d, W, target_bytes=4):
+  """Bounds of each timed step, counted from what that step reads and
+  writes (each input once, each output once) and the products it does:
+  the forward (the loss, and E0 [B, lde] when a backward follows), the
+  backward (two products over E0 to dh, drows and dbias) and the pair
+  (the function itself: three products from h, rows, bias and the
+  target to the loss and the three gradients)."""
+  product = 2.0 * B * W * d
+  lde = -(-W // 4) * 4
+  inputs = 4.0 * (B * d + W * d + 2 * W + B) + target_bytes * B * W
+  grads = 4.0 * (B * d + W * d + W)
+  return {'fwd': bound(product, inputs + 4 + 4.0 * B * lde),
+          'fwd_nograd': bound(product, inputs + 4),
+          'bwd': bound(2 * product,
+                       4.0 * (B * lde + B * d + W * d) + 4 + grads),
+          'fwd_bwd': bound(3 * product, inputs + 4 + 4 + grads)}
 
 
 def time_kernel(B, d, W, kind, confidence, device):
-  """Median ms of forward, backward and forward+backward, kernel and
-  plain, at one shape."""
+  """Forward (writing E0, as training runs it), forward under no_grad,
+  backward from E0 and forward+backward through autograd, kernel and
+  plain, at one shape. Each is timed by its device time (profiler) and
+  by the median of CUDA events, in turns plain, kernel, kernel, plain;
+  returns {'device'|'events': {'kernel'|'plain': {step: mean ms}}}."""
   import torch
   from recoder_tpu_torch.ops import fused_decode_loss as fdl
   h, rows, bias, target, rm, cm = make_problem(B, d, W, device)
   g = torch.ones((), device=device)
   args = (target, rm, cm, kind, confidence)
+  _, e0 = fdl._kernel_forward(h, rows, bias, *args, True)
+  _, e0_plain = fdl._plain_forward(h, rows, bias, *args, True)
   leaves = [x.clone().requires_grad_(True) for x in (h, rows, bias)]
-
-  def fwd(fn):
-    def run():
-      with torch.no_grad():
-        fn(h, rows, bias, *args)
-    return run
 
   def fwd_bwd(fn):
     def run():
@@ -295,33 +405,67 @@ def time_kernel(B, d, W, kind, confidence, device):
       fn(*leaves, *args).backward()
     return run
 
-  out = {}
-  for name, f_fwd, f_bwd, f_all in (
-      ('kernel', fwd(fdl.fused_decode_loss),
-       lambda: fdl._kernel_backward(g, h, rows, bias, *args),
-       fwd_bwd(fdl.fused_decode_loss)),
-      ('plain', fwd(fdl.fused_decode_loss_plain),
-       lambda: fdl._plain_backward(g, h, rows, bias, *args),
-       fwd_bwd(fdl.fused_decode_loss_plain))):
-    out[name] = {'fwd': median_ms(f_fwd), 'bwd': median_ms(f_bwd),
-                 'fwd_bwd': median_ms(f_all)}
-  return out
+  steps = {
+      'kernel': {
+          'fwd': lambda: fdl._kernel_forward(h, rows, bias, *args, True),
+          'fwd_nograd': lambda: fdl._kernel_forward(h, rows, bias, *args,
+                                                    False),
+          'bwd': lambda: fdl._kernel_backward(g, e0, h, rows),
+          'fwd_bwd': fwd_bwd(fdl.fused_decode_loss)},
+      'plain': {
+          'fwd': lambda: fdl._plain_forward(h, rows, bias, *args, True),
+          'fwd_nograd': lambda: fdl._plain_forward(h, rows, bias, *args,
+                                                   False),
+          'bwd': lambda: fdl._plain_backward(g, e0_plain, h, rows),
+          'fwd_bwd': fwd_bwd(fdl.fused_decode_loss_plain)}}
+  runs = {how: {name: {step: [] for step in steps[name]} for name in steps}
+          for how in ('device', 'events')}
+  for name in ('plain', 'kernel', 'kernel', 'plain'):
+    for step, fn in steps[name].items():
+      runs['device'][name][step].append(device_ms(fn))
+      runs['events'][name][step].append(median_ms(fn))
+  return {how: {name: {step: statistics.mean(v) for step, v in d_.items()}
+                for name, d_ in r.items()} for how, r in runs.items()}
+
+
+def report_times(times, shape, what):
+  """Print kernel and plain times, and each kernel's bound and share."""
+  B, d, W = shape
+  bounds = decode_loss_bounds(B, d, W)
+  for how in ('device', 'events'):
+    for name in ('kernel', 'plain'):
+      t = times[how][name]
+      say(f'  {how:7s} {name:6s} {what}: fwd {t["fwd"]:.4f} ms (no_grad '
+          f'{t["fwd_nograd"]:.4f}), bwd {t["bwd"]:.4f} ms, fwd+bwd '
+          f'{t["fwd_bwd"]:.4f} ms')
+  for step in ('fwd', 'fwd_nograd', 'bwd', 'fwd_bwd'):
+    ms = times['device']['kernel'][step]
+    b_ms, by = bounds[step]
+    say(f'  {step}: bound {b_ms:.4f} ms ({by}); kernel at '
+        f'{100 * b_ms / ms:.1f}% of it (device time)')
 
 
 def phase_kernels(device='cuda', ragged=(37, 24, 1000),
-                  full=(500, 200, 20224)):
+                  full=(500, 200, 20224), union=(500, 200, 18117)):
+  import torch
   cases = [('mse', 0.0), ('mse', 3.0), ('logistic', 0.0)]
   errs = {}
-  for shape in (ragged, full):
+  for shape in (ragged, full, union):
     for kind, c in cases:
-      errs[(shape, kind, c)] = compare_kernel(*shape, kind, c, device)
+      *errs[(shape, kind, c)], f32 = compare_kernel(*shape, kind, c, device)
+      *_, bf16 = compare_kernel(*shape, kind, c, device, torch.bfloat16)
+      if not all(torch.equal(a, b) for a, b in zip(f32, bf16)):
+        raise AssertionError(f'{kind} c={c} {shape}: the bfloat16 target '
+                             'did not give the float32 run bit for bit')
+  say('  bfloat16 targets: loss and gradients bitwise those of float32')
   times = time_kernel(*full, 'mse', 3.0, device)
-  for name in ('kernel', 'plain'):
-    t = times[name]
-    say(f'  time {name:6s} mse c=3 {list(full)}: fwd {t["fwd"]:.4f} ms, '
-        f'bwd {t["bwd"]:.4f} ms, fwd+bwd {t["fwd_bwd"]:.4f} ms (median)')
-  main_err = errs[(full, 'mse', 3.0)]
-  return times, main_err
+  report_times(times, full, f'mse c=3 {list(full)}')
+  fb = {name: times['device'][name]['fwd_bwd'] for name in times['device']}
+  say(f'  fwd+bwd device time: kernel {fb["kernel"]:.4f} ms vs plain '
+      f'{fb["plain"]:.4f} ms')
+  loss_err = max(e[0] for e in errs.values())
+  grad_err = max(e[1] for e in errs.values())
+  return times, (loss_err, grad_err)
 
 
 # -- data ------------------------------------------------------------------
@@ -401,8 +545,12 @@ def phase_slice(matrix, device='cuda', epochs_timed=2):
     trainer.train(dataset, num_epochs=epoch, **common)
     rates.append(len(trainer.last_epoch_losses)
                  / trainer.last_epoch_seconds)
-  say(f'  steady epochs: {", ".join(f"{r:.2f}" for r in rates)} '
-      f'user-batches/s')
+  say(f'  steady epochs: ml20m_user_batches_per_sec '
+      f'{", ".join(f"{r:.2f}" for r in rates)}')
+  _, busy_ms, _ = profile_steps(trainer, sparse=False)
+  steady_ms = 1e3 / max(rates)
+  say(f'  steady step {steady_ms:.3f} ms without the profiler: the device '
+      f'idle ~{100 * (1 - busy_ms / steady_ms):.1f}% of it')
 
   users, _ = dataset[np.arange(500)]
   recs = np.asarray(trainer.recommend(users, 100))
@@ -583,7 +731,9 @@ def phase_spd(device='cuda', full=(16384, 128)):
   times = {'kernel': median_ms(lambda: spd.spd_solve_kernel(a, b), reps=10),
            'blocked': median_ms(lambda: spd.spd_solve_blocked(a, b, 32),
                                 reps=10),
-           'cholesky_ex+cholesky_solve': median_ms(cusolver, reps=10)}
+           'cholesky_ex+cholesky_solve': median_ms(cusolver, reps=10),
+           'linalg.solve': median_ms(lambda: torch.linalg.solve(a, b),
+                                     reps=10)}
   say('  time at the iALS shape (median of 10): '
       + ', '.join(f'{k} {v:.4f} ms' for k, v in times.items()))
   return err, times
@@ -677,7 +827,7 @@ def phase_ials_slice(matrix, device='cuda'):
   say(f'  fold-in of 500 training users: bitwise their stored factors '
       f'({fold_s:.3f} s); recommend k=100: in range, unseen, no repeats '
       f'({rec_s:.3f} s), identical after save -> load')
-  return launches, fit_s, sweep_s
+  return launches, n_user_chunks + n_item_chunks, fit_s, sweep_s
 
 
 # -- phase 9 ---------------------------------------------------------------
@@ -822,12 +972,21 @@ def phase_scatter(msd_ids, device='cuda', d=200):
   def kernel():
     rs.row_scatter_kernel(tables, ids, rows)
 
-  times = {'kernel': device_ms(kernel), 'plain': device_ms(plain)}
+  # before each timed call, a read of 256 MB (five times L2) writes the
+  # last call's rows back to HBM and leaves L2 clean and cold; its
+  # reduction kernel is not counted
+  sweep = torch.ones(2 ** 26, device=device)
+
+  def evict():
+    sweep.sum()
+
+  times = {name: device_ms(fn, between=evict, skip='reduce_kernel')
+           for name, fn in (('kernel', kernel), ('plain', plain))}
   wall = {'kernel': per_launch_ms(kernel), 'plain': per_launch_ms(plain)}
   moved = 3 * 2 * len(msd_ids) * d * 4
   say(f'  MSD shape: three [{N}, {d}] tables, {len(msd_ids)} ids: bitwise '
-      f'(also with a 64-slot sentinel tail); device time a call (profiler, '
-      f'20 calls) kernel {times["kernel"]:.4f} ms '
+      f'(also with a 64-slot sentinel tail); device time a call from a '
+      f'cold L2 (profiler, 20 calls) kernel {times["kernel"]:.4f} ms '
       f'({moved / times["kernel"] / 1e6:.1f} GB/s), index_copy_ x3 '
       f'{times["plain"]:.4f} ms; CUDA-event time a call (median of 10 x 20 '
       f'back to back, host included) {wall["kernel"]:.4f} / '
@@ -837,22 +996,30 @@ def phase_scatter(msd_ids, device='cuda', d=200):
 
 # -- phase 11 --------------------------------------------------------------
 
-def profile_steps(trainer, steps=10):
-  """torch.profiler over ``steps`` steady sparse steps: the top device
+def profile_steps(trainer, sparse, steps=10):
+  """torch.profiler over ``steps`` steady training steps (the sparse step
+  of union batches, or the dense full-decode step): the top device
   kernels and the device-idle share of the window."""
   import torch
   from torch.profiler import ProfilerActivity, profile
   source = trainer._source_cache[2]
   perm = source.epoch_permutation(trainer.current_epoch)
   steps = min(steps, source.steps_per_epoch - 3)
+
+  def step(s):
+    if sparse:
+      trainer._sparse_step_math(source.build_union_batch(perm, s))
+    else:
+      trainer._dense_step_math(source.build_fd_batch(perm, s))
+
   for s in range(3):  # warm
-    trainer._sparse_step_math(source.build_union_batch(perm, s))
+    step(s)
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
     t0 = time.time()
     for s in range(3, 3 + steps):
-      trainer._sparse_step_math(source.build_union_batch(perm, s))
+      step(s)
     torch.cuda.synchronize()
     wall_ms = (time.time() - t0) * 1e3
   events = prof.key_averages()
@@ -923,7 +1090,7 @@ def phase_sparse_slice(matrix, device='cuda', epochs_timed=2):
       f'{", ".join(f"{r:.2f}" for r in rates)}; epoch mean loss '
       + ' -> '.join(f'{m:.4f}' for m in means)
       + f'; peak device memory {peak:.2f} GiB')
-  step_ms, busy_ms, _ = profile_steps(trainer)
+  step_ms, busy_ms, _ = profile_steps(trainer, sparse=True)
   steady_ms = 1e3 / max(rates)
   say(f'  steady step {steady_ms:.3f} ms without the profiler: the device '
       f'idle ~{100 * (1 - busy_ms / steady_ms):.1f}% of it')
@@ -1002,11 +1169,8 @@ def phase_union_paths(train_m, msd_width, device='cuda', steps=20):
         f', max rel vs full decode {rel[name].max():.3g} (step 1 '
         f'{rel[name][0]:.3g}); launches {counts[name]}')
   times = time_kernel(500, 200, msd_width, 'mse', 3.0, device)
-  for name in ('kernel', 'plain'):
-    t = times[name]
-    say(f'  time {name:6s} mse c=3 [500, 200, {msd_width}] (an MSD union): '
-        f'fwd {t["fwd"]:.4f} ms, bwd {t["bwd"]:.4f} ms, fwd+bwd '
-        f'{t["fwd_bwd"]:.4f} ms (median)')
+  report_times(times, (500, 200, msd_width),
+               f'mse c=3 [500, 200, {msd_width}] (an MSD union)')
   return rel, times
 
 
@@ -1080,6 +1244,7 @@ def main():
   say(f'ML-20M-shaped CSR {matrix.shape}, nnz {matrix.nnz:,} '
       f'({time.time() - t0:.1f} s)')
   launches, epoch_rate, steady = run('4 slice', phase_slice, matrix)
+  ml20m_steps = -(-matrix.shape[0] // 500)
   say(f'  kernel launches in the epoch: {launches}')
   if any(v < 1 for v in launches.values()):
     raise AssertionError(f'the main path did not launch every kernel: '
@@ -1088,8 +1253,8 @@ def main():
   run('5 paths', phase_paths, train_m)
   run('6 quality', phase_quality, train_m, val_m)
   spd_err, spd_times = run('7 spd kernel', phase_spd)
-  launches['spd_solve'], ials_fit_s, ials_sweeps = run(
-      '8 ials slice', phase_ials_slice, matrix)
+  (launches['spd_solve'], ials_launches_per_sweep, ials_fit_s,
+   ials_sweeps) = run('8 ials slice', phase_ials_slice, matrix)
   del matrix
   run('9 ials quality', phase_ials_quality, train_m, val_m)
 
@@ -1103,27 +1268,49 @@ def main():
                                    msd_ids)
   (launches['row_scatter'], msd_first, msd_rates, msd_step_ms, msd_busy_ms,
    widths) = run('11 sparse slice', phase_sparse_slice, msd)
+  msd_steps = -(-msd.shape[0] // 500)
   del msd
   _, union_times = run('12 union paths', phase_union_paths, train_m,
                        int(round(widths.mean())))
   run('13 sparse quality', phase_sparse_quality, train_m, val_m)
 
+  # device times at the training shape (phase 3); the others are the
+  # phases' own measures (CUDA-event medians for the SPD solve, device
+  # times for the row scatter)
+  dev = times['device']
+  fdl_bounds = decode_loss_bounds(500, 200, 20224)
+  B_spd, d_spd = 16384, 128
+  n_ids, d_msd = len(msd_ids), 200
   measured = {
-      'fused_decode_loss_fwd': (loss_err, times['kernel']['fwd'],
-                                times['plain']['fwd']),
-      'fused_decode_loss_bwd': (grad_err, times['kernel']['bwd'],
-                                times['plain']['bwd']),
-      'spd_solve': (spd_err, spd_times['kernel'], spd_times['blocked']),
-      'row_scatter': (scatter_err, scatter_times['kernel'],
-                      scatter_times['plain']),
+      'fused_decode_loss_fwd': (
+          loss_err, dev['kernel']['fwd'], dev['plain']['fwd'], None,
+          fdl_bounds['fwd'], launches['fused_decode_loss_fwd'] / ml20m_steps),
+      'fused_decode_loss_bwd': (
+          grad_err, dev['kernel']['bwd'], dev['plain']['bwd'], None,
+          fdl_bounds['bwd'], launches['fused_decode_loss_bwd'] / ml20m_steps),
+      'spd_solve': (
+          spd_err, spd_times['kernel'], spd_times['blocked'],
+          spd_times['linalg.solve'],
+          bound(B_spd * (d_spd ** 3 / 3 + 2 * d_spd ** 2),
+                4.0 * B_spd * (d_spd * (d_spd + 1) / 2 + 2 * d_spd)),
+          ials_launches_per_sweep),
+      'row_scatter': (
+          scatter_err, scatter_times['kernel'], scatter_times['plain'],
+          scatter_times['plain'],
+          bound(0.0, 3 * 2 * n_ids * d_msd * 4.0 + 8 * n_ids),
+          launches['row_scatter'] / msd_steps),
   }
   kernels = [{'name': name, 'route': 'cuda', 'source': SOURCES[name],
               'replaces': REPLACES[name], 'launches': launches[name],
-              'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
-             for name, (err, ms, plain_ms) in measured.items()]
+              'launches_per_step': per_step, 'max_abs_err': err, 'ms': ms,
+              'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': by,
+              'library_ms': library_ms}
+             for name, (err, ms, plain_ms, library_ms, (bound_ms, by),
+                        per_step) in measured.items()]
   say(f'slice: {epoch_rate:.2f} user-batches/s first epoch, steady '
-      f'{max(steady):.2f}; fused fwd+bwd {times["kernel"]["fwd_bwd"]:.4f} '
-      f'ms vs plain {times["plain"]["fwd_bwd"]:.4f} ms; iALS fit '
+      f'{max(steady):.2f}; fused fwd+bwd {dev["kernel"]["fwd_bwd"]:.4f} '
+      f'ms vs plain {dev["plain"]["fwd_bwd"]:.4f} ms (device; the pair\'s '
+      f'bound {fdl_bounds["fwd_bwd"][0]:.4f} ms); iALS fit '
       f'{ials_fit_s:.3f} s, median sweep '
       f'{statistics.median(ials_sweeps):.3f} s; MSD sparse first epoch '
       f'{msd_first:.2f}, steady msd_user_batches_per_sec '
@@ -1131,8 +1318,8 @@ def main():
       f'{msd_busy_ms:.3f} ms of it on the device); row_scatter '
       f'{scatter_times["kernel"]:.4f} vs index_copy_ x3 '
       f'{scatter_times["plain"]:.4f} ms; fused fwd+bwd at an MSD union '
-      f'{union_times["kernel"]["fwd_bwd"]:.4f} vs plain '
-      f'{union_times["plain"]["fwd_bwd"]:.4f} ms; card {card}')
+      f'{union_times["device"]["kernel"]["fwd_bwd"]:.4f} vs plain '
+      f'{union_times["device"]["plain"]["fwd_bwd"]:.4f} ms; card {card}')
   say(json.dumps({'kernels': kernels}))
   say(card)
   say(json.dumps({'ok': True, 'device': {

@@ -29,6 +29,7 @@ decode, the serving path it needs, and iALS:
   recoder_tpu/ops/spd.py                -> recoder_tpu_torch.ops.spd
                                            + recoder_tpu_torch/kernels/spd_solve.cu
   recoder_tpu/models/ials.py            -> recoder_tpu_torch.models.ials
+  (new) the entry points' device       -> recoder_tpu_torch.device
 """
 
 __version__ = '0.2.0'

@@ -65,6 +65,8 @@ import math
 import numpy as np
 import torch
 
+from recoder_tpu_torch import device as device_lib
+
 log = logging.getLogger(__name__)
 
 
@@ -81,7 +83,8 @@ class DeviceDataSource:
     shuffle (str): 'users' draws every batch as a fresh random user
       subset; 'blocks' keeps users in fixed contiguous blocks and
       shuffles the block order each epoch.
-    device: where the slab and the union arrays live.
+    device: where the slab and the union arrays live: the card ('cuda')
+      unless the caller asks for 'cpu'.
     seed (int): seed of the epoch orders.
   """
 
@@ -89,7 +92,7 @@ class DeviceDataSource:
   SLAB_CACHE_MEMORY_FRACTION = 0.5
 
   def __init__(self, matrix, batch_size, num_sampling_users, num_items,
-               shuffle='users', device='cpu', seed=0):
+               shuffle='users', device=device_lib.DEFAULT, seed=0):
     if shuffle not in ('users', 'blocks'):
       raise ValueError(f'shuffle={shuffle!r}: expected users or blocks')
     if num_sampling_users != batch_size:
@@ -103,7 +106,7 @@ class DeviceDataSource:
       matrix.sum_duplicates()
     self.matrix = matrix
     self.shuffle = shuffle
-    self.device = torch.device(device)
+    self.device = device_lib.resolve(device)
     self.num_users_total = matrix.shape[0]
     self.num_items = int(num_items)
     self.batch_size = batch_size

@@ -2,64 +2,135 @@
 //
 // Replaces the Pallas TPU kernels of recoder_tpu/experiments/pallas_loss.py:
 // _fwd_kernel (reached through _fwd_call's pl.pallas_call) and _bwd_kernel
-// (through _bwd_call). It computes, for h [B, d], rows [W, d], bias [W],
-// target [B, W], row_mask [B] and col_mask [W] (all float32, row-major,
+// (through _bwd_call). For h [B, d], rows [W, d], bias [W], target [B, W]
+// (float32 or bfloat16), row_mask [B] and col_mask [W] (float32, row-major,
 // contiguous):
 //
 //   S      = h @ rows^T + bias                          (never stored)
 //   loss   = sum_ij  l(S_ij, T_ij) * row_mask_i * col_mask_j
-//   E_ij   = l'(S_ij, T_ij) * g * row_mask_i * col_mask_j  (never stored)
-//   dh     = E @ rows,   drows = E^T @ h,   dbias = sum_i E_ij
+//   E0_ij  = l'(S_ij, T_ij) * row_mask_i * col_mask_j
+//   dh     = g * E0 @ rows,  drows = g * E0^T @ h,  dbias = g * sum_i E0_ij
 //
 // with l the confidence-weighted MSE (1 + c*[t>0]) * (s - t)^2 or the
-// BCE-with-logits max(s,0) - s*t + log1p(exp(-|s|)).
+// BCE-with-logits max(s,0) - s*t + log1p(exp(-|s|)), and g the upstream
+// gradient, a device scalar read in the epilogue (no host sync).
 //
-// What bounds it on this card: at the training shape (B=500, d=200,
-// W=20,224) the three products are 4 GFLOP each and the [B, W] score and
-// cotangent matrices are 40 MB each in float32. The Pallas kernel's point
-// -- and this one's -- is that neither matrix reaches device memory: each
-// score tile is recomputed where it is consumed. This first version is
-// plain SIMT float32 (FMA from shared-memory tiles, no tensor cores), so
-// it is bound by shared-memory bandwidth in its inner loops, well below
-// the card's float32 rate.
+// Design: the cotangent is stashed, S is computed once a step.
+//   * decode_loss_fwd_kernel: one S tile per block (128 batch rows x 128
+//     items, K = d); the epilogue adds the tile's loss to ONE partial per
+//     block (summed by sum_partials_kernel in a fixed order) and, when a
+//     backward will follow, writes E0 in float32 ([B, lde], lde = W
+//     rounded up to 4, the pad columns zero). S itself never reaches
+//     device memory.
+//   * drows_dbias_kernel: [drows | dbias] = g * E0^T [h | 1] over
+//     128-item x 128-feature tiles, K = B: the loader puts a column of
+//     ones beside h in shared memory (never in global memory), so the
+//     tensor cores sum E0's columns for dbias in the same pass.
+//   * dh_splitk_kernel: dh = E0 rows, split-K over the items (about two
+//     blocks per SM), one [B, d] partial per split, summed in split order
+//     by sum_splits_kernel, which applies g.
+// No atomics anywhere: two runs are bitwise equal.
 //
-// Design, given that blocks run in parallel in no order (the TPU kernel
-// carried its sums across a sequential grid):
-//   * forward: grid (B tiles x W splits); each block walks its W range,
-//     accumulates its share of the loss, and writes ONE partial; a second
-//     single-block kernel sums the partials in a fixed order, so the loss
-//     is deterministic.
-//   * backward, dh: the same grid; each block keeps its [32, d] slice of
-//     dh in registers while it walks its W range, and writes it to a
-//     [splits, B, d] scratch; a second kernel sums the splits in a fixed
-//     order. No atomics.
-//   * backward, drows/dbias: grid over W tiles; each block keeps its
-//     [32, d] slice of drows in registers and walks all of B.
-// Any B, W >= 1 and 1 <= d <= 256 (the register accumulators are sized for
-// d <= 256); the ragged edges of both axes are masked here.
+// Work at the ML-20M step (B=500, d=200, W=20,224): 3 products of
+// 2*B*W*d = 4.04 GFLOP (12.1 GFLOP a step; the first version recomputed S
+// in both backward kernels, 5 products, 20.2 GFLOP). Bytes: the forward
+// reads 57.2 MB (target in float32; 37.0 MB in bfloat16) and writes the
+// 40.4 MB E0; the backward reads E0, h and rows (57.0 MB) and writes
+// 16.6 MB. On this card (495 TFLOP/s TF32, 3.35 TB/s) the products take
+// ~8 us each at the TF32 rate and the bytes ~17 us a kernel: one 40 MB
+// write and two reads of E0 cost less than two recomputed products.
+//
+// Products on the tensor cores at float32 accuracy (3xTF32): each operand
+// x is split in registers into hi = tf32_rna(x) and lo = tf32_rna(x - hi),
+// and the tile accumulates lo*hi + hi*lo + hi*hi in float32 through
+// mma.sync.m16n8k8 (TF32), which keeps the error near float32's (~2^-21
+// relative) where one TF32 pass would not. mma.sync and not wgmma: TF32
+// wgmma takes only K-major shared-memory operands, which suits S = h
+// rows^T but not E0^T h or E0 rows (rows and h are N-major there, E0^T
+// M-major); mma.sync loads its register fragments from shared memory in
+// any layout, so one main loop serves all three products.
+//
+// Tiles come in through cp.async into a 3-stage ring (16-byte copies when
+// d % 4 == 0 and the operands are 16-byte aligned, 4-byte copies
+// otherwise; ragged edges and the K edge of d are zero-filled in shared
+// memory, never padded in global memory). Each of the 8 warps owns a
+// 64 x 32 register tile (16 mma tiles of 16 x 8), so each k-step of 8
+// issues 48 mma.sync against 24 shared-memory loads. Shared-memory rows
+// are padded (K-major rows by 4 floats, M/N-major rows by 8) so that the
+// fragment loads of a warp hit 32 distinct banks.
+//
+// Any B, W >= 1 and 1 <= d <= 256.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include <algorithm>
 
 namespace {
 
-// 8 warps; the tile kernels' ~85-107 KB of shared memory fit two blocks on
-// an SM, so they are compiled for two (up to 128 registers a thread)
 constexpr int kThreads = 256;
 constexpr int kMaxD = 256;
-constexpr int kDPerLane = kMaxD / 32;   // feature columns per lane
-
-// forward / dh tiles: 32 batch rows x 64 item columns per step
-constexpr int kRowTileB = 32;
-constexpr int kRowTileW = 64;
-// drows / dbias tiles: 32 item columns x 64 batch rows per step
-constexpr int kColTileW = 32;
-constexpr int kColTileB = 64;
+// block tile kBM x kBN, k-step kBK; 8 warps as 2 (M) x 4 (N)
+constexpr int kBM = 128;
+constexpr int kBN = 128;
+constexpr int kBK = 32;
+constexpr int kStages = 3;
+constexpr int kWarpsN = 4;
+constexpr int kWM = 64;
+constexpr int kWN = 32;
+constexpr int kMT = kWM / 16;  // mma tiles along M per warp
+constexpr int kNT = kWN / 8;   // mma tiles along N per warp
+constexpr int kPadK = 4;       // K-major shared rows: kBK + 4 floats
+constexpr int kPadMN = 8;      // M/N-major shared rows: rows + 8 floats
 
 constexpr int kMse = 0;
 constexpr int kLogistic = 1;
+
+// The three products. A is [M, K], B is [N, K]; "K-major" means k is the
+// contiguous index in global memory.
+//   kFwd:   A = h [B, d] K-major,      B = rows [W, d] K-major
+//   kDrows: A = E0^T (E0 [B, lde]) M-major, B = h (as [d, B]) N-major
+//   kDh:    A = E0 [B, lde] K-major,   B = rows (as [d, W]) N-major
+constexpr int kFwd = 0;
+constexpr int kDrows = 1;
+constexpr int kDh = 2;
+
+struct Params {
+  const float* a;
+  const float* b;
+  int lda, ldb;
+  int M, N, K;
+  int ktiles;  // k tiles of one split (blockIdx.z)
+  // forward epilogue
+  const float* bias;
+  const void* target;
+  int target_bf16;
+  const float* row_mask;
+  const float* col_mask;
+  int kind;
+  float confidence;
+  float* e0;  // null: no backward follows, no E0
+  int lde;
+  float* partials;
+  // backward epilogues
+  const float* g;
+  float* out;
+  float* dbias;
+};
+
+__host__ __device__ constexpr bool a_kmajor(int op) { return op != kDrows; }
+__host__ __device__ constexpr bool b_kmajor(int op) { return op == kFwd; }
+__host__ __device__ constexpr int tile_floats(int rows, bool kmajor) {
+  return kmajor ? rows * (kBK + kPadK) : kBK * (rows + kPadMN);
+}
+__host__ __device__ constexpr int stage_floats(int op) {
+  return tile_floats(kBM, a_kmajor(op)) + tile_floats(kBN, b_kmajor(op));
+}
+__host__ __device__ constexpr size_t smem_bytes(int op) {
+  return (size_t)kStages * stage_floats(op) * sizeof(float);
+}
 
 __device__ __forceinline__ float elem_loss(float s, float t, int kind,
                                            float confidence) {
@@ -80,19 +151,6 @@ __device__ __forceinline__ float elem_dloss(float s, float t, int kind,
   return 1.f / (1.f + expf(-s)) - t;
 }
 
-// Copy rows [row0, row0 + tile_rows) of a row-major [n_rows, d] matrix into
-// shared memory with row stride ld; rows past n_rows are zero.
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int n_rows, int d, int ld,
-                                          int tile_rows) {
-  for (int idx = threadIdx.x; idx < tile_rows * d; idx += kThreads) {
-    const int r = idx / d;
-    const int k = idx - r * d;
-    const int gr = row0 + r;
-    dst[r * ld + k] = gr < n_rows ? src[(long long)gr * d + k] : 0.f;
-  }
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -100,240 +158,308 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One block per (32-row batch tile, W split). Shared memory:
-// hs [kRowTileB][ld], rs [kRowTileW][ld], es [kRowTileB][kRowTileW].
-// kGrad=false: writes the block's loss partial.
-// kGrad=true:  writes the block's partial dh rows to dh_partials[split].
-template <bool kGrad>
-__global__ void __launch_bounds__(kThreads, 2)
-rowtile_kernel(const float* __restrict__ h, const float* __restrict__ rows,
-               const float* __restrict__ bias,
-               const float* __restrict__ target,
-               const float* __restrict__ row_mask,
-               const float* __restrict__ col_mask,
-               const float* __restrict__ g, int B, int W, int d, int ld,
-               int kind, float confidence,
-               float* __restrict__ loss_partials,
-               float* __restrict__ dh_partials) {
-  extern __shared__ float smem[];
-  float* hs = smem;
-  float* rs = hs + kRowTileB * ld;
-  float* es = rs + kRowTileW * ld;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 5;  // warp: batch rows ty + 8*i
-  const int tx = tid & 31;  // lane: item columns tx + 32*j, features tx + 32*q
-  const int i0 = blockIdx.x * kRowTileB;
-  const int n_wtiles = (W + kRowTileW - 1) / kRowTileW;
-  const int per_split = (n_wtiles + gridDim.y - 1) / gridDim.y;
-  const int t_begin = blockIdx.y * per_split;
-  const int t_end = min(t_begin + per_split, n_wtiles);
-  const float gscale = kGrad ? *g : 1.f;
+// src_ok false zero-fills the destination and reads nothing
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool src_ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_ok ? 16 : 0)
+               : "memory");
+}
 
-  load_tile(hs, h, i0, B, d, ld, kRowTileB);
-  float rmask[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gi = i0 + ty + 8 * i;
-    rmask[i] = gi < B ? row_mask[gi] : 0.f;
-  }
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool src_ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_ok ? 4 : 0)
+               : "memory");
+}
 
-  float loss_acc = 0.f;
-  float dh_acc[4][kDPerLane];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int q = 0; q < kDPerLane; ++q) dh_acc[i][q] = 0.f;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  for (int t = t_begin; t < t_end; ++t) {
-    const int j0 = t * kRowTileW;
-    __syncthreads();  // previous step's readers of rs / es are done
-    load_tile(rs, rows, j0, W, d, ld, kRowTileW);
-    __syncthreads();
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
 
-    float s[4][2];
+// Start copying the [kRows x kBK] tile at (r0, k0) of an operand into
+// shared memory. K-major: element (r, k) at g[r * ld + k], stored [r][kBK +
+// kPadK]; else at g[k * ld + r], stored [k][kRows + kPadMN]. Elements with
+// r >= R or k >= K are zero. The 16-byte path needs ld % 4 == 0, a 16-byte
+// aligned g, and every 4-element run either inside the operand or past its
+// edge: the caller's E0 pads its rows with zeros to lde. kOnes (M/N-major
+// only): row r == R holds ones for k < K instead, so that the product's
+// column R sums A's rows over k.
+template <int kRows, bool kKMajor, bool kVec, bool kOnes = false>
+__device__ __forceinline__ void load_tile(float* s, const float* __restrict__ g,
+                                          int ld, int R, int K, int r0,
+                                          int k0) {
+  if (kKMajor) {
+    constexpr int kLd = kBK + kPadK;
+    if (kVec) {
+      constexpr int kPerRow = kBK / 4;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
-    for (int k = 0; k < d; ++k) {
-      float a[4], b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = hs[(ty + 8 * i) * ld + k];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) b[j] = rs[(tx + 32 * j) * ld + k];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gi = i0 + ty + 8 * i;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int gj = j0 + tx + 32 * j;
-        float e = 0.f;
-        if (gi < B && gj < W) {
-          const float sv = s[i][j] + bias[gj];
-          const float tv = target[(long long)gi * W + gj];
-          if (kGrad) {
-            e = elem_dloss(sv, tv, kind, confidence) *
-                (gscale * rmask[i] * col_mask[gj]);
-          } else {
-            loss_acc += elem_loss(sv, tv, kind, confidence) * rmask[i] *
-                        col_mask[gj];
-          }
-        }
-        if (kGrad) es[(ty + 8 * i) * kRowTileW + tx + 32 * j] = e;
+      for (int c = threadIdx.x; c < kRows * kPerRow; c += kThreads) {
+        const int r = c / kPerRow, k = (c % kPerRow) * 4;
+        const bool ok = r0 + r < R && k0 + k < K;
+        cp_async16(s + r * kLd + k, ok ? g + (size_t)(r0 + r) * ld + k0 + k
+                                       : g, ok);
       }
-    }
-
-    if (kGrad) {
-      __syncthreads();
-      for (int k = 0; k < kRowTileW; ++k) {
-        float r[kDPerLane];
-#pragma unroll
-        for (int q = 0; q < kDPerLane; ++q) {
-          const int dd = tx + 32 * q;
-          r[q] = dd < d ? rs[k * ld + dd] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float e = es[(ty + 8 * i) * kRowTileW + k];
-#pragma unroll
-          for (int q = 0; q < kDPerLane; ++q)
-            dh_acc[i][q] = fmaf(e, r[q], dh_acc[i][q]);
-        }
-      }
-    }
-  }
-
-  if (kGrad) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gi = i0 + ty + 8 * i;
-      if (gi >= B) continue;
-      float* out = dh_partials + ((long long)blockIdx.y * B + gi) * d;
-#pragma unroll
-      for (int q = 0; q < kDPerLane; ++q) {
-        const int dd = tx + 32 * q;
-        if (dd < d) out[dd] = dh_acc[i][q];
+    } else {
+#pragma unroll 4
+      for (int c = threadIdx.x; c < kRows * kBK; c += kThreads) {
+        const int r = c / kBK, k = c % kBK;
+        const bool ok = r0 + r < R && k0 + k < K;
+        cp_async4(s + r * kLd + k, ok ? g + (size_t)(r0 + r) * ld + k0 + k
+                                      : g, ok);
       }
     }
   } else {
+    constexpr int kLd = kRows + kPadMN;
+    if (kVec) {
+      constexpr int kPerK = kRows / 4;
+#pragma unroll
+      for (int c = threadIdx.x; c < kBK * kPerK; c += kThreads) {
+        const int k = c / kPerK, r = (c % kPerK) * 4;
+        const bool ok = r0 + r < R && k0 + k < K;
+        if (kOnes && r0 + r == R)
+          *reinterpret_cast<float4*>(s + k * kLd + r) =
+              make_float4(k0 + k < K ? 1.f : 0.f, 0.f, 0.f, 0.f);
+        else
+          cp_async16(s + k * kLd + r,
+                     ok ? g + (size_t)(k0 + k) * ld + r0 + r : g, ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int c = threadIdx.x; c < kBK * kRows; c += kThreads) {
+        const int k = c / kRows, r = c % kRows;
+        const bool ok = r0 + r < R && k0 + k < K;
+        if (kOnes && r0 + r == R)
+          s[k * kLd + r] = k0 + k < K ? 1.f : 0.f;
+        else
+          cp_async4(s + k * kLd + r,
+                    ok ? g + (size_t)(k0 + k) * ld + r0 + r : g, ok);
+      }
+    }
+  }
+}
+
+// element (r, k) of a shared tile of kRows rows
+template <int kRows, bool kKMajor>
+__device__ __forceinline__ float tile_at(const float* s, int r, int k) {
+  return kKMajor ? s[r * (kBK + kPadK) + k] : s[k * (kRows + kPadMN) + r];
+}
+
+// x = hi + lo, both TF32 (round to nearest, ties away). Two bit-identical
+// forms: cvt.rna, or the same rounding in integer arithmetic, which issues
+// faster but holds more registers; only dh's main loop spills with it.
+template <int kOp>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  if constexpr (kOp == kDh) {
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+    const float rest = x - __uint_as_float(hi);
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+  } else {
+    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    const float rest = x - __uint_as_float(hi);
+    lo = (__float_as_uint(rest) + 0x1000u) & 0xffffe000u;
+  }
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc += A_tile B_tile^T over one k tile, 3xTF32. Fragment layouts of
+// m16n8k8 (g = lane / 4, t = lane % 4): A (g | g+8, t | t+4), B (n = g,
+// k = t | t+4), C (g | g+8, 2t | 2t+1).
+template <int kOp>
+__device__ __forceinline__ void mma_tile(const float* as, const float* bs,
+                                         float (&acc)[kMT][kNT][4], int wm,
+                                         int wn, int g, int t) {
+  constexpr bool ak = a_kmajor(kOp), bk = b_kmajor(kOp);  // K-major?
+#pragma unroll
+  for (int kk = 0; kk < kBK; kk += 8) {
+    uint32_t bh[kNT][2], bl[kNT][2];
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni) {
+      const int n = wn + ni * 8 + g;
+      split_tf32<kOp>(tile_at<kBN, bk>(bs, n, kk + t), bh[ni][0], bl[ni][0]);
+      split_tf32<kOp>(tile_at<kBN, bk>(bs, n, kk + t + 4), bh[ni][1],
+                      bl[ni][1]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi) {
+      const int r = wm + mi * 16 + g;
+      uint32_t ah[4], al[4];
+      split_tf32<kOp>(tile_at<kBM, ak>(as, r, kk + t), ah[0], al[0]);
+      split_tf32<kOp>(tile_at<kBM, ak>(as, r + 8, kk + t), ah[1], al[1]);
+      split_tf32<kOp>(tile_at<kBM, ak>(as, r, kk + t + 4), ah[2], al[2]);
+      split_tf32<kOp>(tile_at<kBM, ak>(as, r + 8, kk + t + 4), ah[3], al[3]);
+#pragma unroll
+      for (int ni = 0; ni < kNT; ++ni) {
+        mma_tf32(acc[mi][ni], al, bh[ni]);
+        mma_tf32(acc[mi][ni], ah, bl[ni]);
+        mma_tf32(acc[mi][ni], ah, bh[ni]);
+      }
+    }
+  }
+}
+
+// One [kBM x kBN] output tile of A B^T over this block's k range, then the
+// product's epilogue.
+template <int kOp, bool kVec>
+__device__ __forceinline__ void tile_product(const Params& p) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kAFloats = tile_floats(kBM, a_kmajor(kOp));
+  constexpr int kStage = stage_floats(kOp);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp / kWarpsN) * kWM, wn = (warp % kWarpsN) * kWN;
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  const int kt0 = blockIdx.z * p.ktiles;
+  const int nk = min(p.ktiles, (p.K + kBK - 1) / kBK - kt0);
+
+  auto load_stage = [&](int i) {
+    float* s = smem + (i % kStages) * kStage;
+    const int k0 = (kt0 + i) * kBK;
+    load_tile<kBM, a_kmajor(kOp), kVec>(s, p.a, p.lda, p.M, p.K, m0, k0);
+    // kDrows: h gets a column of ones at n = d, which makes the product's
+    // column d the column sums of E0 (dbias)
+    load_tile<kBN, b_kmajor(kOp), kVec, kOp == kDrows>(
+        s + kAFloats, p.b, p.ldb, p.N, p.K, n0, k0);
+  };
+
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < nk) load_stage(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nk; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile i landed; every warp is done with tile i - 1
+    if (i + kStages - 1 < nk) load_stage(i + kStages - 1);
+    cp_async_commit();
+    const float* s = smem + (i % kStages) * kStage;
+    mma_tile<kOp>(s, s + kAFloats, acc, wm, wn, g, t);
+  }
+  cp_async_wait<0>();
+
+  // acc[mi][ni][2 * hf + c] is element (wm + mi*16 + g + 8*hf,
+  // wn + ni*8 + 2t + c) of the tile
+  if constexpr (kOp == kFwd) {
     __shared__ float warp_partials[kThreads / 32];
-    const float v = warp_sum(loss_acc);
-    if (tx == 0) warp_partials[ty] = v;
+    float loss = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = m0 + wm + mi * 16 + g + 8 * hf;
+        if (row >= p.M) continue;
+        const float rm = p.row_mask[row];
+        const size_t trow = (size_t)row * p.N;
+#pragma unroll
+        for (int ni = 0; ni < kNT; ++ni) {
+          const int col0 = n0 + wn + ni * 8 + 2 * t;
+          float e[2] = {0.f, 0.f};
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int col = col0 + c;
+            if (col < p.N) {
+              const float s = acc[mi][ni][2 * hf + c] + p.bias[col];
+              const float tv =
+                  p.target_bf16
+                      ? __bfloat162float(static_cast<const __nv_bfloat16*>(
+                            p.target)[trow + col])
+                      : static_cast<const float*>(p.target)[trow + col];
+              const float w = rm * p.col_mask[col];
+              loss += elem_loss(s, tv, p.kind, p.confidence) * w;
+              e[c] = elem_dloss(s, tv, p.kind, p.confidence) * w;
+            }
+          }
+          // lde and col0 are even: the pair lies inside [0, lde) or past it
+          if (p.e0 != nullptr && col0 < p.lde)
+            *reinterpret_cast<float2*>(p.e0 + (size_t)row * p.lde + col0) =
+                make_float2(e[0], e[1]);
+        }
+      }
+    loss = warp_sum(loss);
+    if (lane == 0) warp_partials[warp] = loss;
     __syncthreads();
     if (tid == 0) {
       float total = 0.f;
       for (int w = 0; w < kThreads / 32; ++w) total += warp_partials[w];
-      loss_partials[blockIdx.y * gridDim.x + blockIdx.x] = total;
+      p.partials[blockIdx.y * gridDim.x + blockIdx.x] = total;
     }
+  } else {
+    // kDrows: out = drows [W, d], scaled by g; kDh: out = this split's
+    // [B, d] partial, unscaled
+    const float scale = kOp == kDrows ? *p.g : 1.f;
+    float* out = p.out + (kOp == kDh ? (size_t)blockIdx.z * p.M * p.N : 0);
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = m0 + wm + mi * 16 + g + 8 * hf;
+        if (row >= p.M) continue;
+#pragma unroll
+        for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int col = n0 + wn + ni * 8 + 2 * t + c;
+            if (col < p.N)
+              out[(size_t)row * p.N + col] = scale * acc[mi][ni][2 * hf + c];
+            else if (kOp == kDrows && col == p.N)
+              p.dbias[row] = scale * acc[mi][ni][2 * hf + c];
+          }
+      }
   }
 }
 
-// One block per 32-column item tile; walks all of B in 64-row steps.
-// Shared memory: rs [kColTileW][ld], hs [kColTileB][ld],
-// es [kColTileB][kColTileW].
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
-coltile_grad_kernel(const float* __restrict__ h,
-                    const float* __restrict__ rows,
-                    const float* __restrict__ bias,
-                    const float* __restrict__ target,
-                    const float* __restrict__ row_mask,
-                    const float* __restrict__ col_mask,
-                    const float* __restrict__ g, int B, int W, int d, int ld,
-                    int kind, float confidence, float* __restrict__ drows,
-                    float* __restrict__ dbias) {
-  extern __shared__ float smem[];
-  float* rs = smem;
-  float* hs = rs + kColTileW * ld;
-  float* es = hs + kColTileB * ld;
+    decode_loss_fwd_kernel(const Params p) {
+  tile_product<kFwd, kVec>(p);
+}
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 5;
-  const int tx = tid & 31;
-  const int j0 = blockIdx.x * kColTileW;
-  const int gj = j0 + tx;  // this lane's score column
-  const bool col_ok = gj < W;
-  const float bj = col_ok ? bias[gj] : 0.f;
-  const float cm = col_ok ? col_mask[gj] : 0.f;
-  const float gscale = *g;
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+    drows_dbias_kernel(const Params p) {
+  tile_product<kDrows, kVec>(p);
+}
 
-  load_tile(rs, rows, j0, W, d, ld, kColTileW);
-
-  // drows accumulators: item columns ty + 8*i, features tx + 32*q
-  float acc[4][kDPerLane];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int q = 0; q < kDPerLane; ++q) acc[i][q] = 0.f;
-  float db = 0.f;
-
-  for (int i0 = 0; i0 < B; i0 += kColTileB) {
-    __syncthreads();
-    load_tile(hs, h, i0, B, d, ld, kColTileB);
-    __syncthreads();
-
-    float s[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s[i] = 0.f;
-    for (int k = 0; k < d; ++k) {
-      const float b = rs[tx * ld + k];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        s[i] = fmaf(hs[(ty + 8 * i) * ld + k], b, s[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int gi = i0 + ty + 8 * i;
-      float e = 0.f;
-      if (gi < B && col_ok) {
-        const float tv = target[(long long)gi * W + gj];
-        e = elem_dloss(s[i] + bj, tv, kind, confidence) *
-            (gscale * row_mask[gi] * cm);
-      }
-      es[(ty + 8 * i) * kColTileW + tx] = e;
-    }
-    __syncthreads();
-
-    for (int r = 0; r < kColTileB; ++r) {
-      float hv[kDPerLane];
-#pragma unroll
-      for (int q = 0; q < kDPerLane; ++q) {
-        const int dd = tx + 32 * q;
-        hv[q] = dd < d ? hs[r * ld + dd] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float e = es[r * kColTileW + ty + 8 * i];
-#pragma unroll
-        for (int q = 0; q < kDPerLane; ++q) acc[i][q] = fmaf(e, hv[q], acc[i][q]);
-      }
-    }
-    if (ty == 0) {
-      for (int r = 0; r < kColTileB; ++r) db += es[r * kColTileW + tx];
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = j0 + ty + 8 * i;
-    if (c >= W) continue;
-#pragma unroll
-    for (int q = 0; q < kDPerLane; ++q) {
-      const int dd = tx + 32 * q;
-      if (dd < d) drows[(long long)c * d + dd] = acc[i][q];
-    }
-  }
-  if (ty == 0 && col_ok) dbias[gj] = db;
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+    dh_splitk_kernel(const Params p) {
+  tile_product<kDh, kVec>(p);
 }
 
 // out[0] = sum of partials[0..n), in a fixed order (one block).
 __global__ void __launch_bounds__(kThreads)
-sum_partials_kernel(const float* __restrict__ partials, int n,
-                    float* __restrict__ out) {
+    sum_partials_kernel(const float* __restrict__ partials, int n,
+                        float* __restrict__ out) {
   __shared__ float warp_partials[kThreads / 32];
   float v = 0.f;
   for (int i = threadIdx.x; i < n; i += kThreads) v += partials[i];
@@ -347,126 +473,191 @@ sum_partials_kernel(const float* __restrict__ partials, int n,
   }
 }
 
-// out[i] = sum_s parts[s * n + i], s in order.
+// out[i] = g * sum_s parts[s * n + i], s in order.
 __global__ void __launch_bounds__(kThreads)
-sum_splits_kernel(const float* __restrict__ parts, int nsplit, long long n,
-                  float* __restrict__ out) {
+    sum_splits_kernel(const float* __restrict__ parts, int nsplit,
+                      long long n, const float* __restrict__ g,
+                      float* __restrict__ out) {
+  const float scale = *g;
   for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < n;
        i += (long long)gridDim.x * kThreads) {
     float v = 0.f;
     for (int s = 0; s < nsplit; ++s) v += parts[s * n + i];
-    out[i] = v;
+    out[i] = scale * v;
   }
 }
 
-// Row stride of the shared-memory tiles: odd, so that the 32 lanes of a
-// warp reading one feature of 32 consecutive rows hit 32 distinct banks.
-int tile_ld(int d) { return d | 1; }
+int round4(int n) { return (n + 3) & ~3; }
+int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-size_t smem_bytes(int ld) {
-  // both tile kernels hold 96 rows of width ld plus a 32 x 64 cotangent tile
-  return ((size_t)(kRowTileB + kRowTileW) * ld + kRowTileB * kRowTileW) *
-         sizeof(float);
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-bool bad_args(int B, int W, int d, int nsplit, int kind) {
-  return B < 1 || W < 1 || d < 1 || d > kMaxD || nsplit < 1 ||
-         (kind != kMse && kind != kLogistic);
+bool bad_args(int B, int W, int d) {
+  return B < 1 || W < 1 || d < 1 || d > kMaxD;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, size_t bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace
 
 extern "C" {
 
-int fdl_max_d() { return kMaxD; }
-
-int fdl_row_tile() { return kRowTileB; }
-
-// W splits for the forward and dh grids: about two blocks per SM.
-int fdl_num_splits(int B, int W, int device, int* nsplit) {
-  if (B < 1 || W < 1) return cudaErrorInvalidValue;
-  int sms = 0;
-  const cudaError_t err =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  const int n_btiles = (B + kRowTileB - 1) / kRowTileB;
-  const int n_wtiles = (W + kRowTileW - 1) / kRowTileW;
-  *nsplit = std::max(1, std::min(n_wtiles,
-                                 (2 * sms + n_btiles - 1) / n_btiles));
-  return cudaSuccess;
-}
-
 const char* fdl_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Forward: out[0] = masked sum loss. partials: float[ceil(B/32) * nsplit].
+int fdl_max_d() { return kMaxD; }
+
+// The launch plan of one shape on a card with `sms` SMs:
+// out[0] forward partials (= forward blocks), out[1] k tiles per dh split,
+// out[2] dh splits, out[3] lde (E0's row stride).
+int fdl_plan(int B, int W, int d, int sms, int* out) {
+  if (bad_args(B, W, d) || sms < 1) return cudaErrorInvalidValue;
+  const int nk = cdiv(W, kBK);
+  const int tiles = cdiv(B, kBM) * cdiv(d, kBN);
+  int splits = std::max(1, std::min(nk, cdiv(2 * sms, tiles)));
+  const int per = cdiv(nk, splits);
+  splits = cdiv(nk, per);
+  out[0] = cdiv(B, kBM) * cdiv(W, kBN);
+  out[1] = per;
+  out[2] = splits;
+  out[3] = round4(W);
+  return cudaSuccess;
+}
+
+// Once per device: the tile kernels' shared-memory limits.
+int fdl_configure(int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = allow_smem(decode_loss_fwd_kernel<true>, smem_bytes(kFwd));
+  if (err == cudaSuccess)
+    err = allow_smem(decode_loss_fwd_kernel<false>, smem_bytes(kFwd));
+  if (err == cudaSuccess)
+    err = allow_smem(drows_dbias_kernel<true>, smem_bytes(kDrows));
+  if (err == cudaSuccess)
+    err = allow_smem(drows_dbias_kernel<false>, smem_bytes(kDrows));
+  if (err == cudaSuccess)
+    err = allow_smem(dh_splitk_kernel<true>, smem_bytes(kDh));
+  if (err == cudaSuccess)
+    err = allow_smem(dh_splitk_kernel<false>, smem_bytes(kDh));
+  return err;
+}
+
+// Forward: out[0] = masked sum loss; with e0 non-null also E0 [B, lde].
+// target_bf16: target holds bfloat16, else float32. partials: float[out[0]
+// of fdl_plan].
 int fdl_forward(const float* h, const float* rows, const float* bias,
-                const float* target, const float* row_mask,
+                const void* target, int target_bf16, const float* row_mask,
                 const float* col_mask, int B, int W, int d, int kind,
-                float confidence, int nsplit, float* partials, float* out,
-                int device, void* stream) {
-  if (bad_args(B, W, d, nsplit, kind)) return cudaErrorInvalidValue;
+                float confidence, float* e0, int lde, float* partials,
+                float* out, int device, void* stream) {
+  if (bad_args(B, W, d) || (kind != kMse && kind != kLogistic) ||
+      (e0 != nullptr && lde != round4(W)))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int ld = tile_ld(d);
-  const size_t smem = smem_bytes(ld);
-  err = cudaFuncSetAttribute(rowtile_kernel<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
+  Params p = {};
+  p.a = h;
+  p.b = rows;
+  p.lda = p.ldb = d;
+  p.M = B;
+  p.N = W;
+  p.K = d;
+  p.ktiles = cdiv(d, kBK);
+  p.bias = bias;
+  p.target = target;
+  p.target_bf16 = target_bf16;
+  p.row_mask = row_mask;
+  p.col_mask = col_mask;
+  p.kind = kind;
+  p.confidence = confidence;
+  p.e0 = e0;
+  p.lde = lde;
+  p.partials = partials;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((B + kRowTileB - 1) / kRowTileB, nsplit);
-  rowtile_kernel<false><<<grid, kThreads, smem, s>>>(
-      h, rows, bias, target, row_mask, col_mask, nullptr, B, W, d, ld, kind,
-      confidence, partials, nullptr);
+  const dim3 grid(cdiv(B, kBM), cdiv(W, kBN));
+  if (d % 4 == 0 && aligned16(h) && aligned16(rows))
+    decode_loss_fwd_kernel<true><<<grid, kThreads, smem_bytes(kFwd), s>>>(p);
+  else
+    decode_loss_fwd_kernel<false><<<grid, kThreads, smem_bytes(kFwd), s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   sum_partials_kernel<<<1, kThreads, 0, s>>>(partials, grid.x * grid.y, out);
   return cudaGetLastError();
 }
 
-// Backward: dh [B, d], drows [W, d], dbias [W] for upstream gradient *g
-// (a device scalar). dh_partials: float[nsplit * B * d].
-int fdl_backward(const float* g, const float* h, const float* rows,
-                 const float* bias, const float* target,
-                 const float* row_mask, const float* col_mask, int B, int W,
-                 int d, int kind, float confidence, int nsplit,
-                 float* dh_partials, float* dh, float* drows, float* dbias,
-                 int device, void* stream) {
-  if (bad_args(B, W, d, nsplit, kind)) return cudaErrorInvalidValue;
+// Backward from the stashed E0 [B, lde]: dh [B, d], drows [W, d], dbias
+// [W] for the upstream gradient *g (a device scalar). ktiles, nsplit:
+// out[1], out[2] of fdl_plan. dh_partials: float[nsplit * B * d].
+int fdl_backward(const float* g, const float* e0, int lde, const float* h,
+                 const float* rows, int B, int W, int d, int ktiles,
+                 int nsplit, float* dh_partials, float* dh, float* drows,
+                 float* dbias, int device, void* stream) {
+  if (bad_args(B, W, d) || lde != round4(W) || ktiles < 1 || nsplit < 1 ||
+      (long long)ktiles * nsplit < cdiv(W, kBK) ||
+      (long long)ktiles * (nsplit - 1) >= cdiv(W, kBK))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int ld = tile_ld(d);
-  const size_t smem = smem_bytes(ld);
-  err = cudaFuncSetAttribute(rowtile_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(coltile_grad_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = d % 4 == 0 && aligned16(e0) && aligned16(h) &&
+                   aligned16(rows);
 
-  const dim3 grid_rows((B + kRowTileB - 1) / kRowTileB, nsplit);
-  rowtile_kernel<true><<<grid_rows, kThreads, smem, s>>>(
-      h, rows, bias, target, row_mask, col_mask, g, B, W, d, ld, kind,
-      confidence, nullptr, dh_partials);
+  Params p = {};
+  p.a = e0;
+  p.lda = lde;
+  p.b = h;
+  p.ldb = d;
+  p.M = W;
+  p.N = d;
+  p.K = B;
+  p.ktiles = cdiv(B, kBK);
+  p.g = g;
+  p.out = drows;
+  p.dbias = dbias;
+  const dim3 grid_rows(cdiv(W, kBM), cdiv(d + 1, kBN));  // + dbias column
+  if (vec)
+    drows_dbias_kernel<true>
+        <<<grid_rows, kThreads, smem_bytes(kDrows), s>>>(p);
+  else
+    drows_dbias_kernel<false>
+        <<<grid_rows, kThreads, smem_bytes(kDrows), s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  p = Params{};
+  p.a = e0;
+  p.lda = lde;
+  p.b = rows;
+  p.ldb = d;
+  p.M = B;
+  p.N = d;
+  p.K = W;
+  p.ktiles = ktiles;
+  p.out = dh_partials;
+  const dim3 grid_dh(cdiv(B, kBM), cdiv(d, kBN), nsplit);
+  if (vec)
+    dh_splitk_kernel<true><<<grid_dh, kThreads, smem_bytes(kDh), s>>>(p);
+  else
+    dh_splitk_kernel<false><<<grid_dh, kThreads, smem_bytes(kDh), s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const long long n = (long long)B * d;
-  const int sum_blocks = (int)((n + kThreads - 1) / kThreads);
+  const int sum_blocks = (int)std::min<long long>((n + kThreads - 1) / kThreads,
+                                                  4096);
   sum_splits_kernel<<<sum_blocks, kThreads, 0, s>>>(dh_partials, nsplit, n,
-                                                     dh);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const dim3 grid_cols((W + kColTileW - 1) / kColTileW);
-  coltile_grad_kernel<<<grid_cols, kThreads, smem, s>>>(
-      h, rows, bias, target, row_mask, col_mask, g, B, W, d, ld, kind,
-      confidence, drows, dbias);
+                                                    g, dh);
   return cudaGetLastError();
 }
 

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from recoder_tpu_torch import __version__, convert
+from recoder_tpu_torch import device as device_lib
 from recoder_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from recoder_tpu_torch.data.device_pipeline import DeviceDataSource
 from recoder_tpu_torch.metrics import RecommenderEvaluator
@@ -101,14 +102,14 @@ class Recoder:
     user_based / item_based (bool): consistency checks between the model
       and datasets.
     seed (int): seed of the init, permutation and dropout generators.
-    device: where the model, the slab and every step live ('cuda' on
-      the GPU).
+    device: where the model, the slab and every step live: the card
+      ('cuda') unless the caller asks for 'cpu'.
   """
 
   def __init__(self, model: FactorizationModel, num_items=None,
                num_users=None, optimizer_type='sgd', loss='mse',
                loss_params=None, user_based=True, item_based=True,
-               seed=42, device='cpu'):
+               seed=42, device=device_lib.DEFAULT):
     if optimizer_type not in KINDS:
       raise ValueError(f'Unknown optimizer kind {optimizer_type}')
     self.model = model
@@ -120,7 +121,7 @@ class Recoder:
     self.user_based = user_based
     self.item_based = item_based
     self.seed = seed
-    self.device = torch.device(device)
+    self.device = device_lib.resolve(device)
 
     self.optimizer = None
     self.sparse_adam = SparseRowAdam()
@@ -280,8 +281,9 @@ class Recoder:
     model = self.model
     valid_users = batch['num_users']
     if 'slab' in batch:
-      slab = batch['slab']
-      # the slab's storage dtype holds every value exactly
+      # the slab's storage dtype holds every value exactly: the encoder
+      # takes it upcast, the fused kernel reads it as it is
+      slab = target = batch['slab']
       input_dense = slab.float()
       B, W = input_dense.shape
       in_catalog = torch.arange(W, device=slab.device) < model.num_items
@@ -294,7 +296,7 @@ class Recoder:
     else:
       items = batch['items']
       B, W = batch['users'].shape[0], items.shape[0]
-      input_dense = self._densify_union(batch, B, W)
+      input_dense = target = self._densify_union(batch, B, W)
       col_mask = torch.ones(W, device=items.device)
     row_mask = (torch.arange(B, device=input_dense.device)
                 < valid_users).float()
@@ -305,7 +307,7 @@ class Recoder:
     kind = self._fused_kind()
     if kind is not None and W > 0:
       loss = fused_decode_loss(
-          h, rows, bias, input_dense, row_mask, col_mask, kind,
+          h, rows, bias, target, row_mask, col_mask, kind,
           getattr(self.loss_module, 'confidence', 0.0))
     else:
       # (an empty union has no column for the kernel: its loss is 0)

@@ -47,6 +47,7 @@ import scipy.sparse as sp
 import torch
 
 import recoder_tpu_torch
+from recoder_tpu_torch import device as device_lib
 from recoder_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from recoder_tpu_torch.ops.spd import spd_solve
 
@@ -182,12 +183,13 @@ class IALS:
       ``N(0, init_scale^2 / d)``.
     seed (int): init seed (numpy, as in the JAX package, so both start
       from the same item factors).
-    device: where the factors, the chunk plans and every solve live.
+    device: where the factors, the chunk plans and every solve live:
+      the card ('cuda') unless the caller asks for 'cpu'.
   """
 
   def __init__(self, embedding_size=128, alpha=30.0, lam=3e-3, sweeps=10,
                reg_scaling='frequency', init_scale=1.0, seed=0,
-               device='cpu'):
+               device=device_lib.DEFAULT):
     if reg_scaling not in ('frequency', 'none'):
       raise ValueError(f'unknown reg_scaling {reg_scaling!r}')
     self.embedding_size = int(embedding_size)
@@ -197,7 +199,7 @@ class IALS:
     self.reg_scaling = reg_scaling
     self.init_scale = float(init_scale)
     self.seed = int(seed)
-    self.device = torch.device(device)
+    self.device = device_lib.resolve(device)
     self.num_items = None
     self.num_users = None
     self.user_factors = None  # [num_users, d] (training users)

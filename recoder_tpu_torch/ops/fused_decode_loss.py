@@ -1,4 +1,4 @@
-"""Fused decode-score + masked loss: the CUDA kernel and its plain twin.
+"""Fused decode-score + masked loss: the CUDA kernels and their plain twins.
 
 Port of ``recoder_tpu/experiments/pallas_loss.py`` (``fused_decode_loss``,
 a ``jax.custom_vjp`` over the Pallas kernels ``_fwd_kernel`` and
@@ -7,20 +7,28 @@ a ``jax.custom_vjp`` over the Pallas kernels ``_fwd_kernel`` and
     sum_ij loss(h @ rows.T + bias, target)_ij * row_mask_i * col_mask_j
 
 for 'mse' (confidence-weighted) and 'logistic' (BCE with logits), with
-gradients for ``h``, ``rows`` and ``bias``; the [B, W] score matrix and
-its cotangent never reach device memory. 'logloss' needs a whole-row
-softmax normalizer and stays on the plain path (decode matmul plus
-``ops/losses.py``), as in the JAX package.
+gradients for ``h``, ``rows`` and ``bias``; the [B, W] score matrix never
+reaches device memory. 'logloss' needs a whole-row softmax normalizer and
+stays on the plain path (decode matmul plus ``ops/losses.py``), as in the
+JAX package.
 
 On the JAX side the kernel stayed unwired (XLA's fusion beat it on the
 TPU). Here the training step calls it for 'mse' and 'logistic'.
 
+The forward computes each score tile once. When a backward can follow
+(the autograd graph records the call), it also stashes the cotangent
+``E0 = loss'(S, T) * row_mask * col_mask`` ([B, W] float32), and the
+backward is two products over E0 with the upstream gradient ``g`` applied
+on the device; under ``torch.no_grad()`` no E0 is written.
+
 Routing is by the tensors' device and nothing else: CUDA tensors launch
 the kernels of ``kernels/fused_decode_loss.cu`` (or raise), CPU tensors
-take :func:`fused_decode_loss_plain` and its explicit backward.
+take the plain versions of the same two steps (:func:`_plain_forward`,
+:func:`_plain_backward`).
 """
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -28,12 +36,16 @@ import torch
 from recoder_tpu_torch.ops import losses as losses_lib
 
 KINDS = {'mse': 0, 'logistic': 1}
-
+#: target dtypes the kernel reads (it upcasts in registers, as the JAX
+#: kernel casts ``t``)
+TARGET_DTYPES = (torch.float32, torch.bfloat16)
 #: kernel launches since the last reset, one count per kernel
 LAUNCHES = {'fused_decode_loss_fwd': 0, 'fused_decode_loss_bwd': 0}
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
+#: device indices whose kernels have their shared-memory limits set
+_CONFIGURED = set()
 
 
 def supported(kind):
@@ -41,10 +53,7 @@ def supported(kind):
   return kind in KINDS
 
 
-def fused_decode_loss_plain(h, rows, bias, target, row_mask, col_mask,
-                            kind='mse', confidence=0.0):
-  """Plain PyTorch version: decode matmul, then the masked loss, summed."""
-  scores = torch.matmul(h, rows.t()) + bias
+def _masked_loss_sum(scores, target, row_mask, col_mask, kind, confidence):
   if kind == 'mse':
     loss = losses_lib.mse_loss(scores, target, confidence=confidence,
                                row_mask=row_mask, col_mask=col_mask)
@@ -56,19 +65,42 @@ def fused_decode_loss_plain(h, rows, bias, target, row_mask, col_mask,
   return torch.sum(loss)
 
 
-def _plain_backward(g, h, rows, bias, target, row_mask, col_mask, kind,
-                    confidence):
-  """Gradients of :func:`fused_decode_loss_plain` w.r.t. h, rows, bias,
-  written out as the kernel computes them."""
+def fused_decode_loss_plain(h, rows, bias, target, row_mask, col_mask,
+                            kind='mse', confidence=0.0):
+  """Plain PyTorch version: decode matmul, then the masked loss, summed."""
   scores = torch.matmul(h, rows.t()) + bias
+  return _masked_loss_sum(scores, target, row_mask, col_mask, kind,
+                          confidence)
+
+
+def _cotangent(scores, target, row_mask, col_mask, kind, confidence):
+  """E0 = d loss / d S without the upstream gradient, float32 [B, W]."""
   t = target.float()
   if kind == 'mse':
     w = 1.0 + confidence * (t > 0).float()
     ds = 2.0 * w * (scores - t)
   else:
     ds = torch.sigmoid(scores) - t
-  ds = ds * (g * row_mask[:, None] * col_mask[None, :])
+  return ds * (row_mask[:, None] * col_mask[None, :])
+
+
+def _plain_backward(g, e0, h, rows):
+  """The kernel backward's plain version: gradients w.r.t. h, rows and
+  bias from the forward's cotangent E0."""
+  ds = e0 * g
   return torch.matmul(ds, rows), torch.matmul(ds.t(), h), torch.sum(ds, 0)
+
+
+def _plain_forward(h, rows, bias, target, row_mask, col_mask, kind,
+                   confidence, stash):
+  """The kernel forward's plain version: the loss and, when ``stash``,
+  E0 (else None), both from one score product."""
+  scores = torch.matmul(h, rows.t()) + bias
+  loss = _masked_loss_sum(scores, target, row_mask, col_mask, kind,
+                          confidence)
+  e0 = (_cotangent(scores, target, row_mask, col_mask, kind, confidence)
+        if stash else None)
+  return loss, e0
 
 
 def _lib():
@@ -78,18 +110,20 @@ def _lib():
       from recoder_tpu_torch.kernels import load_library
       lib = load_library('fused_decode_loss')
       ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-      lib.fdl_forward.argtypes = ([ptr] * 6 + [i32] * 4
-                                  + [f32, i32, ptr, ptr, i32, ptr])
+      lib.fdl_forward.argtypes = ([ptr] * 4 + [i32] + [ptr] * 2 + [i32] * 4
+                                  + [f32, ptr, i32, ptr, ptr, i32, ptr])
       lib.fdl_forward.restype = i32
-      lib.fdl_backward.argtypes = ([ptr] * 7 + [i32] * 4
-                                   + [f32, i32] + [ptr] * 4 + [i32, ptr])
+      lib.fdl_backward.argtypes = ([ptr] * 2 + [i32] + [ptr] * 2 + [i32] * 5
+                                   + [ptr] * 4 + [i32, ptr])
       lib.fdl_backward.restype = i32
+      lib.fdl_max_d.restype = i32
+      lib.max_d = lib.fdl_max_d()  # the widest feature axis it takes
+      lib.fdl_plan.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+      lib.fdl_plan.restype = i32
+      lib.fdl_configure.argtypes = [i32]
+      lib.fdl_configure.restype = i32
       lib.fdl_error_string.argtypes = [i32]
       lib.fdl_error_string.restype = ctypes.c_char_p
-      lib.fdl_max_d.restype = i32
-      lib.fdl_row_tile.restype = i32
-      lib.fdl_num_splits.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
-      lib.fdl_num_splits.restype = i32
       _LIB = lib
     return _LIB
 
@@ -100,7 +134,28 @@ def _check(lib, err, what):
                        f'({lib.fdl_error_string(err).decode()})')
 
 
-def _validate(h, rows, bias, target, row_mask, col_mask, kind, lib):
+def _device_lib(device):
+  """The library, its kernels configured for ``device`` (once)."""
+  lib = _lib()
+  if device.index not in _CONFIGURED:
+    with _LIB_LOCK:
+      _check(lib, lib.fdl_configure(device.index), 'fdl_configure')
+      _CONFIGURED.add(device.index)
+  return lib
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(device_index, B, W, d):
+  """(forward partials, k tiles per dh split, dh splits, E0 row stride)
+  of one shape; about two dh blocks per SM."""
+  lib = _lib()
+  sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+  out = (ctypes.c_int * 4)()
+  _check(lib, lib.fdl_plan(B, W, d, sms, out), 'fdl_plan')
+  return tuple(out)
+
+
+def _validate(h, rows, bias, target, row_mask, col_mask, kind, max_d):
   if kind not in KINDS:
     raise ValueError(f'fused decode loss does not cover {kind!r}')
   named = {'h': h, 'rows': rows, 'bias': bias, 'target': target,
@@ -108,7 +163,11 @@ def _validate(h, rows, bias, target, row_mask, col_mask, kind, lib):
   for name, x in named.items():
     if x.device != h.device:
       raise ValueError(f'{name} is on {x.device}, h on {h.device}')
-    if x.dtype != torch.float32:
+    if name == 'target':
+      if x.dtype not in TARGET_DTYPES:
+        raise ValueError(f'target must be float32 or bfloat16, got '
+                         f'{x.dtype}')
+    elif x.dtype != torch.float32:
       raise ValueError(f'{name} must be float32, got {x.dtype}')
     if not x.is_contiguous():
       raise ValueError(f'{name} must be contiguous')
@@ -121,54 +180,51 @@ def _validate(h, rows, bias, target, row_mask, col_mask, kind, lib):
         f'shape mismatch: h {tuple(h.shape)} rows {tuple(rows.shape)} '
         f'bias {tuple(bias.shape)} target {tuple(target.shape)} '
         f'row_mask {tuple(row_mask.shape)} col_mask {tuple(col_mask.shape)}')
-  if not 1 <= d <= lib.fdl_max_d():
-    raise ValueError(f'feature width {d} outside 1..{lib.fdl_max_d()}')
+  if not 1 <= d <= max_d:
+    raise ValueError(f'feature width {d} outside 1..{max_d}')
   return B, W, d
 
 
-def _grid(lib, B, W, device):
-  """(batch tiles, W splits) of the forward and dh grids."""
-  nsplit = ctypes.c_int(0)
-  _check(lib, lib.fdl_num_splits(B, W, device.index or 0,
-                                 ctypes.byref(nsplit)), 'fdl_num_splits')
-  return -(-B // lib.fdl_row_tile()), nsplit.value
-
-
 def _kernel_forward(h, rows, bias, target, row_mask, col_mask, kind,
-                    confidence):
-  lib = _lib()
-  B, W, d = _validate(h, rows, bias, target, row_mask, col_mask, kind, lib)
-  n_btiles, nsplit = _grid(lib, B, W, h.device)
-  partials = torch.empty(n_btiles * nsplit, device=h.device)
+                    confidence, stash):
+  """The loss on the card and, when ``stash``, E0 as [B, lde] (its rows
+  padded with zeros to a multiple of 4 columns; else None)."""
+  lib = _device_lib(h.device)
+  B, W, d = _validate(h, rows, bias, target, row_mask, col_mask, kind,
+                      lib.max_d)
+  n_partials, _, _, lde = _plan(h.device.index, B, W, d)
+  partials = torch.empty(n_partials, device=h.device)
   out = torch.empty((), device=h.device)
+  e0 = torch.empty((B, lde), device=h.device) if stash else None
   stream = torch.cuda.current_stream(h.device).cuda_stream
   err = lib.fdl_forward(
       h.data_ptr(), rows.data_ptr(), bias.data_ptr(), target.data_ptr(),
-      row_mask.data_ptr(), col_mask.data_ptr(), B, W, d, KINDS[kind],
-      float(confidence), nsplit, partials.data_ptr(), out.data_ptr(),
-      h.device.index or 0, stream)
+      int(target.dtype == torch.bfloat16), row_mask.data_ptr(),
+      col_mask.data_ptr(), B, W, d, KINDS[kind], float(confidence),
+      e0.data_ptr() if stash else None, lde, partials.data_ptr(),
+      out.data_ptr(), h.device.index, stream)
   _check(lib, err, 'fused decode-loss forward launch')
   LAUNCHES['fused_decode_loss_fwd'] += 1
-  return out
+  return out, e0
 
 
-def _kernel_backward(g, h, rows, bias, target, row_mask, col_mask, kind,
-                     confidence):
-  lib = _lib()
-  B, W, d = _validate(h, rows, bias, target, row_mask, col_mask, kind, lib)
+def _kernel_backward(g, e0, h, rows):
+  """dh, drows, dbias on the card from the forward's E0."""
+  lib = _device_lib(h.device)
+  (B, d), W = h.shape, rows.shape[0]
+  _, ktiles, nsplit, lde = _plan(h.device.index, B, W, d)
+  if e0.shape != (B, lde):
+    raise ValueError(f'E0 is {tuple(e0.shape)}, expected {(B, lde)}')
   g = g.to(device=h.device, dtype=torch.float32).contiguous()
-  _, nsplit = _grid(lib, B, W, h.device)
   dh_partials = torch.empty((nsplit, B, d), device=h.device)
   dh = torch.empty((B, d), device=h.device)
   drows = torch.empty((W, d), device=h.device)
   dbias = torch.empty((W,), device=h.device)
   stream = torch.cuda.current_stream(h.device).cuda_stream
   err = lib.fdl_backward(
-      g.data_ptr(), h.data_ptr(), rows.data_ptr(), bias.data_ptr(),
-      target.data_ptr(), row_mask.data_ptr(), col_mask.data_ptr(), B, W, d,
-      KINDS[kind], float(confidence), nsplit, dh_partials.data_ptr(),
-      dh.data_ptr(), drows.data_ptr(), dbias.data_ptr(),
-      h.device.index or 0, stream)
+      g.data_ptr(), e0.data_ptr(), lde, h.data_ptr(), rows.data_ptr(), B, W,
+      d, ktiles, nsplit, dh_partials.data_ptr(), dh.data_ptr(),
+      drows.data_ptr(), dbias.data_ptr(), h.device.index, stream)
   _check(lib, err, 'fused decode-loss backward launch')
   LAUNCHES['fused_decode_loss_bwd'] += 1
   return dh, drows, dbias
@@ -182,28 +238,34 @@ def _route(device):
   raise ValueError(f'fused decode loss runs on cuda or cpu, not {device}')
 
 
+def _will_backward(ctx):
+  """Whether autograd recorded this call with an edge to h, rows or bias:
+  only then can a backward follow. (``ctx.needs_input_grad`` reads the
+  inputs' ``requires_grad`` and stays True under ``torch.no_grad()``; the
+  node's edges are empty there.)"""
+  return any(fn is not None for fn, _ in ctx.next_functions[:3])
+
+
 class FusedDecodeLoss(torch.autograd.Function):
-  """Autograd wrapper: the CUDA kernels on CUDA tensors, the plain
-  version on CPU tensors."""
+  """Autograd wrapper: the CUDA kernels on CUDA tensors, their plain
+  versions on CPU tensors."""
 
   @staticmethod
   def forward(ctx, h, rows, bias, target, row_mask, col_mask, kind,
               confidence):
-    ctx.save_for_backward(h, rows, bias, target, row_mask, col_mask)
-    ctx.kind = kind
-    ctx.confidence = confidence
-    if _route(h.device):
-      return _kernel_forward(h, rows, bias, target, row_mask, col_mask,
-                             kind, confidence)
-    return fused_decode_loss_plain(h, rows, bias, target, row_mask,
-                                   col_mask, kind, confidence)
+    stash = _will_backward(ctx)
+    fn = _kernel_forward if _route(h.device) else _plain_forward
+    loss, e0 = fn(h, rows, bias, target, row_mask, col_mask, kind,
+                  confidence, stash)
+    if stash:
+      ctx.save_for_backward(e0, h, rows)
+    return loss
 
   @staticmethod
   def backward(ctx, g):
-    h, rows, bias, target, row_mask, col_mask = ctx.saved_tensors
+    e0, h, rows = ctx.saved_tensors
     fn = _kernel_backward if _route(h.device) else _plain_backward
-    dh, drows, dbias = fn(g, h, rows, bias, target, row_mask, col_mask,
-                          ctx.kind, ctx.confidence)
+    dh, drows, dbias = fn(g, e0, h, rows)
     return dh, drows, dbias, None, None, None, None, None
 
 
@@ -215,7 +277,7 @@ def fused_decode_loss(h, rows, bias, target, row_mask, col_mask,
     h: [B, d] bottleneck activations.
     rows: [W, d] decoder table.
     bias: [W] decoder bias.
-    target: [B, W] dense targets.
+    target: [B, W] dense targets, float32 or bfloat16.
     row_mask: [B] 1.0 for valid users.
     col_mask: [W] 1.0 for the loss columns.
     kind: 'mse' | 'logistic'.

@@ -99,7 +99,7 @@ def test_loss_and_gradients_match_jax(hidden, constrained, loss,
           jparams)
 
   ptr = Recoder(pm, optimizer_type='adam', loss=loss,
-                loss_params=dict(loss_params))
+                loss_params=dict(loss_params), device='cpu')
   ptr._init_loss_module()
   got = ptr._forward_loss({'slab': torch.from_numpy(slab),
                            'num_users': float(n_valid)}, training=True)

@@ -1,7 +1,9 @@
 """Tests of the port that need a CUDA card: the fused decode-loss
-kernel against its plain PyTorch version at ragged and boundary shapes,
-the wrapper's refusals, and the trainer on the card against the trainer
-on the CPU; the SPD-solve kernel against the blocked recursion, its
+kernels against their plain PyTorch version at ragged and boundary
+shapes and at the training and union widths, a bfloat16 target bitwise
+equal to the float32 one, no cotangent written under no_grad, the
+wrapper's refusals, and the trainer on the card against the trainer on
+the CPU; the SPD-solve kernel against the blocked recursion, its
 batch independence and NaN on an indefinite system, and the iALS fit on
 the card against the fit on the CPU; the row-scatter kernel against
 ``index_copy_`` (bitwise: it is a copy) at ragged shapes, on a
@@ -16,8 +18,8 @@ that has only PyTorch:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances: loss rtol 1e-4; gradients rtol 1e-3 with an absolute floor
-of 1e-4 times the largest reference entry (float32 FMA sums in another
-order than cuBLAS). SPD solve: max abs error within 1e-4 of max |x| of
+of 1e-4 times the largest reference entry (3xTF32 tensor-core products
+and sums in another order than cuBLAS's float32). SPD solve: max abs error within 1e-4 of max |x| of
 the blocked recursion and relative residual |Ax - b| / |b| within 1e-3
 (well-conditioned systems, float32 Cholesky in another order).
 """
@@ -69,6 +71,9 @@ def _run(fn, problem, kind, confidence):
     (33, 256, 65),    # the widest feature axis; one row past a tile
     (64, 255, 2049),  # odd feature width; one column past a tile
     (500, 200, 333),  # the training batch and width, a short catalog
+    (9, 7, 130),      # odd feature width below one k step
+    (500, 200, 18117),  # an odd union width (MSD)
+    (500, 200, 20224),  # the ML-20M full-decode width
 ])
 def test_kernel_matches_plain(cuda, B, d, W, kind, confidence):
   problem = _problem(B, d, W, cuda)
@@ -83,6 +88,39 @@ def test_kernel_matches_plain(cuda, B, d, W, kind, confidence):
   for a, b in zip(got[1], ref[1]):
     np.testing.assert_allclose(a, b, rtol=1e-3,
                                atol=1e-4 * max(np.abs(b).max(), 1e-30))
+
+
+@pytest.mark.parametrize('kind,confidence', [
+    ('mse', 0.0), ('mse', 3.0), ('logistic', 0.0)])
+def test_bfloat16_target_is_bitwise_float32(cuda, kind, confidence):
+  problem = _problem(500, 200, 18117, cuda, seed=2)
+  f32 = _run(fdl.fused_decode_loss, problem, kind, confidence)
+  problem[3] = problem[3].bfloat16()
+  bf16 = _run(fdl.fused_decode_loss, problem, kind, confidence)
+  assert f32[0] == bf16[0]
+  for a, b in zip(f32[1], bf16[1]):
+    np.testing.assert_array_equal(a, b)
+
+
+def test_no_grad_forward_writes_no_cotangent(cuda):
+  """Under no_grad the forward launches without E0 and gives the same
+  loss, bit for bit, as the forward that writes it."""
+  from unittest import mock
+  h, rows, bias, target, rm, cm = _problem(300, 64, 3000, cuda, seed=3)
+  stashes = []
+  real = fdl._kernel_forward
+
+  def spy(*args):
+    stashes.append(args[-1])
+    return real(*args)
+
+  hh = h.clone().requires_grad_(True)
+  with mock.patch.object(fdl, '_kernel_forward', spy):
+    with torch.no_grad():
+      a = fdl.fused_decode_loss(hh, rows, bias, target, rm, cm, 'mse', 3.0)
+    b = fdl.fused_decode_loss(hh, rows, bias, target, rm, cm, 'mse', 3.0)
+  assert stashes == [False, True]
+  assert torch.equal(a, b.detach())
 
 
 def test_kernel_is_deterministic(cuda):
@@ -216,7 +254,7 @@ def test_ials_on_cuda_matches_cpu(cuda):
   rng = np.random.default_rng(0)
   m = sp.csr_matrix((rng.random((300, 120)) < 0.08).astype(np.float32))
   kw = dict(embedding_size=16, alpha=10.0, lam=0.05, sweeps=3, seed=1)
-  cpu = IALS(**kw).fit(m)
+  cpu = IALS(**kw, device='cpu').fit(m)
   before = spd.LAUNCHES['spd_solve']
   gpu = IALS(device=cuda, **kw).fit(m, chunk_elems=1 << 10)
   assert spd.LAUNCHES['spd_solve'] > before

@@ -103,7 +103,7 @@ def test_chunk_plans_equal_jax(chunk_elems, reg_scaling):
   kw = dict(embedding_size=8, lam=0.02, reg_scaling=reg_scaling)
   for csr in (m, m.T.tocsr()):
     ref = JaxIALS(**kw)._chunk_plan(csr, chunk_elems)
-    got = IALS(**kw)._chunk_plan(csr, chunk_elems)
+    got = IALS(**kw, device='cpu')._chunk_plan(csr, chunk_elems)
     assert got['n_rows'] == ref['n_rows']
     assert len(got['chunks']) == len(ref['chunks'])
     for c_got, c_ref in zip(got['chunks'], ref['chunks']):
@@ -120,12 +120,13 @@ def test_solve_side_matches_jax(reg_scaling):
   ref_model = JaxIALS(**kw).fit(m, chunk_elems=CE)
   v = np.asarray(ref_model.item_factors)
   ref = np.asarray(ref_model._solve_side(m, ref_model.item_factors))
-  got = IALS(**kw)._solve_side(m, torch.from_numpy(v.copy()))
+  got = IALS(**kw, device='cpu')._solve_side(m, torch.from_numpy(v.copy()))
   _close(got, ref, 1e-5)
   u = np.asarray(ref_model.user_factors)
   ref_items = np.asarray(ref_model._solve_side(m.T.tocsr(),
                                                ref_model.user_factors))
-  got_items = IALS(**kw)._solve_side(m.T.tocsr(), torch.from_numpy(u.copy()))
+  got_items = IALS(**kw, device='cpu')._solve_side(
+      m.T.tocsr(), torch.from_numpy(u.copy()))
   _close(got_items, ref_items, 1e-5)
 
 
@@ -137,7 +138,7 @@ def test_solve_side_matches_jax(reg_scaling):
 def test_fit_matches_jax(kw):
   m = _binary_matrix(users=60, items=30, seed=4)
   ref = JaxIALS(sweeps=3, **kw).fit(m, chunk_elems=CE)
-  got = IALS(sweeps=3, **kw).fit(m, chunk_elems=CE)
+  got = IALS(sweeps=3, **kw, device='cpu').fit(m, chunk_elems=CE)
   _close(got.item_factors, ref.item_factors, 5e-5)
   _close(got.user_factors, ref.user_factors, 5e-5)
   assert np.isclose(got.objective(m), ref.objective(m), rtol=1e-6, atol=0)
@@ -147,7 +148,7 @@ def test_fit_callback_and_objective_track_jax():
   m = _count_matrix(seed=3)
   kw = dict(embedding_size=8, alpha=5.0, lam=0.02, sweeps=4, seed=2)
   objs = {'jax': [], 'port': []}
-  ref, got = JaxIALS(**kw), IALS(**kw)
+  ref, got = JaxIALS(**kw), IALS(**kw, device='cpu')
   ref.fit(m, chunk_elems=CE,
           callback=lambda s: objs['jax'].append(ref.objective(m)))
   got.fit(m, chunk_elems=CE,
@@ -163,8 +164,8 @@ def test_jax_factors_serve_the_same_recommendations():
   ref = JaxIALS(embedding_size=6, alpha=10.0, lam=0.05, sweeps=3,
                 seed=1).fit(m, chunk_elems=CE)
   got = convert.ials_factors_from_numpy(
-      IALS(alpha=10.0, lam=0.05), {'user_factors': ref.user_factors,
-                                   'item_factors': ref.item_factors})
+      IALS(alpha=10.0, lam=0.05, device='cpu'),
+      {'user_factors': ref.user_factors, 'item_factors': ref.item_factors})
   assert got.embedding_size == 6 and got.num_items == m.shape[1]
   users = np.arange(m.shape[0])
   jui = JaxUsersInteractions(users=users, interactions_matrix=m)
@@ -194,8 +195,8 @@ def test_evaluator_matches_jax():
   ref = JaxIALS(embedding_size=4, alpha=30.0, lam=0.01, sweeps=3,
                 seed=0).fit(train, chunk_elems=CE)
   got = convert.ials_factors_from_numpy(
-      IALS(alpha=30.0, lam=0.01), {'user_factors': ref.user_factors,
-                                   'item_factors': ref.item_factors})
+      IALS(alpha=30.0, lam=0.01, device='cpu'),
+      {'user_factors': ref.user_factors, 'item_factors': ref.item_factors})
   ev = RecommenderEvaluator(InferenceRecommender(got, 10),
                             [Recall(k=5), NDCG(k=10)])
   res = ev.evaluate(RecommendationDataset(train, val), batch_size=80)
@@ -213,7 +214,7 @@ def test_evaluator_matches_jax():
 def test_batched_solve_matches_numpy(reg_scaling):
   m = _binary_matrix(seed=3)
   model = IALS(embedding_size=6, alpha=10.0, lam=0.05, sweeps=2, seed=1,
-               reg_scaling=reg_scaling).fit(m, chunk_elems=CE)
+               reg_scaling=reg_scaling, device='cpu').fit(m, chunk_elems=CE)
   ref = _numpy_user_solve(m, model.item_factors.numpy(), model.alpha,
                           model.lam, reg_scaling)
   got = model._solve_side(m, model.item_factors).numpy()
@@ -223,7 +224,8 @@ def test_batched_solve_matches_numpy(reg_scaling):
 def test_objective_decreases_monotonically():
   m = _binary_matrix(users=60, items=30, seed=4)
   objs = []
-  model = IALS(embedding_size=8, alpha=10.0, lam=0.01, sweeps=5, seed=0)
+  model = IALS(embedding_size=8, alpha=10.0, lam=0.01, sweeps=5, seed=0,
+               device='cpu')
   model.fit(m, chunk_elems=CE,
             callback=lambda s: objs.append(model.objective(m)))
   assert len(objs) == 5
@@ -237,7 +239,7 @@ def test_fold_in_reproduces_trained_users():
   all the users and for a subset (other chunk shapes)."""
   m = _count_matrix(seed=5)
   model = IALS(embedding_size=6, alpha=10.0, lam=0.05, sweeps=3,
-               seed=1).fit(m, chunk_elems=CE)
+               seed=1, device='cpu').fit(m, chunk_elems=CE)
   np.testing.assert_array_equal(model.fold_in(_ui(m)).numpy(),
                                 model.user_factors.numpy())
   sub = np.arange(3, m.shape[0], 7)
@@ -254,7 +256,7 @@ def test_recommend_excludes_seen_and_trims():
   md[0, [3, 7]] = 0.0
   m = csr_matrix(md)
   model = IALS(embedding_size=6, alpha=10.0, lam=0.05, sweeps=3,
-               seed=1).fit(m, chunk_elems=CE)
+               seed=1, device='cpu').fit(m, chunk_elems=CE)
   recs = model.recommend(_ui(m), 5)
   assert sorted(int(i) for i in recs[0]) == [3, 7]
   for u, r in enumerate(recs):
@@ -269,7 +271,7 @@ def test_empty_user_gets_zero_factor():
   md[2, :] = 0.0
   m = csr_matrix(md)
   model = IALS(embedding_size=6, alpha=10.0, lam=0.05, sweeps=2,
-               seed=1).fit(m, chunk_elems=CE)
+               seed=1, device='cpu').fit(m, chunk_elems=CE)
   np.testing.assert_array_equal(model.user_factors[2].numpy(), 0.0)
   assert len(model.recommend(_ui(m), 5)[2]) == 5
 
@@ -279,7 +281,7 @@ def test_chunk_ladder_is_shape_invariant():
   corrections and the halving sums do not depend on the chunk shape)."""
   m = _count_matrix(seed=8)
   model = IALS(embedding_size=4, alpha=10.0, lam=0.05, sweeps=1,
-               seed=1).fit(m, chunk_elems=CE)
+               seed=1, device='cpu').fit(m, chunk_elems=CE)
   big = model._solve_side(m, model.item_factors, chunk_elems=1 << 20)
   small = model._solve_side(m, model.item_factors, chunk_elems=64)
   np.testing.assert_array_equal(big.numpy(), small.numpy())
@@ -293,8 +295,8 @@ def test_objective_ignores_explicit_zeros():
   clean.eliminate_zeros()
   assert clean.nnz == noisy.nnz - 1
   kw = dict(embedding_size=4, sweeps=2, seed=2)
-  a = IALS(**kw).fit(clean, chunk_elems=CE)
-  b = IALS(**kw).fit(noisy, chunk_elems=CE)
+  a = IALS(**kw, device='cpu').fit(clean, chunk_elems=CE)
+  b = IALS(**kw, device='cpu').fit(noisy, chunk_elems=CE)
   np.testing.assert_array_equal(a.item_factors.numpy(),
                                 b.item_factors.numpy())
   assert np.isclose(a.objective(noisy), a.objective(clean), rtol=1e-12)
@@ -306,8 +308,8 @@ def test_rejects_negative_values():
   bad.data = bad.data.copy()
   bad.data[0] = -1.0
   with pytest.raises(ValueError, match='non-negative'):
-    IALS(embedding_size=4, sweeps=1).fit(bad, chunk_elems=CE)
-  model = IALS(embedding_size=4, sweeps=1).fit(m, chunk_elems=CE)
+    IALS(embedding_size=4, sweeps=1, device='cpu').fit(bad, chunk_elems=CE)
+  model = IALS(embedding_size=4, sweeps=1, device='cpu').fit(m, chunk_elems=CE)
   with pytest.raises(ValueError, match='non-negative'):
     model.fold_in(UsersInteractions(np.arange(3), bad))
 
@@ -315,17 +317,17 @@ def test_rejects_negative_values():
 def test_rejects_oversized_row():
   m = _binary_matrix(users=4, items=20, density=1.0)
   with pytest.raises(ValueError, match='chunk_elems'):
-    IALS(embedding_size=4, sweeps=1).fit(m, chunk_elems=16)
+    IALS(embedding_size=4, sweeps=1, device='cpu').fit(m, chunk_elems=16)
 
 
 def test_rejects_unknown_reg_scaling():
   with pytest.raises(ValueError, match='reg_scaling'):
-    IALS(reg_scaling='bogus')
+    IALS(reg_scaling='bogus', device='cpu')
 
 
 def test_predict_rejects_wrong_width():
   m = _binary_matrix()
-  model = IALS(embedding_size=4, sweeps=1).fit(m, chunk_elems=CE)
+  model = IALS(embedding_size=4, sweeps=1, device='cpu').fit(m, chunk_elems=CE)
   bad = UsersInteractions(np.arange(2), _binary_matrix(2, 7))
   with pytest.raises(ValueError, match='items'):
     model.predict(bad)
@@ -334,16 +336,16 @@ def test_predict_rejects_wrong_width():
 def test_refuses_mesh_and_factor_sharding():
   m = _binary_matrix()
   with pytest.raises(NotImplementedError, match='multi-GPU'):
-    IALS(embedding_size=4).fit(m, factor_sharding='users')
+    IALS(embedding_size=4, device='cpu').fit(m, factor_sharding='users')
   with pytest.raises(NotImplementedError, match='multi-GPU'):
-    IALS(embedding_size=4).fit(m, mesh=object())
+    IALS(embedding_size=4, device='cpu').fit(m, mesh=object())
 
 
 def test_solve_goes_through_spd_solve():
   """On CPU tensors the half-sweep's solve is the blocked recursion: no
   kernel launch is counted."""
   before = dict(spd.LAUNCHES)
-  IALS(embedding_size=4, sweeps=1).fit(_binary_matrix())
+  IALS(embedding_size=4, sweeps=1, device='cpu').fit(_binary_matrix())
   assert spd.LAUNCHES == before
 
 
@@ -364,9 +366,9 @@ def test_save_load_roundtrip(tmp_path):
   m = _binary_matrix(seed=9)
   model = IALS(embedding_size=6, alpha=7.0, lam=0.02, sweeps=2,
                reg_scaling='none', init_scale=0.5,
-               seed=3).fit(m, chunk_elems=CE)
+               seed=3, device='cpu').fit(m, chunk_elems=CE)
   path = model.save(str(tmp_path / 'ials.model'))
-  loaded = IALS().load(path)
+  loaded = IALS(device='cpu').load(path)
   assert (loaded.embedding_size, loaded.alpha, loaded.lam, loaded.sweeps,
           loaded.reg_scaling, loaded.init_scale, loaded.seed) == (
               6, 7.0, 0.02, 2, 'none', 0.5, 3)
@@ -379,7 +381,7 @@ def test_save_load_roundtrip(tmp_path):
   other = str(tmp_path / 'other.model')
   save_checkpoint(other, {'x': np.arange(3)}, {'model': 'ease'})
   with pytest.raises(ValueError, match='not an iALS checkpoint'):
-    IALS().load(other)
+    IALS(device='cpu').load(other)
 
 
 def test_jax_checkpoint_loads_into_the_port(tmp_path):
@@ -389,7 +391,7 @@ def test_jax_checkpoint_loads_into_the_port(tmp_path):
   ref = JaxIALS(embedding_size=6, alpha=7.0, lam=0.02, sweeps=2,
                 init_scale=0.5, seed=3).fit(m, chunk_elems=CE)
   path = ref.save(str(tmp_path / 'jax.model'))
-  got = IALS(init_scale=0.25, seed=9).load(path)
+  got = IALS(init_scale=0.25, seed=9, device='cpu').load(path)
   assert (got.init_scale, got.seed) == (1.0, 0)
   assert (got.embedding_size, got.alpha, got.lam) == (6, 7.0, 0.02)
   np.testing.assert_array_equal(got.item_factors.numpy(),
@@ -402,7 +404,7 @@ def test_jax_checkpoint_loads_into_the_port(tmp_path):
 def test_port_checkpoint_loads_into_jax(tmp_path):
   m = _count_matrix(seed=11)
   model = IALS(embedding_size=6, alpha=7.0, lam=0.02, sweeps=2,
-               init_scale=0.5, seed=3).fit(m, chunk_elems=CE)
+               init_scale=0.5, seed=3, device='cpu').fit(m, chunk_elems=CE)
   path = model.save(str(tmp_path / 'port.model'))
   ref = JaxIALS().load(path)
   np.testing.assert_array_equal(np.asarray(ref.user_factors),
@@ -420,7 +422,7 @@ def test_port_checkpoint_loads_into_jax(tmp_path):
                       {'model': 'ials', 'embedding_size': 3, 'alpha': 1.0,
                        'lam': 0.1, 'sweeps': 1, 'reg_scaling': 'none',
                        'num_items': 4})
-  assert IALS().load(str(tmp_path / 'plain.model')).num_users == 2
+  assert IALS(device='cpu').load(str(tmp_path / 'plain.model')).num_users == 2
 
 
 # -- quality ------------------------------------------------------------------
@@ -443,7 +445,7 @@ def test_fixture_quality():
   val_m, _, _ = dataframe_to_csr_matrix(val_df, 'uid', 'sid', 'watched',
                                         item_id_map=imap, user_id_map=umap)
   model = IALS(embedding_size=4, alpha=30.0, lam=0.01, sweeps=8,
-               seed=0).fit(train_m)
+               seed=0, device='cpu').fit(train_m)
   ev = RecommenderEvaluator(InferenceRecommender(model, 100),
                             [Recall(k=20), NDCG(k=100)])
   res = ev.evaluate(RecommendationDataset(val_m, train_m), batch_size=500)

@@ -27,20 +27,21 @@ SCRIPT = textwrap.dedent('''
                       .astype(np.float32))
     tr = Recoder(DynamicAutoencoder([8], noise_prob=0.5),
                  optimizer_type='adam', loss='mse',
-                 loss_params={'confidence': 3})
+                 loss_params={'confidence': 3}, device='cpu')
     tr.train(RecommendationDataset(m), batch_size=8, num_epochs=1,
              negative_sampling=True)
     assert len(tr.last_epoch_losses) == 3
     assert all(np.isfinite(tr.last_epoch_losses))
     from recoder_tpu_torch.data import UsersInteractions
     from recoder_tpu_torch.models import IALS
-    ials = IALS(embedding_size=4, sweeps=2).fit(m, chunk_elems=1 << 10)
+    ials = IALS(embedding_size=4, sweeps=2, device='cpu').fit(
+        m, chunk_elems=1 << 10)
     ui = UsersInteractions(np.arange(20), m)
     assert (ials.fold_in(ui) == ials.user_factors).all()
     assert all(len(r) == 3 for r in ials.recommend(ui, 3))
     for sparse in (True, False):
         tr = Recoder(DynamicAutoencoder([8], noise_prob=0.5, sparse=sparse),
-                     optimizer_type='adam', loss='logloss')
+                     optimizer_type='adam', loss='logloss', device='cpu')
         tr.train(RecommendationDataset(m), batch_size=8, num_epochs=2,
                  negative_sampling=True, shuffle='users', full_decode=False)
         assert all(np.isfinite(tr.last_epoch_losses))

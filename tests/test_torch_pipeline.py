@@ -42,7 +42,8 @@ def _col_mask(slab, num_items):
 def test_batches_match_jax(shuffle, values):
   m = _matrix(values)
   W = pad_dim(N_ITEMS)
-  ours = DeviceDataSource(m, BATCH, BATCH, N_ITEMS, shuffle=shuffle)
+  ours = DeviceDataSource(m, BATCH, BATCH, N_ITEMS, shuffle=shuffle,
+                          device='cpu')
   theirs = JaxDeviceDataSource(m, batch_size=BATCH,
                                num_sampling_users=BATCH, num_items=N_ITEMS,
                                union_width=128, shuffle=shuffle)
@@ -69,7 +70,8 @@ def test_batches_match_jax(shuffle, values):
 def test_epoch_covers_every_user_once(shuffle):
   """The tail block is pinned last, so the epoch's steps visit every
   real user exactly once."""
-  src = DeviceDataSource(_matrix(), BATCH, BATCH, N_ITEMS, shuffle=shuffle)
+  src = DeviceDataSource(_matrix(), BATCH, BATCH, N_ITEMS, shuffle=shuffle,
+                         device='cpu')
   src.maybe_cache_slabs(pad_dim(N_ITEMS), request=True)
   for seed in range(4):
     perm = src.epoch_permutation(seed)
@@ -83,7 +85,7 @@ def test_epoch_covers_every_user_once(shuffle):
 
 
 def test_slab_request_recorded_on_reuse():
-  src = DeviceDataSource(_matrix(), BATCH, BATCH, N_ITEMS)
+  src = DeviceDataSource(_matrix(), BATCH, BATCH, N_ITEMS, device='cpu')
   W = pad_dim(N_ITEMS)
   assert src.maybe_cache_slabs(W, request='auto')
   slab = src.d_slab
@@ -94,7 +96,7 @@ def test_slab_request_recorded_on_reuse():
 
 
 def test_slab_that_does_not_fit_raises(monkeypatch):
-  src = DeviceDataSource(_matrix(), BATCH, BATCH, N_ITEMS)
+  src = DeviceDataSource(_matrix(), BATCH, BATCH, N_ITEMS, device='cpu')
   monkeypatch.setattr(src, '_memory_budget', lambda: 1024)
   with pytest.raises(MemoryError):
     src.maybe_cache_slabs(pad_dim(N_ITEMS), request='auto')
@@ -105,10 +107,10 @@ def test_slab_that_does_not_fit_raises(monkeypatch):
 def test_ineligible_configurations_raise():
   m = _matrix()
   with pytest.raises(ValueError):
-    DeviceDataSource(m, BATCH, 2 * BATCH, N_ITEMS)
+    DeviceDataSource(m, BATCH, 2 * BATCH, N_ITEMS, device='cpu')
   zeros = m.copy()
   zeros.data[0] = 0.0  # an explicitly stored zero
-  src = DeviceDataSource(zeros, BATCH, BATCH, N_ITEMS)
+  src = DeviceDataSource(zeros, BATCH, BATCH, N_ITEMS, device='cpu')
   with pytest.raises(ValueError):
     src.maybe_cache_slabs(pad_dim(N_ITEMS), request=True)
   with pytest.raises(RuntimeError):

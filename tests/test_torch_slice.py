@@ -50,7 +50,7 @@ def _jax_trainer(loss, loss_params):
 def _port_trainer(loss, loss_params, params):
   tr = Recoder(DynamicAutoencoder(HIDDEN, 'tanh', noise_prob=0.0),
                optimizer_type='adam', loss=loss,
-               loss_params=dict(loss_params), seed=3)
+               loss_params=dict(loss_params), seed=3, device='cpu')
   tr.num_items, tr.num_users = N_ITEMS, N_USERS
   tr._init_model()
   with torch.no_grad():
@@ -186,7 +186,8 @@ def test_multistep_lr_quirk():
     assert _multistep_lr(0.1, [2, 4], epoch) == jax_lr(0.1, [2, 4], epoch)
   assert _multistep_lr(0.1, None, 5) == 0.1
   # the trainer applies it per epoch: milestone 1 decays epoch 2
-  tr = Recoder(DynamicAutoencoder([8]), optimizer_type='adam', loss='mse')
+  tr = Recoder(DynamicAutoencoder([8]), optimizer_type='adam', loss='mse',
+               device='cpu')
   tr.train(RecommendationDataset(_matrix()), batch_size=BATCH, lr=0.1,
            num_epochs=2, lr_milestones=[1], negative_sampling=True)
   assert [g['lr'] for g in tr.optimizer.param_groups] == \

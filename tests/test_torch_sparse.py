@@ -127,7 +127,7 @@ def _pair(loss, constrained, sparse, m):
   jtr.num_items, jtr.num_users = N_ITEMS, N_USERS
   jtr._init_training(JaxDataset(m), weight_decay=WD)
   ptr = Recoder(DynamicAutoencoder(**kw), optimizer_type='adam', loss=loss,
-                seed=3)
+                seed=3, device='cpu')
   ptr.num_items, ptr.num_users = N_ITEMS, N_USERS
   ptr._init_model()
   _load_jax_params(ptr, jtr.model.params)
@@ -166,7 +166,8 @@ def _close(got, want, name, atol=ATOL):
 
 
 def _batches(m, steps):
-  src = DeviceDataSource(m, BATCH, BATCH, N_ITEMS, shuffle='users', seed=1)
+  src = DeviceDataSource(m, BATCH, BATCH, N_ITEMS, shuffle='users', seed=1,
+                         device='cpu')
   perm = src.epoch_permutation(1)
   return [src.build_union_batch(perm, s % src.steps_per_epoch)
           for s in range(steps)]
@@ -289,10 +290,12 @@ def test_sparse_configurations_that_raise():
   m = RecommendationDataset(_matrix())
   with pytest.raises(ValueError, match='adam'):
     Recoder(DynamicAutoencoder(HIDDEN, sparse=True),
-            optimizer_type='sgd').train(m, negative_sampling=True)
+            optimizer_type='sgd', device='cpu').train(
+                m, negative_sampling=True)
   with pytest.raises(NotImplementedError):
     Recoder(DynamicAutoencoder(HIDDEN, sparse=True),
-            optimizer_type='adam').train(m, negative_sampling=False)
+            optimizer_type='adam', device='cpu').train(
+                m, negative_sampling=False)
 
 
 # -- whole trainings --------------------------------------------------------
@@ -316,7 +319,7 @@ def test_users_mode_training_matches_jax_trainer(loss, caplog):
   jtr.num_items, jtr.num_users = N_ITEMS, N_USERS
   jtr._init_model()
   ptr = Recoder(DynamicAutoencoder(**kw), optimizer_type='adam', loss=loss,
-                seed=3)
+                seed=3, device='cpu')
   ptr.num_items, ptr.num_users = N_ITEMS, N_USERS
   ptr._init_model()
   _load_jax_params(ptr, jtr.model.params)

@@ -67,7 +67,8 @@ def _assert_same_batch(ours, theirs):
 @pytest.mark.parametrize('values', ['binary', 'ratings'])
 def test_blocks_batches_match_jax(values):
   m = _matrix(values)
-  ours = DeviceDataSource(m, BATCH, BATCH, N_ITEMS, shuffle='blocks')
+  ours = DeviceDataSource(m, BATCH, BATCH, N_ITEMS, shuffle='blocks',
+                          device='cpu')
   theirs = _jax_source(m, 'blocks')
   assert theirs._precomputed is not None
   assert ours.steps_per_epoch == theirs.steps_per_epoch
@@ -83,7 +84,8 @@ def test_blocks_batches_match_jax(values):
 @pytest.mark.parametrize('values', ['binary', 'ratings'])
 def test_users_batches_match_jax(values):
   m = _matrix(values, seed=1)
-  ours = DeviceDataSource(m, BATCH, BATCH, N_ITEMS, shuffle='users', seed=5)
+  ours = DeviceDataSource(m, BATCH, BATCH, N_ITEMS, shuffle='users', seed=5,
+                          device='cpu')
   theirs = _jax_source(m, 'users', seed=5)
   assert theirs.users_precompute
   for epoch in (1, 2):
@@ -99,7 +101,7 @@ def test_users_batches_match_jax(values):
 def test_users_order_matches_jax(seed):
   m = _matrix()
   ours = DeviceDataSource(m, BATCH, BATCH, N_ITEMS, shuffle='users',
-                          seed=seed)
+                          seed=seed, device='cpu')
   theirs = _jax_source(m, 'users', seed=seed)
   for epoch in (1, 2, 3):
     np.testing.assert_array_equal(
@@ -109,7 +111,7 @@ def test_users_order_matches_jax(seed):
 
 def test_blocks_order_is_seeded():
   src = DeviceDataSource(_matrix(), BATCH, BATCH, N_ITEMS, shuffle='blocks',
-                         seed=4)
+                         seed=4, device='cpu')
   a, b = src.epoch_permutation(1), src.epoch_permutation(2)
   assert torch.equal(a, src.epoch_permutation(1)) and not torch.equal(a, b)
   assert sorted(a.tolist()) == list(range(src.n_blocks))
@@ -121,7 +123,8 @@ def test_union_width_matches_jax(shuffle):
   the JAX trainer's: the exact largest block union ('blocks') or the
   loader's sampled estimate ('users')."""
   m = _matrix()
-  ours = DeviceDataSource(m, BATCH, BATCH, N_ITEMS, shuffle=shuffle)
+  ours = DeviceDataSource(m, BATCH, BATCH, N_ITEMS, shuffle=shuffle,
+                          device='cpu')
   if shuffle == 'blocks':
     want = _jax_source(m, 'blocks').union_width
   else:
@@ -133,7 +136,8 @@ def test_union_width_matches_jax(shuffle):
 
 def test_densify_matches_jax():
   m = _matrix('ratings')
-  src = DeviceDataSource(m, BATCH, BATCH, N_ITEMS, shuffle='users')
+  src = DeviceDataSource(m, BATCH, BATCH, N_ITEMS, shuffle='users',
+                         device='cpu')
   batch = src.build_union_batch(src.epoch_permutation(1), 1)
   W = len(batch['items'])
   got = Recoder._densify_union(batch, BATCH, W)
