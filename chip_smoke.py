@@ -12,7 +12,9 @@ It imports nothing of JAX. Phases, each of which raises on failure:
                 instructions (HMMA / HGMMA) of each decode-loss kernel
                 counted in the library's SASS (cuobjdump -sass): a
                 decode-loss kernel without any, or with register spills,
-                fails.
+                fails; the SPD-solve kernel's registers, shared memory
+                and resident blocks an SM at d = 128 and 256, and a
+                spill there fails too.
   3. kernels -- the fused decode-loss kernels (forward and backward)
                 against their plain PyTorch version on the card, for
                 'mse' (c=0, c=3) and 'logistic', at a ragged shape, the
@@ -36,11 +38,16 @@ It imports nothing of JAX. Phases, each of which raises on failure:
                 reload must give the same metrics.
   7. spd kernel -- the batched SPD-solve kernel against the blocked
                 recursion on the card at ragged shapes (B in {1, 37},
-                d in {1, 7, 64, 128, 130, 200, 256}) and at the iALS
-                shape (B = 16,384, d = 128, systems built as iALS builds
-                them): max abs error and residual, bitwise independence
-                of batch position; median times of the kernel, the
-                blocked recursion and cholesky_ex + cholesky_solve.
+                d in {1, 7, 15, 16, 17, 33, 64, 127, 128, 129, 130, 200,
+                255, 256}: the edges of its 16-column panels among them)
+                and at the iALS shape (B = 16,384, d = 128, systems built
+                as iALS builds them): max abs error and residual, bitwise
+                independence of batch position; one indefinite system
+                among 37 is NaN and leaves the other 36 bitwise
+                unchanged; median times of the kernel, the blocked
+                recursion, cholesky_ex + cholesky_solve and
+                torch.linalg.solve, and the kernel's time over 10
+                launches back to back.
   8. ials slice -- iALS at the full width of tools/bench_ials.py on the
                 same ML-20M-shaped CSR (d=128, alpha 10, lam 3e-3, 8
                 sweeps, seed 0): the objective falls, per-sweep and fit
@@ -134,6 +141,9 @@ GRAD_ATOL_FRACTION = 1e-4  # of max |reference|
 PATHS_RTOL = 1e-3
 SPD_ATOL_FRACTION = 1e-4  # of max |x| of the blocked recursion
 SPD_RESIDUAL = 1e-3       # max_i |A x - b| / |b| per system
+#: phase 7's ragged systems: the kernel's panel edges (16 columns) among them
+SPD_BATCHES = (1, 37)
+SPD_WIDTHS = (1, 7, 15, 16, 17, 33, 64, 127, 128, 129, 130, 200, 255, 256)
 #: tools/bench_ials.py's configuration (and fit's default chunk budget)
 IALS_FULL = dict(embedding_size=128, alpha=10.0, lam=3e-3, sweeps=8,
                  seed=0)
@@ -210,6 +220,30 @@ def phase_build():
         raise AssertionError(f'{func} has no tensor-core instruction')
       if stores is None or stores or loads:
         raise AssertionError(f'{func}: register spills, or no ptxas report')
+
+  log = BUILD_LOGS.get('spd_solve', '')
+  frames = {f: v for f, v in ptxas_frames(log).items()
+            if 'spd_solve_kernel' in f}
+  if not frames or any(v[1] or v[2] for v in frames.values()):
+    raise AssertionError(f'spd_solve_kernel: register spills, or no ptxas '
+                         f'report: {frames}')
+  for d in (128, 256):
+    res = spd.kernel_resources(d)
+    say(f'  spd_solve_kernel at d = {d}: {ptxas_registers(log)} registers, '
+        f'stack frame / spill stores / spill loads '
+        f'{list(frames.values())[0]} B, {res["smem_bytes"]} B of shared '
+        f'memory, {res["blocks_per_sm"]} resident blocks an SM')
+
+
+def ptxas_registers(log, kernel='spd_solve_kernel'):
+  """Registers a thread of ``kernel`` uses, from a ptxas report."""
+  func = None
+  for line in log.splitlines():
+    if 'Compiling entry function' in line:
+      func = line
+    elif func is not None and kernel in func and 'Used' in line:
+      return int(re.search(r'Used (\d+) registers', line).group(1))
+  return None
 
 
 def ptxas_frames(log):
@@ -689,22 +723,55 @@ def check_spd(a, b, what):
   return err, scale, rel
 
 
+def spd_problem(B, d, device):
+  """Well-conditioned SPD systems: a Gram of d + 8 random rows plus a
+  ridge, and a random right-hand side."""
+  import torch
+  rng = np.random.default_rng(d)
+  f = rng.standard_normal((B, d + 8, d)).astype(np.float32) / np.sqrt(d)
+  a = np.einsum('blk,blm->bkm', f, f) + 0.05 * np.eye(d)
+  b = rng.standard_normal((B, d)).astype(np.float32)
+  return (torch.from_numpy(a.astype(np.float32)).to(device),
+          torch.from_numpy(b).to(device))
+
+
+def check_spd_ragged(device):
+  """The kernel against the blocked recursion at every (B, d) of
+  SPD_BATCHES x SPD_WIDTHS; returns the worst max abs error over max |x|."""
+  worst = 0.0
+  for B in SPD_BATCHES:
+    for d in SPD_WIDTHS:
+      err, scale, _ = check_spd(*spd_problem(B, d, device), f'[{B}, {d}]')
+      worst = max(worst, err / scale)
+  return worst
+
+
+def check_spd_indefinite(device, d):
+  """One indefinite system in a batch of 37: its x is all NaN, and the
+  other 36 are bitwise their solve in a batch without it."""
+  import torch
+  from recoder_tpu_torch.ops import spd
+  a, b = spd_problem(37, d, device)
+  a[11] = -a[11]
+  x = spd.spd_solve_kernel(a, b)
+  keep = torch.tensor([i for i in range(37) if i != 11], device=device)
+  rest = spd.spd_solve_kernel(a[keep].contiguous(), b[keep].contiguous())
+  if not (torch.isnan(x[11]).all() and torch.isfinite(rest).all()
+          and torch.equal(x[keep], rest)):
+    raise AssertionError(f'spd_solve [37, {d}] with one indefinite system: '
+                         f'not NaN there, or the others changed')
+
+
 def phase_spd(device='cuda', full=(16384, 128)):
   import torch
   from recoder_tpu_torch.ops import spd
-  worst = 0.0
-  for B in (1, 37):
-    for d in (1, 7, 64, 128, 130, 200, 256):
-      rng = np.random.default_rng(d)
-      f = rng.standard_normal((B, d + 8, d)).astype(np.float32) / np.sqrt(d)
-      a = np.einsum('blk,blm->bkm', f, f) + 0.05 * np.eye(d)
-      b = rng.standard_normal((B, d)).astype(np.float32)
-      err, scale, _ = check_spd(
-          torch.from_numpy(a.astype(np.float32)).to(device),
-          torch.from_numpy(b).to(device), f'[{B}, {d}]')
-      worst = max(worst, err / scale)
-  say(f'  ragged B in (1, 37) x d in (1, 7, 64, 128, 130, 200, 256): '
-      f'worst max abs err {worst:.3g} of max |x|')
+  worst = check_spd_ragged(device)
+  say(f'  ragged B in {SPD_BATCHES} x d in {SPD_WIDTHS}: worst max abs err '
+      f'{worst:.3g} of max |x|')
+  for d in (128, 200):
+    check_spd_indefinite(device, d)
+  say('  one indefinite system among 37 (d = 128, 200): NaN there, the other '
+      '36 bitwise their solve without it')
 
   B, d = full
   a, b = ials_systems(B, d, device)
@@ -735,7 +802,10 @@ def phase_spd(device='cuda', full=(16384, 128)):
            'linalg.solve': median_ms(lambda: torch.linalg.solve(a, b),
                                      reps=10)}
   say('  time at the iALS shape (median of 10): '
-      + ', '.join(f'{k} {v:.4f} ms' for k, v in times.items()))
+      + ', '.join(f'{k} {v:.4f} ms' for k, v in times.items())
+      + '; kernel back to back (events, 10 launches) '
+      f'{per_launch_ms(lambda: spd.spd_solve_kernel(a, b), launches=10):.4f}'
+      ' ms')
   return err, times
 
 

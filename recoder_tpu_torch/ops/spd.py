@@ -11,8 +11,11 @@ Cholesky factorization and two triangular solves. It has two routes:
   ``torch.linalg.solve_triangular``; d is padded to ``base * 2**k``
   with an identity diagonal. The same recursion as the JAX package's.
 - the **kernel** (``kernels/spd_solve.cu``, the port of the Pallas
-  ``_chol_solve_kernel``): one CUDA block per system, for a 3-D batch
-  with a vector right-hand side and 1 <= d <= 256.
+  ``_chol_solve_kernel``): one CUDA block per system, a panel-blocked
+  Cholesky with the forward substitution folded in and a panel-blocked
+  back substitution, for a 3-D batch with a vector right-hand side and
+  1 <= d <= 256. :func:`kernel_resources` reports its shared memory
+  and resident blocks an SM.
 
 Routing is by the tensors' device and shape and nothing else. CUDA
 tensors with a 3-D vector right-hand side and d <= 256 launch the
@@ -166,6 +169,8 @@ def _lib():
       lib.spd_error_string.argtypes = [i32]
       lib.spd_error_string.restype = ctypes.c_char_p
       lib.spd_max_d.restype = i32
+      lib.spd_occupancy.argtypes = [i32, i32, ptr, ptr]
+      lib.spd_occupancy.restype = i32
       if lib.spd_max_d() != KERNEL_MAX_D:
         raise RuntimeError(f'spd_solve.cu takes d <= {lib.spd_max_d()}, '
                            f'the wrapper expects {KERNEL_MAX_D}')
@@ -212,6 +217,20 @@ def spd_solve_kernel(a, b):
   _check(lib, err, 'spd_solve launch')
   LAUNCHES['spd_solve'] += 1
   return x
+
+
+def kernel_resources(d):
+  """What the kernel takes at width ``d`` on the current card: the dynamic
+  shared memory of one block in bytes, and the blocks an SM keeps
+  resident."""
+  if not 1 <= d <= KERNEL_MAX_D:
+    raise ValueError(f'system width {d} outside 1..{KERNEL_MAX_D}')
+  lib = _lib()
+  smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+  err = lib.spd_occupancy(d, torch.cuda.current_device(), ctypes.byref(smem),
+                          ctypes.byref(blocks))
+  _check(lib, err, 'spd_occupancy')
+  return {'smem_bytes': smem.value, 'blocks_per_sm': blocks.value}
 
 
 def _kernel_route(a, b):

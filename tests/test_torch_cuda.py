@@ -3,8 +3,10 @@ kernels against their plain PyTorch version at ragged and boundary
 shapes and at the training and union widths, a bfloat16 target bitwise
 equal to the float32 one, no cotangent written under no_grad, the
 wrapper's refusals, and the trainer on the card against the trainer on
-the CPU; the SPD-solve kernel against the blocked recursion, its
-batch independence and NaN on an indefinite system, and the iALS fit on
+the CPU; the SPD-solve kernel against the blocked recursion (at the
+edges of its 16-column panels too), its batch independence, NaN on an
+indefinite system that leaves the rest of its batch bitwise unchanged,
+its shared memory and resident blocks, and the iALS fit on
 the card against the fit on the CPU; the row-scatter kernel against
 ``index_copy_`` (bitwise: it is a copy) at ragged shapes, on a
 misaligned column slice and with an empty id vector, and the sparse
@@ -180,7 +182,8 @@ def _spd_problem(B, d, device, seed=0):
 
 
 @pytest.mark.parametrize('B', [1, 37])
-@pytest.mark.parametrize('d', [1, 7, 64, 128, 130, 200, 256])
+@pytest.mark.parametrize('d', [1, 7, 15, 16, 17, 33, 64, 127, 128, 129,
+                               130, 200, 255, 256])
 def test_spd_kernel_matches_blocked(cuda, B, d):
   a, b = _spd_problem(B, d, cuda, seed=d)
   before = spd.LAUNCHES['spd_solve']
@@ -197,10 +200,12 @@ def test_spd_kernel_matches_blocked(cuda, B, d):
   assert float(rel.max()) <= 1e-3
 
 
-def test_spd_kernel_is_batch_independent(cuda):
+@pytest.mark.parametrize('d', [128, 200])
+def test_spd_kernel_is_batch_independent(cuda, d):
   """A system's x is bitwise the same alone, at any position of a batch
-  of 37, and from run to run: fold-in's bit-exact contract rests on it."""
-  a, b = _spd_problem(37, 128, cuda, seed=5)
+  of 37, and from run to run: fold-in's bit-exact contract rests on it.
+  d = 200 is padded inside the kernel to whole panels."""
+  a, b = _spd_problem(37, d, cuda, seed=5)
   batch = spd.spd_solve_kernel(a, b)
   np.testing.assert_array_equal(batch.cpu().numpy(),
                                 spd.spd_solve_kernel(a, b).cpu().numpy())
@@ -223,6 +228,28 @@ def test_spd_kernel_indefinite_gives_nan(cuda):
   assert torch.isnan(x[1]).all()
   assert torch.isfinite(x[0]).all() and torch.isfinite(x[2]).all()
   assert torch.isnan(spd.spd_solve(a, b, impl='blocked')[1]).all()
+
+
+@pytest.mark.parametrize('d', [128, 200])
+def test_spd_kernel_indefinite_leaves_the_others_bitwise(cuda, d):
+  """One indefinite system among 37 comes out all NaN; the other 36 are
+  bitwise their solve in a batch without it."""
+  a, b = _spd_problem(37, d, cuda, seed=3)
+  a[11] = -a[11]
+  x = spd.spd_solve_kernel(a, b)
+  keep = torch.tensor([i for i in range(37) if i != 11], device=cuda)
+  rest = spd.spd_solve_kernel(a[keep].contiguous(), b[keep].contiguous())
+  assert torch.isnan(x[11]).all()
+  assert torch.isfinite(rest).all()
+  np.testing.assert_array_equal(x[keep].cpu().numpy(), rest.cpu().numpy())
+
+
+def test_spd_kernel_reports_its_resources(cuda):
+  res = spd.kernel_resources(128)
+  assert 0 < res['smem_bytes'] <= 232448
+  assert res['blocks_per_sm'] >= 4
+  with pytest.raises(ValueError, match='width'):
+    spd.kernel_resources(257)
 
 
 def test_spd_kernel_refuses_what_it_does_not_take(cuda):

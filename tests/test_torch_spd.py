@@ -9,19 +9,27 @@ The same numpy systems go through both. Tolerances:
   differ (measured up to 2e-6).
 - The port's plain solve against the TPU kernel ``_spd_solve_pallas``
   run in Pallas interpret mode: within 1e-5 of max |x| (measured 1.7e-6
-  at d=128, 2.3e-6 at d=256), and the relative residual
-  max |Ax - b| / max |b| within 1e-4 on both.
+  at d=128, 2.3e-6 at d=256, 5.7e-7 on the iALS-shaped systems at
+  d=128, whose condition numbers at the init scale stay below 1.5, and
+  1.4e-6 on systems from the item factors of a two-sweep fit on the
+  fixture, condition numbers 9-14: the Gram of the trained factors and
+  the frequency-scaled ridge keep iALS systems well conditioned), and
+  the relative residual max |Ax - b| / max |b| within 1e-4 on both.
 """
 
+import os
 from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 from jax.experimental import pallas as pl
+from scipy.sparse import csr_matrix
 
 import recoder_tpu.ops.spd as jax_spd
+from recoder_tpu_torch.models import IALS
 from recoder_tpu_torch.ops import spd
 
 
@@ -69,17 +77,67 @@ def test_spd_solve_blocked_matches_jax(d, k):
   assert _residual(a, got, b) < 1e-4
 
 
-@pytest.mark.parametrize('d,B', [(128, 5), (256, 3)])
-def test_plain_solve_matches_tpu_kernel(d, B):
-  """The TPU kernel itself, run by Pallas's interpreter on the CPU."""
+def _ials_batch(B, d, seed, n_items=20108, L=64, alpha=10.0, lam=3e-3):
+  """Systems as an iALS user half-sweep builds them (chip_smoke's
+  ``ials_systems``): the Gram of item factors at the init scale, plus
+  alpha-weighted corrections from up to L observed items, plus the
+  frequency-scaled ridge; and the confidence-weighted right-hand side."""
+  rng = np.random.default_rng(seed)
+  items = (rng.standard_normal((n_items, d)) / np.sqrt(d)).astype(np.float32)
+  cols = rng.integers(0, n_items, (B, L))
+  counts = rng.integers(1, L + 1, B)
+  valid = (np.arange(L) < counts[:, None]).astype(np.float32)
+  f = items[cols] * valid[..., None]
+  w = alpha * valid
+  a = items.T @ items + np.einsum('bl,bld,ble->bde', w, f, f)
+  a = a + (lam * (counts + 1.0))[:, None, None] * np.eye(d, dtype=np.float32)
+  b = np.einsum('bl,bld->bd', w + valid, f)
+  return a.astype(np.float32), b.astype(np.float32)
+
+
+def _trained_ials_batch(B, d, users=2000, sweeps=2, alpha=10.0, lam=3e-3):
+  """Systems as the user half-sweep after a short fit solves them: the
+  port's iALS fitted on the fixture's first ``users`` users, then B of
+  their systems built from the trained item factors."""
+  df = pd.read_csv(os.path.join(os.path.dirname(__file__), 'data',
+                                'train.csv.gz'))
+  _, u = np.unique(df['uid'].to_numpy(), return_inverse=True)
+  _, i = np.unique(df['sid'].to_numpy(), return_inverse=True)
+  m = csr_matrix((np.ones(len(u), np.float32), (u, i)))[:users]
+  model = IALS(embedding_size=d, alpha=alpha, lam=lam, sweeps=sweeps,
+               device='cpu').fit(m, chunk_elems=1 << 16)
+  items = model.item_factors.numpy()
+  gram = items.T @ items
+  a, b = [], []
+  for row in np.random.default_rng(0).choice(users, B, replace=False):
+    f = items[m.indices[m.indptr[row]:m.indptr[row + 1]]]
+    a.append(gram + alpha * f.T @ f + lam * (len(f) + 1) * np.eye(d))
+    b.append((alpha + 1) * f.sum(0))
+  return np.asarray(a, np.float32), np.asarray(b, np.float32)
+
+
+@pytest.mark.parametrize('d,B,systems', [
+    pytest.param(128, 5, 'gram', id='128-5'),
+    pytest.param(256, 3, 'gram', id='256-3'),
+    pytest.param(128, 5, 'ials', id='ials-128-5'),
+    pytest.param(128, 5, 'trained', id='ials-trained-128-5')])
+def test_plain_solve_matches_tpu_kernel(d, B, systems):
+  """The TPU kernel itself, run by Pallas's interpreter on the CPU, on
+  well-conditioned Grams and on the systems an iALS fit solves, at the
+  init scale and after two sweeps."""
   orig = pl.pallas_call
 
   def interpreted(*args, **kwargs):
     kwargs['interpret'] = True
     return orig(*args, **kwargs)
 
-  a = _spd_batch(B, d, seed=d)
-  b = _rhs((B, d), seed=2)
+  if systems == 'ials':
+    a, b = _ials_batch(B, d, seed=d)
+  elif systems == 'trained':
+    a, b = _trained_ials_batch(B, d)
+  else:
+    a = _spd_batch(B, d, seed=d)
+    b = _rhs((B, d), seed=2)
   with mock.patch.object(pl, 'pallas_call', interpreted):
     ref = np.asarray(jax_spd._spd_solve_pallas(jnp.asarray(a),
                                                jnp.asarray(b)))
@@ -110,6 +168,12 @@ def test_kernel_route_refuses_cpu_tensors():
     spd.spd_solve_kernel(a, b)
   with pytest.raises(ValueError, match='unknown impl'):
     spd.spd_solve(a, b, impl='pallas')
+
+
+@pytest.mark.parametrize('d', [0, 257])
+def test_kernel_resources_refuses_widths_the_kernel_does_not_take(d):
+  with pytest.raises(ValueError, match='width'):
+    spd.kernel_resources(d)
 
 
 def test_indefinite_system_gives_nan():
