@@ -4,7 +4,9 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It imports nothing of JAX. Phases, each of which raises on failure:
+It imports nothing of JAX, of the JAX package or of bench.py: the
+benchmark's data comes from ``recoder_tpu_torch/data/synthetic.py``.
+Phases, each of which raises on failure:
 
   1. device  -- requires CUDA; prints the card's name and power limit.
   2. build   -- compiles the port's CUDA kernels from this checkout;
@@ -13,8 +15,8 @@ It imports nothing of JAX. Phases, each of which raises on failure:
                 counted in the library's SASS (cuobjdump -sass): a
                 decode-loss kernel without any, or with register spills,
                 fails; the SPD-solve kernel's registers, shared memory
-                and resident blocks an SM at d = 128 and 256, and a
-                spill there fails too.
+                and resident blocks an SM at d = 128 and 256, and the
+                Adam kernel's registers: a spill there fails too.
   3. kernels -- the fused decode-loss kernels (forward and backward)
                 against their plain PyTorch version on the card, for
                 'mse' (c=0, c=3) and 'logistic', at a ragged shape, the
@@ -23,9 +25,10 @@ It imports nothing of JAX. Phases, each of which raises on failure:
                 float32 one); device and CUDA-event times of kernel and
                 plain, taken in turns, beside each kernel's bound.
   4. slice   -- the training path at the full width of the ML-20M-shaped
-                configuration (bench.py's synthetic CSR, 116,677 users x
-                20,108 items): DynamicAutoencoder[200], MSE confidence 3,
-                Adam, batch 500, negative sampling, block shuffle, one
+                configuration (bench.py's synthetic CSR, from the port's
+                copy of its generator: 116,677 users x 20,108 items):
+                DynamicAutoencoder[200], MSE confidence 3, Adam, batch
+                500, negative sampling, block shuffle, float32; one
                 epoch through the kernel, steady epochs and a profile of
                 steady steps; then recommend and a checkpoint round
                 trip.
@@ -87,6 +90,30 @@ It imports nothing of JAX. Phases, each of which raises on failure:
                 fixture (logloss, 30 epochs, 'users' shuffle, float32)
                 must reach the pinned metrics, identical after a reload
                 into a sparse and into a dense model.
+ 14. bf16 kernels -- the bf16 variant of the decode-loss kernels against
+                its plain version ('mse' c=0, c=3, 'logistic'; the ragged
+                and the ML-20M shape; loss rtol 1e-2, gradients within
+                2e-2 in relative Frobenius norm), and the fused
+                bf16-moment Adam kernel against its plain version for 5
+                steps over the ML-20M parameter set and a ragged length
+                (m and v within 1 bf16 ulp, p within 2 float32 ulps);
+                device times of kernel and plain in turns, each beside its
+                bound (bf16 tensor-core peak for the products), and
+                torch.optim.Adam(fused=True) on float32 state (another
+                function) beside the Adam kernel.
+ 15. bf16 slice -- phase 4 at bench.py's ML-20M default numerics
+                (compute_dtype='bfloat16', opt_state_dtype='bfloat16'):
+                one epoch, steady epochs, a profile of steady steps beside
+                phase 4's float32 figures, recommend and a checkpoint
+                round trip; each bf16 decode-loss kernel and the Adam
+                kernel launched once a step. Then phase 5 at bf16: 20
+                'mse' steps through the kernels and through the plain
+                decode + loss (rtol 1e-2).
+ 16. bf16 quality -- the tests/test_model.py bf16 rows (bf16 compute;
+                bf16 compute and bf16 moments; logloss, 30 epochs) must
+                reach the pinned metrics, and a reload into a model built
+                without compute_dtype comes back bf16 with the same
+                metrics (within 1e-6).
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -117,23 +144,40 @@ SOURCES = {
     'fused_decode_loss_bwd': 'recoder_tpu_torch/kernels/fused_decode_loss.cu',
     'spd_solve': 'recoder_tpu_torch/kernels/spd_solve.cu',
     'row_scatter': 'recoder_tpu_torch/kernels/row_scatter.cu',
+    'fused_decode_loss_fwd_bf16':
+        'recoder_tpu_torch/kernels/fused_decode_loss.cu',
+    'fused_decode_loss_bwd_bf16':
+        'recoder_tpu_torch/kernels/fused_decode_loss.cu',
+    'adam_bf16': 'recoder_tpu_torch/kernels/adam.cu',
 }
 REPLACES = {
     'fused_decode_loss_fwd': 'recoder_tpu/experiments/pallas_loss.py:145',
     'fused_decode_loss_bwd': 'recoder_tpu/experiments/pallas_loss.py:165',
     'spd_solve': 'recoder_tpu/ops/spd.py:235',
     'row_scatter': 'recoder_tpu/experiments/block_scatter.py:136',
+    'fused_decode_loss_fwd_bf16': 'recoder_tpu/experiments/pallas_loss.py:145',
+    'fused_decode_loss_bwd_bf16': 'recoder_tpu/experiments/pallas_loss.py:165',
+    # no Pallas ancestor: the adam branch of the JAX Optimizer.update
+    'adam_bf16': 'recoder_tpu/optim.py:157',
 }
 #: reference values pinned in tests/test_model.py (atol 0.01)
 PINNED = {'Recall@20': 0.1417, 'Recall@50': 0.2393, 'NDCG@100': 0.1684}
 
 #: the decode-loss kernels of the training step (kernels/fused_decode_loss.cu)
 DECODE_LOSS_KERNELS = ('decode_loss_fwd_kernel', 'drows_dbias_kernel',
-                       'dh_splitk_kernel')
+                       'dh_splitk_kernel', 'decode_loss_fwd_bf16_kernel',
+                       'drows_dbias_bf16_kernel', 'dh_splitk_bf16_kernel')
 #: published peaks of one H100 SXM: TF32 tensor cores (the fastest rate
-#: at which it takes float32 operands) and HBM3
+#: at which it takes float32 operands), bf16 tensor cores (dense) and HBM3
 PEAK_FLOPS = 495e12
+PEAK_FLOPS_BF16 = 989e12
 PEAK_BYTES = 3.35e12
+BF16_LOSS_RTOL = 1e-2
+BF16_GRAD_REL_FRO = 2e-2
+BF16_PATHS_RTOL = 1e-2
+#: the dense parameters of DynamicAutoencoder[200] at the ML-20M shape
+#: (en/de embeddings [20,224, 200], en_bias [200], de_bias [20,224])
+ML20M_PARAM_SHAPES = ((20224, 200), (200,), (20224, 200), (20224,))
 
 LOSS_RTOL = 1e-4
 GRAD_RTOL = 1e-3
@@ -190,16 +234,18 @@ def phase_build():
   from concurrent.futures import ThreadPoolExecutor
 
   from recoder_tpu_torch.kernels import BUILD_LOGS
+  from recoder_tpu_torch.ops import adam
   from recoder_tpu_torch.ops import fused_decode_loss as fdl
   from recoder_tpu_torch.ops import row_scatter as rs
   from recoder_tpu_torch.ops import spd
   t0 = time.time()
-  with ThreadPoolExecutor(max_workers=3) as pool:
-    for fut in [pool.submit(lib) for lib in (fdl._lib, spd._lib, rs._lib)]:
+  libs = (fdl._lib, spd._lib, rs._lib, adam._lib)
+  with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+    for fut in [pool.submit(lib) for lib in libs]:
       fut.result()
-  say(f'build: fused_decode_loss, spd_solve and row_scatter in '
+  say(f'build: fused_decode_loss, spd_solve, row_scatter and adam in '
       f'{time.time() - t0:.1f} s')
-  for name in ('fused_decode_loss', 'spd_solve', 'row_scatter'):
+  for name in ('fused_decode_loss', 'spd_solve', 'row_scatter', 'adam'):
     for line in BUILD_LOGS.get(name, '').splitlines():
       if 'registers' in line or 'spill' in line or 'Compiling' in line:
         say('  ' + line.strip())
@@ -220,6 +266,15 @@ def phase_build():
         raise AssertionError(f'{func} has no tensor-core instruction')
       if stores is None or stores or loads:
         raise AssertionError(f'{func}: register spills, or no ptxas report')
+
+  frames = ptxas_frames(BUILD_LOGS.get('adam', ''))
+  if not frames or any(v[1] or v[2] for v in frames.values()):
+    raise AssertionError(f'adam_bf16_kernel: register spills, or no ptxas '
+                         f'report: {frames}')
+  say(f'  adam_bf16_kernel (-fmad=false): '
+      f'{ptxas_registers(BUILD_LOGS["adam"], "adam_bf16_kernel")} '
+      f'registers, stack frame / spill stores / spill loads '
+      f'{list(frames.values())[0]} B')
 
   log = BUILD_LOGS.get('spd_solve', '')
   frames = {f: v for f, v in ptxas_frames(log).items()
@@ -303,10 +358,13 @@ def _close(got, ref, rtol, atol):
   return bool((err <= atol + rtol * ref.abs()).all()), float(err.max())
 
 
-def compare_kernel(B, d, W, kind, confidence, device, target_dtype=None):
+def compare_kernel(B, d, W, kind, confidence, device, target_dtype=None,
+                   compute_dtype=None):
   """Kernel loss and gradients against autograd through the plain
   version; returns the largest abs errors (loss, grads) and the kernel's
-  (loss, dh, drows, dbias)."""
+  (loss, dh, drows, dbias). The bf16 variant (``compute_dtype``) is held
+  to loss rtol 1e-2 and gradients within 2e-2 in relative Frobenius
+  norm."""
   import torch
   from recoder_tpu_torch.ops.fused_decode_loss import (
       fused_decode_loss, fused_decode_loss_plain)
@@ -317,25 +375,33 @@ def compare_kernel(B, d, W, kind, confidence, device, target_dtype=None):
   for name, fn in (('kernel', fused_decode_loss),
                    ('plain', fused_decode_loss_plain)):
     hh, rr, bb = (x.clone().requires_grad_(True) for x in (h, rows, bias))
-    loss = fn(hh, rr, bb, target, rm, cm, kind, confidence)
+    loss = fn(hh, rr, bb, target, rm, cm, kind, confidence, compute_dtype)
     loss.backward()
     results[name] = (loss.detach(), hh.grad, rr.grad, bb.grad)
   (lk, *gk), (lp, *gp) = results['kernel'], results['plain']
-  what = f'{kind} c={confidence} [{B},{d},{W}] target {target.dtype}'
-  ok, loss_err = _close(lk, lp, LOSS_RTOL, 0.0)
+  bf16 = compute_dtype is not None
+  what = (f'{kind} c={confidence} [{B},{d},{W}] target {target.dtype}'
+          f'{" bf16 compute" if bf16 else ""}')
+  ok, loss_err = _close(lk, lp, BF16_LOSS_RTOL if bf16 else LOSS_RTOL, 0.0)
   if not ok:
     raise AssertionError(f'{what}: loss {float(lk)} vs plain {float(lp)}')
   grad_err = 0.0
   for gname, a, b in zip(('dh', 'drows', 'dbias'), gk, gp):
-    atol = GRAD_ATOL_FRACTION * float(b.abs().max())
-    ok, err = _close(a, b, GRAD_RTOL, atol)
+    if bf16:
+      err = float((a - b).abs().max())
+      rel = float(torch.linalg.vector_norm(a - b)
+                  / torch.linalg.vector_norm(b).clamp(min=1e-30))
+      ok = rel <= BF16_GRAD_REL_FRO
+    else:
+      atol = GRAD_ATOL_FRACTION * float(b.abs().max())
+      ok, err = _close(a, b, GRAD_RTOL, atol)
     grad_err = max(grad_err, err)
     if not ok:
-      raise AssertionError(f'{what}: {gname} max abs err {err} (atol '
-                           f'{atol})')
+      raise AssertionError(f'{what}: {gname} max abs err {err}')
   say(f'  {kind:8s} c={confidence:<3} [{B}, {d}, {W}] {str(target.dtype)[6:]:8s}'
-      f': loss {float(lk):.6g} (plain {float(lp):.6g}), max abs err loss '
-      f'{loss_err:.3g} grads {grad_err:.3g}')
+      f'{" bf16" if bf16 else ""}: loss {float(lk):.6g} (plain '
+      f'{float(lp):.6g}), max abs err loss {loss_err:.3g} grads '
+      f'{grad_err:.3g}')
   return loss_err, grad_err, results['kernel']
 
 
@@ -391,33 +457,38 @@ def device_ms(fn, calls=20, between=None, skip=None, tries=3):
                        f'in {tries} tries')
 
 
-def bound(flops, nbytes):
-  """(least ms on the card, what sets it): operations at the TF32 peak
-  against bytes at the HBM peak."""
-  ops_ms, bytes_ms = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops, nbytes, peak_flops=PEAK_FLOPS):
+  """(least ms on the card, what sets it): operations at ``peak_flops``
+  (the TF32 tensor-core peak by default) against bytes at the HBM
+  peak."""
+  ops_ms, bytes_ms = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
   return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms,
                                                              'bytes')
 
 
-def decode_loss_bounds(B, d, W, target_bytes=4):
+def decode_loss_bounds(B, d, W, target_bytes=4, bf16=False):
   """Bounds of each timed step, counted from what that step reads and
   writes (each input once, each output once) and the products it does:
   the forward (the loss, and E0 [B, lde] when a backward follows), the
   backward (two products over E0 to dh, drows and dbias) and the pair
   (the function itself: three products from h, rows, bias and the
-  target to the loss and the three gradients)."""
+  target to the loss and the three gradients). ``bf16``: the bf16
+  variant -- E0 in bf16 ([B, W rounded up to 8]) and the products at the
+  bf16 tensor-core peak."""
   product = 2.0 * B * W * d
-  lde = -(-W // 4) * 4
+  lde, e0_bytes = (-(-W // 8) * 8, 2.0) if bf16 else (-(-W // 4) * 4, 4.0)
+  peak = PEAK_FLOPS_BF16 if bf16 else PEAK_FLOPS
   inputs = 4.0 * (B * d + W * d + 2 * W + B) + target_bytes * B * W
   grads = 4.0 * (B * d + W * d + W)
-  return {'fwd': bound(product, inputs + 4 + 4.0 * B * lde),
-          'fwd_nograd': bound(product, inputs + 4),
-          'bwd': bound(2 * product,
-                       4.0 * (B * lde + B * d + W * d) + 4 + grads),
-          'fwd_bwd': bound(3 * product, inputs + 4 + 4 + grads)}
+  return {'fwd': bound(product, inputs + 4 + e0_bytes * B * lde, peak),
+          'fwd_nograd': bound(product, inputs + 4, peak),
+          'bwd': bound(2 * product, e0_bytes * B * lde
+                       + 4.0 * (B * d + W * d) + 4 + grads, peak),
+          'fwd_bwd': bound(3 * product, inputs + 4 + 4 + grads, peak)}
 
 
-def time_kernel(B, d, W, kind, confidence, device):
+def time_kernel(B, d, W, kind, confidence, device, compute_dtype=None,
+                target_dtype=None):
   """Forward (writing E0, as training runs it), forward under no_grad,
   backward from E0 and forward+backward through autograd, kernel and
   plain, at one shape. Each is timed by its device time (profiler) and
@@ -426,8 +497,10 @@ def time_kernel(B, d, W, kind, confidence, device):
   import torch
   from recoder_tpu_torch.ops import fused_decode_loss as fdl
   h, rows, bias, target, rm, cm = make_problem(B, d, W, device)
+  if target_dtype is not None:
+    target = target.to(target_dtype)
   g = torch.ones((), device=device)
-  args = (target, rm, cm, kind, confidence)
+  args = (target, rm, cm, kind, confidence, compute_dtype)
   _, e0 = fdl._kernel_forward(h, rows, bias, *args, True)
   _, e0_plain = fdl._plain_forward(h, rows, bias, *args, True)
   leaves = [x.clone().requires_grad_(True) for x in (h, rows, bias)]
@@ -462,10 +535,10 @@ def time_kernel(B, d, W, kind, confidence, device):
                 for name, d_ in r.items()} for how, r in runs.items()}
 
 
-def report_times(times, shape, what):
+def report_times(times, shape, what, target_bytes=4, bf16=False):
   """Print kernel and plain times, and each kernel's bound and share."""
   B, d, W = shape
-  bounds = decode_loss_bounds(B, d, W)
+  bounds = decode_loss_bounds(B, d, W, target_bytes, bf16)
   for how in ('device', 'events'):
     for name in ('kernel', 'plain'):
       t = times[how][name]
@@ -529,32 +602,54 @@ def load_fixture():
 
 # -- phase 4 ---------------------------------------------------------------
 
-def phase_slice(matrix, device='cuda', epochs_timed=2):
-  """One full epoch of the main path; returns launch counts and rates."""
+def reset_launches():
+  from recoder_tpu_torch.ops import adam
+  from recoder_tpu_torch.ops import fused_decode_loss as fdl
+  for counts in (fdl.LAUNCHES, adam.LAUNCHES):
+    for k in counts:
+      counts[k] = 0
+
+
+def read_launches():
+  from recoder_tpu_torch.ops import adam
+  from recoder_tpu_torch.ops import fused_decode_loss as fdl
+  return {**fdl.LAUNCHES, **adam.LAUNCHES}
+
+
+def phase_slice(matrix, device='cuda', epochs_timed=2, compute_dtype=None,
+                opt_state_dtype=None):
+  """One full epoch of the main path (at the given numerics), steady
+  epochs and a profile; returns the epoch's launch counts of the kernels
+  that path runs, the rates and the profiled device ms a step."""
   import torch
   from recoder_tpu_torch.data import RecommendationDataset
   from recoder_tpu_torch.model import Recoder
   from recoder_tpu_torch.models import DynamicAutoencoder
-  from recoder_tpu_torch.ops import fused_decode_loss as fdl
 
   dataset = RecommendationDataset(matrix)
   common = dict(batch_size=500, lr=1e-3, weight_decay=2e-5,
                 negative_sampling=True, shuffle='blocks')
-
-  def new_trainer():
-    return Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5),
-                   optimizer_type='adam', loss='mse',
-                   loss_params={'confidence': 3}, device=device)
-
-  trainer = new_trainer()
-  for k in fdl.LAUNCHES:
-    fdl.LAUNCHES[k] = 0
+  trainer = Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                       compute_dtype=compute_dtype),
+                    optimizer_type='adam', loss='mse',
+                    loss_params={'confidence': 3}, device=device,
+                    opt_state_dtype=opt_state_dtype)
+  if compute_dtype is None:
+    kernels = ('fused_decode_loss_fwd', 'fused_decode_loss_bwd')
+  else:
+    kernels = ('fused_decode_loss_fwd_bf16', 'fused_decode_loss_bwd_bf16')
+  if opt_state_dtype is not None:
+    kernels += ('adam_bf16',)
+  reset_launches()
   t0 = time.time()
   trainer.train(dataset, num_epochs=1, **common)
-  if device != 'cpu':
-    torch.cuda.synchronize()
+  torch.cuda.synchronize()
   first_call_s = time.time() - t0
-  launches = dict(fdl.LAUNCHES)
+  counts = read_launches()
+  launches = {k: counts[k] for k in kernels}
+  others = {k: v for k, v in counts.items() if k not in kernels and v}
+  if others:
+    raise AssertionError(f'the epoch launched other kernels: {others}')
 
   losses = np.asarray(trainer.last_epoch_losses)
   steps = len(losses)
@@ -579,9 +674,11 @@ def phase_slice(matrix, device='cuda', epochs_timed=2):
     trainer.train(dataset, num_epochs=epoch, **common)
     rates.append(len(trainer.last_epoch_losses)
                  / trainer.last_epoch_seconds)
-  say(f'  steady epochs: ml20m_user_batches_per_sec '
+  dtypes = f'compute {compute_dtype or "float32"}, moments ' \
+      f'{opt_state_dtype or "float32"}'
+  say(f'  steady epochs ({dtypes}): ml20m_user_batches_per_sec '
       f'{", ".join(f"{r:.2f}" for r in rates)}')
-  _, busy_ms, _ = profile_steps(trainer, sparse=False)
+  _, busy_ms, per_step = profile_steps(trainer, sparse=False)
   steady_ms = 1e3 / max(rates)
   say(f'  steady step {steady_ms:.3f} ms without the profiler: the device '
       f'idle ~{100 * (1 - busy_ms / steady_ms):.1f}% of it')
@@ -602,16 +699,19 @@ def phase_slice(matrix, device='cuda', epochs_timed=2):
     restored = Recoder(DynamicAutoencoder(), device=device)
     restored.init_from_model_file(path)
     recs2 = np.asarray(restored.recommend(users, 100))
+  if restored.model.compute_dtype != trainer.model.compute_dtype:
+    raise AssertionError('the checkpoint did not restore the compute dtype')
   if not np.array_equal(recs, recs2):
     raise AssertionError('recommendations changed across the checkpoint')
   say('  recommend k=100 for 500 users: in range, unseen, identical after '
       'save_state -> init_from_model_file')
-  return launches, epoch_rate, rates
+  return launches, epoch_rate, rates, (busy_ms, per_step, steady_ms)
 
 
 # -- phase 5 ---------------------------------------------------------------
 
-def phase_paths(train_m, device='cuda', steps=20):
+def phase_paths(train_m, device='cuda', steps=20, compute_dtype=None,
+                opt_state_dtype=None, rtol=PATHS_RTOL):
   """'mse' trains through the fused kernel; an ``MSELoss`` instance
   (the same loss) through the decode matmul and ops/losses.py."""
   from recoder_tpu_torch.data import RecommendationDataset
@@ -623,10 +723,11 @@ def phase_paths(train_m, device='cuda', steps=20):
   trajectories = {}
   for fused in (True, False):
     loss = 'mse' if fused else MSELoss(confidence=3, reduction='sum')
-    trainer = Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5),
+    trainer = Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                         compute_dtype=compute_dtype),
                       optimizer_type='adam', loss=loss,
                       loss_params={'confidence': 3} if fused else None,
-                      device=device)
+                      device=device, opt_state_dtype=opt_state_dtype)
     trainer.train(dataset, batch_size=500, lr=1e-3, weight_decay=2e-5,
                   negative_sampling=True, shuffle='blocks', num_epochs=1,
                   iters_per_epoch=steps)
@@ -635,7 +736,7 @@ def phase_paths(train_m, device='cuda', steps=20):
   if len(k) != steps or len(p) != steps:
     raise AssertionError(f'ran {len(k)} and {len(p)} steps, not {steps}')
   rel = np.abs(k - p) / np.abs(p)
-  if not np.all(rel <= PATHS_RTOL):
+  if not np.all(rel <= rtol):
     raise AssertionError(f'kernel and plain trajectories differ: max rel '
                          f'{rel.max()} (kernel {k}, plain {p})')
   say(f'  {steps} steps, kernel vs plain loss: max rel diff {rel.max():.3g}'
@@ -645,7 +746,8 @@ def phase_paths(train_m, device='cuda', steps=20):
 
 # -- phase 6 ---------------------------------------------------------------
 
-def phase_quality(train_m, val_m, device='cuda', epochs=30, atol=0.01):
+def phase_quality(train_m, val_m, device='cuda', epochs=30, atol=0.01,
+                  compute_dtype=None, opt_state_dtype=None, reload_atol=0.0):
   from recoder_tpu_torch.data import RecommendationDataset
   from recoder_tpu_torch.metrics import NDCG, Recall
   from recoder_tpu_torch.model import Recoder
@@ -653,8 +755,10 @@ def phase_quality(train_m, val_m, device='cuda', epochs=30, atol=0.01):
 
   train_ds = RecommendationDataset(train_m)
   val_ds = RecommendationDataset(val_m, train_m)
-  trainer = Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5),
-                    optimizer_type='adam', loss='logloss', device=device)
+  trainer = Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                       compute_dtype=compute_dtype),
+                    optimizer_type='adam', loss='logloss', device=device,
+                    opt_state_dtype=opt_state_dtype)
   t0 = time.time()
   trainer.train(train_ds, batch_size=500, lr=1e-3, weight_decay=2e-5,
                 num_epochs=epochs, negative_sampling=True)
@@ -662,17 +766,23 @@ def phase_quality(train_m, val_m, device='cuda', epochs=30, atol=0.01):
   metrics = [Recall(k=20), Recall(k=50), NDCG(k=100)]
   results = trainer._evaluate(val_ds, 100, metrics, batch_size=500)
   means = {str(m): float(np.mean(v)) for m, v in results.items()}
-  say(f'  {epochs} epochs in {train_s:.1f} s; '
+  say(f'  compute {compute_dtype or "float32"}, moments '
+      f'{opt_state_dtype or "float32"}: {epochs} epochs in {train_s:.1f} s; '
       + ', '.join(f'{k} {v:.4f} (pinned {PINNED[k]})'
                   for k, v in means.items()))
   misses = {k: v for k, v in means.items() if abs(v - PINNED[k]) > atol}
   with tempfile.TemporaryDirectory() as tmp:
     path = trainer.save_state(os.path.join(tmp, 'quality'))
+    # built without compute_dtype: the checkpoint's comes back
     restored = Recoder(DynamicAutoencoder(), device=device)
     restored.init_from_model_file(path)
     results2 = restored._evaluate(val_ds, 100, metrics, batch_size=500)
+  if restored.model.compute_dtype != trainer.model.compute_dtype:
+    raise AssertionError(f'the reload computes in '
+                         f'{restored.model.compute_dtype}, the trainer in '
+                         f'{trainer.model.compute_dtype}')
   means2 = {str(m): float(np.mean(v)) for m, v in results2.items()}
-  if means2 != means:
+  if any(abs(means2[k] - v) > reload_atol for k, v in means.items()):
     raise AssertionError(f'metrics changed across the checkpoint: {means} '
                          f'vs {means2}')
   if misses:
@@ -1069,7 +1179,8 @@ def phase_scatter(msd_ids, device='cuda', d=200):
 def profile_steps(trainer, sparse, steps=10):
   """torch.profiler over ``steps`` steady training steps (the sparse step
   of union batches, or the dense full-decode step): the top device
-  kernels and the device-idle share of the window."""
+  kernels and the device-idle share of the window; returns the wall and
+  device ms and the kernel launches a step."""
   import torch
   from torch.profiler import ProfilerActivity, profile
   source = trainer._source_cache[2]
@@ -1101,13 +1212,15 @@ def profile_steps(trainer, sparse, steps=10):
                   ev.count, ev.key) for ev in on_device
                  if ev.key not in host_keys), reverse=True)
   busy = sum(r[0] for r in rows)
+  kernels = sum(r[1] for r in rows) / steps
   say(f'  profile of {steps} steady steps: wall {wall_ms:.3f} ms '
       f'({wall_ms / steps:.3f} ms/step under the profiler), device kernels '
-      f'{busy:.3f} ms ({busy / steps:.3f} ms/step), device idle '
-      f'{100 * (1 - busy / wall_ms):.1f}% of the profiled window')
+      f'{busy:.3f} ms ({busy / steps:.3f} ms/step, {kernels:.1f} launches a '
+      f'step), device idle {100 * (1 - busy / wall_ms):.1f}% of the profiled '
+      'window')
   for ms, count, key in rows[:12]:
     say(f'    {ms:9.3f} ms  {count:5d}x  {key[:90]}')
-  return wall_ms / steps, busy / steps, rows
+  return wall_ms / steps, busy / steps, kernels
 
 
 def phase_sparse_slice(matrix, device='cuda', epochs_timed=2):
@@ -1291,6 +1404,111 @@ def phase_sparse_quality(train_m, val_m, device='cuda', epochs=30,
   return means
 
 
+# -- phase 14 --------------------------------------------------------------
+
+def adam_problem(shapes, device, seed=0):
+  """Parameters, gradients and bf16 moments at training-like magnitudes;
+  weight decay 2e-5 on the matrices, 0 on the biases (the 1-D tensors)."""
+  import torch
+  gen = torch.Generator(device=device).manual_seed(seed)
+
+  def draw(shape, scale, fn=torch.randn):
+    return scale * fn(shape, device=device, generator=gen)
+
+  params = [draw(sh, 0.05) for sh in shapes]
+  grads = [draw(sh, 1e-3) for sh in shapes]
+  ms = [draw(sh, 1e-4).bfloat16() for sh in shapes]
+  vs = [draw(sh, 1e-6, torch.rand).bfloat16() for sh in shapes]
+  wds = [0.0 if len(sh) == 1 else 2e-5 for sh in shapes]
+  return params, grads, ms, vs, wds
+
+
+def check_adam(shapes, device, steps=5):
+  """Five steps through the kernel and through its plain version from the
+  same state and gradients: m and v within 1 bf16 ulp, p within 2 float32
+  ulps; returns the largest abs difference of p, m and v."""
+  import torch
+  from recoder_tpu_torch.ops import adam
+  params, grads, ms, vs, wds = adam_problem(shapes, device)
+  kernel = [[x.clone() for x in xs] for xs in (params, ms, vs)]
+  for step in range(1, steps + 1):
+    sc = adam.step_scalars(1e-3, step, (0.9, 0.999), 1e-8)
+    adam.adam_bf16_kernel(kernel[0], grads, kernel[1], kernel[2], wds, sc)
+    adam.adam_bf16_plain(params, grads, ms, vs, wds, sc)
+  torch.cuda.synchronize()
+  err = 0.0
+  for got, ref, ulp in ((kernel[0], params, None), (kernel[1], ms, 'bf16'),
+                        (kernel[2], vs, 'bf16')):
+    for a, b in zip(got, ref):
+      a, b = a.float(), b.float()
+      diff = (a - b).abs()
+      err = max(err, float(diff.max()))
+      eps = 2.0 ** -7 if ulp else 2 * torch.finfo(torch.float32).eps
+      # one bf16 ulp: 2^-7 of the value's power of two; p: 2 float32 ulps
+      scale = (torch.exp2(torch.floor(torch.log2(b.abs().clamp(
+          min=2.0 ** -126)))) if ulp else b.abs())
+      if not bool((diff <= eps * scale).all()):
+        raise AssertionError(f'adam kernel {tuple(a.shape)}: differs from '
+                             f'the plain version beyond tolerance (max abs '
+                             f'{float(diff.max())})')
+  return err
+
+
+def time_adam(shapes, device):
+  """Device ms of one step over the parameter set: the kernel, its plain
+  version and, as another function's yardstick, torch.optim.Adam(fused=
+  True) on float32 state (two groups: decay and no decay), in turns."""
+  import torch
+  from recoder_tpu_torch.ops import adam
+  params, grads, ms, vs, wds = adam_problem(shapes, device, seed=1)
+  sc = adam.step_scalars(1e-3, 10, (0.9, 0.999), 1e-8)
+  leaves = [torch.nn.Parameter(p.clone()) for p in params]
+  for leaf, g in zip(leaves, grads):
+    leaf.grad = g.clone()
+  fused = torch.optim.Adam(
+      [{'params': [x for x, w in zip(leaves, wds) if w], 'weight_decay': 2e-5},
+       {'params': [x for x, w in zip(leaves, wds) if not w],
+        'weight_decay': 0.0}], lr=1e-3, fused=True)
+  steps = {'kernel': lambda: adam.adam_bf16_kernel(params, grads, ms, vs,
+                                                   wds, sc),
+           'plain': lambda: adam.adam_bf16_plain(params, grads, ms, vs, wds,
+                                                 sc),
+           'torch.optim.Adam(fused=True), float32 state': fused.step}
+  runs = {name: [] for name in steps}
+  for name in ('plain', 'kernel', 'torch.optim.Adam(fused=True), float32 '
+               'state', 'kernel', 'plain'):
+    runs[name].append(device_ms(steps[name]))
+  return {name: statistics.mean(v) for name, v in runs.items()}
+
+
+def phase_bf16_kernels(device='cuda', ragged=(37, 24, 1000),
+                       full=(500, 200, 20224), ragged_adam=1_000_003):
+  import torch
+  cases = [('mse', 0.0), ('mse', 3.0), ('logistic', 0.0)]
+  errs = []
+  for shape in (ragged, full):
+    for kind, c in cases:
+      errs.append(compare_kernel(*shape, kind, c, device, torch.bfloat16,
+                                 'bfloat16')[:2])
+  times = time_kernel(*full, 'mse', 3.0, device, 'bfloat16', torch.bfloat16)
+  report_times(times, full, f'bf16 mse c=3 {list(full)}', target_bytes=2,
+               bf16=True)
+  adam_err = max(check_adam(ML20M_PARAM_SHAPES, device),
+                 check_adam(((ragged_adam,),), device))
+  n = sum(int(np.prod(sh)) for sh in ML20M_PARAM_SHAPES)
+  say(f'  adam kernel vs plain, 5 steps over the ML-20M parameter set ({n:,} '
+      f'parameters) and a ragged length {ragged_adam:,}: max abs diff '
+      f'{adam_err:.3g} (m, v within 1 bf16 ulp, p within 2 float32 ulps)')
+  adam_times = time_adam(ML20M_PARAM_SHAPES, device)
+  adam_bound = bound(0.0, 20.0 * n)
+  say('  adam step, device time: ' + ', '.join(
+      f'{k} {v:.4f} ms' for k, v in adam_times.items())
+      + f'; bound {adam_bound[0]:.4f} ms ({adam_bound[1]}: 20 B a parameter);'
+      f' kernel at {100 * adam_bound[0] / adam_times["kernel"]:.1f}% of it')
+  return (times, (max(e[0] for e in errs), max(e[1] for e in errs)),
+          adam_err, adam_times, adam_bound)
+
+
 # -- main ------------------------------------------------------------------
 
 def run(name, fn, *args, **kwargs):
@@ -1301,19 +1519,48 @@ def run(name, fn, *args, **kwargs):
   return out
 
 
+def phase_bf16_slice(matrix, train_m, f32_profile, f32_rates):
+  """Phase 4 at bench.py's ML-20M numerics, then phase 5 at bf16."""
+  steps = -(-matrix.shape[0] // 500)
+  launches, epoch_rate, rates, profile = phase_slice(
+      matrix, compute_dtype='bfloat16', opt_state_dtype='bfloat16')
+  say(f'  kernel launches in the epoch of {steps} steps: {launches}')
+  if any(v != steps for v in launches.values()):
+    raise AssertionError(f'a kernel of the bf16 path was not launched once a '
+                         f'step: {launches}')
+  for name, (busy, per_step, steady_ms), r in (
+      ('bf16', profile, rates), ('float32 (phase 4)', f32_profile,
+                                 f32_rates)):
+    say(f'  {name:17s}: device {busy:.3f} ms and {per_step:.1f} kernel '
+        f'launches a profiled step; steady ml20m_user_batches_per_sec '
+        f'{max(r):.2f} ({steady_ms:.3f} ms a step: the device idle '
+        f'~{100 * (1 - busy / steady_ms):.1f}%)')
+  phase_paths(train_m, compute_dtype='bfloat16',
+              opt_state_dtype='bfloat16', rtol=BF16_PATHS_RTOL)
+  return launches, epoch_rate, rates, profile[0]
+
+
+def phase_bf16_quality(train_m, val_m):
+  """The two bf16 rows of tests/test_model.py."""
+  return [phase_quality(train_m, val_m, compute_dtype='bfloat16',
+                        opt_state_dtype=osd, reload_atol=1e-6)
+          for osd in (None, 'bfloat16')]
+
+
 def main():
   import torch
   card = run('1 device', phase_device)
   sys.path.insert(0, HERE)
-  import bench  # numpy/scipy only: the ML-20M-shaped synthetic CSR
+  from recoder_tpu_torch.data import synthetic
 
   run('2 build', phase_build)
   times, (loss_err, grad_err) = run('3 kernels', phase_kernels)
   t0 = time.time()
-  matrix = bench.synthesize_ml20m()
+  matrix = synthetic.synthesize_ml20m()
   say(f'ML-20M-shaped CSR {matrix.shape}, nnz {matrix.nnz:,} '
       f'({time.time() - t0:.1f} s)')
-  launches, epoch_rate, steady = run('4 slice', phase_slice, matrix)
+  launches, epoch_rate, steady, f32_profile = run('4 slice', phase_slice,
+                                                  matrix)
   ml20m_steps = -(-matrix.shape[0] // 500)
   say(f'  kernel launches in the epoch: {launches}')
   if any(v < 1 for v in launches.values()):
@@ -1329,8 +1576,7 @@ def main():
   run('9 ials quality', phase_ials_quality, train_m, val_m)
 
   t0 = time.time()
-  msd = bench.synthesize(bench.MSD_USERS, bench.MSD_ITEMS,
-                         bench.MSD_MEAN_ITEMS_PER_USER, mean_factor=0.68)
+  msd = synthetic.synthesize_msd()
   msd_ids = np.unique(msd.indices[msd.indptr[0]:msd.indptr[500]])
   say(f'MSD-shaped CSR {msd.shape}, nnz {msd.nnz:,} '
       f'({time.time() - t0:.1f} s)')
@@ -1343,12 +1589,24 @@ def main():
   _, union_times = run('12 union paths', phase_union_paths, train_m,
                        int(round(widths.mean())))
   run('13 sparse quality', phase_sparse_quality, train_m, val_m)
+  (bf16_times, (bf16_loss_err, bf16_grad_err), adam_err, adam_times,
+   adam_bound) = run('14 bf16 kernels', phase_bf16_kernels)
+  matrix = synthetic.synthesize_ml20m()
+  bf16_launches, bf16_first, bf16_rates, bf16_busy_ms = run(
+      '15 bf16 slice', phase_bf16_slice, matrix, train_m, f32_profile,
+      steady)
+  launches.update(bf16_launches)
+  del matrix
+  bf16_quality = run('16 bf16 quality', phase_bf16_quality, train_m, val_m)
 
   # device times at the training shape (phase 3); the others are the
   # phases' own measures (CUDA-event medians for the SPD solve, device
   # times for the row scatter)
   dev = times['device']
   fdl_bounds = decode_loss_bounds(500, 200, 20224)
+  bdev = bf16_times['device']
+  bf16_bounds = decode_loss_bounds(500, 200, 20224, target_bytes=2,
+                                   bf16=True)
   B_spd, d_spd = 16384, 128
   n_ids, d_msd = len(msd_ids), 200
   measured = {
@@ -1369,6 +1627,19 @@ def main():
           scatter_times['plain'],
           bound(0.0, 3 * 2 * n_ids * d_msd * 4.0 + 8 * n_ids),
           launches['row_scatter'] / msd_steps),
+      'fused_decode_loss_fwd_bf16': (
+          bf16_loss_err, bdev['kernel']['fwd'], bdev['plain']['fwd'], None,
+          bf16_bounds['fwd'],
+          launches['fused_decode_loss_fwd_bf16'] / ml20m_steps),
+      'fused_decode_loss_bwd_bf16': (
+          bf16_grad_err, bdev['kernel']['bwd'], bdev['plain']['bwd'], None,
+          bf16_bounds['bwd'],
+          launches['fused_decode_loss_bwd_bf16'] / ml20m_steps),
+      # no PyTorch call computes bf16-moment Adam (torch.optim.Adam on
+      # float32 state, another function, is printed in phase 14)
+      'adam_bf16': (
+          adam_err, adam_times['kernel'], adam_times['plain'], None,
+          adam_bound, launches['adam_bf16'] / ml20m_steps),
   }
   kernels = [{'name': name, 'route': 'cuda', 'source': SOURCES[name],
               'replaces': REPLACES[name], 'launches': launches[name],
@@ -1389,7 +1660,15 @@ def main():
       f'{scatter_times["kernel"]:.4f} vs index_copy_ x3 '
       f'{scatter_times["plain"]:.4f} ms; fused fwd+bwd at an MSD union '
       f'{union_times["device"]["kernel"]["fwd_bwd"]:.4f} vs plain '
-      f'{union_times["device"]["plain"]["fwd_bwd"]:.4f} ms; card {card}')
+      f'{union_times["device"]["plain"]["fwd_bwd"]:.4f} ms; bf16 ML-20M '
+      f'(bench.py default numerics) first epoch {bf16_first:.2f}, steady '
+      f'ml20m_user_batches_per_sec {max(bf16_rates):.2f} '
+      f'({bf16_busy_ms:.3f} ms of device time a profiled step), bf16 fused '
+      f'fwd+bwd {bdev["kernel"]["fwd_bwd"]:.4f} vs plain '
+      f'{bdev["plain"]["fwd_bwd"]:.4f} ms, adam kernel '
+      f'{adam_times["kernel"]:.4f} ms; bf16 quality '
+      + '; '.join(', '.join(f'{k} {v:.4f}' for k, v in q.items())
+                  for q in bf16_quality) + f'; card {card}')
   say(json.dumps({'kernels': kernels}))
   say(card)
   say(json.dumps({'ok': True, 'device': {

@@ -7,8 +7,9 @@ by the differential tests in ``tests/test_torch_*.py``. It imports
 ``torch`` and never ``jax``, and never imports ``recoder_tpu`` (whose
 package ``__init__`` imports jax).
 
-Ported so far -- the DynamicAutoencoder training path with full-catalog
-decode, the serving path it needs, and iALS:
+Ported so far -- the DynamicAutoencoder training paths (full-catalog
+decode, item union, sparse tables; float32, and bench.py's bf16 compute
+with bf16 Adam moments), the serving path they need, and iALS:
 
   recoder_tpu/utils.py                  -> recoder_tpu_torch.utils
   recoder_tpu/data/dataset.py           -> recoder_tpu_torch.data.dataset
@@ -23,6 +24,9 @@ decode, the serving path it needs, and iALS:
       -> recoder_tpu_torch.ops.fused_decode_loss
          + recoder_tpu_torch/kernels/fused_decode_loss.cu
   recoder_tpu/optim.py                  -> recoder_tpu_torch.optim
+      (Optimizer('adam', state_dtype='bfloat16'))
+      -> recoder_tpu_torch.optim.Bf16Adam + recoder_tpu_torch.ops.adam
+         + recoder_tpu_torch/kernels/adam.cu
   recoder_tpu/model.py                  -> recoder_tpu_torch.model
   recoder_tpu/metrics.py                -> recoder_tpu_torch.metrics
   recoder_tpu/recommender.py            -> recoder_tpu_torch.recommender
@@ -30,6 +34,7 @@ decode, the serving path it needs, and iALS:
                                            + recoder_tpu_torch/kernels/spd_solve.cu
   recoder_tpu/models/ials.py            -> recoder_tpu_torch.models.ials
   (new) the entry points' device       -> recoder_tpu_torch.device
+  bench.py synthesize / synthesize_ml20m -> recoder_tpu_torch.data.synthetic
 """
 
 __version__ = '0.2.0'

@@ -10,7 +10,10 @@ Optimizer state follows ``recoder_tpu/optim.py``'s tree
 (``{'step': int32, 'm': {name: array}, 'v': {name: array}}`` for adam)
 on the JAX side and ``torch.optim``'s per-parameter state dicts on the
 port's side. The JAX update rules are pinned to torch's
-(``tests/test_optim.py``), so the moments carry over as they are.
+(``tests/test_optim.py``), so the moments carry over as they are. bf16
+moments (``opt_state_dtype='bfloat16'``) are written upcast to float32,
+which holds every bf16 value (npz has no bf16), and are loaded into the
+dtype of the optimizer they go to.
 
 Sparse tables: the JAX package pads a sparse model's embedding tables
 and their row-sparse Adam moments to 128 feature lanes ([N, 256] at
@@ -74,8 +77,11 @@ def opt_state_to_numpy(optimizer, named_params, kind, sgd_step=0):
   return out
 
 
-def opt_state_into_torch(optimizer, named_params, tree, kind):
-  """Load the JAX optimizer tree into ``optimizer``'s state."""
+def opt_state_into_torch(optimizer, named_params, tree, kind,
+                         dtype=torch.float32):
+  """Load the JAX optimizer tree into ``optimizer``'s state, the buffers
+  in ``dtype`` (the optimizer's state dtype, whatever the checkpoint
+  held)."""
   keys = STATE_KEYS[kind]
   step = int(np.asarray(tree['step']))
   for name, p in named_params.items():
@@ -85,7 +91,7 @@ def opt_state_into_torch(optimizer, named_params, tree, kind):
       if arr.shape != tuple(p.shape):
         raise ValueError(f'optimizer/{jax_key}/{name}: shape {arr.shape} '
                          f'does not match the parameter {tuple(p.shape)}')
-      state[torch_key] = torch.from_numpy(arr.copy()).to(p.device)
+      state[torch_key] = torch.from_numpy(arr.copy()).to(p.device, dtype)
     if kind != 'sgd':
       state['step'] = torch.tensor(float(step), dtype=torch.float32)
 

@@ -11,7 +11,9 @@ writes to a temporary file that is moved into place with ``os.replace``,
 so a process never loads a half-written library.
 
 Each source has a lock of its own, so two sources build at once when
-two threads ask for them.
+two threads ask for them. ``EXTRA_FLAGS`` adds flags for one source:
+``adam.cu`` builds with ``-fmad=false``, so that its arithmetic is the
+plain version's, operation for operation.
 
 Nothing here runs at import time: the CPU tests import every module,
 and a machine without a card need not have ``nvcc``.
@@ -28,6 +30,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), 'build',
                          'kernels')
 NVCC_FLAGS = ('-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+EXTRA_FLAGS = {'adam': ('-fmad=false',)}
 
 _LOCK = threading.Lock()
 _NAME_LOCKS = {}
@@ -53,14 +56,15 @@ def load_library(name):
     if lib is not None:
       return lib
     src = os.path.join(_HERE, f'{name}.cu')
+    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
     with open(src, 'rb') as f:
-      digest = hashlib.sha1(f.read() + ' '.join(NVCC_FLAGS).encode())
+      digest = hashlib.sha1(f.read() + ' '.join(flags).encode())
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, f'{name}-{digest.hexdigest()[:12]}.so')
     log_path = out[:-3] + '.log'
     if not os.path.exists(out):
       tmp = f'{out}.build.{os.getpid()}'
-      cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, src]
+      cmd = [_nvcc(), *flags, '-o', tmp, src]
       proc = subprocess.run(cmd, capture_output=True, text=True)
       if proc.returncode != 0:
         raise RuntimeError(f'nvcc failed building {name}.cu:\n'

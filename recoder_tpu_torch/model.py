@@ -32,6 +32,14 @@ quirk, and ``train`` resumes from ``current_epoch`` inclusive.
 to -inf and takes ``torch.topk``. Checkpoints are npz files in the JAX
 package's format, sparse ones included.
 
+bench.py's ML-20M default runs here too: a model with
+``compute_dtype='bfloat16'`` densifies its batches in bf16, hands the
+slab to the encoder as stored and trains through the bf16 variant of
+the fused kernel; ``opt_state_dtype='bfloat16'`` stores Adam's moments
+in bf16 (``optim.Bf16Adam``, the fused kernel ``kernels/adam.cu``).
+``eval_compute_dtype`` sets the dtype of ``predict`` / ``recommend``
+alone.
+
 Randomness comes from explicit generators: the init from a CPU
 generator seeded with ``seed``, each epoch's order from the data source
 (numpy ``default_rng([seed + 1, epoch])`` in 'users' mode, as the JAX
@@ -39,11 +47,11 @@ package; a CPU ``torch.Generator`` in 'blocks' mode), each step's
 dropout from a generator on the device seeded with ``(seed, global
 step)``.
 
-Not ported yet: bf16 compute, moments and parameters, the validation
-loss, random extra negatives, the packed slab, dual (target) training
-matrices, mega-batches wider than one compute batch, sparse tables
-without negative sampling, chunked evaluation, the orbax backend, meshes
-and profiling.
+Not ported yet: bf16 parameters, bf16 moments of sparse tables, the
+validation loss, random extra negatives, the packed slab, dual (target)
+training matrices, mega-batches wider than one compute batch, sparse
+tables without negative sampling, chunked evaluation, the orbax backend,
+meshes and profiling.
 """
 
 import logging
@@ -62,8 +70,9 @@ from recoder_tpu_torch.models.base import FactorizationModel
 from recoder_tpu_torch.ops import losses as losses_lib
 from recoder_tpu_torch.ops.fused_decode_loss import (fused_decode_loss,
                                                      supported)
-from recoder_tpu_torch.ops.gather_matmul import decode_matmul
-from recoder_tpu_torch.optim import KINDS, SparseRowAdam, make_optimizer
+from recoder_tpu_torch.ops.gather_matmul import as_dtype
+from recoder_tpu_torch.optim import (KINDS, SparseRowAdam, make_optimizer,
+                                     resolve_state_dtype)
 from recoder_tpu_torch.recommender import InferenceRecommender
 
 log = logging.getLogger('recoder_tpu_torch')
@@ -104,14 +113,24 @@ class Recoder:
     seed (int): seed of the init, permutation and dropout generators.
     device: where the model, the slab and every step live: the card
       ('cuda') unless the caller asks for 'cpu'.
+    eval_compute_dtype (str, optional): the products' dtype of
+      ``predict`` / ``recommend`` / evaluation alone (None: the model's).
+    opt_state_dtype (str, optional): storage dtype of the optimizer's
+      moments; 'bfloat16' (adam only: the other kinds raise ValueError)
+      stores them in bf16 with float32 math. None keeps float32 state
+      (``torch.optim``). It wins over a checkpoint's moments on load.
   """
 
   def __init__(self, model: FactorizationModel, num_items=None,
                num_users=None, optimizer_type='sgd', loss='mse',
                loss_params=None, user_based=True, item_based=True,
-               seed=42, device=device_lib.DEFAULT):
+               seed=42, device=device_lib.DEFAULT, eval_compute_dtype=None,
+               opt_state_dtype=None):
     if optimizer_type not in KINDS:
       raise ValueError(f'Unknown optimizer kind {optimizer_type}')
+    resolve_state_dtype(optimizer_type, opt_state_dtype)
+    self.opt_state_dtype = opt_state_dtype
+    self.eval_compute_dtype = as_dtype(eval_compute_dtype)
     self.model = model
     self.num_items = num_items
     self.num_users = num_users
@@ -179,14 +198,19 @@ class Recoder:
     dense = {k: v for k, v in self.model.params().items() if k not in sparse}
     return dense, sparse
 
+  def _state_dtype(self):
+    return resolve_state_dtype(self.optimizer_type, self.opt_state_dtype)
+
   def _init_optimizer(self, lr, weight_decay):
     named, sparse_paths = self._split_params()
     if sparse_paths and self.optimizer_type != 'adam':
       raise ValueError('Sparse gradients optimization only supported '
                        'with adam (sparse row-wise Adam)')
+    if sparse_paths:
+      self.sparse_adam = SparseRowAdam(state_dtype=self.opt_state_dtype)
     prev = self.optimizer
     self.optimizer = make_optimizer(self.optimizer_type, named, lr,
-                                    weight_decay)
+                                    weight_decay, self.opt_state_dtype)
     if prev is not None:
       if type(prev) is type(self.optimizer):
         # continued training on the same instance keeps the moments
@@ -204,7 +228,7 @@ class Recoder:
         # a checkpoint saved under the other sparse / dense split (as
         # the JAX package): the weights load, the moments restart
         self.optimizer = make_optimizer(self.optimizer_type, named, lr,
-                                        weight_decay)
+                                        weight_decay, self.opt_state_dtype)
         self.sparse_states = {p: self.sparse_adam.init(tables[p])
                               for p in sparse_paths}
         log.warning('checkpoint optimizer state does not match this '
@@ -222,7 +246,7 @@ class Recoder:
                    for n, a in v.items()} if isinstance(v, dict) else v)
               for k, v in tree.items()}
       convert.opt_state_into_torch(self.optimizer, named, tree,
-                                   self.optimizer_type)
+                                   self.optimizer_type, self._state_dtype())
     tables = self.model.params()
     for p in sparse_paths:
       if p in sparse:
@@ -279,12 +303,14 @@ class Recoder:
     ``gathered``: the sparse step's union rows (``sparse_entries``
     names)."""
     model = self.model
+    cd = getattr(model, 'compute_dtype', None)
     valid_users = batch['num_users']
     if 'slab' in batch:
       # the slab's storage dtype holds every value exactly: the encoder
-      # takes it upcast, the fused kernel reads it as it is
+      # takes it in the compute dtype (as stored when that is bf16), the
+      # fused kernel reads it as it is
       slab = target = batch['slab']
-      input_dense = slab.float()
+      input_dense = slab.to(cd or torch.float32)
       B, W = input_dense.shape
       in_catalog = torch.arange(W, device=slab.device) < model.num_items
       if negative_sampling:
@@ -296,7 +322,7 @@ class Recoder:
     else:
       items = batch['items']
       B, W = batch['users'].shape[0], items.shape[0]
-      input_dense = target = self._densify_union(batch, B, W)
+      input_dense = target = self._densify_union(batch, B, W, cd)
       col_mask = torch.ones(W, device=items.device)
     row_mask = (torch.arange(B, device=input_dense.device)
                 < valid_users).float()
@@ -308,19 +334,22 @@ class Recoder:
     if kind is not None and W > 0:
       loss = fused_decode_loss(
           h, rows, bias, target, row_mask, col_mask, kind,
-          getattr(self.loss_module, 'confidence', 0.0))
+          getattr(self.loss_module, 'confidence', 0.0), cd)
     else:
       # (an empty union has no column for the kernel: its loss is 0)
-      loss = self.loss_module(decode_matmul(h, rows, bias), input_dense,
+      loss = self.loss_module(model.decode(h, rows, bias), input_dense,
                               row_mask=row_mask, col_mask=col_mask)
     return loss / valid_users
 
   @staticmethod
-  def _densify_union(batch, B, W):
-    """The union batch's interactions as a dense ``[B, W]`` float32
-    input (the JAX ``_densify``); each (row, column) pair occurs once."""
-    dense = torch.zeros((B, W), device=batch['items'].device)
-    dense.index_put_((batch['rows'], batch['cols']), batch['vals'])
+  def _densify_union(batch, B, W, dtype=None):
+    """The union batch's interactions as a dense ``[B, W]`` input in
+    ``dtype`` (float32 by default; the JAX ``_densify`` builds in the
+    model's compute dtype); each (row, column) pair occurs once."""
+    dtype = dtype or torch.float32
+    dense = torch.zeros((B, W), device=batch['items'].device, dtype=dtype)
+    dense.index_put_((batch['rows'], batch['cols']),
+                     batch['vals'].to(dtype))
     return dense
 
   def _dense_step_math(self, batch, negative_sampling=True):
@@ -494,32 +523,42 @@ class Recoder:
   # ------------------------------------------------------------------
 
   def _densify(self, users_interactions):
-    """Dense ``[B, num_items_padded]`` float32 input on the device."""
+    """Dense ``[B, num_items_padded]`` input on the device, in the
+    model's compute dtype (float32 by default), as the JAX ``_densify``."""
     m = users_interactions.interactions_matrix.tocsr()
     B = m.shape[0]
     if B == 0:
       raise ValueError('cannot score an empty user batch')
+    dtype = getattr(self.model, 'compute_dtype', None) or torch.float32
     rows = np.repeat(np.arange(B, dtype=np.int64), np.diff(m.indptr))
-    dense = torch.zeros((B, self.model.num_items_padded), device=self.device)
+    dense = torch.zeros((B, self.model.num_items_padded), device=self.device,
+                        dtype=dtype)
     dense.index_put_(
         (torch.from_numpy(rows).to(self.device),
          torch.from_numpy(m.indices.astype(np.int64)).to(self.device)),
-        torch.from_numpy(m.data.astype(np.float32)).to(self.device),
+        torch.from_numpy(m.data.astype(np.float32)).to(self.device, dtype),
         accumulate=True)
     return dense
 
+  def _score(self, dense):
+    """Full-catalog scores of a dense input, in ``eval_compute_dtype`` or
+    else the model's compute dtype."""
+    if self.eval_compute_dtype is None:
+      return self.model(dense)
+    return self.model(dense, compute_dtype=self.eval_compute_dtype)
+
   def predict(self, users_interactions, return_input=False):
-    """Full-catalog scores for a batch of users, as numpy trimmed to
-    the logical ``num_items`` columns; ``(scores, input)`` when
+    """Full-catalog scores for a batch of users, as float32 numpy trimmed
+    to the logical ``num_items`` columns; ``(scores, input)`` when
     ``return_input``."""
     if not self._model_initialized:
       raise RuntimeError('Model not initialized.')
     with torch.no_grad():
       dense = self._densify(users_interactions)
-      out = self.model(dense)
-    out = out[:, :self.num_items].cpu().numpy()
+      out = self._score(dense)
+    out = out[:, :self.num_items].float().cpu().numpy()
     if return_input:
-      return out, dense[:, :self.num_items].cpu().numpy()
+      return out, dense[:, :self.num_items].float().cpu().numpy()
     return out
 
   def recommend(self, users_interactions, num_recommendations):
@@ -528,7 +567,7 @@ class Recoder:
       raise RuntimeError('Model not initialized.')
     with torch.no_grad():
       dense = self._densify(users_interactions)
-      out = self.model(dense)
+      out = self._score(dense)
       out = out.masked_fill(dense > 0, float('-inf'))
       out[:, self.model.num_items:] = float('-inf')
       _, top_idx = torch.topk(out, num_recommendations, dim=1)

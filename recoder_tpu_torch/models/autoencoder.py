@@ -15,8 +15,9 @@ names and shapes (item tables padded to ``pad_dim(num_items)`` rows), so
 
 :meth:`decode_operands` gives the bottleneck ``h`` with the decoder rows
 and bias, so that the scores are ``h @ rows.T + bias``; the trainer hands
-the three to the fused decode-loss kernel, and :meth:`apply` /
-:meth:`apply_gathered` / :meth:`forward` decode them with a matmul.
+the three to the fused decode-loss kernel, and :meth:`decode` (under
+:meth:`apply` / :meth:`apply_gathered` / :meth:`forward`) decodes them
+with a matmul.
 
 ``sparse=True`` marks the embedding tables for row-sparse Adam
 (:meth:`sparse_param_paths`): they are then not trained by autograd
@@ -28,8 +29,14 @@ to 128 lanes (``pad_features``) for XLA:TPU's row scatters; the port
 keeps it [N, d0], and ``convert.py`` bridges the pad when a checkpoint
 moves between the packages.
 
+``compute_dtype='bfloat16'`` (bench.py's ML-20M default) follows the
+JAX package's casts: the encode and decode round both operands to bf16
+and accumulate in float32 (``ops/gather_matmul.py``), each hidden Linear
+multiplies in bf16 and upcasts its product before the float32 bias, and
+the scores leave the forward in bf16; the parameters stay float32.
+
 Not ported yet: the chunked inference pair ``encode_coo`` /
-``decode_slice``; bf16 compute and bf16 parameters.
+``decode_slice``; bf16 parameter storage (``params_dtype``).
 """
 
 import torch
@@ -38,7 +45,7 @@ from torch import nn
 from recoder_tpu_torch.models.base import (FactorizationModel, activation,
                                            dropout, l2_normalize_rows,
                                            pad_dim, xavier_uniform)
-from recoder_tpu_torch.ops.gather_matmul import (decode_matmul,
+from recoder_tpu_torch.ops.gather_matmul import (as_dtype, decode_matmul,
                                                   encode_matmul, take_rows)
 
 
@@ -55,8 +62,12 @@ class DynamicAutoencoder(FactorizationModel):
     noise_prob (float): input (denoising) dropout.
     sparse (bool): train the embedding tables with row-sparse Adam
       (torch SparseAdam's rule; ``optim.SparseRowAdam``).
-    compute_dtype, params_dtype: accepted for the JAX package's
-      signature; only float32 (None) is ported.
+    compute_dtype (str, optional): the products' dtype ('bfloat16');
+      parameters stay float32 and sums float32. None keeps float32
+      compute end to end. A checkpoint carries it, and a model
+      constructed without one takes the checkpoint's on load.
+    params_dtype: accepted for the JAX package's signature; only
+      float32 (None) is ported.
   """
 
   def __init__(self, hidden_layers=None, activation_type='tanh',
@@ -64,10 +75,10 @@ class DynamicAutoencoder(FactorizationModel):
                sparse=False, compute_dtype=None, params_dtype=None):
     super().__init__()
     self.sparse = bool(sparse)
-    for name, dt in (('compute_dtype', compute_dtype),
-                     ('params_dtype', params_dtype)):
-      if dt not in (None, 'float32'):
-        raise NotImplementedError(f'{name}={dt!r}: only float32 is ported')
+    if params_dtype not in (None, 'float32', torch.float32):
+      raise NotImplementedError(f'params_dtype={params_dtype!r}: only '
+                                'float32 parameters are ported')
+    self.compute_dtype = as_dtype(compute_dtype)
     self.hidden_layers = hidden_layers
     self.activation_type = activation_type
     self.is_constrained = is_constrained
@@ -120,22 +131,27 @@ class DynamicAutoencoder(FactorizationModel):
     return self.params()
 
   def model_params(self):
-    return {
+    p = {
         'hidden_layers': self.hidden_layers,
         'activation_type': self.activation_type,
         'is_constrained': self.is_constrained,
         'dropout_prob': self.dropout_prob,
         'noise_prob': self.noise_prob,
     }
+    if self.compute_dtype is not None:
+      p['compute_dtype'] = str(self.compute_dtype).removeprefix('torch.')
+    return p
 
   def load_model_params(self, model_params):
-    # a JAX checkpoint may name a 'compute_dtype'; the port computes in
-    # float32 whatever the checkpoint was trained with
     self.hidden_layers = model_params['hidden_layers']
     self.activation_type = model_params['activation_type']
     self.is_constrained = model_params['is_constrained']
     self.dropout_prob = model_params['dropout_prob']
     self.noise_prob = model_params['noise_prob']
+    # the checkpoint's compute dtype, unless the constructor chose one
+    # (an absent key: a float32 run or an older checkpoint)
+    if self.compute_dtype is None and 'compute_dtype' in model_params:
+      self.compute_dtype = as_dtype(model_params['compute_dtype'])
 
   def sparse_param_paths(self):
     """The tables row-sparse Adam trains when ``sparse`` (none
@@ -162,15 +178,26 @@ class DynamicAutoencoder(FactorizationModel):
     """The [num_items_padded, d0] table the decode multiplies by."""
     return self.en_embedding if self.is_constrained else self.de_embedding
 
-  def _hidden_stack(self, z, training, generator):
+  def _compute_dtype(self, compute_dtype):
+    return self.compute_dtype if compute_dtype is None else as_dtype(
+        compute_dtype)
+
+  @staticmethod
+  def _linear(z, w, bias, cd):
+    if cd in (None, torch.float32):
+      return z @ w + bias
+    # the product in the compute dtype, rounded there, then float32
+    return (z.to(cd) @ w.to(cd)).float() + bias
+
+  def _hidden_stack(self, z, training, generator, cd=None):
     """Activation after the encode, the hidden Linears, and the
     bottleneck dropout; returns the bottleneck ``h [B, d0]``."""
     z = activation(z, self.activation_type)
     n = len(self.hidden_layers) - 1
     for i in range(1, n + 1):
       w = getattr(self, f'encode_w_{i}')
-      z = activation(z @ w + getattr(self, f'encode_bias_{i}'),
-                     self.activation_type)
+      z = activation(self._linear(z, w, getattr(self, f'encode_bias_{i}'),
+                                  cd), self.activation_type)
     if training and self.dropout_prob > 0:
       z = dropout(z, self.dropout_prob, generator)
     for i in range(1, n + 1):
@@ -178,19 +205,21 @@ class DynamicAutoencoder(FactorizationModel):
         w = getattr(self, f'encode_w_{n - i + 1}').t()
       else:
         w = getattr(self, f'decode_w_{i}')
-      z = activation(z @ w + getattr(self, f'decode_bias_{i}'),
-                     self.activation_type)
+      z = activation(self._linear(z, w, getattr(self, f'decode_bias_{i}'),
+                                  cd), self.activation_type)
     return z
 
-  def encode(self, input, training=False, generator=None, rows=None):
+  def encode(self, input, training=False, generator=None, rows=None,
+             compute_dtype=None):
     """Bottleneck ``h [B, d0]`` of a dense input.
 
     ``rows`` are the encoder rows the input's columns index: the whole
     table by default (the input may then be narrower than the table and
     is zero-padded to it), or gathered union rows ``[W, d0]`` for an
     input ``[B, W]``. ``generator`` drives the noise and bottleneck
-    dropout when ``training``.
+    dropout when ``training``. ``compute_dtype`` overrides the model's.
     """
+    cd = self._compute_dtype(compute_dtype)
     if rows is None:
       rows = self.en_embedding
     if input.shape[1] < rows.shape[0]:
@@ -198,11 +227,12 @@ class DynamicAutoencoder(FactorizationModel):
     z = l2_normalize_rows(input)
     if training and self.noise_prob > 0:
       z = dropout(z, self.noise_prob, generator)
-    z = encode_matmul(z, rows, self.en_bias)
-    return self._hidden_stack(z, training, generator)
+    z = encode_matmul(z, rows, self.en_bias, cd)
+    return self._hidden_stack(z, training, generator, cd)
 
   def decode_operands(self, input, input_items=None, target_items=None,
-                      gathered=None, training=False, generator=None):
+                      gathered=None, training=False, generator=None,
+                      compute_dtype=None):
     """``(h, rows, bias)`` with scores ``h @ rows.T + bias``.
 
     ``input_items`` / ``target_items``: the item ids of the input's and
@@ -216,24 +246,35 @@ class DynamicAutoencoder(FactorizationModel):
     else:
       en_rows = take_rows(self.en_embedding, input_items)
       rows = take_rows(self.decoder_table(), target_items)
-    h = self.encode(input, training, generator, rows=en_rows)
+    h = self.encode(input, training, generator, rows=en_rows,
+                    compute_dtype=compute_dtype)
     return h, rows, take_rows(self.de_bias, target_items)
 
+  def decode(self, h, rows, bias, compute_dtype=None):
+    """Scores ``h @ rows.T + bias`` of :meth:`decode_operands`' three,
+    in the compute dtype (``compute_dtype`` overrides the model's)."""
+    cd = self._compute_dtype(compute_dtype)
+    scores = decode_matmul(h, rows, bias, cd)
+    # scores travel in the compute dtype; losses re-accumulate in f32
+    return scores if cd is None else scores.to(cd)
+
   def apply(self, input, input_items=None, target_items=None,
-            training=False, generator=None):
+            training=False, generator=None, compute_dtype=None):
     """Scores of the ``target_items`` columns (all by default) for an
-    input over the ``input_items`` columns."""
-    return decode_matmul(*self.decode_operands(
+    input over the ``input_items`` columns, in the compute dtype."""
+    return self.decode(*self.decode_operands(
         input, input_items, target_items, training=training,
-        generator=generator))
+        generator=generator, compute_dtype=compute_dtype), compute_dtype)
 
   def apply_gathered(self, gathered, input, target_items=None,
                      training=False, generator=None):
     """:meth:`apply` with the table rows pre-gathered (the
     differentiable leaves of the sparse step)."""
-    return decode_matmul(*self.decode_operands(
+    return self.decode(*self.decode_operands(
         input, target_items=target_items, gathered=gathered,
-        training=training, generator=generator))
+        training=training, generator=generator), None)
 
-  def forward(self, input, training=False, generator=None):
-    return self.apply(input, training=training, generator=generator)
+  def forward(self, input, training=False, generator=None,
+              compute_dtype=None):
+    return self.apply(input, training=training, generator=generator,
+                      compute_dtype=compute_dtype)

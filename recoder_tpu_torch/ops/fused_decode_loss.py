@@ -21,10 +21,18 @@ The forward computes each score tile once. When a backward can follow
 backward is two products over E0 with the upstream gradient ``g`` applied
 on the device; under ``torch.no_grad()`` no E0 is written.
 
-Routing is by the tensors' device and nothing else: CUDA tensors launch
-the kernels of ``kernels/fused_decode_loss.cu`` (or raise), CPU tensors
-take the plain versions of the same two steps (:func:`_plain_forward`,
-:func:`_plain_backward`).
+``compute_dtype='bfloat16'`` selects the bf16 variant (the JAX
+package's decode at ``compute_dtype='bfloat16'``): ``h`` and ``rows``
+stay float32 tensors and are rounded to bf16 inside the kernels, the
+products accumulate in float32, the score is rounded to bf16 before the
+float32 loss, and E0 is stored in bf16; dh and drows come back rounded
+to bf16 values, dbias in float32 (the rounding points are listed in the
+kernel source's header).
+
+Routing is by the tensors' device and the compute dtype: CUDA tensors
+launch the kernels of ``kernels/fused_decode_loss.cu`` for that dtype
+(or raise), CPU tensors take the plain versions of the same two steps
+(:func:`_plain_forward`, :func:`_plain_backward`).
 """
 
 import ctypes
@@ -34,13 +42,16 @@ import threading
 import torch
 
 from recoder_tpu_torch.ops import losses as losses_lib
+from recoder_tpu_torch.ops.gather_matmul import as_dtype, decode_matmul
 
 KINDS = {'mse': 0, 'logistic': 1}
+BF16 = torch.bfloat16
 #: target dtypes the kernel reads (it upcasts in registers, as the JAX
 #: kernel casts ``t``)
 TARGET_DTYPES = (torch.float32, torch.bfloat16)
 #: kernel launches since the last reset, one count per kernel
-LAUNCHES = {'fused_decode_loss_fwd': 0, 'fused_decode_loss_bwd': 0}
+LAUNCHES = {'fused_decode_loss_fwd': 0, 'fused_decode_loss_bwd': 0,
+            'fused_decode_loss_fwd_bf16': 0, 'fused_decode_loss_bwd_bf16': 0}
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
@@ -65,10 +76,22 @@ def _masked_loss_sum(scores, target, row_mask, col_mask, kind, confidence):
   return torch.sum(loss)
 
 
+def _is_bf16(compute_dtype):
+  return as_dtype(compute_dtype) == BF16
+
+
+def _round(x):
+  """``x`` rounded to bf16 values, kept in float32."""
+  return x.to(BF16).float()
+
+
 def fused_decode_loss_plain(h, rows, bias, target, row_mask, col_mask,
-                            kind='mse', confidence=0.0):
-  """Plain PyTorch version: decode matmul, then the masked loss, summed."""
-  scores = torch.matmul(h, rows.t()) + bias
+                            kind='mse', confidence=0.0, compute_dtype=None):
+  """Plain PyTorch version: decode matmul (scores in the compute dtype),
+  then the masked loss, summed; autograd gives the gradients."""
+  scores = decode_matmul(h, rows, bias, compute_dtype)
+  if _is_bf16(compute_dtype):
+    scores = scores.to(BF16)
   return _masked_loss_sum(scores, target, row_mask, col_mask, kind,
                           confidence)
 
@@ -86,20 +109,33 @@ def _cotangent(scores, target, row_mask, col_mask, kind, confidence):
 
 def _plain_backward(g, e0, h, rows):
   """The kernel backward's plain version: gradients w.r.t. h, rows and
-  bias from the forward's cotangent E0."""
+  bias from the forward's cotangent E0 (bf16 E0: the bf16 variant's,
+  with its bf16 operands and roundings)."""
+  if e0.dtype == BF16:
+    ds = e0.float()
+    dh = _round(g * torch.matmul(ds, _round(rows)))
+    drows = _round(g * torch.matmul(ds.t(), _round(h)))
+    return dh, drows, g * torch.sum(ds, 0)
   ds = e0 * g
   return torch.matmul(ds, rows), torch.matmul(ds.t(), h), torch.sum(ds, 0)
 
 
 def _plain_forward(h, rows, bias, target, row_mask, col_mask, kind,
-                   confidence, stash):
+                   confidence, compute_dtype, stash):
   """The kernel forward's plain version: the loss and, when ``stash``,
   E0 (else None), both from one score product."""
-  scores = torch.matmul(h, rows.t()) + bias
+  bf16 = _is_bf16(compute_dtype)
+  if bf16:
+    scores = _round(torch.matmul(_round(h), _round(rows).t()) + bias)
+  else:
+    scores = torch.matmul(h, rows.t()) + bias
   loss = _masked_loss_sum(scores, target, row_mask, col_mask, kind,
                           confidence)
-  e0 = (_cotangent(scores, target, row_mask, col_mask, kind, confidence)
-        if stash else None)
+  e0 = None
+  if stash:
+    e0 = _cotangent(scores, target, row_mask, col_mask, kind, confidence)
+    if bf16:
+      e0 = e0.to(BF16)
   return loss, e0
 
 
@@ -111,14 +147,14 @@ def _lib():
       lib = load_library('fused_decode_loss')
       ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
       lib.fdl_forward.argtypes = ([ptr] * 4 + [i32] + [ptr] * 2 + [i32] * 4
-                                  + [f32, ptr, i32, ptr, ptr, i32, ptr])
+                                  + [f32, i32, ptr, i32, ptr, ptr, i32, ptr])
       lib.fdl_forward.restype = i32
-      lib.fdl_backward.argtypes = ([ptr] * 2 + [i32] + [ptr] * 2 + [i32] * 5
+      lib.fdl_backward.argtypes = ([ptr] * 2 + [i32] + [ptr] * 2 + [i32] * 6
                                    + [ptr] * 4 + [i32, ptr])
       lib.fdl_backward.restype = i32
       lib.fdl_max_d.restype = i32
       lib.max_d = lib.fdl_max_d()  # the widest feature axis it takes
-      lib.fdl_plan.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+      lib.fdl_plan.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
       lib.fdl_plan.restype = i32
       lib.fdl_configure.argtypes = [i32]
       lib.fdl_configure.restype = i32
@@ -145,13 +181,13 @@ def _device_lib(device):
 
 
 @functools.lru_cache(maxsize=1024)
-def _plan(device_index, B, W, d):
+def _plan(device_index, B, W, d, bf16):
   """(forward partials, k tiles per dh split, dh splits, E0 row stride)
   of one shape; about two dh blocks per SM."""
   lib = _lib()
   sms = torch.cuda.get_device_properties(device_index).multi_processor_count
   out = (ctypes.c_int * 4)()
-  _check(lib, lib.fdl_plan(B, W, d, sms, out), 'fdl_plan')
+  _check(lib, lib.fdl_plan(B, W, d, sms, int(bf16), out), 'fdl_plan')
   return tuple(out)
 
 
@@ -168,6 +204,7 @@ def _validate(h, rows, bias, target, row_mask, col_mask, kind, max_d):
         raise ValueError(f'target must be float32 or bfloat16, got '
                          f'{x.dtype}')
     elif x.dtype != torch.float32:
+      # (the bf16 variant takes float32 h and rows too: it rounds them)
       raise ValueError(f'{name} must be float32, got {x.dtype}')
     if not x.is_contiguous():
       raise ValueError(f'{name} must be contiguous')
@@ -186,33 +223,40 @@ def _validate(h, rows, bias, target, row_mask, col_mask, kind, max_d):
 
 
 def _kernel_forward(h, rows, bias, target, row_mask, col_mask, kind,
-                    confidence, stash):
+                    confidence, compute_dtype, stash):
   """The loss on the card and, when ``stash``, E0 as [B, lde] (its rows
-  padded with zeros to a multiple of 4 columns; else None)."""
+  padded with zeros to a multiple of 4 columns, float32; to 8, bf16, for
+  the bf16 variant; else None)."""
+  bf16 = _is_bf16(compute_dtype)  # (raises on another compute dtype)
   lib = _device_lib(h.device)
   B, W, d = _validate(h, rows, bias, target, row_mask, col_mask, kind,
                       lib.max_d)
-  n_partials, _, _, lde = _plan(h.device.index, B, W, d)
+  n_partials, _, _, lde = _plan(h.device.index, B, W, d, bf16)
   partials = torch.empty(n_partials, device=h.device)
   out = torch.empty((), device=h.device)
-  e0 = torch.empty((B, lde), device=h.device) if stash else None
+  e0 = (torch.empty((B, lde), device=h.device,
+                    dtype=BF16 if bf16 else torch.float32)
+        if stash else None)
   stream = torch.cuda.current_stream(h.device).cuda_stream
   err = lib.fdl_forward(
       h.data_ptr(), rows.data_ptr(), bias.data_ptr(), target.data_ptr(),
       int(target.dtype == torch.bfloat16), row_mask.data_ptr(),
       col_mask.data_ptr(), B, W, d, KINDS[kind], float(confidence),
-      e0.data_ptr() if stash else None, lde, partials.data_ptr(),
+      int(bf16), e0.data_ptr() if stash else None, lde, partials.data_ptr(),
       out.data_ptr(), h.device.index, stream)
   _check(lib, err, 'fused decode-loss forward launch')
-  LAUNCHES['fused_decode_loss_fwd'] += 1
+  LAUNCHES['fused_decode_loss_fwd_bf16' if bf16
+           else 'fused_decode_loss_fwd'] += 1
   return out, e0
 
 
 def _kernel_backward(g, e0, h, rows):
-  """dh, drows, dbias on the card from the forward's E0."""
+  """dh, drows, dbias on the card from the forward's E0 (a bf16 E0: the
+  bf16 variant)."""
   lib = _device_lib(h.device)
   (B, d), W = h.shape, rows.shape[0]
-  _, ktiles, nsplit, lde = _plan(h.device.index, B, W, d)
+  bf16 = e0.dtype == BF16
+  _, ktiles, nsplit, lde = _plan(h.device.index, B, W, d, bf16)
   if e0.shape != (B, lde):
     raise ValueError(f'E0 is {tuple(e0.shape)}, expected {(B, lde)}')
   g = g.to(device=h.device, dtype=torch.float32).contiguous()
@@ -223,10 +267,11 @@ def _kernel_backward(g, e0, h, rows):
   stream = torch.cuda.current_stream(h.device).cuda_stream
   err = lib.fdl_backward(
       g.data_ptr(), e0.data_ptr(), lde, h.data_ptr(), rows.data_ptr(), B, W,
-      d, ktiles, nsplit, dh_partials.data_ptr(), dh.data_ptr(),
+      d, ktiles, nsplit, int(bf16), dh_partials.data_ptr(), dh.data_ptr(),
       drows.data_ptr(), dbias.data_ptr(), h.device.index, stream)
   _check(lib, err, 'fused decode-loss backward launch')
-  LAUNCHES['fused_decode_loss_bwd'] += 1
+  LAUNCHES['fused_decode_loss_bwd_bf16' if bf16
+           else 'fused_decode_loss_bwd'] += 1
   return dh, drows, dbias
 
 
@@ -252,11 +297,11 @@ class FusedDecodeLoss(torch.autograd.Function):
 
   @staticmethod
   def forward(ctx, h, rows, bias, target, row_mask, col_mask, kind,
-              confidence):
+              confidence, compute_dtype):
     stash = _will_backward(ctx)
     fn = _kernel_forward if _route(h.device) else _plain_forward
     loss, e0 = fn(h, rows, bias, target, row_mask, col_mask, kind,
-                  confidence, stash)
+                  confidence, compute_dtype, stash)
     if stash:
       ctx.save_for_backward(e0, h, rows)
     return loss
@@ -266,11 +311,11 @@ class FusedDecodeLoss(torch.autograd.Function):
     e0, h, rows = ctx.saved_tensors
     fn = _kernel_backward if _route(h.device) else _plain_backward
     dh, drows, dbias = fn(g, e0, h, rows)
-    return dh, drows, dbias, None, None, None, None, None
+    return dh, drows, dbias, None, None, None, None, None, None
 
 
 def fused_decode_loss(h, rows, bias, target, row_mask, col_mask,
-                      kind='mse', confidence=0.0):
+                      kind='mse', confidence=0.0, compute_dtype=None):
   """Masked sum loss of ``h @ rows.T + bias`` against ``target``.
 
   Args:
@@ -282,8 +327,10 @@ def fused_decode_loss(h, rows, bias, target, row_mask, col_mask,
     col_mask: [W] 1.0 for the loss columns.
     kind: 'mse' | 'logistic'.
     confidence: positive-observation weight for 'mse'.
+    compute_dtype: None or 'float32' (the 3xTF32 kernels), or
+      'bfloat16' (the bf16 variant).
 
   Returns the scalar sum loss, differentiable w.r.t. h, rows and bias.
   """
   return FusedDecodeLoss.apply(h, rows, bias, target, row_mask, col_mask,
-                               kind, confidence)
+                               kind, confidence, compute_dtype)

@@ -16,17 +16,47 @@ gathers the touched rows of the table and both moments, updates them in
 float32 and writes the three back in place with one launch of the
 row-scatter kernel (``ops/row_scatter.py``).
 
-State is float32. Not ported yet: bf16 moment storage
-(``state_dtype``) and ``fold_dual_union`` (only dual target CSRs reach
-it, and those are not ported).
+``state_dtype='bfloat16'`` (the JAX ``Optimizer(state_dtype=...)``,
+bench.py's ML-20M default) stores Adam's moments in bf16 and keeps the
+update math in float32: :class:`Bf16Adam`, one launch of the fused
+kernel ``kernels/adam.cu`` a step on the card (``ops/adam.py``). Only
+'adam' takes it; the other kinds refuse it as the JAX package does. The
+float32 state stays ``torch.optim``.
+
+Not ported yet: bf16 state for :class:`SparseRowAdam` (the row scatter
+writes float32 tables) and ``fold_dual_union`` (only dual target CSRs
+reach it, and those are not ported).
 """
 
 import numpy as np
 import torch
 
+from recoder_tpu_torch.ops.adam import adam_bf16_step
 from recoder_tpu_torch.ops.row_scatter import row_scatter_
 
 KINDS = ('sgd', 'adam', 'adagrad', 'rmsprop')
+#: kinds whose bf16 state passed the JAX package's 30-epoch quality gate
+STATE_DTYPE_GATED_KINDS = frozenset({'adam'})
+
+
+def resolve_state_dtype(kind, dtype):
+  """The moments' storage dtype (torch.float32 or torch.bfloat16) for
+  ``dtype`` (None, a name or a torch dtype); ``ValueError`` for a
+  reduced-precision state of a kind other than 'adam'."""
+  if dtype is None or dtype in ('float32', torch.float32):
+    return torch.float32
+  if dtype not in ('bfloat16', torch.bfloat16):
+    raise ValueError(f'state_dtype={dtype!r}: float32 or bfloat16')
+  if kind not in STATE_DTYPE_GATED_KINDS:
+    raise ValueError(
+        f"state_dtype='bfloat16' is only quality-gated for "
+        f"{sorted(STATE_DTYPE_GATED_KINDS)} (30-epoch tests/test_model.py "
+        f"rows); '{kind}' refuses reduced-precision state rather than run "
+        "an ungated numerics mode"
+        + (" (adagrad's monotone 'sum' accumulator freezes the effective "
+           "LR once increments fall below the bf16 quantum)"
+           if kind == 'adagrad' else '') + '.')
+  return torch.bfloat16
 
 
 def make_param_groups(named_params, weight_decay):
@@ -44,10 +74,14 @@ def make_param_groups(named_params, weight_decay):
   return groups
 
 
-def make_optimizer(kind, named_params, lr, weight_decay=0.0):
-  """A ``torch.optim`` optimizer over ``named_params`` ({name: param})
-  with the JAX package's hyper-parameters for ``kind``."""
+def make_optimizer(kind, named_params, lr, weight_decay=0.0,
+                   state_dtype=None):
+  """An optimizer over ``named_params`` ({name: param}) with the JAX
+  package's hyper-parameters for ``kind``: ``torch.optim``'s, or
+  :class:`Bf16Adam` for bf16 state."""
   groups = make_param_groups(named_params, weight_decay)
+  if resolve_state_dtype(kind, state_dtype) == torch.bfloat16:
+    return Bf16Adam(groups, lr=lr)
   if kind == 'adam':
     return torch.optim.Adam(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
   if kind == 'sgd':
@@ -60,6 +94,60 @@ def make_optimizer(kind, named_params, lr, weight_decay=0.0):
   raise ValueError(f'Unknown optimizer kind {kind}')
 
 
+class Bf16Adam(torch.optim.Optimizer):
+  """Adam with bf16 moments and float32 math (the JAX package's
+  ``Optimizer('adam', state_dtype='bfloat16')``).
+
+  Per step, for every parameter with a gradient: the weight decay is
+  added to the gradient (L2, torch style; biases sit in a group with 0),
+  the new moments and the parameter step are computed in float32 -- the
+  step from the unrounded new moments -- and the moments are stored
+  rounded to nearest even. ``state[p]`` holds ``exp_avg`` and
+  ``exp_avg_sq`` (bf16) and ``step`` (a float32 CPU tensor), the keys of
+  ``torch.optim.Adam``, so ``convert.py`` and the checkpoints read it the
+  same way. Every parameter steps together: one step count, one learning
+  rate. On the card the whole set is one launch of the fused kernel
+  (``ops/adam.py``).
+  """
+
+  def __init__(self, params, lr, betas=(0.9, 0.999), eps=1e-8,
+               weight_decay=0.0):
+    super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                  weight_decay=weight_decay))
+
+  @torch.no_grad()
+  def step(self, closure=None):
+    if closure is not None:
+      raise ValueError('Bf16Adam takes no closure')
+    tensors = ([], [], [], [], [])
+    hyper = set()
+    for group in self.param_groups:
+      for p in group['params']:
+        if p.grad is None:
+          continue
+        state = self.state[p]
+        if not state:
+          state['step'] = torch.tensor(0.0)
+          state['exp_avg'] = torch.zeros_like(
+              p, dtype=torch.bfloat16, memory_format=torch.contiguous_format)
+          state['exp_avg_sq'] = torch.zeros_like(state['exp_avg'])
+        for out, x in zip(tensors, (p, p.grad, state['exp_avg'],
+                                    state['exp_avg_sq'],
+                                    group['weight_decay'])):
+          out.append(x)
+        hyper.add((float(state['step']), group['lr'], group['betas'],
+                   group['eps']))
+    if not tensors[0]:
+      return None
+    if len(hyper) != 1:
+      raise ValueError('Bf16Adam steps every parameter with one step count, '
+                       f'learning rate, betas and eps; got {sorted(hyper)}')
+    step, lr, betas, eps = hyper.pop()
+    adam_bf16_step(*tensors, lr, int(step) + 1, betas, eps)
+    for p in tensors[0]:
+      self.state[p]['step'] += 1
+    return None
+
 
 class SparseRowAdam:
   """Row-sparse Adam over a 2-D embedding table (torch ``SparseAdam``).
@@ -71,7 +159,11 @@ class SparseRowAdam:
   The cost is O(len(ids) * d), whatever the table's size.
   """
 
-  def __init__(self, betas=(0.9, 0.999), eps=1e-8):
+  def __init__(self, betas=(0.9, 0.999), eps=1e-8, state_dtype=None):
+    if state_dtype not in (None, 'float32', torch.float32):
+      raise NotImplementedError(
+          f'SparseRowAdam(state_dtype={state_dtype!r}): only float32 '
+          'moments are ported (the row scatter writes float32 tables)')
     self.betas = betas
     self.eps = eps
 

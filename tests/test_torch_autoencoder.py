@@ -144,7 +144,14 @@ def test_noise_applies_only_in_training():
 
 
 def test_unported_configurations_raise():
-  with pytest.raises(NotImplementedError):
-    DynamicAutoencoder([8], compute_dtype='bfloat16')
+  """bf16 compute is ported (it constructs, names its dtype in the
+  checkpoint's model params and computes in it); bf16 parameter storage
+  is not."""
+  model = DynamicAutoencoder([8], compute_dtype='bfloat16')
+  assert model.compute_dtype == torch.bfloat16
+  assert model.model_params()['compute_dtype'] == 'bfloat16'
+  model.init_model(50)
+  with torch.no_grad():
+    assert model(torch.from_numpy(_input(50))).dtype == torch.bfloat16
   with pytest.raises(NotImplementedError):
     DynamicAutoencoder([8], params_dtype='bfloat16')

@@ -425,3 +425,161 @@ def test_sparse_step_kernel_matches_plain_twin(cuda):
   for p in sk:
     assert torch.equal(sk[p][0], spl[p][0]) and torch.equal(sk[p][1],
                                                             spl[p][1])
+
+
+# -- the bf16 variant of the decode-loss kernels ------------------------------
+
+def _rel_fro(a, b):
+  return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _run_bf16(fn, problem, kind, confidence):
+  h, rows, bias, target, rm, cm = problem
+  leaves = [x.clone().requires_grad_(True) for x in (h, rows, bias)]
+  loss = fn(*leaves, target, rm, cm, kind, confidence, 'bfloat16')
+  loss.backward()
+  return loss.item(), [x.grad.cpu().numpy() for x in leaves]
+
+
+@pytest.mark.parametrize('kind,confidence', [
+    ('mse', 0.0), ('mse', 3.0), ('logistic', 0.0)])
+@pytest.mark.parametrize('B,d,W', [
+    (37, 24, 1000), (1, 1, 1), (33, 256, 65), (64, 255, 2049), (9, 7, 130),
+    (500, 200, 18117), (500, 200, 20224)])
+def test_bf16_kernel_matches_plain(cuda, B, d, W, kind, confidence):
+  """The bf16 kernels against autograd through the plain bf16
+  composition: loss rtol 1e-2, gradients within 2e-2 in relative
+  Frobenius norm (a score or gradient on a bf16 rounding boundary may
+  round the other way after a sum in another order)."""
+  problem = _problem(B, d, W, cuda)
+  before = dict(fdl.LAUNCHES)
+  got = _run_bf16(fdl.fused_decode_loss, problem, kind, confidence)
+  ref = _run_bf16(fdl.fused_decode_loss_plain, problem, kind, confidence)
+  for name in ('fused_decode_loss_fwd_bf16', 'fused_decode_loss_bwd_bf16'):
+    assert fdl.LAUNCHES[name] == before[name] + 1
+  for name in ('fused_decode_loss_fwd', 'fused_decode_loss_bwd'):
+    assert fdl.LAUNCHES[name] == before[name]
+  np.testing.assert_allclose(got[0], ref[0], rtol=1e-2)
+  for a, b in zip(got[1], ref[1]):
+    assert _rel_fro(a, b) <= 2e-2
+  for a in got[1][:2]:  # dh and drows are bf16 values
+    t = torch.from_numpy(a)
+    assert torch.equal(t, t.to(torch.bfloat16).float())
+
+
+def test_bf16_kernel_is_deterministic_and_stashes_bf16(cuda):
+  problem = _problem(500, 200, 18117, cuda, seed=4)
+  a = _run_bf16(fdl.fused_decode_loss, problem, 'mse', 3.0)
+  b = _run_bf16(fdl.fused_decode_loss, problem, 'mse', 3.0)
+  assert a[0] == b[0]
+  for x, y in zip(a[1], b[1]):
+    np.testing.assert_array_equal(x, y)
+  h, rows, bias, target, rm, cm = problem
+  loss, e0 = fdl._kernel_forward(h, rows, bias, target, rm, cm, 'mse', 3.0,
+                                 'bfloat16', True)
+  assert e0.dtype == torch.bfloat16 and e0.shape == (500, 18120)
+  assert not e0[:, 18117:].any()  # the pad columns are zero
+  _, plain_e0 = fdl._plain_forward(h, rows, bias, target, rm, cm, 'mse', 3.0,
+                                   'bfloat16', True)
+  # E0 only differs where a score sits on a bf16 rounding boundary
+  assert (e0[:, :18117] != plain_e0).float().mean().item() < 1e-3
+  with torch.no_grad():
+    nograd, none = fdl._kernel_forward(h, rows, bias, target, rm, cm, 'mse',
+                                       3.0, 'bfloat16', False)
+  assert none is None and torch.equal(nograd, loss)
+
+
+def test_bf16_trainer_on_cuda_matches_cpu(cuda):
+  """bench.py's numerics (bf16 compute, bf16 moments), noise off: the
+  losses on the card (bf16 kernels, the Adam kernel) follow the CPU run
+  (plain versions) within rtol 1e-2."""
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  from recoder_tpu_torch.ops import adam
+
+  rng = np.random.default_rng(0)
+  m = sp.csr_matrix((rng.random((90, 300)) < 0.05).astype(np.float32))
+  losses = {}
+  for device in ('cpu', cuda):
+    tr = Recoder(DynamicAutoencoder([32], noise_prob=0.0,
+                                    compute_dtype='bfloat16'),
+                 optimizer_type='adam', loss='mse',
+                 loss_params={'confidence': 3}, device=device,
+                 opt_state_dtype='bfloat16')
+    before = adam.LAUNCHES['adam_bf16']
+    tr.train(RecommendationDataset(m), batch_size=16, lr=1e-3,
+             weight_decay=2e-5, negative_sampling=True, shuffle='users',
+             num_epochs=1)
+    losses[str(device)] = tr.last_epoch_losses
+    launched = adam.LAUNCHES['adam_bf16'] - before
+    assert launched == (6 if device == cuda else 0)
+  np.testing.assert_allclose(losses['cuda'], losses['cpu'], rtol=1e-2)
+
+
+# -- the fused bf16-moment Adam kernel ---------------------------------------
+
+def _adam_set(sizes, device, seed=0, offset=0):
+  """Parameters, gradients and bf16 moments of the given sizes (``offset``
+  elements into a larger buffer: a misaligned start)."""
+  gen = torch.Generator().manual_seed(seed)
+  out = []
+  for n in sizes:
+    p = 0.1 * torch.randn(n + offset, generator=gen)
+    g = 0.01 * torch.randn(n + offset, generator=gen)
+    m = (0.001 * torch.randn(n + offset, generator=gen)).to(torch.bfloat16)
+    v = (1e-5 * torch.rand(n + offset, generator=gen)).to(torch.bfloat16)
+    out.append([x.to(device)[offset:] for x in (p, g, m, v)])
+  return [list(x) for x in zip(*out)]
+
+
+def _f32_ulps(a, b):
+  """|a - b| in float32 ulps of b."""
+  a, b = a.double(), b.double()
+  ulp = torch.finfo(torch.float32).eps * b.abs().clamp(min=1e-30)
+  return float(((a - b).abs() / ulp).max())
+
+
+@pytest.mark.parametrize('sizes,offset', [
+    ((1,), 0), ((3, 5), 0), ((4097,), 0), ((1_000_003,), 0),
+    ((4096, 200, 4_044_800, 20_224), 0), ((4096, 1000), 1)])
+def test_adam_kernel_matches_plain(cuda, sizes, offset):
+  """Five steps through the kernel and through its plain version: m and v
+  bitwise (the same float32 operations, no multiply-add contraction),
+  p within 2 float32 ulps; one launch a step for the whole set."""
+  from recoder_tpu_torch.ops import adam
+  # the kernel on the (possibly misaligned) views, the plain on copies
+  kp, grads, km, kv = _adam_set(sizes, cuda, offset=offset)
+  params, ms, vs = ([x.clone() for x in xs] for xs in (kp, km, kv))
+  wds = [2e-5 if i % 2 == 0 else 0.0 for i in range(len(sizes))]
+  before = adam.LAUNCHES['adam_bf16']
+  for step in range(1, 6):
+    lr = 1e-3 * (0.1 if step > 3 else 1.0)
+    adam.adam_bf16_kernel(kp, grads, km, kv, wds,
+                          adam.step_scalars(lr, step, (0.9, 0.999), 1e-8))
+    adam.adam_bf16_plain(params, grads, ms, vs, wds,
+                         adam.step_scalars(lr, step, (0.9, 0.999), 1e-8))
+  torch.cuda.synchronize()
+  assert adam.LAUNCHES['adam_bf16'] == before + 5
+  for a, b in zip(km + kv, ms + vs):
+    assert torch.equal(a, b)
+  for a, b in zip(kp, params):
+    assert _f32_ulps(a, b) <= 2
+
+
+def test_adam_kernel_is_deterministic_and_refuses(cuda):
+  from recoder_tpu_torch.ops import adam
+  runs = []
+  for _ in range(2):
+    params, grads, ms, vs = _adam_set((70_001, 33), cuda, seed=3)
+    adam.adam_bf16_step(params, grads, ms, vs, [1e-2, 0.0], 1e-2, 7)
+    runs.append(params + ms + vs)
+  for a, b in zip(*runs):
+    assert torch.equal(a, b)
+  params, grads, ms, vs = _adam_set((10,), cuda)
+  with pytest.raises(ValueError, match='bfloat16'):
+    adam.adam_bf16_step(params, grads, [m.float() for m in ms], vs, [0.0],
+                        1e-3, 1)
+  with pytest.raises(ValueError, match='is on'):
+    adam.adam_bf16_step(params, [g.cpu() for g in grads], ms, vs, [0.0],
+                        1e-3, 1)

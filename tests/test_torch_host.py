@@ -122,3 +122,22 @@ def test_checkpoint_format_both_directions(tmp_path):
   assert not list(tmp_path.glob('*.tmp-save-*'))
   with pytest.raises(ValueError):
     checkpoint.flatten_tree({'a/b': np.zeros(1)})
+
+
+@pytest.mark.parametrize('shape', [(300, 120, 9, 0, 0.683),
+                                   (1000, 77, 30, 5, 0.68)])
+def test_synthetic_matches_bench(shape):
+  """``data/synthetic.py`` is bench.py's generator: the same CSR, bit for
+  bit, at two small shapes, and the same shape constants."""
+  import bench
+  from recoder_tpu_torch.data import synthetic
+  users, items, mean, seed, factor = shape
+  ref = bench.synthesize(users, items, mean, seed=seed, mean_factor=factor)
+  got = synthetic.synthesize(users, items, mean, seed=seed,
+                             mean_factor=factor)
+  assert got.shape == ref.shape and got.dtype == ref.dtype
+  for a in ('indptr', 'indices', 'data'):
+    np.testing.assert_array_equal(getattr(got, a), getattr(ref, a))
+  for name in ('NUM_USERS', 'NUM_ITEMS', 'MEAN_ITEMS_PER_USER', 'BATCH_SIZE',
+               'MSD_USERS', 'MSD_ITEMS', 'MSD_MEAN_ITEMS_PER_USER'):
+    assert getattr(synthetic, name) == getattr(bench, name), name

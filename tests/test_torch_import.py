@@ -1,5 +1,6 @@
 """The port stands without JAX: with ``jax`` blocked from import, every
-module of ``recoder_tpu_torch`` imports, a tiny training step, a tiny
+module of ``recoder_tpu_torch`` imports, a tiny training step (float32,
+and bf16 compute with bf16 moments), the synthetic data, a tiny
 iALS fit, fold-in and recommend, a sparse-table and a dense union
 training and a row scatter run on the CPU, and afterwards neither JAX
 nor the JAX package is loaded."""
@@ -32,6 +33,15 @@ SCRIPT = textwrap.dedent('''
              negative_sampling=True)
     assert len(tr.last_epoch_losses) == 3
     assert all(np.isfinite(tr.last_epoch_losses))
+    tr = Recoder(DynamicAutoencoder([8], noise_prob=0.5,
+                                    compute_dtype='bfloat16'),
+                 optimizer_type='adam', loss='mse', device='cpu',
+                 opt_state_dtype='bfloat16')
+    tr.train(RecommendationDataset(m), batch_size=8, num_epochs=1,
+             negative_sampling=True)
+    assert all(np.isfinite(tr.last_epoch_losses))
+    from recoder_tpu_torch.data import synthetic
+    assert synthetic.synthesize(50, 20, 6).shape == (50, 20)
     from recoder_tpu_torch.data import UsersInteractions
     from recoder_tpu_torch.models import IALS
     ials = IALS(embedding_size=4, sweeps=2, device='cpu').fit(

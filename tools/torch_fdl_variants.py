@@ -187,12 +187,12 @@ def main(names):
   times = {name: {'fwd': [], 'fwd_nograd': [], 'bwd': []} for name in names}
   for name in list(names) + list(names)[::-1]:
     with use(libs[name]):
-      _, e0 = fdl._kernel_forward(h, rows, bias, *args, True)
+      _, e0 = fdl._kernel_forward(h, rows, bias, *args, None, True)
       t = times[name]
       t['fwd'].append(cs.device_ms(
-          lambda: fdl._kernel_forward(h, rows, bias, *args, True)))
+          lambda: fdl._kernel_forward(h, rows, bias, *args, None, True)))
       t['fwd_nograd'].append(cs.device_ms(
-          lambda: fdl._kernel_forward(h, rows, bias, *args, False)))
+          lambda: fdl._kernel_forward(h, rows, bias, *args, None, False)))
       t['bwd'].append(cs.device_ms(
           lambda: fdl._kernel_backward(g, e0, h, rows)))
   for name in names:
