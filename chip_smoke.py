@@ -114,6 +114,29 @@ Phases, each of which raises on failure:
                 reach the pinned metrics, and a reload into a model built
                 without compute_dtype comes back bf16 with the same
                 metrics (within 1e-6).
+ 17. packed kernel -- the packed-slab row fetch with bit unpack against
+                its plain version on the card, bitwise, at B in {1, 37,
+                500} x W/32 in {1, 5, 33, 644, 1288} words, a contiguous
+                fetch at the last block and a gather with pad users, bit
+                31 set in every fourth word; its ptxas registers, spills
+                and stack frame (a spill fails); device times of kernel
+                and plain from a cold L2 at [500, 1,288 words] beside the
+                bytes bound.
+ 18. msd dense -- bench.py's MSD default through the port at the full
+                width (the synthetic 571,355 x 41,140 CSR,
+                DynamicAutoencoder[200] tanh, noise 0.5, dense tables,
+                logloss, bf16 compute and bf16 moments, Adam lr 1e-3,
+                weight decay 2e-5, batch 500, negative sampling, block
+                shuffle, slab_cache='auto', full_decode='auto'): full
+                decode chosen, 'auto' on the 1-bit tier (the bf16 slab
+                exceeds half the card), the unpack kernel and the Adam
+                kernel once a step; one epoch, steady epochs, a profile of
+                steady steps. Then 20 fixture steps from the packed and
+                from the dense tier with one seed, in both shuffles: the
+                losses and parameters bitwise equal.
+ 19. packed quality -- the tests/test_model.py packed row (bf16 compute,
+                bf16 moments, slab_cache='packed', logloss, 30 epochs)
+                must reach the pinned metrics on the packed tier.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -149,6 +172,7 @@ SOURCES = {
     'fused_decode_loss_bwd_bf16':
         'recoder_tpu_torch/kernels/fused_decode_loss.cu',
     'adam_bf16': 'recoder_tpu_torch/kernels/adam.cu',
+    'packed_rows': 'recoder_tpu_torch/kernels/packed_rows.cu',
 }
 REPLACES = {
     'fused_decode_loss_fwd': 'recoder_tpu/experiments/pallas_loss.py:145',
@@ -159,6 +183,8 @@ REPLACES = {
     'fused_decode_loss_bwd_bf16': 'recoder_tpu/experiments/pallas_loss.py:165',
     # no Pallas ancestor: the adam branch of the JAX Optimizer.update
     'adam_bf16': 'recoder_tpu/optim.py:157',
+    # no Pallas ancestor: the packed tier's row fetch and _unpack_rows
+    'packed_rows': 'recoder_tpu/data/device_pipeline.py:779',
 }
 #: reference values pinned in tests/test_model.py (atol 0.01)
 PINNED = {'Recall@20': 0.1417, 'Recall@50': 0.2393, 'NDCG@100': 0.1684}
@@ -201,6 +227,11 @@ MSD_TRAIN = dict(batch_size=500, lr=1e-3, weight_decay=2e-5,
 SCATTER_NS = (1, 37, 41216)
 SCATTER_DS = (1, 3, 7, 128, 200, 256, 1000)
 SCATTER_WS = (0, 1, 37)
+#: phase 17's ragged fetches; 1,288 words is the MSD slab's width
+PACKED_BATCHES = (1, 37, 500)
+PACKED_WORDS = (1, 5, 33, 644, 1288)
+#: bench.py --dataset msd (its default: dense tables, full decode, bf16)
+MSD_DENSE_TRAIN = dict(MSD_TRAIN, slab_cache='auto', full_decode='auto')
 
 
 def say(*args):
@@ -236,15 +267,16 @@ def phase_build():
   from recoder_tpu_torch.kernels import BUILD_LOGS
   from recoder_tpu_torch.ops import adam
   from recoder_tpu_torch.ops import fused_decode_loss as fdl
+  from recoder_tpu_torch.ops import packed_rows as pr
   from recoder_tpu_torch.ops import row_scatter as rs
   from recoder_tpu_torch.ops import spd
   t0 = time.time()
-  libs = (fdl._lib, spd._lib, rs._lib, adam._lib)
+  libs = (fdl._lib, spd._lib, rs._lib, adam._lib, pr._lib)
   with ThreadPoolExecutor(max_workers=len(libs)) as pool:
     for fut in [pool.submit(lib) for lib in libs]:
       fut.result()
-  say(f'build: fused_decode_loss, spd_solve, row_scatter and adam in '
-      f'{time.time() - t0:.1f} s')
+  say(f'build: fused_decode_loss, spd_solve, row_scatter, adam and '
+      f'packed_rows in {time.time() - t0:.1f} s')
   for name in ('fused_decode_loss', 'spd_solve', 'row_scatter', 'adam'):
     for line in BUILD_LOGS.get(name, '').splitlines():
       if 'registers' in line or 'spill' in line or 'Compiling' in line:
@@ -602,18 +634,22 @@ def load_fixture():
 
 # -- phase 4 ---------------------------------------------------------------
 
-def reset_launches():
+def _launch_counts():
   from recoder_tpu_torch.ops import adam
   from recoder_tpu_torch.ops import fused_decode_loss as fdl
-  for counts in (fdl.LAUNCHES, adam.LAUNCHES):
+  from recoder_tpu_torch.ops import packed_rows as pr
+  from recoder_tpu_torch.ops import row_scatter as rs
+  return fdl.LAUNCHES, adam.LAUNCHES, pr.LAUNCHES, rs.LAUNCHES
+
+
+def reset_launches():
+  for counts in _launch_counts():
     for k in counts:
       counts[k] = 0
 
 
 def read_launches():
-  from recoder_tpu_torch.ops import adam
-  from recoder_tpu_torch.ops import fused_decode_loss as fdl
-  return {**fdl.LAUNCHES, **adam.LAUNCHES}
+  return {k: v for counts in _launch_counts() for k, v in counts.items()}
 
 
 def phase_slice(matrix, device='cuda', epochs_timed=2, compute_dtype=None,
@@ -747,7 +783,8 @@ def phase_paths(train_m, device='cuda', steps=20, compute_dtype=None,
 # -- phase 6 ---------------------------------------------------------------
 
 def phase_quality(train_m, val_m, device='cuda', epochs=30, atol=0.01,
-                  compute_dtype=None, opt_state_dtype=None, reload_atol=0.0):
+                  compute_dtype=None, opt_state_dtype=None, reload_atol=0.0,
+                  slab_cache='auto'):
   from recoder_tpu_torch.data import RecommendationDataset
   from recoder_tpu_torch.metrics import NDCG, Recall
   from recoder_tpu_torch.model import Recoder
@@ -761,13 +798,19 @@ def phase_quality(train_m, val_m, device='cuda', epochs=30, atol=0.01,
                     opt_state_dtype=opt_state_dtype)
   t0 = time.time()
   trainer.train(train_ds, batch_size=500, lr=1e-3, weight_decay=2e-5,
-                num_epochs=epochs, negative_sampling=True)
+                num_epochs=epochs, negative_sampling=True,
+                slab_cache=slab_cache)
   train_s = time.time() - t0
+  source = trainer.fused_data_source
+  if slab_cache == 'packed' and not (source.d_slab is not None
+                                     and source._slab_packed):
+    raise AssertionError('the packed row did not train on the packed tier')
   metrics = [Recall(k=20), Recall(k=50), NDCG(k=100)]
   results = trainer._evaluate(val_ds, 100, metrics, batch_size=500)
   means = {str(m): float(np.mean(v)) for m, v in results.items()}
   say(f'  compute {compute_dtype or "float32"}, moments '
-      f'{opt_state_dtype or "float32"}: {epochs} epochs in {train_s:.1f} s; '
+      f'{opt_state_dtype or "float32"}, slab_cache={slab_cache!r}: {epochs} '
+      f'epochs in {train_s:.1f} s; '
       + ', '.join(f'{k} {v:.4f} (pinned {PINNED[k]})'
                   for k, v in means.items()))
   misses = {k: v for k, v in means.items() if abs(v - PINNED[k]) > atol}
@@ -1183,7 +1226,7 @@ def profile_steps(trainer, sparse, steps=10):
   device ms and the kernel launches a step."""
   import torch
   from torch.profiler import ProfilerActivity, profile
-  source = trainer._source_cache[2]
+  source = trainer.fused_data_source
   perm = source.epoch_permutation(trainer.current_epoch)
   steps = min(steps, source.steps_per_epoch - 3)
 
@@ -1251,7 +1294,7 @@ def phase_sparse_slice(matrix, device='cuda', epochs_timed=2):
                          ' expected 2 a step')
   if not np.all(np.isfinite(losses)):
     raise AssertionError('non-finite training loss')
-  widths = np.diff(trainer._source_cache[2]._block_unions()['ptr'])
+  widths = np.diff(trainer.fused_data_source._block_unions()['ptr'])
   epoch_rate = steps / trainer.last_epoch_seconds
   say(f'  epoch 1: {steps} steps in {trainer.last_epoch_seconds:.3f} s = '
       f'{epoch_rate:.2f} user-batches/s (first call {first_call_s:.1f} s '
@@ -1509,6 +1552,219 @@ def phase_bf16_kernels(device='cuda', ragged=(37, 24, 1000),
           adam_err, adam_times, adam_bound)
 
 
+# -- phase 17 --------------------------------------------------------------
+
+def packed_slab(n_rows, n_words, device, seed=0):
+  """Random int32 words with bit 31 set in every fourth one; the last row
+  is zero (the pad users' row)."""
+  import torch
+  rng = np.random.default_rng(seed)
+  words = rng.integers(0, 2 ** 32, (n_rows, n_words), dtype=np.uint64)
+  words[:, ::4] |= np.uint64(1 << 31)
+  words[-1] = 0
+  return torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(device)
+
+
+def check_packed(packed, num_items, what, **fetch):
+  """The kernel against its plain version, bitwise."""
+  import torch
+  from recoder_tpu_torch.ops import packed_rows as pr
+  got = pr.unpack_rows_kernel(packed, num_items, **fetch)
+  ref = pr.unpack_rows_plain(packed, num_items, **fetch)
+  torch.cuda.synchronize()
+  if not all(a.dtype == b.dtype and torch.equal(a, b)
+             for a, b in zip(got, ref)):
+    raise AssertionError(f'packed_rows {what}: differs from the plain '
+                         'version')
+
+
+def packed_bytes(B, n_words, indexed=False):
+  """What one fetch must move: the rows' words (and the index) read once,
+  the bf16 rows and the float32 column mask written once."""
+  W = 32 * n_words
+  return 4.0 * B * n_words + 8.0 * B * indexed + 2.0 * B * W + 4.0 * W
+
+
+def phase_packed_kernel(device='cuda', shape=(500, 1288)):
+  import torch
+  from recoder_tpu_torch.kernels import BUILD_LOGS
+  from recoder_tpu_torch.ops import packed_rows as pr
+  pr._lib()
+  log = BUILD_LOGS.get('packed_rows', '')
+  frames = ptxas_frames(log)
+  if len(frames) < 3 or any(v[1] or v[2] for v in frames.values()):
+    raise AssertionError(f'packed_rows: register spills, or no ptxas report: '
+                         f'{frames}')
+  for func, (stack, stores, loads) in sorted(frames.items()):
+    kernel = ('col_mask_kernel' if 'col_mask' in func else
+              'packed_rows_kernel<indexed>' if 'ILb1' in func else
+              'packed_rows_kernel<contiguous>')
+    say(f'  {kernel}: {ptxas_registers(log, func)} registers, stack frame '
+        f'{stack} B, spill stores {stores} B, spill loads {loads} B')
+
+  cases = 0
+  for B in PACKED_BATCHES:
+    for n_words in PACKED_WORDS:
+      n_rows = 2 * B + 3
+      packed = packed_slab(n_rows, n_words, device, seed=B + n_words)
+      rng = np.random.default_rng(n_words)
+      index = rng.integers(0, n_rows + 40, B).astype(np.int64)
+      index[-1] = n_rows + 100  # a pad user past the slab
+      index = torch.from_numpy(index).to(device)
+      for num_items in (32 * n_words - 7, 32 * n_words):
+        what = f'[{B}, {n_words} words] num_items {num_items}'
+        check_packed(packed, num_items, what + ' last block',
+                     start=n_rows - B, count=B)
+        check_packed(packed, num_items, what + ' gather', index=index)
+        cases += 2
+  say(f'  {cases} fetches (B in {PACKED_BATCHES} x words in {PACKED_WORDS} '
+      'x 2 catalogs, the last block and a gather with pad users, bit 31 '
+      'in every fourth word): bitwise equal to the plain version')
+
+  B, n_words = shape
+  packed = packed_slab(8 * B, n_words, device, seed=7)
+  num_items = 41140
+  start = 3 * B
+  index = torch.randperm(8 * B, device=device)[:B].contiguous()
+  check_packed(packed, num_items, 'timing shape', start=start, count=B)
+  # before each timed call, a read of 256 MB (five times L2) leaves L2
+  # cold, as a step finds its slab rows; its reduction kernel is not
+  # counted
+  sweep = torch.ones(2 ** 26, device=device)
+  fns = {
+      'kernel': lambda: pr.unpack_rows_kernel(packed, num_items, start=start,
+                                              count=B),
+      'plain': lambda: pr.unpack_rows_plain(packed, num_items, start=start,
+                                            count=B),
+      'kernel, gather': lambda: pr.unpack_rows_kernel(packed, num_items,
+                                                      index=index)}
+  runs = {name: [] for name in fns}
+  for name in ('plain', 'kernel', 'kernel, gather', 'kernel', 'plain'):
+    runs[name].append(device_ms(fns[name], between=sweep.sum,
+                                skip='reduce_kernel'))
+  times = {name: statistics.mean(v) for name, v in runs.items()}
+  nbytes = packed_bytes(B, n_words)
+  b_ms, by = bound(0.0, nbytes)
+  say(f'  [{B}, {n_words} words] from a cold L2, device time (profiler, 20 '
+      f'calls, in turns): kernel {times["kernel"]:.4f} ms (gather '
+      f'{times["kernel, gather"]:.4f}), plain {times["plain"]:.4f} ms; bound '
+      f'{b_ms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB); kernel at '
+      f'{100 * b_ms / times["kernel"]:.1f}% of it')
+  return times, (b_ms, by)
+
+
+# -- phase 18 --------------------------------------------------------------
+
+def phase_msd_dense(msd, train_m, device='cuda', epochs_timed=2):
+  """bench.py's MSD default through the port, then the packed and dense
+  tiers' trajectories on the fixture."""
+  import torch
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+
+  dataset = RecommendationDataset(msd)
+  trainer = Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                       compute_dtype='bfloat16'),
+                    optimizer_type='adam', loss='logloss', device=device,
+                    opt_state_dtype='bfloat16')
+  free, _ = torch.cuda.mem_get_info()
+  torch.cuda.reset_peak_memory_stats()
+  reset_launches()
+  t0 = time.time()
+  trainer.train(dataset, num_epochs=1, **MSD_DENSE_TRAIN)
+  torch.cuda.synchronize()
+  first_call_s = time.time() - t0
+  counts = read_launches()
+  steps = -(-msd.shape[0] // 500)
+  kernels = ('packed_rows', 'adam_bf16')
+  launches = {k: counts[k] for k in kernels}
+  others = {k: v for k, v in counts.items() if k not in kernels and v}
+  if any(v != steps for v in launches.values()) or others:
+    raise AssertionError(f'{steps} steps launched {counts}: expected the '
+                         'unpack and Adam kernels once a step, no other')
+
+  source = trainer.fused_data_source
+  W = trainer.model.num_items_padded
+  union = source.union_width()
+  widths = np.diff(source._block_unions()['ptr'])
+  if not (W <= 4 * union and source.d_slab is not None
+          and source._slab_width == W):
+    raise AssertionError(f'full decode not chosen: padded catalog {W}, '
+                         f'union width {union}')
+  if not source._slab_packed:
+    raise AssertionError("slab_cache='auto' did not choose the packed tier")
+  slab_gib = source.d_slab.numel() * 4 / 2**30
+  dense_gib = source.n_pad * W * 2 / 2**30
+  budget_gib = source.SLAB_CACHE_MEMORY_FRACTION * free / 2**30
+  losses = np.asarray(trainer.last_epoch_losses)
+  if len(losses) != steps or not np.all(np.isfinite(losses)):
+    raise AssertionError(f'epoch ran {len(losses)} steps, or a loss is not '
+                         'finite')
+  head, tail = losses[:10].mean(), losses[-10:].mean()
+  if not tail < head:
+    raise AssertionError(f'loss did not fall: first 10 steps {head}, last '
+                         f'10 {tail}')
+  epoch_rate = steps / trainer.last_epoch_seconds
+  say(f'  full decode: padded catalog {W} <= 4 x union width {union} (block '
+      f'unions: mean {widths.mean():.1f}, max {widths.max()}); '
+      f"slab_cache='auto' chose the packed tier: {slab_gib:.2f} GiB against "
+      f'a budget of {budget_gib:.2f} GiB (half the free memory before '
+      f'the build), where the bf16 slab needs {dense_gib:.2f} GiB')
+  say(f'  epoch 1: {steps} steps in {trainer.last_epoch_seconds:.3f} s = '
+      f'{epoch_rate:.2f} user-batches/s (first call {first_call_s:.1f} s '
+      f'with the block unions and the slab build); loss first 10 steps '
+      f'{head:.4f}, last 10 {tail:.4f}; launches {launches}')
+  rates = []
+  for epoch in range(2, epochs_timed + 2):
+    trainer.train(dataset, num_epochs=epoch, **MSD_DENSE_TRAIN)
+    rates.append(len(trainer.last_epoch_losses)
+                 / trainer.last_epoch_seconds)
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  say(f'  steady epochs (dense, packed slab, bf16): msd_user_batches_per_sec '
+      f'{", ".join(f"{r:.2f}" for r in rates)}; peak device memory '
+      f'{peak:.2f} GiB')
+  _, busy_ms, per_step = profile_steps(trainer, sparse=False)
+  steady_ms = 1e3 / max(rates)
+  say(f'  steady step {steady_ms:.3f} ms without the profiler: the device '
+      f'idle ~{100 * (1 - busy_ms / steady_ms):.1f}% of it')
+  del trainer, source
+
+  # the packed and the dense tier from one seed: the same trajectory
+  fixture = RecommendationDataset(train_m)
+  for shuffle in ('blocks', 'users'):
+    runs = {}
+    for cache in ('packed', True):
+      tr = Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                      compute_dtype='bfloat16'),
+                   optimizer_type='adam', loss='logloss', device=device,
+                   opt_state_dtype='bfloat16')
+      tr.train(fixture, batch_size=500, lr=1e-3, weight_decay=2e-5,
+               negative_sampling=True, shuffle=shuffle, num_epochs=1,
+               iters_per_epoch=20, slab_cache=cache, full_decode=True)
+      if tr.fused_data_source._slab_packed != (cache == 'packed'):
+        raise AssertionError(f'slab_cache={cache!r} built the other tier')
+      runs[cache] = (tr.last_epoch_losses, tr.model.params())
+    (lp, pp), (ld, pd) = runs['packed'], runs[True]
+    if len(lp) != 20 or lp != ld or not all(
+        torch.equal(pp[k], pd[k]) for k in pp):
+      raise AssertionError(f'{shuffle}: the packed and dense trajectories '
+                           f'differ ({lp} vs {ld})')
+    say(f'  fixture, 20 {shuffle} steps from the packed and the dense tier: '
+        f'losses and parameters bitwise equal ({lp[0]:.5f} -> {lp[-1]:.5f})')
+  return launches, epoch_rate, rates, (busy_ms, per_step, steady_ms)
+
+
+# -- phase 19 --------------------------------------------------------------
+
+def phase_packed_quality(train_m, val_m):
+  """The tests/test_model.py packed row: bf16 compute and bf16 moments
+  on the 1-bit slab."""
+  return phase_quality(train_m, val_m, compute_dtype='bfloat16',
+                       opt_state_dtype='bfloat16', reload_atol=1e-6,
+                       slab_cache='packed')
+
+
 # -- main ------------------------------------------------------------------
 
 def run(name, fn, *args, **kwargs):
@@ -1585,7 +1841,6 @@ def main():
   (launches['row_scatter'], msd_first, msd_rates, msd_step_ms, msd_busy_ms,
    widths) = run('11 sparse slice', phase_sparse_slice, msd)
   msd_steps = -(-msd.shape[0] // 500)
-  del msd
   _, union_times = run('12 union paths', phase_union_paths, train_m,
                        int(round(widths.mean())))
   run('13 sparse quality', phase_sparse_quality, train_m, val_m)
@@ -1598,6 +1853,13 @@ def main():
   launches.update(bf16_launches)
   del matrix
   bf16_quality = run('16 bf16 quality', phase_bf16_quality, train_m, val_m)
+  packed_times, packed_bound = run('17 packed kernel', phase_packed_kernel)
+  (msd_dense_launches, msd_dense_first, msd_dense_rates,
+   msd_dense_profile) = run('18 msd dense', phase_msd_dense, msd, train_m)
+  launches['packed_rows'] = msd_dense_launches['packed_rows']
+  del msd
+  packed_quality = run('19 packed quality', phase_packed_quality, train_m,
+                       val_m)
 
   # device times at the training shape (phase 3); the others are the
   # phases' own measures (CUDA-event medians for the SPD solve, device
@@ -1640,6 +1902,10 @@ def main():
       'adam_bf16': (
           adam_err, adam_times['kernel'], adam_times['plain'], None,
           adam_bound, launches['adam_bf16'] / ml20m_steps),
+      # bitwise (phase 17 fails otherwise); no PyTorch call computes it
+      'packed_rows': (
+          0.0, packed_times['kernel'], packed_times['plain'], None,
+          packed_bound, launches['packed_rows'] / msd_steps),
   }
   kernels = [{'name': name, 'route': 'cuda', 'source': SOURCES[name],
               'replaces': REPLACES[name], 'launches': launches[name],
@@ -1668,7 +1934,15 @@ def main():
       f'{bdev["plain"]["fwd_bwd"]:.4f} ms, adam kernel '
       f'{adam_times["kernel"]:.4f} ms; bf16 quality '
       + '; '.join(', '.join(f'{k} {v:.4f}' for k, v in q.items())
-                  for q in bf16_quality) + f'; card {card}')
+                  for q in bf16_quality)
+      + f'; MSD dense (bench.py default, packed slab, bf16) first epoch '
+      f'{msd_dense_first:.2f}, steady msd_user_batches_per_sec '
+      f'{max(msd_dense_rates):.2f} ({msd_dense_profile[0]:.3f} ms of device '
+      f'time a profiled step); packed_rows {packed_times["kernel"]:.4f} vs '
+      f'plain {packed_times["plain"]:.4f} ms (bound {packed_bound[0]:.4f}); '
+      'packed quality '
+      + ', '.join(f'{k} {v:.4f}' for k, v in packed_quality.items())
+      + f'; card {card}')
   say(json.dumps({'kernels': kernels}))
   say(card)
   say(json.dumps({'ok': True, 'device': {

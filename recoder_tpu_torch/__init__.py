@@ -8,12 +8,17 @@ by the differential tests in ``tests/test_torch_*.py``. It imports
 package ``__init__`` imports jax).
 
 Ported so far -- the DynamicAutoencoder training paths (full-catalog
-decode, item union, sparse tables; float32, and bench.py's bf16 compute
-with bf16 Adam moments), the serving path they need, and iALS:
+decode from a dense or a bit-packed slab, item union, sparse tables;
+float32, and bench.py's bf16 compute with bf16 Adam moments), the
+trainer for any model written to the ``FactorizationModel`` contract,
+the serving path they need, and iALS:
 
   recoder_tpu/utils.py                  -> recoder_tpu_torch.utils
   recoder_tpu/data/dataset.py           -> recoder_tpu_torch.data.dataset
   recoder_tpu/data/device_pipeline.py   -> recoder_tpu_torch.data.device_pipeline
+      (the packed tier's _unpack_rows and row fetch)
+      -> recoder_tpu_torch.ops.packed_rows
+         + recoder_tpu_torch/kernels/packed_rows.cu
   recoder_tpu/checkpoint.py             -> recoder_tpu_torch.checkpoint
   (new) weights bridge                  -> recoder_tpu_torch.convert
   recoder_tpu/models/base.py            -> recoder_tpu_torch.models.base

@@ -9,10 +9,20 @@ padded catalog and does not depend on which batch the user lands in, so
 the whole densified matrix ``[num_users_padded, num_items_padded]`` is
 built on the device once and each step fetches its ``batch_size`` rows:
 one contiguous slice in 'blocks' mode, one row gather in 'users' mode.
-Storage is bf16 when every stored value round-trips exactly (binary data
-always does), else float32; the step upcasts, so the values -- and the
-gradients -- are those of a float32 slab. At the ML-20M shape the slab
-is 117,000 x 20,224 bf16, about 4.7 GB.
+Two storage tiers, as in JAX:
+
+  * the **dense** tier stores the values: bf16 when every stored value
+    round-trips exactly (binary data always does), else float32; the
+    step upcasts, so the values -- and the gradients -- are those of a
+    float32 slab. At the ML-20M shape the slab is 117,000 x 20,224
+    bf16, about 4.7 GB;
+  * the **packed** tier (binary data only) stores one bit a cell,
+    ``[n_pad, width / 32]`` int32 words (column ``c``: bit ``c & 31`` of
+    word ``c >> 5``, the JAX uint32 words' bits), 16x smaller than bf16:
+    at bench.py's MSD shape 571,500 x 1,288 words, about 2.9 GB, where
+    the bf16 slab (47.1 GB) exceeds half of an 80 GB card. Each step
+    fetches and unpacks its rows in one launch (``ops/packed_rows.py``)
+    to exactly the dense tier's bf16 rows, with the step's loss columns.
 
 **Item-union batches** (``prepare_union``, ``build_union_batch``: the
 negative-sampling union of the reference's collator, ``np.unique(cols,
@@ -48,14 +58,17 @@ the block order with a ``torch.Generator``; JAX draws it with
 inject it.
 
 Differences from the JAX source, on purpose:
-  * no fallback: a slab that is not eligible, or does not fit the
-    'auto' memory budget, raises (the JAX source falls back to a
-    per-step triplet scatter, which the port does not have);
+  * where the JAX source declines both tiers and falls back to a
+    per-step triplet scatter (non-binary data over the 'auto' budget, a
+    packed slab over it, a packed request on non-binary data or at a
+    width that is not a multiple of 32, explicit zero values), the port
+    raises with the JAX reason: it does not have that path yet. This is
+    the one difference in which tier serves a request;
   * the slab request is recorded when a cached slab is reused (the
     JAX source's reuse path returns without updating ``_slab_request``).
 
-Not ported yet: the packed 1-bit slab tier, random extra negatives, dual
-(target) CSRs, mega-batches wider than one compute batch, and mesh
+Not ported yet: the per-step triplet scatter, random extra negatives,
+dual (target) CSRs, mega-batches wider than one compute batch, and mesh
 sharding.
 """
 
@@ -66,6 +79,7 @@ import numpy as np
 import torch
 
 from recoder_tpu_torch import device as device_lib
+from recoder_tpu_torch.ops.packed_rows import unpack_rows
 
 log = logging.getLogger(__name__)
 
@@ -120,6 +134,7 @@ class DeviceDataSource:
 
     self.d_slab = None
     self._slab_width = None
+    self._slab_packed = False
     self._slab_request = None  # the request that established the cache
 
     self._host_tables = None  # blocks mode: per-block unions (numpy)
@@ -128,53 +143,83 @@ class DeviceDataSource:
   # -- resident dense slab ------------------------------------------------
 
   def maybe_cache_slabs(self, width, request='auto'):
-    """Build the resident slab at catalog width ``width``.
+    """Build the resident slab at catalog width ``width`` (the JAX tier
+    rule).
 
-    ``request``: 'auto' builds it when it fits
-    ``SLAB_CACHE_MEMORY_FRACTION`` of the device's free memory and
-    raises otherwise; True skips that check; False drops the slab.
-    Returns whether a slab is resident. Raises when the matrix stores
-    explicit zeros: a dense slab cannot hold them, so the loss mask
-    read off the slab would differ from the matrix's.
+    ``request``: 'auto' builds the dense tier when it fits
+    ``SLAB_CACHE_MEMORY_FRACTION`` of the device's free memory, and
+    otherwise the packed tier when the data is binary, ``width % 32 ==
+    0`` and the packed slab fits; True builds the dense tier without the
+    check; 'packed' builds the packed tier (binary data only); False
+    drops the slab. A slab of the same width is reused unless a forced
+    request (True, 'packed') names the other tier. Returns whether a
+    slab is resident. Where the JAX source declines to its per-step
+    scatter, this raises with its reason (MemoryError over the budget,
+    ValueError otherwise) and drops any slab it held.
     """
     if request is False:
-      self.d_slab = None
-      self._slab_width = None
-      self._slab_request = None
+      self._drop_slab()
       return False
-    if request not in ('auto', True):
-      raise ValueError(f"slab_cache={request!r}: expected 'auto', True or "
-                       'False')
+    if request not in ('auto', True, 'packed'):
+      raise ValueError(f"slab_cache={request!r}: expected 'auto', True, "
+                       "'packed' or False")
     width = int(width)
-    if self.d_slab is not None and self._slab_width == width:
+    if self.d_slab is not None and self._slab_width == width and not (
+        (request is True and self._slab_packed)
+        or (request == 'packed' and not self._slab_packed)):
       self._slab_request = request
       return True
     if width <= self.num_items:
       raise ValueError(f'slab width {width} must exceed the catalog '
                        f'({self.num_items}) by the sentinel column')
+    if request == 'packed' and not self.binary:
+      self._decline(ValueError, "slab_cache='packed' requires binary "
+                    '(all-ones) values')
     data = self.matrix.data.astype(np.float32)
     if not np.all(data != 0.0):
-      raise ValueError('the matrix stores explicit zero values; a dense '
-                       'slab cannot represent them')
+      self._decline(ValueError, 'the matrix stores explicit zero values; a '
+                    'dense slab cannot represent them')
     exact = np.array_equal(
         torch.from_numpy(data).to(torch.bfloat16).float().numpy(), data)
     dtype = torch.bfloat16 if exact else torch.float32
-    nbytes = self.n_pad * width * (2 if exact else 4)
+    packed = request == 'packed'
+    packed_bytes = self.n_pad * (width // 32) * 4
+    nbytes = packed_bytes if packed else self.n_pad * width * (
+        2 if exact else 4)
     if request == 'auto':
       budget = self._memory_budget()
       if budget is not None and nbytes > budget:
-        raise MemoryError(
-            f'the dense slab needs {nbytes / 2**30:.2f} GiB, over the '
-            f'budget of {budget / 2**30:.2f} GiB (slab_cache=True skips '
-            'the check)')
-    self.d_slab = None  # free a slab of another width before the build
-    self._slab_width = None
-    self.d_slab = self._build_slab(width, dtype)
+        if self.binary and width % 32 == 0 and packed_bytes <= budget:
+          packed, nbytes = True, packed_bytes  # the 1-bit tier fits
+        else:
+          self._decline(MemoryError, f'{nbytes / 2**30:.2f} GiB exceeds the '
+                        f'free-memory budget of {budget / 2**30:.2f} GiB '
+                        '(slab_cache=True forces the dense tier)')
+    if packed and width % 32 != 0:
+      self._decline(ValueError, f'packed tier needs width % 32 == 0 (got '
+                    f'{width})')
+    self._drop_slab()  # free a slab of another width or tier first
+    self.d_slab = (self._build_slab_packed(width) if packed
+                   else self._build_slab(width, dtype))
     self._slab_width = width
+    self._slab_packed = packed
     self._slab_request = request
-    log.info('dense slab resident: [%d, %d] %s (%.2f GiB)', self.n_pad,
-             width, str(dtype).replace('torch.', ''), nbytes / 2**30)
+    log.info('slab resident: [%d, %d] %s (%.2f GiB)', self.n_pad, width,
+             'bit-packed' if packed else str(dtype).replace('torch.', ''),
+             nbytes / 2**30)
     return True
+
+  def _drop_slab(self):
+    self.d_slab = None
+    self._slab_width = None
+    self._slab_packed = False
+    self._slab_request = None
+
+  def _decline(self, error, reason):
+    """Raise where the JAX source falls back to its per-step scatter."""
+    self._drop_slab()
+    raise error(f'no resident slab: {reason}. The JAX package falls back '
+                'to a per-step triplet scatter here, which is not ported')
 
   def _memory_budget(self):
     if self.device.type != 'cuda':
@@ -201,6 +246,29 @@ class DeviceDataSource:
     slab.index_put_((rows.to(self.device), cols.to(self.device)),
                     vals.to(device=self.device, dtype=dtype))
     return slab
+
+  def _build_slab_packed(self, width):
+    """One densify of the CSR into ``[n_pad, width / 32]`` int32 words
+    on the device (the JAX ``_build_slab_cache_packed``). Each cell's
+    bit is added once (canonical CSR), so the add is a bitwise OR:
+    distinct powers of two never carry, and bit 31's add (the int32
+    minimum) lands on a sum of the lower bits without overflow. Columns
+    at or above ``num_items`` drop their bit: the loss mask read off the
+    rows must not hold a padding column."""
+    m = self.matrix
+    n_words = width // 32
+    counts = np.diff(m.indptr)
+    rows = np.repeat(np.arange(self.num_users_total, dtype=np.int64), counts)
+    cols = m.indices.astype(np.int64)
+    keep = cols < self.num_items
+    rows, cols = rows[keep], cols[keep]
+    bits = np.left_shift(np.uint32(1), (cols & 31).astype(np.uint32))
+    flat = torch.from_numpy(rows * n_words + (cols >> 5)).to(self.device)
+    packed = torch.zeros((self.n_pad, n_words), dtype=torch.int32,
+                         device=self.device)
+    packed.view(-1).index_add_(
+        0, flat, torch.from_numpy(bits.view(np.int32)).to(self.device))
+    return packed
 
   # -- per-epoch order and per-step batches -------------------------------
 
@@ -229,26 +297,40 @@ class DeviceDataSource:
   def build_fd_batch(self, perm, step_idx):
     """Step ``step_idx``'s full-decode payload off the slab.
 
-    Returns ``{'slab': [B, width] storage-dtype rows on the device,
-    'users': [B] CPU user ids (pad slots hold num_users),
-    'num_users': valid user count as a float, at least 1}``. Every
-    count is known on the host, so no step waits on the device.
+    Returns ``{'slab': [B, width] rows on the device (the dense tier's
+    storage dtype; bf16 zeros and ones from the packed tier), 'users':
+    [B] CPU user ids (pad slots hold num_users), 'num_users': valid user
+    count as a float, at least 1}``, and from the packed tier
+    ``'col_mask'``: [width] float32, 1 on the columns the batch touched
+    inside the catalog (what the trainer otherwise reads off the rows).
+    Every count is known on the host, so no step waits on the device.
     """
     if self.d_slab is None:
       raise RuntimeError('no resident slab: call maybe_cache_slabs first')
     B = self.batch_size
     n = self.num_users_total
+    out = {}
     if self.shuffle == 'blocks':
       ustart = int(perm[step_idx]) * self.mega
-      slab = self.d_slab[ustart:ustart + B]
       users = torch.arange(ustart, ustart + B)
+      if self._slab_packed:
+        slab, out['col_mask'] = unpack_rows(self.d_slab, self.num_items,
+                                            start=ustart, count=B)
+      else:
+        slab = self.d_slab[ustart:ustart + B]
     else:
       users = perm[step_idx * B:(step_idx + 1) * B]
-      idx = torch.clamp(users, max=self.n_pad - 1).to(self.device)
-      slab = self.d_slab.index_select(0, idx)
+      if self._slab_packed:
+        # the kernel clamps pad users to the zero row n_pad - 1
+        slab, out['col_mask'] = unpack_rows(self.d_slab, self.num_items,
+                                            index=users.to(self.device))
+      else:
+        idx = torch.clamp(users, max=self.n_pad - 1).to(self.device)
+        slab = self.d_slab.index_select(0, idx)
     num_users = int(torch.sum(users < n))
-    return {'slab': slab, 'users': torch.clamp(users, max=n),
-            'num_users': float(max(num_users, 1))}
+    out.update(slab=slab, users=torch.clamp(users, max=n),
+               num_users=float(max(num_users, 1)))
+    return out
 
   # -- item-union batches ---------------------------------------------------
 

@@ -40,6 +40,15 @@ in bf16 (``optim.Bf16Adam``, the fused kernel ``kernels/adam.cu``).
 ``eval_compute_dtype`` sets the dtype of ``predict`` / ``recommend``
 alone.
 
+Any model written to the :class:`FactorizationModel` contract trains
+and scores here: a model that defines ``decode_operands``
+(``DynamicAutoencoder``) takes the routes above; every other model is
+called as ``model(input, input_users=..., input_items=...,
+target_items=..., generator=..., training=...)`` and its scores go
+through the trainer's loss with the same row and column masks (JAX
+``_forward_loss``). The batch's user ids reach the model in training,
+``predict`` and ``recommend``.
+
 Randomness comes from explicit generators: the init from a CPU
 generator seeded with ``seed``, each epoch's order from the data source
 (numpy ``default_rng([seed + 1, epoch])`` in 'users' mode, as the JAX
@@ -48,7 +57,8 @@ dropout from a generator on the device seeded with ``(seed, global
 step)``.
 
 Not ported yet: bf16 parameters, bf16 moments of sparse tables, the
-validation loss, random extra negatives, the packed slab, dual (target)
+validation loss, random extra negatives, the per-step triplet scatter
+(where the JAX package declines both slab tiers), dual (target)
 training matrices, mega-batches wider than one compute batch, sparse
 tables without negative sampling, chunked evaluation, the orbax backend,
 meshes and profiling.
@@ -298,10 +308,12 @@ class Recoder:
 
     A full-decode batch (``'slab'``) decodes the whole catalog and masks
     the loss to the columns the batch touched (all of the logical
-    catalog without ``negative_sampling``); a union batch (``'items'``)
-    decodes the union's columns, every one of which is a loss column.
-    ``gathered``: the sparse step's union rows (``sparse_entries``
-    names)."""
+    catalog without ``negative_sampling``): its ``'col_mask'`` when it
+    carries one (the packed tier's), else read off the rows. A union
+    batch (``'items'``) decodes the union's columns, every one of which
+    is a loss column. ``gathered``: the sparse step's union rows
+    (``sparse_entries`` names). A model without ``decode_operands``
+    scores through its ``forward`` and ``loss_module``."""
     model = self.model
     cd = getattr(model, 'compute_dtype', None)
     valid_users = batch['num_users']
@@ -313,11 +325,13 @@ class Recoder:
       input_dense = slab.to(cd or torch.float32)
       B, W = input_dense.shape
       in_catalog = torch.arange(W, device=slab.device) < model.num_items
-      if negative_sampling:
+      if not negative_sampling:
+        col_mask = in_catalog.float()
+      elif 'col_mask' in batch:
+        col_mask = batch['col_mask']
+      else:
         # the loss columns: items any user of the batch touched
         col_mask = (torch.any(slab != 0, dim=0) & in_catalog).float()
-      else:
-        col_mask = in_catalog.float()
       items = None
     else:
       items = batch['items']
@@ -327,6 +341,14 @@ class Recoder:
     row_mask = (torch.arange(B, device=input_dense.device)
                 < valid_users).float()
 
+    if not hasattr(model, 'decode_operands'):
+      out = model(input_dense,
+                  input_users=batch['users'].to(input_dense.device),
+                  input_items=items, target_items=items,
+                  generator=generator, training=training)
+      loss = self.loss_module(out, input_dense, row_mask=row_mask,
+                              col_mask=col_mask)
+      return loss / valid_users
     h, rows, bias = model.decode_operands(
         input_dense, items, items, gathered=gathered, training=training,
         generator=generator)
@@ -427,10 +449,13 @@ class Recoder:
     when the padded catalog is at most 4x the union width (the JAX
     rule). A sparse model always takes the union path, and needs
     negative sampling. Without negative sampling a dense model decodes
-    the full catalog. ``slab_cache``: 'auto' checks the slab against
-    half the device's free memory and raises when it does not fit; True
-    skips the check. ``shuffle``: 'users' or 'blocks'. ``val_dataset``
-    must be None: the validation loss is not ported yet.
+    the full catalog. ``slab_cache`` picks the full-decode slab's tier
+    (``DeviceDataSource.maybe_cache_slabs``): 'auto' takes the dense
+    slab within half the device's free memory, else the bit-packed
+    slab for binary data, and raises where neither fits; True forces
+    the dense tier, 'packed' the 1-bit tier. ``shuffle``: 'users' or
+    'blocks'. ``val_dataset`` must be None: the validation loss is not
+    ported yet.
     """
     if val_dataset is not None:
       raise NotImplementedError('the validation loss is not ported yet')
@@ -451,6 +476,12 @@ class Recoder:
 
     self._init_training(train_dataset, lr, weight_decay)
     sparse = bool(self.model.sparse_param_paths())
+    if sparse and not hasattr(self.model, 'decode_operands'):
+      raise NotImplementedError(
+          f'{type(self.model).__name__} declares sparse tables but defines '
+          'no decode_operands: the sparse step gathers its table rows '
+          'through decode_operands and sparse_entries, and only that '
+          'route is ported')
     if sparse and not negative_sampling:
       raise NotImplementedError('sparse tables train with negative '
                                 'sampling only (the full-catalog sparse '
@@ -518,6 +549,13 @@ class Recoder:
                epoch, num_epochs, epoch_lr, n_steps, dt,
                n_steps / max(dt, 1e-9), mean_loss)
 
+  @property
+  def fused_data_source(self):
+    """The live on-device data source of the last ``train`` call, or
+    None (which slab tier served it: ``_slab_packed``)."""
+    cached = self._source_cache
+    return cached[2] if cached is not None else None
+
   # ------------------------------------------------------------------
   # inference / evaluation
   # ------------------------------------------------------------------
@@ -540,12 +578,15 @@ class Recoder:
         accumulate=True)
     return dense
 
-  def _score(self, dense):
+  def _score(self, dense, users_interactions):
     """Full-catalog scores of a dense input, in ``eval_compute_dtype`` or
-    else the model's compute dtype."""
-    if self.eval_compute_dtype is None:
-      return self.model(dense)
-    return self.model(dense, compute_dtype=self.eval_compute_dtype)
+    else the model's compute dtype; the batch's user ids go to the
+    model as ``input_users``."""
+    users = torch.as_tensor(np.asarray(users_interactions.users),
+                            dtype=torch.int64).to(self.device)
+    kw = ({} if self.eval_compute_dtype is None
+          else {'compute_dtype': self.eval_compute_dtype})
+    return self.model(dense, input_users=users, training=False, **kw)
 
   def predict(self, users_interactions, return_input=False):
     """Full-catalog scores for a batch of users, as float32 numpy trimmed
@@ -555,7 +596,7 @@ class Recoder:
       raise RuntimeError('Model not initialized.')
     with torch.no_grad():
       dense = self._densify(users_interactions)
-      out = self._score(dense)
+      out = self._score(dense, users_interactions)
     out = out[:, :self.num_items].float().cpu().numpy()
     if return_input:
       return out, dense[:, :self.num_items].float().cpu().numpy()
@@ -567,7 +608,7 @@ class Recoder:
       raise RuntimeError('Model not initialized.')
     with torch.no_grad():
       dense = self._densify(users_interactions)
-      out = self._score(dense)
+      out = self._score(dense, users_interactions)
       out = out.masked_fill(dense > 0, float('-inf'))
       out[:, self.model.num_items:] = float('-inf')
       _, top_idx = torch.topk(out, num_recommendations, dim=1)

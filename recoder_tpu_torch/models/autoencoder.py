@@ -274,7 +274,10 @@ class DynamicAutoencoder(FactorizationModel):
         input, target_items=target_items, gathered=gathered,
         training=training, generator=generator), None)
 
-  def forward(self, input, training=False, generator=None,
-              compute_dtype=None):
-    return self.apply(input, training=training, generator=generator,
-                      compute_dtype=compute_dtype)
+  def forward(self, input, input_users=None, input_items=None,
+              target_users=None, target_items=None, generator=None,
+              training=False, compute_dtype=None):
+    """The :class:`FactorizationModel` contract; the user ids are
+    ignored, as the JAX ``apply`` ignores them."""
+    return self.apply(input, input_items, target_items, training=training,
+                      generator=generator, compute_dtype=compute_dtype)

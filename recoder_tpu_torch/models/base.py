@@ -74,7 +74,37 @@ class FactorizationModel(nn.Module):
 
   Subclasses implement ``init_model`` (creating the parameters under
   their JAX names), ``model_params``, ``load_model_params`` and
-  ``forward``.
+  ``forward``, and set ``num_items``, ``num_items_padded`` (the width of
+  the dense inputs and scores, ``pad_dim(num_items)``) and, for a
+  user-indexed model, ``num_users`` in ``init_model``.
+
+  ``forward(input, input_users=None, input_items=None,
+  target_users=None, target_items=None, generator=None,
+  training=False)`` is the port's form of the JAX ``apply(params,
+  input, input_users, input_items, target_users, target_items, rng,
+  training)`` (``recoder_tpu/models/base.py``): the parameters live on
+  the module, and a ``torch.Generator`` on the input's device takes the
+  place of ``rng`` for dropout noise when ``training``.
+
+  Args of ``forward``:
+    input (torch.Tensor [B, W]): dense interactions over the whole
+      padded catalog (W = ``num_items_padded``) or over the item union
+      ``input_items``.
+    input_users / input_items / target_users / target_items: int64 id
+      vectors on the input's device selecting embedding rows, or None
+      for the whole table. The trainer passes the batch's user ids as
+      ``input_users`` (pad slots hold ``num_users``, a row that
+      ``pad_dim`` always provides) in training, scoring and
+      recommending.
+
+  It returns the ``[B, T]`` scores of the ``target_items`` columns (all
+  ``num_items_padded`` of them when None). The built-in models also
+  accept ``compute_dtype``; the trainer passes it only when
+  ``eval_compute_dtype`` is set, so a model written to exactly this
+  signature keeps working. A model that defines ``decode_operands``
+  (:class:`DynamicAutoencoder`) trains through it instead, and with it
+  the fused decode-loss kernel; every other model trains through
+  ``forward`` and the trainer's loss.
   """
 
   def init_model(self, num_items=None, num_users=None, seed=0):
@@ -88,6 +118,10 @@ class FactorizationModel(nn.Module):
   def load_model_params(self, model_params):
     """Restore hyper-parameters from a checkpoint dict."""
     raise NotImplementedError
+
+  def sparse_param_paths(self):
+    """Parameters trained by row-sparse Adam (none by default)."""
+    return ()
 
   def params(self):
     """``{jax_name: parameter}`` -- the names the checkpoint uses."""

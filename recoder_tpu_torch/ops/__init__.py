@@ -1,2 +1,2 @@
-"""Tensor operations: losses, the encode/decode products and the fused
-decode-loss kernel."""
+"""Tensor operations: losses, the encode/decode products, and the
+wrappers of the hand-written kernels (each beside its plain version)."""

@@ -11,7 +11,9 @@ the card against the fit on the CPU; the row-scatter kernel against
 ``index_copy_`` (bitwise: it is a copy) at ragged shapes, on a
 misaligned column slice and with an empty id vector, and the sparse
 training step through the kernel against the same step through the
-plain twin (bitwise).
+plain twin (bitwise); the packed-slab unpack kernel against its plain
+version (bitwise) at ragged batches and word widths in both fetch modes,
+and a packed-tier training bitwise equal to a dense-tier one.
 
 Every test skips where ``torch.cuda.is_available()`` is False. The file
 imports neither jax nor the JAX package, so it also runs on a machine
@@ -583,3 +585,91 @@ def test_adam_kernel_is_deterministic_and_refuses(cuda):
   with pytest.raises(ValueError, match='is on'):
     adam.adam_bf16_step(params, [g.cpu() for g in grads], ms, vs, [0.0],
                         1e-3, 1)
+
+
+# -- the packed-slab row fetch with bit unpack --------------------------------
+
+def _packed_slab(n_rows, n_words, seed=0):
+  """Random words with bit 31 set in every fourth one, the last row zero
+  (the pad users' row)."""
+  rng = np.random.default_rng(seed)
+  words = rng.integers(0, 2 ** 32, (n_rows, n_words), dtype=np.uint64)
+  words[:, ::4] |= np.uint64(1 << 31)
+  words[-1] = 0
+  return torch.from_numpy(words.astype(np.uint32).view(np.int32))
+
+
+def _unpack_both(packed, num_items, **fetch):
+  from recoder_tpu_torch.ops import packed_rows as pr
+  before = pr.LAUNCHES['packed_rows']
+  got = pr.unpack_rows(packed, num_items, **fetch)
+  torch.cuda.synchronize()
+  assert pr.LAUNCHES['packed_rows'] == before + 1
+  ref = pr.unpack_rows_plain(packed, num_items, **fetch)
+  for a, b in zip(got, ref):
+    assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize('n_words', [1, 5, 33, 644, 1288])
+@pytest.mark.parametrize('B', [1, 37, 500])
+def test_packed_rows_kernel_matches_plain(cuda, B, n_words):
+  """Bitwise, both fetch modes: a contiguous fetch at the last block and
+  at an inner one, and a gather with pad users past the slab (clamped to
+  its zero last row) and repeated rows; num_items inside the last word
+  and at the width."""
+  n_rows = 2 * B + 3
+  packed = _packed_slab(n_rows, n_words, seed=B + n_words).to(cuda)
+  W = 32 * n_words
+  for num_items in (W - 7, W):
+    _unpack_both(packed, num_items, start=n_rows - B, count=B)
+    _unpack_both(packed, num_items, start=1, count=B)
+    rng = np.random.default_rng(n_words)
+    index = rng.integers(0, n_rows + 40, B).astype(np.int64)
+    index[-1] = n_rows + 100  # a pad user
+    _unpack_both(packed, num_items, index=torch.from_numpy(index).to(cuda))
+
+
+def test_packed_rows_kernel_refuses_and_handles_empty(cuda):
+  from recoder_tpu_torch.ops import packed_rows as pr
+  packed = _packed_slab(8, 3).to(cuda)
+  _unpack_both(packed, 90, start=2, count=0)
+  with pytest.raises(ValueError, match='int32'):
+    pr.unpack_rows(packed.long(), 90, start=0, count=2)
+  with pytest.raises(ValueError, match='outside'):
+    pr.unpack_rows(packed, 90, start=7, count=2)
+  with pytest.raises(ValueError, match='int64'):
+    pr.unpack_rows(packed, 90, index=torch.zeros(2, dtype=torch.int32,
+                                                 device=cuda))
+  with pytest.raises(ValueError, match='contiguous'):
+    pr.unpack_rows_kernel(packed.t().contiguous().t(), 90, start=0, count=2)
+
+
+@pytest.mark.parametrize('shuffle', ['blocks', 'users'])
+def test_packed_training_is_bitwise_dense_on_the_card(cuda, shuffle):
+  """Five bf16 logloss steps from the packed and from the dense slab:
+  the same losses and parameters, bit for bit, with one unpack launch a
+  step."""
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  from recoder_tpu_torch.ops import packed_rows as pr
+  rng = np.random.default_rng(1)
+  m = sp.csr_matrix((rng.random((150, 300)) < 0.05).astype(np.float32))
+  out = {}
+  for cache in ('packed', True):
+    tr = Recoder(DynamicAutoencoder([32], noise_prob=0.5,
+                                    compute_dtype='bfloat16'),
+                 optimizer_type='adam', loss='logloss', device=cuda,
+                 opt_state_dtype='bfloat16')
+    before = pr.LAUNCHES['packed_rows']
+    tr.train(RecommendationDataset(m), batch_size=32, lr=1e-2,
+             weight_decay=2e-5, negative_sampling=True, shuffle=shuffle,
+             num_epochs=1, slab_cache=cache, full_decode=True)
+    assert tr.fused_data_source._slab_packed == (cache == 'packed')
+    assert pr.LAUNCHES['packed_rows'] - before == (5 if cache == 'packed'
+                                                   else 0)
+    out[cache] = (tr.last_epoch_losses,
+                  {k: v.cpu() for k, v in tr.model.params().items()})
+  assert out['packed'][0] == out[True][0]
+  for name, p in out['packed'][1].items():
+    assert torch.equal(p, out[True][1][name]), name

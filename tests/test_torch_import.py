@@ -2,8 +2,9 @@
 module of ``recoder_tpu_torch`` imports, a tiny training step (float32,
 and bf16 compute with bf16 moments), the synthetic data, a tiny
 iALS fit, fold-in and recommend, a sparse-table and a dense union
-training and a row scatter run on the CPU, and afterwards neither JAX
-nor the JAX package is loaded."""
+training, a row scatter, a training from the bit-packed slab and its row
+unpack run on the CPU, and afterwards neither JAX nor the JAX package is
+loaded."""
 
 import os
 import subprocess
@@ -61,6 +62,18 @@ SCRIPT = textwrap.dedent('''
     t = torch.zeros(4, 3)
     row_scatter_([t], torch.tensor([2]), [torch.ones(1, 3)])
     assert t.sum() == 3
+    tr = Recoder(DynamicAutoencoder([8], noise_prob=0.5,
+                                    compute_dtype='bfloat16'),
+                 optimizer_type='adam', loss='logloss', device='cpu',
+                 opt_state_dtype='bfloat16')
+    tr.train(RecommendationDataset(m), batch_size=8, num_epochs=1,
+             negative_sampling=True, slab_cache='packed', full_decode=True)
+    assert tr.fused_data_source._slab_packed
+    assert all(np.isfinite(tr.last_epoch_losses))
+    from recoder_tpu_torch.ops.packed_rows import unpack_rows
+    rows, col_mask = unpack_rows(torch.tensor([[-1]], dtype=torch.int32), 31,
+                                 start=0, count=1)
+    assert rows.sum() == 32 and col_mask.sum() == 31
     loaded = [k for k, v in sys.modules.items() if v is not None and (
         k in ('jax', 'jaxlib', 'recoder_tpu') or k.startswith(
             ('jax.', 'jaxlib.', 'recoder_tpu.')))]
