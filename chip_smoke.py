@@ -30,15 +30,19 @@ Phases, each of which raises on failure:
                 DynamicAutoencoder[200], MSE confidence 3, Adam, batch
                 500, negative sampling, block shuffle, float32; one
                 epoch through the kernel, steady epochs and a profile of
-                steady steps; then recommend and a checkpoint round
-                trip.
+                steady steps, one eager dispatch a step
+                (fused_steps_per_call=1: the launch counters count every
+                step; phase 20 runs the captured form); then recommend
+                and a checkpoint round trip.
   5. paths   -- 20 training steps on the fixture through the kernel and
                 through the plain decode + loss, from the same init,
                 permutation and noise: the losses must agree.
   6. quality -- the tests/test_model.py protocol on the fixture
                 (logloss, 30 epochs, float32) must reach the pinned
                 Recall@20 / Recall@50 / NDCG@100, and a checkpoint
-                reload must give the same metrics.
+                reload must give the same metrics; it runs captured
+                (fused_steps_per_call='auto'), as do phases 16 and 19,
+                and prints its dispatch.
   7. spd kernel -- the batched SPD-solve kernel against the blocked
                 recursion on the card at ragged shapes (B in {1, 37},
                 d in {1, 7, 15, 16, 17, 33, 64, 127, 128, 129, 130, 200,
@@ -130,13 +134,31 @@ Phases, each of which raises on failure:
                 shuffle, slab_cache='auto', full_decode='auto'): full
                 decode chosen, 'auto' on the 1-bit tier (the bf16 slab
                 exceeds half the card), the unpack kernel and the Adam
-                kernel once a step; one epoch, steady epochs, a profile of
-                steady steps. Then 20 fixture steps from the packed and
-                from the dense tier with one seed, in both shuffles: the
-                losses and parameters bitwise equal.
+                kernel once a step; one epoch, a steady epoch, a profile
+                of steady steps, all eager as in phase 4. Then 20 fixture
+                steps from the packed and from the dense tier with one
+                seed, in both shuffles: the losses and parameters bitwise
+                equal.
  19. packed quality -- the tests/test_model.py packed row (bf16 compute,
                 bf16 moments, slab_cache='packed', logloss, 30 epochs)
                 must reach the pinned metrics on the packed tier.
+ 20. captured steps -- on the fixture (batch 480: 21 steps an epoch, a
+                tail block with 80 pad users), for every combination of
+                {float32, bf16 compute + bf16 moments} x {dense, packed
+                slab} x {'blocks', 'users'}: 3 epochs with noise 0.5 and
+                an lr milestone at 16 steps a graph against one eager
+                step a dispatch, and a resume from a checkpoint written
+                10 steps into epoch 1: losses, parameters and moments
+                bitwise equal; the float32 decode-loss kernels once a
+                step in a profile of replays. Then phase 15's and phase
+                18's trainers (bench.py's two full-decode cells) at
+                fused_steps_per_call='auto' (captured) and 1 (eager) in
+                turns: the first captured epoch, steady rates, device ms
+                and launches a profiled step, the device-idle share,
+                host dispatches an epoch, peak device memory, and each
+                hand kernel of the cell once a step, by name, in a
+                profile of 64 replayed steps (the Python launch counters
+                do not see inside a graph).
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -652,19 +674,25 @@ def read_launches():
   return {k: v for counts in _launch_counts() for k, v in counts.items()}
 
 
+#: phase 4's and phase 15's training arguments (bench.py's ML-20M cell)
+ML20M_TRAIN = dict(batch_size=500, lr=1e-3, weight_decay=2e-5,
+                   negative_sampling=True, shuffle='blocks')
+
+
 def phase_slice(matrix, device='cuda', epochs_timed=2, compute_dtype=None,
                 opt_state_dtype=None):
   """One full epoch of the main path (at the given numerics), steady
-  epochs and a profile; returns the epoch's launch counts of the kernels
-  that path runs, the rates and the profiled device ms a step."""
+  epochs and a profile, one eager dispatch a step (so that every launch
+  is counted; phase 20 runs the same cell captured); returns the epoch's
+  launch counts of the kernels that path runs, the rates, the profiled
+  device ms a step, and the trainer and its dataset."""
   import torch
   from recoder_tpu_torch.data import RecommendationDataset
   from recoder_tpu_torch.model import Recoder
   from recoder_tpu_torch.models import DynamicAutoencoder
 
   dataset = RecommendationDataset(matrix)
-  common = dict(batch_size=500, lr=1e-3, weight_decay=2e-5,
-                negative_sampling=True, shuffle='blocks')
+  common = dict(ML20M_TRAIN, fused_steps_per_call=1)
   trainer = Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
                                        compute_dtype=compute_dtype),
                     optimizer_type='adam', loss='mse',
@@ -714,7 +742,7 @@ def phase_slice(matrix, device='cuda', epochs_timed=2, compute_dtype=None,
       f'{opt_state_dtype or "float32"}'
   say(f'  steady epochs ({dtypes}): ml20m_user_batches_per_sec '
       f'{", ".join(f"{r:.2f}" for r in rates)}')
-  _, busy_ms, per_step = profile_steps(trainer, sparse=False)
+  _, busy_ms, per_step, _ = profile_steps(trainer, dataset, ML20M_TRAIN)
   steady_ms = 1e3 / max(rates)
   say(f'  steady step {steady_ms:.3f} ms without the profiler: the device '
       f'idle ~{100 * (1 - busy_ms / steady_ms):.1f}% of it')
@@ -741,7 +769,8 @@ def phase_slice(matrix, device='cuda', epochs_timed=2, compute_dtype=None,
     raise AssertionError('recommendations changed across the checkpoint')
   say('  recommend k=100 for 500 users: in range, unseen, identical after '
       'save_state -> init_from_model_file')
-  return launches, epoch_rate, rates, (busy_ms, per_step, steady_ms)
+  return (launches, epoch_rate, rates, (busy_ms, per_step, steady_ms),
+          (trainer, dataset))
 
 
 # -- phase 5 ---------------------------------------------------------------
@@ -810,9 +839,13 @@ def phase_quality(train_m, val_m, device='cuda', epochs=30, atol=0.01,
   means = {str(m): float(np.mean(v)) for m, v in results.items()}
   say(f'  compute {compute_dtype or "float32"}, moments '
       f'{opt_state_dtype or "float32"}, slab_cache={slab_cache!r}: {epochs} '
-      f'epochs in {train_s:.1f} s; '
+      f'epochs in {train_s:.1f} s, dispatch: {trainer.last_epoch_dispatch} '
+      f'({trainer.last_epoch_dispatches} dispatches an epoch); '
       + ', '.join(f'{k} {v:.4f} (pinned {PINNED[k]})'
                   for k, v in means.items()))
+  if not trainer.last_epoch_dispatch.startswith('captured'):
+    raise AssertionError("the quality row did not run captured under "
+                         "fused_steps_per_call='auto'")
   misses = {k: v for k, v in means.items() if abs(v - PINNED[k]) > atol}
   with tempfile.TemporaryDirectory() as tmp:
     path = trainer.save_state(os.path.join(tmp, 'quality'))
@@ -1219,33 +1252,54 @@ def phase_scatter(msd_ids, device='cuda', d=200):
 
 # -- phase 11 --------------------------------------------------------------
 
-def profile_steps(trainer, sparse, steps=10):
-  """torch.profiler over ``steps`` steady training steps (the sparse step
-  of union batches, or the dense full-decode step): the top device
-  kernels and the device-idle share of the window; returns the wall and
-  device ms and the kernel launches a step."""
+#: spin kernels that open a counting profiler window (settle_profiler)
+MARKERS = 64
+
+
+def settle_profiler():
+  """Opens a profiler window whose kernels are counted: a pause on the
+  host, then ``MARKERS`` spin kernels of ~10 us each, waited for. The
+  profiler loses the first device events of a window, the more the more
+  windows the process has opened (none of 16 markers in the first window
+  of a run, 12 of 16 in its last; before the markers, phase 20's first
+  MSD step lost its row fetch), so what the window counts starts after
+  these; :func:`markers_seen` says how many of them it kept."""
+  import torch
+  torch.cuda.synchronize()
+  time.sleep(0.05)
+  for _ in range(MARKERS):
+    torch.cuda._sleep(20000)
+  torch.cuda.synchronize()
+
+
+def markers_seen(events):
+  """How many of :func:`settle_profiler`'s spin kernels a profile kept."""
+  return sum(ev.count for ev in events if 'spin_kernel' in ev.key)
+
+
+def profile_steps(trainer, dataset, train_kw, steps=16, spc=1,
+                  kernels=()):
+  """torch.profiler over ``steps`` training steps dispatched as ``train``
+  dispatches them (``fused_steps_per_call=spc``: one eager step a
+  dispatch, or replays of captured blocks), from a fresh epoch: the top
+  device kernels and the device-idle share of the window; returns the
+  wall and device ms and the kernel launches a step, and the launches of
+  each of ``kernels`` by name."""
   import torch
   from torch.profiler import ProfilerActivity, profile
-  source = trainer.fused_data_source
-  perm = source.epoch_permutation(trainer.current_epoch)
-  steps = min(steps, source.steps_per_epoch - 3)
-
-  def step(s):
-    if sparse:
-      trainer._sparse_step_math(source.build_union_batch(perm, s))
-    else:
-      trainer._dense_step_math(source.build_fd_batch(perm, s))
-
-  for s in range(3):  # warm
-    step(s)
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
+    settle_profiler()
     t0 = time.time()
-    for s in range(3, 3 + steps):
-      step(s)
+    trainer.train(dataset, num_epochs=trainer.current_epoch,
+                  iters_per_epoch=steps, fused_steps_per_call=spc,
+                  **train_kw)
     torch.cuda.synchronize()
     wall_ms = (time.time() - t0) * 1e3
+  if len(trainer.last_epoch_losses) != steps:
+    raise AssertionError(f'the profiled window ran '
+                         f'{len(trainer.last_epoch_losses)} steps')
   events = prof.key_averages()
   on_device = [ev for ev in events if 'CUDA' in str(ev.device_type)]
   # a range annotation (e.g. Optimizer.step) is mirrored on the device
@@ -1253,17 +1307,25 @@ def profile_steps(trainer, sparse, steps=10):
   host_keys = {ev.key for ev in events if ev not in on_device}
   rows = sorted(((getattr(ev, 'self_device_time_total', 0) / 1e3,
                   ev.count, ev.key) for ev in on_device
-                 if ev.key not in host_keys), reverse=True)
+                 if ev.key not in host_keys
+                 and 'spin_kernel' not in ev.key), reverse=True)
   busy = sum(r[0] for r in rows)
-  kernels = sum(r[1] for r in rows) / steps
-  say(f'  profile of {steps} steady steps: wall {wall_ms:.3f} ms '
-      f'({wall_ms / steps:.3f} ms/step under the profiler), device kernels '
-      f'{busy:.3f} ms ({busy / steps:.3f} ms/step, {kernels:.1f} launches a '
-      f'step), device idle {100 * (1 - busy / wall_ms):.1f}% of the profiled '
-      'window')
+  launches = sum(r[1] for r in rows) / steps
+  counts = {name: sum(count for _, count, key in rows if name in key)
+            for name in kernels}
+  if any(v != steps for v in counts.values()):
+    say(f'  (kernels of the window, by count: '
+        f'{sorted((count, key[:60]) for _, count, key in rows)})')
+  say(f'  profile of {steps} steps, {trainer.last_epoch_dispatch} '
+      f'({trainer.last_epoch_dispatches} dispatches; {markers_seen(events)}'
+      f' of {MARKERS} opening markers kept): wall {wall_ms:.3f} ms '
+      f'({wall_ms / steps:.3f} ms/step under the profiler, epoch start and '
+      f'end included), device kernels {busy:.3f} ms ({busy / steps:.3f} '
+      f'ms/step, {launches:.1f} launches a step), device idle '
+      f'{100 * (1 - busy / wall_ms):.1f}% of the profiled window')
   for ms, count, key in rows[:12]:
     say(f'    {ms:9.3f} ms  {count:5d}x  {key[:90]}')
-  return wall_ms / steps, busy / steps, kernels
+  return wall_ms / steps, busy / steps, launches, counts
 
 
 def phase_sparse_slice(matrix, device='cuda', epochs_timed=2):
@@ -1316,7 +1378,8 @@ def phase_sparse_slice(matrix, device='cuda', epochs_timed=2):
       f'{", ".join(f"{r:.2f}" for r in rates)}; epoch mean loss '
       + ' -> '.join(f'{m:.4f}' for m in means)
       + f'; peak device memory {peak:.2f} GiB')
-  step_ms, busy_ms, _ = profile_steps(trainer, sparse=True)
+  step_ms, busy_ms, _, _ = profile_steps(trainer, dataset, MSD_TRAIN,
+                                         steps=10)
   steady_ms = 1e3 / max(rates)
   say(f'  steady step {steady_ms:.3f} ms without the profiler: the device '
       f'idle ~{100 * (1 - busy_ms / steady_ms):.1f}% of it')
@@ -1655,7 +1718,7 @@ def phase_packed_kernel(device='cuda', shape=(500, 1288)):
 
 # -- phase 18 --------------------------------------------------------------
 
-def phase_msd_dense(msd, train_m, device='cuda', epochs_timed=2):
+def phase_msd_dense(msd, train_m, device='cuda', epochs_timed=1):
   """bench.py's MSD default through the port, then the packed and dense
   tiers' trajectories on the fixture."""
   import torch
@@ -1670,9 +1733,13 @@ def phase_msd_dense(msd, train_m, device='cuda', epochs_timed=2):
                     opt_state_dtype='bfloat16')
   free, _ = torch.cuda.mem_get_info()
   torch.cuda.reset_peak_memory_stats()
+  held = torch.cuda.memory_allocated() / 2**30  # phase 15's cell
   reset_launches()
   t0 = time.time()
-  trainer.train(dataset, num_epochs=1, **MSD_DENSE_TRAIN)
+  # one eager dispatch a step, so that every launch is counted (phase 20
+  # runs the cell captured)
+  trainer.train(dataset, num_epochs=1, fused_steps_per_call=1,
+                **MSD_DENSE_TRAIN)
   torch.cuda.synchronize()
   first_call_s = time.time() - t0
   counts = read_launches()
@@ -1717,18 +1784,21 @@ def phase_msd_dense(msd, train_m, device='cuda', epochs_timed=2):
       f'{head:.4f}, last 10 {tail:.4f}; launches {launches}')
   rates = []
   for epoch in range(2, epochs_timed + 2):
-    trainer.train(dataset, num_epochs=epoch, **MSD_DENSE_TRAIN)
+    trainer.train(dataset, num_epochs=epoch, fused_steps_per_call=1,
+                  **MSD_DENSE_TRAIN)
     rates.append(len(trainer.last_epoch_losses)
                  / trainer.last_epoch_seconds)
   peak = torch.cuda.max_memory_allocated() / 2**30
-  say(f'  steady epochs (dense, packed slab, bf16): msd_user_batches_per_sec '
-      f'{", ".join(f"{r:.2f}" for r in rates)}; peak device memory '
-      f'{peak:.2f} GiB')
-  _, busy_ms, per_step = profile_steps(trainer, sparse=False)
+  say(f'  steady epochs (dense, packed slab, bf16, eager): '
+      f'msd_user_batches_per_sec {", ".join(f"{r:.2f}" for r in rates)}; '
+      f'peak device memory {peak - held:.2f} GiB (above the {held:.2f} GiB '
+      "that phase 15's trainer holds for phase 20)")
+  _, busy_ms, per_step, _ = profile_steps(trainer, dataset, MSD_DENSE_TRAIN)
   steady_ms = 1e3 / max(rates)
   say(f'  steady step {steady_ms:.3f} ms without the profiler: the device '
       f'idle ~{100 * (1 - busy_ms / steady_ms):.1f}% of it')
-  del trainer, source
+  cell = (trainer, dataset)
+  del source
 
   # the packed and the dense tier from one seed: the same trajectory
   fixture = RecommendationDataset(train_m)
@@ -1752,7 +1822,7 @@ def phase_msd_dense(msd, train_m, device='cuda', epochs_timed=2):
                            f'differ ({lp} vs {ld})')
     say(f'  fixture, 20 {shuffle} steps from the packed and the dense tier: '
         f'losses and parameters bitwise equal ({lp[0]:.5f} -> {lp[-1]:.5f})')
-  return launches, epoch_rate, rates, (busy_ms, per_step, steady_ms)
+  return launches, epoch_rate, rates, (busy_ms, per_step, steady_ms), cell
 
 
 # -- phase 19 --------------------------------------------------------------
@@ -1763,6 +1833,197 @@ def phase_packed_quality(train_m, val_m):
   return phase_quality(train_m, val_m, compute_dtype='bfloat16',
                        opt_state_dtype='bfloat16', reload_atol=1e-6,
                        slab_cache='packed')
+
+
+# -- phase 20 --------------------------------------------------------------
+
+#: the hand kernels of each captured cell, by the names in the profile
+CELL_KERNELS = {
+    'ml20m': ('decode_loss_fwd_bf16_kernel', 'drows_dbias_bf16_kernel',
+              'dh_splitk_bf16_kernel', 'adam_bf16_kernel'),
+    'msd': ('packed_rows_kernel', 'adam_bf16_kernel'),
+}
+#: the kernels of the float32 fixture step (dense tier, mse)
+FIXTURE_F32_KERNELS = ('decode_loss_fwd_kernel', 'drows_dbias_kernel',
+                       'dh_splitk_kernel')
+#: the fixture's captured-vs-eager runs: batch 480 leaves a tail block
+#: of 400 users and 80 pad users (21 steps an epoch: 16 + 5 singles)
+CAPTURE_FIXTURE = dict(batch_size=480, lr=1e-3, weight_decay=2e-5,
+                       lr_milestones=[2], negative_sampling=True,
+                       full_decode=True)
+
+
+def _same_state(a, b):
+  """Whether two trainers ended with the same last-epoch losses,
+  parameters and optimizer state, bit for bit."""
+  import torch
+  if a.last_epoch_losses != b.last_epoch_losses:
+    return False
+  theirs = b.model.params()
+  for name, p in a.model.params().items():
+    if not torch.equal(p, theirs[name]):
+      return False
+    sa, sb = a.optimizer.state[p], b.optimizer.state[theirs[name]]
+    if sa.keys() != sb.keys() or not all(
+        torch.equal(torch.as_tensor(sa[k]).float(),
+                    torch.as_tensor(sb[k]).float()) for k in sa):
+      return False
+  return True
+
+
+def capture_fixture(train_m, device='cuda', epochs=3):
+  """Every combination of {float32, bf16 compute + bf16 moments} x {dense,
+  packed slab} x {'blocks', 'users'}: 16 steps a graph against one eager
+  step a dispatch over 3 epochs of 21 fixture steps (noise 0.5, an lr
+  milestone after epoch 1, a tail block with pad users), and a resume
+  from a checkpoint written 10 steps into epoch 1: the losses,
+  parameters and moments bitwise equal. Returns the float32 kernels'
+  launches a step inside replays."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+
+  fixture = RecommendationDataset(train_m)
+
+  def trainer(cd):
+    return Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                      compute_dtype=cd),
+                   optimizer_type='adam', loss='mse',
+                   loss_params={'confidence': 3}, device=device,
+                   opt_state_dtype=cd)
+
+  f32_counts = None
+  for cd in (None, 'bfloat16'):
+    for tier in (True, 'packed'):
+      for shuffle in ('blocks', 'users'):
+        kw = dict(CAPTURE_FIXTURE, shuffle=shuffle, slab_cache=tier)
+        runs = {}
+        for spc in (16, 1):
+          tr = runs[spc] = trainer(cd)
+          tr.train(fixture, num_epochs=epochs, fused_steps_per_call=spc,
+                   **kw)
+        steps = epochs * len(runs[1].last_epoch_losses)
+        if not _same_state(runs[16], runs[1]):
+          raise AssertionError(f'{cd} {tier} {shuffle}: captured and eager '
+                               'trajectories differ')
+        with tempfile.TemporaryDirectory() as tmp:
+          trainer(cd).train(fixture, num_epochs=1, iters_per_epoch=10,
+                            model_checkpoint_prefix=os.path.join(tmp, 'c'),
+                            fused_steps_per_call=16, **kw)
+          resumed = Recoder(DynamicAutoencoder(), optimizer_type='adam',
+                            device=device, opt_state_dtype=cd)
+          resumed.init_from_model_file(os.path.join(tmp, 'c_epoch_1.model'))
+        resumed.train(fixture, num_epochs=epochs, fused_steps_per_call=16,
+                      **kw)
+        if not _same_state(resumed, runs[16]):
+          raise AssertionError(f'{cd} {tier} {shuffle}: the resume from a '
+                               'mid-epoch checkpoint differs')
+        if cd is None and tier is True and shuffle == 'blocks':
+          tr = runs[16]
+          for _ in range(3):  # (the profiler at times drops a device event)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+              settle_profiler()
+              tr.train(fixture, num_epochs=tr.current_epoch,
+                       fused_steps_per_call=16, **kw)
+              torch.cuda.synchronize()
+            n = len(tr.last_epoch_losses)
+            f32_counts = {name: sum(ev.count for ev in prof.key_averages()
+                                    if name in ev.key) / n
+                          for name in FIXTURE_F32_KERNELS}
+            if all(v == 1 for v in f32_counts.values()):
+              break
+          else:
+            raise AssertionError(f'float32 replays: {f32_counts} a step')
+        say(f'  {cd or "float32":8s} {str(tier):6s} {shuffle:6s}: {steps} '
+            f'steps, 16 a graph vs eager: losses, parameters and moments '
+            f'bitwise equal ({runs[16].last_epoch_dispatches} vs '
+            f'{runs[1].last_epoch_dispatches} dispatches an epoch); resumed '
+            f'10 steps into epoch 1: bitwise equal')
+  say(f'  float32 replays on the fixture: {f32_counts} launches a step')
+  return f32_counts
+
+
+def capture_cell(name, trainer, dataset, train_kw, rate_name):
+  """One full-width cell, captured ('auto') against eager (1) in turns:
+  the first captured epoch, the steady rates, device ms a step and the
+  idle share, dispatches an epoch and peak device memory; each hand
+  kernel of the cell once a step inside the replays."""
+  import torch
+  steps = trainer.fused_data_source.steps_per_epoch
+  # (the trainer's last call was a profile window: this first captured
+  # call runs the rest of that epoch, with the warm-up and the captures)
+  held = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+  t0 = time.time()
+  trainer.train(dataset, num_epochs=trainer.current_epoch, **train_kw)
+  torch.cuda.synchronize()
+  graphs_gib = [(now - was) / 2**30 for now, was in zip(
+      (torch.cuda.memory_allocated(), torch.cuda.memory_reserved()), held)]
+  ran = len(trainer.last_epoch_losses)
+  first = (time.time() - t0, ran, ran / trainer.last_epoch_seconds,
+           trainer.last_epoch_dispatch, trainer.last_epoch_dispatches)
+  if not first[3].startswith('captured'):
+    raise AssertionError(f"{name}: 'auto' did not capture ({first[3]})")
+  say(f'  {name}: first captured call {first[0]:.3f} s for {ran} steps with '
+      f'the warm-up and the captures, {first[2]:.2f} {rate_name} '
+      f'({first[4]} dispatches); the graphs and their pools added '
+      f'{graphs_gib[0]:.3f} GiB allocated, {graphs_gib[1]:.3f} GiB '
+      'reserved')
+  out = {m: {'rates': [], 'peak': 0.0} for m in ('captured', 'eager')}
+  for mode in ('captured', 'eager', 'eager', 'captured'):
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    trainer.train(dataset, num_epochs=trainer.current_epoch,
+                  fused_steps_per_call='auto' if mode == 'captured' else 1,
+                  **train_kw)
+    torch.cuda.synchronize()
+    if len(trainer.last_epoch_losses) != steps:
+      raise AssertionError(f'{name} {mode}: {len(trainer.last_epoch_losses)}'
+                           f' steps, not an epoch of {steps}')
+    out[mode]['rates'].append(steps / trainer.last_epoch_seconds)
+    out[mode]['dispatches'] = trainer.last_epoch_dispatches
+    # (above what was allocated before the epoch: both cells' slabs,
+    # models, optimizer state and captured graphs)
+    out[mode]['peak'] = max(out[mode]['peak'],
+                            torch.cuda.max_memory_allocated() / 2**30
+                            - resident)
+    out[mode]['resident'] = resident
+  for mode, spc in (('captured', 'auto'), ('eager', 1)):
+    for _ in range(3):  # (the profiler at times drops a device event)
+      _, busy, launches, counts = profile_steps(
+          trainer, dataset, train_kw, steps=64, spc=spc,
+          kernels=CELL_KERNELS[name])
+      if all(v == 64 for v in counts.values()):
+        break
+    else:
+      raise AssertionError(f'{name} {mode}: kernel launches in 64 steps: '
+                           f'{counts}')
+    steady = 1e3 / max(out[mode]['rates'])
+    out[mode].update(busy=busy, launches=launches, steady_ms=steady,
+                     idle=1 - busy / steady, counts=counts)
+  for mode, o in out.items():
+    say(f'  {name} {mode:8s}: {rate_name} '
+        f'{", ".join(f"{r:.2f}" for r in o["rates"])} (steady step '
+        f'{o["steady_ms"]:.3f} ms); device {o["busy"]:.3f} ms and '
+        f'{o["launches"]:.1f} launches a profiled step, the device idle '
+        f'~{100 * o["idle"]:.1f}%; {o["dispatches"]} host dispatches an '
+        f'epoch of {steps} steps; an epoch\'s peak device memory '
+        f'{o["peak"]:.3f} GiB above the {o["resident"]:.2f} GiB resident '
+        f'before it; hand kernels in 64 profiled steps {o["counts"]}')
+  return first, out
+
+
+def phase_capture(train_m, ml20m_cell, msd_cell):
+  """Captured full-decode steps: bitwise against eager on the fixture,
+  then bench.py's two full-decode cells captured and eager in turns."""
+  f32_counts = capture_fixture(train_m)
+  cells = {}
+  for name, (trainer, dataset), kw, rate in (
+      ('ml20m', ml20m_cell, ML20M_TRAIN, 'ml20m_user_batches_per_sec'),
+      ('msd', msd_cell, MSD_DENSE_TRAIN, 'msd_user_batches_per_sec')):
+    cells[name] = capture_cell(name, trainer, dataset, kw, rate)
+  return f32_counts, cells
 
 
 # -- main ------------------------------------------------------------------
@@ -1778,7 +2039,7 @@ def run(name, fn, *args, **kwargs):
 def phase_bf16_slice(matrix, train_m, f32_profile, f32_rates):
   """Phase 4 at bench.py's ML-20M numerics, then phase 5 at bf16."""
   steps = -(-matrix.shape[0] // 500)
-  launches, epoch_rate, rates, profile = phase_slice(
+  launches, epoch_rate, rates, profile, cell = phase_slice(
       matrix, compute_dtype='bfloat16', opt_state_dtype='bfloat16')
   say(f'  kernel launches in the epoch of {steps} steps: {launches}')
   if any(v != steps for v in launches.values()):
@@ -1793,7 +2054,7 @@ def phase_bf16_slice(matrix, train_m, f32_profile, f32_rates):
         f'~{100 * (1 - busy / steady_ms):.1f}%)')
   phase_paths(train_m, compute_dtype='bfloat16',
               opt_state_dtype='bfloat16', rtol=BF16_PATHS_RTOL)
-  return launches, epoch_rate, rates, profile[0]
+  return launches, epoch_rate, rates, profile[0], cell
 
 
 def phase_bf16_quality(train_m, val_m):
@@ -1815,8 +2076,8 @@ def main():
   matrix = synthetic.synthesize_ml20m()
   say(f'ML-20M-shaped CSR {matrix.shape}, nnz {matrix.nnz:,} '
       f'({time.time() - t0:.1f} s)')
-  launches, epoch_rate, steady, f32_profile = run('4 slice', phase_slice,
-                                                  matrix)
+  launches, epoch_rate, steady, f32_profile, _ = run('4 slice', phase_slice,
+                                                     matrix)
   ml20m_steps = -(-matrix.shape[0] // 500)
   say(f'  kernel launches in the epoch: {launches}')
   if any(v < 1 for v in launches.values()):
@@ -1847,7 +2108,7 @@ def main():
   (bf16_times, (bf16_loss_err, bf16_grad_err), adam_err, adam_times,
    adam_bound) = run('14 bf16 kernels', phase_bf16_kernels)
   matrix = synthetic.synthesize_ml20m()
-  bf16_launches, bf16_first, bf16_rates, bf16_busy_ms = run(
+  bf16_launches, bf16_first, bf16_rates, bf16_busy_ms, ml20m_cell = run(
       '15 bf16 slice', phase_bf16_slice, matrix, train_m, f32_profile,
       steady)
   launches.update(bf16_launches)
@@ -1855,11 +2116,30 @@ def main():
   bf16_quality = run('16 bf16 quality', phase_bf16_quality, train_m, val_m)
   packed_times, packed_bound = run('17 packed kernel', phase_packed_kernel)
   (msd_dense_launches, msd_dense_first, msd_dense_rates,
-   msd_dense_profile) = run('18 msd dense', phase_msd_dense, msd, train_m)
+   msd_dense_profile, msd_cell) = run('18 msd dense', phase_msd_dense, msd,
+                                      train_m)
   launches['packed_rows'] = msd_dense_launches['packed_rows']
   del msd
   packed_quality = run('19 packed quality', phase_packed_quality, train_m,
                        val_m)
+  f32_replays, cells = run('20 captured steps', phase_capture, train_m,
+                           ml20m_cell, msd_cell)
+  del ml20m_cell, msd_cell
+  # launches a step inside captured replays, by the profiles' names
+  replayed = {
+      'fused_decode_loss_fwd': f32_replays['decode_loss_fwd_kernel'],
+      'fused_decode_loss_bwd': f32_replays['drows_dbias_kernel'],
+      'fused_decode_loss_fwd_bf16':
+          cells['ml20m'][1]['captured']['counts'][
+              'decode_loss_fwd_bf16_kernel'] / 64,
+      'fused_decode_loss_bwd_bf16':
+          cells['ml20m'][1]['captured']['counts'][
+              'drows_dbias_bf16_kernel'] / 64,
+      'adam_bf16': cells['ml20m'][1]['captured']['counts'][
+          'adam_bf16_kernel'] / 64,
+      'packed_rows': cells['msd'][1]['captured']['counts'][
+          'packed_rows_kernel'] / 64,
+  }
 
   # device times at the training shape (phase 3); the others are the
   # phases' own measures (CUDA-event medians for the SPD solve, device
@@ -1911,7 +2191,11 @@ def main():
               'replaces': REPLACES[name], 'launches': launches[name],
               'launches_per_step': per_step, 'max_abs_err': err, 'ms': ms,
               'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': by,
-              'library_ms': library_ms}
+              'library_ms': library_ms,
+              # whether it runs inside the captured step (phase 20), and
+              # its launches a step in the replays' profile
+              'captured': name in replayed,
+              'captured_launches_per_step': replayed.get(name)}
              for name, (err, ms, plain_ms, library_ms, (bound_ms, by),
                         per_step) in measured.items()]
   say(f'slice: {epoch_rate:.2f} user-batches/s first epoch, steady '
@@ -1942,6 +2226,12 @@ def main():
       f'plain {packed_times["plain"]:.4f} ms (bound {packed_bound[0]:.4f}); '
       'packed quality '
       + ', '.join(f'{k} {v:.4f}' for k, v in packed_quality.items())
+      + '; captured vs eager steady: '
+      + '; '.join(f'{name} {max(out["captured"]["rates"]):.2f} vs '
+                  f'{max(out["eager"]["rates"]):.2f} (device idle '
+                  f'{100 * out["captured"]["idle"]:.1f}% vs '
+                  f'{100 * out["eager"]["idle"]:.1f}%)'
+                  for name, (_, out) in cells.items())
       + f'; card {card}')
   say(json.dumps({'kernels': kernels}))
   say(card)

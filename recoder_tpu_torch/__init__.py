@@ -33,6 +33,8 @@ the serving path they need, and iALS:
       -> recoder_tpu_torch.optim.Bf16Adam + recoder_tpu_torch.ops.adam
          + recoder_tpu_torch/kernels/adam.cu
   recoder_tpu/model.py                  -> recoder_tpu_torch.model
+      (fused_steps_per_call: captured CUDA graphs of full-decode steps)
+  recoder_tpu/progress.py               -> recoder_tpu_torch.progress
   recoder_tpu/metrics.py                -> recoder_tpu_torch.metrics
   recoder_tpu/recommender.py            -> recoder_tpu_torch.recommender
   recoder_tpu/ops/spd.py                -> recoder_tpu_torch.ops.spd

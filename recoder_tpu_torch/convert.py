@@ -34,6 +34,8 @@ takes them back out.
 import numpy as np
 import torch
 
+from recoder_tpu_torch.optim import uses_device_steps
+
 #: JAX state-tree key -> torch.optim per-parameter state key, per kind
 STATE_KEYS = {
     'adam': {'m': 'exp_avg', 'v': 'exp_avg_sq'},
@@ -93,7 +95,11 @@ def opt_state_into_torch(optimizer, named_params, tree, kind,
                          f'does not match the parameter {tuple(p.shape)}')
       state[torch_key] = torch.from_numpy(arr.copy()).to(p.device, dtype)
     if kind != 'sgd':
-      state['step'] = torch.tensor(float(step), dtype=torch.float32)
+      # (a capturable or fused torch.optim counts its steps on the
+      # device; Bf16Adam takes the count over at its next step)
+      state['step'] = torch.tensor(
+          float(step), dtype=torch.float32,
+          device=p.device if uses_device_steps(optimizer) else None)
 
 
 def fit_table(name, shape, arr):

@@ -137,6 +137,7 @@ class DeviceDataSource:
     self._slab_packed = False
     self._slab_request = None  # the request that established the cache
 
+    self._offsets = None  # arange(batch_size) on the device
     self._host_tables = None  # blocks mode: per-block unions (numpy)
     self._union = None  # device arrays of the union path
 
@@ -294,42 +295,50 @@ class DeviceDataSource:
         [rng.permutation(self.num_users_total),
          np.arange(self.num_users_total, self.n_pad)]).astype(np.int64))
 
-  def build_fd_batch(self, perm, step_idx):
-    """Step ``step_idx``'s full-decode payload off the slab.
+  def fd_batch(self, perm, step):
+    """Step ``step``'s full-decode payload off the slab, without a host
+    read: ``perm`` is the epoch order on the device, ``step`` a 0-dim
+    int64 device tensor (a CUDA graph replays the same call with the
+    step the device counter holds).
 
     Returns ``{'slab': [B, width] rows on the device (the dense tier's
     storage dtype; bf16 zeros and ones from the packed tier), 'users':
-    [B] CPU user ids (pad slots hold num_users), 'num_users': valid user
-    count as a float, at least 1}``, and from the packed tier
-    ``'col_mask'``: [width] float32, 1 on the columns the batch touched
-    inside the catalog (what the trainer otherwise reads off the rows).
-    Every count is known on the host, so no step waits on the device.
+    [B] user ids on the device (pad slots hold num_users), 'num_users':
+    the valid user count as a 0-dim float32 device tensor, at least 1}``,
+    and from the packed tier ``'col_mask'``: [width] float32, 1 on the
+    columns the batch touched inside the catalog (what the trainer
+    otherwise reads off the rows). Both shuffles gather the rows by
+    index: 'blocks' the block's ``perm[step] * batch + arange(batch)``.
     """
     if self.d_slab is None:
       raise RuntimeError('no resident slab: call maybe_cache_slabs first')
     B = self.batch_size
-    n = self.num_users_total
-    out = {}
+    if self._offsets is None:
+      self._offsets = torch.arange(B, device=self.device)
     if self.shuffle == 'blocks':
-      ustart = int(perm[step_idx]) * self.mega
-      users = torch.arange(ustart, ustart + B)
-      if self._slab_packed:
-        slab, out['col_mask'] = unpack_rows(self.d_slab, self.num_items,
-                                            start=ustart, count=B)
-      else:
-        slab = self.d_slab[ustart:ustart + B]
+      rows = perm.index_select(0, step.view(1)) * self.mega + self._offsets
     else:
-      users = perm[step_idx * B:(step_idx + 1) * B]
-      if self._slab_packed:
-        # the kernel clamps pad users to the zero row n_pad - 1
-        slab, out['col_mask'] = unpack_rows(self.d_slab, self.num_items,
-                                            index=users.to(self.device))
-      else:
-        idx = torch.clamp(users, max=self.n_pad - 1).to(self.device)
-        slab = self.d_slab.index_select(0, idx)
-    num_users = int(torch.sum(users < n))
-    out.update(slab=slab, users=torch.clamp(users, max=n),
-               num_users=float(max(num_users, 1)))
+      rows = perm.index_select(0, step * B + self._offsets)
+    out = {}
+    if self._slab_packed:
+      # the kernel clamps indices into the slab; rows < n_pad always
+      slab, out['col_mask'] = unpack_rows(self.d_slab, self.num_items,
+                                          index=rows)
+    else:
+      slab = self.d_slab.index_select(0, rows)
+    n = self.num_users_total
+    out.update(slab=slab, users=torch.clamp(rows, max=n),
+               num_users=torch.clamp(torch.sum(rows < n), min=1).float())
+    return out
+
+  def build_fd_batch(self, perm, step_idx):
+    """:meth:`fd_batch` from a host order and step: ``perm`` an int64
+    tensor, ``step_idx`` an int. The same payload with 'users' on the CPU
+    and 'num_users' a float (a host read)."""
+    out = self.fd_batch(perm.to(self.device),
+                        torch.tensor(int(step_idx), device=self.device))
+    out['users'] = out['users'].cpu()
+    out['num_users'] = float(out['num_users'])
     return out
 
   # -- item-union batches ---------------------------------------------------

@@ -15,6 +15,11 @@ two threads ask for them. ``EXTRA_FLAGS`` adds flags for one source:
 ``adam.cu`` builds with ``-fmad=false``, so that its arithmetic is the
 plain version's, operation for operation.
 
+Each wrapper counts its launches (:func:`count_launch`). A launch that
+a CUDA graph capture records is not run then, and the graph's replays
+run it without Python: neither is counted, so a profile of the replays
+is what counts the kernels of a captured step.
+
 Nothing here runs at import time: the CPU tests import every module,
 and a machine without a card need not have ``nvcc``.
 """
@@ -37,6 +42,18 @@ _NAME_LOCKS = {}
 _LIBS = {}
 #: name -> the compiler's output (ptxas register / shared-memory report)
 BUILD_LOGS = {}
+
+
+def capturing():
+  """Whether the current CUDA stream is recording a graph."""
+  import torch
+  return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+def count_launch(counts, name):
+  """Add one to ``counts[name]`` unless the current stream is capturing."""
+  if not capturing():
+    counts[name] += 1
 
 
 def _nvcc():

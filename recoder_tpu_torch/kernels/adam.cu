@@ -17,6 +17,15 @@
 // contracted and the plain version (the same operations as separate
 // PyTorch ops) gives the same bits.
 //
+// The step's scalars come from device memory, so that a captured CUDA
+// graph replays every step with its own: the host writes a table of
+// them, one row of kTableCols floats per step (lr / bc1, b1, 1 - b1, b2,
+// 1 - b2, sqrt(bc2), eps, unused), and a control pair ctl = [steps
+// taken, the step before the table's first row] says which row this
+// launch reads: ctl[0] - ctl[1]. A second one-thread kernel then adds
+// one to ctl[0]. bc1 and bc2 stay host arithmetic: a device powf may
+// differ from numpy's by an ulp. A row outside the table traps.
+//
 // Bound: bytes. One pass reads p and g (float32) and m and v (bf16) and
 // writes p, m and v: 20 B a parameter against 28 B of float32 state for
 // torch.optim.Adam (8.11 M parameters at the ML-20M shape: 162 MB, 0.048
@@ -36,6 +45,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChunk = 4096;  // elements a block
+constexpr int kTableCols = 8;  // floats a row of the step-scalar table
 
 // One parameter tensor. ops/adam.py packs this layout (56 bytes).
 struct Desc {
@@ -68,8 +78,15 @@ __device__ __forceinline__ void adam_elem(float& p, float g,
 
 __global__ void __launch_bounds__(kThreads)
     adam_bf16_kernel(const Desc* __restrict__ descs, int ntensors,
-                     const Consts c) {
+                     const float* __restrict__ table, int nrows,
+                     const long long* __restrict__ ctl) {
   __shared__ int which;
+  __shared__ float row_vals[kTableCols];
+  if (threadIdx.x < kTableCols) {
+    const long long row = ctl[0] - ctl[1];
+    if (row < 0 || row >= nrows) __trap();  // the host did not cover it
+    row_vals[threadIdx.x] = table[row * kTableCols + threadIdx.x];
+  }
   if (threadIdx.x == 0) {
     // the last tensor whose first chunk is at or before this block
     int lo = 0, hi = ntensors - 1;
@@ -83,6 +100,8 @@ __global__ void __launch_bounds__(kThreads)
     which = lo;
   }
   __syncthreads();
+  const Consts c = {row_vals[0], row_vals[1], row_vals[2], row_vals[3],
+                    row_vals[4], row_vals[5], row_vals[6]};
   const Desc d = descs[which];
   const long long base = ((long long)blockIdx.x - d.chunk0) * kChunk;
   const long long end = min(base + (long long)kChunk, d.n);
@@ -112,6 +131,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+__global__ void adam_advance_kernel(long long* ctl) { ctl[0] += 1; }
+
 }  // namespace
 
 extern "C" {
@@ -122,19 +143,26 @@ const char* adam_error_string(int err) {
 
 int adam_chunk() { return kChunk; }
 
+int adam_table_cols() { return kTableCols; }
+
 // One step over the ntensors descriptors at `descs` (device memory),
-// nchunks blocks in all (the sum of each tensor's ceil(n / kChunk)).
+// nchunks blocks in all (the sum of each tensor's ceil(n / kChunk)), with
+// the scalars of row ctl[0] - ctl[1] of `table` ([nrows, kTableCols]
+// float32, device memory); then ctl[0] += 1, on the same stream.
 int adam_bf16_step(const void* descs, int ntensors, int nchunks,
-                   float lr_bc1, float b1, float omb1, float b2, float omb2,
-                   float sqrt_bc2, float eps, int device, void* stream) {
-  if (descs == nullptr || ntensors < 1 || nchunks < 1)
+                   const float* table, int nrows, long long* ctl, int device,
+                   void* stream) {
+  if (descs == nullptr || ntensors < 1 || nchunks < 1 || table == nullptr ||
+      nrows < 1 || ctl == nullptr)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const Consts c = {lr_bc1, b1, omb1, b2, omb2, sqrt_bc2, eps};
-  adam_bf16_kernel<<<nchunks, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const Desc*>(descs), ntensors, c);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  adam_bf16_kernel<<<nchunks, kThreads, 0, s>>>(
+      static_cast<const Desc*>(descs), ntensors, table, nrows, ctl);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  adam_advance_kernel<<<1, 1, 0, s>>>(ctl);
   return cudaGetLastError();
 }
 

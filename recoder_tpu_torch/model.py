@@ -49,19 +49,33 @@ through the trainer's loss with the same row and column masks (JAX
 ``_forward_loss``). The batch's user ids reach the model in training,
 ``predict`` and ``recommend``.
 
+``train(fused_steps_per_call=N)`` is the port's form of the JAX scan
+over consecutive fused steps: on the card, N full-decode steps are one
+captured CUDA graph, replayed once per N steps, with the same arithmetic
+as N eager steps (bitwise). A step reads nothing from the host: its rows
+come off the slab at a device step counter, its valid-user count is a
+device scalar, the optimizer's scalars and step counts live on the
+device, and its losses go to a device buffer fetched once an epoch. The
+union and sparse steps run eagerly. ``train`` also writes checkpoints
+every ``checkpoint_freq`` epochs, paints a progress bar and records a
+profiler window, as the JAX ``train`` does, and
+``reset_training_state`` restarts a trainer in place.
+
 Randomness comes from explicit generators: the init from a CPU
 generator seeded with ``seed``, each epoch's order from the data source
 (numpy ``default_rng([seed + 1, epoch])`` in 'users' mode, as the JAX
-package; a CPU ``torch.Generator`` in 'blocks' mode), each step's
-dropout from a generator on the device seeded with ``(seed, global
-step)``.
+package; a CPU ``torch.Generator`` in 'blocks' mode), the dropout from a
+generator on the device: seeded with ``(seed, global step)`` before each
+step, except in full-decode steps on the card, which draw from one
+stream that each epoch places at the global step's offset (graph
+replays advance it as eager steps do).
 
 Not ported yet: bf16 parameters, bf16 moments of sparse tables, the
 validation loss, random extra negatives, the per-step triplet scatter
 (where the JAX package declines both slab tiers), dual (target)
 training matrices, mega-batches wider than one compute batch, sparse
 tables without negative sampling, chunked evaluation, the orbax backend,
-meshes and profiling.
+meshes, and the capture of the union and sparse steps.
 """
 
 import logging
@@ -81,8 +95,10 @@ from recoder_tpu_torch.ops import losses as losses_lib
 from recoder_tpu_torch.ops.fused_decode_loss import (fused_decode_loss,
                                                      supported)
 from recoder_tpu_torch.ops.gather_matmul import as_dtype
-from recoder_tpu_torch.optim import (KINDS, SparseRowAdam, make_optimizer,
-                                     resolve_state_dtype)
+from recoder_tpu_torch.optim import (KINDS, Bf16Adam, SparseRowAdam,
+                                     make_optimizer, resolve_state_dtype,
+                                     set_lr)
+from recoder_tpu_torch.progress import ProgressReporter, loss_handle
 from recoder_tpu_torch.recommender import InferenceRecommender
 
 log = logging.getLogger('recoder_tpu_torch')
@@ -91,6 +107,34 @@ if not log.handlers:
   _h.setFormatter(logging.Formatter('%(asctime)s %(levelname)s %(message)s'))
   log.addHandler(_h)
   log.setLevel(logging.INFO)
+
+
+#: full-decode steps a dispatch under fused_steps_per_call='auto' when the
+#: step fetches from the resident slab or runs in 'blocks' mode (the JAX
+#: rule)
+AUTO_STEPS_PER_CALL = 16
+#: real training steps run eagerly on the capture stream before the first
+#: graph of a configuration is recorded (lazy state, plans, workspaces)
+WARMUP_STEPS = 3
+#: ``_train_iterator_key`` after a checkpoint load: the next ``train``
+#: continues the checkpoint's epoch at its recorded step
+_RESUMED = object()
+
+
+class _FdLoop:
+  """The device state a full-decode epoch reads and writes: the epoch
+  order, the step within the epoch (a device counter that each step
+  advances, so that a graph replays the next steps), and one loss a
+  step."""
+
+  def __init__(self, source, perm_len, num_batches):
+    dev = source.device
+    self.source = source
+    self.perm = torch.zeros(perm_len, dtype=torch.int64, device=dev)
+    self.step = torch.zeros((), dtype=torch.int64, device=dev)
+    self.losses = torch.zeros(num_batches, dtype=torch.float32, device=dev)
+    #: Philox offset one step's noise draws take (on the card)
+    self.noise_inc = None
 
 
 def _multistep_lr(base_lr, milestones, epoch, gamma=0.1):
@@ -173,6 +217,20 @@ class Recoder:
     self._iters_consumed = 0
     self._train_iterator_key = None
     self._dropout_gen = torch.Generator(device=self.device)
+    self._lr = None  # this epoch's learning rate
+    self._opt_config = None
+    self._fd_loop = None
+    #: captured full-decode steps: {steps a graph: (graph, tensors it keeps)}
+    self._graphs = {}
+    self._graph_sig = None
+    self._warm_steps = 0
+    self._capture_stream = None
+    self._profiler = None
+    self._progress_reporter = None
+    #: how the last epoch's steps were dispatched, and how many
+    #: dispatches (graph replays and eager steps) it took
+    self.last_epoch_dispatch = None
+    self.last_epoch_dispatches = 0
 
   # ------------------------------------------------------------------
   # initialization
@@ -219,14 +277,25 @@ class Recoder:
     if sparse_paths:
       self.sparse_adam = SparseRowAdam(state_dtype=self.opt_state_dtype)
     prev = self.optimizer
-    self.optimizer = make_optimizer(self.optimizer_type, named, lr,
-                                    weight_decay, self.opt_state_dtype)
-    if prev is not None:
-      if type(prev) is type(self.optimizer):
-        # continued training on the same instance keeps the moments
-        self.optimizer.state.update(prev.state)
-      else:
-        log.warning('optimizer type changed; optimizer state reset')
+    config = (self.optimizer_type, self._state_dtype(), float(weight_decay),
+              tuple(named.values()))
+    same = (prev is not None and self._pending_opt_arrays is None
+            and self._opt_config is not None
+            and self._opt_config[:3] == config[:3]
+            and len(self._opt_config[3]) == len(config[3])
+            and all(a is b for a, b in zip(self._opt_config[3], config[3])))
+    if not same:
+      # (the same parameters and hyper-parameters keep the optimizer, its
+      # device scalars and the graphs that recorded its step)
+      self._drop_graphs()
+      self.optimizer = self._make_optimizer(named, lr, weight_decay)
+      self._opt_config = config
+      if prev is not None:
+        if type(prev) is type(self.optimizer):
+          # continued training on the same instance keeps the moments
+          self.optimizer.state.update(prev.state)
+        else:
+          log.warning('optimizer type changed; optimizer state reset')
     tables = self.model.params()
     self.sparse_states = {p: self.sparse_states.get(p)
                           or self.sparse_adam.init(tables[p])
@@ -237,12 +306,16 @@ class Recoder:
       if not self._load_opt_arrays(named, tree, sparse, sparse_paths):
         # a checkpoint saved under the other sparse / dense split (as
         # the JAX package): the weights load, the moments restart
-        self.optimizer = make_optimizer(self.optimizer_type, named, lr,
-                                        weight_decay, self.opt_state_dtype)
+        self.optimizer = self._make_optimizer(named, lr, weight_decay)
         self.sparse_states = {p: self.sparse_adam.init(tables[p])
                               for p in sparse_paths}
         log.warning('checkpoint optimizer state does not match this '
                     "model's sparse/dense split; optimizer state reset")
+
+  def _make_optimizer(self, named, lr, weight_decay):
+    return make_optimizer(self.optimizer_type, named, lr, weight_decay,
+                          self.opt_state_dtype,
+                          capturable=self.device.type == 'cuda')
 
   def _load_opt_arrays(self, named, tree, sparse, sparse_paths):
     """Load checkpoint optimizer arrays; False when they belong to the
@@ -288,6 +361,7 @@ class Recoder:
                        'user_based=False.')
 
     self._init_model()
+    self._lr = lr
     self._init_optimizer(lr, weight_decay)
     self._init_loss_module()
 
@@ -374,9 +448,14 @@ class Recoder:
                      batch['vals'].to(dtype))
     return dense
 
-  def _dense_step_math(self, batch, negative_sampling=True):
-    """One optimizer update; returns the step's loss (on the device)."""
-    self._dropout_gen.manual_seed((self.seed << 32) + self._global_step)
+  def _dense_step_math(self, batch, negative_sampling=True, reseed=True):
+    """One optimizer update; returns the step's loss (on the device).
+
+    ``reseed`` seeds the dropout generator with ``(seed, global step)``
+    first; a full-decode step on the card does not (see
+    :meth:`_position_noise`), so that a captured graph can run it."""
+    if reseed:
+      self._dropout_gen.manual_seed((self.seed << 32) + self._global_step)
     self.optimizer.zero_grad(set_to_none=True)
     loss = self._forward_loss(batch, training=True,
                               negative_sampling=negative_sampling,
@@ -407,7 +486,7 @@ class Recoder:
                               gathered=gathered)
     loss.backward()
     self.optimizer.step()
-    lr = self.optimizer.param_groups[0]['lr']
+    lr = self._lr
     with torch.no_grad():
       # after the backward pass: no graph holds the tables
       for name, path, ids in entries:
@@ -436,8 +515,12 @@ class Recoder:
   def train(self, train_dataset, val_dataset=None, lr=0.001,
             weight_decay=0, num_epochs=1, iters_per_epoch=None,
             batch_size=64, lr_milestones=None, negative_sampling=False,
-            num_sampling_users=0, shuffle='users', slab_cache='auto',
-            full_decode='auto'):
+            num_sampling_users=0, model_checkpoint_prefix=None,
+            checkpoint_freq=0, eval_freq=0, eval_num_recommendations=None,
+            eval_num_users=None, metrics=None, eval_batch_size=None,
+            profile_dir=None, profile_steps=(10, 30), shuffle='users',
+            fused_steps_per_call='auto', progress=False, full_decode='auto',
+            slab_cache='auto'):
     """Train the model (argument semantics follow the JAX package's
     ``Recoder.train``).
 
@@ -454,11 +537,39 @@ class Recoder:
     slab within half the device's free memory, else the bit-packed
     slab for binary data, and raises where neither fits; True forces
     the dense tier, 'packed' the 1-bit tier. ``shuffle``: 'users' or
-    'blocks'. ``val_dataset`` must be None: the validation loss is not
-    ported yet.
+    'blocks'.
+
+    ``fused_steps_per_call`` ('auto' | int | None): consecutive
+    full-decode steps a host dispatch. 'auto' and None take 16 when the
+    step fetches from the resident slab (every full-decode step) or runs
+    in 'blocks' mode, else 1 (the JAX rule). On the card, with Adam, a
+    block of N >= 2 full-decode steps is one captured CUDA graph,
+    replayed once per N steps; the epoch's last steps, fewer than N, run
+    as one-step graphs. The first steps of a configuration run eagerly
+    on the capture stream before its first capture (they are real
+    steps; a capture records and does not execute). The arithmetic is
+    the same as N = 1's, one eager dispatch a step: the trajectories are
+    bitwise equal. On the CPU the blocks run the same step eagerly. The
+    union and sparse steps, and optimizers other than Adam, run eagerly
+    whatever N says (one log line says so): their capture is not ported.
+    A capture or replay that fails raises; nothing falls back.
+
+    ``model_checkpoint_prefix`` / ``checkpoint_freq``: ``save_state``
+    after every ``checkpoint_freq``-th epoch and after the last.
+    ``progress`` paints a per-step bar with the running loss from a
+    background thread that never waits on the training stream
+    (``progress.py``). ``profile_dir``: a torch.profiler trace (CPU and,
+    on the card, CUDA activity) of global steps ``profile_steps =
+    (start, stop)``, written there as a Chrome trace; profiling
+    dispatches one step at a time. ``val_dataset`` is accepted and, with
+    ``eval_freq=0``, unused (as in JAX); ``eval_freq > 0`` with a
+    ``val_dataset`` raises NotImplementedError: the validation loss is
+    not ported yet. ``metrics``, ``eval_num_recommendations``,
+    ``eval_num_users`` and ``eval_batch_size`` serve only that hook.
     """
-    if val_dataset is not None:
-      raise NotImplementedError('the validation loss is not ported yet')
+    if eval_freq > 0 and val_dataset is not None:
+      raise NotImplementedError('validation loss (_validate) is not ported '
+                                'yet')
     if train_dataset.target_interactions_matrix is not None:
       raise NotImplementedError('training against a target matrix is not '
                                 'ported yet')
@@ -503,51 +614,350 @@ class Recoder:
       source.maybe_cache_slabs(0, request=False)
       source.prepare_union()
 
+    if fused_steps_per_call in (None, 'auto'):
+      spc = AUTO_STEPS_PER_CALL if fd or shuffle == 'blocks' else 1
+    else:
+      spc = max(1, int(fused_steps_per_call))
+    if profile_dir is not None:
+      spc = 1
+    captured = (fd and spc >= 2 and self.device.type == 'cuda'
+                and self.optimizer_type == 'adam')
+    if spc >= 2 and not fd:
+      log.info('fused_steps_per_call=%d: the %s step runs eagerly, one '
+               'dispatch a step (its capture is not ported)', spc,
+               'sparse' if sparse else 'union')
+    elif spc >= 2 and self.device.type == 'cuda' and not captured:
+      log.info("fused_steps_per_call=%d: '%s' has no capturable step; the "
+               'steps run eagerly, one dispatch a step', spc,
+               self.optimizer_type)
+
     num_batches = source.steps_per_epoch
     if iters_per_epoch is None:
       iters_per_epoch = num_batches
     # a partly consumed epoch carries over only into a call with the
-    # same dataset, batching and path
+    # same dataset, batching and path (or the first call after a
+    # checkpoint load, which continues the checkpoint's epoch)
     iter_key = (train_dataset, batch_size, num_sampling_users,
                 negative_sampling, shuffle, fd)
     if self._train_iterator_key != iter_key:
+      if self._train_iterator_key is not _RESUMED:
+        self._iters_consumed = 0
       self._epoch_perm = None
-      self._iters_consumed = 0
       self._train_iterator_key = iter_key
 
+    try:
+      self._train_epochs(source, fd, sparse, negative_sampling, num_epochs,
+                         lr, lr_milestones, iters_per_epoch, num_batches,
+                         spc, captured, profile_dir, profile_steps,
+                         progress, model_checkpoint_prefix, checkpoint_freq)
+    finally:
+      if self._progress_reporter is not None:
+        self._progress_reporter.close()
+        self._progress_reporter = None
+      if self._profiler is not None:  # the window reached past the end
+        self._stop_profile()
+
+  def _train_epochs(self, source, fd, sparse, negative_sampling, num_epochs,
+                    lr, lr_milestones, iters_per_epoch, num_batches, spc,
+                    captured, profile_dir, profile_steps, progress,
+                    model_checkpoint_prefix, checkpoint_freq):
     for epoch in range(self.current_epoch, num_epochs + 1):
       self.current_epoch = epoch
-      epoch_lr = _multistep_lr(lr, lr_milestones, epoch)
-      for group in self.optimizer.param_groups:
-        group['lr'] = epoch_lr
-      if self._epoch_perm is None or self._iters_consumed >= num_batches:
-        self._epoch_perm = source.epoch_permutation(epoch)
+      epoch_lr = self._lr = _multistep_lr(lr, lr_milestones, epoch)
+      set_lr(self.optimizer, epoch_lr)
+      if self._iters_consumed >= num_batches:
+        self._epoch_perm = None
         self._iters_consumed = 0
+      if self._epoch_perm is None:
+        self._epoch_perm = source.epoch_permutation(epoch)
       n_steps = min(iters_per_epoch, num_batches - self._iters_consumed)
+      reporter = None
+      if progress:
+        desc = f'Epoch {epoch}/{num_epochs}'
+        if self._progress_reporter is None:
+          self._progress_reporter = ProgressReporter(n_steps, desc)
+        else:
+          self._progress_reporter.reset(n_steps, desc)
+        reporter = self._progress_reporter
 
       t0 = time.time()
-      losses = []
-      for _ in range(n_steps):
-        step = self._iters_consumed
-        if fd:
-          batch = source.build_fd_batch(self._epoch_perm, step)
-        else:
-          batch = source.build_union_batch(self._epoch_perm, step)
-        self._iters_consumed += 1
-        if sparse:
-          losses.append(self._sparse_step_math(batch))
-        else:
-          losses.append(self._dense_step_math(batch, negative_sampling))
-        self._global_step += 1
-      # one device sync per epoch
-      self.last_epoch_losses = (torch.stack(losses).tolist()
-                                if losses else [])
+      if fd:
+        losses = self._fd_epoch(source, n_steps, num_batches, spc, captured,
+                                negative_sampling, profile_dir,
+                                profile_steps, reporter)
+      else:
+        losses = self._union_epoch(source, n_steps, sparse, profile_dir,
+                                   profile_steps, reporter)
+      # (one device sync per epoch)
+      self.last_epoch_losses = losses
       dt = self.last_epoch_seconds = time.time() - t0
-      mean_loss = (float(np.mean(self.last_epoch_losses))
-                   if losses else float('nan'))
-      log.info('Epoch %d/%d (lr=%g) [%d it, %.2fs, %.1f it/s] loss=%.5f',
-               epoch, num_epochs, epoch_lr, n_steps, dt,
-               n_steps / max(dt, 1e-9), mean_loss)
+      mean_loss = float(np.mean(losses)) if losses else float('nan')
+      log.info('Epoch %d/%d (lr=%g) [%d it, %.2fs, %.1f it/s, %s, %d '
+               'dispatches] loss=%.5f', epoch, num_epochs, epoch_lr, n_steps,
+               dt, n_steps / max(dt, 1e-9), self.last_epoch_dispatch,
+               self.last_epoch_dispatches, mean_loss)
+      if model_checkpoint_prefix and (
+          (checkpoint_freq > 0 and epoch % checkpoint_freq == 0)
+          or epoch == num_epochs):
+        self.save_state(model_checkpoint_prefix)
+
+  # -- full-decode epochs: eager steps or captured blocks of them ----------
+
+  def _fd_epoch(self, source, n_steps, num_batches, spc, captured,
+                negative_sampling, profile_dir, profile_steps, reporter):
+    """``n_steps`` full-decode steps from ``_iters_consumed`` on, in
+    dispatches of ``spc`` (then single) steps; returns their losses."""
+    loop = self._fd_loop
+    if (loop is None or loop.source is not source
+        or loop.perm.numel() != self._epoch_perm.numel()
+        or loop.losses.numel() != num_batches):
+      loop = self._fd_loop = _FdLoop(source, self._epoch_perm.numel(),
+                                     num_batches)
+    loop.perm.copy_(self._epoch_perm)
+    loop.step.fill_(self._iters_consumed)
+    if isinstance(self.optimizer, Bf16Adam):
+      self.optimizer.schedule(n_steps, capacity=num_batches)
+    on_card = self.device.type == 'cuda'
+    if on_card:
+      self._position_noise(loop)
+    if captured and self._graphs and self._graph_key(loop,
+                                                     negative_sampling) \
+        != self._graph_sig:
+      self._drop_graphs()  # a tensor a graph recorded was replaced
+    first = self._iters_consumed
+    dispatches = 0
+    remaining = n_steps
+    while remaining > 0:
+      block = spc if remaining >= spc else 1
+      self._maybe_profile(profile_dir, profile_steps)
+      if captured and self._warm_steps < WARMUP_STEPS:
+        block = min(WARMUP_STEPS - self._warm_steps, remaining)
+        self._warm_up(loop, negative_sampling, block)
+        dispatches += block
+      elif captured:
+        self._graph(block, loop, negative_sampling).replay()
+        if isinstance(self.optimizer, Bf16Adam):
+          self.optimizer.note_steps(block)
+        dispatches += 1
+      else:
+        for i in range(block):
+          self._fd_step(loop, negative_sampling,
+                        None if on_card else self._global_step + i)
+        dispatches += block
+      s = self._iters_consumed
+      self._iters_consumed += block
+      self._global_step += block
+      remaining -= block
+      if reporter is not None:
+        reporter.put(block, loss_handle(loop.losses[s:s + block]))
+    self.last_epoch_dispatch = (f'captured, {spc} steps a graph' if captured
+                                else 'eager')
+    self.last_epoch_dispatches = dispatches
+    return loop.losses[first:first + n_steps].tolist()
+
+  def _fd_step(self, loop, negative_sampling, reseed_step=None):
+    """One full-decode step whose batch, loss slot and step all come
+    from the device counter ``loop.step`` (it advances it): no host
+    read, so a graph can record it. ``reseed_step`` (off the card): seed
+    the dropout generator for that global step first."""
+    if reseed_step is not None:
+      self._dropout_gen.manual_seed((self.seed << 32) + reseed_step)
+    batch = loop.source.fd_batch(loop.perm, loop.step)
+    loss = self._dense_step_math(batch, negative_sampling, reseed=False)
+    loop.losses.index_copy_(0, loop.step.view(1), loss.view(1).float())
+    loop.step.add_(1)
+
+  def _position_noise(self, loop):
+    """Put the card's dropout generator where the global step puts it:
+    seed ``seed << 32``, Philox offset ``global step x the offset one
+    step takes``. Full-decode steps then draw their masks from the
+    generator as it advances -- eager steps and graph replays alike (the
+    graphs register it) -- and a training resumed from a checkpoint
+    draws the masks the uninterrupted one would have drawn."""
+    if loop.noise_inc is None:
+      loop.noise_inc = self._noise_increment(loop)
+    self._dropout_gen.manual_seed(self.seed << 32)
+    self._dropout_gen.set_offset(self._global_step * loop.noise_inc)
+
+  def _noise_increment(self, loop):
+    """The Philox offset one full-decode step's noise draws take: a
+    training forward of the step's shapes from a scratch generator (no
+    hand kernel runs in it)."""
+    probe = torch.Generator(device=self.device)
+    probe.manual_seed(0)
+    B = loop.source.batch_size
+    x = torch.zeros((B, self.model.num_items_padded), device=self.device,
+                    dtype=getattr(self.model, 'compute_dtype', None)
+                    or torch.float32)
+    with torch.no_grad():
+      if hasattr(self.model, 'decode_operands'):
+        self.model.decode_operands(x, training=True, generator=probe)
+      else:
+        self.model(x, input_users=torch.zeros(B, dtype=torch.int64,
+                                              device=self.device),
+                   training=True, generator=probe)
+    return probe.get_offset()
+
+  def _side_stream(self):
+    if self._capture_stream is None:
+      self._capture_stream = torch.cuda.Stream(device=self.device)
+    return self._capture_stream
+
+  def _warm_up(self, loop, negative_sampling, n):
+    """``n`` real steps, eager, on the capture stream: they create what a
+    step creates lazily (optimizer state, launch plans, library
+    workspaces) before a capture may record it."""
+    stream = self._side_stream()
+    stream.wait_stream(torch.cuda.current_stream(self.device))
+    with torch.cuda.stream(stream):
+      for _ in range(n):
+        self._fd_step(loop, negative_sampling)
+    torch.cuda.current_stream(self.device).wait_stream(stream)
+    self._warm_steps += n
+
+  def _graph_key(self, loop, negative_sampling):
+    """What a captured step baked in: every tensor it reads or writes in
+    place (by address) and the choices its Python made."""
+    tensors = list(self.model.params().values())
+    for state in self.optimizer.state.values():
+      tensors += [v for v in state.values() if torch.is_tensor(v)]
+    tensors += [g['lr'] for g in self.optimizer.param_groups
+                if torch.is_tensor(g['lr'])]
+    if isinstance(self.optimizer, Bf16Adam):
+      tensors += [self.optimizer._ctl, self.optimizer._table]
+    tensors += [loop.source.d_slab, loop.perm, loop.step, loop.losses]
+    return (id(self.optimizer), id(loop), negative_sampling, id(self.loss),
+            self._dropout_gen, tuple(t.data_ptr() for t in tensors))
+
+  def _graph(self, block, loop, negative_sampling):
+    """The graph of ``block`` consecutive steps, captured at first use on
+    the capture stream (after the warm-up)."""
+    entry = self._graphs.get(block)
+    if entry is None:
+      if not self._graphs:
+        self._graph_sig = self._graph_key(loop, negative_sampling)
+      bf16_adam = isinstance(self.optimizer, Bf16Adam)
+      if bf16_adam:
+        self.optimizer.begin_capture(block)
+      graph = torch.cuda.CUDAGraph()
+      graph.register_generator_state(self._dropout_gen)
+      # ('thread_local': the progress thread may wait on an event
+      # meanwhile; the capture checks this thread's calls)
+      with torch.cuda.graph(graph, stream=self._side_stream(),
+                            capture_error_mode='thread_local'):
+        for _ in range(block):
+          self._fd_step(loop, negative_sampling)
+      entry = self._graphs[block] = (
+          graph, self.optimizer.end_capture() if bf16_adam else None)
+      log.info('captured a CUDA graph of %d full-decode step(s)', block)
+    return entry[0]
+
+  def _drop_graphs(self):
+    """Forget the captured steps (a tensor they recorded is replaced):
+    the next full-decode epoch on the card warms up and captures anew."""
+    self._graphs = {}
+    self._graph_sig = None
+    self._warm_steps = 0
+
+  # -- union and sparse epochs: one eager dispatch a step -------------------
+
+  def _union_epoch(self, source, n_steps, sparse, profile_dir, profile_steps,
+                   reporter):
+    losses = []
+    for _ in range(n_steps):
+      self._maybe_profile(profile_dir, profile_steps)
+      batch = source.build_union_batch(self._epoch_perm,
+                                       self._iters_consumed)
+      self._iters_consumed += 1
+      if sparse:
+        loss = self._sparse_step_math(batch)
+      else:
+        loss = self._dense_step_math(batch)
+      self._global_step += 1
+      losses.append(loss)
+      if reporter is not None:
+        reporter.put(1, loss_handle(loss.view(1)))
+    self.last_epoch_dispatch = 'eager'
+    self.last_epoch_dispatches = n_steps
+    return torch.stack(losses).tolist() if losses else []
+
+  # -- profile window ---------------------------------------------------------
+
+  def _maybe_profile(self, profile_dir, profile_steps):
+    """Start or stop a torch.profiler window around global steps
+    ``profile_steps = (start, stop)`` (the JAX ``_maybe_profile``)."""
+    if profile_dir is None:
+      return
+    start, stop = profile_steps
+    if self._profiler is None and self._global_step == start:
+      from torch.profiler import ProfilerActivity, profile
+      activities = [ProfilerActivity.CPU]
+      if self.device.type == 'cuda':
+        activities.append(ProfilerActivity.CUDA)
+      prof = profile(activities=activities)
+      prof.start()
+      self._profiler = (prof, profile_dir, start)
+      log.info('profiler trace started (step %d) -> %s', self._global_step,
+               profile_dir)
+    elif self._profiler is not None and self._global_step >= stop:
+      self._stop_profile()
+
+  def _stop_profile(self):
+    prof, profile_dir, start = self._profiler
+    self._profiler = None
+    if self.device.type == 'cuda':
+      torch.cuda.synchronize(self.device)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f'trace_steps_{start}_'
+                        f'{self._global_step}.json')
+    prof.export_chrome_trace(path)
+    log.info('profiler trace stopped (step %d) -> %s', self._global_step,
+             path)
+
+  # -- restarts ---------------------------------------------------------------
+
+  def reset_training_state(self):
+    """Re-initialize the parameters and the optimizer state in place (the
+    JAX ``reset_training_state``): a later ``train`` gives the trajectory
+    of a fresh trainer with the same seed. The tensors keep their
+    storage, so the captured step graphs stay valid and are replayed:
+    the port's form of JAX keeping its compiled step functions. Used for
+    warm-started benchmarking (bench_quality.py) and restarts."""
+    if not self._model_initialized:
+      self._init_model()
+    params = self.model.params()
+    self.model.init_model(self.num_items, self.num_users, seed=self.seed)
+    fresh = self.model.params()
+    if fresh.keys() == params.keys() and all(
+        fresh[k].shape == params[k].shape for k in params):
+      with torch.no_grad():
+        for name, p in params.items():
+          p.copy_(fresh[name])
+      self.model._parameters.clear()
+      for name, p in params.items():
+        self.model.register_parameter(name, p)
+    else:
+      self.model.to(self.device)
+      self.optimizer = None
+      self._drop_graphs()
+    if isinstance(self.optimizer, Bf16Adam):
+      self.optimizer.reset_state()
+    elif self.optimizer is not None and self.optimizer_type == 'adam':
+      with torch.no_grad():
+        for state in self.optimizer.state.values():
+          for value in state.values():
+            if torch.is_tensor(value):
+              value.zero_()
+    elif self.optimizer is not None:
+      self.optimizer.state.clear()
+    self.sparse_states = {}
+    self._pending_opt_arrays = None
+    self.current_epoch = 1
+    self._global_step = 0
+    self._epoch_perm = None
+    self._iters_consumed = 0
+    self._train_iterator_key = None
 
   @property
   def fused_data_source(self):
@@ -652,6 +1062,9 @@ class Recoder:
         'num_items': self.num_items,
         'num_users': self.num_users,
         'global_step': self._global_step,
+        # the step within the epoch: a resume continues the epoch there
+        # (the JAX package's loader ignores it and restarts the epoch)
+        'epoch_step': self._iters_consumed,
     }
     if isinstance(self.loss, str):
       meta['loss'] = self.loss
@@ -698,6 +1111,10 @@ class Recoder:
     self._pending_opt_arrays = (arrays.get('optimizer'),
                                 arrays.get('sparse_optimizer') or {})
     self.sparse_states = {}
+    self._iters_consumed = int(meta.get('epoch_step', 0))
+    self._epoch_perm = None
+    self._train_iterator_key = _RESUMED
+    self._drop_graphs()
 
     self.model.load_model_params(meta['model_params'])
     self._init_model()

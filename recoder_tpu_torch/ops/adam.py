@@ -14,7 +14,21 @@ float32 operations in the same order (the kernel is built without
 multiply-add contraction), so the two agree bit for bit.
 
 The host computes the step's scalars in float32 as the JAX package does
-(:func:`step_scalars`).
+(:func:`step_scalars`) and hands them over in device memory: a table
+with one row a step (:func:`scalar_table`) and a control pair ``ctl =
+[steps taken, the step before the table's first row]``; a launch reads
+row ``ctl[0] - ctl[1]`` and adds one to ``ctl[0]`` (:func:`table_step`).
+So a captured CUDA graph, which bakes in every launch argument, replays
+each step with that step's scalars. The plain twin reads the same row.
+
+A launch recorded under stream capture cannot upload its descriptor
+table (the tensors' pointers; a gradient is allocated during the
+capture): it takes its table from a :class:`CapturedDescriptors`,
+memory set aside before the capture, which writes the tables after it,
+before the first replay. The memory must not come from the graph's own
+pool: a block the capture freed and handed out again is written by the
+graph's earlier nodes on every replay, which would overwrite a table
+written once from outside.
 """
 
 import ctypes
@@ -24,6 +38,8 @@ from collections import namedtuple
 
 import numpy as np
 import torch
+
+from recoder_tpu_torch.kernels import capturing, count_launch
 
 BF16 = torch.bfloat16
 #: kernel launches since the last reset
@@ -38,6 +54,8 @@ DESC = np.dtype({'names': ['p', 'g', 'm', 'v', 'n', 'chunk0', 'wd', 'vec'],
 
 Scalars = namedtuple('Scalars',
                      'lr_bc1 b1 omb1 b2 omb2 sqrt_bc2 eps')
+#: floats a row of the step-scalar table (kernels/adam.cu kTableCols)
+TABLE_COLS = 8
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
@@ -54,6 +72,27 @@ def step_scalars(lr, step, betas, eps):
   return Scalars(float(f32(lr) / bc1), float(f32(b1)), float(f32(1 - b1)),
                  float(f32(b2)), float(f32(1 - b2)), float(np.sqrt(bc2)),
                  float(f32(eps)))
+
+
+def scalar_table(lr, first_step, n, betas=(0.9, 0.999), eps=1e-8):
+  """float32 ``[n, TABLE_COLS]``: row ``k`` holds the :func:`step_scalars`
+  of the 1-based step ``first_step + k`` (the last column unused)."""
+  table = np.zeros((n, TABLE_COLS), np.float32)
+  for k in range(n):
+    table[k, :len(Scalars._fields)] = step_scalars(lr, first_step + k,
+                                                   betas, eps)
+  return table
+
+
+def scalars_at(table, ctl):
+  """The :class:`Scalars` of row ``ctl[0] - ctl[1]`` of ``table`` (a host
+  read: the plain twin's)."""
+  taken, base = (int(x) for x in ctl.tolist())
+  row = taken - base
+  if not 0 <= row < table.shape[0]:
+    raise IndexError(f'step {taken + 1} is outside the scalar table (steps '
+                     f'{base + 1}..{base + table.shape[0]})')
+  return Scalars(*table[row, :len(Scalars._fields)].tolist())
 
 
 def adam_bf16_plain(params, grads, exp_avgs, exp_avg_sqs, weight_decays,
@@ -81,30 +120,82 @@ def _lib():
       from recoder_tpu_torch.kernels import load_library
       lib = load_library('adam')
       ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-      lib.adam_bf16_step.argtypes = [ptr, i32, i32] + [f32] * 7 + [i32, ptr]
+      lib.adam_bf16_step.argtypes = [ptr, i32, i32, ptr, i32, ptr, i32, ptr]
       lib.adam_bf16_step.restype = i32
       lib.adam_chunk.restype = i32
       lib.chunk = lib.adam_chunk()
+      lib.adam_table_cols.restype = i32
+      if lib.adam_table_cols() != TABLE_COLS:
+        raise RuntimeError('kernels/adam.cu and ops/adam.py disagree on '
+                           'the scalar table')
       lib.adam_error_string.argtypes = [i32]
       lib.adam_error_string.restype = ctypes.c_char_p
       _LIB = lib
     return _LIB
 
 
-@functools.lru_cache(maxsize=16)
-def _table(device_index, entries, chunk):
-  """The descriptor table of ``entries`` ((p, g, m, v pointers, n, wd,
-  vec) per tensor) in device memory, and the launch's chunk count. Built
-  once per parameter set: the key is every pointer, so a table is reused
-  only for the same tensors."""
+def _pack(entries, chunk):
+  """The descriptors of ``entries`` ((p, g, m, v pointers, n, wd, vec)
+  per tensor) as bytes, and the launch's chunk count."""
   desc = np.zeros(len(entries), DESC)
   chunk0 = 0
   for i, (p, g, m, v, n, wd, vec) in enumerate(entries):
     desc[i] = (p, g, m, v, n, chunk0, wd, vec)
     chunk0 += -(-n // chunk)
-  table = torch.from_numpy(desc.view(np.uint8)).to(
-      torch.device('cuda', device_index))
-  return table, chunk0
+  return desc.view(np.uint8), chunk0
+
+
+@functools.lru_cache(maxsize=16)
+def _table(device_index, entries, chunk):
+  """The descriptor table of ``entries`` in device memory and the chunk
+  count. Built once per parameter set: the key is every pointer, so a
+  table is reused only for the same tensors."""
+  desc, nchunks = _pack(entries, chunk)
+  return torch.from_numpy(desc).to(torch.device('cuda', device_index)), \
+      nchunks
+
+
+class CapturedDescriptors:
+  """The descriptor tables of the launches one CUDA graph capture
+  records: memory reserved before the capture for up to ``launches``
+  launches over ``tensors`` tensors each, handed out as the launches are
+  recorded and written by :meth:`fill` after the capture. It must live
+  as long as the graph."""
+
+  ALIGN = 64
+
+  def __init__(self, device, launches, tensors):
+    self._size = -(-tensors * DESC.itemsize // self.ALIGN) * self.ALIGN
+    self.memory = torch.empty(launches * self._size, dtype=torch.uint8,
+                              device=device)
+    self._used = 0
+    self._pending = []
+
+  def table(self, desc):
+    """Memory for one launch's descriptors ``desc`` (bytes)."""
+    if desc.size > self._size or self._used + desc.size > self.memory.numel():
+      raise RuntimeError('more bf16-moment Adam launches or tensors were '
+                         'recorded than the capture reserved')
+    table = self.memory[self._used:self._used + desc.size]
+    self._used += self._size
+    self._pending.append((table, desc))
+    return table
+
+  def fill(self):
+    """Write the recorded launches' descriptors (after the capture)."""
+    for table, desc in self._pending:
+      table.copy_(torch.from_numpy(desc))
+    self._pending = []
+
+
+def _descriptor_table(device, entries, chunk, captured):
+  if not capturing():
+    return _table(device.index, entries, chunk)
+  if captured is None:
+    raise RuntimeError('a captured bf16-moment Adam launch needs the '
+                       'CapturedDescriptors reserved before the capture')
+  desc, nchunks = _pack(entries, chunk)
+  return captured.table(desc), nchunks
 
 
 def _check_tensors(params, grads, exp_avgs, exp_avg_sqs):
@@ -123,9 +214,36 @@ def _check_tensors(params, grads, exp_avgs, exp_avg_sqs):
                          f'{tuple(p.shape)}')
 
 
-def adam_bf16_kernel(params, grads, exp_avgs, exp_avg_sqs, weight_decays,
-                     scalars):
-  """One launch of kernels/adam.cu over every tensor (on one card)."""
+def _check_table(table, ctl, device):
+  if (table.dtype != torch.float32 or table.dim() != 2
+      or table.shape[1] != TABLE_COLS or table.shape[0] < 1
+      or not table.is_contiguous()):
+    raise ValueError(f'the scalar table must be contiguous float32 [n, '
+                     f'{TABLE_COLS}], got {table.dtype} {tuple(table.shape)}')
+  if ctl.dtype != torch.int64 or ctl.shape != (2,) or not ctl.is_contiguous():
+    raise ValueError(f'ctl must be contiguous int64 [2], got {ctl.dtype} '
+                     f'{tuple(ctl.shape)}')
+  for name, x in (('table', table), ('ctl', ctl)):
+    if x.device != device:
+      raise ValueError(f'{name} is on {x.device}, the params on {device}')
+
+
+def adam_bf16_plain_table(params, grads, exp_avgs, exp_avg_sqs,
+                          weight_decays, table, ctl):
+  """The table launch's plain version: :func:`adam_bf16_plain` with the
+  scalars of row ``ctl[0] - ctl[1]``, then ``ctl[0] += 1``."""
+  _check_table(table, ctl, params[0].device)
+  adam_bf16_plain(params, grads, exp_avgs, exp_avg_sqs, weight_decays,
+                  scalars_at(table, ctl))
+  ctl[0] += 1
+
+
+def adam_bf16_kernel_table(params, grads, exp_avgs, exp_avg_sqs,
+                           weight_decays, table, ctl, captured=None):
+  """One launch of kernels/adam.cu over every tensor (on one card) with
+  the scalars of row ``ctl[0] - ctl[1]`` of ``table``, then ``ctl[0] +=
+  1`` on the device; no host read, so a capture may record it (with
+  ``captured``, the :class:`CapturedDescriptors` of that capture)."""
   _check_tensors(params, grads, exp_avgs, exp_avg_sqs)
   device = params[0].device
   if any(p.device != device for p in params) or device.type != 'cuda':
@@ -143,14 +261,47 @@ def adam_bf16_kernel(params, grads, exp_avgs, exp_avg_sqs, weight_decays,
     entries.append((*ptrs, p.numel(), float(np.float32(wd)), vec))
   if not entries:
     return
-  table, nchunks = _table(device.index, tuple(entries), lib.chunk)
+  _check_table(table, ctl, device)
+  descs, nchunks = _descriptor_table(device, tuple(entries), lib.chunk,
+                                     captured)
   err = lib.adam_bf16_step(
-      table.data_ptr(), len(entries), nchunks, *scalars, device.index,
+      descs.data_ptr(), len(entries), nchunks, table.data_ptr(),
+      table.shape[0], ctl.data_ptr(), device.index,
       torch.cuda.current_stream(device).cuda_stream)
   if err != 0:
     raise RuntimeError(f'bf16-moment Adam launch failed: CUDA error {err} '
                        f'({lib.adam_error_string(err).decode()})')
-  LAUNCHES['adam_bf16'] += 1
+  count_launch(LAUNCHES, 'adam_bf16')
+
+
+def adam_bf16_kernel(params, grads, exp_avgs, exp_avg_sqs, weight_decays,
+                     scalars):
+  """The kernel with host ``scalars``: a one-row table and its control
+  pair uploaded for this launch alone."""
+  device = params[0].device
+  table = torch.tensor([list(scalars) + [0.0] * (TABLE_COLS - len(scalars))],
+                       dtype=torch.float32).to(device)
+  ctl = torch.zeros(2, dtype=torch.int64, device=device)
+  adam_bf16_kernel_table(params, grads, exp_avgs, exp_avg_sqs,
+                         weight_decays, table, ctl)
+
+
+def table_step(params, grads, exp_avgs, exp_avg_sqs, weight_decays, table,
+               ctl, captured=None):
+  """One Adam step with bf16 moments whose scalars are row ``ctl[0] -
+  ctl[1]`` of ``table``, then ``ctl[0] += 1``: the kernel on CUDA
+  tensors (``captured``: see :func:`adam_bf16_kernel_table`), its plain
+  twin on CPU tensors."""
+  device = params[0].device
+  if device.type == 'cuda':
+    adam_bf16_kernel_table(params, grads, exp_avgs, exp_avg_sqs,
+                           weight_decays, table, ctl, captured)
+  elif device.type == 'cpu':
+    _check_tensors(params, grads, exp_avgs, exp_avg_sqs)
+    adam_bf16_plain_table(params, grads, exp_avgs, exp_avg_sqs,
+                          weight_decays, table, ctl)
+  else:
+    raise ValueError(f'bf16-moment Adam runs on cuda or cpu, not {device}')
 
 
 def adam_bf16_step(params, grads, exp_avgs, exp_avg_sqs, weight_decays, lr,

@@ -29,6 +29,13 @@ float32 loss, and E0 is stored in bf16; dh and drows come back rounded
 to bf16 values, dbias in float32 (the rounding points are listed in the
 kernel source's header).
 
+A captured CUDA graph may record the call (the trainer's captured
+full-decode step): nothing in it reads the host, and the launch plan of
+a shape (``_plan``) and the kernels' shared-memory limits are set at its
+first, eager, call -- the trainer's warm-up steps -- so that a capture
+records launches only. The E0 stash and its routing through
+``ctx.next_functions`` are autograd's and work the same under capture.
+
 Routing is by the tensors' device and the compute dtype: CUDA tensors
 launch the kernels of ``kernels/fused_decode_loss.cu`` for that dtype
 (or raise), CPU tensors take the plain versions of the same two steps
@@ -41,6 +48,7 @@ import threading
 
 import torch
 
+from recoder_tpu_torch.kernels import count_launch
 from recoder_tpu_torch.ops import losses as losses_lib
 from recoder_tpu_torch.ops.gather_matmul import as_dtype, decode_matmul
 
@@ -245,8 +253,8 @@ def _kernel_forward(h, rows, bias, target, row_mask, col_mask, kind,
       int(bf16), e0.data_ptr() if stash else None, lde, partials.data_ptr(),
       out.data_ptr(), h.device.index, stream)
   _check(lib, err, 'fused decode-loss forward launch')
-  LAUNCHES['fused_decode_loss_fwd_bf16' if bf16
-           else 'fused_decode_loss_fwd'] += 1
+  count_launch(LAUNCHES, 'fused_decode_loss_fwd_bf16' if bf16
+               else 'fused_decode_loss_fwd')
   return out, e0
 
 
@@ -270,8 +278,8 @@ def _kernel_backward(g, e0, h, rows):
       d, ktiles, nsplit, int(bf16), dh_partials.data_ptr(), dh.data_ptr(),
       drows.data_ptr(), dbias.data_ptr(), h.device.index, stream)
   _check(lib, err, 'fused decode-loss backward launch')
-  LAUNCHES['fused_decode_loss_bwd_bf16' if bf16
-           else 'fused_decode_loss_bwd'] += 1
+  count_launch(LAUNCHES, 'fused_decode_loss_bwd_bf16' if bf16
+               else 'fused_decode_loss_bwd')
   return dh, drows, dbias
 
 

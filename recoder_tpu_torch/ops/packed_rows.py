@@ -13,6 +13,11 @@ and it lies below ``num_items`` (the JAX ``_build_fd_from_cache`` with
 ``_unpack_rows``, and the ``any(slab != 0) & in_catalog`` mask of
 ``_forward_loss``).
 
+The trainer fetches in index mode in both shuffles ('blocks' passes
+``perm[step] * batch + arange(batch)``, computed on the device), so no
+row offset is a host value that a captured CUDA graph would bake in.
+The mask words are zeroed by a memset on the launch's stream.
+
 Routing is by the tensors' device and nothing else: CUDA tensors launch
 the kernel of ``kernels/packed_rows.cu`` (or raise), CPU tensors take
 :func:`unpack_rows_plain`.
@@ -22,6 +27,8 @@ import ctypes
 import threading
 
 import torch
+
+from recoder_tpu_torch.kernels import count_launch
 
 #: kernel launches since the last reset
 LAUNCHES = {'packed_rows': 0}
@@ -121,7 +128,7 @@ def unpack_rows_kernel(packed, num_items, start=None, index=None, count=None):
   if err != 0:
     raise RuntimeError(f'packed_rows launch failed: CUDA error {err} '
                        f'({lib.pr_error_string(err).decode()})')
-  LAUNCHES['packed_rows'] += 1
+  count_launch(LAUNCHES, 'packed_rows')
   return rows, col_mask
 
 

@@ -23,6 +23,15 @@ kernel ``kernels/adam.cu`` a step on the card (``ops/adam.py``). Only
 'adam' takes it; the other kinds refuse it as the JAX package does. The
 float32 state stays ``torch.optim``.
 
+On the card (``capturable=True``) every Adam step is one that a CUDA
+graph can record: the float32 state is ``torch.optim.Adam(fused=True,
+capturable=True)`` with its learning rate a device scalar
+(:func:`set_lr` writes it between epochs) and its step counts on the
+device; :class:`Bf16Adam` keeps its step count and its per-step scalars
+on the device too. Eager and captured steps run the same optimizer, so
+their trajectories are bitwise equal. On the CPU the float32 state is
+the plain ``torch.optim.Adam``.
+
 Not ported yet: bf16 state for :class:`SparseRowAdam` (the row scatter
 writes float32 tables) and ``fold_dual_union`` (only dual target CSRs
 reach it, and those are not ported).
@@ -31,7 +40,8 @@ reach it, and those are not ported).
 import numpy as np
 import torch
 
-from recoder_tpu_torch.ops.adam import adam_bf16_step
+from recoder_tpu_torch.kernels import capturing
+from recoder_tpu_torch.ops import adam as adam_ops
 from recoder_tpu_torch.ops.row_scatter import row_scatter_
 
 KINDS = ('sgd', 'adam', 'adagrad', 'rmsprop')
@@ -75,13 +85,23 @@ def make_param_groups(named_params, weight_decay):
 
 
 def make_optimizer(kind, named_params, lr, weight_decay=0.0,
-                   state_dtype=None):
+                   state_dtype=None, capturable=False):
   """An optimizer over ``named_params`` ({name: param}) with the JAX
   package's hyper-parameters for ``kind``: ``torch.optim``'s, or
-  :class:`Bf16Adam` for bf16 state."""
+  :class:`Bf16Adam` for bf16 state. ``capturable`` (CUDA parameters):
+  float32 Adam as ``torch.optim.Adam(fused=True, capturable=True)`` with
+  a device learning rate, so that a CUDA graph can record its step."""
   groups = make_param_groups(named_params, weight_decay)
   if resolve_state_dtype(kind, state_dtype) == torch.bfloat16:
     return Bf16Adam(groups, lr=lr)
+  if kind == 'adam' and capturable:
+    device = next(iter(named_params.values())).device
+    lr_t = torch.tensor(float(lr), dtype=torch.float32, device=device)
+    opt = torch.optim.Adam(groups, lr=lr_t, betas=(0.9, 0.999), eps=1e-8,
+                           fused=True, capturable=True)
+    for group in opt.param_groups:  # one device scalar for every group
+      group['lr'] = lr_t
+    return opt
   if kind == 'adam':
     return torch.optim.Adam(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
   if kind == 'sgd':
@@ -94,6 +114,23 @@ def make_optimizer(kind, named_params, lr, weight_decay=0.0,
   raise ValueError(f'Unknown optimizer kind {kind}')
 
 
+def set_lr(optimizer, lr):
+  """Set every group's learning rate: written into the device scalar of
+  a capturable optimizer (a graph reads it there), else the float."""
+  for group in optimizer.param_groups:
+    if torch.is_tensor(group['lr']):
+      group['lr'].fill_(float(lr))
+    else:
+      group['lr'] = lr
+
+
+def uses_device_steps(optimizer):
+  """Whether ``optimizer`` keeps its step counts on the parameters'
+  device (capturable or fused ``torch.optim``)."""
+  return any(g.get('capturable') or g.get('fused')
+             for g in optimizer.param_groups)
+
+
 class Bf16Adam(torch.optim.Optimizer):
   """Adam with bf16 moments and float32 math (the JAX package's
   ``Optimizer('adam', state_dtype='bfloat16')``).
@@ -102,32 +139,116 @@ class Bf16Adam(torch.optim.Optimizer):
   added to the gradient (L2, torch style; biases sit in a group with 0),
   the new moments and the parameter step are computed in float32 -- the
   step from the unrounded new moments -- and the moments are stored
-  rounded to nearest even. ``state[p]`` holds ``exp_avg`` and
-  ``exp_avg_sq`` (bf16) and ``step`` (a float32 CPU tensor), the keys of
-  ``torch.optim.Adam``, so ``convert.py`` and the checkpoints read it the
-  same way. Every parameter steps together: one step count, one learning
-  rate. On the card the whole set is one launch of the fused kernel
-  (``ops/adam.py``).
+  rounded to nearest even. Every parameter steps together: one step
+  count, one learning rate. On the card the whole set is one launch of
+  the fused kernel (``ops/adam.py``).
+
+  The step count lives on the parameters' device, in ``ctl = [steps
+  taken, the step before the scalar table's first row]``; ``state[p]``
+  holds ``exp_avg`` and ``exp_avg_sq`` (bf16) and ``step``, a view of
+  ``ctl[0]`` (the keys of ``torch.optim.Adam``, so ``convert.py`` and the
+  checkpoints read it the same way; a ``step`` put there from outside,
+  as a checkpoint load does, is taken over at the next eager step). Each
+  step reads its scalars from a device table that :meth:`schedule`
+  writes for the steps to come, so no step reads the host: a CUDA graph
+  may record it. An eager step outside the scheduled rows (or after the
+  learning rate changed) schedules one row itself, at the cost of one
+  host read of the step count.
   """
 
   def __init__(self, params, lr, betas=(0.9, 0.999), eps=1e-8,
                weight_decay=0.0):
     super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
                                   weight_decay=weight_decay))
+    device = self.param_groups[0]['params'][0].device
+    self._ctl = torch.zeros(2, dtype=torch.int64, device=device)
+    self._step = self._ctl[0]  # the view every state['step'] holds
+    self._table = None
+    #: (first scheduled step, end, lr) of the table's rows, as the host
+    #: wrote them, and the step count the host last knew
+    self._span = None
+    self._host_step = None
+    self._capture = None  # the descriptors of a capture under way
+
+  def _hyper(self):
+    hyper = {(g['lr'], g['betas'], g['eps']) for g in self.param_groups}
+    if len(hyper) != 1:
+      raise ValueError('Bf16Adam steps every parameter with one learning '
+                       f'rate, betas and eps; got {sorted(hyper)}')
+    return hyper.pop()
+
+  def _adopt_steps(self):
+    """Point every ``state['step']`` at the device count, taking over a
+    count put there from outside (a loaded checkpoint's)."""
+    for state in self.state.values():
+      step = state.get('step')
+      if step is not None and step is not self._step:
+        self._step.copy_(step)
+        self._host_step = None
+        state['step'] = self._step
+
+  def schedule(self, n_steps, capacity=None):
+    """Write the scalars of the next ``n_steps`` steps at the groups'
+    learning rate (one host read of the step count). ``capacity`` keeps
+    the table at least that many rows, so that a graph recorded against
+    it stays valid for later schedules."""
+    self._adopt_steps()
+    lr, betas, eps = self._hyper()
+    taken = int(self._step)
+    rows = max(int(n_steps), 1)
+    size = max(rows, int(capacity or 0))
+    if self._table is None or self._table.shape[0] < size:
+      self._table = torch.zeros((size, adam_ops.TABLE_COLS),
+                                dtype=torch.float32, device=self._ctl.device)
+    self._table[:rows].copy_(torch.from_numpy(
+        adam_ops.scalar_table(lr, taken + 1, rows, betas, eps)))
+    self._ctl[1].fill_(taken)
+    self._span = (taken, taken + rows, lr)
+    self._host_step = taken
+
+  def begin_capture(self, steps):
+    """Reserve, before a CUDA graph capture, the descriptor memory of the
+    ``steps`` steps it will record."""
+    tensors = sum(len(g['params']) for g in self.param_groups)
+    self._capture = adam_ops.CapturedDescriptors(self._ctl.device, steps,
+                                                 tensors)
+
+  def end_capture(self):
+    """Write the recorded steps' descriptors; returns their memory, which
+    must live as long as the graph."""
+    captured, self._capture = self._capture, None
+    captured.fill()
+    return captured
+
+  def note_steps(self, n):
+    """Record ``n`` steps that ran outside :meth:`step` (graph
+    replays)."""
+    if self._host_step is not None:
+      self._host_step += n
+
+  def reset_state(self):
+    """Zero the moments and the step count in place (tensors a graph
+    recorded stay valid)."""
+    for state in self.state.values():
+      for key in ('exp_avg', 'exp_avg_sq'):
+        if key in state:
+          state[key].zero_()
+    self._adopt_steps()
+    self._ctl.zero_()
+    self._span = self._host_step = None
 
   @torch.no_grad()
   def step(self, closure=None):
     if closure is not None:
       raise ValueError('Bf16Adam takes no closure')
     tensors = ([], [], [], [], [])
-    hyper = set()
     for group in self.param_groups:
       for p in group['params']:
         if p.grad is None:
           continue
         state = self.state[p]
         if not state:
-          state['step'] = torch.tensor(0.0)
+          state['step'] = self._step
           state['exp_avg'] = torch.zeros_like(
               p, dtype=torch.bfloat16, memory_format=torch.contiguous_format)
           state['exp_avg_sq'] = torch.zeros_like(state['exp_avg'])
@@ -135,17 +256,19 @@ class Bf16Adam(torch.optim.Optimizer):
                                     state['exp_avg_sq'],
                                     group['weight_decay'])):
           out.append(x)
-        hyper.add((float(state['step']), group['lr'], group['betas'],
-                   group['eps']))
     if not tensors[0]:
       return None
-    if len(hyper) != 1:
-      raise ValueError('Bf16Adam steps every parameter with one step count, '
-                       f'learning rate, betas and eps; got {sorted(hyper)}')
-    step, lr, betas, eps = hyper.pop()
-    adam_bf16_step(*tensors, lr, int(step) + 1, betas, eps)
-    for p in tensors[0]:
-      self.state[p]['step'] += 1
+    recording = capturing()
+    if not recording:
+      self._adopt_steps()
+      lr = self._hyper()[0]
+      span = self._span
+      if (span is None or self._host_step is None or span[2] != lr
+          or not span[0] <= self._host_step < span[1]):
+        self.schedule(1)
+    adam_ops.table_step(*tensors, self._table, self._ctl, self._capture)
+    if not recording:
+      self._host_step += 1
     return None
 
 

@@ -510,9 +510,11 @@ def test_bf16_trainer_on_cuda_matches_cpu(cuda):
                  loss_params={'confidence': 3}, device=device,
                  opt_state_dtype='bfloat16')
     before = adam.LAUNCHES['adam_bf16']
+    # one eager dispatch a step: each launch is counted (a graph replay
+    # runs its launches without Python)
     tr.train(RecommendationDataset(m), batch_size=16, lr=1e-3,
              weight_decay=2e-5, negative_sampling=True, shuffle='users',
-             num_epochs=1)
+             num_epochs=1, fused_steps_per_call=1)
     losses[str(device)] = tr.last_epoch_losses
     launched = adam.LAUNCHES['adam_bf16'] - before
     assert launched == (6 if device == cuda else 0)
@@ -664,7 +666,8 @@ def test_packed_training_is_bitwise_dense_on_the_card(cuda, shuffle):
     before = pr.LAUNCHES['packed_rows']
     tr.train(RecommendationDataset(m), batch_size=32, lr=1e-2,
              weight_decay=2e-5, negative_sampling=True, shuffle=shuffle,
-             num_epochs=1, slab_cache=cache, full_decode=True)
+             num_epochs=1, slab_cache=cache, full_decode=True,
+             fused_steps_per_call=1)
     assert tr.fused_data_source._slab_packed == (cache == 'packed')
     assert pr.LAUNCHES['packed_rows'] - before == (5 if cache == 'packed'
                                                    else 0)
@@ -673,3 +676,136 @@ def test_packed_training_is_bitwise_dense_on_the_card(cuda, shuffle):
   assert out['packed'][0] == out[True][0]
   for name, p in out['packed'][1].items():
     assert torch.equal(p, out[True][1][name]), name
+
+
+# -- captured full-decode steps (CUDA graphs) ---------------------------------
+
+def _capture_trainer(cuda, dtype, noise=0.5):
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  return Recoder(DynamicAutoencoder([32], 'tanh', noise_prob=noise,
+                                    compute_dtype=dtype),
+                 optimizer_type='adam', loss='mse',
+                 loss_params={'confidence': 3}, device=cuda,
+                 opt_state_dtype=dtype)
+
+
+def _capture_data():
+  """700 users in batches of 32: 22 steps an epoch, the last block with
+  4 pad users."""
+  from recoder_tpu_torch.data import RecommendationDataset
+  rng = np.random.default_rng(2)
+  return RecommendationDataset(sp.csr_matrix(
+      (rng.random((700, 600)) < 0.04).astype(np.float32)))
+
+
+def _capture_train(tr, data, spc, tier, shuffle, num_epochs=3, **kw):
+  tr.train(data, batch_size=32, lr=1e-2, weight_decay=2e-5,
+           num_epochs=num_epochs, lr_milestones=[2], negative_sampling=True,
+           shuffle=shuffle, full_decode=True, slab_cache=tier,
+           fused_steps_per_call=spc, **kw)
+  return tr
+
+
+def _assert_bitwise_trainers(a, b):
+  assert a.last_epoch_losses == b.last_epoch_losses
+  theirs = b.model.params()
+  for name, p in a.model.params().items():
+    assert torch.equal(p, theirs[name]), name
+    sa, sb = a.optimizer.state[p], b.optimizer.state[theirs[name]]
+    for key in sa:
+      assert torch.equal(torch.as_tensor(sa[key]).cpu().float(),
+                         torch.as_tensor(sb[key]).cpu().float()), (name, key)
+
+
+@pytest.mark.parametrize('shuffle', ['blocks', 'users'])
+@pytest.mark.parametrize('tier', [True, 'packed'])
+@pytest.mark.parametrize('dtype', [None, 'bfloat16'])
+def test_captured_steps_are_bitwise_eager(cuda, dtype, tier, shuffle,
+                                          tmp_path):
+  """3 epochs of 22 steps (66), noise 0.5, an lr milestone, a tail block
+  with pad users: 16 steps a graph against one eager step a dispatch --
+  the losses, parameters and moments bit for bit. Then a resume from a
+  checkpoint written 10 steps into epoch 1 ends bitwise where the
+  uninterrupted run does."""
+  data = _capture_data()
+  eager = _capture_train(_capture_trainer(cuda, dtype), data, 1, tier,
+                         shuffle)
+  captured = _capture_train(_capture_trainer(cuda, dtype), data, 16, tier,
+                            shuffle)
+  assert eager.last_epoch_dispatch == 'eager'
+  assert eager.last_epoch_dispatches == 22
+  assert captured.last_epoch_dispatch == 'captured, 16 steps a graph'
+  assert captured.last_epoch_dispatches == 1 + 6  # a graph, 6 singles
+  assert sorted(captured._graphs) == [1, 16]
+  assert len(captured.last_epoch_losses) == 22
+  _assert_bitwise_trainers(captured, eager)
+
+  first = _capture_train(_capture_trainer(cuda, dtype), data, 16, tier,
+                         shuffle, num_epochs=1, iters_per_epoch=10,
+                         model_checkpoint_prefix=str(tmp_path / 'c'))
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  resumed = Recoder(DynamicAutoencoder(), optimizer_type='adam', device=cuda,
+                    opt_state_dtype=dtype)
+  resumed.init_from_model_file(str(tmp_path / 'c_epoch_1.model'))
+  assert not resumed._graphs and resumed._iters_consumed == 10
+  del first
+  _capture_train(resumed, data, 16, tier, shuffle)
+  _assert_bitwise_trainers(resumed, captured)
+
+
+def test_reset_training_state_keeps_the_graphs(cuda):
+  """reset_training_state re-initializes in place: the next epoch replays
+  the graphs already captured and is a fresh trainer's first, bit for
+  bit."""
+  data = _capture_data()
+  fresh = _capture_train(_capture_trainer(cuda, 'bfloat16'), data, 16,
+                         'packed', 'blocks', num_epochs=1)
+  tr = _capture_train(_capture_trainer(cuda, 'bfloat16'), data, 16,
+                      'packed', 'blocks', num_epochs=1)
+  graphs = dict(tr._graphs)
+  tr.reset_training_state()
+  _capture_train(tr, data, 16, 'packed', 'blocks', num_epochs=1)
+  assert tr._graphs == graphs  # the same graph objects, none captured
+  _assert_bitwise_trainers(tr, fresh)
+
+
+def test_captured_replays_run_each_kernel_once_a_step(cuda):
+  """A profile of replays (epoch 1 again, as train resumes at the current
+  epoch, and epoch 2: 44 steps): each hand kernel of the bf16 packed step
+  once a step, by kernel name."""
+  from torch.profiler import ProfilerActivity, profile
+  data = _capture_data()
+  tr = _capture_train(_capture_trainer(cuda, 'bfloat16'), data, 16,
+                      'packed', 'blocks', num_epochs=1)
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    _capture_train(tr, data, 16, 'packed', 'blocks', num_epochs=2)
+    torch.cuda.synchronize()
+  assert tr.last_epoch_dispatches == 7  # every step replayed
+  counts = {}
+  for ev in prof.key_averages():
+    for name in ('decode_loss_fwd_bf16_kernel', 'drows_dbias_bf16_kernel',
+                 'dh_splitk_bf16_kernel', 'adam_bf16_kernel',
+                 'packed_rows_kernel'):
+      if name in ev.key:
+        counts[name] = counts.get(name, 0) + ev.count
+  assert counts == dict.fromkeys(counts, 44) and len(counts) == 5, counts
+
+
+def test_failed_capture_raises(cuda, monkeypatch):
+  """A step that fails while a graph records it raises out of train: no
+  eager fallback."""
+  from recoder_tpu_torch.model import Recoder
+  real = Recoder._dense_step_math
+
+  def failing(self, *args, **kwargs):
+    if torch.cuda.is_current_stream_capturing():
+      raise RuntimeError('refused under capture')
+    return real(self, *args, **kwargs)
+
+  monkeypatch.setattr(Recoder, '_dense_step_math', failing)
+  tr = _capture_trainer(cuda, None)
+  with pytest.raises(RuntimeError, match='refused under capture'):
+    _capture_train(tr, _capture_data(), 16, True, 'users', num_epochs=1)
+  assert not tr._graphs
