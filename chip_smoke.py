@@ -57,7 +57,8 @@ Phases, each of which raises on failure:
                 launches back to back.
   8. ials slice -- iALS at the full width of tools/bench_ials.py on the
                 same ML-20M-shaped CSR (d=128, alpha 10, lam 3e-3, 8
-                sweeps, seed 0): the objective falls, per-sweep and fit
+                sweeps, seed 0): the objective (float64, on the card)
+                falls, per-sweep and fit
                 seconds, one kernel launch per chunk per half-sweep,
                 fold-in of 500 training users is bitwise their stored
                 factors, recommend(k=100) is valid, and a save -> load
@@ -65,13 +66,15 @@ Phases, each of which raises on failure:
   9. ials quality -- the tests/test_ials.py fixture protocol (d=4, alpha
                 30, lam 0.01, 8 sweeps, seed 0) through the kernel must
                 reach Recall@20 > 0.080 and NDCG@100 > 0.120, with
-                identical metrics after a reload; the same fit through
-                the blocked recursion on the card, for the distance
-                between the two.
+                identical metrics after a reload; phase 8's objective
+                against the library's host version (rtol 1e-9); the same
+                fit through the blocked recursion on the card, for the
+                distance between the two.
  10. row-scatter kernel -- the kernel against index_copy_ on the card,
                 bitwise, at N in {1, 37, 41,216} x d in {1, 3, 7, 128,
                 200, 256, 1000} x W in {0, 1, 37}, on a misaligned column
-                slice, with a sentinel-duplicate tail, and at the MSD
+                slice (data drawn on the card), with a sentinel-duplicate
+                tail, and at the MSD
                 shape (three [41,216, 200] tables, the ids of one MSD
                 block union); untouched rows and data pointers unchanged;
                 device and CUDA-event times of the kernel and of
@@ -82,7 +85,7 @@ Phases, each of which raises on failure:
                 tanh, noise 0.5, sparse=True, logloss, Adam lr 1e-3,
                 weight decay 2e-5, batch 500, negative sampling, block
                 shuffle, float32): one epoch of 1,143 steps with 2
-                row-scatter launches each, then steady epochs
+                row-scatter launches each, then a steady epoch
                 (msd_user_batches_per_sec), a profile of steady steps,
                 recommend and a checkpoint round trip.
  12. union paths -- 20 steps on the fixture from one init and order,
@@ -153,12 +156,46 @@ Phases, each of which raises on failure:
                 step in a profile of replays. Then phase 15's and phase
                 18's trainers (bench.py's two full-decode cells) at
                 fused_steps_per_call='auto' (captured) and 1 (eager) in
-                turns: the first captured epoch, steady rates, device ms
+                turns (two rounds at ML-20M, one at MSD): the first
+                captured epoch, steady rates, device ms
                 and launches a profiled step, the device-idle share,
                 host dispatches an epoch, peak device memory, and each
                 hand kernel of the cell once a step, by name, in a
                 profile of 64 replayed steps (the Python launch counters
                 do not see inside a graph).
+ 21. validation -- on a seeded 80/20 split of each user's interactions of
+                the ML-20M-shaped CSR: bench.py's ML-20M default
+                (captured) trains 2 epochs on the 80% input with
+                val_dataset = RecommendationDataset(held-out, input),
+                eval_freq=1, Recall@20/50 and NDCG@100 at
+                eval_num_recommendations=100 on 10,000 users, and 2 epochs
+                without validation: bitwise equal, no graph captured
+                again after a validation, one no-E0 bf16 forward launch a
+                validation batch and no backward; the validation seconds
+                and val batches/s an epoch, a profiled validation (the
+                device-idle share, the forward kernel once a batch), the
+                val loss through the kernel against the plain decode +
+                loss (rtol 1e-2), and the captured training rate with and
+                without eval_freq, one epoch each in turns.
+ 22. target training -- RecommendationDataset(input, held-out), 'mse'
+                confidence 3, float32 and bf16 (with bf16 moments), through
+                the host loader ('users') and the dual CSRs ('blocks'):
+                one epoch with the decode-loss kernels (and Adam's at
+                bf16) once a step, whose first 20 losses must agree with
+                20 steps of the plain path (the plain decode + loss, and
+                at bf16 Adam's plain twin: each loss after the first reads
+                the backward passes and optimizer steps before it); a
+                steady epoch and a profile of 16 steps (the device-idle
+                share, each hand kernel once a step). The float32 host
+                loader's whole epochs at 0 and 4 collation threads in
+                turns; the loader alone and with its staging (no step)
+                at 0 and 4 threads, and the step alone over batches
+                staged beforehand. Then a tied sparse model 20
+                steps in each route, one row-scatter launch a step (the
+                input and target unions folded into one row-sparse step),
+                against the plain decode + loss and the plain row scatter:
+                the 20 losses, and the en_embedding table within a
+                relative Frobenius norm of 1e-3.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -231,6 +268,9 @@ LOSS_RTOL = 1e-4
 GRAD_RTOL = 1e-3
 GRAD_ATOL_FRACTION = 1e-4  # of max |reference|
 PATHS_RTOL = 1e-3
+#: a table after phase 22's tied sparse steps, kernel vs plain path:
+#: relative Frobenius norm of the difference
+TABLE_RTOL = 1e-3
 SPD_ATOL_FRACTION = 1e-4  # of max |x| of the blocked recursion
 SPD_RESIDUAL = 1e-3       # max_i |A x - b| / |b| per system
 #: phase 7's ragged systems: the kernel's panel edges (16 columns) among them
@@ -1016,6 +1056,36 @@ def check_recommendations(recs, seen, k, n_items):
                            f'recommendations')
 
 
+def ials_objective(model, matrix, chunk=1 << 20):
+  """``IALS.objective`` (the exact iALS objective, float64), computed on
+  the card: the same sums, the observed cells in chunks of ``chunk``."""
+  import torch
+  m = matrix.tocsr().astype(np.float64)
+  m.eliminate_zeros()
+  u = model.user_factors.double()[:m.shape[0]]
+  v = model.item_factors.double()
+  total = float(torch.sum((u.T @ u) * (v.T @ v)))
+  coo = m.tocoo()
+  for lo in range(0, coo.nnz, chunk):
+    part = slice(lo, lo + chunk)
+    rows, cols, data = (torch.from_numpy(np.ascontiguousarray(x[part]))
+                        .to(u.device) for x in (coo.row, coo.col, coo.data))
+    s = torch.einsum('nd,nd->n', u[rows.long()], v[cols.long()])
+    c = 1.0 + model.alpha * data
+    total += float(torch.sum(c * (1.0 - s) ** 2 - s ** 2))
+  nnz_u = np.diff(m.indptr)
+  nnz_v = np.bincount(m.indices, minlength=m.shape[1])
+  if model.reg_scaling == 'frequency':
+    ru, rv = model.lam * (nnz_u + 1.0), model.lam * (nnz_v + 1.0)
+  else:
+    ru = np.full(m.shape[0], model.lam)
+    rv = np.full(m.shape[1], model.lam)
+  for reg, f in ((ru, u), (rv, v)):
+    total += float(torch.from_numpy(reg).to(f.device)
+                   @ torch.einsum('nd,nd->n', f, f))
+  return total
+
+
 def phase_ials_slice(matrix, device='cuda'):
   import torch
   from recoder_tpu_torch.data import UsersInteractions
@@ -1033,7 +1103,9 @@ def phase_ials_slice(matrix, device='cuda'):
     sweep_s.append(time.time() - clock[0])
     if sweep in (0, sweeps - 1):
       t0 = time.time()
-      objectives[sweep] = model.objective(matrix)
+      # (the library's host objective takes ~14 s at this size; phase 9
+      # holds this version against it on the fixture)
+      objectives[sweep] = ials_objective(model, matrix)
       objective_s[0] += time.time() - t0
     clock[0] = time.time()
 
@@ -1044,11 +1116,12 @@ def phase_ials_slice(matrix, device='cuda'):
   fit_s = time.time() - t0 - objective_s[0]
   launches = spd.LAUNCHES['spd_solve']
   expected = sweeps * (n_user_chunks + n_item_chunks) + n_user_chunks
-  say(f'  fit: {fit_s:.3f} s without the host objective (plan build and '
+  say(f'  fit: {fit_s:.3f} s without the objective (plan build and '
       f'final user half-sweep included); sweeps '
       + ', '.join(f'{t:.3f}' for t in sweep_s) + ' s')
   say(f'  objective after sweep 1: {objectives[0]:.6g}, after sweep '
-      f'{sweeps}: {objectives[sweeps - 1]:.6g} (host, {objective_s[0]:.1f} s)')
+      f'{sweeps}: {objectives[sweeps - 1]:.6g} (float64 on the card, '
+      f'{objective_s[0]:.1f} s)')
   if not objectives[sweeps - 1] < objectives[0]:
     raise AssertionError(f'objective did not fall: {objectives}')
   say(f'  spd_solve launches: {launches} ({n_user_chunks} user and '
@@ -1112,6 +1185,12 @@ def phase_ials_quality(train_m, val_m, device='cuda'):
   fit_s = time.time() - t0
   if spd.LAUNCHES['spd_solve'] == before:
     raise AssertionError('the fixture fit did not launch the kernel')
+  host, card = model.objective(train_m), ials_objective(model, train_m)
+  if not abs(card - host) <= 1e-9 * abs(host):
+    raise AssertionError(f'objective on the card {card} vs the library\'s '
+                         f'host version {host}')
+  say(f'  objective {host:.10g} (host) vs {card:.10g} (phase 8\'s, on the '
+      'card)')
   means = evaluate(model)
   say(f'  kernel: fit {fit_s:.2f} s; ' + ', '.join(
       f'{k} {v:.4f} (floor {IALS_FLOORS[k]})' for k, v in means.items()))
@@ -1146,16 +1225,18 @@ def phase_ials_quality(train_m, val_m, device='cuda'):
 # -- phase 10 --------------------------------------------------------------
 
 def scatter_case(N, d, W, device, seed=0, ntables=3):
-  """Tables, ids and rows on the card; a repeated id gets the same
-  payload (the kernel's contract)."""
+  """Tables, ids and rows drawn on the card from a generator seeded with
+  ``seed``; a repeated id gets the same payload (the kernel's
+  contract)."""
   import torch
-  rng = np.random.default_rng(seed)
-  tables = [torch.from_numpy(rng.standard_normal((N, d)).astype(np.float32))
-            .to(device) for _ in range(ntables)]
-  ids = rng.integers(0, N, W).astype(np.int64)
-  rows = [torch.from_numpy(rng.standard_normal((N, d)).astype(np.float32)
-                           [ids]).to(device) for _ in range(ntables)]
-  return tables, torch.from_numpy(ids).to(device), rows
+  gen = torch.Generator(device=device)
+  gen.manual_seed(seed)
+  tables = [torch.randn((N, d), generator=gen, device=device)
+            for _ in range(ntables)]
+  ids = torch.randint(0, N, (W,), generator=gen, device=device)
+  rows = [torch.randn((N, d), generator=gen, device=device)[ids]
+          for _ in range(ntables)]
+  return tables, ids, rows
 
 
 def check_scatter(tables, ids, rows, what):
@@ -1328,7 +1409,7 @@ def profile_steps(trainer, dataset, train_kw, steps=16, spc=1,
   return wall_ms / steps, busy / steps, launches, counts
 
 
-def phase_sparse_slice(matrix, device='cuda', epochs_timed=2):
+def phase_sparse_slice(matrix, device='cuda', epochs_timed=1):
   import torch
   from recoder_tpu_torch.data import RecommendationDataset
   from recoder_tpu_torch.model import Recoder
@@ -1945,8 +2026,10 @@ def capture_fixture(train_m, device='cuda', epochs=3):
   return f32_counts
 
 
-def capture_cell(name, trainer, dataset, train_kw, rate_name):
-  """One full-width cell, captured ('auto') against eager (1) in turns:
+def capture_cell(name, trainer, dataset, train_kw, rate_name,
+                 turns=('captured', 'eager', 'eager', 'captured')):
+  """One full-width cell, captured ('auto') against eager (1) in
+  ``turns``:
   the first captured epoch, the steady rates, device ms a step and the
   idle share, dispatches an epoch and peak device memory; each hand
   kernel of the cell once a step inside the replays."""
@@ -1971,7 +2054,7 @@ def capture_cell(name, trainer, dataset, train_kw, rate_name):
       f'{graphs_gib[0]:.3f} GiB allocated, {graphs_gib[1]:.3f} GiB '
       'reserved')
   out = {m: {'rates': [], 'peak': 0.0} for m in ('captured', 'eager')}
-  for mode in ('captured', 'eager', 'eager', 'captured'):
+  for mode in turns:
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated() / 2**30
     trainer.train(dataset, num_epochs=trainer.current_epoch,
@@ -2019,11 +2102,409 @@ def phase_capture(train_m, ml20m_cell, msd_cell):
   then bench.py's two full-decode cells captured and eager in turns."""
   f32_counts = capture_fixture(train_m)
   cells = {}
-  for name, (trainer, dataset), kw, rate in (
-      ('ml20m', ml20m_cell, ML20M_TRAIN, 'ml20m_user_batches_per_sec'),
-      ('msd', msd_cell, MSD_DENSE_TRAIN, 'msd_user_batches_per_sec')):
-    cells[name] = capture_cell(name, trainer, dataset, kw, rate)
+  # (an MSD epoch takes ~3.5 s: one of each)
+  for name, (trainer, dataset), kw, rate, turns in (
+      ('ml20m', ml20m_cell, ML20M_TRAIN, 'ml20m_user_batches_per_sec',
+       ('captured', 'eager', 'eager', 'captured')),
+      ('msd', msd_cell, MSD_DENSE_TRAIN, 'msd_user_batches_per_sec',
+       ('captured', 'eager'))):
+    cells[name] = capture_cell(name, trainer, dataset, kw, rate, turns)
   return f32_counts, cells
+
+
+# -- phases 21 and 22 ------------------------------------------------------
+
+#: the kernels of a float32 and of a bf16 decode-loss step, by the names in
+#: a profile
+F32_STEP_KERNELS = ('decode_loss_fwd_kernel', 'drows_dbias_kernel',
+                    'dh_splitk_kernel')
+BF16_STEP_KERNELS = ('decode_loss_fwd_bf16_kernel', 'drows_dbias_bf16_kernel',
+                     'dh_splitk_bf16_kernel', 'adam_bf16_kernel')
+
+
+def split_held_out(matrix, fraction=0.2, seed=0):
+  """A seeded split of each user's interactions: ``round(fraction x
+  count)`` of them, drawn at random, go to the held-out CSR, the rest to
+  the input CSR."""
+  import scipy.sparse as sp
+  rng = np.random.default_rng(seed)
+  counts = np.diff(matrix.indptr)
+  rows = np.repeat(np.arange(matrix.shape[0]), counts)
+  order = np.lexsort((rng.random(matrix.nnz), rows))
+  rank = np.empty(matrix.nnz, np.int64)
+  rank[order] = np.arange(matrix.nnz) - matrix.indptr[rows[order]]
+  held = rank < np.round(fraction * counts[rows])
+
+  def part(mask):
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(
+        rows[mask], minlength=matrix.shape[0]))])
+    return sp.csr_matrix((matrix.data[mask], matrix.indices[mask], indptr),
+                         shape=matrix.shape)
+
+  return part(~held), part(held)
+
+
+def profile_validation(trainer, loader, kernel):
+  """torch.profiler over one ``_validate`` pass: the wall time, the
+  device-idle share, and the launches of ``kernel`` and of any backward
+  decode-loss kernel (there must be none)."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    settle_profiler()
+    t0 = time.time()
+    trainer._validate(loader)
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3
+  events = prof.key_averages()
+  on_device = [ev for ev in events if 'CUDA' in str(ev.device_type)]
+  host_keys = {ev.key for ev in events if ev not in on_device}
+  kernels = [ev for ev in on_device if ev.key not in host_keys
+             and 'spin_kernel' not in ev.key]
+  busy = sum(getattr(ev, 'self_device_time_total', 0) for ev in kernels) / 1e3
+  count = sum(ev.count for ev in kernels if kernel in ev.key)
+  backward = sum(ev.count for ev in kernels
+                 if 'drows_dbias' in ev.key or 'dh_splitk' in ev.key)
+  return wall_ms, 1 - busy / wall_ms, count, backward, markers_seen(events)
+
+
+def phase_validation(matrix, held_out, device='cuda'):
+  """bench.py's ML-20M default, captured, trained with a validation
+  every epoch and without; the validation's cost and its kernel."""
+  import torch
+  from recoder_tpu_torch.data import (RecommendationDataLoader,
+                                      RecommendationDataset)
+  from recoder_tpu_torch.metrics import NDCG, Recall
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+
+  train_ds = RecommendationDataset(matrix)
+  val_ds = RecommendationDataset(held_out, matrix)
+  val_kw = dict(val_dataset=val_ds, eval_freq=1,
+                metrics=[Recall(k=20), Recall(k=50), NDCG(k=100)],
+                eval_num_recommendations=100, eval_num_users=10000)
+  n_val = -(-matrix.shape[0] // 500)
+  runs = {}
+  for eval_freq in (1, 0):
+    tr = Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                    compute_dtype='bfloat16'),
+                 optimizer_type='adam', loss='mse',
+                 loss_params={'confidence': 3}, device=device,
+                 opt_state_dtype='bfloat16')
+    timing = {'val': [], 'metrics': [], 'captures': []}
+
+    def timed(name, fn):
+      def call(*args, **kwargs):
+        t0 = time.time()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        timing[name].append(time.time() - t0)
+        if name == 'val':
+          timing['captures'].append(tr.captures)
+        return out
+      return call
+
+    tr._validate = timed('val', tr._validate)
+    tr._evaluate = timed('metrics', tr._evaluate)
+    reset_launches()
+    t0 = time.time()
+    tr.train(train_ds, num_epochs=2, **ML20M_TRAIN,
+             **(val_kw if eval_freq else {}))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_launches()
+    del tr._validate, tr._evaluate
+    if not tr.last_epoch_dispatch.startswith('captured'):
+      raise AssertionError(f'eval_freq={eval_freq}: the training did not '
+                           f'run captured ({tr.last_epoch_dispatch})')
+    runs[eval_freq] = (tr, timing, counts, wall)
+    rate = len(tr.last_epoch_losses) / tr.last_epoch_seconds
+    say(f'  eval_freq={eval_freq}: 2 epochs in {wall:.2f} s, epoch 2 '
+        f'captured at {rate:.2f} ml20m_user_batches_per_sec '
+        f'({tr.last_epoch_dispatches} dispatches); {tr.captures} graphs '
+        f'captured; launches {counts}')
+  (tr, timing, counts, _), (plain, _, counts0, _) = runs[1], runs[0]
+  if len(timing['val']) != 2:
+    raise AssertionError(f'{len(timing["val"])} validations in 2 epochs')
+  if not timing['captures'][0] == timing['captures'][1] == tr.captures \
+      == plain.captures:
+    raise AssertionError(f'the graphs were captured again after a '
+                         f'validation: {timing["captures"]}, {tr.captures} vs '
+                         f'{plain.captures}')
+  if not _same_state(tr, plain):
+    raise AssertionError('eval_freq=1 and eval_freq=0 trained differently')
+  # eager launches: the warm-up steps, and one forward a validation batch
+  fwd, bwd = (counts['fused_decode_loss_fwd_bf16'],
+              counts['fused_decode_loss_bwd_bf16'])
+  if fwd - bwd != 2 * n_val or bwd < 1 or counts['adam_bf16'] != bwd or \
+      counts0['fused_decode_loss_fwd_bf16'] != bwd:
+    raise AssertionError(f'launches with validation {counts}, without '
+                         f'{counts0}: expected {2 * n_val} more forwards')
+  say(f'  captured and eager-warm-up training bitwise equal with and without'
+      f' validation; the graphs survived it ({tr.captures} captures either '
+      f'way); {fwd - bwd} no-E0 forwards in 2 validations of {n_val} '
+      'batches')
+  timing['forwards_per_batch'] = (fwd - bwd) / (2 * n_val)
+  for epoch, (v, m) in enumerate(zip(timing['val'], timing['metrics']), 1):
+    say(f'  epoch {epoch} validation: val loss {v:.3f} s ({n_val / v:.1f} val '
+        f'batches/s), metrics on 10,000 users {m:.3f} s')
+
+  kw = dict(batch_size=500, negative_sampling=True)
+  for _ in range(3):  # (the profiler at times drops a device event)
+    wall_ms, idle, launches, backward, markers = profile_validation(
+        tr, RecommendationDataLoader(val_ds, seed=3, **kw),
+        'decode_loss_fwd_bf16_kernel')
+    if launches == n_val:
+      break
+  if launches != n_val or backward:
+    raise AssertionError(f'profiled validation: {launches} forwards, '
+                         f'{backward} backward kernels in {n_val} batches')
+  say(f'  profiled validation ({markers} of {MARKERS} opening markers kept): '
+      f'{wall_ms:.1f} ms for {n_val} batches, the device idle '
+      f'{100 * idle:.1f}%; decode_loss_fwd_bf16_kernel x{launches}, no '
+      'backward kernel')
+  loaders = [RecommendationDataLoader(val_ds, seed=5, **kw) for _ in range(2)]
+  got = tr._validate(loaders[0])
+  with mock.patch.object(tr, '_fused_kind', return_value=None):
+    want = tr._validate(loaders[1])
+  rel = abs(got - want) / abs(want)
+  if not rel <= BF16_PATHS_RTOL:
+    raise AssertionError(f'val loss {got} (kernel) vs {want} (plain)')
+  say(f'  val loss {got:.6f} through the kernel vs {want:.6f} plain: rel '
+      f'diff {rel:.3g}')
+  rates = {1: [], 0: []}
+  captures = (tr.captures, plain.captures)
+  for eval_freq in (1, 0):  # one epoch again each, in turns
+    t = runs[eval_freq][0]
+    t.train(train_ds, num_epochs=t.current_epoch, **ML20M_TRAIN,
+            **(val_kw if eval_freq else {}))
+    rates[eval_freq].append(len(t.last_epoch_losses) / t.last_epoch_seconds)
+  if (tr.captures, plain.captures) != captures:
+    raise AssertionError(f'graphs were captured again: {captures} -> '
+                         f'{(tr.captures, plain.captures)}')
+  say('  captured epochs in turns, ml20m_user_batches_per_sec: '
+      f'with eval_freq=1 {", ".join(f"{r:.2f}" for r in rates[1])}; '
+      f'without {", ".join(f"{r:.2f}" for r in rates[0])}')
+  return timing, rates, (wall_ms, idle, launches)
+
+
+def compare_losses(kernel, plain, rtol, what):
+  """Per-step losses of the kernel path against the plain path's: the
+  loss of step k reads the parameters that the backward passes and the
+  optimizer steps of the steps before k wrote."""
+  k, p = np.asarray(kernel), np.asarray(plain)
+  if len(k) != len(p) or not np.all(np.isfinite(k)):
+    raise AssertionError(f'{what}: losses {k} (kernel) vs {p} (plain)')
+  rel = np.abs(k - p) / np.abs(p)
+  if not np.all(rel <= rtol):
+    raise AssertionError(f'{what}: {len(k)} losses, kernel vs plain max rel'
+                         f' {rel.max()} (kernel {k}, plain {p})')
+  return float(rel.max())
+
+
+def plain_trainer_run(trainer, dataset, steps, kw):
+  """``steps`` steps of ``trainer`` with every kernel but the decode-loss
+  ones (which a plain ``MSELoss`` bypasses) replaced by its plain twin:
+  the bf16-moment Adam step and the row scatter."""
+  from recoder_tpu_torch.ops import adam as adam_ops
+  from recoder_tpu_torch.ops import row_scatter as rs
+
+  def plain_adam(params, grads, exp_avgs, exp_avg_sqs, weight_decays, table,
+                 ctl, captured=None):
+    if captured is not None:
+      raise AssertionError('a plain run captured a step')
+    adam_ops.adam_bf16_plain_table(params, grads, exp_avgs, exp_avg_sqs,
+                                   weight_decays, table, ctl)
+
+  reset_launches()
+  with mock.patch.object(adam_ops, 'adam_bf16_kernel_table', plain_adam), \
+      mock.patch.object(rs, 'row_scatter_kernel', rs.row_scatter_plain):
+    trainer.train(dataset, num_epochs=1, iters_per_epoch=steps, **kw)
+  if any(read_launches().values()):
+    raise AssertionError(f'the plain run launched {read_launches()}')
+  return trainer.last_epoch_losses
+
+
+def loader_rates(trainer, dataset, workers, kw):
+  """Batches/s of one epoch of the host loader alone (collation), and of
+  the trainer's staging of it (collation, the pinned buffer, the copy to
+  the card), with ``workers`` collation threads; no step runs."""
+  import torch
+  from recoder_tpu_torch.data import RecommendationDataLoader
+  out = []
+  for staged in (False, True):
+    loader = RecommendationDataLoader(dataset, num_workers=workers, seed=9,
+                                      **kw)
+    t0 = time.time()
+    batches = trainer._device_batch_iter(loader) if staged else loader
+    n = sum(1 for _ in batches)
+    torch.cuda.synchronize()
+    out.append(n / (time.time() - t0))
+  return out
+
+
+def consumer_ms(trainer, dataset, kw, n=100):
+  """ms a step of ``n`` eager steps over batches staged on the card
+  beforehand: the consumer's side of a host-loader step alone (the
+  trainer takes ``n`` more steps)."""
+  import itertools
+
+  import torch
+  from recoder_tpu_torch.data import RecommendationDataLoader
+  loader = RecommendationDataLoader(dataset, seed=10, **kw)
+  batches = list(itertools.islice(trainer._device_batch_iter(loader), n))
+  torch.cuda.synchronize()
+  t0 = time.time()
+  for batch in batches:
+    trainer._dense_step_math(batch)
+  torch.cuda.synchronize()
+  return (time.time() - t0) * 1e3 / len(batches)
+
+
+def phase_target(matrix, held_out, device='cuda', compared=20):
+  """Training against a target matrix at the ML-20M shape: float32 and
+  bf16, through the host loader ('users') and the dual CSRs ('blocks'),
+  each held for ``compared`` steps against the plain path; the host
+  loader at 0 and 4 collation threads; then a tied sparse model."""
+  import torch
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  from recoder_tpu_torch.ops.losses import MSELoss
+
+  dataset = RecommendationDataset(matrix, held_out)
+  steps = -(-matrix.shape[0] // 500)
+  out, launch_rates, workers = {}, {}, {}
+  for cd in (None, 'bfloat16'):
+    names = ('fused_decode_loss_fwd', 'fused_decode_loss_bwd')
+    names = tuple(n + '_bf16' for n in names) if cd else names
+    names += ('adam_bf16',) if cd else ()
+    profiled = BF16_STEP_KERNELS if cd else F32_STEP_KERNELS
+    rtol = BF16_PATHS_RTOL if cd else PATHS_RTOL
+    for shuffle in ('users', 'blocks'):
+      kw = dict(ML20M_TRAIN, shuffle=shuffle)
+
+      def trainer(loss='mse'):
+        return Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                          compute_dtype=cd),
+                       optimizer_type='adam', loss=loss,
+                       loss_params={'confidence': 3} if loss == 'mse'
+                       else None, device=device, opt_state_dtype=cd)
+
+      tr = trainer()
+      reset_launches()
+      t0 = time.time()
+      tr.train(dataset, num_epochs=1, **kw)
+      torch.cuda.synchronize()
+      first_s = time.time() - t0
+      counts = read_launches()
+      launches = {k: counts[k] for k in names}
+      if any(v != steps for v in launches.values()) or any(
+          v for k, v in counts.items() if k not in names):
+        raise AssertionError(f'{cd} {shuffle}: launches in an epoch of '
+                             f'{steps} steps: {counts}')
+      launch_rates.update({k: v / steps for k, v in launches.items()})
+      host = tr._train_iterator is not None
+      dual = tr.fused_data_source is not None and \
+          tr.fused_data_source.target_matrix is not None
+      if (shuffle == 'users') != host or (shuffle == 'blocks') != dual:
+        raise AssertionError(f'{shuffle}: the wrong route (host loader '
+                             f'{host}, dual CSRs {dual})')
+      losses = np.asarray(tr.last_epoch_losses)
+      plain = plain_trainer_run(
+          trainer(MSELoss(confidence=3, reduction='sum')), dataset,
+          compared, kw)
+      rel = compare_losses(losses[:compared], plain, rtol,
+                           f'{cd} {shuffle}')
+      tr.train(dataset, num_epochs=tr.current_epoch, **kw)
+      rates = [steps / tr.last_epoch_seconds]
+      if shuffle == 'users' and cd is None:
+        # the same trainer's next whole epochs, at 4 collation threads
+        # and at none in turns (a new epoch builds a new loader)
+        for w in (4, 0, 4):
+          tr.train(dataset, num_epochs=tr.current_epoch,
+                   num_data_workers=w, **kw)
+          workers.setdefault(w, []).append(steps / tr.last_epoch_seconds)
+        workers[0].insert(0, rates[0])
+        loader_kw = dict(batch_size=500, negative_sampling=True)
+        alone = {w: loader_rates(tr, dataset, w, loader_kw) for w in (0, 4)}
+        alone['consumer_ms'] = consumer_ms(tr, dataset, loader_kw)
+        say(f'  float32 users (host loader), whole epochs in turns at 0 / 4'
+            f' collation threads: {workers[0][0]:.2f}, {workers[4][0]:.2f}, '
+            f'{workers[0][1]:.2f}, {workers[4][1]:.2f} user-batches/s; the '
+            f'loader alone {alone[0][0]:.1f} / {alone[4][0]:.1f} batches/s, '
+            f'collated and staged to the card (no step) {alone[0][1]:.1f} / '
+            f'{alone[4][1]:.1f} batches/s; the step alone over batches '
+            f'staged beforehand {alone["consumer_ms"]:.3f} ms')
+        workers['alone'] = alone
+      for _ in range(3):  # (the profiler at times drops a device event)
+        _, busy, per_step, counted = profile_steps(tr, dataset, kw, steps=16,
+                                                   kernels=profiled)
+        if all(v == 16 for v in counted.values()):
+          break
+      else:
+        raise AssertionError(f'{cd} {shuffle}: kernels in 16 profiled steps:'
+                             f' {counted}')
+      rate = rates[0]
+      steady_ms = 1e3 / rate
+      out[(cd or 'float32', shuffle)] = (rate, 1 - busy / steady_ms)
+      say(f'  {cd or "float32":8s} {shuffle:6s} ('
+          f'{"host loader" if host else "dual CSRs"}): first epoch '
+          f'{first_s:.2f} s, mean loss {losses.mean():.4f}; steady '
+          f'{rate:.2f} user-batches/s ({steady_ms:.3f} ms a step, the '
+          f'device idle ~{100 * (1 - busy / steady_ms):.1f}%, {busy:.3f} ms '
+          f'of device time and {per_step:.1f} launches a profiled step); '
+          f'epoch launches {launches}; hand kernels in 16 profiled steps '
+          f'{counted}; {compared} losses vs the plain path (plain loss, '
+          f'plain Adam): max rel {rel:.3g}')
+
+  for shuffle in ('users', 'blocks'):
+    kw = dict(ML20M_TRAIN, shuffle=shuffle)
+    runs = {}
+    for fused in (True, False):
+      tr = Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                      is_constrained=True, sparse=True),
+                   optimizer_type='adam',
+                   loss='mse' if fused else MSELoss(confidence=3,
+                                                    reduction='sum'),
+                   loss_params={'confidence': 3} if fused else None,
+                   device=device)
+      if fused:
+        reset_launches()
+        tr.train(dataset, num_epochs=1, iters_per_epoch=compared, **kw)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        losses = tr.last_epoch_losses
+      else:
+        losses = plain_trainer_run(tr, dataset, compared, kw)
+      runs[fused] = (losses, tr.model.params()['en_embedding'],
+                     tr.sparse_states['en_embedding']['step'])
+    want = {'fused_decode_loss_fwd': compared,
+            'fused_decode_loss_bwd': compared, 'row_scatter': compared}
+    if {k: v for k, v in counts.items() if v} != want:
+      raise AssertionError(f'tied sparse {shuffle}: launches {counts}, '
+                           f'expected {want}')
+    if runs[True][2] != compared or runs[False][2] != compared:
+      raise AssertionError(f'tied sparse {shuffle}: {runs[True][2]} and '
+                           f'{runs[False][2]} row-sparse steps in {compared}')
+    rel = compare_losses(runs[True][0], runs[False][0], PATHS_RTOL,
+                         f'tied sparse {shuffle}')
+    # the table's logical rows (the last pad row is the fold's spare)
+    n = matrix.shape[1]
+    a, b = runs[True][1][:n], runs[False][1][:n]
+    table_rel = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+    if not table_rel <= TABLE_RTOL:
+      raise AssertionError(f'tied sparse {shuffle}: en_embedding after '
+                           f'{compared} steps, kernel vs plain relative '
+                           f'Frobenius {table_rel}')
+    say(f'  tied sparse {shuffle}: {compared} steps, one row-sparse step '
+        f'over the folded input and target unions each: launches {want}; '
+        f'losses vs the plain path (plain loss, plain row scatter) max rel '
+        f'{rel:.3g}; en_embedding relative Frobenius {table_rel:.3g}')
+  launch_rates['row_scatter'] = counts['row_scatter'] / compared
+  return out, workers, launch_rates
 
 
 # -- main ------------------------------------------------------------------
@@ -2125,6 +2606,15 @@ def main():
   f32_replays, cells = run('20 captured steps', phase_capture, train_m,
                            ml20m_cell, msd_cell)
   del ml20m_cell, msd_cell
+  t0 = time.time()
+  matrix, held_out = split_held_out(synthetic.synthesize_ml20m())
+  say(f'ML-20M-shaped CSR split 80/20 per user: input nnz {matrix.nnz:,}, '
+      f'held out {held_out.nnz:,} ({time.time() - t0:.1f} s)')
+  val_timing, val_rates, val_profile = run('21 validation', phase_validation,
+                                           matrix, held_out)
+  target_rates, workers, target_per_step = run(
+      '22 target training', phase_target, matrix, held_out)
+  del matrix, held_out
   # launches a step inside captured replays, by the profiles' names
   replayed = {
       'fused_decode_loss_fwd': f32_replays['decode_loss_fwd_kernel'],
@@ -2195,7 +2685,13 @@ def main():
               # whether it runs inside the captured step (phase 20), and
               # its launches a step in the replays' profile
               'captured': name in replayed,
-              'captured_launches_per_step': replayed.get(name)}
+              'captured_launches_per_step': replayed.get(name),
+              # launches a step of training against a target matrix
+              # (phase 22), and a validation batch (phase 21)
+              'target_launches_per_step': target_per_step.get(name),
+              'validation_launches_per_batch': (
+                  val_timing['forwards_per_batch']
+                  if name == 'fused_decode_loss_fwd_bf16' else None)}
              for name, (err, ms, plain_ms, library_ms, (bound_ms, by),
                         per_step) in measured.items()]
   say(f'slice: {epoch_rate:.2f} user-batches/s first epoch, steady '
@@ -2232,7 +2728,18 @@ def main():
                   f'{100 * out["captured"]["idle"]:.1f}% vs '
                   f'{100 * out["eager"]["idle"]:.1f}%)'
                   for name, (_, out) in cells.items())
-      + f'; card {card}')
+      + '; validation an epoch (val loss, metrics) '
+      + ', '.join(f'{v:.3f} s + {m:.3f} s' for v, m in zip(
+          val_timing['val'], val_timing['metrics']))
+      + f', the device idle {100 * val_profile[1]:.1f}% of a profiled '
+      f'validation; captured ML-20M with eval_freq=1 '
+      f'{max(val_rates[1]):.2f} vs without {max(val_rates[0]):.2f}; target '
+      'training user-batches/s '
+      + ', '.join(f'{cd} {sh} {r:.2f} (idle {100 * idle:.1f}%)'
+                  for (cd, sh), (r, idle) in target_rates.items())
+      + ', host loader (float32) in turns at 0 threads '
+      + ', '.join(f'{r:.2f}' for r in workers[0]) + ' and at 4 threads '
+      + ', '.join(f'{r:.2f}' for r in workers[4]) + f'; card {card}')
   say(json.dumps({'kernels': kernels}))
   say(card)
   say(json.dumps({'ok': True, 'device': {

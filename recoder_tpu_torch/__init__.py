@@ -9,13 +9,20 @@ package ``__init__`` imports jax).
 
 Ported so far -- the DynamicAutoencoder training paths (full-catalog
 decode from a dense or a bit-packed slab, item union, sparse tables;
-float32, and bench.py's bf16 compute with bf16 Adam moments), the
-trainer for any model written to the ``FactorizationModel`` contract,
-the serving path they need, and iALS:
+float32, and bench.py's bf16 compute with bf16 Adam moments), training
+against a target matrix (the host loader, and dual CSRs in 'blocks'
+mode) and the validation loss inside ``train``, the trainer for any
+model written to the ``FactorizationModel`` contract, the serving path
+they need, and iALS:
 
   recoder_tpu/utils.py                  -> recoder_tpu_torch.utils
   recoder_tpu/data/dataset.py           -> recoder_tpu_torch.data.dataset
+  recoder_tpu/data/loader.py            -> recoder_tpu_torch.data.loader
+      (unpadded batches: the static-shape padding of the JAX loader and
+      recoder_tpu/data/buckets.py is not ported)
   recoder_tpu/data/device_pipeline.py   -> recoder_tpu_torch.data.device_pipeline
+      (target_matrix: _init_target_side, _build_target_side -> the
+      target side of DeviceDataSource.build_union_batch)
       (the packed tier's _unpack_rows and row fetch)
       -> recoder_tpu_torch.ops.packed_rows
          + recoder_tpu_torch/kernels/packed_rows.cu
@@ -29,11 +36,15 @@ the serving path they need, and iALS:
       -> recoder_tpu_torch.ops.fused_decode_loss
          + recoder_tpu_torch/kernels/fused_decode_loss.cu
   recoder_tpu/optim.py                  -> recoder_tpu_torch.optim
+      (fold_dual_union -> recoder_tpu_torch.optim.fold_dual_union)
       (Optimizer('adam', state_dtype='bfloat16'))
       -> recoder_tpu_torch.optim.Bf16Adam + recoder_tpu_torch.ops.adam
          + recoder_tpu_torch/kernels/adam.cu
   recoder_tpu/model.py                  -> recoder_tpu_torch.model
       (fused_steps_per_call: captured CUDA graphs of full-decode steps)
+      (_stage_batch, _to_device, _device_batch_iter: the host loader's
+      staging; _get_val_loss_fn's dense dispatch and _validate ->
+      Recoder._validate; the eval_freq hooks -> Recoder._validation_log)
   recoder_tpu/progress.py               -> recoder_tpu_torch.progress
   recoder_tpu/metrics.py                -> recoder_tpu_torch.metrics
   recoder_tpu/recommender.py            -> recoder_tpu_torch.recommender

@@ -1,6 +1,9 @@
-"""Data: the CSR dataset and the on-device training slab."""
+"""Data: the CSR dataset, the host loader and the on-device training slab."""
 
 from recoder_tpu_torch.data.dataset import (RecommendationDataset,
                                             UsersInteractions)
+from recoder_tpu_torch.data.loader import (Batch, BatchCollator,
+                                           RecommendationDataLoader)
 
-__all__ = ['RecommendationDataset', 'UsersInteractions']
+__all__ = ['UsersInteractions', 'RecommendationDataset', 'Batch',
+           'BatchCollator', 'RecommendationDataLoader']

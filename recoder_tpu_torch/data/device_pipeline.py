@@ -67,9 +67,20 @@ Differences from the JAX source, on purpose:
   * the slab request is recorded when a cached slab is reused (the
     JAX source's reuse path returns without updating ``_slab_request``).
 
+**Dual CSRs** (``target_matrix``, 'blocks' mode only, as in JAX): a
+second CSR holds each user's target interactions, and each block's
+target union is computed on the host as the input's is, independently
+of it (the reference collates input and target windows each with its
+own ``np.unique``). ``build_union_batch`` then returns the target union
+and triplets beside the input's. The JAX source serves both sides from
+precomputed block tables and declines when either side's tables exceed
+``PRECOMPUTE_BYTE_BUDGET``; the port raises
+:class:`FusedPipelineUnavailable` there with the JAX reason, computed
+from the bytes the JAX tables would take, and its trainer then takes
+the host loader, as the JAX trainer does.
+
 Not ported yet: the per-step triplet scatter, random extra negatives,
-dual (target) CSRs, mega-batches wider than one compute batch, and mesh
-sharding.
+mega-batches wider than one compute batch, and mesh sharding.
 """
 
 import logging
@@ -82,6 +93,35 @@ from recoder_tpu_torch import device as device_lib
 from recoder_tpu_torch.ops.packed_rows import unpack_rows
 
 log = logging.getLogger(__name__)
+
+
+class FusedPipelineUnavailable(ValueError):
+  """This configuration cannot be served by the on-device source (block
+  tables past the byte budget with a target matrix): ``Recoder.train``
+  then takes the host loader, as the JAX trainer does."""
+
+
+def _jax_table_bytes(tables, indptr, n_blocks, mega, n_users):
+  """Bytes of the JAX package's precomputed block tables of one CSR
+  (``_block_tables``): ``n_blocks x (2 x nnz budget + union width)``
+  int32, the budget the largest block nnz aligned up to 1024
+  (``_exact_block_budget``), the width the largest block union aligned
+  up to 128."""
+  edges = np.minimum(np.arange(n_blocks + 1) * mega, n_users)
+  block_nnz = np.diff(indptr[edges])
+  budget = (max(int(block_nnz.max(initial=0)), 1) + 1023) // 1024 * 1024
+  width = int(np.diff(tables['ptr']).max(initial=1))
+  width = (width + 127) // 128 * 128
+  return n_blocks * (2 * budget + width) * 4
+
+
+def canonical_csr(matrix):
+  """``matrix`` as CSR without duplicate entries."""
+  matrix = matrix.tocsr()
+  if not matrix.has_canonical_format:
+    matrix = matrix.copy()
+    matrix.sum_duplicates()
+  return matrix
 
 
 class DeviceDataSource:
@@ -100,24 +140,31 @@ class DeviceDataSource:
     device: where the slab and the union arrays live: the card ('cuda')
       unless the caller asks for 'cpu'.
     seed (int): seed of the epoch orders.
+    target_matrix (scipy.sparse.csr_matrix, optional): the users' target
+      interactions ('blocks' mode only); union batches then carry the
+      target side too.
   """
 
   #: fraction of the device's free memory the 'auto' request may claim
   SLAB_CACHE_MEMORY_FRACTION = 0.5
+  #: bytes of one CSR's JAX block tables past which the JAX source
+  #: declines a target matrix
+  PRECOMPUTE_BYTE_BUDGET = 2 << 30
 
   def __init__(self, matrix, batch_size, num_sampling_users, num_items,
-               shuffle='users', device=device_lib.DEFAULT, seed=0):
+               shuffle='users', device=device_lib.DEFAULT, seed=0,
+               target_matrix=None):
     if shuffle not in ('users', 'blocks'):
       raise ValueError(f'shuffle={shuffle!r}: expected users or blocks')
+    if target_matrix is not None and shuffle != 'blocks':
+      raise ValueError('target_matrix requires shuffle="blocks" (the JAX '
+                       'source serves both sides from block tables)')
     if num_sampling_users != batch_size:
       raise ValueError('full decode reads the loss columns off one '
                        'compute batch: num_sampling_users must equal '
                        f'batch_size (got {num_sampling_users} vs '
                        f'{batch_size})')
-    matrix = matrix.tocsr()
-    if not matrix.has_canonical_format:
-      matrix = matrix.copy()
-      matrix.sum_duplicates()
+    matrix = canonical_csr(matrix)
     self.matrix = matrix
     self.shuffle = shuffle
     self.device = device_lib.resolve(device)
@@ -140,6 +187,29 @@ class DeviceDataSource:
     self._offsets = None  # arange(batch_size) on the device
     self._host_tables = None  # blocks mode: per-block unions (numpy)
     self._union = None  # device arrays of the union path
+    self.target_matrix = None
+    self._tg_tables = None  # the target side's per-block unions
+    if target_matrix is not None:
+      self._init_target_side(canonical_csr(target_matrix))
+
+  def _init_target_side(self, target):
+    """Check both sides against the JAX tables' byte budget and compute
+    the target side's block unions (the JAX ``_init_target_side``)."""
+    if target.shape[0] != self.num_users_total:
+      raise ValueError('target matrix must cover the same users')
+    args = (self.n_blocks, self.mega, self.num_users_total)
+    budget = self.PRECOMPUTE_BYTE_BUDGET
+    if _jax_table_bytes(self._block_unions(), self.matrix.indptr,
+                        *args) > budget:
+      raise FusedPipelineUnavailable(
+          'target_matrix needs the precomputed block tables (input side '
+          'exceeded the byte budget)')
+    tables = self._block_tables_of(target)
+    if _jax_table_bytes(tables, target.indptr, *args) > budget:
+      raise FusedPipelineUnavailable(
+          'target-side block tables exceed the byte budget')
+    self.target_matrix = target
+    self._tg_tables = tables
 
   # -- resident dense slab ------------------------------------------------
 
@@ -353,23 +423,27 @@ class DeviceDataSource:
     'unions': the blocks' unions concatenated, 'ptr': block b's union
     is unions[ptr[b]:ptr[b + 1]]}``."""
     if self._host_tables is None:
-      m, S, n = self.matrix, self.mega, self.num_users_total
-      indptr = m.indptr.astype(np.int64)
-      cols = np.empty(m.nnz, np.int64)
-      unions = []
-      ptr = np.zeros(self.n_blocks + 1, np.int64)
-      for b in range(self.n_blocks):
-        lo, hi = indptr[b * S], indptr[min((b + 1) * S, n)]
-        u, inv = np.unique(m.indices[lo:hi], return_inverse=True)
-        cols[lo:hi] = inv
-        unions.append(u.astype(np.int64))
-        ptr[b + 1] = ptr[b] + len(u)
-      rows = np.repeat(np.arange(n, dtype=np.int64) % S, np.diff(indptr))
-      self._host_tables = {
-          'cols': cols, 'rows': rows, 'ptr': ptr,
-          'unions': (np.concatenate(unions) if unions
-                     else np.zeros(0, np.int64))}
+      self._host_tables = self._block_tables_of(self.matrix)
     return self._host_tables
+
+  def _block_tables_of(self, m):
+    """:meth:`_block_unions` of the CSR ``m`` (the input's or the
+    target's)."""
+    S, n = self.mega, self.num_users_total
+    indptr = m.indptr.astype(np.int64)
+    cols = np.empty(m.nnz, np.int64)
+    unions = []
+    ptr = np.zeros(self.n_blocks + 1, np.int64)
+    for b in range(self.n_blocks):
+      lo, hi = indptr[b * S], indptr[min((b + 1) * S, n)]
+      u, inv = np.unique(m.indices[lo:hi], return_inverse=True)
+      cols[lo:hi] = inv
+      unions.append(u.astype(np.int64))
+      ptr[b + 1] = ptr[b] + len(u)
+    rows = np.repeat(np.arange(n, dtype=np.int64) % S, np.diff(indptr))
+    return {'cols': cols, 'rows': rows, 'ptr': ptr,
+            'unions': (np.concatenate(unions) if unions
+                       else np.zeros(0, np.int64))}
 
   def union_width(self):
     """The union width by which the JAX trainer's 'auto' rule picks full
@@ -404,6 +478,12 @@ class DeviceDataSource:
     if self.shuffle == 'blocks':
       t = self._block_unions()
       arrays.update(cols=t['cols'], rows=t['rows'], unions=t['unions'])
+      if self._tg_tables is not None:
+        t = self._tg_tables
+        arrays.update(tg_cols=t['cols'], tg_rows=t['rows'],
+                      tg_unions=t['unions'])
+        if not np.all(self.target_matrix.data == 1.0):
+          arrays['tg_vals'] = self.target_matrix.data.astype(np.float32)
     else:
       arrays['cols'] = m.indices.astype(np.int64)
       indptr = m.indptr.astype(np.int64)
@@ -421,7 +501,9 @@ class DeviceDataSource:
     items and value of each interaction, on the device; 'users': [B] CPU
     user ids (pad slots hold num_users); 'num_users': valid user count
     as a float, at least 1}``. The union holds exactly the items the
-    batch's users touched.
+    batch's users touched. With a target matrix, ``'tg_items'``,
+    ``'tg_rows'``, ``'tg_cols'`` and ``'tg_vals'`` are the same for the
+    block's target interactions, over the target union.
     """
     self.prepare_union()
     B, n = self.batch_size, self.num_users_total
@@ -451,6 +533,17 @@ class DeviceDataSource:
     vals = (arrays['vals'][src] if 'vals' in arrays
             else torch.ones(rows.shape[0], device=dev))
     num_users = int(torch.sum(users < n))
-    return {'items': items, 'rows': rows, 'cols': cols, 'vals': vals,
-            'users': torch.clamp(users, max=n),
-            'num_users': float(max(num_users, 1))}
+    out = {'items': items, 'rows': rows, 'cols': cols, 'vals': vals,
+           'users': torch.clamp(users, max=n),
+           'num_users': float(max(num_users, 1))}
+    if self._tg_tables is not None:
+      # the same block's target interactions, over its own union
+      t_indptr = self.target_matrix.indptr
+      s, e = int(t_indptr[lo]), int(t_indptr[min(lo + B, n)])
+      ptr = self._tg_tables['ptr']
+      out.update(
+          tg_items=arrays['tg_unions'][int(ptr[b]):int(ptr[b + 1])],
+          tg_rows=arrays['tg_rows'][s:e], tg_cols=arrays['tg_cols'][s:e],
+          tg_vals=(arrays['tg_vals'][s:e] if 'tg_vals' in arrays
+                   else torch.ones(e - s, device=dev)))
+    return out

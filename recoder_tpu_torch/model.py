@@ -70,16 +70,29 @@ step, except in full-decode steps on the card, which draw from one
 stream that each epoch places at the global step's offset (graph
 replays advance it as eager steps do).
 
-Not ported yet: bf16 parameters, bf16 moments of sparse tables, the
-validation loss, random extra negatives, the per-step triplet scatter
-(where the JAX package declines both slab tiers), dual (target)
-training matrices, mega-batches wider than one compute batch, sparse
-tables without negative sampling, chunked evaluation, the orbax backend,
-meshes, and the capture of the union and sparse steps.
+A training dataset with a target matrix trains against it: in 'blocks'
+mode with negative sampling from the dual CSRs of the on-device source
+(union batches with a target union beside the input's), otherwise, and
+where that source declines the target matrix, from the host loader
+(``data/loader.py``), as in JAX. Host-loader batches are collated and
+copied to the card on a side stream by a background thread
+(:meth:`Recoder._device_batch_iter`).
+``train(val_dataset=..., eval_freq=N)`` computes the validation loss
+every N epochs (the no-grad forward over the host loader's batches of
+the validation set) and, with ``metrics``, the ranking metrics.
+
+Not ported yet: bf16 parameters, bf16 moments of sparse tables, chunked
+validation and evaluation (``eval_item_chunk``), random extra negatives,
+the per-step triplet scatter (where the JAX package declines both slab
+tiers), mega-batches wider than one compute batch on the on-device
+source, sparse tables without negative sampling, the orbax backend,
+meshes, and the capture of the union, sparse and host-loader steps.
 """
 
 import logging
 import os
+import queue
+import threading
 import time
 
 import numpy as np
@@ -88,7 +101,10 @@ import torch
 from recoder_tpu_torch import __version__, convert
 from recoder_tpu_torch import device as device_lib
 from recoder_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
-from recoder_tpu_torch.data.device_pipeline import DeviceDataSource
+from recoder_tpu_torch.data.dataset import RecommendationDataset
+from recoder_tpu_torch.data.device_pipeline import (
+    DeviceDataSource, FusedPipelineUnavailable, canonical_csr)
+from recoder_tpu_torch.data.loader import RecommendationDataLoader
 from recoder_tpu_torch.metrics import RecommenderEvaluator
 from recoder_tpu_torch.models.base import FactorizationModel
 from recoder_tpu_torch.ops import losses as losses_lib
@@ -96,8 +112,8 @@ from recoder_tpu_torch.ops.fused_decode_loss import (fused_decode_loss,
                                                      supported)
 from recoder_tpu_torch.ops.gather_matmul import as_dtype
 from recoder_tpu_torch.optim import (KINDS, Bf16Adam, SparseRowAdam,
-                                     make_optimizer, resolve_state_dtype,
-                                     set_lr)
+                                     fold_dual_union, make_optimizer,
+                                     resolve_state_dtype, set_lr)
 from recoder_tpu_torch.progress import ProgressReporter, loss_handle
 from recoder_tpu_torch.recommender import InferenceRecommender
 
@@ -135,6 +151,18 @@ class _FdLoop:
     self.losses = torch.zeros(num_batches, dtype=torch.float32, device=dev)
     #: Philox offset one step's noise draws take (on the card)
     self.noise_inc = None
+
+
+def _canonical_dataset(dataset):
+  """``dataset``, or a copy whose matrices have no repeated entries (each
+  repeat summed into one, as the JAX ``_densify`` adds them): the host
+  loader's batches then densify without accumulation."""
+  matrices = (dataset.interactions_matrix,
+              dataset.target_interactions_matrix)
+  if all(m is None or m.has_canonical_format for m in matrices):
+    return dataset
+  return RecommendationDataset(*(m if m is None else canonical_csr(m)
+                                 for m in matrices))
 
 
 def _multistep_lr(base_lr, milestones, epoch, gamma=0.1):
@@ -216,6 +244,9 @@ class Recoder:
     self._epoch_perm = None
     self._iters_consumed = 0
     self._train_iterator_key = None
+    #: the host loader's persistent batch iterator (``_device_batch_iter``)
+    self._train_iterator = None
+    self._copy_stream = None
     self._dropout_gen = torch.Generator(device=self.device)
     self._lr = None  # this epoch's learning rate
     self._opt_config = None
@@ -225,6 +256,8 @@ class Recoder:
     self._graph_sig = None
     self._warm_steps = 0
     self._capture_stream = None
+    #: CUDA graphs captured over the trainer's life
+    self.captures = 0
     self._profiler = None
     self._progress_reporter = None
     #: how the last epoch's steps were dispatched, and how many
@@ -383,11 +416,16 @@ class Recoder:
     A full-decode batch (``'slab'``) decodes the whole catalog and masks
     the loss to the columns the batch touched (all of the logical
     catalog without ``negative_sampling``): its ``'col_mask'`` when it
-    carries one (the packed tier's), else read off the rows. A union
-    batch (``'items'``) decodes the union's columns, every one of which
-    is a loss column. ``gathered``: the sparse step's union rows
-    (``sparse_entries`` names). A model without ``decode_operands``
-    scores through its ``forward`` and ``loss_module``."""
+    carries one (the packed tier's), else read off the rows. A COO batch
+    (``'rows'``, ``'cols'``, ``'vals'``) densifies over its union
+    (``'items'``), or over the padded catalog where ``'items'`` is None
+    (a host-loader batch without negative sampling). It decodes against
+    the target side (``'tg_*'``, densified the same way) when it has one,
+    else against its input. Every column of a union is a loss column;
+    of the padded catalog, the logical items. ``gathered``: the sparse
+    step's union rows (``sparse_entries`` names). A model without
+    ``decode_operands`` scores through its ``forward`` and
+    ``loss_module``."""
     model = self.model
     cd = getattr(model, 'compute_dtype', None)
     valid_users = batch['num_users']
@@ -406,25 +444,32 @@ class Recoder:
       else:
         # the loss columns: items any user of the batch touched
         col_mask = (torch.any(slab != 0, dim=0) & in_catalog).float()
-      items = None
+      items = tg_items = None
     else:
       items = batch['items']
-      B, W = batch['users'].shape[0], items.shape[0]
+      B = batch['users'].shape[0]
+      W = model.num_items_padded if items is None else items.shape[0]
       input_dense = target = self._densify_union(batch, B, W, cd)
-      col_mask = torch.ones(W, device=items.device)
+      tg_items = items
+      if 'tg_rows' in batch:
+        tg_items = batch['tg_items']
+        W = model.num_items_padded if tg_items is None else tg_items.shape[0]
+        target = self._densify_union(batch, B, W, cd, side='tg_')
+      logical = W if tg_items is not None else model.num_items
+      col_mask = (torch.arange(W, device=target.device) < logical).float()
     row_mask = (torch.arange(B, device=input_dense.device)
                 < valid_users).float()
 
     if not hasattr(model, 'decode_operands'):
       out = model(input_dense,
                   input_users=batch['users'].to(input_dense.device),
-                  input_items=items, target_items=items,
+                  input_items=items, target_items=tg_items,
                   generator=generator, training=training)
-      loss = self.loss_module(out, input_dense, row_mask=row_mask,
+      loss = self.loss_module(out, target, row_mask=row_mask,
                               col_mask=col_mask)
       return loss / valid_users
     h, rows, bias = model.decode_operands(
-        input_dense, items, items, gathered=gathered, training=training,
+        input_dense, items, tg_items, gathered=gathered, training=training,
         generator=generator)
     kind = self._fused_kind()
     if kind is not None and W > 0:
@@ -433,19 +478,23 @@ class Recoder:
           getattr(self.loss_module, 'confidence', 0.0), cd)
     else:
       # (an empty union has no column for the kernel: its loss is 0)
-      loss = self.loss_module(model.decode(h, rows, bias), input_dense,
+      loss = self.loss_module(model.decode(h, rows, bias), target,
                               row_mask=row_mask, col_mask=col_mask)
     return loss / valid_users
 
   @staticmethod
-  def _densify_union(batch, B, W, dtype=None):
-    """The union batch's interactions as a dense ``[B, W]`` input in
-    ``dtype`` (float32 by default; the JAX ``_densify`` builds in the
-    model's compute dtype); each (row, column) pair occurs once."""
+  def _densify_union(batch, B, W, dtype=None, side=''):
+    """A COO batch's interactions (``side``: '' the input's, 'tg_' the
+    target's) as a dense ``[B, W]`` matrix in ``dtype`` (float32 by
+    default; the JAX ``_densify`` builds in the model's compute dtype).
+    Each (row, column) pair occurs once: the batches come from canonical
+    CSRs (the on-device source's, or the host loader's over
+    :func:`_canonical_dataset`)."""
     dtype = dtype or torch.float32
-    dense = torch.zeros((B, W), device=batch['items'].device, dtype=dtype)
-    dense.index_put_((batch['rows'], batch['cols']),
-                     batch['vals'].to(dtype))
+    rows = batch[side + 'rows']
+    dense = torch.zeros((B, W), device=rows.device, dtype=dtype)
+    dense.index_put_((rows, batch[side + 'cols']),
+                     batch[side + 'vals'].to(dtype))
     return dense
 
   def _dense_step_math(self, batch, negative_sampling=True, reseed=True):
@@ -472,8 +521,8 @@ class Recoder:
     Returns the step's loss (on the device)."""
     self._dropout_gen.manual_seed((self.seed << 32) + self._global_step)
     items = batch['items']
-    entries = self.model.sparse_entries(input_items=items,
-                                        target_items=items)
+    entries = self.model.sparse_entries(
+        input_items=items, target_items=batch.get('tg_items', items))
     tables = self.model.params()
     with torch.no_grad():
       gathered = {name: tables[path].index_select(0, ids)
@@ -486,39 +535,55 @@ class Recoder:
                               gathered=gathered)
     loss.backward()
     self.optimizer.step()
-    lr = self._lr
+    uses = {}
+    for name, path, ids in entries:
+      grad = gathered[name].grad  # (None: no loss term reached the rows)
+      uses.setdefault(path, []).append(
+          (ids, grad if grad is not None else torch.zeros_like(
+              gathered[name])))
     with torch.no_grad():
       # after the backward pass: no graph holds the tables
-      for name, path, ids in entries:
+      for path, rows in uses.items():
+        if len(rows) == 2:
+          # a tied table over the input and the target union: one step
+          # over the folded id set, the spare row the table's last pad row
+          ids, grads = fold_dual_union(*rows[0], *rows[1],
+                                       tables[path].shape[0] - 1)
+        else:
+          (ids, grads), = rows
         self.sparse_adam.update_rows(tables[path], self.sparse_states[path],
-                                     ids, gathered[name].grad, lr)
+                                     ids, grads, self._lr)
     return loss.detach()
 
   # ------------------------------------------------------------------
   # training loop
   # ------------------------------------------------------------------
 
-  def _data_source(self, matrix, batch_size, num_sampling_users, shuffle):
+  def _data_source(self, matrix, batch_size, num_sampling_users, shuffle,
+                   target=None):
     cfg = (batch_size, num_sampling_users, shuffle, self.num_items,
            self.seed)
     cached = self._source_cache
-    if cached is not None and cached[0] is matrix and cached[1] == cfg:
+    if (cached is not None and cached[0] is matrix and cached[1] == cfg
+        and cached[3] is target):
       return cached[2]
     self._source_cache = None  # free the old slab before the new build
     source = DeviceDataSource(matrix, batch_size=batch_size,
                               num_sampling_users=num_sampling_users,
                               num_items=self.num_items, shuffle=shuffle,
-                              device=self.device, seed=self.seed)
-    self._source_cache = (matrix, cfg, source)
+                              device=self.device, seed=self.seed,
+                              target_matrix=target)
+    self._source_cache = (matrix, cfg, source, target)
     return source
 
   def train(self, train_dataset, val_dataset=None, lr=0.001,
             weight_decay=0, num_epochs=1, iters_per_epoch=None,
             batch_size=64, lr_milestones=None, negative_sampling=False,
-            num_sampling_users=0, model_checkpoint_prefix=None,
-            checkpoint_freq=0, eval_freq=0, eval_num_recommendations=None,
-            eval_num_users=None, metrics=None, eval_batch_size=None,
-            profile_dir=None, profile_steps=(10, 30), shuffle='users',
+            num_sampling_users=0, num_data_workers=0,
+            model_checkpoint_prefix=None, checkpoint_freq=0, eval_freq=0,
+            eval_num_recommendations=None, eval_num_users=None,
+            metrics=None, eval_batch_size=None, profile_dir=None,
+            profile_steps=(10, 30), shuffle='users',
             fused_steps_per_call='auto', progress=False, full_decode='auto',
             slab_cache='auto'):
     """Train the model (argument semantics follow the JAX package's
@@ -539,6 +604,15 @@ class Recoder:
     the dense tier, 'packed' the 1-bit tier. ``shuffle``: 'users' or
     'blocks'.
 
+    A ``train_dataset`` with a target matrix trains its input against
+    its target (full decode stays off, as in JAX): with
+    ``shuffle='blocks'`` and negative sampling from the dual CSRs of the
+    on-device source, otherwise from the host loader
+    (``RecommendationDataLoader``, seeded with ``seed``; its collation
+    runs on ``num_data_workers`` threads), one eager step a batch. A
+    host-loader run takes ``num_sampling_users`` that are any multiple
+    of ``batch_size``.
+
     ``fused_steps_per_call`` ('auto' | int | None): consecutive
     full-decode steps a host dispatch. 'auto' and None take 16 when the
     step fetches from the resident slab (every full-decode step) or runs
@@ -550,9 +624,10 @@ class Recoder:
     steps; a capture records and does not execute). The arithmetic is
     the same as N = 1's, one eager dispatch a step: the trajectories are
     bitwise equal. On the CPU the blocks run the same step eagerly. The
-    union and sparse steps, and optimizers other than Adam, run eagerly
-    whatever N says (one log line says so): their capture is not ported.
-    A capture or replay that fails raises; nothing falls back.
+    union, sparse and host-loader steps, and optimizers other than Adam,
+    run eagerly whatever N says (one log line says so): their capture
+    is not ported. A capture or replay that fails raises; nothing falls
+    back.
 
     ``model_checkpoint_prefix`` / ``checkpoint_freq``: ``save_state``
     after every ``checkpoint_freq``-th epoch and after the last.
@@ -561,25 +636,28 @@ class Recoder:
     (``progress.py``). ``profile_dir``: a torch.profiler trace (CPU and,
     on the card, CUDA activity) of global steps ``profile_steps =
     (start, stop)``, written there as a Chrome trace; profiling
-    dispatches one step at a time. ``val_dataset`` is accepted and, with
-    ``eval_freq=0``, unused (as in JAX); ``eval_freq > 0`` with a
-    ``val_dataset`` raises NotImplementedError: the validation loss is
-    not ported yet. ``metrics``, ``eval_num_recommendations``,
-    ``eval_num_users`` and ``eval_batch_size`` serve only that hook.
+    dispatches one step at a time.
+
+    ``val_dataset`` with ``eval_freq > 0``: every ``eval_freq``-th epoch
+    the epoch's log line gets the validation loss (:meth:`_validate`
+    over a host loader of ``val_dataset`` with this call's batching and
+    seed ``seed + 1``) and, with ``metrics`` and
+    ``eval_num_recommendations``, the mean of each metric over
+    ``eval_num_users`` users of ``val_dataset`` in batches of
+    ``eval_batch_size`` (default ``batch_size``). Validation reads the
+    parameters and nothing else of the training state: a run with it
+    trains bitwise as one without.
     """
-    if eval_freq > 0 and val_dataset is not None:
-      raise NotImplementedError('validation loss (_validate) is not ported '
-                                'yet')
-    if train_dataset.target_interactions_matrix is not None:
-      raise NotImplementedError('training against a target matrix is not '
-                                'ported yet')
-    if slab_cache is False:
-      raise ValueError('the port trains from the resident slab only')
     if full_decode not in ('auto', True, False):
       raise ValueError(f"full_decode={full_decode!r}: expected 'auto', "
                        'True or False')
     if num_sampling_users == 0:
       num_sampling_users = batch_size
+    if num_sampling_users < batch_size or num_sampling_users % batch_size:
+      raise ValueError('number of sampling users should be a multiple of '
+                       'the batch size')
+    if eval_batch_size is None:
+      eval_batch_size = batch_size
     log.info('device %s; model %s; lr %s; weight decay %s; batch %s; '
              'optimizer %s; loss %s; lr milestones %s', self.device,
              self.model.model_params(), lr, weight_decay, batch_size,
@@ -597,22 +675,52 @@ class Recoder:
       raise NotImplementedError('sparse tables train with negative '
                                 'sampling only (the full-catalog sparse '
                                 'step is not ported yet)')
-    source = self._data_source(train_dataset.interactions_matrix,
-                               batch_size, num_sampling_users, shuffle)
-    if not negative_sampling:
-      fd = True
-    elif sparse or full_decode is False:
-      fd = False
-    elif full_decode is True:
-      fd = True
+    target = train_dataset.target_interactions_matrix
+    loader_kw = dict(batch_size=batch_size,
+                     negative_sampling=negative_sampling,
+                     num_sampling_users=num_sampling_users,
+                     num_workers=num_data_workers)
+    # the JAX rule: a target matrix rides the on-device source's dual
+    # CSRs in 'blocks' mode with negative sampling, else (and where the
+    # source declines it) the host loader
+    loader = source = None
+    fd = False
+    if target is None or (shuffle == 'blocks' and negative_sampling):
+      try:
+        source = self._data_source(train_dataset.interactions_matrix,
+                                   batch_size, num_sampling_users, shuffle,
+                                   target)
+      except FusedPipelineUnavailable as e:
+        log.info('fused pipeline unavailable (%s); using host loader', e)
+    if source is None:
+      loader = RecommendationDataLoader(_canonical_dataset(train_dataset),
+                                        seed=self.seed, **loader_kw)
+      num_batches = len(loader)
     else:
-      fd = self.model.num_items_padded <= 4 * source.union_width()
-    if fd:
-      source.maybe_cache_slabs(self.model.num_items_padded,
-                               request=slab_cache)
-    else:
-      source.maybe_cache_slabs(0, request=False)
-      source.prepare_union()
+      num_batches = source.steps_per_epoch
+      if not negative_sampling:
+        fd = True
+      elif sparse or full_decode is False or target is not None:
+        fd = False
+      elif full_decode is True:
+        fd = True
+      else:
+        fd = self.model.num_items_padded <= 4 * source.union_width()
+      if fd:
+        if slab_cache is False:
+          raise ValueError('the port trains full decode from the resident '
+                           'slab only')
+        source.maybe_cache_slabs(self.model.num_items_padded,
+                                 request=slab_cache)
+      else:
+        source.maybe_cache_slabs(0, request=False)
+        source.prepare_union()
+    validation = None
+    if val_dataset is not None and eval_freq > 0:
+      validation = (RecommendationDataLoader(_canonical_dataset(val_dataset),
+                                             seed=self.seed + 1, **loader_kw),
+                    eval_freq, metrics, eval_num_recommendations,
+                    eval_num_users, eval_batch_size)
 
     if fused_steps_per_call in (None, 'auto'):
       spc = AUTO_STEPS_PER_CALL if fd or shuffle == 'blocks' else 1
@@ -625,31 +733,34 @@ class Recoder:
     if spc >= 2 and not fd:
       log.info('fused_steps_per_call=%d: the %s step runs eagerly, one '
                'dispatch a step (its capture is not ported)', spc,
-               'sparse' if sparse else 'union')
+               'host-loader' if loader is not None
+               else 'sparse' if sparse else 'union')
     elif spc >= 2 and self.device.type == 'cuda' and not captured:
       log.info("fused_steps_per_call=%d: '%s' has no capturable step; the "
                'steps run eagerly, one dispatch a step', spc,
                self.optimizer_type)
 
-    num_batches = source.steps_per_epoch
     if iters_per_epoch is None:
       iters_per_epoch = num_batches
     # a partly consumed epoch carries over only into a call with the
     # same dataset, batching and path (or the first call after a
-    # checkpoint load, which continues the checkpoint's epoch)
+    # checkpoint load, which continues the checkpoint's epoch on the
+    # on-device source; the host loader's restarts, as in JAX)
     iter_key = (train_dataset, batch_size, num_sampling_users,
-                negative_sampling, shuffle, fd)
+                negative_sampling, shuffle, fd, loader is not None)
     if self._train_iterator_key != iter_key:
       if self._train_iterator_key is not _RESUMED:
         self._iters_consumed = 0
       self._epoch_perm = None
+      self._drop_train_iterator()
       self._train_iterator_key = iter_key
 
     try:
-      self._train_epochs(source, fd, sparse, negative_sampling, num_epochs,
-                         lr, lr_milestones, iters_per_epoch, num_batches,
-                         spc, captured, profile_dir, profile_steps,
-                         progress, model_checkpoint_prefix, checkpoint_freq)
+      self._train_epochs(source, loader, fd, sparse, negative_sampling,
+                         num_epochs, lr, lr_milestones, iters_per_epoch,
+                         num_batches, spc, captured, profile_dir,
+                         profile_steps, progress, model_checkpoint_prefix,
+                         checkpoint_freq, validation)
     finally:
       if self._progress_reporter is not None:
         self._progress_reporter.close()
@@ -657,20 +768,31 @@ class Recoder:
       if self._profiler is not None:  # the window reached past the end
         self._stop_profile()
 
-  def _train_epochs(self, source, fd, sparse, negative_sampling, num_epochs,
-                    lr, lr_milestones, iters_per_epoch, num_batches, spc,
-                    captured, profile_dir, profile_steps, progress,
-                    model_checkpoint_prefix, checkpoint_freq):
+  def _train_epochs(self, source, loader, fd, sparse, negative_sampling,
+                    num_epochs, lr, lr_milestones, iters_per_epoch,
+                    num_batches, spc, captured, profile_dir, profile_steps,
+                    progress, model_checkpoint_prefix, checkpoint_freq,
+                    validation):
     for epoch in range(self.current_epoch, num_epochs + 1):
       self.current_epoch = epoch
       epoch_lr = self._lr = _multistep_lr(lr, lr_milestones, epoch)
       set_lr(self.optimizer, epoch_lr)
-      if self._iters_consumed >= num_batches:
-        self._epoch_perm = None
-        self._iters_consumed = 0
-      if self._epoch_perm is None:
-        self._epoch_perm = source.epoch_permutation(epoch)
+      if loader is not None:
+        if (self._train_iterator is None
+            or self._iters_consumed >= num_batches):
+          self._drop_train_iterator()
+          self._train_iterator = self._device_batch_iter(loader)
+          self._iters_consumed = 0
+      else:
+        if self._iters_consumed >= num_batches:
+          self._epoch_perm = None
+          self._iters_consumed = 0
+        if self._epoch_perm is None:
+          self._epoch_perm = source.epoch_permutation(epoch)
       n_steps = min(iters_per_epoch, num_batches - self._iters_consumed)
+      if isinstance(self.optimizer, Bf16Adam):
+        # (the steps read their scalars off the device: no host read)
+        self.optimizer.schedule(n_steps, capacity=num_batches)
       reporter = None
       if progress:
         desc = f'Epoch {epoch}/{num_epochs}'
@@ -685,21 +807,176 @@ class Recoder:
         losses = self._fd_epoch(source, n_steps, num_batches, spc, captured,
                                 negative_sampling, profile_dir,
                                 profile_steps, reporter)
+      elif loader is not None:
+        losses = self._union_epoch(
+            lambda: next(self._train_iterator, None), n_steps, sparse,
+            profile_dir, profile_steps, reporter)
       else:
-        losses = self._union_epoch(source, n_steps, sparse, profile_dir,
-                                   profile_steps, reporter)
+        losses = self._union_epoch(
+            lambda: source.build_union_batch(self._epoch_perm,
+                                             self._iters_consumed),
+            n_steps, sparse, profile_dir, profile_steps, reporter)
       # (one device sync per epoch)
       self.last_epoch_losses = losses
       dt = self.last_epoch_seconds = time.time() - t0
       mean_loss = float(np.mean(losses)) if losses else float('nan')
-      log.info('Epoch %d/%d (lr=%g) [%d it, %.2fs, %.1f it/s, %s, %d '
-               'dispatches] loss=%.5f', epoch, num_epochs, epoch_lr, n_steps,
-               dt, n_steps / max(dt, 1e-9), self.last_epoch_dispatch,
-               self.last_epoch_dispatches, mean_loss)
+      msg = (f'Epoch {epoch}/{num_epochs} (lr={epoch_lr:g}) '
+             f'[{len(losses)} it, {dt:.2f}s, '
+             f'{len(losses) / max(dt, 1e-9):.1f} it/s, '
+             f'{self.last_epoch_dispatch}, {self.last_epoch_dispatches} '
+             f'dispatches] loss={mean_loss:.5f}')
+      if validation is not None and epoch % validation[1] == 0:
+        msg += self._validation_log(*validation)
+      log.info(msg)
       if model_checkpoint_prefix and (
           (checkpoint_freq > 0 and epoch % checkpoint_freq == 0)
           or epoch == num_epochs):
         self.save_state(model_checkpoint_prefix)
+
+  def _validation_log(self, val_loader, eval_freq, metrics, k, num_users,
+                      batch_size):
+    """The epoch log's validation part (the JAX ``eval_freq`` hook): the
+    validation loss and, with ``metrics`` and ``k``, each metric's mean
+    over the validation set's recommendations."""
+    msg = f' val_loss={self._validate(val_loader):.5f}'
+    if metrics is not None and k is not None:
+      results = self._evaluate(val_loader.dataset, num_recommendations=k,
+                               metrics=metrics, batch_size=batch_size,
+                               num_users=num_users)
+      for metric in results:
+        msg += f' {metric}={np.mean(results[metric]):.4f}'
+    return msg
+
+  def _validate(self, val_dataloader):
+    """The mean loss over the loader's batches (the JAX ``_validate``):
+    the forward without noise or dropout (``training=False``; the
+    dropout generator is not touched), under ``torch.no_grad()``, so the
+    fused kernel writes no E0. The losses gather in one device buffer,
+    read once."""
+    losses = torch.zeros(len(val_dataloader), device=self.device)
+    count = 0
+    with torch.no_grad():
+      for batch in self._device_batch_iter(val_dataloader):
+        losses[count] = self._forward_loss(batch, training=False)
+        count += 1
+    if not count:
+      return float('nan')
+    return float(losses[:count].mean())
+
+  # -- host-loader batches: staged on a background thread --------------------
+
+  @staticmethod
+  def _stage_batch(input_batch, target_batch):
+    """A host :class:`Batch` (and its target) as the step's numpy
+    arrays."""
+    staged = {'users': input_batch.users,
+              'num_users': float(len(input_batch.users))}
+    for side, b in (('', input_batch), ('tg_', target_batch)):
+      if b is not None:
+        staged.update({side + 'rows': b.rows, side + 'cols': b.cols,
+                       side + 'vals': b.vals, side + 'items': b.items})
+    return staged
+
+  @staticmethod
+  def _to_device(staged, device, stream):
+    """Send a staged batch's arrays to ``device``: ``(batch, event)``.
+    On the card the arrays are packed into one pinned host buffer, at
+    8-byte aligned offsets, and sent with one non-blocking copy on
+    ``stream``; each array arrives as a view of the device buffer, and
+    ``event`` marks the copy's end on ``stream`` (the pinned block
+    returns to PyTorch's host allocator only after the copy, which
+    records its stream's use of it). Off the card the arrays become
+    tensors in place and ``event`` is None."""
+    arrays = {k: np.ascontiguousarray(v) for k, v in staged.items()
+              if isinstance(v, np.ndarray)}
+    if device.type != 'cuda':
+      return {**staged, **{k: torch.from_numpy(v)
+                           for k, v in arrays.items()}}, None
+    offsets, total = {}, 0
+    for k, v in arrays.items():
+      offsets[k] = total
+      total += -(-v.nbytes // 8) * 8
+    host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    packed = host.numpy()
+    for k, v in arrays.items():
+      packed[offsets[k]:offsets[k] + v.nbytes] = v.view(np.uint8)
+    with torch.cuda.stream(stream):
+      buffer = host.to(device, non_blocking=True)
+      event = torch.cuda.Event()
+      event.record(stream)
+    sent = {k: buffer[offsets[k]:offsets[k] + v.nbytes].view(
+        torch.from_numpy(v[:0]).dtype) for k, v in arrays.items()}
+    return {**staged, **sent}, event
+
+  def _arrived(self, batch, event):
+    """Make the current stream wait for a batch's copies; its device
+    tensors, allocated on the copy stream, are marked as used by the
+    current stream, so that their memory is not reused under the step."""
+    if event is not None:
+      current = torch.cuda.current_stream(self.device)
+      current.wait_event(event)
+      for v in batch.values():
+        if torch.is_tensor(v):
+          v.record_stream(current)
+    return batch
+
+  def _device_batch_iter(self, dataloader, depth=6):
+    """The loader's batches, staged and sent to the device on a
+    background thread (the JAX ``_device_batch_iter``): at most ``depth``
+    wait in the queue. Closing the iterator (or dropping it) stops the
+    producer and the loader's workers; an exception of the producer is
+    raised here, in the consumer. The producer holds no reference to the
+    trainer, so that a dropped trainer's iterator is collected (and its
+    producer stopped) with it."""
+    device = self.device
+    if device.type == 'cuda' and self._copy_stream is None:
+      self._copy_stream = torch.cuda.Stream(device=device)
+    stream, stage, send = self._copy_stream, self._stage_batch, self._to_device
+    q = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def put(item):
+      while not stop.is_set():
+        try:
+          q.put(item, timeout=0.2)
+          return True
+        except queue.Full:
+          continue
+      return False
+
+    def producer():
+      batches = iter(dataloader)
+      try:
+        for input_batch, target_batch in batches:
+          if stop.is_set():
+            return
+          staged = stage(input_batch, target_batch)
+          if not put(('ok', send(staged, device, stream))):
+            return
+        put(('done', None))
+      except BaseException as e:  # raised again in the consumer
+        put(('err', e))
+      finally:
+        batches.close()  # (stops the loader's collation threads)
+
+    threading.Thread(target=producer, daemon=True,
+                     name='recoder-batch-staging').start()
+    try:
+      while True:
+        kind, payload = q.get()
+        if kind == 'done':
+          return
+        if kind == 'err':
+          raise payload
+        yield self._arrived(*payload)
+    finally:
+      stop.set()  # runs on close() and when the generator is collected
+
+  def _drop_train_iterator(self):
+    """Stop the host loader's persistent iterator, if any."""
+    if self._train_iterator is not None:
+      self._train_iterator.close()
+      self._train_iterator = None
 
   # -- full-decode epochs: eager steps or captured blocks of them ----------
 
@@ -715,8 +992,6 @@ class Recoder:
                                      num_batches)
     loop.perm.copy_(self._epoch_perm)
     loop.step.fill_(self._iters_consumed)
-    if isinstance(self.optimizer, Bf16Adam):
-      self.optimizer.schedule(n_steps, capacity=num_batches)
     on_card = self.device.type == 'cuda'
     if on_card:
       self._position_noise(loop)
@@ -849,6 +1124,7 @@ class Recoder:
           self._fd_step(loop, negative_sampling)
       entry = self._graphs[block] = (
           graph, self.optimizer.end_capture() if bf16_adam else None)
+      self.captures += 1
       log.info('captured a CUDA graph of %d full-decode step(s)', block)
     return entry[0]
 
@@ -861,13 +1137,16 @@ class Recoder:
 
   # -- union and sparse epochs: one eager dispatch a step -------------------
 
-  def _union_epoch(self, source, n_steps, sparse, profile_dir, profile_steps,
-                   reporter):
+  def _union_epoch(self, next_batch, n_steps, sparse, profile_dir,
+                   profile_steps, reporter):
+    """Up to ``n_steps`` eager steps on the COO batches ``next_batch()``
+    gives (None: the iterator ran out); returns their losses."""
     losses = []
     for _ in range(n_steps):
       self._maybe_profile(profile_dir, profile_steps)
-      batch = source.build_union_batch(self._epoch_perm,
-                                       self._iters_consumed)
+      batch = next_batch()
+      if batch is None:
+        break
       self._iters_consumed += 1
       if sparse:
         loss = self._sparse_step_math(batch)
@@ -878,7 +1157,7 @@ class Recoder:
       if reporter is not None:
         reporter.put(1, loss_handle(loss.view(1)))
     self.last_epoch_dispatch = 'eager'
-    self.last_epoch_dispatches = n_steps
+    self.last_epoch_dispatches = len(losses)
     return torch.stack(losses).tolist() if losses else []
 
   # -- profile window ---------------------------------------------------------
@@ -957,6 +1236,7 @@ class Recoder:
     self._global_step = 0
     self._epoch_perm = None
     self._iters_consumed = 0
+    self._drop_train_iterator()
     self._train_iterator_key = None
 
   @property

@@ -32,9 +32,13 @@ on the device too. Eager and captured steps run the same optimizer, so
 their trajectories are bitwise equal. On the CPU the float32 state is
 the plain ``torch.optim.Adam``.
 
+:func:`fold_dual_union` merges the two row sets of a table that one
+step uses twice (a tied decoder over a target union that differs from
+the input union) into one id set, so that the table takes one
+:class:`SparseRowAdam` step, as torch's coalesced sparse gradient does.
+
 Not ported yet: bf16 state for :class:`SparseRowAdam` (the row scatter
-writes float32 tables) and ``fold_dual_union`` (only dual target CSRs
-reach it, and those are not ported).
+writes float32 tables).
 """
 
 import numpy as np
@@ -270,6 +274,37 @@ class Bf16Adam(torch.optim.Optimizer):
     if not recording:
       self._host_step += 1
     return None
+
+
+def fold_dual_union(ids1, g1, ids2, g2, spare):
+  """Coalesce two row-gradient sets over one table into one update set
+  (the JAX ``fold_dual_union``).
+
+  torch coalesces every use of a tied parameter into one sparse gradient
+  and takes one SparseAdam step; two :meth:`SparseRowAdam.update_rows`
+  calls would advance the step count twice and decay the moments of the
+  rows both sets hold twice. Where ``ids2`` meets ``ids1``, the second
+  set's gradient is added into the first's slot and its own slot is
+  pointed at ``spare`` (a padding row, whose gradient and moments stay
+  exactly zero), so the real ids of the result are unique.
+
+  Args:
+    ids1, ids2: int64 [R1], [R2] row ids, each ascending and unique.
+    g1, g2: [R1, d], [R2, d] their gradients.
+    spare: the padding row id.
+
+  Returns ``(ids [R1 + R2], grads [R1 + R2, d] float32)`` for one
+  ``update_rows`` call. The additions are float32 whatever the gradients'
+  dtype, as in JAX.
+  """
+  g1, g2 = g1.float(), g2.float()
+  if ids1.numel() == 0:
+    return torch.cat([ids1, ids2]), torch.cat([g1, g2])
+  pos = torch.clamp(torch.searchsorted(ids1, ids2), max=ids1.numel() - 1)
+  hit = ids1[pos] == ids2
+  g1 = g1.index_add(0, pos, torch.where(hit[:, None], g2, 0.0))
+  return (torch.cat([ids1, torch.where(hit, spare, ids2)]),
+          torch.cat([g1, torch.where(hit[:, None], 0.0, g2)]))
 
 
 class SparseRowAdam:

@@ -344,24 +344,27 @@ def _fixture_datasets():
                                                                train_m)
 
 
-def test_val_dataset_is_accepted_without_eval_freq():
+def test_val_dataset_is_accepted_without_eval_freq(caplog):
   """The pinned call of tests/test_model.py (val_dataset given,
-  eval_freq 0) runs on the port, cut to one epoch of 2 steps; eval_freq
-  > 0 with a val_dataset raises."""
+  eval_freq 0) runs on the port, cut to one epoch of 2 steps; with
+  eval_freq=1 the same call validates and logs a finite val_loss."""
   train_dataset, val_dataset = _fixture_datasets()
   trainer = Recoder(DynamicAutoencoder(hidden_layers=[200],
                                        activation_type='tanh',
                                        noise_prob=0.5),
                     optimizer_type='adam', loss='logloss', device='cpu')
-  trainer.train(train_dataset=train_dataset, val_dataset=val_dataset,
-                batch_size=500, lr=1e-3, weight_decay=2e-5, num_epochs=1,
-                iters_per_epoch=2, negative_sampling=True)
+  kw = dict(train_dataset=train_dataset, val_dataset=val_dataset,
+            batch_size=500, lr=1e-3, weight_decay=2e-5, iters_per_epoch=2,
+            negative_sampling=True)
+  with caplog.at_level(logging.INFO, logger='recoder_tpu_torch'):
+    trainer.train(num_epochs=1, **kw)
+    assert 'val_loss=' not in caplog.text
+    assert len(trainer.last_epoch_losses) == 2
+    assert np.all(np.isfinite(trainer.last_epoch_losses))
+    trainer.train(num_epochs=2, eval_freq=1, **kw)
   assert len(trainer.last_epoch_losses) == 2
-  assert np.all(np.isfinite(trainer.last_epoch_losses))
-  with pytest.raises(NotImplementedError, match='_validate'):
-    trainer.train(train_dataset=train_dataset, val_dataset=val_dataset,
-                  batch_size=500, num_epochs=1, negative_sampling=True,
-                  eval_freq=1)
+  found = re.findall(r'Epoch 2/2 .* val_loss=(\S+)', caplog.text)
+  assert len(found) == 1 and np.isfinite(float(found[0])), caplog.text
 
 
 def test_progress_prints_through_the_fallback_printer(monkeypatch, capsys):

@@ -13,7 +13,12 @@ misaligned column slice and with an empty id vector, and the sparse
 training step through the kernel against the same step through the
 plain twin (bitwise); the packed-slab unpack kernel against its plain
 version (bitwise) at ragged batches and word widths in both fetch modes,
-and a packed-tier training bitwise equal to a dense-tier one.
+and a packed-tier training bitwise equal to a dense-tier one; captured
+steps against eager ones; the host loader's batches on the card equal to
+the CPU's, training against a target matrix (host loader and dual CSRs,
+dense and tied sparse tables) and its validation loss on the card against
+the CPU, and captured training bitwise the same with validation between
+its epochs.
 
 Every test skips where ``torch.cuda.is_available()`` is False. The file
 imports neither jax nor the JAX package, so it also runs on a machine
@@ -809,3 +814,97 @@ def test_failed_capture_raises(cuda, monkeypatch):
   with pytest.raises(RuntimeError, match='refused under capture'):
     _capture_train(tr, _capture_data(), 16, True, 'users', num_epochs=1)
   assert not tr._graphs
+
+
+# -- the host loader, target training and validation ------------------------
+
+def _target_data(seed=0):
+  rng = np.random.default_rng(seed)
+  m = sp.csr_matrix((rng.random((70, 260)) < 0.06).astype(np.float32))
+  t = sp.csr_matrix((rng.random((70, 260)) < 0.03).astype(np.float32)
+                    * rng.integers(1, 4, size=(70, 260)))
+  return m, t
+
+
+def test_host_batches_on_the_card_equal_the_cpu(cuda):
+  """The staged batches that reach the card (pinned memory, a copy
+  stream, an event) hold what the CPU's hold, from two collation
+  workers, over two passes."""
+  from recoder_tpu_torch.data import (RecommendationDataLoader,
+                                      RecommendationDataset)
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+
+  m, t = _target_data()
+  got = {}
+  for device in ('cpu', cuda):
+    tr = Recoder(DynamicAutoencoder([8]), device=device)
+    loader = RecommendationDataLoader(RecommendationDataset(m, t),
+                                      batch_size=16, negative_sampling=True,
+                                      num_sampling_users=32, num_workers=2,
+                                      seed=4)
+    got[str(device)] = [list(tr._device_batch_iter(loader, depth=2))
+                        for _ in range(2)]
+  for a_pass, b_pass in zip(got['cuda'], got['cpu']):
+    assert len(a_pass) == len(b_pass) == 5
+    for a, b in zip(a_pass, b_pass):
+      assert a.keys() == b.keys()
+      for k, v in b.items():
+        if torch.is_tensor(v):
+          assert a[k].is_cuda and torch.equal(a[k].cpu(), v), k
+        else:
+          assert a[k] == v, k
+
+
+@pytest.mark.parametrize('shuffle', ['users', 'blocks'])
+@pytest.mark.parametrize('sparse', [False, True])
+def test_target_training_on_cuda_matches_cpu(cuda, shuffle, sparse):
+  """Training against a target matrix (host loader in 'users' mode, dual
+  CSRs in 'blocks' mode), a tied decoder, noise off: the per-step losses
+  and the validation loss on the card (kernels) follow the CPU run
+  (plain twins) within rtol 1e-4."""
+  from recoder_tpu_torch.data import (RecommendationDataLoader,
+                                      RecommendationDataset)
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  from recoder_tpu_torch.ops import row_scatter as rs
+
+  m, t = _target_data(1)
+  out = {}
+  for device in ('cpu', cuda):
+    tr = Recoder(DynamicAutoencoder([32], is_constrained=True,
+                                    sparse=sparse),
+                 optimizer_type='adam', loss='mse',
+                 loss_params={'confidence': 3}, device=device)
+    rs.LAUNCHES['row_scatter'] = 0
+    tr.train(RecommendationDataset(m, t), batch_size=16, lr=1e-3,
+             negative_sampling=True, shuffle=shuffle, num_epochs=1)
+    out[str(device)] = (tr.last_epoch_losses, tr._validate(
+        RecommendationDataLoader(RecommendationDataset(t, m), batch_size=16,
+                                 negative_sampling=True, seed=7)),
+        rs.LAUNCHES['row_scatter'])
+  assert len(out['cpu'][0]) == 5
+  np.testing.assert_allclose(out['cuda'][0], out['cpu'][0], rtol=1e-4)
+  np.testing.assert_allclose(out['cuda'][1], out['cpu'][1], rtol=1e-4)
+  # the tied table over two unions: one row scatter a step
+  assert out['cuda'][2] == (5 if sparse else 0)
+
+
+def test_validation_keeps_captured_training_bitwise(cuda):
+  """eval_freq=1 against eval_freq=0, captured full-decode steps with
+  noise: bitwise the same trajectory, and no graph captured again after
+  a validation."""
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.metrics import Recall
+
+  data = _capture_data()
+  m = data.interactions_matrix
+  val = RecommendationDataset(m[:40], m[40:80])
+  runs = []
+  for eval_freq in (1, 0):
+    tr = _capture_train(_capture_trainer(cuda, 'bfloat16'), data, 16, True,
+                        'blocks', val_dataset=val, eval_freq=eval_freq,
+                        metrics=[Recall(5)], eval_num_recommendations=5)
+    runs.append(tr)
+  assert runs[0].captures == runs[1].captures == 2
+  _assert_bitwise_trainers(*runs)

@@ -2,8 +2,9 @@
 module of ``recoder_tpu_torch`` imports, a tiny training step (float32,
 and bf16 compute with bf16 moments), the synthetic data, a tiny
 iALS fit, fold-in and recommend, a sparse-table and a dense union
-training, a row scatter, a training from the bit-packed slab and its row
-unpack run on the CPU, and afterwards neither JAX nor the JAX package is
+training, target training with validation through the host loader and
+the dual CSRs, a row scatter, a training from the bit-packed slab and its
+row unpack run on the CPU, and afterwards neither JAX nor the JAX package is
 loaded."""
 
 import os
@@ -70,6 +71,17 @@ SCRIPT = textwrap.dedent('''
              negative_sampling=True, slab_cache='packed', full_decode=True)
     assert tr.fused_data_source._slab_packed
     assert all(np.isfinite(tr.last_epoch_losses))
+    from recoder_tpu_torch.metrics import Recall
+    t = sp.csr_matrix((np.random.default_rng(1).random((20, 30)) < 0.1)
+                      .astype(np.float32))
+    for shuffle in ('users', 'blocks'):
+        tr = Recoder(DynamicAutoencoder([8], noise_prob=0.5),
+                     optimizer_type='adam', loss='mse', device='cpu')
+        tr.train(RecommendationDataset(m, t), batch_size=8, num_epochs=2,
+                 negative_sampling=True, shuffle=shuffle,
+                 val_dataset=RecommendationDataset(t, m), eval_freq=1,
+                 metrics=[Recall(5)], eval_num_recommendations=5)
+        assert all(np.isfinite(tr.last_epoch_losses))
     from recoder_tpu_torch.ops.packed_rows import unpack_rows
     rows, col_mask = unpack_rows(torch.tensor([[-1]], dtype=torch.int32), 31,
                                  start=0, count=1)
