@@ -13,7 +13,8 @@ Phases, each of which raises on failure:
                 the ptxas report of each kernel, and the tensor-core
                 instructions (HMMA / HGMMA) of each decode-loss kernel
                 counted in the library's SASS (cuobjdump -sass): a
-                decode-loss kernel without any, or with register spills,
+                decode-loss kernel without any (a wgmma kernel of the
+                bf16 route without HGMMA), or with register spills,
                 fails; the SPD-solve kernel's registers, shared memory
                 and resident blocks an SM at d = 128 and 256, and the
                 Adam kernel's registers: a spill there fails too.
@@ -98,10 +99,15 @@ Phases, each of which raises on failure:
                 must reach the pinned metrics, identical after a reload
                 into a sparse and into a dense model.
  14. bf16 kernels -- the bf16 variant of the decode-loss kernels against
-                its plain version ('mse' c=0, c=3, 'logistic'; the ragged
-                and the ML-20M shape; loss rtol 1e-2, gradients within
-                2e-2 in relative Frobenius norm), and the fused
-                bf16-moment Adam kernel against its plain version for 5
+                its plain version ('mse' c=0, c=3, 'logistic'; loss rtol
+                1e-2, gradients within 2e-2 in relative Frobenius norm),
+                each case run twice (bitwise equal): the ragged shape and
+                an MSD union width [500, 200, 18,117] on the mma.sync
+                kernels, the ML-20M shape and an aligned [480, 200,
+                18,120] on the wgmma kernels (each route's counters
+                checked); both sets timed in turns at the ML-20M shape;
+                and the
+                fused bf16-moment Adam kernel against its plain version for 5
                 steps over the ML-20M parameter set and a ragged length
                 (m and v within 1 bf16 ulp, p within 2 float32 ulps);
                 device times of kernel and plain in turns, each beside its
@@ -112,7 +118,7 @@ Phases, each of which raises on failure:
                 (compute_dtype='bfloat16', opt_state_dtype='bfloat16'):
                 one epoch, steady epochs, a profile of steady steps beside
                 phase 4's float32 figures, recommend and a checkpoint
-                round trip; each bf16 decode-loss kernel and the Adam
+                round trip; the wgmma decode-loss kernels and the Adam
                 kernel launched once a step. Then phase 5 at bf16: 20
                 'mse' steps through the kernels and through the plain
                 decode + loss (rtol 1e-2).
@@ -162,7 +168,8 @@ Phases, each of which raises on failure:
                 host dispatches an epoch, peak device memory, and each
                 hand kernel of the cell once a step, by name, in a
                 profile of 64 replayed steps (the Python launch counters
-                do not see inside a graph).
+                do not see inside a graph): at ML-20M the wgmma
+                decode-loss kernels.
  21. validation -- on a seeded 80/20 split of each user's interactions of
                 the ML-20M-shaped CSR: bench.py's ML-20M default
                 (captured) trains 2 epochs on the 80% input with
@@ -171,7 +178,8 @@ Phases, each of which raises on failure:
                 eval_num_recommendations=100 on 10,000 users, and 2 epochs
                 without validation: bitwise equal, no graph captured
                 again after a validation, one no-E0 bf16 forward launch a
-                validation batch and no backward; the validation seconds
+                validation batch (of the route its union width takes)
+                and no backward; the validation seconds
                 and val batches/s an epoch, a profiled validation (the
                 device-idle share, the forward kernel once a batch), the
                 val loss through the kernel against the plain decode +
@@ -181,7 +189,8 @@ Phases, each of which raises on failure:
                 confidence 3, float32 and bf16 (with bf16 moments), through
                 the host loader ('users') and the dual CSRs ('blocks'):
                 one epoch with the decode-loss kernels (and Adam's at
-                bf16) once a step, whose first 20 losses must agree with
+                bf16; either bf16 route, by the union's width) once a
+                step, whose first 20 losses must agree with
                 20 steps of the plain path (the plain decode + loss, and
                 at bf16 Adam's plain twin: each loss after the first reads
                 the backward passes and optimizer steps before it); a
@@ -230,6 +239,10 @@ SOURCES = {
         'recoder_tpu_torch/kernels/fused_decode_loss.cu',
     'fused_decode_loss_bwd_bf16':
         'recoder_tpu_torch/kernels/fused_decode_loss.cu',
+    'fused_decode_loss_fwd_bf16_wgmma':
+        'recoder_tpu_torch/kernels/fused_decode_loss.cu',
+    'fused_decode_loss_bwd_bf16_wgmma':
+        'recoder_tpu_torch/kernels/fused_decode_loss.cu',
     'adam_bf16': 'recoder_tpu_torch/kernels/adam.cu',
     'packed_rows': 'recoder_tpu_torch/kernels/packed_rows.cu',
 }
@@ -240,6 +253,10 @@ REPLACES = {
     'row_scatter': 'recoder_tpu/experiments/block_scatter.py:136',
     'fused_decode_loss_fwd_bf16': 'recoder_tpu/experiments/pallas_loss.py:145',
     'fused_decode_loss_bwd_bf16': 'recoder_tpu/experiments/pallas_loss.py:165',
+    'fused_decode_loss_fwd_bf16_wgmma':
+        'recoder_tpu/experiments/pallas_loss.py:145',
+    'fused_decode_loss_bwd_bf16_wgmma':
+        'recoder_tpu/experiments/pallas_loss.py:165',
     # no Pallas ancestor: the adam branch of the JAX Optimizer.update
     'adam_bf16': 'recoder_tpu/optim.py:157',
     # no Pallas ancestor: the packed tier's row fetch and _unpack_rows
@@ -251,7 +268,14 @@ PINNED = {'Recall@20': 0.1417, 'Recall@50': 0.2393, 'NDCG@100': 0.1684}
 #: the decode-loss kernels of the training step (kernels/fused_decode_loss.cu)
 DECODE_LOSS_KERNELS = ('decode_loss_fwd_kernel', 'drows_dbias_kernel',
                        'dh_splitk_kernel', 'decode_loss_fwd_bf16_kernel',
-                       'drows_dbias_bf16_kernel', 'dh_splitk_bf16_kernel')
+                       'drows_dbias_bf16_kernel', 'dh_splitk_bf16_kernel',
+                       'decode_loss_fwd_bf16_wgmma_kernel',
+                       'drows_dbias_bf16_wgmma_kernel', 'dh_bf16_wgmma_kernel')
+#: the launch counters of each bf16 decode-loss route
+BF16_ROUTE_COUNTERS = {
+    'mma': ('fused_decode_loss_fwd_bf16', 'fused_decode_loss_bwd_bf16'),
+    'wgmma': ('fused_decode_loss_fwd_bf16_wgmma',
+              'fused_decode_loss_bwd_bf16_wgmma')}
 #: published peaks of one H100 SXM: TF32 tensor cores (the fastest rate
 #: at which it takes float32 operands), bf16 tensor cores (dense) and HBM3
 PEAK_FLOPS = 495e12
@@ -356,8 +380,9 @@ def phase_build():
       say(f'  {func}: {n} tensor-core instructions (HMMA/HGMMA); stack '
           f'frame {stack} B, spill stores {stores} B, spill loads {loads} '
           f'B; most frequent opcodes {dict(ops.most_common(8))}')
-      if n == 0:
-        raise AssertionError(f'{func} has no tensor-core instruction')
+      if n == 0 or ('wgmma' in kernel and ops['HGMMA'] == 0):
+        raise AssertionError(f'{func} has no tensor-core instruction '
+                             '(a wgmma kernel: no HGMMA)')
       if stores is None or stores or loads:
         raise AssertionError(f'{func}: register spills, or no ptxas report')
 
@@ -453,18 +478,20 @@ def _close(got, ref, rtol, atol):
 
 
 def compare_kernel(B, d, W, kind, confidence, device, target_dtype=None,
-                   compute_dtype=None):
+                   compute_dtype=None, route=None):
   """Kernel loss and gradients against autograd through the plain
   version; returns the largest abs errors (loss, grads) and the kernel's
   (loss, dh, drows, dbias). The bf16 variant (``compute_dtype``) is held
   to loss rtol 1e-2 and gradients within 2e-2 in relative Frobenius
-  norm."""
+  norm; ``route``: the bf16 kernels ('wgmma' or 'mma') that must have
+  launched, once each way."""
   import torch
   from recoder_tpu_torch.ops.fused_decode_loss import (
-      fused_decode_loss, fused_decode_loss_plain)
+      LAUNCHES, fused_decode_loss, fused_decode_loss_plain)
   h, rows, bias, target, rm, cm = make_problem(B, d, W, device)
   if target_dtype is not None:
     target = target.to(target_dtype)
+  before = dict(LAUNCHES)
   results = {}
   for name, fn in (('kernel', fused_decode_loss),
                    ('plain', fused_decode_loss_plain)):
@@ -476,6 +503,12 @@ def compare_kernel(B, d, W, kind, confidence, device, target_dtype=None,
   bf16 = compute_dtype is not None
   what = (f'{kind} c={confidence} [{B},{d},{W}] target {target.dtype}'
           f'{" bf16 compute" if bf16 else ""}')
+  if route is not None:
+    ran = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    for r, names in BF16_ROUTE_COUNTERS.items():
+      if any(ran[n] != (r == route) for n in names):
+        raise AssertionError(f'{what}: launches {ran}, expected the {route} '
+                             'kernels once each')
   ok, loss_err = _close(lk, lp, BF16_LOSS_RTOL if bf16 else LOSS_RTOL, 0.0)
   if not ok:
     raise AssertionError(f'{what}: loss {float(lk)} vs plain {float(lp)}')
@@ -493,8 +526,9 @@ def compare_kernel(B, d, W, kind, confidence, device, target_dtype=None,
     if not ok:
       raise AssertionError(f'{what}: {gname} max abs err {err}')
   say(f'  {kind:8s} c={confidence:<3} [{B}, {d}, {W}] {str(target.dtype)[6:]:8s}'
-      f'{" bf16" if bf16 else ""}: loss {float(lk):.6g} (plain '
-      f'{float(lp):.6g}), max abs err loss {loss_err:.3g} grads '
+      f'{" bf16" if bf16 else ""}{f" ({route})" if route else ""}: loss '
+      f'{float(lk):.6g} (plain {float(lp):.6g}), max abs err loss '
+      f'{loss_err:.3g} grads '
       f'{grad_err:.3g}')
   return loss_err, grad_err, results['kernel']
 
@@ -582,12 +616,16 @@ def decode_loss_bounds(B, d, W, target_bytes=4, bf16=False):
 
 
 def time_kernel(B, d, W, kind, confidence, device, compute_dtype=None,
-                target_dtype=None):
+                target_dtype=None, routes=('kernel',)):
   """Forward (writing E0, as training runs it), forward under no_grad,
-  backward from E0 and forward+backward through autograd, kernel and
-  plain, at one shape. Each is timed by its device time (profiler) and
-  by the median of CUDA events, in turns plain, kernel, kernel, plain;
-  returns {'device'|'events': {'kernel'|'plain': {step: mean ms}}}."""
+  backward from E0 and forward+backward, of each kernel set in
+  ``routes`` and of the plain version, at one shape: 'kernel' is the
+  route the wrapper picks (forward+backward through autograd), 'wgmma'
+  and 'mma' force that set of bf16 kernels (forward+backward as the two
+  calls). Each is timed by its
+  device time (profiler) and by the median of CUDA events, in turns
+  plain, routes..., routes reversed, plain; returns {'device'|'events':
+  {name: {step: mean ms}}}."""
   import torch
   from recoder_tpu_torch.ops import fused_decode_loss as fdl
   h, rows, bias, target, rm, cm = make_problem(B, d, W, device)
@@ -595,8 +633,6 @@ def time_kernel(B, d, W, kind, confidence, device, compute_dtype=None,
     target = target.to(target_dtype)
   g = torch.ones((), device=device)
   args = (target, rm, cm, kind, confidence, compute_dtype)
-  _, e0 = fdl._kernel_forward(h, rows, bias, *args, True)
-  _, e0_plain = fdl._plain_forward(h, rows, bias, *args, True)
   leaves = [x.clone().requires_grad_(True) for x in (h, rows, bias)]
 
   def fwd_bwd(fn):
@@ -606,22 +642,33 @@ def time_kernel(B, d, W, kind, confidence, device, compute_dtype=None,
       fn(*leaves, *args).backward()
     return run
 
-  steps = {
-      'kernel': {
-          'fwd': lambda: fdl._kernel_forward(h, rows, bias, *args, True),
-          'fwd_nograd': lambda: fdl._kernel_forward(h, rows, bias, *args,
-                                                    False),
-          'bwd': lambda: fdl._kernel_backward(g, e0, h, rows),
-          'fwd_bwd': fwd_bwd(fdl.fused_decode_loss)},
-      'plain': {
-          'fwd': lambda: fdl._plain_forward(h, rows, bias, *args, True),
-          'fwd_nograd': lambda: fdl._plain_forward(h, rows, bias, *args,
-                                                   False),
-          'bwd': lambda: fdl._plain_backward(g, e0_plain, h, rows),
-          'fwd_bwd': fwd_bwd(fdl.fused_decode_loss_plain)}}
+  def kernel_steps(route):
+    r = None if route == 'kernel' else route
+
+    def fwd(stash):
+      return fdl._kernel_forward(h, rows, bias, *args, stash, route=r)
+
+    _, e0, copies = fwd(True)
+
+    def pair():
+      _, e, c = fwd(True)
+      return fdl._kernel_backward(g, e, h, rows, c)
+
+    return {'fwd': lambda: fwd(True),
+            'fwd_nograd': lambda: fwd(False),
+            'bwd': lambda: fdl._kernel_backward(g, e0, h, rows, copies),
+            'fwd_bwd': fwd_bwd(fdl.fused_decode_loss) if r is None else pair}
+
+  _, e0_plain = fdl._plain_forward(h, rows, bias, *args, True)
+  steps = {route: kernel_steps(route) for route in routes}
+  steps['plain'] = {
+      'fwd': lambda: fdl._plain_forward(h, rows, bias, *args, True),
+      'fwd_nograd': lambda: fdl._plain_forward(h, rows, bias, *args, False),
+      'bwd': lambda: fdl._plain_backward(g, e0_plain, h, rows),
+      'fwd_bwd': fwd_bwd(fdl.fused_decode_loss_plain)}
   runs = {how: {name: {step: [] for step in steps[name]} for name in steps}
           for how in ('device', 'events')}
-  for name in ('plain', 'kernel', 'kernel', 'plain'):
+  for name in ('plain', *routes, *reversed(routes), 'plain'):
     for step, fn in steps[name].items():
       runs['device'][name][step].append(device_ms(fn))
       runs['events'][name][step].append(median_ms(fn))
@@ -630,20 +677,23 @@ def time_kernel(B, d, W, kind, confidence, device, compute_dtype=None,
 
 
 def report_times(times, shape, what, target_bytes=4, bf16=False):
-  """Print kernel and plain times, and each kernel's bound and share."""
+  """Print each kernel set's and the plain version's times, and each
+  kernel set's bound and share."""
   B, d, W = shape
   bounds = decode_loss_bounds(B, d, W, target_bytes, bf16)
+  names = [n for n in times['device'] if n != 'plain'] + ['plain']
   for how in ('device', 'events'):
-    for name in ('kernel', 'plain'):
+    for name in names:
       t = times[how][name]
       say(f'  {how:7s} {name:6s} {what}: fwd {t["fwd"]:.4f} ms (no_grad '
           f'{t["fwd_nograd"]:.4f}), bwd {t["bwd"]:.4f} ms, fwd+bwd '
           f'{t["fwd_bwd"]:.4f} ms')
-  for step in ('fwd', 'fwd_nograd', 'bwd', 'fwd_bwd'):
-    ms = times['device']['kernel'][step]
-    b_ms, by = bounds[step]
-    say(f'  {step}: bound {b_ms:.4f} ms ({by}); kernel at '
-        f'{100 * b_ms / ms:.1f}% of it (device time)')
+  for name in names[:-1]:
+    for step in ('fwd', 'fwd_nograd', 'bwd', 'fwd_bwd'):
+      ms = times['device'][name][step]
+      b_ms, by = bounds[step]
+      say(f'  {name} {step}: bound {b_ms:.4f} ms ({by}); at '
+          f'{100 * b_ms / ms:.1f}% of it (device time)')
 
 
 def phase_kernels(device='cuda', ragged=(37, 24, 1000),
@@ -740,8 +790,8 @@ def phase_slice(matrix, device='cuda', epochs_timed=2, compute_dtype=None,
                     opt_state_dtype=opt_state_dtype)
   if compute_dtype is None:
     kernels = ('fused_decode_loss_fwd', 'fused_decode_loss_bwd')
-  else:
-    kernels = ('fused_decode_loss_fwd_bf16', 'fused_decode_loss_bwd_bf16')
+  else:  # (the full-decode width 20,224 and a bf16 slab: the wgmma route)
+    kernels = BF16_ROUTE_COUNTERS['wgmma']
   if opt_state_dtype is not None:
     kernels += ('adam_bf16',)
   reset_launches()
@@ -1392,7 +1442,10 @@ def profile_steps(trainer, dataset, train_kw, steps=16, spc=1,
                  and 'spin_kernel' not in ev.key), reverse=True)
   busy = sum(r[0] for r in rows)
   launches = sum(r[1] for r in rows) / steps
-  counts = {name: sum(count for _, count, key in rows if name in key)
+  # (a name may be a tuple of alternatives: either route's kernel)
+  counts = {name: sum(count for _, count, key in rows
+                      if any(n in key for n in (
+                          name if isinstance(name, tuple) else (name,))))
             for name in kernels}
   if any(v != steps for v in counts.values()):
     say(f'  (kernels of the window, by count: '
@@ -1669,17 +1722,29 @@ def time_adam(shapes, device):
 
 
 def phase_bf16_kernels(device='cuda', ragged=(37, 24, 1000),
-                       full=(500, 200, 20224), ragged_adam=1_000_003):
+                       full=(500, 200, 20224), union=(500, 200, 18117),
+                       aligned=(480, 200, 18120), ragged_adam=1_000_003):
   import torch
   cases = [('mse', 0.0), ('mse', 3.0), ('logistic', 0.0)]
-  errs = []
-  for shape in (ragged, full):
+  errs = {'mma': [], 'wgmma': []}
+  for shape, route in ((ragged, 'mma'), (union, 'mma'), (full, 'wgmma'),
+                       (aligned, 'wgmma')):
     for kind, c in cases:
-      errs.append(compare_kernel(*shape, kind, c, device, torch.bfloat16,
-                                 'bfloat16')[:2])
-  times = time_kernel(*full, 'mse', 3.0, device, 'bfloat16', torch.bfloat16)
+      *err, first = compare_kernel(*shape, kind, c, device, torch.bfloat16,
+                                   'bfloat16', route)
+      *_, again = compare_kernel(*shape, kind, c, device, torch.bfloat16,
+                                 'bfloat16', route)
+      if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f'{kind} c={c} {shape} ({route}): two runs '
+                             'differ')
+      errs[route].append(err)
+  say('  two runs of each case bitwise equal')
+  times = time_kernel(*full, 'mse', 3.0, device, 'bfloat16', torch.bfloat16,
+                      routes=('wgmma', 'mma'))
   report_times(times, full, f'bf16 mse c=3 {list(full)}', target_bytes=2,
                bf16=True)
+  errs = {r: (max(e[0] for e in v), max(e[1] for e in v))
+          for r, v in errs.items()}
   adam_err = max(check_adam(ML20M_PARAM_SHAPES, device),
                  check_adam(((ragged_adam,),), device))
   n = sum(int(np.prod(sh)) for sh in ML20M_PARAM_SHAPES)
@@ -1692,8 +1757,7 @@ def phase_bf16_kernels(device='cuda', ragged=(37, 24, 1000),
       f'{k} {v:.4f} ms' for k, v in adam_times.items())
       + f'; bound {adam_bound[0]:.4f} ms ({adam_bound[1]}: 20 B a parameter);'
       f' kernel at {100 * adam_bound[0] / adam_times["kernel"]:.1f}% of it')
-  return (times, (max(e[0] for e in errs), max(e[1] for e in errs)),
-          adam_err, adam_times, adam_bound)
+  return times, errs, adam_err, adam_times, adam_bound
 
 
 # -- phase 17 --------------------------------------------------------------
@@ -1920,8 +1984,12 @@ def phase_packed_quality(train_m, val_m):
 
 #: the hand kernels of each captured cell, by the names in the profile
 CELL_KERNELS = {
-    'ml20m': ('decode_loss_fwd_bf16_kernel', 'drows_dbias_bf16_kernel',
-              'dh_splitk_bf16_kernel', 'adam_bf16_kernel'),
+    # (each once a step, and either bf16 route's kernel once a step in
+    # all: the mma.sync set never)
+    'ml20m': ('decode_loss_fwd_bf16_wgmma_kernel',
+              'drows_dbias_bf16_wgmma_kernel', 'dh_bf16_wgmma_kernel',
+              'adam_bf16_kernel', 'decode_loss_fwd_bf16', 'drows_dbias_bf16',
+              ('dh_splitk_bf16', 'dh_bf16_wgmma')),
     'msd': ('packed_rows_kernel', 'adam_bf16_kernel'),
 }
 #: the kernels of the float32 fixture step (dense tier, mse)
@@ -2118,8 +2186,8 @@ def phase_capture(train_m, ml20m_cell, msd_cell):
 #: a profile
 F32_STEP_KERNELS = ('decode_loss_fwd_kernel', 'drows_dbias_kernel',
                     'dh_splitk_kernel')
-BF16_STEP_KERNELS = ('decode_loss_fwd_bf16_kernel', 'drows_dbias_bf16_kernel',
-                     'dh_splitk_bf16_kernel', 'adam_bf16_kernel')
+BF16_STEP_KERNELS = ('decode_loss_fwd_bf16', 'drows_dbias_bf16',
+                     ('dh_splitk_bf16', 'dh_bf16_wgmma'), 'adam_bf16_kernel')
 
 
 def split_held_out(matrix, fraction=0.2, seed=0):
@@ -2166,7 +2234,8 @@ def profile_validation(trainer, loader, kernel):
   busy = sum(getattr(ev, 'self_device_time_total', 0) for ev in kernels) / 1e3
   count = sum(ev.count for ev in kernels if kernel in ev.key)
   backward = sum(ev.count for ev in kernels
-                 if 'drows_dbias' in ev.key or 'dh_splitk' in ev.key)
+                 if any(k in ev.key for k in ('drows_dbias', 'dh_splitk',
+                                              'dh_bf16_wgmma')))
   return wall_ms, 1 - busy / wall_ms, count, backward, markers_seen(events)
 
 
@@ -2235,18 +2304,24 @@ def phase_validation(matrix, held_out, device='cuda'):
                          f'{plain.captures}')
   if not _same_state(tr, plain):
     raise AssertionError('eval_freq=1 and eval_freq=0 trained differently')
-  # eager launches: the warm-up steps, and one forward a validation batch
-  fwd, bwd = (counts['fused_decode_loss_fwd_bf16'],
-              counts['fused_decode_loss_bwd_bf16'])
+  # eager launches: the warm-up steps (the wgmma kernels: full decode),
+  # and one forward a validation batch (of the route its union width
+  # takes)
+  def total(c, i):
+    return sum(c[names[i]] for names in BF16_ROUTE_COUNTERS.values())
+
+  fwd, bwd = total(counts, 0), total(counts, 1)
   if fwd - bwd != 2 * n_val or bwd < 1 or counts['adam_bf16'] != bwd or \
-      counts0['fused_decode_loss_fwd_bf16'] != bwd:
+      total(counts0, 0) != bwd or total(counts0, 1) != bwd:
     raise AssertionError(f'launches with validation {counts}, without '
                          f'{counts0}: expected {2 * n_val} more forwards')
+  timing['forwards_per_batch'] = {
+      fw: (counts[fw] - counts[bw]) / (2 * n_val)
+      for fw, bw in BF16_ROUTE_COUNTERS.values()}
   say(f'  captured and eager-warm-up training bitwise equal with and without'
       f' validation; the graphs survived it ({tr.captures} captures either '
       f'way); {fwd - bwd} no-E0 forwards in 2 validations of {n_val} '
-      'batches')
-  timing['forwards_per_batch'] = (fwd - bwd) / (2 * n_val)
+      f'batches, a batch by route {timing["forwards_per_batch"]}')
   for epoch, (v, m) in enumerate(zip(timing['val'], timing['metrics']), 1):
     say(f'  epoch {epoch} validation: val loss {v:.3f} s ({n_val / v:.1f} val '
         f'batches/s), metrics on 10,000 users {m:.3f} s')
@@ -2255,7 +2330,7 @@ def phase_validation(matrix, held_out, device='cuda'):
   for _ in range(3):  # (the profiler at times drops a device event)
     wall_ms, idle, launches, backward, markers = profile_validation(
         tr, RecommendationDataLoader(val_ds, seed=3, **kw),
-        'decode_loss_fwd_bf16_kernel')
+        'decode_loss_fwd_bf16')
     if launches == n_val:
       break
   if launches != n_val or backward:
@@ -2263,8 +2338,8 @@ def phase_validation(matrix, held_out, device='cuda'):
                          f'{backward} backward kernels in {n_val} batches')
   say(f'  profiled validation ({markers} of {MARKERS} opening markers kept): '
       f'{wall_ms:.1f} ms for {n_val} batches, the device idle '
-      f'{100 * idle:.1f}%; decode_loss_fwd_bf16_kernel x{launches}, no '
-      'backward kernel')
+      f'{100 * idle:.1f}%; bf16 forward kernels (either route) x{launches}, '
+      'no backward kernel')
   loaders = [RecommendationDataLoader(val_ds, seed=5, **kw) for _ in range(2)]
   got = tr._validate(loaders[0])
   with mock.patch.object(tr, '_fused_kind', return_value=None):
@@ -2376,11 +2451,12 @@ def phase_target(matrix, held_out, device='cuda', compared=20):
 
   dataset = RecommendationDataset(matrix, held_out)
   steps = -(-matrix.shape[0] // 500)
-  out, launch_rates, workers = {}, {}, {}
+  out, workers, totals, epochs = {}, {}, {}, {}
   for cd in (None, 'bfloat16'):
-    names = ('fused_decode_loss_fwd', 'fused_decode_loss_bwd')
-    names = tuple(n + '_bf16' for n in names) if cd else names
-    names += ('adam_bf16',) if cd else ()
+    if cd:  # (a union width takes either bf16 route)
+      names = sum(BF16_ROUTE_COUNTERS.values(), ()) + ('adam_bf16',)
+    else:
+      names = ('fused_decode_loss_fwd', 'fused_decode_loss_bwd')
     profiled = BF16_STEP_KERNELS if cd else F32_STEP_KERNELS
     rtol = BF16_PATHS_RTOL if cd else PATHS_RTOL
     for shuffle in ('users', 'blocks'):
@@ -2401,11 +2477,19 @@ def phase_target(matrix, held_out, device='cuda', compared=20):
       first_s = time.time() - t0
       counts = read_launches()
       launches = {k: counts[k] for k in names}
-      if any(v != steps for v in launches.values()) or any(
-          v for k, v in counts.items() if k not in names):
+      if cd:
+        pairs = BF16_ROUTE_COUNTERS.values()
+        once = (sum(counts[f] for f, _ in pairs) == steps
+                and counts['adam_bf16'] == steps
+                and all(counts[f] == counts[b] for f, b in pairs))
+      else:
+        once = all(v == steps for v in launches.values())
+      if not once or any(v for k, v in counts.items() if k not in names):
         raise AssertionError(f'{cd} {shuffle}: launches in an epoch of '
                              f'{steps} steps: {counts}')
-      launch_rates.update({k: v / steps for k, v in launches.items()})
+      for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+        epochs[k] = epochs.get(k, 0) + 1
       host = tr._train_iterator is not None
       dual = tr.fused_data_source is not None and \
           tr.fused_data_source.target_matrix is not None
@@ -2503,8 +2587,9 @@ def phase_target(matrix, held_out, device='cuda', compared=20):
         f'over the folded input and target unions each: launches {want}; '
         f'losses vs the plain path (plain loss, plain row scatter) max rel '
         f'{rel:.3g}; en_embedding relative Frobenius {table_rel:.3g}')
+  launch_rates = {k: v / (epochs[k] * steps) for k, v in totals.items()}
   launch_rates['row_scatter'] = counts['row_scatter'] / compared
-  return out, workers, launch_rates
+  return out, workers, launch_rates, totals
 
 
 # -- main ------------------------------------------------------------------
@@ -2586,7 +2671,7 @@ def main():
   _, union_times = run('12 union paths', phase_union_paths, train_m,
                        int(round(widths.mean())))
   run('13 sparse quality', phase_sparse_quality, train_m, val_m)
-  (bf16_times, (bf16_loss_err, bf16_grad_err), adam_err, adam_times,
+  (bf16_times, bf16_errs, adam_err, adam_times,
    adam_bound) = run('14 bf16 kernels', phase_bf16_kernels)
   matrix = synthetic.synthesize_ml20m()
   bf16_launches, bf16_first, bf16_rates, bf16_busy_ms, ml20m_cell = run(
@@ -2612,19 +2697,23 @@ def main():
       f'held out {held_out.nnz:,} ({time.time() - t0:.1f} s)')
   val_timing, val_rates, val_profile = run('21 validation', phase_validation,
                                            matrix, held_out)
-  target_rates, workers, target_per_step = run(
+  target_rates, workers, target_per_step, target_launches = run(
       '22 target training', phase_target, matrix, held_out)
+  # the mma.sync bf16 kernels' path: the union widths of bf16 target
+  # training
+  launches.update({k: target_launches[k]
+                   for k in BF16_ROUTE_COUNTERS['mma']})
   del matrix, held_out
   # launches a step inside captured replays, by the profiles' names
   replayed = {
       'fused_decode_loss_fwd': f32_replays['decode_loss_fwd_kernel'],
       'fused_decode_loss_bwd': f32_replays['drows_dbias_kernel'],
-      'fused_decode_loss_fwd_bf16':
+      'fused_decode_loss_fwd_bf16_wgmma':
           cells['ml20m'][1]['captured']['counts'][
-              'decode_loss_fwd_bf16_kernel'] / 64,
-      'fused_decode_loss_bwd_bf16':
+              'decode_loss_fwd_bf16_wgmma_kernel'] / 64,
+      'fused_decode_loss_bwd_bf16_wgmma':
           cells['ml20m'][1]['captured']['counts'][
-              'drows_dbias_bf16_kernel'] / 64,
+              'drows_dbias_bf16_wgmma_kernel'] / 64,
       'adam_bf16': cells['ml20m'][1]['captured']['counts'][
           'adam_bf16_kernel'] / 64,
       'packed_rows': cells['msd'][1]['captured']['counts'][
@@ -2659,14 +2748,25 @@ def main():
           scatter_times['plain'],
           bound(0.0, 3 * 2 * n_ids * d_msd * 4.0 + 8 * n_ids),
           launches['row_scatter'] / msd_steps),
+      # the mma.sync set timed at the full-decode shape (forced there)
+      # beside the wgmma set; its launches are those of phase 22's bf16
+      # target training, whose union widths it takes
       'fused_decode_loss_fwd_bf16': (
-          bf16_loss_err, bdev['kernel']['fwd'], bdev['plain']['fwd'], None,
-          bf16_bounds['fwd'],
-          launches['fused_decode_loss_fwd_bf16'] / ml20m_steps),
+          bf16_errs['mma'][0], bdev['mma']['fwd'], bdev['plain']['fwd'],
+          None, bf16_bounds['fwd'],
+          target_per_step['fused_decode_loss_fwd_bf16']),
       'fused_decode_loss_bwd_bf16': (
-          bf16_grad_err, bdev['kernel']['bwd'], bdev['plain']['bwd'], None,
-          bf16_bounds['bwd'],
-          launches['fused_decode_loss_bwd_bf16'] / ml20m_steps),
+          bf16_errs['mma'][1], bdev['mma']['bwd'], bdev['plain']['bwd'],
+          None, bf16_bounds['bwd'],
+          target_per_step['fused_decode_loss_bwd_bf16']),
+      'fused_decode_loss_fwd_bf16_wgmma': (
+          bf16_errs['wgmma'][0], bdev['wgmma']['fwd'], bdev['plain']['fwd'],
+          None, bf16_bounds['fwd'],
+          launches['fused_decode_loss_fwd_bf16_wgmma'] / ml20m_steps),
+      'fused_decode_loss_bwd_bf16_wgmma': (
+          bf16_errs['wgmma'][1], bdev['wgmma']['bwd'], bdev['plain']['bwd'],
+          None, bf16_bounds['bwd'],
+          launches['fused_decode_loss_bwd_bf16_wgmma'] / ml20m_steps),
       # no PyTorch call computes bf16-moment Adam (torch.optim.Adam on
       # float32 state, another function, is printed in phase 14)
       'adam_bf16': (
@@ -2689,11 +2789,13 @@ def main():
               # launches a step of training against a target matrix
               # (phase 22), and a validation batch (phase 21)
               'target_launches_per_step': target_per_step.get(name),
-              'validation_launches_per_batch': (
-                  val_timing['forwards_per_batch']
-                  if name == 'fused_decode_loss_fwd_bf16' else None)}
+              'validation_launches_per_batch': val_timing[
+                  'forwards_per_batch'].get(name)}
              for name, (err, ms, plain_ms, library_ms, (bound_ms, by),
                         per_step) in measured.items()]
+  idle = [k['name'] for k in kernels if not k['launches']]
+  if idle:
+    raise AssertionError(f'kernels no path launched: {idle}')
   say(f'slice: {epoch_rate:.2f} user-batches/s first epoch, steady '
       f'{max(steady):.2f}; fused fwd+bwd {dev["kernel"]["fwd_bwd"]:.4f} '
       f'ms vs plain {dev["plain"]["fwd_bwd"]:.4f} ms (device; the pair\'s '
@@ -2710,7 +2812,8 @@ def main():
       f'(bench.py default numerics) first epoch {bf16_first:.2f}, steady '
       f'ml20m_user_batches_per_sec {max(bf16_rates):.2f} '
       f'({bf16_busy_ms:.3f} ms of device time a profiled step), bf16 fused '
-      f'fwd+bwd {bdev["kernel"]["fwd_bwd"]:.4f} vs plain '
+      f'fwd+bwd {bdev["wgmma"]["fwd_bwd"]:.4f} (wgmma) and '
+      f'{bdev["mma"]["fwd_bwd"]:.4f} (mma.sync) vs plain '
       f'{bdev["plain"]["fwd_bwd"]:.4f} ms, adam kernel '
       f'{adam_times["kernel"]:.4f} ms; bf16 quality '
       + '; '.join(', '.join(f'{k} {v:.4f}' for k, v in q.items())

@@ -39,7 +39,12 @@ records launches only. The E0 stash and its routing through
 Routing is by the tensors' device and the compute dtype: CUDA tensors
 launch the kernels of ``kernels/fused_decode_loss.cu`` for that dtype
 (or raise), CPU tensors take the plain versions of the same two steps
-(:func:`_plain_forward`, :func:`_plain_backward`).
+(:func:`_plain_forward`, :func:`_plain_backward`). The bf16 variant has
+two sets of hand kernels, chosen by shape (:func:`bf16_route`): 'wgmma'
+(TMA-fed tiles and warpgroup products, where TMA can describe every
+operand: bench.py's ML-20M step takes it) and 'mma' (the ``mma.sync``
+kernels, which take any shape: the ragged union widths). Each route has
+its launch counters; a call the route does not take raises.
 """
 
 import ctypes
@@ -59,7 +64,12 @@ BF16 = torch.bfloat16
 TARGET_DTYPES = (torch.float32, torch.bfloat16)
 #: kernel launches since the last reset, one count per kernel
 LAUNCHES = {'fused_decode_loss_fwd': 0, 'fused_decode_loss_bwd': 0,
-            'fused_decode_loss_fwd_bf16': 0, 'fused_decode_loss_bwd_bf16': 0}
+            'fused_decode_loss_fwd_bf16': 0, 'fused_decode_loss_bwd_bf16': 0,
+            'fused_decode_loss_fwd_bf16_wgmma': 0,
+            'fused_decode_loss_bwd_bf16_wgmma': 0}
+#: the feature widths d the wgmma kernels are compiled for (the wgmma
+#: width is an immediate; ``kWgD`` in the source): bench.py's ML-20M step
+WGMMA_WIDTHS = (200,)
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
@@ -70,6 +80,18 @@ _CONFIGURED = set()
 def supported(kind):
   """Whether the fused kernel covers this loss."""
   return kind in KINDS
+
+
+def bf16_route(h, rows, target):
+  """Which bf16 kernels take a call of this shape: 'wgmma' where TMA can
+  describe every operand -- a bfloat16 target whose rows are whole
+  16-byte runs (W % 8 == 0), a feature width in ``WGMMA_WIDTHS``, 16-byte
+  aligned rows (read 16 bytes at a time) and target -- else 'mma'. (The kernels read h through a bf16 copy of
+  their own.)"""
+  d, W = h.shape[-1], rows.shape[0]
+  ok = (target.dtype == BF16 and W % 8 == 0 and d in WGMMA_WIDTHS
+        and rows.data_ptr() % 16 == 0 and target.data_ptr() % 16 == 0)
+  return 'wgmma' if ok else 'mma'
 
 
 def _masked_loss_sum(scores, target, row_mask, col_mask, kind, confidence):
@@ -164,6 +186,15 @@ def _lib():
       lib.max_d = lib.fdl_max_d()  # the widest feature axis it takes
       lib.fdl_plan.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
       lib.fdl_plan.restype = i32
+      lib.fdl_plan_wgmma.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+      lib.fdl_plan_wgmma.restype = i32
+      lib.fdl_forward_wgmma.argtypes = ([ptr] * 6 + [i32] * 4 + [f32]
+                                        + [ptr] * 3 + [i32] + [ptr] * 2
+                                        + [i32, ptr])
+      lib.fdl_forward_wgmma.restype = i32
+      lib.fdl_backward_wgmma.argtypes = ([ptr] * 4 + [i32] * 5 + [ptr] * 4
+                                         + [i32, ptr])
+      lib.fdl_backward_wgmma.restype = i32
       lib.fdl_configure.argtypes = [i32]
       lib.fdl_configure.restype = i32
       lib.fdl_error_string.argtypes = [i32]
@@ -199,6 +230,18 @@ def _plan(device_index, B, W, d, bf16):
   return tuple(out)
 
 
+@functools.lru_cache(maxsize=1024)
+def _plan_wgmma(device_index, B, W, d):
+  """(forward blocks and partials, 64-item chunks per dh split, dh
+  splits, E0 row stride, hb row stride) of one shape on the wgmma route:
+  one forward block an SM, about one dh block an SM."""
+  lib = _lib()
+  sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+  out = (ctypes.c_int * 5)()
+  _check(lib, lib.fdl_plan_wgmma(B, W, d, sms, out), 'fdl_plan_wgmma')
+  return tuple(out)
+
+
 def _validate(h, rows, bias, target, row_mask, col_mask, kind, max_d):
   if kind not in KINDS:
     raise ValueError(f'fused decode loss does not cover {kind!r}')
@@ -231,14 +274,21 @@ def _validate(h, rows, bias, target, row_mask, col_mask, kind, max_d):
 
 
 def _kernel_forward(h, rows, bias, target, row_mask, col_mask, kind,
-                    confidence, compute_dtype, stash):
-  """The loss on the card and, when ``stash``, E0 as [B, lde] (its rows
+                    confidence, compute_dtype, stash, route=None):
+  """The loss on the card; when ``stash``, E0 as [B, lde] (its rows
   padded with zeros to a multiple of 4 columns, float32; to 8, bf16, for
-  the bf16 variant; else None)."""
+  the bf16 variant; else None), and on the wgmma route the bf16 copies
+  (hb, rows_b) that its backward reads (else None). ``route``: the bf16
+  kernels ('wgmma' or 'mma'), by default :func:`bf16_route`'s.
+
+  Returns (loss, e0, copies)."""
   bf16 = _is_bf16(compute_dtype)  # (raises on another compute dtype)
   lib = _device_lib(h.device)
   B, W, d = _validate(h, rows, bias, target, row_mask, col_mask, kind,
                       lib.max_d)
+  if bf16 and (route or bf16_route(h, rows, target)) == 'wgmma':
+    return _wgmma_forward(lib, h, rows, bias, target, row_mask, col_mask,
+                          kind, confidence, stash)
   n_partials, _, _, lde = _plan(h.device.index, B, W, d, bf16)
   partials = torch.empty(n_partials, device=h.device)
   out = torch.empty((), device=h.device)
@@ -255,13 +305,66 @@ def _kernel_forward(h, rows, bias, target, row_mask, col_mask, kind,
   _check(lib, err, 'fused decode-loss forward launch')
   count_launch(LAUNCHES, 'fused_decode_loss_fwd_bf16' if bf16
                else 'fused_decode_loss_fwd')
-  return out, e0
+  return out, e0, None
 
 
-def _kernel_backward(g, e0, h, rows):
+def _wgmma_forward(lib, h, rows, bias, target, row_mask, col_mask, kind,
+                   confidence, stash):
+  (B, d), W = h.shape, rows.shape[0]
+  n_partials, _, _, lde, dp = _plan_wgmma(h.device.index, B, W, d)
+  dev = h.device
+  partials = torch.empty(n_partials, device=dev)
+  out = torch.empty((), device=dev)
+  hb = torch.empty((B, dp), device=dev, dtype=BF16)
+  rows_b = torch.empty((W, d), device=dev, dtype=BF16) if stash else None
+  e0 = torch.empty((B, lde), device=dev, dtype=BF16) if stash else None
+  stream = torch.cuda.current_stream(dev).cuda_stream
+  err = lib.fdl_forward_wgmma(
+      h.data_ptr(), rows.data_ptr(), bias.data_ptr(), target.data_ptr(),
+      row_mask.data_ptr(), col_mask.data_ptr(), B, W, d, KINDS[kind],
+      float(confidence), hb.data_ptr(),
+      None if rows_b is None else rows_b.data_ptr(),
+      None if e0 is None else e0.data_ptr(), n_partials, partials.data_ptr(),
+      out.data_ptr(), dev.index, stream)
+  _check(lib, err, 'fused decode-loss forward launch (wgmma)')
+  count_launch(LAUNCHES, 'fused_decode_loss_fwd_bf16_wgmma')
+  return out, e0, (hb, rows_b) if stash else None
+
+
+def _wgmma_backward(lib, g, e0, h, rows, copies):
+  (B, d), W = h.shape, rows.shape[0]
+  _, per, nsplit, lde, dp = _plan_wgmma(h.device.index, B, W, d)
+  if e0.shape != (B, lde) or e0.dtype != BF16:
+    raise ValueError(f'E0 is {tuple(e0.shape)} {e0.dtype}, expected '
+                     f'{(B, lde)} bfloat16')
+  dev = h.device
+  hb, rows_b = copies
+  if hb.shape != (B, dp) or rows_b.shape != (W, d) or \
+      hb.dtype != BF16 or rows_b.dtype != BF16:
+    raise ValueError(f'bf16 copies {tuple(hb.shape)} {tuple(rows_b.shape)},'
+                     f' expected {(B, dp)} and {(W, d)} bfloat16')
+  g = g.to(device=dev, dtype=torch.float32).contiguous()
+  dh_partials = torch.empty((nsplit, B, d), device=dev)
+  dh = torch.empty((B, d), device=dev)
+  drows = torch.empty((W, d), device=dev)
+  dbias = torch.empty((W,), device=dev)
+  stream = torch.cuda.current_stream(dev).cuda_stream
+  err = lib.fdl_backward_wgmma(
+      g.data_ptr(), e0.data_ptr(), hb.data_ptr(), rows_b.data_ptr(), B, W,
+      d, per, nsplit, dh_partials.data_ptr(), dh.data_ptr(),
+      drows.data_ptr(), dbias.data_ptr(), dev.index, stream)
+  _check(lib, err, 'fused decode-loss backward launch (wgmma)')
+  count_launch(LAUNCHES, 'fused_decode_loss_bwd_bf16_wgmma')
+  return dh, drows, dbias
+
+
+def _kernel_backward(g, e0, h, rows, copies=None):
   """dh, drows, dbias on the card from the forward's E0 (a bf16 E0: the
-  bf16 variant)."""
+  bf16 variant) and, from a wgmma forward, its bf16 ``copies``: the wgmma
+  backward exactly when they are given."""
   lib = _device_lib(h.device)
+  if copies is not None:
+    return _wgmma_backward(lib, g, e0, h, rows, copies)
   (B, d), W = h.shape, rows.shape[0]
   bf16 = e0.dtype == BF16
   _, ktiles, nsplit, lde = _plan(h.device.index, B, W, d, bf16)
@@ -307,18 +410,23 @@ class FusedDecodeLoss(torch.autograd.Function):
   def forward(ctx, h, rows, bias, target, row_mask, col_mask, kind,
               confidence, compute_dtype):
     stash = _will_backward(ctx)
-    fn = _kernel_forward if _route(h.device) else _plain_forward
-    loss, e0 = fn(h, rows, bias, target, row_mask, col_mask, kind,
-                  confidence, compute_dtype, stash)
+    args = (h, rows, bias, target, row_mask, col_mask, kind, confidence,
+            compute_dtype, stash)
+    if _route(h.device):
+      loss, e0, copies = _kernel_forward(*args)
+    else:
+      (loss, e0), copies = _plain_forward(*args), None
     if stash:
-      ctx.save_for_backward(e0, h, rows)
+      ctx.save_for_backward(e0, h, rows, *(copies or ()))
     return loss
 
   @staticmethod
   def backward(ctx, g):
-    e0, h, rows = ctx.saved_tensors
-    fn = _kernel_backward if _route(h.device) else _plain_backward
-    dh, drows, dbias = fn(g, e0, h, rows)
+    e0, h, rows, *copies = ctx.saved_tensors
+    if _route(h.device):
+      dh, drows, dbias = _kernel_backward(g, e0, h, rows, copies or None)
+    else:
+      dh, drows, dbias = _plain_backward(g, e0, h, rows)
     return dh, drows, dbias, None, None, None, None, None, None
 
 

@@ -3,7 +3,10 @@ kernels against their plain PyTorch version at ragged and boundary
 shapes and at the training and union widths, a bfloat16 target bitwise
 equal to the float32 one, no cotangent written under no_grad, the
 wrapper's refusals, and the trainer on the card against the trainer on
-the CPU; the SPD-solve kernel against the blocked recursion (at the
+the CPU; both bf16 kernel sets (wgmma and mma.sync) against the plain
+bf16 composition, each route's launch counters, two runs bitwise equal,
+the wgmma forward without E0 and the bf16 copies it keeps for its
+backward; the SPD-solve kernel against the blocked recursion (at the
 edges of its 16-column panels too), its batch independence, NaN on an
 indefinite system that leaves the rest of its batch bitwise unchanged,
 its shared memory and resident blocks, and the iALS fit on
@@ -482,8 +485,8 @@ def test_bf16_kernel_is_deterministic_and_stashes_bf16(cuda):
   for x, y in zip(a[1], b[1]):
     np.testing.assert_array_equal(x, y)
   h, rows, bias, target, rm, cm = problem
-  loss, e0 = fdl._kernel_forward(h, rows, bias, target, rm, cm, 'mse', 3.0,
-                                 'bfloat16', True)
+  loss, e0, _ = fdl._kernel_forward(h, rows, bias, target, rm, cm, 'mse',
+                                    3.0, 'bfloat16', True)
   assert e0.dtype == torch.bfloat16 and e0.shape == (500, 18120)
   assert not e0[:, 18117:].any()  # the pad columns are zero
   _, plain_e0 = fdl._plain_forward(h, rows, bias, target, rm, cm, 'mse', 3.0,
@@ -491,9 +494,87 @@ def test_bf16_kernel_is_deterministic_and_stashes_bf16(cuda):
   # E0 only differs where a score sits on a bf16 rounding boundary
   assert (e0[:, :18117] != plain_e0).float().mean().item() < 1e-3
   with torch.no_grad():
-    nograd, none = fdl._kernel_forward(h, rows, bias, target, rm, cm, 'mse',
-                                       3.0, 'bfloat16', False)
+    nograd, none, _ = fdl._kernel_forward(h, rows, bias, target, rm, cm,
+                                          'mse', 3.0, 'bfloat16', False)
   assert none is None and torch.equal(nograd, loss)
+
+
+WGMMA_SHAPES = [(37, 200, 1000), (480, 200, 18120), (500, 200, 20224)]
+
+
+def _bf16_target(problem):
+  return problem[:3] + [problem[3].to(torch.bfloat16)] + problem[4:]
+
+
+@pytest.mark.parametrize('kind,confidence', [
+    ('mse', 0.0), ('mse', 3.0), ('logistic', 0.0)])
+@pytest.mark.parametrize('B,d,W', WGMMA_SHAPES)
+def test_bf16_wgmma_kernel_matches_plain(cuda, B, d, W, kind, confidence):
+  """The wgmma kernels (a bf16 target, W % 8 == 0, a compiled width)
+  against autograd through the plain bf16 composition at the bf16
+  tolerances; their counters move, the mma.sync set's do not; two runs
+  are bitwise equal."""
+  problem = _bf16_target(_problem(B, d, W, cuda))
+  assert fdl.bf16_route(*problem[:2], problem[3]) == 'wgmma'
+  before = dict(fdl.LAUNCHES)
+  got = _run_bf16(fdl.fused_decode_loss, problem, kind, confidence)
+  ref = _run_bf16(fdl.fused_decode_loss_plain, problem, kind, confidence)
+  for name in ('fused_decode_loss_fwd_bf16_wgmma',
+               'fused_decode_loss_bwd_bf16_wgmma'):
+    assert fdl.LAUNCHES[name] == before[name] + 1
+  for name in ('fused_decode_loss_fwd_bf16', 'fused_decode_loss_bwd_bf16',
+               'fused_decode_loss_fwd', 'fused_decode_loss_bwd'):
+    assert fdl.LAUNCHES[name] == before[name]
+  np.testing.assert_allclose(got[0], ref[0], rtol=1e-2)
+  for a, b in zip(got[1], ref[1]):
+    assert _rel_fro(a, b) <= 2e-2
+  for a in got[1][:2]:  # dh and drows are bf16 values
+    t = torch.from_numpy(a)
+    assert torch.equal(t, t.to(torch.bfloat16).float())
+  again = _run_bf16(fdl.fused_decode_loss, problem, kind, confidence)
+  assert again[0] == got[0]
+  for x, y in zip(again[1], got[1]):
+    np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize('kind,confidence', [
+    ('mse', 0.0), ('mse', 3.0), ('logistic', 0.0)])
+def test_bf16_wgmma_agrees_with_mma_and_without_e0(cuda, kind, confidence):
+  """At the ML-20M shape the two bf16 kernel sets write the same E0
+  (the scores take the same roundings; a sum in another order moves a
+  score across a bf16 boundary rarely); the wgmma forward without E0
+  gives its loss bit for bit and writes nothing else; the bf16 copies it
+  keeps for the backward are [bf16(h) | 1 | 0..] and bf16(rows)."""
+  h, rows, bias, target, rm, cm = _bf16_target(_problem(500, 200, 20224,
+                                                        cuda, seed=6))
+  args = (target, rm, cm, kind, confidence, 'bfloat16')
+  before = dict(fdl.LAUNCHES)
+  loss, e0, copies = fdl._kernel_forward(h, rows, bias, *args, True)
+  assert copies is not None and e0.shape == (500, 20224)
+  nograd, none, no_copies = fdl._kernel_forward(h, rows, bias, *args, False)
+  assert none is None and no_copies is None and torch.equal(nograd, loss)
+  assert fdl.LAUNCHES['fused_decode_loss_fwd_bf16_wgmma'] == \
+      before['fused_decode_loss_fwd_bf16_wgmma'] + 2
+  mloss, me0, _ = fdl._kernel_forward(h, rows, bias, *args, True,
+                                      route='mma')
+  assert fdl.LAUNCHES['fused_decode_loss_fwd_bf16'] == \
+      before['fused_decode_loss_fwd_bf16'] + 1
+  assert (e0 != me0).float().mean().item() < 1e-3
+  np.testing.assert_allclose(loss.item(), mloss.item(), rtol=1e-4)
+  hb, rows_b = copies
+  assert hb.shape == (500, 208) and torch.equal(hb[:, :200], h.bfloat16())
+  assert (hb[:, 200] == 1).all() and not hb[:, 201:].any()
+  assert torch.equal(rows_b, rows.bfloat16())
+
+
+def test_bf16_wgmma_refuses_what_it_cannot_describe(cuda):
+  """Forced onto the wgmma kernels, a shape that TMA cannot describe (W
+  % 8 != 0) raises rather than falling back."""
+  h, rows, bias, target, rm, cm = _bf16_target(_problem(64, 200, 1001,
+                                                        cuda))
+  with pytest.raises(RuntimeError):
+    fdl._kernel_forward(h, rows, bias, target, rm, cm, 'mse', 3.0,
+                        'bfloat16', True, route='wgmma')
 
 
 def test_bf16_trainer_on_cuda_matches_cpu(cuda):

@@ -110,6 +110,60 @@ def test_supported_and_routing():
     fdl.fused_decode_loss(*meta.values(), 'mse', 0.0)
 
 
+def _aligned(shape, dtype, offset=0):
+  """A contiguous tensor of ``shape`` starting ``offset`` elements into a
+  16-byte aligned buffer."""
+  n = int(np.prod(shape))
+  buf = torch.zeros(n + 64, dtype=dtype)
+  skip = (-buf.data_ptr() % 16) // buf.element_size() + offset
+  return buf[skip:skip + n].view(shape)
+
+
+#: (B, d, W, target dtype, element offsets of h / rows / target, route)
+ROUTE_CASES = [
+    (500, 200, 20224, torch.bfloat16, (0, 0, 0), 'wgmma'),   # bench ML-20M
+    (480, 200, 18120, torch.bfloat16, (0, 0, 0), 'wgmma'),   # aligned, not 2^k
+    (37, 200, 1000, torch.bfloat16, (0, 0, 0), 'wgmma'),     # B < one tile
+    (500, 200, 20224, torch.bfloat16, (0, 0, 8), 'wgmma'),   # 16-byte offset
+    (500, 200, 18117, torch.bfloat16, (0, 0, 0), 'mma'),     # MSD union width
+    (500, 200, 20220, torch.bfloat16, (0, 0, 0), 'mma'),     # W % 8 == 4
+    (500, 200, 20224, torch.float32, (0, 0, 0), 'mma'),      # float32 target
+    (37, 24, 1000, torch.bfloat16, (0, 0, 0), 'mma'),        # d not compiled
+    (480, 104, 18120, torch.bfloat16, (0, 0, 0), 'mma'),     # d not compiled
+    (64, 256, 2048, torch.bfloat16, (0, 0, 0), 'mma'),       # no room for 1s
+    (500, 200, 20224, torch.bfloat16, (0, 0, 1), 'mma'),     # target 2 B off
+    (500, 200, 20224, torch.bfloat16, (0, 2, 0), 'mma'),     # rows 8 B off
+    (500, 200, 20224, torch.bfloat16, (1, 0, 0), 'wgmma'),   # h: cast
+]
+
+
+@pytest.mark.parametrize('B,d,W,tdtype,offsets,route', ROUTE_CASES)
+def test_bf16_route(B, d, W, tdtype, offsets, route):
+  """The shape rule between the two bf16 kernel sets: the wgmma kernels
+  where TMA can describe every operand (a bf16 target with W % 8 == 0, a
+  compiled feature width, 16-byte aligned rows and target; h goes
+  through a bf16 copy), the mma.sync kernels elsewhere."""
+  h = _aligned((B, d), torch.float32, offsets[0])
+  rows = _aligned((W, d), torch.float32, offsets[1])
+  target = _aligned((B, W), tdtype, offsets[2])
+  assert fdl.bf16_route(h, rows, target) == route
+  if route == 'wgmma':
+    assert d in fdl.WGMMA_WIDTHS and W % 8 == 0
+
+
+def test_bf16_route_on_the_cpu_runs_the_plain_twin():
+  """A shape the wgmma kernels take still runs the plain versions on
+  CPU tensors: no counter of either route moves."""
+  p = _as_torch(_problem(16, 200, 64), torch.bfloat16)
+  assert fdl.bf16_route(p['h'], p['rows'], p['target']) == 'wgmma'
+  before = dict(fdl.LAUNCHES)
+  leaves = [p[k].clone().requires_grad_(True) for k in ('h', 'rows', 'bias')]
+  fdl.fused_decode_loss(*leaves, p['target'], p['row_mask'], p['col_mask'],
+                        'mse', 3.0, 'bfloat16').backward()
+  assert fdl.LAUNCHES == before
+  assert all(x.grad is not None for x in leaves)
+
+
 
 def _as_torch(p, target_dtype=torch.float32):
   t = {k: torch.from_numpy(v) for k, v in p.items()}

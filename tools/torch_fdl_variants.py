@@ -3,6 +3,7 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 tools/torch_fdl_variants.py [VARIANT ...]
+    python3 tools/torch_fdl_variants.py --copies
 
 Each variant is ``recoder_tpu_torch/kernels/fused_decode_loss.cu`` with
 text patches applied; ``a+b`` applies both. The variants:
@@ -23,6 +24,9 @@ c=3, by device time (torch.profiler sums), in turns: the listed order,
 then the reverse. The variant sources and libraries go to
 ``build/fdl_variants/`` (git-ignored). The last line is a JSON object of
 the results.
+
+``--copies`` times instead the bf16 wgmma route's choice to keep bf16
+copies of h and rows for its backward (see :func:`copies`).
 """
 
 import json
@@ -187,7 +191,7 @@ def main(names):
   times = {name: {'fwd': [], 'fwd_nograd': [], 'bwd': []} for name in names}
   for name in list(names) + list(names)[::-1]:
     with use(libs[name]):
-      _, e0 = fdl._kernel_forward(h, rows, bias, *args, None, True)
+      _, e0, _ = fdl._kernel_forward(h, rows, bias, *args, None, True)
       t = times[name]
       t['fwd'].append(cs.device_ms(
           lambda: fdl._kernel_forward(h, rows, bias, *args, None, True)))
@@ -205,5 +209,65 @@ def main(names):
   cs.say(json.dumps({'card': card, 'shape': SHAPE, 'variants': results}))
 
 
+def copies(calls=4):
+  """The wgmma route keeps the bf16 copies of h and rows ([bf16(h) | 1 |
+  0..] and bf16(rows)) that its forward makes for the backward. Times, at
+  SHAPE with a bf16 target, 'mse' c=3, by device time in ``calls`` turns:
+  the forward with E0 and the rows copy (as training runs it), the same
+  forward writing no rows copy (what a backward that casts again would
+  be paired with), the backward from the copies, and the casts of h and
+  rows to bf16 that such a backward would run first (PyTorch's cast
+  kernels, the same bytes)."""
+  import statistics
+
+  import torch
+
+  from recoder_tpu_torch.ops import fused_decode_loss as fdl
+  card = cs.phase_device()
+  B, d, W = SHAPE
+  h, rows, bias, target, rm, cm = cs.make_problem(*SHAPE, 'cuda')
+  target = target.bfloat16()
+  args = (target, rm, cm, 'mse', 3.0, 'bfloat16')
+  g = torch.ones((), device='cuda')
+  assert fdl.bf16_route(h, rows, target) == 'wgmma'
+  _, e0, kept = fdl._kernel_forward(h, rows, bias, *args, True)
+  lib = fdl._device_lib(h.device)
+  n_partials, _, _, _, _ = fdl._plan_wgmma(h.device.index, B, W, d)
+  partials = torch.empty(n_partials, device='cuda')
+  out = torch.empty((), device='cuda')
+  hb = torch.empty_like(kept[0])
+
+  def forward_without_copy():
+    err = lib.fdl_forward_wgmma(
+        h.data_ptr(), rows.data_ptr(), bias.data_ptr(), target.data_ptr(),
+        rm.data_ptr(), cm.data_ptr(), B, W, d, fdl.KINDS['mse'], 3.0,
+        hb.data_ptr(), None, e0.data_ptr(), n_partials, partials.data_ptr(),
+        out.data_ptr(), h.device.index,
+        torch.cuda.current_stream().cuda_stream)
+    fdl._check(lib, err, 'wgmma forward without the rows copy')
+
+  steps = {
+      'fwd': lambda: fdl._kernel_forward(h, rows, bias, *args, True),
+      'fwd_without_rows_copy': forward_without_copy,
+      'bwd_from_copies': lambda: fdl._kernel_backward(g, e0, h, rows, kept),
+      'cast_h_and_rows': lambda: (h.bfloat16(), rows.bfloat16())}
+  runs = {name: [] for name in steps}
+  for turn in range(calls):
+    for name in (list(steps) if turn % 2 == 0 else list(steps)[::-1]):
+      runs[name].append(cs.device_ms(steps[name]))
+  ms = {name: statistics.mean(v) for name, v in runs.items()}
+  cs.say(f'wgmma route at {list(SHAPE)} bf16 target, mse c=3, device ms '
+         f'(mean of {calls} turns): ' + ', '.join(
+             f'{k} {v:.4f}' for k, v in ms.items()))
+  cs.say(f'keeping the copies costs the forward '
+         f'{ms["fwd"] - ms["fwd_without_rows_copy"]:.4f} ms; casting again '
+         f'would cost the backward {ms["cast_h_and_rows"]:.4f} ms')
+  cs.say(card)
+  cs.say(json.dumps({'card': card, 'shape': SHAPE, 'copies_ms': ms}))
+
+
 if __name__ == '__main__':
-  main(tuple(sys.argv[1:]) or DEFAULT)
+  if sys.argv[1:] == ['--copies']:
+    copies()
+  else:
+    main(tuple(sys.argv[1:]) or DEFAULT)
