@@ -205,6 +205,38 @@ Phases, each of which raises on failure:
                 against the plain decode + loss and the plain row scatter:
                 the 20 losses, and the en_embedding table within a
                 relative Frobenius norm of 1e-3.
+ 23. mf     -- MatrixFactorization(200, tanh, dropout 0.2) on the
+                ML-20M-shaped CSR, weighted MSE (confidence 40,
+                tests/test_model.py's MF row at BASELINE.json's 200
+                factors), Adam lr 1e-3, batch 500, negative sampling,
+                block shuffle, full decode from the resident slab, bf16
+                compute and moments: one eager epoch (the wgmma
+                decode-loss pair and the Adam kernel once a step, no other
+                hand kernel), then captured ('auto') and eager in turns
+                (rates, device ms and launches a step, idle share, each
+                hand kernel once a step by name in 64 replayed steps). The
+                fixture (batch 480, a tail block of pad users) captured
+                bitwise eager; 20 float32 steps through the 3xTF32 kernels
+                and 20 steps of MF(sparse=True) (two row-scatter launches
+                a step) against the plain path (losses PATHS_RTOL, both
+                tables TABLE_RTOL); the MF gate on the fixture (Recall@20
+                > 0.03, 20 epochs) and a checkpoint reload.
+ 24. multvae -- Mult-VAE(600, 200) with the full softmax
+                (negative_sampling=False), logloss, bf16 compute and
+                moments at the ML-20M shape: 2 epochs captured and eager
+                bitwise equal while beta = step / 2,000 changes inside the
+                graphs; an eager epoch (Adam once a step) and the captured
+                cell as in phase 23; 20 steps of MultVAE(sparse=True)
+                (two row-scatter launches a step) against the plain path;
+                tests/test_multvae.py's fixture gate (Recall@20 > 0.135,
+                NDCG@100 > 0.160) with evaluate_vae_protocol's summary, and
+                a checkpoint reload.
+ 25. ease   -- EASE(lam=200) at the ML-20M shape: the Gram on the card
+                (exact against scipy on 256 sampled columns), the cuSOLVER
+                Cholesky inverse (max |(G + lam I) P - I| <= 1e-3), B's
+                zero diagonal, the fit timed, recommend(k=100) valid and
+                unchanged across save -> load; the fixture floors at lam
+                500 (Recall@20 > 0.060, NDCG@100 > 0.095).
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -769,6 +801,36 @@ ML20M_TRAIN = dict(batch_size=500, lr=1e-3, weight_decay=2e-5,
                    negative_sampling=True, shuffle='blocks')
 
 
+def eager_epoch(trainer, dataset, kw, kernels):
+  """One epoch, one eager dispatch a step, with the launch counters set
+  to 0 just before it: each of ``kernels`` must be launched once a step
+  and no other hand kernel at all; returns the counts and the rate."""
+  import torch
+  reset_launches()
+  t0 = time.time()
+  trainer.train(dataset, num_epochs=1, fused_steps_per_call=1, **kw)
+  torch.cuda.synchronize()
+  first_s = time.time() - t0
+  counts = read_launches()
+  steps = len(trainer.last_epoch_losses)
+  launched = {k: v for k, v in counts.items() if v}
+  if launched != dict.fromkeys(kernels, steps):
+    raise AssertionError(f'an epoch of {steps} steps launched {launched}, '
+                         f'expected each of {kernels} once a step')
+  losses = np.asarray(trainer.last_epoch_losses)
+  if not np.all(np.isfinite(losses)):
+    raise AssertionError('non-finite training loss')
+  head, tail = losses[:10].mean(), losses[-10:].mean()
+  if not tail < head:
+    raise AssertionError(f'loss did not fall: first 10 steps {head}, last '
+                         f'10 {tail}')
+  rate = steps / trainer.last_epoch_seconds
+  say(f'  eager epoch: {steps} steps, {rate:.2f} user-batches/s (first call '
+      f'{first_s:.1f} s with the slab build); each of {list(kernels)} '
+      f'{steps} times; loss first 10 steps {head:.4f}, last 10 {tail:.4f}')
+  return counts, rate
+
+
 def phase_slice(matrix, device='cuda', epochs_timed=2, compute_dtype=None,
                 opt_state_dtype=None):
   """One full epoch of the main path (at the given numerics), steady
@@ -776,7 +838,6 @@ def phase_slice(matrix, device='cuda', epochs_timed=2, compute_dtype=None,
   is counted; phase 20 runs the same cell captured); returns the epoch's
   launch counts of the kernels that path runs, the rates, the profiled
   device ms a step, and the trainer and its dataset."""
-  import torch
   from recoder_tpu_torch.data import RecommendationDataset
   from recoder_tpu_torch.model import Recoder
   from recoder_tpu_torch.models import DynamicAutoencoder
@@ -794,32 +855,10 @@ def phase_slice(matrix, device='cuda', epochs_timed=2, compute_dtype=None,
     kernels = BF16_ROUTE_COUNTERS['wgmma']
   if opt_state_dtype is not None:
     kernels += ('adam_bf16',)
-  reset_launches()
-  t0 = time.time()
-  trainer.train(dataset, num_epochs=1, **common)
-  torch.cuda.synchronize()
-  first_call_s = time.time() - t0
-  counts = read_launches()
+  counts, epoch_rate = eager_epoch(trainer, dataset, ML20M_TRAIN, kernels)
   launches = {k: counts[k] for k in kernels}
-  others = {k: v for k, v in counts.items() if k not in kernels and v}
-  if others:
-    raise AssertionError(f'the epoch launched other kernels: {others}')
-
-  losses = np.asarray(trainer.last_epoch_losses)
-  steps = len(losses)
-  if steps != -(-matrix.shape[0] // 500):
-    raise AssertionError(f'epoch ran {steps} steps')
-  if not np.all(np.isfinite(losses)):
-    raise AssertionError('non-finite training loss')
-  head, tail = losses[:10].mean(), losses[-10:].mean()
-  if not tail < head:
-    raise AssertionError(f'loss did not fall: first 10 steps {head}, '
-                         f'last 10 {tail}')
-  epoch_rate = steps / trainer.last_epoch_seconds
-  say(f'  epoch 1: {steps} steps in {trainer.last_epoch_seconds:.3f} s = '
-      f'{epoch_rate:.2f} user-batches/s (first call {first_call_s:.1f} s '
-      f'with the slab build); loss first 10 steps {head:.4f}, last 10 '
-      f'{tail:.4f}')
+  if len(trainer.last_epoch_losses) != -(-matrix.shape[0] // 500):
+    raise AssertionError(f'epoch ran {len(trainer.last_epoch_losses)} steps')
 
   # steady state: train() resumes at current_epoch inclusive, so this
   # call runs epochs 1..epochs_timed again
@@ -937,25 +976,31 @@ def phase_quality(train_m, val_m, device='cuda', epochs=30, atol=0.01,
     raise AssertionError("the quality row did not run captured under "
                          "fused_steps_per_call='auto'")
   misses = {k: v for k, v in means.items() if abs(v - PINNED[k]) > atol}
-  with tempfile.TemporaryDirectory() as tmp:
-    path = trainer.save_state(os.path.join(tmp, 'quality'))
-    # built without compute_dtype: the checkpoint's comes back
-    restored = Recoder(DynamicAutoencoder(), device=device)
-    restored.init_from_model_file(path)
-    results2 = restored._evaluate(val_ds, 100, metrics, batch_size=500)
-  if restored.model.compute_dtype != trainer.model.compute_dtype:
-    raise AssertionError(f'the reload computes in '
-                         f'{restored.model.compute_dtype}, the trainer in '
-                         f'{trainer.model.compute_dtype}')
-  means2 = {str(m): float(np.mean(v)) for m, v in results2.items()}
-  if any(abs(means2[k] - v) > reload_atol for k, v in means.items()):
-    raise AssertionError(f'metrics changed across the checkpoint: {means} '
-                         f'vs {means2}')
   if misses:
     raise AssertionError(f'quality outside atol {atol} of the pinned '
                          f'values: {misses}')
-  say('  checkpoint reload: identical metrics')
+  # built without compute_dtype: the checkpoint's comes back
+  reload_metrics(trainer, lambda: Recoder(DynamicAutoencoder(),
+                                          device=device),
+                 val_ds, metrics, means, atol=reload_atol)
   return means
+
+
+def reload_metrics(trainer, make, val_ds, metrics, means, atol=1e-6):
+  """A save_state -> init_from_model_file round trip into ``make()``
+  gives the same metrics (within ``atol``)."""
+  with tempfile.TemporaryDirectory() as tmp:
+    path = trainer.save_state(os.path.join(tmp, 'reload'))
+    restored = make()
+    restored.init_from_model_file(path)
+    results = restored._evaluate(val_ds, 100, metrics, batch_size=500)
+  again = {str(m): float(np.mean(v)) for m, v in results.items()}
+  if any(abs(again[k] - v) > atol for k, v in means.items()):
+    raise AssertionError(f'metrics changed across the checkpoint: {means} '
+                         f'vs {again}')
+  if restored.model.compute_dtype != trainer.model.compute_dtype:
+    raise AssertionError('the checkpoint did not restore the compute dtype')
+  say('  checkpoint reload: identical metrics')
 
 
 # -- phase 7 ---------------------------------------------------------------
@@ -2592,6 +2637,312 @@ def phase_target(matrix, held_out, device='cuda', compared=20):
   return out, workers, launch_rates, totals
 
 
+# -- phases 23-25: the other model families ----------------------------------
+
+#: tests/test_model.py's MF row at BASELINE.json's 200 factors (weighted
+#: MSE, confidence 40), on bench.py's ML-20M pipeline (block shuffle, full
+#: decode from the resident slab)
+MF_MODEL = dict(embedding_size=200, activation_type='tanh', dropout_prob=0.2)
+MF_LOSS = dict(loss='mse', loss_params={'confidence': 40})
+MF_TRAIN = dict(batch_size=500, lr=1e-3, negative_sampling=True,
+                shuffle='blocks')
+MF_FLOOR = 0.03  # Recall@20, tests/test_model.py:190
+#: the paper's Mult-VAE shape with the full softmax; beta = step / 2,000
+#: grows for the first 400 steps: inside the graphs of the first 2 epochs
+MULTVAE_MODEL = dict(hidden_dim=600, latent_dim=200, dropout_prob=0.5,
+                     anneal_cap=0.2, total_anneal_steps=2000)
+MULTVAE_TRAIN = dict(batch_size=500, lr=1e-3, negative_sampling=False,
+                     shuffle='blocks')
+#: tests/test_multvae.py::test_multvae_fixture_quality
+MULTVAE_FIXTURE = dict(hidden_dim=200, latent_dim=64, dropout_prob=0.5,
+                       anneal_cap=0.2, total_anneal_steps=2000)
+MULTVAE_FLOORS = {'Recall@20': 0.135, 'NDCG@100': 0.160}
+#: tests/test_ease.py::test_ease_fixture_quality
+EASE_FLOORS = {'Recall@20': 0.060, 'NDCG@100': 0.095}
+EASE_RESIDUAL = 1e-3
+CELL_KERNELS.update({
+    'mf': ('decode_loss_fwd_bf16_wgmma_kernel',
+           'drows_dbias_bf16_wgmma_kernel', 'dh_bf16_wgmma_kernel',
+           'adam_bf16_kernel'),
+    'multvae': ('adam_bf16_kernel',),
+})
+
+
+def family_fixture_bitwise(train_m, make, kw, epochs=3):
+  """16 steps a graph against one eager step a dispatch on the fixture
+  (3 epochs of 21 steps at batch 480, a tail block of pad users): the
+  losses, parameters and moments bitwise equal."""
+  from recoder_tpu_torch.data import RecommendationDataset
+  fixture = RecommendationDataset(train_m)
+  runs = {}
+  for spc in (16, 1):
+    runs[spc] = make()
+    runs[spc].train(fixture, num_epochs=epochs, fused_steps_per_call=spc,
+                    **kw)
+  if not _same_state(runs[16], runs[1]):
+    raise AssertionError('captured and eager fixture trajectories differ')
+  say(f'  fixture, {epochs} epochs of {len(runs[1].last_epoch_losses)} steps'
+      f': 16 a graph ({runs[16].last_epoch_dispatches} dispatches an epoch)'
+      f' vs eager: losses, parameters and moments bitwise equal')
+
+
+def family_paths(dataset, kernel, plain, kw, kernels, rtol, what,
+                 steps=20, tables=()):
+  """``steps`` steps of the trainer ``kernel`` through the hand kernels
+  (``kernels``: each one's launches a step, counted from 0) against the
+  same steps of the trainer ``plain`` on the plain path (a loss instance
+  instead of the fused decode-loss, and the plain twins of Adam and the
+  row scatter): the losses within ``rtol``, and each of ``tables`` within
+  TABLE_RTOL in relative Frobenius norm; returns the launches a step.
+  Both run one eager step a dispatch (the counters do not see inside a
+  graph)."""
+  import torch
+  kw = dict(kw, fused_steps_per_call=1)
+  reset_launches()
+  kernel.train(dataset, num_epochs=1, iters_per_epoch=steps, **kw)
+  torch.cuda.synchronize()
+  counts = {k: v for k, v in read_launches().items() if v}
+  if set(counts) != set(kernels) or any(
+      counts[k] != n * steps for k, n in kernels.items()):
+    raise AssertionError(f'{what}: {steps} steps launched {counts}, expected'
+                         f' {kernels} a step')
+  losses = plain_trainer_run(plain, dataset, steps, kw)
+  rel = compare_losses(kernel.last_epoch_losses, losses, rtol, what)
+  table_rel = {}
+  for name in tables:
+    a, b = kernel.model.params()[name], plain.model.params()[name]
+    table_rel[name] = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+    if not table_rel[name] <= TABLE_RTOL:
+      raise AssertionError(f'{what}: {name} after {steps} steps, kernel vs '
+                           f'plain relative Frobenius {table_rel[name]}')
+  say(f'  {what}: {steps} steps, launches {counts}; losses vs the plain '
+      f'path max rel {rel:.3g}'
+      + ''.join(f'; {k} relative Frobenius {v:.3g}'
+                for k, v in table_rel.items()))
+  return {k: v / steps for k, v in counts.items()}
+
+
+def phase_mf(matrix, train_m, val_m, device='cuda'):
+  """MatrixFactorization[200] through the port: bench.py's ML-20M pipeline
+  at bf16 compute and bf16 moments (the wgmma decode-loss pair and Adam
+  once a step), captured against eager; the fixture captured bitwise
+  eager; float32 and sparse steps against the plain path; the MF quality
+  gate."""
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.metrics import NDCG, Recall
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import MatrixFactorization
+  from recoder_tpu_torch.ops.losses import MSELoss
+
+  def make(cd=None, sparse=False, loss='mse'):
+    return Recoder(MatrixFactorization(**MF_MODEL, sparse=sparse,
+                                       compute_dtype=cd),
+                   optimizer_type='adam', loss=loss,
+                   loss_params=MF_LOSS['loss_params'] if loss == 'mse'
+                   else None, device=device, opt_state_dtype=cd)
+
+  dataset = RecommendationDataset(matrix)
+  per_step = {}
+  trainer = make('bfloat16')
+  kernels = BF16_ROUTE_COUNTERS['wgmma'] + ('adam_bf16',)
+  counts, _ = eager_epoch(trainer, dataset, MF_TRAIN, kernels)
+  per_step['mf'] = {k: counts[k] / trainer.fused_data_source.steps_per_epoch
+                    for k in kernels}
+  params = sum(p.numel() for p in trainer.model.params().values())
+  say(f'  {params:,} parameters (user table {tuple(trainer.model.params()["user_embedding"].shape)})')
+  cell = capture_cell('mf', trainer, dataset, MF_TRAIN,
+                      'ml20m_mf_user_batches_per_sec',
+                      ('captured', 'eager', 'eager', 'captured'))
+  del trainer
+  family_fixture_bitwise(train_m, lambda: make('bfloat16'),
+                         dict(CAPTURE_FIXTURE, shuffle='blocks'))
+  f32 = MSELoss(confidence=40, reduction='sum')
+  per_step['mf_float32'] = family_paths(
+      dataset, make(), make(loss=f32), MF_TRAIN,
+      {'fused_decode_loss_fwd': 1, 'fused_decode_loss_bwd': 1},
+      PATHS_RTOL, 'float32 full decode (3xTF32 kernels)')
+  per_step['mf_sparse'] = family_paths(
+      dataset, make(sparse=True), make(sparse=True, loss=f32), MF_TRAIN,
+      {'fused_decode_loss_fwd': 1, 'fused_decode_loss_bwd': 1,
+       'row_scatter': 2}, PATHS_RTOL, 'sparse (union, float32)',
+      tables=('user_embedding', 'item_embedding'))
+
+  # the MF gate of tests/test_model.py at the cell's numerics
+  train_ds, val_ds = (RecommendationDataset(train_m),
+                      RecommendationDataset(val_m, train_m))
+  tr = make('bfloat16')
+  t0 = time.time()
+  tr.train(train_ds, batch_size=500, lr=1e-3, num_epochs=20,
+           negative_sampling=True)
+  train_s = time.time() - t0
+  metrics = [Recall(k=20), Recall(k=50), NDCG(k=100)]
+  results = tr._evaluate(val_ds, 100, metrics, batch_size=500)
+  means = {str(m): float(np.mean(v)) for m, v in results.items()}
+  say(f'  fixture gate: 20 epochs in {train_s:.1f} s ({tr.last_epoch_dispatch}'
+      f'); ' + ', '.join(f'{k} {v:.4f}' for k, v in means.items())
+      + f' (Recall@20 floor {MF_FLOOR})')
+  if not means['Recall@20'] > MF_FLOOR:
+    raise AssertionError(f'MF Recall@20 {means["Recall@20"]} <= {MF_FLOOR}')
+  reload_metrics(tr, lambda: Recoder(MatrixFactorization(1), device=device),
+                 val_ds, metrics, means)
+  return per_step, cell, means
+
+
+def phase_multvae(matrix, train_m, val_m, device='cuda'):
+  """Mult-VAE[600, 200] with the full softmax at the ML-20M shape, bf16
+  compute and moments: captured bitwise eager while the KL weight
+  changes inside the graphs, the rates and Adam once a step; the sparse
+  tables' steps against the plain path; the fixture gate and the
+  protocol summary."""
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.metrics import NDCG, Recall
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import MultVAE
+  from recoder_tpu_torch.protocols import evaluate_vae_protocol
+
+  def make(cd=None, sparse=False, model=MULTVAE_MODEL, seed=42):
+    return Recoder(MultVAE(**model, sparse=sparse, compute_dtype=cd),
+                   optimizer_type='adam', loss='logloss', device=device,
+                   opt_state_dtype=cd, seed=seed)
+
+  dataset = RecommendationDataset(matrix)
+  per_step = {}
+  # captured against eager from one init: 2 epochs (468 steps; beta
+  # = step / 2,000 changes at every step of them)
+  runs = {}
+  for spc in ('auto', 1):
+    runs[spc] = make('bfloat16')
+    runs[spc].train(dataset, num_epochs=2, fused_steps_per_call=spc,
+                    **MULTVAE_TRAIN)
+  if not runs['auto'].last_epoch_dispatch.startswith('captured'):
+    raise AssertionError(f"'auto' did not capture: "
+                         f"{runs['auto'].last_epoch_dispatch}")
+  if not _same_state(runs['auto'], runs[1]):
+    raise AssertionError('Mult-VAE captured and eager trajectories differ '
+                         'across a changing KL weight')
+  say(f'  2 epochs of {len(runs[1].last_epoch_losses)} steps (beta 0 -> '
+      f'{min(0.2, 2 * len(runs[1].last_epoch_losses) / 2000):.3f}), '
+      f'{runs["auto"].last_epoch_dispatch} vs eager: losses, parameters '
+      f'and moments bitwise equal')
+  del runs
+  trainer = make('bfloat16')
+  counts, _ = eager_epoch(trainer, dataset, MULTVAE_TRAIN, ('adam_bf16',))
+  per_step['multvae'] = {'adam_bf16': counts['adam_bf16']
+                         / trainer.fused_data_source.steps_per_epoch}
+  cell = capture_cell('multvae', trainer, dataset, MULTVAE_TRAIN,
+                      'ml20m_multvae_user_batches_per_sec',
+                      ('captured', 'eager', 'eager', 'captured'))
+  del trainer
+  per_step['multvae_sparse'] = family_paths(
+      dataset, make(sparse=True), make(sparse=True),
+      dict(MULTVAE_TRAIN, negative_sampling=True), {'row_scatter': 2},
+      PATHS_RTOL, 'sparse tables (union, float32)',
+      tables=('en_embedding', 'de_embedding'))
+
+  train_ds, val_ds = (RecommendationDataset(train_m),
+                      RecommendationDataset(val_m, train_m))
+  tr = make(model=MULTVAE_FIXTURE, seed=0)
+  t0 = time.time()
+  tr.train(train_ds, batch_size=500, lr=1e-3, num_epochs=8,
+           negative_sampling=True)
+  train_s = time.time() - t0
+  metrics = [Recall(k=20), NDCG(k=100)]
+  results = tr._evaluate(val_ds, 100, metrics, batch_size=500)
+  means = {str(m): float(np.mean(v)) for m, v in results.items()}
+  summary = evaluate_vae_protocol(tr, val_ds, batch_size=500)
+  say(f'  fixture gate: 8 epochs in {train_s:.1f} s ({tr.last_epoch_dispatch}'
+      f'); ' + ', '.join(f'{k} {v:.4f} (floor {MULTVAE_FLOORS[k]})'
+                         for k, v in means.items())
+      + '; evaluate_vae_protocol: '
+      + ', '.join(f'{k} {v:.4f}' for k, v in summary.items()))
+  misses = {k: v for k, v in means.items() if not v > MULTVAE_FLOORS[k]}
+  if misses:
+    raise AssertionError(f'Mult-VAE under its floors: {misses}')
+  reload_metrics(tr, lambda: Recoder(MultVAE(), device=device), val_ds,
+                 metrics, means)
+  return per_step, cell, {**means, **summary}
+
+
+def phase_ease(matrix, train_m, val_m, device='cuda', lam=200.0):
+  """EASE at the ML-20M shape: the Gram on the card (exact), the
+  cuSOLVER Cholesky inverse and its residual, B, recommend and a
+  checkpoint round trip; the whole fit timed; the fixture floors."""
+  import torch
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.metrics import NDCG, Recall, RecommenderEvaluator
+  from recoder_tpu_torch.models import EASE
+  from recoder_tpu_torch.models.ease import b_from_p_, spd_inverse
+  from recoder_tpu_torch.recommender import InferenceRecommender
+
+  model = EASE(lam=lam, device=device)
+  m = matrix.tocsr().astype(np.float32)
+  n = m.shape[1]
+  torch.cuda.synchronize()
+  t0 = time.time()
+  g = model._device_gram(m)
+  torch.cuda.synchronize()
+  gram_s = time.time() - t0
+  cols = np.sort(np.random.default_rng(0).choice(n, 256, replace=False))
+  want = np.asarray((m[:, cols].T @ m).todense(), np.float32)
+  if not np.array_equal(g[torch.from_numpy(cols).to(device)].cpu().numpy(),
+                        want):
+    raise AssertionError('the Gram differs from scipy X.T @ X')
+  t0 = time.time()
+  p = spd_inverse(g, lam)
+  torch.cuda.synchronize()
+  solve_s = time.time() - t0
+  prev = torch.get_float32_matmul_precision()
+  torch.set_float32_matmul_precision('highest')
+  try:
+    g.diagonal().add_(lam)
+    resid = g @ p
+    resid.diagonal().sub_(1.0)
+    residual = float(resid.abs().max())
+  finally:
+    torch.set_float32_matmul_precision(prev)
+  del g, resid
+  b = b_from_p_(p)
+  if not bool((b.diagonal() == 0).all()):
+    raise AssertionError('a diagonal entry of B is not zero')
+  say(f'  G [{n:,} x {n:,}] float32 ({4 * n * n / 1e9:.2f} GB) in '
+      f'{gram_s:.3f} s, exact on 256 sampled columns; Cholesky + '
+      f'cholesky_inverse {solve_s:.3f} s; max |(G + {lam:g} I) P - I| = '
+      f'{residual:.3g} (limit {EASE_RESIDUAL})')
+  if not residual <= EASE_RESIDUAL:
+    raise AssertionError(f'residual {residual} > {EASE_RESIDUAL}')
+  del b, p
+  torch.cuda.synchronize()
+  t0 = time.time()
+  model.fit(m)
+  torch.cuda.synchronize()
+  fit_s = time.time() - t0
+  users, _ = RecommendationDataset(m)[np.arange(500)]
+  recs = model.recommend(users, 100)
+  check_recommendations(recs, users.interactions_matrix, 100, n)
+  with tempfile.TemporaryDirectory() as tmp:
+    path = model.save(os.path.join(tmp, 'ease.model'))
+    recs2 = EASE(device=device).load(path).recommend(users, 100)
+  if not all(np.array_equal(a, c) for a, c in zip(recs, recs2)):
+    raise AssertionError('recommendations changed across save -> load')
+  say(f'  fit {fit_s:.3f} s (Gram, solve, B); recommend k=100 for 500 users '
+      f'valid, identical after save -> load; peak device memory '
+      f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+  del model
+
+  fixture = EASE(lam=500.0, device=device).fit(train_m)
+  res = RecommenderEvaluator(InferenceRecommender(fixture, 100),
+                             [Recall(k=20), NDCG(k=100)]).evaluate(
+      RecommendationDataset(val_m, train_m), batch_size=500)
+  means = {str(k): float(np.mean(v)) for k, v in res.items()}
+  say('  fixture floors (lam 500): ' + ', '.join(
+      f'{k} {v:.4f} (floor {EASE_FLOORS[k]})' for k, v in means.items()))
+  misses = {k: v for k, v in means.items() if not v > EASE_FLOORS[k]}
+  if misses:
+    raise AssertionError(f'EASE under its floors: {misses}')
+  return {'gram_s': gram_s, 'solve_s': solve_s, 'fit_s': fit_s,
+          'residual': residual, **means}
+
+
 # -- main ------------------------------------------------------------------
 
 def run(name, fn, *args, **kwargs):
@@ -2704,6 +3055,31 @@ def main():
   launches.update({k: target_launches[k]
                    for k in BF16_ROUTE_COUNTERS['mma']})
   del matrix, held_out
+  t0 = time.time()
+  matrix = synthetic.synthesize_ml20m()
+  say(f'ML-20M-shaped CSR again ({time.time() - t0:.1f} s)')
+  mf_per_step, (_, mf_cell), mf_quality = run('23 mf', phase_mf, matrix,
+                                              train_m, val_m)
+  vae_per_step, (_, vae_cell), vae_quality = run(
+      '24 multvae', phase_multvae, matrix, train_m, val_m)
+  ease = run('25 ease', phase_ease, matrix, train_m, val_m)
+  del matrix
+  # launches a step of each kernel on the MF / Mult-VAE paths: eager
+  # epochs and compared steps by the counters, captured replays by the
+  # profiles' names
+  family = {}
+  for path, counts in {**mf_per_step, **vae_per_step}.items():
+    for name, n in counts.items():
+      family.setdefault(name, {})[path] = n
+  for path, cell, names in (
+      ('mf_captured', mf_cell, {
+          'fused_decode_loss_fwd_bf16_wgmma':
+              'decode_loss_fwd_bf16_wgmma_kernel',
+          'fused_decode_loss_bwd_bf16_wgmma': 'drows_dbias_bf16_wgmma_kernel',
+          'adam_bf16': 'adam_bf16_kernel'}),
+      ('multvae_captured', vae_cell, {'adam_bf16': 'adam_bf16_kernel'})):
+    for name, key in names.items():
+      family.setdefault(name, {})[path] = cell['captured']['counts'][key] / 64
   # launches a step inside captured replays, by the profiles' names
   replayed = {
       'fused_decode_loss_fwd': f32_replays['decode_loss_fwd_kernel'],
@@ -2790,7 +3166,10 @@ def main():
               # (phase 22), and a validation batch (phase 21)
               'target_launches_per_step': target_per_step.get(name),
               'validation_launches_per_batch': val_timing[
-                  'forwards_per_batch'].get(name)}
+                  'forwards_per_batch'].get(name),
+              # launches a step on the MatrixFactorization and Mult-VAE
+              # paths (phases 23-24; EASE runs no hand kernel)
+              'family_launches_per_step': family.get(name)}
              for name, (err, ms, plain_ms, library_ms, (bound_ms, by),
                         per_step) in measured.items()]
   idle = [k['name'] for k in kernels if not k['launches']]
@@ -2842,7 +3221,23 @@ def main():
                   for (cd, sh), (r, idle) in target_rates.items())
       + ', host loader (float32) in turns at 0 threads '
       + ', '.join(f'{r:.2f}' for r in workers[0]) + ' and at 4 threads '
-      + ', '.join(f'{r:.2f}' for r in workers[4]) + f'; card {card}')
+      + ', '.join(f'{r:.2f}' for r in workers[4])
+      + '; captured vs eager steady: '
+      + '; '.join(f'{name} {max(out["captured"]["rates"]):.2f} vs '
+                  f'{max(out["eager"]["rates"]):.2f} (device '
+                  f'{out["captured"]["busy"]:.3f} ms a step, idle '
+                  f'{100 * out["captured"]["idle"]:.1f}% vs '
+                  f'{100 * out["eager"]["idle"]:.1f}%)'
+                  for name, out in (('MF[200] bf16', mf_cell),
+                                    ('Mult-VAE[600, 200] bf16', vae_cell)))
+      + '; MF gate ' + ', '.join(f'{k} {v:.4f}' for k, v in
+                                 mf_quality.items())
+      + '; Mult-VAE gate ' + ', '.join(f'{k} {v:.4f}' for k, v in
+                                       vae_quality.items())
+      + f'; EASE lam 200 at ML-20M: Gram {ease["gram_s"]:.3f} s, Cholesky '
+      f'inverse {ease["solve_s"]:.3f} s, fit {ease["fit_s"]:.3f} s, residual '
+      f'{ease["residual"]:.3g}; EASE fixture Recall@20 '
+      f'{ease["Recall@20"]:.4f}, NDCG@100 {ease["NDCG@100"]:.4f}; card {card}')
   say(json.dumps({'kernels': kernels}))
   say(card)
   say(json.dumps({'ok': True, 'device': {

@@ -12,8 +12,10 @@ decode from a dense or a bit-packed slab, item union, sparse tables;
 float32, and bench.py's bf16 compute with bf16 Adam moments), training
 against a target matrix (the host loader, and dual CSRs in 'blocks'
 mode) and the validation loss inside ``train``, the trainer for any
-model written to the ``FactorizationModel`` contract, the serving path
-they need, and iALS:
+model written to the ``FactorizationModel`` contract (with the aux-loss
+hook and sparse tables through ``apply_gathered``), MatrixFactorization
+(through the fused decode-loss kernels), Mult-VAE, EASE, the Mult-VAE
+protocol, the serving path they need, and iALS:
 
   recoder_tpu/utils.py                  -> recoder_tpu_torch.utils
   recoder_tpu/data/dataset.py           -> recoder_tpu_torch.data.dataset
@@ -30,6 +32,13 @@ they need, and iALS:
   (new) weights bridge                  -> recoder_tpu_torch.convert
   recoder_tpu/models/base.py            -> recoder_tpu_torch.models.base
   recoder_tpu/models/autoencoder.py     -> recoder_tpu_torch.models.autoencoder
+  recoder_tpu/models/matrix_factorization.py
+      -> recoder_tpu_torch.models.matrix_factorization
+  recoder_tpu/models/multvae.py         -> recoder_tpu_torch.models.multvae
+  recoder_tpu/models/ease.py            -> recoder_tpu_torch.models.ease
+      (the Gram on the device in user chunks, a cuSOLVER Cholesky for
+      the Newton-Schulz inverse, which is not ported)
+  recoder_tpu/protocols.py              -> recoder_tpu_torch.protocols
   recoder_tpu/ops/losses.py             -> recoder_tpu_torch.ops.losses
   recoder_tpu/ops/gather_matmul.py      -> recoder_tpu_torch.ops.gather_matmul
   recoder_tpu/experiments/pallas_loss.py
@@ -45,6 +54,8 @@ they need, and iALS:
       (_stage_batch, _to_device, _device_batch_iter: the host loader's
       staging; _get_val_loss_fn's dense dispatch and _validate ->
       Recoder._validate; the eval_freq hooks -> Recoder._validation_log)
+      (_forward_loss's has_aux hook and input_users, _sparse_step_math's
+      apply_gathered route and its pad-user redirect)
   recoder_tpu/progress.py               -> recoder_tpu_torch.progress
   recoder_tpu/metrics.py                -> recoder_tpu_torch.metrics
   recoder_tpu/recommender.py            -> recoder_tpu_torch.recommender

@@ -1,10 +1,23 @@
 """Weights bridge between the JAX package's arrays and the port's tensors.
 
-Parameters keep the JAX names (``en_embedding``, ``en_bias``,
-``encode_w_i``, ``encode_bias_i``, ``decode_w_i``, ``decode_bias_i``,
-``de_embedding``, ``de_bias``) and the JAX shapes, sentinel rows
-included (``models/base.py`` ``pad_dim``), so one dict converts either
-way without renaming or reshaping.
+Parameters keep the JAX names and the JAX shapes, sentinel rows of the
+padded item and user axes included (``models/base.py`` ``pad_dim``), so
+one dict converts either way without renaming or reshaping:
+
+  DynamicAutoencoder  ``en_embedding``, ``en_bias``, ``encode_w_i``,
+                      ``encode_bias_i``, ``decode_w_i``,
+                      ``decode_bias_i``, ``de_embedding``, ``de_bias``
+  MatrixFactorization ``user_embedding`` [pad_dim(users), d],
+                      ``item_embedding`` [pad_dim(items), d], ``bias``
+  MultVAE             ``en_embedding``, ``en_bias``, ``w_mu``,
+                      ``mu_bias``, ``w_logvar``, ``logvar_bias``,
+                      ``w_dec``, ``dec_bias``, ``de_embedding``,
+                      ``de_bias``
+
+:func:`load_params` puts a JAX model's arrays (or a checkpoint's) into a
+port model; :func:`params_to_numpy` takes them out, and
+:func:`to_jax_table` gives a port table the JAX package's sparse
+feature pad.
 
 Optimizer state follows ``recoder_tpu/optim.py``'s tree
 (``{'step': int32, 'm': {name: array}, 'v': {name: array}}`` for adam)
@@ -54,6 +67,28 @@ def params_from_numpy(arrays, device=None):
 def params_to_numpy(params):
   """``{name: Tensor}`` -> ``{name: float32 np.ndarray}`` (inverse)."""
   return {k: v.detach().float().cpu().numpy() for k, v in params.items()}
+
+
+def load_params(model, arrays, prefix='model/'):
+  """Copy ``{name: array}`` (a JAX model's ``params``, or a checkpoint's
+  ``model`` tree) into the port ``model``'s parameters in place; a JAX
+  sparse table's feature pad is cut (:func:`fit_table`)."""
+  with torch.no_grad():
+    for name, p in model.params().items():
+      p.copy_(torch.from_numpy(fit_table(f'{prefix}{name}', tuple(p.shape),
+                                         arrays[name])))
+
+
+def to_jax_table(arr, shape):
+  """A port array in a JAX parameter's ``shape``: as it is, or a sparse
+  table widened with the zero feature columns of the JAX package's
+  128-lane pad (the inverse of :func:`fit_table`)."""
+  arr = np.asarray(arr, np.float32)
+  if arr.ndim == 2 and len(shape) == 2 and shape[1] > arr.shape[1]:
+    arr = np.pad(arr, ((0, 0), (0, shape[1] - arr.shape[1])))
+  if arr.shape != tuple(shape):
+    raise ValueError(f'array of shape {arr.shape} does not fit {shape}')
+  return arr
 
 
 def opt_state_to_numpy(optimizer, named_params, kind, sgd_step=0):
@@ -136,6 +171,20 @@ def sparse_state_to_numpy(states):
                  'm': st['m'].detach().float().cpu().numpy(),
                  'v': st['v'].detach().float().cpu().numpy()}
           for path, st in states.items()}
+
+
+def ease_weights_from_numpy(model, arrays):
+  """Put a JAX EASE model's ``{'item_weights': B}`` into the port
+  ``EASE`` ``model`` (float32, on its device)."""
+  model.item_weights = torch.from_numpy(
+      np.array(arrays['item_weights'], np.float32)).to(model.device)
+  model.num_items = int(model.item_weights.shape[0])
+  return model
+
+
+def ease_weights_to_numpy(model):
+  """The port ``EASE`` model's B as ``{'item_weights': float32 array}``."""
+  return {'item_weights': model.item_weights.detach().float().cpu().numpy()}
 
 
 IALS_KEYS = ('user_factors', 'item_factors')

@@ -175,12 +175,16 @@ class RecommenderEvaluator:
     self.recommender = recommender
     self.metrics = metrics
 
-  def evaluate(self, eval_dataset, batch_size=1, num_users=None):
+  def evaluate(self, eval_dataset, batch_size=1, num_users=None,
+               num_workers=0):
     """Returns ``{metric: [per-user values]}``.
 
     Users whose relevant-item set is empty are skipped (every metric is
-    0/0 for them), as in the JAX package.
+    0/0 for them), as in the JAX package. ``num_workers`` is accepted
+    for the JAX package's signature and ignored, as there: the metric
+    math is vectorized per batch.
     """
+    del num_workers
     results = {metric: [] for metric in self.metrics}
     processed = 0
     for start in range(0, len(eval_dataset), batch_size):

@@ -42,12 +42,15 @@ alone.
 
 Any model written to the :class:`FactorizationModel` contract trains
 and scores here: a model that defines ``decode_operands``
-(``DynamicAutoencoder``) takes the routes above; every other model is
-called as ``model(input, input_users=..., input_items=...,
-target_items=..., generator=..., training=...)`` and its scores go
-through the trainer's loss with the same row and column masks (JAX
-``_forward_loss``). The batch's user ids reach the model in training,
-``predict`` and ``recommend``.
+(``DynamicAutoencoder``, ``MatrixFactorization``) takes the routes
+above; every other model (``MultVAE``) is called as ``model(input,
+input_users=..., input_items=..., target_items=..., generator=...,
+training=...)`` -- with sparse tables, ``model.apply_gathered(gathered,
+input, ...)`` -- and its scores go through the trainer's loss with the
+same row and column masks (JAX ``_forward_loss``). A model with
+``has_aux`` also gets the global step and returns a per-user aux loss in
+training (Mult-VAE's annealed KL). The batch's user ids reach the model
+in training, ``predict`` and ``recommend``.
 
 ``train(fused_steps_per_call=N)`` is the port's form of the JAX scan
 over consecutive fused steps: on the card, N full-decode steps are one
@@ -81,12 +84,15 @@ copied to the card on a side stream by a background thread
 every N epochs (the no-grad forward over the host loader's batches of
 the validation set) and, with ``metrics``, the ranking metrics.
 
-Not ported yet: bf16 parameters, bf16 moments of sparse tables, chunked
-validation and evaluation (``eval_item_chunk``), random extra negatives,
-the per-step triplet scatter (where the JAX package declines both slab
+Not ported yet (the JAX signature's arguments for them raise
+NotImplementedError where set): bf16 parameters, bf16 moments of sparse
+tables, chunked validation and evaluation (``eval_item_chunk``), the
+approximate top-k modes (``eval_topk``), random extra negatives, the
+per-step triplet scatter (where the JAX package declines both slab
 tiers), mega-batches wider than one compute batch on the on-device
 source, sparse tables without negative sampling, the orbax backend,
-meshes, and the capture of the union, sparse and host-loader steps.
+meshes, ``recommend_async``, and the capture of the union, sparse and
+host-loader steps.
 """
 
 import logging
@@ -139,15 +145,16 @@ _RESUMED = object()
 
 class _FdLoop:
   """The device state a full-decode epoch reads and writes: the epoch
-  order, the step within the epoch (a device counter that each step
-  advances, so that a graph replays the next steps), and one loss a
-  step."""
+  order, the step within the epoch and the global step (device counters
+  that each step advances, so that a graph replays the next steps: the
+  global step is the aux hook's ``step``), and one loss a step."""
 
   def __init__(self, source, perm_len, num_batches):
     dev = source.device
     self.source = source
     self.perm = torch.zeros(perm_len, dtype=torch.int64, device=dev)
     self.step = torch.zeros((), dtype=torch.int64, device=dev)
+    self.global_step = torch.zeros((), dtype=torch.int64, device=dev)
     self.losses = torch.zeros(num_batches, dtype=torch.float32, device=dev)
     #: Philox offset one step's noise draws take (on the card)
     self.noise_inc = None
@@ -163,6 +170,14 @@ def _canonical_dataset(dataset):
     return dataset
   return RecommendationDataset(*(m if m is None else canonical_csr(m)
                                  for m in matrices))
+
+
+def _not_ported(refused, what, where):
+  """Raise for an argument of the JAX package's signature whose module is
+  not ported yet (``where``: its ROADMAP item)."""
+  if refused:
+    raise NotImplementedError(f'{what} is not ported to the PyTorch '
+                              f'package yet ({where})')
 
 
 def _multistep_lr(base_lr, milestones, epoch, gamma=0.1):
@@ -190,24 +205,39 @@ class Recoder:
       same value and gradients) through the decode matmul and the
       [B, W] score matrix.
     loss_params (dict, optional): extra loss params when ``loss`` is str.
+    use_cuda (bool): the reference's switch, accepted and ignored (as
+      in the JAX package): ``device`` places the trainer.
     user_based / item_based (bool): consistency checks between the model
       and datasets.
     seed (int): seed of the init, permutation and dropout generators.
-    device: where the model, the slab and every step live: the card
-      ('cuda') unless the caller asks for 'cpu'.
+    mesh, eval_item_chunk: the JAX package's device mesh and chunked
+      evaluation; not ported yet (ROADMAP Queue 1 items 9 and 5): a
+      value other than None raises NotImplementedError.
     eval_compute_dtype (str, optional): the products' dtype of
       ``predict`` / ``recommend`` / evaluation alone (None: the model's).
+    eval_topk (str): 'exact' (``torch.topk``); the JAX package's other
+      modes are not ported (Queue 1 item 5) and raise.
     opt_state_dtype (str, optional): storage dtype of the optimizer's
       moments; 'bfloat16' (adam only: the other kinds raise ValueError)
       stores them in bf16 with float32 math. None keeps float32 state
       (``torch.optim``). It wins over a checkpoint's moments on load.
+    device (keyword only; the port's): where the model, the slab and
+      every step live: the card ('cuda') unless the caller asks for
+      'cpu'.
   """
 
   def __init__(self, model: FactorizationModel, num_items=None,
                num_users=None, optimizer_type='sgd', loss='mse',
-               loss_params=None, user_based=True, item_based=True,
-               seed=42, device=device_lib.DEFAULT, eval_compute_dtype=None,
-               opt_state_dtype=None):
+               loss_params=None, use_cuda=False, user_based=True,
+               item_based=True, seed=42, mesh=None, eval_item_chunk=None,
+               eval_compute_dtype=None, eval_topk='exact',
+               opt_state_dtype=None, *, device=device_lib.DEFAULT):
+    del use_cuda
+    _not_ported(mesh is not None, 'mesh', 'multi-GPU, Queue 1 item 9')
+    _not_ported(eval_item_chunk is not None, 'eval_item_chunk',
+                'chunked evaluation, Queue 1 item 5')
+    _not_ported(eval_topk != 'exact', f'eval_topk={eval_topk!r}',
+                'top-k modes, Queue 1 item 5')
     if optimizer_type not in KINDS:
       raise ValueError(f'Unknown optimizer kind {optimizer_type}')
     resolve_state_dtype(optimizer_type, opt_state_dtype)
@@ -409,7 +439,7 @@ class Recoder:
     return None
 
   def _forward_loss(self, batch, training, negative_sampling=True,
-                    generator=None, gathered=None):
+                    generator=None, gathered=None, step=None):
     """Loss of one batch: the masked sum over its loss columns, divided
     by the number of valid users (the JAX ``_forward_loss``).
 
@@ -423,9 +453,15 @@ class Recoder:
     the target side (``'tg_*'``, densified the same way) when it has one,
     else against its input. Every column of a union is a loss column;
     of the padded catalog, the logical items. ``gathered``: the sparse
-    step's union rows (``sparse_entries`` names). A model without
-    ``decode_operands`` scores through its ``forward`` and
-    ``loss_module``."""
+    step's table rows (``sparse_entries`` names). The batch's user ids
+    (``'users'``) reach the model as ``input_users``. A model without
+    ``decode_operands`` scores through its ``forward`` (or, with
+    ``gathered``, its ``apply_gathered``) and ``loss_module``.
+
+    The aux-loss hook (the JAX ``has_aux``): in training, a model with
+    ``has_aux`` is called with ``step`` (the global step, a 0-dim tensor)
+    and returns ``(scores, aux [B])``; ``sum(aux * row_mask)`` joins the
+    loss before the division by the valid users."""
     model = self.model
     cd = getattr(model, 'compute_dtype', None)
     valid_users = batch['num_users']
@@ -459,18 +495,27 @@ class Recoder:
       col_mask = (torch.arange(W, device=target.device) < logical).float()
     row_mask = (torch.arange(B, device=input_dense.device)
                 < valid_users).float()
+    users = batch.get('users')
+    if users is not None:
+      users = users.to(input_dense.device)
 
     if not hasattr(model, 'decode_operands'):
-      out = model(input_dense,
-                  input_users=batch['users'].to(input_dense.device),
-                  input_items=items, target_items=tg_items,
-                  generator=generator, training=training)
+      has_aux = training and getattr(model, 'has_aux', False)
+      kw = dict(input_users=users, input_items=items, target_items=tg_items,
+                generator=generator, training=training,
+                **({'step': step} if has_aux else {}))
+      out = (model(input_dense, **kw) if gathered is None
+             else model.apply_gathered(gathered, input_dense, **kw))
+      if has_aux:
+        out, aux = out
       loss = self.loss_module(out, target, row_mask=row_mask,
                               col_mask=col_mask)
+      if has_aux:
+        loss = loss + torch.sum(aux * row_mask)
       return loss / valid_users
     h, rows, bias = model.decode_operands(
         input_dense, items, tg_items, gathered=gathered, training=training,
-        generator=generator)
+        generator=generator, input_users=users)
     kind = self._fused_kind()
     if kind is not None and W > 0:
       loss = fused_decode_loss(
@@ -497,18 +542,30 @@ class Recoder:
                      batch[side + 'vals'].to(dtype))
     return dense
 
-  def _dense_step_math(self, batch, negative_sampling=True, reseed=True):
+  def _step_tensor(self):
+    """The global step as a 0-dim int64 tensor on the device: the aux
+    hook's ``step`` of an eager union, sparse or host-loader step (None
+    for a model without the hook)."""
+    if not getattr(self.model, 'has_aux', False):
+      return None
+    return torch.tensor(self._global_step, device=self.device)
+
+  def _dense_step_math(self, batch, negative_sampling=True, reseed=True,
+                       step=None):
     """One optimizer update; returns the step's loss (on the device).
 
     ``reseed`` seeds the dropout generator with ``(seed, global step)``
     first; a full-decode step on the card does not (see
-    :meth:`_position_noise`), so that a captured graph can run it."""
+    :meth:`_position_noise`), so that a captured graph can run it.
+    ``step``: the global step as a device tensor (by default
+    :meth:`_step_tensor`'s)."""
     if reseed:
       self._dropout_gen.manual_seed((self.seed << 32) + self._global_step)
+    step = self._step_tensor() if step is None else step
     self.optimizer.zero_grad(set_to_none=True)
     loss = self._forward_loss(batch, training=True,
                               negative_sampling=negative_sampling,
-                              generator=self._dropout_gen)
+                              generator=self._dropout_gen, step=step)
     loss.backward()
     self.optimizer.step()
     return loss.detach()
@@ -518,12 +575,23 @@ class Recoder:
     ``_sparse_step_math``): gradients w.r.t. the gathered table rows,
     the dense optimizer on every other parameter, then row-sparse Adam
     writes the touched rows of each table and its moments in place.
-    Returns the step's loss (on the device)."""
+    Returns the step's loss (on the device).
+
+    The user rows of a user-indexed table are the batch's users, its pad
+    slots pointing at the sentinel row ``num_users``, whose moments then
+    stay zero (the JAX redirect): a pad slot must not decay row 0's."""
+    model = self.model
     self._dropout_gen.manual_seed((self.seed << 32) + self._global_step)
     items = batch['items']
-    entries = self.model.sparse_entries(
-        input_items=items, target_items=batch.get('tg_items', items))
-    tables = self.model.params()
+    users = batch['users'].to(self.device)
+    if getattr(model, 'num_users', None):
+      valid = torch.arange(users.shape[0], device=self.device) \
+          < batch['num_users']
+      users = torch.where(valid, users, model.num_users)
+    entries = model.sparse_entries(
+        input_users=users, input_items=items,
+        target_items=batch.get('tg_items', items))
+    tables = model.params()
     with torch.no_grad():
       gathered = {name: tables[path].index_select(0, ids)
                   for name, path, ids in entries}
@@ -532,7 +600,7 @@ class Recoder:
     self.optimizer.zero_grad(set_to_none=True)
     loss = self._forward_loss(batch, training=True,
                               generator=self._dropout_gen,
-                              gathered=gathered)
+                              gathered=gathered, step=self._step_tensor())
     loss.backward()
     self.optimizer.step()
     uses = {}
@@ -583,9 +651,9 @@ class Recoder:
             model_checkpoint_prefix=None, checkpoint_freq=0, eval_freq=0,
             eval_num_recommendations=None, eval_num_users=None,
             metrics=None, eval_batch_size=None, profile_dir=None,
-            profile_steps=(10, 30), shuffle='users',
+            profile_steps=(10, 30), shuffle='users', num_random_negatives=0,
             fused_steps_per_call='auto', progress=False, full_decode='auto',
-            slab_cache='auto'):
+            slab_cache='auto', table_sharding='auto'):
     """Train the model (argument semantics follow the JAX package's
     ``Recoder.train``).
 
@@ -647,7 +715,16 @@ class Recoder:
     ``eval_batch_size`` (default ``batch_size``). Validation reads the
     parameters and nothing else of the training state: a run with it
     trains bitwise as one without.
+
+    ``num_random_negatives`` (other than 0) and ``table_sharding`` (other
+    than 'auto' or False: there is no mesh to shard over) are the JAX
+    package's and not ported yet (ROADMAP Queue 1 items 4 and 9).
     """
+    _not_ported(num_random_negatives, 'num_random_negatives',
+                'random extra negatives, Queue 1 item 4')
+    _not_ported(table_sharding not in ('auto', False),
+                f'table_sharding={table_sharding!r}',
+                'multi-GPU, Queue 1 item 9')
     if full_decode not in ('auto', True, False):
       raise ValueError(f"full_decode={full_decode!r}: expected 'auto', "
                        'True or False')
@@ -665,12 +742,6 @@ class Recoder:
 
     self._init_training(train_dataset, lr, weight_decay)
     sparse = bool(self.model.sparse_param_paths())
-    if sparse and not hasattr(self.model, 'decode_operands'):
-      raise NotImplementedError(
-          f'{type(self.model).__name__} declares sparse tables but defines '
-          'no decode_operands: the sparse step gathers its table rows '
-          'through decode_operands and sparse_entries, and only that '
-          'route is ported')
     if sparse and not negative_sampling:
       raise NotImplementedError('sparse tables train with negative '
                                 'sampling only (the full-catalog sparse '
@@ -992,6 +1063,7 @@ class Recoder:
                                      num_batches)
     loop.perm.copy_(self._epoch_perm)
     loop.step.fill_(self._iters_consumed)
+    loop.global_step.fill_(self._global_step)
     on_card = self.device.type == 'cuda'
     if on_card:
       self._position_noise(loop)
@@ -1038,9 +1110,11 @@ class Recoder:
     if reseed_step is not None:
       self._dropout_gen.manual_seed((self.seed << 32) + reseed_step)
     batch = loop.source.fd_batch(loop.perm, loop.step)
-    loss = self._dense_step_math(batch, negative_sampling, reseed=False)
+    loss = self._dense_step_math(batch, negative_sampling, reseed=False,
+                                 step=loop.global_step)
     loop.losses.index_copy_(0, loop.step.view(1), loss.view(1).float())
     loop.step.add_(1)
+    loop.global_step.add_(1)
 
   def _position_noise(self, loop):
     """Put the card's dropout generator where the global step puts it:
@@ -1057,20 +1131,21 @@ class Recoder:
   def _noise_increment(self, loop):
     """The Philox offset one full-decode step's noise draws take: a
     training forward of the step's shapes from a scratch generator (no
-    hand kernel runs in it)."""
+    hand kernel runs in it; every draw of the step -- a dropout mask, a
+    Mult-VAE's eps -- is in it)."""
     probe = torch.Generator(device=self.device)
     probe.manual_seed(0)
     B = loop.source.batch_size
     x = torch.zeros((B, self.model.num_items_padded), device=self.device,
                     dtype=getattr(self.model, 'compute_dtype', None)
                     or torch.float32)
+    users = torch.zeros(B, dtype=torch.int64, device=self.device)
     with torch.no_grad():
       if hasattr(self.model, 'decode_operands'):
-        self.model.decode_operands(x, training=True, generator=probe)
+        self.model.decode_operands(x, training=True, generator=probe,
+                                   input_users=users)
       else:
-        self.model(x, input_users=torch.zeros(B, dtype=torch.int64,
-                                              device=self.device),
-                   training=True, generator=probe)
+        self.model(x, input_users=users, training=True, generator=probe)
     return probe.get_offset()
 
   def _side_stream(self):
@@ -1100,7 +1175,8 @@ class Recoder:
                 if torch.is_tensor(g['lr'])]
     if isinstance(self.optimizer, Bf16Adam):
       tensors += [self.optimizer._ctl, self.optimizer._table]
-    tensors += [loop.source.d_slab, loop.perm, loop.step, loop.losses]
+    tensors += [loop.source.d_slab, loop.perm, loop.step, loop.global_step,
+                loop.losses]
     return (id(self.optimizer), id(loop), negative_sampling, id(self.loss),
             self._dropout_gen, tuple(t.data_ptr() for t in tensors))
 
@@ -1326,9 +1402,19 @@ class Recoder:
   # checkpointing
   # ------------------------------------------------------------------
 
-  def save_state(self, model_checkpoint_prefix):
+  def save_state(self, model_checkpoint_prefix, backend='npz',
+                 async_save=True):
     """Write ``{prefix}_epoch_{N}.model`` in the JAX package's npz
-    format; returns its path."""
+    format; returns its path. The write is synchronous whatever
+    ``async_save`` says (it completes before this returns). The JAX
+    package's 'orbax' backend is not ported (ROADMAP Queue 1 item 8)."""
+    del async_save
+    if backend == 'orbax':
+      raise NotImplementedError("save_state(backend='orbax') is not ported "
+                                'to the PyTorch package yet (ROADMAP Queue '
+                                "1 item 8); use backend='npz'")
+    if backend != 'npz':
+      raise ValueError(f'unknown checkpoint backend {backend!r}')
     checkpoint_file = (f'{model_checkpoint_prefix}_epoch_'
                        f'{self.current_epoch}.model')
     log.info('Saving model to %s', checkpoint_file)
@@ -1398,7 +1484,4 @@ class Recoder:
 
     self.model.load_model_params(meta['model_params'])
     self._init_model()
-    with torch.no_grad():
-      for name, p in self.model.params().items():
-        p.copy_(torch.from_numpy(convert.fit_table(
-            f'model/{name}', tuple(p.shape), arrays['model'][name])))
+    convert.load_params(self.model, arrays['model'])

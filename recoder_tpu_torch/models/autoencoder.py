@@ -43,7 +43,8 @@ import torch
 from torch import nn
 
 from recoder_tpu_torch.models.base import (FactorizationModel, activation,
-                                           dropout, l2_normalize_rows,
+                                           check_params_dtype, dropout,
+                                           l2_normalize_rows, linear,
                                            pad_dim, xavier_uniform)
 from recoder_tpu_torch.ops.gather_matmul import (as_dtype, decode_matmul,
                                                   encode_matmul, take_rows)
@@ -75,9 +76,7 @@ class DynamicAutoencoder(FactorizationModel):
                sparse=False, compute_dtype=None, params_dtype=None):
     super().__init__()
     self.sparse = bool(sparse)
-    if params_dtype not in (None, 'float32', torch.float32):
-      raise NotImplementedError(f'params_dtype={params_dtype!r}: only '
-                                'float32 parameters are ported')
+    check_params_dtype(params_dtype)
     self.compute_dtype = as_dtype(compute_dtype)
     self.hidden_layers = hidden_layers
     self.activation_type = activation_type
@@ -123,12 +122,7 @@ class DynamicAutoencoder(FactorizationModel):
           generator=gen)
     params['de_bias'] = torch.zeros(self.num_items_padded)
 
-    self._parameters.clear()
-    sparse = self.sparse_param_paths()
-    for name, value in params.items():
-      self.register_parameter(
-          name, nn.Parameter(value, requires_grad=name not in sparse))
-    return self.params()
+    return self.register_params(params)
 
   def model_params(self):
     p = {
@@ -161,8 +155,10 @@ class DynamicAutoencoder(FactorizationModel):
     return (('en_embedding',) if self.is_constrained
             else ('en_embedding', 'de_embedding'))
 
-  def sparse_entries(self, input_items=None, target_items=None):
-    """Row-gather plan of the sparse step: ``[(name, table, ids)]``. A
+  def sparse_entries(self, input_users=None, input_items=None,
+                     target_users=None, target_items=None):
+    """Row-gather plan of the sparse step: ``[(name, table, ids)]`` (the
+    user ids are not used: an item-based model). A
     decoder tied to the encoder that decodes the same union collapses
     into the one 'en_rows' entry, so both uses' gradients meet in one
     row-sparse update (torch's coalesced sparse gradient)."""
@@ -182,13 +178,6 @@ class DynamicAutoencoder(FactorizationModel):
     return self.compute_dtype if compute_dtype is None else as_dtype(
         compute_dtype)
 
-  @staticmethod
-  def _linear(z, w, bias, cd):
-    if cd in (None, torch.float32):
-      return z @ w + bias
-    # the product in the compute dtype, rounded there, then float32
-    return (z.to(cd) @ w.to(cd)).float() + bias
-
   def _hidden_stack(self, z, training, generator, cd=None):
     """Activation after the encode, the hidden Linears, and the
     bottleneck dropout; returns the bottleneck ``h [B, d0]``."""
@@ -196,7 +185,7 @@ class DynamicAutoencoder(FactorizationModel):
     n = len(self.hidden_layers) - 1
     for i in range(1, n + 1):
       w = getattr(self, f'encode_w_{i}')
-      z = activation(self._linear(z, w, getattr(self, f'encode_bias_{i}'),
+      z = activation(linear(z, w, getattr(self, f'encode_bias_{i}'),
                                   cd), self.activation_type)
     if training and self.dropout_prob > 0:
       z = dropout(z, self.dropout_prob, generator)
@@ -205,7 +194,7 @@ class DynamicAutoencoder(FactorizationModel):
         w = getattr(self, f'encode_w_{n - i + 1}').t()
       else:
         w = getattr(self, f'decode_w_{i}')
-      z = activation(self._linear(z, w, getattr(self, f'decode_bias_{i}'),
+      z = activation(linear(z, w, getattr(self, f'decode_bias_{i}'),
                                   cd), self.activation_type)
     return z
 
@@ -232,11 +221,12 @@ class DynamicAutoencoder(FactorizationModel):
 
   def decode_operands(self, input, input_items=None, target_items=None,
                       gathered=None, training=False, generator=None,
-                      compute_dtype=None):
+                      compute_dtype=None, input_users=None):
     """``(h, rows, bias)`` with scores ``h @ rows.T + bias``.
 
     ``input_items`` / ``target_items``: the item ids of the input's and
-    the scores' columns (None: the whole catalog). ``gathered``: the
+    the scores' columns (None: the whole catalog); ``input_users`` is not
+    used (an item-based model). ``gathered``: the
     union rows of the sparse step, by :meth:`sparse_entries` name; the
     tables are then not read, except for the decoder bias.
     """
@@ -266,8 +256,9 @@ class DynamicAutoencoder(FactorizationModel):
         input, input_items, target_items, training=training,
         generator=generator, compute_dtype=compute_dtype), compute_dtype)
 
-  def apply_gathered(self, gathered, input, target_items=None,
-                     training=False, generator=None):
+  def apply_gathered(self, gathered, input, input_users=None,
+                     input_items=None, target_users=None, target_items=None,
+                     generator=None, training=False):
     """:meth:`apply` with the table rows pre-gathered (the
     differentiable leaves of the sparse step)."""
     return self.decode(*self.decode_operands(

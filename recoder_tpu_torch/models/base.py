@@ -56,6 +56,24 @@ def l2_normalize_rows(x, eps=1e-12):
   return x / norm.to(x.dtype)
 
 
+def linear(z, w, bias, compute_dtype=None):
+  """``z @ w + bias`` of a hidden layer: in float32, or (bf16 compute)
+  the product of the bf16-rounded operands rounded to bf16, then float32
+  plus the float32 bias (the JAX ``(z.astype(cd) @ w.astype(cd))
+  .astype(float32) + b``)."""
+  if compute_dtype in (None, torch.float32):
+    return z @ w + bias
+  return (z.to(compute_dtype) @ w.to(compute_dtype)).float() + bias
+
+
+def check_params_dtype(params_dtype):
+  """The JAX models' ``params_dtype``: only float32 (None) is ported."""
+  if params_dtype not in (None, 'float32', torch.float32):
+    raise NotImplementedError(f'params_dtype={params_dtype!r}: only float32 '
+                              'parameters are ported (ROADMAP Queue 1 item '
+                              '6)')
+
+
 def dropout(x, rate, generator=None, keep_mask=None):
   """Inverted dropout (``torch.nn.Dropout`` train-mode scaling).
 
@@ -126,3 +144,14 @@ class FactorizationModel(nn.Module):
   def params(self):
     """``{jax_name: parameter}`` -- the names the checkpoint uses."""
     return dict(self.named_parameters())
+
+  def register_params(self, params):
+    """Replace the module's parameters by ``params`` ({name: tensor}), in
+    order; the tables of :meth:`sparse_param_paths` do not require grad
+    (row-sparse Adam trains them outside autograd)."""
+    self._parameters.clear()
+    sparse = self.sparse_param_paths()
+    for name, value in params.items():
+      self.register_parameter(
+          name, nn.Parameter(value, requires_grad=name not in sparse))
+    return self.params()

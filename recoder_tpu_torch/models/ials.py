@@ -25,7 +25,8 @@ ridge, solve the B systems with :func:`~recoder_tpu_torch.ops.spd.spd_solve`
 (the CUDA kernel on the card, the blocked recursion on the CPU), and
 scatter the solutions into the result (pad row ids drop). The Gram, the
 corrections and the scoring matmul are torch products in full float32
-(``_full_float32``: the JAX package asks for ``Precision.HIGHEST``).
+(``ops/gather_matmul.full_float32``: the JAX package asks for
+``Precision.HIGHEST``).
 Rows are nnz-sorted and chunked greedily on power-of-two (B, L) ladders
 exactly as in the JAX package; the chunk plans are built once in numpy
 and stay on the device for the whole fit.
@@ -40,8 +41,6 @@ top k.
 Not ported yet: ``fit(mesh=...)`` and ``factor_sharding`` (multi-GPU).
 """
 
-import contextlib
-
 import numpy as np
 import scipy.sparse as sp
 import torch
@@ -49,7 +48,9 @@ import torch
 import recoder_tpu_torch
 from recoder_tpu_torch import device as device_lib
 from recoder_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+from recoder_tpu_torch.ops.gather_matmul import full_float32
 from recoder_tpu_torch.ops.spd import spd_solve
+from recoder_tpu_torch.recommender import topk_unseen
 
 
 def _pow2_ceil(n):
@@ -58,18 +59,6 @@ def _pow2_ceil(n):
 
 def _pow2_floor(n):
   return 1 << max(0, int(np.floor(np.log2(max(1, int(n))))))
-
-
-@contextlib.contextmanager
-def _full_float32():
-  """float32 matmuls without TF32 for the duration (torch's default;
-  restored afterwards)."""
-  prev = torch.get_float32_matmul_precision()
-  torch.set_float32_matmul_precision('highest')
-  try:
-    yield
-  finally:
-    torch.set_float32_matmul_precision(prev)
 
 
 def _solve_rows_from_slab(f, gram, valid, vals, alpha, reg):
@@ -336,7 +325,7 @@ class IALS:
       plan = self._chunk_plan(csr, chunk_elems)
     d = factors.shape[1]
     n_rows = plan['n_rows']
-    with _full_float32():
+    with full_float32():
       factors_pad = torch.cat([factors, factors.new_zeros((1, d))])
       gram = _gram(factors)
       # pad row ids (== n_rows) scatter into the last row, dropped
@@ -398,7 +387,7 @@ class IALS:
   def predict(self, users_interactions, return_input=False):
     """Dense scores [B, num_items] via fold-in + one matmul."""
     x = self.fold_in(users_interactions)
-    with _full_float32():
+    with full_float32():
       scores = torch.matmul(x, self.item_factors.t())
     if return_input:
       xd = torch.from_numpy(np.asarray(
@@ -407,23 +396,13 @@ class IALS:
       return scores, xd
     return scores
 
-  def _topk_unseen(self, users_interactions, num_recommendations):
-    scores, xd = self.predict(users_interactions, return_input=True)
-    scores = scores.masked_fill(xd > 0, float('-inf'))
-    k = min(int(num_recommendations), self.num_items)
-    vals, idx = torch.topk(scores, k)
-    vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
-    # a user with fewer than k unseen items gets -inf-scored seen items
-    # in the tail: trim them instead of recommending watched items
-    return [row[np.isfinite(v)] for row, v in zip(idx, vals)]
-
   def recommend(self, users_interactions, num_recommendations):
     """Top-k unseen items per user (same contract as Recoder.recommend)."""
-    return self._topk_unseen(users_interactions, num_recommendations)
+    return topk_unseen(self, users_interactions, num_recommendations)
 
   def recommend_async(self, users_interactions, num_recommendations):
     """Evaluator-pipeline variant (same results as :meth:`recommend`)."""
-    return self._topk_unseen(users_interactions, num_recommendations)
+    return topk_unseen(self, users_interactions, num_recommendations)
 
   # -- checkpointing -----------------------------------------------------
 

@@ -23,9 +23,23 @@ float32 product of the bf16-rounded operands (the same products, summed
 in another order).
 """
 
+import contextlib
+
 import torch
 
 BF16 = torch.bfloat16
+
+
+@contextlib.contextmanager
+def full_float32():
+  """float32 products without TF32 for the duration (the JAX
+  ``Precision.HIGHEST``); the previous precision is restored after."""
+  prev = torch.get_float32_matmul_precision()
+  torch.set_float32_matmul_precision('highest')
+  try:
+    yield
+  finally:
+    torch.set_float32_matmul_precision(prev)
 
 
 def as_dtype(dtype):

@@ -1,9 +1,26 @@
 """Model-based recommendations.
 
-Port of ``recoder_tpu/recommender.py``'s ``InferenceRecommender``. Not
-ported yet: ``SimilarityRecommender`` (it needs the embeddings index and
-the native ANN library).
+Port of ``recoder_tpu/recommender.py``'s ``InferenceRecommender``, and
+the top-k of the closed-form models (iALS, EASE). Not ported yet:
+``SimilarityRecommender`` (it needs the embeddings index and the native
+ANN library).
 """
+
+import numpy as np
+import torch
+
+
+def topk_unseen(model, users_interactions, num_recommendations):
+  """Top-k unseen items per user from ``model.predict(...,
+  return_input=True)``: seen items score -inf, and a user with fewer than
+  k unseen items gets a shorter list (the -inf tail trimmed) instead of
+  watched items."""
+  scores, xd = model.predict(users_interactions, return_input=True)
+  scores = scores.masked_fill(xd > 0, float('-inf'))
+  k = min(int(num_recommendations), model.num_items)
+  vals, idx = torch.topk(scores, k)
+  vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+  return [row[np.isfinite(v)] for row, v in zip(idx, vals)]
 
 
 class Recommender:

@@ -1,8 +1,8 @@
 """Host-side array utilities (numpy only).
 
-A copy of ``recoder_tpu/utils.py``'s ``dataframe_to_csr_matrix``: the
-JAX package's module is numpy-only, but importing it runs
-``recoder_tpu/__init__.py``, which imports jax.
+A copy of ``recoder_tpu/utils.py`` (``unzip``, ``normalize``,
+``dataframe_to_csr_matrix``): the JAX package's module is numpy-only,
+but importing it runs ``recoder_tpu/__init__.py``, which imports jax.
 
 ``dataframe`` may be a pandas DataFrame or any mapping from column
 name to a 1-D array (a dict of numpy arrays serves where pandas is not
@@ -11,6 +11,18 @@ installed).
 
 import numpy as np
 from scipy.sparse import coo_matrix
+
+
+def unzip(l):
+  """Inverse of ``zip`` on a list: ``unzip([(a, b), ...]) == [[a...], [b...]]``."""
+  return list(map(list, zip(*l)))
+
+
+def normalize(x, axis=None):
+  """L2-normalize ``x`` along ``axis`` (the JAX package's form: the
+  norm keeps its dimensions, so every axis broadcasts and the input's
+  shape is kept)."""
+  return x / np.linalg.norm(x, axis=axis, keepdims=True)
 
 
 def _column(dataframe, col):

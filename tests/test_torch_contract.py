@@ -5,7 +5,9 @@
 tutorial model written to the port's documented signature VERBATIM (no
 ``compute_dtype``, no ``**kwargs``): it trains on the full-decode and
 the union path with a custom sum-reduced loss, evaluates, and
-round-trips a checkpoint. ``UserBias`` adds a per-user bias, so its
+round-trips a checkpoint. ``SparseTutorial`` trains its encoder table
+row-sparse through ``apply_gathered``, step for step as the JAX
+package's sparse step. ``UserBias`` adds a per-user bias, so its
 scores depend on ``input_users``: the port and the JAX package give the
 same loss on one batch and the same ``predict`` scores (rtol 1e-5) and
 recommendations from the same numpy parameters, which holds only if the
@@ -249,14 +251,117 @@ def test_dynamic_autoencoder_keeps_the_fused_route(monkeypatch):
   assert len(calls) == 3 and np.all(np.isfinite(tr.last_epoch_losses))
 
 
-def test_sparse_tables_without_decode_operands_raise():
+class SparseTutorial(TutorialAutoencoder):
+  """The tutorial model with its encoder table trained row-sparse: no
+  ``decode_operands``, so the sparse step goes through
+  ``apply_gathered``."""
 
-  class SparseTutorial(TutorialAutoencoder):
+  def init_model(self, num_items=None, num_users=None, seed=0):
+    super().init_model(num_items, num_users, seed)
+    self.enc.requires_grad_(False)
+    return self.params()
 
-    def sparse_param_paths(self):
-      return ('enc',)
+  def sparse_param_paths(self):
+    return ('enc',)
+
+  def sparse_entries(self, input_users=None, input_items=None,
+                     target_users=None, target_items=None):
+    return [('enc_rows', 'enc', input_items)]
+
+  def apply_gathered(self, gathered, input, input_users=None,
+                     input_items=None, target_users=None, target_items=None,
+                     generator=None, training=False):
+    h = torch.tanh(input @ gathered['enc_rows'])
+    return h @ self.dec[:, target_items] + self.dec_bias[target_items]
+
+
+class JaxSparseTutorial(JaxUserBias):
+  """The same model on the JAX package's contract (no user bias)."""
+
+  def init_model(self, num_items=None, num_users=None, seed=0):
+    super().init_model(num_items, num_users, seed)
+    del self.params['user_bias']
+    return self.params
+
+  def param_axes(self):
+    return {'enc': ('item', 'embed'), 'dec': ('embed', 'item'),
+            'dec_bias': ('item',)}
+
+  def sparse_param_paths(self):
+    return ('enc',)
+
+  def sparse_entries(self, input_users=None, input_items=None,
+                     target_users=None, target_items=None):
+    return [('enc_rows', 'enc', input_items)]
+
+  def apply_gathered(self, params, gathered, input, input_users=None,
+                     input_items=None, target_users=None, target_items=None,
+                     rng=None, training=False):
+    h = jnp.tanh(input @ gathered['enc_rows'])
+    return h @ params['dec'][:, target_items] + params['dec_bias'][
+        target_items]
+
+
+def test_sparse_tables_without_decode_operands_train_as_in_jax():
+  """A contract model with a sparse table and no ``decode_operands``
+  trains through ``apply_gathered`` and row-sparse Adam: two union steps
+  against the JAX ``_sparse_step_math`` from the same parameters (the
+  losses, the sparse table and its moments, the dense parameters; rtol
+  1e-5, absolute floors of 1e-5 on parameters and 1e-7 on moments), then
+  a whole epoch through ``train``."""
+  n_users, n_items, batch = 60, 90, 16
+  m = _matrix(n_users, n_items, seed=9)
+  rng = np.random.default_rng(1)
+  W = pad_dim(n_items)
+  params = {'enc': 0.3 * rng.standard_normal((W, 8)),
+            'dec': 0.3 * rng.standard_normal((8, W)),
+            'dec_bias': 0.1 * rng.standard_normal(W)}
+  params = {k: v.astype(np.float32) for k, v in params.items()}
+  jtr = JaxRecoder(JaxSparseTutorial(), optimizer_type='adam', loss='mse')
+  jtr.num_items, jtr.num_users = n_items, n_users
+  jtr._init_training(JaxDataset(m), weight_decay=0.0)
+  jtr.model.params = {k: jnp.asarray(v) for k, v in params.items()}
+  jtr.sparse_states = {'enc': jtr.sparse_adam.init(jtr.model.params['enc'])}
+  ptr = Recoder(SparseTutorial(8), optimizer_type='adam', loss='mse',
+                device='cpu')
+  ptr.num_items, ptr.num_users = n_items, n_users
+  ptr._init_training(RecommendationDataset(m), 1e-2, 0.0)
+  with torch.no_grad():
+    for name, p in ptr.model.params().items():
+      p.copy_(torch.from_numpy(params[name]))
+
+  source = DeviceDataSource(m, batch, batch, n_items, shuffle='users',
+                            device='cpu')
+  perm = source.epoch_permutation(1)
+  jparams, opt_state, states = (jtr.model.params, jtr.opt_state,
+                                jtr.sparse_states)
+  for step in range(2):
+    b = source.build_union_batch(perm, step)
+    items = b['items'].numpy()
+    pad = np.full(128 - len(items), n_items)
+    staged = {'in_rows': jnp.asarray(b['rows'].numpy(), jnp.int32),
+              'in_cols': jnp.asarray(b['cols'].numpy(), jnp.int32),
+              'in_vals': jnp.asarray(b['vals'].numpy()),
+              'in_users': jnp.asarray(b['users'].numpy(), jnp.int32),
+              'in_items': jnp.asarray(np.concatenate([items, pad]),
+                                      jnp.int32),
+              'in_valid_users': jnp.float32(b['num_users']),
+              'in_valid_width': jnp.int32(len(items))}
+    jparams, opt_state, states, jloss = jtr._sparse_step_math(
+        jparams, opt_state, states, staged, jnp.float32(1e-2), None)
+    got = ptr._sparse_step_math(b)
+    np.testing.assert_allclose(float(got), float(jloss), rtol=1e-5)
+  for name, p in ptr.model.params().items():
+    np.testing.assert_allclose(p.detach().numpy(), np.asarray(jparams[name]),
+                               rtol=1e-5, atol=1e-5, err_msg=name)
+  st = ptr.sparse_states['enc']
+  assert st['step'] == int(states['enc']['step']) == 2
+  for k in ('m', 'v'):
+    np.testing.assert_allclose(st[k].numpy(), np.asarray(states['enc'][k]),
+                               rtol=1e-5, atol=1e-7, err_msg=k)
 
   tr = Recoder(SparseTutorial(8), optimizer_type='adam', device='cpu')
-  with pytest.raises(NotImplementedError, match='decode_operands'):
-    tr.train(RecommendationDataset(_matrix()), batch_size=20,
-             negative_sampling=True)
+  tr.train(RecommendationDataset(m), batch_size=20, negative_sampling=True,
+           num_epochs=2)
+  assert np.all(np.isfinite(tr.last_epoch_losses))
+  assert tr.sparse_states['enc']['step'] == 6

@@ -21,7 +21,11 @@ steps against eager ones; the host loader's batches on the card equal to
 the CPU's, training against a target matrix (host loader and dual CSRs,
 dense and tied sparse tables) and its validation loss on the card against
 the CPU, and captured training bitwise the same with validation between
-its epochs.
+its epochs; MatrixFactorization's decode-loss route against its plain
+twin, the sparse MF and Mult-VAE steps through the row scatter against
+index_copy_ (bitwise), MF and Mult-VAE captured steps bitwise eager (the
+KL weight changing inside the graphs), and EASE on the card against the
+CPU.
 
 Every test skips where ``torch.cuda.is_available()`` is False. The file
 imports neither jax nor the JAX package, so it also runs on a machine
@@ -989,3 +993,164 @@ def test_validation_keeps_captured_training_bitwise(cuda):
     runs.append(tr)
   assert runs[0].captures == runs[1].captures == 2
   _assert_bitwise_trainers(*runs)
+
+
+# -- MatrixFactorization, Mult-VAE and EASE on the card -----------------------
+
+def _family_data(seed=4):
+  """90 users x 300 items; 'users' batches of 32 leave 6 pad users."""
+  from recoder_tpu_torch.data import RecommendationDataset
+  rng = np.random.default_rng(seed)
+  return RecommendationDataset(sp.csr_matrix(
+      (rng.random((90, 300)) < 0.05).astype(np.float32)))
+
+
+@pytest.mark.parametrize('dtype', [None, 'bfloat16'])
+def test_mf_fused_route_matches_plain(cuda, dtype):
+  """MF's full-decode 'mse' steps through the decode-loss kernels (once
+  a step, dropout 0.2) against the same steps through the plain decode +
+  ``MSELoss`` (losses rtol 1e-3, bf16 1e-2)."""
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import MatrixFactorization
+  from recoder_tpu_torch.ops.losses import MSELoss
+
+  data = _family_data()
+  out = {}
+  for route in ('kernel', 'plain'):
+    plain = route == 'plain'
+    tr = Recoder(MatrixFactorization(64, 'tanh', 0.2, compute_dtype=dtype),
+                 optimizer_type='adam',
+                 loss=MSELoss(confidence=40, reduction='sum') if plain
+                 else 'mse', loss_params=None if plain
+                 else {'confidence': 40},
+                 device=cuda, opt_state_dtype=dtype)
+    before = dict(fdl.LAUNCHES)
+    tr.train(data, batch_size=32, lr=1e-2, negative_sampling=True,
+             shuffle='users', full_decode=True, num_epochs=1,
+             fused_steps_per_call=1)
+    launched = {k: v - before[k] for k, v in fdl.LAUNCHES.items()
+                if v != before[k]}
+    if route == 'kernel':
+      names = (('fused_decode_loss_fwd', 'fused_decode_loss_bwd')
+               if dtype is None else ('fused_decode_loss_fwd_bf16',
+                                      'fused_decode_loss_bwd_bf16'))
+      assert launched == dict.fromkeys(names, 3), launched
+    else:
+      assert not launched
+    out[route] = tr.last_epoch_losses
+  np.testing.assert_allclose(out['kernel'], out['plain'],
+                             rtol=1e-3 if dtype is None else 1e-2)
+
+
+@pytest.mark.parametrize('family', ['mf', 'multvae'])
+def test_sparse_family_step_kernel_matches_plain_twin(cuda, family):
+  """Three sparse steps of MF (user and item tables) and of Mult-VAE
+  (encoder and decoder tables) through the row-scatter kernel -- 2
+  launches a step -- and through index_copy_: bitwise the same tables,
+  moments and losses."""
+  from unittest import mock
+
+  from recoder_tpu_torch import optim
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import MatrixFactorization, MultVAE
+
+  out = {}
+  for route in ('kernel', 'plain'):
+    if family == 'mf':
+      tr = Recoder(MatrixFactorization(32, 'tanh', 0.2, sparse=True),
+                   optimizer_type='adam', loss='mse', device=cuda)
+    else:
+      tr = Recoder(MultVAE(32, 8, total_anneal_steps=4, sparse=True),
+                   optimizer_type='adam', loss='logloss', device=cuda)
+    patch = (mock.patch.object(optim, 'row_scatter_', rs.row_scatter_plain)
+             if route == 'plain' else mock.MagicMock())
+    before = rs.LAUNCHES['row_scatter']
+    with patch:
+      tr.train(_family_data(), batch_size=32, lr=1e-2, negative_sampling=True,
+               shuffle='users', num_epochs=1)
+    assert rs.LAUNCHES['row_scatter'] - before == (6 if route == 'kernel'
+                                                   else 0)
+    out[route] = (tr.last_epoch_losses,
+                  {k: v.cpu() for k, v in tr.model.params().items()},
+                  {p: (s['m'].cpu(), s['v'].cpu())
+                   for p, s in tr.sparse_states.items()})
+  (lk, pk, sk), (lp, pp, spl) = out['kernel'], out['plain']
+  assert lk == lp and len(sk) == 2
+  for name in pk:
+    assert torch.equal(pk[name], pp[name]), name
+  for p in sk:
+    assert torch.equal(sk[p][0], spl[p][0]) and torch.equal(sk[p][1],
+                                                            spl[p][1])
+  if family == 'mf':  # the pad slots step the sentinel row: zero moments
+    assert not sk['user_embedding'][0][90].any()
+
+
+@pytest.mark.parametrize('family,dtype', [('mf', None), ('mf', 'bfloat16'),
+                                          ('multvae', None),
+                                          ('multvae', 'bfloat16')])
+def test_family_captured_steps_are_bitwise_eager(cuda, family, dtype,
+                                                 tmp_path):
+  """3 epochs of 22 full-decode steps, 16 a graph against one eager step
+  a dispatch: bitwise the same losses, parameters and moments. Mult-VAE
+  trains with the full softmax and its KL weight changes inside the
+  graphs (total_anneal_steps=40: beta grows over the first 8 steps), so
+  the captured step reads the global step from the device; a resume from
+  a checkpoint 10 steps into epoch 1 ends where the uninterrupted run
+  does."""
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import MatrixFactorization, MultVAE
+
+  def trainer():
+    if family == 'mf':
+      return Recoder(MatrixFactorization(32, 'tanh', 0.2,
+                                         compute_dtype=dtype),
+                     optimizer_type='adam', loss='mse',
+                     loss_params={'confidence': 40}, device=cuda,
+                     opt_state_dtype=dtype)
+    return Recoder(MultVAE(32, 8, total_anneal_steps=40,
+                           compute_dtype=dtype),
+                   optimizer_type='adam', loss='logloss', device=cuda,
+                   opt_state_dtype=dtype)
+
+  data = _capture_data()
+
+  def run(tr, spc, num_epochs=3, **kw):
+    tr.train(data, batch_size=32, lr=1e-2, num_epochs=num_epochs,
+             lr_milestones=[2], negative_sampling=family == 'mf',
+             shuffle='blocks', full_decode=True, fused_steps_per_call=spc,
+             **kw)
+    return tr
+
+  eager = run(trainer(), 1)
+  captured = run(trainer(), 16)
+  assert captured.last_epoch_dispatch == 'captured, 16 steps a graph'
+  _assert_bitwise_trainers(captured, eager)
+  run(trainer(), 16, num_epochs=1, iters_per_epoch=10,
+      model_checkpoint_prefix=str(tmp_path / 'c'))
+  resumed = Recoder(MatrixFactorization(1) if family == 'mf' else MultVAE(),
+                    optimizer_type='adam', device=cuda,
+                    opt_state_dtype=dtype)
+  resumed.init_from_model_file(str(tmp_path / 'c_epoch_1.model'))
+  _assert_bitwise_trainers(run(resumed, 16), captured)
+
+
+def test_ease_on_the_card_matches_cpu(cuda):
+  """EASE on the card (the chunked bf16 Gram with float32 output,
+  cuSOLVER's Cholesky): the Gram exactly scipy's, B within 1e-4 of max |B|
+  of the CPU fit, the diagonal exactly zero, the same recommendations."""
+  from recoder_tpu_torch.data import UsersInteractions
+  from recoder_tpu_torch.models import EASE
+
+  m = _family_data().interactions_matrix
+  gpu = EASE(lam=5.0, device=cuda)
+  g = gpu._device_gram(m.tocsr(), chunk_users=37)
+  np.testing.assert_array_equal(g.cpu().numpy(),
+                                np.asarray((m.T @ m).todense(), np.float32))
+  gpu.fit(m)
+  cpu = EASE(lam=5.0, device='cpu').fit(m)
+  b, want = gpu.item_weights.cpu().numpy(), cpu.item_weights.numpy()
+  np.testing.assert_array_equal(np.diag(b), 0.0)
+  np.testing.assert_allclose(b, want, rtol=0, atol=1e-4 * np.abs(want).max())
+  ui = UsersInteractions(np.arange(20), m[:20])
+  for a, c in zip(gpu.recommend(ui, 10), cpu.recommend(ui, 10)):
+    assert len(set(a.tolist()) ^ set(c.tolist())) <= 2

@@ -4,8 +4,9 @@ and bf16 compute with bf16 moments), the synthetic data, a tiny
 iALS fit, fold-in and recommend, a sparse-table and a dense union
 training, target training with validation through the host loader and
 the dual CSRs, a row scatter, a training from the bit-packed slab and its
-row unpack run on the CPU, and afterwards neither JAX nor the JAX package is
-loaded."""
+row unpack run on the CPU, MatrixFactorization (dense and sparse) and
+Mult-VAE train, EASE fits and recommends, the Mult-VAE protocol runs, and
+afterwards neither JAX nor the JAX package is loaded."""
 
 import os
 import subprocess
@@ -86,6 +87,20 @@ SCRIPT = textwrap.dedent('''
     rows, col_mask = unpack_rows(torch.tensor([[-1]], dtype=torch.int32), 31,
                                  start=0, count=1)
     assert rows.sum() == 32 and col_mask.sum() == 31
+    from recoder_tpu_torch.models import EASE, MatrixFactorization, MultVAE
+    from recoder_tpu_torch.protocols import evaluate_vae_protocol
+    for model, loss in ((MatrixFactorization(8, 'tanh', 0.2), 'mse'),
+                        (MatrixFactorization(8, sparse=True), 'mse'),
+                        (MultVAE(16, 4, total_anneal_steps=5), 'logloss')):
+        tr = Recoder(model, optimizer_type='adam', loss=loss, device='cpu')
+        tr.train(RecommendationDataset(m), batch_size=8, num_epochs=1,
+                 negative_sampling=True)
+        assert all(np.isfinite(tr.last_epoch_losses))
+    summary = evaluate_vae_protocol(tr, RecommendationDataset(t, m),
+                                    batch_size=8)
+    assert np.isfinite(summary['HeldoutMultinomialNLL'])
+    ease = EASE(lam=5.0, device='cpu').fit(m)
+    assert all(len(r) == 3 for r in ease.recommend(ui, 3))
     loaded = [k for k, v in sys.modules.items() if v is not None and (
         k in ('jax', 'jaxlib', 'recoder_tpu') or k.startswith(
             ('jax.', 'jaxlib.', 'recoder_tpu.')))]

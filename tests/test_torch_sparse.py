@@ -205,11 +205,12 @@ def test_union_forward_matches_jax(hidden, constrained):
                                        jnp.asarray(x.numpy()),
                                        target_items=jitems))
   gathered = {name: pm.params()[path].index_select(0, ids)
-              for name, path, ids in pm.sparse_entries(items, items)}
+              for name, path, ids in pm.sparse_entries(input_items=items,
+                                                       target_items=items)}
   assert sorted(gathered) == sorted(jgathered)
   with torch.no_grad():
     got = pm.apply(x, items, items).numpy()
-    got_g = pm.apply_gathered(gathered, x, items).numpy()
+    got_g = pm.apply_gathered(gathered, x, target_items=items).numpy()
   for a, b in ((got, ref), (got_g, ref_g)):
     np.testing.assert_allclose(a, b, rtol=1e-5,
                                atol=1e-5 * np.abs(b).max())
@@ -279,7 +280,8 @@ def test_a_step_reads_the_rows_the_last_step_wrote():
     assert not ptr.sparse_states[path]['m'][out].any()
   with torch.no_grad():
     gathered = {name: ptr.model.params()[path].index_select(0, ids)
-                for name, path, ids in ptr.model.sparse_entries(items, items)}
+                for name, path, ids in ptr.model.sparse_entries(
+                    input_items=items, target_items=items)}
     want = ptr._forward_loss(batch, training=True, gathered=gathered)
     again = ptr._forward_loss(batch, training=True)
   got = ptr._sparse_step_math(batch)

@@ -44,6 +44,7 @@ def half_sweep(model, factors, plan, events):
   import torch
 
   from recoder_tpu_torch.models import ials
+  from recoder_tpu_torch.ops.gather_matmul import full_float32
   from recoder_tpu_torch.ops.spd import spd_solve
 
   def mark():
@@ -52,7 +53,7 @@ def half_sweep(model, factors, plan, events):
     return e
 
   d = factors.shape[1]
-  with ials._full_float32():
+  with full_float32():
     t = mark()
     factors_pad = torch.cat([factors, factors.new_zeros((1, d))])
     gram = ials._gram(factors)
