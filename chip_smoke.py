@@ -237,6 +237,31 @@ Phases, each of which raises on failure:
                 zero diagonal, the fit timed, recommend(k=100) valid and
                 unchanged across save -> load; the fixture floors at lam
                 500 (Recall@20 > 0.060, NDCG@100 > 0.095).
+ 26. negatives -- the reference's negative-sampling knobs at the
+                tutorial's values: megas of 2,000 users (4 compute batches
+                of 500) and 1,000 random negatives a step. (a) bench.py's
+                ML-20M default with them ('users' shuffle, dense slab):
+                20 steps against the plain path (bf16 rtol 1e-2; the wgmma
+                pair and Adam once a step), then captured ('auto') and
+                eager in turns (ml20m_mega2000_neg1000_user_batches_per_sec,
+                device ms and launches a step, the idle share, each hand
+                kernel once a step in 64 replayed steps); (b) the same
+                through the per-step triplet scatter (slab_cache=False),
+                eager: 20 losses bitwise (a)'s, and against the plain path;
+                (c) 'blocks' captured, against the plain path; (d, run
+                after phase 13 while the MSD CSR exists) bench.py's MSD
+                --sparse default with them: 20 union steps, two row-scatter
+                launches each, against the plain path (float32, rtol 1e-3),
+                and the row scatter at a step's union width bitwise
+                index_copy_; (e) the bf16 union path, 20 steps: the
+                decode-loss route each takes (the mega union plus R is
+                rarely a multiple of 8: the mma.sync set), against the
+                plain path, and the mma.sync kernels at such a width
+                against their plain version. Then the fixture captured
+                bitwise eager with megas and random negatives (3 epochs,
+                bf16), and the fixture quality row (float32, logloss, 30
+                epochs) within 0.01 of the JAX package's pins
+                (tools/jax_negatives_pins.py).
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -348,6 +373,8 @@ SCATTER_WS = (0, 1, 37)
 #: phase 17's ragged fetches; 1,288 words is the MSD slab's width
 PACKED_BATCHES = (1, 37, 500)
 PACKED_WORDS = (1, 5, 33, 644, 1288)
+#: phase 17's mask-only launches: mega-batches of rows (2,000: phase 26's)
+PACKED_MEGAS = (1, 37, 2000)
 #: bench.py --dataset msd (its default: dense tables, full decode, bf16)
 MSD_DENSE_TRAIN = dict(MSD_TRAIN, slab_cache='auto', full_decode='auto')
 
@@ -942,7 +969,7 @@ def phase_paths(train_m, device='cuda', steps=20, compute_dtype=None,
 
 def phase_quality(train_m, val_m, device='cuda', epochs=30, atol=0.01,
                   compute_dtype=None, opt_state_dtype=None, reload_atol=0.0,
-                  slab_cache='auto'):
+                  slab_cache='auto', pinned=PINNED, **train_kw):
   from recoder_tpu_torch.data import RecommendationDataset
   from recoder_tpu_torch.metrics import NDCG, Recall
   from recoder_tpu_torch.model import Recoder
@@ -957,7 +984,7 @@ def phase_quality(train_m, val_m, device='cuda', epochs=30, atol=0.01,
   t0 = time.time()
   trainer.train(train_ds, batch_size=500, lr=1e-3, weight_decay=2e-5,
                 num_epochs=epochs, negative_sampling=True,
-                slab_cache=slab_cache)
+                slab_cache=slab_cache, **train_kw)
   train_s = time.time() - t0
   source = trainer.fused_data_source
   if slab_cache == 'packed' and not (source.d_slab is not None
@@ -967,15 +994,17 @@ def phase_quality(train_m, val_m, device='cuda', epochs=30, atol=0.01,
   results = trainer._evaluate(val_ds, 100, metrics, batch_size=500)
   means = {str(m): float(np.mean(v)) for m, v in results.items()}
   say(f'  compute {compute_dtype or "float32"}, moments '
-      f'{opt_state_dtype or "float32"}, slab_cache={slab_cache!r}: {epochs} '
-      f'epochs in {train_s:.1f} s, dispatch: {trainer.last_epoch_dispatch} '
-      f'({trainer.last_epoch_dispatches} dispatches an epoch); '
-      + ', '.join(f'{k} {v:.4f} (pinned {PINNED[k]})'
+      f'{opt_state_dtype or "float32"}, slab_cache={slab_cache!r}'
+      + ''.join(f', {k}={v}' for k, v in train_kw.items())
+      + f': {epochs} epochs in {train_s:.1f} s, dispatch: '
+      f'{trainer.last_epoch_dispatch} ({trainer.last_epoch_dispatches} '
+      'dispatches an epoch); '
+      + ', '.join(f'{k} {v:.4f} (pinned {pinned[k]})'
                   for k, v in means.items()))
   if not trainer.last_epoch_dispatch.startswith('captured'):
     raise AssertionError("the quality row did not run captured under "
                          "fused_steps_per_call='auto'")
-  misses = {k: v for k, v in means.items() if abs(v - PINNED[k]) > atol}
+  misses = {k: v for k, v in means.items() if abs(v - pinned[k]) > atol}
   if misses:
     raise AssertionError(f'quality outside atol {atol} of the pinned '
                          f'values: {misses}')
@@ -1873,6 +1902,27 @@ def phase_packed_kernel(device='cuda', shape=(500, 1288)):
   say(f'  {cases} fetches (B in {PACKED_BATCHES} x words in {PACKED_WORDS} '
       'x 2 catalogs, the last block and a gather with pad users, bit 31 '
       'in every fourth word): bitwise equal to the plain version')
+  cases = 0
+  for B in PACKED_MEGAS:
+    for n_words in PACKED_WORDS + (632,):
+      n_rows = B + 3
+      packed = packed_slab(n_rows, n_words, device, seed=B * n_words)
+      rng = np.random.default_rng(B)
+      index = rng.integers(0, n_rows + 40, B).astype(np.int64)
+      index[-1] = n_rows + 100
+      index = torch.from_numpy(index).to(device)
+      for fetch in (dict(index=index), dict(start=n_rows - B, count=B)):
+        got = pr.unpack_mask_kernel(packed, 32 * n_words - 7, **fetch)
+        ref = pr.unpack_mask_plain(packed, 32 * n_words - 7, **fetch)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+          raise AssertionError(f'packed_rows mask-only [{B}, {n_words} words]'
+                               f' {list(fetch)}: differs from the plain '
+                               'version')
+        cases += 1
+  say(f'  {cases} mask-only launches (a mega\'s loss columns, no row '
+      f'written; B in {PACKED_MEGAS} x words in {PACKED_WORDS + (632,)}, '
+      'gather and contiguous): bitwise equal to the plain version')
 
   B, n_words = shape
   packed = packed_slab(8 * B, n_words, device, seed=7)
@@ -2945,6 +2995,200 @@ def phase_ease(matrix, train_m, val_m, device='cuda', lam=200.0):
 
 # -- main ------------------------------------------------------------------
 
+# -- phase 26 --------------------------------------------------------------
+
+#: the reference's negative-sampling knobs at the tutorial's values
+#: (docs/tutorial.md:107-133): megas of 2,000 users (4 compute batches of
+#: 500) sharing one item union, and 1,000 uniform-random extra negatives
+#: a step
+NEGATIVES = dict(num_sampling_users=2000, num_random_negatives=1000)
+#: phase 26 (a): bench.py's ML-20M default with them, 'users' shuffle
+ML20M_NEG_TRAIN = dict(ML20M_TRAIN, shuffle='users', **NEGATIVES)
+NEG_RATE = 'ml20m_mega2000_neg1000_user_batches_per_sec'
+#: tools/jax_negatives_pins.py: the fixture protocol with NEGATIVES (bench
+#: DynamicAutoencoder[200], logloss, batch 500, 30 epochs) through the JAX
+#: package on the CPU, float32 (atol 0.01)
+NEGATIVES_PINNED = {'Recall@20': 0.1435, 'Recall@50': 0.2438, 'NDCG@100': 0.1717}
+#: the hand kernels of bench.py's ML-20M step, launches a step (eager)
+ML20M_BF16_STEP = {'fused_decode_loss_fwd_bf16_wgmma': 1,
+                   'fused_decode_loss_bwd_bf16_wgmma': 1, 'adam_bf16': 1}
+CELL_KERNELS['ml20m_neg'] = CELL_KERNELS['ml20m']
+
+
+def _ml20m_trainer(plain=False, device='cuda'):
+  """bench.py's ML-20M model and trainer (bf16 compute and moments, 'mse'
+  confidence 3); ``plain``: the same loss as an ``MSELoss`` instance,
+  which bypasses the fused decode-loss kernel."""
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  from recoder_tpu_torch.ops.losses import MSELoss
+  loss = MSELoss(confidence=3, reduction='sum') if plain else 'mse'
+  return Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                    compute_dtype='bfloat16'),
+                 optimizer_type='adam', loss=loss,
+                 loss_params=None if plain else {'confidence': 3},
+                 device=device, opt_state_dtype='bfloat16')
+
+
+def union_widths(trainer, steps=20, epoch=1):
+  """The item-union widths of the first ``steps`` steps of ``epoch`` as
+  the trainer's source built them (the random ids of global steps 0..)."""
+  source = trainer.fused_data_source
+  perm = source.epoch_permutation(epoch)
+  return np.array([len(source.build_union_batch(perm, s, neg_step=s)
+                       ['items']) for s in range(steps)])
+
+
+def phase_negatives(matrix, train_m, val_m):
+  """The paper's negative-sampling knobs (NEGATIVES) on bench.py's ML-20M
+  default: (a) 'users' shuffle from the dense slab, 20 steps against the
+  plain path, then captured and eager in turns; (b) the same through the
+  per-step triplet scatter (slab_cache=False), eager: its 20 losses
+  bitwise (a)'s, and against the plain path; (c) 'blocks' captured; (e)
+  the bf16 union path, 20 steps: how many take each decode-loss route
+  (the mega union plus R is rarely a multiple of 8), against the plain
+  path; the fixture captured bitwise eager with megas and random
+  negatives; the fixture quality row against the JAX package's pins."""
+  import torch
+  from recoder_tpu_torch.data import RecommendationDataset
+  dataset = RecommendationDataset(matrix)
+  per_step = {}
+
+  kernel = _ml20m_trainer()
+  per_step['ml20m_mega_users'] = family_paths(
+      dataset, kernel, _ml20m_trainer(plain=True), ML20M_NEG_TRAIN,
+      ML20M_BF16_STEP, BF16_PATHS_RTOL, '(a) ML-20M users, mega 2000, R 1000')
+  source = kernel.fused_data_source
+  if source.d_slab is None or source.slices_per_mega != 4:
+    raise AssertionError('(a) did not train 4 slices a mega from the slab')
+
+  scatter = _ml20m_trainer()
+  scatter_kw = dict(ML20M_NEG_TRAIN, slab_cache=False)
+  per_step['ml20m_mega_scatter'] = family_paths(
+      dataset, scatter, _ml20m_trainer(plain=True), scatter_kw,
+      ML20M_BF16_STEP, BF16_PATHS_RTOL, '(b) the same, triplet scatter')
+  if scatter.fused_data_source.d_slab is not None:
+    raise AssertionError('(b) kept a slab under slab_cache=False')
+  if scatter.last_epoch_losses != kernel.last_epoch_losses:
+    raise AssertionError(f'(b) scatter route losses {scatter.last_epoch_losses}'
+                         f' differ from the slab route\'s '
+                         f'{kernel.last_epoch_losses}')
+  say('  (b) the scatter route\'s 20 losses are bitwise the slab route\'s')
+  # the next 20 eager steps of each route, in turns, then a profile
+  rates = {'scatter': [], 'slab': []}
+  for name in ('scatter', 'slab', 'slab', 'scatter'):
+    tr, kw = ((scatter, scatter_kw) if name == 'scatter'
+              else (kernel, ML20M_NEG_TRAIN))
+    tr.train(dataset, num_epochs=1, iters_per_epoch=20,
+             fused_steps_per_call=1, **kw)
+    torch.cuda.synchronize()
+    rates[name].append(20 / tr.last_epoch_seconds)
+  _, busy, launches, _ = profile_steps(scatter, dataset, scatter_kw)
+  scatter_rate = max(rates['scatter'])
+  say(f'  (b) eager user-batches/s over 20 steps, in turns: scatter '
+      f'{rates["scatter"][0]:.2f} / {rates["scatter"][1]:.2f}, slab '
+      f'{rates["slab"][0]:.2f} / {rates["slab"][1]:.2f}; the scatter step '
+      f'{busy:.3f} ms of device time and {launches:.1f} launches, the device '
+      f'idle ~{100 * (1 - busy * scatter_rate / 1e3):.1f}%')
+  del scatter
+  torch.cuda.empty_cache()
+
+  first, cell = capture_cell('ml20m_neg', kernel, dataset, ML20M_NEG_TRAIN,
+                             NEG_RATE)
+  del kernel
+  torch.cuda.empty_cache()
+
+  blocks_kw = dict(ML20M_TRAIN, **NEGATIVES)
+  blocks = _ml20m_trainer()
+  per_step['ml20m_mega_blocks'] = family_paths(
+      dataset, blocks, _ml20m_trainer(plain=True), blocks_kw,
+      ML20M_BF16_STEP, BF16_PATHS_RTOL, '(c) ML-20M blocks, mega 2000, R 1000')
+  blocks.train(dataset, num_epochs=1, **blocks_kw)  # the rest of epoch 1
+  blocks.train(dataset, num_epochs=1, **blocks_kw)
+  torch.cuda.synchronize()
+  if not blocks.last_epoch_dispatch.startswith('captured'):
+    raise AssertionError(f'(c) did not run captured: '
+                         f'{blocks.last_epoch_dispatch}')
+  steps = len(blocks.last_epoch_losses)
+  blocks_rate = steps / blocks.last_epoch_seconds
+  say(f'  (c) blocks captured: {steps} steps, {blocks_rate:.2f} user-batches/s'
+      f' ({blocks.last_epoch_dispatch}, {blocks.last_epoch_dispatches} '
+      'dispatches an epoch)')
+  del blocks
+  torch.cuda.empty_cache()
+
+  union = _ml20m_trainer()
+  union_kw = dict(ML20M_NEG_TRAIN, full_decode=False, fused_steps_per_call=1)
+  reset_launches()
+  union.train(dataset, num_epochs=1, iters_per_epoch=20, **union_kw)
+  torch.cuda.synchronize()
+  counts = {k: v for k, v in read_launches().items() if v}
+  routes = {r: counts.get(names[0], 0)
+            for r, names in BF16_ROUTE_COUNTERS.items()}
+  if (sum(routes.values()) != 20 or counts.get('adam_bf16') != 20
+      or any(counts.get(b, 0) != counts.get(f, 0)
+             for f, b in BF16_ROUTE_COUNTERS.values())):
+    raise AssertionError(f'(e) 20 union steps launched {counts}')
+  widths = union_widths(union)
+  plain = plain_trainer_run(_ml20m_trainer(plain=True), dataset, 20,
+                            union_kw)
+  rel = compare_losses(union.last_epoch_losses, plain, BF16_PATHS_RTOL,
+                       '(e) bf16 union path')
+  odd = int(np.sum(widths % 8 != 0))
+  say(f'  (e) ML-20M bf16 union path, mega 2000, R 1000: 20 steps, union '
+      f'widths {widths.min()}-{widths.max()} (mean {widths.mean():.1f}), '
+      f'{odd} of 20 not a multiple of 8; decode-loss route by step '
+      f'{routes}, launches {counts}; losses vs the plain path max rel '
+      f'{rel:.3g}')
+  per_step['ml20m_mega_union'] = {k: v / 20 for k, v in counts.items()}
+  compare_kernel(500, 200, int(widths[widths % 8 != 0][0]) if odd
+                 else int(widths[0]) + 1, 'mse', 3, 'cuda',
+                 target_dtype=torch.bfloat16, compute_dtype='bfloat16',
+                 route='mma')
+  del union
+  torch.cuda.empty_cache()
+
+  family_fixture_bitwise(
+      train_m, _ml20m_trainer,
+      dict(CAPTURE_FIXTURE, shuffle='users', num_sampling_users=4 * 480,
+           num_random_negatives=1000))
+  quality = phase_quality(train_m, val_m, pinned=NEGATIVES_PINNED,
+                          **NEGATIVES)
+  return (per_step, (first, cell), blocks_rate, scatter_rate,
+          (routes, widths), quality)
+
+
+def phase_negatives_msd(msd):
+  """(d) bench.py's MSD --sparse default with NEGATIVES: the union path
+  over the mega's union and the random ids, two row-scatter launches a
+  step, 20 steps against the plain path (float32); the row scatter at a
+  step's union width against index_copy_."""
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+
+  def make():
+    return Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                      sparse=True),
+                   optimizer_type='adam', loss='logloss', device='cuda')
+
+  dataset = RecommendationDataset(msd)
+  kw = dict(MSD_TRAIN, **NEGATIVES)
+  trainer = make()
+  per_step = family_paths(dataset, trainer, make(), kw, {'row_scatter': 2},
+                          PATHS_RTOL, '(d) MSD sparse, mega 2000, R 1000')
+  rate = 20 / trainer.last_epoch_seconds
+  widths = union_widths(trainer)
+  n_rows = trainer.model.params()['en_embedding'].shape[0]
+  check_scatter(*scatter_case(n_rows, 200, int(widths[0]), 'cuda'),
+                f'[{n_rows}, 200] at a mega union of {widths[0]}')
+  say(f'  (d) union widths {widths.min()}-{widths.max()} (mean '
+      f'{widths.mean():.1f}); {rate:.2f} user-batches/s over the 20 eager '
+      f'steps; row_scatter at [{n_rows}, 200] x {widths[0]} ids: bitwise '
+      'index_copy_')
+  return {'msd_sparse_mega': per_step}, rate, widths
+
+
 def run(name, fn, *args, **kwargs):
   say(f'== phase {name}')
   t0 = time.time()
@@ -3022,6 +3266,9 @@ def main():
   _, union_times = run('12 union paths', phase_union_paths, train_m,
                        int(round(widths.mean())))
   run('13 sparse quality', phase_sparse_quality, train_m, val_m)
+  # (phase 26's MSD cell runs here, while the MSD-shaped CSR is built)
+  msd_neg_per_step, msd_neg_rate, msd_neg_widths = run(
+      '26 negatives (d): MSD sparse', phase_negatives_msd, msd)
   (bf16_times, bf16_errs, adam_err, adam_times,
    adam_bound) = run('14 bf16 kernels', phase_bf16_kernels)
   matrix = synthetic.synthesize_ml20m()
@@ -3063,6 +3310,9 @@ def main():
   vae_per_step, (_, vae_cell), vae_quality = run(
       '24 multvae', phase_multvae, matrix, train_m, val_m)
   ease = run('25 ease', phase_ease, matrix, train_m, val_m)
+  (neg_per_step, (_, neg_cell), neg_blocks_rate, neg_scatter_rate,
+   (neg_routes, neg_widths), neg_quality) = run(
+       '26 negatives', phase_negatives, matrix, train_m, val_m)
   del matrix
   # launches a step of each kernel on the MF / Mult-VAE paths: eager
   # epochs and compared steps by the counters, captured replays by the
@@ -3080,6 +3330,18 @@ def main():
       ('multvae_captured', vae_cell, {'adam_bf16': 'adam_bf16_kernel'})):
     for name, key in names.items():
       family.setdefault(name, {})[path] = cell['captured']['counts'][key] / 64
+  # launches a step on the paths of megas and random negatives (phase
+  # 26): eager steps by the counters, the captured cell by its profile
+  negatives = {}
+  for path, counts in {**neg_per_step, **msd_neg_per_step}.items():
+    for name, n in counts.items():
+      negatives.setdefault(name, {})[path] = n
+  for name, key in (
+      ('fused_decode_loss_fwd_bf16_wgmma', 'decode_loss_fwd_bf16_wgmma_kernel'),
+      ('fused_decode_loss_bwd_bf16_wgmma', 'drows_dbias_bf16_wgmma_kernel'),
+      ('adam_bf16', 'adam_bf16_kernel')):
+    negatives.setdefault(name, {})['ml20m_mega_users_captured'] = (
+        neg_cell['captured']['counts'][key] / 64)
   # launches a step inside captured replays, by the profiles' names
   replayed = {
       'fused_decode_loss_fwd': f32_replays['decode_loss_fwd_kernel'],
@@ -3169,7 +3431,10 @@ def main():
                   'forwards_per_batch'].get(name),
               # launches a step on the MatrixFactorization and Mult-VAE
               # paths (phases 23-24; EASE runs no hand kernel)
-              'family_launches_per_step': family.get(name)}
+              'family_launches_per_step': family.get(name),
+              # launches a step with megas of 2,000 and 1,000 random
+              # negatives (phase 26)
+              'negatives_launches_per_step': negatives.get(name)}
              for name, (err, ms, plain_ms, library_ms, (bound_ms, by),
                         per_step) in measured.items()]
   idle = [k['name'] for k in kernels if not k['launches']]
@@ -3237,7 +3502,19 @@ def main():
       + f'; EASE lam 200 at ML-20M: Gram {ease["gram_s"]:.3f} s, Cholesky '
       f'inverse {ease["solve_s"]:.3f} s, fit {ease["fit_s"]:.3f} s, residual '
       f'{ease["residual"]:.3g}; EASE fixture Recall@20 '
-      f'{ease["Recall@20"]:.4f}, NDCG@100 {ease["NDCG@100"]:.4f}; card {card}')
+      f'{ease["Recall@20"]:.4f}, NDCG@100 {ease["NDCG@100"]:.4f}; megas of '
+      f'2,000 with 1,000 random negatives: captured vs eager steady '
+      f'{NEG_RATE} {max(neg_cell["captured"]["rates"]):.2f} vs '
+      f'{max(neg_cell["eager"]["rates"]):.2f} (device '
+      f'{neg_cell["captured"]["busy"]:.3f} ms a step, idle '
+      f'{100 * neg_cell["captured"]["idle"]:.1f}% vs '
+      f'{100 * neg_cell["eager"]["idle"]:.1f}%), blocks captured '
+      f'{neg_blocks_rate:.2f}, triplet scatter eager {neg_scatter_rate:.2f}, '
+      f'bf16 union routes {neg_routes} (widths mean '
+      f'{neg_widths.mean():.1f}), MSD sparse {msd_neg_rate:.2f} (widths mean '
+      f'{msd_neg_widths.mean():.1f}), fixture '
+      + ', '.join(f'{k} {v:.4f}' for k, v in neg_quality.items())
+      + f'; card {card}')
   say(json.dumps({'kernels': kernels}))
   say(card)
   say(json.dumps({'ok': True, 'device': {

@@ -8,7 +8,8 @@ by the differential tests in ``tests/test_torch_*.py``. It imports
 package ``__init__`` imports jax).
 
 Ported so far -- the DynamicAutoencoder training paths (full-catalog
-decode from a dense or a bit-packed slab, item union, sparse tables;
+decode from a dense or a bit-packed slab or a per-step scatter, item
+union, sparse tables; mega-batches and random extra negatives on each;
 float32, and bench.py's bf16 compute with bf16 Adam moments), training
 against a target matrix (the host loader, and dual CSRs in 'blocks'
 mode) and the validation loss inside ``train``, the trainer for any
@@ -25,6 +26,10 @@ protocol, the serving path they need, and iALS:
   recoder_tpu/data/device_pipeline.py   -> recoder_tpu_torch.data.device_pipeline
       (target_matrix: _init_target_side, _build_target_side -> the
       target side of DeviceDataSource.build_union_batch)
+      (slices_per_mega, the random-negative draw and build_batch's
+      per-step triplet scatter -> build_union_batch, fd_batch and
+      _scatter_fd_batch; the static budgets and their overflow rebuild
+      are not ported)
       (the packed tier's _unpack_rows and row fetch)
       -> recoder_tpu_torch.ops.packed_rows
          + recoder_tpu_torch/kernels/packed_rows.cu

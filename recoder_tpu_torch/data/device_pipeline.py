@@ -24,63 +24,107 @@ Two storage tiers, as in JAX:
     fetches and unpacks its rows in one launch (``ops/packed_rows.py``)
     to exactly the dense tier's bf16 rows, with the step's loss columns.
 
+Where neither tier is resident, a full-decode step scatters its
+triplets instead (below).
+
+**Mega-batches** (``num_sampling_users = S``, a multiple of
+``batch_size = B``; the JAX ``slices_per_mega``): the epoch order is cut
+into megas of S users that share one item union -- each user's negatives
+are the other S - 1 users' positives -- and each mega is sliced into S / B
+compute batches. Step ``i`` reads mega ``m = i // (S / B)`` and slice
+``s = i % (S / B)``: 'users' mode's mega is ``perm[m * S:(m + 1) * S]``
+(slice s: ``perm[i * B:(i + 1) * B]``), 'blocks' mode's ``perm[m] * S +
+arange(S)`` (slice s: ``perm[m] * S + s * B + arange(B)``). The epoch
+still has ``ceil(num_users / B)`` steps.
+
 **Item-union batches** (``prepare_union``, ``build_union_batch``: the
 negative-sampling union of the reference's collator, ``np.unique(cols,
-return_inverse=True)`` over the batch's interactions). Each step gives
-the batch's sorted item union and its interactions as (row, compressed
-column, value) triplets:
+return_inverse=True)`` over the mega's interactions). Each step gives
+the mega's sorted item union and its slice's interactions as (row,
+compressed column, value) triplets:
 
-  * 'blocks' mode keeps users in fixed contiguous blocks, so every
-    block's union is epoch-invariant and is computed once on the host
-    (the JAX ``_block_tables``). The compressed column and the row of
-    each interaction are stored aligned with the CSR, so a step serves
-    three contiguous device slices (the JAX precomputed branch of
+  * 'blocks' mode keeps users in fixed contiguous megas, so every mega's
+    union is epoch-invariant and is computed once on the host (the JAX
+    ``_block_tables``). The compressed column and the row of each
+    interaction are stored aligned with the CSR, so a step serves three
+    contiguous device slices (the JAX precomputed branch of
     ``build_batch``);
-  * 'users' mode draws fresh users each step: their CSR ranges are
+  * 'users' mode draws fresh users each epoch: the mega's CSR ranges are
     gathered on the device and the union is ``torch.unique(sorted=True,
     return_inverse=True)`` over the gathered columns (the semantics of
     the JAX ``_unique_union`` / ``_build_epoch_tables``).
 
+**Random extra negatives** (``num_random_negatives = R``, the JAX
+``build_batch`` draw): R item ids uniform in ``[0, num_items)`` join each
+step's union only, so their columns have zero input and zero target; on
+full decode they join the loss mask. The draw comes from ``neg_gen``, a
+generator on the device keyed on the global step: seeded ``((seed + 7)
+<< 32) + step`` for each eager step (:meth:`seed_negatives`), or, for
+the full-decode steps on the card, one stream placed at ``step x`` the
+offset one draw takes (:meth:`position_negatives`), which a captured
+CUDA graph registers and advances as eager steps do. Either way a
+resumed training draws what the uninterrupted one drew, and the ids
+refresh across epochs. torch cannot reproduce ``jax.random``'s ids:
+the builders take ``rand_ids`` for tests to inject them.
+
 The JAX package pads every union to a static width with a sentinel item
 and every interaction list to a static nnz budget, and rebuilds the
-source with larger budgets when a batch overflows them: XLA needs static
-shapes. Each step here has its exact sizes, so nothing overflows and
-nothing is rebuilt. The sentinel slots contribute exactly zero in JAX
-(zero input column, masked loss column, zero gradient that leaves a
-zero-moment row unchanged under Adam), so exact widths change no number
-beyond reduction order.
+source with larger budgets when a mega overflows them (its overflow
+accounting, ``_note_overflow`` and ``_rebuild_fused_source``): XLA needs
+static shapes. Each step here has its exact sizes, so nothing overflows
+and nothing is rebuilt; that machinery is not ported, by design. The
+sentinel slots contribute exactly zero in JAX (zero input column, masked
+loss column, zero gradient that leaves a zero-moment row unchanged under
+Adam), so exact widths change no number beyond reduction order.
+
+**Full decode** reads the loss columns of the whole mega: the columns
+where any of its S users has an interaction, plus the random ids, inside
+the catalog. Off the resident slab the mega's columns are those where
+any of its S slab rows is nonzero (the slab holds no zero value): the
+dense tier reads ``any(slab[mega rows], 0)``, the packed tier ORs the
+rows' bits in a mask-only launch of the unpack kernel. Every shape is
+static (S rows, R ids), so the step stays capturable. The JAX source
+declines the slab for ``S > B`` (its mask is read off the batch's own B
+rows) and scatters; the port keeps the slab there, with the same
+columns, values and losses (``tests/test_torch_negatives.py``).
+
+**The per-step triplet scatter** (full decode without a resident slab:
+``slab_cache=False``, or where both tiers decline): each step densifies
+its slice's triplets at the padded catalog width (raw column ids; a
+column at or past the width drops, as the JAX ``mode='drop'``), in the
+dense tier's storage dtype, and builds the loss mask from the mega's
+column ids, never from the values: an explicitly stored zero still marks
+its column (the JAX ``_forward_loss``). It reads its step and order on
+the host, so it runs eagerly.
 
 **Epoch order.** 'users' mode draws the order as the JAX package does
 (``_host_epoch_perm``): numpy ``default_rng([seed + 1, epoch])``, then
-the pad users, so both train the same epochs. 'blocks' mode shuffles
-the block order with a ``torch.Generator``; JAX draws it with
+the pad users, so both train the same epochs (where the JAX source
+builds no epoch tables -- with random negatives, a target matrix or
+tables past its budget -- it draws the order with ``jax.random``
+instead, which torch cannot reproduce). 'blocks' mode shuffles
+the mega order with a ``torch.Generator``; JAX draws it with
 ``jax.random.permutation``, which torch cannot reproduce, so tests
 inject it.
 
 Differences from the JAX source, on purpose:
-  * where the JAX source declines both tiers and falls back to a
-    per-step triplet scatter (non-binary data over the 'auto' budget, a
-    packed slab over it, a packed request on non-binary data or at a
-    width that is not a multiple of 32, explicit zero values), the port
-    raises with the JAX reason: it does not have that path yet. This is
-    the one difference in which tier serves a request;
+  * the slab serves megas wider than one compute batch (above);
   * the slab request is recorded when a cached slab is reused (the
     JAX source's reuse path returns without updating ``_slab_request``).
 
-**Dual CSRs** (``target_matrix``, 'blocks' mode only, as in JAX): a
-second CSR holds each user's target interactions, and each block's
-target union is computed on the host as the input's is, independently
-of it (the reference collates input and target windows each with its
-own ``np.unique``). ``build_union_batch`` then returns the target union
-and triplets beside the input's. The JAX source serves both sides from
-precomputed block tables and declines when either side's tables exceed
-``PRECOMPUTE_BYTE_BUDGET``; the port raises
-:class:`FusedPipelineUnavailable` there with the JAX reason, computed
-from the bytes the JAX tables would take, and its trainer then takes
-the host loader, as the JAX trainer does.
+**Dual CSRs** (``target_matrix``, 'blocks' mode without random
+negatives only, as in JAX): a second CSR holds each user's target
+interactions, and each mega's target union is computed on the host as
+the input's is, independently of it (the reference collates input and
+target windows each with its own ``np.unique``). ``build_union_batch``
+then returns the target union and triplets beside the input's. The JAX
+source serves both sides from precomputed block tables and declines
+when either side's tables exceed ``PRECOMPUTE_BYTE_BUDGET``; the port
+raises :class:`FusedPipelineUnavailable` there with the JAX reason,
+computed from the bytes the JAX tables would take, and its trainer then
+takes the host loader, as the JAX trainer does.
 
-Not ported yet: the per-step triplet scatter, random extra negatives,
-mega-batches wider than one compute batch, and mesh sharding.
+Not ported: mesh sharding.
 """
 
 import logging
@@ -90,7 +134,7 @@ import numpy as np
 import torch
 
 from recoder_tpu_torch import device as device_lib
-from recoder_tpu_torch.ops.packed_rows import unpack_rows
+from recoder_tpu_torch.ops.packed_rows import unpack_mask, unpack_rows
 
 log = logging.getLogger(__name__)
 
@@ -125,24 +169,26 @@ def canonical_csr(matrix):
 
 
 class DeviceDataSource:
-  """A training CSR matrix densified once into a slab on ``device``.
+  """A training CSR matrix on ``device``: a resident slab, union batches,
+  or per-step scatters.
 
   Args:
     matrix (scipy.sparse.csr_matrix): user-item interactions.
     batch_size (int): users per compute batch.
-    num_sampling_users (int): mega-batch size; full decode reads its
-      loss columns off each batch's own slab rows, so it must equal
-      ``batch_size``.
+    num_sampling_users (int): mega-batch size, a multiple of
+      ``batch_size``: the users whose union one step's loss columns span.
     num_items (int): logical catalog size.
-    shuffle (str): 'users' draws every batch as a fresh random user
-      subset; 'blocks' keeps users in fixed contiguous blocks and
-      shuffles the block order each epoch.
+    shuffle (str): 'users' draws every mega as a fresh random user
+      subset; 'blocks' keeps users in fixed contiguous megas and shuffles
+      the mega order each epoch.
     device: where the slab and the union arrays live: the card ('cuda')
       unless the caller asks for 'cpu'.
-    seed (int): seed of the epoch orders.
+    seed (int): seed of the epoch orders and of the random negatives.
     target_matrix (scipy.sparse.csr_matrix, optional): the users' target
-      interactions ('blocks' mode only); union batches then carry the
-      target side too.
+      interactions ('blocks' mode without random negatives only); union
+      batches then carry the target side too.
+    num_random_negatives (int): R uniform-random extra negative items a
+      step (module docstring).
   """
 
   #: fraction of the device's free memory the 'auto' request may claim
@@ -153,17 +199,17 @@ class DeviceDataSource:
 
   def __init__(self, matrix, batch_size, num_sampling_users, num_items,
                shuffle='users', device=device_lib.DEFAULT, seed=0,
-               target_matrix=None):
+               target_matrix=None, num_random_negatives=0):
     if shuffle not in ('users', 'blocks'):
       raise ValueError(f'shuffle={shuffle!r}: expected users or blocks')
-    if target_matrix is not None and shuffle != 'blocks':
-      raise ValueError('target_matrix requires shuffle="blocks" (the JAX '
-                       'source serves both sides from block tables)')
-    if num_sampling_users != batch_size:
-      raise ValueError('full decode reads the loss columns off one '
-                       'compute batch: num_sampling_users must equal '
-                       f'batch_size (got {num_sampling_users} vs '
-                       f'{batch_size})')
+    if target_matrix is not None and (shuffle != 'blocks'
+                                      or num_random_negatives):
+      raise ValueError('target_matrix requires shuffle="blocks" without '
+                       'random negatives (the JAX source serves both sides '
+                       'from block tables)')
+    if num_sampling_users < batch_size or num_sampling_users % batch_size:
+      raise ValueError('num_sampling_users must be a multiple of batch_size '
+                       f'(got {num_sampling_users} vs {batch_size})')
     matrix = canonical_csr(matrix)
     self.matrix = matrix
     self.shuffle = shuffle
@@ -172,29 +218,48 @@ class DeviceDataSource:
     self.num_items = int(num_items)
     self.batch_size = batch_size
     self.mega = num_sampling_users
+    self.slices_per_mega = self.mega // batch_size
     self.steps_per_epoch = math.ceil(self.num_users_total / batch_size)
     self.n_pad = math.ceil(self.num_users_total / self.mega) * self.mega
     self.n_blocks = self.n_pad // self.mega
 
     self.seed = int(seed)
     self.binary = bool(np.all(matrix.data == 1.0))
+    self.num_random_negatives = int(num_random_negatives)
+    #: the random negatives' generator (None without them)
+    self.neg_gen = None
+    self._neg_offset = None  # Philox offset one draw takes (on the card)
+    if self.num_random_negatives:
+      self.neg_gen = torch.Generator(device=self.device)
+      self.seed_negatives(0)
 
     self.d_slab = None
     self._slab_width = None
     self._slab_packed = False
     self._slab_request = None  # the request that established the cache
+    #: the full-decode width of the last slab request (the scatter's)
+    self.fd_width = None
+    #: why the last request left no slab resident (the JAX reason)
+    self.decline_reason = None
+    self._storage_dtype = None
 
     self._offsets = None  # arange(batch_size) on the device
-    self._host_tables = None  # blocks mode: per-block unions (numpy)
+    self._mega_offsets = None  # arange(num_sampling_users) on the device
+    self._host_tables = None  # blocks mode: per-mega unions (numpy)
     self._union = None  # device arrays of the union path
+    self._csr = None  # device arrays of the scatter path
+    indptr = matrix.indptr.astype(np.int64)
+    # per-user nnz and CSR start; the pad users' slot n holds 0 and 0
+    self._counts = np.append(np.diff(indptr), 0)
+    self._starts = np.append(indptr[:-1], 0)
     self.target_matrix = None
-    self._tg_tables = None  # the target side's per-block unions
+    self._tg_tables = None  # the target side's per-mega unions
     if target_matrix is not None:
       self._init_target_side(canonical_csr(target_matrix))
 
   def _init_target_side(self, target):
     """Check both sides against the JAX tables' byte budget and compute
-    the target side's block unions (the JAX ``_init_target_side``)."""
+    the target side's mega unions (the JAX ``_init_target_side``)."""
     if target.shape[0] != self.num_users_total:
       raise ValueError('target matrix must cover the same users')
     args = (self.n_blocks, self.mega, self.num_users_total)
@@ -211,11 +276,44 @@ class DeviceDataSource:
     self.target_matrix = target
     self._tg_tables = tables
 
+  # -- random extra negatives ---------------------------------------------
+
+  def seed_negatives(self, global_step):
+    """Seed ``neg_gen`` for global step ``global_step``'s draw (an eager
+    step: union and sparse steps, full decode off the card)."""
+    self.neg_gen.manual_seed(((self.seed + 7) << 32) + int(global_step))
+
+  def position_negatives(self, global_step):
+    """Place ``neg_gen`` where global step ``global_step``'s draw starts
+    in one stream: seed ``(seed + 7) << 32``, Philox offset ``step x``
+    the offset one draw takes (full-decode steps on the card, whose
+    captured graphs register the generator)."""
+    if self._neg_offset is None:
+      probe = torch.Generator(device=self.device)
+      probe.manual_seed(0)
+      self._draw_negatives(probe)
+      self._neg_offset = probe.get_offset()
+    self.neg_gen.manual_seed((self.seed + 7) << 32)
+    self.neg_gen.set_offset(int(global_step) * self._neg_offset)
+
+  def _draw_negatives(self, generator):
+    return torch.randint(0, self.num_items, (self.num_random_negatives,),
+                         generator=generator, device=self.device)
+
+  def _negatives(self, rand_ids, neg_step=None):
+    """The step's random ids on the device: ``rand_ids`` when given,
+    else a draw (after seeding it for ``neg_step`` when given)."""
+    if rand_ids is not None:
+      return torch.as_tensor(rand_ids).to(self.device, torch.int64)
+    if neg_step is not None:
+      self.seed_negatives(neg_step)
+    return self._draw_negatives(self.neg_gen)
+
   # -- resident dense slab ------------------------------------------------
 
   def maybe_cache_slabs(self, width, request='auto'):
     """Build the resident slab at catalog width ``width`` (the JAX tier
-    rule).
+    rule), or decline it.
 
     ``request``: 'auto' builds the dense tier when it fits
     ``SLAB_CACHE_MEMORY_FRACTION`` of the device's free memory, and
@@ -224,17 +322,24 @@ class DeviceDataSource:
     check; 'packed' builds the packed tier (binary data only); False
     drops the slab. A slab of the same width is reused unless a forced
     request (True, 'packed') names the other tier. Returns whether a
-    slab is resident. Where the JAX source declines to its per-step
-    scatter, this raises with its reason (MemoryError over the budget,
-    ValueError otherwise) and drops any slab it held.
+    slab is resident. Where the JAX source declines (an explicitly
+    stored zero, non-binary data over the budget, a packed slab over it
+    or at a width that is not a multiple of 32, a packed request on
+    non-binary data), this drops any slab it held, logs the JAX reason
+    (``decline_reason``) and returns False: full-decode steps at
+    ``width`` then scatter their triplets (:meth:`fd_batch`). Unlike the
+    JAX source it does not decline for ``num_sampling_users >
+    batch_size`` (module docstring).
     """
+    width = int(width)
+    self.fd_width = width if width > self.num_items else None
+    self.decline_reason = None
     if request is False:
       self._drop_slab()
       return False
     if request not in ('auto', True, 'packed'):
       raise ValueError(f"slab_cache={request!r}: expected 'auto', True, "
                        "'packed' or False")
-    width = int(width)
     if self.d_slab is not None and self._slab_width == width and not (
         (request is True and self._slab_packed)
         or (request == 'packed' and not self._slab_packed)):
@@ -244,31 +349,28 @@ class DeviceDataSource:
       raise ValueError(f'slab width {width} must exceed the catalog '
                        f'({self.num_items}) by the sentinel column')
     if request == 'packed' and not self.binary:
-      self._decline(ValueError, "slab_cache='packed' requires binary "
-                    '(all-ones) values')
-    data = self.matrix.data.astype(np.float32)
-    if not np.all(data != 0.0):
-      self._decline(ValueError, 'the matrix stores explicit zero values; a '
-                    'dense slab cannot represent them')
-    exact = np.array_equal(
-        torch.from_numpy(data).to(torch.bfloat16).float().numpy(), data)
-    dtype = torch.bfloat16 if exact else torch.float32
+      return self._decline("slab_cache='packed' requires binary (all-ones) "
+                           'values')
+    if not np.all(self.matrix.data.astype(np.float32) != 0.0):
+      return self._decline('matrix stores explicit zero values')
+    dtype = self._dtype()
     packed = request == 'packed'
     packed_bytes = self.n_pad * (width // 32) * 4
     nbytes = packed_bytes if packed else self.n_pad * width * (
-        2 if exact else 4)
+        2 if dtype == torch.bfloat16 else 4)
     if request == 'auto':
       budget = self._memory_budget()
       if budget is not None and nbytes > budget:
         if self.binary and width % 32 == 0 and packed_bytes <= budget:
           packed, nbytes = True, packed_bytes  # the 1-bit tier fits
         else:
-          self._decline(MemoryError, f'{nbytes / 2**30:.2f} GiB exceeds the '
-                        f'free-memory budget of {budget / 2**30:.2f} GiB '
-                        '(slab_cache=True forces the dense tier)')
+          return self._decline(f'{nbytes / 2**30:.2f} GiB exceeds the '
+                               'free-memory budget of '
+                               f'{budget / 2**30:.2f} GiB (slab_cache=True '
+                               'forces the dense tier)')
     if packed and width % 32 != 0:
-      self._decline(ValueError, f'packed tier needs width % 32 == 0 (got '
-                    f'{width})')
+      return self._decline(f'packed tier needs width % 32 == 0 (got '
+                           f'{width})')
     self._drop_slab()  # free a slab of another width or tier first
     self.d_slab = (self._build_slab_packed(width) if packed
                    else self._build_slab(width, dtype))
@@ -286,11 +388,23 @@ class DeviceDataSource:
     self._slab_packed = False
     self._slab_request = None
 
-  def _decline(self, error, reason):
-    """Raise where the JAX source falls back to its per-step scatter."""
+  def _decline(self, reason):
+    """Where the JAX source falls back to its per-step scatter: no slab."""
     self._drop_slab()
-    raise error(f'no resident slab: {reason}. The JAX package falls back '
-                'to a per-step triplet scatter here, which is not ported')
+    self.decline_reason = reason
+    log.info('no resident slab: %s; full-decode steps scatter their '
+             'triplets', reason)
+    return False
+
+  def _dtype(self):
+    """The dense tier's storage dtype (and the scatter's): bf16 when
+    every stored value round-trips exactly, else float32."""
+    if self._storage_dtype is None:
+      data = self.matrix.data.astype(np.float32)
+      exact = np.array_equal(
+          torch.from_numpy(data).to(torch.bfloat16).float().numpy(), data)
+      self._storage_dtype = torch.bfloat16 if exact else torch.float32
+    return self._storage_dtype
 
   def _memory_budget(self):
     if self.device.type != 'cuda':
@@ -345,14 +459,14 @@ class DeviceDataSource:
 
   def epoch_permutation(self, epoch):
     """Epoch ``epoch``'s order (a CPU int64 tensor): shuffled user ids
-    padded with the pad users ('users'), or shuffled block indices
+    padded with the pad users ('users'), or shuffled mega indices
     ('blocks').
 
     'users' mode draws it as the JAX ``_host_epoch_perm`` does, so the
-    two packages train the same epochs. The partially filled tail block
+    two packages train the same epochs. The partially filled tail mega
     is pinned to the last slot: the epoch's ``ceil(num_users /
-    batch_size)`` steps cover every real user only if the block whose
-    trailing rows are padding is the one the last step takes."""
+    batch_size)`` steps cover every real user only if the mega whose
+    trailing rows are padding is the one the last steps take."""
     if self.shuffle == 'blocks':
       generator = torch.Generator().manual_seed(
           ((self.seed + 1) << 32) + int(epoch))
@@ -365,48 +479,152 @@ class DeviceDataSource:
         [rng.permutation(self.num_users_total),
          np.arange(self.num_users_total, self.n_pad)]).astype(np.int64))
 
-  def fd_batch(self, perm, step):
-    """Step ``step``'s full-decode payload off the slab, without a host
-    read: ``perm`` is the epoch order on the device, ``step`` a 0-dim
-    int64 device tensor (a CUDA graph replays the same call with the
-    step the device counter holds).
+  def fd_batch(self, perm, step, rand_ids=None):
+    """Step ``step``'s full-decode payload: ``perm`` is the epoch order
+    on the device, ``step`` a 0-dim int64 device tensor.
+
+    Off the resident slab nothing is read on the host (a CUDA graph
+    replays the same call with the step the device counter holds): the
+    slice's B rows are gathered by index ('blocks': ``perm[m] * S + s *
+    B + arange(B)``), and the mask of the mega's columns is built from
+    its S rows where the mega is wider than the batch. Without a slab (a declined
+    request or ``slab_cache=False``) the step's triplets are scattered
+    (:meth:`_scatter_fd_batch`, which reads the step on the host).
 
     Returns ``{'slab': [B, width] rows on the device (the dense tier's
     storage dtype; bf16 zeros and ones from the packed tier), 'users':
     [B] user ids on the device (pad slots hold num_users), 'num_users':
     the valid user count as a 0-dim float32 device tensor, at least 1}``,
-    and from the packed tier ``'col_mask'``: [width] float32, 1 on the
-    columns the batch touched inside the catalog (what the trainer
-    otherwise reads off the rows). Both shuffles gather the rows by
-    index: 'blocks' the block's ``perm[step] * batch + arange(batch)``.
+    and ``'col_mask'``: [width] float32, 1 on the step's loss columns
+    (the mega's, the random ids', inside the catalog) -- except from the
+    dense tier with one slice a mega and no random ids, where the
+    trainer reads them off the rows. ``rand_ids`` (tests) replaces the
+    draw of random negatives from ``neg_gen``.
     """
     if self.d_slab is None:
-      raise RuntimeError('no resident slab: call maybe_cache_slabs first')
-    B = self.batch_size
+      if self.fd_width is None:
+        raise RuntimeError('no resident slab and no full-decode width: call '
+                           'maybe_cache_slabs first')
+      return self._scatter_fd_batch(perm, int(step), rand_ids)
+    B, S, spm = self.batch_size, self.mega, self.slices_per_mega
+    dev = self.device
     if self._offsets is None:
-      self._offsets = torch.arange(B, device=self.device)
+      self._offsets = torch.arange(B, device=dev)
+      self._mega_offsets = torch.arange(S, device=dev)
+    mega_rows = None
     if self.shuffle == 'blocks':
-      rows = perm.index_select(0, step.view(1)) * self.mega + self._offsets
+      if spm == 1:
+        rows = perm.index_select(0, step.view(1)) * S + self._offsets
+      else:
+        m = torch.div(step, spm, rounding_mode='floor')
+        base = perm.index_select(0, m.view(1)) * S
+        rows = base + (step - m * spm) * B + self._offsets
+        mega_rows = base + self._mega_offsets
     else:
       rows = perm.index_select(0, step * B + self._offsets)
+      if spm > 1:
+        m = torch.div(step, spm, rounding_mode='floor')
+        mega_rows = perm.index_select(0, m * S + self._mega_offsets)
+    R = self.num_random_negatives
     out = {}
     if self._slab_packed:
       # the kernel clamps indices into the slab; rows < n_pad always
       slab, out['col_mask'] = unpack_rows(self.d_slab, self.num_items,
                                           index=rows)
+      if mega_rows is not None:
+        out['col_mask'] = unpack_mask(self.d_slab, self.num_items,
+                                      index=mega_rows)
     else:
       slab = self.d_slab.index_select(0, rows)
+      if mega_rows is not None or R:
+        mega = (slab if mega_rows is None
+                else self.d_slab.index_select(0, mega_rows))
+        out['col_mask'] = (torch.any(mega, dim=0)
+                           & self._in_catalog(slab.shape[1])).float()
+    if R:
+      out['col_mask'].index_fill_(0, self._negatives(rand_ids), 1.0)
     n = self.num_users_total
     out.update(slab=slab, users=torch.clamp(rows, max=n),
                num_users=torch.clamp(torch.sum(rows < n), min=1).float())
     return out
 
-  def build_fd_batch(self, perm, step_idx):
+  def _in_catalog(self, width):
+    return torch.arange(width, device=self.device) < self.num_items
+
+  def _mega_users(self, perm, m):
+    """Mega ``m``'s S user ids in order (numpy int64; pad users ``>=
+    num_users``) under the epoch order ``perm``."""
+    S = self.mega
+    if self.shuffle == 'blocks':
+      lo = int(perm[m]) * S
+      return np.arange(lo, lo + S, dtype=np.int64)
+    return perm[m * S:(m + 1) * S].cpu().numpy().astype(np.int64)
+
+  def _gather(self, users):
+    """The CSR positions of ``users``' interactions, user by user, on the
+    device, and each user's nnz offset into them (numpy ``[len + 1]``)."""
+    dev = self.device
+    u = np.minimum(users, self.num_users_total)
+    counts, starts = self._counts[u], self._starts[u]
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    nnz = int(offsets[-1])
+    owner = torch.repeat_interleave(
+        torch.arange(len(u), device=dev), torch.from_numpy(counts).to(dev),
+        output_size=nnz)
+    adjust = torch.from_numpy(starts - offsets[:-1]).to(dev)
+    return adjust[owner] + torch.arange(nnz, device=dev), offsets
+
+  def _slice_rows(self, offsets, s):
+    """Slice ``s``'s row of each of its interactions, on the device (the
+    mega's nnz ``offsets``)."""
+    B = self.batch_size
+    counts = np.diff(offsets[s * B:(s + 1) * B + 1])
+    return torch.repeat_interleave(
+        torch.arange(B, device=self.device),
+        torch.from_numpy(counts).to(self.device),
+        output_size=int(counts.sum()))
+
+  def _scatter_fd_batch(self, perm, step_idx, rand_ids):
+    """:meth:`fd_batch`'s payload without a slab (the JAX ``build_batch``
+    with ``full_decode=True``): slice ``s`` of mega ``m``'s triplets,
+    raw column ids, densified at ``fd_width`` in the dense tier's
+    storage dtype (each cell once: canonical CSR); the loss mask from the
+    mega's column ids and the random ids, inside the catalog."""
+    B, n, W = self.batch_size, self.num_users_total, self.fd_width
+    dev = self.device
+    if self._csr is None:
+      arrays = {'cols': self.matrix.indices.astype(np.int64)}
+      if not self.binary:
+        arrays['vals'] = self.matrix.data.astype(np.float32)
+      self._csr = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+    m, s = divmod(step_idx, self.slices_per_mega)
+    users = self._mega_users(perm, m)
+    src, offsets = self._gather(users)
+    mega_cols = self._csr['cols'][src]
+    a, e = int(offsets[s * B]), int(offsets[(s + 1) * B])
+    rows, cols = self._slice_rows(offsets, s), mega_cols[a:e]
+    dtype = self._dtype()
+    vals = (self._csr['vals'][src[a:e]].to(dtype) if 'vals' in self._csr
+            else torch.ones(e - a, dtype=dtype, device=dev))
+    keep = cols < W  # (the JAX scatter's mode='drop')
+    slab = torch.zeros((B, W), dtype=dtype, device=dev)
+    slab.index_put_((rows[keep], cols[keep]), vals[keep])
+    users = torch.from_numpy(users[s * B:(s + 1) * B]).to(dev)
+    present = torch.zeros(W, dtype=torch.bool, device=dev)
+    present[mega_cols[mega_cols < W]] = True
+    if self.num_random_negatives:
+      present[self._negatives(rand_ids)] = True
+    return {'slab': slab, 'users': torch.clamp(users, max=n),
+            'num_users': torch.clamp(torch.sum(users < n), min=1).float(),
+            'col_mask': (present & self._in_catalog(W)).float()}
+
+  def build_fd_batch(self, perm, step_idx, rand_ids=None):
     """:meth:`fd_batch` from a host order and step: ``perm`` an int64
     tensor, ``step_idx`` an int. The same payload with 'users' on the CPU
     and 'num_users' a float (a host read)."""
     out = self.fd_batch(perm.to(self.device),
-                        torch.tensor(int(step_idx), device=self.device))
+                        torch.tensor(int(step_idx), device=self.device),
+                        rand_ids=rand_ids)
     out['users'] = out['users'].cpu()
     out['num_users'] = float(out['num_users'])
     return out
@@ -414,13 +632,13 @@ class DeviceDataSource:
   # -- item-union batches ---------------------------------------------------
 
   def _block_unions(self):
-    """The per-block unions of 'blocks' mode, on the host, computed once
-    (the JAX ``_block_tables``): for each fixed block of users,
+    """The per-mega unions of 'blocks' mode, on the host, computed once
+    (the JAX ``_block_tables``): for each fixed mega of users,
     ``np.unique(cols, return_inverse=True)`` over its interactions.
 
     Returns ``{'cols': compressed column of every interaction, 'rows':
-    its user's row within the block (both aligned with the CSR),
-    'unions': the blocks' unions concatenated, 'ptr': block b's union
+    its user's row within the mega (both aligned with the CSR),
+    'unions': the megas' unions concatenated, 'ptr': mega b's union
     is unions[ptr[b]:ptr[b + 1]]}``."""
     if self._host_tables is None:
       self._host_tables = self._block_tables_of(self.matrix)
@@ -447,12 +665,14 @@ class DeviceDataSource:
 
   def union_width(self):
     """The union width by which the JAX trainer's 'auto' rule picks full
-    decode (``num_items_padded <= 4 * union_width``): the largest block
-    union aligned up to 128 in 'blocks' mode (the JAX ``_block_tables``
-    width), the largest union of four sampled random user windows with
-    an 8% margin, aligned up to 256, in 'users' mode (the JAX loader's
-    ``_estimate_widths``)."""
-    if self.shuffle == 'blocks':
+    decode (``num_items_padded <= 4 * union_width``): without random
+    negatives in 'blocks' mode, the largest mega union aligned up to 128
+    (the JAX ``_block_tables`` width); otherwise the largest union of
+    four sampled random mega windows plus R, with an 8% margin, aligned
+    up to 256 (the JAX loader's ``_estimate_widths``, ``snap(max_union +
+    R)``)."""
+    R = self.num_random_negatives
+    if self.shuffle == 'blocks' and not R:
       w = int(np.diff(self._block_unions()['ptr']).max(initial=1))
       return (w + 127) // 128 * 128
     m, n = self.matrix, self.num_users_total
@@ -463,11 +683,11 @@ class DeviceDataSource:
       cols = [m.indices[m.indptr[i]:m.indptr[i + 1]] for i in idx]
       if cols:
         widest = max(widest, len(np.unique(np.concatenate(cols))))
-    return (int(widest * 1.08) + 255) // 256 * 256
+    return (int((widest + R) * 1.08) + 255) // 256 * 256
 
   def prepare_union(self):
     """Put on the device, once, what the union batches read: the
-    per-block compressed columns, rows and unions ('blocks'), or the
+    per-mega compressed columns, rows and unions ('blocks'), or the
     CSR columns ('users'); and the values unless they are all ones."""
     if self._union is not None:
       return
@@ -486,50 +706,53 @@ class DeviceDataSource:
           arrays['tg_vals'] = self.target_matrix.data.astype(np.float32)
     else:
       arrays['cols'] = m.indices.astype(np.int64)
-      indptr = m.indptr.astype(np.int64)
-      # per-user nnz and CSR start; the pad users' slot n holds 0 and 0
-      self._counts = np.append(np.diff(indptr), 0)
-      self._starts = np.append(indptr[:-1], 0)
     self._union = {k: torch.from_numpy(v).to(self.device)
                    for k, v in arrays.items()}
 
-  def build_union_batch(self, perm, step_idx):
-    """Step ``step_idx``'s item-union batch.
+  def build_union_batch(self, perm, step_idx, neg_step=None, rand_ids=None):
+    """Step ``step_idx``'s item-union batch: slice ``s`` of mega ``m``
+    over the mega's union.
 
-    Returns ``{'items': [W] the batch's item union, ascending, on the
+    Returns ``{'items': [W] the mega's item union, ascending, on the
     device; 'rows', 'cols', 'vals': [nnz] row in the batch, index into
-    items and value of each interaction, on the device; 'users': [B] CPU
-    user ids (pad slots hold num_users); 'num_users': valid user count
-    as a float, at least 1}``. The union holds exactly the items the
-    batch's users touched. With a target matrix, ``'tg_items'``,
-    ``'tg_rows'``, ``'tg_cols'`` and ``'tg_vals'`` are the same for the
-    block's target interactions, over the target union.
+    items and value of each of the slice's interactions, on the device;
+    'users': [B] CPU user ids (pad slots hold num_users); 'num_users':
+    valid user count as a float, at least 1}``. The union holds exactly
+    the items the mega's users touched and, with random negatives, the R
+    ids drawn for global step ``neg_step`` (default ``step_idx``, as the
+    JAX ``build_batch``) or given as ``rand_ids``: they widen the union
+    only. With a target matrix, ``'tg_items'``, ``'tg_rows'``,
+    ``'tg_cols'`` and ``'tg_vals'`` are the same for the slice's target
+    interactions, over the mega's target union.
     """
     self.prepare_union()
-    B, n = self.batch_size, self.num_users_total
+    B, S, n = self.batch_size, self.mega, self.num_users_total
     arrays, dev = self._union, self.device
-    indptr = self.matrix.indptr
+    m, s = divmod(int(step_idx), self.slices_per_mega)
     if self.shuffle == 'blocks':
-      b = int(perm[step_idx])
-      lo = b * self.mega
-      s, e = int(indptr[lo]), int(indptr[min(lo + B, n)])
+      b = int(perm[m])
+      lo = b * S + s * B  # the slice's first user
+      indptr = self.matrix.indptr
+      a, e = int(indptr[min(lo, n)]), int(indptr[min(lo + B, n)])
       ptr = self._host_tables['ptr']
       items = arrays['unions'][int(ptr[b]):int(ptr[b + 1])]
-      rows, cols = arrays['rows'][s:e], arrays['cols'][s:e]
+      rows, cols = arrays['rows'][a:e] - s * B, arrays['cols'][a:e]
       users = torch.arange(lo, lo + B)
-      src = slice(s, e)
+      src = slice(a, e)
     else:
+      mega_src, offsets = self._gather(self._mega_users(perm, m))
+      items, inverse = torch.unique(arrays['cols'][mega_src], sorted=True,
+                                    return_inverse=True)
+      a, e = int(offsets[s * B]), int(offsets[(s + 1) * B])
       users = perm[step_idx * B:(step_idx + 1) * B]
-      u = np.minimum(users.numpy(), n)
-      counts, starts = self._counts[u], self._starts[u]
-      nnz = int(counts.sum())
-      adjust = torch.from_numpy(starts - (np.cumsum(counts) - counts))
-      rows = torch.repeat_interleave(
-          torch.arange(B, device=dev), torch.from_numpy(counts).to(dev),
-          output_size=nnz)
-      src = adjust.to(dev)[rows] + torch.arange(nnz, device=dev)
-      items, cols = torch.unique(arrays['cols'][src], sorted=True,
-                                 return_inverse=True)
+      rows, cols, src = self._slice_rows(offsets, s), inverse[a:e], \
+          mega_src[a:e]
+    if self.num_random_negatives:
+      rand = self._negatives(
+          rand_ids, step_idx if neg_step is None else neg_step)
+      merged = torch.unique(torch.cat([items, rand]), sorted=True)
+      cols = torch.searchsorted(merged, items)[cols]
+      items = merged
     vals = (arrays['vals'][src] if 'vals' in arrays
             else torch.ones(rows.shape[0], device=dev))
     num_users = int(torch.sum(users < n))
@@ -537,13 +760,14 @@ class DeviceDataSource:
            'users': torch.clamp(users, max=n),
            'num_users': float(max(num_users, 1))}
     if self._tg_tables is not None:
-      # the same block's target interactions, over its own union
+      # the slice's target interactions, over the mega's own target union
       t_indptr = self.target_matrix.indptr
-      s, e = int(t_indptr[lo]), int(t_indptr[min(lo + B, n)])
+      a, e = int(t_indptr[min(lo, n)]), int(t_indptr[min(lo + B, n)])
       ptr = self._tg_tables['ptr']
       out.update(
           tg_items=arrays['tg_unions'][int(ptr[b]):int(ptr[b + 1])],
-          tg_rows=arrays['tg_rows'][s:e], tg_cols=arrays['tg_cols'][s:e],
-          tg_vals=(arrays['tg_vals'][s:e] if 'tg_vals' in arrays
-                   else torch.ones(e - s, device=dev)))
+          tg_rows=arrays['tg_rows'][a:e] - s * B,
+          tg_cols=arrays['tg_cols'][a:e],
+          tg_vals=(arrays['tg_vals'][a:e] if 'tg_vals' in arrays
+                   else torch.ones(e - a, device=dev)))
     return out

@@ -21,13 +21,20 @@ would only add masked columns to the decode. Collation runs on a
 background thread pool (``num_workers``) with a bounded window of
 mega-batches in flight.
 
-Not ported yet: random extra negatives (``num_random_negatives``) and
-custom collation (``collate_fn``).
+Random extra negatives (``num_random_negatives``): each collation draws
+R item ids from ``np.random.default_rng(seed + 7)`` under a lock and
+merges them into the mega's union with ``np.union1d`` (the JAX
+collator's draw): at ``num_workers=0`` the batches are bitwise the JAX
+loader's; with workers, which mega draws first depends on scheduling,
+as in JAX.
+
+Not ported: custom collation (``collate_fn``).
 """
 
 
 import collections
 import math
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -61,11 +68,23 @@ class BatchCollator:
     batch_size (int): users per compute batch.
     negative_sampling (bool): compress columns to the mega-batch item
       union (mini-batch based negative sampling).
+    num_items (int, optional): the catalog the random negatives are drawn
+      from; defaults to the collated matrix's width.
+    num_random_negatives (int): uniform-random item ids added to each
+      mega's union (zero-valued columns).
+    seed (int): the random negatives are drawn from
+      ``default_rng(seed + 7)``.
   """
 
-  def __init__(self, batch_size, negative_sampling=False):
+  def __init__(self, batch_size, negative_sampling=False, num_items=None,
+               num_random_negatives=0, seed=0):
     self.batch_size = batch_size
     self.negative_sampling = negative_sampling
+    self.num_items = num_items
+    self.num_random_negatives = int(num_random_negatives)
+    self._neg_rng = np.random.default_rng(seed + 7)
+    # numpy Generators are not thread-safe and collation runs on workers
+    self._neg_lock = threading.Lock()
 
   def collate(self, users_interactions):
     """Collate one mega-batch into a list of :class:`Batch` (reference
@@ -78,6 +97,15 @@ class BatchCollator:
     if self.negative_sampling:
       # item union of the mega-batch -> compressed column space
       items, cols = np.unique(matrix.indices, return_inverse=True)
+      if self.num_random_negatives:
+        num_items = (self.num_items if self.num_items is not None
+                     else matrix.shape[1])
+        with self._neg_lock:
+          rand = self._neg_rng.integers(0, num_items,
+                                        self.num_random_negatives)
+        merged = np.union1d(items, rand).astype(items.dtype)
+        cols = np.searchsorted(merged, items)[cols]
+        items = merged
       items = items.astype(np.int64)
     else:
       items, cols = None, matrix.indices
@@ -111,11 +139,15 @@ class RecommendationDataLoader:
       equal to ``batch_size``.
     num_workers (int): background collation threads (0 = synchronous).
     shuffle (bool): shuffle users every epoch.
-    seed (int): RNG seed for shuffling.
+    seed (int): RNG seed for shuffling (and, plus 7, for the random
+      negatives).
+    num_random_negatives (int): uniform-random extra negatives a mega
+      (:class:`BatchCollator`).
   """
 
   def __init__(self, dataset, batch_size, negative_sampling=False,
-               num_sampling_users=0, num_workers=0, shuffle=True, seed=0):
+               num_sampling_users=0, num_workers=0, shuffle=True, seed=0,
+               num_random_negatives=0):
     self.dataset = dataset
     self.batch_size = batch_size
     self.negative_sampling = negative_sampling
@@ -127,8 +159,11 @@ class RecommendationDataLoader:
     assert self.num_sampling_users >= batch_size, \
         'num_sampling_users should be at least equal to the batch_size'
 
-    self.batch_collator = BatchCollator(batch_size=batch_size,
-                                        negative_sampling=negative_sampling)
+    self.num_random_negatives = int(num_random_negatives)
+    self.batch_collator = BatchCollator(
+        batch_size=batch_size, negative_sampling=negative_sampling,
+        num_items=dataset.interactions_matrix.shape[1],
+        num_random_negatives=num_random_negatives, seed=seed)
 
   def _mega_batches(self):
     n = len(self.dataset)

@@ -34,6 +34,12 @@
 // atomicOr's them into mask_words (zeroed by a memset on the stream first); a
 // second small kernel expands mask_words into col_mask, so no pass over the
 // [batch, W] rows is needed for the mask.
+//
+// Mask only (rows == nullptr): the loss columns of a mega-batch wider than
+// the step's rows (model.py _forward_loss over the mega's columns). Only the
+// quarter-0 thread of each word runs: it reads its rows' words, ORs them and
+// writes no row -- 4 B a word read, at [2,000 rows x 632 words] 5.1 MB:
+// 1.5 us at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,7 +72,7 @@ packed_rows_kernel(const uint32_t* __restrict__ packed, long long n_rows,
   const int slot = blockIdx.x * kThreads + threadIdx.x;  // word * 4 + quarter
   const int word = slot >> 2;
   const int quarter = slot & 3;
-  if (word >= n_words) return;
+  if (word >= n_words || (rows == nullptr && quarter != 0)) return;
   const int r0 = blockIdx.y * kRowsPerBlock;
   uint32_t w[kRowsPerBlock];
 #pragma unroll
@@ -90,7 +96,8 @@ packed_rows_kernel(const uint32_t* __restrict__ packed, long long n_rows,
   for (int i = 0; i < kRowsPerBlock; ++i) {
     const int r = r0 + i;
     if (r < batch) {
-      rows[(long long)r * row_units + slot] = expand8(w[i] >> (8 * quarter));
+      if (rows != nullptr)
+        rows[(long long)r * row_units + slot] = expand8(w[i] >> (8 * quarter));
       acc |= w[i];
     }
   }
@@ -117,7 +124,7 @@ const char* pr_error_string(int err) {
 // Fetch `batch` rows of the packed slab [n_rows, n_words] and unpack them:
 // rows start, start + 1, ... when index is null, else rows index[0..batch)
 // clamped into [0, n_rows - 1]. Writes rows_out [batch, 32 * n_words] bf16
-// (16-byte aligned; may be null when batch is 0), mask_words [n_words] and
+// (16-byte aligned; null: the mask alone, no row written), mask_words [n_words] and
 // col_mask [32 * n_words] float32 on `stream` of `device`. Returns a CUDA
 // error code (0 on success); a request the kernels do not take is refused
 // before anything is written.
@@ -126,8 +133,7 @@ int pr_unpack_rows(const void* packed, long long n_rows, int n_words,
                    long long num_items, void* rows_out, void* mask_words,
                    float* col_mask, int device, void* stream) {
   if (packed == nullptr || n_rows < 1 || n_words < 1 || batch < 0 ||
-      (batch > 0 && rows_out == nullptr) || mask_words == nullptr ||
-      col_mask == nullptr)
+      mask_words == nullptr || col_mask == nullptr)
     return cudaErrorInvalidValue;
   if (n_words > (1 << 25)) return cudaErrorInvalidValue;  // 32 * n_words fits
   if (index == nullptr && (start < 0 || start + batch > n_rows))

@@ -5,13 +5,15 @@ and the serving path they need. A negative-sampling step takes one of
 three paths (``train(full_decode=...)``, the JAX rule):
 
   * **full decode**: the step fetches ``batch_size`` rows of the
-    resident dense slab (``data/device_pipeline.py``), encodes them with
-    one matmul and decodes against the WHOLE decoder table; the loss is
-    masked to the columns the batch touched (``any(slab != 0)``) and to
+    resident dense slab (``data/device_pipeline.py``) -- or, where no
+    slab is resident, scatters its triplets at the catalog width --
+    encodes them with one matmul and decodes against the WHOLE decoder
+    table; the loss is masked to the columns the mega-batch touched
+    (``any(slab != 0)`` over its rows) and the random negatives, and to
     the logical catalog, summed, and divided by the number of valid
     users (JAX ``_forward_loss``, full-decode branch);
   * **dense union**: the step densifies its interactions over the
-    batch's item union, gathers the union's table rows with
+    mega-batch's item union, gathers the union's table rows with
     ``index_select`` (whose backward scatters into the whole tables) and
     every parameter takes a ``torch.optim`` step;
   * **sparse** (``DynamicAutoencoder(sparse=True)``): the union rows of
@@ -84,15 +86,18 @@ copied to the card on a side stream by a background thread
 every N epochs (the no-grad forward over the host loader's batches of
 the validation set) and, with ``metrics``, the ranking metrics.
 
+Every path takes the reference's negative-sampling knobs:
+``num_sampling_users`` (a mega-batch of users sharing one item union,
+sliced into compute batches) and ``num_random_negatives`` (uniform-random
+extra negative items a step, drawn for the global step: a resumed run
+draws what the uninterrupted one drew).
+
 Not ported yet (the JAX signature's arguments for them raise
 NotImplementedError where set): bf16 parameters, bf16 moments of sparse
 tables, chunked validation and evaluation (``eval_item_chunk``), the
-approximate top-k modes (``eval_topk``), random extra negatives, the
-per-step triplet scatter (where the JAX package declines both slab
-tiers), mega-batches wider than one compute batch on the on-device
-source, sparse tables without negative sampling, the orbax backend,
-meshes, ``recommend_async``, and the capture of the union, sparse and
-host-loader steps.
+approximate top-k modes (``eval_topk``), sparse tables without negative
+sampling, the orbax backend, meshes, ``recommend_async``, and the
+capture of the union, sparse, scatter and host-loader steps.
 """
 
 import logging
@@ -444,9 +449,10 @@ class Recoder:
     by the number of valid users (the JAX ``_forward_loss``).
 
     A full-decode batch (``'slab'``) decodes the whole catalog and masks
-    the loss to the columns the batch touched (all of the logical
+    the loss to the columns the mega-batch touched (all of the logical
     catalog without ``negative_sampling``): its ``'col_mask'`` when it
-    carries one (the packed tier's), else read off the rows. A COO batch
+    carries one (the packed tier's, a mega's wider than the batch, one
+    with random negatives, the scatter's), else read off the rows. A COO batch
     (``'rows'``, ``'cols'``, ``'vals'``) densifies over its union
     (``'items'``), or over the padded catalog where ``'items'`` is None
     (a host-loader batch without negative sampling). It decodes against
@@ -628,9 +634,9 @@ class Recoder:
   # ------------------------------------------------------------------
 
   def _data_source(self, matrix, batch_size, num_sampling_users, shuffle,
-                   target=None):
+                   target=None, num_random_negatives=0):
     cfg = (batch_size, num_sampling_users, shuffle, self.num_items,
-           self.seed)
+           self.seed, num_random_negatives)
     cached = self._source_cache
     if (cached is not None and cached[0] is matrix and cached[1] == cfg
         and cached[3] is target):
@@ -640,7 +646,8 @@ class Recoder:
                               num_sampling_users=num_sampling_users,
                               num_items=self.num_items, shuffle=shuffle,
                               device=self.device, seed=self.seed,
-                              target_matrix=target)
+                              target_matrix=target,
+                              num_random_negatives=num_random_negatives)
     self._source_cache = (matrix, cfg, source, target)
     return source
 
@@ -657,29 +664,36 @@ class Recoder:
     """Train the model (argument semantics follow the JAX package's
     ``Recoder.train``).
 
-    With ``negative_sampling`` a step's loss covers the items its users
-    touched, without it the whole catalog. ``full_decode`` ('auto' |
-    True | False), with negative sampling: decode against the whole item
-    tables from the resident slab, or over the batch's item union
-    (``DeviceDataSource.build_union_batch``); 'auto' takes full decode
-    when the padded catalog is at most 4x the union width (the JAX
-    rule). A sparse model always takes the union path, and needs
-    negative sampling. Without negative sampling a dense model decodes
-    the full catalog. ``slab_cache`` picks the full-decode slab's tier
+    With ``negative_sampling`` a step's loss covers the items its
+    mega-batch touched -- the ``num_sampling_users`` users (a multiple
+    of ``batch_size``; 0: ``batch_size``) whose slices the next steps
+    take -- and ``num_random_negatives`` uniform-random items drawn for
+    the global step (they widen the union: zero input, zero target);
+    without it the whole catalog (and random negatives raise
+    ValueError, as in JAX). ``full_decode`` ('auto' | True | False),
+    with negative sampling: decode against the whole item tables, or
+    over the mega's item union (``DeviceDataSource.build_union_batch``);
+    'auto' takes full decode when the padded catalog is at most 4x the
+    union width (the JAX rule; the width counts the random negatives). A
+    sparse model always takes the union path, and needs negative
+    sampling. Without negative sampling a dense model decodes the full
+    catalog. ``slab_cache`` picks the full-decode slab's tier
     (``DeviceDataSource.maybe_cache_slabs``): 'auto' takes the dense
     slab within half the device's free memory, else the bit-packed
-    slab for binary data, and raises where neither fits; True forces
-    the dense tier, 'packed' the 1-bit tier. ``shuffle``: 'users' or
-    'blocks'.
+    slab for binary data; True forces the dense tier, 'packed' the 1-bit
+    tier, False none. Where no slab is resident (False, or where the
+    JAX source declines both tiers: explicit zero values, over the
+    budget) each full-decode step scatters its triplets at the catalog
+    width, eagerly; a log line names the route and the reason.
+    ``shuffle``: 'users' or 'blocks'.
 
     A ``train_dataset`` with a target matrix trains its input against
     its target (full decode stays off, as in JAX): with
     ``shuffle='blocks'`` and negative sampling from the dual CSRs of the
-    on-device source, otherwise from the host loader
-    (``RecommendationDataLoader``, seeded with ``seed``; its collation
-    runs on ``num_data_workers`` threads), one eager step a batch. A
-    host-loader run takes ``num_sampling_users`` that are any multiple
-    of ``batch_size``.
+    on-device source (without random negatives), otherwise from the host
+    loader (``RecommendationDataLoader``, seeded with ``seed``; its
+    collation runs on ``num_data_workers`` threads), one eager step a
+    batch.
 
     ``fused_steps_per_call`` ('auto' | int | None): consecutive
     full-decode steps a host dispatch. 'auto' and None take 16 when the
@@ -692,10 +706,10 @@ class Recoder:
     steps; a capture records and does not execute). The arithmetic is
     the same as N = 1's, one eager dispatch a step: the trajectories are
     bitwise equal. On the CPU the blocks run the same step eagerly. The
-    union, sparse and host-loader steps, and optimizers other than Adam,
-    run eagerly whatever N says (one log line says so): their capture
-    is not ported. A capture or replay that fails raises; nothing falls
-    back.
+    union, sparse, scatter and host-loader steps, and optimizers other
+    than Adam, run eagerly whatever N says (one log line says so): their
+    capture is not ported. A capture or replay that fails raises;
+    nothing falls back.
 
     ``model_checkpoint_prefix`` / ``checkpoint_freq``: ``save_state``
     after every ``checkpoint_freq``-th epoch and after the last.
@@ -716,12 +730,10 @@ class Recoder:
     parameters and nothing else of the training state: a run with it
     trains bitwise as one without.
 
-    ``num_random_negatives`` (other than 0) and ``table_sharding`` (other
-    than 'auto' or False: there is no mesh to shard over) are the JAX
-    package's and not ported yet (ROADMAP Queue 1 items 4 and 9).
+    ``table_sharding`` (other than 'auto' or False: there is no mesh to
+    shard over) is the JAX package's and not ported yet (ROADMAP Queue 1
+    item 9).
     """
-    _not_ported(num_random_negatives, 'num_random_negatives',
-                'random extra negatives, Queue 1 item 4')
     _not_ported(table_sharding not in ('auto', False),
                 f'table_sharding={table_sharding!r}',
                 'multi-GPU, Queue 1 item 9')
@@ -733,6 +745,8 @@ class Recoder:
     if num_sampling_users < batch_size or num_sampling_users % batch_size:
       raise ValueError('number of sampling users should be a multiple of '
                        'the batch size')
+    if num_random_negatives and not negative_sampling:
+      raise ValueError('num_random_negatives requires negative_sampling')
     if eval_batch_size is None:
       eval_batch_size = batch_size
     log.info('device %s; model %s; lr %s; weight decay %s; batch %s; '
@@ -750,17 +764,19 @@ class Recoder:
     loader_kw = dict(batch_size=batch_size,
                      negative_sampling=negative_sampling,
                      num_sampling_users=num_sampling_users,
-                     num_workers=num_data_workers)
+                     num_workers=num_data_workers,
+                     num_random_negatives=num_random_negatives)
     # the JAX rule: a target matrix rides the on-device source's dual
-    # CSRs in 'blocks' mode with negative sampling, else (and where the
-    # source declines it) the host loader
+    # CSRs in 'blocks' mode with negative sampling and no random
+    # negatives, else (and where the source declines it) the host loader
     loader = source = None
     fd = False
-    if target is None or (shuffle == 'blocks' and negative_sampling):
+    if target is None or (shuffle == 'blocks' and negative_sampling
+                          and not num_random_negatives):
       try:
         source = self._data_source(train_dataset.interactions_matrix,
                                    batch_size, num_sampling_users, shuffle,
-                                   target)
+                                   target, num_random_negatives)
       except FusedPipelineUnavailable as e:
         log.info('fused pipeline unavailable (%s); using host loader', e)
     if source is None:
@@ -778,11 +794,13 @@ class Recoder:
       else:
         fd = self.model.num_items_padded <= 4 * source.union_width()
       if fd:
-        if slab_cache is False:
-          raise ValueError('the port trains full decode from the resident '
-                           'slab only')
-        source.maybe_cache_slabs(self.model.num_items_padded,
-                                 request=slab_cache)
+        if source.maybe_cache_slabs(self.model.num_items_padded,
+                                    request=slab_cache):
+          log.info('full decode from the resident %s slab',
+                   'packed' if source._slab_packed else 'dense')
+        else:
+          log.info('full decode through the per-step triplet scatter (%s)',
+                   source.decline_reason or 'slab_cache=False')
       else:
         source.maybe_cache_slabs(0, request=False)
         source.prepare_union()
@@ -799,13 +817,16 @@ class Recoder:
       spc = max(1, int(fused_steps_per_call))
     if profile_dir is not None:
       spc = 1
-    captured = (fd and spc >= 2 and self.device.type == 'cuda'
+    scatter = fd and source.d_slab is None
+    captured = (fd and not scatter and spc >= 2
+                and self.device.type == 'cuda'
                 and self.optimizer_type == 'adam')
-    if spc >= 2 and not fd:
+    if spc >= 2 and (scatter or not fd):
       log.info('fused_steps_per_call=%d: the %s step runs eagerly, one '
                'dispatch a step (its capture is not ported)', spc,
                'host-loader' if loader is not None
-               else 'sparse' if sparse else 'union')
+               else 'scatter' if scatter else 'sparse' if sparse
+               else 'union')
     elif spc >= 2 and self.device.type == 'cuda' and not captured:
       log.info("fused_steps_per_call=%d: '%s' has no capturable step; the "
                'steps run eagerly, one dispatch a step', spc,
@@ -818,7 +839,8 @@ class Recoder:
     # checkpoint load, which continues the checkpoint's epoch on the
     # on-device source; the host loader's restarts, as in JAX)
     iter_key = (train_dataset, batch_size, num_sampling_users,
-                negative_sampling, shuffle, fd, loader is not None)
+                negative_sampling, shuffle, num_random_negatives, fd,
+                loader is not None)
     if self._train_iterator_key != iter_key:
       if self._train_iterator_key is not _RESUMED:
         self._iters_consumed = 0
@@ -885,7 +907,8 @@ class Recoder:
       else:
         losses = self._union_epoch(
             lambda: source.build_union_batch(self._epoch_perm,
-                                             self._iters_consumed),
+                                             self._iters_consumed,
+                                             neg_step=self._global_step),
             n_steps, sparse, profile_dir, profile_steps, reporter)
       # (one device sync per epoch)
       self.last_epoch_losses = losses
@@ -1104,12 +1127,16 @@ class Recoder:
 
   def _fd_step(self, loop, negative_sampling, reseed_step=None):
     """One full-decode step whose batch, loss slot and step all come
-    from the device counter ``loop.step`` (it advances it): no host
-    read, so a graph can record it. ``reseed_step`` (off the card): seed
-    the dropout generator for that global step first."""
+    from the device counter ``loop.step`` (it advances it): off the slab
+    no host read, so a graph can record it. ``reseed_step`` (off the
+    card): seed the dropout generator and the random negatives' for that
+    global step first."""
+    source = loop.source
     if reseed_step is not None:
       self._dropout_gen.manual_seed((self.seed << 32) + reseed_step)
-    batch = loop.source.fd_batch(loop.perm, loop.step)
+      if source.neg_gen is not None:
+        source.seed_negatives(reseed_step)
+    batch = source.fd_batch(loop.perm, loop.step)
     loss = self._dense_step_math(batch, negative_sampling, reseed=False,
                                  step=loop.global_step)
     loop.losses.index_copy_(0, loop.step.view(1), loss.view(1).float())
@@ -1119,14 +1146,18 @@ class Recoder:
   def _position_noise(self, loop):
     """Put the card's dropout generator where the global step puts it:
     seed ``seed << 32``, Philox offset ``global step x the offset one
-    step takes``. Full-decode steps then draw their masks from the
-    generator as it advances -- eager steps and graph replays alike (the
-    graphs register it) -- and a training resumed from a checkpoint
-    draws the masks the uninterrupted one would have drawn."""
+    step takes``, and the source's random-negative generator likewise
+    (``position_negatives``). Full-decode steps then draw their masks
+    and ids from the generators as they advance -- eager steps and graph
+    replays alike (the graphs register them) -- and a training resumed
+    from a checkpoint draws what the uninterrupted one would have
+    drawn."""
     if loop.noise_inc is None:
       loop.noise_inc = self._noise_increment(loop)
     self._dropout_gen.manual_seed(self.seed << 32)
     self._dropout_gen.set_offset(self._global_step * loop.noise_inc)
+    if loop.source.neg_gen is not None:
+      loop.source.position_negatives(self._global_step)
 
   def _noise_increment(self, loop):
     """The Philox offset one full-decode step's noise draws take: a
@@ -1178,7 +1209,8 @@ class Recoder:
     tensors += [loop.source.d_slab, loop.perm, loop.step, loop.global_step,
                 loop.losses]
     return (id(self.optimizer), id(loop), negative_sampling, id(self.loss),
-            self._dropout_gen, tuple(t.data_ptr() for t in tensors))
+            self._dropout_gen, loop.source.neg_gen,
+            tuple(t.data_ptr() for t in tensors))
 
   def _graph(self, block, loop, negative_sampling):
     """The graph of ``block`` consecutive steps, captured at first use on
@@ -1192,6 +1224,8 @@ class Recoder:
         self.optimizer.begin_capture(block)
       graph = torch.cuda.CUDAGraph()
       graph.register_generator_state(self._dropout_gen)
+      if loop.source.neg_gen is not None:
+        graph.register_generator_state(loop.source.neg_gen)
       # ('thread_local': the progress thread may wait on an event
       # meanwhile; the capture checks this thread's calls)
       with torch.cuda.graph(graph, stream=self._side_stream(),

@@ -13,6 +13,11 @@ and it lies below ``num_items`` (the JAX ``_build_fd_from_cache`` with
 ``_unpack_rows``, and the ``any(slab != 0) & in_catalog`` mask of
 ``_forward_loss``).
 
+A step whose loss columns span a mega-batch wider than its rows
+(``num_sampling_users > batch_size``) also takes the mega's mask alone:
+:func:`unpack_mask` ORs the bits of the mega's rows and writes no row,
+through the same kernel (a null row output).
+
 The trainer fetches in index mode in both shuffles ('blocks' passes
 ``perm[step] * batch + arange(batch)``, computed on the device), so no
 row offset is a host value that a captured CUDA graph would bake in.
@@ -85,6 +90,13 @@ def unpack_rows_plain(packed, num_items, start=None, index=None, count=None):
   return rows, (present & in_catalog).float()
 
 
+def unpack_mask_plain(packed, num_items, start=None, index=None,
+                      count=None):
+  """Plain PyTorch version of :func:`unpack_mask`: the mask of
+  :func:`unpack_rows_plain`."""
+  return unpack_rows_plain(packed, num_items, start, index, count)[1]
+
+
 def _lib():
   global _LIB
   with _LIB_LOCK:
@@ -101,9 +113,10 @@ def _lib():
     return _LIB
 
 
-def unpack_rows_kernel(packed, num_items, start=None, index=None, count=None):
-  """The CUDA kernel: one launch (a memset of the mask words, the fetch
-  with unpack, the column-mask expansion) on the current stream."""
+def _launch(packed, num_items, start, index, count, write_rows):
+  """One launch of the kernel (a memset of the mask words, the fetch
+  with unpack -- or, without ``write_rows``, with no row written -- and
+  the column-mask expansion) on the current stream."""
   B = _check_args(packed, num_items, start, index, count)
   if packed.device.type != 'cuda':
     raise ValueError(f'the packed_rows kernel needs CUDA tensors, packed is '
@@ -115,7 +128,8 @@ def unpack_rows_kernel(packed, num_items, start=None, index=None, count=None):
   n_rows, n_words = packed.shape
   W = 32 * n_words
   dev = packed.device
-  rows = torch.empty((B, W), dtype=torch.bfloat16, device=dev)
+  rows = (torch.empty((B, W), dtype=torch.bfloat16, device=dev)
+          if write_rows else None)
   mask_words = torch.empty(n_words, dtype=torch.int32, device=dev)
   col_mask = torch.empty(W, dtype=torch.float32, device=dev)
   lib = _lib()
@@ -123,13 +137,26 @@ def unpack_rows_kernel(packed, num_items, start=None, index=None, count=None):
   err = lib.pr_unpack_rows(
       packed.data_ptr(), n_rows, n_words, 0 if start is None else int(start),
       None if index is None else index.data_ptr(), B, int(num_items),
-      rows.data_ptr(), mask_words.data_ptr(), col_mask.data_ptr(),
-      dev.index or 0, stream)
+      None if rows is None else rows.data_ptr(), mask_words.data_ptr(),
+      col_mask.data_ptr(), dev.index or 0, stream)
   if err != 0:
     raise RuntimeError(f'packed_rows launch failed: CUDA error {err} '
                        f'({lib.pr_error_string(err).decode()})')
   count_launch(LAUNCHES, 'packed_rows')
   return rows, col_mask
+
+
+def unpack_rows_kernel(packed, num_items, start=None, index=None, count=None):
+  """The CUDA kernel: one launch (a memset of the mask words, the fetch
+  with unpack, the column-mask expansion) on the current stream."""
+  return _launch(packed, num_items, start, index, count, True)
+
+
+def unpack_mask_kernel(packed, num_items, start=None, index=None,
+                       count=None):
+  """The CUDA kernel, mask only: one launch that ORs the rows' words and
+  writes no row."""
+  return _launch(packed, num_items, start, index, count, False)[1]
 
 
 def unpack_rows(packed, num_items, start=None, index=None, count=None):
@@ -152,3 +179,15 @@ def unpack_rows(packed, num_items, start=None, index=None, count=None):
   if device.type == 'cpu':
     return unpack_rows_plain(packed, num_items, start, index, count)
   raise ValueError(f'unpack_rows runs on cuda or cpu, not {device}')
+
+
+def unpack_mask(packed, num_items, start=None, index=None, count=None):
+  """The loss columns of some rows of the packed slab, without the rows:
+  ``[32 * n_words]`` float32, 1 where any of the rows has its bit and the
+  column lies below ``num_items`` (arguments as :func:`unpack_rows`)."""
+  device = packed.device
+  if device.type == 'cuda':
+    return unpack_mask_kernel(packed, num_items, start, index, count)
+  if device.type == 'cpu':
+    return unpack_mask_plain(packed, num_items, start, index, count)
+  raise ValueError(f'unpack_mask runs on cuda or cpu, not {device}')

@@ -21,7 +21,9 @@ steps against eager ones; the host loader's batches on the card equal to
 the CPU's, training against a target matrix (host loader and dual CSRs,
 dense and tied sparse tables) and its validation loss on the card against
 the CPU, and captured training bitwise the same with validation between
-its epochs; MatrixFactorization's decode-loss route against its plain
+its epochs; megas with random negatives captured bitwise eager (and a
+resume), the triplet scatter bitwise the slab route, and the packed
+kernel's mask-only launch against its plain version; MatrixFactorization's decode-loss route against its plain
 twin, the sparse MF and Mult-VAE steps through the row scatter against
 index_copy_ (bitwise), MF and Mult-VAE captured steps bitwise eager (the
 KL weight changing inside the graphs), and EASE on the card against the
@@ -843,6 +845,79 @@ def test_captured_steps_are_bitwise_eager(cuda, dtype, tier, shuffle,
   del first
   _capture_train(resumed, data, 16, tier, shuffle)
   _assert_bitwise_trainers(resumed, captured)
+
+
+@pytest.mark.parametrize('shuffle', ['blocks', 'users'])
+@pytest.mark.parametrize('tier', [True, 'packed'])
+def test_captured_megas_with_negatives_are_bitwise_eager(cuda, tier, shuffle,
+                                                         tmp_path):
+  """Megas of 64 users (2 slices) and 40 random negatives a step, bf16,
+  3 epochs: 16 steps a graph against one eager step a dispatch -- the
+  losses, parameters and moments bit for bit (the random ids come from a
+  generator each graph registers). A resume from a checkpoint 10 steps
+  into epoch 1 draws what the uninterrupted run drew and ends bitwise
+  where it does."""
+  kw = dict(num_sampling_users=64, num_random_negatives=40)
+  data = _capture_data()
+  eager = _capture_train(_capture_trainer(cuda, 'bfloat16'), data, 1, tier,
+                         shuffle, **kw)
+  captured = _capture_train(_capture_trainer(cuda, 'bfloat16'), data, 16,
+                            tier, shuffle, **kw)
+  assert captured.last_epoch_dispatch == 'captured, 16 steps a graph'
+  source = captured.fused_data_source
+  assert source.slices_per_mega == 2 and source.d_slab is not None
+  assert source._slab_packed == (tier == 'packed')
+  _assert_bitwise_trainers(captured, eager)
+  _capture_train(_capture_trainer(cuda, 'bfloat16'), data, 16, tier,
+                 shuffle, num_epochs=1, iters_per_epoch=10,
+                 model_checkpoint_prefix=str(tmp_path / 'c'), **kw)
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  resumed = Recoder(DynamicAutoencoder(), optimizer_type='adam', device=cuda,
+                    opt_state_dtype='bfloat16')
+  resumed.init_from_model_file(str(tmp_path / 'c_epoch_1.model'))
+  _capture_train(resumed, data, 16, tier, shuffle, **kw)
+  _assert_bitwise_trainers(resumed, captured)
+
+
+@pytest.mark.parametrize('shuffle', ['blocks', 'users'])
+def test_scatter_route_equals_the_slab_route(cuda, shuffle):
+  """20 eager steps with megas of 64 and 40 random negatives, noise 0.5,
+  bf16: through the per-step triplet scatter (slab_cache=False) and from
+  the dense slab, bit for bit."""
+  data = _capture_data()
+  out = {}
+  for cache in (True, False):
+    tr = _capture_trainer(cuda, 'bfloat16')
+    _capture_train(tr, data, 1, cache, shuffle, num_epochs=1,
+                   iters_per_epoch=20, num_sampling_users=64,
+                   num_random_negatives=40)
+    assert (tr.fused_data_source.d_slab is None) == (cache is False)
+    assert len(tr.last_epoch_losses) == 20
+    out[cache] = tr
+  _assert_bitwise_trainers(out[False], out[True])
+
+
+@pytest.mark.parametrize('B', [1, 37, 2000])
+@pytest.mark.parametrize('n_words', [1, 33, 632, 1288])
+def test_packed_mask_kernel_matches_plain(cuda, B, n_words):
+  """The mask-only launch (a mega's loss columns, no row written) against
+  its plain version, bitwise, in both fetch modes, pad users past the
+  slab in the gather."""
+  from recoder_tpu_torch.ops import packed_rows as pr
+  n_rows = B + 3
+  packed = _packed_slab(n_rows, n_words, seed=B * n_words).to(cuda)
+  rng = np.random.default_rng(B)
+  index = rng.integers(0, n_rows + 40, B).astype(np.int64)
+  index[-1] = n_rows + 100
+  for fetch in (dict(index=torch.from_numpy(index).to(cuda)),
+                dict(start=n_rows - B, count=B)):
+    before = pr.LAUNCHES['packed_rows']
+    got = pr.unpack_mask(packed, 32 * n_words - 7, **fetch)
+    torch.cuda.synchronize()
+    assert pr.LAUNCHES['packed_rows'] == before + 1
+    assert torch.equal(got, pr.unpack_mask_plain(packed, 32 * n_words - 7,
+                                                 **fetch))
 
 
 def test_reset_training_state_keeps_the_graphs(cuda):

@@ -3,8 +3,9 @@ numpy inputs: the packed build bitwise (the JAX uint32 words viewed as
 int32), the plain unpack bitwise against ``_unpack_rows``, the packed
 tier's step payload equal to the dense tier's and to the JAX packed
 fetch in both shuffle modes, pad users included, the tier rule of
-``maybe_cache_slabs`` case by case (the port raises where JAX declines
-to its per-step scatter), packed trainings bitwise equal to dense ones,
+``maybe_cache_slabs`` case by case (where JAX declines to its per-step
+scatter the port declines with the JAX reason, and its scatter serves
+the step), packed trainings bitwise equal to dense ones,
 and a packed training against the JAX trainer's.
 
 The small CSR has empty users, set bits at columns with ``c % 32 ==
@@ -147,21 +148,23 @@ PACKED_BYTES = N_PAD * (W // 32) * 4  # 640
 DENSE_BYTES = N_PAD * W * 2  # 10,240 in bf16
 BETWEEN = (PACKED_BYTES + DENSE_BYTES) // 2
 
-# (values, width, budget, [(request, expected tier or the port's error)])
+# (values, width, budget, [(request, expected tier, or 'decline: ' and the
+# start of the JAX reason)])
+OVER = 'decline: ' + '{:.2f} GiB exceeds the free-memory budget'
 TIER_CASES = {
     'dense fits': ('binary', W, 10 ** 9, [('auto', 'dense')]),
     'dense over budget, packed fits': ('binary', W, BETWEEN,
                                        [('auto', 'packed')]),
     'packed over budget': ('binary', W, PACKED_BYTES - 1,
-                           [('auto', MemoryError)]),
+                           [('auto', OVER.format(DENSE_BYTES / 2**30))]),
     'not binary, over budget': ('ratings', W, BETWEEN,
-                                [('auto', MemoryError)]),
-    'not binary, packed requested': ('ratings', W, 10 ** 9,
-                                     [('packed', ValueError)]),
-    'width % 32, packed requested': ('binary', W + 6, 10 ** 9,
-                                     [('packed', ValueError)]),
-    'width % 32, over budget': ('binary', W + 6, BETWEEN,
-                                [('auto', MemoryError)]),
+                                [('auto', OVER.format(DENSE_BYTES / 2**30))]),
+    'not binary, packed requested': ('ratings', W, 10 ** 9, [
+        ('packed', "decline: slab_cache='packed' requires binary")]),
+    'width % 32, packed requested': ('binary', W + 6, 10 ** 9, [
+        ('packed', 'decline: packed tier needs width % 32 == 0')]),
+    'width % 32, over budget': ('binary', W + 6, BETWEEN, [
+        ('auto', OVER.format(N_PAD * (W + 6) * 2 / 2**30))]),
     'tier switch at the same width': ('binary', W, 10 ** 9, [
         ('auto', 'dense'), (True, 'dense, reused'), ('packed', 'packed'),
         ('auto', 'packed, reused'), (True, 'dense'),
@@ -179,11 +182,18 @@ def test_tier_choice_matches_jax(case, monkeypatch):
   for request, expected in steps:
     before_ours, before_theirs = ours.d_slab, theirs.d_slab
     got_theirs = theirs.maybe_cache_slabs(width, request=request)
-    if isinstance(expected, type):
-      assert not got_theirs and theirs.d_slab is None  # JAX declines
-      with pytest.raises(expected, match='per-step triplet scatter'):
-        ours.maybe_cache_slabs(width, request=request)
+    if isinstance(expected, str) and expected.startswith('decline'):
+      # JAX declines to its per-step scatter; so does the port, with the
+      # JAX reason, and the scatter then serves the step
+      assert not got_theirs and theirs.d_slab is None
+      assert not ours.maybe_cache_slabs(width, request=request)
       assert ours.d_slab is None and ours._slab_request is None
+      assert ours.decline_reason.startswith(expected.split(': ')[1])
+      batch = ours.build_fd_batch(torch.arange(ours.n_pad), 0)
+      assert batch['slab'].shape == (BATCH, width)
+      want = np.zeros((BATCH, width), np.float32)
+      want[:, :N_COLS] = m[:BATCH].toarray()  # (raw columns, as JAX's)
+      np.testing.assert_array_equal(batch['slab'].float().numpy(), want)
       continue
     assert got_theirs and ours.maybe_cache_slabs(width, request=request)
     tier = expected.split(',')[0]

@@ -96,22 +96,41 @@ def test_slab_request_recorded_on_reuse():
 
 
 def test_slab_that_does_not_fit_raises(monkeypatch):
-  src = DeviceDataSource(_matrix(), BATCH, BATCH, N_ITEMS, device='cpu')
+  """A slab over the budget is declined with the JAX reason (no longer
+  raised): the step then scatters its triplets, to the same batch."""
+  src = DeviceDataSource(_matrix('ratings'), BATCH, BATCH, N_ITEMS,
+                         device='cpu')
+  W = pad_dim(N_ITEMS)
   monkeypatch.setattr(src, '_memory_budget', lambda: 1024)
-  with pytest.raises(MemoryError):
-    src.maybe_cache_slabs(pad_dim(N_ITEMS), request='auto')
-  assert src.d_slab is None
-  assert src.maybe_cache_slabs(pad_dim(N_ITEMS), request=True)
+  assert not src.maybe_cache_slabs(W, request='auto')
+  assert src.d_slab is None and 'exceeds the free-memory budget' in \
+      src.decline_reason
+  perm = src.epoch_permutation(1)
+  scattered = src.build_fd_batch(perm, 2)
+  assert src.maybe_cache_slabs(W, request=True)
+  fetched = src.build_fd_batch(perm, 2)
+  assert torch.equal(scattered['slab'], fetched['slab'])
+  np.testing.assert_array_equal(
+      scattered['col_mask'].numpy(),
+      _col_mask(fetched['slab'].float().numpy(), N_ITEMS).astype(np.float32))
 
 
 def test_ineligible_configurations_raise():
+  """A mega that is no multiple of the batch raises; an explicitly stored
+  zero declines the slab (the JAX reason), and the step's scatter keeps
+  the zero's column in the loss mask."""
   m = _matrix()
-  with pytest.raises(ValueError):
-    DeviceDataSource(m, BATCH, 2 * BATCH, N_ITEMS, device='cpu')
+  with pytest.raises(ValueError, match='multiple of batch_size'):
+    DeviceDataSource(m, BATCH, BATCH + 1, N_ITEMS, device='cpu')
+  assert DeviceDataSource(m, BATCH, 2 * BATCH, N_ITEMS,
+                          device='cpu').slices_per_mega == 2
   zeros = m.copy()
   zeros.data[0] = 0.0  # an explicitly stored zero
   src = DeviceDataSource(zeros, BATCH, BATCH, N_ITEMS, device='cpu')
-  with pytest.raises(ValueError):
-    src.maybe_cache_slabs(pad_dim(N_ITEMS), request=True)
   with pytest.raises(RuntimeError):
-    src.build_fd_batch(torch.arange(src.n_pad), 0)
+    src.build_fd_batch(torch.arange(src.n_pad), 0)  # no width requested
+  assert not src.maybe_cache_slabs(pad_dim(N_ITEMS), request=True)
+  assert src.decline_reason == 'matrix stores explicit zero values'
+  batch = src.build_fd_batch(torch.arange(src.n_pad), 0)
+  col = zeros.indices[0]
+  assert batch['slab'][0, col] == 0 and batch['col_mask'][col] == 1
