@@ -262,6 +262,34 @@ Phases, each of which raises on failure:
                 bf16), and the fixture quality row (float32, logloss, 30
                 epochs) within 0.01 of the JAX package's pins
                 (tools/jax_negatives_pins.py).
+ 27. large catalog -- the msd-big class (scripts/msd-big/train.py) at the
+                shape docs/benchmarks.md profiled: a Zipf catalog of
+                1,000,000 items (data/synthetic.synthesize at MSD's 59
+                items a user), 100,000 training users and 10,000 more
+                held out by phase 21's 80/20 split. (a) its step (sparse
+                DynamicAutoencoder[200], tanh, noise 0.5, bf16, logloss,
+                Adam, batch 500, negative sampling, 'blocks') for one
+                eager epoch with a validation at its end (loss, and
+                Recall@20/50, NDCG@100 at k=100 in chunks of 2^18):
+                msdbig_user_batches_per_sec, union widths, two row-scatter
+                launches a step and no other hand kernel, the validation's
+                seconds; (b) on that model, 500 held-out users: chunked
+                against monolithic recommend (ms, peak memory, scores
+                within two bf16 ulps of the largest, the same id set where
+                the 100th and 101st scores are further apart, metrics
+                within 0.01), every eval_topk mode the same ids,
+                ops/topk.top_k and torch.topk alone at [500, 1,000,192];
+                (c) scripts/stress_scale.py's 10,000,000 items at d=128,
+                the tables drawn on the card, scored in the chunks Recoder
+                resolves: ms and peak memory for 500 users, every id in
+                the catalog, unseen; (d, after phase 26 (d)) the
+                full-catalog sparse step at bench.py's MSD --sparse shape,
+                negative sampling off: 20 steps against the plain path
+                (one packed-slab fetch a step, no row scatter), then the
+                validation loss of full-catalog batches chunked (8,192)
+                against dense (rtol 1e-4); (e, inside phase 6) the
+                fixture model's metrics chunked (1,024) within 1e-4 of the
+                monolithic ones.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -280,6 +308,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from unittest import mock
 
 import numpy as np
@@ -969,7 +998,8 @@ def phase_paths(train_m, device='cuda', steps=20, compute_dtype=None,
 
 def phase_quality(train_m, val_m, device='cuda', epochs=30, atol=0.01,
                   compute_dtype=None, opt_state_dtype=None, reload_atol=0.0,
-                  slab_cache='auto', pinned=PINNED, **train_kw):
+                  slab_cache='auto', pinned=PINNED, chunked=None,
+                  **train_kw):
   from recoder_tpu_torch.data import RecommendationDataset
   from recoder_tpu_torch.metrics import NDCG, Recall
   from recoder_tpu_torch.model import Recoder
@@ -1008,6 +1038,18 @@ def phase_quality(train_m, val_m, device='cuda', epochs=30, atol=0.01,
   if misses:
     raise AssertionError(f'quality outside atol {atol} of the pinned '
                          f'values: {misses}')
+  if chunked:
+    # phase 27 (e): the same evaluation scored in chunks
+    trainer.eval_item_chunk = chunked
+    results = trainer._evaluate(val_ds, 100, metrics, batch_size=500)
+    trainer.eval_item_chunk = None
+    gaps = {str(m): abs(float(np.mean(v)) - means[str(m)])
+            for m, v in results.items()}
+    if max(gaps.values()) > 1e-4:
+      raise AssertionError(f'(27 e) chunked metrics off the monolithic ones '
+                           f'by {gaps}')
+    say(f'  (27 e) chunked evaluation ({chunked:,} items a chunk): the '
+        f'metrics within {max(gaps.values()):.3g} of the monolithic ones')
   # built without compute_dtype: the checkpoint's comes back
   reload_metrics(trainer, lambda: Recoder(DynamicAutoencoder(),
                                           device=device),
@@ -1953,6 +1995,27 @@ def phase_packed_kernel(device='cuda', shape=(500, 1288)):
       f'{times["kernel, gather"]:.4f}), plain {times["plain"]:.4f} ms; bound '
       f'{b_ms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB); kernel at '
       f'{100 * b_ms / times["kernel"]:.1f}% of it')
+
+  # the mask-only launch at a mega of 2,000 gathered rows (phase 26's)
+  M = PACKED_MEGAS[-1]
+  mega = torch.randperm(8 * B, device=device)[:M].contiguous()
+  mask_fns = {
+      'mask kernel': lambda: pr.unpack_mask_kernel(packed, num_items,
+                                                   index=mega),
+      'mask plain': lambda: pr.unpack_mask_plain(packed, num_items,
+                                                 index=mega)}
+  runs = {name: [] for name in mask_fns}
+  for name in ('mask plain', 'mask kernel', 'mask kernel', 'mask plain'):
+    runs[name].append(device_ms(mask_fns[name], between=sweep.sum,
+                                skip='reduce_kernel'))
+  times.update({name: statistics.mean(v) for name, v in runs.items()})
+  mask_bytes = 4.0 * M * n_words + 8.0 * M + 4.0 * 32 * n_words
+  times['mask bound'] = bound(0.0, mask_bytes)[0]
+  say(f'  mask-only [{M} gathered rows, {n_words} words] from a cold L2, '
+      f'device time (in turns): kernel {times["mask kernel"]:.4f} ms, plain '
+      f'{times["mask plain"]:.4f} ms; bound {times["mask bound"]:.4f} ms '
+      f'(bytes: {mask_bytes / 1e6:.2f} MB); kernel at '
+      f'{100 * times["mask bound"] / times["mask kernel"]:.1f}% of it')
   return times, (b_ms, by)
 
 
@@ -2477,8 +2540,9 @@ def compare_losses(kernel, plain, rtol, what):
 def plain_trainer_run(trainer, dataset, steps, kw):
   """``steps`` steps of ``trainer`` with every kernel but the decode-loss
   ones (which a plain ``MSELoss`` bypasses) replaced by its plain twin:
-  the bf16-moment Adam step and the row scatter."""
+  the bf16-moment Adam step, the row scatter and the packed-slab fetch."""
   from recoder_tpu_torch.ops import adam as adam_ops
+  from recoder_tpu_torch.ops import packed_rows as pr
   from recoder_tpu_torch.ops import row_scatter as rs
 
   def plain_adam(params, grads, exp_avgs, exp_avg_sqs, weight_decays, table,
@@ -2490,7 +2554,8 @@ def plain_trainer_run(trainer, dataset, steps, kw):
 
   reset_launches()
   with mock.patch.object(adam_ops, 'adam_bf16_kernel_table', plain_adam), \
-      mock.patch.object(rs, 'row_scatter_kernel', rs.row_scatter_plain):
+      mock.patch.object(rs, 'row_scatter_kernel', rs.row_scatter_plain), \
+      mock.patch.object(pr, 'unpack_rows_kernel', pr.unpack_rows_plain):
     trainer.train(dataset, num_epochs=1, iters_per_epoch=steps, **kw)
   if any(read_launches().values()):
     raise AssertionError(f'the plain run launched {read_launches()}')
@@ -3189,6 +3254,404 @@ def phase_negatives_msd(msd):
   return {'msd_sparse_mega': per_step}, rate, widths
 
 
+# -- phase 27 --------------------------------------------------------------
+
+#: the msd-big class (scripts/msd-big/train.py) at the shape that
+#: docs/benchmarks.md profiled: a Zipf catalog of 1,000,000 items, 100,000
+#: training users, MSD's 59 items a user; and 10,000 users more, held out
+#: with phase 21's 80/20 per-user split
+MSD_BIG_ITEMS, MSD_BIG_USERS, MSD_BIG_HELD_OUT = 1_000_000, 100_000, 10_000
+#: scripts/msd-big/train.py's step (sparse tables, logloss, bf16 compute,
+#: Adam lr 1e-3, weight decay 2e-5, batch 500, negative sampling), 'blocks'
+MSD_BIG_TRAIN = dict(MSD_TRAIN)
+MSD_BIG_RATE = 'msdbig_user_batches_per_sec'
+#: the eval chunk of (a) and (b): Recoder.AUTO_CHUNK_WIDTH
+LARGE_CHUNK = 2 ** 18
+#: scripts/stress_scale.py's default shape, scored only
+STRESS_ITEMS, STRESS_DIM = 10_000_000, 128
+#: monolithic against the chunked path's float32 scores at bf16 compute:
+#: within this share of the largest score, two bf16 ulps of it (a
+#: monolithic score is rounded to 2^-9 of itself, and the COO encode
+#: rounds each product to bf16 where the GEMM does not)
+SCORE_TOL = 2.0 ** -8
+#: chunked recommend against the top-k of the same float32 arithmetic
+#: over the whole catalog at once: scores within this share of the
+#: largest (a GEMM over a chunk and over the catalog may add in another
+#: order), and metrics within CHUNKED_METRIC_ATOL
+SCORE_TOL_F32 = 1e-5
+CHUNKED_METRIC_ATOL = 1e-4
+#: monolithic against chunked metrics: their scores differ by the bf16
+#: rounding above, so ids near the 100th swap; one hit more or less moves
+#: a mean over 500 users by up to 2e-3 (Recall@20 of a user with one
+#: held-out item), at least 1e-4
+METRIC_ATOL = 1e-3
+
+
+def msd_big_data():
+  """The phase's CSRs: (training users, held-out input, held-out target),
+  from data/synthetic.synthesize at MSD's mean."""
+  from recoder_tpu_torch.data import synthetic
+  t0 = time.time()
+  m = synthetic.synthesize(MSD_BIG_USERS + MSD_BIG_HELD_OUT, MSD_BIG_ITEMS,
+                           synthetic.MSD_MEAN_ITEMS_PER_USER, seed=0,
+                           mean_factor=0.68)
+  val_in, val_tg = split_held_out(m[MSD_BIG_USERS:])
+  train_m = m[:MSD_BIG_USERS]
+  say(f'msd-big-shaped CSR: {train_m.shape[0]:,} training users x '
+      f'{MSD_BIG_ITEMS:,} items, nnz {train_m.nnz:,}; {MSD_BIG_HELD_OUT:,} '
+      f'held-out users, input nnz {val_in.nnz:,}, held out {val_tg.nnz:,} '
+      f'({time.time() - t0:.1f} s)')
+  return train_m, val_in, val_tg
+
+
+def _msd_big_metrics():
+  from recoder_tpu_torch.metrics import NDCG, Recall
+  return [Recall(k=20), Recall(k=50), NDCG(k=100)]
+
+
+def _evaluation_s(evaluator, dataset):
+  """Seconds of one ``evaluate`` of ``dataset`` in batches of 500, and
+  its results."""
+  import torch
+  t0 = time.time()
+  results = evaluator.evaluate(dataset, batch_size=500)
+  torch.cuda.synchronize()
+  return time.time() - t0, results
+
+
+def phase_msd_big(train_m, val_in, val_tg, device='cuda'):
+  """(a) scripts/msd-big/train.py's configuration: 20 steps against the
+  plain path and the row scatter at the tables' shape; then 1 epoch
+  eager, with a validation (loss and Recall@20/50, NDCG@100 at k=100,
+  chunked by LARGE_CHUNK) at its end: two row-scatter launches a step and
+  no other hand kernel; the evaluation pipelined and synchronous."""
+  import torch
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.data.loader import RecommendationDataLoader
+  from recoder_tpu_torch.metrics import RecommenderEvaluator
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  from recoder_tpu_torch.recommender import InferenceRecommender
+
+  def make():
+    return Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                      sparse=True, compute_dtype='bfloat16'),
+                   optimizer_type='adam', loss='logloss', user_based=False,
+                   eval_item_chunk=LARGE_CHUNK, device=device)
+
+  train_ds = RecommendationDataset(train_m)
+  kernel, plain = make(), make()
+  family_paths(train_ds, kernel, plain, MSD_BIG_TRAIN, {'row_scatter': 2},
+               BF16_PATHS_RTOL, '(a) msd-big step', tables=(
+                   'en_embedding', 'de_embedding'))
+  widths = union_widths(kernel)
+  n_rows = kernel.model.params()['en_embedding'].shape[0]
+  del kernel, plain
+  check_scatter(*scatter_case(n_rows, 200, int(widths.max()), device),
+                f'[{n_rows}, 200] at a union of {widths.max()}')
+  say(f'  (a) row_scatter at [{n_rows:,}, 200] x {widths.max():,} ids (the '
+      'widest of the 20 steps\' unions): bitwise index_copy_')
+  trainer = make()
+  val_ds = RecommendationDataset(val_in, val_tg)
+  metrics = _msd_big_metrics()
+  torch.cuda.reset_peak_memory_stats()
+  reset_launches()
+  t0 = time.time()
+  trainer.train(train_ds, val_dataset=val_ds, num_epochs=1, eval_freq=1,
+                eval_num_recommendations=100, metrics=metrics,
+                **MSD_BIG_TRAIN)
+  torch.cuda.synchronize()
+  call_s = time.time() - t0
+  counts = {k: v for k, v in read_launches().items() if v}
+  steps = len(trainer.last_epoch_losses)
+  if steps != -(-MSD_BIG_USERS // 500) or counts != {'row_scatter': 2 * steps}:
+    raise AssertionError(f'(a) {steps} steps launched {counts}: expected '
+                         'two row-scatter launches a step, nothing else')
+  losses = np.asarray(trainer.last_epoch_losses)
+  if not (np.all(np.isfinite(losses))
+          and losses[-20:].mean() < losses[:20].mean()):
+    raise AssertionError(f'(a) the loss did not fall: {losses}')
+  rate = steps / trainer.last_epoch_seconds
+  widths = np.diff(trainer.fused_data_source._block_unions()['ptr'])
+  peak = torch.cuda.max_memory_allocated() / 2 ** 30
+  say(f'  (a) 1 epoch of {steps} steps: {MSD_BIG_RATE} {rate:.2f} (the '
+      f'train call with its validation {call_s:.1f} s); loss first 20 steps '
+      f'{losses[:20].mean():.4f}, last 20 {losses[-20:].mean():.4f}; '
+      f'row_scatter {counts["row_scatter"]} launches (2 a step); union '
+      f'widths mean {widths.mean():.1f}, min {widths.min()}, max '
+      f'{widths.max()} over {len(widths)} blocks; peak device memory '
+      f'{peak:.2f} GiB')
+  loader = RecommendationDataLoader(val_ds, batch_size=500,
+                                    negative_sampling=True,
+                                    seed=trainer.seed + 1)
+  t0 = time.time()
+  val_loss = trainer._validate(loader)
+  val_s = time.time() - t0
+  recommender = InferenceRecommender(trainer, 100)
+  evaluators = {
+      'pipelined': RecommenderEvaluator(recommender, metrics),
+      'synchronous': RecommenderEvaluator(
+          types.SimpleNamespace(recommend=recommender.recommend), metrics)}
+  eval_s = {name: [] for name in evaluators}
+  for name in [*evaluators, *evaluators]:
+    seconds, got = _evaluation_s(evaluators[name], val_ds)
+    eval_s[name].append(seconds)
+    if name == 'pipelined':
+      results = got
+    elif got != results:
+      raise AssertionError('(a) the pipelined evaluation differs from the '
+                           'synchronous one')
+  means = {str(k): float(np.mean(v)) for k, v in results.items()}
+  if not np.isfinite(val_loss) or not all(0 < v < 1 for v in means.values()):
+    raise AssertionError(f'(a) validation: loss {val_loss}, metrics {means}')
+  say(f'  (a) validation of {MSD_BIG_HELD_OUT:,} held-out users: loss '
+      f'{val_loss:.4f} in {val_s:.3f} s ({len(loader)} union batches); '
+      f'metrics chunked by {LARGE_CHUNK:,}: '
+      + ', '.join(f'{k} {v:.4f}' for k, v in means.items())
+      + '; evaluation s in turns (the same results): '
+      + ', '.join(f'{k} ' + ' / '.join(f'{t:.3f}' for t in v)
+                  for k, v in eval_s.items()))
+  _, busy_ms, _, _ = profile_steps(trainer, train_ds, MSD_BIG_TRAIN,
+                                   steps=10)
+  step_ms = 1e3 / rate
+  say(f'  (a) the epoch\'s step {step_ms:.3f} ms without the profiler: the '
+      f'device idle ~{100 * (1 - busy_ms / step_ms):.1f}% of it')
+  return trainer, {'rate': rate, 'widths': widths, 'val_s': val_s,
+                   'eval_s': {k: min(v) for k, v in eval_s.items()},
+                   'metrics': means, 'busy_ms': busy_ms,
+                   'per_step': {k: v / steps for k, v in counts.items()}}
+
+
+def _recommend_timed(trainer, users, chunk, reps=3):
+  """``recommend(users, 100)`` with ``eval_item_chunk=chunk``: the ids,
+  the median ms of ``reps`` calls (host clock; the ids come back to the
+  host) and the peak device memory above what was allocated before."""
+  import torch
+  trainer.eval_item_chunk = chunk
+  trainer.recommend(users, 100)
+  torch.cuda.synchronize()
+  base = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  times = []
+  for _ in range(reps):
+    t0 = time.time()
+    recs = trainer.recommend(users, 100)
+    times.append((time.time() - t0) * 1e3)
+  peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+  return recs, statistics.median(times), peak
+
+
+def _reference_scores(trainer, users):
+  """float32 scores ``[B, W]`` of the chunked path's arithmetic over the
+  whole catalog at once, seen items and pad columns at -inf."""
+  import torch
+  model = trainer.model
+  with torch.no_grad():
+    rows, cols, vals, ids = trainer._inference_coo(users)
+    h = model.encode_coo(rows, cols, vals, ids.shape[0], input_users=ids)
+    s = model.decode_slice(h, 0, model.num_items_padded).float()
+    s[rows, cols] = float('-inf')
+    s[:, model.num_items:] = float('-inf')
+  return s
+
+
+def _metric_means(recs, target, metrics):
+  relevant = [target.indices[target.indptr[i]:target.indptr[i + 1]]
+              for i in range(target.shape[0])]
+  keep = [i for i, y in enumerate(relevant) if len(y)]
+  rect = np.asarray([recs[i] for i in keep])
+  return {str(m): float(np.mean(m.evaluate_batch(
+      rect, [relevant[i] for i in keep]))) for m in metrics}
+
+
+def phase_msd_big_scoring(trainer, val_in, val_tg):
+  """(b) on (a)'s model, 500 held-out users: chunked (LARGE_CHUNK)
+  against monolithic recommend -- ms, peak memory, ids and metrics; every
+  eval_topk mode the same ids; ops/topk.top_k and torch.topk alone at
+  [500, 1,000,192], k=100."""
+  import torch
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.ops.topk import MODES, top_k
+  users, target = RecommendationDataset(val_in, val_tg)[np.arange(500)]
+  chunked, chunked_ms, chunked_gib = _recommend_timed(trainer, users,
+                                                      LARGE_CHUNK)
+  mono, mono_ms, mono_gib = _recommend_timed(trainer, users, 0)
+  for name, recs in (('chunked', chunked), ('monolithic', mono)):
+    check_recommendations([np.asarray(r) for r in recs],
+                          users.interactions_matrix, 100, MSD_BIG_ITEMS)
+  s = _reference_scores(trainer, users)
+  scale = float(s[torch.isfinite(s)].abs().max())
+  tol, tol32 = SCORE_TOL * scale, SCORE_TOL_F32 * scale
+  ref_v, ref_i = top_k(s, 101)
+  ref_v, ref_i, ref = ref_v[:, :100], ref_i[:, :100], ref_v.cpu().numpy()
+  got_c = s.gather(1, torch.tensor(chunked, device=s.device))
+  worst_c = float((got_c - ref_v).abs().max())
+  if not worst_c <= tol32:
+    raise AssertionError(f'(b) a chunked score is {worst_c} from the same '
+                         f'rank of the reference top-100 (tolerance {tol32})')
+  decided = ref[:, 99] - ref[:, 100] > tol32
+  ref_ids = ref_i.cpu().numpy()
+  differ = [u for u in np.flatnonzero(decided)
+            if set(chunked[u]) != set(ref_ids[u])]
+  if differ:
+    raise AssertionError(f'(b) chunked and reference ids differ for users '
+                         f'{differ[:10]} whose 100th and 101st scores are '
+                         f'more than {tol32} apart')
+  same_ids = int(sum(np.array_equal(a, b) for a, b in zip(chunked, ref_ids)))
+  got_m = torch.sort(s.gather(1, torch.tensor(mono, device=s.device)), dim=1,
+                     descending=True).values
+  worst_m = float((got_m - ref_v).abs().max())
+  if not worst_m <= tol:
+    raise AssertionError(f'(b) a monolithic score is {worst_m} from the '
+                         f'reference top-100 (tolerance {tol})')
+  metrics = _msd_big_metrics()
+  m_r = _metric_means(ref_ids.tolist(), target.interactions_matrix, metrics)
+  m_c = _metric_means(chunked, target.interactions_matrix, metrics)
+  m_m = _metric_means(mono, target.interactions_matrix, metrics)
+  gap_c = max(abs(m_c[k] - m_r[k]) for k in m_c)
+  gap_m = max(abs(m_m[k] - m_c[k]) for k in m_c)
+  if not (gap_c <= CHUNKED_METRIC_ATOL and gap_m <= METRIC_ATOL):
+    raise AssertionError(f'(b) metrics chunked {m_c}, reference {m_r}, '
+                         f'monolithic {m_m}')
+  say(f'  (b) recommend k=100 for 500 users at {MSD_BIG_ITEMS:,} items: '
+      f'chunked ({LARGE_CHUNK:,}) {chunked_ms:.2f} ms, peak {chunked_gib:.3f}'
+      f' GiB; monolithic {mono_ms:.2f} ms, peak {mono_gib:.3f} GiB')
+  say(f'  (b) chunked against top_k of the float32 reference: scores within '
+      f'{worst_c:.3g} rank by rank (tolerance {tol32:.3g}); '
+      f'{int(decided.sum())} users with a decided 100th score, all with the '
+      f'same id set; {same_ids} of 500 id lists identical in order; metrics '
+      f'within {gap_c:.3g} (tolerance {CHUNKED_METRIC_ATOL}); monolithic '
+      f'scores within {worst_m:.3g} of the reference top-100 (tolerance '
+      f'{tol:.3g}), metrics within {gap_m:.3g} of chunked (tolerance '
+      f'{METRIC_ATOL}); metrics chunked '
+      + ', '.join(f'{k} {v:.4f}' for k, v in m_c.items())
+      + ', monolithic ' + ', '.join(f'{k} {v:.4f}' for k, v in m_m.items()))
+  for mode in MODES:
+    trainer.eval_topk = mode
+    for chunk, want in ((LARGE_CHUNK, chunked), (0, mono)):
+      trainer.eval_item_chunk = chunk
+      if trainer.recommend(users, 100) != want:
+        raise AssertionError(f"(b) eval_topk={mode!r} changed the ids "
+                             f"(chunk {chunk})")
+  trainer.eval_topk = 'exact'
+  say(f'  (b) eval_topk {list(MODES)}: the same ids, chunked and monolithic')
+  v, i = top_k(s, 100)
+  tv = torch.topk(s, 100).values
+  if not torch.equal(v, tv) or not torch.equal(s.gather(1, i), v):
+    raise AssertionError('(b) ops/topk.top_k values differ from torch.topk')
+  ours = median_ms(lambda: top_k(s, 100), reps=10)
+  theirs = median_ms(lambda: torch.topk(s, 100), reps=10)
+  nbytes = s.numel() * 4 + 500 * 100 * 12
+  say(f'  (b) top-k at {list(s.shape)}, k=100, float32 (CUDA events): '
+      f'ops/topk.top_k {ours:.3f} ms, torch.topk {theirs:.3f} ms (bytes '
+      f'bound {nbytes / PEAK_BYTES * 1e3:.3f} ms)')
+  del s
+  return {'chunked_ms': chunked_ms, 'mono_ms': mono_ms,
+          'chunked_gib': chunked_gib, 'mono_gib': mono_gib,
+          'top_k_ms': ours, 'torch_topk_ms': theirs}
+
+
+def phase_stress_scoring(device='cuda'):
+  """(c) scripts/stress_scale.py's default shape, scoring only: a
+  DynamicAutoencoder[128] over 10,000,000 items, its tables drawn on the
+  card from a seeded generator; Recoder resolves the chunk itself."""
+  import torch
+  from recoder_tpu_torch.data import UsersInteractions, synthetic
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  from recoder_tpu_torch.models.base import pad_dim
+  model = DynamicAutoencoder([STRESS_DIM], 'tanh')
+  trainer = Recoder(model, num_items=STRESS_ITEMS, device=device)
+  model.num_items, model.num_items_padded = STRESS_ITEMS, pad_dim(STRESS_ITEMS)
+  gen = torch.Generator(device=device).manual_seed(0)
+  limit = float(np.sqrt(6.0 / (STRESS_DIM + STRESS_ITEMS)))
+
+  def table(*shape, scale=limit):
+    return torch.empty(shape, device=device).uniform_(-scale, scale,
+                                                      generator=gen)
+  W = model.num_items_padded
+  model.register_params({
+      'en_embedding': table(W, STRESS_DIM),
+      'en_bias': torch.zeros(STRESS_DIM, device=device),
+      'de_embedding': table(W, STRESS_DIM), 'de_bias': table(W, scale=0.1)})
+  # (the tables were drawn on the card: the trainer must not draw them on
+  # the host again)
+  trainer._model_initialized = True
+  chunk = trainer._resolve_eval_chunk()
+  if chunk != Recoder.AUTO_CHUNK_WIDTH:
+    raise AssertionError(f'(c) resolved chunk {chunk}')
+  m = synthetic.synthesize(500, STRESS_ITEMS, 50, seed=1)
+  users = UsersInteractions(np.arange(500), m)
+  recs, ms, gib = _recommend_timed(trainer, users, None)
+  check_recommendations([np.asarray(r) for r in recs], m, 100, STRESS_ITEMS)
+  tables_gib = 2 * W * STRESS_DIM * 4 / 2 ** 30
+  say(f'  (c) {STRESS_ITEMS:,} items x d={STRESS_DIM} ({tables_gib:.2f} GiB '
+      f'of tables drawn on the card): chunk {chunk:,} resolved, '
+      f'{-(-STRESS_ITEMS // chunk)} chunks; recommend k=100 for 500 users '
+      f'{ms:.2f} ms, peak {gib:.3f} GiB over the tables; every id < '
+      f'{STRESS_ITEMS:,}, unseen, distinct')
+  return {'ms': ms, 'gib': gib}
+
+
+def phase_full_catalog_sparse(msd, device='cuda'):
+  """(d) bench.py's MSD --sparse shape with negative sampling off: the
+  full-catalog sparse step (every table row a leaf and updated, no row
+  scatter) 20 steps against the plain path; then the validation loss of
+  full-catalog batches chunked (8,192) against dense."""
+  import torch
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.data.loader import RecommendationDataLoader
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+
+  def make():
+    return Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                      sparse=True),
+                   optimizer_type='adam', loss='logloss', device=device)
+
+  kw = dict(MSD_TRAIN, negative_sampling=False)
+  trainer = make()
+  per_step = family_paths(RecommendationDataset(msd), trainer, make(), kw,
+                          {'packed_rows': 1}, PATHS_RTOL,
+                          '(d) MSD full-catalog sparse step',
+                          tables=('en_embedding', 'de_embedding'))
+  rate = 20 / trainer.last_epoch_seconds
+  _, busy_ms, _, _ = profile_steps(trainer, RecommendationDataset(msd), kw,
+                                   steps=10)
+  say(f'  (d) {1e3 / rate:.3f} ms a step over the 20 eager steps: the '
+      f'device idle ~{100 * (1 - busy_ms * rate / 1e3):.1f}% of it')
+  loader = RecommendationDataLoader(RecommendationDataset(msd[:5000]),
+                                    batch_size=500)
+  out = {}
+  for chunk in (0, 8192):
+    trainer.eval_item_chunk = chunk
+    t0 = time.time()
+    out[chunk] = trainer._validate(loader)
+    out[f'{chunk} s'] = time.time() - t0
+  rel = abs(out[8192] - out[0]) / abs(out[0])
+  if not rel <= 1e-4:
+    raise AssertionError(f'(d) chunked validation loss {out[8192]} vs dense '
+                         f'{out[0]}')
+  say(f'  (d) {rate:.2f} user-batches/s over the 20 eager steps; '
+      f'validation of 5,000 users (full catalog): dense {out[0]:.6f} in '
+      f'{out["0 s"]:.3f} s, chunked (8,192) {out[8192]:.6f} in '
+      f'{out["8192 s"]:.3f} s, rel {rel:.3g}')
+  return {'msd_full_catalog_sparse': per_step}, rate
+
+
+def phase_large_catalog(card):
+  """Phase 27 (a)-(c); (d) runs beside phase 26 (d) while the MSD CSR
+  exists, (e) inside phase 6."""
+  train_m, val_in, val_tg = msd_big_data()
+  trainer, a = phase_msd_big(train_m, val_in, val_tg)
+  del train_m
+  b = phase_msd_big_scoring(trainer, val_in, val_tg)
+  del trainer
+  c = phase_stress_scoring()
+  say(f'  card: {card}')
+  return a, b, c
+
+
 def run(name, fn, *args, **kwargs):
   say(f'== phase {name}')
   t0 = time.time()
@@ -3246,7 +3709,7 @@ def main():
                          f'{launches}')
   train_m, val_m = load_fixture()
   run('5 paths', phase_paths, train_m)
-  run('6 quality', phase_quality, train_m, val_m)
+  run('6 quality', phase_quality, train_m, val_m, chunked=1024)
   spd_err, spd_times = run('7 spd kernel', phase_spd)
   (launches['spd_solve'], ials_launches_per_sweep, ials_fit_s,
    ials_sweeps) = run('8 ials slice', phase_ials_slice, matrix)
@@ -3269,6 +3732,9 @@ def main():
   # (phase 26's MSD cell runs here, while the MSD-shaped CSR is built)
   msd_neg_per_step, msd_neg_rate, msd_neg_widths = run(
       '26 negatives (d): MSD sparse', phase_negatives_msd, msd)
+  full_catalog_per_step, full_catalog_rate = run(
+      '27 large catalog (d): the full-catalog sparse step',
+      phase_full_catalog_sparse, msd)
   (bf16_times, bf16_errs, adam_err, adam_times,
    adam_bound) = run('14 bf16 kernels', phase_bf16_kernels)
   matrix = synthetic.synthesize_ml20m()
@@ -3314,6 +3780,8 @@ def main():
    (neg_routes, neg_widths), neg_quality) = run(
        '26 negatives', phase_negatives, matrix, train_m, val_m)
   del matrix
+  big, big_scoring, stress = run('27 large catalog (a)-(c)',
+                                 phase_large_catalog, card)
   # launches a step of each kernel on the MF / Mult-VAE paths: eager
   # epochs and compared steps by the counters, captured replays by the
   # profiles' names
@@ -3415,6 +3883,13 @@ def main():
           0.0, packed_times['kernel'], packed_times['plain'], None,
           packed_bound, launches['packed_rows'] / msd_steps),
   }
+  # launches a step on the large-catalog paths (phase 27): (a) msd-big's
+  # sparse step, (d) the full-catalog sparse step
+  large = {}
+  for path, counts in {'msd_big_sparse': big['per_step'],
+                       **full_catalog_per_step}.items():
+    for name in SOURCES:
+      large.setdefault(name, {})[path] = counts.get(name, 0.0)
   kernels = [{'name': name, 'route': 'cuda', 'source': SOURCES[name],
               'replaces': REPLACES[name], 'launches': launches[name],
               'launches_per_step': per_step, 'max_abs_err': err, 'ms': ms,
@@ -3434,9 +3909,17 @@ def main():
               'family_launches_per_step': family.get(name),
               # launches a step with megas of 2,000 and 1,000 random
               # negatives (phase 26)
-              'negatives_launches_per_step': negatives.get(name)}
+              'negatives_launches_per_step': negatives.get(name),
+              # launches a step on the large-catalog paths (phase 27)
+              'large_catalog_launches_per_step': large[name]}
              for name, (err, ms, plain_ms, library_ms, (bound_ms, by),
                         per_step) in measured.items()]
+  # the packed kernel's mask-only launch (phase 17), beside its bound
+  for k in kernels:
+    if k['name'] == 'packed_rows':
+      k.update(mask_only_ms=packed_times['mask kernel'],
+               mask_only_plain_ms=packed_times['mask plain'],
+               mask_only_bound_ms=packed_times['mask bound'])
   idle = [k['name'] for k in kernels if not k['launches']]
   if idle:
     raise AssertionError(f'kernels no path launched: {idle}')
@@ -3514,7 +3997,20 @@ def main():
       f'{neg_widths.mean():.1f}), MSD sparse {msd_neg_rate:.2f} (widths mean '
       f'{msd_neg_widths.mean():.1f}), fixture '
       + ', '.join(f'{k} {v:.4f}' for k, v in neg_quality.items())
-      + f'; card {card}')
+      + f'; msd-big sparse (1,000,000 items) {MSD_BIG_RATE} '
+      f'{big["rate"]:.2f} ({big["busy_ms"]:.3f} ms of device time a '
+      f'profiled step), union widths mean {big["widths"].mean():.1f}, '
+      f'validation {big["val_s"]:.3f} s + metrics pipelined '
+      f'{big["eval_s"]["pipelined"]:.3f} s (synchronous '
+      f'{big["eval_s"]["synchronous"]:.3f} s; '
+      + ', '.join(f'{k} {v:.4f}' for k, v in big['metrics'].items())
+      + f'); recommend 500 users chunked {big_scoring["chunked_ms"]:.2f} ms '
+      f'({big_scoring["chunked_gib"]:.3f} GiB) vs monolithic '
+      f'{big_scoring["mono_ms"]:.2f} ms ({big_scoring["mono_gib"]:.3f} GiB); '
+      f'top-k at [500, 1,000,192] ops/topk {big_scoring["top_k_ms"]:.3f} ms, '
+      f'torch.topk {big_scoring["torch_topk_ms"]:.3f} ms; 10,000,000 items '
+      f'{stress["ms"]:.2f} ms ({stress["gib"]:.3f} GiB); full-catalog sparse '
+      f'MSD {full_catalog_rate:.2f}; card {card}')
   say(json.dumps({'kernels': kernels}))
   say(card)
   say(json.dumps({'ok': True, 'device': {

@@ -16,7 +16,9 @@ mode) and the validation loss inside ``train``, the trainer for any
 model written to the ``FactorizationModel`` contract (with the aux-loss
 hook and sparse tables through ``apply_gathered``), MatrixFactorization
 (through the fused decode-loss kernels), Mult-VAE, EASE, the Mult-VAE
-protocol, the serving path they need, and iALS:
+protocol, the serving path they need (chunked scoring of large catalogs,
+the asynchronous evaluator, the top-k in ``lax.top_k``'s order), and
+iALS:
 
   recoder_tpu/utils.py                  -> recoder_tpu_torch.utils
   recoder_tpu/data/dataset.py           -> recoder_tpu_torch.data.dataset
@@ -46,6 +48,9 @@ protocol, the serving path they need, and iALS:
   recoder_tpu/protocols.py              -> recoder_tpu_torch.protocols
   recoder_tpu/ops/losses.py             -> recoder_tpu_torch.ops.losses
   recoder_tpu/ops/gather_matmul.py      -> recoder_tpu_torch.ops.gather_matmul
+  recoder_tpu/ops/topk.py               -> recoder_tpu_torch.ops.topk
+      (by function: lax.top_k's result and order; the count-certified
+      TPU fast path is not ported)
   recoder_tpu/experiments/pallas_loss.py
       -> recoder_tpu_torch.ops.fused_decode_loss
          + recoder_tpu_torch/kernels/fused_decode_loss.cu
@@ -60,7 +65,12 @@ protocol, the serving path they need, and iALS:
       staging; _get_val_loss_fn's dense dispatch and _validate ->
       Recoder._validate; the eval_freq hooks -> Recoder._validation_log)
       (_forward_loss's has_aux hook and input_users, _sparse_step_math's
-      apply_gathered route and its pad-user redirect)
+      apply_gathered route and its pad-user redirect, and its
+      full-catalog form: whole tables, update_rows(ids=None))
+      (_resolve_eval_chunk, _get_recommend_fn's chunked branch,
+      _get_val_loss_fn's dispatch and _chunked_val_loss ->
+      Recoder._chunked_top_k and Recoder._chunked_val_loss;
+      recommend_async)
   recoder_tpu/progress.py               -> recoder_tpu_torch.progress
   recoder_tpu/metrics.py                -> recoder_tpu_torch.metrics
   recoder_tpu/recommender.py            -> recoder_tpu_torch.recommender

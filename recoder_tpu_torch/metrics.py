@@ -3,10 +3,16 @@
 A copy of ``recoder_tpu/metrics.py``'s per-user metric functions, the
 ``Metric`` classes with their vectorized ``evaluate_batch``, and
 ``RecommenderEvaluator``. The evaluator iterates user batches of the
-dataset directly instead of going through the JAX package's loader.
+dataset directly instead of going through the JAX package's loader, and
+keeps a few batches of a recommender with ``recommend_async`` in flight
+on the device, as the JAX one does (without its worker thread: a
+dispatch on the card does not block the caller).
 """
 
+import collections
+
 import numpy as np
+import torch
 
 
 def average_precision(x, y, k, normalize=True):
@@ -163,6 +169,27 @@ class NDCG(Metric):
       return dcg_k / cum[y_len]
 
 
+def _start_fetch(result):
+  """Start bringing a ``recommend_async`` result -- a ragged list of id
+  arrays, or a tensor ``[B, k]`` -- to the host; returns the function
+  that waits for it and gives the lists of ids. A tensor on the card is
+  copied without blocking into pinned memory, behind the work that made
+  it, and the wait is for that copy alone (``Tensor.cpu()`` would wait
+  for every batch dispatched after it too)."""
+  if isinstance(result, (list, tuple)):
+    return lambda: [np.asarray(r).tolist() for r in result]
+  if not result.is_cuda:
+    return result.tolist
+  host = result.to('cpu', non_blocking=True)
+  copied = torch.cuda.Event()
+  copied.record()
+
+  def fetch():
+    copied.synchronize()
+    return host.tolist()
+  return fetch
+
+
 class RecommenderEvaluator:
   """Evaluates a recommender over a dataset with a set of metrics.
 
@@ -175,6 +202,9 @@ class RecommenderEvaluator:
     self.recommender = recommender
     self.metrics = metrics
 
+  #: batches dispatched and not yet scored, at most, on the pipeline
+  PENDING = 3
+
   def evaluate(self, eval_dataset, batch_size=1, num_users=None,
                num_workers=0):
     """Returns ``{metric: [per-user values]}``.
@@ -183,20 +213,38 @@ class RecommenderEvaluator:
     0/0 for them), as in the JAX package. ``num_workers`` is accepted
     for the JAX package's signature and ignored, as there: the metric
     math is vectorized per batch.
+
+    A recommender with ``recommend_async`` is pipelined as in the JAX
+    package: each batch is dispatched, and its result fetched and scored
+    ``PENDING`` batches later, in order, so the results are the
+    synchronous ones. ``recommend_async`` may return a device tensor
+    ``[B, k]`` or a ragged list of id arrays (the closed-form models').
     """
     del num_workers
+    dispatch = getattr(self.recommender, 'recommend_async', None)
+    depth = self.PENDING
+    if dispatch is None:
+      depth = 0
+      dispatch = self.recommender.recommend
     results = {metric: [] for metric in self.metrics}
     processed = 0
+    pending = collections.deque()
     for start in range(0, len(eval_dataset), batch_size):
       index = np.arange(start, min(start + batch_size, len(eval_dataset)))
       input, target = eval_dataset[index]
       tgt = target.interactions_matrix
       relevant = [tgt.indices[tgt.indptr[i]:tgt.indptr[i + 1]]
                   for i in range(len(target.users))]
-      self._score(self.recommender.recommend(input), relevant, results)
-      processed += len(index)
+      pending.append((_start_fetch(dispatch(input)), relevant))
+      if len(pending) > depth:
+        fetch, rel = pending.popleft()
+        self._score(fetch(), rel, results)
+      processed += len(relevant)
       if num_users is not None and processed >= num_users:
         break
+    while pending:
+      fetch, rel = pending.popleft()
+      self._score(fetch(), rel, results)
     return results
 
   def _score(self, recommendations, relevant, results):

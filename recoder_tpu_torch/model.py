@@ -21,7 +21,10 @@ three paths (``train(full_decode=...)``, the JAX rule):
     steps the other parameters, and row-sparse Adam (``optim.py``
     ``SparseRowAdam``) updates the touched rows of each table and its
     moments, written back in place through the row-scatter kernel
-    (JAX ``_sparse_step_math``).
+    (JAX ``_sparse_step_math``). Without negative sampling the sparse
+    step takes the full-decode batch: the whole tables are the leaves,
+    and row-sparse Adam updates every row in place (``ids=None``, no
+    row scatter), as the JAX step does with ``in_items`` None.
 
 For 'mse' and 'logistic' the decode and the loss are one fused CUDA
 kernel (``ops/fused_decode_loss.py``), over the whole table or the
@@ -31,8 +34,15 @@ other optimizers are ``torch.optim`` with the JAX package's rules
 (``optim.py``); MultiStepLR(gamma=0.1) keeps the reference's epoch-start
 quirk, and ``train`` resumes from ``current_epoch`` inclusive.
 ``recommend`` scores the full catalog, sets seen items and pad columns
-to -inf and takes ``torch.topk``. Checkpoints are npz files in the JAX
-package's format, sparse ones included.
+to -inf and takes the top-k in ``lax.top_k``'s order (``ops/topk.py``:
+values descending, ties by lowest index). With ``eval_item_chunk`` (or
+past ``AUTO_CHUNK_ITEMS`` items) it encodes the batch once from its COO
+interactions and scores the catalog one slice of ``chunk`` items at a
+time, merging a running top-k, in ``O(B x chunk)`` memory; the
+validation loss of a full-catalog batch streams the same slices.
+``recommend_async`` returns the device tensor of ids without waiting for
+the card, and the evaluator keeps a few batches in flight through it. Checkpoints are npz files in
+the JAX package's format, sparse ones included.
 
 bench.py's ML-20M default runs here too: a model with
 ``compute_dtype='bfloat16'`` densifies its batches in bf16, hands the
@@ -94,10 +104,10 @@ draws what the uninterrupted one drew).
 
 Not ported yet (the JAX signature's arguments for them raise
 NotImplementedError where set): bf16 parameters, bf16 moments of sparse
-tables, chunked validation and evaluation (``eval_item_chunk``), the
-approximate top-k modes (``eval_topk``), sparse tables without negative
-sampling, the orbax backend, meshes, ``recommend_async``, and the
-capture of the union, sparse, scatter and host-loader steps.
+tables, the orbax backend, meshes, and the capture of the union, sparse,
+scatter and host-loader steps. The JAX package's count-certified top-k
+(``eval_topk='exact'``) is a TPU workaround and is not ported: every
+``eval_topk`` mode is exact here.
 """
 
 import logging
@@ -122,6 +132,8 @@ from recoder_tpu_torch.ops import losses as losses_lib
 from recoder_tpu_torch.ops.fused_decode_loss import (fused_decode_loss,
                                                      supported)
 from recoder_tpu_torch.ops.gather_matmul import as_dtype
+from recoder_tpu_torch.ops.topk import MODES as topk_modes
+from recoder_tpu_torch.ops.topk import merge_top_k, top_k
 from recoder_tpu_torch.optim import (KINDS, Bf16Adam, SparseRowAdam,
                                      fold_dual_union, make_optimizer,
                                      resolve_state_dtype, set_lr)
@@ -215,13 +227,20 @@ class Recoder:
     user_based / item_based (bool): consistency checks between the model
       and datasets.
     seed (int): seed of the init, permutation and dropout generators.
-    mesh, eval_item_chunk: the JAX package's device mesh and chunked
-      evaluation; not ported yet (ROADMAP Queue 1 items 9 and 5): a
-      value other than None raises NotImplementedError.
+    mesh: the JAX package's device mesh; not ported yet (ROADMAP Queue 1
+      item 9): a value other than None raises NotImplementedError.
+    eval_item_chunk (int, optional): score the catalog in contiguous
+      slices of this many items in ``recommend`` / evaluation (and the
+      validation loss of full-catalog batches) instead of one ``[B,
+      num_items]`` matrix, carrying a running top-k: memory ``O(B x
+      chunk)``. Chunks of ``AUTO_CHUNK_WIDTH`` are taken by default
+      past ``AUTO_CHUNK_ITEMS`` padded items; 0 forces one matrix.
     eval_compute_dtype (str, optional): the products' dtype of
       ``predict`` / ``recommend`` / evaluation alone (None: the model's).
-    eval_topk (str): 'exact' (``torch.topk``); the JAX package's other
-      modes are not ported (Queue 1 item 5) and raise.
+    eval_topk (str): the JAX package's top-k mode, 'exact' | 'sort' |
+      'approx'. Every mode is the exact ``lax.top_k`` here
+      (``ops/topk.py``): the JAX 'exact' path is a TPU workaround, and
+      'approx' is exact on every backend but the TPU.
     opt_state_dtype (str, optional): storage dtype of the optimizer's
       moments; 'bfloat16' (adam only: the other kinds raise ValueError)
       stores them in bf16 with float32 math. None keeps float32 state
@@ -231,6 +250,12 @@ class Recoder:
       'cpu'.
   """
 
+  #: padded catalog width past which ``recommend`` and the validation
+  #: loss score in chunks of ``AUTO_CHUNK_WIDTH`` items by default (the
+  #: JAX package's threshold)
+  AUTO_CHUNK_ITEMS = 2 ** 21
+  AUTO_CHUNK_WIDTH = 2 ** 18
+
   def __init__(self, model: FactorizationModel, num_items=None,
                num_users=None, optimizer_type='sgd', loss='mse',
                loss_params=None, use_cuda=False, user_based=True,
@@ -239,15 +264,16 @@ class Recoder:
                opt_state_dtype=None, *, device=device_lib.DEFAULT):
     del use_cuda
     _not_ported(mesh is not None, 'mesh', 'multi-GPU, Queue 1 item 9')
-    _not_ported(eval_item_chunk is not None, 'eval_item_chunk',
-                'chunked evaluation, Queue 1 item 5')
-    _not_ported(eval_topk != 'exact', f'eval_topk={eval_topk!r}',
-                'top-k modes, Queue 1 item 5')
     if optimizer_type not in KINDS:
       raise ValueError(f'Unknown optimizer kind {optimizer_type}')
     resolve_state_dtype(optimizer_type, opt_state_dtype)
     self.opt_state_dtype = opt_state_dtype
+    self.eval_item_chunk = eval_item_chunk
     self.eval_compute_dtype = as_dtype(eval_compute_dtype)
+    if eval_topk not in topk_modes:
+      raise ValueError(f"unknown top-k mode {eval_topk!r}; "
+                       "choose 'exact' | 'sort' | 'approx'")
+    self.eval_topk = eval_topk
     self.model = model
     self.num_items = num_items
     self.num_users = num_users
@@ -576,19 +602,23 @@ class Recoder:
     self.optimizer.step()
     return loss.detach()
 
-  def _sparse_step_math(self, batch):
-    """One sparse-path update of a union batch (the JAX
-    ``_sparse_step_math``): gradients w.r.t. the gathered table rows,
-    the dense optimizer on every other parameter, then row-sparse Adam
-    writes the touched rows of each table and its moments in place.
-    Returns the step's loss (on the device).
+  def _sparse_step_math(self, batch, negative_sampling=True):
+    """One sparse-path update (the JAX ``_sparse_step_math``): gradients
+    w.r.t. the gathered table rows, the dense optimizer on every other
+    parameter, then row-sparse Adam writes the touched rows of each
+    table and its moments in place. Returns the step's loss (on the
+    device).
 
-    The user rows of a user-indexed table are the batch's users, its pad
-    slots pointing at the sentinel row ``num_users``, whose moments then
-    stay zero (the JAX redirect): a pad slot must not decay row 0's."""
+    A union batch gathers its union's rows. A full-decode batch (no
+    ``'items'``: the full-catalog step, without negative sampling) takes
+    each whole item table as its leaf, and row-sparse Adam then updates
+    every row (``ids=None``: no row scatter). The user rows of a
+    user-indexed table are the batch's users, its pad slots pointing at
+    the sentinel row ``num_users``, whose moments then stay zero (the
+    JAX redirect): a pad slot must not decay row 0's."""
     model = self.model
     self._dropout_gen.manual_seed((self.seed << 32) + self._global_step)
-    items = batch['items']
+    items = batch.get('items')
     users = batch['users'].to(self.device)
     if getattr(model, 'num_users', None):
       valid = torch.arange(users.shape[0], device=self.device) \
@@ -599,12 +629,16 @@ class Recoder:
         target_items=batch.get('tg_items', items))
     tables = model.params()
     with torch.no_grad():
-      gathered = {name: tables[path].index_select(0, ids)
+      # (a whole table's leaf shares its storage: the backward pass is
+      # over before the update writes it)
+      gathered = {name: tables[path].detach() if ids is None
+                  else tables[path].index_select(0, ids)
                   for name, path, ids in entries}
     for rows in gathered.values():
       rows.requires_grad_(True)
     self.optimizer.zero_grad(set_to_none=True)
     loss = self._forward_loss(batch, training=True,
+                              negative_sampling=negative_sampling,
                               generator=self._dropout_gen,
                               gathered=gathered, step=self._step_tensor())
     loss.backward()
@@ -675,9 +709,10 @@ class Recoder:
     over the mega's item union (``DeviceDataSource.build_union_batch``);
     'auto' takes full decode when the padded catalog is at most 4x the
     union width (the JAX rule; the width counts the random negatives). A
-    sparse model always takes the union path, and needs negative
-    sampling. Without negative sampling a dense model decodes the full
-    catalog. ``slab_cache`` picks the full-decode slab's tier
+    sparse model takes the union path with negative sampling. Without
+    negative sampling every model decodes the full catalog (a sparse
+    one eagerly, every table row a leaf). ``slab_cache`` picks the
+    full-decode slab's tier
     (``DeviceDataSource.maybe_cache_slabs``): 'auto' takes the dense
     slab within half the device's free memory, else the bit-packed
     slab for binary data; True forces the dense tier, 'packed' the 1-bit
@@ -756,10 +791,6 @@ class Recoder:
 
     self._init_training(train_dataset, lr, weight_decay)
     sparse = bool(self.model.sparse_param_paths())
-    if sparse and not negative_sampling:
-      raise NotImplementedError('sparse tables train with negative '
-                                'sampling only (the full-catalog sparse '
-                                'step is not ported yet)')
     target = train_dataset.target_interactions_matrix
     loader_kw = dict(batch_size=batch_size,
                      negative_sampling=negative_sampling,
@@ -818,10 +849,10 @@ class Recoder:
     if profile_dir is not None:
       spc = 1
     scatter = fd and source.d_slab is None
-    captured = (fd and not scatter and spc >= 2
+    captured = (fd and not scatter and not sparse and spc >= 2
                 and self.device.type == 'cuda'
                 and self.optimizer_type == 'adam')
-    if spc >= 2 and (scatter or not fd):
+    if spc >= 2 and (scatter or sparse or not fd):
       log.info('fused_steps_per_call=%d: the %s step runs eagerly, one '
                'dispatch a step (its capture is not ported)', spc,
                'host-loader' if loader is not None
@@ -896,7 +927,14 @@ class Recoder:
         reporter = self._progress_reporter
 
       t0 = time.time()
-      if fd:
+      if fd and sparse:
+        # the full-catalog sparse step: full-decode batches, eagerly
+        losses = self._union_epoch(
+            lambda: source.build_fd_batch(self._epoch_perm,
+                                          self._iters_consumed),
+            n_steps, sparse, profile_dir, profile_steps, reporter,
+            negative_sampling)
+      elif fd:
         losses = self._fd_epoch(source, n_steps, num_batches, spc, captured,
                                 negative_sampling, profile_dir,
                                 profile_steps, reporter)
@@ -946,16 +984,85 @@ class Recoder:
     the forward without noise or dropout (``training=False``; the
     dropout generator is not touched), under ``torch.no_grad()``, so the
     fused kernel writes no E0. The losses gather in one device buffer,
-    read once."""
+    read once. A full-catalog batch (no item union on either side) is
+    scored in chunks when an eval chunk applies
+    (:meth:`_resolve_eval_chunk`) and the loss is one of the named ones
+    (the JAX ``_get_val_loss_fn`` dispatch): a custom ``Loss`` stays on
+    the dense path, its meaning over part of the item axis unknown."""
+    chunk = self._resolve_eval_chunk()
+    if not isinstance(self.loss, str):
+      chunk = None
     losses = torch.zeros(len(val_dataloader), device=self.device)
     count = 0
     with torch.no_grad():
       for batch in self._device_batch_iter(val_dataloader):
-        losses[count] = self._forward_loss(batch, training=False)
+        full_catalog = (batch.get('items') is None
+                        and batch.get('tg_items') is None)
+        if chunk is not None and full_catalog:
+          losses[count] = self._chunked_val_loss(batch, chunk)
+        else:
+          losses[count] = self._forward_loss(batch, training=False)
         count += 1
     if not count:
       return float('nan')
     return float(losses[:count].mean())
+
+  def _chunked_val_loss(self, batch, chunk):
+    """The validation loss of a full-catalog COO batch in ``O(B x
+    chunk)`` memory (the JAX ``_chunked_val_loss``): the batch is
+    encoded once from its COO (``encode_coo``, the model's compute
+    dtype) and ``decode_slice`` streams the catalog's chunks, summing
+    the same masked loss as the dense path. 'mse' and 'logistic' take
+    one pass; 'logloss' two: a streaming log-sum-exp over the logical
+    catalog, then the NLL. The target is the batch's ``tg_*`` COO when
+    it has one, else its input."""
+    model = self.model
+    users = batch['users']
+    B = users.shape[0]
+    side = 'tg_' if 'tg_rows' in batch else ''
+    h = model.encode_coo(batch['rows'], batch['cols'], batch['vals'], B,
+                         input_users=users)
+    row_mask = (torch.arange(B, device=self.device)
+                < batch['num_users']).float()[:, None]
+    chunks = self._chunks(chunk)
+
+    def target(start):
+      return self._chunk_dense(batch[side + 'rows'], batch[side + 'cols'],
+                               batch[side + 'vals'], B, start, chunk)
+
+    def scores(i, start):
+      out = model.decode_slice(h, start, chunk).float()
+      return out, self._chunk_valid(i, start, chunk)
+
+    total = torch.zeros((), device=self.device)
+    if self.loss == 'logloss':
+      m = torch.full((B, 1), losses_lib._NEG_INF, device=self.device)
+      z = torch.zeros((B, 1), device=self.device)
+      for i, start in chunks:
+        out, valid = scores(i, start)
+        logits = torch.where(valid, out, losses_lib._NEG_INF)
+        new_m = torch.maximum(m, logits.amax(1, keepdim=True))
+        z = (z * torch.exp(m - new_m)
+             + torch.exp(logits - new_m).sum(1, keepdim=True))
+        m = new_m
+      log_denom = m + torch.log(z)
+      for i, start in chunks:
+        out, valid = scores(i, start)
+        logits = torch.where(valid, out, losses_lib._NEG_INF)
+        loss = -target(start) * (logits - log_denom)
+        total = total + torch.sum(loss * row_mask * valid)
+    else:
+      confidence = getattr(self.loss_module, 'confidence', 0.0)
+      for i, start in chunks:
+        out, valid = scores(i, start)
+        tgt = target(start)
+        if self.loss == 'mse':
+          loss = (1.0 + confidence * (tgt > 0).float()) * (out - tgt) ** 2
+        else:  # 'logistic'
+          loss = (torch.clamp(out, min=0.0) - out * tgt
+                  + torch.log1p(torch.exp(-torch.abs(out))))
+        total = total + torch.sum(loss * row_mask * valid)
+    return total / batch['num_users']
 
   # -- host-loader batches: staged on a background thread --------------------
 
@@ -1248,9 +1355,10 @@ class Recoder:
   # -- union and sparse epochs: one eager dispatch a step -------------------
 
   def _union_epoch(self, next_batch, n_steps, sparse, profile_dir,
-                   profile_steps, reporter):
-    """Up to ``n_steps`` eager steps on the COO batches ``next_batch()``
-    gives (None: the iterator ran out); returns their losses."""
+                   profile_steps, reporter, negative_sampling=True):
+    """Up to ``n_steps`` eager steps on the batches ``next_batch()``
+    gives (None: the iterator ran out): COO batches, or the full-decode
+    batches of the full-catalog sparse step; returns their losses."""
     losses = []
     for _ in range(n_steps):
       self._maybe_profile(profile_dir, profile_steps)
@@ -1259,7 +1367,7 @@ class Recoder:
         break
       self._iters_consumed += 1
       if sparse:
-        loss = self._sparse_step_math(batch)
+        loss = self._sparse_step_math(batch, negative_sampling)
       else:
         loss = self._dense_step_math(batch)
       self._global_step += 1
@@ -1360,30 +1468,39 @@ class Recoder:
   # inference / evaluation
   # ------------------------------------------------------------------
 
-  def _densify(self, users_interactions):
-    """Dense ``[B, num_items_padded]`` input on the device, in the
-    model's compute dtype (float32 by default), as the JAX ``_densify``."""
+  def _inference_coo(self, users_interactions):
+    """A batch's interactions on the device: ``(rows, cols, vals,
+    users)``, the COO in CSR order (float32 values) and the user ids. On
+    the card they go in one non-blocking copy on the current stream
+    (:meth:`_to_device`), so that the caller is not held until the work
+    queued before it is done."""
     m = users_interactions.interactions_matrix.tocsr()
     B = m.shape[0]
     if B == 0:
       raise ValueError('cannot score an empty user batch')
+    dev = self.device
+    staged = {
+        'rows': np.repeat(np.arange(B, dtype=np.int64), np.diff(m.indptr)),
+        'cols': m.indices.astype(np.int64),
+        'vals': m.data.astype(np.float32),
+        'users': np.asarray(users_interactions.users, dtype=np.int64)}
+    stream = torch.cuda.current_stream(dev) if dev.type == 'cuda' else None
+    batch, _ = self._to_device(staged, dev, stream)
+    return batch['rows'], batch['cols'], batch['vals'], batch['users']
+
+  def _densify(self, rows, cols, vals, B):
+    """Dense ``[B, num_items_padded]`` input of a COO batch, in the
+    model's compute dtype (float32 by default), as the JAX ``_densify``."""
     dtype = getattr(self.model, 'compute_dtype', None) or torch.float32
-    rows = np.repeat(np.arange(B, dtype=np.int64), np.diff(m.indptr))
     dense = torch.zeros((B, self.model.num_items_padded), device=self.device,
                         dtype=dtype)
-    dense.index_put_(
-        (torch.from_numpy(rows).to(self.device),
-         torch.from_numpy(m.indices.astype(np.int64)).to(self.device)),
-        torch.from_numpy(m.data.astype(np.float32)).to(self.device, dtype),
-        accumulate=True)
+    dense.index_put_((rows, cols), vals.to(dtype), accumulate=True)
     return dense
 
-  def _score(self, dense, users_interactions):
+  def _score(self, dense, users):
     """Full-catalog scores of a dense input, in ``eval_compute_dtype`` or
     else the model's compute dtype; the batch's user ids go to the
     model as ``input_users``."""
-    users = torch.as_tensor(np.asarray(users_interactions.users),
-                            dtype=torch.int64).to(self.device)
     kw = ({} if self.eval_compute_dtype is None
           else {'compute_dtype': self.eval_compute_dtype})
     return self.model(dense, input_users=users, training=False, **kw)
@@ -1395,24 +1512,111 @@ class Recoder:
     if not self._model_initialized:
       raise RuntimeError('Model not initialized.')
     with torch.no_grad():
-      dense = self._densify(users_interactions)
-      out = self._score(dense, users_interactions)
+      rows, cols, vals, users = self._inference_coo(users_interactions)
+      dense = self._densify(rows, cols, vals, users.shape[0])
+      out = self._score(dense, users)
     out = out[:, :self.num_items].float().cpu().numpy()
     if return_input:
       return out, dense[:, :self.num_items].float().cpu().numpy()
     return out
 
-  def recommend(self, users_interactions, num_recommendations):
-    """Top-k item ids per user, excluding each user's seen items."""
+  def _resolve_eval_chunk(self):
+    """The chunk width of inference (None: one ``[B, W]`` matrix), as
+    the JAX package resolves it: ``eval_item_chunk``, or
+    ``AUTO_CHUNK_WIDTH`` past ``AUTO_CHUNK_ITEMS`` padded items when it
+    is None; 0 or None means one matrix; capped at the padded width."""
+    chunk = self.eval_item_chunk
+    W = self.model.num_items_padded
+    if chunk is None and W is not None and W > self.AUTO_CHUNK_ITEMS:
+      chunk = self.AUTO_CHUNK_WIDTH
+    if not chunk:
+      return None
+    return min(int(chunk), W)
+
+  def _chunks(self, chunk):
+    """The chunks of the logical catalog: ``(i, start)``, the last one
+    clamped to end at the padded width (the columns it shares with the
+    one before are masked off: :meth:`_chunk_valid`)."""
+    W = self.model.num_items_padded
+    return [(i, min(i * chunk, W - chunk))
+            for i in range(-(-self.model.num_items // chunk))]
+
+  def _chunk_valid(self, i, start, chunk):
+    """``[1, chunk]``: the chunk's columns inside the logical catalog and
+    not already covered by the chunk before it."""
+    ids = start + torch.arange(chunk, device=self.device)
+    return ((ids < self.model.num_items) & (ids >= i * chunk))[None, :]
+
+  @staticmethod
+  def _chunk_dense(rows, cols, vals, B, start, chunk):
+    """The COO's entries in the columns ``[start, start + chunk)`` as a
+    float32 ``[B, chunk]`` matrix (repeated entries summed, as the JAX
+    scatter-add). The other entries land in a spare column that is cut
+    off, so that no host read has to find the chunk's entries."""
+    local = cols - start
+    local = torch.where((local >= 0) & (local < chunk), local, chunk)
+    dense = torch.zeros((B, chunk + 1), device=rows.device)
+    dense.index_put_((rows, local), vals.float(), accumulate=True)
+    return dense[:, :chunk]
+
+  def _chunked_top_k(self, rows, cols, vals, users, k, chunk):
+    """Top-k ids ``[B, k]`` of chunked scoring (the JAX
+    ``_get_recommend_fn``'s chunked branch): the batch is encoded once
+    from its COO (``encode_coo``); each chunk's scores come from
+    ``decode_slice`` (float32, in ``eval_compute_dtype``), its seen items
+    and its invalid columns go to -inf, and its top-k merges into a
+    running one by (value desc, index asc) -- ``lax.top_k``'s order over
+    the whole catalog. The running top-k starts from sentinels of index
+    ``W`` that lose every tie, so a user with fewer than k unseen items
+    still gets k distinct real ids. Peak memory is ``O(B x chunk)``."""
+    model = self.model
+    B = users.shape[0]
+    W = model.num_items_padded
+    cd = self.eval_compute_dtype
+    h = model.encode_coo(rows, cols, vals, B, input_users=users,
+                         compute_dtype=cd)
+    best_vals = torch.full((B, k), float('-inf'), device=self.device)
+    best_idx = torch.full((B, k), W, dtype=torch.int64, device=self.device)
+    for i, start in self._chunks(chunk):
+      s = model.decode_slice(h, start, chunk, compute_dtype=cd).float()
+      seen = self._chunk_dense(rows, cols, vals, B, start, chunk) > 0
+      s = s.masked_fill(seen, float('-inf'))
+      s = s.masked_fill(~self._chunk_valid(i, start, chunk), float('-inf'))
+      c_vals, c_idx = top_k(s, k)
+      best_vals, best_idx = merge_top_k(best_vals, best_idx, c_vals,
+                                        c_idx + start, k)
+    return best_idx
+
+  def recommend_async(self, users_interactions, num_recommendations):
+    """Dispatch the top-k of a batch on the device and return its ids,
+    the device tensor ``[B, k]`` (int64; ``.cpu()`` fetches it), as the
+    JAX ``recommend_async`` returns its device array. Seen items and the
+    pad columns are excluded; the top-k is ``lax.top_k``'s, ties to the
+    lowest item id (``ops/topk.py``), through one ``[B, W]`` score
+    matrix or, with an eval chunk (:meth:`_resolve_eval_chunk`), chunk
+    by chunk (:meth:`_chunked_top_k`)."""
     if not self._model_initialized:
       raise RuntimeError('Model not initialized.')
+    k = int(num_recommendations)
+    chunk = self._resolve_eval_chunk()
+    if chunk is not None and chunk < k:
+      raise ValueError(f'eval_item_chunk ({chunk}) must be >= '
+                       f'num_recommendations ({k})')
     with torch.no_grad():
-      dense = self._densify(users_interactions)
-      out = self._score(dense, users_interactions)
+      rows, cols, vals, users = self._inference_coo(users_interactions)
+      if chunk is not None:
+        return self._chunked_top_k(rows, cols, vals, users, k, chunk)
+      dense = self._densify(rows, cols, vals, users.shape[0])
+      out = self._score(dense, users)
       out = out.masked_fill(dense > 0, float('-inf'))
       out[:, self.model.num_items:] = float('-inf')
-      _, top_idx = torch.topk(out, num_recommendations, dim=1)
-    return top_idx.cpu().numpy().tolist()
+      return top_k(out, k)[1]
+
+  def recommend(self, users_interactions, num_recommendations):
+    """Top-k item ids per user, excluding each user's seen items
+    (:meth:`recommend_async`, fetched as lists)."""
+    return self.recommend_async(users_interactions,
+                                num_recommendations).cpu().tolist()
 
   def _evaluate(self, eval_dataset, num_recommendations, metrics,
                 batch_size=1, num_users=None):

@@ -35,17 +35,20 @@ and accumulate in float32 (``ops/gather_matmul.py``), each hidden Linear
 multiplies in bf16 and upcasts its product before the float32 bias, and
 the scores leave the forward in bf16; the parameters stay float32.
 
-Not ported yet: the chunked inference pair ``encode_coo`` /
-``decode_slice``; bf16 parameter storage (``params_dtype``).
+:meth:`encode_coo` and :meth:`decode_slice` serve chunked scoring: the
+bottleneck from a COO batch, then the scores of one contiguous slice of
+the catalog at a time.
+
+Not ported yet: bf16 parameter storage (``params_dtype``).
 """
 
 import torch
 from torch import nn
 
 from recoder_tpu_torch.models.base import (FactorizationModel, activation,
-                                           check_params_dtype, dropout,
-                                           l2_normalize_rows, linear,
-                                           pad_dim, xavier_uniform)
+                                           check_params_dtype, coo_encode,
+                                           dropout, l2_normalize_rows,
+                                           linear, pad_dim, xavier_uniform)
 from recoder_tpu_torch.ops.gather_matmul import (as_dtype, decode_matmul,
                                                   encode_matmul, take_rows)
 
@@ -255,6 +258,27 @@ class DynamicAutoencoder(FactorizationModel):
     return self.decode(*self.decode_operands(
         input, input_items, target_items, training=training,
         generator=generator, compute_dtype=compute_dtype), compute_dtype)
+
+  # -- chunked full-catalog inference --------------------------------------
+
+  def encode_coo(self, rows, cols, vals, num_rows, input_users=None,
+                 compute_dtype=None):
+    """The inference bottleneck ``h [num_rows, d0]`` from COO
+    interactions (l2-normalize, encode, hidden stack), never densifying
+    the catalog (``models/base.coo_encode``)."""
+    del input_users  # an item-based model
+    cd = self._compute_dtype(compute_dtype)
+    z = coo_encode(self.en_embedding, rows, cols, vals, num_rows, cd)
+    return self._hidden_stack(z + self.en_bias, False, None, cd)
+
+  def decode_slice(self, h, start, width, compute_dtype=None):
+    """float32 scores ``h @ E_de[start:start + width].T + b_de[...]`` of a
+    contiguous catalog slice (not rounded to the compute dtype, as in
+    JAX)."""
+    cd = self._compute_dtype(compute_dtype)
+    end = start + width
+    return decode_matmul(h, self.decoder_table()[start:end],
+                         self.de_bias[start:end], cd)
 
   def apply_gathered(self, gathered, input, input_users=None,
                      input_items=None, target_users=None, target_items=None,

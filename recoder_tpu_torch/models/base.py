@@ -13,6 +13,8 @@ import math
 import torch
 from torch import nn
 
+from recoder_tpu_torch.ops.gather_matmul import row_sums
+
 
 LANE_ALIGN = 256
 
@@ -64,6 +66,24 @@ def linear(z, w, bias, compute_dtype=None):
   if compute_dtype in (None, torch.float32):
     return z @ w + bias
   return (z.to(compute_dtype) @ w.to(compute_dtype)).float() + bias
+
+
+def coo_encode(table, rows, cols, vals, num_rows, compute_dtype=None):
+  """``l2_normalize_rows(x) @ table`` of the ``[num_rows, N]`` input whose
+  nonzeros are the COO ``(rows, cols, vals)``, without densifying it
+  (the JAX models' ``encode_coo``): each row's norm is a sum of squares
+  over its values, and the product is the row sum of ``table[cols]``
+  scaled by the normalized values -- the zero columns of a dense row add
+  exactly zero. At bf16 compute the rows and the scales are rounded to
+  bf16 and so is their product; the sums are float32."""
+  vals = vals.float()
+  norm = torch.clamp(torch.sqrt(row_sums(vals * vals, rows, num_rows)),
+                     min=1e-12)
+  zv = vals / norm[torch.clamp(rows.long(), max=num_rows - 1)]
+  en_rows = table.index_select(0, cols)
+  if compute_dtype is not None:
+    en_rows, zv = en_rows.to(compute_dtype), zv.to(compute_dtype)
+  return row_sums((en_rows * zv[:, None]).float(), rows, num_rows)
 
 
 def check_params_dtype(params_dtype):
@@ -140,6 +160,23 @@ class FactorizationModel(nn.Module):
   def sparse_param_paths(self):
     """Parameters trained by row-sparse Adam (none by default)."""
     return ()
+
+  def encode_coo(self, rows, cols, vals, num_rows, input_users=None,
+                 compute_dtype=None):
+    """Optional: the inference hidden state ``h [num_rows, ...]`` of a
+    batch given as COO interactions (``rows`` in ``[0, num_rows)``; a
+    row id of ``num_rows`` is a pad slot), never densified over the
+    catalog. With :meth:`decode_slice` it serves chunked scoring
+    (``Recoder(eval_item_chunk=...)``), whose memory is ``O(B x
+    chunk)`` instead of ``O(B x num_items)``."""
+    raise NotImplementedError(
+        f'{type(self).__name__} does not support chunked inference')
+
+  def decode_slice(self, h, start, width, compute_dtype=None):
+    """Optional: float32 scores ``[B, width]`` of the contiguous catalog
+    slice ``[start, start + width)`` from :meth:`encode_coo`'s ``h``."""
+    raise NotImplementedError(
+        f'{type(self).__name__} does not support chunked inference')
 
   def params(self):
     """``{jax_name: parameter}`` -- the names the checkpoint uses."""

@@ -21,9 +21,10 @@ package pads a sparse table's feature axis to 128 lanes for XLA:TPU's
 row scatters; the port keeps it [N, d] and ``convert.fit_table`` cuts the
 pad of a JAX checkpoint.
 
-Not ported yet: the chunked inference pair ``encode_coo`` /
-``decode_slice`` (ROADMAP Queue 1 item 5); bf16 parameter storage
-(``params_dtype``).
+:meth:`encode_coo` / :meth:`decode_slice` serve chunked scoring: the
+activated user rows, then one contiguous slice of the catalog at a time.
+
+Not ported yet: bf16 parameter storage (``params_dtype``).
 """
 
 import torch
@@ -152,6 +153,26 @@ class MatrixFactorization(FactorizationModel):
         input, input_items, target_items, training=training,
         generator=generator, input_users=input_users,
         keep_mask=keep_mask), compute_dtype)
+
+  # -- chunked full-catalog inference --------------------------------------
+
+  def encode_coo(self, rows, cols, vals, num_rows, input_users=None,
+                 compute_dtype=None):
+    """The inference user factors ``h [B, d]``: the activated rows of
+    ``input_users``. The COO interactions are unused (MF scores depend
+    on the user ids; the caller masks the seen items with them)."""
+    del rows, cols, vals, num_rows, compute_dtype
+    return activation(take_rows(self.user_embedding, input_users),
+                      self.activation_type)
+
+  def decode_slice(self, h, start, width, compute_dtype=None):
+    """float32 scores ``h @ V[start:start + width].T + b[...]`` of a
+    contiguous catalog slice."""
+    cd = self.compute_dtype if compute_dtype is None else as_dtype(
+        compute_dtype)
+    end = start + width
+    return decode_matmul(h, self.item_embedding[start:end],
+                         self.bias[start:end], cd)
 
   def apply_gathered(self, gathered, input, input_users=None,
                      input_items=None, target_users=None, target_items=None,

@@ -26,18 +26,18 @@ loss, and with ``sparse=True`` through :meth:`apply_gathered` and
 row-sparse Adam on its two item tables.
 
 ``forward`` takes an optional ``keep_mask`` and ``eps`` so that tests
-feed both frameworks the same draws.
-
-Not ported yet: ``encode_coo`` / ``decode_slice`` (ROADMAP Queue 1
-item 5).
+feed both frameworks the same draws. :meth:`encode_coo` /
+:meth:`decode_slice` serve chunked scoring: the decoder's hidden state
+from a COO batch (at ``z = mu``), then one catalog slice at a time.
 """
 
 import torch
 from torch import nn
 
 from recoder_tpu_torch.models.base import (FactorizationModel, activation,
-                                           dropout, l2_normalize_rows,
-                                           linear, pad_dim, xavier_uniform)
+                                           coo_encode, dropout,
+                                           l2_normalize_rows, linear,
+                                           pad_dim, xavier_uniform)
 from recoder_tpu_torch.ops.gather_matmul import (as_dtype, decode_matmul,
                                                   encode_matmul, take_rows)
 
@@ -203,3 +203,27 @@ class MultVAE(FactorizationModel):
         input, gathered['en_rows'], gathered['de_rows'],
         take_rows(self.de_bias, target_items), training, generator,
         self.compute_dtype, step, keep_mask, eps)
+
+  # -- chunked full-catalog inference --------------------------------------
+
+  def encode_coo(self, rows, cols, vals, num_rows, input_users=None,
+                 compute_dtype=None):
+    """The decoder's hidden state ``[num_rows, hidden_dim]`` at the
+    deterministic evaluation ``z = mu``, from COO interactions
+    (``models/base.coo_encode``)."""
+    del input_users  # an item-based model
+    cd = self.compute_dtype if compute_dtype is None else as_dtype(
+        compute_dtype)
+    z = coo_encode(self.en_embedding, rows, cols, vals, num_rows, cd)
+    z = activation(z + self.en_bias, self.activation_type)
+    mu = linear(z, self.w_mu, self.mu_bias, cd)
+    return activation(linear(mu, self.w_dec, self.dec_bias, cd),
+                      self.activation_type)
+
+  def decode_slice(self, h, start, width, compute_dtype=None):
+    """float32 scores of the catalog slice ``[start, start + width)``."""
+    cd = self.compute_dtype if compute_dtype is None else as_dtype(
+        compute_dtype)
+    end = start + width
+    return decode_matmul(h, self.de_embedding[start:end],
+                         self.de_bias[start:end], cd)

@@ -62,6 +62,25 @@ def take_rows(table, ids):
   return table.index_select(0, ids)
 
 
+def row_sums(values, rows, num_rows):
+  """``[num_rows, ...]`` sums of ``values`` by COO row (the JAX
+  ``segment_sum(values, rows, num_rows + 1)[:num_rows]``: a row id of
+  ``num_rows`` or more is a pad slot, dropped).
+
+  Each row's values are added in the COO's order (``torch.segment_reduce``
+  over a stable sort of ``rows``; a CSR batch is sorted already), so the
+  sums are the same on every run, on the card too, where an
+  ``index_add_`` would add in the order its atomics land."""
+  rows = torch.clamp(rows.long(), max=num_rows)
+  order = torch.argsort(rows, stable=True)
+  bounds = torch.searchsorted(
+      rows[order], torch.arange(num_rows + 2, device=rows.device))
+  sums = torch.segment_reduce(values[order], 'sum',
+                              lengths=torch.diff(bounds), axis=0,
+                              unsafe=True)
+  return sums[:num_rows]
+
+
 def _mm_f32(a, b):
   if a.device.type == 'cuda':
     return torch.mm(a, b, out_dtype=torch.float32)

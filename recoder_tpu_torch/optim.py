@@ -14,7 +14,9 @@ groups, decayed and not.
 tables (the JAX ``SparseRowAdam``, torch ``SparseAdam``'s rule): it
 gathers the touched rows of the table and both moments, updates them in
 float32 and writes the three back in place with one launch of the
-row-scatter kernel (``ops/row_scatter.py``).
+row-scatter kernel (``ops/row_scatter.py``); with ``ids=None`` (the
+full-catalog sparse step) it updates every row in place, without a
+scatter.
 
 ``state_dtype='bfloat16'`` (the JAX ``Optimizer(state_dtype=...)``,
 bench.py's ML-20M default) stores Adam's moments in bf16 and keeps the
@@ -338,13 +340,15 @@ class SparseRowAdam:
       table: [N, d] float32 parameter table.
       state: moments from :meth:`init`; its 'step' advances by one.
       ids: int64 [R] row ids, unique (a repeated id must carry the same
-        gradient in every slot).
+        gradient in every slot), or None for every row (``row_grads`` is
+        then the whole table's gradient [N, d]).
       row_grads: [R, d] gradient of the gathered rows.
       lr: learning rate.
 
     The three gathered row blocks are copies, so the write never reads
-    a row it overwrites. Call under ``torch.no_grad()``, after any
-    backward pass that saved ``table``.
+    a row it overwrites; the whole-table update computes its three
+    results before it copies them in. Call under ``torch.no_grad()``,
+    after any backward pass that saved ``table``.
     """
     b1, b2 = self.betas
     step = state['step'] + 1
@@ -355,11 +359,20 @@ class SparseRowAdam:
     step_size = float(f32(lr) * np.sqrt(bc2) / bc1)
 
     g = row_grads.float()
-    m_rows = state['m'].index_select(0, ids)
-    v_rows = state['v'].index_select(0, ids)
-    p_rows = table.index_select(0, ids)
+    if ids is None:
+      m_rows, v_rows, p_rows = state['m'], state['v'], table
+    else:
+      m_rows = state['m'].index_select(0, ids)
+      v_rows = state['v'].index_select(0, ids)
+      p_rows = table.index_select(0, ids)
     new_m = b1 * m_rows + (1 - b1) * g
     new_v = b2 * v_rows + (1 - b2) * g * g
     new_p = p_rows - step_size * new_m / (torch.sqrt(new_v) + self.eps)
-    row_scatter_((table, state['m'], state['v']), ids, (new_p, new_m, new_v))
+    if ids is None:
+      for dst, src in zip((table, state['m'], state['v']),
+                          (new_p, new_m, new_v)):
+        dst.copy_(src)
+    else:
+      row_scatter_((table, state['m'], state['v']), ids,
+                   (new_p, new_m, new_v))
     state['step'] = step

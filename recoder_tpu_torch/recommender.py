@@ -7,18 +7,20 @@ ANN library).
 """
 
 import numpy as np
-import torch
+
+from recoder_tpu_torch.ops.topk import top_k
 
 
 def topk_unseen(model, users_interactions, num_recommendations):
   """Top-k unseen items per user from ``model.predict(...,
-  return_input=True)``: seen items score -inf, and a user with fewer than
-  k unseen items gets a shorter list (the -inf tail trimmed) instead of
-  watched items."""
+  return_input=True)``, in ``lax.top_k``'s order (ties to the lowest
+  item id, ``ops/topk.py``): seen items score -inf, and a user with
+  fewer than k unseen items gets a shorter list (the -inf tail trimmed)
+  instead of watched items."""
   scores, xd = model.predict(users_interactions, return_input=True)
   scores = scores.masked_fill(xd > 0, float('-inf'))
   k = min(int(num_recommendations), model.num_items)
-  vals, idx = torch.topk(scores, k)
+  vals, idx = top_k(scores, k)
   vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
   return [row[np.isfinite(v)] for row, v in zip(idx, vals)]
 
@@ -41,3 +43,9 @@ class InferenceRecommender(Recommender):
 
   def recommend(self, users_hist):
     return self.model.recommend(users_hist, self.num_recommendations)
+
+  def recommend_async(self, users_hist):
+    """Dispatch on the device and return the ids' device tensor ``[B,
+    k]`` (:meth:`Recoder.recommend_async`): the evaluator keeps a few
+    batches in flight through it."""
+    return self.model.recommend_async(users_hist, self.num_recommendations)

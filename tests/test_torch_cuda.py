@@ -27,7 +27,12 @@ kernel's mask-only launch against its plain version; MatrixFactorization's decod
 twin, the sparse MF and Mult-VAE steps through the row scatter against
 index_copy_ (bitwise), MF and Mult-VAE captured steps bitwise eager (the
 KL weight changing inside the graphs), and EASE on the card against the
-CPU.
+CPU; the top-k in lax.top_k's order on the card bitwise the CPU's (ties,
+-inf, NaN, signed zeros), chunked recommend on the card against the CPU
+and against the monolithic path, the lowest ids of tied scores, a
+deterministic ``encode_coo``, the chunked validation loss against the
+dense one, the full-catalog sparse step on the card against the CPU (no
+row-scatter launch), and the asynchronous evaluator's results.
 
 Every test skips where ``torch.cuda.is_available()`` is False. The file
 imports neither jax nor the JAX package, so it also runs on a machine
@@ -1229,3 +1234,172 @@ def test_ease_on_the_card_matches_cpu(cuda):
   ui = UsersInteractions(np.arange(20), m[:20])
   for a, c in zip(gpu.recommend(ui, 10), cpu.recommend(ui, 10)):
     assert len(set(a.tolist()) ^ set(c.tolist())) <= 2
+
+
+# -- large-catalog evaluation -------------------------------------------------
+
+def _topk_rows(kind, shape=(8, 300_000), seed=0):
+  rng = np.random.default_rng(seed)
+  if kind == 'random':
+    return rng.standard_normal(shape).astype(np.float32)
+  x = (rng.integers(0, 4, shape) / 4.0).astype(np.float32)
+  if kind == 'special':  # -inf ties, NaN, signed zeros
+    x[0] = -np.inf
+    x[0, rng.choice(shape[1], 3, replace=False)] = 1.0
+    x[1, ::7] = np.nan
+    x[2] = np.where(np.arange(shape[1]) % 2, 0.0, -0.0)
+  return x
+
+
+@pytest.mark.parametrize('kind', ['random', 'quantized', 'special'])
+@pytest.mark.parametrize('k', [1, 100])
+def test_top_k_on_the_card_equals_the_cpu(cuda, kind, k):
+  """``ops/topk.top_k`` (lax.top_k's order) on a wide row: the card and
+  the CPU give the same indices and bitwise the same values."""
+  from recoder_tpu_torch.ops.topk import top_k
+  x = torch.from_numpy(_topk_rows(kind))
+  v, i = top_k(x.to(cuda), k)
+  cv, ci = top_k(x, k)
+  assert torch.equal(i.cpu(), ci)
+  assert torch.equal(v.cpu().view(torch.int32), cv.view(torch.int32))
+
+
+def _chunk_trainers(cuda, kind='ae', seed=3):
+  """The same random model in a CPU and a card trainer (float32)."""
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder, MatrixFactorization
+  m = _family_data().interactions_matrix
+  out = []
+  for device in ('cpu', cuda):
+    model = (DynamicAutoencoder([16], 'tanh') if kind == 'ae'
+             else MatrixFactorization(16, 'tanh'))
+    tr = Recoder(model, num_items=m.shape[1], num_users=m.shape[0],
+                 seed=seed, device=device)
+    tr._init_model()
+    with torch.no_grad():
+      bias = tr.model.de_bias if kind == 'ae' else tr.model.bias
+      bias.copy_(0.3 * torch.randn(bias.shape[0], generator=torch.Generator()
+                                   .manual_seed(seed)).to(device))
+    out.append(tr)
+  return m, out
+
+
+def _tie_tolerant(a, b, scores, rel=1e-5):
+  tol = rel * np.abs(scores[np.isfinite(scores)]).max()
+  for u, (x, y) in enumerate(zip(a, b)):
+    for p, q in zip(x, y):
+      assert p == q or abs(scores[u, p] - scores[u, q]) <= tol, (u, x, y)
+
+
+@pytest.mark.parametrize('kind', ['ae', 'mf'])
+def test_chunked_recommend_on_the_card_matches_cpu(cuda, kind):
+  """Chunked recommend (192: the last chunk clamped) on the card against
+  the CPU's and against the card's monolithic one: the same ids but for
+  swaps of scores within 1e-5 of the largest; every id in the catalog,
+  unseen."""
+  from recoder_tpu_torch.data import UsersInteractions
+  m, (cpu, gpu) = _chunk_trainers(cuda, kind)
+  users = UsersInteractions(np.arange(40), m[:40])
+  scores = cpu.predict(users)
+  for tr in (cpu, gpu):
+    tr.eval_item_chunk = 192
+  got, want = gpu.recommend(users, 20), cpu.recommend(users, 20)
+  _tie_tolerant(got, want, scores)
+  gpu.eval_item_chunk = 0
+  _tie_tolerant(got, gpu.recommend(users, 20), scores)
+  for u, rec in enumerate(got):
+    assert max(rec) < m.shape[1] and not set(rec) & set(m[u].indices)
+
+
+def test_chunked_ties_on_the_card_take_the_lowest_ids(cuda):
+  from recoder_tpu_torch.data import UsersInteractions
+  m, (_, gpu) = _chunk_trainers(cuda)
+  with torch.no_grad():
+    gpu.model.de_embedding.zero_()
+    gpu.model.de_bias.zero_()
+  users = UsersInteractions(np.arange(5), m[:5])
+  for chunk in (0, 64):
+    gpu.eval_item_chunk = chunk
+    for u, rec in enumerate(gpu.recommend(users, 12)):
+      seen = set(m[u].indices)
+      assert rec == [i for i in range(m.shape[1]) if i not in seen][:12]
+
+
+def test_encode_coo_on_the_card_is_deterministic(cuda):
+  """``encode_coo`` sums each row in CSR order (``row_sums``): two runs on
+  the card are bitwise equal, and within 1e-5 of the CPU's."""
+  m, (cpu, gpu) = _chunk_trainers(cuda)
+  from recoder_tpu_torch.data import UsersInteractions
+  users = UsersInteractions(np.arange(60), m[:60])
+  out = []
+  for tr in (gpu, gpu, cpu):
+    rows, cols, vals, ids = tr._inference_coo(users)
+    with torch.no_grad():
+      out.append(tr.model.encode_coo(rows, cols, vals, 60).cpu())
+  assert torch.equal(out[0], out[1])
+  np.testing.assert_allclose(out[0].numpy(), out[2].numpy(), rtol=1e-5,
+                             atol=1e-6)
+
+
+def test_chunked_val_loss_on_the_card_matches_dense(cuda):
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.data.loader import RecommendationDataLoader
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  m = _family_data().interactions_matrix
+  for loss in ('mse', 'logistic', 'logloss'):
+    tr = Recoder(DynamicAutoencoder([16], 'tanh'), optimizer_type='adam',
+                 loss=loss, device=cuda)
+    tr.train(RecommendationDataset(m), batch_size=32, negative_sampling=True)
+    losses = []
+    for chunk in (0, 100):
+      # (a fresh loader each time: the same batches)
+      tr.eval_item_chunk = chunk
+      losses.append(tr._validate(RecommendationDataLoader(
+          RecommendationDataset(m), batch_size=32)))
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+
+
+def test_full_catalog_sparse_training_on_the_card_matches_cpu(cuda):
+  """The full-catalog sparse step (negative sampling off) on the card:
+  no row-scatter launch, and 4 steps' losses and tables against the
+  CPU's (rtol 1e-4)."""
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  m = _family_data().interactions_matrix
+  runs = []
+  for device in ('cpu', cuda):
+    tr = Recoder(DynamicAutoencoder([16], 'tanh', sparse=True),
+                 optimizer_type='adam', loss='logloss', device=device)
+    rs.LAUNCHES['row_scatter'] = 0
+    tr.train(RecommendationDataset(m), batch_size=32, num_epochs=1,
+             iters_per_epoch=4, negative_sampling=False)
+    assert rs.LAUNCHES['row_scatter'] == 0
+    runs.append(tr)
+  np.testing.assert_allclose(runs[1].last_epoch_losses,
+                             runs[0].last_epoch_losses, rtol=1e-4)
+  for name, p in runs[0].model.params().items():
+    np.testing.assert_allclose(runs[1].model.params()[name].detach().cpu()
+                               .numpy(), p.detach().numpy(), rtol=1e-4,
+                               atol=1e-5, err_msg=name)
+
+
+def test_async_evaluator_on_the_card_gives_the_sync_results(cuda):
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.metrics import NDCG, Recall, RecommenderEvaluator
+  from recoder_tpu_torch.recommender import InferenceRecommender
+  m, (_, gpu) = _chunk_trainers(cuda)
+  val = _family_data(seed=5).interactions_matrix
+  rec = InferenceRecommender(gpu, 10)
+
+  class Sync:
+    def recommend(self, users):
+      return rec.recommend(users)
+  metrics = [Recall(k=5), NDCG(k=10)]
+  ds = RecommendationDataset(m, val)
+  for chunk in (0, 96):
+    gpu.eval_item_chunk = chunk
+    got = RecommenderEvaluator(rec, metrics).evaluate(ds, batch_size=7)
+    want = RecommenderEvaluator(Sync(), metrics).evaluate(ds, batch_size=7)
+    assert got == want

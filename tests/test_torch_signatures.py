@@ -14,10 +14,13 @@ original's. The only differences allowed are named below:
 * the forward's translation of the JAX functional form: no ``params``
   (the module holds them), ``generator`` for ``rng``, and no
   ``items_sorted_unique`` (an XLA promise with no PyTorch counterpart);
-* JAX-only methods whose modules are still in ROADMAP Queue 1.
+* JAX-only methods whose modules are still in ROADMAP Queue 1 (none
+  since ``Recoder.recommend_async`` was ported).
 
 The arguments whose modules Queue 1 still holds are taken at their JAX
-positions and raise NotImplementedError when set; that is checked too.
+positions and raise NotImplementedError when set; that is checked too,
+and that the ones since ported (``eval_item_chunk``, ``eval_topk``)
+construct.
 """
 
 import inspect
@@ -42,7 +45,9 @@ PORT_ONLY = {'device', 'keep_mask', 'eps'}
 JAX_FUNCTIONAL = {'params', 'items_sorted_unique'}
 RENAMED = {'rng': 'generator'}
 #: public JAX methods the port does not have yet, with their ROADMAP item
-JAX_ONLY_METHODS = {('Recoder', 'recommend_async'): 'Queue 1 item 5'}
+JAX_ONLY_METHODS = {}
+#: Queue 1 items ported since their arguments were added: they construct
+PORTED = {'Queue 1 item 5'}
 
 MODEL_METHODS = ('__init__', 'init_model', 'model_params',
                  'load_model_params', 'sparse_param_paths', 'sparse_entries')
@@ -128,6 +133,11 @@ def _matrix():
     (dict(eval_item_chunk=1024), 'Queue 1 item 5'),
     (dict(eval_topk='approx'), 'Queue 1 item 5')])
 def test_queue_one_arguments_of_the_trainer_raise(kw, where):
+  if where in PORTED:
+    tr = model.Recoder(models.DynamicAutoencoder([4]), device='cpu', **kw)
+    for name, value in kw.items():
+      assert getattr(tr, name) == value
+    return
   with pytest.raises(NotImplementedError, match=where):
     model.Recoder(models.DynamicAutoencoder([4]), device='cpu', **kw)
 
