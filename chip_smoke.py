@@ -290,6 +290,31 @@ Phases, each of which raises on failure:
                 against dense (rtol 1e-4); (e, inside phase 6) the
                 fixture model's metrics chunked (1,024) within 1e-4 of the
                 monolithic ones.
+ 28. bf16 storage -- params_dtype='bfloat16' and bf16 moments of sparse
+                tables. (e) each kernel variant over bf16 tables against
+                its plain version and timed beside its bound: the wgmma
+                decode-loss pair on bf16 rows at the ML-20M step (bitwise
+                the float32 rows of the same values), the mma.sync pair at
+                an MSD union width, the 3xTF32 pair over bf16 rows, Adam
+                over bf16 parameters with bf16 and with float32 moments;
+                (a) bench.py's ML-20M default with --params-dtype
+                bfloat16: 20 steps against the plain path, the fixture
+                captured bitwise eager, captured and eager in turns with
+                the float32-parameter default (rates, device ms and
+                launches a step, kernels by name in 64 replayed steps,
+                peak memory, parameter and moment GiB), 20 bf16-parameter
+                union steps and 20 steps of float32 compute over bf16
+                storage against the plain path; (d) the fixture gate row
+                at bf16 compute, moments and parameters (30 epochs,
+                captured; a reload bit for bit), and, inside phase 6, the
+                float32 checkpoint served from bf16 tables; (b, inside
+                phase 27) msd-big with bf16 tables and moments: 20 steps
+                against the plain path, the row scatter bitwise at
+                [1,000,192, 200] for all-bf16 and mixed tables and timed,
+                60 steps' rate, device ms, the resident GiB against
+                float32; (c) the 10,000,000 x 128 scorer from bf16 tables:
+                ms, peak memory, ids against the top-k of the whole
+                catalog at once.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -566,19 +591,23 @@ def _close(got, ref, rtol, atol):
 
 
 def compare_kernel(B, d, W, kind, confidence, device, target_dtype=None,
-                   compute_dtype=None, route=None):
+                   compute_dtype=None, route=None, rows_dtype=None):
   """Kernel loss and gradients against autograd through the plain
   version; returns the largest abs errors (loss, grads) and the kernel's
-  (loss, dh, drows, dbias). The bf16 variant (``compute_dtype``) is held
-  to loss rtol 1e-2 and gradients within 2e-2 in relative Frobenius
-  norm; ``route``: the bf16 kernels ('wgmma' or 'mma') that must have
-  launched, once each way."""
+  (loss, dh, drows, dbias). The bf16 variant (``compute_dtype``), and any
+  call on bf16 rows and bias (``rows_dtype``: bf16 parameter storage,
+  whose drows and dbias are rounded to bf16), is held to loss rtol 1e-2
+  and gradients within 2e-2 in relative Frobenius norm; ``route``: the
+  bf16 kernels ('wgmma' or 'mma') that must have launched, once each
+  way."""
   import torch
   from recoder_tpu_torch.ops.fused_decode_loss import (
       LAUNCHES, fused_decode_loss, fused_decode_loss_plain)
   h, rows, bias, target, rm, cm = make_problem(B, d, W, device)
   if target_dtype is not None:
     target = target.to(target_dtype)
+  if rows_dtype is not None:
+    rows, bias = rows.to(rows_dtype), bias.to(rows_dtype)
   before = dict(LAUNCHES)
   results = {}
   for name, fn in (('kernel', fused_decode_loss),
@@ -588,9 +617,10 @@ def compare_kernel(B, d, W, kind, confidence, device, target_dtype=None,
     loss.backward()
     results[name] = (loss.detach(), hh.grad, rr.grad, bb.grad)
   (lk, *gk), (lp, *gp) = results['kernel'], results['plain']
-  bf16 = compute_dtype is not None
+  bf16 = compute_dtype is not None or rows_dtype is not None
   what = (f'{kind} c={confidence} [{B},{d},{W}] target {target.dtype}'
-          f'{" bf16 compute" if bf16 else ""}')
+          f'{" bf16 compute" if compute_dtype is not None else ""}'
+          f'{" bf16 rows" if rows_dtype is not None else ""}')
   if route is not None:
     ran = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
     for r, names in BF16_ROUTE_COUNTERS.items():
@@ -602,6 +632,9 @@ def compare_kernel(B, d, W, kind, confidence, device, target_dtype=None,
     raise AssertionError(f'{what}: loss {float(lk)} vs plain {float(lp)}')
   grad_err = 0.0
   for gname, a, b in zip(('dh', 'drows', 'dbias'), gk, gp):
+    if a.dtype != b.dtype:
+      raise AssertionError(f'{what}: {gname} is {a.dtype}, plain {b.dtype}')
+    a, b = a.float(), b.float()
     if bf16:
       err = float((a - b).abs().max())
       rel = float(torch.linalg.vector_norm(a - b)
@@ -614,7 +647,9 @@ def compare_kernel(B, d, W, kind, confidence, device, target_dtype=None,
     if not ok:
       raise AssertionError(f'{what}: {gname} max abs err {err}')
   say(f'  {kind:8s} c={confidence:<3} [{B}, {d}, {W}] {str(target.dtype)[6:]:8s}'
-      f'{" bf16" if bf16 else ""}{f" ({route})" if route else ""}: loss '
+      f'{" bf16" if compute_dtype is not None else ""}'
+      f'{" bf16 rows" if rows_dtype is not None else ""}'
+      f'{f" ({route})" if route else ""}: loss '
       f'{float(lk):.6g} (plain {float(lp):.6g}), max abs err loss '
       f'{loss_err:.3g} grads '
       f'{grad_err:.3g}')
@@ -652,13 +687,17 @@ def device_ms(fn, calls=20, between=None, skip=None, tries=3):
   host enqueues slower than the device runs). ``between`` runs before
   each call, and kernels whose name holds ``skip`` are left out. A
   profile that recorded fewer kernels than calls (the profiler at times
-  drops a window's device events) is taken again."""
+  drops a window's first device events, the more the more windows the
+  process has opened) is taken again, opened with
+  :func:`settle_profiler`'s markers."""
   import torch
   from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
-  for _ in range(tries):
+  for attempt in range(tries):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      if attempt:
+        settle_profiler()
       for _ in range(calls):
         if between is not None:
           between()
@@ -666,6 +705,7 @@ def device_ms(fn, calls=20, between=None, skip=None, tries=3):
       torch.cuda.synchronize()
     kernels = [ev for ev in prof.key_averages()
                if 'CUDA' in str(ev.device_type)
+               and 'spin_kernel' not in ev.key
                and (skip is None or skip not in ev.key)]
     if sum(ev.count for ev in kernels) >= calls:
       return sum(ev.self_device_time_total for ev in kernels) / 1e3 / calls
@@ -682,7 +722,7 @@ def bound(flops, nbytes, peak_flops=PEAK_FLOPS):
                                                              'bytes')
 
 
-def decode_loss_bounds(B, d, W, target_bytes=4, bf16=False):
+def decode_loss_bounds(B, d, W, target_bytes=4, bf16=False, param_bytes=4):
   """Bounds of each timed step, counted from what that step reads and
   writes (each input once, each output once) and the products it does:
   the forward (the loss, and E0 [B, lde] when a backward follows), the
@@ -690,21 +730,23 @@ def decode_loss_bounds(B, d, W, target_bytes=4, bf16=False):
   (the function itself: three products from h, rows, bias and the
   target to the loss and the three gradients). ``bf16``: the bf16
   variant -- E0 in bf16 ([B, W rounded up to 8]) and the products at the
-  bf16 tensor-core peak."""
+  bf16 tensor-core peak. ``param_bytes``: the element size of rows and
+  bias, read and their gradients written (2: bf16 parameter storage)."""
   product = 2.0 * B * W * d
   lde, e0_bytes = (-(-W // 8) * 8, 2.0) if bf16 else (-(-W // 4) * 4, 4.0)
   peak = PEAK_FLOPS_BF16 if bf16 else PEAK_FLOPS
-  inputs = 4.0 * (B * d + W * d + 2 * W + B) + target_bytes * B * W
-  grads = 4.0 * (B * d + W * d + W)
+  pb = float(param_bytes)
+  inputs = 4.0 * (B * d + W + B) + pb * (W * d + W) + target_bytes * B * W
+  grads = 4.0 * B * d + pb * (W * d + W)
   return {'fwd': bound(product, inputs + 4 + e0_bytes * B * lde, peak),
           'fwd_nograd': bound(product, inputs + 4, peak),
           'bwd': bound(2 * product, e0_bytes * B * lde
-                       + 4.0 * (B * d + W * d) + 4 + grads, peak),
+                       + 4.0 * B * d + pb * W * d + 4 + grads, peak),
           'fwd_bwd': bound(3 * product, inputs + 4 + 4 + grads, peak)}
 
 
 def time_kernel(B, d, W, kind, confidence, device, compute_dtype=None,
-                target_dtype=None, routes=('kernel',)):
+                target_dtype=None, routes=('kernel',), rows_dtype=None):
   """Forward (writing E0, as training runs it), forward under no_grad,
   backward from E0 and forward+backward, of each kernel set in
   ``routes`` and of the plain version, at one shape: 'kernel' is the
@@ -713,12 +755,15 @@ def time_kernel(B, d, W, kind, confidence, device, compute_dtype=None,
   calls). Each is timed by its
   device time (profiler) and by the median of CUDA events, in turns
   plain, routes..., routes reversed, plain; returns {'device'|'events':
-  {name: {step: mean ms}}}."""
+  {name: {step: mean ms}}}. ``rows_dtype``: rows and bias in that dtype
+  (bf16 parameter storage)."""
   import torch
   from recoder_tpu_torch.ops import fused_decode_loss as fdl
   h, rows, bias, target, rm, cm = make_problem(B, d, W, device)
   if target_dtype is not None:
     target = target.to(target_dtype)
+  if rows_dtype is not None:
+    rows, bias = rows.to(rows_dtype), bias.to(rows_dtype)
   g = torch.ones((), device=device)
   args = (target, rm, cm, kind, confidence, compute_dtype)
   leaves = [x.clone().requires_grad_(True) for x in (h, rows, bias)]
@@ -764,11 +809,12 @@ def time_kernel(B, d, W, kind, confidence, device, compute_dtype=None,
                 for name, d_ in r.items()} for how, r in runs.items()}
 
 
-def report_times(times, shape, what, target_bytes=4, bf16=False):
+def report_times(times, shape, what, target_bytes=4, bf16=False,
+                 param_bytes=4):
   """Print each kernel set's and the plain version's times, and each
   kernel set's bound and share."""
   B, d, W = shape
-  bounds = decode_loss_bounds(B, d, W, target_bytes, bf16)
+  bounds = decode_loss_bounds(B, d, W, target_bytes, bf16, param_bytes)
   names = [n for n in times['device'] if n != 'plain'] + ['plain']
   for how in ('device', 'events'):
     for name in names:
@@ -999,7 +1045,7 @@ def phase_paths(train_m, device='cuda', steps=20, compute_dtype=None,
 def phase_quality(train_m, val_m, device='cuda', epochs=30, atol=0.01,
                   compute_dtype=None, opt_state_dtype=None, reload_atol=0.0,
                   slab_cache='auto', pinned=PINNED, chunked=None,
-                  **train_kw):
+                  params_dtype=None, serve_bf16=False, **train_kw):
   from recoder_tpu_torch.data import RecommendationDataset
   from recoder_tpu_torch.metrics import NDCG, Recall
   from recoder_tpu_torch.model import Recoder
@@ -1008,7 +1054,8 @@ def phase_quality(train_m, val_m, device='cuda', epochs=30, atol=0.01,
   train_ds = RecommendationDataset(train_m)
   val_ds = RecommendationDataset(val_m, train_m)
   trainer = Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
-                                       compute_dtype=compute_dtype),
+                                       compute_dtype=compute_dtype,
+                                       params_dtype=params_dtype),
                     optimizer_type='adam', loss='logloss', device=device,
                     opt_state_dtype=opt_state_dtype)
   t0 = time.time()
@@ -1024,7 +1071,8 @@ def phase_quality(train_m, val_m, device='cuda', epochs=30, atol=0.01,
   results = trainer._evaluate(val_ds, 100, metrics, batch_size=500)
   means = {str(m): float(np.mean(v)) for m, v in results.items()}
   say(f'  compute {compute_dtype or "float32"}, moments '
-      f'{opt_state_dtype or "float32"}, slab_cache={slab_cache!r}'
+      f'{opt_state_dtype or "float32"}, parameters '
+      f'{params_dtype or "float32"}, slab_cache={slab_cache!r}'
       + ''.join(f', {k}={v}' for k, v in train_kw.items())
       + f': {epochs} epochs in {train_s:.1f} s, dispatch: '
       f'{trainer.last_epoch_dispatch} ({trainer.last_epoch_dispatches} '
@@ -1050,11 +1098,43 @@ def phase_quality(train_m, val_m, device='cuda', epochs=30, atol=0.01,
                            f'by {gaps}')
     say(f'  (27 e) chunked evaluation ({chunked:,} items a chunk): the '
         f'metrics within {max(gaps.values()):.3g} of the monolithic ones')
-  # built without compute_dtype: the checkpoint's comes back
-  reload_metrics(trainer, lambda: Recoder(DynamicAutoencoder(),
-                                          device=device),
-                 val_ds, metrics, means, atol=reload_atol)
+  # built without compute_dtype: the checkpoint's comes back (the
+  # storage dtype, which a checkpoint does not carry, from the constructor)
+  reload_metrics(trainer, lambda: Recoder(DynamicAutoencoder(
+      params_dtype=params_dtype), device=device), val_ds, metrics, means,
+                 atol=reload_atol)
+  if serve_bf16:
+    serve_checkpoint_bf16(trainer, val_ds, metrics, means, atol, device)
   return means
+
+
+def serve_checkpoint_bf16(trainer, val_ds, metrics, means, atol, device):
+  """(28 d) This float32 trainer's checkpoint loaded into a
+  ``params_dtype='bfloat16'`` model (every table rounded to nearest
+  even, bf16 compute) and scored: the metrics within ``atol`` of the
+  float32 model's."""
+  import torch
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  with tempfile.TemporaryDirectory() as tmp:
+    path = trainer.save_state(os.path.join(tmp, 'f32'))
+    served = Recoder(DynamicAutoencoder(params_dtype='bfloat16'),
+                     device=device)
+    served.init_from_model_file(path)
+  for name, p in served.model.params().items():
+    want = trainer.model.params()[name].detach().to(torch.bfloat16)
+    if p.dtype != torch.bfloat16 or not torch.equal(p, want):
+      raise AssertionError(f'(28 d) {name} is not the float32 table '
+                           'rounded to bf16')
+  results = served._evaluate(val_ds, 100, metrics, batch_size=500)
+  got = {str(m): float(np.mean(v)) for m, v in results.items()}
+  gaps = {k: abs(got[k] - v) for k, v in means.items()}
+  say('  (28 d) the float32 checkpoint served from bf16 tables: '
+      + ', '.join(f'{k} {v:.4f} (float32 {means[k]:.4f})'
+                  for k, v in got.items()))
+  if max(gaps.values()) > atol:
+    raise AssertionError(f'(28 d) bf16 serving moved the metrics by {gaps}')
+  return got
 
 
 def reload_metrics(trainer, make, val_ds, metrics, means, atol=1e-6):
@@ -1390,10 +1470,11 @@ def phase_ials_quality(train_m, val_m, device='cuda'):
 
 # -- phase 10 --------------------------------------------------------------
 
-def scatter_case(N, d, W, device, seed=0, ntables=3):
+def scatter_case(N, d, W, device, seed=0, ntables=3, dtypes=None):
   """Tables, ids and rows drawn on the card from a generator seeded with
   ``seed``; a repeated id gets the same payload (the kernel's
-  contract)."""
+  contract). ``dtypes``: each table's (and its rows') dtype, float32 by
+  default."""
   import torch
   gen = torch.Generator(device=device)
   gen.manual_seed(seed)
@@ -1402,6 +1483,9 @@ def scatter_case(N, d, W, device, seed=0, ntables=3):
   ids = torch.randint(0, N, (W,), generator=gen, device=device)
   rows = [torch.randn((N, d), generator=gen, device=device)[ids]
           for _ in range(ntables)]
+  if dtypes is not None:
+    tables = [t.to(dt) for t, dt in zip(tables, dtypes)]
+    rows = [r.to(dt) for r, dt in zip(rows, dtypes)]
   return tables, ids, rows
 
 
@@ -1417,7 +1501,7 @@ def check_scatter(tables, ids, rows, what):
   rs.row_scatter_kernel(kernel, ids, rows)
   rs.row_scatter_plain(plain, ids, rows)
   torch.cuda.synchronize()
-  err = max(float((a - b).abs().max()) if a.numel() else 0.0
+  err = max(float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
             for a, b in zip(kernel, plain))
   untouched = torch.ones(tables[0].shape[0], dtype=torch.bool,
                          device=ids.device)
@@ -1762,30 +1846,34 @@ def phase_sparse_quality(train_m, val_m, device='cuda', epochs=30,
 
 # -- phase 14 --------------------------------------------------------------
 
-def adam_problem(shapes, device, seed=0):
-  """Parameters, gradients and bf16 moments at training-like magnitudes;
-  weight decay 2e-5 on the matrices, 0 on the biases (the 1-D tensors)."""
+def adam_problem(shapes, device, seed=0, storage=None):
+  """Parameters, gradients and moments at training-like magnitudes, in
+  ``storage`` = (parameter and gradient dtype, moment dtype), by default
+  float32 and bf16; weight decay 2e-5 on the matrices, 0 on the biases
+  (the 1-D tensors)."""
   import torch
+  p_dtype, m_dtype = storage or (torch.float32, torch.bfloat16)
   gen = torch.Generator(device=device).manual_seed(seed)
 
   def draw(shape, scale, fn=torch.randn):
     return scale * fn(shape, device=device, generator=gen)
 
-  params = [draw(sh, 0.05) for sh in shapes]
-  grads = [draw(sh, 1e-3) for sh in shapes]
-  ms = [draw(sh, 1e-4).bfloat16() for sh in shapes]
-  vs = [draw(sh, 1e-6, torch.rand).bfloat16() for sh in shapes]
+  params = [draw(sh, 0.05).to(p_dtype) for sh in shapes]
+  grads = [draw(sh, 1e-3).to(p_dtype) for sh in shapes]
+  ms = [draw(sh, 1e-4).to(m_dtype) for sh in shapes]
+  vs = [draw(sh, 1e-6, torch.rand).to(m_dtype) for sh in shapes]
   wds = [0.0 if len(sh) == 1 else 2e-5 for sh in shapes]
   return params, grads, ms, vs, wds
 
 
-def check_adam(shapes, device, steps=5):
+def check_adam(shapes, device, steps=5, storage=None):
   """Five steps through the kernel and through its plain version from the
-  same state and gradients: m and v within 1 bf16 ulp, p within 2 float32
-  ulps; returns the largest abs difference of p, m and v."""
+  same state and gradients (``storage``: see :func:`adam_problem`): a
+  bf16 buffer within 1 bf16 ulp, a float32 one within 2 float32 ulps;
+  returns the largest abs difference of p, m and v."""
   import torch
   from recoder_tpu_torch.ops import adam
-  params, grads, ms, vs, wds = adam_problem(shapes, device)
+  params, grads, ms, vs, wds = adam_problem(shapes, device, storage=storage)
   kernel = [[x.clone() for x in xs] for xs in (params, ms, vs)]
   for step in range(1, steps + 1):
     sc = adam.step_scalars(1e-3, step, (0.9, 0.999), 1e-8)
@@ -1793,9 +1881,11 @@ def check_adam(shapes, device, steps=5):
     adam.adam_bf16_plain(params, grads, ms, vs, wds, sc)
   torch.cuda.synchronize()
   err = 0.0
-  for got, ref, ulp in ((kernel[0], params, None), (kernel[1], ms, 'bf16'),
-                        (kernel[2], vs, 'bf16')):
+  for got, ref in ((kernel[0], params), (kernel[1], ms), (kernel[2], vs)):
     for a, b in zip(got, ref):
+      ulp = 'bf16' if b.dtype == torch.bfloat16 else None
+      if a.dtype != b.dtype:
+        raise AssertionError(f'adam kernel: {a.dtype} against {b.dtype}')
       a, b = a.float(), b.float()
       diff = (a - b).abs()
       err = max(err, float(diff.max()))
@@ -1810,17 +1900,18 @@ def check_adam(shapes, device, steps=5):
   return err
 
 
-def time_adam(shapes, device):
+def time_adam(shapes, device, storage=None):
   """Device ms of one step over the parameter set: the kernel, its plain
   version and, as another function's yardstick, torch.optim.Adam(fused=
   True) on float32 state (two groups: decay and no decay), in turns."""
   import torch
   from recoder_tpu_torch.ops import adam
-  params, grads, ms, vs, wds = adam_problem(shapes, device, seed=1)
+  params, grads, ms, vs, wds = adam_problem(shapes, device, seed=1,
+                                            storage=storage)
   sc = adam.step_scalars(1e-3, 10, (0.9, 0.999), 1e-8)
-  leaves = [torch.nn.Parameter(p.clone()) for p in params]
+  leaves = [torch.nn.Parameter(p.float()) for p in params]
   for leaf, g in zip(leaves, grads):
-    leaf.grad = g.clone()
+    leaf.grad = g.float()
   fused = torch.optim.Adam(
       [{'params': [x for x, w in zip(leaves, wds) if w], 'weight_decay': 2e-5},
        {'params': [x for x, w in zip(leaves, wds) if not w],
@@ -2825,7 +2916,7 @@ def family_paths(dataset, kernel, plain, kw, kernels, rtol, what,
   rel = compare_losses(kernel.last_epoch_losses, losses, rtol, what)
   table_rel = {}
   for name in tables:
-    a, b = kernel.model.params()[name], plain.model.params()[name]
+    a, b = (t.model.params()[name].float() for t in (kernel, plain))
     table_rel[name] = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
     if not table_rel[name] <= TABLE_RTOL:
       raise AssertionError(f'{what}: {name} after {steps} steps, kernel vs '
@@ -3080,16 +3171,19 @@ ML20M_BF16_STEP = {'fused_decode_loss_fwd_bf16_wgmma': 1,
 CELL_KERNELS['ml20m_neg'] = CELL_KERNELS['ml20m']
 
 
-def _ml20m_trainer(plain=False, device='cuda'):
+def _ml20m_trainer(plain=False, device='cuda', params_dtype=None,
+                   compute_dtype='bfloat16'):
   """bench.py's ML-20M model and trainer (bf16 compute and moments, 'mse'
-  confidence 3); ``plain``: the same loss as an ``MSELoss`` instance,
+  confidence 3; ``params_dtype``: its --params-dtype, ``compute_dtype``
+  its --dtype); ``plain``: the same loss as an ``MSELoss`` instance,
   which bypasses the fused decode-loss kernel."""
   from recoder_tpu_torch.model import Recoder
   from recoder_tpu_torch.models import DynamicAutoencoder
   from recoder_tpu_torch.ops.losses import MSELoss
   loss = MSELoss(confidence=3, reduction='sum') if plain else 'mse'
   return Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
-                                    compute_dtype='bfloat16'),
+                                    compute_dtype=compute_dtype,
+                                    params_dtype=params_dtype),
                  optimizer_type='adam', loss=loss,
                  loss_params=None if plain else {'confidence': 3},
                  device=device, opt_state_dtype='bfloat16')
@@ -3640,16 +3734,426 @@ def phase_full_catalog_sparse(msd, device='cuda'):
 
 
 def phase_large_catalog(card):
-  """Phase 27 (a)-(c); (d) runs beside phase 26 (d) while the MSD CSR
-  exists, (e) inside phase 6."""
+  """Phase 27 (a)-(c) and, on their data, phase 28 (b) and (c); 27 (d)
+  runs beside phase 26 (d) while the MSD CSR exists, (e) inside phase
+  6."""
   train_m, val_in, val_tg = msd_big_data()
   trainer, a = phase_msd_big(train_m, val_in, val_tg)
-  del train_m
   b = phase_msd_big_scoring(trainer, val_in, val_tg)
   del trainer
+  storage_b = run('28 bf16 storage (b): msd-big', phase_storage_msd_big,
+                  train_m)
+  del train_m
   c = phase_stress_scoring()
+  storage_c = run('28 bf16 storage (c): 10,000,000 items',
+                  phase_storage_scoring)
   say(f'  card: {card}')
-  return a, b, c
+  return a, b, c, storage_b, storage_c
+
+
+# -- phase 28 --------------------------------------------------------------
+
+BF16 = 'bfloat16'
+#: phase 28 (a): bench.py's ML-20M default with --params-dtype bfloat16
+STORAGE_RATE = 'ml20m_bf16_params_user_batches_per_sec'
+CELL_KERNELS['ml20m_bf16_params'] = CELL_KERNELS['ml20m']
+#: the float32 step over bf16 storage: the 3xTF32 pair, Adam
+F32_OVER_BF16_STEP = {'fused_decode_loss_fwd': 1, 'fused_decode_loss_bwd': 1,
+                      'adam_bf16': 1}
+#: (e)'s Adam storage pairs (parameters, moments), beside phase 14's
+ADAM_STORAGE = {'bf16 p / bf16 m': (BF16, BF16),
+                'bf16 p / f32 m': (BF16, 'float32')}
+
+
+def _dtypes(*names):
+  import torch
+  return tuple(getattr(torch, n) for n in names)
+
+
+def phase_storage_kernels(device='cuda', full=(500, 200, 20224),
+                          union=(500, 200, 18117)):
+  """(e) Each kernel variant that reads or writes bf16 tables against its
+  plain version, timed beside its bound: the wgmma decode-loss pair on
+  bf16 rows at the ML-20M step (and bitwise the float32 rows of the same
+  values), the mma.sync pair at an MSD union width, the 3xTF32 pair over
+  bf16 rows (float32 compute); the Adam kernel's bf16-parameter pairs
+  over the ML-20M parameter set. Returns {kernel: {variant: numbers}}."""
+  import torch
+  from recoder_tpu_torch.ops import fused_decode_loss as fdl
+  bf = torch.bfloat16
+  out = {}
+
+  def note(name, variant, **numbers):
+    out.setdefault(name, {})[variant] = numbers
+
+  errs = {}
+  for shape, route, cases in (
+      (full, 'wgmma', [('mse', 0.0), ('mse', 3.0), ('logistic', 0.0)]),
+      (union, 'mma', [('mse', 3.0)])):
+    for kind, c in cases:
+      *err, got = compare_kernel(*shape, kind, c, device, bf, BF16, route,
+                                 rows_dtype=bf)
+      errs.setdefault(route, []).append(err)
+  # bf16 rows against float32 rows holding the same values: bitwise
+  h, rows, bias, target, rm, cm = make_problem(*full, device)
+  target = target.to(bf)
+  rows, bias = rows.to(bf), bias.to(bf)
+  runs = []
+  for r, b in ((rows, bias), (rows.float(), bias.float())):
+    leaves = [x.clone().requires_grad_(True) for x in (h, r, b)]
+    fdl.fused_decode_loss(*leaves, target, rm, cm, 'mse', 3.0,
+                          BF16).backward()
+    runs.append([x.grad.float() for x in leaves])
+  if not all(torch.equal(a, b.to(bf).float())
+             for a, b in zip(runs[0], runs[1])):
+    raise AssertionError('(e) bf16 rows: the gradients are not those of '
+                         'the float32 rows of the same values')
+  say('  (e) bf16 rows on the wgmma route: gradients bitwise those of '
+      'float32 rows holding the same values, each rounded once')
+  *f32_err, _ = compare_kernel(*full, 'mse', 3.0, device, rows_dtype=bf)
+  times = time_kernel(*full, 'mse', 3.0, device, BF16, bf,
+                      routes=('wgmma', 'mma'), rows_dtype=bf)
+  report_times(times, full, f'bf16 rows, mse c=3 {list(full)}',
+               target_bytes=2, bf16=True, param_bytes=2)
+  bounds = decode_loss_bounds(*full, target_bytes=2, bf16=True,
+                              param_bytes=2)
+  f32_times = time_kernel(*full, 'mse', 3.0, device, rows_dtype=bf)
+  report_times(f32_times, full, f'float32 compute over bf16 rows {list(full)}',
+               param_bytes=2)
+  f32_bounds = decode_loss_bounds(*full, param_bytes=2)
+  dev = times['device']
+  for route, fwd, bwd in (
+      ('wgmma', 'fused_decode_loss_fwd_bf16_wgmma',
+       'fused_decode_loss_bwd_bf16_wgmma'),
+      ('mma', 'fused_decode_loss_fwd_bf16', 'fused_decode_loss_bwd_bf16')):
+    loss_e = max(e[0] for e in errs[route])
+    grad_e = max(e[1] for e in errs[route])
+    for name, step, e in ((fwd, 'fwd', loss_e), (bwd, 'bwd', grad_e)):
+      note(name, 'bf16 rows', max_abs_err=e, ms=dev[route][step],
+           plain_ms=dev['plain'][step], bound_ms=bounds[step][0],
+           bound_by=bounds[step][1], shape=list(full))
+  fdev = f32_times['device']
+  for name, step, e in (('fused_decode_loss_fwd', 'fwd', f32_err[0]),
+                        ('fused_decode_loss_bwd', 'bwd', f32_err[1])):
+    note(name, 'float32 compute over bf16 rows', max_abs_err=e,
+         ms=fdev['kernel'][step], plain_ms=fdev['plain'][step],
+         bound_ms=f32_bounds[step][0], bound_by=f32_bounds[step][1],
+         shape=list(full))
+
+  n = sum(int(np.prod(sh)) for sh in ML20M_PARAM_SHAPES)
+  for variant, names in ADAM_STORAGE.items():
+    storage = _dtypes(*names)
+    err = max(check_adam(ML20M_PARAM_SHAPES, device, storage=storage),
+              check_adam(((1_000_003,),), device, storage=storage))
+    t = time_adam(ML20M_PARAM_SHAPES, device, storage=storage)
+    per = 3 * storage[0].itemsize + 4 * storage[1].itemsize
+    b_ms, by = bound(0.0, float(per) * n)
+    say(f'  (e) adam {variant}: 5 steps over {n:,} parameters and 1,000,003 '
+        f'against the plain version, max abs diff {err:.3g} (bf16 buffers '
+        f'within 1 bf16 ulp, float32 within 2 float32 ulps); device time '
+        f'kernel {t["kernel"]:.4f} ms, plain {t["plain"]:.4f} ms, '
+        f'torch.optim.Adam(fused=True) on float32 state (another function) '
+        f'{t["torch.optim.Adam(fused=True), float32 state"]:.4f} ms; bound '
+        f'{b_ms:.4f} ms ({by}: {per} B a parameter), kernel at '
+        f'{100 * b_ms / t["kernel"]:.1f}%')
+    note('adam_bf16', variant, max_abs_err=err, ms=t['kernel'],
+         plain_ms=t['plain'], bound_ms=b_ms, bound_by=by)
+  return out
+
+
+def storage_cells(dataset, trainers, kw):
+  """Bench.py's ML-20M default at float32 and at bf16 parameters, each
+  captured ('auto') after its first captured call, then in turns (f32,
+  bf16, bf16, f32) captured and eager: rates, peak device memory above
+  the resident, and a profile of 64 replayed steps (device ms, launches,
+  each hand kernel by name) and of 16 eager steps."""
+  import torch
+  out = {}
+  for name, tr in trainers.items():
+    tr.train(dataset, num_epochs=tr.current_epoch, **kw)
+    if not tr.last_epoch_dispatch.startswith('captured'):
+      raise AssertionError(f'(a) {name}: did not capture')
+    out[name] = {'captured': [], 'eager': [], 'peak': {}}
+  order = list(trainers) + list(trainers)[::-1]
+  for mode, spc in (('captured', 'auto'), ('eager', 1)):
+    for name in order:
+      tr = trainers[name]
+      torch.cuda.synchronize()
+      resident = torch.cuda.memory_allocated()
+      torch.cuda.reset_peak_memory_stats()
+      tr.train(dataset, num_epochs=tr.current_epoch,
+               fused_steps_per_call=spc, **kw)
+      torch.cuda.synchronize()
+      out[name][mode].append(len(tr.last_epoch_losses)
+                             / tr.last_epoch_seconds)
+      out[name]['peak'][mode] = (torch.cuda.max_memory_allocated()
+                                 - resident) / 2 ** 30
+      out[name]['resident'] = resident / 2 ** 30
+  for name, tr in trainers.items():
+    for _ in range(3):  # (the profiler at times drops a device event)
+      _, busy, launches, counts = profile_steps(
+          tr, dataset, kw, steps=64, spc='auto',
+          kernels=CELL_KERNELS['ml20m'])
+      if all(v == 64 for v in counts.values()):
+        break
+    else:
+      raise AssertionError(f'(a) {name} captured: kernels in 64 steps '
+                           f'{counts}')
+    _, ebusy, elaunches, _ = profile_steps(tr, dataset, kw, steps=16, spc=1)
+    state = [v for st in tr.optimizer.state.values() for v in st.values()
+             if torch.is_tensor(v) and v.dim()]
+    out[name].update(busy=busy, launches=launches, counts=counts,
+                     eager_busy=ebusy, eager_launches=elaunches,
+                     params_gib=sum(p.numel() * p.element_size()
+                                    for p in tr.model.parameters()) / 2 ** 30,
+                     state_gib=sum(v.numel() * v.element_size()
+                                   for v in state) / 2 ** 30)
+  for name, o in out.items():
+    say(f'  (a) {name}: captured {STORAGE_RATE if "bf16" in name else "ml20m_user_batches_per_sec"} '
+        + ', '.join(f'{r:.2f}' for r in o['captured'])
+        + ', eager ' + ', '.join(f'{r:.2f}' for r in o['eager'])
+        + f'; device {o["busy"]:.3f} ms and {o["launches"]:.1f} launches a '
+        f'replayed step ({o["eager_busy"]:.3f} ms, {o["eager_launches"]:.1f}'
+        f' eager); hand kernels in 64 replayed steps {o["counts"]}; an '
+        f'epoch\'s peak above the {o["resident"]:.2f} GiB resident: captured '
+        f'{o["peak"]["captured"]:.3f}, eager {o["peak"]["eager"]:.3f} GiB; '
+        f'parameters {o["params_gib"]:.4f} GiB, moments '
+        f'{o["state_gib"]:.4f} GiB')
+  return out
+
+
+def phase_storage_ml20m(matrix, train_m):
+  """(a) bench.py's ML-20M default with --params-dtype bfloat16 (bf16
+  compute, moments and parameters): 20 steps against the plain path, the
+  fixture captured bitwise eager, and captured and eager in turns beside
+  the float32-parameter default; 20 bf16-parameter union steps (the
+  mma.sync route on ragged union widths, wgmma where a width is a
+  multiple of 8) and 20 steps of float32 compute over bf16 storage (the
+  3xTF32 pair on a float32 copy of the rows), each against the plain
+  path."""
+  import torch
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  dataset = RecommendationDataset(matrix)
+  per_step = {}
+  kernel = _ml20m_trainer(params_dtype=BF16)
+  per_step['ml20m_bf16_params'] = family_paths(
+      dataset, kernel, _ml20m_trainer(plain=True, params_dtype=BF16),
+      ML20M_TRAIN, ML20M_BF16_STEP, BF16_PATHS_RTOL,
+      '(a) ML-20M, bf16 parameters')
+  if not all(p.dtype == torch.bfloat16 for p in kernel.model.parameters()):
+    raise AssertionError('(a) a parameter left bf16 storage')
+
+  def fixture_trainer():
+    return Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                      params_dtype=BF16),
+                   optimizer_type='adam', loss='mse',
+                   loss_params={'confidence': 3}, opt_state_dtype=BF16)
+  family_fixture_bitwise(train_m, fixture_trainer, CAPTURE_FIXTURE)
+
+  union_kw = dict(ML20M_TRAIN, full_decode=False)
+  union = _ml20m_trainer(params_dtype=BF16)
+  reset_launches()
+  union.train(dataset, num_epochs=1, iters_per_epoch=20,
+              fused_steps_per_call=1, **union_kw)
+  torch.cuda.synchronize()
+  counts = {k: v for k, v in read_launches().items() if v}
+  fwd = sum(counts.get(f'fused_decode_loss_fwd_bf16{r}', 0)
+            for r in ('', '_wgmma'))
+  if fwd != 20 or counts.get('adam_bf16') != 20 or not counts.get(
+      'fused_decode_loss_fwd_bf16'):
+    raise AssertionError(f'(a) the bf16-parameter union steps launched '
+                         f'{counts}')
+  plain = plain_trainer_run(_ml20m_trainer(plain=True, params_dtype=BF16),
+                            dataset, 20, dict(union_kw,
+                                              fused_steps_per_call=1))
+  rel = compare_losses(union.last_epoch_losses, plain, BF16_PATHS_RTOL,
+                       '(a) bf16-parameter union steps')
+  per_step['ml20m_bf16_params_union'] = {k: v / 20 for k, v in
+                                         counts.items()}
+  say(f'  (a) 20 bf16-parameter union steps (widths '
+      f'{union_widths(union).tolist()}): launches {counts}; losses vs the '
+      f'plain path max rel {rel:.3g}')
+  del union
+  per_step['ml20m_f32_compute_bf16_params'] = family_paths(
+      dataset, _ml20m_trainer(params_dtype=BF16, compute_dtype='float32'),
+      _ml20m_trainer(plain=True, params_dtype=BF16, compute_dtype='float32'),
+      ML20M_TRAIN, F32_OVER_BF16_STEP, BF16_PATHS_RTOL,
+      '(a) ML-20M, float32 compute over bf16 parameters')
+
+  trainers = {'float32 parameters (bench.py default)': _ml20m_trainer(),
+              'bf16 parameters': kernel}
+  cells = storage_cells(dataset, trainers, ML20M_TRAIN)
+  per_step['ml20m_bf16_params_captured'] = {
+      name: cells['bf16 parameters']['counts'][key] / 64
+      for name, key in (
+          ('fused_decode_loss_fwd_bf16_wgmma',
+           'decode_loss_fwd_bf16_wgmma_kernel'),
+          ('fused_decode_loss_bwd_bf16_wgmma',
+           'drows_dbias_bf16_wgmma_kernel'),
+          ('adam_bf16', 'adam_bf16_kernel'))}
+  return per_step, cells
+
+
+def resident_gib(trainer):
+  """The bytes of the tables and their moments (the row-sparse Adam's)
+  and, beside them, the same elements at float32 (phase 27 (a)'s
+  configuration), in GiB."""
+  tensors = [trainer.model.params()[p] for p in trainer.sparse_states]
+  tensors += [st[k] for st in trainer.sparse_states.values()
+              for k in ('m', 'v')]
+  got = sum(t.numel() * t.element_size() for t in tensors)
+  return got / 2 ** 30, sum(t.numel() * 4 for t in tensors) / 2 ** 30
+
+
+def phase_storage_msd_big(train_m, device='cuda', steps=60):
+  """(b) phase 27 (a)'s msd-big step with bf16 parameters and bf16
+  moments: 20 steps against the plain path (two row-scatter launches
+  and one Adam launch a step), the row scatter bitwise index_copy_ at
+  [1,000,192, 200] x the widest union for both moment dtypes and timed
+  beside its bound, ``steps`` more steps timed and profiled; the
+  resident bytes of tables and moments against float32."""
+  import torch
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  from recoder_tpu_torch.ops import row_scatter as rs
+
+  def make():
+    return Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                      sparse=True, compute_dtype=BF16,
+                                      params_dtype=BF16),
+                   optimizer_type='adam', loss='logloss', user_based=False,
+                   eval_item_chunk=LARGE_CHUNK, opt_state_dtype=BF16,
+                   device=device)
+
+  train_ds = RecommendationDataset(train_m)
+  kernel, plain = make(), make()
+  per_step = family_paths(train_ds, kernel, plain, MSD_BIG_TRAIN,
+                          {'row_scatter': 2, 'adam_bf16': 1},
+                          BF16_PATHS_RTOL, '(b) msd-big, bf16 storage',
+                          tables=('en_embedding', 'de_embedding'))
+  del plain
+  gib, f32_gib = resident_gib(kernel)
+  for st in kernel.sparse_states.values():
+    if st['m'].dtype != torch.bfloat16:
+      raise AssertionError('(b) the table moments are not bf16')
+  widths = union_widths(kernel)
+  n_rows = kernel.model.params()['en_embedding'].shape[0]
+  W, d = int(widths.max()), 200
+  variants = {}
+  for variant, names in (('all bf16', (BF16,) * 3),
+                         ('bf16 table, f32 moments',
+                          (BF16, 'float32', 'float32'))):
+    dtypes = _dtypes(*names)
+    tables, ids, rows = scatter_case(n_rows, d, W, device, dtypes=dtypes)
+    err = check_scatter(tables, ids, rows, f'{variant} [{n_rows}, {d}]')
+
+    def k_call():
+      rs.row_scatter_kernel(tables, ids, rows)
+
+    def p_call():
+      for t, r in zip(tables, rows):
+        t.index_copy_(0, ids, r)
+
+    # from a cold L2, as phase 10 times it: before each call a read of
+    # 256 MB writes the last call's rows back and leaves L2 clean
+    sweep = torch.ones(2 ** 26, device=device)
+    times = {name: device_ms(fn, between=sweep.sum, skip='reduce_kernel')
+             for name, fn in (('kernel', k_call), ('plain', p_call))}
+    del sweep
+    moved = sum(2 * W * d * dt.itemsize for dt in dtypes) + 8 * W
+    b_ms, by = bound(0.0, float(moved))
+    variants[variant] = dict(max_abs_err=err, ms=times['kernel'],
+                             plain_ms=times['plain'], bound_ms=b_ms,
+                             bound_by=by, library_ms=times['plain'],
+                             shape=[n_rows, d, W])
+    say(f'  (b) row_scatter {variant} at [{n_rows:,}, {d}] x {W:,} ids: '
+        f'bitwise index_copy_; device time a call from a cold L2 kernel '
+        f'{times["kernel"]:.4f} ms, index_copy_ x3 {times["plain"]:.4f} '
+        f'ms; bound {b_ms:.4f} ms '
+        f'({by}: {moved / 1e6:.1f} MB)')
+    del tables, rows
+  torch.cuda.synchronize()
+  base = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  kernel.train(train_ds, num_epochs=1, iters_per_epoch=steps,
+               fused_steps_per_call=1, **MSD_BIG_TRAIN)
+  torch.cuda.synchronize()
+  peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+  rate = len(kernel.last_epoch_losses) / kernel.last_epoch_seconds
+  _, busy_ms, launches, _ = profile_steps(kernel, train_ds, MSD_BIG_TRAIN,
+                                          steps=10)
+  say(f'  (b) msd-big with bf16 tables and moments: {MSD_BIG_RATE} '
+      f'{rate:.2f} over {steps} eager steps ({1e3 / rate:.3f} ms a step), '
+      f'{busy_ms:.3f} ms of device time and {launches:.1f} launches a '
+      f'profiled step; tables and moments resident {gib:.3f} GiB against '
+      f'{f32_gib:.3f} GiB at float32; peak {peak:.3f} GiB above the '
+      f'{base / 2 ** 30:.2f} GiB allocated before the steps')
+  return {'per_step': per_step, 'rate': rate, 'busy_ms': busy_ms,
+          'gib': gib, 'f32_gib': f32_gib, 'peak': peak,
+          'scatter': variants}
+
+
+def phase_storage_scoring(device='cuda', reference_users=100):
+  """(c) phase 27 (c)'s 10,000,000 x 128 scorer from bf16 tables (drawn
+  on the card in float32 from the same generator, rounded once): ms and
+  peak memory for 500 users in the chunks Recoder resolves; the first
+  ``reference_users`` users' ids the top-k of the same arithmetic over
+  the whole catalog at once, but for swaps within 1e-5 of the largest
+  score."""
+  import torch
+  from recoder_tpu_torch.data import UsersInteractions, synthetic
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  from recoder_tpu_torch.models.base import pad_dim
+  from recoder_tpu_torch.ops.topk import top_k
+  model = DynamicAutoencoder([STRESS_DIM], 'tanh', params_dtype=BF16)
+  trainer = Recoder(model, num_items=STRESS_ITEMS, device=device)
+  model.num_items, model.num_items_padded = STRESS_ITEMS, pad_dim(STRESS_ITEMS)
+  gen = torch.Generator(device=device).manual_seed(0)
+  limit = float(np.sqrt(6.0 / (STRESS_DIM + STRESS_ITEMS)))
+  W = model.num_items_padded
+
+  def table(*shape, scale=limit):
+    return torch.empty(shape, device=device).uniform_(
+        -scale, scale, generator=gen).to(torch.bfloat16)
+  model.register_params({
+      'en_embedding': table(W, STRESS_DIM),
+      'en_bias': torch.zeros(STRESS_DIM, device=device),
+      'de_embedding': table(W, STRESS_DIM), 'de_bias': table(W, scale=0.1)})
+  trainer._model_initialized = True
+  if any(p.dtype != torch.bfloat16 for p in model.parameters()):
+    raise AssertionError('(c) the tables are not bf16')
+  tables_gib = sum(p.numel() * p.element_size()
+                   for p in model.parameters()) / 2 ** 30
+  m = synthetic.synthesize(500, STRESS_ITEMS, 50, seed=1)
+  users = UsersInteractions(np.arange(500), m)
+  recs, ms, gib = _recommend_timed(trainer, users, None)
+  check_recommendations([np.asarray(r) for r in recs], m, 100, STRESS_ITEMS)
+  sub = UsersInteractions(np.arange(reference_users), m[:reference_users])
+  s = _reference_scores(trainer, sub)
+  tol = SCORE_TOL_F32 * float(s[torch.isfinite(s)].abs().max())
+  ref_v, ref_i = top_k(s, 101)
+  got = s.gather(1, torch.tensor(recs[:reference_users], device=s.device))
+  worst = float((got - ref_v[:, :100]).abs().max())
+  ref = ref_v.cpu().numpy()
+  decided = ref[:, 99] - ref[:, 100] > tol
+  ids = ref_i[:, :100].cpu().numpy()
+  differ = [u for u in np.flatnonzero(decided)
+            if set(recs[u]) != set(ids[u])]
+  if not worst <= tol or differ:
+    raise AssertionError(f'(c) bf16 tables: chunked ids off the reference '
+                         f'(worst {worst}, tolerance {tol}; users {differ})')
+  del s
+  say(f'  (c) {STRESS_ITEMS:,} x d={STRESS_DIM} from bf16 tables '
+      f'({tables_gib:.2f} GiB; float32 {2 * tables_gib:.2f}): recommend '
+      f'k=100 for 500 users {ms:.2f} ms, peak {gib:.3f} GiB over the tables;'
+      f' {reference_users} users against the top-k of the whole catalog at '
+      f'once: scores within {worst:.3g} rank by rank (tolerance {tol:.3g}), '
+      f'{int(decided.sum())} decided, the same id sets')
+  return {'ms': ms, 'gib': gib, 'tables_gib': tables_gib}
 
 
 def run(name, fn, *args, **kwargs):
@@ -3709,7 +4213,9 @@ def main():
                          f'{launches}')
   train_m, val_m = load_fixture()
   run('5 paths', phase_paths, train_m)
-  run('6 quality', phase_quality, train_m, val_m, chunked=1024)
+  # (phase 28 (d)'s float32 checkpoint served from bf16 tables runs here)
+  run('6 quality', phase_quality, train_m, val_m, chunked=1024,
+      serve_bf16=True)
   spd_err, spd_times = run('7 spd kernel', phase_spd)
   (launches['spd_solve'], ials_launches_per_sweep, ials_fit_s,
    ials_sweeps) = run('8 ials slice', phase_ials_slice, matrix)
@@ -3779,9 +4285,16 @@ def main():
   (neg_per_step, (_, neg_cell), neg_blocks_rate, neg_scatter_rate,
    (neg_routes, neg_widths), neg_quality) = run(
        '26 negatives', phase_negatives, matrix, train_m, val_m)
+  storage_kernels = run('28 bf16 storage (e): kernel variants',
+                        phase_storage_kernels)
+  storage_per_step, storage_cells_out = run(
+      '28 bf16 storage (a): ML-20M', phase_storage_ml20m, matrix, train_m)
   del matrix
-  big, big_scoring, stress = run('27 large catalog (a)-(c)',
-                                 phase_large_catalog, card)
+  storage_quality = run('28 bf16 storage (d): fixture gate', phase_quality,
+                        train_m, val_m, compute_dtype=BF16,
+                        opt_state_dtype=BF16, params_dtype=BF16)
+  big, big_scoring, stress, storage_msd, storage_scoring = run(
+      '27 large catalog (a)-(c)', phase_large_catalog, card)
   # launches a step of each kernel on the MF / Mult-VAE paths: eager
   # epochs and compared steps by the counters, captured replays by the
   # profiles' names
@@ -3890,6 +4403,14 @@ def main():
                        **full_catalog_per_step}.items():
     for name in SOURCES:
       large.setdefault(name, {})[path] = counts.get(name, 0.0)
+  # launches a step on the bf16-storage paths (phase 28), and each
+  # kernel's variants over bf16 tables (28 (e), the row scatter's in (b))
+  storage = {}
+  for path, counts in {**storage_per_step,
+                       'msd_big_bf16_storage': storage_msd['per_step']}.items():
+    for name in SOURCES:
+      storage.setdefault(name, {})[path] = counts.get(name, 0.0)
+  storage_kernels['row_scatter'] = storage_msd['scatter']
   kernels = [{'name': name, 'route': 'cuda', 'source': SOURCES[name],
               'replaces': REPLACES[name], 'launches': launches[name],
               'launches_per_step': per_step, 'max_abs_err': err, 'ms': ms,
@@ -3911,7 +4432,12 @@ def main():
               # negatives (phase 26)
               'negatives_launches_per_step': negatives.get(name),
               # launches a step on the large-catalog paths (phase 27)
-              'large_catalog_launches_per_step': large[name]}
+              'large_catalog_launches_per_step': large[name],
+              # launches a step on the bf16-storage paths (phase 28), and
+              # the variants over bf16 tables (max_abs_err, ms, plain_ms,
+              # bound_ms, bound_by, library_ms where one exists)
+              'bf16_storage_launches_per_step': storage[name],
+              'bf16_storage_variants': storage_kernels.get(name)}
              for name, (err, ms, plain_ms, library_ms, (bound_ms, by),
                         per_step) in measured.items()]
   # the packed kernel's mask-only launch (phase 17), beside its bound
@@ -4010,7 +4536,17 @@ def main():
       f'top-k at [500, 1,000,192] ops/topk {big_scoring["top_k_ms"]:.3f} ms, '
       f'torch.topk {big_scoring["torch_topk_ms"]:.3f} ms; 10,000,000 items '
       f'{stress["ms"]:.2f} ms ({stress["gib"]:.3f} GiB); full-catalog sparse '
-      f'MSD {full_catalog_rate:.2f}; card {card}')
+      f'MSD {full_catalog_rate:.2f}; bf16 storage: ML-20M captured '
+      + '; '.join(f'{name} {max(o["captured"]):.2f} ({o["busy"]:.3f} ms a '
+                  f'step, peak {o["peak"]["captured"]:.3f} GiB)'
+                  for name, o in storage_cells_out.items())
+      + f', msd-big {storage_msd["rate"]:.2f} ({storage_msd["gib"]:.3f} '
+      f'against {storage_msd["f32_gib"]:.3f} GiB of tables and moments), '
+      f'10,000,000 items from bf16 tables {storage_scoring["ms"]:.2f} ms '
+      f'({storage_scoring["gib"]:.3f} GiB over '
+      f'{storage_scoring["tables_gib"]:.2f} GiB), fixture '
+      + ', '.join(f'{k} {v:.4f}' for k, v in storage_quality.items())
+      + f'; card {card}')
   say(json.dumps({'kernels': kernels}))
   say(card)
   say(json.dumps({'ok': True, 'device': {

@@ -10,7 +10,8 @@ package ``__init__`` imports jax).
 Ported so far -- the DynamicAutoencoder training paths (full-catalog
 decode from a dense or a bit-packed slab or a per-step scatter, item
 union, sparse tables; mega-batches and random extra negatives on each;
-float32, and bench.py's bf16 compute with bf16 Adam moments), training
+float32, bench.py's bf16 compute with bf16 Adam moments, and bf16
+parameter storage with bf16 or float32 moments, sparse tables too), training
 against a target matrix (the host loader, and dual CSRs in 'blocks'
 mode) and the validation loss inside ``train``, the trainer for any
 model written to the ``FactorizationModel`` contract (with the aux-loss
@@ -38,6 +39,7 @@ iALS:
   recoder_tpu/checkpoint.py             -> recoder_tpu_torch.checkpoint
   (new) weights bridge                  -> recoder_tpu_torch.convert
   recoder_tpu/models/base.py            -> recoder_tpu_torch.models.base
+      (params_dtype, and model.py's _adapt_array cast -> adapt_array)
   recoder_tpu/models/autoencoder.py     -> recoder_tpu_torch.models.autoencoder
   recoder_tpu/models/matrix_factorization.py
       -> recoder_tpu_torch.models.matrix_factorization
@@ -56,9 +58,15 @@ iALS:
          + recoder_tpu_torch/kernels/fused_decode_loss.cu
   recoder_tpu/optim.py                  -> recoder_tpu_torch.optim
       (fold_dual_union -> recoder_tpu_torch.optim.fold_dual_union)
-      (Optimizer('adam', state_dtype='bfloat16'))
+      (Optimizer('adam', state_dtype='bfloat16'), and 'adam' over
+      params_dtype='bfloat16' parameters with either moment dtype)
       -> recoder_tpu_torch.optim.Bf16Adam + recoder_tpu_torch.ops.adam
          + recoder_tpu_torch/kernels/adam.cu
+      (the other kinds over bf16 parameters: update's float32 anchoring)
+      -> recoder_tpu_torch.optim.Float32AnchoredOptimizer
+      (SparseRowAdam over bf16 tables and with state_dtype='bfloat16')
+      -> recoder_tpu_torch.optim.SparseRowAdam + the row scatter over
+         mixed element sizes
   recoder_tpu/model.py                  -> recoder_tpu_torch.model
       (fused_steps_per_call: captured CUDA graphs of full-decode steps)
       (_stage_batch, _to_device, _device_batch_iter: the host loader's

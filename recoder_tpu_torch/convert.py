@@ -47,6 +47,7 @@ takes them back out.
 import numpy as np
 import torch
 
+from recoder_tpu_torch.models.base import adapt_array
 from recoder_tpu_torch.optim import uses_device_steps
 
 #: JAX state-tree key -> torch.optim per-parameter state key, per kind
@@ -58,9 +59,12 @@ STATE_KEYS = {
 }
 
 
-def params_from_numpy(arrays, device=None):
-  """``{name: np.ndarray}`` -> ``{name: float32 Tensor}`` on ``device``."""
-  return {k: torch.from_numpy(np.array(v, np.float32)).to(device)
+def params_from_numpy(arrays, device=None, dtype=torch.float32):
+  """``{name: np.ndarray}`` -> ``{name: Tensor}`` in ``dtype`` on
+  ``device``. The JAX package's bf16 arrays (ml_dtypes bfloat16, which
+  ``torch.from_numpy`` cannot read) go through float32, which holds every
+  bf16 value: a bf16 array comes back bitwise in ``dtype=bfloat16``."""
+  return {k: torch.from_numpy(np.array(v, np.float32)).to(device, dtype)
           for k, v in arrays.items()}
 
 
@@ -70,13 +74,16 @@ def params_to_numpy(params):
 
 
 def load_params(model, arrays, prefix='model/'):
-  """Copy ``{name: array}`` (a JAX model's ``params``, or a checkpoint's
-  ``model`` tree) into the port ``model``'s parameters in place; a JAX
-  sparse table's feature pad is cut (:func:`fit_table`)."""
+  """Copy ``{name: array}`` (a JAX model's ``params``, bf16 ones
+  included, or a checkpoint's ``model`` tree) into the port ``model``'s
+  parameters in place, each cast to its parameter's dtype (rounded to
+  nearest even: a float32 array into bf16 storage, as the JAX
+  ``_adapt_array``); a JAX sparse table's feature pad is cut
+  (:func:`fit_table`)."""
   with torch.no_grad():
     for name, p in model.params().items():
-      p.copy_(torch.from_numpy(fit_table(f'{prefix}{name}', tuple(p.shape),
-                                         arrays[name])))
+      p.copy_(adapt_array(p, fit_table(f'{prefix}{name}', tuple(p.shape),
+                                       arrays[name])))
 
 
 def to_jax_table(arr, shape):
@@ -154,13 +161,14 @@ def fit_table(name, shape, arr):
   return arr
 
 
-def sparse_state_from_numpy(tree, table):
+def sparse_state_from_numpy(tree, table, dtype=torch.float32):
   """One table's row-sparse Adam state from the JAX tree ``{'step', 'm',
-  'v'}``, as float32 tensors beside ``table``."""
+  'v'}``, as tensors in ``dtype`` (the optimizer's state dtype; rounded
+  to nearest even) beside ``table``."""
   shape = tuple(table.shape)
   return {'step': int(np.asarray(tree['step'])),
           **{k: torch.from_numpy(fit_table(f'sparse_optimizer/{k}', shape,
-                                           tree[k])).to(table.device)
+                                           tree[k])).to(table.device, dtype)
              for k in ('m', 'v')}}
 
 

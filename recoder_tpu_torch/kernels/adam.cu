@@ -1,21 +1,31 @@
-// Fused Adam step with bfloat16 moments, for Hopper (sm_90a).
+// Fused Adam step with bfloat16 storage, for Hopper (sm_90a).
 //
-// No Pallas ancestor: this is how the JAX package's
-// Optimizer('adam', state_dtype='bfloat16') (recoder_tpu/optim.py,
-// update) runs on this card. For every dense parameter tensor, in one
-// launch, elementwise in float32 and in JAX's order of operations:
+// No Pallas ancestor: this is how the JAX package's Optimizer('adam')
+// over bf16 storage (recoder_tpu/optim.py, update: state_dtype='bfloat16'
+// moments and/or params_dtype='bfloat16' parameters, whose gradients are
+// bf16 too) runs on this card. For every dense parameter tensor, in one
+// launch, elementwise in float32 and in JAX's order of operations, each
+// stored value upcast first:
 //
-//   g  = g + wd * p                     (wd = 0 for biases)
+//   g  = g + wd * p                     (wd = 0 for biases; p upcast)
 //   m' = b1 * m + (1 - b1) * g
 //   v' = b2 * v + ((1 - b2) * g) * g
-//   p  = p - (lr / bc1 * m') / (sqrt(v') / sqrt(bc2) + eps)
-//   m  = bf16_rn(m'),  v = bf16_rn(v')
+//   p' = p - (lr / bc1 * m') / (sqrt(v') / sqrt(bc2) + eps)
+//   p = store(p'),  m = store(m'),  v = store(v')
 //
-// with the UNROUNDED m' and v' in the parameter update and bc1 = 1 - b1^t,
-// bc2 = 1 - b2^t computed in float32 on the host (ops/adam.py). Built
-// with -fmad=false (kernels/__init__.py), so no multiply-add is
-// contracted and the plain version (the same operations as separate
-// PyTorch ops) gives the same bits.
+// with the UNROUNDED m' and v' in the parameter update, store() the
+// round to nearest even of a bf16 buffer (a float32 one keeps the value),
+// and bc1 = 1 - b1^t, bc2 = 1 - b2^t computed in float32 on the host
+// (ops/adam.py). Built with -fmad=false (kernels/__init__.py), so no
+// multiply-add is contracted and the plain version (the same operations
+// as separate PyTorch ops) gives the same bits.
+//
+// adam_bf16_kernel<P, M> is built for the three storage pairs the JAX
+// package's modes reach: float32 parameters with bf16 moments
+// (opt_state_dtype='bfloat16', bench.py's ML-20M default), bf16
+// parameters with bf16 moments, and bf16 parameters with float32 moments
+// (params_dtype='bfloat16' alone). P is the parameters' and gradients'
+// type, M the moments'. float32 throughout is torch.optim.Adam's.
 //
 // The step's scalars come from device memory, so that a captured CUDA
 // graph replays every step with its own: the host writes a table of
@@ -26,16 +36,18 @@
 // one to ctl[0]. bc1 and bc2 stay host arithmetic: a device powf may
 // differ from numpy's by an ulp. A row outside the table traps.
 //
-// Bound: bytes. One pass reads p and g (float32) and m and v (bf16) and
-// writes p, m and v: 20 B a parameter against 28 B of float32 state for
-// torch.optim.Adam (8.11 M parameters at the ML-20M shape: 162 MB, 0.048
-// ms at 3.35 TB/s). Design: every tensor of the parameter set in one
-// launch; a block takes a chunk of kChunk elements of one tensor, found
-// by a binary search over a descriptor table that lives in device memory
-// (built once per parameter set by the wrapper; a kernel-parameter array
-// indexed by blockIdx would be copied to local memory in every thread),
-// and moves 16 bytes of p and g and 8 bytes of m and v a thread a step
-// where the tensor allows it.
+// Bound: bytes. One pass reads p, g, m and v and writes p, m and v: 20 B
+// a parameter for float32 p / bf16 m, 14 B for bf16 p / bf16 m, 22 B for
+// bf16 p / float32 m, against 28 B of float32 state for torch.optim.Adam
+// (8.11 M parameters at the ML-20M shape: 162 MB, 0.048 ms at 3.35 TB/s,
+// at float32 p / bf16 m). Design: every tensor of the parameter set in
+// one launch; a block takes a chunk of kChunk elements of one tensor,
+// found by a binary search over a descriptor table that lives in device
+// memory (built once per parameter set by the wrapper; a kernel-parameter
+// array indexed by blockIdx would be copied to local memory in every
+// thread), and moves 4 elements of each buffer a thread a step (16 or 8
+// bytes) where the tensor allows it. Each descriptor names its storage
+// types; one that disagrees with the launch's instantiation traps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,39 +59,63 @@ constexpr int kThreads = 256;
 constexpr int kChunk = 4096;  // elements a block
 constexpr int kTableCols = 8;  // floats a row of the step-scalar table
 
-// One parameter tensor. ops/adam.py packs this layout (56 bytes).
+// One parameter tensor. ops/adam.py packs this layout (64 bytes).
 struct Desc {
-  float* p;
-  const float* g;
-  __nv_bfloat16* m;
-  __nv_bfloat16* v;
+  void* p;
+  const void* g;
+  void* m;
+  void* v;
   long long n;       // elements
   long long chunk0;  // the tensor's first chunk (block) in the launch
   float wd;          // weight decay
-  int vec;           // n % 4 == 0, p and g 16-byte and m, v 8-byte aligned
+  int vec;           // n % 4 == 0 and every buffer aligned to 4 elements
+  int p_bf16;        // p and g are bf16, else float32
+  int m_bf16;        // m and v are bf16, else float32
 };
-static_assert(sizeof(Desc) == 56, "ops/adam.py packs this layout");
+static_assert(sizeof(Desc) == 64, "ops/adam.py packs this layout");
 
 struct Consts {
   float lr_bc1, b1, omb1, b2, omb2, sqrt_bc2, eps;
 };
 
-__device__ __forceinline__ void adam_elem(float& p, float g,
-                                          __nv_bfloat16& m, __nv_bfloat16& v,
-                                          float wd, const Consts& c) {
-  g = g + wd * p;
-  const float m1 = c.b1 * __bfloat162float(m) + c.omb1 * g;
-  const float v1 = c.b2 * __bfloat162float(v) + (c.omb2 * g) * g;
-  const float denom = sqrtf(v1) / c.sqrt_bc2 + c.eps;
-  p = p - (c.lr_bc1 * m1) / denom;
-  m = __float2bfloat16_rn(m1);
-  v = __float2bfloat16_rn(v1);
+__device__ __forceinline__ float up(float x) { return x; }
+__device__ __forceinline__ float up(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T store(float x);
+template <>
+__device__ __forceinline__ float store<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 store<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
 }
 
+// four consecutive elements, as one 16-byte (float) or 8-byte (bf16) word
+template <typename T>
+struct alignas(4 * sizeof(T)) Aligned4 {
+  T x[4];
+};
+
+template <typename P, typename M>
+__device__ __forceinline__ void adam_elem(P& p, P g, M& m, M& v, float wd,
+                                          const Consts& c) {
+  const float p32 = up(p);
+  const float g32 = up(g) + wd * p32;
+  const float m1 = c.b1 * up(m) + c.omb1 * g32;
+  const float v1 = c.b2 * up(v) + (c.omb2 * g32) * g32;
+  const float denom = sqrtf(v1) / c.sqrt_bc2 + c.eps;
+  p = store<P>(p32 - (c.lr_bc1 * m1) / denom);
+  m = store<M>(m1);
+  v = store<M>(v1);
+}
+
+template <typename P, typename M>
 __global__ void __launch_bounds__(kThreads)
     adam_bf16_kernel(const Desc* __restrict__ descs, int ntensors,
                      const float* __restrict__ table, int nrows,
                      const long long* __restrict__ ctl) {
+  constexpr int kPBf16 = sizeof(P) == 2, kMBf16 = sizeof(M) == 2;
   __shared__ int which;
   __shared__ float row_vals[kTableCols];
   if (threadIdx.x < kTableCols) {
@@ -103,31 +139,30 @@ __global__ void __launch_bounds__(kThreads)
   const Consts c = {row_vals[0], row_vals[1], row_vals[2], row_vals[3],
                     row_vals[4], row_vals[5], row_vals[6]};
   const Desc d = descs[which];
+  if (d.p_bf16 != kPBf16 || d.m_bf16 != kMBf16) __trap();  // another launch's
+  P* const pp = static_cast<P*>(d.p);
+  const P* const gp = static_cast<const P*>(d.g);
+  M* const mp = static_cast<M*>(d.m);
+  M* const vp = static_cast<M*>(d.v);
   const long long base = ((long long)blockIdx.x - d.chunk0) * kChunk;
   const long long end = min(base + (long long)kChunk, d.n);
   if (d.vec) {
     for (long long i = base + 4 * threadIdx.x; i < end;
          i += 4 * kThreads) {
-      float4 p = *reinterpret_cast<const float4*>(d.p + i);
-      const float4 g = __ldg(reinterpret_cast<const float4*>(d.g + i));
-      uint2 mb = *reinterpret_cast<const uint2*>(d.m + i);
-      uint2 vb = *reinterpret_cast<const uint2*>(d.v + i);
-      __nv_bfloat16* m = reinterpret_cast<__nv_bfloat16*>(&mb);
-      __nv_bfloat16* v = reinterpret_cast<__nv_bfloat16*>(&vb);
-      adam_elem(p.x, g.x, m[0], v[0], d.wd, c);
-      adam_elem(p.y, g.y, m[1], v[1], d.wd, c);
-      adam_elem(p.z, g.z, m[2], v[2], d.wd, c);
-      adam_elem(p.w, g.w, m[3], v[3], d.wd, c);
-      *reinterpret_cast<float4*>(d.p + i) = p;
-      *reinterpret_cast<uint2*>(d.m + i) = mb;
-      *reinterpret_cast<uint2*>(d.v + i) = vb;
+      Aligned4<P> p = *reinterpret_cast<const Aligned4<P>*>(pp + i);
+      const Aligned4<P> g = *reinterpret_cast<const Aligned4<P>*>(gp + i);
+      Aligned4<M> m = *reinterpret_cast<const Aligned4<M>*>(mp + i);
+      Aligned4<M> v = *reinterpret_cast<const Aligned4<M>*>(vp + i);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        adam_elem<P, M>(p.x[q], g.x[q], m.x[q], v.x[q], d.wd, c);
+      *reinterpret_cast<Aligned4<P>*>(pp + i) = p;
+      *reinterpret_cast<Aligned4<M>*>(mp + i) = m;
+      *reinterpret_cast<Aligned4<M>*>(vp + i) = v;
     }
   } else {
-    for (long long i = base + threadIdx.x; i < end; i += kThreads) {
-      float p = d.p[i];
-      adam_elem(p, d.g[i], d.m[i], d.v[i], d.wd, c);
-      d.p[i] = p;
-    }
+    for (long long i = base + threadIdx.x; i < end; i += kThreads)
+      adam_elem<P, M>(pp[i], gp[i], mp[i], vp[i], d.wd, c);
   }
 }
 
@@ -148,18 +183,28 @@ int adam_table_cols() { return kTableCols; }
 // One step over the ntensors descriptors at `descs` (device memory),
 // nchunks blocks in all (the sum of each tensor's ceil(n / kChunk)), with
 // the scalars of row ctl[0] - ctl[1] of `table` ([nrows, kTableCols]
-// float32, device memory); then ctl[0] += 1, on the same stream.
+// float32, device memory); then ctl[0] += 1, on the same stream. p_bf16,
+// m_bf16: the storage pair of every descriptor (float32 / float32 is
+// refused: torch.optim.Adam's).
 int adam_bf16_step(const void* descs, int ntensors, int nchunks,
-                   const float* table, int nrows, long long* ctl, int device,
-                   void* stream) {
+                   const float* table, int nrows, long long* ctl, int p_bf16,
+                   int m_bf16, int device, void* stream) {
   if (descs == nullptr || ntensors < 1 || nchunks < 1 || table == nullptr ||
-      nrows < 1 || ctl == nullptr)
+      nrows < 1 || ctl == nullptr || !(p_bf16 || m_bf16))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  adam_bf16_kernel<<<nchunks, kThreads, 0, s>>>(
-      static_cast<const Desc*>(descs), ntensors, table, nrows, ctl);
+  const Desc* d = static_cast<const Desc*>(descs);
+  if (!p_bf16)
+    adam_bf16_kernel<float, __nv_bfloat16>
+        <<<nchunks, kThreads, 0, s>>>(d, ntensors, table, nrows, ctl);
+  else if (m_bf16)
+    adam_bf16_kernel<__nv_bfloat16, __nv_bfloat16>
+        <<<nchunks, kThreads, 0, s>>>(d, ntensors, table, nrows, ctl);
+  else
+    adam_bf16_kernel<__nv_bfloat16, float>
+        <<<nchunks, kThreads, 0, s>>>(d, ntensors, table, nrows, ctl);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   adam_advance_kernel<<<1, 1, 0, s>>>(ctl);

@@ -139,6 +139,21 @@
 // descriptors are encoded on the host from each call's pointers
 // (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint) and passed as
 // __grid_constant__ parameters, so a CUDA graph records them.
+//
+// bf16 parameter storage (params_dtype='bfloat16'): the rows may be a
+// bf16 table, read as stored and never copied. The wgmma forward
+// (kRowsB16) loads each tile's rows 16 bytes a thread into the same
+// registers and swizzled layout, with no rounding, and writes no rows_b:
+// the backward takes the table itself as its TMA operand (nothing writes
+// the table between the two; the optimizer steps after the backward).
+// The mma.sync set's kFwd and kDh take them as a bf16 B tile
+// (kB16: load_tile_b16, 16-byte cp.async where d % 8 == 0 and the base
+// is aligned, else element by element) read by its fragments as stored.
+// drows is then written in bf16 (out_b16), rounded once from its
+// float32 value; at float32 compute the 3xTF32 set reads a float32 copy
+// of the rows that the wrapper makes, and writes drows in bf16 the same
+// way. A bf16 row is the bf16 rounding of itself, so every result is
+// bitwise that of float32 rows holding the same values.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -203,6 +218,10 @@ struct Params {
   // products
   __nv_bfloat16* e0b;
   const __nv_bfloat16* ab;
+  // bf16 parameter storage: B is bf16 rows (the bf16 variant's kFwd and
+  // kDh, as kB16), drows is written in bf16 (kDrows)
+  const __nv_bfloat16* bb;
+  int out_b16;
 };
 
 __host__ __device__ constexpr bool a_kmajor(int op) { return op != kDrows; }
@@ -514,10 +533,17 @@ __device__ __forceinline__ void tile_product(const Params& p) {
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int col = n0 + wn + ni * 8 + 2 * t + c;
-            if (col < p.N)
-              out[(size_t)row * p.N + col] = scale * acc[mi][ni][2 * hf + c];
-            else if (kOp == kDrows && col == p.N)
-              p.dbias[row] = scale * acc[mi][ni][2 * hf + c];
+            const float v = scale * acc[mi][ni][2 * hf + c];
+            if (col < p.N) {
+              if (kOp == kDrows && p.out_b16)
+                reinterpret_cast<__nv_bfloat16*>(p.out)[(size_t)row * p.N +
+                                                         col] =
+                    __float2bfloat16_rn(v);
+              else
+                out[(size_t)row * p.N + col] = v;
+            } else if (kOp == kDrows && col == p.N) {
+              p.dbias[row] = v;
+            }
           }
       }
   }
@@ -633,6 +659,33 @@ __device__ __forceinline__ void load_tile_bf16(
   }
 }
 
+// load_tile_bf16 for a bf16 operand that may not meet its conditions (the
+// rows of a bf16 table): kVec takes load_tile_bf16 (d % 8 == 0, a 16-byte
+// aligned base); else element by element, plain loads and stores, which
+// the __syncthreads before the tile's use publishes as it does the
+// cp.async copies.
+template <int kRows, bool kKMajor, bool kVec>
+__device__ __forceinline__ void load_tile_b16(
+    __nv_bfloat16* s, const __nv_bfloat16* __restrict__ g, int ld, int R,
+    int K, int r0, int k0) {
+  if constexpr (kVec) {
+    load_tile_bf16<kRows, kKMajor>(s, g, ld, R, K, r0, k0);
+  } else {
+    const unsigned short* u = reinterpret_cast<const unsigned short*>(g);
+    unsigned short* o = reinterpret_cast<unsigned short*>(s);
+#pragma unroll 4
+    for (int c = threadIdx.x; c < kRows * kBK; c += kThreads) {
+      const int r = kKMajor ? c / kBK : c % kRows;
+      const int k = kKMajor ? c % kBK : c / kRows;
+      const bool ok = r0 + r < R && k0 + k < K;
+      const size_t at = kKMajor ? (size_t)(r0 + r) * ld + k0 + k
+                                : (size_t)(k0 + k) * ld + r0 + r;
+      o[kKMajor ? r * (kBK + kPadK16) + k : k * (kRows + kPadMN16) + r] =
+          ok ? u[at] : (unsigned short)0;
+    }
+  }
+}
+
 // The bf16 bits of element (r, k) of a shared bf16 tile of kRows rows.
 template <int kRows, bool kKMajor>
 __device__ __forceinline__ uint32_t bf16_bits(const void* s, int r, int k) {
@@ -641,13 +694,17 @@ __device__ __forceinline__ uint32_t bf16_bits(const void* s, int r, int k) {
 }
 
 // Elements (r, k) and (r, k + 4) of operand A (kIsA) or B of product kOp
-// as one bf16x2 register, (r, k) in the lower half: E0 as it is stored,
-// float32 tiles rounded to nearest even.
-template <int kOp, bool kIsA>
+// as one bf16x2 register, (r, k) in the lower half: E0 and bf16 rows
+// (kB16, operand B) as they are stored, float32 tiles rounded to nearest
+// even.
+template <int kOp, bool kIsA, bool kB16>
 __device__ __forceinline__ uint32_t frag_pair(const void* s, int r, int k) {
   if constexpr (kIsA && kOp != kFwd) {
     return bf16_bits<kBM, a_kmajor(kOp)>(s, r, k) |
            (bf16_bits<kBM, a_kmajor(kOp)>(s, r, k + 4) << 16);
+  } else if constexpr (!kIsA && kB16) {
+    return bf16_bits<kBN, b_kmajor(kOp)>(s, r, k) |
+           (bf16_bits<kBN, b_kmajor(kOp)>(s, r, k + 4) << 16);
   } else {
     constexpr int kRows = kIsA ? kBM : kBN;
     constexpr bool kKMajor = kIsA ? a_kmajor(kOp) : b_kmajor(kOp);
@@ -671,7 +728,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 // lane / 4, t = lane % 4): A (g | g+8, k slots 2t, 2t+1 | 2t+8, 2t+9), B
 // (n = g, the same k slots), C as m16n8k8. Slots 2t, 2t+1, 2t+8, 2t+9
 // hold the slice's k = t, t+4, t+8, t+12 in both operands.
-template <int kOp>
+template <int kOp, bool kB16>
 __device__ __forceinline__ void mma_tile_bf16(const void* as, const void* bs,
                                               float (&acc)[kMT][kNT][4],
                                               int wm, int wn, int g, int t) {
@@ -681,16 +738,17 @@ __device__ __forceinline__ void mma_tile_bf16(const void* as, const void* bs,
 #pragma unroll
     for (int ni = 0; ni < kNT; ++ni) {
       const int n = wn + ni * 8 + g;
-      b[ni][0] = frag_pair<kOp, false>(bs, n, kk + t);
-      b[ni][1] = frag_pair<kOp, false>(bs, n, kk + t + 8);
+      b[ni][0] = frag_pair<kOp, false, kB16>(bs, n, kk + t);
+      b[ni][1] = frag_pair<kOp, false, kB16>(bs, n, kk + t + 8);
     }
 #pragma unroll
     for (int mi = 0; mi < kMT; ++mi) {
       const int r = wm + mi * 16 + g;
-      const uint32_t a[4] = {frag_pair<kOp, true>(as, r, kk + t),
-                             frag_pair<kOp, true>(as, r + 8, kk + t),
-                             frag_pair<kOp, true>(as, r, kk + t + 8),
-                             frag_pair<kOp, true>(as, r + 8, kk + t + 8)};
+      const uint32_t a[4] = {frag_pair<kOp, true, kB16>(as, r, kk + t),
+                             frag_pair<kOp, true, kB16>(as, r + 8, kk + t),
+                             frag_pair<kOp, true, kB16>(as, r, kk + t + 8),
+                             frag_pair<kOp, true, kB16>(as, r + 8,
+                                                        kk + t + 8)};
 #pragma unroll
       for (int ni = 0; ni < kNT; ++ni) mma_bf16(acc[mi][ni], a, b[ni]);
     }
@@ -698,8 +756,10 @@ __device__ __forceinline__ void mma_tile_bf16(const void* as, const void* bs,
 }
 
 // tile_product's bf16 twin: the same tile, ring and epilogues, with the
-// roundings of the header.
-template <int kOp, bool kVec>
+// roundings of the header. kB16 (kFwd, kDh): B is the bf16 rows p.bb,
+// brought in by load_tile_b16 and read as stored (it fits in the float32
+// B tile's room).
+template <int kOp, bool kVec, bool kB16 = false>
 __device__ __forceinline__ void tile_product_bf16(const Params& p) {
   extern __shared__ __align__(16) unsigned char smem16[];
   constexpr int kABytes = a_bytes_bf16(kOp);
@@ -722,8 +782,14 @@ __device__ __forceinline__ void tile_product_bf16(const Params& p) {
     else
       load_tile_bf16<kBM, a_kmajor(kOp)>(reinterpret_cast<__nv_bfloat16*>(s),
                                          p.ab, p.lda, p.M, p.K, m0, k0);
-    load_tile<kBN, b_kmajor(kOp), kVec, kOp == kDrows>(
-        reinterpret_cast<float*>(s + kABytes), p.b, p.ldb, p.N, p.K, n0, k0);
+    if constexpr (kB16)
+      load_tile_b16<kBN, b_kmajor(kOp), kVec>(
+          reinterpret_cast<__nv_bfloat16*>(s + kABytes), p.bb, p.ldb, p.N,
+          p.K, n0, k0);
+    else
+      load_tile<kBN, b_kmajor(kOp), kVec, kOp == kDrows>(
+          reinterpret_cast<float*>(s + kABytes), p.b, p.ldb, p.N, p.K, n0,
+          k0);
   };
 
   float acc[kMT][kNT][4];
@@ -745,7 +811,7 @@ __device__ __forceinline__ void tile_product_bf16(const Params& p) {
     if (i + kStages - 1 < nk) load_stage(i + kStages - 1);
     cp_async_commit();
     const unsigned char* s = smem16 + (i % kStages) * kStage;
-    mma_tile_bf16<kOp>(s, s + kABytes, acc, wm, wn, g, t);
+    mma_tile_bf16<kOp, kB16>(s, s + kABytes, acc, wm, wn, g, t);
   }
   cp_async_wait<0>();
 
@@ -811,19 +877,26 @@ __device__ __forceinline__ void tile_product_bf16(const Params& p) {
           for (int c = 0; c < 2; ++c) {
             const int col = n0 + wn + ni * 8 + 2 * t + c;
             const float v = scale * acc[mi][ni][2 * hf + c];
-            if (col < p.N)
-              out[(size_t)row * p.N + col] = kOp == kDrows ? round_bf16(v) : v;
-            else if (kOp == kDrows && col == p.N)
+            if (col < p.N) {
+              if (kOp == kDrows && p.out_b16)
+                reinterpret_cast<__nv_bfloat16*>(p.out)[(size_t)row * p.N +
+                                                         col] =
+                    __float2bfloat16_rn(v);
+              else
+                out[(size_t)row * p.N + col] =
+                    kOp == kDrows ? round_bf16(v) : v;
+            } else if (kOp == kDrows && col == p.N) {
               p.dbias[row] = v;
+            }
           }
       }
   }
 }
 
-template <bool kVec>
+template <bool kVec, bool kB16>
 __global__ void __launch_bounds__(kThreads, 2)
     decode_loss_fwd_bf16_kernel(const Params p) {
-  tile_product_bf16<kFwd, kVec>(p);
+  tile_product_bf16<kFwd, kVec, kB16>(p);
 }
 
 template <bool kVec>
@@ -832,10 +905,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   tile_product_bf16<kDrows, kVec>(p);
 }
 
-template <bool kVec>
+template <bool kVec, bool kB16>
 __global__ void __launch_bounds__(kThreads, 2)
     dh_splitk_bf16_kernel(const Params p) {
-  tile_product_bf16<kDh, kVec>(p);
+  tile_product_bf16<kDh, kVec, kB16>(p);
 }
 
 // out[i] = bf16(g * sum_s parts[s * n + i]), s in order (dh of the bf16
@@ -1115,7 +1188,7 @@ __device__ __forceinline__ void wgmma(float (&d)[kN / 2], uint64_t a,
 }
 
 struct WgParams {
-  const float* rows;
+  const void* rows;  // float32, or bf16 (the forward's kRowsB16)
   const float* bias;
   const float* row_mask;
   const float* col_mask;
@@ -1123,6 +1196,7 @@ struct WgParams {
   float* partials;
   const float* g;
   float* out;  // drows [W, d], or the dh partials [nsplit, B, d]
+  int out_b16;  // drows in bf16 (bf16 parameter storage), else float32
   float* dbias;
   int B, W, d;
   float confidence;
@@ -1181,7 +1255,10 @@ __host__ __device__ constexpr int fwd_units(int W) {
   return 2 * ceil_div(W, kBox);
 }
 
-template <int kKind>
+// kRowsB16: the rows are a bf16 table (bf16 parameter storage), read 16
+// bytes (8 features) a thread as they are stored, and never copied (the
+// backward takes the table itself).
+template <int kKind, bool kRowsB16>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     decode_loss_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap hmap,
                                       const __grid_constant__ CUtensorMap tmap,
@@ -1257,10 +1334,18 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     for (int r = 0; r < 8; ++r) {
       const int n = (tid >> 5) + 8 * r;
       if (n0 + n < p.W && kf < p.d) {
-        const float4* src = reinterpret_cast<const float4*>(
-            p.rows + (size_t)(n0 + n) * p.d + kf);
-        pre[r][0] = src[0];
-        pre[r][1] = src[1];
+        if constexpr (kRowsB16) {
+          *reinterpret_cast<uint4*>(&pre[r][0]) =
+              *reinterpret_cast<const uint4*>(
+                  static_cast<const __nv_bfloat16*>(p.rows) +
+                  (size_t)(n0 + n) * p.d + kf);
+        } else {
+          const float4* src = reinterpret_cast<const float4*>(
+              static_cast<const float*>(p.rows) + (size_t)(n0 + n) * p.d +
+              kf);
+          pre[r][0] = src[0];
+          pre[r][1] = src[1];
+        }
       } else {
         pre[r][0] = pre[r][1] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
@@ -1285,20 +1370,25 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
         const int n = (tid >> 5) + 8 * r;
-        const float4 a = pre[r][0], b = pre[r][1];
-        const __nv_bfloat162 v0 = __floats2bfloat162_rn(a.x, a.y);
-        const __nv_bfloat162 v1 = __floats2bfloat162_rn(a.z, a.w);
-        const __nv_bfloat162 v2 = __floats2bfloat162_rn(b.x, b.y);
-        const __nv_bfloat162 v3 = __floats2bfloat162_rn(b.z, b.w);
-        const uint4 packed =
-            make_uint4(*reinterpret_cast<const uint32_t*>(&v0),
-                       *reinterpret_cast<const uint32_t*>(&v1),
-                       *reinterpret_cast<const uint32_t*>(&v2),
-                       *reinterpret_cast<const uint32_t*>(&v3));
+        uint4 packed;
+        if constexpr (kRowsB16) {
+          packed = *reinterpret_cast<const uint4*>(&pre[r][0]);
+        } else {
+          const float4 a = pre[r][0], b = pre[r][1];
+          const __nv_bfloat162 v0 = __floats2bfloat162_rn(a.x, a.y);
+          const __nv_bfloat162 v1 = __floats2bfloat162_rn(a.z, a.w);
+          const __nv_bfloat162 v2 = __floats2bfloat162_rn(b.x, b.y);
+          const __nv_bfloat162 v3 = __floats2bfloat162_rn(b.z, b.w);
+          packed = make_uint4(*reinterpret_cast<const uint32_t*>(&v0),
+                              *reinterpret_cast<const uint32_t*>(&v1),
+                              *reinterpret_cast<const uint32_t*>(&v2),
+                              *reinterpret_cast<const uint32_t*>(&v3));
+        }
         *reinterpret_cast<uint4*>(rt + (kc >> 3) * kBoxBytes + n * 128 +
                                   (((kc & 7) ^ (n & 7)) << 4)) = packed;
         // (the copy: from the block holding the tile's first unit only)
-        if (p.rows_b != nullptr && u % 2 == 0 && n0 + n < p.W && kf < p.d)
+        if (!kRowsB16 && p.rows_b != nullptr && u % 2 == 0 &&
+            n0 + n < p.W && kf < p.d)
           *reinterpret_cast<uint4*>(p.rows_b + (size_t)(n0 + n) * p.d + kf) =
               packed;
       }
@@ -1478,10 +1568,15 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       const int col = 8 * jj + 2 * t;
       const float v0 = scale * acc[4 * jj + 2 * hf];
       const float v1 = scale * acc[4 * jj + 2 * hf + 1];
-      if (col < p.d)  // (d % 8 == 0: the pair lies on one side of d)
-        *reinterpret_cast<float2*>(p.out + (size_t)item * p.d + col) =
-            make_float2(round_bf16(v0), round_bf16(v1));
-      else if (col == p.d)
+      if (col < p.d) {  // (d % 8 == 0: the pair lies on one side of d)
+        if (p.out_b16)
+          *reinterpret_cast<__nv_bfloat162*>(
+              reinterpret_cast<__nv_bfloat16*>(p.out) + (size_t)item * p.d +
+              col) = __floats2bfloat162_rn(v0, v1);
+        else
+          *reinterpret_cast<float2*>(p.out + (size_t)item * p.d + col) =
+              make_float2(round_bf16(v0), round_bf16(v1));
+      } else if (col == p.d)
         p.dbias[item] = v0;
     }
   }
@@ -1639,22 +1734,40 @@ int fdl_configure(int device) {
   if (err == cudaSuccess)
     err = allow_smem(dh_splitk_kernel<false>, smem_bytes(kDh));
   if (err == cudaSuccess)
-    err = allow_smem(decode_loss_fwd_bf16_kernel<true>, smem_bytes_bf16(kFwd));
+    err = allow_smem(decode_loss_fwd_bf16_kernel<true, false>,
+                     smem_bytes_bf16(kFwd));
   if (err == cudaSuccess)
-    err = allow_smem(decode_loss_fwd_bf16_kernel<false>,
+    err = allow_smem(decode_loss_fwd_bf16_kernel<false, false>,
+                     smem_bytes_bf16(kFwd));
+  if (err == cudaSuccess)
+    err = allow_smem(decode_loss_fwd_bf16_kernel<true, true>,
+                     smem_bytes_bf16(kFwd));
+  if (err == cudaSuccess)
+    err = allow_smem(decode_loss_fwd_bf16_kernel<false, true>,
                      smem_bytes_bf16(kFwd));
   if (err == cudaSuccess)
     err = allow_smem(drows_dbias_bf16_kernel<true>, smem_bytes_bf16(kDrows));
   if (err == cudaSuccess)
     err = allow_smem(drows_dbias_bf16_kernel<false>, smem_bytes_bf16(kDrows));
   if (err == cudaSuccess)
-    err = allow_smem(dh_splitk_bf16_kernel<true>, smem_bytes_bf16(kDh));
+    err = allow_smem(dh_splitk_bf16_kernel<true, false>, smem_bytes_bf16(kDh));
   if (err == cudaSuccess)
-    err = allow_smem(dh_splitk_bf16_kernel<false>, smem_bytes_bf16(kDh));
+    err = allow_smem(dh_splitk_bf16_kernel<false, false>, smem_bytes_bf16(kDh));
   if (err == cudaSuccess)
-    err = allow_smem(decode_loss_fwd_bf16_wgmma_kernel<kMse>, kFwdSmem);
+    err = allow_smem(dh_splitk_bf16_kernel<true, true>, smem_bytes_bf16(kDh));
   if (err == cudaSuccess)
-    err = allow_smem(decode_loss_fwd_bf16_wgmma_kernel<kLogistic>, kFwdSmem);
+    err = allow_smem(dh_splitk_bf16_kernel<false, true>, smem_bytes_bf16(kDh));
+  if (err == cudaSuccess)
+    err = allow_smem(decode_loss_fwd_bf16_wgmma_kernel<kMse, false>,
+                     kFwdSmem);
+  if (err == cudaSuccess)
+    err = allow_smem(decode_loss_fwd_bf16_wgmma_kernel<kLogistic, false>,
+                     kFwdSmem);
+  if (err == cudaSuccess)
+    err = allow_smem(decode_loss_fwd_bf16_wgmma_kernel<kMse, true>, kFwdSmem);
+  if (err == cudaSuccess)
+    err = allow_smem(decode_loss_fwd_bf16_wgmma_kernel<kLogistic, true>,
+                     kFwdSmem);
   if (err == cudaSuccess)
     err = allow_smem(drows_dbias_bf16_wgmma_kernel<kWgDp>, bwd_smem(kWgDp));
   if (err == cudaSuccess)
@@ -1664,14 +1777,16 @@ int fdl_configure(int device) {
 
 // Forward: out[0] = masked sum loss; with e0 non-null also E0 [B, lde]
 // (float32, or bf16 when bf16 is set: the bf16 variant). target_bf16:
-// target holds bfloat16, else float32. partials: float[out[0] of
+// target holds bfloat16, else float32. rows_bf16 (the bf16 variant only):
+// rows is a bf16 table, else float32. partials: float[out[0] of
 // fdl_plan].
-int fdl_forward(const float* h, const float* rows, const float* bias,
+int fdl_forward(const float* h, const void* rows, const float* bias,
                 const void* target, int target_bf16, const float* row_mask,
                 const float* col_mask, int B, int W, int d, int kind,
-                float confidence, int bf16, void* e0, int lde,
+                float confidence, int bf16, int rows_bf16, void* e0, int lde,
                 float* partials, float* out, int device, void* stream) {
   if (bad_args(B, W, d) || (kind != kMse && kind != kLogistic) ||
+      (rows_bf16 && !bf16) ||
       (e0 != nullptr && lde != (bf16 ? round8(W) : round4(W))) ||
       (bf16 && e0 != nullptr && !aligned16(e0)))
     return cudaErrorInvalidValue;
@@ -1679,7 +1794,10 @@ int fdl_forward(const float* h, const float* rows, const float* bias,
   if (err != cudaSuccess) return err;
   Params p = {};
   p.a = h;
-  p.b = rows;
+  if (rows_bf16)
+    p.bb = static_cast<const __nv_bfloat16*>(rows);
+  else
+    p.b = static_cast<const float*>(rows);
   p.lda = p.ldb = d;
   p.M = B;
   p.N = W;
@@ -1700,13 +1818,22 @@ int fdl_forward(const float* h, const float* rows, const float* bias,
   p.partials = partials;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(cdiv(B, kBM), cdiv(W, kBN));
-  const bool vec = d % 4 == 0 && aligned16(h) && aligned16(rows);
+  // (bf16 rows come 8 elements a copy: whole rows need d % 8 == 0)
+  const bool vec = d % (rows_bf16 ? 8 : 4) == 0 && aligned16(h) &&
+                   aligned16(rows);
   if (bf16) {
     const size_t smem = smem_bytes_bf16(kFwd);
-    if (vec)
-      decode_loss_fwd_bf16_kernel<true><<<grid, kThreads, smem, s>>>(p);
+    if (vec && rows_bf16)
+      decode_loss_fwd_bf16_kernel<true, true><<<grid, kThreads, smem, s>>>(p);
+    else if (rows_bf16)
+      decode_loss_fwd_bf16_kernel<false, true><<<grid, kThreads, smem, s>>>(
+          p);
+    else if (vec)
+      decode_loss_fwd_bf16_kernel<true, false><<<grid, kThreads, smem, s>>>(
+          p);
     else
-      decode_loss_fwd_bf16_kernel<false><<<grid, kThreads, smem, s>>>(p);
+      decode_loss_fwd_bf16_kernel<false, false><<<grid, kThreads, smem, s>>>(
+          p);
   } else if (vec) {
     decode_loss_fwd_kernel<true><<<grid, kThreads, smem_bytes(kFwd), s>>>(p);
   } else {
@@ -1720,13 +1847,17 @@ int fdl_forward(const float* h, const float* rows, const float* bias,
 
 // Backward from the stashed E0 [B, lde] (bf16 when bf16 is set): dh [B,
 // d], drows [W, d], dbias [W] for the upstream gradient *g (a device
-// scalar). ktiles, nsplit: out[1], out[2] of fdl_plan. dh_partials:
-// float[nsplit * B * d].
+// scalar). rows_bf16 (the bf16 variant only): rows is a bf16 table.
+// drows_bf16: drows is written in bf16 (rounded once), else float32.
+// ktiles, nsplit: out[1], out[2] of fdl_plan. dh_partials: float[nsplit *
+// B * d].
 int fdl_backward(const float* g, const void* e0, int lde, const float* h,
-                 const float* rows, int B, int W, int d, int ktiles,
-                 int nsplit, int bf16, float* dh_partials, float* dh,
-                 float* drows, float* dbias, int device, void* stream) {
+                 const void* rows, int rows_bf16, int B, int W, int d,
+                 int ktiles, int nsplit, int bf16, float* dh_partials,
+                 float* dh, void* drows, int drows_bf16, float* dbias,
+                 int device, void* stream) {
   if (bad_args(B, W, d) || lde != (bf16 ? round8(W) : round4(W)) ||
+      (rows_bf16 && !bf16) ||
       ktiles < 1 || nsplit < 1 ||
       (long long)ktiles * nsplit < cdiv(W, kBK) ||
       (long long)ktiles * (nsplit - 1) >= cdiv(W, kBK) ||
@@ -1735,8 +1866,10 @@ int fdl_backward(const float* g, const void* e0, int lde, const float* h,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the bf16 E0 is always copied 16 bytes at a time (lde % 8 == 0)
-  const bool vec = d % 4 == 0 && (bf16 || aligned16(e0)) && aligned16(h) &&
+  // the bf16 E0 is always copied 16 bytes at a time (lde % 8 == 0); bf16
+  // rows 8 elements a copy
+  const bool vec = d % (rows_bf16 ? 8 : 4) == 0 &&
+                   (bf16 || aligned16(e0)) && aligned16(h) &&
                    aligned16(rows);
 
   Params p = {};
@@ -1752,7 +1885,8 @@ int fdl_backward(const float* g, const void* e0, int lde, const float* h,
   p.K = B;
   p.ktiles = cdiv(B, kBK);
   p.g = g;
-  p.out = drows;
+  p.out = static_cast<float*>(drows);
+  p.out_b16 = drows_bf16;
   p.dbias = dbias;
   const dim3 grid_rows(cdiv(W, kBM), cdiv(d + 1, kBN));  // + dbias column
   if (bf16) {
@@ -1771,21 +1905,29 @@ int fdl_backward(const float* g, const void* e0, int lde, const float* h,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  p.b = rows;
+  if (rows_bf16)
+    p.bb = static_cast<const __nv_bfloat16*>(rows);
+  else
+    p.b = static_cast<const float*>(rows);
   p.M = B;
   p.N = d;
   p.K = W;
   p.ktiles = ktiles;
   p.g = nullptr;
   p.out = dh_partials;
+  p.out_b16 = 0;
   p.dbias = nullptr;
   const dim3 grid_dh(cdiv(B, kBM), cdiv(d, kBN), nsplit);
   if (bf16) {
     const size_t smem = smem_bytes_bf16(kDh);
-    if (vec)
-      dh_splitk_bf16_kernel<true><<<grid_dh, kThreads, smem, s>>>(p);
+    if (vec && rows_bf16)
+      dh_splitk_bf16_kernel<true, true><<<grid_dh, kThreads, smem, s>>>(p);
+    else if (rows_bf16)
+      dh_splitk_bf16_kernel<false, true><<<grid_dh, kThreads, smem, s>>>(p);
+    else if (vec)
+      dh_splitk_bf16_kernel<true, false><<<grid_dh, kThreads, smem, s>>>(p);
     else
-      dh_splitk_bf16_kernel<false><<<grid_dh, kThreads, smem, s>>>(p);
+      dh_splitk_bf16_kernel<false, false><<<grid_dh, kThreads, smem, s>>>(p);
   } else if (vec) {
     dh_splitk_kernel<true><<<grid_dh, kThreads, smem_bytes(kDh), s>>>(p);
   } else {
@@ -1827,21 +1969,22 @@ int fdl_plan_wgmma(int B, int W, int d, int sms, int* out) {
   return cudaSuccess;
 }
 
-// The forward of the wgmma route. target: bf16 [B, W]; hb: bf16 [B, dp]
-// scratch that this call fills (the backward's B operand of drows); rows_b
-// (bf16 [W, d]) and e0 (bf16 [B, lde]) may be null: then no copy of rows /
-// no E0 is written. blocks, partials: out[0] of fdl_plan_wgmma and
-// float[blocks].
-int fdl_forward_wgmma(const float* h, const float* rows, const float* bias,
-                      const void* target, const float* row_mask,
-                      const float* col_mask, int B, int W, int d, int kind,
-                      float confidence, void* hb, void* rows_b, void* e0,
-                      int blocks, float* partials, float* out, int device,
-                      void* stream) {
+// The forward of the wgmma route. rows: float32 [W, d], or a bf16 table
+// when rows_bf16 is set; target: bf16 [B, W]; hb: bf16 [B, dp] scratch
+// that this call fills (the backward's B operand of drows); rows_b (bf16
+// [W, d]; null with bf16 rows, which the backward reads as they are) and
+// e0 (bf16 [B, lde]) may be null: then no copy of rows / no E0 is
+// written. blocks, partials: out[0] of fdl_plan_wgmma and float[blocks].
+int fdl_forward_wgmma(const float* h, const void* rows, int rows_bf16,
+                      const float* bias, const void* target,
+                      const float* row_mask, const float* col_mask, int B,
+                      int W, int d, int kind, float confidence, void* hb,
+                      void* rows_b, void* e0, int blocks, float* partials,
+                      float* out, int device, void* stream) {
   if (bad_wgmma_args(B, W, d, {rows, target, hb}) || blocks < 1 ||
       blocks > fwd_units(W) ||
       (kind != kMse && kind != kLogistic) ||
-      (rows_b != nullptr && !aligned16(rows_b)) ||
+      (rows_b != nullptr && (rows_bf16 || !aligned16(rows_b))) ||
       (e0 != nullptr && !aligned16(e0)))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -1875,11 +2018,17 @@ int fdl_forward_wgmma(const float* h, const float* rows, const float* bias,
   p.d = d;
   p.confidence = confidence;
   p.write_e0 = e0 != nullptr;
-  if (kind == kMse)
-    decode_loss_fwd_bf16_wgmma_kernel<kMse>
+  if (kind == kMse && rows_bf16)
+    decode_loss_fwd_bf16_wgmma_kernel<kMse, true>
+        <<<blocks, kFwdThreads, kFwdSmem, s>>>(hmap, tmap, emap, p);
+  else if (kind == kMse)
+    decode_loss_fwd_bf16_wgmma_kernel<kMse, false>
+        <<<blocks, kFwdThreads, kFwdSmem, s>>>(hmap, tmap, emap, p);
+  else if (rows_bf16)
+    decode_loss_fwd_bf16_wgmma_kernel<kLogistic, true>
         <<<blocks, kFwdThreads, kFwdSmem, s>>>(hmap, tmap, emap, p);
   else
-    decode_loss_fwd_bf16_wgmma_kernel<kLogistic>
+    decode_loss_fwd_bf16_wgmma_kernel<kLogistic, false>
         <<<blocks, kFwdThreads, kFwdSmem, s>>>(hmap, tmap, emap, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1888,12 +2037,15 @@ int fdl_forward_wgmma(const float* h, const float* rows, const float* bias,
 }
 
 // The backward of the wgmma route from the bf16 E0 [B, lde] and the
-// forward's bf16 copies hb [B, dp] and rows_b [W, d]. per, nsplit: out[1],
-// out[2] of fdl_plan_wgmma; dh_partials: float[nsplit * B * d].
+// forward's bf16 operands hb [B, dp] and rows_b [W, d] (its copy of the
+// rows, or a bf16 table itself). drows_bf16: drows is written in bf16,
+// else float32 (holding bf16 values). per, nsplit: out[1], out[2] of
+// fdl_plan_wgmma; dh_partials: float[nsplit * B * d].
 int fdl_backward_wgmma(const float* g, const void* e0, const void* hb,
                        const void* rows_b, int B, int W, int d, int per,
                        int nsplit, float* dh_partials, float* dh,
-                       float* drows, float* dbias, int device, void* stream) {
+                       void* drows, int drows_bf16, float* dbias, int device,
+                       void* stream) {
   const int chunks = cdiv(W, kBox);
   if (bad_wgmma_args(B, W, d, {e0, hb, rows_b}) || per < 1 ||
       nsplit < 1 || (long long)per * nsplit < chunks ||
@@ -1915,13 +2067,15 @@ int fdl_backward_wgmma(const float* g, const void* e0, const void* hb,
   p.d = d;
   p.chunks_per_split = per;
   const dim3 grid_rows(cdiv(W, 2 * kBox)), grid_dh(cdiv(B, 2 * kBox), nsplit);
-  p.out = drows;
+  p.out = static_cast<float*>(drows);
+  p.out_b16 = drows_bf16;
   p.dbias = dbias;
   drows_dbias_bf16_wgmma_kernel<kWgDp>
       <<<grid_rows, kBwdThreads, bwd_smem(kWgDp), s>>>(emap, hmap, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   p.out = dh_partials;
+  p.out_b16 = 0;
   p.dbias = nullptr;
   dh_bf16_wgmma_kernel<kWgD>
       <<<grid_dh, kBwdThreads, bwd_smem(kWgD), s>>>(emap, rmap, p);

@@ -14,30 +14,37 @@
 //   * a repeated id carries the same payload in every slot that names it,
 //     so the racing writes store the same bytes and no atomics are needed;
 //   * the source rows are copies, not views of the table they go into.
-// Tables and rows are float32 with unit column stride and any row stride;
-// ids are int64 (torch's index type). Untouched rows are never read or
-// written.
+// Each table and its rows have one element size, 4 bytes (float32) or 2
+// (bf16: bf16 parameter storage or bf16 moments), which may differ from
+// one table to the next (the TPU kernel writes table.dtype, as here): a
+// bf16 table beside float32 moments, or all bf16. Unit column stride and
+// any row stride; ids are int64 (torch's index type). Untouched rows are
+// never read or written.
 //
-// What bounds it on this card: it moves 2 * 4 * d bytes per (table, id) and
-// does no arithmetic, so it is bound by device-memory bandwidth. At the MSD
-// shape (W ~ 18k union ids, d = 200, three tables) one launch moves ~87 MB.
+// What bounds it on this card: it moves 2 * es * d bytes per (table, id)
+// and does no arithmetic, so it is bound by device-memory bandwidth. At
+// the MSD shape (W ~ 18k union ids, d = 200, three float32 tables) one
+// launch moves ~87 MB.
 //
 // Design: the TPU kernel DMA-ed whole 8-row blocks, gathered and merged
 // first (Mosaic cannot DMA single rows of an (8, 128)-tiled table); Hopper
 // stores single rows natively, so the block plan, the merge and
-// BLOCKS_PER_STEP are gone. Each thread copies one 16-byte unit (or one
-// float where the rows or base pointers are not 16-byte aligned) of one
-// (id, column) pair; a grid-stride loop walks the flat (id, column unit)
+// BLOCKS_PER_STEP are gone. Each thread copies one 16-byte unit of one
+// (id, column) pair, or one element where the table's rows or base
+// pointers are not 16-byte aligned (each table has its own row width in
+// units and its own choice); a grid-stride loop walks the flat (id, unit)
 // space, and the grid's y axis picks the table. Neighbouring threads take
 // neighbouring columns of one row, so loads and stores coalesce. The table
 // is picked by a branch that is uniform across the block, not by indexing
 // a parameter array with blockIdx.y: that indexing made every thread copy
 // the parameter block to a 96-byte stack frame in local memory (2.2x
-// slower than index_copy_ at the MSD shape on an H100). The flat index is 32-bit
-// where W * units fits, so the division that splits it is cheap.
+// slower than index_copy_ at the MSD shape on an H100). The flat index is
+// 32-bit where W * units fits, so the division that splits it is cheap.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -45,27 +52,31 @@ constexpr int kMaxTables = 3;
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 65535;  // per table; grid-stride beyond
 
-// One pointer pair and row strides (in floats) per table, as scalars: the
-// kernel never indexes the parameter block at run time.
-struct Tables {
-  float* dst0;
-  float* dst1;
-  float* dst2;
-  const float* src0;
-  const float* src1;
-  const float* src2;
-  long long dld0, dld1, dld2;
-  long long sld0, sld1, sld2;
+// One table: its pointer pair, row strides in elements, element size in
+// bytes, and whether it takes the 16-byte path.
+struct Table {
+  void* dst;
+  const void* src;
+  long long dld, sld;
+  int es;
+  int vec;
 };
 
-// T is float4 (the 16-byte path) or float (the scalar path); `units` is the
-// row width in T and the strides are in T. I is the flat index type.
+// As scalars: the kernel never indexes the parameter block at run time.
+struct Tables {
+  Table t0, t1, t2;
+};
+
+// T is the unit the thread copies (uint4: 16 bytes; else one element);
+// `units` is the row width in T and the strides are in T. I is the flat
+// index type.
 template <typename T, typename I>
 __device__ __forceinline__ void copy_rows(T* __restrict__ dst,
                                           const T* __restrict__ src,
                                           long long dld, long long sld,
                                           const long long* __restrict__ ids,
-                                          I total, I units) {
+                                          I W, I units) {
+  const I total = W * units;
   const I stride = (I)gridDim.x * blockDim.x;
   for (I i = (I)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += stride) {
@@ -75,39 +86,35 @@ __device__ __forceinline__ void copy_rows(T* __restrict__ dst,
   }
 }
 
-template <typename T, typename I>
-__global__ void __launch_bounds__(kThreads)
-row_scatter_kernel(Tables t, const long long* __restrict__ ids, I total,
-                   I units, int scale) {
-  if (blockIdx.y == 0)
-    copy_rows<T, I>(reinterpret_cast<T*>(t.dst0),
-                    reinterpret_cast<const T*>(t.src0), t.dld0 / scale,
-                    t.sld0 / scale, ids, total, units);
-  else if (blockIdx.y == 1)
-    copy_rows<T, I>(reinterpret_cast<T*>(t.dst1),
-                    reinterpret_cast<const T*>(t.src1), t.dld1 / scale,
-                    t.sld1 / scale, ids, total, units);
-  else
-    copy_rows<T, I>(reinterpret_cast<T*>(t.dst2),
-                    reinterpret_cast<const T*>(t.src2), t.dld2 / scale,
-                    t.sld2 / scale, ids, total, units);
+// One table's copy, its unit chosen by the table (uniform in the block).
+template <typename I>
+__device__ __forceinline__ void copy_table(const Table& t,
+                                           const long long* ids, I W, I d) {
+  if (t.vec) {
+    const int per = 16 / t.es;  // elements a unit
+    copy_rows<uint4, I>(static_cast<uint4*>(t.dst),
+                        static_cast<const uint4*>(t.src), t.dld / per,
+                        t.sld / per, ids, W, d / per);
+  } else if (t.es == 4) {
+    copy_rows<uint32_t, I>(static_cast<uint32_t*>(t.dst),
+                           static_cast<const uint32_t*>(t.src), t.dld, t.sld,
+                           ids, W, d);
+  } else {
+    copy_rows<uint16_t, I>(static_cast<uint16_t*>(t.dst),
+                           static_cast<const uint16_t*>(t.src), t.dld, t.sld,
+                           ids, W, d);
+  }
 }
 
-template <typename T>
-cudaError_t launch(const Tables& t, const long long* ids, long long W,
-                   long long units, int scale, int ntables,
-                   cudaStream_t s) {
-  const long long total = W * units;
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  const dim3 grid((unsigned)blocks, (unsigned)ntables);
-  if (total < (1LL << 31))
-    row_scatter_kernel<T, unsigned><<<grid, kThreads, 0, s>>>(
-        t, ids, (unsigned)total, (unsigned)units, scale);
+template <typename I>
+__global__ void __launch_bounds__(kThreads)
+row_scatter_kernel(Tables t, const long long* __restrict__ ids, I W, I d) {
+  if (blockIdx.y == 0)
+    copy_table<I>(t.t0, ids, W, d);
+  else if (blockIdx.y == 1)
+    copy_table<I>(t.t1, ids, W, d);
   else
-    row_scatter_kernel<T, long long><<<grid, kThreads, 0, s>>>(
-        t, ids, total, units, scale);
-  return cudaGetLastError();
+    copy_table<I>(t.t2, ids, W, d);
 }
 
 bool aligned16(const void* p) {
@@ -125,37 +132,51 @@ const char* rs_error_string(int err) {
 }
 
 // For table k < ntables: dst_k[ids[w], :d] = src_k[w, :d] for w < W, on
-// `stream` of `device`. vec = 1 asks for the 16-byte path, which needs
-// d % 4 == 0, every row stride % 4 == 0 and every base pointer 16-byte
-// aligned; a vec request that does not meet them is refused (nothing is
-// written).
-int rs_row_scatter(int ntables, float* dst0, float* dst1, float* dst2,
+// `stream` of `device`; es_k is table k's element size (4 or 2 bytes),
+// the strides are in its elements. vec_k = 1 asks for the 16-byte path
+// for table k, which needs d * es_k, every row stride * es_k a multiple
+// of 16 and both base pointers 16-byte aligned; a vec request that does
+// not meet them is refused (nothing is written).
+int rs_row_scatter(int ntables, void* dst0, void* dst1, void* dst2,
                    long long dld0, long long dld1, long long dld2,
-                   const float* src0, const float* src1, const float* src2,
-                   long long sld0, long long sld1, long long sld2,
-                   const long long* ids, long long W, long long d, int vec,
+                   const void* src0, const void* src1, const void* src2,
+                   long long sld0, long long sld1, long long sld2, int es0,
+                   int es1, int es2, int vec0, int vec1, int vec2,
+                   const long long* ids, long long W, long long d,
                    int device, void* stream) {
   if (ntables < 1 || ntables > kMaxTables || W < 0 || d < 1)
     return cudaErrorInvalidValue;
   if (W == 0) return cudaSuccess;
-  float* dst[kMaxTables] = {dst0, dst1, dst2};
-  const float* src[kMaxTables] = {src0, src1, src2};
-  const long long dld[kMaxTables] = {dld0, dld1, dld2};
-  const long long sld[kMaxTables] = {sld0, sld1, sld2};
+  Table t[kMaxTables] = {{dst0, src0, dld0, sld0, es0, vec0},
+                         {dst1, src1, dld1, sld1, es1, vec1},
+                         {dst2, src2, dld2, sld2, es2, vec2}};
+  long long units = 0;  // the widest table's units a row: the grid
   for (int k = 0; k < ntables; ++k) {
-    if (dst[k] == nullptr || src[k] == nullptr || dld[k] < d || sld[k] < d)
+    const Table& x = t[k];
+    if (x.dst == nullptr || x.src == nullptr || x.dld < d || x.sld < d ||
+        (x.es != 2 && x.es != 4))
       return cudaErrorInvalidValue;
-    if (vec && (d % 4 != 0 || dld[k] % 4 != 0 || sld[k] % 4 != 0 ||
-                !aligned16(dst[k]) || !aligned16(src[k])))
+    if (x.vec && ((d * x.es) % 16 != 0 || (x.dld * x.es) % 16 != 0 ||
+                  (x.sld * x.es) % 16 != 0 || !aligned16(x.dst) ||
+                  !aligned16(x.src)))
       return cudaErrorMisalignedAddress;
+    units = std::max(units, x.vec ? d * x.es / 16 : d);
   }
-  const Tables t = {dst[0], dst[1], dst[2], src[0], src[1], src[2],
-                    dld[0], dld[1], dld[2], sld[0], sld[1], sld[2]};
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec) return launch<float4>(t, ids, W, d / 4, 4, ntables, s);
-  return launch<float>(t, ids, W, d, 1, ntables, s);
+  const long long total = W * units;
+  long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  const dim3 grid((unsigned)blocks, (unsigned)ntables);
+  const Tables ts = {t[0], t[1], t[2]};
+  // (W * d bounds every table's flat index: units <= d)
+  if (W * d < (1LL << 31))
+    row_scatter_kernel<unsigned><<<grid, kThreads, 0, s>>>(
+        ts, ids, (unsigned)W, (unsigned)d);
+  else
+    row_scatter_kernel<long long><<<grid, kThreads, 0, s>>>(ts, ids, W, d);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

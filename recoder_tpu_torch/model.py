@@ -102,12 +102,21 @@ sliced into compute batches) and ``num_random_negatives`` (uniform-random
 extra negative items a step, drawn for the global step: a resumed run
 draws what the uninterrupted one drew).
 
+bf16 parameter storage (a model built with ``params_dtype='bfloat16'``)
+trains on every path -- the captured full-decode step, the union,
+sparse, triplet-scatter and full-catalog sparse steps -- with the
+optimizer's math in float32 and each stored buffer rounded once
+(``optim.py``); ``opt_state_dtype='bfloat16'`` gives the sparse tables
+bf16 moments too. ``train`` refuses other float parameter dtypes, as the
+JAX package does. A float32 checkpoint loads into a bf16 model rounded to
+nearest even (``init_from_model_file``), which then serves from bf16
+tables.
+
 Not ported yet (the JAX signature's arguments for them raise
-NotImplementedError where set): bf16 parameters, bf16 moments of sparse
-tables, the orbax backend, meshes, and the capture of the union, sparse,
-scatter and host-loader steps. The JAX package's count-certified top-k
-(``eval_topk='exact'``) is a TPU workaround and is not ported: every
-``eval_topk`` mode is exact here.
+NotImplementedError where set): the orbax backend, meshes, and the
+capture of the union, sparse, scatter and host-loader steps. The JAX
+package's count-certified top-k (``eval_topk='exact'``) is a TPU
+workaround and is not ported: every ``eval_topk`` mode is exact here.
 """
 
 import logging
@@ -368,8 +377,7 @@ class Recoder:
     if sparse_paths and self.optimizer_type != 'adam':
       raise ValueError('Sparse gradients optimization only supported '
                        'with adam (sparse row-wise Adam)')
-    if sparse_paths:
-      self.sparse_adam = SparseRowAdam(state_dtype=self.opt_state_dtype)
+    self.sparse_adam = SparseRowAdam(state_dtype=self.opt_state_dtype)
     prev = self.optimizer
     config = (self.optimizer_type, self._state_dtype(), float(weight_decay),
               tuple(named.values()))
@@ -386,14 +394,22 @@ class Recoder:
       self._opt_config = config
       if prev is not None:
         if type(prev) is type(self.optimizer):
-          # continued training on the same instance keeps the moments
+          # continued training on the same instance keeps the moments,
+          # cast to the new optimizer's state dtype (the JAX package's
+          # cast of carried moments: a no-op unless opt_state_dtype
+          # changed)
           self.optimizer.state.update(prev.state)
+          self._cast_moments(self.optimizer)
         else:
           log.warning('optimizer type changed; optimizer state reset')
     tables = self.model.params()
-    self.sparse_states = {p: self.sparse_states.get(p)
-                          or self.sparse_adam.init(tables[p])
-                          for p in sparse_paths}
+    dtype = self.sparse_adam.state_dtype
+    carried, self.sparse_states = self.sparse_states, {}
+    for p in sparse_paths:
+      st = carried.get(p)
+      self.sparse_states[p] = (
+          self.sparse_adam.init(tables[p]) if st is None else
+          {**st, 'm': st['m'].to(dtype), 'v': st['v'].to(dtype)})
     if self._pending_opt_arrays is not None:
       tree, sparse = self._pending_opt_arrays
       self._pending_opt_arrays = None
@@ -405,6 +421,16 @@ class Recoder:
                               for p in sparse_paths}
         log.warning('checkpoint optimizer state does not match this '
                     "model's sparse/dense split; optimizer state reset")
+
+  @staticmethod
+  def _cast_moments(optimizer):
+    """Cast carried Adam moments to ``optimizer``'s state dtype (bf16 or
+    float32 for :class:`Bf16Adam`, float32 for ``torch.optim.Adam``)."""
+    dtype = getattr(optimizer, 'state_dtype', torch.float32)
+    for state in optimizer.state.values():
+      for key in ('exp_avg', 'exp_avg_sq'):
+        if key in state and state[key].dtype != dtype:
+          state[key] = state[key].to(dtype)
 
   def _make_optimizer(self, named, lr, weight_decay):
     return make_optimizer(self.optimizer_type, named, lr, weight_decay,
@@ -428,7 +454,7 @@ class Recoder:
     for p in sparse_paths:
       if p in sparse:
         self.sparse_states[p] = convert.sparse_state_from_numpy(
-            sparse[p], tables[p])
+            sparse[p], tables[p], self.sparse_adam.state_dtype)
     return True
 
   def _init_training(self, train_dataset, lr, weight_decay):
@@ -455,6 +481,17 @@ class Recoder:
                        'user_based=False.')
 
     self._init_model()
+    # float32 is the reference trajectory and bf16 storage a
+    # quality-gated training mode (the optimizer's math stays float32);
+    # anything else (float16 would need loss scaling) is refused, with
+    # the JAX package's message
+    params = self.model.params()
+    bad = [p for p, v in params.items() if v.is_floating_point()
+           and v.dtype not in (torch.float32, torch.bfloat16)]
+    if bad:
+      raise ValueError(
+          f'training requires float32 or bfloat16 params; {bad[:3]} are '
+          f'{str(params[bad[0]].dtype).removeprefix("torch.")}')
     self._lr = lr
     self._init_optimizer(lr, weight_decay)
     self._init_loss_module()

@@ -33,13 +33,18 @@ moves between the packages.
 JAX package's casts: the encode and decode round both operands to bf16
 and accumulate in float32 (``ops/gather_matmul.py``), each hidden Linear
 multiplies in bf16 and upcasts its product before the float32 bias, and
-the scores leave the forward in bf16; the parameters stay float32.
+the scores leave the forward in bf16.
+
+``params_dtype='bfloat16'`` stores every parameter in bf16 (the JAX
+package's bf16 storage: half the table bytes, for catalogs near the
+card's memory); ``compute_dtype`` then defaults to bf16, the tables
+enter the products as they are stored, and each gradient comes back in
+its parameter's dtype, rounded once from its float32 sum. The init draws
+in float32 from the same generator and rounds once.
 
 :meth:`encode_coo` and :meth:`decode_slice` serve chunked scoring: the
 bottleneck from a COO batch, then the scores of one contiguous slice of
 the catalog at a time.
-
-Not ported yet: bf16 parameter storage (``params_dtype``).
 """
 
 import torch
@@ -47,7 +52,8 @@ from torch import nn
 
 from recoder_tpu_torch.models.base import (FactorizationModel, activation,
                                            check_params_dtype, coo_encode,
-                                           dropout, l2_normalize_rows,
+                                           default_compute_dtype, dropout,
+                                           l2_normalize_rows,
                                            linear, pad_dim, xavier_uniform)
 from recoder_tpu_torch.ops.gather_matmul import (as_dtype, decode_matmul,
                                                   encode_matmul, take_rows)
@@ -67,11 +73,14 @@ class DynamicAutoencoder(FactorizationModel):
     sparse (bool): train the embedding tables with row-sparse Adam
       (torch SparseAdam's rule; ``optim.SparseRowAdam``).
     compute_dtype (str, optional): the products' dtype ('bfloat16');
-      parameters stay float32 and sums float32. None keeps float32
-      compute end to end. A checkpoint carries it, and a model
+      sums stay float32. None keeps float32 compute end to end (or, with
+      bf16 parameters, bf16). A checkpoint carries it, and a model
       constructed without one takes the checkpoint's on load.
-    params_dtype: accepted for the JAX package's signature; only
-      float32 (None) is ported.
+    params_dtype (str, optional): the parameters' storage dtype
+      ('bfloat16'; None: float32). A checkpoint stores them upcast to
+      float32 and does not carry it: the constructor's restores it on
+      load, rounding to nearest even (serve a float32 checkpoint from
+      bf16 tables by loading it into such a model).
   """
 
   def __init__(self, hidden_layers=None, activation_type='tanh',
@@ -79,8 +88,9 @@ class DynamicAutoencoder(FactorizationModel):
                sparse=False, compute_dtype=None, params_dtype=None):
     super().__init__()
     self.sparse = bool(sparse)
-    check_params_dtype(params_dtype)
-    self.compute_dtype = as_dtype(compute_dtype)
+    self.params_dtype = check_params_dtype(params_dtype)
+    self.compute_dtype = as_dtype(default_compute_dtype(
+        as_dtype(compute_dtype), params_dtype))
     self.hidden_layers = hidden_layers
     self.activation_type = activation_type
     self.is_constrained = is_constrained
@@ -92,9 +102,10 @@ class DynamicAutoencoder(FactorizationModel):
   # -- init / hyperparams ------------------------------------------------
 
   def init_model(self, num_items=None, num_users=None, seed=0):
-    """Create the parameters (float32, on the CPU; the trainer moves
-    the module). The draws come from a CPU generator seeded with
-    ``seed``, so the init does not depend on the device."""
+    """Create the parameters (in ``params_dtype``, on the CPU; the
+    trainer moves the module). The draws come in float32 from a CPU
+    generator seeded with ``seed``, so the init does not depend on the
+    device or the storage dtype."""
     if not self.hidden_layers:
       raise ValueError('hidden_layers must be a non-empty list')
     self.num_items = int(num_items)

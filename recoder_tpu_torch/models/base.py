@@ -10,6 +10,7 @@ masked out of every loss and every recommendation.
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -59,12 +60,12 @@ def l2_normalize_rows(x, eps=1e-12):
 
 
 def linear(z, w, bias, compute_dtype=None):
-  """``z @ w + bias`` of a hidden layer: in float32, or (bf16 compute)
-  the product of the bf16-rounded operands rounded to bf16, then float32
-  plus the float32 bias (the JAX ``(z.astype(cd) @ w.astype(cd))
-  .astype(float32) + b``)."""
+  """``z @ w + bias`` of a hidden layer: in float32 (a bf16 weight
+  upcast, as JAX promotes it), or (bf16 compute) the product of the
+  bf16-rounded operands rounded to bf16, then float32 plus the bias (the
+  JAX ``(z.astype(cd) @ w.astype(cd)).astype(float32) + b``)."""
   if compute_dtype in (None, torch.float32):
-    return z @ w + bias
+    return z.float() @ w.float() + bias
   return (z.to(compute_dtype) @ w.to(compute_dtype)).float() + bias
 
 
@@ -86,12 +87,47 @@ def coo_encode(table, rows, cols, vals, num_rows, compute_dtype=None):
   return row_sums((en_rows * zv[:, None]).float(), rows, num_rows)
 
 
+#: parameter storage dtypes by name; ``Recoder.train`` trains float32 and
+#: bfloat16 and refuses the others, as the JAX package does
+PARAMS_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
+                 'float16': torch.float16}
+
+
 def check_params_dtype(params_dtype):
-  """The JAX models' ``params_dtype``: only float32 (None) is ported."""
-  if params_dtype not in (None, 'float32', torch.float32):
-    raise NotImplementedError(f'params_dtype={params_dtype!r}: only float32 '
-                              'parameters are ported (ROADMAP Queue 1 item '
-                              '6)')
+  """The storage dtype of the JAX models' ``params_dtype`` (None:
+  float32), as a torch dtype. float16 is accepted here, as the JAX
+  models accept it, and refused by ``Recoder.train``."""
+  if params_dtype is None:
+    return torch.float32
+  dtype = (PARAMS_DTYPES.get(params_dtype) if isinstance(params_dtype, str)
+           else params_dtype)
+  if dtype not in PARAMS_DTYPES.values():
+    raise ValueError(f'params_dtype={params_dtype!r}: one of '
+                     f'{sorted(PARAMS_DTYPES)}')
+  return dtype
+
+
+def default_compute_dtype(compute_dtype, params_dtype):
+  """The JAX models' rule: ``compute_dtype`` defaults to the
+  ``params_dtype`` given (bf16 tables are multiplied in bf16, never
+  upcast). float16 storage, which only serves (``Recoder.train`` refuses
+  it), keeps float32 compute."""
+  if compute_dtype is None and params_dtype is not None:
+    dtype = check_params_dtype(params_dtype)
+    return None if dtype == torch.float16 else dtype
+  return compute_dtype
+
+
+def adapt_array(ref, arr):
+  """A checkpoint array (numpy, float32) as a tensor for the leaf
+  ``ref``: its dtype, rounded to nearest even, and its device (the JAX
+  ``_adapt_array``'s cast; shapes already match, since the port has no
+  feature pad)."""
+  t = torch.from_numpy(np.asarray(arr))
+  if tuple(t.shape) != tuple(ref.shape):
+    raise ValueError(f'array of shape {tuple(t.shape)} does not fit '
+                     f'{tuple(ref.shape)}')
+  return t.to(device=ref.device, dtype=ref.dtype)
 
 
 def dropout(x, rate, generator=None, keep_mask=None):
@@ -183,12 +219,16 @@ class FactorizationModel(nn.Module):
     return dict(self.named_parameters())
 
   def register_params(self, params):
-    """Replace the module's parameters by ``params`` ({name: tensor}), in
-    order; the tables of :meth:`sparse_param_paths` do not require grad
-    (row-sparse Adam trains them outside autograd)."""
+    """Replace the module's parameters by ``params`` ({name: float32
+    tensor}), in order, each rounded once (to nearest even) to the
+    model's ``params_dtype`` (float32 when it has none); the tables of
+    :meth:`sparse_param_paths` do not require grad (row-sparse Adam
+    trains them outside autograd)."""
     self._parameters.clear()
     sparse = self.sparse_param_paths()
+    dtype = getattr(self, 'params_dtype', torch.float32)
     for name, value in params.items():
       self.register_parameter(
-          name, nn.Parameter(value, requires_grad=name not in sparse))
+          name, nn.Parameter(value.to(dtype),
+                             requires_grad=name not in sparse))
     return self.params()

@@ -24,13 +24,15 @@ pad of a JAX checkpoint.
 :meth:`encode_coo` / :meth:`decode_slice` serve chunked scoring: the
 activated user rows, then one contiguous slice of the catalog at a time.
 
-Not ported yet: bf16 parameter storage (``params_dtype``).
+``params_dtype='bfloat16'`` stores the tables and the bias in bf16, as
+the autoencoder does (``compute_dtype`` then defaults to bf16).
 """
 
 import torch
 
 from recoder_tpu_torch.models.base import (FactorizationModel, activation,
-                                           check_params_dtype, dropout,
+                                           check_params_dtype,
+                                           default_compute_dtype, dropout,
                                            pad_dim, xavier_uniform)
 from recoder_tpu_torch.ops.gather_matmul import (as_dtype, decode_matmul,
                                                   take_rows)
@@ -45,30 +47,34 @@ class MatrixFactorization(FactorizationModel):
     dropout_prob (float): dropout on the activated user factors.
     sparse (bool): train the embedding tables with row-sparse Adam.
     compute_dtype (str, optional): the decode product's dtype
-      ('bfloat16'); parameters and sums stay float32. A checkpoint
-      carries it, and a model built without one takes the checkpoint's.
-    params_dtype: accepted for the JAX package's signature; only float32
-      (None) is ported.
+      ('bfloat16'); sums stay float32. A checkpoint carries it, and a
+      model built without one takes the checkpoint's. Defaults to a bf16
+      ``params_dtype``.
+    params_dtype (str, optional): the parameters' storage dtype
+      ('bfloat16'; None: float32), restored by the constructor on load
+      (checkpoints store float32).
   """
 
   def __init__(self, embedding_size, activation_type='none',
                dropout_prob=0, sparse=False, compute_dtype=None,
                params_dtype=None):
     super().__init__()
-    check_params_dtype(params_dtype)
+    self.params_dtype = check_params_dtype(params_dtype)
     self.embedding_size = embedding_size
     self.activation_type = activation_type
     self.dropout_prob = dropout_prob
     self.sparse = bool(sparse)
-    self.compute_dtype = as_dtype(compute_dtype)
+    self.compute_dtype = as_dtype(default_compute_dtype(
+        as_dtype(compute_dtype), params_dtype))
     self.num_users = None
     self.num_items = None
     self.num_users_padded = None
     self.num_items_padded = None
 
   def init_model(self, num_items=None, num_users=None, seed=0):
-    """Create the parameters (float32, on the CPU) from a CPU generator
-    seeded with ``seed``; the tables' fans are the logical ones."""
+    """Create the parameters (drawn in float32 from a CPU generator
+    seeded with ``seed``, stored in ``params_dtype``, on the CPU); the
+    tables' fans are the logical ones."""
     self.num_items = int(num_items)
     self.num_users = int(num_users)
     self.num_items_padded = pad_dim(self.num_items)

@@ -1,12 +1,16 @@
-"""Fused Adam step with bfloat16 moments: the CUDA kernel and its plain
+"""Fused Adam step over bfloat16 storage: the CUDA kernel and its plain
 twin.
 
-The JAX package's ``Optimizer('adam', state_dtype='bfloat16')``
-(``recoder_tpu/optim.py``): moments stored in bf16, the update math in
-float32 -- the weight decay added to the gradient, the new moments, the
-parameter step with the unrounded new moments -- and one
-round-to-nearest-even on store. It has no Pallas ancestor; on the card it
-is ``kernels/adam.cu``, one launch for every tensor of a parameter set.
+The JAX package's ``Optimizer('adam')`` over bf16 storage
+(``recoder_tpu/optim.py``): moments stored in bf16
+(``state_dtype='bfloat16'``) and/or parameters and their gradients stored
+in bf16 (``params_dtype='bfloat16'``), the update math in float32 -- the
+weight decay added to the upcast gradient from the upcast parameter, the
+new moments, the parameter step with the unrounded new moments -- and one
+round-to-nearest-even of each bf16 buffer on store. It has no Pallas
+ancestor; on the card it is ``kernels/adam.cu``, one launch for every
+tensor of a parameter set, for the storage pairs (parameters, moments)
+of :data:`STORAGE`.
 
 Routing is by the tensors' device: CUDA tensors launch the kernel (or
 raise), CPU tensors take :func:`adam_bf16_plain`, which does the same
@@ -45,12 +49,17 @@ BF16 = torch.bfloat16
 #: kernel launches since the last reset
 LAUNCHES = {'adam_bf16': 0}
 
+#: the (parameter and gradient, moment) storage dtypes the kernel is
+#: built for; float32 throughout is ``torch.optim.Adam``'s
+STORAGE = ((torch.float32, BF16), (BF16, BF16), (BF16, torch.float32))
+
 #: one tensor's descriptor, as ``struct Desc`` in kernels/adam.cu
-DESC = np.dtype({'names': ['p', 'g', 'm', 'v', 'n', 'chunk0', 'wd', 'vec'],
+DESC = np.dtype({'names': ['p', 'g', 'm', 'v', 'n', 'chunk0', 'wd', 'vec',
+                           'p_bf16', 'm_bf16'],
                  'formats': ['<u8', '<u8', '<u8', '<u8', '<i8', '<i8', '<f4',
-                             '<i4'],
-                 'offsets': [0, 8, 16, 24, 32, 40, 48, 52],
-                 'itemsize': 56})
+                             '<i4', '<i4', '<i4'],
+                 'offsets': [0, 8, 16, 24, 32, 40, 48, 52, 56, 60],
+                 'itemsize': 64})
 
 Scalars = namedtuple('Scalars',
                      'lr_bc1 b1 omb1 b2 omb2 sqrt_bc2 eps')
@@ -98,17 +107,20 @@ def scalars_at(table, ctl):
 def adam_bf16_plain(params, grads, exp_avgs, exp_avg_sqs, weight_decays,
                     scalars):
   """The kernel's plain version, in place: each operation of
-  kernels/adam.cu as one PyTorch op, divisions by tensors (CUDA divides
-  by a host scalar as a multiply by its reciprocal)."""
+  kernels/adam.cu as one PyTorch op on the upcast buffers, divisions by
+  tensors (CUDA divides by a host scalar as a multiply by its
+  reciprocal), each buffer stored back once (``copy_`` rounds to nearest
+  even)."""
   c = scalars
   for p, g, m, v, wd in zip(params, grads, exp_avgs, exp_avg_sqs,
                             weight_decays):
     sqrt_bc2 = torch.tensor(c.sqrt_bc2, device=p.device)
-    g = g + wd * p
+    p32 = p.float()
+    g = g.float() + wd * p32
     m1 = c.b1 * m.float() + c.omb1 * g
     v1 = c.b2 * v.float() + (c.omb2 * g) * g
     denom = torch.sqrt(v1) / sqrt_bc2 + c.eps
-    p.sub_((c.lr_bc1 * m1) / denom)
+    p.copy_(p32 - (c.lr_bc1 * m1) / denom)
     m.copy_(m1)
     v.copy_(v1)
 
@@ -120,7 +132,8 @@ def _lib():
       from recoder_tpu_torch.kernels import load_library
       lib = load_library('adam')
       ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-      lib.adam_bf16_step.argtypes = [ptr, i32, i32, ptr, i32, ptr, i32, ptr]
+      lib.adam_bf16_step.argtypes = [ptr, i32, i32, ptr, i32, ptr, i32, i32,
+                                     i32, ptr]
       lib.adam_bf16_step.restype = i32
       lib.adam_chunk.restype = i32
       lib.chunk = lib.adam_chunk()
@@ -135,12 +148,12 @@ def _lib():
 
 
 def _pack(entries, chunk):
-  """The descriptors of ``entries`` ((p, g, m, v pointers, n, wd, vec)
-  per tensor) as bytes, and the launch's chunk count."""
+  """The descriptors of ``entries`` ((p, g, m, v pointers, n, wd, vec,
+  p_bf16, m_bf16) per tensor) as bytes, and the launch's chunk count."""
   desc = np.zeros(len(entries), DESC)
   chunk0 = 0
-  for i, (p, g, m, v, n, wd, vec) in enumerate(entries):
-    desc[i] = (p, g, m, v, n, chunk0, wd, vec)
+  for i, (p, g, m, v, n, wd, vec, p_bf16, m_bf16) in enumerate(entries):
+    desc[i] = (p, g, m, v, n, chunk0, wd, vec, p_bf16, m_bf16)
     chunk0 += -(-n // chunk)
   return desc.view(np.uint8), chunk0
 
@@ -198,11 +211,23 @@ def _descriptor_table(device, entries, chunk, captured):
   return captured.table(desc), nchunks
 
 
+def storage(params, exp_avgs):
+  """The (parameter, moment) storage dtypes of a parameter set: one of
+  :data:`STORAGE`, shared by every tensor (one launch, one
+  instantiation)."""
+  pairs = {(p.dtype, m.dtype) for p, m in zip(params, exp_avgs)}
+  if len(pairs) != 1 or next(iter(pairs)) not in STORAGE:
+    raise ValueError(f'the Adam kernel takes one of the storage pairs '
+                     f'{STORAGE} for every tensor, got {sorted(map(str, pairs))}')
+  return pairs.pop()
+
+
 def _check_tensors(params, grads, exp_avgs, exp_avg_sqs):
+  p_dtype, m_dtype = storage(params, exp_avgs)
   for p, g, m, v in zip(params, grads, exp_avgs, exp_avg_sqs):
-    for name, x, dtype in (('param', p, torch.float32),
-                           ('grad', g, torch.float32),
-                           ('exp_avg', m, BF16), ('exp_avg_sq', v, BF16)):
+    for name, x, dtype in (('param', p, p_dtype), ('grad', g, p_dtype),
+                           ('exp_avg', m, m_dtype),
+                           ('exp_avg_sq', v, m_dtype)):
       if x.device != p.device:
         raise ValueError(f'{name} is on {x.device}, the param on {p.device}')
       if x.dtype != dtype:
@@ -250,15 +275,18 @@ def adam_bf16_kernel_table(params, grads, exp_avgs, exp_avg_sqs,
     raise ValueError('the bf16-moment Adam kernel takes CUDA tensors on '
                      'one device')
   lib = _lib()
+  p_dtype, m_dtype = storage(params, exp_avgs)
+  p_bf16, m_bf16 = int(p_dtype == BF16), int(m_dtype == BF16)
   entries = []
   for p, g, m, v, wd in zip(params, grads, exp_avgs, exp_avg_sqs,
                             weight_decays):
     if p.numel() == 0:
       continue
-    ptrs = (p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr())
-    vec = int(p.numel() % 4 == 0 and ptrs[0] % 16 == 0 and ptrs[1] % 16 == 0
-              and ptrs[2] % 8 == 0 and ptrs[3] % 8 == 0)
-    entries.append((*ptrs, p.numel(), float(np.float32(wd)), vec))
+    # (4 elements a thread: each buffer aligned to 4 of its elements)
+    vec = int(p.numel() % 4 == 0 and all(
+        x.data_ptr() % (4 * x.element_size()) == 0 for x in (p, g, m, v)))
+    entries.append((p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+                    p.numel(), float(np.float32(wd)), vec, p_bf16, m_bf16))
   if not entries:
     return
   _check_table(table, ctl, device)
@@ -266,10 +294,10 @@ def adam_bf16_kernel_table(params, grads, exp_avgs, exp_avg_sqs,
                                      captured)
   err = lib.adam_bf16_step(
       descs.data_ptr(), len(entries), nchunks, table.data_ptr(),
-      table.shape[0], ctl.data_ptr(), device.index,
+      table.shape[0], ctl.data_ptr(), p_bf16, m_bf16, device.index,
       torch.cuda.current_stream(device).cuda_stream)
   if err != 0:
-    raise RuntimeError(f'bf16-moment Adam launch failed: CUDA error {err} '
+    raise RuntimeError(f'bf16-storage Adam launch failed: CUDA error {err} '
                        f'({lib.adam_error_string(err).decode()})')
   count_launch(LAUNCHES, 'adam_bf16')
 
@@ -306,13 +334,14 @@ def table_step(params, grads, exp_avgs, exp_avg_sqs, weight_decays, table,
 
 def adam_bf16_step(params, grads, exp_avgs, exp_avg_sqs, weight_decays, lr,
                    step, betas=(0.9, 0.999), eps=1e-8):
-  """One Adam step with bf16 moments, in place on ``params``,
+  """One Adam step over bf16 storage, in place on ``params``,
   ``exp_avgs`` and ``exp_avg_sqs``.
 
   Args:
-    params: float32 parameter tensors (contiguous).
-    grads: their float32 gradients.
-    exp_avgs, exp_avg_sqs: bf16 first and second moments.
+    params: parameter tensors (contiguous), float32 or bf16.
+    grads: their gradients, in the parameters' dtype.
+    exp_avgs, exp_avg_sqs: first and second moments, bf16 or float32 (one
+      of the pairs of :data:`STORAGE`).
     weight_decays: one float per tensor (0 for biases).
     lr: learning rate of this step.
     step: the step's 1-based count (for the bias corrections).

@@ -29,6 +29,19 @@ float32 loss, and E0 is stored in bf16; dh and drows come back rounded
 to bf16 values, dbias in float32 (the rounding points are listed in the
 kernel source's header).
 
+bf16 parameter storage (``params_dtype='bfloat16'``): ``rows`` (and, for
+MatrixFactorization, ``h``) and ``bias`` may be bf16 tensors. The bf16
+kernels read bf16 rows as they are stored -- the wgmma backward takes the
+table itself as its TMA operand, where the forward of float32 rows
+writes a bf16 copy -- and write drows in bf16; a bf16 ``h`` and ``bias``
+are upcast in the wrapper (a batch's activations and one [W] vector:
+exact), and dh and dbias are rounded once to their inputs' dtype. At
+float32 compute over bf16 storage (bench.py's ``--dtype float32
+--params-dtype bfloat16``) the 3xTF32 kernels take a float32 copy of the
+rows, a plain ``.float()`` outside the kernel, and write drows in bf16.
+Every gradient comes back in its input's dtype, rounded once from its
+float32 value, as the JAX package's ``astype`` transposes round.
+
 A captured CUDA graph may record the call (the trainer's captured
 full-decode step): nothing in it reads the host, and the launch plan of
 a shape (``_plan``) and the kernels' shared-memory limits are set at its
@@ -140,7 +153,9 @@ def _cotangent(scores, target, row_mask, col_mask, kind, confidence):
 def _plain_backward(g, e0, h, rows):
   """The kernel backward's plain version: gradients w.r.t. h, rows and
   bias from the forward's cotangent E0 (bf16 E0: the bf16 variant's,
-  with its bf16 operands and roundings)."""
+  with its bf16 operands and roundings), float32. bf16 operands are
+  upcast first (exact)."""
+  h, rows = h.float(), rows.float()
   if e0.dtype == BF16:
     ds = e0.float()
     dh = _round(g * torch.matmul(ds, _round(rows)))
@@ -153,7 +168,10 @@ def _plain_backward(g, e0, h, rows):
 def _plain_forward(h, rows, bias, target, row_mask, col_mask, kind,
                    confidence, compute_dtype, stash):
   """The kernel forward's plain version: the loss and, when ``stash``,
-  E0 (else None), both from one score product."""
+  E0 (else None), both from one score product. bf16 operands (bf16
+  parameter storage) are upcast first: exact, so the result is bitwise
+  that of float32 operands holding the same values."""
+  h, rows, bias = h.float(), rows.float(), bias.float()
   bf16 = _is_bf16(compute_dtype)
   if bf16:
     scores = _round(torch.matmul(_round(h), _round(rows).t()) + bias)
@@ -177,10 +195,11 @@ def _lib():
       lib = load_library('fused_decode_loss')
       ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
       lib.fdl_forward.argtypes = ([ptr] * 4 + [i32] + [ptr] * 2 + [i32] * 4
-                                  + [f32, i32, ptr, i32, ptr, ptr, i32, ptr])
+                                  + [f32, i32, i32, ptr, i32, ptr, ptr, i32,
+                                     ptr])
       lib.fdl_forward.restype = i32
-      lib.fdl_backward.argtypes = ([ptr] * 2 + [i32] + [ptr] * 2 + [i32] * 6
-                                   + [ptr] * 4 + [i32, ptr])
+      lib.fdl_backward.argtypes = ([ptr] * 2 + [i32] + [ptr] * 2 + [i32] * 7
+                                   + [ptr] * 3 + [i32, ptr, i32, ptr])
       lib.fdl_backward.restype = i32
       lib.fdl_max_d.restype = i32
       lib.max_d = lib.fdl_max_d()  # the widest feature axis it takes
@@ -188,12 +207,12 @@ def _lib():
       lib.fdl_plan.restype = i32
       lib.fdl_plan_wgmma.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
       lib.fdl_plan_wgmma.restype = i32
-      lib.fdl_forward_wgmma.argtypes = ([ptr] * 6 + [i32] * 4 + [f32]
-                                        + [ptr] * 3 + [i32] + [ptr] * 2
-                                        + [i32, ptr])
+      lib.fdl_forward_wgmma.argtypes = ([ptr] * 2 + [i32] + [ptr] * 4
+                                        + [i32] * 4 + [f32] + [ptr] * 3
+                                        + [i32] + [ptr] * 2 + [i32, ptr])
       lib.fdl_forward_wgmma.restype = i32
-      lib.fdl_backward_wgmma.argtypes = ([ptr] * 4 + [i32] * 5 + [ptr] * 4
-                                         + [i32, ptr])
+      lib.fdl_backward_wgmma.argtypes = ([ptr] * 4 + [i32] * 5 + [ptr] * 3
+                                         + [i32, ptr, i32, ptr])
       lib.fdl_backward_wgmma.restype = i32
       lib.fdl_configure.argtypes = [i32]
       lib.fdl_configure.restype = i32
@@ -242,6 +261,11 @@ def _plan_wgmma(device_index, B, W, d):
   return tuple(out)
 
 
+#: dtypes the kernels' wrapper takes for h, rows and bias (bf16: bf16
+#: parameter storage)
+OPERAND_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _validate(h, rows, bias, target, row_mask, col_mask, kind, max_d):
   if kind not in KINDS:
     raise ValueError(f'fused decode loss does not cover {kind!r}')
@@ -250,13 +274,10 @@ def _validate(h, rows, bias, target, row_mask, col_mask, kind, max_d):
   for name, x in named.items():
     if x.device != h.device:
       raise ValueError(f'{name} is on {x.device}, h on {h.device}')
-    if name == 'target':
-      if x.dtype not in TARGET_DTYPES:
-        raise ValueError(f'target must be float32 or bfloat16, got '
-                         f'{x.dtype}')
-    elif x.dtype != torch.float32:
-      # (the bf16 variant takes float32 h and rows too: it rounds them)
-      raise ValueError(f'{name} must be float32, got {x.dtype}')
+    allowed = (TARGET_DTYPES if name == 'target' else OPERAND_DTYPES
+               if name in ('h', 'rows', 'bias') else (torch.float32,))
+    if x.dtype not in allowed:
+      raise ValueError(f'{name} must be one of {allowed}, got {x.dtype}')
     if not x.is_contiguous():
       raise ValueError(f'{name} must be contiguous')
   B, d = h.shape
@@ -277,18 +298,24 @@ def _kernel_forward(h, rows, bias, target, row_mask, col_mask, kind,
                     confidence, compute_dtype, stash, route=None):
   """The loss on the card; when ``stash``, E0 as [B, lde] (its rows
   padded with zeros to a multiple of 4 columns, float32; to 8, bf16, for
-  the bf16 variant; else None), and on the wgmma route the bf16 copies
-  (hb, rows_b) that its backward reads (else None). ``route``: the bf16
-  kernels ('wgmma' or 'mma'), by default :func:`bf16_route`'s.
+  the bf16 variant; else None), and on the wgmma route the bf16 operands
+  (hb, rows_b) that its backward reads (else None): rows_b is a copy the
+  forward writes from float32 rows, or bf16 rows themselves. ``route``:
+  the bf16 kernels ('wgmma' or 'mma'), by default :func:`bf16_route`'s.
+  A bf16 ``h`` or ``bias`` is upcast here (exact); the 3xTF32 kernels
+  take a float32 copy of bf16 rows.
 
   Returns (loss, e0, copies)."""
   bf16 = _is_bf16(compute_dtype)  # (raises on another compute dtype)
   lib = _device_lib(h.device)
   B, W, d = _validate(h, rows, bias, target, row_mask, col_mask, kind,
                       lib.max_d)
+  h, bias = h.float(), bias.float()
   if bf16 and (route or bf16_route(h, rows, target)) == 'wgmma':
     return _wgmma_forward(lib, h, rows, bias, target, row_mask, col_mask,
                           kind, confidence, stash)
+  rows_bf16 = bf16 and rows.dtype == BF16
+  rows = rows if bf16 else rows.float()
   n_partials, _, _, lde = _plan(h.device.index, B, W, d, bf16)
   partials = torch.empty(n_partials, device=h.device)
   out = torch.empty((), device=h.device)
@@ -300,8 +327,8 @@ def _kernel_forward(h, rows, bias, target, row_mask, col_mask, kind,
       h.data_ptr(), rows.data_ptr(), bias.data_ptr(), target.data_ptr(),
       int(target.dtype == torch.bfloat16), row_mask.data_ptr(),
       col_mask.data_ptr(), B, W, d, KINDS[kind], float(confidence),
-      int(bf16), e0.data_ptr() if stash else None, lde, partials.data_ptr(),
-      out.data_ptr(), h.device.index, stream)
+      int(bf16), int(rows_bf16), e0.data_ptr() if stash else None, lde,
+      partials.data_ptr(), out.data_ptr(), h.device.index, stream)
   _check(lib, err, 'fused decode-loss forward launch')
   count_launch(LAUNCHES, 'fused_decode_loss_fwd_bf16' if bf16
                else 'fused_decode_loss_fwd')
@@ -316,14 +343,18 @@ def _wgmma_forward(lib, h, rows, bias, target, row_mask, col_mask, kind,
   partials = torch.empty(n_partials, device=dev)
   out = torch.empty((), device=dev)
   hb = torch.empty((B, dp), device=dev, dtype=BF16)
-  rows_b = torch.empty((W, d), device=dev, dtype=BF16) if stash else None
+  rows_bf16 = rows.dtype == BF16
+  # (bf16 rows are the backward's operand as they are: nothing writes
+  # them before it, the optimizer steps after the backward)
+  rows_b = (rows if rows_bf16 else
+            torch.empty((W, d), device=dev, dtype=BF16)) if stash else None
   e0 = torch.empty((B, lde), device=dev, dtype=BF16) if stash else None
   stream = torch.cuda.current_stream(dev).cuda_stream
   err = lib.fdl_forward_wgmma(
-      h.data_ptr(), rows.data_ptr(), bias.data_ptr(), target.data_ptr(),
-      row_mask.data_ptr(), col_mask.data_ptr(), B, W, d, KINDS[kind],
-      float(confidence), hb.data_ptr(),
-      None if rows_b is None else rows_b.data_ptr(),
+      h.data_ptr(), rows.data_ptr(), int(rows_bf16), bias.data_ptr(),
+      target.data_ptr(), row_mask.data_ptr(), col_mask.data_ptr(), B, W, d,
+      KINDS[kind], float(confidence), hb.data_ptr(),
+      None if rows_b is None or rows_bf16 else rows_b.data_ptr(),
       None if e0 is None else e0.data_ptr(), n_partials, partials.data_ptr(),
       out.data_ptr(), dev.index, stream)
   _check(lib, err, 'fused decode-loss forward launch (wgmma)')
@@ -331,7 +362,7 @@ def _wgmma_forward(lib, h, rows, bias, target, row_mask, col_mask, kind,
   return out, e0, (hb, rows_b) if stash else None
 
 
-def _wgmma_backward(lib, g, e0, h, rows, copies):
+def _wgmma_backward(lib, g, e0, h, rows, copies, drows_dtype):
   (B, d), W = h.shape, rows.shape[0]
   _, per, nsplit, lde, dp = _plan_wgmma(h.device.index, B, W, d)
   if e0.shape != (B, lde) or e0.dtype != BF16:
@@ -346,13 +377,14 @@ def _wgmma_backward(lib, g, e0, h, rows, copies):
   g = g.to(device=dev, dtype=torch.float32).contiguous()
   dh_partials = torch.empty((nsplit, B, d), device=dev)
   dh = torch.empty((B, d), device=dev)
-  drows = torch.empty((W, d), device=dev)
+  drows = torch.empty((W, d), device=dev, dtype=drows_dtype)
   dbias = torch.empty((W,), device=dev)
   stream = torch.cuda.current_stream(dev).cuda_stream
   err = lib.fdl_backward_wgmma(
       g.data_ptr(), e0.data_ptr(), hb.data_ptr(), rows_b.data_ptr(), B, W,
       d, per, nsplit, dh_partials.data_ptr(), dh.data_ptr(),
-      drows.data_ptr(), dbias.data_ptr(), dev.index, stream)
+      drows.data_ptr(), int(drows_dtype == BF16), dbias.data_ptr(),
+      dev.index, stream)
   _check(lib, err, 'fused decode-loss backward launch (wgmma)')
   count_launch(LAUNCHES, 'fused_decode_loss_bwd_bf16_wgmma')
   return dh, drows, dbias
@@ -361,25 +393,31 @@ def _wgmma_backward(lib, g, e0, h, rows, copies):
 def _kernel_backward(g, e0, h, rows, copies=None):
   """dh, drows, dbias on the card from the forward's E0 (a bf16 E0: the
   bf16 variant) and, from a wgmma forward, its bf16 ``copies``: the wgmma
-  backward exactly when they are given."""
+  backward exactly when they are given. drows comes in ``rows``' dtype,
+  dh and dbias in float32 (a bf16 ``h`` is upcast, exact)."""
   lib = _device_lib(h.device)
+  h = h.float()
   if copies is not None:
-    return _wgmma_backward(lib, g, e0, h, rows, copies)
+    return _wgmma_backward(lib, g, e0, h, rows, copies, rows.dtype)
   (B, d), W = h.shape, rows.shape[0]
   bf16 = e0.dtype == BF16
+  drows_dtype = rows.dtype
+  rows_bf16 = bf16 and rows.dtype == BF16
+  rows = rows if bf16 else rows.float()
   _, ktiles, nsplit, lde = _plan(h.device.index, B, W, d, bf16)
   if e0.shape != (B, lde):
     raise ValueError(f'E0 is {tuple(e0.shape)}, expected {(B, lde)}')
   g = g.to(device=h.device, dtype=torch.float32).contiguous()
   dh_partials = torch.empty((nsplit, B, d), device=h.device)
   dh = torch.empty((B, d), device=h.device)
-  drows = torch.empty((W, d), device=h.device)
+  drows = torch.empty((W, d), device=h.device, dtype=drows_dtype)
   dbias = torch.empty((W,), device=h.device)
   stream = torch.cuda.current_stream(h.device).cuda_stream
   err = lib.fdl_backward(
-      g.data_ptr(), e0.data_ptr(), lde, h.data_ptr(), rows.data_ptr(), B, W,
-      d, ktiles, nsplit, int(bf16), dh_partials.data_ptr(), dh.data_ptr(),
-      drows.data_ptr(), dbias.data_ptr(), h.device.index, stream)
+      g.data_ptr(), e0.data_ptr(), lde, h.data_ptr(), rows.data_ptr(),
+      int(rows_bf16), B, W, d, ktiles, nsplit, int(bf16),
+      dh_partials.data_ptr(), dh.data_ptr(), drows.data_ptr(),
+      int(drows_dtype == BF16), dbias.data_ptr(), h.device.index, stream)
   _check(lib, err, 'fused decode-loss backward launch')
   count_launch(LAUNCHES, 'fused_decode_loss_bwd_bf16' if bf16
                else 'fused_decode_loss_bwd')
@@ -404,12 +442,14 @@ def _will_backward(ctx):
 
 class FusedDecodeLoss(torch.autograd.Function):
   """Autograd wrapper: the CUDA kernels on CUDA tensors, their plain
-  versions on CPU tensors."""
+  versions on CPU tensors. Each gradient comes back in its input's
+  dtype (a bf16 parameter's rounded once from float32)."""
 
   @staticmethod
   def forward(ctx, h, rows, bias, target, row_mask, col_mask, kind,
               confidence, compute_dtype):
     stash = _will_backward(ctx)
+    ctx.dtypes = (h.dtype, bias.dtype)
     args = (h, rows, bias, target, row_mask, col_mask, kind, confidence,
             compute_dtype, stash)
     if _route(h.device):
@@ -427,7 +467,10 @@ class FusedDecodeLoss(torch.autograd.Function):
       dh, drows, dbias = _kernel_backward(g, e0, h, rows, copies or None)
     else:
       dh, drows, dbias = _plain_backward(g, e0, h, rows)
-    return dh, drows, dbias, None, None, None, None, None, None
+      drows = drows.to(rows.dtype)
+    h_dtype, bias_dtype = ctx.dtypes
+    return (dh.to(h_dtype), drows, dbias.to(bias_dtype), None, None, None,
+            None, None, None)
 
 
 def fused_decode_loss(h, rows, bias, target, row_mask, col_mask,

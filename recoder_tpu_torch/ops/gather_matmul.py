@@ -21,6 +21,12 @@ that is one cuBLAS bf16 GEMM with a float32 output (``torch.mm(...,
 out_dtype=torch.float32)``); on the CPU, which has no such kernel, the
 float32 product of the bf16-rounded operands (the same products, summed
 in another order).
+
+bf16 parameter storage: a bf16 table enters the bf16 product as it is
+(its ``.to(bf16)`` is no copy), and its gradient is the bf16 one the
+product's backward rounds once from float32 -- the transpose of the JAX
+``astype``. The gather's backward (``index_select``'s) accumulates in the
+table's dtype, as the JAX scatter-add of a bf16 cotangent does.
 """
 
 import contextlib

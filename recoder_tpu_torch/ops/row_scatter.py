@@ -11,8 +11,11 @@ written; untouched rows stay bitwise unchanged.
 Contract, as the TPU kernel's: ids are in bounds (the data pipeline
 guarantees it; the plain twin checks it), and a repeated id carries the
 same payload in every slot, so the racing writes need no atomics.
-Tables and rows are float32 with unit column stride (any row stride),
-ids int64. The rows are copies, never views of the tables.
+Each table is float32 or bf16 (bf16 parameter storage, bf16 moments),
+its rows in the same dtype, and the tables of one call may differ (a bf16
+table beside float32 moments): the kernel copies each table's rows in its
+own element size. Unit column stride (any row stride), ids int64. The
+rows are copies, never views of the tables.
 
 Routing is by the tensors' device and nothing else: CUDA tensors launch
 the kernel of ``kernels/row_scatter.cu`` (or raise), CPU tensors take
@@ -29,6 +32,8 @@ import threading
 import torch
 
 MAX_TABLES = 3
+#: the tables' dtypes the kernel copies
+DTYPES = (torch.float32, torch.bfloat16)
 
 #: kernel launches since the last reset
 LAUNCHES = {'row_scatter': 0}
@@ -57,9 +62,10 @@ def _check_args(tables, ids, rows):
     if tuple(r.shape) != (W, shape[1]):
       raise ValueError(f'rows {i} has shape {tuple(r.shape)}, expected '
                        f'{(W, shape[1])}')
+    if t.dtype not in DTYPES or r.dtype != t.dtype:
+      raise ValueError(f'table {i} ({t.dtype}) and its rows ({r.dtype}) '
+                       f'must share one dtype of {DTYPES}')
     for name, x in (('table', t), ('rows', r)):
-      if x.dtype != torch.float32:
-        raise ValueError(f'{name} {i} must be float32, got {x.dtype}')
       if x.device != ids.device:
         raise ValueError(f'{name} {i} is on {x.device}, ids on {ids.device}')
   return tables, rows
@@ -84,8 +90,8 @@ def _lib():
       lib = load_library('row_scatter')
       ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
       lib.rs_row_scatter.argtypes = ([i32] + [ptr] * 3 + [i64] * 3
-                                     + [ptr] * 3 + [i64] * 3
-                                     + [ptr, i64, i64, i32, i32, ptr])
+                                     + [ptr] * 3 + [i64] * 3 + [i32] * 6
+                                     + [ptr, i64, i64, i32, ptr])
       lib.rs_row_scatter.restype = i32
       lib.rs_error_string.argtypes = [i32]
       lib.rs_error_string.restype = ctypes.c_char_p
@@ -101,14 +107,20 @@ def _unit_columns(x):
   return x.shape[1] == 1 or x.stride(1) == 1
 
 
+def _vector_path(table, rows):
+  """Whether the kernel takes its 16-byte path for one table and its
+  rows: a row of d elements, both row strides and both base pointers
+  whole 16-byte units (d % 4 == 0 in float32, d % 8 == 0 in bf16)."""
+  es = table.element_size()
+  return (table.shape[1] * es) % 16 == 0 and all(
+      x.data_ptr() % 16 == 0 and (x.stride(0) * es) % 16 == 0
+      for x in (table, rows))
+
+
 def vector_path(tables, rows):
-  """Whether the kernel takes its 16-byte path for these tensors: d % 4
-  == 0, every row stride % 4 == 0 and every base pointer 16-byte
-  aligned."""
-  d = tables[0].shape[1]
-  return d % 4 == 0 and all(
-      x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0
-      for x in (*tables, *rows))
+  """Whether the kernel takes its 16-byte path for every table of a call
+  (each table chooses its own)."""
+  return all(_vector_path(t, r) for t, r in zip(tables, rows))
 
 
 def row_scatter_kernel(tables, ids, rows):
@@ -134,10 +146,12 @@ def row_scatter_kernel(tables, ids, rows):
   dld = [t.stride(0) for t in tables] + [0] * pad
   src = [r.data_ptr() for r in rows] + [None] * pad
   sld = [r.stride(0) for r in rows] + [0] * pad
+  es = [t.element_size() for t in tables] + [4] * pad
+  vec = [int(_vector_path(t, r)) for t, r in zip(tables, rows)] + [0] * pad
   stream = torch.cuda.current_stream(ids.device).cuda_stream
-  err = lib.rs_row_scatter(k, *dst, *dld, *src, *sld, ids.data_ptr(), W, d,
-                           int(vector_path(tables, rows)),
-                           ids.device.index or 0, stream)
+  err = lib.rs_row_scatter(k, *dst, *dld, *src, *sld, *es, *vec,
+                           ids.data_ptr(), W, d, ids.device.index or 0,
+                           stream)
   if err != 0:
     raise RuntimeError(f'row_scatter launch failed: CUDA error {err} '
                        f'({lib.rs_error_string(err).decode()})')
@@ -148,10 +162,10 @@ def row_scatter_(tables, ids, rows):
   """``table[ids] = rows`` in place for each of up to three tables.
 
   Args:
-    tables: sequence of [N, d] float32 tables (same shape).
+    tables: sequence of [N, d] tables (same shape), each float32 or bf16.
     ids: int64 [W] row ids, in bounds; a repeated id must carry the same
       payload in every slot.
-    rows: sequence of [W, d] float32 rows, one per table.
+    rows: sequence of [W, d] rows, one per table, in its dtype.
   """
   device = ids.device
   if device.type == 'cuda':

@@ -25,6 +25,17 @@ kernel ``kernels/adam.cu`` a step on the card (``ops/adam.py``). Only
 'adam' takes it; the other kinds refuse it as the JAX package does. The
 float32 state stays ``torch.optim``.
 
+bf16 parameters (the models' ``params_dtype='bfloat16'``) follow the JAX
+``Optimizer.update``: every buffer is upcast, the math runs in float32
+(the weight decay added to the upcast gradient from the upcast
+parameter), and each stored buffer is rounded once to nearest even; the
+moments stay float32 unless ``state_dtype`` says bf16. Adam over bf16
+parameters is :class:`Bf16Adam` for either moment dtype (never
+``torch.optim.Adam``, which would keep bf16 state and do bf16 math);
+'sgd', 'adagrad' and 'rmsprop' are :class:`Float32AnchoredOptimizer`,
+a plain eager update. :class:`SparseRowAdam` takes bf16 tables and bf16
+moments the same way.
+
 On the card (``capturable=True``) every Adam step is one that a CUDA
 graph can record: the float32 state is ``torch.optim.Adam(fused=True,
 capturable=True)`` with its learning rate a device scalar
@@ -38,9 +49,6 @@ the plain ``torch.optim.Adam``.
 step uses twice (a tied decoder over a target union that differs from
 the input union) into one id set, so that the table takes one
 :class:`SparseRowAdam` step, as torch's coalesced sparse gradient does.
-
-Not ported yet: bf16 state for :class:`SparseRowAdam` (the row scatter
-writes float32 tables).
 """
 
 import numpy as np
@@ -90,16 +98,31 @@ def make_param_groups(named_params, weight_decay):
   return groups
 
 
+def params_storage(named_params):
+  """The parameters' storage dtype (float32 or bf16), one for the set."""
+  dtypes = {p.dtype for p in named_params.values()}
+  if len(dtypes) != 1 or not dtypes <= {torch.float32, torch.bfloat16}:
+    raise ValueError(f'the optimizer steps float32 or bfloat16 parameters '
+                     f'of one dtype, got {sorted(map(str, dtypes))}')
+  return dtypes.pop()
+
+
 def make_optimizer(kind, named_params, lr, weight_decay=0.0,
                    state_dtype=None, capturable=False):
   """An optimizer over ``named_params`` ({name: param}) with the JAX
   package's hyper-parameters for ``kind``: ``torch.optim``'s, or
-  :class:`Bf16Adam` for bf16 state. ``capturable`` (CUDA parameters):
-  float32 Adam as ``torch.optim.Adam(fused=True, capturable=True)`` with
-  a device learning rate, so that a CUDA graph can record its step."""
+  :class:`Bf16Adam` for bf16 state or bf16 parameters, or
+  :class:`Float32AnchoredOptimizer` for the other kinds over bf16
+  parameters. ``capturable`` (CUDA parameters): float32 Adam as
+  ``torch.optim.Adam(fused=True, capturable=True)`` with a device
+  learning rate, so that a CUDA graph can record its step."""
   groups = make_param_groups(named_params, weight_decay)
-  if resolve_state_dtype(kind, state_dtype) == torch.bfloat16:
-    return Bf16Adam(groups, lr=lr)
+  state = resolve_state_dtype(kind, state_dtype)
+  bf16_params = params_storage(named_params) == torch.bfloat16
+  if kind == 'adam' and (state == torch.bfloat16 or bf16_params):
+    return Bf16Adam(groups, lr=lr, state_dtype=state)
+  if bf16_params and kind in KINDS:
+    return Float32AnchoredOptimizer(groups, kind, lr=lr)
   if kind == 'adam' and capturable:
     device = next(iter(named_params.values())).device
     lr_t = torch.tensor(float(lr), dtype=torch.float32, device=device)
@@ -138,20 +161,23 @@ def uses_device_steps(optimizer):
 
 
 class Bf16Adam(torch.optim.Optimizer):
-  """Adam with bf16 moments and float32 math (the JAX package's
-  ``Optimizer('adam', state_dtype='bfloat16')``).
+  """Adam over bf16 storage with float32 math (the JAX package's
+  ``Optimizer('adam')`` with ``state_dtype='bfloat16'`` moments, bf16
+  parameters, or both).
 
   Per step, for every parameter with a gradient: the weight decay is
-  added to the gradient (L2, torch style; biases sit in a group with 0),
-  the new moments and the parameter step are computed in float32 -- the
-  step from the unrounded new moments -- and the moments are stored
-  rounded to nearest even. Every parameter steps together: one step
-  count, one learning rate. On the card the whole set is one launch of
-  the fused kernel (``ops/adam.py``).
+  added to the upcast gradient from the upcast parameter (L2, torch
+  style; biases sit in a group with 0), the new moments and the
+  parameter step are computed in float32 -- the step from the unrounded
+  new moments -- and each bf16 buffer is stored rounded to nearest even.
+  The moments are ``state_dtype`` (bf16 by default; float32 for bf16
+  parameters without a bf16 state). Every parameter steps together: one
+  step count, one learning rate. On the card the whole set is one launch
+  of the fused kernel (``ops/adam.py``).
 
   The step count lives on the parameters' device, in ``ctl = [steps
   taken, the step before the scalar table's first row]``; ``state[p]``
-  holds ``exp_avg`` and ``exp_avg_sq`` (bf16) and ``step``, a view of
+  holds ``exp_avg`` and ``exp_avg_sq`` and ``step``, a view of
   ``ctl[0]`` (the keys of ``torch.optim.Adam``, so ``convert.py`` and the
   checkpoints read it the same way; a ``step`` put there from outside,
   as a checkpoint load does, is taken over at the next eager step). Each
@@ -163,9 +189,10 @@ class Bf16Adam(torch.optim.Optimizer):
   """
 
   def __init__(self, params, lr, betas=(0.9, 0.999), eps=1e-8,
-               weight_decay=0.0):
+               weight_decay=0.0, state_dtype=torch.bfloat16):
     super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
                                   weight_decay=weight_decay))
+    self.state_dtype = state_dtype
     device = self.param_groups[0]['params'][0].device
     self._ctl = torch.zeros(2, dtype=torch.int64, device=device)
     self._step = self._ctl[0]  # the view every state['step'] holds
@@ -256,7 +283,8 @@ class Bf16Adam(torch.optim.Optimizer):
         if not state:
           state['step'] = self._step
           state['exp_avg'] = torch.zeros_like(
-              p, dtype=torch.bfloat16, memory_format=torch.contiguous_format)
+              p, dtype=self.state_dtype,
+              memory_format=torch.contiguous_format)
           state['exp_avg_sq'] = torch.zeros_like(state['exp_avg'])
         for out, x in zip(tensors, (p, p.grad, state['exp_avg'],
                                     state['exp_avg_sq'],
@@ -275,6 +303,79 @@ class Bf16Adam(torch.optim.Optimizer):
     adam_ops.table_step(*tensors, self._table, self._ctl, self._capture)
     if not recording:
       self._host_step += 1
+    return None
+
+
+class Float32AnchoredOptimizer(torch.optim.Optimizer):
+  """'sgd', 'adagrad' or 'rmsprop' over bf16 parameters, as the JAX
+  ``Optimizer.update`` runs them: the parameter and its gradient upcast,
+  the weight decay added from the upcast parameter, the update in
+  float32 against float32 state, and the parameter rounded once (to
+  nearest even) on store. An eager plain update, one PyTorch op an
+  operation, as these kinds run eagerly over float32 parameters too.
+
+  Hyper-parameters are the JAX package's (torch's): SGD momentum 0.9,
+  Adagrad eps 1e-10, RMSprop alpha 0.99, eps 1e-8, momentum 0.9. The
+  state keys are ``torch.optim``'s (``momentum_buffer``, ``sum``,
+  ``square_avg``; ``step``), so ``convert.py`` moves them as it moves
+  theirs.
+  """
+
+  def __init__(self, params, kind, lr, momentum=0.9, alpha=0.99, eps=1e-8,
+               adagrad_eps=1e-10, weight_decay=0.0):
+    if kind not in ('sgd', 'adagrad', 'rmsprop'):
+      raise ValueError(f'Float32AnchoredOptimizer runs sgd, adagrad or '
+                       f'rmsprop, not {kind!r}')
+    super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
+    self.kind = kind
+    self.momentum, self.alpha = momentum, alpha
+    self.eps, self.adagrad_eps = eps, adagrad_eps
+
+  def _buffers(self, p):
+    state = self.state[p]
+    if not state:
+      keys = {'sgd': ('momentum_buffer',), 'adagrad': ('sum',),
+              'rmsprop': ('square_avg', 'momentum_buffer')}[self.kind]
+      for key in keys:
+        state[key] = torch.zeros_like(p, dtype=torch.float32,
+                                      memory_format=torch.contiguous_format)
+      if self.kind != 'sgd':
+        state['step'] = torch.tensor(0.0)
+    return state
+
+  @torch.no_grad()
+  def step(self, closure=None):
+    if closure is not None:
+      raise ValueError('Float32AnchoredOptimizer takes no closure')
+    for group in self.param_groups:
+      lr, wd = group['lr'], group['weight_decay']
+      for p in group['params']:
+        if p.grad is None:
+          continue
+        state = self._buffers(p)
+        p32 = p.float()
+        g = p.grad.float()
+        if wd:
+          g = g + wd * p32
+        if self.kind == 'sgd':
+          buf = self.momentum * state['momentum_buffer'] + g
+          state['momentum_buffer'].copy_(buf)
+          new = p32 - lr * buf
+        elif self.kind == 'adagrad':
+          total = state['sum'] + g * g
+          state['sum'].copy_(total)
+          new = p32 - lr * g / (torch.sqrt(total) + self.adagrad_eps)
+        else:
+          a, mu = self.alpha, self.momentum
+          sq = a * state['square_avg'] + (1 - a) * g * g
+          buf = (mu * state['momentum_buffer']
+                 + g / (torch.sqrt(sq) + self.eps))
+          state['square_avg'].copy_(sq)
+          state['momentum_buffer'].copy_(buf)
+          new = p32 - lr * buf
+        if 'step' in state:
+          state['step'] += 1
+        p.copy_(new)
     return None
 
 
@@ -317,32 +418,36 @@ class SparseRowAdam:
   every other row untouched; bias correction uses one step counter per
   table, advanced every step. No weight decay, as torch ``SparseAdam``.
   The cost is O(len(ids) * d), whatever the table's size.
+
+  The table may be bf16 (bf16 parameter storage) and the moments bf16
+  (``state_dtype='bfloat16'``; float32 by default, whatever the table's
+  dtype, as in JAX): the gathered rows are upcast, the math is float32,
+  and each new row block is rounded once to its table's dtype before the
+  row scatter writes the three.
   """
 
   def __init__(self, betas=(0.9, 0.999), eps=1e-8, state_dtype=None):
-    if state_dtype not in (None, 'float32', torch.float32):
-      raise NotImplementedError(
-          f'SparseRowAdam(state_dtype={state_dtype!r}): only float32 '
-          'moments are ported (the row scatter writes float32 tables)')
     self.betas = betas
     self.eps = eps
+    self.state_dtype = resolve_state_dtype('adam', state_dtype)
 
   def init(self, table):
-    """``{'step': 0, 'm': zeros, 'v': zeros}`` in float32, beside
+    """``{'step': 0, 'm': zeros, 'v': zeros}`` in the state dtype, beside
     ``table``."""
-    return {'step': 0, 'm': torch.zeros_like(table, dtype=torch.float32),
-            'v': torch.zeros_like(table, dtype=torch.float32)}
+    return {'step': 0, 'm': torch.zeros_like(table, dtype=self.state_dtype),
+            'v': torch.zeros_like(table, dtype=self.state_dtype)}
 
   def update_rows(self, table, state, ids, row_grads, lr):
     """One sparse step, in place on ``table`` and ``state``.
 
     Args:
-      table: [N, d] float32 parameter table.
+      table: [N, d] parameter table, float32 or bf16.
       state: moments from :meth:`init`; its 'step' advances by one.
       ids: int64 [R] row ids, unique (a repeated id must carry the same
         gradient in every slot), or None for every row (``row_grads`` is
         then the whole table's gradient [N, d]).
-      row_grads: [R, d] gradient of the gathered rows.
+      row_grads: [R, d] gradient of the gathered rows (any float dtype;
+        the math upcasts it).
       lr: learning rate.
 
     The three gathered row blocks are copies, so the write never reads
@@ -365,14 +470,15 @@ class SparseRowAdam:
       m_rows = state['m'].index_select(0, ids)
       v_rows = state['v'].index_select(0, ids)
       p_rows = table.index_select(0, ids)
-    new_m = b1 * m_rows + (1 - b1) * g
-    new_v = b2 * v_rows + (1 - b2) * g * g
-    new_p = p_rows - step_size * new_m / (torch.sqrt(new_v) + self.eps)
+    new_m = b1 * m_rows.float() + (1 - b1) * g
+    new_v = b2 * v_rows.float() + (1 - b2) * g * g
+    new_p = p_rows.float() - step_size * new_m / (torch.sqrt(new_v)
+                                                  + self.eps)
+    dsts = (table, state['m'], state['v'])
     if ids is None:
-      for dst, src in zip((table, state['m'], state['v']),
-                          (new_p, new_m, new_v)):
-        dst.copy_(src)
+      for dst, src in zip(dsts, (new_p, new_m, new_v)):
+        dst.copy_(src)  # (rounds to the table's dtype)
     else:
-      row_scatter_((table, state['m'], state['v']), ids,
-                   (new_p, new_m, new_v))
+      row_scatter_(dsts, ids, tuple(src.to(dst.dtype) for dst, src in
+                                    zip(dsts, (new_p, new_m, new_v))))
     state['step'] = step

@@ -145,13 +145,29 @@ def test_noise_applies_only_in_training():
 
 def test_unported_configurations_raise():
   """bf16 compute is ported (it constructs, names its dtype in the
-  checkpoint's model params and computes in it); bf16 parameter storage
-  is not."""
+  checkpoint's model params and computes in it), and so is bf16
+  parameter storage: every parameter bf16, compute_dtype defaulted to
+  it, the scores bf16; an unknown storage dtype raises."""
   model = DynamicAutoencoder([8], compute_dtype='bfloat16')
   assert model.compute_dtype == torch.bfloat16
   assert model.model_params()['compute_dtype'] == 'bfloat16'
   model.init_model(50)
   with torch.no_grad():
     assert model(torch.from_numpy(_input(50))).dtype == torch.bfloat16
-  with pytest.raises(NotImplementedError):
-    DynamicAutoencoder([8], params_dtype='bfloat16')
+  stored = DynamicAutoencoder([8, 4], params_dtype='bfloat16')
+  assert stored.compute_dtype == torch.bfloat16
+  stored.init_model(50)
+  assert all(p.dtype == torch.bfloat16 for p in stored.parameters())
+  # the same float32 draws as a float32 model's, rounded once
+  for name, p in stored.params().items():
+    assert torch.equal(p, model_f32_params(name).to(torch.bfloat16)), name
+  with torch.no_grad():
+    assert stored(torch.from_numpy(_input(50))).dtype == torch.bfloat16
+  with pytest.raises(ValueError, match='params_dtype'):
+    DynamicAutoencoder([8], params_dtype='int8')
+
+
+def model_f32_params(name):
+  model = DynamicAutoencoder([8, 4])
+  model.init_model(50)
+  return model.params()[name].detach()

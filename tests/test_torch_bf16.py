@@ -370,15 +370,23 @@ def _matrix(users, items, seed=0, density=0.1):
 
 
 def test_sparse_tables_with_bf16_state_raise():
-  with pytest.raises(NotImplementedError):
-    SparseRowAdam(state_dtype=BF)
+  """Ported: a sparse model trains with bf16 moments on its tables (and
+  float32 ones by default), and bf16 parameters construct; the moment
+  dtypes the JAX package refuses still raise."""
+  assert SparseRowAdam(state_dtype=BF).init(torch.zeros(3, 2))['m'].dtype \
+      == torch.bfloat16
   tr = Recoder(DynamicAutoencoder([4], sparse=True), optimizer_type='adam',
                opt_state_dtype=BF, device='cpu')
-  with pytest.raises(NotImplementedError):
-    tr.train(RecommendationDataset(_matrix(20, 30)), batch_size=8,
-             negative_sampling=True)
-  with pytest.raises(NotImplementedError):
-    DynamicAutoencoder([4], params_dtype=BF)
+  tr.train(RecommendationDataset(_matrix(20, 30)), batch_size=8,
+           negative_sampling=True)
+  assert np.all(np.isfinite(tr.last_epoch_losses))
+  for state in tr.sparse_states.values():
+    assert state['m'].dtype == state['v'].dtype == torch.bfloat16
+    assert state['step'] == 3 and torch.any(state['v'] != 0)
+  model = DynamicAutoencoder([4], params_dtype=BF)
+  assert model.params_dtype == model.compute_dtype == torch.bfloat16
+  with pytest.raises(ValueError, match='float32 or bfloat16'):
+    SparseRowAdam(state_dtype='float16')
 
 
 N_USERS, N_ITEMS, BATCH, LR, WD = 48, 120, 16, 1e-3, 2e-5

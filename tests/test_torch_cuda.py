@@ -32,7 +32,13 @@ CPU; the top-k in lax.top_k's order on the card bitwise the CPU's (ties,
 and against the monolithic path, the lowest ids of tied scores, a
 deterministic ``encode_coo``, the chunked validation loss against the
 dense one, the full-catalog sparse step on the card against the CPU (no
-row-scatter launch), and the asynchronous evaluator's results.
+row-scatter launch), and the asynchronous evaluator's results; bf16
+parameter storage: the decode-loss kernels on bf16 rows (both bf16 sets,
+and the 3xTF32 set at float32 compute) bitwise the float32 rows of the
+same values, the Adam kernel's bf16-parameter instantiations against its
+plain twin, the row scatter over tables of mixed element sizes, captured
+bf16-parameter steps bitwise eager, and bf16-parameter training on the
+card against the CPU (dense, union, sparse; autoencoder and MF).
 
 Every test skips where ``torch.cuda.is_available()`` is False. The file
 imports neither jax nor the JAX package, so it also runs on a machine
@@ -1403,3 +1409,189 @@ def test_async_evaluator_on_the_card_gives_the_sync_results(cuda):
     got = RecommenderEvaluator(rec, metrics).evaluate(ds, batch_size=7)
     want = RecommenderEvaluator(Sync(), metrics).evaluate(ds, batch_size=7)
     assert got == want
+
+
+# -- bf16 parameter storage ---------------------------------------------------
+
+BF = torch.bfloat16
+
+
+def _bf16_storage(problem, h_bf16=False):
+  """The problem with bf16 rows and bias (and h, as MatrixFactorization's
+  activated user rows are): bf16 parameter storage. Also the float32
+  problem that holds the same values."""
+  h, rows, bias, *rest = problem
+  stored = [h.to(BF) if h_bf16 else h, rows.to(BF), bias.to(BF)] + rest
+  same = [stored[0].float(), stored[1].float(), stored[2].float()] + rest
+  return stored, same
+
+
+def _grads(fn, problem, kind, confidence, compute_dtype):
+  h, rows, bias, target, rm, cm = problem
+  leaves = [x.clone().requires_grad_(True) for x in (h, rows, bias)]
+  loss = fn(*leaves, target, rm, cm, kind, confidence, compute_dtype)
+  loss.backward()
+  return loss, [x.grad for x in leaves]
+
+
+@pytest.mark.parametrize('h_bf16', [False, True])
+@pytest.mark.parametrize('kind,confidence', [('mse', 3.0), ('logistic', 0.0)])
+@pytest.mark.parametrize('B,d,W,route', [
+    (37, 24, 1000, 'mma'), (9, 7, 130, 'mma'), (500, 200, 18117, 'mma'),
+    (37, 200, 1000, 'wgmma'), (500, 200, 20224, 'wgmma')])
+def test_bf16_rows_kernels_are_bitwise_the_same_values_in_float32(
+    cuda, B, d, W, route, kind, confidence, h_bf16):
+  """bf16 tables read as stored: the loss, E0 and every gradient bit for
+  bit those of float32 operands holding the same values (the kernels
+  round those to the same bf16), each gradient in its input's dtype; the
+  wgmma backward takes the table itself (no copy); against the plain
+  composition at the bf16 tolerances. d = 7 takes the element-wise load
+  of bf16 rows."""
+  problem = _problem(B, d, W, cuda, seed=B + W)
+  if route == 'wgmma':
+    problem = _bf16_target(problem)
+  stored, same = _bf16_storage(problem, h_bf16)
+  assert fdl.bf16_route(stored[0], stored[1], stored[3]) == route
+  counter = ('fused_decode_loss_fwd_bf16_wgmma' if route == 'wgmma'
+             else 'fused_decode_loss_fwd_bf16')
+  before = fdl.LAUNCHES[counter]
+  loss, grads = _grads(fdl.fused_decode_loss, stored, kind, confidence, BF)
+  ref_loss, ref = _grads(fdl.fused_decode_loss, same, kind, confidence, BF)
+  assert fdl.LAUNCHES[counter] == before + 2
+  assert torch.equal(loss, ref_loss)
+  for g, r, x in zip(grads, ref, stored[:3]):
+    assert g.dtype == x.dtype
+    assert torch.equal(g.float(), r.to(x.dtype).float())
+  plain_loss, plain = _grads(fdl.fused_decode_loss_plain, stored, kind,
+                             confidence, BF)
+  np.testing.assert_allclose(loss.item(), plain_loss.item(), rtol=1e-2)
+  for g, r in zip(grads, plain):
+    assert _rel_fro(g.float().cpu().numpy(), r.float().cpu().numpy()) <= 2e-2
+  if route == 'wgmma':
+    _, _, copies = fdl._kernel_forward(*stored, kind, confidence, BF, True)
+    assert copies[1] is stored[1]
+
+
+def test_float32_compute_over_bf16_rows(cuda):
+  """bench.py's --dtype float32 over bf16 storage: the 3xTF32 kernels on
+  a float32 copy of the rows; the loss and dh those of the float32 rows
+  of the same values, drows and dbias rounded once from theirs."""
+  stored, same = _bf16_storage(_problem(64, 40, 333, cuda, seed=3))
+  before = fdl.LAUNCHES['fused_decode_loss_bwd']
+  loss, grads = _grads(fdl.fused_decode_loss, stored, 'mse', 3.0, None)
+  ref_loss, ref = _grads(fdl.fused_decode_loss, same, 'mse', 3.0, None)
+  assert fdl.LAUNCHES['fused_decode_loss_bwd'] == before + 2
+  assert torch.equal(loss, ref_loss)
+  assert torch.equal(grads[0], ref[0])
+  for g, r in zip(grads[1:], ref[1:]):
+    assert g.dtype == BF and torch.equal(g, r.to(BF))
+
+
+def _adam_set_dtypes(sizes, device, p_dtype, m_dtype, seed=0):
+  params, grads, ms, vs = _adam_set(sizes, device, seed=seed)
+  return ([p.to(p_dtype) for p in params], [g.to(p_dtype) for g in grads],
+          [m.to(m_dtype) for m in ms], [v.to(m_dtype) for v in vs])
+
+
+@pytest.mark.parametrize('p_dtype,m_dtype', [(BF, BF), (BF, torch.float32)])
+@pytest.mark.parametrize('sizes', [(1,), (3, 5), (4097,),
+                                   (4096, 200, 4_044_800, 20_224)])
+def test_adam_kernel_over_bf16_params_matches_plain(cuda, sizes, p_dtype,
+                                                    m_dtype):
+  """Five steps of the bf16-parameter instantiations against the plain
+  twin: m and v bitwise, the bf16 parameters within one bf16 ulp (the
+  float32 update agrees within 2 float32 ulps; a value on a rounding
+  boundary may round the other way), every dtype kept; one launch a
+  step."""
+  from recoder_tpu_torch.ops import adam
+  kp, grads, km, kv = _adam_set_dtypes(sizes, cuda, p_dtype, m_dtype)
+  params, ms, vs = ([x.clone() for x in xs] for xs in (kp, km, kv))
+  wds = [2e-5 if i % 2 == 0 else 0.0 for i in range(len(sizes))]
+  before = adam.LAUNCHES['adam_bf16']
+  for step in range(1, 6):
+    scalars = adam.step_scalars(1e-3, step, (0.9, 0.999), 1e-8)
+    adam.adam_bf16_kernel(kp, grads, km, kv, wds, scalars)
+    adam.adam_bf16_plain(params, grads, ms, vs, wds, scalars)
+  torch.cuda.synchronize()
+  assert adam.LAUNCHES['adam_bf16'] == before + 5
+  for a, b in zip(km + kv, ms + vs):
+    assert a.dtype == m_dtype and torch.equal(a, b)
+  for a, b in zip(kp, params):
+    ulp = torch.finfo(BF).eps * b.float().abs().clamp(min=1e-30)
+    assert a.dtype == p_dtype
+    assert float(((a.float() - b.float()).abs() / ulp).max()) <= 1
+
+
+@pytest.mark.parametrize('d', [1, 3, 8, 200])
+@pytest.mark.parametrize('dtypes', [(BF, torch.float32, torch.float32),
+                                    (BF, BF, BF), (torch.float32, BF, BF)])
+def test_row_scatter_mixed_element_sizes(cuda, dtypes, d):
+  """One launch over tables of different element sizes (a bf16 table
+  beside float32 moments, all bf16): bitwise index_copy_ each, the
+  16-byte path per table where its rows are whole 16-byte units."""
+  tables, ids, rows = _scatter_case(4099, d, 37, cuda, seed=d)
+  tables = [t.to(dt) for t, dt in zip(tables, dtypes)]
+  rows = [r.to(dt) for r, dt in zip(rows, dtypes)]
+  out, launched = _scatter_both(tables, ids, rows)
+  assert launched == 1
+  assert [t.dtype for t in out] == list(dtypes)
+
+
+def _bf16_params_trainer(device, state=None, sparse=False, noise=0.5,
+                         family='ae'):
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder, MatrixFactorization
+  model = (MatrixFactorization(16, 'tanh', dropout_prob=0.2, sparse=sparse,
+                               params_dtype='bfloat16') if family == 'mf'
+           else DynamicAutoencoder([32], 'tanh', noise_prob=noise,
+                                   sparse=sparse, params_dtype='bfloat16'))
+  return Recoder(model, optimizer_type='adam', loss='mse',
+                 loss_params={'confidence': 3}, device=device,
+                 opt_state_dtype=state)
+
+
+@pytest.mark.parametrize('state', [None, 'bfloat16'])
+def test_captured_bf16_params_are_bitwise_eager(cuda, state):
+  """bf16 parameters, full decode, 3 epochs: 16 steps a graph against
+  one eager step a dispatch, losses, parameters and moments bit for bit;
+  the moments bf16 or float32 as asked."""
+  data = _capture_data()
+  runs = [_capture_train(_bf16_params_trainer(cuda, state), data, spc,
+                         True, 'blocks') for spc in (1, 16)]
+  eager, captured = runs
+  assert captured.last_epoch_dispatch == 'captured, 16 steps a graph'
+  _assert_bitwise_trainers(captured, eager)
+  for p in captured.model.parameters():
+    assert p.dtype == BF
+    assert captured.optimizer.state[p]['exp_avg'].dtype == (
+        BF if state else torch.float32)
+
+
+@pytest.mark.parametrize('family,sparse,full_decode', [
+    ('ae', False, True), ('ae', False, False), ('ae', True, 'auto'),
+    ('mf', False, True), ('mf', True, 'auto')])
+def test_bf16_params_trainer_on_cuda_matches_cpu(cuda, family, sparse,
+                                                 full_decode):
+  """bf16 parameters (bf16 moments on the sparse tables), noise off, one
+  eager epoch: the card's losses (the bf16-row kernels, the Adam kernel,
+  the row scatter) follow the CPU's within rtol 1e-2, and every
+  parameter stays bf16."""
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.ops import adam
+  rng = np.random.default_rng(0)
+  m = sp.csr_matrix((rng.random((90, 300)) < 0.05).astype(np.float32))
+  losses = {}
+  for device in ('cpu', cuda):
+    tr = _bf16_params_trainer(device, 'bfloat16', sparse, noise=0.0,
+                              family=family)
+    counts = dict(adam.LAUNCHES, **rs.LAUNCHES)
+    tr.train(RecommendationDataset(m), batch_size=16, lr=1e-3,
+             weight_decay=2e-5, negative_sampling=True, shuffle='users',
+             num_epochs=1, full_decode=full_decode, fused_steps_per_call=1)
+    losses[str(device)] = tr.last_epoch_losses
+    if device == cuda:
+      assert adam.LAUNCHES['adam_bf16'] - counts['adam_bf16'] == 6
+      assert rs.LAUNCHES['row_scatter'] - counts['row_scatter'] == (
+          12 if sparse else 0)
+    assert all(p.dtype == BF for p in tr.model.parameters())
+  np.testing.assert_allclose(losses['cuda'], losses['cpu'], rtol=1e-2)

@@ -372,6 +372,15 @@ def test_compute_dtype_round_trips(tmp_path):
 
 
 def test_params_dtype_other_than_float32_raises():
-  MatrixFactorization(4, params_dtype='float32')
-  with pytest.raises(NotImplementedError, match='Queue 1 item 6'):
-    MatrixFactorization(4, params_dtype=BF)
+  """float32 and bf16 storage train; float16 constructs, as in the JAX
+  package, and ``train`` refuses it with the JAX message."""
+  assert MatrixFactorization(4, params_dtype='float32').compute_dtype \
+      == torch.float32
+  assert MatrixFactorization(4, params_dtype=BF).compute_dtype \
+      == torch.bfloat16
+  m = sp.csr_matrix((np.random.default_rng(0).random((20, 30)) < 0.2)
+                    .astype(np.float32))
+  tr = Recoder(MatrixFactorization(4, params_dtype='float16'),
+               optimizer_type='adam', device='cpu')
+  with pytest.raises(ValueError, match='float32 or bfloat16'):
+    tr.train(RecommendationDataset(m), batch_size=8, negative_sampling=True)

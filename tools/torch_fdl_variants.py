@@ -239,8 +239,9 @@ def copies(calls=4):
 
   def forward_without_copy():
     err = lib.fdl_forward_wgmma(
-        h.data_ptr(), rows.data_ptr(), bias.data_ptr(), target.data_ptr(),
-        rm.data_ptr(), cm.data_ptr(), B, W, d, fdl.KINDS['mse'], 3.0,
+        h.data_ptr(), rows.data_ptr(), 0, bias.data_ptr(),
+        target.data_ptr(), rm.data_ptr(), cm.data_ptr(), B, W, d,
+        fdl.KINDS['mse'], 3.0,
         hb.data_ptr(), None, e0.data_ptr(), n_partials, partials.data_ptr(),
         out.data_ptr(), h.device.index,
         torch.cuda.current_stream().cuda_stream)
