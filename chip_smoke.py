@@ -315,6 +315,25 @@ Phases, each of which raises on failure:
                 float32; (c) the 10,000,000 x 128 scorer from bf16 tables:
                 ms, peak memory, ids against the top-k of the whole
                 catalog at once.
+ 29. union capture -- the JAX scan over 'blocks' steps as CUDA graphs
+                (fused_steps_per_call='auto': 16 steps a graph over the
+                static-width union batches built on the card), for (a)
+                phase 28 (b)'s msd-big step (bf16 tables and moments),
+                (b) bench.py's MSD --sparse step, (c) the full-catalog
+                sparse step at that shape, (d) bf16 'mse' target training
+                on phase 22's split (the dual CSRs), (e) the ML-20M bf16
+                union path with megas of 2,000 and 1,000 random
+                negatives: 20 steps captured bitwise equal to the same
+                steps eager (losses, parameters, moments, step counts);
+                with the noise off, 20 static-width steps against the
+                exact-width batches built before (rtol 1e-3, bf16 1e-2);
+                captured and eager windows of 64 steps in turns
+                (user-batches/s), device ms and launches a profiled step,
+                the idle share, and each hand kernel of the cell and the
+                decode-loss route, by name, in 32 replayed and 32 eager
+                steps (the row scatter twice a sparse step). Phases 11,
+                22 and 27 (a) count their launches in eager steps
+                (fused_steps_per_call=1).
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -1609,13 +1628,14 @@ def markers_seen(events):
 
 
 def profile_steps(trainer, dataset, train_kw, steps=16, spc=1,
-                  kernels=()):
+                  kernels=(), routes=()):
   """torch.profiler over ``steps`` training steps dispatched as ``train``
   dispatches them (``fused_steps_per_call=spc``: one eager step a
   dispatch, or replays of captured blocks), from a fresh epoch: the top
   device kernels and the device-idle share of the window; returns the
   wall and device ms and the kernel launches a step, and the launches of
-  each of ``kernels`` by name."""
+  each of ``kernels`` (expected once a step: the window's kernels are
+  printed where one is not) and of ``routes`` by name."""
   import torch
   from torch.profiler import ProfilerActivity, profile
   torch.cuda.synchronize()
@@ -1646,8 +1666,8 @@ def profile_steps(trainer, dataset, train_kw, steps=16, spc=1,
   counts = {name: sum(count for _, count, key in rows
                       if any(n in key for n in (
                           name if isinstance(name, tuple) else (name,))))
-            for name in kernels}
-  if any(v != steps for v in counts.values()):
+            for name in (*kernels, *routes)}
+  if any(counts[name] != steps for name in kernels):
     say(f'  (kernels of the window, by count: '
         f'{sorted((count, key[:60]) for _, count, key in rows)})')
   say(f'  profile of {steps} steps, {trainer.last_epoch_dispatch} '
@@ -1676,7 +1696,7 @@ def phase_sparse_slice(matrix, device='cuda', epochs_timed=1):
   torch.cuda.reset_peak_memory_stats()
   rs.LAUNCHES['row_scatter'] = 0
   t0 = time.time()
-  trainer.train(dataset, num_epochs=1, **MSD_TRAIN)
+  trainer.train(dataset, num_epochs=1, fused_steps_per_call=1, **MSD_TRAIN)
   torch.cuda.synchronize()
   first_call_s = time.time() - t0
   launches = rs.LAUNCHES['row_scatter']
@@ -1701,7 +1721,8 @@ def phase_sparse_slice(matrix, device='cuda', epochs_timed=1):
 
   rates, means = [], [float(losses.mean())]
   for epoch in range(2, epochs_timed + 2):
-    trainer.train(dataset, num_epochs=epoch, **MSD_TRAIN)
+    trainer.train(dataset, num_epochs=epoch, fused_steps_per_call=1,
+                  **MSD_TRAIN)
     rates.append(len(trainer.last_epoch_losses)
                  / trainer.last_epoch_seconds)
     means.append(float(np.mean(trainer.last_epoch_losses)))
@@ -2647,7 +2668,8 @@ def plain_trainer_run(trainer, dataset, steps, kw):
   with mock.patch.object(adam_ops, 'adam_bf16_kernel_table', plain_adam), \
       mock.patch.object(rs, 'row_scatter_kernel', rs.row_scatter_plain), \
       mock.patch.object(pr, 'unpack_rows_kernel', pr.unpack_rows_plain):
-    trainer.train(dataset, num_epochs=1, iters_per_epoch=steps, **kw)
+    trainer.train(dataset, num_epochs=1, iters_per_epoch=steps,
+                  **dict(kw, fused_steps_per_call=1))
   if any(read_launches().values()):
     raise AssertionError(f'the plain run launched {read_launches()}')
   return trainer.last_epoch_losses
@@ -2723,7 +2745,7 @@ def phase_target(matrix, held_out, device='cuda', compared=20):
       tr = trainer()
       reset_launches()
       t0 = time.time()
-      tr.train(dataset, num_epochs=1, **kw)
+      tr.train(dataset, num_epochs=1, fused_steps_per_call=1, **kw)
       torch.cuda.synchronize()
       first_s = time.time() - t0
       counts = read_launches()
@@ -2753,14 +2775,15 @@ def phase_target(matrix, held_out, device='cuda', compared=20):
           compared, kw)
       rel = compare_losses(losses[:compared], plain, rtol,
                            f'{cd} {shuffle}')
-      tr.train(dataset, num_epochs=tr.current_epoch, **kw)
+      tr.train(dataset, num_epochs=tr.current_epoch, fused_steps_per_call=1,
+               **kw)
       rates = [steps / tr.last_epoch_seconds]
       if shuffle == 'users' and cd is None:
         # the same trainer's next whole epochs, at 4 collation threads
         # and at none in turns (a new epoch builds a new loader)
         for w in (4, 0, 4):
           tr.train(dataset, num_epochs=tr.current_epoch,
-                   num_data_workers=w, **kw)
+                   num_data_workers=w, fused_steps_per_call=1, **kw)
           workers.setdefault(w, []).append(steps / tr.last_epoch_seconds)
         workers[0].insert(0, rates[0])
         loader_kw = dict(batch_size=500, negative_sampling=True)
@@ -2808,7 +2831,8 @@ def phase_target(matrix, held_out, device='cuda', compared=20):
                    device=device)
       if fused:
         reset_launches()
-        tr.train(dataset, num_epochs=1, iters_per_epoch=compared, **kw)
+        tr.train(dataset, num_epochs=1, iters_per_epoch=compared,
+                 fused_steps_per_call=1, **kw)
         torch.cuda.synchronize()
         counts = read_launches()
         losses = tr.last_epoch_losses
@@ -3453,7 +3477,7 @@ def phase_msd_big(train_m, val_in, val_tg, device='cuda'):
   t0 = time.time()
   trainer.train(train_ds, val_dataset=val_ds, num_epochs=1, eval_freq=1,
                 eval_num_recommendations=100, metrics=metrics,
-                **MSD_BIG_TRAIN)
+                fused_steps_per_call=1, **MSD_BIG_TRAIN)
   torch.cuda.synchronize()
   call_s = time.time() - t0
   counts = {k: v for k, v in read_launches().items() if v}
@@ -3734,21 +3758,23 @@ def phase_full_catalog_sparse(msd, device='cuda'):
 
 
 def phase_large_catalog(card):
-  """Phase 27 (a)-(c) and, on their data, phase 28 (b) and (c); 27 (d)
-  runs beside phase 26 (d) while the MSD CSR exists, (e) inside phase
-  6."""
+  """Phase 27 (a)-(c) and, on their data, phase 28 (b) and (c) and phase
+  29 (a); 27 (d) runs beside phase 26 (d) while the MSD CSR exists, (e)
+  inside phase 6."""
   train_m, val_in, val_tg = msd_big_data()
   trainer, a = phase_msd_big(train_m, val_in, val_tg)
   b = phase_msd_big_scoring(trainer, val_in, val_tg)
   del trainer
   storage_b = run('28 bf16 storage (b): msd-big', phase_storage_msd_big,
                   train_m)
+  union_a = run('29 union capture (a): msd-big', phase_union_capture_msd_big,
+                train_m)
   del train_m
   c = phase_stress_scoring()
   storage_c = run('28 bf16 storage (c): 10,000,000 items',
                   phase_storage_scoring)
   say(f'  card: {card}')
-  return a, b, c, storage_b, storage_c
+  return a, b, c, storage_b, storage_c, union_a
 
 
 # -- phase 28 --------------------------------------------------------------
@@ -3926,9 +3952,9 @@ def phase_storage_ml20m(matrix, train_m):
   """(a) bench.py's ML-20M default with --params-dtype bfloat16 (bf16
   compute, moments and parameters): 20 steps against the plain path, the
   fixture captured bitwise eager, and captured and eager in turns beside
-  the float32-parameter default; 20 bf16-parameter union steps (the
-  mma.sync route on ragged union widths, wgmma where a width is a
-  multiple of 8) and 20 steps of float32 compute over bf16 storage (the
+  the float32-parameter default; 20 bf16-parameter union steps (static
+  'blocks' widths, multiples of 128: every step on the wgmma route) and
+  20 steps of float32 compute over bf16 storage (the
   3xTF32 pair on a float32 copy of the rows), each against the plain
   path."""
   import torch
@@ -3959,10 +3985,8 @@ def phase_storage_ml20m(matrix, train_m):
               fused_steps_per_call=1, **union_kw)
   torch.cuda.synchronize()
   counts = {k: v for k, v in read_launches().items() if v}
-  fwd = sum(counts.get(f'fused_decode_loss_fwd_bf16{r}', 0)
-            for r in ('', '_wgmma'))
-  if fwd != 20 or counts.get('adam_bf16') != 20 or not counts.get(
-      'fused_decode_loss_fwd_bf16'):
+  if (counts.get('fused_decode_loss_fwd_bf16_wgmma') != 20
+      or counts.get('adam_bf16') != 20):
     raise AssertionError(f'(a) the bf16-parameter union steps launched '
                          f'{counts}')
   plain = plain_trainer_run(_ml20m_trainer(plain=True, params_dtype=BF16),
@@ -4156,6 +4180,268 @@ def phase_storage_scoring(device='cuda', reference_users=100):
   return {'ms': ms, 'gib': gib, 'tables_gib': tables_gib}
 
 
+# -- phase 29 --------------------------------------------------------------
+
+#: the hand kernels of each phase-29 cell and their launches a step, by the
+#: names in a profile: counted inside 32 replayed steps and 32 eager ones
+UNION_CELLS = {
+    'msd_big_bf16': {'row_scatter_kernel': 2, 'adam_bf16_kernel': 1},
+    'msd_sparse': {'row_scatter_kernel': 2},
+    'msd_full_catalog_sparse': {'packed_rows_kernel': 1},
+    'ml20m_target_bf16': {'decode_loss_fwd_bf16_wgmma_kernel': 1,
+                          'drows_dbias_bf16_wgmma_kernel': 1,
+                          'adam_bf16_kernel': 1},
+    'ml20m_union_bf16': {'decode_loss_fwd_bf16_wgmma_kernel': 1,
+                         'drows_dbias_bf16_wgmma_kernel': 1,
+                         'adam_bf16_kernel': 1},
+}
+#: the decode-loss forward of each route, by its name in a profile
+FWD_ROUTES = {'wgmma': 'decode_loss_fwd_bf16_wgmma_kernel',
+              'mma.sync': 'decode_loss_fwd_bf16_kernel',
+              '3xTF32': 'decode_loss_fwd_kernel'}
+#: a profile name -> the kernel's name in the kernels record
+PROFILE_NAMES = {'row_scatter_kernel': 'row_scatter',
+                 'adam_bf16_kernel': 'adam_bf16',
+                 'packed_rows_kernel': 'packed_rows',
+                 'decode_loss_fwd_bf16_wgmma_kernel':
+                     'fused_decode_loss_fwd_bf16_wgmma',
+                 'drows_dbias_bf16_wgmma_kernel':
+                     'fused_decode_loss_bwd_bf16_wgmma'}
+
+
+def _state_tensors(trainer):
+  """A trainer's parameters, dense optimizer state and sparse table
+  states, by name."""
+  import torch
+  out = {}
+  for name, p in trainer.model.params().items():
+    out[name] = p
+    for k, v in trainer.optimizer.state.get(p, {}).items():
+      if torch.is_tensor(v):
+        out[f'{name}/{k}'] = v
+  for path, st in trainer.sparse_states.items():
+    out.update({f'{path}/sparse_{k}': v for k, v in st.items()})
+  return out
+
+
+def _bitwise_same(a, b):
+  """Whether two trainers ended with the same last-epoch losses and the
+  same parameters, moments and step counts, bit for bit."""
+  import torch
+  ta, tb = _state_tensors(a), _state_tensors(b)
+  return (a.last_epoch_losses == b.last_epoch_losses and ta.keys() == tb.keys()
+          and all(torch.equal(ta[k], tb[k]) for k in ta))
+
+
+def exact_width_losses(trainer, dataset, kw, steps):
+  """``steps`` eager steps of ``trainer`` on the batches the port trained
+  on before the static widths: each step's exact union and interactions
+  (``build_union_batch``; on full decode ``build_fd_batch``), with the
+  random ids the static path draws for the same global step. Returns the
+  losses and the union widths."""
+  trainer.train(dataset, num_epochs=1, iters_per_epoch=0,
+                fused_steps_per_call=1, **kw)  # (the source, no step)
+  source, perm = trainer.fused_data_source, trainer._epoch_perm
+  sparse = bool(trainer.model.sparse_param_paths())
+  ns = kw['negative_sampling']
+  losses, widths = [], []
+  for i in range(steps):
+    if not ns:
+      batch = source.build_fd_batch(perm, i)
+    else:
+      ids = None
+      if source.num_random_negatives:
+        source.position_negatives(i)
+        ids = source._draw_negatives(source.neg_gen)
+      batch = source.build_union_batch(perm, i, rand_ids=ids)
+      widths.append(len(batch['items']))
+    step = trainer._sparse_step_math if sparse else trainer._dense_step_math
+    losses.append(float(step(batch, ns)))
+    trainer._global_step += 1
+  return losses, np.asarray(widths)
+
+
+def phase_union_capture(name, make, dataset, kw, rtol, steps=20, window=64,
+                        profiled=32):
+  """Phase 29's cell ``name``: the JAX scan over 'blocks' steps as CUDA
+  graphs. ``make(noise)`` builds its trainer (``noise``: the model's
+  noise_prob, None its own). (1) ``steps`` steps at
+  fused_steps_per_call='auto' (3 warm-up steps, a graph of 16, a graph
+  of 1) against the same steps eager: losses, parameters, moments and
+  step counts bitwise equal; (2) with the noise off, the same steps
+  eager against the exact-width batches the port built before
+  (``exact_width_losses``) within ``rtol``; (3) captured and eager
+  windows of ``window`` steps in turns: user-batches/s; (4) ``profiled``
+  steps of each profiled: device ms and launches a step, the idle share,
+  and each hand kernel of the cell (UNION_CELLS) and the decode-loss
+  forward of each route, by name, inside the replays and the eager
+  steps. Returns the numbers."""
+  import torch
+
+  def trainer(noise):
+    tr = make(noise)
+    if runs:  # (one data source, built once, for the cell's trainers)
+      tr._source_cache = runs['auto']._source_cache
+    return tr
+
+  runs = {}
+  for spc in ('auto', 1):
+    runs[spc] = trainer(None)
+    runs[spc].train(dataset, num_epochs=1, iters_per_epoch=steps,
+                    fused_steps_per_call=spc, **kw)
+  cap = runs['auto']
+  if not cap.last_epoch_dispatch.startswith('captured'):
+    raise AssertionError(f"{name}: 'auto' did not capture "
+                         f'({cap.last_epoch_dispatch})')
+  if not _bitwise_same(cap, runs[1]):
+    raise AssertionError(f'{name}: {steps} captured steps differ from the '
+                         'same steps eager')
+  say(f'  {name}: {steps} steps captured ({cap.last_epoch_dispatch}, '
+      f'{cap.last_epoch_dispatches} dispatches, {cap.captures} graphs) and '
+      'eager: losses, parameters, moments and step counts bitwise equal')
+  del runs[1]
+  torch.cuda.empty_cache()
+
+  static = trainer(0.0)
+  static.train(dataset, num_epochs=1, iters_per_epoch=steps,
+               fused_steps_per_call=1, **kw)
+  exact, widths = exact_width_losses(trainer(0.0), dataset, kw, steps)
+  rel = compare_losses(static.last_epoch_losses, exact, rtol,
+                       f'{name}: static against exact widths')
+  source = static.fused_data_source
+  static_widths = (source.static_widths() if kw['negative_sampling']
+                   else {})
+  del static
+  torch.cuda.empty_cache()
+  say(f'  {name}: noise off, {steps} static-width steps against the exact-'
+      f'width batches: max rel {rel:.3g}; static widths {static_widths}'
+      + (f', exact union widths mean {widths.mean():.1f}, max '
+         f'{widths.max()}' if len(widths) else ''))
+
+  out = {m: {'rates': []} for m in ('captured', 'eager')}
+  for mode in ('captured', 'eager', 'eager', 'captured'):
+    cap.train(dataset, num_epochs=cap.current_epoch, iters_per_epoch=window,
+              fused_steps_per_call='auto' if mode == 'captured' else 1, **kw)
+    torch.cuda.synchronize()
+    out[mode]['rates'].append(len(cap.last_epoch_losses)
+                              / cap.last_epoch_seconds)
+  kernels = UNION_CELLS[name]
+  routes = tuple(k for k in FWD_ROUTES.values() if k not in kernels)
+  for mode, spc in (('captured', 'auto'), ('eager', 1)):
+    for _ in range(3):  # (the profiler at times drops a device event)
+      _, busy, launches, counts = profile_steps(
+          cap, dataset, kw, steps=profiled, spc=spc,
+          kernels=tuple(k for k in kernels if kernels[k] == 1),
+          routes=routes + tuple(k for k in kernels if kernels[k] != 1))
+      if all(counts[k] == n * profiled for k, n in kernels.items()):
+        break
+    else:
+      raise AssertionError(f'{name} {mode}: kernel launches in {profiled} '
+                           f'steps: {counts}')
+    steady = 1e3 / max(out[mode]['rates'])
+    out[mode].update(busy=busy, launches=launches, steady_ms=steady,
+                     idle=1 - busy / steady,
+                     per_step={k: v / profiled for k, v in counts.items()})
+  for mode, o in out.items():
+    say(f'  {name} {mode:8s}: user-batches/s over windows of {window} '
+        f'steps {", ".join(f"{r:.2f}" for r in o["rates"])} (steady step '
+        f'{o["steady_ms"]:.3f} ms); device {o["busy"]:.3f} ms and '
+        f'{o["launches"]:.1f} launches a profiled step, the device idle '
+        f'~{100 * o["idle"]:.1f}%; hand kernels and decode-loss routes a '
+        f'step {o["per_step"]}')
+  out.update(rel=rel, static_widths=static_widths,
+             exact_widths=(float(widths.mean()), int(widths.max()))
+             if len(widths) else None)
+  return out
+
+
+def _union_capture_record(cells):
+  """Launches a step of each kernel of the record inside the replays of
+  each phase-29 cell."""
+  record = {}
+  for cell, out in cells.items():
+    for key, n in out['captured']['per_step'].items():
+      if key in PROFILE_NAMES and n:
+        record.setdefault(PROFILE_NAMES[key], {})[cell] = n
+  return record
+
+
+def phase_union_capture_msd(msd):
+  """Phase 29 (b) bench.py's MSD --sparse cell and (c) its full-catalog
+  sparse step, on phase 11's CSR."""
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+
+  def make(noise):
+    return Recoder(DynamicAutoencoder([200], 'tanh', sparse=True,
+                                      noise_prob=0.5 if noise is None
+                                      else noise),
+                   optimizer_type='adam', loss='logloss', device='cuda')
+
+  dataset = RecommendationDataset(msd)
+  return {
+      'msd_sparse': run('29 union capture (b): MSD --sparse',
+                        phase_union_capture, 'msd_sparse', make, dataset,
+                        MSD_TRAIN, PATHS_RTOL),
+      'msd_full_catalog_sparse': run(
+          '29 union capture (c): the full-catalog sparse step',
+          phase_union_capture, 'msd_full_catalog_sparse', make, dataset,
+          dict(MSD_TRAIN, negative_sampling=False), PATHS_RTOL)}
+
+
+def phase_union_capture_target(matrix, held_out):
+  """Phase 29 (d): bf16 'mse' target training in 'blocks' (the dual CSRs)
+  on phase 22's split."""
+  from recoder_tpu_torch.data import RecommendationDataset
+
+  def make(noise):
+    tr = _ml20m_trainer()
+    if noise is not None:
+      tr.model.noise_prob = noise
+    return tr
+
+  return phase_union_capture('ml20m_target_bf16', make,
+                             RecommendationDataset(matrix, held_out),
+                             ML20M_TRAIN, BF16_PATHS_RTOL)
+
+
+def phase_union_capture_ml20m(matrix):
+  """Phase 29 (e): the ML-20M bf16 union path in 'blocks', megas of 2,000
+  and 1,000 random negatives."""
+  from recoder_tpu_torch.data import RecommendationDataset
+
+  def make(noise):
+    tr = _ml20m_trainer()
+    if noise is not None:
+      tr.model.noise_prob = noise
+    return tr
+
+  return phase_union_capture(
+      'ml20m_union_bf16', make, RecommendationDataset(matrix),
+      dict(ML20M_TRAIN, full_decode=False, **NEGATIVES), BF16_PATHS_RTOL)
+
+
+def phase_union_capture_msd_big(train_m, device='cuda'):
+  """Phase 29 (a): phase 28 (b)'s msd-big step (bf16 tables and moments)."""
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+
+  def make(noise):
+    return Recoder(DynamicAutoencoder([200], 'tanh', sparse=True,
+                                      noise_prob=0.5 if noise is None
+                                      else noise,
+                                      compute_dtype=BF16, params_dtype=BF16),
+                   optimizer_type='adam', loss='logloss', user_based=False,
+                   eval_item_chunk=LARGE_CHUNK, opt_state_dtype=BF16,
+                   device=device)
+
+  return phase_union_capture('msd_big_bf16', make,
+                             RecommendationDataset(train_m), MSD_BIG_TRAIN,
+                             BF16_PATHS_RTOL)
+
+
 def run(name, fn, *args, **kwargs):
   say(f'== phase {name}')
   t0 = time.time()
@@ -4241,6 +4527,8 @@ def main():
   full_catalog_per_step, full_catalog_rate = run(
       '27 large catalog (d): the full-catalog sparse step',
       phase_full_catalog_sparse, msd)
+  # (phase 29's MSD cells (b) and (c) run here too)
+  union_cells = phase_union_capture_msd(msd)
   (bf16_times, bf16_errs, adam_err, adam_times,
    adam_bound) = run('14 bf16 kernels', phase_bf16_kernels)
   matrix = synthetic.synthesize_ml20m()
@@ -4269,6 +4557,9 @@ def main():
                                            matrix, held_out)
   target_rates, workers, target_per_step, target_launches = run(
       '22 target training', phase_target, matrix, held_out)
+  union_cells['ml20m_target_bf16'] = run(
+      '29 union capture (d): bf16 target training', phase_union_capture_target,
+      matrix, held_out)
   # the mma.sync bf16 kernels' path: the union widths of bf16 target
   # training
   launches.update({k: target_launches[k]
@@ -4285,6 +4576,9 @@ def main():
   (neg_per_step, (_, neg_cell), neg_blocks_rate, neg_scatter_rate,
    (neg_routes, neg_widths), neg_quality) = run(
        '26 negatives', phase_negatives, matrix, train_m, val_m)
+  union_cells['ml20m_union_bf16'] = run(
+      '29 union capture (e): the ML-20M bf16 union path',
+      phase_union_capture_ml20m, matrix)
   storage_kernels = run('28 bf16 storage (e): kernel variants',
                         phase_storage_kernels)
   storage_per_step, storage_cells_out = run(
@@ -4293,8 +4587,10 @@ def main():
   storage_quality = run('28 bf16 storage (d): fixture gate', phase_quality,
                         train_m, val_m, compute_dtype=BF16,
                         opt_state_dtype=BF16, params_dtype=BF16)
-  big, big_scoring, stress, storage_msd, storage_scoring = run(
+  big, big_scoring, stress, storage_msd, storage_scoring, union_a = run(
       '27 large catalog (a)-(c)', phase_large_catalog, card)
+  union_cells['msd_big_bf16'] = union_a
+  union_record = _union_capture_record(union_cells)
   # launches a step of each kernel on the MF / Mult-VAE paths: eager
   # epochs and compared steps by the counters, captured replays by the
   # profiles' names
@@ -4437,7 +4733,10 @@ def main():
               # the variants over bf16 tables (max_abs_err, ms, plain_ms,
               # bound_ms, bound_by, library_ms where one exists)
               'bf16_storage_launches_per_step': storage[name],
-              'bf16_storage_variants': storage_kernels.get(name)}
+              'bf16_storage_variants': storage_kernels.get(name),
+              # launches a step inside the replays of the captured
+              # 'blocks' union, sparse and target steps (phase 29)
+              'union_capture_launches_per_step': union_record.get(name)}
              for name, (err, ms, plain_ms, library_ms, (bound_ms, by),
                         per_step) in measured.items()]
   # the packed kernel's mask-only launch (phase 17), beside its bound
@@ -4546,6 +4845,13 @@ def main():
       f'({storage_scoring["gib"]:.3f} GiB over '
       f'{storage_scoring["tables_gib"]:.2f} GiB), fixture '
       + ', '.join(f'{k} {v:.4f}' for k, v in storage_quality.items())
+      + '; captured vs eager union, sparse and target steps (phase 29): '
+      + '; '.join(f'{name} {max(o["captured"]["rates"]):.2f} vs '
+                  f'{max(o["eager"]["rates"]):.2f} (device '
+                  f'{o["captured"]["busy"]:.3f} vs {o["eager"]["busy"]:.3f} '
+                  f'ms a step, idle {100 * o["captured"]["idle"]:.1f}% vs '
+                  f'{100 * o["eager"]["idle"]:.1f}%)'
+                  for name, o in union_cells.items())
       + f'; card {card}')
   say(json.dumps({'kernels': kernels}))
   say(card)

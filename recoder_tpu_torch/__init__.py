@@ -27,12 +27,14 @@ iALS:
       (unpadded batches: the static-shape padding of the JAX loader and
       recoder_tpu/data/buckets.py is not ported)
   recoder_tpu/data/device_pipeline.py   -> recoder_tpu_torch.data.device_pipeline
+      (build_batch's 'blocks' branch, _csr_range and _unique_union ->
+      DeviceDataSource.union_batch: static widths and windows, exact
+      maxima, so the overflow rebuild is not ported)
       (target_matrix: _init_target_side, _build_target_side -> the
-      target side of DeviceDataSource.build_union_batch)
+      target side of DeviceDataSource.union_batch)
       (slices_per_mega, the random-negative draw and build_batch's
-      per-step triplet scatter -> build_union_batch, fd_batch and
-      _scatter_fd_batch; the static budgets and their overflow rebuild
-      are not ported)
+      per-step triplet scatter -> union_batch, build_union_batch ('users'
+      mode), fd_batch, _static_scatter_fd_batch and _scatter_fd_batch)
       (the packed tier's _unpack_rows and row fetch)
       -> recoder_tpu_torch.ops.packed_rows
          + recoder_tpu_torch/kernels/packed_rows.cu
@@ -68,7 +70,8 @@ iALS:
       -> recoder_tpu_torch.optim.SparseRowAdam + the row scatter over
          mixed element sizes
   recoder_tpu/model.py                  -> recoder_tpu_torch.model
-      (fused_steps_per_call: captured CUDA graphs of full-decode steps)
+      (fused_steps_per_call, the lax.scan of _get_fused_step_fn:
+      captured CUDA graphs of the full-decode and every 'blocks' step)
       (_stage_batch, _to_device, _device_batch_iter: the host loader's
       staging; _get_val_loss_fn's dense dispatch and _validate ->
       Recoder._validate; the eval_freq hooks -> Recoder._validation_log)

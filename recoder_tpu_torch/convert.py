@@ -166,7 +166,8 @@ def sparse_state_from_numpy(tree, table, dtype=torch.float32):
   'v'}``, as tensors in ``dtype`` (the optimizer's state dtype; rounded
   to nearest even) beside ``table``."""
   shape = tuple(table.shape)
-  return {'step': int(np.asarray(tree['step'])),
+  return {'step': torch.tensor(int(np.asarray(tree['step'])),
+                               dtype=torch.int64, device=table.device),
           **{k: torch.from_numpy(fit_table(f'sparse_optimizer/{k}', shape,
                                            tree[k])).to(table.device, dtype)
              for k in ('m', 'v')}}
@@ -175,7 +176,7 @@ def sparse_state_from_numpy(tree, table, dtype=torch.float32):
 def sparse_state_to_numpy(states):
   """``{table: {'step', 'm', 'v'}}`` as the JAX tree: int32 step,
   float32 moments."""
-  return {path: {'step': np.asarray(st['step'], np.int32),
+  return {path: {'step': np.asarray(int(st['step']), np.int32),
                  'm': st['m'].detach().float().cpu().numpy(),
                  'v': st['v'].detach().float().cpu().numpy()}
           for path, st in states.items()}

@@ -37,45 +37,55 @@ compute batches. Step ``i`` reads mega ``m = i // (S / B)`` and slice
 arange(S)`` (slice s: ``perm[m] * S + s * B + arange(B)``). The epoch
 still has ``ceil(num_users / B)`` steps.
 
-**Item-union batches** (``prepare_union``, ``build_union_batch``: the
-negative-sampling union of the reference's collator, ``np.unique(cols,
-return_inverse=True)`` over the mega's interactions). Each step gives
-the mega's sorted item union and its slice's interactions as (row,
-compressed column, value) triplets:
+**Item-union batches** (``prepare_union``, the negative-sampling union
+of the reference's collator, ``np.unique(cols, return_inverse=True)``
+over the mega's interactions). Each step gives the mega's sorted item
+union and its slice's interactions as (row, compressed column, value)
+triplets:
 
   * 'blocks' mode keeps users in fixed contiguous megas, so every mega's
     union is epoch-invariant and is computed once on the host (the JAX
-    ``_block_tables``). The compressed column and the row of each
-    interaction are stored aligned with the CSR, so a step serves three
-    contiguous device slices (the JAX precomputed branch of
-    ``build_batch``);
+    ``_block_tables``) into a ``[n_blocks, W]`` table, each row filled
+    past its union with the sentinel item ``num_items`` (a pad row of
+    every item table), beside each block's valid width. A slice's users
+    are contiguous, so its interactions are one contiguous CSR range,
+    read at a fixed window of M entries from a start read off the
+    device ``indptr`` (the JAX ``_csr_range``), M the largest slice nnz
+    of the CSR. :meth:`union_batch` builds the step from device tensors
+    and the device step counter alone, at static shapes -- ``items [W]``
+    with its sentinel tail, ``width_valid`` a 0-dim device tensor, the
+    M-entry triplets (the entries past the slice's nnz hold row ``B``,
+    which the densify drops, and value 0), ``users`` and ``num_users``
+    -- so a CUDA graph can record it (the JAX ``build_batch`` blocks
+    branch). The sentinel columns contribute exactly zero: zero input,
+    masked loss column, zero gradient that leaves a zero-moment row
+    unchanged under Adam. Every block's union and nnz are known on the
+    host, so W and M are exact maxima and nothing overflows: the JAX
+    overflow accounting (``_note_overflow``, ``_rebuild_fused_source``)
+    is not ported, by design. :meth:`build_union_batch` is the same
+    batch trimmed to its exact sizes (a host read);
   * 'users' mode draws fresh users each epoch: the mega's CSR ranges are
     gathered on the device and the union is ``torch.unique(sorted=True,
     return_inverse=True)`` over the gathered columns (the semantics of
-    the JAX ``_unique_union`` / ``_build_epoch_tables``).
+    the JAX ``_unique_union`` / ``_build_epoch_tables``), at the exact
+    width of each step (:meth:`build_union_batch`, host reads).
 
 **Random extra negatives** (``num_random_negatives = R``, the JAX
 ``build_batch`` draw): R item ids uniform in ``[0, num_items)`` join each
 step's union only, so their columns have zero input and zero target; on
 full decode they join the loss mask. The draw comes from ``neg_gen``, a
 generator on the device keyed on the global step: seeded ``((seed + 7)
-<< 32) + step`` for each eager step (:meth:`seed_negatives`), or, for
-the full-decode steps on the card, one stream placed at ``step x`` the
-offset one draw takes (:meth:`position_negatives`), which a captured
-CUDA graph registers and advances as eager steps do. Either way a
-resumed training draws what the uninterrupted one drew, and the ids
-refresh across epochs. torch cannot reproduce ``jax.random``'s ids:
-the builders take ``rand_ids`` for tests to inject them.
-
-The JAX package pads every union to a static width with a sentinel item
-and every interaction list to a static nnz budget, and rebuilds the
-source with larger budgets when a mega overflows them (its overflow
-accounting, ``_note_overflow`` and ``_rebuild_fused_source``): XLA needs
-static shapes. Each step here has its exact sizes, so nothing overflows
-and nothing is rebuilt; that machinery is not ported, by design. The
-sentinel slots contribute exactly zero in JAX (zero input column, masked
-loss column, zero gradient that leaves a zero-moment row unchanged under
-Adam), so exact widths change no number beyond reduction order.
+<< 32) + step`` for each step off the card (:meth:`seed_negatives`), or,
+for the steps on the card that read the device step counter, one stream
+placed at ``step x`` the offset one draw takes
+(:meth:`position_negatives`), which a captured CUDA graph registers and
+advances as eager steps do. Either way a resumed training draws what the
+uninterrupted one drew, and the ids refresh across epochs. torch cannot
+reproduce ``jax.random``'s ids: the builders take ``rand_ids`` for tests
+to inject them. In 'blocks' mode the block's union row and the R ids
+merge in the JAX fixed-shape ``_unique_union`` (one stable sort, first
+occurrences, ranks) into a union of the static width ``align128(largest
+block union + R)``, again exact.
 
 **Full decode** reads the loss columns of the whole mega: the columns
 where any of its S users has an interaction, plus the random ids, inside
@@ -94,8 +104,10 @@ its slice's triplets at the padded catalog width (raw column ids; a
 column at or past the width drops, as the JAX ``mode='drop'``), in the
 dense tier's storage dtype, and builds the loss mask from the mega's
 column ids, never from the values: an explicitly stored zero still marks
-its column (the JAX ``_forward_loss``). It reads its step and order on
-the host, so it runs eagerly.
+its column (the JAX ``_forward_loss``). In 'blocks' mode it reads the
+slice's and the mega's CSR ranges at fixed windows, as the union batch
+does, so a graph can record it; in 'users' mode it reads its step and
+order on the host and runs eagerly.
 
 **Epoch order.** 'users' mode draws the order as the JAX package does
 (``_host_epoch_perm``): numpy ``default_rng([seed + 1, epoch])``, then
@@ -116,8 +128,9 @@ Differences from the JAX source, on purpose:
 negatives only, as in JAX): a second CSR holds each user's target
 interactions, and each mega's target union is computed on the host as
 the input's is, independently of it (the reference collates input and
-target windows each with its own ``np.unique``). ``build_union_batch``
-then returns the target union and triplets beside the input's. The JAX
+target windows each with its own ``np.unique``). The union batches then
+carry the target union and triplets beside the input's, at the target
+side's own static width and window (``tg_*``, ``tg_width_valid``). The JAX
 source serves both sides from precomputed block tables and declines
 when either side's tables exceed ``PRECOMPUTE_BYTE_BUDGET``; the port
 raises :class:`FusedPipelineUnavailable` there with the JAX reason,
@@ -157,6 +170,16 @@ def _jax_table_bytes(tables, indptr, n_blocks, mega, n_users):
   width = int(np.diff(tables['ptr']).max(initial=1))
   width = (width + 127) // 128 * 128
   return n_blocks * (2 * budget + width) * 4
+
+
+def _align128(width):
+  return (max(int(width), 1) + 127) // 128 * 128
+
+
+def _window(indptr, users):
+  """The largest nnz of the ``users``-user ranges that tile the padded
+  users of ``indptr`` (at least 1): a static batch's fixed window."""
+  return max(int(np.diff(indptr[::users]).max(initial=0)), 1)
 
 
 def canonical_csr(matrix):
@@ -246,8 +269,11 @@ class DeviceDataSource:
     self._offsets = None  # arange(batch_size) on the device
     self._mega_offsets = None  # arange(num_sampling_users) on the device
     self._host_tables = None  # blocks mode: per-mega unions (numpy)
-    self._union = None  # device arrays of the union path
-    self._csr = None  # device arrays of the scatter path
+    self._union = None  # device arrays of the 'users' union path
+    self._csr = None  # device arrays of the 'users' scatter path
+    #: device arrays of the static 'blocks' batches, by CSR side ('' the
+    #: input's, 'tg_' the target's)
+    self._static = {}
     indptr = matrix.indptr.astype(np.int64)
     # per-user nnz and CSR start; the pad users' slot n holds 0 and 0
     self._counts = np.append(np.diff(indptr), 0)
@@ -505,12 +531,11 @@ class DeviceDataSource:
       if self.fd_width is None:
         raise RuntimeError('no resident slab and no full-decode width: call '
                            'maybe_cache_slabs first')
+      if self.shuffle == 'blocks':
+        return self._static_scatter_fd_batch(perm, step, rand_ids)
       return self._scatter_fd_batch(perm, int(step), rand_ids)
     B, S, spm = self.batch_size, self.mega, self.slices_per_mega
-    dev = self.device
-    if self._offsets is None:
-      self._offsets = torch.arange(B, device=dev)
-      self._mega_offsets = torch.arange(S, device=dev)
+    self._arange_offsets()
     mega_rows = None
     if self.shuffle == 'blocks':
       if spm == 1:
@@ -548,16 +573,28 @@ class DeviceDataSource:
                num_users=torch.clamp(torch.sum(rows < n), min=1).float())
     return out
 
+  def resident_tensors(self):
+    """The device tensors the steps read in place (a CUDA graph that
+    recorded a step keeps their addresses): the slab, the static
+    'blocks' tables and the offsets."""
+    out = [t for t in (self.d_slab, self._offsets, self._mega_offsets)
+           if t is not None]
+    for side in self._static.values():
+      out += [v for v in side.values() if torch.is_tensor(v)]
+    return out
+
+  def _arange_offsets(self):
+    if self._offsets is None:
+      self._offsets = torch.arange(self.batch_size, device=self.device)
+      self._mega_offsets = torch.arange(self.mega, device=self.device)
+
   def _in_catalog(self, width):
     return torch.arange(width, device=self.device) < self.num_items
 
   def _mega_users(self, perm, m):
     """Mega ``m``'s S user ids in order (numpy int64; pad users ``>=
-    num_users``) under the epoch order ``perm``."""
+    num_users``) under the 'users' epoch order ``perm``."""
     S = self.mega
-    if self.shuffle == 'blocks':
-      lo = int(perm[m]) * S
-      return np.arange(lo, lo + S, dtype=np.int64)
     return perm[m * S:(m + 1) * S].cpu().numpy().astype(np.int64)
 
   def _gather(self, users):
@@ -585,11 +622,12 @@ class DeviceDataSource:
         output_size=int(counts.sum()))
 
   def _scatter_fd_batch(self, perm, step_idx, rand_ids):
-    """:meth:`fd_batch`'s payload without a slab (the JAX ``build_batch``
-    with ``full_decode=True``): slice ``s`` of mega ``m``'s triplets,
-    raw column ids, densified at ``fd_width`` in the dense tier's
-    storage dtype (each cell once: canonical CSR); the loss mask from the
-    mega's column ids and the random ids, inside the catalog."""
+    """:meth:`fd_batch`'s payload without a slab in 'users' mode (the JAX
+    ``build_batch`` with ``full_decode=True``): slice ``s`` of mega
+    ``m``'s triplets, raw column ids, densified at ``fd_width`` in the
+    dense tier's storage dtype (each cell once: canonical CSR); the loss
+    mask from the mega's column ids and the random ids, inside the
+    catalog. It reads the step and the order on the host."""
     B, n, W = self.batch_size, self.num_users_total, self.fd_width
     dev = self.device
     if self._csr is None:
@@ -618,6 +656,43 @@ class DeviceDataSource:
             'num_users': torch.clamp(torch.sum(users < n), min=1).float(),
             'col_mask': (present & self._in_catalog(W)).float()}
 
+  def _static_scatter_fd_batch(self, perm, step, rand_ids):
+    """:meth:`_scatter_fd_batch` in 'blocks' mode from device tensors
+    alone: the slice's triplets from its contiguous CSR range at the
+    fixed window (the entries past its nnz go to a dropped row), the
+    mask from the mega's range at the mega's window. Same payload."""
+    B, W, S = self.batch_size, self.fd_width, self.mega
+    side = self._static_side('')
+    dev = self.device
+    if 'raw' not in side:  # the CSR's columns, padded by the mega window
+      side['raw'] = torch.from_numpy(np.concatenate([
+          self.matrix.indices.astype(np.int64),
+          np.zeros(side['M_mega'], np.int64)])).to(dev)
+      side['mega_window'] = torch.arange(side['M_mega'], device=dev)
+    b, lo = self._block_of(perm, step)
+    rows, idx, valid = self._window_rows(side, lo)
+    cols = side['raw'].index_select(0, idx)
+    dtype = self._dtype()
+    vals = self._window_vals(side, idx, valid).to(dtype)
+    keep = cols < W  # (the JAX scatter's mode='drop')
+    slab = torch.zeros((B + 1, W), dtype=dtype, device=dev)
+    slab.index_put_((torch.where(keep, rows, B), torch.where(keep, cols, 0)),
+                    vals)
+    bounds = side['indptr'].index_select(0, torch.cat([b * S, b * S + S]))
+    midx = bounds[:1] + side['mega_window']
+    mcols = side['raw'].index_select(0, midx)
+    present = torch.zeros(W + 1, dtype=torch.bool, device=dev)
+    present.index_fill_(0, torch.where((midx < bounds[1:]) & (mcols < W),
+                                       mcols, W), True)
+    present = present[:W]
+    if self.num_random_negatives:
+      present.index_fill_(0, self._negatives(rand_ids), True)
+    users = lo + self._offsets
+    n = self.num_users_total
+    return {'slab': slab[:B], 'users': torch.clamp(users, max=n),
+            'num_users': torch.clamp(torch.sum(users < n), min=1).float(),
+            'col_mask': (present & self._in_catalog(W)).float()}
+
   def build_fd_batch(self, perm, step_idx, rand_ids=None):
     """:meth:`fd_batch` from a host order and step: ``perm`` an int64
     tensor, ``step_idx`` an int. The same payload with 'users' on the CPU
@@ -636,10 +711,9 @@ class DeviceDataSource:
     (the JAX ``_block_tables``): for each fixed mega of users,
     ``np.unique(cols, return_inverse=True)`` over its interactions.
 
-    Returns ``{'cols': compressed column of every interaction, 'rows':
-    its user's row within the mega (both aligned with the CSR),
-    'unions': the megas' unions concatenated, 'ptr': mega b's union
-    is unions[ptr[b]:ptr[b + 1]]}``."""
+    Returns ``{'cols': compressed column of every interaction (aligned
+    with the CSR), 'unions': the megas' unions concatenated, 'ptr': mega
+    b's union is unions[ptr[b]:ptr[b + 1]]}``."""
     if self._host_tables is None:
       self._host_tables = self._block_tables_of(self.matrix)
     return self._host_tables
@@ -658,8 +732,7 @@ class DeviceDataSource:
       cols[lo:hi] = inv
       unions.append(u.astype(np.int64))
       ptr[b + 1] = ptr[b] + len(u)
-    rows = np.repeat(np.arange(n, dtype=np.int64) % S, np.diff(indptr))
-    return {'cols': cols, 'rows': rows, 'ptr': ptr,
+    return {'cols': cols, 'ptr': ptr,
             'unions': (np.concatenate(unions) if unions
                        else np.zeros(0, np.int64))}
 
@@ -673,8 +746,7 @@ class DeviceDataSource:
     R)``)."""
     R = self.num_random_negatives
     if self.shuffle == 'blocks' and not R:
-      w = int(np.diff(self._block_unions()['ptr']).max(initial=1))
-      return (w + 127) // 128 * 128
+      return _align128(np.diff(self._block_unions()['ptr']).max(initial=1))
     m, n = self.matrix, self.num_users_total
     rng = np.random.default_rng(1234)
     widest = 1
@@ -685,33 +757,166 @@ class DeviceDataSource:
         widest = max(widest, len(np.unique(np.concatenate(cols))))
     return (int((widest + R) * 1.08) + 255) // 256 * 256
 
+  def _static_side(self, prefix):
+    """The device arrays the static 'blocks' batches read from one CSR
+    (``prefix`` '' the input's, 'tg_' the target's), built at first use:
+    its indptr over the padded users, the slice window ``M`` and the
+    mega window ``M_mega`` (the largest slice and mega nnz), the values
+    padded by the mega window unless they are all ones."""
+    side = self._static.get(prefix)
+    if side is None:
+      m = self.target_matrix if prefix else self.matrix
+      n, dev = self.num_users_total, self.device
+      indptr = np.append(m.indptr.astype(np.int64),
+                         np.full(self.n_pad - n, m.nnz, np.int64))
+      M, M_mega = _window(indptr, self.batch_size), _window(indptr, self.mega)
+      side = {'indptr': torch.from_numpy(indptr).to(dev), 'M': M,
+              'M_mega': M_mega, 'window': torch.arange(M, device=dev)}
+      if not np.all(m.data == 1.0):
+        side['vals'] = torch.from_numpy(np.concatenate(
+            [m.data.astype(np.float32), np.zeros(M_mega, np.float32)])).to(dev)
+      self._static[prefix] = side
+    return side
+
+  def _static_unions(self, prefix):
+    """:meth:`_static_side` with the side's union tables: the compressed
+    columns padded by the window, the ``[n_blocks, W0]`` union table
+    (sentinel-filled past each block's union, ``W0`` the largest union
+    aligned up to 128) and each block's union width; ``W`` the static
+    width of a step's union (``W0``, or with R random negatives
+    ``align128(largest union + R)``)."""
+    side = self._static_side(prefix)
+    if 'unions' not in side:
+      t = self._tg_tables if prefix else self._block_unions()
+      widths = np.diff(t['ptr'])
+      W0 = _align128(widths.max(initial=1))
+      unions = np.full((self.n_blocks, W0), self.num_items, np.int64)
+      unions[np.arange(W0) < widths[:, None]] = t['unions']
+      dev = self.device
+      side.update(
+          cols=torch.from_numpy(np.concatenate(
+              [t['cols'], np.zeros(side['M_mega'], np.int64)])).to(dev),
+          unions=torch.from_numpy(unions).to(dev),
+          widths=torch.from_numpy(widths).to(dev), W0=W0,
+          W=(_align128(widths.max(initial=1) + self.num_random_negatives)
+             if self.num_random_negatives and not prefix else W0))
+    return side
+
   def prepare_union(self):
-    """Put on the device, once, what the union batches read: the
-    per-mega compressed columns, rows and unions ('blocks'), or the
-    CSR columns ('users'); and the values unless they are all ones."""
+    """Put on the device, once, what the union batches read: the static
+    'blocks' tables of each CSR side (:meth:`_static_unions`), or the CSR
+    columns ('users'); and the values unless they are all ones."""
+    if self.shuffle == 'blocks':
+      self._static_unions('')
+      if self._tg_tables is not None:
+        self._static_unions('tg_')
+      return
     if self._union is not None:
       return
-    m = self.matrix
-    arrays = {}
+    arrays = {'cols': self.matrix.indices.astype(np.int64)}
     if not self.binary:
-      arrays['vals'] = m.data.astype(np.float32)
-    if self.shuffle == 'blocks':
-      t = self._block_unions()
-      arrays.update(cols=t['cols'], rows=t['rows'], unions=t['unions'])
-      if self._tg_tables is not None:
-        t = self._tg_tables
-        arrays.update(tg_cols=t['cols'], tg_rows=t['rows'],
-                      tg_unions=t['unions'])
-        if not np.all(self.target_matrix.data == 1.0):
-          arrays['tg_vals'] = self.target_matrix.data.astype(np.float32)
-    else:
-      arrays['cols'] = m.indices.astype(np.int64)
+      arrays['vals'] = self.matrix.data.astype(np.float32)
     self._union = {k: torch.from_numpy(v).to(self.device)
                    for k, v in arrays.items()}
 
+  def static_widths(self):
+    """``{'W': the union's static width, 'M': the slice window}`` of each
+    side of the 'blocks' union batches (``tg_`` keys for the target's)."""
+    self.prepare_union()
+    return {prefix + k: self._static[prefix][k]
+            for prefix in self._static if 'unions' in self._static[prefix]
+            for k in ('W', 'M')}
+
+  def _block_of(self, perm, step):
+    """``(b, lo)``: the block of step ``step``'s mega and its slice's first
+    user, as [1] device tensors, from the device order and step."""
+    S, spm = self.mega, self.slices_per_mega
+    if spm == 1:
+      b = perm.index_select(0, step.view(1))
+      return b, b * S
+    m = torch.div(step, spm, rounding_mode='floor')
+    b = perm.index_select(0, m.view(1))
+    return b, b * S + (step - m * spm) * self.batch_size
+
+  def _window_rows(self, side, lo):
+    """The slice's window of CSR positions ``idx`` (M of them, from the
+    slice's first entry), which of them are the slice's, and each one's
+    row in the slice: ``B`` past the slice's nnz (the row the densify
+    drops)."""
+    self._arange_offsets()
+    bounds = side['indptr'].index_select(0, torch.cat(
+        [lo, lo + 1 + self._offsets]))
+    idx = bounds[:1] + side['window']
+    # (the users whose range ends at or before a position: its row)
+    rows = torch.searchsorted(bounds[1:], idx, right=True)
+    return rows, idx, idx < bounds[-1:]
+
+  @staticmethod
+  def _window_vals(side, idx, valid):
+    if 'vals' not in side:
+      return valid.float()
+    return torch.where(valid, side['vals'].index_select(0, idx), 0.0)
+
+  def _unique_union(self, items, rand):
+    """The JAX fixed-shape ``_unique_union`` of a block's union row and
+    the R random ids: ``(union [W], where each of the row's W0 slots
+    landed in it, width_valid)`` -- one stable sort, first occurrences,
+    ranks; the sentinel sorts last and fills the tail."""
+    W = self._static['']['W']
+    merged, order = torch.sort(torch.cat([items, rand]), stable=True)
+    first = torch.ones_like(merged, dtype=torch.bool)
+    first[1:] = merged[1:] != merged[:-1]
+    ranks = torch.cumsum(first, 0) - 1
+    union = torch.full((W + 1,), self.num_items, dtype=torch.int64,
+                       device=self.device)
+    union.scatter_(0, torch.where(first, torch.clamp(ranks, max=W), W),
+                   merged)
+    landed = torch.empty_like(ranks).scatter_(0, order, ranks)
+    width_valid = torch.sum(first & (merged != self.num_items))
+    return union[:W], landed[:items.shape[0]], width_valid
+
+  def union_batch(self, perm, step, rand_ids=None):
+    """Step ``step``'s item-union batch in 'blocks' mode, at static shapes
+    and from device tensors alone (``perm``: the epoch's block order on
+    the device; ``step``: a 0-dim int64 device tensor), so that a CUDA
+    graph can record it (the JAX ``build_batch`` blocks branch).
+
+    Returns ``{'items': [W] the mega's union, ascending, then the
+    sentinel num_items; 'width_valid': its valid width, a 0-dim device
+    tensor; 'rows', 'cols', 'vals': [M] the slice's window of
+    interactions -- row in the batch, index into items, value -- whose
+    entries past the slice's nnz hold row B and value 0; 'users': [B]
+    user ids (pad slots hold num_users); 'num_users': the valid user
+    count as a 0-dim float32 tensor, at least 1}``, all on the device.
+    With random negatives the R ids (``rand_ids``, else drawn from
+    ``neg_gen`` where it stands) join the union. With a target matrix the
+    same for the target side under ``tg_`` keys (``tg_width_valid``)."""
+    self.prepare_union()
+    b, lo = self._block_of(perm, step)
+    out = {}
+    for prefix in ('', 'tg_') if self._tg_tables is not None else ('',):
+      side = self._static[prefix]
+      rows, idx, valid = self._window_rows(side, lo)
+      items = side['unions'].index_select(0, b)[0]
+      width_valid = side['widths'].index_select(0, b)[0]
+      cols = side['cols'].index_select(0, idx)
+      if self.num_random_negatives and not prefix:
+        items, landed, width_valid = self._unique_union(
+            items, self._negatives(rand_ids))
+        cols = landed.index_select(0, cols)
+      out.update({prefix + 'items': items,
+                  prefix + 'width_valid': width_valid,
+                  prefix + 'rows': rows, prefix + 'cols': cols,
+                  prefix + 'vals': self._window_vals(side, idx, valid)})
+    users = lo + self._offsets
+    n = self.num_users_total
+    out.update(users=torch.clamp(users, max=n),
+               num_users=torch.clamp(torch.sum(users < n), min=1).float())
+    return out
+
   def build_union_batch(self, perm, step_idx, neg_step=None, rand_ids=None):
-    """Step ``step_idx``'s item-union batch: slice ``s`` of mega ``m``
-    over the mega's union.
+    """Step ``step_idx``'s item-union batch at its exact sizes: slice
+    ``s`` of mega ``m`` over the mega's union.
 
     Returns ``{'items': [W] the mega's item union, ascending, on the
     device; 'rows', 'cols', 'vals': [nnz] row in the batch, index into
@@ -723,51 +928,43 @@ class DeviceDataSource:
     JAX ``build_batch``) or given as ``rand_ids``: they widen the union
     only. With a target matrix, ``'tg_items'``, ``'tg_rows'``,
     ``'tg_cols'`` and ``'tg_vals'`` are the same for the slice's target
-    interactions, over the mega's target union.
+    interactions, over the mega's target union. In 'blocks' mode this is
+    :meth:`union_batch` cut to its valid parts (host reads).
     """
     self.prepare_union()
-    B, S, n = self.batch_size, self.mega, self.num_users_total
-    arrays, dev = self._union, self.device
-    m, s = divmod(int(step_idx), self.slices_per_mega)
+    B, n, dev = self.batch_size, self.num_users_total, self.device
+    if self.num_random_negatives and rand_ids is None:
+      self.seed_negatives(step_idx if neg_step is None else neg_step)
     if self.shuffle == 'blocks':
-      b = int(perm[m])
-      lo = b * S + s * B  # the slice's first user
-      indptr = self.matrix.indptr
-      a, e = int(indptr[min(lo, n)]), int(indptr[min(lo + B, n)])
-      ptr = self._host_tables['ptr']
-      items = arrays['unions'][int(ptr[b]):int(ptr[b + 1])]
-      rows, cols = arrays['rows'][a:e] - s * B, arrays['cols'][a:e]
-      users = torch.arange(lo, lo + B)
-      src = slice(a, e)
-    else:
-      mega_src, offsets = self._gather(self._mega_users(perm, m))
-      items, inverse = torch.unique(arrays['cols'][mega_src], sorted=True,
-                                    return_inverse=True)
-      a, e = int(offsets[s * B]), int(offsets[(s + 1) * B])
-      users = perm[step_idx * B:(step_idx + 1) * B]
-      rows, cols, src = self._slice_rows(offsets, s), inverse[a:e], \
-          mega_src[a:e]
+      out = self.union_batch(perm.to(dev),
+                             torch.tensor(int(step_idx), device=dev),
+                             rand_ids)
+      for prefix in ('', 'tg_') if self._tg_tables is not None else ('',):
+        width = int(out.pop(prefix + 'width_valid'))
+        out[prefix + 'items'] = out[prefix + 'items'][:width]
+        keep = out[prefix + 'rows'] < B
+        for k in ('rows', 'cols', 'vals'):
+          out[prefix + k] = out[prefix + k][keep]
+      out['users'] = out['users'].cpu()
+      out['num_users'] = float(out['num_users'])
+      return out
+    arrays = self._union
+    m, s = divmod(int(step_idx), self.slices_per_mega)
+    mega_src, offsets = self._gather(self._mega_users(perm, m))
+    items, inverse = torch.unique(arrays['cols'][mega_src], sorted=True,
+                                  return_inverse=True)
+    a, e = int(offsets[s * B]), int(offsets[(s + 1) * B])
+    users = perm[step_idx * B:(step_idx + 1) * B]
+    rows, cols, src = self._slice_rows(offsets, s), inverse[a:e], \
+        mega_src[a:e]
     if self.num_random_negatives:
-      rand = self._negatives(
-          rand_ids, step_idx if neg_step is None else neg_step)
-      merged = torch.unique(torch.cat([items, rand]), sorted=True)
+      merged = torch.unique(torch.cat([items, self._negatives(rand_ids)]),
+                            sorted=True)
       cols = torch.searchsorted(merged, items)[cols]
       items = merged
     vals = (arrays['vals'][src] if 'vals' in arrays
             else torch.ones(rows.shape[0], device=dev))
     num_users = int(torch.sum(users < n))
-    out = {'items': items, 'rows': rows, 'cols': cols, 'vals': vals,
-           'users': torch.clamp(users, max=n),
-           'num_users': float(max(num_users, 1))}
-    if self._tg_tables is not None:
-      # the slice's target interactions, over the mega's own target union
-      t_indptr = self.target_matrix.indptr
-      a, e = int(t_indptr[min(lo, n)]), int(t_indptr[min(lo + B, n)])
-      ptr = self._tg_tables['ptr']
-      out.update(
-          tg_items=arrays['tg_unions'][int(ptr[b]):int(ptr[b + 1])],
-          tg_rows=arrays['tg_rows'][a:e] - s * B,
-          tg_cols=arrays['tg_cols'][a:e],
-          tg_vals=(arrays['tg_vals'][a:e] if 'tg_vals' in arrays
-                   else torch.ones(e - a, device=dev)))
-    return out
+    return {'items': items, 'rows': rows, 'cols': cols, 'vals': vals,
+            'users': torch.clamp(users, max=n),
+            'num_users': float(max(num_users, 1))}

@@ -65,13 +65,19 @@ training (Mult-VAE's annealed KL). The batch's user ids reach the model
 in training, ``predict`` and ``recommend``.
 
 ``train(fused_steps_per_call=N)`` is the port's form of the JAX scan
-over consecutive fused steps: on the card, N full-decode steps are one
-captured CUDA graph, replayed once per N steps, with the same arithmetic
-as N eager steps (bitwise). A step reads nothing from the host: its rows
-come off the slab at a device step counter, its valid-user count is a
-device scalar, the optimizer's scalars and step counts live on the
-device, and its losses go to a device buffer fetched once an epoch. The
-union and sparse steps run eagerly. ``train`` also writes checkpoints
+over consecutive fused steps: on the card, N steps are one captured CUDA
+graph, replayed once per N steps, with the same arithmetic as N eager
+steps (bitwise). The steps are those the JAX ``table_step`` scans: every
+'blocks' step of the on-device source (full decode, the dense and the
+sparse union steps over static-width unions, target training on the dual
+CSRs, random negatives, the triplet scatter, the full-catalog sparse
+step) and full decode off the resident slab. Such a step reads nothing
+from the host: its batch comes from device tables at a device step
+counter, its valid-user count and valid union width are device scalars,
+the optimizers' scalars and step counts live on the device, and its
+losses go to a device buffer fetched once an epoch. The 'users' union
+and scatter steps and the host loader's run eagerly (they read the
+host, as the JAX steps without epoch tables). ``train`` also writes checkpoints
 every ``checkpoint_freq`` epochs, paints a progress bar and records a
 profiler window, as the JAX ``train`` does, and
 ``reset_training_state`` restarts a trainer in place.
@@ -81,9 +87,9 @@ generator seeded with ``seed``, each epoch's order from the data source
 (numpy ``default_rng([seed + 1, epoch])`` in 'users' mode, as the JAX
 package; a CPU ``torch.Generator`` in 'blocks' mode), the dropout from a
 generator on the device: seeded with ``(seed, global step)`` before each
-step, except in full-decode steps on the card, which draw from one
-stream that each epoch places at the global step's offset (graph
-replays advance it as eager steps do).
+step, except in the device-counter steps on the card, which draw from
+one stream that each epoch places at the global step's offset in the
+step's layout (graph replays advance it as eager steps do).
 
 A training dataset with a target matrix trains against it: in 'blocks'
 mode with negative sampling from the dual CSRs of the on-device source
@@ -114,7 +120,8 @@ tables.
 
 Not ported yet (the JAX signature's arguments for them raise
 NotImplementedError where set): the orbax backend, meshes, and the
-capture of the union, sparse, scatter and host-loader steps. The JAX
+capture of the 'users' union steps over the JAX ``users_precompute``
+epoch tables and of the host loader's steps. The JAX
 package's count-certified top-k (``eval_topk='exact'``) is a TPU
 workaround and is not ported: every ``eval_topk`` mode is exact here.
 """
@@ -169,8 +176,9 @@ WARMUP_STEPS = 3
 _RESUMED = object()
 
 
-class _FdLoop:
-  """The device state a full-decode epoch reads and writes: the epoch
+class _DeviceLoop:
+  """The device state an epoch of device-counter steps (full decode, or
+  the static 'blocks' union batches) reads and writes: the epoch
   order, the step within the epoch and the global step (device counters
   that each step advances, so that a graph replays the next steps: the
   global step is the aux hook's ``step``), and one loss a step."""
@@ -182,8 +190,9 @@ class _FdLoop:
     self.step = torch.zeros((), dtype=torch.int64, device=dev)
     self.global_step = torch.zeros((), dtype=torch.int64, device=dev)
     self.losses = torch.zeros(num_batches, dtype=torch.float32, device=dev)
-    #: Philox offset one step's noise draws take (on the card)
-    self.noise_inc = None
+    #: Philox offset one step's noise draws take (on the card), by layout
+    #: (True: the static union's, False: full decode's)
+    self.noise_inc = {}
 
 
 def _canonical_dataset(dataset):
@@ -320,11 +329,12 @@ class Recoder:
     self._dropout_gen = torch.Generator(device=self.device)
     self._lr = None  # this epoch's learning rate
     self._opt_config = None
-    self._fd_loop = None
-    #: captured full-decode steps: {steps a graph: (graph, tensors it keeps)}
+    self._device_loop = None
+    #: captured steps: {steps a graph: (graph, tensors it keeps)}
     self._graphs = {}
     self._graph_sig = None
     self._warm_steps = 0
+    self._warm_key = None  # (loop, path) of the warm-up steps
     self._capture_stream = None
     #: CUDA graphs captured over the trainer's life
     self.captures = 0
@@ -377,7 +387,9 @@ class Recoder:
     if sparse_paths and self.optimizer_type != 'adam':
       raise ValueError('Sparse gradients optimization only supported '
                        'with adam (sparse row-wise Adam)')
-    self.sparse_adam = SparseRowAdam(state_dtype=self.opt_state_dtype)
+    if self.sparse_adam.state_dtype != self._state_dtype():
+      # (the same dtype keeps it: its device table is what graphs read)
+      self.sparse_adam = SparseRowAdam(state_dtype=self.opt_state_dtype)
     prev = self.optimizer
     config = (self.optimizer_type, self._state_dtype(), float(weight_decay),
               tuple(named.values()))
@@ -520,8 +532,9 @@ class Recoder:
     (``'items'``), or over the padded catalog where ``'items'`` is None
     (a host-loader batch without negative sampling). It decodes against
     the target side (``'tg_*'``, densified the same way) when it has one,
-    else against its input. Every column of a union is a loss column;
-    of the padded catalog, the logical items. ``gathered``: the sparse
+    else against its input. Every column of a union is a loss column --
+    of a static union, those before its ``'width_valid'`` -- and of the
+    padded catalog, the logical items. ``gathered``: the sparse
     step's table rows (``sparse_entries`` names). The batch's user ids
     (``'users'``) reach the model as ``input_users``. A model without
     ``decode_operands`` scores through its ``forward`` (or, with
@@ -555,12 +568,15 @@ class Recoder:
       B = batch['users'].shape[0]
       W = model.num_items_padded if items is None else items.shape[0]
       input_dense = target = self._densify_union(batch, B, W, cd)
-      tg_items = items
+      tg_items, side = items, ''
       if 'tg_rows' in batch:
-        tg_items = batch['tg_items']
+        tg_items, side = batch['tg_items'], 'tg_'
         W = model.num_items_padded if tg_items is None else tg_items.shape[0]
         target = self._densify_union(batch, B, W, cd, side='tg_')
-      logical = W if tg_items is not None else model.num_items
+      # (a static union's columns at or past its valid width are the
+      # sentinel's: masked, as the JAX ``in_valid_width``)
+      logical = (model.num_items if tg_items is None
+                 else batch.get(side + 'width_valid', W))
       col_mask = (torch.arange(W, device=target.device) < logical).float()
     row_mask = (torch.arange(B, device=input_dense.device)
                 < valid_users).float()
@@ -603,13 +619,16 @@ class Recoder:
     default; the JAX ``_densify`` builds in the model's compute dtype).
     Each (row, column) pair occurs once: the batches come from canonical
     CSRs (the on-device source's, or the host loader's over
-    :func:`_canonical_dataset`)."""
+    :func:`_canonical_dataset`). A static batch's entries past its
+    slice's nnz hold row ``B``: they land in a spare row that is cut
+    off (the JAX ``mode='drop'``)."""
     dtype = dtype or torch.float32
     rows = batch[side + 'rows']
-    dense = torch.zeros((B, W), device=rows.device, dtype=dtype)
+    spare = int(side + 'width_valid' in batch)
+    dense = torch.zeros((B + spare, W), device=rows.device, dtype=dtype)
     dense.index_put_((rows, batch[side + 'cols']),
                      batch[side + 'vals'].to(dtype))
-    return dense
+    return dense[:B]
 
   def _step_tensor(self):
     """The global step as a 0-dim int64 tensor on the device: the aux
@@ -639,7 +658,8 @@ class Recoder:
     self.optimizer.step()
     return loss.detach()
 
-  def _sparse_step_math(self, batch, negative_sampling=True):
+  def _sparse_step_math(self, batch, negative_sampling=True, reseed=True,
+                        step=None):
     """One sparse-path update (the JAX ``_sparse_step_math``): gradients
     w.r.t. the gathered table rows, the dense optimizer on every other
     parameter, then row-sparse Adam writes the touched rows of each
@@ -652,9 +672,14 @@ class Recoder:
     every row (``ids=None``: no row scatter). The user rows of a
     user-indexed table are the batch's users, its pad slots pointing at
     the sentinel row ``num_users``, whose moments then stay zero (the
-    JAX redirect): a pad slot must not decay row 0's."""
+    JAX redirect): a pad slot must not decay row 0's. A static union's
+    sentinel slots gather the sentinel item's row, take zero gradients
+    and leave it and its zero moments as they were. ``reseed`` and
+    ``step`` as in :meth:`_dense_step_math`."""
     model = self.model
-    self._dropout_gen.manual_seed((self.seed << 32) + self._global_step)
+    if reseed:
+      self._dropout_gen.manual_seed((self.seed << 32) + self._global_step)
+    step = self._step_tensor() if step is None else step
     items = batch.get('items')
     users = batch['users'].to(self.device)
     if getattr(model, 'num_users', None):
@@ -677,7 +702,7 @@ class Recoder:
     loss = self._forward_loss(batch, training=True,
                               negative_sampling=negative_sampling,
                               generator=self._dropout_gen,
-                              gathered=gathered, step=self._step_tensor())
+                              gathered=gathered, step=step)
     loss.backward()
     self.optimizer.step()
     uses = {}
@@ -767,21 +792,23 @@ class Recoder:
     collation runs on ``num_data_workers`` threads), one eager step a
     batch.
 
-    ``fused_steps_per_call`` ('auto' | int | None): consecutive
-    full-decode steps a host dispatch. 'auto' and None take 16 when the
-    step fetches from the resident slab (every full-decode step) or runs
+    ``fused_steps_per_call`` ('auto' | int | None): consecutive steps a
+    host dispatch. 'auto' and None take 16 for every full-decode step and
     in 'blocks' mode, else 1 (the JAX rule). On the card, with Adam, a
-    block of N >= 2 full-decode steps is one captured CUDA graph,
-    replayed once per N steps; the epoch's last steps, fewer than N, run
-    as one-step graphs. The first steps of a configuration run eagerly
-    on the capture stream before its first capture (they are real
-    steps; a capture records and does not execute). The arithmetic is
-    the same as N = 1's, one eager dispatch a step: the trajectories are
-    bitwise equal. On the CPU the blocks run the same step eagerly. The
-    union, sparse, scatter and host-loader steps, and optimizers other
-    than Adam, run eagerly whatever N says (one log line says so): their
-    capture is not ported. A capture or replay that fails raises;
-    nothing falls back.
+    block of N >= 2 steps that read only the device (every 'blocks' step
+    of the on-device source -- full decode, union, sparse, target,
+    random-negative, triplet-scatter and full-catalog sparse -- and full
+    decode off the resident slab) is one captured CUDA graph, replayed
+    once per N steps; the epoch's last steps, fewer than N, run as
+    one-step graphs. The first steps of a configuration run eagerly on
+    the capture stream before its first capture (they are real steps; a
+    capture records and does not execute). The arithmetic is the same as
+    N = 1's, one eager dispatch a step: the trajectories are bitwise
+    equal. On the CPU the blocks run the same steps eagerly. The 'users'
+    union and scatter steps and the host loader's read the host and run
+    eagerly whatever N says, as do optimizers other than Adam (one log
+    line says so). A capture or replay that fails raises; nothing falls
+    back.
 
     ``model_checkpoint_prefix`` / ``checkpoint_freq``: ``save_state``
     after every ``checkpoint_freq``-th epoch and after the last.
@@ -885,17 +912,24 @@ class Recoder:
       spc = max(1, int(fused_steps_per_call))
     if profile_dir is not None:
       spc = 1
-    scatter = fd and source.d_slab is None
-    captured = (fd and not scatter and not sparse and spc >= 2
-                and self.device.type == 'cuda'
+    # the steps that read nothing on the host (the JAX ``table_step``):
+    # every 'blocks' step of the on-device source, and full decode off the
+    # resident slab
+    device_steps = source is not None and (
+        shuffle == 'blocks' or (fd and source.d_slab is not None))
+    on_card = self.device.type == 'cuda'
+    captured = (device_steps and spc >= 2 and on_card
                 and self.optimizer_type == 'adam')
-    if spc >= 2 and (scatter or sparse or not fd):
-      log.info('fused_steps_per_call=%d: the %s step runs eagerly, one '
-               'dispatch a step (its capture is not ported)', spc,
+    if spc >= 2 and not device_steps:
+      log.info("fused_steps_per_call=%d: the %s step runs eagerly, one "
+               "dispatch a step (it reads the host; 'users' mode is not "
+               'scanned in JAX either)', spc,
                'host-loader' if loader is not None
-               else 'scatter' if scatter else 'sparse' if sparse
-               else 'union')
-    elif spc >= 2 and self.device.type == 'cuda' and not captured:
+               else 'scatter' if fd else 'union')
+    elif spc >= 2 and not on_card:
+      log.info('fused_steps_per_call=%d: off the card the steps of a '
+               'dispatch run eagerly, one after another', spc)
+    elif spc >= 2 and not captured:
       log.info("fused_steps_per_call=%d: '%s' has no capturable step; the "
                'steps run eagerly, one dispatch a step', spc,
                self.optimizer_type)
@@ -921,7 +955,7 @@ class Recoder:
                          num_epochs, lr, lr_milestones, iters_per_epoch,
                          num_batches, spc, captured, profile_dir,
                          profile_steps, progress, model_checkpoint_prefix,
-                         checkpoint_freq, validation)
+                         checkpoint_freq, validation, shuffle)
     finally:
       if self._progress_reporter is not None:
         self._progress_reporter.close()
@@ -933,7 +967,7 @@ class Recoder:
                     num_epochs, lr, lr_milestones, iters_per_epoch,
                     num_batches, spc, captured, profile_dir, profile_steps,
                     progress, model_checkpoint_prefix, checkpoint_freq,
-                    validation):
+                    validation, shuffle):
     for epoch in range(self.current_epoch, num_epochs + 1):
       self.current_epoch = epoch
       epoch_lr = self._lr = _multistep_lr(lr, lr_milestones, epoch)
@@ -951,9 +985,12 @@ class Recoder:
         if self._epoch_perm is None:
           self._epoch_perm = source.epoch_permutation(epoch)
       n_steps = min(iters_per_epoch, num_batches - self._iters_consumed)
+      # (the steps read their scalars off the device: no host read)
       if isinstance(self.optimizer, Bf16Adam):
-        # (the steps read their scalars off the device: no host read)
         self.optimizer.schedule(n_steps, capacity=num_batches)
+      if self.sparse_states:
+        self.sparse_adam.schedule(self.sparse_states.values(), epoch_lr,
+                                  n_steps, capacity=num_batches)
       reporter = None
       if progress:
         desc = f'Epoch {epoch}/{num_epochs}'
@@ -964,17 +1001,11 @@ class Recoder:
         reporter = self._progress_reporter
 
       t0 = time.time()
-      if fd and sparse:
-        # the full-catalog sparse step: full-decode batches, eagerly
-        losses = self._union_epoch(
-            lambda: source.build_fd_batch(self._epoch_perm,
-                                          self._iters_consumed),
-            n_steps, sparse, profile_dir, profile_steps, reporter,
-            negative_sampling)
-      elif fd:
-        losses = self._fd_epoch(source, n_steps, num_batches, spc, captured,
-                                negative_sampling, profile_dir,
-                                profile_steps, reporter)
+      if fd or (source is not None and shuffle == 'blocks'):
+        losses = self._device_epoch(
+            source, n_steps, num_batches, spc, captured,
+            (not fd, sparse, negative_sampling), profile_dir, profile_steps,
+            reporter)
       elif loader is not None:
         losses = self._union_epoch(
             lambda: next(self._train_iterator, None), n_steps, sparse,
@@ -1216,28 +1247,33 @@ class Recoder:
       self._train_iterator.close()
       self._train_iterator = None
 
-  # -- full-decode epochs: eager steps or captured blocks of them ----------
+  # -- device-counter epochs: eager steps or captured blocks of them --------
 
-  def _fd_epoch(self, source, n_steps, num_batches, spc, captured,
-                negative_sampling, profile_dir, profile_steps, reporter):
-    """``n_steps`` full-decode steps from ``_iters_consumed`` on, in
-    dispatches of ``spc`` (then single) steps; returns their losses."""
-    loop = self._fd_loop
+  def _device_epoch(self, source, n_steps, num_batches, spc, captured, path,
+                    profile_dir, profile_steps, reporter):
+    """``n_steps`` steps that read the device step counter -- full decode,
+    or the static 'blocks' union batches -- from ``_iters_consumed`` on,
+    in dispatches of ``spc`` (then single) steps; returns their losses.
+    ``path``: ``(union, sparse, negative_sampling)``."""
+    loop = self._device_loop
     if (loop is None or loop.source is not source
         or loop.perm.numel() != self._epoch_perm.numel()
         or loop.losses.numel() != num_batches):
-      loop = self._fd_loop = _FdLoop(source, self._epoch_perm.numel(),
-                                     num_batches)
+      loop = self._device_loop = _DeviceLoop(
+          source, self._epoch_perm.numel(), num_batches)
     loop.perm.copy_(self._epoch_perm)
     loop.step.fill_(self._iters_consumed)
     loop.global_step.fill_(self._global_step)
     on_card = self.device.type == 'cuda'
     if on_card:
-      self._position_noise(loop)
-    if captured and self._graphs and self._graph_key(loop,
-                                                     negative_sampling) \
-        != self._graph_sig:
-      self._drop_graphs()  # a tensor a graph recorded was replaced
+      self._position_noise(loop, path[0])
+    if captured and ((self._graphs and self._graph_key(loop, path)
+                      != self._graph_sig)
+                     or self._warm_key != (loop, path)):
+      # (a tensor a graph recorded was replaced, or the warm-up steps
+      # were another path's)
+      self._drop_graphs()
+      self._warm_key = (loop, path)
     first = self._iters_consumed
     dispatches = 0
     remaining = n_steps
@@ -1246,17 +1282,18 @@ class Recoder:
       self._maybe_profile(profile_dir, profile_steps)
       if captured and self._warm_steps < WARMUP_STEPS:
         block = min(WARMUP_STEPS - self._warm_steps, remaining)
-        self._warm_up(loop, negative_sampling, block)
+        self._warm_up(loop, path, block)
         dispatches += block
       elif captured:
-        self._graph(block, loop, negative_sampling).replay()
+        self._graph(block, loop, path).replay()
         if isinstance(self.optimizer, Bf16Adam):
           self.optimizer.note_steps(block)
+        self.sparse_adam.note_steps(block)
         dispatches += 1
       else:
         for i in range(block):
-          self._fd_step(loop, negative_sampling,
-                        None if on_card else self._global_step + i)
+          self._device_step(loop, path,
+                            None if on_card else self._global_step + i)
         dispatches += block
       s = self._iters_consumed
       self._iters_consumed += block
@@ -1269,58 +1306,74 @@ class Recoder:
     self.last_epoch_dispatches = dispatches
     return loop.losses[first:first + n_steps].tolist()
 
-  def _fd_step(self, loop, negative_sampling, reseed_step=None):
-    """One full-decode step whose batch, loss slot and step all come
-    from the device counter ``loop.step`` (it advances it): off the slab
-    no host read, so a graph can record it. ``reseed_step`` (off the
-    card): seed the dropout generator and the random negatives' for that
-    global step first."""
+  def _device_step(self, loop, path, reseed_step=None):
+    """One step whose batch, loss slot and step all come from the device
+    counter ``loop.step`` (it advances it): a full-decode batch
+    (``fd_batch``) or a static union batch (``union_batch``), through the
+    dense or the sparse step math (``path = (union, sparse,
+    negative_sampling)``). Nothing is read on the host (but by the
+    'users' triplet scatter), so a graph can record it. ``reseed_step``
+    (off the card): seed the dropout generator and the random negatives'
+    for that global step first."""
+    union, sparse, negative_sampling = path
     source = loop.source
     if reseed_step is not None:
       self._dropout_gen.manual_seed((self.seed << 32) + reseed_step)
       if source.neg_gen is not None:
         source.seed_negatives(reseed_step)
-    batch = source.fd_batch(loop.perm, loop.step)
-    loss = self._dense_step_math(batch, negative_sampling, reseed=False,
-                                 step=loop.global_step)
+    batch = (source.union_batch if union else source.fd_batch)(loop.perm,
+                                                                loop.step)
+    math = self._sparse_step_math if sparse else self._dense_step_math
+    loss = math(batch, negative_sampling, reseed=False,
+                step=loop.global_step)
     loop.losses.index_copy_(0, loop.step.view(1), loss.view(1).float())
     loop.step.add_(1)
     loop.global_step.add_(1)
 
-  def _position_noise(self, loop):
+  def _position_noise(self, loop, union):
     """Put the card's dropout generator where the global step puts it:
     seed ``seed << 32``, Philox offset ``global step x the offset one
-    step takes``, and the source's random-negative generator likewise
-    (``position_negatives``). Full-decode steps then draw their masks
-    and ids from the generators as they advance -- eager steps and graph
-    replays alike (the graphs register them) -- and a training resumed
-    from a checkpoint draws what the uninterrupted one would have
-    drawn."""
-    if loop.noise_inc is None:
-      loop.noise_inc = self._noise_increment(loop)
+    step takes`` (in the step's layout: ``union`` or full decode), and
+    the source's random-negative generator likewise
+    (``position_negatives``). The steps then draw their masks and ids
+    from the generators as they advance -- eager steps and graph replays
+    alike (the graphs register them) -- and a training resumed from a
+    checkpoint draws what the uninterrupted one would have drawn."""
+    if union not in loop.noise_inc:
+      loop.noise_inc[union] = self._noise_increment(loop, union)
     self._dropout_gen.manual_seed(self.seed << 32)
-    self._dropout_gen.set_offset(self._global_step * loop.noise_inc)
+    self._dropout_gen.set_offset(self._global_step * loop.noise_inc[union])
     if loop.source.neg_gen is not None:
       loop.source.position_negatives(self._global_step)
 
-  def _noise_increment(self, loop):
-    """The Philox offset one full-decode step's noise draws take: a
-    training forward of the step's shapes from a scratch generator (no
-    hand kernel runs in it; every draw of the step -- a dropout mask, a
-    Mult-VAE's eps -- is in it)."""
+  def _noise_increment(self, loop, union):
+    """The Philox offset one step's noise draws take: a training forward
+    of the step's shapes from a scratch generator (no hand kernel runs in
+    it; every draw of the step -- a dropout mask, a Mult-VAE's eps -- is
+    in it). A union step's input spans the static union's width, a
+    full-decode step's the padded catalog: each layout is probed."""
     probe = torch.Generator(device=self.device)
     probe.manual_seed(0)
     B = loop.source.batch_size
-    x = torch.zeros((B, self.model.num_items_padded), device=self.device,
+    W, items, tg_items = self.model.num_items_padded, None, None
+    if union:
+      widths = loop.source.static_widths()
+      W = widths['W']
+      items = torch.zeros(W, dtype=torch.int64, device=self.device)
+      tg_items = (torch.zeros(widths['tg_W'], dtype=torch.int64,
+                              device=self.device)
+                  if 'tg_W' in widths else items)
+    x = torch.zeros((B, W), device=self.device,
                     dtype=getattr(self.model, 'compute_dtype', None)
                     or torch.float32)
     users = torch.zeros(B, dtype=torch.int64, device=self.device)
+    kw = dict(input_items=items, target_items=tg_items, training=True,
+              generator=probe, input_users=users)
     with torch.no_grad():
       if hasattr(self.model, 'decode_operands'):
-        self.model.decode_operands(x, training=True, generator=probe,
-                                   input_users=users)
+        self.model.decode_operands(x, **kw)
       else:
-        self.model(x, input_users=users, training=True, generator=probe)
+        self.model(x, **kw)
     return probe.get_offset()
 
   def _side_stream(self):
@@ -1328,7 +1381,7 @@ class Recoder:
       self._capture_stream = torch.cuda.Stream(device=self.device)
     return self._capture_stream
 
-  def _warm_up(self, loop, negative_sampling, n):
+  def _warm_up(self, loop, path, n):
     """``n`` real steps, eager, on the capture stream: they create what a
     step creates lazily (optimizer state, launch plans, library
     workspaces) before a capture may record it."""
@@ -1336,11 +1389,11 @@ class Recoder:
     stream.wait_stream(torch.cuda.current_stream(self.device))
     with torch.cuda.stream(stream):
       for _ in range(n):
-        self._fd_step(loop, negative_sampling)
+        self._device_step(loop, path)
     torch.cuda.current_stream(self.device).wait_stream(stream)
     self._warm_steps += n
 
-  def _graph_key(self, loop, negative_sampling):
+  def _graph_key(self, loop, path):
     """What a captured step baked in: every tensor it reads or writes in
     place (by address) and the choices its Python made."""
     tensors = list(self.model.params().values())
@@ -1350,19 +1403,23 @@ class Recoder:
                 if torch.is_tensor(g['lr'])]
     if isinstance(self.optimizer, Bf16Adam):
       tensors += [self.optimizer._ctl, self.optimizer._table]
-    tensors += [loop.source.d_slab, loop.perm, loop.step, loop.global_step,
-                loop.losses]
-    return (id(self.optimizer), id(loop), negative_sampling, id(self.loss),
-            self._dropout_gen, loop.source.neg_gen,
+    for state in self.sparse_states.values():
+      tensors += [state['step'], state['m'], state['v']]
+    if self.sparse_states:
+      tensors += [self.sparse_adam._table, self.sparse_adam._base]
+    tensors += loop.source.resident_tensors()
+    tensors += [loop.perm, loop.step, loop.global_step, loop.losses]
+    return (id(self.optimizer), id(self.sparse_adam), id(loop), path,
+            id(self.loss), self._dropout_gen, loop.source.neg_gen,
             tuple(t.data_ptr() for t in tensors))
 
-  def _graph(self, block, loop, negative_sampling):
+  def _graph(self, block, loop, path):
     """The graph of ``block`` consecutive steps, captured at first use on
     the capture stream (after the warm-up)."""
     entry = self._graphs.get(block)
     if entry is None:
       if not self._graphs:
-        self._graph_sig = self._graph_key(loop, negative_sampling)
+        self._graph_sig = self._graph_key(loop, path)
       bf16_adam = isinstance(self.optimizer, Bf16Adam)
       if bf16_adam:
         self.optimizer.begin_capture(block)
@@ -1375,27 +1432,30 @@ class Recoder:
       with torch.cuda.graph(graph, stream=self._side_stream(),
                             capture_error_mode='thread_local'):
         for _ in range(block):
-          self._fd_step(loop, negative_sampling)
+          self._device_step(loop, path)
       entry = self._graphs[block] = (
           graph, self.optimizer.end_capture() if bf16_adam else None)
       self.captures += 1
-      log.info('captured a CUDA graph of %d full-decode step(s)', block)
+      log.info('captured a CUDA graph of %d %s step(s)', block,
+               ('sparse ' if path[1] else '')
+               + ('union' if path[0] else 'full-decode'))
     return entry[0]
 
   def _drop_graphs(self):
     """Forget the captured steps (a tensor they recorded is replaced):
-    the next full-decode epoch on the card warms up and captures anew."""
+    the next epoch on the card warms up and captures anew."""
     self._graphs = {}
     self._graph_sig = None
     self._warm_steps = 0
+    self._warm_key = None
 
-  # -- union and sparse epochs: one eager dispatch a step -------------------
+  # -- host-read epochs: one eager dispatch a step --------------------------
 
   def _union_epoch(self, next_batch, n_steps, sparse, profile_dir,
-                   profile_steps, reporter, negative_sampling=True):
-    """Up to ``n_steps`` eager steps on the batches ``next_batch()``
-    gives (None: the iterator ran out): COO batches, or the full-decode
-    batches of the full-catalog sparse step; returns their losses."""
+                   profile_steps, reporter):
+    """Up to ``n_steps`` eager steps on the COO batches ``next_batch()``
+    gives (None: the iterator ran out): the host loader's, or the
+    'users' union batches; returns their losses."""
     losses = []
     for _ in range(n_steps):
       self._maybe_profile(profile_dir, profile_steps)
@@ -1404,7 +1464,7 @@ class Recoder:
         break
       self._iters_consumed += 1
       if sparse:
-        loss = self._sparse_step_math(batch, negative_sampling)
+        loss = self._sparse_step_math(batch)
       else:
         loss = self._dense_step_math(batch)
       self._global_step += 1

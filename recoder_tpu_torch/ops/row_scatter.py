@@ -23,13 +23,17 @@ the kernel of ``kernels/row_scatter.cu`` (or raise), CPU tensors take
 
 The kernel writes through raw pointers, which does not bump a tensor's
 autograd version counter: call it under ``torch.no_grad()`` on tables no
-pending graph has saved.
+pending graph has saved. Nothing in the wrapper reads the host, so a
+captured CUDA graph may record the launch (the captured sparse step);
+the launch counter counts only launches made outside a capture.
 """
 
 import ctypes
 import threading
 
 import torch
+
+from recoder_tpu_torch.kernels import count_launch
 
 MAX_TABLES = 3
 #: the tables' dtypes the kernel copies
@@ -155,7 +159,7 @@ def row_scatter_kernel(tables, ids, rows):
   if err != 0:
     raise RuntimeError(f'row_scatter launch failed: CUDA error {err} '
                        f'({lib.rs_error_string(err).decode()})')
-  LAUNCHES['row_scatter'] += 1
+  count_launch(LAUNCHES, 'row_scatter')
 
 
 def row_scatter_(tables, ids, rows):

@@ -414,28 +414,91 @@ class SparseRowAdam:
   """Row-sparse Adam over a 2-D embedding table (torch ``SparseAdam``).
 
   Each step updates the first and second moments and the parameters of
-  the rows ``ids`` names (the batch's item union, unique) and leaves
-  every other row untouched; bias correction uses one step counter per
-  table, advanced every step. No weight decay, as torch ``SparseAdam``.
-  The cost is O(len(ids) * d), whatever the table's size.
+  the rows ``ids`` names (the batch's item union, unique but for the
+  sentinel tail) and leaves every other row untouched; bias correction
+  uses one step counter per table, advanced every step. No weight decay,
+  as torch ``SparseAdam``. The cost is O(len(ids) * d), whatever the
+  table's size.
 
   The table may be bf16 (bf16 parameter storage) and the moments bf16
   (``state_dtype='bfloat16'``; float32 by default, whatever the table's
   dtype, as in JAX): the gathered rows are upcast, the math is float32,
   and each new row block is rounded once to its table's dtype before the
   row scatter writes the three.
+
+  No step reads the host, so a CUDA graph can record it: each table's
+  step count is a 0-dim int64 tensor beside it (``state['step']``), and
+  the step size ``lr * sqrt(1 - b2^t) / (1 - b1^t)`` of step ``t`` is
+  read from a device table that :meth:`schedule` writes for the steps to
+  come, at the epoch's learning rate, with the JAX package's float32
+  scalar arithmetic on the host; row ``t - 1 - base`` serves step ``t``,
+  ``base`` a device scalar. An eager step outside the scheduled rows (or
+  at another learning rate) schedules its own row first, at the cost of
+  one host read of its step count; graph replays report their steps
+  with :meth:`note_steps`.
   """
 
   def __init__(self, betas=(0.9, 0.999), eps=1e-8, state_dtype=None):
     self.betas = betas
     self.eps = eps
     self.state_dtype = resolve_state_dtype('adam', state_dtype)
+    self._table = None  # step sizes of the scheduled steps, float32
+    self._base = None  # the step count before the table's first row
+    #: (first scheduled step count, end, lr) as the host wrote them
+    self._span = None
+    #: the host's count of each state's steps, by id (eager tracking)
+    self._known = {}
 
   def init(self, table):
     """``{'step': 0, 'm': zeros, 'v': zeros}`` in the state dtype, beside
-    ``table``."""
-    return {'step': 0, 'm': torch.zeros_like(table, dtype=self.state_dtype),
+    ``table`` (the step count a 0-dim int64 tensor there)."""
+    return {'step': torch.zeros((), dtype=torch.int64, device=table.device),
+            'm': torch.zeros_like(table, dtype=self.state_dtype),
             'v': torch.zeros_like(table, dtype=self.state_dtype)}
+
+  def step_sizes(self, lr, first, n):
+    """The float32 step sizes of steps ``first .. first + n - 1`` (the
+    JAX package's float32 scalar arithmetic)."""
+    b1, b2 = self.betas
+    f32 = np.float32
+    out = np.empty(n, np.float32)
+    for i, step in enumerate(range(first, first + n)):
+      # (scalar by scalar: numpy's vector power may round otherwise)
+      bc1 = f32(1.0) - f32(b1) ** f32(step)
+      bc2 = f32(1.0) - f32(b2) ** f32(step)
+      out[i] = f32(lr) * np.sqrt(bc2) / bc1
+    return out
+
+  def schedule(self, states, lr, n_steps, capacity=None):
+    """Write the step sizes of the next ``n_steps`` steps of every state
+    in ``states`` at ``lr`` (one host read of each step count).
+    ``capacity`` keeps the table at least that many rows, so that a graph
+    recorded against it stays valid for later schedules."""
+    states = list(states)
+    for state in states:
+      _as_device_step(state)
+    taken = [int(state['step']) for state in states]
+    if not taken:
+      return
+    lo = min(taken)
+    rows = max(taken) - lo + max(int(n_steps), 1)
+    device = states[0]['step'].device
+    if self._table is None or self._table.shape[0] < max(rows,
+                                                         capacity or 0):
+      self._table = torch.zeros(max(rows, int(capacity or 0)),
+                                dtype=torch.float32, device=device)
+      self._base = torch.zeros((), dtype=torch.int64, device=device)
+    self._table[:rows].copy_(torch.from_numpy(
+        self.step_sizes(lr, lo + 1, rows)))
+    self._base.fill_(lo)
+    self._span = (lo, lo + rows, float(lr))
+    self._known = {id(state): t for state, t in zip(states, taken)}
+
+  def note_steps(self, n):
+    """Record ``n`` steps of every tracked state that ran outside
+    :meth:`update_rows`' eager calls (graph replays)."""
+    for key in self._known:
+      self._known[key] += n
 
   def update_rows(self, table, state, ids, row_grads, lr):
     """One sparse step, in place on ``table`` and ``state``.
@@ -443,9 +506,10 @@ class SparseRowAdam:
     Args:
       table: [N, d] parameter table, float32 or bf16.
       state: moments from :meth:`init`; its 'step' advances by one.
-      ids: int64 [R] row ids, unique (a repeated id must carry the same
-        gradient in every slot), or None for every row (``row_grads`` is
-        then the whole table's gradient [N, d]).
+      ids: int64 [R] row ids, unique but for repeats that carry the same
+        gradient in every slot (a sentinel tail of zero gradients), or
+        None for every row (``row_grads`` is then the whole table's
+        gradient [N, d]).
       row_grads: [R, d] gradient of the gathered rows (any float dtype;
         the math upcasts it).
       lr: learning rate.
@@ -456,13 +520,14 @@ class SparseRowAdam:
     after any backward pass that saved ``table``.
     """
     b1, b2 = self.betas
-    step = state['step'] + 1
-    # the JAX package's float32 scalar arithmetic, on the host
-    f32 = np.float32
-    bc1 = f32(1.0) - f32(b1) ** f32(step)
-    bc2 = f32(1.0) - f32(b2) ** f32(step)
-    step_size = float(f32(lr) * np.sqrt(bc2) / bc1)
-
+    _as_device_step(state)
+    if not capturing():
+      span, known = self._span, self._known.get(id(state))
+      if (span is None or known is None or span[2] != float(lr)
+          or not span[0] <= known < span[1]):
+        self.schedule([state], lr, 1)
+    step_size = self._table.index_select(0, (state['step']
+                                             - self._base).view(1))
     g = row_grads.float()
     if ids is None:
       m_rows, v_rows, p_rows = state['m'], state['v'], table
@@ -481,4 +546,16 @@ class SparseRowAdam:
     else:
       row_scatter_(dsts, ids, tuple(src.to(dst.dtype) for dst, src in
                                     zip(dsts, (new_p, new_m, new_v))))
-    state['step'] = step
+    state['step'].add_(1)
+    if not capturing():
+      self._known[id(state)] += 1
+
+
+def _as_device_step(state):
+  """Make ``state['step']`` a 0-dim int64 tensor beside the moments (a
+  count put there as a number, as an older caller may)."""
+  step = state['step']
+  if not torch.is_tensor(step) or step.dtype != torch.int64 \
+      or step.device != state['m'].device:
+    state['step'] = torch.tensor(int(step), dtype=torch.int64,
+                                 device=state['m'].device)

@@ -390,12 +390,13 @@ def test_profile_dir_writes_a_trace_and_dispatches_single_steps(tmp_path):
 
 
 def test_union_steps_run_eagerly_whatever_n(caplog):
-  """The union step is not captured: N = 4 logs so and runs the steps of
-  N = 1."""
+  """Off the card the static 'blocks' union steps of a dispatch run
+  eagerly: N = 4 logs so and runs the steps of N = 1 (on the card a
+  block of N is one CUDA graph, ``tests/test_torch_cuda.py``)."""
   caplog.set_level(logging.INFO, logger='recoder_tpu_torch')
   a = _port_run(1, True, 'blocks', None, full_decode=False)
   b = _port_run(4, True, 'blocks', None, full_decode=False)
-  assert 'the union step runs eagerly' in caplog.text
+  assert 'off the card the steps of a dispatch run eagerly' in caplog.text
   assert b.last_epoch_dispatches == 5
   _same_trainers(a, b)
 

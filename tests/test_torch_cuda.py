@@ -38,7 +38,10 @@ and the 3xTF32 set at float32 compute) bitwise the float32 rows of the
 same values, the Adam kernel's bf16-parameter instantiations against its
 plain twin, the row scatter over tables of mixed element sizes, captured
 bf16-parameter steps bitwise eager, and bf16-parameter training on the
-card against the CPU (dense, union, sparse; autoencoder and MF).
+card against the CPU (dense, union, sparse; autoencoder and MF); the
+captured 'blocks' union, sparse, target, random-negative, full-catalog
+sparse and triplet-scatter steps bitwise eager (and a resume), with the
+row scatter and the wgmma decode-loss route inside the replays.
 
 Every test skips where ``torch.cuda.is_available()`` is False. The file
 imports neither jax nor the JAX package, so it also runs on a machine
@@ -1049,7 +1052,8 @@ def test_target_training_on_cuda_matches_cpu(cuda, shuffle, sparse):
                  loss_params={'confidence': 3}, device=device)
     rs.LAUNCHES['row_scatter'] = 0
     tr.train(RecommendationDataset(m, t), batch_size=16, lr=1e-3,
-             negative_sampling=True, shuffle=shuffle, num_epochs=1)
+             negative_sampling=True, shuffle=shuffle, num_epochs=1,
+             fused_steps_per_call=1)
     out[str(device)] = (tr.last_epoch_losses, tr._validate(
         RecommendationDataLoader(RecommendationDataset(t, m), batch_size=16,
                                  negative_sampling=True, seed=7)),
@@ -1595,3 +1599,125 @@ def test_bf16_params_trainer_on_cuda_matches_cpu(cuda, family, sparse,
           12 if sparse else 0)
     assert all(p.dtype == BF for p in tr.model.parameters())
   np.testing.assert_allclose(losses['cuda'], losses['cpu'], rtol=1e-2)
+
+
+# -- captured 'blocks' union and sparse steps ---------------------------------
+
+#: case -> (model, train arguments): 'blocks' steps on static-width batches
+UNION_CAPTURE_CASES = {
+    # (d = 200: the width the wgmma decode-loss pair is compiled for)
+    'dense union, bf16': (dict(compute_dtype='bfloat16', hidden_layers=[200]),
+                          dict(full_decode=False)),
+    'sparse union': (dict(sparse=True), {}),
+    'sparse union, megas and negatives': (
+        dict(sparse=True), dict(num_sampling_users=64,
+                                num_random_negatives=40)),
+    'tied sparse, target matrix': (dict(sparse=True, is_constrained=True),
+                                   dict(target=True)),
+    'full-catalog sparse': (dict(sparse=True), dict(negative_sampling=False)),
+    'triplet scatter': ({}, dict(full_decode=True, slab_cache=False,
+                                 num_sampling_users=64,
+                                 num_random_negatives=40)),
+    'sparse MF': ('mf', {}),
+}
+
+
+def _union_capture_run(cuda, case, spc, num_epochs=3, resume_from=None,
+                       **extra):
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder, MatrixFactorization
+  model_kw, kw = UNION_CAPTURE_CASES[case]
+  kw = dict(kw)
+  data = _capture_data()
+  if kw.pop('target', False):
+    rng = np.random.default_rng(5)
+    data = RecommendationDataset(data.interactions_matrix, sp.csr_matrix(
+        (rng.random((700, 600)) < 0.02).astype(np.float32)))
+  if resume_from is not None:
+    tr = resume_from
+  elif model_kw == 'mf':
+    tr = Recoder(MatrixFactorization(16, 'tanh', dropout_prob=0.2,
+                                     sparse=True),
+                 optimizer_type='adam', loss='mse', device=cuda)
+  else:
+    tr = Recoder(DynamicAutoencoder(**{'hidden_layers': [32],
+                                       'activation_type': 'tanh',
+                                       'noise_prob': 0.5, **model_kw}),
+                 optimizer_type='adam', loss='mse',
+                 loss_params={'confidence': 3}, device=cuda,
+                 opt_state_dtype=model_kw.get('compute_dtype'))
+  tr.train(data, **{**dict(batch_size=32, lr=1e-2, weight_decay=2e-5,
+                           num_epochs=num_epochs, lr_milestones=[2],
+                           negative_sampling=True, shuffle='blocks',
+                           fused_steps_per_call=spc), **kw, **extra})
+  return tr
+
+
+def _assert_bitwise_sparse_states(a, b):
+  assert a.sparse_states.keys() == b.sparse_states.keys()
+  for path, st in a.sparse_states.items():
+    for k, v in st.items():
+      assert torch.equal(v, b.sparse_states[path][k]), (path, k)
+
+
+@pytest.mark.parametrize('case', list(UNION_CAPTURE_CASES))
+def test_captured_union_and_sparse_steps_are_bitwise_eager(cuda, case,
+                                                           tmp_path):
+  """'blocks' steps over the static-width batches, 3 epochs of 22 steps,
+  noise 0.5 (dropout 0.2 for MF), an lr milestone: 16 steps a graph
+  against one eager step a dispatch -- losses, parameters, dense moments,
+  the sparse tables' moments and step counts bit for bit. Then a resume
+  from a checkpoint 10 steps into epoch 1 ends bitwise where the
+  uninterrupted run does."""
+  eager = _union_capture_run(cuda, case, 1)
+  captured = _union_capture_run(cuda, case, 16)
+  assert eager.last_epoch_dispatch == 'eager'
+  assert captured.last_epoch_dispatch == 'captured, 16 steps a graph'
+  assert captured.last_epoch_dispatches == 1 + 6  # a graph, 6 singles
+  assert captured.captures == 2
+  _assert_bitwise_trainers(captured, eager)
+  _assert_bitwise_sparse_states(captured, eager)
+  _union_capture_run(cuda, case, 16, num_epochs=1, iters_per_epoch=10,
+                     model_checkpoint_prefix=str(tmp_path / 'c'))
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder, MatrixFactorization
+  model = (MatrixFactorization(16, sparse=True)
+           if UNION_CAPTURE_CASES[case][0] == 'mf'
+           else DynamicAutoencoder(**{
+               k: v for k, v in UNION_CAPTURE_CASES[case][0].items()
+               if k == 'sparse'}))
+  resumed = Recoder(model, optimizer_type='adam', device=cuda,
+                    opt_state_dtype=captured.opt_state_dtype)
+  resumed.init_from_model_file(str(tmp_path / 'c_epoch_1.model'))
+  _union_capture_run(cuda, case, 16, resume_from=resumed)
+  _assert_bitwise_trainers(resumed, captured)
+  _assert_bitwise_sparse_states(resumed, captured)
+
+
+def test_row_scatter_and_wgmma_run_inside_the_replays(cuda):
+  """A profile of one captured epoch of sparse 'blocks' steps holds the
+  row-scatter kernel twice a step, and of bf16 dense union steps the
+  wgmma decode-loss pair once a step: the static widths are multiples of
+  128, so no union step takes the mma.sync set."""
+  from torch.profiler import ProfilerActivity, profile
+  for case, want in (('sparse union', {'row_scatter_kernel': 2}),
+                     ('dense union, bf16', {
+                         'decode_loss_fwd_bf16_wgmma_kernel': 1,
+                         'drows_dbias_bf16_wgmma_kernel': 1,
+                         'decode_loss_fwd_bf16_kernel': 0})):
+    tr = _union_capture_run(cuda, case, 16, num_epochs=1)
+    for _ in range(3):  # (the profiler at times drops a device event)
+      torch.cuda.synchronize()
+      with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+          torch.cuda._sleep(20000)
+        torch.cuda.synchronize()
+        _union_capture_run(cuda, case, 16, num_epochs=2, resume_from=tr)
+        torch.cuda.synchronize()
+      assert tr.last_epoch_dispatches == 7
+      got = {name: sum(ev.count for ev in prof.key_averages()
+                       if name in ev.key) / 22 for name in want}
+      if got == want:
+        break
+    assert got == want, (case, got)
