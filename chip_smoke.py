@@ -334,6 +334,22 @@ Phases, each of which raises on failure:
                 steps (the row scatter twice a sparse step). Phases 11,
                 22 and 27 (a) count their launches in eager steps
                 (fused_steps_per_call=1).
+ 30. users capture -- phase 29 over 'users' steps inside the JAX gate
+                (DeviceDataSource.users_precompute: each epoch's tables
+                built on the card, the static batches over them), for (a)
+                msd-big as scripts/msd-big/train.py trains it (sparse,
+                logloss, bf16 tables and moments), (b) bench.py's MSD
+                --sparse step (float32), (c) the ML-20M bf16 union path
+                with megas of 2,000 (no random ids: they are outside the
+                gate; no mma.sync launch in the replays), (d) bench.py's
+                ML-20M default with slab_cache=False (the triplet
+                scatter): the gate's bytes; 20 steps from 10 before the
+                end of epoch 1 (as a checkpoint there) captured bitwise
+                equal to the same steps eager; phase 29's static against
+                exact widths, windows in turns and profiles, and the
+                exact-width steps' device ms; 6 epochs captured: each
+                epoch's width signature, captures and seconds, the ms of
+                each capture; the ms of an epoch's table build.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -1627,6 +1643,20 @@ def markers_seen(events):
   return sum(ev.count for ev in events if 'spin_kernel' in ev.key)
 
 
+def device_rows(events):
+  """``(device ms, launches, name)`` of each kernel of a profile's
+  ``key_averages()`` (CPU and CUDA activity), largest first, without
+  settle_profiler's markers. A range annotation (e.g. Optimizer.step) is
+  mirrored on the device timeline over the kernels it launched: the
+  kernels alone are counted."""
+  on_device = [ev for ev in events if 'CUDA' in str(ev.device_type)]
+  host_keys = {ev.key for ev in events if ev not in on_device}
+  return sorted(((getattr(ev, 'self_device_time_total', 0) / 1e3,
+                  ev.count, ev.key) for ev in on_device
+                 if ev.key not in host_keys
+                 and 'spin_kernel' not in ev.key), reverse=True)
+
+
 def profile_steps(trainer, dataset, train_kw, steps=16, spc=1,
                   kernels=(), routes=()):
   """torch.profiler over ``steps`` training steps dispatched as ``train``
@@ -1652,14 +1682,7 @@ def profile_steps(trainer, dataset, train_kw, steps=16, spc=1,
     raise AssertionError(f'the profiled window ran '
                          f'{len(trainer.last_epoch_losses)} steps')
   events = prof.key_averages()
-  on_device = [ev for ev in events if 'CUDA' in str(ev.device_type)]
-  # a range annotation (e.g. Optimizer.step) is mirrored on the device
-  # timeline over the kernels it launched: count the kernels only
-  host_keys = {ev.key for ev in events if ev not in on_device}
-  rows = sorted(((getattr(ev, 'self_device_time_total', 0) / 1e3,
-                  ev.count, ev.key) for ev in on_device
-                 if ev.key not in host_keys
-                 and 'spin_kernel' not in ev.key), reverse=True)
+  rows = device_rows(events)
   busy = sum(r[0] for r in rows)
   launches = sum(r[1] for r in rows) / steps
   # (a name may be a tuple of alternatives: either route's kernel)
@@ -1783,9 +1806,11 @@ def phase_union_paths(train_m, msd_width, device='cuda', steps=20):
     for k in fdl.LAUNCHES:
       fdl.LAUNCHES[k] = 0
     rs.LAUNCHES['row_scatter'] = 0
+    # (one eager step a dispatch: the counters do not see inside a graph)
     trainer.train(dataset, batch_size=500, lr=1e-3, weight_decay=2e-5,
                   negative_sampling=True, shuffle='users', num_epochs=1,
-                  iters_per_epoch=steps, full_decode=fd)
+                  iters_per_epoch=steps, full_decode=fd,
+                  fused_steps_per_call=1)
     counts[name] = {**fdl.LAUNCHES, **rs.LAUNCHES}
     losses[name] = np.asarray(trainer.last_epoch_losses)
     if len(losses[name]) != steps or not np.all(np.isfinite(losses[name])):
@@ -3758,9 +3783,9 @@ def phase_full_catalog_sparse(msd, device='cuda'):
 
 
 def phase_large_catalog(card):
-  """Phase 27 (a)-(c) and, on their data, phase 28 (b) and (c) and phase
-  29 (a); 27 (d) runs beside phase 26 (d) while the MSD CSR exists, (e)
-  inside phase 6."""
+  """Phase 27 (a)-(c) and, on their data, phase 28 (b) and (c) and phases
+  29 (a) and 30 (a); 27 (d) runs beside phase 26 (d) while the MSD CSR
+  exists, (e) inside phase 6."""
   train_m, val_in, val_tg = msd_big_data()
   trainer, a = phase_msd_big(train_m, val_in, val_tg)
   b = phase_msd_big_scoring(trainer, val_in, val_tg)
@@ -3769,12 +3794,14 @@ def phase_large_catalog(card):
                   train_m)
   union_a = run('29 union capture (a): msd-big', phase_union_capture_msd_big,
                 train_m)
+  users_a = run('30 users capture (a): msd-big', phase_users_capture_msd_big,
+                train_m)
   del train_m
   c = phase_stress_scoring()
   storage_c = run('28 bf16 storage (c): 10,000,000 items',
                   phase_storage_scoring)
   say(f'  card: {card}')
-  return a, b, c, storage_b, storage_c, union_a
+  return a, b, c, storage_b, storage_c, union_a, users_a
 
 
 # -- phase 28 --------------------------------------------------------------
@@ -4233,20 +4260,30 @@ def _bitwise_same(a, b):
           and all(torch.equal(ta[k], tb[k]) for k in ta))
 
 
-def exact_width_losses(trainer, dataset, kw, steps):
+def exact_width_losses(trainer, dataset, kw, steps, profiled=False):
   """``steps`` eager steps of ``trainer`` on the batches the port trained
   on before the static widths: each step's exact union and interactions
-  (``build_union_batch``; on full decode ``build_fd_batch``), with the
-  random ids the static path draws for the same global step. Returns the
-  losses and the union widths."""
+  (``build_union_batch``; on full decode ``build_fd_batch``, in 'users'
+  mode without a slab the exact triplet scatter), with the random ids
+  the static path draws for the same global step. Returns the losses,
+  the union widths and, ``profiled``, the steps' device ms a step."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
   trainer.train(dataset, num_epochs=1, iters_per_epoch=0,
                 fused_steps_per_call=1, **kw)  # (the source, no step)
   source, perm = trainer.fused_data_source, trainer._epoch_perm
   sparse = bool(trainer.model.sparse_param_paths())
   ns = kw['negative_sampling']
+  full_decode = not ns or source.fd_width is not None
   losses, widths = [], []
+  torch.cuda.synchronize()
+  prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+          if profiled else None)
+  if prof is not None:
+    prof.start()
+    settle_profiler()
   for i in range(steps):
-    if not ns:
+    if full_decode:
       batch = source.build_fd_batch(perm, i)
     else:
       ids = None
@@ -4258,11 +4295,16 @@ def exact_width_losses(trainer, dataset, kw, steps):
     step = trainer._sparse_step_math if sparse else trainer._dense_step_math
     losses.append(float(step(batch, ns)))
     trainer._global_step += 1
-  return losses, np.asarray(widths)
+  busy = None
+  if prof is not None:
+    torch.cuda.synchronize()
+    prof.stop()
+    busy = sum(r[0] for r in device_rows(prof.key_averages())) / steps
+  return losses, np.asarray(widths), busy
 
 
 def phase_union_capture(name, make, dataset, kw, rtol, steps=20, window=64,
-                        profiled=32):
+                        profiled=32, boundary=False):
   """Phase 29's cell ``name``: the JAX scan over 'blocks' steps as CUDA
   graphs. ``make(noise)`` builds its trainer (``noise``: the model's
   noise_prob, None its own). (1) ``steps`` steps at
@@ -4275,8 +4317,12 @@ def phase_union_capture(name, make, dataset, kw, rtol, steps=20, window=64,
   steps of each profiled: device ms and launches a step, the idle share,
   and each hand kernel of the cell (UNION_CELLS) and the decode-loss
   forward of each route, by name, inside the replays and the eager
-  steps. Returns the numbers."""
+  steps. ``boundary`` (phase 30): (1) starts ``steps // 2`` steps before
+  the end of epoch 1, as a checkpoint of that step would, and takes
+  ``steps`` steps of epoch 2 after them; (2) profiles the exact-width
+  steps too. Returns the numbers."""
   import torch
+  from recoder_tpu_torch import model as model_lib
 
   def trainer(noise):
     tr = make(noise)
@@ -4285,10 +4331,14 @@ def phase_union_capture(name, make, dataset, kw, rtol, steps=20, window=64,
     return tr
 
   runs = {}
+  per_epoch = -(-dataset.interactions_matrix.shape[0] // kw['batch_size'])
   for spc in ('auto', 1):
     runs[spc] = trainer(None)
-    runs[spc].train(dataset, num_epochs=1, iters_per_epoch=steps,
-                    fused_steps_per_call=spc, **kw)
+    if boundary:
+      runs[spc]._iters_consumed = per_epoch - steps // 2
+      runs[spc]._train_iterator_key = model_lib._RESUMED
+    runs[spc].train(dataset, num_epochs=2 if boundary else 1,
+                    iters_per_epoch=steps, fused_steps_per_call=spc, **kw)
   cap = runs['auto']
   if not cap.last_epoch_dispatch.startswith('captured'):
     raise AssertionError(f"{name}: 'auto' did not capture "
@@ -4296,27 +4346,36 @@ def phase_union_capture(name, make, dataset, kw, rtol, steps=20, window=64,
   if not _bitwise_same(cap, runs[1]):
     raise AssertionError(f'{name}: {steps} captured steps differ from the '
                          'same steps eager')
-  say(f'  {name}: {steps} steps captured ({cap.last_epoch_dispatch}, '
-      f'{cap.last_epoch_dispatches} dispatches, {cap.captures} graphs) and '
-      'eager: losses, parameters, moments and step counts bitwise equal')
+  compared = steps + steps // 2 if boundary else steps
+  say(f'  {name}: {compared} steps captured ({cap.last_epoch_dispatch}, '
+      f'{cap.last_epoch_dispatches} dispatches, {cap.captures} graphs'
+      + (f'; the last {steps // 2} of epoch 1, then {steps} of epoch 2'
+         if boundary else '')
+      + ') and eager: losses, parameters, moments and step counts bitwise '
+      'equal')
   del runs[1]
   torch.cuda.empty_cache()
 
   static = trainer(0.0)
   static.train(dataset, num_epochs=1, iters_per_epoch=steps,
                fused_steps_per_call=1, **kw)
-  exact, widths = exact_width_losses(trainer(0.0), dataset, kw, steps)
+  exact, widths, exact_busy = exact_width_losses(trainer(0.0), dataset, kw,
+                                                 steps, profiled=boundary)
   rel = compare_losses(static.last_epoch_losses, exact, rtol,
                        f'{name}: static against exact widths')
   source = static.fused_data_source
   static_widths = (source.static_widths() if kw['negative_sampling']
                    else {})
+  if source._epoch is not None:  # ('users': the epoch's signature)
+    static_widths['signature'] = source._epoch['sig']
   del static
   torch.cuda.empty_cache()
   say(f'  {name}: noise off, {steps} static-width steps against the exact-'
       f'width batches: max rel {rel:.3g}; static widths {static_widths}'
       + (f', exact union widths mean {widths.mean():.1f}, max '
-         f'{widths.max()}' if len(widths) else ''))
+         f'{widths.max()}' if len(widths) else '')
+      + (f'; the exact-width steps: device {exact_busy:.3f} ms a step'
+         if exact_busy is not None else ''))
 
   out = {m: {'rates': []} for m in ('captured', 'eager')}
   for mode in ('captured', 'eager', 'eager', 'captured'):
@@ -4349,7 +4408,7 @@ def phase_union_capture(name, make, dataset, kw, rtol, steps=20, window=64,
         f'{o["launches"]:.1f} launches a profiled step, the device idle '
         f'~{100 * o["idle"]:.1f}%; hand kernels and decode-loss routes a '
         f'step {o["per_step"]}')
-  out.update(rel=rel, static_widths=static_widths,
+  out.update(rel=rel, static_widths=static_widths, exact_busy=exact_busy,
              exact_widths=(float(widths.mean()), int(widths.max()))
              if len(widths) else None)
   return out
@@ -4442,6 +4501,165 @@ def phase_union_capture_msd_big(train_m, device='cuda'):
                              BF16_PATHS_RTOL)
 
 
+# -- phase 30 --------------------------------------------------------------
+
+#: phase 30's cells: the hand kernels inside their replays, a step
+UNION_CELLS.update({
+    'msd_big_users_bf16': UNION_CELLS['msd_big_bf16'],
+    'msd_sparse_users': UNION_CELLS['msd_sparse'],
+    'ml20m_union_users_bf16': UNION_CELLS['ml20m_union_bf16'],
+    'ml20m_scatter_users_bf16': UNION_CELLS['ml20m_union_bf16'],
+})
+#: bf16 cells whose replays must hold no mma.sync decode-loss launch
+NO_MMA = ('ml20m_union_users_bf16', 'ml20m_scatter_users_bf16')
+#: whole epochs phase 30 trains captured for the width signatures
+USERS_EPOCHS = 6
+
+
+def users_epochs(name, make, dataset, kw, epochs=USERS_EPOCHS, builds=3):
+  """``epochs`` whole epochs of a fresh trainer of the cell, captured
+  ('auto'): each epoch's width signature, the graphs captured in it, its
+  seconds (the table build outside them) and rate; each capture's ms
+  (host clock around it, synchronized); the gate's bytes (two epochs of
+  the JAX tables); then the ms of ``builds`` more epochs' table builds
+  (host clock around ``epoch_state``, synchronized: the order and
+  windows on the host, the build on the card and its one read)."""
+  import torch
+  tr = make(None)
+  capture_ms = []
+  graph = tr._graph
+
+  def timed(block, loop, path):
+    if block in tr._graphs:
+      return graph(block, loop, path)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = graph(block, loop, path)
+    torch.cuda.synchronize()
+    capture_ms.append((block, (time.time() - t0) * 1e3))
+    return out
+
+  tr._graph = timed
+  rows = []
+  for epoch in range(1, epochs + 1):
+    before = tr.captures
+    tr.current_epoch = epoch  # (train resumes at current_epoch inclusive)
+    tr.train(dataset, num_epochs=epoch, fused_steps_per_call='auto', **kw)
+    torch.cuda.synchronize()
+    if tr.last_epoch_dispatch != 'captured, 16 steps a graph':
+      raise AssertionError(f'{name} epoch {epoch}: {tr.last_epoch_dispatch}')
+    source = tr.fused_data_source
+    rows.append(dict(epoch=epoch, signature=source._epoch['sig'],
+                     captures=tr.captures - before,
+                     seconds=tr.last_epoch_seconds,
+                     rate=len(tr.last_epoch_losses) / tr.last_epoch_seconds))
+  gate = (source.users_precompute, 2 * source._jax_epoch_table_bytes())
+  if not gate[0]:
+    raise AssertionError(f'{name}: outside the JAX gate '
+                         f'({source.precompute_reason})')
+  fd = source._epoch['key'][1]
+  build_ms = []
+  for epoch in range(epochs + 1, epochs + 1 + builds):
+    torch.cuda.synchronize()
+    t0 = time.time()
+    source.epoch_state(epoch, full_decode=fd)
+    torch.cuda.synchronize()
+    build_ms.append((time.time() - t0) * 1e3)
+  del tr._graph  # (the trainer and its graphs go with the cell)
+  signatures = [r['signature'] for r in rows]
+  say(f'  {name}: the gate True, two epochs of the JAX tables '
+      f'{gate[1] / 2**20:.1f} MiB; {epochs} epochs captured: signatures '
+      f'{signatures} ({len(set(signatures))} distinct), graphs captured an '
+      f'epoch {[r["captures"] for r in rows]}, each capture '
+      + ', '.join(f'{b} step(s) {ms:.1f} ms' for b, ms in capture_ms)
+      + '; epoch seconds ' + ', '.join(f'{r["seconds"]:.3f}' for r in rows)
+      + ' (user-batches/s ' + ', '.join(f'{r["rate"]:.2f}' for r in rows)
+      + '); an epoch\'s table build ' + ', '.join(f'{ms:.2f}'
+                                                   for ms in build_ms)
+      + ' ms')
+  return dict(epochs=rows, capture_ms=capture_ms, build_ms=build_ms,
+              gate_bytes=gate[1])
+
+
+def phase_users_capture(name, make, dataset, kw, rtol):
+  """Phase 30's cell ``name``: phase 29's checks over 'users' steps
+  inside the JAX gate, from 10 steps before the end of epoch 1
+  (:func:`phase_union_capture` with ``boundary``), then
+  :func:`users_epochs`."""
+  out = phase_union_capture(name, make, dataset, kw, rtol, boundary=True)
+  mma = out['captured']['per_step'].get(FWD_ROUTES['mma.sync'], 0)
+  if name in NO_MMA and mma:
+    raise AssertionError(f'{name}: {mma} mma.sync launches a replayed step')
+  out.update(users_epochs(name, make, dataset, kw))
+  return out
+
+
+def phase_users_capture_msd(msd):
+  """Phase 30 (b): bench.py's MSD --sparse step in 'users' mode."""
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+
+  def make(noise):
+    return Recoder(DynamicAutoencoder([200], 'tanh', sparse=True,
+                                      noise_prob=0.5 if noise is None
+                                      else noise),
+                   optimizer_type='adam', loss='logloss', device='cuda')
+
+  return phase_users_capture('msd_sparse_users', make,
+                             RecommendationDataset(msd),
+                             dict(MSD_TRAIN, shuffle='users'), PATHS_RTOL)
+
+
+def phase_users_capture_ml20m(matrix):
+  """Phase 30 (c) the ML-20M bf16 union path, megas of 2,000, and (d)
+  bench.py's ML-20M default without a slab (the triplet scatter), both
+  in 'users' mode."""
+  from recoder_tpu_torch.data import RecommendationDataset
+
+  def make(noise):
+    tr = _ml20m_trainer()
+    if noise is not None:
+      tr.model.noise_prob = noise
+    return tr
+
+  dataset = RecommendationDataset(matrix)
+  users = dict(ML20M_TRAIN, shuffle='users')
+  return {
+      'ml20m_union_users_bf16': run(
+          '30 users capture (c): the ML-20M bf16 union path',
+          phase_users_capture, 'ml20m_union_users_bf16', make, dataset,
+          dict(users, full_decode=False, num_sampling_users=2000),
+          BF16_PATHS_RTOL),
+      'ml20m_scatter_users_bf16': run(
+          '30 users capture (d): the ML-20M default, the triplet scatter',
+          phase_users_capture, 'ml20m_scatter_users_bf16', make, dataset,
+          dict(users, full_decode=True, slab_cache=False),
+          BF16_PATHS_RTOL)}
+
+
+def phase_users_capture_msd_big(train_m, device='cuda'):
+  """Phase 30 (a): msd-big as scripts/msd-big/train.py trains it ('users',
+  sparse, logloss; bf16 tables and moments as phase 28 (b))."""
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+
+  def make(noise):
+    return Recoder(DynamicAutoencoder([200], 'tanh', sparse=True,
+                                      noise_prob=0.5 if noise is None
+                                      else noise,
+                                      compute_dtype=BF16, params_dtype=BF16),
+                   optimizer_type='adam', loss='logloss', user_based=False,
+                   eval_item_chunk=LARGE_CHUNK, opt_state_dtype=BF16,
+                   device=device)
+
+  return phase_users_capture('msd_big_users_bf16', make,
+                             RecommendationDataset(train_m),
+                             dict(MSD_BIG_TRAIN, shuffle='users'),
+                             BF16_PATHS_RTOL)
+
+
 def run(name, fn, *args, **kwargs):
   say(f'== phase {name}')
   t0 = time.time()
@@ -4527,8 +4745,10 @@ def main():
   full_catalog_per_step, full_catalog_rate = run(
       '27 large catalog (d): the full-catalog sparse step',
       phase_full_catalog_sparse, msd)
-  # (phase 29's MSD cells (b) and (c) run here too)
+  # (phase 29's MSD cells (b) and (c) and phase 30's (b) run here too)
   union_cells = phase_union_capture_msd(msd)
+  users_cells = {'msd_sparse_users': run('30 users capture (b): MSD --sparse',
+                                         phase_users_capture_msd, msd)}
   (bf16_times, bf16_errs, adam_err, adam_times,
    adam_bound) = run('14 bf16 kernels', phase_bf16_kernels)
   matrix = synthetic.synthesize_ml20m()
@@ -4579,6 +4799,7 @@ def main():
   union_cells['ml20m_union_bf16'] = run(
       '29 union capture (e): the ML-20M bf16 union path',
       phase_union_capture_ml20m, matrix)
+  users_cells.update(phase_users_capture_ml20m(matrix))
   storage_kernels = run('28 bf16 storage (e): kernel variants',
                         phase_storage_kernels)
   storage_per_step, storage_cells_out = run(
@@ -4587,10 +4808,12 @@ def main():
   storage_quality = run('28 bf16 storage (d): fixture gate', phase_quality,
                         train_m, val_m, compute_dtype=BF16,
                         opt_state_dtype=BF16, params_dtype=BF16)
-  big, big_scoring, stress, storage_msd, storage_scoring, union_a = run(
-      '27 large catalog (a)-(c)', phase_large_catalog, card)
+  (big, big_scoring, stress, storage_msd, storage_scoring, union_a,
+   users_a) = run('27 large catalog (a)-(c)', phase_large_catalog, card)
   union_cells['msd_big_bf16'] = union_a
+  users_cells['msd_big_users_bf16'] = users_a
   union_record = _union_capture_record(union_cells)
+  users_record = _union_capture_record(users_cells)
   # launches a step of each kernel on the MF / Mult-VAE paths: eager
   # epochs and compared steps by the counters, captured replays by the
   # profiles' names
@@ -4736,7 +4959,10 @@ def main():
               'bf16_storage_variants': storage_kernels.get(name),
               # launches a step inside the replays of the captured
               # 'blocks' union, sparse and target steps (phase 29)
-              'union_capture_launches_per_step': union_record.get(name)}
+              'union_capture_launches_per_step': union_record.get(name),
+              # and of the captured 'users' steps over epoch tables
+              # (phase 30)
+              'users_capture_launches_per_step': users_record.get(name)}
              for name, (err, ms, plain_ms, library_ms, (bound_ms, by),
                         per_step) in measured.items()]
   # the packed kernel's mask-only launch (phase 17), beside its bound
@@ -4852,6 +5078,18 @@ def main():
                   f'ms a step, idle {100 * o["captured"]["idle"]:.1f}% vs '
                   f'{100 * o["eager"]["idle"]:.1f}%)'
                   for name, o in union_cells.items())
+      + "; captured vs eager 'users' steps over epoch tables (phase 30): "
+      + '; '.join(f'{name} {max(o["captured"]["rates"]):.2f} vs '
+                  f'{max(o["eager"]["rates"]):.2f} (device '
+                  f'{o["captured"]["busy"]:.3f} vs {o["eager"]["busy"]:.3f} '
+                  f'ms a step, exact widths {o["exact_busy"]:.3f}, idle '
+                  f'{100 * o["captured"]["idle"]:.1f}% vs '
+                  f'{100 * o["eager"]["idle"]:.1f}%; '
+                  f'{len({r["signature"] for r in o["epochs"]})} signatures '
+                  f'in {len(o["epochs"])} epochs, '
+                  f'{sum(r["captures"] for r in o["epochs"])} graphs; table '
+                  f'build {min(o["build_ms"]):.2f} ms)'
+                  for name, o in users_cells.items())
       + f'; card {card}')
   say(json.dumps({'kernels': kernels}))
   say(card)

@@ -64,11 +64,39 @@ triplets:
     overflow accounting (``_note_overflow``, ``_rebuild_fused_source``)
     is not ported, by design. :meth:`build_union_batch` is the same
     batch trimmed to its exact sizes (a host read);
-  * 'users' mode draws fresh users each epoch: the mega's CSR ranges are
-    gathered on the device and the union is ``torch.unique(sorted=True,
-    return_inverse=True)`` over the gathered columns (the semantics of
-    the JAX ``_unique_union`` / ``_build_epoch_tables``), at the exact
-    width of each step (:meth:`build_union_batch`, host reads).
+  * 'users' mode draws fresh users each epoch, but an epoch's megas are
+    fixed once its order is drawn. Where the JAX source builds per-epoch
+    tables (:attr:`users_precompute`, below) the port does so too: the
+    same static batches then serve the 'users' steps, so a CUDA graph
+    records them as it records the 'blocks' ones. Elsewhere each step
+    gathers its mega's CSR ranges on the device and takes the union with
+    ``torch.unique(sorted=True, return_inverse=True)`` (the semantics of
+    the JAX ``_unique_union``), at its exact width
+    (:meth:`build_union_batch`, host reads).
+
+**'users' epoch tables** (:meth:`epoch_state`, the JAX
+``users_precompute`` path). The JAX gate: 'users' mode without random
+negatives or a target matrix, with two epochs of the JAX tables within
+``PRECOMPUTE_BYTE_BUDGET``. An epoch's build runs a few batched ops on
+the device, none a step: the epoch's CSR laid out in its order (an
+``indptr`` over the ordered padded users, gathered from the resident
+CSR: the JAX ``_epoch_gather_stage``), then, for union steps, one sort
+of the ``mega x radix + column`` keys, whose first occurrences and ranks
+give each mega's union, its width and each entry's compressed column
+(the JAX ``_build_epoch_tables``). In that layout a mega's users are
+contiguous, as a block's are, so :meth:`union_batch` and the 'blocks'
+triplet scatter read the epoch with their 'blocks' code (the block
+order the identity; the slice's users read off the order). The widths
+are exact maxima rounded up the fixed ladder of :func:`_rung` (aligned
+to 128, then ratio 26 / 25): the slice and mega windows from the host
+counts, the largest union from the device -- the build's one host read.
+So nothing overflows, and an epoch's widths (its *signature*) are a
+function of the epoch and the data alone: a training resumed at an
+epoch draws what the uninterrupted one drew. Each epoch's tables are
+copied into buffers of fixed address for their signature (the last
+``SIGNATURES`` are kept), so a graph recorded in one epoch replays in
+the next epoch of the same signature. Full decode off a resident slab
+needs no tables (the JAX rule): it reads the same host order.
 
 **Random extra negatives** (``num_random_negatives = R``, the JAX
 ``build_batch`` draw): R item ids uniform in ``[0, num_items)`` join each
@@ -104,17 +132,18 @@ its slice's triplets at the padded catalog width (raw column ids; a
 column at or past the width drops, as the JAX ``mode='drop'``), in the
 dense tier's storage dtype, and builds the loss mask from the mega's
 column ids, never from the values: an explicitly stored zero still marks
-its column (the JAX ``_forward_loss``). In 'blocks' mode it reads the
-slice's and the mega's CSR ranges at fixed windows, as the union batch
-does, so a graph can record it; in 'users' mode it reads its step and
-order on the host and runs eagerly.
+its column (the JAX ``_forward_loss``). In 'blocks' mode, and over the
+'users' epoch tables, it reads the slice's and the mega's CSR ranges at
+fixed windows, as the union batch does, so a graph can record it;
+outside the JAX gate a 'users' step reads its step and order on the
+host and runs eagerly.
 
 **Epoch order.** 'users' mode draws the order as the JAX package does
 (``_host_epoch_perm``): numpy ``default_rng([seed + 1, epoch])``, then
 the pad users, so both train the same epochs (where the JAX source
-builds no epoch tables -- with random negatives, a target matrix or
-tables past its budget -- it draws the order with ``jax.random``
-instead, which torch cannot reproduce). 'blocks' mode shuffles
+builds no epoch tables -- with random negatives or tables past its
+budget -- it draws the order with ``jax.random`` instead, which torch
+cannot reproduce). 'blocks' mode shuffles
 the mega order with a ``torch.Generator``; JAX draws it with
 ``jax.random.permutation``, which torch cannot reproduce, so tests
 inject it.
@@ -140,6 +169,7 @@ takes the host loader, as the JAX trainer does.
 Not ported: mesh sharding.
 """
 
+import collections
 import logging
 import math
 
@@ -182,6 +212,31 @@ def _window(indptr, users):
   return max(int(np.diff(indptr[::users]).max(initial=0)), 1)
 
 
+def _rung(width):
+  """``width`` aligned up to 128, then up to the next rung of a fixed
+  ladder: 128, and after each rung ``align128(rung x 26 / 25)``. Integer
+  arithmetic alone, so that every machine puts a width on the same
+  rung."""
+  width, rung = _align128(width), 128
+  while rung < width:
+    rung = _align128(rung * 26 // 25)
+  return rung
+
+
+def _jax_users_budget(counts, mega):
+  """The JAX source's default 'users'-mode nnz budget of a mega
+  (``mega_nnz_budget``): the largest nnz of 128 random windows of
+  ``mega`` users (numpy ``default_rng(4321)``), plus 12% and 256,
+  aligned up to 1024."""
+  rng = np.random.default_rng(4321)
+  n = len(counts)
+  widest = 1
+  for _ in range(128):
+    idx = rng.choice(n, size=min(mega, n), replace=False)
+    widest = max(widest, int(counts[idx].sum()))
+  return (int(widest * 1.12) + 256 + 1023) // 1024 * 1024
+
+
 def canonical_csr(matrix):
   """``matrix`` as CSR without duplicate entries."""
   matrix = matrix.tocsr()
@@ -217,8 +272,11 @@ class DeviceDataSource:
   #: fraction of the device's free memory the 'auto' request may claim
   SLAB_CACHE_MEMORY_FRACTION = 0.5
   #: bytes of one CSR's JAX block tables past which the JAX source
-  #: declines a target matrix
+  #: declines a target matrix, and of two epochs of its 'users' tables
+  #: past which it builds none
   PRECOMPUTE_BYTE_BUDGET = 2 << 30
+  #: width signatures of the 'users' epoch tables whose buffers are kept
+  SIGNATURES = 4
 
   def __init__(self, matrix, batch_size, num_sampling_users, num_items,
                shuffle='users', device=device_lib.DEFAULT, seed=0,
@@ -269,11 +327,16 @@ class DeviceDataSource:
     self._offsets = None  # arange(batch_size) on the device
     self._mega_offsets = None  # arange(num_sampling_users) on the device
     self._host_tables = None  # blocks mode: per-mega unions (numpy)
-    self._union = None  # device arrays of the 'users' union path
-    self._csr = None  # device arrays of the 'users' scatter path
-    #: device arrays of the static 'blocks' batches, by CSR side ('' the
-    #: input's, 'tg_' the target's)
+    self._csr = None  # the CSR's columns (and values) on the device
+    #: device arrays of the static batches, by CSR side ('' the input's,
+    #: 'tg_' the target's): the 'blocks' tables, or the placed 'users'
+    #: epoch's
     self._static = {}
+    self._epoch = None  # the placed 'users' epoch: key, signature, state
+    self._prefetched = {}  # (epoch, full decode) -> tables not yet placed
+    self._epoch_buffers = {}  # full decode? -> the fixed-address buffers
+    #: width signature -> its buffers, the last SIGNATURES placed
+    self._signatures = collections.OrderedDict()
     indptr = matrix.indptr.astype(np.int64)
     # per-user nnz and CSR start; the pad users' slot n holds 0 and 0
     self._counts = np.append(np.diff(indptr), 0)
@@ -282,6 +345,33 @@ class DeviceDataSource:
     self._tg_tables = None  # the target side's per-mega unions
     if target_matrix is not None:
       self._init_target_side(canonical_csr(target_matrix))
+    #: whether 'users' steps read per-epoch tables (the JAX gate), and
+    #: why not where they do not
+    self.users_precompute = False
+    self.precompute_reason = None
+    if shuffle == 'users':
+      if self.num_random_negatives:
+        self.precompute_reason = 'random negatives'
+      else:
+        nbytes = 2 * self._jax_epoch_table_bytes()
+        self.users_precompute = nbytes <= self.PRECOMPUTE_BYTE_BUDGET
+        if not self.users_precompute:
+          self.precompute_reason = (
+              f'two epochs of tables take {nbytes / 2**30:.2f} GiB, past '
+              f'the budget of {self.PRECOMPUTE_BYTE_BUDGET / 2**30:.2f} '
+              'GiB')
+
+  def _jax_epoch_table_bytes(self):
+    """Bytes of one epoch of the JAX 'users'-mode tables
+    (``device_pipeline.py:300-303``): ``n_blocks x (2 M + W + 3)`` int32,
+    and ``n_blocks x M`` values unless the data is binary, at the JAX
+    source's nnz budget M and the union width W its trainer passes
+    (:meth:`union_width`)."""
+    M = _jax_users_budget(np.diff(self.matrix.indptr), self.mega)
+    nbytes = self.n_blocks * (2 * M + self.union_width() + 3) * 4
+    if not self.binary:
+      nbytes += self.n_blocks * M * 4
+    return nbytes
 
   def _init_target_side(self, target):
     """Check both sides against the JAX tables' byte budget and compute
@@ -505,7 +595,7 @@ class DeviceDataSource:
         [rng.permutation(self.num_users_total),
          np.arange(self.num_users_total, self.n_pad)]).astype(np.int64))
 
-  def fd_batch(self, perm, step, rand_ids=None):
+  def fd_batch(self, perm, step, rand_ids=None, epoch_tables=False):
     """Step ``step``'s full-decode payload: ``perm`` is the epoch order
     on the device, ``step`` a 0-dim int64 device tensor.
 
@@ -513,9 +603,12 @@ class DeviceDataSource:
     replays the same call with the step the device counter holds): the
     slice's B rows are gathered by index ('blocks': ``perm[m] * S + s *
     B + arange(B)``), and the mask of the mega's columns is built from
-    its S rows where the mega is wider than the batch. Without a slab (a declined
-    request or ``slab_cache=False``) the step's triplets are scattered
-    (:meth:`_scatter_fd_batch`, which reads the step on the host).
+    its S rows where the mega is wider than the batch. Without a slab (a
+    declined request or ``slab_cache=False``) the step's triplets are
+    scattered: in 'blocks' mode, and in 'users' mode with
+    ``epoch_tables`` over the placed epoch tables (:meth:`epoch_state`),
+    from device tensors alone (:meth:`_static_scatter_fd_batch`), else
+    reading the step on the host (:meth:`_scatter_fd_batch`).
 
     Returns ``{'slab': [B, width] rows on the device (the dense tier's
     storage dtype; bf16 zeros and ones from the packed tier), 'users':
@@ -531,7 +624,7 @@ class DeviceDataSource:
       if self.fd_width is None:
         raise RuntimeError('no resident slab and no full-decode width: call '
                            'maybe_cache_slabs first')
-      if self.shuffle == 'blocks':
+      if self.shuffle == 'blocks' or epoch_tables:
         return self._static_scatter_fd_batch(perm, step, rand_ids)
       return self._scatter_fd_batch(perm, int(step), rand_ids)
     B, S, spm = self.batch_size, self.mega, self.slices_per_mega
@@ -576,10 +669,13 @@ class DeviceDataSource:
   def resident_tensors(self):
     """The device tensors the steps read in place (a CUDA graph that
     recorded a step keeps their addresses): the slab, the static
-    'blocks' tables and the offsets."""
+    'blocks' tables or the fixed buffers of the 'users' epoch tables
+    (:meth:`graph_signature` names the rest), and the offsets."""
     out = [t for t in (self.d_slab, self._offsets, self._mega_offsets)
            if t is not None]
-    for side in self._static.values():
+    sides = (self._epoch_buffers if self.shuffle == 'users'
+             else self._static).values()
+    for side in sides:
       out += [v for v in side.values() if torch.is_tensor(v)]
     return out
 
@@ -630,19 +726,15 @@ class DeviceDataSource:
     catalog. It reads the step and the order on the host."""
     B, n, W = self.batch_size, self.num_users_total, self.fd_width
     dev = self.device
-    if self._csr is None:
-      arrays = {'cols': self.matrix.indices.astype(np.int64)}
-      if not self.binary:
-        arrays['vals'] = self.matrix.data.astype(np.float32)
-      self._csr = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+    csr = self._device_csr()
     m, s = divmod(step_idx, self.slices_per_mega)
     users = self._mega_users(perm, m)
     src, offsets = self._gather(users)
-    mega_cols = self._csr['cols'][src]
+    mega_cols = csr['cols'][src]
     a, e = int(offsets[s * B]), int(offsets[(s + 1) * B])
     rows, cols = self._slice_rows(offsets, s), mega_cols[a:e]
     dtype = self._dtype()
-    vals = (self._csr['vals'][src[a:e]].to(dtype) if 'vals' in self._csr
+    vals = (csr['vals'][src[a:e]].to(dtype) if 'vals' in csr
             else torch.ones(e - a, dtype=dtype, device=dev))
     keep = cols < W  # (the JAX scatter's mode='drop')
     slab = torch.zeros((B, W), dtype=dtype, device=dev)
@@ -657,12 +749,14 @@ class DeviceDataSource:
             'col_mask': (present & self._in_catalog(W)).float()}
 
   def _static_scatter_fd_batch(self, perm, step, rand_ids):
-    """:meth:`_scatter_fd_batch` in 'blocks' mode from device tensors
-    alone: the slice's triplets from its contiguous CSR range at the
-    fixed window (the entries past its nnz go to a dropped row), the
-    mask from the mega's range at the mega's window. Same payload."""
+    """:meth:`_scatter_fd_batch` from device tensors alone, in 'blocks'
+    mode or over the placed 'users' epoch tables: the slice's triplets
+    from its contiguous CSR range at the fixed window (the entries past
+    its nnz go to a dropped row), the mask from the mega's range at the
+    mega's window. Same payload."""
     B, W, S = self.batch_size, self.fd_width, self.mega
-    side = self._static_side('')
+    side = (self._placed('raw') if self.shuffle == 'users'
+            else self._static_side(''))
     dev = self.device
     if 'raw' not in side:  # the CSR's columns, padded by the mega window
       side['raw'] = torch.from_numpy(np.concatenate([
@@ -687,7 +781,7 @@ class DeviceDataSource:
     present = present[:W]
     if self.num_random_negatives:
       present.index_fill_(0, self._negatives(rand_ids), True)
-    users = lo + self._offsets
+    users = self._slice_users(perm, lo)
     n = self.num_users_total
     return {'slab': slab[:B], 'users': torch.clamp(users, max=n),
             'num_users': torch.clamp(torch.sum(users < n), min=1).float(),
@@ -696,13 +790,194 @@ class DeviceDataSource:
   def build_fd_batch(self, perm, step_idx, rand_ids=None):
     """:meth:`fd_batch` from a host order and step: ``perm`` an int64
     tensor, ``step_idx`` an int. The same payload with 'users' on the CPU
-    and 'num_users' a float (a host read)."""
+    and 'num_users' a float (a host read). A 'users' triplet scatter
+    reads the CSR, not the epoch tables (:meth:`_scatter_fd_batch`)."""
     out = self.fd_batch(perm.to(self.device),
                         torch.tensor(int(step_idx), device=self.device),
                         rand_ids=rand_ids)
     out['users'] = out['users'].cpu()
     out['num_users'] = float(out['num_users'])
     return out
+
+  # -- 'users' epoch tables -------------------------------------------------
+
+  def prefetch_epoch(self, epoch, full_decode=False):
+    """Enqueue the build of ``epoch``'s 'users' tables on the device (the
+    JAX ``prefetch_epoch``); :meth:`epoch_state` then places them. A
+    no-op unless this source precomputes, for tables already built or
+    placed, and for full decode off a resident slab, which needs none."""
+    key = (int(epoch), bool(full_decode))
+    if (not self.users_precompute or key in self._prefetched
+        or (self._epoch is not None and self._epoch['key'] == key)
+        or (full_decode and self.d_slab is not None)):
+      return
+    self._prefetched[key] = self._build_epoch(*key)
+
+  def epoch_state(self, epoch, full_decode=False):
+    """Epoch ``epoch``'s 'users' tables, built on the device (unless
+    :meth:`prefetch_epoch` built them) and placed where the static steps
+    read them (the JAX ``epoch_state``); the tables of earlier epochs are
+    dropped. Returns None unless this source precomputes; for full decode
+    off a resident slab, which reads no table, ``{'perm': the epoch's
+    order}``; else the placed side's arrays with ``'perm'`` and
+    ``'signature'``: ``('union', W, M)`` -- the union width and the slice
+    window -- or ``('full decode', M, M_mega)``, each on the ladder of
+    :func:`_rung`. Union steps read ``'unions'`` ``[n_blocks, W]`` (each
+    mega's union ascending, then the sentinel), ``'widths'`` and
+    ``'cols'`` (each entry's compressed column, in the epoch's CSR order
+    ``'indptr'``); the triplet scatter reads ``'raw'``, the columns."""
+    if not self.users_precompute:
+      return None
+    key = (int(epoch), bool(full_decode))
+    for k in [k for k in self._prefetched if k[0] < key[0]]:
+      del self._prefetched[k]
+    if full_decode and self.d_slab is not None:
+      return {'perm': self.epoch_permutation(epoch)}
+    if self._epoch is None or self._epoch['key'] != key:
+      staged = self._prefetched.pop(key, None)
+      self._place_epoch(key, staged or self._build_epoch(*key))
+    return self._epoch['state']
+
+  def _build_epoch(self, epoch, full_decode):
+    """An epoch's tables before placement, on the device (the JAX
+    ``_users_epoch_state``): its CSR in its order, gathered from the
+    resident one (``_epoch_gather_stage``), and for union steps each
+    mega's union from one sort of ``mega x radix + column`` keys -- first
+    occurrences, ranks, each entry's compressed column, each mega's width
+    (``_build_epoch_tables``); the windows from the host counts. Nothing
+    is read on the host."""
+    perm = self.epoch_permutation(epoch)
+    users = np.minimum(perm.numpy(), self.num_users_total)
+    counts, starts = self._counts[users], self._starts[users]
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    nnz, dev = int(indptr[-1]), self.device
+    csr = self._device_csr()
+    owner = torch.repeat_interleave(
+        torch.arange(self.n_pad, device=dev),
+        torch.from_numpy(counts).to(dev), output_size=nnz)
+    src = (torch.from_numpy(starts - indptr[:-1]).to(dev)[owner]
+           + torch.arange(nnz, device=dev))
+    staged = {'perm': perm, 'indptr': torch.from_numpy(indptr).to(dev),
+              'M': _window(indptr, self.batch_size),
+              'M_mega': _window(indptr, self.mega),
+              'raw': csr['cols'].index_select(0, src)}
+    if 'vals' in csr:
+      staged['vals'] = csr['vals'].index_select(0, src)
+    if full_decode:
+      return staged
+    radix = max(self.num_items, self.matrix.shape[1]) + 1
+    mega = torch.div(owner, self.mega, rounding_mode='floor')
+    key, order = torch.sort(mega * radix + staged.pop('raw'), stable=True)
+    first = torch.ones(nnz, dtype=torch.bool, device=dev)
+    first[1:] = key[1:] != key[:-1]
+    mega = torch.div(key, radix, rounding_mode='floor')
+    # (the keys are sorted: each mega's entries are one run of them)
+    bounds = torch.searchsorted(
+        mega, torch.arange(self.n_blocks + 1, device=dev))
+    seen = torch.cumsum(first, 0)
+    before = torch.cat([seen.new_zeros(1), seen]).index_select(0, bounds)
+    ranks = seen - 1 - before.index_select(0, mega)
+    staged.update(cols=torch.empty_like(ranks).scatter_(0, order, ranks),
+                  widths=before[1:] - before[:-1], first=first, mega=mega,
+                  ranks=ranks, items=key - mega * radix)
+    return staged
+
+  def _place_epoch(self, key, staged):
+    """Copy an epoch's tables into the buffers the static steps read:
+    the layout's, of fixed address (the epoch's CSR, the widths), and the
+    width signature's (the windows, the union table), so that a graph
+    recorded in one epoch replays in another of its signature. A union
+    build reads its largest width here: the build's one host read."""
+    full_decode = key[1]
+    M, M_mega = _rung(staged['M']), _rung(staged['M_mega'])
+    if full_decode:
+      sig = ('full decode', M, M_mega)
+    else:
+      W = _rung(int(staged['widths'].max()))
+      sig = ('union', W, M)
+    bufs = self._signatures.pop(sig, None)
+    if bufs is None:
+      dev = self.device
+      bufs = {'window': torch.arange(M, device=dev)}
+      if full_decode:
+        bufs['mega_window'] = torch.arange(M_mega, device=dev)
+      else:  # (a spare slot past the table takes the entries not first)
+        bufs['unions'] = torch.empty(self.n_blocks * W + 1,
+                                     dtype=torch.int64, device=dev)
+    self._signatures[sig] = bufs
+    while len(self._signatures) > self.SIGNATURES:
+      self._signatures.popitem(last=False)
+    fixed = self._fixed_buffers(full_decode)
+    nnz = self.matrix.nnz
+    for name, buf in fixed.items():
+      (buf if name in ('indptr', 'widths') else buf[:nnz]).copy_(staged[name])
+    side = dict(fixed, M=M, window=bufs['window'])
+    if full_decode:
+      side.update(M_mega=M_mega, mega_window=bufs['mega_window'])
+    else:
+      nb = self.n_blocks
+      unions = bufs['unions'].fill_(self.num_items)
+      unions.scatter_(0, torch.where(staged['first'],
+                                     staged['mega'] * W + staged['ranks'],
+                                     nb * W), staged['items'])
+      side.update(unions=unions[:nb * W].view(nb, W), W=W, W0=W)
+    self._static[''] = side
+    self._epoch = {'key': key, 'sig': sig, 'state': dict(
+        side, perm=staged['perm'], signature=sig)}
+
+  def _fixed_buffers(self, full_decode):
+    """The buffers of fixed address that each epoch's tables of one
+    layout are copied into: ``indptr`` over the padded users, the columns
+    (raw for the triplet scatter, compressed for union steps, with each
+    mega's width) and the values unless they are all ones. The entries
+    past the CSR's stay 0 and cover every window: the largest mega nnz
+    any order can give, on the ladder."""
+    fixed = self._epoch_buffers.get(full_decode)
+    if fixed is None:
+      dev, nnz = self.device, self.matrix.nnz
+      top = int(np.sort(self._counts)[-self.mega:].sum())
+      size = nnz + _rung(min(top, nnz))
+      fixed = {'indptr': torch.zeros(self.n_pad + 1, dtype=torch.int64,
+                                     device=dev)}
+      fixed['raw' if full_decode else 'cols'] = torch.zeros(
+          size, dtype=torch.int64, device=dev)
+      if not self.binary:
+        fixed['vals'] = torch.zeros(size, device=dev)
+      if not full_decode:
+        fixed['widths'] = torch.zeros(self.n_blocks, dtype=torch.int64,
+                                      device=dev)
+      self._epoch_buffers[full_decode] = fixed
+    return fixed
+
+  def _placed(self, name):
+    """The placed 'users' epoch tables, which must be the layout that
+    holds ``name`` ('unions': the union steps', 'raw': the triplet
+    scatter's)."""
+    side = self._static.get('')
+    if side is None or name not in side:
+      raise RuntimeError("the 'users' epoch tables of this step are not "
+                         'placed: call epoch_state(epoch, full_decode)')
+    return side
+
+  def graph_signature(self):
+    """What a graph of static 'users' steps records beyond
+    :meth:`resident_tensors`: the placed epoch's width signature and the
+    addresses of that signature's buffers (None in 'blocks' mode)."""
+    if self._epoch is None:
+      return None
+    sig = self._epoch['sig']
+    return sig, tuple(t.data_ptr() for t in self._signatures[sig].values())
+
+  def _device_csr(self):
+    """The CSR's columns (and values unless they are all ones) on the
+    device, put there once."""
+    if self._csr is None:
+      arrays = {'cols': self.matrix.indices.astype(np.int64)}
+      if not self.binary:
+        arrays['vals'] = self.matrix.data.astype(np.float32)
+      self._csr = {k: torch.from_numpy(v).to(self.device)
+                   for k, v in arrays.items()}
+    return self._csr
 
   # -- item-union batches ---------------------------------------------------
 
@@ -805,19 +1080,14 @@ class DeviceDataSource:
   def prepare_union(self):
     """Put on the device, once, what the union batches read: the static
     'blocks' tables of each CSR side (:meth:`_static_unions`), or the CSR
-    columns ('users'); and the values unless they are all ones."""
-    if self.shuffle == 'blocks':
-      self._static_unions('')
-      if self._tg_tables is not None:
-        self._static_unions('tg_')
+    ('users': :meth:`_device_csr`; an epoch's tables come from
+    :meth:`epoch_state`)."""
+    if self.shuffle == 'users':
+      self._device_csr()
       return
-    if self._union is not None:
-      return
-    arrays = {'cols': self.matrix.indices.astype(np.int64)}
-    if not self.binary:
-      arrays['vals'] = self.matrix.data.astype(np.float32)
-    self._union = {k: torch.from_numpy(v).to(self.device)
-                   for k, v in arrays.items()}
+    self._static_unions('')
+    if self._tg_tables is not None:
+      self._static_unions('tg_')
 
   def static_widths(self):
     """``{'W': the union's static width, 'M': the slice window}`` of each
@@ -829,14 +1099,26 @@ class DeviceDataSource:
 
   def _block_of(self, perm, step):
     """``(b, lo)``: the block of step ``step``'s mega and its slice's first
-    user, as [1] device tensors, from the device order and step."""
+    user, as [1] device tensors, from the device order and step. Over the
+    'users' epoch tables the block is the mega and ``lo`` the slice's
+    first position in the epoch's order."""
     S, spm = self.mega, self.slices_per_mega
+    if self.shuffle == 'users':
+      return (torch.div(step, spm, rounding_mode='floor').view(1),
+              step.view(1) * self.batch_size)
     if spm == 1:
       b = perm.index_select(0, step.view(1))
       return b, b * S
     m = torch.div(step, spm, rounding_mode='floor')
     b = perm.index_select(0, m.view(1))
     return b, b * S + (step - m * spm) * self.batch_size
+
+  def _slice_users(self, perm, lo):
+    """The slice's user ids from its first user (or, over the 'users'
+    epoch tables, position) ``lo``."""
+    self._arange_offsets()
+    users = lo + self._offsets
+    return perm.index_select(0, users) if self.shuffle == 'users' else users
 
   def _window_rows(self, side, lo):
     """The slice's window of CSR positions ``idx`` (M of them, from the
@@ -876,10 +1158,12 @@ class DeviceDataSource:
     return union[:W], landed[:items.shape[0]], width_valid
 
   def union_batch(self, perm, step, rand_ids=None):
-    """Step ``step``'s item-union batch in 'blocks' mode, at static shapes
-    and from device tensors alone (``perm``: the epoch's block order on
-    the device; ``step``: a 0-dim int64 device tensor), so that a CUDA
-    graph can record it (the JAX ``build_batch`` blocks branch).
+    """Step ``step``'s item-union batch at static shapes and from device
+    tensors alone (``perm``: the epoch's block order, or in 'users' mode
+    its user order, on the device; ``step``: a 0-dim int64 device
+    tensor), so that a CUDA graph can record it: the JAX ``build_batch``
+    blocks branch, or in 'users' mode ``_build_from_epoch_tables`` over
+    the placed epoch tables (:meth:`epoch_state`).
 
     Returns ``{'items': [W] the mega's union, ascending, then the
     sentinel num_items; 'width_valid': its valid width, a 0-dim device
@@ -891,7 +1175,10 @@ class DeviceDataSource:
     With random negatives the R ids (``rand_ids``, else drawn from
     ``neg_gen`` where it stands) join the union. With a target matrix the
     same for the target side under ``tg_`` keys (``tg_width_valid``)."""
-    self.prepare_union()
+    if self.shuffle == 'users':
+      self._placed('unions')
+    else:
+      self.prepare_union()
     b, lo = self._block_of(perm, step)
     out = {}
     for prefix in ('', 'tg_') if self._tg_tables is not None else ('',):
@@ -908,7 +1195,7 @@ class DeviceDataSource:
                   prefix + 'width_valid': width_valid,
                   prefix + 'rows': rows, prefix + 'cols': cols,
                   prefix + 'vals': self._window_vals(side, idx, valid)})
-    users = lo + self._offsets
+    users = self._slice_users(perm, lo)
     n = self.num_users_total
     out.update(users=torch.clamp(users, max=n),
                num_users=torch.clamp(torch.sum(users < n), min=1).float())
@@ -948,7 +1235,7 @@ class DeviceDataSource:
       out['users'] = out['users'].cpu()
       out['num_users'] = float(out['num_users'])
       return out
-    arrays = self._union
+    arrays = self._device_csr()
     m, s = divmod(int(step_idx), self.slices_per_mega)
     mega_src, offsets = self._gather(self._mega_users(perm, m))
     items, inverse = torch.unique(arrays['cols'][mega_src], sorted=True,

@@ -71,13 +71,16 @@ steps (bitwise). The steps are those the JAX ``table_step`` scans: every
 'blocks' step of the on-device source (full decode, the dense and the
 sparse union steps over static-width unions, target training on the dual
 CSRs, random negatives, the triplet scatter, the full-catalog sparse
-step) and full decode off the resident slab. Such a step reads nothing
-from the host: its batch comes from device tables at a device step
-counter, its valid-user count and valid union width are device scalars,
-the optimizers' scalars and step counts live on the device, and its
-losses go to a device buffer fetched once an epoch. The 'users' union
-and scatter steps and the host loader's run eagerly (they read the
-host, as the JAX steps without epoch tables). ``train`` also writes checkpoints
+step), full decode off the resident slab, and the 'users' union, sparse
+and triplet-scatter steps where the source builds per-epoch tables (the
+JAX ``users_precompute`` gate: no random negatives, the tables within
+its budget). Such a step reads nothing from the host: its batch comes
+from device tables at a device step counter, its valid-user count and
+valid union width are device scalars, the optimizers' scalars and step
+counts live on the device, and its losses go to a device buffer fetched
+once an epoch. The other 'users' steps and the host loader's run
+eagerly: they read the host, and the JAX trainer runs them one step a
+call too. ``train`` also writes checkpoints
 every ``checkpoint_freq`` epochs, paints a progress bar and records a
 profiler window, as the JAX ``train`` does, and
 ``reset_training_state`` restarts a trainer in place.
@@ -119,13 +122,13 @@ nearest even (``init_from_model_file``), which then serves from bf16
 tables.
 
 Not ported yet (the JAX signature's arguments for them raise
-NotImplementedError where set): the orbax backend, meshes, and the
-capture of the 'users' union steps over the JAX ``users_precompute``
-epoch tables and of the host loader's steps. The JAX
+NotImplementedError where set): the orbax backend and meshes. The JAX
 package's count-certified top-k (``eval_topk='exact'``) is a TPU
 workaround and is not ported: every ``eval_topk`` mode is exact here.
 """
 
+import collections
+import gc
 import logging
 import os
 import queue
@@ -171,6 +174,8 @@ AUTO_STEPS_PER_CALL = 16
 #: real training steps run eagerly on the capture stream before the first
 #: graph of a configuration is recorded (lazy state, plans, workspaces)
 WARMUP_STEPS = 3
+#: width signatures of the 'users' epoch tables whose graphs are kept
+GRAPH_SETS = 4
 #: ``_train_iterator_key`` after a checkpoint load: the next ``train``
 #: continues the checkpoint's epoch at its recorded step
 _RESUMED = object()
@@ -191,7 +196,8 @@ class _DeviceLoop:
     self.global_step = torch.zeros((), dtype=torch.int64, device=dev)
     self.losses = torch.zeros(num_batches, dtype=torch.float32, device=dev)
     #: Philox offset one step's noise draws take (on the card), by layout
-    #: (True: the static union's, False: full decode's)
+    #: (full decode's; a static union's, by the width signature of the
+    #: source's 'users' tables)
     self.noise_inc = {}
 
 
@@ -246,7 +252,7 @@ class Recoder:
       and datasets.
     seed (int): seed of the init, permutation and dropout generators.
     mesh: the JAX package's device mesh; not ported yet (ROADMAP Queue 1
-      item 9): a value other than None raises NotImplementedError.
+      item 7): a value other than None raises NotImplementedError.
     eval_item_chunk (int, optional): score the catalog in contiguous
       slices of this many items in ``recommend`` / evaluation (and the
       validation loss of full-catalog batches) instead of one ``[B,
@@ -281,7 +287,7 @@ class Recoder:
                eval_compute_dtype=None, eval_topk='exact',
                opt_state_dtype=None, *, device=device_lib.DEFAULT):
     del use_cuda
-    _not_ported(mesh is not None, 'mesh', 'multi-GPU, Queue 1 item 9')
+    _not_ported(mesh is not None, 'mesh', 'multi-GPU, Queue 1 item 7')
     if optimizer_type not in KINDS:
       raise ValueError(f'Unknown optimizer kind {optimizer_type}')
     resolve_state_dtype(optimizer_type, opt_state_dtype)
@@ -330,10 +336,14 @@ class Recoder:
     self._lr = None  # this epoch's learning rate
     self._opt_config = None
     self._device_loop = None
-    #: captured steps: {steps a graph: (graph, tensors it keeps)}
+    #: captured steps: {steps a graph: (graph, tensors it keeps)}, of the
+    #: current width signature of the source's tables
     self._graphs = {}
     self._graph_sig = None
     self._warm_steps = 0
+    self._graph_widths = None  # that signature
+    #: the other signatures' (graphs, warm-up steps), oldest first
+    self._parked = collections.OrderedDict()
     self._warm_key = None  # (loop, path) of the warm-up steps
     self._capture_stream = None
     #: CUDA graphs captured over the trainer's life
@@ -793,22 +803,28 @@ class Recoder:
     batch.
 
     ``fused_steps_per_call`` ('auto' | int | None): consecutive steps a
-    host dispatch. 'auto' and None take 16 for every full-decode step and
-    in 'blocks' mode, else 1 (the JAX rule). On the card, with Adam, a
-    block of N >= 2 steps that read only the device (every 'blocks' step
-    of the on-device source -- full decode, union, sparse, target,
-    random-negative, triplet-scatter and full-catalog sparse -- and full
-    decode off the resident slab) is one captured CUDA graph, replayed
-    once per N steps; the epoch's last steps, fewer than N, run as
-    one-step graphs. The first steps of a configuration run eagerly on
-    the capture stream before its first capture (they are real steps; a
-    capture records and does not execute). The arithmetic is the same as
-    N = 1's, one eager dispatch a step: the trajectories are bitwise
-    equal. On the CPU the blocks run the same steps eagerly. The 'users'
-    union and scatter steps and the host loader's read the host and run
-    eagerly whatever N says, as do optimizers other than Adam (one log
-    line says so). A capture or replay that fails raises; nothing falls
-    back.
+    host dispatch. 'auto' and None take 16 for the steps that read only
+    the device, else 1 (the JAX ``table_step`` rule). Those steps are
+    every 'blocks' step of the on-device source (full decode, union,
+    sparse, target, random-negative, triplet-scatter and full-catalog
+    sparse), full decode off the resident slab, and with negative
+    sampling the 'users' steps of a source that builds per-epoch tables
+    (``DeviceDataSource.users_precompute``, the JAX gate: no random
+    negatives, two epochs' tables within its byte budget): union, sparse
+    and triplet-scatter steps over each epoch's tables, built on the
+    device at the epoch's start. On the card, with Adam, a block of N >=
+    2 of them is one captured CUDA graph, replayed once per N steps; the
+    epoch's last steps, fewer than N, run as one-step graphs. The first
+    steps of a configuration run eagerly on the capture stream before its
+    first capture (they are real steps; a capture records and does not
+    execute); each width signature of the 'users' tables keeps its own
+    graphs (the last ``GRAPH_SETS``), so an epoch whose signature was
+    seen replays without a capture. The arithmetic is the same as N =
+    1's, one eager dispatch a step: the trajectories are bitwise equal.
+    On the CPU the blocks run the same steps eagerly. The other 'users'
+    steps and the host loader's read the host and run eagerly whatever N
+    says, as do optimizers other than Adam (one log line says so). A
+    build, capture or replay that fails raises; nothing falls back.
 
     ``model_checkpoint_prefix`` / ``checkpoint_freq``: ``save_state``
     after every ``checkpoint_freq``-th epoch and after the last.
@@ -831,11 +847,11 @@ class Recoder:
 
     ``table_sharding`` (other than 'auto' or False: there is no mesh to
     shard over) is the JAX package's and not ported yet (ROADMAP Queue 1
-    item 9).
+    item 7).
     """
     _not_ported(table_sharding not in ('auto', False),
                 f'table_sharding={table_sharding!r}',
-                'multi-GPU, Queue 1 item 9')
+                'multi-GPU, Queue 1 item 7')
     if full_decode not in ('auto', True, False):
       raise ValueError(f"full_decode={full_decode!r}: expected 'auto', "
                        'True or False')
@@ -906,26 +922,31 @@ class Recoder:
                     eval_freq, metrics, eval_num_recommendations,
                     eval_num_users, eval_batch_size)
 
+    # the steps that read nothing on the host (the JAX ``table_step``):
+    # every 'blocks' step of the on-device source, full decode off the
+    # resident slab, and the 'users' steps over per-epoch tables
+    tables = (source is not None and shuffle == 'users' and negative_sampling
+              and source.users_precompute)
+    device_steps = source is not None and (
+        shuffle == 'blocks' or (fd and source.d_slab is not None) or tables)
     if fused_steps_per_call in (None, 'auto'):
-      spc = AUTO_STEPS_PER_CALL if fd or shuffle == 'blocks' else 1
+      spc = AUTO_STEPS_PER_CALL if device_steps else 1
     else:
       spc = max(1, int(fused_steps_per_call))
     if profile_dir is not None:
       spc = 1
-    # the steps that read nothing on the host (the JAX ``table_step``):
-    # every 'blocks' step of the on-device source, and full decode off the
-    # resident slab
-    device_steps = source is not None and (
-        shuffle == 'blocks' or (fd and source.d_slab is not None))
     on_card = self.device.type == 'cuda'
     captured = (device_steps and spc >= 2 and on_card
                 and self.optimizer_type == 'adam')
-    if spc >= 2 and not device_steps:
-      log.info("fused_steps_per_call=%d: the %s step runs eagerly, one "
-               "dispatch a step (it reads the host; 'users' mode is not "
-               'scanned in JAX either)', spc,
-               'host-loader' if loader is not None
-               else 'scatter' if fd else 'union')
+    if source is not None and negative_sampling and not device_steps:
+      log.info("the 'users' %s steps run eagerly at their exact widths, one "
+               'dispatch a step: the JAX source builds no epoch tables for '
+               'them (%s), and its trainer does not scan them',
+               'triplet-scatter' if fd else 'union', source.precompute_reason)
+    elif spc >= 2 and not device_steps:
+      log.info('fused_steps_per_call=%d: the host-loader step runs eagerly, '
+               'one dispatch a step (it reads the host; the JAX trainer '
+               'runs it one step a call too)', spc)
     elif spc >= 2 and not on_card:
       log.info('fused_steps_per_call=%d: off the card the steps of a '
                'dispatch run eagerly, one after another', spc)
@@ -955,7 +976,8 @@ class Recoder:
                          num_epochs, lr, lr_milestones, iters_per_epoch,
                          num_batches, spc, captured, profile_dir,
                          profile_steps, progress, model_checkpoint_prefix,
-                         checkpoint_freq, validation, shuffle)
+                         checkpoint_freq, validation, fd or device_steps,
+                         tables)
     finally:
       if self._progress_reporter is not None:
         self._progress_reporter.close()
@@ -967,7 +989,10 @@ class Recoder:
                     num_epochs, lr, lr_milestones, iters_per_epoch,
                     num_batches, spc, captured, profile_dir, profile_steps,
                     progress, model_checkpoint_prefix, checkpoint_freq,
-                    validation, shuffle):
+                    validation, device_loop, tables):
+    """The epochs of ``train``: ``device_loop``, the steps read the device
+    step counter (:meth:`_device_epoch`); ``tables``, they read the
+    source's 'users' epoch tables, built at each epoch's start."""
     for epoch in range(self.current_epoch, num_epochs + 1):
       self.current_epoch = epoch
       epoch_lr = self._lr = _multistep_lr(lr, lr_milestones, epoch)
@@ -984,6 +1009,8 @@ class Recoder:
           self._iters_consumed = 0
         if self._epoch_perm is None:
           self._epoch_perm = source.epoch_permutation(epoch)
+        if tables:  # (a no-op where the epoch's tables are placed)
+          source.epoch_state(epoch, full_decode=fd)
       n_steps = min(iters_per_epoch, num_batches - self._iters_consumed)
       # (the steps read their scalars off the device: no host read)
       if isinstance(self.optimizer, Bf16Adam):
@@ -1001,7 +1028,7 @@ class Recoder:
         reporter = self._progress_reporter
 
       t0 = time.time()
-      if fd or (source is not None and shuffle == 'blocks'):
+      if device_loop:
         losses = self._device_epoch(
             source, n_steps, num_batches, spc, captured,
             (not fd, sparse, negative_sampling), profile_dir, profile_steps,
@@ -1267,13 +1294,16 @@ class Recoder:
     on_card = self.device.type == 'cuda'
     if on_card:
       self._position_noise(loop, path[0])
-    if captured and ((self._graphs and self._graph_key(loop, path)
-                      != self._graph_sig)
-                     or self._warm_key != (loop, path)):
-      # (a tensor a graph recorded was replaced, or the warm-up steps
-      # were another path's)
-      self._drop_graphs()
-      self._warm_key = (loop, path)
+    if captured:
+      key, widths = self._graph_key(loop, path)
+      if ((self._graph_sig is not None and key != self._graph_sig)
+          or self._warm_key != (loop, path)):
+        # (a tensor a graph recorded was replaced, or the warm-up steps
+        # were another path's)
+        self._drop_graphs()
+        self._warm_key = (loop, path)
+      if widths != self._graph_widths:
+        self._switch_graphs(widths)
     first = self._iters_consumed
     dispatches = 0
     remaining = n_steps
@@ -1312,7 +1342,8 @@ class Recoder:
     (``fd_batch``) or a static union batch (``union_batch``), through the
     dense or the sparse step math (``path = (union, sparse,
     negative_sampling)``). Nothing is read on the host (but by the
-    'users' triplet scatter), so a graph can record it. ``reseed_step``
+    'users' triplet scatter outside the JAX gate), so a graph can record
+    it. ``reseed_step``
     (off the card): seed the dropout generator and the random negatives'
     for that global step first."""
     union, sparse, negative_sampling = path
@@ -1321,8 +1352,11 @@ class Recoder:
       self._dropout_gen.manual_seed((self.seed << 32) + reseed_step)
       if source.neg_gen is not None:
         source.seed_negatives(reseed_step)
-    batch = (source.union_batch if union else source.fd_batch)(loop.perm,
-                                                                loop.step)
+    if union:
+      batch = source.union_batch(loop.perm, loop.step)
+    else:  # (with negative sampling a 'users' source's epoch tables)
+      batch = source.fd_batch(loop.perm, loop.step, epoch_tables=(
+          negative_sampling and source.users_precompute))
     math = self._sparse_step_math if sparse else self._dense_step_math
     loss = math(batch, negative_sampling, reseed=False,
                 step=loop.global_step)
@@ -1333,16 +1367,19 @@ class Recoder:
   def _position_noise(self, loop, union):
     """Put the card's dropout generator where the global step puts it:
     seed ``seed << 32``, Philox offset ``global step x the offset one
-    step takes`` (in the step's layout: ``union`` or full decode), and
+    step takes`` (in the step's layout: full decode, or ``union`` at the
+    width of the placed tables), and
     the source's random-negative generator likewise
     (``position_negatives``). The steps then draw their masks and ids
     from the generators as they advance -- eager steps and graph replays
     alike (the graphs register them) -- and a training resumed from a
     checkpoint draws what the uninterrupted one would have drawn."""
-    if union not in loop.noise_inc:
-      loop.noise_inc[union] = self._noise_increment(loop, union)
+    # (a 'users' union step's width is its epoch's: probed per signature)
+    layout = (union, loop.source.graph_signature() if union else None)
+    if layout not in loop.noise_inc:
+      loop.noise_inc[layout] = self._noise_increment(loop, union)
     self._dropout_gen.manual_seed(self.seed << 32)
-    self._dropout_gen.set_offset(self._global_step * loop.noise_inc[union])
+    self._dropout_gen.set_offset(self._global_step * loop.noise_inc[layout])
     if loop.source.neg_gen is not None:
       loop.source.position_negatives(self._global_step)
 
@@ -1395,7 +1432,9 @@ class Recoder:
 
   def _graph_key(self, loop, path):
     """What a captured step baked in: every tensor it reads or writes in
-    place (by address) and the choices its Python made."""
+    place (by address) and the choices its Python made; and apart, the
+    width signature of the source's 'users' tables with the addresses of
+    that signature's buffers (``DeviceDataSource.graph_signature``)."""
     tensors = list(self.model.params().values())
     for state in self.optimizer.state.values():
       tensors += [v for v in state.values() if torch.is_tensor(v)]
@@ -1409,17 +1448,18 @@ class Recoder:
       tensors += [self.sparse_adam._table, self.sparse_adam._base]
     tensors += loop.source.resident_tensors()
     tensors += [loop.perm, loop.step, loop.global_step, loop.losses]
-    return (id(self.optimizer), id(self.sparse_adam), id(loop), path,
-            id(self.loss), self._dropout_gen, loop.source.neg_gen,
-            tuple(t.data_ptr() for t in tensors))
+    return ((id(self.optimizer), id(self.sparse_adam), id(loop), path,
+             id(self.loss), self._dropout_gen, loop.source.neg_gen,
+             tuple(t.data_ptr() for t in tensors)),
+            loop.source.graph_signature())
 
   def _graph(self, block, loop, path):
     """The graph of ``block`` consecutive steps, captured at first use on
     the capture stream (after the warm-up)."""
     entry = self._graphs.get(block)
     if entry is None:
-      if not self._graphs:
-        self._graph_sig = self._graph_key(loop, path)
+      if self._graph_sig is None:
+        self._graph_sig = self._graph_key(loop, path)[0]
       bf16_adam = isinstance(self.optimizer, Bf16Adam)
       if bf16_adam:
         self.optimizer.begin_capture(block)
@@ -1428,11 +1468,20 @@ class Recoder:
       if loop.source.neg_gen is not None:
         graph.register_generator_state(loop.source.neg_gen)
       # ('thread_local': the progress thread may wait on an event
-      # meanwhile; the capture checks this thread's calls)
-      with torch.cuda.graph(graph, stream=self._side_stream(),
-                            capture_error_mode='thread_local'):
-        for _ in range(block):
-          self._device_step(loop, path)
+      # meanwhile; the capture checks this thread's calls. No cyclic
+      # collection meanwhile: a dead cycle that holds CUDA graphs -- a
+      # dropped trainer's -- would destroy them inside the capture, which
+      # invalidates it)
+      collecting = gc.isenabled()
+      gc.disable()
+      try:
+        with torch.cuda.graph(graph, stream=self._side_stream(),
+                              capture_error_mode='thread_local'):
+          for _ in range(block):
+            self._device_step(loop, path)
+      finally:
+        if collecting:
+          gc.enable()
       entry = self._graphs[block] = (
           graph, self.optimizer.end_capture() if bf16_adam else None)
       self.captures += 1
@@ -1448,6 +1497,21 @@ class Recoder:
     self._graph_sig = None
     self._warm_steps = 0
     self._warm_key = None
+    self._graph_widths = None
+    self._parked.clear()
+
+  def _switch_graphs(self, widths):
+    """Make ``widths``' graphs the current ones (an epoch of 'users'
+    tables of another width signature): the current set is parked, a
+    parked one for ``widths`` taken back -- its steps replay without a
+    capture -- or a new set started, which warms up and captures. The
+    last ``GRAPH_SETS`` sets are kept."""
+    if self._graphs or self._warm_steps:
+      self._parked[self._graph_widths] = (self._graphs, self._warm_steps)
+    self._graphs, self._warm_steps = self._parked.pop(widths, ({}, 0))
+    self._graph_widths = widths
+    while len(self._parked) >= GRAPH_SETS:
+      self._parked.popitem(last=False)
 
   # -- host-read epochs: one eager dispatch a step --------------------------
 
@@ -1742,12 +1806,12 @@ class Recoder:
     """Write ``{prefix}_epoch_{N}.model`` in the JAX package's npz
     format; returns its path. The write is synchronous whatever
     ``async_save`` says (it completes before this returns). The JAX
-    package's 'orbax' backend is not ported (ROADMAP Queue 1 item 8)."""
+    package's 'orbax' backend is not ported (ROADMAP Queue 1 item 5)."""
     del async_save
     if backend == 'orbax':
       raise NotImplementedError("save_state(backend='orbax') is not ported "
                                 'to the PyTorch package yet (ROADMAP Queue '
-                                "1 item 8); use backend='npz'")
+                                "1 item 5); use backend='npz'")
     if backend != 'npz':
       raise ValueError(f'unknown checkpoint backend {backend!r}')
     checkpoint_file = (f'{model_checkpoint_prefix}_epoch_'

@@ -105,7 +105,7 @@ class EASE:
     if mesh is not None:
       raise NotImplementedError(
           'EASE fit(mesh=...) is not ported to the PyTorch package yet '
-          '(multi-GPU, ROADMAP Queue 1 item 9); fit on one device')
+          '(multi-GPU, ROADMAP Queue 1 item 7); fit on one device')
     if solve == 'newton':
       raise NotImplementedError(
           "EASE solve='newton' is not ported: the Newton-Schulz inverse "

@@ -41,7 +41,11 @@ bf16-parameter steps bitwise eager, and bf16-parameter training on the
 card against the CPU (dense, union, sparse; autoencoder and MF); the
 captured 'blocks' union, sparse, target, random-negative, full-catalog
 sparse and triplet-scatter steps bitwise eager (and a resume), with the
-row scatter and the wgmma decode-loss route inside the replays.
+row scatter and the wgmma decode-loss route inside the replays; the
+captured 'users' union, sparse and triplet-scatter steps over each
+epoch's tables bitwise eager across an epoch whose width signature
+changes (and a resume), and no cyclic garbage collection inside a
+capture.
 
 Every test skips where ``torch.cuda.is_available()`` is False. The file
 imports neither jax nor the JAX package, so it also runs on a machine
@@ -1623,13 +1627,13 @@ UNION_CAPTURE_CASES = {
 
 
 def _union_capture_run(cuda, case, spc, num_epochs=3, resume_from=None,
-                       **extra):
+                       cases=UNION_CAPTURE_CASES, data=None, **extra):
   from recoder_tpu_torch.data import RecommendationDataset
   from recoder_tpu_torch.model import Recoder
   from recoder_tpu_torch.models import DynamicAutoencoder, MatrixFactorization
-  model_kw, kw = UNION_CAPTURE_CASES[case]
+  model_kw, kw = cases[case]
   kw = dict(kw)
-  data = _capture_data()
+  data = _capture_data() if data is None else data
   if kw.pop('target', False):
     rng = np.random.default_rng(5)
     data = RecommendationDataset(data.interactions_matrix, sp.csr_matrix(
@@ -1721,3 +1725,93 @@ def test_row_scatter_and_wgmma_run_inside_the_replays(cuda):
       if got == want:
         break
     assert got == want, (case, got)
+
+
+# -- captured 'users' steps over the epoch tables ------------------------------
+
+#: case -> (model, train arguments): 'users' steps inside the JAX gate
+USERS_CAPTURE_CASES = {
+    'dense union, bf16': (dict(compute_dtype='bfloat16', hidden_layers=[200]),
+                          dict(full_decode=False)),
+    'sparse union': (dict(sparse=True), {}),
+    'triplet scatter': ({}, dict(full_decode=True, slab_cache=False,
+                                 num_sampling_users=64)),
+    'sparse MF': ('mf', {}),
+}
+
+
+@pytest.mark.parametrize('case', list(USERS_CAPTURE_CASES))
+def test_captured_users_steps_are_bitwise_eager(cuda, case, tmp_path):
+  """'users' steps over each epoch's tables, through the first epoch
+  boundary where the tables' width signature changes (22 steps an
+  epoch, noise 0.5, an lr milestone): 16 steps a graph against one eager
+  step a dispatch -- losses, parameters, moments, the sparse tables'
+  moments and step counts bit for bit; each signature captures its own
+  graphs. Then a resume from a checkpoint 10 steps into epoch 1 ends
+  bitwise where the uninterrupted run does."""
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.data.device_pipeline import DeviceDataSource
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder, MatrixFactorization
+  model_kw, kw = USERS_CAPTURE_CASES[case]
+  # (700 users x 600 items at 5%: the slice window's rung moves between
+  # epochs)
+  rng = np.random.default_rng(2)
+  m = sp.csr_matrix((rng.random((700, 600)) < 0.05).astype(np.float32))
+  fd = kw.get('full_decode') is True
+  probe = DeviceDataSource(m, 32, kw.get('num_sampling_users', 32),
+                           int(m.indices.max()) + 1, shuffle='users',
+                           seed=42, device='cpu')
+  sigs = [probe.epoch_state(e, fd)['signature'] for e in range(1, 9)]
+  changes = [e for e in range(1, 8) if sigs[e - 1] != sigs[e]]
+  assert changes, sigs
+  epochs = changes[0] + 1
+  run = dict(cases=USERS_CAPTURE_CASES, shuffle='users', num_epochs=epochs,
+             data=RecommendationDataset(m))
+  eager = _union_capture_run(cuda, case, 1, **run)
+  captured = _union_capture_run(cuda, case, 16, **run)
+  assert eager.last_epoch_dispatch == 'eager'
+  assert captured.last_epoch_dispatch == 'captured, 16 steps a graph'
+  # (a graph and 6 singles, or 3 warm-up steps, a graph and 3 singles)
+  assert captured.last_epoch_dispatches == 7
+  # (a graph of 16 and one of 1 a signature)
+  assert captured.captures == 2 * len(set(sigs[:epochs]))
+  assert captured.fused_data_source._epoch['sig'] == sigs[epochs - 1]
+  _assert_bitwise_trainers(captured, eager)
+  _assert_bitwise_sparse_states(captured, eager)
+  _union_capture_run(cuda, case, 16, **dict(
+      run, num_epochs=1, iters_per_epoch=10,
+      model_checkpoint_prefix=str(tmp_path / 'c')))
+  model = (MatrixFactorization(16, sparse=True) if model_kw == 'mf'
+           else DynamicAutoencoder(sparse=model_kw.get('sparse', False)))
+  resumed = Recoder(model, optimizer_type='adam', device=cuda,
+                    opt_state_dtype=captured.opt_state_dtype)
+  resumed.init_from_model_file(str(tmp_path / 'c_epoch_1.model'))
+  _union_capture_run(cuda, case, 16, resume_from=resumed, **run)
+  _assert_bitwise_trainers(resumed, captured)
+  _assert_bitwise_sparse_states(resumed, captured)
+
+
+def test_no_cyclic_collection_inside_a_capture(cuda, monkeypatch):
+  """The cyclic GC is off while a graph records: collecting a dead cycle
+  that holds CUDA graphs (a dropped trainer's) inside a capture destroys
+  them there, which invalidates the capture (CUDA error 901)."""
+  import gc
+  from recoder_tpu_torch import model as model_lib
+  dead = _union_capture_run(cuda, 'sparse union', 16, num_epochs=1,
+                            cases=USERS_CAPTURE_CASES, shuffle='users')
+  dead.cycle = dead  # (only the cyclic GC frees it)
+  del dead
+  seen = []
+  step = model_lib.Recoder._device_step
+
+  def recording(self, loop, path, reseed_step=None):
+    if torch.cuda.is_current_stream_capturing():
+      seen.append(gc.isenabled())
+    return step(self, loop, path, reseed_step)
+
+  monkeypatch.setattr(model_lib.Recoder, '_device_step', recording)
+  tr = _union_capture_run(cuda, 'sparse union', 16, num_epochs=1,
+                          cases=USERS_CAPTURE_CASES, shuffle='users')
+  assert tr.captures == 2 and seen == [False] * 17
+  assert gc.isenabled()

@@ -129,7 +129,7 @@ def _matrix():
 
 
 @pytest.mark.parametrize('kw,where', [
-    (dict(mesh=object()), 'Queue 1 item 9'),
+    (dict(mesh=object()), 'Queue 1 item 7'),
     (dict(eval_item_chunk=1024), 'Queue 1 item 5'),
     (dict(eval_topk='approx'), 'Queue 1 item 5')])
 def test_queue_one_arguments_of_the_trainer_raise(kw, where):
@@ -144,7 +144,7 @@ def test_queue_one_arguments_of_the_trainer_raise(kw, where):
 
 @pytest.mark.parametrize('kw,where', [
     (dict(num_random_negatives=4), None),  # ported: it trains
-    (dict(table_sharding=True), 'Queue 1 item 9')])
+    (dict(table_sharding=True), 'Queue 1 item 7')])
 def test_queue_one_arguments_of_train_raise(kw, where):
   tr = model.Recoder(models.DynamicAutoencoder([4]), optimizer_type='adam',
                      device='cpu')
@@ -167,7 +167,7 @@ def test_save_state_backends(tmp_path):
   path = tr.save_state(str(tmp_path / 'a'), backend='npz', async_save=True)
   back = model.Recoder(models.DynamicAutoencoder(), device='cpu')
   back.init_from_model_file(path)
-  with pytest.raises(NotImplementedError, match='Queue 1 item 8'):
+  with pytest.raises(NotImplementedError, match='Queue 1 item 5'):
     tr.save_state(str(tmp_path / 'b'), backend='orbax')
   with pytest.raises(ValueError, match='backend'):
     tr.save_state(str(tmp_path / 'c'), backend='zarr')
