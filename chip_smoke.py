@@ -351,6 +351,34 @@ Phases, each of which raises on failure:
                 epoch's width signature, captures and seconds, the ms of
                 each capture; the ms of an epoch's table build.
 
+ 31. serving surface -- the port's CLI, indexes and server on the
+                ML-20M-shaped CSR (run after phase 28 (a), which reuses
+                it): (a) the vae-cf split (preprocessing.
+                strong_generalization_split, 10,000 users held out each
+                for validation and test) into CSVs; (b) `cli train`
+                in-process (main() and sys.argv) with bench.py's ML-20M
+                default numerics (DynamicAutoencoder[200], tanh, noise
+                0.5, bf16 compute and moments, 'mse' confidence 3, Adam lr
+                1e-3, weight decay 2e-5, batch 500, negative sampling,
+                'blocks'), 1 epoch at the full width, captured: the
+                bf16 decode-loss pair and Adam counted in its eager
+                warm-up steps; (c) `cli evaluate`: Recall@20/50 and
+                NDCG@100 above a random recommender's; (d)
+                scripts/torch_build_embeddings.py writes an ANN (10
+                trees) and a brute-force index of the decoder table: the
+                brute-force index on the card against its CPU twin (1,000
+                queries x 100 ids, ranks swapped only at cosines within
+                1e-6), the ANN's recall@10 against it >= 0.9 at search_k
+                = 20% of the catalog x the trees, brute-force query times
+                at m in {1, 20, 500}; (e) make_server on port 0:
+                /healthz, then 200 one-user requests (k = 100, histories
+                from the validation fold-in rows, 10 warm-up requests
+                before) to each route, each answer equal to
+                Recoder.recommend / SimilarityRecommender called directly,
+                p50/p95/p99; (f) `cli recommend` over every training user
+                (k = 10), timed. Each number is printed beside the card's
+                name and power limit.
+
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
 Without CUDA, or without the rest of the repository, it exits non-zero
@@ -4660,6 +4688,335 @@ def phase_users_capture_msd_big(train_m, device='cuda'):
                              BF16_PATHS_RTOL)
 
 
+# -- phase 31 --------------------------------------------------------------
+
+#: phase 31's CLI config: bench.py's ML-20M default (bf16 compute and
+#: moments, 'mse' confidence 3, Adam, batch 500, negative sampling,
+#: 'blocks'), one epoch
+SERVE_MODEL = {'type': 'autoencoder', 'hidden_layers': [200],
+               'activation_type': 'tanh', 'noise_prob': 0.5,
+               'compute_dtype': 'bfloat16'}
+SERVE_TRAINER = {'optimizer_type': 'adam', 'loss': 'mse',
+                 'loss_params': {'confidence': 3},
+                 'opt_state_dtype': 'bfloat16'}
+SERVE_TRAIN = dict(ML20M_TRAIN, num_epochs=1)
+#: the split's held-out users (each of validation and test)
+SERVE_HELD_OUT = 10000
+SERVE_REQUESTS = 200
+SERVE_WARMUP = 10
+SERVE_K = 100
+SERVE_NEIGHBORS = 20
+ANN_TREES = 10
+#: the ANN's recall@10 against brute force at search_k = this share of
+#: the catalog x n_trees (tests/test_embedding.py's test_ann_recall_vs_exact)
+ANN_SEARCH_SHARE = 0.2
+ANN_RECALL = 0.9
+#: brute-force ids on the card against the CPU twin: ranks may swap
+#: where two cosines are this close
+NEAR_TIE = 1e-6
+
+
+def run_cli(argv):
+  """``python -m recoder_tpu_torch.cli <argv>`` in this process (so that
+  the launch counters see it), its CSV loads timed: ``(standard output
+  (echoed), seconds in cli._load_datasets, what its last call
+  returned)``."""
+  import contextlib
+  import io
+
+  from recoder_tpu_torch import cli
+  loads, load = [], cli._load_datasets
+
+  def timed_load(*args, **kwargs):
+    t0 = time.time()
+    loaded = load(*args, **kwargs)
+    loads.append((time.time() - t0, loaded))
+    return loaded
+
+  old, out = sys.argv, io.StringIO()
+  sys.argv = ['recoder_tpu_torch'] + argv
+  try:
+    with mock.patch.object(cli, '_load_datasets', timed_load), \
+        contextlib.redirect_stdout(out):
+      cli.main()
+  finally:
+    sys.argv = old
+  for line in out.getvalue().splitlines():
+    say(f'  | {line}')
+  return out.getvalue(), sum(s for s, _ in loads), loads[-1][1]
+
+
+def build_index(ckpt, path, index_type, device='cuda'):
+  """scripts/torch_build_embeddings.py (on the card); returns the index."""
+  import runpy
+  script = runpy.run_path(os.path.join(HERE, 'scripts',
+                                       'torch_build_embeddings.py'))
+  old = sys.argv
+  sys.argv = ['torch_build_embeddings.py', '--model-file', ckpt,
+              '--index-file', path, '--index-type', index_type,
+              '--n-trees', str(ANN_TREES), '--device', device]
+  try:
+    return script['main']()
+  finally:
+    sys.argv = old
+
+
+class RandomRecommender:
+  """k unseen items per user drawn uniformly (numpy, seeded): the floor
+  that a trained model's metrics must clear."""
+
+  def __init__(self, num_items, k, seed=0):
+    self.num_items, self.k = num_items, k
+    self.rng = np.random.default_rng(seed)
+
+  def recommend(self, users_hist):
+    m = users_hist.interactions_matrix.tocsr()
+    scores = self.rng.random((m.shape[0], self.num_items))
+    scores[m.nonzero()] = -1.0
+    return list(np.argpartition(-scores, self.k, axis=1)[:, :self.k])
+
+
+def brute_force_agrees(got, want, table, queries):
+  """Ids of the card's brute-force index against its CPU twin: at each
+  rank the same id, or two ids whose float64 cosines to the query are
+  within NEAR_TIE; returns the count of swapped ranks."""
+  unit = table.astype(np.float64)
+  unit /= np.linalg.norm(unit, axis=1, keepdims=True)
+  cosines = unit[queries] @ unit.T
+  swapped = 0
+  for g, w, q, cos in zip(got, want, queries, cosines):
+    if g.shape != w.shape:
+      raise AssertionError(f'query {q}: {g.shape} ids vs {w.shape}')
+    differ = g != w
+    gap = np.abs(cos[g[differ]] - cos[w[differ]])
+    if gap.size and gap.max() > NEAR_TIE:
+      raise AssertionError(f'brute-force ids of item {q} differ on the card '
+                           f'from the CPU beyond a near-tie: {gap.max():.3g}')
+    swapped += int(differ.sum())
+  return swapped
+
+
+def phase_serving(matrix, card):
+  """Phase 31 in a temporary directory (:func:`serving_surface`)."""
+  with tempfile.TemporaryDirectory() as work:
+    return serving_surface(matrix, card, work)
+
+
+def serving_surface(matrix, card, work, device='cuda',
+                    held_out=SERVE_HELD_OUT):
+  """The serving surface end to end at the ML-20M shape: (a) the split,
+  (b) ``cli train``, (c) ``cli evaluate`` against a random recommender,
+  (d) the ANN and brute-force indexes of the trained decoder table, (e)
+  ``make_server``'s two routes against direct calls, timed, (f) ``cli
+  recommend`` over every training user, timed. Returns the launch
+  counts of (b) and the numbers it printed."""
+  import threading
+  import urllib.request
+
+  import pandas as pd
+  import torch
+  from scipy.sparse import csr_matrix
+
+  from recoder_tpu_torch import cli
+  from recoder_tpu_torch.data import UsersInteractions
+  from recoder_tpu_torch.embedding import (AnnEmbeddingsIndex,
+                                           BruteForceEmbeddingsIndex)
+  from recoder_tpu_torch.metrics import RecommenderEvaluator
+  from recoder_tpu_torch.preprocessing import strong_generalization_split
+  from recoder_tpu_torch.recommender import SimilarityRecommender
+  from tools.torch_bench_serving import percentiles, time_route
+  out = {}
+  sync = torch.cuda.synchronize if device == 'cuda' else lambda: None
+
+  # (a) the vae-cf split of the ML-20M-shaped interactions
+  t0 = time.time()
+  coo = matrix.tocoo()
+  frame = pd.DataFrame({'userId': coo.row.astype(np.int64),
+                        'movieId': coo.col.astype(np.int64)})
+  data = os.path.join(work, 'pro_sg')
+  unique_sid, _ = strong_generalization_split(
+      frame, data, n_heldout_users=held_out)
+  out['split_s'] = time.time() - t0
+  say(f'  (a) split {matrix.nnz:,} interactions of {matrix.shape[0]:,} users '
+      f'({held_out:,} held out each for validation and test, '
+      f'{len(unique_sid):,} items): {out["split_s"]:.3f} s ({card})')
+
+  cfg = {'data': {'train': os.path.join(data, 'train.csv'),
+                  'val_tr': os.path.join(data, 'validation_tr.csv'),
+                  'val_te': os.path.join(data, 'validation_te.csv')},
+         'model': SERVE_MODEL,
+         'trainer': dict(SERVE_TRAINER, device=device),
+         'train': dict(SERVE_TRAIN,
+                       model_checkpoint_prefix=os.path.join(work, 'ck'))}
+  cfg_path = os.path.join(work, 'run.json')
+  with open(cfg_path, 'w') as f:
+    json.dump(cfg, f)
+
+  # (b) cli train, with the launch counters from 0
+  sync()
+  reset_launches()
+  t0 = time.time()
+  _, out['train_load_s'], (train_ds, val_ds, item_map, _) = run_cli(
+      ['train', '--config', cfg_path])
+  sync()
+  out['train_s'] = time.time() - t0
+  launches = read_launches()
+  ckpt = os.path.join(work, 'ck_epoch_1.model')
+  used = {k: v for k, v in launches.items() if v}
+  say(f'  (b) cli train, 1 epoch (captured, the counters see the eager '
+      f'warm-up steps): {out["train_s"]:.3f} s, {out["train_load_s"]:.3f} s '
+      f'of it the CSVs\' load; kernel launches {used} ({card})')
+  fwd = sum(launches[k] for k in ('fused_decode_loss_fwd_bf16',
+                                  'fused_decode_loss_fwd_bf16_wgmma'))
+  bwd = sum(launches[k] for k in ('fused_decode_loss_bwd_bf16',
+                                  'fused_decode_loss_bwd_bf16_wgmma'))
+  if not os.path.exists(ckpt) or device == 'cuda' and not (
+      fwd and bwd and launches['adam_bf16']):
+    raise AssertionError(f'cli train did not launch the decode-loss and Adam '
+                         f'kernels, or wrote no checkpoint: {launches}')
+
+  # (c) cli evaluate against a random recommender's metrics
+  t0 = time.time()
+  text, out['evaluate_load_s'], _ = run_cli(
+      ['evaluate', '--config', cfg_path, '--model-file', ckpt])
+  out['evaluate_s'] = time.time() - t0
+  trained = {}
+  for line in text.splitlines():
+    name, _, value = line.rpartition(': ')
+    if '@' in name:
+      trained[name] = float(value)
+  specs = cli.parse_metrics(['recall@20', 'recall@50', 'ndcg@100'])
+  rand = RecommenderEvaluator(RandomRecommender(len(item_map), 100),
+                              specs).evaluate(val_ds, batch_size=500)
+  rand = {str(m): float(np.mean(v)) for m, v in rand.items()}
+  say(f'  (c) cli evaluate {out["evaluate_s"]:.3f} s '
+      f'({out["evaluate_load_s"]:.3f} s the CSVs\' load): '
+      + ', '.join(f'{k} {trained[k]:.4f} (random {rand[k]:.4f})'
+                  for k in rand) + f' ({card})')
+  if set(trained) != set(rand) or any(trained[k] <= rand[k] for k in rand):
+    raise AssertionError(f'evaluate {trained} not above random {rand}')
+  out['metrics'], out['random_metrics'] = trained, rand
+
+  # (d) the indexes of the [num_items x 200] decoder table
+  ann_path = os.path.join(work, 'items.ann')
+  brute_path = os.path.join(work, 'items.brute')
+  t0 = time.time()
+  build_index(ckpt, ann_path, 'ann', device)
+  out['ann_build_s'] = time.time() - t0
+  t0 = time.time()
+  brute = build_index(ckpt, brute_path, 'brute', device)
+  out['brute_build_s'] = time.time() - t0
+  table = brute.embeddings
+  twin = BruteForceEmbeddingsIndex(device='cpu')
+  twin.load(brute_path)
+  rng = np.random.default_rng(31)
+  queries = rng.choice(table.shape[0], min(1000, table.shape[0]),
+                       replace=False)
+  swapped = brute_force_agrees(brute.get_nns_by_ids(queries, 100),
+                               twin.get_nns_by_ids(queries, 100), table,
+                               queries)
+  n_items = table.shape[0]
+  search_k = int(ANN_SEARCH_SHARE * n_items * ANN_TREES)
+  ann = AnnEmbeddingsIndex(search_k=search_k)
+  ann.load(ann_path)
+  exact = brute.get_nns_by_ids(queries, 10)
+  approx = ann.get_nns_by_ids(queries, 10)
+  recall = float(np.mean([len(set(a) & set(e)) / 10
+                          for a, e in zip(approx, exact)]))
+  out['ann_recall_at_10'] = recall
+  say(f'  (d) indexes of the [{n_items:,} x {table.shape[1]}] table: ANN '
+      f'({ANN_TREES} trees) built in {out["ann_build_s"]:.3f} s, brute force '
+      f'{out["brute_build_s"]:.3f} s (each with the checkpoint load); brute '
+      f'force on the card vs the CPU: {len(queries):,} queries x 100 ids, '
+      f'{swapped} ranks swapped at near-ties; ANN recall@10 {recall:.4f} at '
+      f'search_k '
+      f'{search_k:,} ({card})')
+  if recall < ANN_RECALL:
+    raise AssertionError(f'ANN recall@10 {recall} < {ANN_RECALL}')
+  brute_ms = {}
+  for m in (1, 20, 500):
+    ids = queries[:m]
+    brute.get_nns_by_ids(ids, SERVE_K)
+    times = []
+    for _ in range(10):
+      sync()
+      t0 = time.perf_counter()
+      brute.get_nns_by_ids(ids, SERVE_K)
+      times.append((time.perf_counter() - t0) * 1e3)
+    brute_ms[m] = statistics.median(times)
+  out['brute_query_ms'] = brute_ms
+  say('  (d) brute-force get_nns_by_ids on the card, n = 100, the host read '
+      'and id map included (median of 10): '
+      + ', '.join(f'[{m}, {n_items:,} x {table.shape[1]}] {ms:.3f} ms'
+                  for m, ms in brute_ms.items()) + f' ({card})')
+
+  # (e) serve: both routes against direct calls, timed
+  serve_cfg = dict(cfg, serve={'ann_index': ann_path,
+                               'num_neighbors': SERVE_NEIGHBORS})
+  server = cli.make_server(serve_cfg, ckpt, port=0)
+  thread = threading.Thread(target=server.serve_forever, daemon=True)
+  thread.start()
+  try:
+    base = f'http://127.0.0.1:{server.server_address[1]}'
+    with urllib.request.urlopen(base + '/healthz', timeout=30) as r:
+      health = json.loads(r.read())
+    if health != {'status': 'ok', 'num_items': n_items}:
+      raise AssertionError(f'/healthz answered {health}')
+    fold_in = val_ds.interactions_matrix
+    users = [u for u in range(fold_in.shape[0])
+             if fold_in.indptr[u + 1] > fold_in.indptr[u]]
+    users = users[:SERVE_WARMUP + SERVE_REQUESTS]
+    histories = [fold_in.indices[fold_in.indptr[u]:fold_in.indptr[u + 1]]
+                 for u in users]
+    bodies = [json.dumps({'interactions': [[int(i) for i in h]],
+                          'k': SERVE_K}).encode() for h in histories]
+    scorer = cli._load_scorer(serve_cfg, ckpt)
+    served = AnnEmbeddingsIndex()
+    served.load(ann_path)
+    similar = SimilarityRecommender(served, SERVE_K, n=SERVE_NEIGHBORS)
+    latencies = {}
+    for route, direct in (('/recommend', lambda ui: scorer.recommend(
+        ui, SERVE_K)), ('/recommend_similar', similar.recommend)):
+      time_route(base, route, bodies[:SERVE_WARMUP])
+      lat, answers = time_route(base, route, bodies[SERVE_WARMUP:])
+      for h, got in zip(histories[SERVE_WARMUP:], answers):
+        ui = UsersInteractions(np.zeros(1, np.int64), csr_matrix(
+            (np.ones(len(h), np.float32), (np.zeros(len(h), np.int64), h)),
+            shape=(1, n_items)))
+        want = [[int(i) for i in r] for r in direct(ui)]
+        if got != want:
+          raise AssertionError(f'{route} answered otherwise than the direct '
+                               f'call: {got[0][:5]} vs {want[0][:5]}')
+      latencies[route] = percentiles(lat)
+      s = latencies[route]
+      say(f'  (e) {route}: {len(lat)} one-user requests, k = {SERVE_K}, each '
+          f'equal to the direct call; p50 {s["p50_ms"]:.3f} ms, p95 '
+          f'{s["p95_ms"]:.3f} ms, p99 {s["p99_ms"]:.3f} ms, mean '
+          f'{s["mean_ms"]:.3f} ms ({card})')
+    out['latency'] = latencies
+  finally:
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=30)
+
+  # (f) cli recommend over every training user
+  recs = os.path.join(work, 'recs.csv')
+  t0 = time.time()
+  _, out['recommend_load_s'], _ = run_cli(
+      ['recommend', '--config', cfg_path, '--model-file', ckpt, '--out', recs])
+  out['recommend_s'] = time.time() - t0
+  with open(recs) as f:
+    lines = sum(1 for _ in f) - 1
+  n_users = train_ds.interactions_matrix.shape[0]
+  say(f'  (f) cli recommend, k = 10, {n_users:,} users: '
+      f'{out["recommend_s"]:.3f} s, {out["recommend_load_s"]:.3f} s of it the '
+      f'CSV\'s load ({lines:,} rows) ({card})')
+  if lines != 10 * n_users:
+    raise AssertionError(f'cli recommend wrote {lines} rows for {n_users} '
+                         'users at k = 10')
+  return launches, out
+
+
 def run(name, fn, *args, **kwargs):
   say(f'== phase {name}')
   t0 = time.time()
@@ -4804,6 +5161,8 @@ def main():
                         phase_storage_kernels)
   storage_per_step, storage_cells_out = run(
       '28 bf16 storage (a): ML-20M', phase_storage_ml20m, matrix, train_m)
+  serving_launches, serving = run('31 serving surface', phase_serving,
+                                  matrix, card)
   del matrix
   storage_quality = run('28 bf16 storage (d): fixture gate', phase_quality,
                         train_m, val_m, compute_dtype=BF16,
@@ -4962,7 +5321,10 @@ def main():
               'union_capture_launches_per_step': union_record.get(name),
               # and of the captured 'users' steps over epoch tables
               # (phase 30)
-              'users_capture_launches_per_step': users_record.get(name)}
+              'users_capture_launches_per_step': users_record.get(name),
+              # launches of phase 31's `cli train` (captured: the eager
+              # warm-up steps)
+              'cli_train_launches': serving_launches.get(name, 0)}
              for name, (err, ms, plain_ms, library_ms, (bound_ms, by),
                         per_step) in measured.items()]
   # the packed kernel's mask-only launch (phase 17), beside its bound
@@ -5090,6 +5452,16 @@ def main():
                   f'{sum(r["captures"] for r in o["epochs"])} graphs; table '
                   f'build {min(o["build_ms"]):.2f} ms)'
                   for name, o in users_cells.items())
+      + f'; serving surface (phase 31): split {serving["split_s"]:.3f} s, cli '
+      f'train {serving["train_s"]:.3f} s, evaluate '
+      + ', '.join(f'{k} {v:.4f}' for k, v in serving['metrics'].items())
+      + f', ANN recall@10 {serving["ann_recall_at_10"]:.4f}, brute force '
+      + ', '.join(f'm={m} {ms:.3f} ms' for m, ms in
+                  serving['brute_query_ms'].items())
+      + ', ' + ', '.join(f'{route} p50 {s["p50_ms"]:.3f} p95 '
+                         f'{s["p95_ms"]:.3f} p99 {s["p99_ms"]:.3f} ms'
+                         for route, s in serving['latency'].items())
+      + f', cli recommend {serving["recommend_s"]:.3f} s'
       + f'; card {card}')
   say(json.dumps({'kernels': kernels}))
   say(card)

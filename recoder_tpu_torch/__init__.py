@@ -18,8 +18,10 @@ model written to the ``FactorizationModel`` contract (with the aux-loss
 hook and sparse tables through ``apply_gathered``), MatrixFactorization
 (through the fused decode-loss kernels), Mult-VAE, EASE, the Mult-VAE
 protocol, the serving path they need (chunked scoring of large catalogs,
-the asynchronous evaluator, the top-k in ``lax.top_k``'s order), and
-iALS:
+the asynchronous evaluator, the top-k in ``lax.top_k``'s order), iALS,
+and the serving surface (the CLI's train, evaluate, recommend and serve,
+the embeddings indexes with the C++ ANN forest, the similarity
+recommender and the preprocessing split):
 
   recoder_tpu/utils.py                  -> recoder_tpu_torch.utils
   recoder_tpu/data/dataset.py           -> recoder_tpu_torch.data.dataset
@@ -85,6 +87,18 @@ iALS:
   recoder_tpu/progress.py               -> recoder_tpu_torch.progress
   recoder_tpu/metrics.py                -> recoder_tpu_torch.metrics
   recoder_tpu/recommender.py            -> recoder_tpu_torch.recommender
+      (SimilarityRecommender: the same host numpy code)
+  recoder_tpu/embedding.py              -> recoder_tpu_torch.embedding
+      (BruteForceEmbeddingsIndex: the normalized table on a device, a
+      batch's [m, N] product + ops/topk.top_k, one host read)
+  recoder_tpu/native/ann.py             -> recoder_tpu_torch.native.ann
+  recoder_tpu/native/ann_index.cpp      -> recoder_tpu_torch/native/ann_index.cpp
+      (a byte-for-byte copy: host C++, built with g++ into build/native/)
+  recoder_tpu/preprocessing.py          -> recoder_tpu_torch.preprocessing
+  recoder_tpu/cli.py                    -> recoder_tpu_torch.cli
+      (the same commands and config schema, plus "device")
+  scripts/build_embeddings.py           -> scripts/torch_build_embeddings.py
+  tools/bench_serving.py                -> tools/torch_bench_serving.py
   recoder_tpu/ops/spd.py                -> recoder_tpu_torch.ops.spd
                                            + recoder_tpu_torch/kernels/spd_solve.cu
   recoder_tpu/models/ials.py            -> recoder_tpu_torch.models.ials

@@ -5,7 +5,9 @@ iALS fit, fold-in and recommend, a sparse-table and a dense union
 training, target training with validation through the host loader and
 the dual CSRs, a row scatter, a training from the bit-packed slab and its
 row unpack run on the CPU, MatrixFactorization (dense and sparse) and
-Mult-VAE train, EASE fits and recommends, the Mult-VAE protocol runs, and
+Mult-VAE train, EASE fits and recommends, the Mult-VAE protocol runs, a
+brute-force index answers a query, the C++ ANN forest builds (from the
+port's own source) and serves the similarity recommender, and
 afterwards neither JAX nor the JAX package is loaded."""
 
 import os
@@ -101,6 +103,18 @@ SCRIPT = textwrap.dedent('''
     assert np.isfinite(summary['HeldoutMultinomialNLL'])
     ease = EASE(lam=5.0, device='cpu').fit(m)
     assert all(len(r) == 3 for r in ease.recommend(ui, 3))
+    from recoder_tpu_torch.embedding import (AnnEmbeddingsIndex,
+                                             BruteForceEmbeddingsIndex)
+    from recoder_tpu_torch.recommender import SimilarityRecommender
+    emb = np.random.default_rng(2).normal(size=(30, 8)).astype(np.float32)
+    brute = BruteForceEmbeddingsIndex(emb, device='cpu')
+    brute.build()
+    assert brute.get_nns_by_ids([4, 9], 3)[1][0] == 9
+    index = AnnEmbeddingsIndex(emb, n_trees=3)
+    index.build()
+    assert index.get_nns_by_id(4, 3)[0] == 4
+    recs = SimilarityRecommender(index, 3, n=5).recommend(ui)
+    assert len(recs) == 20 and all(len(r) <= 3 for r in recs)
     loaded = [k for k, v in sys.modules.items() if v is not None and (
         k in ('jax', 'jaxlib', 'recoder_tpu') or k.startswith(
             ('jax.', 'jaxlib.', 'recoder_tpu.')))]

@@ -4,12 +4,14 @@ For each public callable of the port -- every public ``Recoder`` method,
 the model classes (their constructors, hyper-parameter and sparse-plan
 methods, and ``forward`` / ``apply_gathered`` against the JAX ``apply``
 / ``apply_gathered``), ``EASE``, ``IALS``,
-``RecommenderEvaluator.evaluate`` and the ``utils`` functions -- the
+``RecommenderEvaluator.evaluate``, the ``utils`` functions, and the
+serving surface (the CLI's functions, the embeddings indexes and the
+native ``AnnIndex``, ``SimilarityRecommender``, ``preprocessing``) -- the
 parameter names in order and their defaults must equal the JAX
 original's. The only differences allowed are named below:
 
-* port-only parameters: ``device`` (where a trainer or a fitted model
-  lives), and the test draws ``keep_mask`` / ``eps`` of a model's
+* port-only parameters: ``device`` (where a trainer, a fitted model or
+  a brute-force index lives), and the test draws ``keep_mask`` / ``eps`` of a model's
   forward;
 * the forward's translation of the JAX functional form: no ``params``
   (the module holds them), ``generator`` for ``rng``, and no
@@ -29,13 +31,23 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
+import recoder_tpu.cli as jax_cli
+import recoder_tpu.embedding as jax_embedding
 import recoder_tpu.metrics as jax_metrics
 import recoder_tpu.model as jax_model
 import recoder_tpu.models as jax_models
+import recoder_tpu.native.ann as jax_ann
+import recoder_tpu.preprocessing as jax_preprocessing
+import recoder_tpu.recommender as jax_recommender
 import recoder_tpu.utils as jax_utils
+import recoder_tpu_torch.cli as cli
+import recoder_tpu_torch.embedding as embedding
 import recoder_tpu_torch.metrics as metrics
 import recoder_tpu_torch.model as model
 import recoder_tpu_torch.models as models
+import recoder_tpu_torch.native.ann as ann
+import recoder_tpu_torch.preprocessing as preprocessing
+import recoder_tpu_torch.recommender as recommender
 import recoder_tpu_torch.utils as utils
 from recoder_tpu_torch.data import RecommendationDataset
 
@@ -60,6 +72,8 @@ def _params(fn, drop=(), rename=None):
       continue
     name = (rename or {}).get(p.name, p.name)
     default = None if p.default is inspect.Parameter.empty else p.default
+    if inspect.isclass(default):  # each package's own class of that name
+      default = default.__qualname__
     out.append((name, p.default is inspect.Parameter.empty, default))
   return out
 
@@ -89,6 +103,31 @@ def _cases():
                 metrics.RecommenderEvaluator, 'evaluate', 'evaluate'))
   for name in ('unzip', 'normalize', 'dataframe_to_csr_matrix'):
     cases.append(('utils', jax_utils, utils, name, name))
+  # the serving surface: the CLI's functions, the embeddings indexes and
+  # their native forest, the similarity recommender, the preprocessing
+  for name in ('parse_metrics', '_load_datasets', '_build_model',
+               '_fit_model_kind', '_is_fit_model', '_load_fit_model',
+               '_build_trainer', 'cmd_train', '_evaluate_fit_model',
+               'cmd_evaluate', 'cmd_recommend', 'make_server', 'cmd_serve',
+               'main'):
+    cases.append(('cli', jax_cli, cli, name, name))
+  for cls in ('EmbeddingsIndex', 'BruteForceEmbeddingsIndex',
+              'AnnEmbeddingsIndex', 'MemCacheEmbeddingsIndex'):
+    for name in _public(getattr(jax_embedding, cls)):
+      cases.append((cls, getattr(jax_embedding, cls),
+                    getattr(embedding, cls), name, name))
+  cases.append(('embedding', jax_embedding, embedding,
+                'build_embeddings_index', 'build_embeddings_index'))
+  for name in _public(jax_ann.AnnIndex):
+    cases.append(('AnnIndex', jax_ann.AnnIndex, ann.AnnIndex, name, name))
+  for name in _public(jax_recommender.SimilarityRecommender):
+    cases.append(('SimilarityRecommender',
+                  jax_recommender.SimilarityRecommender,
+                  recommender.SimilarityRecommender, name, name))
+  for name in ('get_count', 'filter_triplets', 'split_train_test_proportion',
+               'strong_generalization_split'):
+    cases.append(('preprocessing', jax_preprocessing, preprocessing, name,
+                  name))
   return cases
 
 
