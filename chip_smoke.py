@@ -378,6 +378,26 @@ Phases, each of which raises on failure:
                 p50/p95/p99; (f) `cli recommend` over every training user
                 (k = 10), timed. Each number is printed beside the card's
                 name and power limit.
+ 32. mesh   -- the trainer on a ('data', 'model') mesh of processes
+                (recoder_tpu_torch.parallel). (a) In this process, a
+                one-rank NCCL group and a (1, 1) mesh: bench.py's ML-20M
+                default (DynamicAutoencoder[200], bf16 compute and
+                moments, 'blocks', batch 500) for 64 captured steps,
+                losses and parameters bitwise the trainer without a mesh;
+                both rates in turns (windows of 32 captured steps), and in
+                a profile of 32 replayed mesh steps the wgmma pair and
+                Adam once a step, and NCCL's kernels, by name. (b) With 2
+                or more cards, 2 spawned ranks over NCCL at (2, 1) and
+                (1, 2) (and 4 at (2, 2) with 4 cards), captured; (c) with
+                one card, 2 ranks on it over gloo at (1, 2), eager (a
+                graph cannot record gloo). Each spawned run: 20 float32
+                steps of the ML-20M cell and 20 of bench.py's MSD --sparse
+                union step, the losses within rtol 1e-3 and every
+                parameter within 1e-3 (relative Frobenius) of the same
+                steps on one card, each rank holding its share of every
+                split table; user-batches/s of a window of 64 steps beside
+                the one-card rate. The phase prints which of (b) and (c)
+                ran, and its seconds.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -5017,6 +5037,265 @@ def serving_surface(matrix, card, work, device='cuda',
   return launches, out
 
 
+# -- phase 32 --------------------------------------------------------------
+
+#: (b)'s and (c)'s 20 compared steps: the float32 ML-20M cell and the MSD
+#: --sparse union step, one eager dispatch a step on one card (captured
+#: under NCCL where (b) runs them)
+MESH_STEPS = 20
+#: the kernels of the bf16 ML-20M step inside (a)'s replays, by profile name
+MESH_KERNELS = ('decode_loss_fwd_bf16_wgmma_kernel',
+                'drows_dbias_bf16_wgmma_kernel', 'dh_bf16_wgmma_kernel',
+                'adam_bf16_kernel')
+#: the kernels' JSON names of (a)'s profile names
+MESH_NAMES = {
+    'fused_decode_loss_fwd_bf16_wgmma': 'decode_loss_fwd_bf16_wgmma_kernel',
+    'fused_decode_loss_bwd_bf16_wgmma': 'drows_dbias_bf16_wgmma_kernel',
+    'adam_bf16': 'adam_bf16_kernel'}
+
+
+def ml20m_bf16_trainer(mesh=None):
+  """bench.py's ML-20M default (DynamicAutoencoder[200] tanh, noise 0.5,
+  bf16 compute and moments, MSE confidence 3, Adam)."""
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  return Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                    compute_dtype='bfloat16'),
+                 optimizer_type='adam', loss='mse',
+                 loss_params={'confidence': 3}, opt_state_dtype='bfloat16',
+                 mesh=mesh)
+
+
+def mesh_cell_trainer(cell, mesh=None):
+  """(b)'s and (c)'s trainers: the ML-20M cell at float32, and bench.py's
+  MSD --sparse step (sparse tables, logloss)."""
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  if cell == 'ml20m':
+    return Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5),
+                   optimizer_type='adam', loss='mse',
+                   loss_params={'confidence': 3}, mesh=mesh)
+  return Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                    sparse=True),
+                 optimizer_type='adam', loss='logloss', mesh=mesh)
+
+
+def mesh_cell_data(cell):
+  from recoder_tpu_torch.data import RecommendationDataset, synthetic
+  return RecommendationDataset(synthetic.synthesize_ml20m() if cell == 'ml20m'
+                               else synthetic.synthesize_msd())
+
+
+def mesh_cell_steps(trainer, dataset, cell, spc, compared, window=64):
+  """``MESH_STEPS`` steps from a fresh trainer (their losses), then
+  ``compared(trainer)``, then a window of ``window`` steps at ``spc``:
+  its user-batches/s."""
+  import torch
+  kw = ML20M_TRAIN if cell == 'ml20m' else MSD_TRAIN
+  trainer.train(dataset, num_epochs=1, iters_per_epoch=MESH_STEPS,
+                fused_steps_per_call=spc, **kw)
+  losses = list(trainer.last_epoch_losses)
+  kept = compared(trainer)
+  trainer.train(dataset, num_epochs=1, iters_per_epoch=window,
+                fused_steps_per_call=spc, **kw)
+  torch.cuda.synchronize()
+  rate = len(trainer.last_epoch_losses) / trainer.last_epoch_seconds
+  return losses, rate, trainer.last_epoch_dispatch, kept
+
+
+def mesh_rank(rank, world, out, backend, shape, cells):
+  """One spawned rank of (b) or (c): join the ``backend`` group through a
+  file store (its card: ``rank`` modulo the cards), build the ``shape``
+  mesh, run each cell of ``cells`` (:func:`mesh_cell_steps`) and save it
+  (rank 0 writes the gathered npz); any exception goes to
+  ``error_<rank>.txt``."""
+  import traceback
+  try:
+    import torch
+    sys.path.insert(0, HERE)
+    from recoder_tpu_torch.parallel import MeshConfig, make_mesh
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.distributed.init_process_group(
+        backend, init_method=f'file://{os.path.join(out, "store")}',
+        rank=rank, world_size=world)
+    mesh = make_mesh(MeshConfig(*shape))
+    spc = 'auto' if backend == 'nccl' else 1
+    for cell in cells:
+      trainer = mesh_cell_trainer(cell, mesh)
+      losses, rate, dispatch, _ = mesh_cell_steps(
+          trainer, mesh_cell_data(cell), cell, spc,
+          lambda t: t.save_state(os.path.join(out, cell)))
+      shapes = {k: list(v.shape) for k, v in trainer.model.params().items()}
+      with open(os.path.join(out, f'{cell}_{rank}.json'), 'w') as f:
+        json.dump({'losses': losses, 'rate': rate, 'dispatch': dispatch,
+                   'shapes': shapes}, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+  except BaseException:
+    with open(os.path.join(out, f'error_{rank}.txt'), 'w') as f:
+      f.write(traceback.format_exc())
+    raise
+
+
+def spawn_mesh(out, backend, shape, cells, timeout=420):
+  """(b) or (c): ``shape``'s ranks spawned on ``backend``; raises with
+  their tracebacks if one fails, and kills them all past ``timeout``."""
+  import multiprocessing
+  os.makedirs(out, exist_ok=True)
+  ctx = multiprocessing.get_context('spawn')
+  world = shape[0] * shape[1]
+  procs = [ctx.Process(target=mesh_rank,
+                       args=(rank, world, out, backend, shape, cells))
+           for rank in range(world)]
+  for p in procs:
+    p.start()
+  deadline = time.time() + timeout
+  for p in procs:
+    p.join(max(0.0, deadline - time.time()))
+  hung = [p for p in procs if p.is_alive()]
+  for p in procs:
+    if p.is_alive():
+      p.kill()
+      p.join()
+  errors = [open(os.path.join(out, f)).read()
+            for f in sorted(os.listdir(out)) if f.startswith('error_')]
+  if hung or any(p.exitcode for p in procs):
+    raise AssertionError(f'{backend} {shape} mesh: {len(hung)} rank(s) hung, '
+                         f'exit codes {[p.exitcode for p in procs]}\n'
+                         + '\n'.join(errors))
+
+
+def compare_mesh_cell(out, cell, shape, ref_losses, ref_params):
+  """A spawned cell's 20 losses (rtol 1e-3) and every parameter (within
+  a relative Frobenius norm of 1e-3) against the single-card run's; the
+  ranks' shares of each split table."""
+  from recoder_tpu_torch.checkpoint import load_checkpoint
+  with open(os.path.join(out, f'{cell}_0.json')) as f:
+    record = json.load(f)
+  compare_losses(np.asarray(record['losses']), np.asarray(ref_losses),
+                 PATHS_RTOL, f'{cell} on the {shape} mesh')
+  files = [f for f in os.listdir(out) if f.startswith(f'{cell}_epoch_')]
+  arrays, _ = load_checkpoint(os.path.join(out, files[0]))
+  worst = 0.0
+  for name, ref in ref_params.items():
+    got = arrays['model'][name]
+    rel = float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30))
+    worst = max(worst, rel)
+    if rel > TABLE_RTOL:
+      raise AssertionError(f'{cell} on the {shape} mesh: {name} differs by '
+                           f'{rel:.3g} (relative Frobenius)')
+    want = list(ref.shape)
+    if name.endswith('embedding') or name == 'de_bias':
+      want[0] //= shape[1]
+    for rank in range(shape[0] * shape[1]):
+      with open(os.path.join(out, f'{cell}_{rank}.json')) as f:
+        if json.load(f)['shapes'][name] != want:
+          raise AssertionError(f'{cell} rank {rank}: {name} is not its '
+                               f'share {want}')
+  return record, worst
+
+
+def phase_mesh_one_rank(card):
+  """(a): bench.py's ML-20M default on a (1, 1) mesh of a one-rank NCCL
+  group in this process, captured, bitwise the trainer without a mesh;
+  both rates in turns and the kernels inside the mesh's replays."""
+  import torch
+  from recoder_tpu_torch.data import RecommendationDataset, synthetic
+  from recoder_tpu_torch.parallel import MeshConfig, make_mesh
+  dataset = RecommendationDataset(synthetic.synthesize_ml20m())
+  mesh = make_mesh(MeshConfig(1, 1))
+  say(f'  {mesh} over {torch.distributed.get_backend()}')
+  trainers = {'mesh': ml20m_bf16_trainer(mesh), 'none': ml20m_bf16_trainer()}
+  window = 32
+  for name, trainer in trainers.items():
+    trainer.train(dataset, num_epochs=1, iters_per_epoch=64,
+                  fused_steps_per_call='auto', **ML20M_TRAIN)
+    if not trainer.last_epoch_dispatch.startswith('captured'):
+      raise AssertionError(f"(a) {name}: 'auto' did not capture "
+                           f'({trainer.last_epoch_dispatch})')
+  a, b = trainers['mesh'], trainers['none']
+  if a.last_epoch_losses != b.last_epoch_losses or not all(
+      torch.equal(x, y) for x, y in zip(a.model.params().values(),
+                                        b.model.params().values())):
+    raise AssertionError('(a) the (1, 1) mesh is not bitwise the trainer '
+                         'without a mesh after 64 captured steps')
+  say(f'  64 captured steps ({a.last_epoch_dispatch}, {a.captures} graphs '
+      'captured): losses and parameters bitwise the trainer without a mesh')
+  rates = {name: [] for name in trainers}
+  for name in ('mesh', 'none', 'none', 'mesh'):
+    trainer = trainers[name]
+    trainer.train(dataset, num_epochs=1, iters_per_epoch=window,
+                  fused_steps_per_call='auto', **ML20M_TRAIN)
+    torch.cuda.synchronize()
+    rates[name].append(window / trainer.last_epoch_seconds)
+  _, busy, launches, counts = profile_steps(
+      a, dataset, ML20M_TRAIN, steps=window, spc='auto',
+      kernels=MESH_KERNELS, routes=('nccl', 'Memcpy'))
+  if any(counts[k] != window for k in MESH_KERNELS):
+    raise AssertionError(f'(a) kernels in {window} replayed mesh steps: '
+                         f'{counts}')
+  say(f'  (a) ml20m_user_batches_per_sec in turns (windows of {window} '
+      f'captured steps, 1 card): (1, 1) mesh '
+      + ', '.join(f'{r:.2f}' for r in rates['mesh']) + '; no mesh '
+      + ', '.join(f'{r:.2f}' for r in rates['none'])
+      + f'; the mesh: device {busy:.3f} ms and {launches:.1f} launches a '
+      f'profiled step; in {window} replayed steps {counts}; card {card}')
+  torch.distributed.destroy_process_group()
+  return {'rates': rates, 'counts': {k: v / window for k, v in counts.items()},
+          'busy_ms': busy}
+
+
+def phase_mesh(card):
+  """Phase 32: (a) in this process; (b) on 2 (and 4) cards over NCCL, or
+  (c) two ranks on the one card over gloo; each spawned cell against the
+  same steps on one card."""
+  import torch
+  t0 = time.time()
+  one_rank = phase_mesh_one_rank(card)
+  n_cards = torch.cuda.device_count()
+  if n_cards >= 2:
+    runs = [('nccl', (2, 1)), ('nccl', (1, 2))]
+    if n_cards >= 4:
+      runs.append(('nccl', (2, 2)))
+    which = f'(b): {n_cards} cards'
+  else:
+    runs = [('gloo', (1, 2))]
+    which = '(c): one card, two ranks on it over gloo'
+  say(f'  {which}')
+  refs = {}
+  for cell in ('ml20m', 'msd'):
+    dataset = mesh_cell_data(cell)
+    for spc in sorted({1 if b == 'gloo' else 'auto' for b, _ in runs},
+                      key=str):
+      trainer = mesh_cell_trainer(cell)
+      refs[cell, spc] = mesh_cell_steps(
+          trainer, dataset, cell, spc,
+          lambda t: {k: v.detach().float().cpu().numpy()
+                     for k, v in t.model.params().items()})
+    del dataset, trainer
+  spawned = {}
+  with tempfile.TemporaryDirectory() as tmp:
+    for backend, shape in runs:
+      out = os.path.join(tmp, f'{backend}_{shape[0]}x{shape[1]}')
+      spc = 1 if backend == 'gloo' else 'auto'
+      spawn_mesh(out, backend, shape, ('ml20m', 'msd'))
+      for cell in ('ml20m', 'msd'):
+        losses, rate, dispatch, params = refs[cell, spc]
+        record, worst = compare_mesh_cell(out, cell, shape, losses, params)
+        spawned[backend, shape, cell] = record['rate']
+        say(f'  {cell} ({"float32" if cell == "ml20m" else "MSD --sparse"}) '
+            f'on a {shape} mesh over {backend} ({shape[0] * shape[1]} ranks on '
+            f'{min(n_cards, shape[0] * shape[1])} card(s)): {MESH_STEPS} '
+            f'losses within rtol {PATHS_RTOL} and every parameter within '
+            f'{worst:.2e} (relative Frobenius) of one card; user-batches/s '
+            f'{record["rate"]:.2f} ({record["dispatch"]}) against '
+            f'{rate:.2f} on one card ({dispatch}); card {card}')
+  seconds = time.time() - t0
+  say(f'  phase 32 took {seconds:.1f} s')
+  return one_rank, spawned, which
+
+
 def run(name, fn, *args, **kwargs):
   say(f'== phase {name}')
   t0 = time.time()
@@ -5169,6 +5448,7 @@ def main():
                         opt_state_dtype=BF16, params_dtype=BF16)
   (big, big_scoring, stress, storage_msd, storage_scoring, union_a,
    users_a) = run('27 large catalog (a)-(c)', phase_large_catalog, card)
+  mesh_one_rank, mesh_spawned, mesh_which = run('32 mesh', phase_mesh, card)
   union_cells['msd_big_bf16'] = union_a
   users_cells['msd_big_users_bf16'] = users_a
   union_record = _union_capture_record(union_cells)
@@ -5324,7 +5604,11 @@ def main():
               'users_capture_launches_per_step': users_record.get(name),
               # launches of phase 31's `cli train` (captured: the eager
               # warm-up steps)
-              'cli_train_launches': serving_launches.get(name, 0)}
+              'cli_train_launches': serving_launches.get(name, 0),
+              # launches a step inside the replays of phase 32 (a)'s
+              # (1, 1) mesh (ML-20M bf16), by the profile's names
+              'mesh_launches_per_step': mesh_one_rank['counts'].get(
+                  MESH_NAMES.get(name))}
              for name, (err, ms, plain_ms, library_ms, (bound_ms, by),
                         per_step) in measured.items()]
   # the packed kernel's mask-only launch (phase 17), beside its bound
@@ -5462,6 +5746,13 @@ def main():
                          f'{s["p95_ms"]:.3f} p99 {s["p99_ms"]:.3f} ms'
                          for route, s in serving['latency'].items())
       + f', cli recommend {serving["recommend_s"]:.3f} s'
+      + '; mesh (phase 32): (1, 1) captured '
+      + ', '.join(f'{r:.2f}' for r in mesh_one_rank['rates']['mesh'])
+      + ' against no mesh '
+      + ', '.join(f'{r:.2f}' for r in mesh_one_rank['rates']['none'])
+      + f', {mesh_which}: '
+      + ', '.join(f'{cell} {shape} {backend} {rate:.2f}' for
+                  (backend, shape, cell), rate in mesh_spawned.items())
       + f'; card {card}')
   say(json.dumps({'kernels': kernels}))
   say(card)

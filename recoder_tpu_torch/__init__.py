@@ -102,6 +102,15 @@ recommender and the preprocessing split):
   recoder_tpu/ops/spd.py                -> recoder_tpu_torch.ops.spd
                                            + recoder_tpu_torch/kernels/spd_solve.cu
   recoder_tpu/models/ials.py            -> recoder_tpu_torch.models.ials
+  recoder_tpu/parallel/{mesh,sharding,distributed}.py
+      -> recoder_tpu_torch.parallel (torch.distributed: one process a
+         card, a DeviceMesh of ('data', 'model'); the collectives the
+         JAX SPMD partitioner places are placed by hand:
+         recoder_tpu_torch.parallel.collectives and sharding.Partition)
+      (model.py's mesh hooks: placement after init and load, the step's
+      share and collectives, scoring gathered, checkpoints gathered on
+      rank 0 -> Recoder(mesh=...); table_sharding='data', Mult-VAE,
+      iALS and EASE on a mesh are not ported yet)
   (new) the entry points' device       -> recoder_tpu_torch.device
   bench.py synthesize / synthesize_ml20m -> recoder_tpu_torch.data.synthetic
 """

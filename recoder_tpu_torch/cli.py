@@ -25,8 +25,18 @@ The port adds one key, ``device``, where its constructors take it:
 ``"trainer": {"device": "cpu"}`` for the Recoder models and ``"model":
 {"device": "cpu"}`` for ``ease`` / ``ials``. Without it every command
 runs on the card, and raises where there is none. Settings whose
-modules are not ported (``trainer.mesh_model``, iALS
-``factor_sharding``, EASE ``solve='newton'``) raise NotImplementedError.
+modules are not ported (``trainer.mesh_model`` for ``ease`` / ``ials``,
+iALS ``factor_sharding``, EASE ``solve='newton'``) raise
+NotImplementedError.
+
+``trainer.mesh_model=M`` trains the Recoder models on a mesh of the
+launch's processes, their item tables split over M of them (one process
+a card):
+
+  torchrun --nproc_per_node=N -m recoder_tpu_torch.cli train --config ...
+
+Every rank runs the command; outside a launch of a multiple of M
+processes it raises ValueError.
 """
 
 import argparse
@@ -140,14 +150,28 @@ def _load_fit_model(cfg, model_file):
 def _refuse_mesh(mesh_model):
   if mesh_model:
     raise NotImplementedError(
-        'mesh_model is not ported to the PyTorch package yet (multi-GPU, '
-        'ROADMAP Queue 1 item 7); leave it 0 to run on one device')
+        'mesh_model for ease / ials is not ported to the PyTorch package '
+        'yet (multi-GPU, ROADMAP Queue 1 item 8); leave it 0 to fit on one '
+        'device')
 
 
 def _build_trainer(cfg, model):
   tr_cfg = dict(cfg.get('trainer', {}))
-  _refuse_mesh(tr_cfg.pop('mesh_model', 0))
-  return Recoder(model=model, **tr_cfg)
+  mesh = None
+  mesh_model = tr_cfg.pop('mesh_model', 0)
+  if mesh_model:
+    from recoder_tpu_torch.parallel import MeshConfig, initialize, make_mesh
+    from recoder_tpu_torch.parallel.distributed import process_count
+    device = tr_cfg.get('device', device_lib.DEFAULT)
+    initialize(device=device)  # (joins a torchrun launch's group)
+    if process_count() % mesh_model:
+      raise ValueError(
+          f'trainer.mesh_model={mesh_model} splits the tables over '
+          f'{mesh_model} processes, and this launch has {process_count()}; '
+          f'launch with torchrun --nproc_per_node={mesh_model} (or a '
+          'multiple of it)')
+    mesh = make_mesh(MeshConfig(model=mesh_model), devices=device)
+  return Recoder(model=model, mesh=mesh, **tr_cfg)
 
 
 def cmd_train(cfg):

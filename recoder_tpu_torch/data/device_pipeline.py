@@ -166,7 +166,11 @@ raises :class:`FusedPipelineUnavailable` there with the JAX reason,
 computed from the bytes the JAX tables would take, and its trainer then
 takes the host loader, as the JAX trainer does.
 
-Not ported: mesh sharding.
+On a mesh (``Recoder(mesh=...)``) every rank builds the same source and
+the same batches, the resident CSR, tables and slab replicated, as the
+JAX ``_put`` replicates them; the trainer takes each rank's share of a
+batch. Not ported: ``table_sharding='data'`` (the tables and the CSR
+split over 'data', ROADMAP Queue 1 item 8).
 """
 
 import collections

@@ -10,7 +10,8 @@
 //
 // Contract, as the TPU kernel's:
 //   * ids are in bounds (the data pipeline guarantees it; nothing is
-//     checked here);
+//     checked here), but for -1, which marks a slot to skip (a row that
+//     another rank of a mesh holds; the TPU kernel has no such slot);
 //   * a repeated id carries the same payload in every slot that names it,
 //     so the racing writes store the same bytes and no atomics are needed;
 //   * the source rows are copies, not views of the table they go into.
@@ -82,7 +83,8 @@ __device__ __forceinline__ void copy_rows(T* __restrict__ dst,
        i += stride) {
     const I w = i / units;
     const I c = i - w * units;
-    dst[__ldg(ids + w) * dld + c] = src[(long long)w * sld + c];
+    const long long id = __ldg(ids + w);
+    if (id >= 0) dst[id * dld + c] = src[(long long)w * sld + c];
   }
 }
 
@@ -131,7 +133,8 @@ const char* rs_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// For table k < ntables: dst_k[ids[w], :d] = src_k[w, :d] for w < W, on
+// For table k < ntables: dst_k[ids[w], :d] = src_k[w, :d] for w < W with
+// ids[w] >= 0 (a slot of id -1 is skipped), on
 // `stream` of `device`; es_k is table k's element size (4 or 2 bytes),
 // the strides are in its elements. vec_k = 1 asks for the 16-byte path
 // for table k, which needs d * es_k, every row stride * es_k a multiple

@@ -121,8 +121,16 @@ JAX package does. A float32 checkpoint loads into a bf16 model rounded to
 nearest even (``init_from_model_file``), which then serves from bf16
 tables.
 
+``Recoder(mesh=...)`` trains DynamicAutoencoder and MatrixFactorization
+on a ('data', 'model') mesh of processes (``recoder_tpu_torch.parallel``):
+each rank builds the whole batch, computes its users' rows against its
+rows of the item (and user) tables, and the shares are added over the
+mesh's process groups (:meth:`Recoder._mesh_forward_loss`); scoring and
+checkpoints gather the shares.
+
 Not ported yet (the JAX signature's arguments for them raise
-NotImplementedError where set): the orbax backend and meshes. The JAX
+NotImplementedError where set): the orbax backend, ``table_sharding``
+and the other models on a mesh. The JAX
 package's count-certified top-k (``eval_topk='exact'``) is a TPU
 workaround and is not ported: every ``eval_topk`` mode is exact here.
 """
@@ -156,6 +164,8 @@ from recoder_tpu_torch.ops.topk import merge_top_k, top_k
 from recoder_tpu_torch.optim import (KINDS, Bf16Adam, SparseRowAdam,
                                      fold_dual_union, make_optimizer,
                                      resolve_state_dtype, set_lr)
+from recoder_tpu_torch.parallel import collectives
+from recoder_tpu_torch.parallel import sharding as sharding_lib
 from recoder_tpu_torch.progress import ProgressReporter, loss_handle
 from recoder_tpu_torch.recommender import InferenceRecommender
 
@@ -179,6 +189,13 @@ GRAPH_SETS = 4
 #: ``_train_iterator_key`` after a checkpoint load: the next ``train``
 #: continues the checkpoint's epoch at its recorded step
 _RESUMED = object()
+#: the ROADMAP item of the mesh settings that are not ported yet
+MESH_LEFT = 'multi-GPU, ROADMAP Queue 1 item 8'
+#: the losses a 'model'-split catalog computes column by column (a
+#: custom ``Loss`` may mix columns; logloss's normalizer is reduced over
+#: the mesh)
+SPLIT_LOSSES = (losses_lib.MSELoss, losses_lib.LogisticLoss,
+                losses_lib.MultinomialNLLLoss)
 
 
 class _DeviceLoop:
@@ -251,8 +268,17 @@ class Recoder:
     user_based / item_based (bool): consistency checks between the model
       and datasets.
     seed (int): seed of the init, permutation and dropout generators.
-    mesh: the JAX package's device mesh; not ported yet (ROADMAP Queue 1
-      item 7): a value other than None raises NotImplementedError.
+    mesh (parallel.mesh.Mesh, optional): a ('data', 'model') mesh from
+      :func:`recoder_tpu_torch.parallel.make_mesh`, one process a rank.
+      Every rank runs the same program over the same data and builds the
+      same global batch; each computes the step for its 'data' slice of
+      the batch's users against its 'model' share of the item (and user)
+      tables' rows, and the shares are added over the mesh (NCCL on the
+      card, gloo on the CPU). The result is the single-device run's: a
+      (1, 1) mesh gives it bitwise. DynamicAutoencoder and
+      MatrixFactorization train on a mesh; another model raises
+      NotImplementedError (Mult-VAE: ROADMAP Queue 1 item 8). The trainer
+      runs on the mesh's device.
     eval_item_chunk (int, optional): score the catalog in contiguous
       slices of this many items in ``recommend`` / evaluation (and the
       validation loss of full-catalog batches) instead of one ``[B,
@@ -287,7 +313,8 @@ class Recoder:
                eval_compute_dtype=None, eval_topk='exact',
                opt_state_dtype=None, *, device=device_lib.DEFAULT):
     del use_cuda
-    _not_ported(mesh is not None, 'mesh', 'multi-GPU, Queue 1 item 7')
+    _not_ported(mesh is not None and not model.supports_mesh,
+                f'{type(model).__name__} on a mesh', MESH_LEFT)
     if optimizer_type not in KINDS:
       raise ValueError(f'Unknown optimizer kind {optimizer_type}')
     resolve_state_dtype(optimizer_type, opt_state_dtype)
@@ -307,7 +334,11 @@ class Recoder:
     self.user_based = user_based
     self.item_based = item_based
     self.seed = seed
-    self.device = device_lib.resolve(device)
+    self.mesh = mesh
+    self.device = device_lib.resolve(device if mesh is None else mesh.device)
+    if mesh is not None and torch.device(device).type != self.device.type:
+      raise ValueError(f'device {device!r} differs from the mesh\'s '
+                       f'{mesh.device}')
 
     self.optimizer = None
     self.sparse_adam = SparseRowAdam()
@@ -323,6 +354,8 @@ class Recoder:
     self.last_epoch_seconds = 0.0
 
     self._model_initialized = False
+    #: on a mesh: the whole row count of each 'model'-split parameter
+    self._whole_rows = {}
     self._pending_opt_arrays = None
     self._global_step = 0
     self._source_cache = None
@@ -363,8 +396,27 @@ class Recoder:
     if self._model_initialized:
       return
     self.model.init_model(self.num_items, self.num_users, seed=self.seed)
+    self._shard_model()
     self.model.to(self.device)
     self._model_initialized = True
+
+  def _shard_model(self):
+    """On a mesh: keep this rank's rows of each 'model'-split parameter
+    of the freshly initialized (whole, host) model; the init is the
+    single-device one, drawn whole on the host."""
+    if self.mesh is None:
+      return
+    whole = self.model.params()
+    self._whole_rows = {path: whole[path].shape[0]
+                        for path in sharding_lib.sharded_paths(self.model)}
+    self.model.register_params(
+        {k: v.detach().clone() if k in self._whole_rows else v.detach()
+         for k, v in sharding_lib.shard_params(whole, self.model,
+                                               self.mesh).items()})
+
+  def _partition(self, num_rows):
+    """This rank's share of a batch of ``num_rows`` users (a mesh's)."""
+    return sharding_lib.Partition(self.mesh, self.model, num_rows)
 
   def _init_loss_module(self):
     if isinstance(self.loss, losses_lib.Loss):
@@ -553,7 +605,15 @@ class Recoder:
     The aux-loss hook (the JAX ``has_aux``): in training, a model with
     ``has_aux`` is called with ``step`` (the global step, a 0-dim tensor)
     and returns ``(scores, aux [B])``; ``sum(aux * row_mask)`` joins the
-    loss before the division by the valid users."""
+    loss before the division by the valid users.
+
+    On a mesh the batch is the whole one (every rank built it): the rank
+    densifies it, keeps its users' rows and, where the catalog is split,
+    its columns (and the rows of each union it holds), and returns the
+    loss of the whole batch (:meth:`_mesh_forward_loss`)."""
+    if self.mesh is not None:
+      return self._mesh_forward_loss(batch, training, negative_sampling,
+                                     generator, gathered)
     model = self.model
     cd = getattr(model, 'compute_dtype', None)
     valid_users = batch['num_users']
@@ -622,6 +682,79 @@ class Recoder:
                               row_mask=row_mask, col_mask=col_mask)
     return loss / valid_users
 
+  def _mesh_forward_loss(self, batch, training, negative_sampling, generator,
+                         gathered):
+    """:meth:`_forward_loss` on a mesh: this rank's share of the whole
+    batch's loss sum -- its users' rows, and of a split catalog its
+    columns (a union: the columns whose rows it holds; the whole catalog:
+    its column range) -- added over the mesh and divided by the batch's
+    valid users. The column mask is the whole batch's (the mega's
+    columns are read off every user's row) before the rank takes its
+    share of it."""
+    model = self.model
+    cd = getattr(model, 'compute_dtype', None)
+    valid_users = batch['num_users']
+    items = tg_items = None
+    if 'slab' in batch:
+      slab = batch['slab']
+      B, W = slab.shape
+      in_catalog = torch.arange(W, device=slab.device) < model.num_items
+      if not negative_sampling:
+        col_mask = in_catalog.float()
+      elif 'col_mask' in batch:
+        col_mask = batch['col_mask']
+      else:
+        col_mask = (torch.any(slab != 0, dim=0) & in_catalog).float()
+      part = self._partition(B)
+      shard = sharding_lib.shard_batch(
+          {'input': slab.to(cd or torch.float32), 'target': slab},
+          self.mesh)
+      input_dense, target = shard['input'], shard['target']
+    else:
+      items = batch['items']
+      B = batch['users'].shape[0]
+      part = self._partition(B)
+      W = model.num_items_padded if items is None else items.shape[0]
+      input_dense = target = part.rows(self._densify_union(batch, B, W, cd))
+      tg_items, side = items, ''
+      if 'tg_rows' in batch:
+        tg_items, side = batch['tg_items'], 'tg_'
+        W = model.num_items_padded if tg_items is None else tg_items.shape[0]
+        target = part.rows(self._densify_union(batch, B, W, cd, side='tg_'))
+      logical = (model.num_items if tg_items is None
+                 else batch.get(side + 'width_valid', W))
+      col_mask = (torch.arange(W, device=target.device) < logical).float()
+    if tg_items is None:
+      # (the rank's column range of the catalog)
+      target = part.columns(target)
+      col_mask = part.columns(col_mask)
+    else:
+      owned = part.owned('item', tg_items)
+      if owned is not None:
+        col_mask = col_mask * owned.float()
+    row_mask = part.row_mask(valid_users, input_dense.device)
+    users = batch.get('users')
+    if users is not None:
+      users = users.to(input_dense.device)
+    h, rows, bias = model.decode_operands(
+        input_dense, items, tg_items, gathered=gathered, training=training,
+        generator=generator, input_users=users, shard=part)
+    kind = self._fused_kind()
+    if kind is not None and W > 0:
+      loss = fused_decode_loss(
+          h, rows, bias, target.contiguous(), row_mask,
+          col_mask.contiguous(), kind,
+          getattr(self.loss_module, 'confidence', 0.0), cd)
+    elif part.split and isinstance(self.loss_module,
+                                   losses_lib.MultinomialNLLLoss):
+      loss = torch.sum(losses_lib.multinomial_nll_loss(
+          model.decode(h, rows, bias), target, row_mask, col_mask,
+          group=self.mesh.model_group))
+    else:
+      loss = self.loss_module(model.decode(h, rows, bias), target,
+                              row_mask=row_mask, col_mask=col_mask)
+    return collectives.sum_forward(loss, None) / valid_users
+
   @staticmethod
   def _densify_union(batch, B, W, dtype=None, side=''):
     """A COO batch's interactions (``side``: '' the input's, 'tg_' the
@@ -665,6 +798,9 @@ class Recoder:
                               negative_sampling=negative_sampling,
                               generator=self._dropout_gen, step=step)
     loss.backward()
+    if self.mesh is not None:
+      collectives.all_reduce_grads(self.model.parameters(),
+                                   self.mesh.data_group)
     self.optimizer.step()
     return loss.detach()
 
@@ -685,7 +821,13 @@ class Recoder:
     JAX redirect): a pad slot must not decay row 0's. A static union's
     sentinel slots gather the sentinel item's row, take zero gradients
     and leave it and its zero moments as they were. ``reseed`` and
-    ``step`` as in :meth:`_dense_step_math`."""
+    ``step`` as in :meth:`_dense_step_math`.
+
+    On a mesh each rank gathers the rows it holds of the (whole batch's)
+    ids, the other slots zeroed in the forward pass; the gradients of the
+    leaves and of the dense parameters are added over 'data', and the
+    rank's rows take the update (a slot another rank holds is skipped:
+    ``Partition.localize``)."""
     model = self.model
     if reseed:
       self._dropout_gen.manual_seed((self.seed << 32) + self._global_step)
@@ -700,20 +842,31 @@ class Recoder:
         input_users=users, input_items=items,
         target_items=batch.get('tg_items', items))
     tables = model.params()
+    part = None if self.mesh is None else self._partition(users.shape[0])
     with torch.no_grad():
       # (a whole table's leaf shares its storage: the backward pass is
       # over before the update writes it)
       gathered = {name: tables[path].detach() if ids is None
-                  else tables[path].index_select(0, ids)
+                  else tables[path].index_select(0, ids) if part is None
+                  else tables[path].index_select(
+                      0, part.localize(path, ids).clamp(min=0))
                   for name, path, ids in entries}
     for rows in gathered.values():
       rows.requires_grad_(True)
+    used = gathered if part is None else {
+        name: gathered[name] if ids is None
+        else part.mask(gathered[name], part.owned(path, ids))
+        for name, path, ids in entries}
     self.optimizer.zero_grad(set_to_none=True)
     loss = self._forward_loss(batch, training=True,
                               negative_sampling=negative_sampling,
                               generator=self._dropout_gen,
-                              gathered=gathered, step=step)
+                              gathered=used, step=step)
     loss.backward()
+    if part is not None:
+      collectives.all_reduce_grads(
+          [*self.model.parameters(), *gathered.values()],
+          self.mesh.data_group)
     self.optimizer.step()
     uses = {}
     for name, path, ids in entries:
@@ -727,10 +880,13 @@ class Recoder:
         if len(rows) == 2:
           # a tied table over the input and the target union: one step
           # over the folded id set, the spare row the table's last pad row
-          ids, grads = fold_dual_union(*rows[0], *rows[1],
-                                       tables[path].shape[0] - 1)
+          last = (tables[path].shape[0] if part is None
+                  else part.total(path)) - 1
+          ids, grads = fold_dual_union(*rows[0], *rows[1], last)
         else:
           (ids, grads), = rows
+        if part is not None and ids is not None:
+          ids = part.localize(path, ids)
         self.sparse_adam.update_rows(tables[path], self.sparse_states[path],
                                      ids, grads, self._lr)
     return loss.detach()
@@ -845,13 +1001,26 @@ class Recoder:
     parameters and nothing else of the training state: a run with it
     trains bitwise as one without.
 
-    ``table_sharding`` (other than 'auto' or False: there is no mesh to
-    shard over) is the JAX package's and not ported yet (ROADMAP Queue 1
-    item 7).
+    On a mesh every rank calls ``train`` with the same arguments and
+    data: each builds the same batches (the resident CSR and slab are
+    replicated) and trains its share of each step. The steps that are
+    captured without a mesh are captured on an NCCL mesh too, the
+    collectives inside the graphs; over gloo (which a graph cannot
+    record) they run eagerly, and a log line says so.
+
+    ``table_sharding`` (other than 'auto' or False: the block tables and
+    the CSR split over 'data') is the JAX package's and not ported yet
+    (ROADMAP Queue 1 item 8).
     """
     _not_ported(table_sharding not in ('auto', False),
-                f'table_sharding={table_sharding!r}',
-                'multi-GPU, Queue 1 item 7')
+                f'table_sharding={table_sharding!r}', MESH_LEFT)
+    if self.mesh is not None and self.mesh.shape['model'] > 1 and not (
+        isinstance(self.loss, str)
+        or isinstance(self.loss, SPLIT_LOSSES)):
+      raise NotImplementedError(
+          f'a custom loss ({type(self.loss).__name__}) over a catalog split '
+          "over the mesh's 'model' axis: only the built-in losses are "
+          f'computed column by column ({MESH_LEFT})')
     if full_decode not in ('auto', True, False):
       raise ValueError(f"full_decode={full_decode!r}: expected 'auto', "
                        'True or False')
@@ -936,8 +1105,10 @@ class Recoder:
     if profile_dir is not None:
       spc = 1
     on_card = self.device.type == 'cuda'
+    gloo = (self.mesh is not None
+            and torch.distributed.get_backend() != 'nccl')
     captured = (device_steps and spc >= 2 and on_card
-                and self.optimizer_type == 'adam')
+                and self.optimizer_type == 'adam' and not gloo)
     if source is not None and negative_sampling and not device_steps:
       log.info("the 'users' %s steps run eagerly at their exact widths, one "
                'dispatch a step: the JAX source builds no epoch tables for '
@@ -950,6 +1121,10 @@ class Recoder:
     elif spc >= 2 and not on_card:
       log.info('fused_steps_per_call=%d: off the card the steps of a '
                'dispatch run eagerly, one after another', spc)
+    elif spc >= 2 and gloo:
+      log.info('fused_steps_per_call=%d: the mesh runs over gloo, whose '
+               'collectives a CUDA graph cannot record; the steps run '
+               'eagerly, one dispatch a step', spc)
     elif spc >= 2 and not captured:
       log.info("fused_steps_per_call=%d: '%s' has no capturable step; the "
                'steps run eagerly, one dispatch a step', spc,
@@ -1085,7 +1260,8 @@ class Recoder:
     (the JAX ``_get_val_loss_fn`` dispatch): a custom ``Loss`` stays on
     the dense path, its meaning over part of the item axis unknown."""
     chunk = self._resolve_eval_chunk()
-    if not isinstance(self.loss, str):
+    if not isinstance(self.loss, str) or self.mesh is not None:
+      # (a mesh rank's share of a batch is its users x its columns)
       chunk = None
     losses = torch.zeros(len(val_dataloader), device=self.device)
     count = 0
@@ -1406,6 +1582,11 @@ class Recoder:
     users = torch.zeros(B, dtype=torch.int64, device=self.device)
     kw = dict(input_items=items, target_items=tg_items, training=True,
               generator=probe, input_users=users)
+    if self.mesh is not None:
+      # (a rank draws the whole batch's masks: the same offset)
+      part = self._partition(B)
+      x = part.rows(x)
+      kw['shard'] = part
     with torch.no_grad():
       if hasattr(self.model, 'decode_operands'):
         self.model.decode_operands(x, **kw)
@@ -1586,6 +1767,7 @@ class Recoder:
       self._init_model()
     params = self.model.params()
     self.model.init_model(self.num_items, self.num_users, seed=self.seed)
+    self._shard_model()
     fresh = self.model.params()
     if fresh.keys() == params.keys() and all(
         fresh[k].shape == params[k].shape for k in params):
@@ -1666,16 +1848,73 @@ class Recoder:
           else {'compute_dtype': self.eval_compute_dtype})
     return self.model(dense, input_users=users, training=False, **kw)
 
+  def _mesh_operands(self, dense, users):
+    """On a mesh: this rank's ``(h, rows, bias, part)`` of a scoring
+    batch (its users' bottleneck, its rows of the catalog), in
+    ``eval_compute_dtype``."""
+    part = self._partition(users.shape[0])
+    h, rows, bias = self.model.decode_operands(
+        part.rows(dense), input_users=users, training=False, shard=part,
+        compute_dtype=self.eval_compute_dtype)
+    return h, rows, bias, part
+
+  def _mesh_score(self, dense, users):
+    """:meth:`_score` on a mesh: each rank scores its users against its
+    columns, and the blocks are gathered, so that every rank returns the
+    whole ``[B, num_items_padded]`` scores."""
+    h, rows, bias, part = self._mesh_operands(dense, users)
+    out = self.model.decode(h, rows, bias, self.eval_compute_dtype)
+    out = collectives.gather_columns(
+        out, self.mesh.model_group,
+        sharding_lib.split_sizes(self.model.num_items_padded, self.mesh))
+    return collectives.gather_rows(
+        out, self.mesh.data_group,
+        sharding_lib.split_sizes(users.shape[0], self.mesh, 'data'))
+
+  def _mesh_top_k(self, dense, users, k, chunk):
+    """:meth:`recommend_async`'s ids on a mesh: each rank takes the
+    top-k of its users over its columns (seen items and pad columns at
+    -inf; in slices of ``chunk`` columns when one is set), the ranks'
+    candidates merge over 'model' in ``lax.top_k``'s order, and the
+    users' rows are gathered over 'data'."""
+    h, _, _, part = self._mesh_operands(dense, users)
+    lo, hi = part.ranges['item'] if part.split else (
+        0, self.model.num_items_padded)
+    seen = part.columns(part.rows(dense)) > 0
+    B, W = h.shape[0], self.model.num_items_padded
+    best_vals = torch.full((B, k), float('-inf'), device=self.device)
+    best_idx = torch.full((B, k), W, dtype=torch.int64, device=self.device)
+    width = hi - lo if chunk is None else min(chunk, hi - lo)
+    for start in range(0, hi - lo, width):
+      w = min(width, hi - lo - start)
+      s = self.model.decode_slice(h, start, w,
+                                  compute_dtype=self.eval_compute_dtype)
+      s = s.float().masked_fill(seen[:, start:start + w], float('-inf'))
+      ids = lo + start + torch.arange(w, device=self.device)
+      s = s.masked_fill(ids[None, :] >= self.model.num_items, float('-inf'))
+      c_vals, c_idx = top_k(s, min(k, w))
+      best_vals, best_idx = merge_top_k(best_vals, best_idx, c_vals,
+                                        c_idx + lo + start, k)
+    group = self.mesh.model_group
+    sizes = [k] * self.mesh.shape['model']
+    vals = collectives.gather_columns(best_vals, group, sizes)
+    idx = collectives.gather_columns(best_idx, group, sizes)
+    _, idx = merge_top_k(vals[:, :k], idx[:, :k], vals[:, k:], idx[:, k:], k)
+    return collectives.gather_rows(
+        idx, self.mesh.data_group,
+        sharding_lib.split_sizes(users.shape[0], self.mesh, 'data'))
+
   def predict(self, users_interactions, return_input=False):
     """Full-catalog scores for a batch of users, as float32 numpy trimmed
     to the logical ``num_items`` columns; ``(scores, input)`` when
-    ``return_input``."""
+    ``return_input``. On a mesh every rank returns the whole batch's."""
     if not self._model_initialized:
       raise RuntimeError('Model not initialized.')
     with torch.no_grad():
       rows, cols, vals, users = self._inference_coo(users_interactions)
       dense = self._densify(rows, cols, vals, users.shape[0])
-      out = self._score(dense, users)
+      out = (self._score(dense, users) if self.mesh is None
+             else self._mesh_score(dense, users))
     out = out[:, :self.num_items].float().cpu().numpy()
     if return_input:
       return out, dense[:, :self.num_items].float().cpu().numpy()
@@ -1755,7 +1994,8 @@ class Recoder:
     pad columns are excluded; the top-k is ``lax.top_k``'s, ties to the
     lowest item id (``ops/topk.py``), through one ``[B, W]`` score
     matrix or, with an eval chunk (:meth:`_resolve_eval_chunk`), chunk
-    by chunk (:meth:`_chunked_top_k`)."""
+    by chunk (:meth:`_chunked_top_k`). On a mesh every rank returns the
+    whole batch's ids (:meth:`_mesh_top_k`)."""
     if not self._model_initialized:
       raise RuntimeError('Model not initialized.')
     k = int(num_recommendations)
@@ -1765,6 +2005,10 @@ class Recoder:
                        f'num_recommendations ({k})')
     with torch.no_grad():
       rows, cols, vals, users = self._inference_coo(users_interactions)
+      if self.mesh is not None:
+        return self._mesh_top_k(self._densify(rows, cols, vals,
+                                              users.shape[0]),
+                                users, k, chunk)
       if chunk is not None:
         return self._chunked_top_k(rows, cols, vals, users, k, chunk)
       dense = self._densify(rows, cols, vals, users.shape[0])
@@ -1806,7 +2050,12 @@ class Recoder:
     """Write ``{prefix}_epoch_{N}.model`` in the JAX package's npz
     format; returns its path. The write is synchronous whatever
     ``async_save`` says (it completes before this returns). The JAX
-    package's 'orbax' backend is not ported (ROADMAP Queue 1 item 5)."""
+    package's 'orbax' backend is not ported (ROADMAP Queue 1 item 5).
+
+    On a mesh every rank calls it: the ranks' rows of each split
+    parameter and of its optimizer moments are gathered, and rank 0
+    writes the file a single device writes (the other ranks wait for it
+    and return the same path)."""
     del async_save
     if backend == 'orbax':
       raise NotImplementedError("save_state(backend='orbax') is not ported "
@@ -1844,12 +2093,52 @@ class Recoder:
     if self.sparse_states:
       arrays['sparse_optimizer'] = convert.sparse_state_to_numpy(
           self.sparse_states)
+    if self.mesh is not None:
+      arrays = self._mesh_arrays(arrays, self._gather_rows)
     if self.items is not None:
       arrays['items'] = np.asarray(self.items)
     if self.users is not None:
       arrays['users'] = np.asarray(self.users)
-    save_checkpoint(checkpoint_file, arrays, meta)
+    if self.mesh is None or torch.distributed.get_rank() == 0:
+      save_checkpoint(checkpoint_file, arrays, meta)
+    if self.mesh is not None:
+      torch.distributed.barrier()
     return checkpoint_file
+
+  def _gather_rows(self, name, array):
+    """The whole ``array`` of split parameter ``name`` (or of one of its
+    moments) from the ranks' rows, gathered over 'model'."""
+    part = torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+    return collectives.gather_rows(
+        part, self.mesh.model_group,
+        sharding_lib.split_sizes(self._whole_rows[name], self.mesh)
+    ).cpu().numpy()
+
+  def _shard_rows(self, name, array):
+    """This rank's rows of the whole ``array`` of split parameter
+    ``name`` (or of one of its moments)."""
+    return sharding_lib.shard_params({name: np.asarray(array)}, self.model,
+                                     self.mesh)[name]
+
+  def _mesh_arrays(self, arrays, fn):
+    """A checkpoint's trees with ``fn(name, array)`` applied to every
+    array of a 'model'-split parameter: the parameters, the dense
+    optimizer's moments and the row-sparse Adam's."""
+    split = self._whole_rows
+    out = dict(arrays)
+    out['model'] = {k: fn(k, v) if k in split else v
+                    for k, v in arrays['model'].items()}
+    if arrays.get('optimizer') is not None:
+      out['optimizer'] = {
+          key: ({k: fn(k, v) if k in split else v for k, v in tree.items()}
+                if isinstance(tree, dict) else tree)
+          for key, tree in arrays['optimizer'].items()}
+    if arrays.get('sparse_optimizer'):
+      out['sparse_optimizer'] = {
+          path: {k: fn(path, v) if k in ('m', 'v') else v
+                 for k, v in st.items()}
+          for path, st in arrays['sparse_optimizer'].items()}
+    return out
 
   def init_from_model_file(self, model_file):
     """Restore model, optimizer and training state from an npz
@@ -1858,7 +2147,9 @@ class Recoder:
     Sparse and dense checkpoints load into sparse and dense models alike
     (a JAX sparse checkpoint's feature-padded tables are cut to the
     model's width, ``convert.fit_table``); optimizer state saved under
-    the other sparse / dense split restarts fresh, as in JAX."""
+    the other sparse / dense split restarts fresh, as in JAX. On a mesh
+    every rank reads the file and keeps its rows of each split parameter
+    and of its moments."""
     log.info('Loading model from: %s', model_file)
     if not os.path.isfile(model_file):
       raise FileNotFoundError(f'No state file found in {model_file}')
@@ -1873,8 +2164,6 @@ class Recoder:
     self.num_users = meta.get('num_users')
     self.items = arrays.get('items')
     self.users = arrays.get('users')
-    self._pending_opt_arrays = (arrays.get('optimizer'),
-                                arrays.get('sparse_optimizer') or {})
     self.sparse_states = {}
     self._iters_consumed = int(meta.get('epoch_step', 0))
     self._epoch_perm = None
@@ -1883,4 +2172,8 @@ class Recoder:
 
     self.model.load_model_params(meta['model_params'])
     self._init_model()
+    if self.mesh is not None:
+      arrays = self._mesh_arrays(arrays, self._shard_rows)
+    self._pending_opt_arrays = (arrays.get('optimizer'),
+                                arrays.get('sparse_optimizer') or {})
     convert.load_params(self.model, arrays['model'])

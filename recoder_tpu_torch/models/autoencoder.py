@@ -54,9 +54,11 @@ from recoder_tpu_torch.models.base import (FactorizationModel, activation,
                                            check_params_dtype, coo_encode,
                                            default_compute_dtype, dropout,
                                            l2_normalize_rows,
-                                           linear, pad_dim, xavier_uniform)
+                                           linear, pad_dim, take_table_rows,
+                                           xavier_uniform)
 from recoder_tpu_torch.ops.gather_matmul import (as_dtype, decode_matmul,
-                                                  encode_matmul, take_rows)
+                                                  encode_matmul,
+                                                  matmul_f32_out)
 
 
 class DynamicAutoencoder(FactorizationModel):
@@ -82,6 +84,8 @@ class DynamicAutoencoder(FactorizationModel):
       load, rounding to nearest even (serve a float32 checkpoint from
       bf16 tables by loading it into such a model).
   """
+
+  supports_mesh = True
 
   def __init__(self, hidden_layers=None, activation_type='tanh',
                is_constrained=False, dropout_prob=0.0, noise_prob=0.0,
@@ -161,6 +165,21 @@ class DynamicAutoencoder(FactorizationModel):
     if self.compute_dtype is None and 'compute_dtype' in model_params:
       self.compute_dtype = as_dtype(model_params['compute_dtype'])
 
+  def param_axes(self):
+    """The JAX package's axis names per parameter: the item tables and
+    the decoder bias on 'item', the MLP unnamed."""
+    axes = {'en_embedding': ('item', 'embed'), 'en_bias': ('embed',),
+            'de_bias': ('item',)}
+    if not self.is_constrained:
+      axes['de_embedding'] = ('item', 'embed')
+    for i in range(1, len(self.hidden_layers)):
+      axes[f'encode_w_{i}'] = (None, None)
+      axes[f'encode_bias_{i}'] = (None,)
+      if not self.is_constrained:
+        axes[f'decode_w_{i}'] = (None, None)
+      axes[f'decode_bias_{i}'] = (None,)
+    return axes
+
   def sparse_param_paths(self):
     """The tables row-sparse Adam trains when ``sparse`` (none
     otherwise)."""
@@ -184,17 +203,22 @@ class DynamicAutoencoder(FactorizationModel):
 
   # -- forward -----------------------------------------------------------
 
+  def decoder_path(self):
+    """The name of the table the decode multiplies by."""
+    return 'en_embedding' if self.is_constrained else 'de_embedding'
+
   def decoder_table(self):
     """The [num_items_padded, d0] table the decode multiplies by."""
-    return self.en_embedding if self.is_constrained else self.de_embedding
+    return getattr(self, self.decoder_path())
 
   def _compute_dtype(self, compute_dtype):
     return self.compute_dtype if compute_dtype is None else as_dtype(
         compute_dtype)
 
-  def _hidden_stack(self, z, training, generator, cd=None):
+  def _hidden_stack(self, z, training, generator, cd=None, draw_rows=None):
     """Activation after the encode, the hidden Linears, and the
-    bottleneck dropout; returns the bottleneck ``h [B, d0]``."""
+    bottleneck dropout (``draw_rows``: see ``base.dropout``'s ``rows``);
+    returns the bottleneck ``h [B, d0]``."""
     z = activation(z, self.activation_type)
     n = len(self.hidden_layers) - 1
     for i in range(1, n + 1):
@@ -202,7 +226,7 @@ class DynamicAutoencoder(FactorizationModel):
       z = activation(linear(z, w, getattr(self, f'encode_bias_{i}'),
                                   cd), self.activation_type)
     if training and self.dropout_prob > 0:
-      z = dropout(z, self.dropout_prob, generator)
+      z = dropout(z, self.dropout_prob, generator, rows=draw_rows)
     for i in range(1, n + 1):
       if self.is_constrained:
         w = getattr(self, f'encode_w_{n - i + 1}').t()
@@ -213,7 +237,7 @@ class DynamicAutoencoder(FactorizationModel):
     return z
 
   def encode(self, input, training=False, generator=None, rows=None,
-             compute_dtype=None):
+             compute_dtype=None, shard=None, catalog=None):
     """Bottleneck ``h [B, d0]`` of a dense input.
 
     ``rows`` are the encoder rows the input's columns index: the whole
@@ -221,21 +245,37 @@ class DynamicAutoencoder(FactorizationModel):
     is zero-padded to it), or gathered union rows ``[W, d0]`` for an
     input ``[B, W]``. ``generator`` drives the noise and bottleneck
     dropout when ``training``. ``compute_dtype`` overrides the model's.
+
+    ``shard`` (a mesh's ``parallel.sharding.Partition``): ``input`` is the
+    rank's users over every column, and ``rows`` the rank's rows of the
+    catalog (``catalog``, by default when ``rows`` is None: the input's
+    columns are the catalog's, and the rank multiplies its own) or of a
+    union (other ranks' rows zeroed); the partial products are added over
+    'model'.
     """
     cd = self._compute_dtype(compute_dtype)
+    catalog = rows is None if catalog is None else catalog
     if rows is None:
       rows = self.en_embedding
-    if input.shape[1] < rows.shape[0]:
-      input = nn.functional.pad(input, (0, rows.shape[0] - input.shape[1]))
+    width = (self.num_items_padded if shard is not None and catalog
+             else rows.shape[0])
+    if input.shape[1] < width:
+      input = nn.functional.pad(input, (0, width - input.shape[1]))
     z = l2_normalize_rows(input)
+    draw_rows = None if shard is None else shard.draw_rows
     if training and self.noise_prob > 0:
-      z = dropout(z, self.noise_prob, generator)
-    z = encode_matmul(z, rows, self.en_bias, cd)
-    return self._hidden_stack(z, training, generator, cd)
+      z = dropout(z, self.noise_prob, generator, rows=draw_rows)
+    if shard is None:
+      z = encode_matmul(z, rows, self.en_bias, cd)
+    else:
+      if catalog:
+        z = shard.columns(z)
+      z = shard.reduce_partial(matmul_f32_out(z, rows, cd)) + self.en_bias
+    return self._hidden_stack(z, training, generator, cd, draw_rows)
 
   def decode_operands(self, input, input_items=None, target_items=None,
                       gathered=None, training=False, generator=None,
-                      compute_dtype=None, input_users=None):
+                      compute_dtype=None, input_users=None, shard=None):
     """``(h, rows, bias)`` with scores ``h @ rows.T + bias``.
 
     ``input_items`` / ``target_items``: the item ids of the input's and
@@ -243,16 +283,28 @@ class DynamicAutoencoder(FactorizationModel):
     used (an item-based model). ``gathered``: the
     union rows of the sparse step, by :meth:`sparse_entries` name; the
     tables are then not read, except for the decoder bias.
+
+    ``shard`` (a mesh's ``Partition``): ``input`` holds the rank's users,
+    the tables and ``gathered`` the rank's rows; the result is the rank's
+    ``h`` (whole over 'model') and the rows and bias of the columns it
+    owns (other ranks' columns zeroed in a union; its column range of the
+    catalog).
     """
+    def take(path, ids):
+      return take_table_rows(self, path, ids, shard)
+
     if gathered is not None:
       en_rows = gathered['en_rows']
       rows = gathered.get('de_rows', en_rows)
     else:
-      en_rows = take_rows(self.en_embedding, input_items)
-      rows = take_rows(self.decoder_table(), target_items)
+      en_rows = take('en_embedding', input_items)
+      rows = take(self.decoder_path(), target_items)
     h = self.encode(input, training, generator, rows=en_rows,
-                    compute_dtype=compute_dtype)
-    return h, rows, take_rows(self.de_bias, target_items)
+                    compute_dtype=compute_dtype, shard=shard,
+                    catalog=input_items is None)
+    if shard is not None:
+      h = shard.share(h)
+    return h, rows, take('de_bias', target_items)
 
   def decode(self, h, rows, bias, compute_dtype=None):
     """Scores ``h @ rows.T + bias`` of :meth:`decode_operands`' three,

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from recoder_tpu_torch.ops.gather_matmul import row_sums
+from recoder_tpu_torch.ops.gather_matmul import row_sums, take_rows
 
 
 LANE_ALIGN = 256
@@ -130,15 +130,31 @@ def adapt_array(ref, arr):
   return t.to(device=ref.device, dtype=ref.dtype)
 
 
-def dropout(x, rate, generator=None, keep_mask=None):
+def take_table_rows(model, path, ids, shard=None):
+  """``model``'s table ``path`` at the rows ``ids`` (the whole table for
+  None); on a mesh (``shard``, a ``parallel.sharding.Partition``) the
+  rank's rows of them (:meth:`Partition.take`)."""
+  table = getattr(model, path)
+  return (take_rows(table, ids) if shard is None
+          else shard.take(path, table, ids))
+
+
+def dropout(x, rate, generator=None, keep_mask=None, rows=None):
   """Inverted dropout (``torch.nn.Dropout`` train-mode scaling).
 
   The keep mask is drawn from ``generator`` (on ``x``'s device) unless
   ``keep_mask`` is given; tests pass one to feed both frameworks the
-  same mask.
+  same mask. ``rows = (lo, hi, n)``: ``x`` is rows ``[lo, hi)`` of an
+  ``n``-row batch (a mesh rank's users), and the mask is those rows of
+  the whole batch's draw, the mask a single device draws.
   """
   keep = 1.0 - rate
-  if keep_mask is None:
+  if keep_mask is None and rows is not None:
+    lo, hi, n = rows
+    keep_mask = torch.empty((n, *x.shape[1:]), dtype=x.dtype,
+                            device=x.device).bernoulli_(
+                                keep, generator=generator)[lo:hi]
+  elif keep_mask is None:
     keep_mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
   return torch.where(keep_mask.bool(), x / keep, torch.zeros_like(x))
 
@@ -191,6 +207,15 @@ class FactorizationModel(nn.Module):
 
   def load_model_params(self, model_params):
     """Restore hyper-parameters from a checkpoint dict."""
+    raise NotImplementedError
+
+  #: whether the trainer runs the model on a mesh (``Recoder(mesh=...)``)
+  supports_mesh = False
+
+  def param_axes(self):
+    """Map param-path -> axis-name tuple (e.g. ('item', 'embed')): the
+    'item' and 'user' axes are split over a mesh's 'model' axis
+    (``parallel/sharding.py``)."""
     raise NotImplementedError
 
   def sparse_param_paths(self):

@@ -217,7 +217,8 @@ class IALS:
     if mesh is not None or factor_sharding is not None:
       raise NotImplementedError(
           'iALS fit(mesh=..., factor_sharding=...) is not ported to the '
-          'PyTorch package yet (multi-GPU); fit on one device')
+          'PyTorch package yet (multi-GPU, ROADMAP Queue 1 item 8); fit '
+          'on one device')
     m = sp.csr_matrix(train_matrix, copy=True).astype(np.float32)
     m.eliminate_zeros()  # an explicit zero is NOT an observation
     if m.nnz and m.data.min() < 0:

@@ -33,7 +33,8 @@ import torch
 from recoder_tpu_torch.models.base import (FactorizationModel, activation,
                                            check_params_dtype,
                                            default_compute_dtype, dropout,
-                                           pad_dim, xavier_uniform)
+                                           pad_dim, take_table_rows,
+                                           xavier_uniform)
 from recoder_tpu_torch.ops.gather_matmul import (as_dtype, decode_matmul,
                                                   take_rows)
 
@@ -54,6 +55,8 @@ class MatrixFactorization(FactorizationModel):
       ('bfloat16'; None: float32), restored by the constructor on load
       (checkpoints store float32).
   """
+
+  supports_mesh = True
 
   def __init__(self, embedding_size, activation_type='none',
                dropout_prob=0, sparse=False, compute_dtype=None,
@@ -109,6 +112,13 @@ class MatrixFactorization(FactorizationModel):
     if self.compute_dtype is None and 'compute_dtype' in model_params:
       self.compute_dtype = as_dtype(model_params['compute_dtype'])
 
+  def param_axes(self):
+    """The JAX package's axis names: both tables and the bias split over
+    a mesh's 'model' axis (the user table by user rows)."""
+    return {'user_embedding': ('user', 'embed'),
+            'item_embedding': ('item', 'embed'),
+            'bias': ('item',)}
+
   def sparse_param_paths(self):
     return ('user_embedding', 'item_embedding') if self.sparse else ()
 
@@ -123,26 +133,43 @@ class MatrixFactorization(FactorizationModel):
 
   def decode_operands(self, input, input_items=None, target_items=None,
                       gathered=None, training=False, generator=None,
-                      compute_dtype=None, input_users=None, keep_mask=None):
+                      compute_dtype=None, input_users=None, keep_mask=None,
+                      shard=None):
     """``(h, rows, bias)`` with scores ``h @ rows.T + bias``: ``h`` the
     activated (and, in training, dropped-out) rows of ``input_users``,
     ``rows`` and ``bias`` those of ``target_items`` (None: the whole
     catalog). ``gathered``: the sparse step's rows by
     :meth:`sparse_entries` name. The interactions (``input``) do not
     enter: MF scores depend on the user ids. ``keep_mask``: a given
-    dropout mask (tests feed both frameworks the same one)."""
+    dropout mask (tests feed both frameworks the same one).
+
+    ``shard`` (a mesh's ``Partition``): ``input_users`` (and
+    ``gathered``'s user rows) are the whole batch's, the tables hold the
+    rank's rows; ``h`` is the rank's users' (each user's row added over
+    'model' from the rank that holds it), ``rows`` and ``bias`` the
+    columns the rank owns."""
     del input, input_items, compute_dtype
+
+    def take(path, ids):
+      return take_table_rows(self, path, ids, shard)
+
     if gathered is not None:
       u, rows = gathered['user_rows'], gathered['item_rows']
     else:
       if input_users is None:
         raise ValueError('MatrixFactorization scores need input_users')
-      u = take_rows(self.user_embedding, input_users)
-      rows = take_rows(self.item_embedding, target_items)
+      u = take('user_embedding', input_users)
+      rows = take('item_embedding', target_items)
+    draw_rows = None
+    if shard is not None:
+      u = shard.reduce_partial(shard.rows(u))
+      draw_rows = shard.draw_rows
     u = activation(u, self.activation_type)
     if training and self.dropout_prob > 0:
-      u = dropout(u, self.dropout_prob, generator, keep_mask)
-    return u, rows, take_rows(self.bias, target_items)
+      u = dropout(u, self.dropout_prob, generator, keep_mask, rows=draw_rows)
+    if shard is not None:
+      u = shard.share(u)
+    return u, rows, take('bias', target_items)
 
   def decode(self, h, rows, bias, compute_dtype=None):
     """Scores ``h @ rows.T + bias`` in the compute dtype."""

@@ -11,6 +11,8 @@ reduction ('none' | 'elementwise_mean' | 'sum').
 
 import torch
 
+from recoder_tpu_torch.parallel import collectives
+
 
 _NEG_INF = -1e30
 
@@ -57,9 +59,14 @@ def logistic_loss(input, target, row_mask=None, col_mask=None):
   return _apply_masks(loss, row_mask, col_mask)
 
 
-def multinomial_nll_loss(input, target, row_mask=None, col_mask=None):
+def multinomial_nll_loss(input, target, row_mask=None, col_mask=None,
+                         group=None):
   """Multinomial NLL ``-y * log_softmax(x)`` over the valid columns;
-  masked columns are left out of the softmax normalizer."""
+  masked columns are left out of the softmax normalizer.
+
+  ``group``: the columns are this rank's share of a catalog split over a
+  mesh's 'model' axis; each row's maximum and sum of exponentials are
+  taken over the group's columns (two ``[B, 1]`` collectives)."""
   input = input.float()
   target = target.float()
   if col_mask is not None:
@@ -67,8 +74,14 @@ def multinomial_nll_loss(input, target, row_mask=None, col_mask=None):
                          torch.full_like(input, _NEG_INF))
   else:
     logits = input
-  shifted = logits - torch.amax(logits, dim=1, keepdim=True)
-  log_z = torch.log(torch.sum(torch.exp(shifted), dim=1, keepdim=True))
+  if group is None:
+    shifted = logits - torch.amax(logits, dim=1, keepdim=True)
+    log_z = torch.log(torch.sum(torch.exp(shifted), dim=1, keepdim=True))
+  else:
+    shifted = logits - collectives.max_over(
+        torch.amax(logits, dim=1, keepdim=True), group)
+    log_z = torch.log(collectives.sum_both(
+        torch.sum(torch.exp(shifted), dim=1, keepdim=True), group))
   loss = -target * (shifted - log_z)
   return _apply_masks(loss, row_mask, col_mask)
 

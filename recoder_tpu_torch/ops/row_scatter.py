@@ -10,7 +10,9 @@ written; untouched rows stay bitwise unchanged.
 
 Contract, as the TPU kernel's: ids are in bounds (the data pipeline
 guarantees it; the plain twin checks it), and a repeated id carries the
-same payload in every slot, so the racing writes need no atomics.
+same payload in every slot, so the racing writes need no atomics. Beyond
+the TPU kernel's, an id of -1 marks a slot that is skipped: on a mesh, a
+union row that another rank holds (``parallel/sharding.Partition``).
 Each table is float32 or bf16 (bf16 parameter storage, bf16 moments),
 its rows in the same dtype, and the tables of one call may differ (a bf16
 table beside float32 moments): the kernel copies each table's rows in its
@@ -76,12 +78,15 @@ def _check_args(tables, ids, rows):
 
 
 def row_scatter_plain(tables, ids, rows):
-  """Plain PyTorch version: ``index_copy_`` per table, after a bounds
-  check."""
+  """Plain PyTorch version: ``index_copy_`` per table of the slots whose
+  id is not -1, after a bounds check."""
   tables, rows = _check_args(tables, ids, rows)
   n = tables[0].shape[0]
-  if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= n):
-    raise IndexError(f'row ids outside 0..{n - 1}')
+  if ids.numel() and (int(ids.min()) < -1 or int(ids.max()) >= n):
+    raise IndexError(f'row ids outside -1..{n - 1}')
+  keep = ids >= 0
+  if not bool(keep.all()):
+    ids, rows = ids[keep], [r[keep] for r in rows]
   for t, r in zip(tables, rows):
     t.index_copy_(0, ids, r)
 
@@ -167,8 +172,8 @@ def row_scatter_(tables, ids, rows):
 
   Args:
     tables: sequence of [N, d] tables (same shape), each float32 or bf16.
-    ids: int64 [W] row ids, in bounds; a repeated id must carry the same
-      payload in every slot.
+    ids: int64 [W] row ids, in bounds, or -1 for a slot to skip; a
+      repeated id must carry the same payload in every slot.
     rows: sequence of [W, d] rows, one per table, in its dtype.
   """
   device = ids.device

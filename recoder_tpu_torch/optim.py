@@ -509,7 +509,8 @@ class SparseRowAdam:
       ids: int64 [R] row ids, unique but for repeats that carry the same
         gradient in every slot (a sentinel tail of zero gradients), or
         None for every row (``row_grads`` is then the whole table's
-        gradient [N, d]).
+        gradient [N, d]). A slot of id -1 is left out (on a mesh: a union
+        row that another rank holds).
       row_grads: [R, d] gradient of the gathered rows (any float dtype;
         the math upcasts it).
       lr: learning rate.
@@ -532,9 +533,11 @@ class SparseRowAdam:
     if ids is None:
       m_rows, v_rows, p_rows = state['m'], state['v'], table
     else:
-      m_rows = state['m'].index_select(0, ids)
-      v_rows = state['v'].index_select(0, ids)
-      p_rows = table.index_select(0, ids)
+      # (a skipped slot reads row 0 and writes nothing)
+      at = ids.clamp(min=0)
+      m_rows = state['m'].index_select(0, at)
+      v_rows = state['v'].index_select(0, at)
+      p_rows = table.index_select(0, at)
     new_m = b1 * m_rows.float() + (1 - b1) * g
     new_v = b2 * v_rows.float() + (1 - b2) * g * g
     new_p = p_rows.float() - step_size * new_m / (torch.sqrt(new_v)

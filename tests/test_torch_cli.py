@@ -357,21 +357,26 @@ def test_fit_models_go_through_every_command(workspace, model):
   assert got[1:] == want[1:]
 
 
-@pytest.mark.parametrize('change', [
-    lambda c: c['trainer'].update(mesh_model=2),
-    lambda c: c.update(model={'type': 'ials', 'embedding_size': 4,
-                              'factor_sharding': 'users', 'device': 'cpu'}),
-    lambda c: c.update(model={'type': 'ials', 'embedding_size': 4,
-                              'device': 'cpu'},
-                       trainer={'mesh_model': 2}),
-    lambda c: c.update(model={'type': 'ease', 'solve': 'newton',
-                              'device': 'cpu'})])
-def test_settings_not_ported_raise(workspace, change):
+@pytest.mark.parametrize('change,error,match', [
+    # (a mesh of 2 needs a launch of 2 processes: torchrun)
+    (lambda c: c['trainer'].update(mesh_model=2), ValueError,
+     'torchrun --nproc_per_node=2'),
+    (lambda c: c.update(model={'type': 'ials', 'embedding_size': 4,
+                               'factor_sharding': 'users', 'device': 'cpu'}),
+     NotImplementedError, 'Queue 1 item 8'),
+    (lambda c: c.update(model={'type': 'ials', 'embedding_size': 4,
+                               'device': 'cpu'},
+                        trainer={'mesh_model': 2}),
+     NotImplementedError, 'Queue 1 item 8'),
+    (lambda c: c.update(model={'type': 'ease', 'solve': 'newton',
+                               'device': 'cpu'}),
+     NotImplementedError, 'newton')])
+def test_settings_not_ported_raise(workspace, change, error, match):
   tmp_path, _, _, port_cfg, _, _ = workspace
   cfg = json.loads(json.dumps(port_cfg))
   change(cfg)
   path = _write(tmp_path / 'refused.json', cfg)
-  with pytest.raises(NotImplementedError):
+  with pytest.raises(error, match=match):
     run(cli, ['train', '--config', path])
 
 

@@ -408,6 +408,20 @@ def test_row_scatter_sentinel_tail_and_msd_shape(cuda):
   _scatter_both(tables, ids, rows)
 
 
+@pytest.mark.parametrize('d', [3, 200])
+def test_row_scatter_skips_the_slots_of_id_minus_one(cuda, d):
+  """A mesh rank's sparse update: the union slots whose row another rank
+  holds carry id -1 and write nothing (both paths of the kernel)."""
+  tables, ids, rows = _scatter_case(41216, d, 1000, cuda, seed=d)
+  ids = torch.where(torch.arange(1000, device=cuda) % 3 == 0, -1, ids)
+  out, launched = _scatter_both(tables, ids, rows)
+  assert launched == 1
+  untouched = torch.ones(41216, dtype=torch.bool, device=cuda)
+  untouched[ids[ids >= 0]] = False
+  for a, b in zip(out, tables):
+    assert torch.equal(a[untouched], b[untouched])
+
+
 def test_row_scatter_refuses_what_it_does_not_take(cuda):
   tables, ids, rows = _scatter_case(10, 8, 4, cuda)
   with pytest.raises(ValueError, match='int64'):

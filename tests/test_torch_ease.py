@@ -157,7 +157,7 @@ def test_guards():
     EASE(device='cpu').fit(m, max_items=20)
   with pytest.raises(NotImplementedError, match='TPU-only workarounds'):
     EASE(device='cpu').fit(m, solve='newton')
-  with pytest.raises(NotImplementedError, match='Queue 1 item 7'):
+  with pytest.raises(NotImplementedError, match='Queue 1 item 8'):
     EASE(device='cpu').fit(m, mesh=object())
   with pytest.raises(RuntimeError, match='fit'):
     EASE(device='cpu').predict(UsersInteractions(np.arange(2), m[:2]))

@@ -87,7 +87,13 @@ def test_checks():
   with pytest.raises(IndexError):
     rs.row_scatter_(t, torch.tensor([0, 10, 2]), r)
   with pytest.raises(IndexError):
-    rs.row_scatter_(t, torch.tensor([0, -1, 2]), r)
+    rs.row_scatter_(t, torch.tensor([0, -2, 2]), r)
+  # (-1 marks a skipped slot: a mesh rank's row that another rank holds)
+  skipped = [x.clone() for x in t]
+  rs.row_scatter_(skipped, torch.tensor([0, -1, 2]), r)
+  for x, y, z in zip(skipped, t, r):
+    assert torch.equal(x[[0, 2]], z[[0, 2]])
+    assert torch.equal(x[[1, *range(3, 10)]], y[[1, *range(3, 10)]])
   with pytest.raises(ValueError, match='int64'):
     rs.row_scatter_(t, i.int(), r)
   with pytest.raises(ValueError, match='shape'):

@@ -30,6 +30,7 @@ import inspect
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import torch
 
 import recoder_tpu.cli as jax_cli
 import recoder_tpu.embedding as jax_embedding
@@ -37,6 +38,7 @@ import recoder_tpu.metrics as jax_metrics
 import recoder_tpu.model as jax_model
 import recoder_tpu.models as jax_models
 import recoder_tpu.native.ann as jax_ann
+import recoder_tpu.parallel as jax_parallel
 import recoder_tpu.preprocessing as jax_preprocessing
 import recoder_tpu.recommender as jax_recommender
 import recoder_tpu.utils as jax_utils
@@ -46,6 +48,7 @@ import recoder_tpu_torch.metrics as metrics
 import recoder_tpu_torch.model as model
 import recoder_tpu_torch.models as models
 import recoder_tpu_torch.native.ann as ann
+import recoder_tpu_torch.parallel as parallel
 import recoder_tpu_torch.preprocessing as preprocessing
 import recoder_tpu_torch.recommender as recommender
 import recoder_tpu_torch.utils as utils
@@ -59,10 +62,14 @@ RENAMED = {'rng': 'generator'}
 #: public JAX methods the port does not have yet, with their ROADMAP item
 JAX_ONLY_METHODS = {}
 #: Queue 1 items ported since their arguments were added: they construct
-PORTED = {'Queue 1 item 5'}
+PORTED = {'Queue 1 item 5', 'Queue 1 item 7'}
+#: the trainer's mesh argument: a (1, 1) mesh, built in the test (a one-rank
+#: gloo group, destroyed after)
+ONE_RANK_MESH = 'a (1, 1) mesh'
 
 MODEL_METHODS = ('__init__', 'init_model', 'model_params',
-                 'load_model_params', 'sparse_param_paths', 'sparse_entries')
+                 'load_model_params', 'sparse_param_paths', 'sparse_entries',
+                 'param_axes')
 
 
 def _params(fn, drop=(), rename=None):
@@ -105,6 +112,13 @@ def _cases():
     cases.append(('utils', jax_utils, utils, name, name))
   # the serving surface: the CLI's functions, the embeddings indexes and
   # their native forest, the similarity recommender, the preprocessing
+  # the mesh package
+  for name in jax_parallel.__all__:
+    if name == 'MeshConfig':
+      cases.append(('MeshConfig', jax_parallel.MeshConfig,
+                    parallel.MeshConfig, '__init__', '__init__'))
+    else:
+      cases.append(('parallel', jax_parallel, parallel, name, name))
   for name in ('parse_metrics', '_load_datasets', '_build_model',
                '_fit_model_kind', '_is_fit_model', '_load_fit_model',
                '_build_trainer', 'cmd_train', '_evaluate_fit_model',
@@ -140,7 +154,10 @@ def test_signature_matches_jax(owner, jax_cls, port_cls, jax_name,
     # (an allowed difference: the method comes with its Queue 1 item)
     assert not hasattr(port_cls, port_name)
     return
-  want = _params(getattr(jax_cls, jax_name), drop=JAX_FUNCTIONAL,
+  # (the mesh package's functions take real parameter dicts: nothing of
+  # the functional form to drop)
+  functional = () if owner == 'parallel' else JAX_FUNCTIONAL
+  want = _params(getattr(jax_cls, jax_name), drop=functional,
                  rename=RENAMED)
   got = _params(getattr(port_cls, port_name), drop=PORT_ONLY)
   assert got == want, f'{owner}.{port_name}: {got} != {want}'
@@ -168,14 +185,22 @@ def _matrix():
 
 
 @pytest.mark.parametrize('kw,where', [
-    (dict(mesh=object()), 'Queue 1 item 7'),
+    (dict(mesh=ONE_RANK_MESH), 'Queue 1 item 7'),
     (dict(eval_item_chunk=1024), 'Queue 1 item 5'),
     (dict(eval_topk='approx'), 'Queue 1 item 5')])
 def test_queue_one_arguments_of_the_trainer_raise(kw, where):
   if where in PORTED:
-    tr = model.Recoder(models.DynamicAutoencoder([4]), device='cpu', **kw)
-    for name, value in kw.items():
-      assert getattr(tr, name) == value
+    made = kw.get('mesh') == ONE_RANK_MESH
+    if made:
+      kw = dict(kw, mesh=parallel.make_mesh(parallel.MeshConfig(1, 1),
+                                            devices='cpu'))
+    try:
+      tr = model.Recoder(models.DynamicAutoencoder([4]), device='cpu', **kw)
+      for name, value in kw.items():
+        assert getattr(tr, name) is value or getattr(tr, name) == value
+    finally:
+      if made:
+        torch.distributed.destroy_process_group()
     return
   with pytest.raises(NotImplementedError, match=where):
     model.Recoder(models.DynamicAutoencoder([4]), device='cpu', **kw)
@@ -183,7 +208,7 @@ def test_queue_one_arguments_of_the_trainer_raise(kw, where):
 
 @pytest.mark.parametrize('kw,where', [
     (dict(num_random_negatives=4), None),  # ported: it trains
-    (dict(table_sharding=True), 'Queue 1 item 7')])
+    (dict(table_sharding=True), 'Queue 1 item 8')])
 def test_queue_one_arguments_of_train_raise(kw, where):
   tr = model.Recoder(models.DynamicAutoencoder([4]), optimizer_type='adam',
                      device='cpu')
