@@ -398,6 +398,36 @@ Phases, each of which raises on failure:
                 split table; user-batches/s of a window of 64 steps beside
                 the one-card rate. The phase prints which of (b) and (c)
                 ran, and its seconds.
+ 33. mesh fits -- the rest of the mesh. (a) In this process, a one-rank
+                NCCL group and a (1, 1) mesh, at the ML-20M shape: iALS
+                (phase 8's d=128, 2 sweeps) in both layouts
+                (factor_sharding None and 'users') bitwise the fit
+                without a mesh, one spd_solve launch a chunk a half-sweep,
+                a sweep of each in turns by CUDA events, and the kernel's
+                launches and device time in a profiled mesh sweep; EASE
+                lam 200 at 20,108 items, the mesh fit's row-sharded
+                Newton-Schulz B against the Cholesky B (rtol 5e-4, atol
+                5e-5), its residual, iterations and seconds; Mult-VAE[600,
+                200] bf16 (the full softmax) and bench.py's ML-20M default
+                with table_sharding='data' (the split fetch driven on the
+                one 'data' rank by lowering SHARD_MIN_DATA_RANKS to 1; the
+                slab declined, the triplet scatter), each for 64 captured
+                steps bitwise the trainer without a mesh (replicated
+                tables), the rates in turns.
+                (b) With 2 or more cards, spawned ranks over NCCL; (c) with
+                one card, 2 ranks on it over gloo: iALS (1 sweep) with
+                factor_sharding='users' and 20 float32 Mult-VAE steps at
+                (1, 2), 20 float32 ML-20M steps over 'data'-sharded tables
+                at (2, 1), each against one card: the iALS factors at the
+                CPU tests' rtol 1e-5 / atol 5e-6; the losses at rtol
+                1e-3, the Adam state after the first step at the CPU
+                tests' tolerances (Mult-VAE rtol 5e-4 / atol 1e-5, the
+                tables atol 2e-5) and each moment array, the first and
+                the second apart, within 1e-4 (relative Frobenius); after
+                20 steps every parameter within 1e-3 (relative Frobenius,
+                phase 32's), at most a 1e-3 share of the entries outside
+                the elementwise tolerance, and every entry within 2 lr a
+                step.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -5138,14 +5168,15 @@ def mesh_rank(rank, world, out, backend, shape, cells):
     raise
 
 
-def spawn_mesh(out, backend, shape, cells, timeout=420):
-  """(b) or (c): ``shape``'s ranks spawned on ``backend``; raises with
+def spawn_mesh(out, backend, shape, cells, timeout=420, target=None):
+  """(b) or (c): ``shape``'s ranks spawned on ``backend``, each running
+  ``target`` (phase 32's :func:`mesh_rank` by default); raises with
   their tracebacks if one fails, and kills them all past ``timeout``."""
   import multiprocessing
   os.makedirs(out, exist_ok=True)
   ctx = multiprocessing.get_context('spawn')
   world = shape[0] * shape[1]
-  procs = [ctx.Process(target=mesh_rank,
+  procs = [ctx.Process(target=target or mesh_rank,
                        args=(rank, world, out, backend, shape, cells))
            for rank in range(world)]
   for p in procs:
@@ -5294,6 +5325,459 @@ def phase_mesh(card):
   seconds = time.time() - t0
   say(f'  phase 32 took {seconds:.1f} s')
   return one_rank, spawned, which
+
+
+# -- phase 33 --------------------------------------------------------------
+
+#: (a)'s iALS: phase 8's ML-20M configuration, 2 sweeps; (b)-(c)'s, 1 (the
+#: 'users' item solve sums its slabs through the host over gloo)
+MESH_IALS = dict(IALS_FULL, sweeps=2)
+MESH_IALS_SPAWNED = dict(IALS_FULL, sweeps=1)
+#: (rtol, atol) of an iALS mesh fit against one device, by layout
+#: (tests/test_ials.py)
+MESH_IALS_TOL = {'rows': (1e-6, 1e-6), 'users': (1e-5, 5e-6)}
+MESH_EASE_LAM = 200.0
+#: (rtol, atol) of the EASE mesh B against the Cholesky B
+#: (tests/test_ease.py::test_ease_sharded_solve_matches)
+MESH_EASE_TOL = (5e-4, 5e-5)
+#: (rtol, atol) of a spawned Mult-VAE's Adam state against one card
+#: (tests/test_torch_mesh.py), and of the state trained over 'data'-sharded
+#: tables against replicated ones
+#: (tests/test_sharding.py::test_sharded_tables_match_replicated), each
+#: held after the first step; after MESH_STEPS the parameters are held at
+#: phase 32's relative Frobenius TABLE_RTOL (Adam turns a gradient within
+#: rounding of zero into a step of +-lr either way: an entry's difference
+#: is then up to 2 lr a step, whatever the arithmetic's agreement)
+MESH_TRAIN_TOL = {'multvae': (5e-4, 1e-5), 'ml20m_tables': (0.0, 2e-5)}
+#: after the first step, each Adam moment array, the first and the second
+#: apart, within this relative Frobenius norm of one card's (the second
+#: moment, about (1 - b2) g^2, lies far below any absolute tolerance)
+MESH_STATE_RTOL = 1e-4
+#: after MESH_STEPS, the largest share of the parameters' entries outside
+#: the elementwise MESH_TRAIN_TOL; every entry lies within 2 lr MESH_STEPS
+#: of one card's (Adam's +-lr either way, each step)
+MESH_OUTSIDE_SHARE = 1e-3
+#: the spawned cells of (b)-(c), by mesh shape
+MESH_FIT_RUNS = {(1, 2): ('ials_users', 'multvae'), (2, 1): ('ml20m_tables',)}
+
+
+def tol_ratio(got, want, rtol, atol):
+  """The largest ``|got - want| / (atol + rtol |want|)`` (1 is the
+  tolerance's edge), elementwise, of two tensors or arrays."""
+  import torch
+  got, want = (torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
+                               else x).double() for x in (got, want))
+  want = want.to(got.device)
+  return float(torch.max(torch.abs(got - want)
+                         / (atol + rtol * torch.abs(want))))
+
+
+def multvae_trainer(mesh=None, compute_dtype=None):
+  """Phase 24's Mult-VAE[600, 200] trainer (the full softmax), at
+  ``compute_dtype`` (bf16: bf16 moments too)."""
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import MultVAE
+  return Recoder(MultVAE(**MULTVAE_MODEL, compute_dtype=compute_dtype),
+                 optimizer_type='adam', loss='logloss',
+                 opt_state_dtype=compute_dtype, mesh=mesh)
+
+
+def sweep_ms(halves, item_f):
+  """CUDA-event ms of one sweep (a user and an item half-sweep) through
+  ``halves``."""
+  import torch
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  user_half, item_half = halves
+  start.record()
+  item_half(user_half(item_f))
+  end.record()
+  end.synchronize()
+  return start.elapsed_time(end)
+
+
+def mesh_ials_one_rank(matrix, mesh, card):
+  """(a)'s iALS: phase 8's fit on the (1, 1) mesh in both layouts, bitwise
+  the fit without a mesh; one kernel launch per chunk per half-sweep by
+  the counter; a sweep of each in turns by CUDA events; in a profiled
+  mesh sweep the kernel's launches and device time by name."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  from recoder_tpu_torch.models import IALS
+  from recoder_tpu_torch.ops import spd
+  n_user, n_item = ials_chunks(IALS(**MESH_IALS), matrix)
+  sweeps = MESH_IALS['sweeps']
+  expected = sweeps * (n_user + n_item) + n_user
+  fits = {}
+  for name, kw in (('none', {}), ('rows', {'mesh': mesh}),
+                   ('users', {'mesh': mesh, 'factor_sharding': 'users'})):
+    model = IALS(**MESH_IALS)
+    spd.LAUNCHES['spd_solve'] = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    model.fit(matrix, **kw)
+    torch.cuda.synchronize()
+    fits[name] = (model, time.time() - t0, spd.LAUNCHES['spd_solve'])
+  ref = fits['none'][0]
+  for name in ('rows', 'users'):
+    model, seconds, launches = fits[name]
+    if not (torch.equal(model.item_factors, ref.item_factors) and torch.equal(
+        model._whole_user_factors(), ref.user_factors)):
+      raise AssertionError(f'(a) iALS {name} on the (1, 1) mesh is not '
+                           'bitwise the fit without a mesh')
+    if launches != expected:
+      raise AssertionError(f'(a) iALS {name}: {launches} spd_solve launches, '
+                           f'expected one a chunk a half-sweep: {expected}')
+    say(f'  (a) iALS {name} (d=128, {sweeps} sweeps): bitwise the fit without '
+        f'a mesh; {launches} spd_solve launches ({n_user} user and {n_item} '
+        f'item chunks a half-sweep: {n_user + n_item} a sweep); fit '
+        f'{seconds:.3f} s against {fits["none"][1]:.3f} s without a mesh, '
+        f'plan builds included; card {card}')
+  halves = {name: fits[name][0]._half_sweeps(matrix, 1 << 21)
+            for name in fits}
+  times = {name: [] for name in fits}
+  for name in ('none', 'rows', 'users', 'users', 'rows', 'none'):
+    times[name].append(sweep_ms(halves[name], ref.item_factors))
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    settle_profiler()
+    sweep_ms(halves['rows'], ref.item_factors)
+  rows = [r for r in device_rows(prof.key_averages())
+          if 'spd_solve_kernel' in r[2]]
+  kernel_ms, kernel_n = sum(r[0] for r in rows), sum(r[1] for r in rows)
+  if kernel_n != n_user + n_item:
+    raise AssertionError(f'(a) a profiled mesh sweep launched spd_solve '
+                         f'{kernel_n} times, expected {n_user + n_item}')
+  say('  (a) a sweep by CUDA events in turns: '
+      + '; '.join(f'{name} ' + ', '.join(f'{t:.3f}' for t in ts) + ' ms'
+                  for name, ts in times.items())
+      + f'; a profiled (1, 1) mesh sweep: spd_solve_kernel {kernel_n} '
+      f'launches, {kernel_ms:.3f} ms on the device; card {card}')
+  return {'launches_per_sweep': kernel_n, 'kernel_ms': kernel_ms,
+          'sweep_ms': times,
+          'fit_s': {name: f[1] for name, f in fits.items()}}
+
+
+def mesh_ease_one_rank(matrix, mesh, card):
+  """(a)'s EASE: the mesh fit (the row-sharded Newton-Schulz solve on a
+  (1, 1) mesh) against phase 25's Cholesky B at the JAX mesh test's
+  tolerance; the residual, the iterations and the seconds."""
+  import torch
+  from recoder_tpu_torch.models import EASE
+  torch.cuda.synchronize()
+  t0 = time.time()
+  ref = EASE(lam=MESH_EASE_LAM).fit(matrix)
+  torch.cuda.synchronize()
+  chol_s = time.time() - t0
+  t0 = time.time()
+  got = EASE(lam=MESH_EASE_LAM).fit(matrix, mesh=mesh)
+  torch.cuda.synchronize()
+  fit_s = time.time() - t0
+  info = got.fit_info
+  ratio = tol_ratio(got.item_weights, ref.item_weights, *MESH_EASE_TOL)
+  worst = float(torch.max(torch.abs(got.item_weights - ref.item_weights)))
+  zero = bool((got.item_weights.diagonal() == 0).all())
+  say(f'  (a) EASE lam {MESH_EASE_LAM:g} at {matrix.shape[1]:,} items on the '
+      f'(1, 1) mesh: Newton-Schulz {info["iterations"][0]} + '
+      f'{info["iterations"][1]} iterations, RMS residual '
+      f'{info["residual"]:.3g}; Gram {info["gram_s"]:.3f} s, solve '
+      f'{info["solve_s"]:.3f} s, fit {fit_s:.3f} s (Cholesky fit '
+      f'{chol_s:.3f} s); B against the Cholesky B: max |diff| '
+      f'{worst:.3g}, {ratio:.3g} of the tolerance (rtol '
+      f'{MESH_EASE_TOL[0]}, atol {MESH_EASE_TOL[1]}); card {card}')
+  if not ratio <= 1.0 or not zero:
+    raise AssertionError(f'(a) EASE mesh B outside the tolerance ({ratio}) '
+                         f'or a nonzero diagonal ({not zero})')
+  return dict(info, fit_s=fit_s, cholesky_fit_s=chol_s, ratio=ratio,
+              max_diff=worst)
+
+
+def mesh_trainers_in_turns(name, trainers, dataset, kws, window=32):
+  """64 captured steps of each trainer of ``trainers`` ({'mesh', 'none'}),
+  bitwise against each other, then both rates in turns (windows of
+  ``window`` captured steps)."""
+  import torch
+  for key, trainer in trainers.items():
+    trainer.train(dataset, num_epochs=1, iters_per_epoch=64,
+                  fused_steps_per_call='auto', **kws[key])
+    if not trainer.last_epoch_dispatch.startswith('captured'):
+      raise AssertionError(f"(a) {name} {key}: 'auto' did not capture "
+                           f'({trainer.last_epoch_dispatch})')
+  if not _same_state(trainers['mesh'], trainers['none']):
+    raise AssertionError(f'(a) {name} on the (1, 1) mesh is not bitwise the '
+                         'trainer without a mesh after 64 captured steps')
+  rates = {key: [] for key in trainers}
+  for key in ('mesh', 'none', 'none', 'mesh'):
+    trainer = trainers[key]
+    trainer.train(dataset, num_epochs=1, iters_per_epoch=window,
+                  fused_steps_per_call='auto', **kws[key])
+    torch.cuda.synchronize()
+    rates[key].append(window / trainer.last_epoch_seconds)
+  return rates
+
+
+def phase_mesh_fits_one_rank(card):
+  """Phase 33 (a): a (1, 1) mesh of a one-rank NCCL group in this
+  process."""
+  import torch
+  from recoder_tpu_torch.data import RecommendationDataset, synthetic
+  from recoder_tpu_torch.data.device_pipeline import DeviceDataSource
+  from recoder_tpu_torch.parallel import MeshConfig, make_mesh
+  matrix = synthetic.synthesize_ml20m()
+  mesh = make_mesh(MeshConfig(1, 1))
+  say(f'  {mesh} over {torch.distributed.get_backend()}')
+  out = {'ials': mesh_ials_one_rank(matrix, mesh, card),
+         'ease': mesh_ease_one_rank(matrix, mesh, card)}
+  dataset = RecommendationDataset(matrix)
+  rates = mesh_trainers_in_turns(
+      'Mult-VAE', {'mesh': multvae_trainer(mesh, 'bfloat16'),
+                   'none': multvae_trainer(None, 'bfloat16')},
+      dataset, {'mesh': MULTVAE_TRAIN, 'none': MULTVAE_TRAIN})
+  say('  (a) Mult-VAE[600, 200] bf16 (the full softmax): 64 captured steps '
+      'bitwise the trainer without a mesh; ml20m_multvae_user_batches_per_'
+      'sec in turns (32-step windows): (1, 1) mesh '
+      + ', '.join(f'{r:.2f}' for r in rates['mesh']) + '; no mesh '
+      + ', '.join(f'{r:.2f}' for r in rates['none']) + f'; card {card}')
+  out['multvae'] = rates
+  trainers = {'mesh': ml20m_bf16_trainer(mesh), 'none': ml20m_bf16_trainer()}
+  # (tables split only past one 'data' rank, as in JAX: the split fetch
+  # and its collectives in the captured steps, driven on one card)
+  DeviceDataSource.SHARD_MIN_DATA_RANKS = 1
+  try:
+    rates = mesh_trainers_in_turns(
+        'ML-20M tables', trainers, dataset,
+        {'mesh': dict(ML20M_TRAIN, table_sharding='data'),
+         'none': ML20M_TRAIN})
+  finally:
+    DeviceDataSource.SHARD_MIN_DATA_RANKS = 2
+  source = trainers['mesh'].fused_data_source
+  if (source.table_sharding != 'data'
+      or source.decline_reason != "'data'-sharded CSR storage"):
+    raise AssertionError(f'(a) the tables are not split: '
+                         f'{source.table_sharding}, {source.decline_reason}')
+  say("  (a) ML-20M default with table_sharding='data' (SHARD_MIN_DATA_RANKS "
+      '1: the block tables and the CSR split over the one-rank \'data\' axis, '
+      'the slab declined: the triplet scatter): 64 captured steps bitwise replicated tables off '
+      'the slab; ml20m_user_batches_per_sec in turns (32-step windows): '
+      "'data' tables " + ', '.join(f'{r:.2f}' for r in rates['mesh'])
+      + '; replicated ' + ', '.join(f'{r:.2f}' for r in rates['none'])
+      + f'; card {card}')
+  out['tables'] = rates
+  del trainers, source, dataset
+  torch.distributed.destroy_process_group()
+  return out, matrix
+
+
+def mesh_fit_rank(rank, world, out, backend, shape, cells):
+  """One spawned rank of phase 33 (b) or (c) (see :func:`mesh_rank`): the
+  cells of ``cells`` -- 'ials_users' (iALS, the user factors row-sharded),
+  'multvae' (20 float32 Mult-VAE steps) and 'ml20m_tables' (20 float32
+  ML-20M steps over 'data'-sharded tables) -- each saved by rank 0."""
+  import traceback
+  try:
+    import torch
+    sys.path.insert(0, HERE)
+    from recoder_tpu_torch.models import IALS
+    from recoder_tpu_torch.parallel import MeshConfig, make_mesh
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.distributed.init_process_group(
+        backend, init_method=f'file://{os.path.join(out, "store")}',
+        rank=rank, world_size=world)
+    mesh = make_mesh(MeshConfig(*shape))
+    spc = 'auto' if backend == 'nccl' else 1
+    dataset = mesh_cell_data('ml20m')
+    for cell in cells:
+      record = {}
+      if cell == 'ials_users':
+        torch.cuda.synchronize()
+        t0 = time.time()
+        model = IALS(**MESH_IALS_SPAWNED).fit(
+            dataset.interactions_matrix, mesh=mesh, factor_sharding='users')
+        torch.cuda.synchronize()
+        record = {'fit_s': time.time() - t0,
+                  'shape': list(model.user_factors.shape)}
+        model.save(os.path.join(out, 'ials_users.model'))
+      else:
+        trainer = (multvae_trainer(mesh) if cell == 'multvae'
+                   else mesh_cell_trainer('ml20m', mesh))
+        kw = (MULTVAE_TRAIN if cell == 'multvae'
+              else dict(ML20M_TRAIN, table_sharding='data'))
+        losses, rate, dispatch, _ = mesh_fit_steps(
+            trainer, dataset, kw, spc,
+            lambda t, when: t.save_state(os.path.join(out, cell + when)))
+        record = {'losses': losses, 'rate': rate, 'dispatch': dispatch}
+        if cell == 'ml20m_tables':
+          record['tables'] = trainer.fused_data_source.table_shapes()
+      with open(os.path.join(out, f'{cell}_{rank}.json'), 'w') as f:
+        json.dump(record, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+  except BaseException:
+    with open(os.path.join(out, f'error_{rank}.txt'), 'w') as f:
+      f.write(traceback.format_exc())
+    raise
+
+
+def mesh_fit_steps(trainer, dataset, kw, spc, save, window=64):
+  """``MESH_STEPS`` steps from a fresh trainer, ``save(trainer, when)``
+  after the first (``when`` '_first') and after the last (''), then a
+  window of ``window`` steps: ``(losses, user-batches/s of the window,
+  its dispatch, (the two saves))``."""
+  import torch
+  saved, losses = [], []
+  for steps, when in ((1, '_first'), (MESH_STEPS - 1, '')):
+    trainer.train(dataset, num_epochs=1, iters_per_epoch=steps,
+                  fused_steps_per_call=spc, **kw)
+    losses += trainer.last_epoch_losses
+    saved.append(save(trainer, when))
+  trainer.train(dataset, num_epochs=1, iters_per_epoch=window,
+                fused_steps_per_call=spc, **kw)
+  torch.cuda.synchronize()
+  rate = len(trainer.last_epoch_losses) / trainer.last_epoch_seconds
+  return losses, rate, trainer.last_epoch_dispatch, saved
+
+
+def mesh_fit_references(matrix, spc):
+  """The one-card runs (b)-(c) are held against: iALS without a mesh, and
+  the two cells' 20 steps (their losses, every parameter and moment of
+  the checkpoint ``save_state`` writes)."""
+  from recoder_tpu_torch.checkpoint import load_checkpoint
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.models import IALS
+  refs = {'ials_users': IALS(**MESH_IALS_SPAWNED).fit(matrix)}
+  dataset = RecommendationDataset(matrix)
+  with tempfile.TemporaryDirectory() as tmp:
+    for cell in ('multvae', 'ml20m_tables'):
+      trainer = (multvae_trainer() if cell == 'multvae'
+                 else mesh_cell_trainer('ml20m'))
+      kw = MULTVAE_TRAIN if cell == 'multvae' else ML20M_TRAIN
+      refs[cell] = mesh_fit_steps(
+          trainer, dataset, kw, spc,
+          lambda t, when: dict(_checkpoint_arrays(load_checkpoint(
+              t.save_state(os.path.join(tmp, cell + when)))[0])))
+  return refs
+
+
+def _checkpoint_arrays(tree, prefix=''):
+  for k, v in tree.items():
+    if isinstance(v, dict):
+      yield from _checkpoint_arrays(v, f'{prefix}{k}/')
+    else:
+      yield prefix + k, np.asarray(v)
+
+
+def compare_mesh_fit_cell(out, cell, shape, ref, card, backend):
+  """A spawned cell of (b)-(c) against its one-card run at the CPU tests'
+  tolerances; returns its record."""
+  from recoder_tpu_torch.checkpoint import load_checkpoint
+  world = shape[0] * shape[1]
+  records = []
+  for rank in range(world):
+    with open(os.path.join(out, f'{cell}_{rank}.json')) as f:
+      records.append(json.load(f))
+  where = f'{cell} on a {shape} mesh over {backend}'
+  if cell == 'ials_users':
+    arrays, _ = load_checkpoint(os.path.join(out, 'ials_users.model'))
+    rtol, atol = MESH_IALS_TOL['users']
+    ratio = max(tol_ratio(arrays[k], getattr(ref, k), rtol, atol)
+                for k in ('user_factors', 'item_factors'))
+    per = -(-(ref.num_users + 1) // world)
+    if any(r['shape'] != [per, ref.embedding_size] for r in records):
+      raise AssertionError(f'{where}: a rank holds other user rows than its '
+                           f'{per}: {[r["shape"] for r in records]}')
+    say(f'  {where}: factors {ratio:.3g} of the tolerance (rtol {rtol}, atol '
+        f'{atol}) of the one-card fit; each rank {per} user rows; fit '
+        f'{records[0]["fit_s"]:.3f} s; card {card}')
+  else:
+    losses, rate, dispatch, (want_first, want) = ref
+    compare_losses(np.asarray(records[0]['losses']), np.asarray(losses),
+                   PATHS_RTOL, where)
+
+    def saved(name):
+      files = [f for f in os.listdir(out) if f.startswith(f'{name}_epoch_')]
+      return dict(_checkpoint_arrays(load_checkpoint(
+          os.path.join(out, files[0]))[0]))
+
+    rtol, atol = MESH_TRAIN_TOL[cell]
+    lr = (MULTVAE_TRAIN if cell == 'multvae' else ML20M_TRAIN)['lr']
+
+    def rel_frobenius(a, b):
+      return float(np.linalg.norm(a.astype(np.float64) - b)
+                   / max(np.linalg.norm(b.astype(np.float64)), 1e-30))
+
+    first = saved(cell + '_first')
+    state = [k for k in want_first if k.startswith('optimizer/')
+             and want_first[k].dtype.kind == 'f' and want_first[k].ndim]
+    ratio = max(tol_ratio(first[k], want_first[k], rtol, atol)
+                for k in state)
+    moment_rel = {}
+    for which in ('m', 'v'):
+      keys = [k for k in state if k.startswith(f'optimizer/{which}/')]
+      if not keys:
+        raise AssertionError(f'{where}: no Adam {which} arrays saved')
+      moment_rel[which] = max(rel_frobenius(first[k], want_first[k])
+                              for k in keys)
+    got = saved(cell)
+    params = [k for k in want if k.startswith('model/')]
+    rel = max(rel_frobenius(got[k], want[k]) for k in params)
+    import torch
+    outside = sum(int(torch.sum(torch.abs(
+        torch.from_numpy(got[k]).double() - torch.from_numpy(want[k]))
+        > atol + rtol * torch.abs(torch.from_numpy(want[k]).double())))
+        for k in params)
+    total = sum(want[k].size for k in params)
+    drift = max(float(np.max(np.abs(got[k] - want[k]))) for k in params)
+    say(f'  {where}: {MESH_STEPS} losses within rtol {PATHS_RTOL}; the Adam '
+        f'state after the first step ({len(state)} moment arrays) {ratio:.3g} '
+        f'of the tolerance (rtol {rtol}, atol {atol}), each array within '
+        f'{moment_rel["m"]:.3g} (first moments) and {moment_rel["v"]:.3g} '
+        f'(second moments) relative Frobenius (limit {MESH_STATE_RTOL}); '
+        f'after {MESH_STEPS} steps every parameter within {rel:.3g} '
+        f'(relative Frobenius, limit {TABLE_RTOL}) of one card, {outside:,} '
+        f'of {total:,} entries outside the elementwise tolerance (share '
+        f'{outside / total:.3g}, limit {MESH_OUTSIDE_SHARE}), every entry '
+        f'within {drift:.3g} (limit 2 lr {MESH_STEPS} = '
+        f'{2 * lr * MESH_STEPS:.3g}); user-batches/s '
+        f'{records[0]["rate"]:.2f} ({records[0]["dispatch"]}) against '
+        f'{rate:.2f} on one card ({dispatch}); card {card}')
+    if not max(moment_rel.values()) <= MESH_STATE_RTOL:
+      raise AssertionError(f'{where}: first-step moments {moment_rel} apart')
+    if not rel <= TABLE_RTOL:
+      raise AssertionError(f'{where}: parameters {rel} apart')
+    if not outside <= MESH_OUTSIDE_SHARE * total:
+      raise AssertionError(f'{where}: {outside} of {total} entries outside '
+                           'the elementwise tolerance')
+    if not drift <= 2 * lr * MESH_STEPS:
+      raise AssertionError(f'{where}: an entry {drift} apart, past 2 lr a '
+                           'step')
+  if not ratio <= 1.0:
+    raise AssertionError(f'{where}: {ratio} of the tolerance')
+  return dict(records[0], ratio=ratio)
+
+
+def phase_mesh_fits(card):
+  """Phase 33: (a) in this process; (b) on 2 (and 4) cards over NCCL, or
+  (c) two ranks on the one card over gloo."""
+  import torch
+  t0 = time.time()
+  one_rank, matrix = phase_mesh_fits_one_rank(card)
+  n_cards = torch.cuda.device_count()
+  backend = 'nccl' if n_cards >= 2 else 'gloo'
+  say('  (b): ' + str(n_cards) + ' cards over NCCL' if backend == 'nccl'
+      else '  (c): one card, two ranks on it over gloo')
+  refs = mesh_fit_references(matrix, 'auto' if backend == 'nccl' else 1)
+  del matrix
+  spawned = {}
+  with tempfile.TemporaryDirectory() as tmp:
+    for shape, cells in MESH_FIT_RUNS.items():
+      out = os.path.join(tmp, f'{backend}_{shape[0]}x{shape[1]}')
+      spawn_mesh(out, backend, shape, cells, target=mesh_fit_rank)
+      for cell in cells:
+        spawned[backend, shape, cell] = compare_mesh_fit_cell(
+            out, cell, shape, refs[cell], card, backend)
+  seconds = time.time() - t0
+  say(f'  phase 33 took {seconds:.1f} s')
+  return one_rank, spawned, seconds
 
 
 def run(name, fn, *args, **kwargs):
@@ -5449,6 +5933,8 @@ def main():
   (big, big_scoring, stress, storage_msd, storage_scoring, union_a,
    users_a) = run('27 large catalog (a)-(c)', phase_large_catalog, card)
   mesh_one_rank, mesh_spawned, mesh_which = run('32 mesh', phase_mesh, card)
+  mesh_fits, mesh_fits_spawned, mesh_fits_s = run('33 mesh fits',
+                                                  phase_mesh_fits, card)
   union_cells['msd_big_bf16'] = union_a
   users_cells['msd_big_users_bf16'] = users_a
   union_record = _union_capture_record(union_cells)
@@ -5753,6 +6239,22 @@ def main():
       + f', {mesh_which}: '
       + ', '.join(f'{cell} {shape} {backend} {rate:.2f}' for
                   (backend, shape, cell), rate in mesh_spawned.items())
+      + f'; mesh fits (phase 33, {mesh_fits_s:.1f} s): (1, 1) iALS '
+      f'spd_solve {mesh_fits["ials"]["launches_per_sweep"]} launches a '
+      f'sweep ({mesh_fits["ials"]["kernel_ms"]:.3f} ms), EASE Newton-Schulz '
+      f'{mesh_fits["ease"]["iterations"]} iterations, residual '
+      f'{mesh_fits["ease"]["residual"]:.3g}, solve '
+      f'{mesh_fits["ease"]["solve_s"]:.3f} s; Mult-VAE (1, 1) '
+      + ', '.join(f'{r:.2f}' for r in mesh_fits['multvae']['mesh'])
+      + ' against ' + ', '.join(f'{r:.2f}' for r in
+                                mesh_fits['multvae']['none'])
+      + "; 'data' tables " + ', '.join(f'{r:.2f}' for r in
+                                       mesh_fits['tables']['mesh'])
+      + ' against ' + ', '.join(f'{r:.2f}' for r in
+                                mesh_fits['tables']['none'])
+      + '; spawned ' + ', '.join(
+          f'{cell} {shape} {backend} {r["ratio"]:.3g} of the tolerance'
+          for (backend, shape, cell), r in mesh_fits_spawned.items())
       + f'; card {card}')
   say(json.dumps({'kernels': kernels}))
   say(card)

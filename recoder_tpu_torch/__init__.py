@@ -21,7 +21,8 @@ protocol, the serving path they need (chunked scoring of large catalogs,
 the asynchronous evaluator, the top-k in ``lax.top_k``'s order), iALS,
 and the serving surface (the CLI's train, evaluate, recommend and serve,
 the embeddings indexes with the C++ ANN forest, the similarity
-recommender and the preprocessing split):
+recommender and the preprocessing split), and every model on a
+('data', 'model') mesh of processes:
 
   recoder_tpu/utils.py                  -> recoder_tpu_torch.utils
   recoder_tpu/data/dataset.py           -> recoder_tpu_torch.data.dataset
@@ -50,7 +51,8 @@ recommender and the preprocessing split):
   recoder_tpu/models/multvae.py         -> recoder_tpu_torch.models.multvae
   recoder_tpu/models/ease.py            -> recoder_tpu_torch.models.ease
       (the Gram on the device in user chunks, a cuSOLVER Cholesky for
-      the Newton-Schulz inverse, which is not ported)
+      the one-device Newton-Schulz inverse, which is not ported; the
+      mesh fit's row-sharded Newton-Schulz -> newton_inverse_rows)
   recoder_tpu/protocols.py              -> recoder_tpu_torch.protocols
   recoder_tpu/ops/losses.py             -> recoder_tpu_torch.ops.losses
   recoder_tpu/ops/gather_matmul.py      -> recoder_tpu_torch.ops.gather_matmul
@@ -102,6 +104,8 @@ recommender and the preprocessing split):
   recoder_tpu/ops/spd.py                -> recoder_tpu_torch.ops.spd
                                            + recoder_tpu_torch/kernels/spd_solve.cu
   recoder_tpu/models/ials.py            -> recoder_tpu_torch.models.ials
+      (fit(mesh=, factor_sharding=): the batch-sharded row solves and
+      _user_sharded_fns' owner-slice slabs, over torch.distributed)
   recoder_tpu/parallel/{mesh,sharding,distributed}.py
       -> recoder_tpu_torch.parallel (torch.distributed: one process a
          card, a DeviceMesh of ('data', 'model'); the collectives the
@@ -109,8 +113,10 @@ recommender and the preprocessing split):
          recoder_tpu_torch.parallel.collectives and sharding.Partition)
       (model.py's mesh hooks: placement after init and load, the step's
       share and collectives, scoring gathered, checkpoints gathered on
-      rank 0 -> Recoder(mesh=...); table_sharding='data', Mult-VAE,
-      iALS and EASE on a mesh are not ported yet)
+      rank 0 -> Recoder(mesh=...), DynamicAutoencoder,
+      MatrixFactorization, MultVAE and custom losses;
+      device_pipeline.py's 'data'-sharded tables -> table_sharding;
+      IALS.fit(mesh=) and EASE.fit(mesh=))
   (new) the entry points' device       -> recoder_tpu_torch.device
   bench.py synthesize / synthesize_ml20m -> recoder_tpu_torch.data.synthetic
 """

@@ -24,14 +24,16 @@ Config schema (JSON):
 The port adds one key, ``device``, where its constructors take it:
 ``"trainer": {"device": "cpu"}`` for the Recoder models and ``"model":
 {"device": "cpu"}`` for ``ease`` / ``ials``. Without it every command
-runs on the card, and raises where there is none. Settings whose
-modules are not ported (``trainer.mesh_model`` for ``ease`` / ``ials``,
-iALS ``factor_sharding``, EASE ``solve='newton'``) raise
-NotImplementedError.
+runs on the card, and raises where there is none. EASE
+``solve='newton'`` without a mesh, a TPU workaround that is not ported,
+raises NotImplementedError.
 
-``trainer.mesh_model=M`` trains the Recoder models on a mesh of the
-launch's processes, their item tables split over M of them (one process
-a card):
+``trainer.mesh_model=M`` runs the command on a mesh of the launch's
+processes (one process a card): the Recoder models (autoencoder, mf,
+multvae) train with their item tables split over M of them; ``ials``
+splits each chunk's row solves over every rank (``"model":
+{"factor_sharding": "users"}`` row-shards its user factors too); and
+``ease`` row-shards its solve over M:
 
   torchrun --nproc_per_node=N -m recoder_tpu_torch.cli train --config ...
 
@@ -147,30 +149,28 @@ def _load_fit_model(cfg, model_file):
       model_file)
 
 
-def _refuse_mesh(mesh_model):
-  if mesh_model:
-    raise NotImplementedError(
-        'mesh_model for ease / ials is not ported to the PyTorch package '
-        'yet (multi-GPU, ROADMAP Queue 1 item 8); leave it 0 to fit on one '
-        'device')
+def _launch_mesh(mesh_model, device):
+  """The ('data', 'model') mesh of ``mesh_model`` 'model' ways over the
+  launch's processes (it joins a torchrun launch's group first); None for
+  0."""
+  if not mesh_model:
+    return None
+  from recoder_tpu_torch.parallel import MeshConfig, initialize, make_mesh
+  from recoder_tpu_torch.parallel.distributed import process_count
+  initialize(device=device)  # (joins a torchrun launch's group)
+  if process_count() % mesh_model:
+    raise ValueError(
+        f'trainer.mesh_model={mesh_model} splits the tables over '
+        f'{mesh_model} processes, and this launch has {process_count()}; '
+        f'launch with torchrun --nproc_per_node={mesh_model} (or a '
+        'multiple of it)')
+  return make_mesh(MeshConfig(model=mesh_model), devices=device)
 
 
 def _build_trainer(cfg, model):
   tr_cfg = dict(cfg.get('trainer', {}))
-  mesh = None
-  mesh_model = tr_cfg.pop('mesh_model', 0)
-  if mesh_model:
-    from recoder_tpu_torch.parallel import MeshConfig, initialize, make_mesh
-    from recoder_tpu_torch.parallel.distributed import process_count
-    device = tr_cfg.get('device', device_lib.DEFAULT)
-    initialize(device=device)  # (joins a torchrun launch's group)
-    if process_count() % mesh_model:
-      raise ValueError(
-          f'trainer.mesh_model={mesh_model} splits the tables over '
-          f'{mesh_model} processes, and this launch has {process_count()}; '
-          f'launch with torchrun --nproc_per_node={mesh_model} (or a '
-          'multiple of it)')
-    mesh = make_mesh(MeshConfig(model=mesh_model), devices=device)
+  mesh = _launch_mesh(tr_cfg.pop('mesh_model', 0),
+                      tr_cfg.get('device', device_lib.DEFAULT))
   return Recoder(model=model, mesh=mesh, **tr_cfg)
 
 
@@ -188,8 +188,15 @@ def cmd_train(cfg):
     fit_kw = {k: model_cfg.pop(k) for k in fit_keys if k in model_cfg}
     # mesh_model lives in the trainer block (the documented schema); a
     # model-block value is honored too, as in the JAX package
-    _refuse_mesh(cfg.get('trainer', {}).get('mesh_model', 0)
-                 or model_cfg.pop('mesh_model', 0))
+    mesh_model = (cfg.get('trainer', {}).get('mesh_model', 0)
+                  or model_cfg.pop('mesh_model', 0))
+    model_cfg.pop('mesh_model', None)
+    mesh = _launch_mesh(mesh_model,
+                        model_cfg.get('device', device_lib.DEFAULT))
+    if mesh is not None:
+      # ease: the solve row-sharded over 'model'; ials: the row solves
+      # split over every rank
+      fit_kw['mesh'] = mesh
     train_cfg = dict(cfg.get('train', {}))
     prefix = train_cfg.get('model_checkpoint_prefix')
     model = _fit_model_class(kind)(**model_cfg)

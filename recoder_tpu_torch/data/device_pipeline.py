@@ -169,8 +169,24 @@ takes the host loader, as the JAX trainer does.
 On a mesh (``Recoder(mesh=...)``) every rank builds the same source and
 the same batches, the resident CSR, tables and slab replicated, as the
 JAX ``_put`` replicates them; the trainer takes each rank's share of a
-batch. Not ported: ``table_sharding='data'`` (the tables and the CSR
-split over 'data', ROADMAP Queue 1 item 8).
+batch.
+
+**'data'-sharded tables** (``table_sharding``, 'blocks' mode on a mesh,
+the JAX ``_put_block_table`` / ``_put_csr_chunks``): the block union
+table is row-split over the mesh's 'data' ranks (the block rows padded
+to a multiple of them), and each flat CSR array (compressed and raw
+columns, values; each padded by the largest window, the mega window,
+its halo) is split into ``D`` chunks of ``ceil((len - halo) / D)``
+entries, each held with the halo past its end, so that a window-wide range starting in a chunk lies
+wholly in its rank's part. A step's fetch (:meth:`_table_row`,
+:meth:`_fetch`) reads the range on its owner, the other ranks give
+zeros, and one sum over 'data' returns it: no rank gathers a table. The
+per-user ``indptr`` and the block widths stay replicated, as in JAX.
+As in JAX, the tables split only past one 'data' rank
+(``SHARD_MIN_DATA_RANKS``): 'data' then shards, and 'auto' past the JAX
+byte budget (``SHARD_TABLES_BYTE_BUDGET``). Under 'data' sharding the
+slab declines with the JAX reason, and full decode scatters its
+triplets.
 """
 
 import collections
@@ -182,6 +198,7 @@ import torch
 
 from recoder_tpu_torch import device as device_lib
 from recoder_tpu_torch.ops.packed_rows import unpack_mask, unpack_rows
+from recoder_tpu_torch.parallel import collectives
 
 log = logging.getLogger(__name__)
 
@@ -271,6 +288,13 @@ class DeviceDataSource:
       batches then carry the target side too.
     num_random_negatives (int): R uniform-random extra negative items a
       step (module docstring).
+    mesh (parallel.mesh.Mesh, optional): the trainer's mesh (every rank
+      builds the same source).
+    table_sharding ('auto' | 'data' | None): the 'blocks' tables' and
+      CSR's layout on a mesh of more than one 'data' rank: 'data' split
+      over the 'data' axis, 'auto' split past
+      ``SHARD_TABLES_BYTE_BUDGET``, None (or any other value) replicated
+      (module docstring).
   """
 
   #: fraction of the device's free memory the 'auto' request may claim
@@ -281,10 +305,18 @@ class DeviceDataSource:
   PRECOMPUTE_BYTE_BUDGET = 2 << 30
   #: width signatures of the 'users' epoch tables whose buffers are kept
   SIGNATURES = 4
+  #: replicated bytes of the JAX source's CSR and block tables past which
+  #: ``table_sharding='auto'`` splits them over 'data'
+  SHARD_TABLES_BYTE_BUDGET = 2 << 30
+  #: the fewest 'data' ranks over which ``table_sharding`` splits the
+  #: tables (the JAX rule: one rank would save nothing); a check of the
+  #: split fetch on one card lowers it to 1
+  SHARD_MIN_DATA_RANKS = 2
 
   def __init__(self, matrix, batch_size, num_sampling_users, num_items,
                shuffle='users', device=device_lib.DEFAULT, seed=0,
-               target_matrix=None, num_random_negatives=0):
+               target_matrix=None, num_random_negatives=0, mesh=None,
+               table_sharding='auto'):
     if shuffle not in ('users', 'blocks'):
       raise ValueError(f'shuffle={shuffle!r}: expected users or blocks')
     if target_matrix is not None and (shuffle != 'blocks'
@@ -349,6 +381,15 @@ class DeviceDataSource:
     self._tg_tables = None  # the target side's per-mega unions
     if target_matrix is not None:
       self._init_target_side(canonical_csr(target_matrix))
+    self.mesh = mesh
+    #: 'data' where the 'blocks' tables and CSR are split over 'data'
+    self.table_sharding = None
+    if (shuffle == 'blocks' and mesh is not None
+        and mesh.shape['data'] >= self.SHARD_MIN_DATA_RANKS
+        and (table_sharding == 'data' or (
+            table_sharding == 'auto'
+            and self._jax_resident_bytes() > self.SHARD_TABLES_BYTE_BUDGET))):
+      self.table_sharding = 'data'
     #: whether 'users' steps read per-epoch tables (the JAX gate), and
     #: why not where they do not
     self.users_precompute = False
@@ -364,6 +405,19 @@ class DeviceDataSource:
               f'two epochs of tables take {nbytes / 2**30:.2f} GiB, past '
               f'the budget of {self.PRECOMPUTE_BYTE_BUDGET / 2**30:.2f} '
               'GiB')
+
+  def _jax_resident_bytes(self):
+    """The bytes by which the JAX source's 'auto' rule shards: its CSR
+    (4 bytes an entry, 8 unless binary) and its block tables (both
+    sides' with a target matrix)."""
+    args = (self.n_blocks, self.mega, self.num_users_total)
+    nbytes = self.matrix.nnz * (4 if self.binary else 8)
+    nbytes += _jax_table_bytes(self._block_unions(), self.matrix.indptr,
+                               *args)
+    if self._tg_tables is not None:
+      nbytes += _jax_table_bytes(self._tg_tables,
+                                 self.target_matrix.indptr, *args)
+    return nbytes
 
   def _jax_epoch_table_bytes(self):
     """Bytes of one epoch of the JAX 'users'-mode tables
@@ -460,6 +514,8 @@ class DeviceDataSource:
     if request not in ('auto', True, 'packed'):
       raise ValueError(f"slab_cache={request!r}: expected 'auto', True, "
                        "'packed' or False")
+    if self.table_sharding is not None:
+      return self._decline("'data'-sharded CSR storage")
     if self.d_slab is not None and self._slab_width == width and not (
         (request is True and self._slab_packed)
         or (request == 'packed' and not self._slab_packed)):
@@ -763,13 +819,13 @@ class DeviceDataSource:
             else self._static_side(''))
     dev = self.device
     if 'raw' not in side:  # the CSR's columns, padded by the mega window
-      side['raw'] = torch.from_numpy(np.concatenate([
+      self._put_flat(side, 'raw', np.concatenate([
           self.matrix.indices.astype(np.int64),
-          np.zeros(side['M_mega'], np.int64)])).to(dev)
+          np.zeros(side['M_mega'], np.int64)]))
       side['mega_window'] = torch.arange(side['M_mega'], device=dev)
     b, lo = self._block_of(perm, step)
     rows, idx, valid = self._window_rows(side, lo)
-    cols = side['raw'].index_select(0, idx)
+    cols = self._fetch(side, 'raw', idx)
     dtype = self._dtype()
     vals = self._window_vals(side, idx, valid).to(dtype)
     keep = cols < W  # (the JAX scatter's mode='drop')
@@ -778,7 +834,7 @@ class DeviceDataSource:
                     vals)
     bounds = side['indptr'].index_select(0, torch.cat([b * S, b * S + S]))
     midx = bounds[:1] + side['mega_window']
-    mcols = side['raw'].index_select(0, midx)
+    mcols = self._fetch(side, 'raw', midx)
     present = torch.zeros(W + 1, dtype=torch.bool, device=dev)
     present.index_fill_(0, torch.where((midx < bounds[1:]) & (mcols < W),
                                        mcols, W), True)
@@ -1052,10 +1108,90 @@ class DeviceDataSource:
       side = {'indptr': torch.from_numpy(indptr).to(dev), 'M': M,
               'M_mega': M_mega, 'window': torch.arange(M, device=dev)}
       if not np.all(m.data == 1.0):
-        side['vals'] = torch.from_numpy(np.concatenate(
-            [m.data.astype(np.float32), np.zeros(M_mega, np.float32)])).to(dev)
+        self._put_flat(side, 'vals', np.concatenate(
+            [m.data.astype(np.float32), np.zeros(M_mega, np.float32)]))
       self._static[prefix] = side
     return side
+
+  # -- 'data'-sharded table storage -------------------------------------------
+
+  def _put_flat(self, side, name, arr):
+    """``side[name]``: a flat CSR array (padded by the side's mega window,
+    the halo) on the device, whole, or under 'data' sharding this rank's
+    chunk of ``ceil((len - halo) / D)`` entries and the halo after it (the
+    JAX ``_put_csr_chunks``); ``side['chunk']`` records the chunk length
+    and ``side['whole']`` the whole array's shape."""
+    side.setdefault('whole', {})[name] = arr.shape
+    if self.table_sharding is None:
+      side[name] = torch.from_numpy(arr).to(self.device)
+      return
+    ways, rank = self.mesh.shape['data'], self.mesh.data_rank
+    halo = side['M_mega']
+    chunk = max(-(-(len(arr) - halo) // ways), 1)
+    padded = np.zeros(ways * chunk + halo, arr.dtype)
+    padded[:len(arr)] = arr
+    side['chunk'] = chunk
+    side[name] = torch.from_numpy(
+        padded[rank * chunk:(rank + 1) * chunk + halo].copy()).to(self.device)
+
+  def _put_rows(self, side, name, arr):
+    """``side[name]``: a ``[n_blocks, X]`` block table on the device,
+    whole, or under 'data' sharding this rank's ``ceil(n_blocks / D)``
+    rows of the table padded by zero rows to a multiple of D (the JAX
+    ``_put_block_table``); ``side['rows_per']`` records the share."""
+    side.setdefault('whole', {})[name] = arr.shape
+    if self.table_sharding is not None:
+      ways, rank = self.mesh.shape['data'], self.mesh.data_rank
+      per = side['rows_per'] = -(-arr.shape[0] // ways)
+      part = np.zeros((per,) + arr.shape[1:], arr.dtype)
+      mine = arr[rank * per:(rank + 1) * per]
+      part[:len(mine)] = mine
+      arr = part
+    side[name] = torch.from_numpy(arr).to(self.device)
+
+  def _owned(self, index, per):
+    """``(mine, local)``: whether this rank holds the part ``index //
+    per`` (the last rank holds what lies past the parts), and the
+    index within it (0 elsewhere)."""
+    ways = self.mesh.shape['data']
+    owner = torch.clamp(torch.div(index, per, rounding_mode='floor'),
+                        max=ways - 1)
+    mine = owner == self.mesh.data_rank
+    return mine, torch.where(mine, index - owner * per, 0)
+
+  def _fetch(self, side, name, idx):
+    """``side[name][idx]`` of a contiguous window ``idx`` of a flat CSR
+    array: a gather of the whole array, or under 'data' sharding the
+    window's owner's gather, zeros elsewhere, summed over 'data' (the
+    JAX ``_csr_range``)."""
+    arr = side[name]
+    if self.table_sharding is None:
+      return arr.index_select(0, idx)
+    mine, local = self._owned(idx[:1], side['chunk'])
+    part = arr.index_select(0, idx - idx[:1] + local)
+    return collectives.sum_over(
+        torch.where(mine, part, torch.zeros_like(part)),
+        self.mesh.data_group)
+
+  def _table_row(self, side, name, b):
+    """Row ``b`` (a [1] device tensor) of a block table, by owner slice
+    and a sum over 'data' under 'data' sharding (the JAX
+    ``_row_fetch``)."""
+    table = side[name]
+    if self.table_sharding is None:
+      return table.index_select(0, b)[0]
+    mine, local = self._owned(b, side['rows_per'])
+    row = table.index_select(0, local)[0]
+    return collectives.sum_over(
+        torch.where(mine, row, torch.zeros_like(row)), self.mesh.data_group)
+
+  def table_shapes(self):
+    """``{side + name: (shape held, whole shape)}`` of the 'blocks' tables
+    and CSR arrays (a split array's held shape is this rank's share)."""
+    return {prefix + k: (list(v.shape),
+                         list(side.get('whole', {}).get(k, v.shape)))
+            for prefix, side in self._static.items()
+            for k, v in side.items() if torch.is_tensor(v)}
 
   def _static_unions(self, prefix):
     """:meth:`_static_side` with the side's union tables: the compressed
@@ -1072,10 +1208,10 @@ class DeviceDataSource:
       unions = np.full((self.n_blocks, W0), self.num_items, np.int64)
       unions[np.arange(W0) < widths[:, None]] = t['unions']
       dev = self.device
+      self._put_flat(side, 'cols', np.concatenate(
+          [t['cols'], np.zeros(side['M_mega'], np.int64)]))
+      self._put_rows(side, 'unions', unions)
       side.update(
-          cols=torch.from_numpy(np.concatenate(
-              [t['cols'], np.zeros(side['M_mega'], np.int64)])).to(dev),
-          unions=torch.from_numpy(unions).to(dev),
           widths=torch.from_numpy(widths).to(dev), W0=W0,
           W=(_align128(widths.max(initial=1) + self.num_random_negatives)
              if self.num_random_negatives and not prefix else W0))
@@ -1137,11 +1273,10 @@ class DeviceDataSource:
     rows = torch.searchsorted(bounds[1:], idx, right=True)
     return rows, idx, idx < bounds[-1:]
 
-  @staticmethod
-  def _window_vals(side, idx, valid):
+  def _window_vals(self, side, idx, valid):
     if 'vals' not in side:
       return valid.float()
-    return torch.where(valid, side['vals'].index_select(0, idx), 0.0)
+    return torch.where(valid, self._fetch(side, 'vals', idx), 0.0)
 
   def _unique_union(self, items, rand):
     """The JAX fixed-shape ``_unique_union`` of a block's union row and
@@ -1188,9 +1323,9 @@ class DeviceDataSource:
     for prefix in ('', 'tg_') if self._tg_tables is not None else ('',):
       side = self._static[prefix]
       rows, idx, valid = self._window_rows(side, lo)
-      items = side['unions'].index_select(0, b)[0]
+      items = self._table_row(side, 'unions', b)
       width_valid = side['widths'].index_select(0, b)[0]
-      cols = side['cols'].index_select(0, idx)
+      cols = self._fetch(side, 'cols', idx)
       if self.num_random_negatives and not prefix:
         items, landed, width_valid = self._unique_union(
             items, self._negatives(rand_ids))

@@ -53,9 +53,9 @@ in bf16 (``optim.Bf16Adam``, the fused kernel ``kernels/adam.cu``).
 alone.
 
 Any model written to the :class:`FactorizationModel` contract trains
-and scores here: a model that defines ``decode_operands``
-(``DynamicAutoencoder``, ``MatrixFactorization``) takes the routes
-above; every other model (``MultVAE``) is called as ``model(input,
+and scores here: a model with ``fused_decode`` (``DynamicAutoencoder``,
+``MatrixFactorization``) trains through its ``decode_operands`` and
+takes the routes above; every other model (``MultVAE``) is called as ``model(input,
 input_users=..., input_items=..., target_items=..., generator=...,
 training=...)`` -- with sparse tables, ``model.apply_gathered(gathered,
 input, ...)`` -- and its scores go through the trainer's loss with the
@@ -121,16 +121,17 @@ JAX package does. A float32 checkpoint loads into a bf16 model rounded to
 nearest even (``init_from_model_file``), which then serves from bf16
 tables.
 
-``Recoder(mesh=...)`` trains DynamicAutoencoder and MatrixFactorization
-on a ('data', 'model') mesh of processes (``recoder_tpu_torch.parallel``):
-each rank builds the whole batch, computes its users' rows against its
-rows of the item (and user) tables, and the shares are added over the
-mesh's process groups (:meth:`Recoder._mesh_forward_loss`); scoring and
-checkpoints gather the shares.
+``Recoder(mesh=...)`` trains DynamicAutoencoder, MatrixFactorization and
+MultVAE on a ('data', 'model') mesh of processes
+(``recoder_tpu_torch.parallel``): each rank builds the whole batch,
+computes its users' rows against its rows of the item (and user)
+tables, and the shares are added over the mesh's process groups
+(:meth:`Recoder._mesh_forward_loss`); scoring and checkpoints gather the
+shares. ``train(table_sharding=...)`` splits the 'blocks' tables and the
+CSR of the on-device source over 'data' (``data/device_pipeline.py``).
 
-Not ported yet (the JAX signature's arguments for them raise
-NotImplementedError where set): the orbax backend, ``table_sharding``
-and the other models on a mesh. The JAX
+Not ported yet (the JAX signature's argument for it raises
+NotImplementedError): the orbax backend. The JAX
 package's count-certified top-k (``eval_topk='exact'``) is a TPU
 workaround and is not ported: every ``eval_topk`` mode is exact here.
 """
@@ -189,11 +190,9 @@ GRAPH_SETS = 4
 #: ``_train_iterator_key`` after a checkpoint load: the next ``train``
 #: continues the checkpoint's epoch at its recorded step
 _RESUMED = object()
-#: the ROADMAP item of the mesh settings that are not ported yet
-MESH_LEFT = 'multi-GPU, ROADMAP Queue 1 item 8'
-#: the losses a 'model'-split catalog computes column by column (a
-#: custom ``Loss`` may mix columns; logloss's normalizer is reduced over
-#: the mesh)
+#: the losses a 'model'-split catalog computes column by column
+#: (logloss's normalizer is reduced over the mesh); any other ``Loss``
+#: sees the whole score matrix, gathered over 'model'
 SPLIT_LOSSES = (losses_lib.MSELoss, losses_lib.LogisticLoss,
                 losses_lib.MultinomialNLLLoss)
 
@@ -228,14 +227,6 @@ def _canonical_dataset(dataset):
     return dataset
   return RecommendationDataset(*(m if m is None else canonical_csr(m)
                                  for m in matrices))
-
-
-def _not_ported(refused, what, where):
-  """Raise for an argument of the JAX package's signature whose module is
-  not ported yet (``where``: its ROADMAP item)."""
-  if refused:
-    raise NotImplementedError(f'{what} is not ported to the PyTorch '
-                              f'package yet ({where})')
 
 
 def _multistep_lr(base_lr, milestones, epoch, gamma=0.1):
@@ -275,9 +266,11 @@ class Recoder:
       the batch's users against its 'model' share of the item (and user)
       tables' rows, and the shares are added over the mesh (NCCL on the
       card, gloo on the CPU). The result is the single-device run's: a
-      (1, 1) mesh gives it bitwise. DynamicAutoencoder and
-      MatrixFactorization train on a mesh; another model raises
-      NotImplementedError (Mult-VAE: ROADMAP Queue 1 item 8). The trainer
+      (1, 1) mesh gives it bitwise. DynamicAutoencoder,
+      MatrixFactorization and MultVAE train on a mesh (a model whose
+      ``supports_mesh`` is False, which takes no ``shard``, raises
+      ValueError); a ``Loss`` instance other than the built-in ones sees
+      the whole ``[B, W]`` scores, gathered over 'model'. The trainer
       runs on the mesh's device.
     eval_item_chunk (int, optional): score the catalog in contiguous
       slices of this many items in ``recommend`` / evaluation (and the
@@ -313,8 +306,10 @@ class Recoder:
                eval_compute_dtype=None, eval_topk='exact',
                opt_state_dtype=None, *, device=device_lib.DEFAULT):
     del use_cuda
-    _not_ported(mesh is not None and not model.supports_mesh,
-                f'{type(model).__name__} on a mesh', MESH_LEFT)
+    if mesh is not None and not model.supports_mesh:
+      raise ValueError(
+          f'{type(model).__name__} cannot train on a mesh: a mesh rank '
+          'computes its share through the model (supports_mesh, shard=)')
     if optimizer_type not in KINDS:
       raise ValueError(f'Unknown optimizer kind {optimizer_type}')
     resolve_state_dtype(optimizer_type, opt_state_dtype)
@@ -599,7 +594,7 @@ class Recoder:
     padded catalog, the logical items. ``gathered``: the sparse
     step's table rows (``sparse_entries`` names). The batch's user ids
     (``'users'``) reach the model as ``input_users``. A model without
-    ``decode_operands`` scores through its ``forward`` (or, with
+    ``fused_decode`` scores through its ``forward`` (or, with
     ``gathered``, its ``apply_gathered``) and ``loss_module``.
 
     The aux-loss hook (the JAX ``has_aux``): in training, a model with
@@ -613,7 +608,7 @@ class Recoder:
     loss of the whole batch (:meth:`_mesh_forward_loss`)."""
     if self.mesh is not None:
       return self._mesh_forward_loss(batch, training, negative_sampling,
-                                     generator, gathered)
+                                     generator, gathered, step)
     model = self.model
     cd = getattr(model, 'compute_dtype', None)
     valid_users = batch['num_users']
@@ -654,7 +649,7 @@ class Recoder:
     if users is not None:
       users = users.to(input_dense.device)
 
-    if not hasattr(model, 'decode_operands'):
+    if not getattr(model, 'fused_decode', False):
       has_aux = training and getattr(model, 'has_aux', False)
       kw = dict(input_users=users, input_items=items, target_items=tg_items,
                 generator=generator, training=training,
@@ -683,14 +678,24 @@ class Recoder:
     return loss / valid_users
 
   def _mesh_forward_loss(self, batch, training, negative_sampling, generator,
-                         gathered):
+                         gathered, step=None):
     """:meth:`_forward_loss` on a mesh: this rank's share of the whole
     batch's loss sum -- its users' rows, and of a split catalog its
     columns (a union: the columns whose rows it holds; the whole catalog:
     its column range) -- added over the mesh and divided by the batch's
     valid users. The column mask is the whole batch's (the mega's
     columns are read off every user's row) before the rank takes its
-    share of it."""
+    share of it.
+
+    A model without ``fused_decode`` scores through its ``forward``
+    (or ``apply_gathered``) with the rank's ``shard``; its aux loss (the
+    KL of Mult-VAE, every 'model' rank's for its users) is added over
+    'data' alone, so that it counts once, while each rank's backward
+    still reads it. A custom ``Loss`` over a split catalog sees the
+    whole scores: the rank's columns gathered over 'model' (a union's,
+    whose other columns are zero, added), its backward taking the
+    rank's columns' gradient; its sum, the same on every 'model' rank,
+    is added over 'data'."""
     model = self.model
     cd = getattr(model, 'compute_dtype', None)
     valid_users = batch['num_users']
@@ -710,6 +715,7 @@ class Recoder:
           {'input': slab.to(cd or torch.float32), 'target': slab},
           self.mesh)
       input_dense, target = shard['input'], shard['target']
+      whole_mask = col_mask
     else:
       items = batch['items']
       B = batch['users'].shape[0]
@@ -723,7 +729,9 @@ class Recoder:
         target = part.rows(self._densify_union(batch, B, W, cd, side='tg_'))
       logical = (model.num_items if tg_items is None
                  else batch.get(side + 'width_valid', W))
-      col_mask = (torch.arange(W, device=target.device) < logical).float()
+      col_mask = whole_mask = (torch.arange(W, device=target.device)
+                               < logical).float()
+    whole_target = target
     if tg_items is None:
       # (the rank's column range of the catalog)
       target = part.columns(target)
@@ -736,24 +744,51 @@ class Recoder:
     users = batch.get('users')
     if users is not None:
       users = users.to(input_dense.device)
-    h, rows, bias = model.decode_operands(
-        input_dense, items, tg_items, gathered=gathered, training=training,
-        generator=generator, input_users=users, shard=part)
-    kind = self._fused_kind()
-    if kind is not None and W > 0:
-      loss = fused_decode_loss(
-          h, rows, bias, target.contiguous(), row_mask,
-          col_mask.contiguous(), kind,
-          getattr(self.loss_module, 'confidence', 0.0), cd)
+    aux = None
+    if getattr(model, 'fused_decode', False):
+      h, rows, bias = model.decode_operands(
+          input_dense, items, tg_items, gathered=gathered, training=training,
+          generator=generator, input_users=users, shard=part)
+      kind = self._fused_kind()
+      if kind is not None and W > 0:
+        loss = fused_decode_loss(
+            h, rows, bias, target.contiguous(), row_mask,
+            col_mask.contiguous(), kind,
+            getattr(self.loss_module, 'confidence', 0.0), cd)
+        return collectives.sum_forward(loss, None) / valid_users
+      scores = model.decode(h, rows, bias)
+    else:
+      has_aux = training and getattr(model, 'has_aux', False)
+      kw = dict(input_users=users, input_items=items, target_items=tg_items,
+                generator=generator, training=training, shard=part,
+                **({'step': step} if has_aux else {}))
+      scores = (model(input_dense, **kw) if gathered is None
+                else model.apply_gathered(gathered, input_dense, **kw))
+      if has_aux:
+        scores, aux = scores
+    if part.split and not isinstance(self.loss_module, SPLIT_LOSSES):
+      # (a custom loss: every 'model' rank computes it whole)
+      group = self.mesh.model_group
+      scores = (collectives.gather_columns_grad(
+          scores, group, sharding_lib.split_sizes(W, self.mesh))
+                if tg_items is None else collectives.sum_forward(scores, group))
+      loss = collectives.sum_forward(
+          self.loss_module(scores, whole_target, row_mask=row_mask,
+                           col_mask=whole_mask), self.mesh.data_group)
     elif part.split and isinstance(self.loss_module,
                                    losses_lib.MultinomialNLLLoss):
-      loss = torch.sum(losses_lib.multinomial_nll_loss(
-          model.decode(h, rows, bias), target, row_mask, col_mask,
-          group=self.mesh.model_group))
+      loss = collectives.sum_forward(torch.sum(
+          losses_lib.multinomial_nll_loss(
+              scores, target, row_mask, col_mask,
+              group=self.mesh.model_group)), None)
     else:
-      loss = self.loss_module(model.decode(h, rows, bias), target,
-                              row_mask=row_mask, col_mask=col_mask)
-    return collectives.sum_forward(loss, None) / valid_users
+      loss = collectives.sum_forward(
+          self.loss_module(scores, target, row_mask=row_mask,
+                           col_mask=col_mask), None)
+    if aux is not None:
+      loss = loss + collectives.sum_forward(torch.sum(aux * row_mask),
+                                            self.mesh.data_group)
+    return loss / valid_users
 
   @staticmethod
   def _densify_union(batch, B, W, dtype=None, side=''):
@@ -896,9 +931,10 @@ class Recoder:
   # ------------------------------------------------------------------
 
   def _data_source(self, matrix, batch_size, num_sampling_users, shuffle,
-                   target=None, num_random_negatives=0):
+                   target=None, num_random_negatives=0,
+                   table_sharding='auto'):
     cfg = (batch_size, num_sampling_users, shuffle, self.num_items,
-           self.seed, num_random_negatives)
+           self.seed, num_random_negatives, table_sharding)
     cached = self._source_cache
     if (cached is not None and cached[0] is matrix and cached[1] == cfg
         and cached[3] is target):
@@ -909,7 +945,8 @@ class Recoder:
                               num_items=self.num_items, shuffle=shuffle,
                               device=self.device, seed=self.seed,
                               target_matrix=target,
-                              num_random_negatives=num_random_negatives)
+                              num_random_negatives=num_random_negatives,
+                              mesh=self.mesh, table_sharding=table_sharding)
     self._source_cache = (matrix, cfg, source, target)
     return source
 
@@ -1008,19 +1045,14 @@ class Recoder:
     collectives inside the graphs; over gloo (which a graph cannot
     record) they run eagerly, and a log line says so.
 
-    ``table_sharding`` (other than 'auto' or False: the block tables and
-    the CSR split over 'data') is the JAX package's and not ported yet
-    (ROADMAP Queue 1 item 8).
+    ``table_sharding`` ('auto' | 'data' | None), on a mesh in 'blocks'
+    mode: 'data' splits the on-device source's block tables and CSR over
+    the mesh's 'data' axis (each step's rows fetched by owner slice and
+    one sum over 'data'; the slab then declines, and full decode
+    scatters its triplets), 'auto' does so past the JAX byte budget on a
+    mesh of more than one 'data' rank, and None (or any other value)
+    keeps them replicated (``DeviceDataSource``).
     """
-    _not_ported(table_sharding not in ('auto', False),
-                f'table_sharding={table_sharding!r}', MESH_LEFT)
-    if self.mesh is not None and self.mesh.shape['model'] > 1 and not (
-        isinstance(self.loss, str)
-        or isinstance(self.loss, SPLIT_LOSSES)):
-      raise NotImplementedError(
-          f'a custom loss ({type(self.loss).__name__}) over a catalog split '
-          "over the mesh's 'model' axis: only the built-in losses are "
-          f'computed column by column ({MESH_LEFT})')
     if full_decode not in ('auto', True, False):
       raise ValueError(f"full_decode={full_decode!r}: expected 'auto', "
                        'True or False')
@@ -1056,7 +1088,8 @@ class Recoder:
       try:
         source = self._data_source(train_dataset.interactions_matrix,
                                    batch_size, num_sampling_users, shuffle,
-                                   target, num_random_negatives)
+                                   target, num_random_negatives,
+                                   table_sharding)
       except FusedPipelineUnavailable as e:
         log.info('fused pipeline unavailable (%s); using host loader', e)
     if source is None:
@@ -1588,7 +1621,7 @@ class Recoder:
       x = part.rows(x)
       kw['shard'] = part
     with torch.no_grad():
-      if hasattr(self.model, 'decode_operands'):
+      if getattr(self.model, 'fused_decode', False):
         self.model.decode_operands(x, **kw)
       else:
         self.model(x, **kw)
@@ -1851,7 +1884,7 @@ class Recoder:
   def _mesh_operands(self, dense, users):
     """On a mesh: this rank's ``(h, rows, bias, part)`` of a scoring
     batch (its users' bottleneck, its rows of the catalog), in
-    ``eval_compute_dtype``."""
+    ``eval_compute_dtype``: the model's ``decode_operands``."""
     part = self._partition(users.shape[0])
     h, rows, bias = self.model.decode_operands(
         part.rows(dense), input_users=users, training=False, shard=part,

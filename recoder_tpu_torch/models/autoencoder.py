@@ -86,6 +86,7 @@ class DynamicAutoencoder(FactorizationModel):
   """
 
   supports_mesh = True
+  fused_decode = True
 
   def __init__(self, hidden_layers=None, activation_type='tanh',
                is_constrained=False, dropout_prob=0.0, noise_prob=0.0,

@@ -191,10 +191,13 @@ class FactorizationModel(nn.Module):
   ``num_items_padded`` of them when None). The built-in models also
   accept ``compute_dtype``; the trainer passes it only when
   ``eval_compute_dtype`` is set, so a model written to exactly this
-  signature keeps working. A model that defines ``decode_operands``
-  (:class:`DynamicAutoencoder`) trains through it instead, and with it
-  the fused decode-loss kernel; every other model trains through
-  ``forward`` and the trainer's loss.
+  signature keeps working. A model with ``fused_decode``
+  (:class:`DynamicAutoencoder`, :class:`MatrixFactorization`) trains
+  through its ``decode_operands`` instead, and with it the fused
+  decode-loss kernel; every other model trains through ``forward`` and
+  the trainer's loss. A model on a mesh defines ``decode_operands``
+  (``(h, rows, bias)`` of its scores ``h @ rows.T + bias``, with
+  ``shard``): the trainer scores through it.
   """
 
   def init_model(self, num_items=None, num_users=None, seed=0):
@@ -211,6 +214,9 @@ class FactorizationModel(nn.Module):
 
   #: whether the trainer runs the model on a mesh (``Recoder(mesh=...)``)
   supports_mesh = False
+  #: whether the trainer trains the model through ``decode_operands`` and
+  #: the fused decode-loss kernel (else through ``forward`` and its loss)
+  fused_decode = False
 
   def param_axes(self):
     """Map param-path -> axis-name tuple (e.g. ('item', 'embed')): the

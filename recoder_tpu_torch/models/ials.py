@@ -38,7 +38,30 @@ the corrections nor the SPD kernel's result for a row depend on the
 chunk around it), scores ``x @ Y^T``, masks seen items and takes the
 top k.
 
-Not ported yet: ``fit(mesh=...)`` and ``factor_sharding`` (multi-GPU).
+``fit(mesh=...)`` runs the fit on a ('data', 'model') mesh of processes
+(``recoder_tpu_torch.parallel``, one process a card), the JAX package's
+two layouts:
+
+  * ``factor_sharding=None``: each chunk's B rows are split over every
+    rank (the mesh's 'data' x 'model' ranks flattened, B padded to a
+    multiple of their count); each rank solves its rows with the same
+    solve, one ``all_gather`` returns the chunk's ``[B, d]`` solutions
+    and every rank scatters them into its replicated factors. The Gram
+    is replicated and each system is one block of the SPD kernel, so a
+    row's solution does not depend on the rank that solved it.
+  * ``factor_sharding='users'``: the user factors are row-sharded over
+    every rank (``ceil((num_users + 1) / ranks)`` rows each, the pad
+    rows zero) and the item factors replicated. The user solve writes
+    only the rows each rank owns; the item solve reads user rows by
+    owner slice -- each rank fills the slab slots it owns, the others
+    stay zero, and the slab is summed onto the rank that solves those
+    rows (one reduce a destination: the JAX ring's sum, never a gather
+    of the whole user matrix); the Gram of the user factors is the sum
+    of the ranks' Grams.
+
+Every collective runs on every mesh, a (1, 1) one included (a group of
+one returns its input), so that a (1, 1) mesh fits bitwise what the fit
+without a mesh fits.
 """
 
 import numpy as np
@@ -49,6 +72,7 @@ import recoder_tpu_torch
 from recoder_tpu_torch import device as device_lib
 from recoder_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from recoder_tpu_torch.ops.gather_matmul import full_float32
+from recoder_tpu_torch.parallel import collectives
 from recoder_tpu_torch.ops.spd import spd_solve
 from recoder_tpu_torch.recommender import topk_unseen
 
@@ -147,6 +171,39 @@ def _gram(factors):
   return torch.matmul(factors.t(), factors)
 
 
+def _mesh_ways(mesh):
+  """``(ranks, this rank's index)`` of a fit's mesh: 'data' x 'model'
+  flattened, the JAX ``flat_idx`` (rank ``r`` of the default group sits
+  at ``(r // model, r % model)``); ``(1, 0)`` without one."""
+  if mesh is None:
+    return 1, 0
+  world = mesh.shape['data'] * mesh.shape['model']
+  if torch.distributed.get_world_size() != world:
+    raise ValueError(f'the mesh has {world} ranks and the process group '
+                     f'{torch.distributed.get_world_size()}')
+  return world, mesh.data_rank * mesh.shape['model'] + mesh.model_rank
+
+
+class _UserShards:
+  """``factor_sharding='users'``'s layout: rank ``i`` holds user rows
+  ``[i * per, (i + 1) * per)``, ``per = ceil((num_users + 1) / ranks)``
+  (the sentinel row ``num_users`` exists and stays zero, as in JAX), of
+  which the first ``valid`` are real users."""
+
+  def __init__(self, num_users, mesh):
+    self.num_users = int(num_users)
+    self.world, self.index = _mesh_ways(mesh)
+    self.per = -(-(self.num_users + 1) // self.world)
+    self.lo = self.index * self.per
+    self.valid = max(0, min(self.per, self.num_users - self.lo))
+
+  def local(self, ids):
+    """Local rows of the global user ``ids``: ``per`` (a spare row) for
+    every id that is not one of this rank's real users."""
+    loc = ids - self.lo
+    return torch.where((loc >= 0) & (loc < self.valid), loc, self.per)
+
+
 class IALS:
   """Implicit-feedback weighted matrix factorization via ALS.
 
@@ -193,6 +250,9 @@ class IALS:
     self.num_users = None
     self.user_factors = None  # [num_users, d] (training users)
     self.item_factors = None  # [num_items, d]
+    #: the last fit's mesh and user-factor layout (None: one device)
+    self.mesh = None
+    self.factor_sharding = None
 
   # -- training ----------------------------------------------------------
 
@@ -211,14 +271,28 @@ class IALS:
         partials, systems; 5 GiB at 2^21 and d=128). The resident chunk
         plans cost ~8 bytes per padded nnz per side.
       callback: optional ``f(sweep)`` called after each sweep.
-      mesh, factor_sharding: the JAX package's multi-device fit; not
-        ported yet, and refused.
+      mesh: a ('data', 'model') mesh from
+        :func:`recoder_tpu_torch.parallel.make_mesh` (every rank calls
+        ``fit`` with the same arguments and matrix): each chunk's row
+        solves are split over every rank (module docstring); the fit
+        runs on the mesh's device. The chunk budget is then each rank's.
+      factor_sharding (None | 'users'): 'users' keeps the user factors
+        row-sharded over the mesh's ranks (it needs ``mesh``): each
+        rank's ``user_factors`` are then its ``[ceil((num_users + 1) /
+        ranks), d]`` rows, the pad rows zero. :meth:`save` and
+        :meth:`objective` gather them; the item factors, which fold-in,
+        ``predict`` and ``recommend`` read, are replicated.
     """
-    if mesh is not None or factor_sharding is not None:
-      raise NotImplementedError(
-          'iALS fit(mesh=..., factor_sharding=...) is not ported to the '
-          'PyTorch package yet (multi-GPU, ROADMAP Queue 1 item 8); fit '
-          'on one device')
+    if factor_sharding not in (None, 'users'):
+      raise ValueError(f'unknown factor_sharding {factor_sharding!r}')
+    if factor_sharding == 'users' and mesh is None:
+      raise ValueError("factor_sharding='users' requires a mesh")
+    if mesh is not None:
+      if mesh.device.type != self.device.type:
+        raise ValueError(f'device {self.device} differs from the mesh\'s '
+                         f'{mesh.device}')
+      self.device = mesh.device
+    self.mesh, self.factor_sharding = mesh, factor_sharding
     m = sp.csr_matrix(train_matrix, copy=True).astype(np.float32)
     m.eliminate_zeros()  # an explicit zero is NOT an observation
     if m.nnz and m.data.min() < 0:
@@ -238,23 +312,97 @@ class IALS:
          * (self.init_scale / np.sqrt(d))).astype(np.float32)
     ).to(self.device)
 
-    # chunk plans depend only on the CSR: built and shipped once
-    user_plan = self._chunk_plan(m, chunk_elems)
-    item_plan = self._chunk_plan(m.T.tocsr(), chunk_elems)
+    user_half, item_half = self._half_sweeps(m, chunk_elems)
     for sweep in range(sweeps):
-      user_f = self._solve_side(None, item_f, plan=user_plan)
-      item_f = self._solve_side(None, user_f, plan=item_plan)
+      user_f = user_half(item_f)
+      item_f = item_half(user_f)
       if callback is not None:
         self.user_factors, self.item_factors = user_f, item_f
         callback(sweep)
     # final user half-sweep: stored user factors are exact against the
     # final item factors (fold-in of a training history reproduces them
     # bit for bit, and U @ V^T scores use a consistent pair)
-    self.user_factors = self._solve_side(None, item_f, plan=user_plan)
+    self.user_factors = user_half(item_f)
     self.item_factors = item_f
     return self
 
-  def _chunk_plan(self, csr, chunk_elems=1 << 21):
+  def _half_sweeps(self, m, chunk_elems):
+    """``(user_half, item_half)``: each solves every row of its side
+    against the other side's factors, off chunk plans built once (they
+    depend only on the CSR), in the fit's layout (``self.mesh``,
+    ``self.factor_sharding``)."""
+    mesh = self.mesh
+    users = self.factor_sharding == 'users'
+    user_plan = self._chunk_plan(m, chunk_elems, mesh=mesh)
+    item_plan = self._chunk_plan(m.T.tocsr(), chunk_elems, mesh=mesh,
+                                 whole_cols=users)
+    if not users:
+      return (lambda f: self._solve_side(None, f, plan=user_plan, mesh=mesh),
+              lambda f: self._solve_side(None, f, plan=item_plan, mesh=mesh))
+    shards = _UserShards(m.shape[0], mesh)
+    return (lambda f: self._user_half_sharded(f, user_plan, shards),
+            lambda f: self._item_half_sharded(f, item_plan, shards))
+
+  def _user_half_sharded(self, item_f, plan, shards):
+    """``factor_sharding='users'``'s user solve: this rank's rows of each
+    chunk solved against the replicated item factors, the chunk's
+    solutions gathered, and the rows this rank owns kept (the others,
+    and the pad rows, go to a spare row)."""
+    d = item_f.shape[1]
+    with full_float32():
+      item_pad = torch.cat([item_f, item_f.new_zeros((1, d))])
+      gram = _gram(item_f)
+      out = item_f.new_zeros((shards.per + 1, d))
+      for c in plan['chunks']:
+        x = _solve_rows(item_pad, gram, c['cols'], c['vals'], self.alpha,
+                        c['reg'])
+        x = collectives.gather_rows(x, None, [x.shape[0]] * shards.world)
+        out.index_copy_(0, shards.local(c['rows']), x)
+    return out[:shards.per]
+
+  def _item_half_sharded(self, user_f, plan, shards):
+    """``factor_sharding='users'``'s item solve against the row-sharded
+    user factors: for each chunk and each rank ``j``, every rank fills
+    the slots of ``j``'s rows whose user it owns (a zero row elsewhere)
+    and the slabs are summed onto ``j`` (each slot has one owner: the
+    sum is exact); each rank then solves its rows, and the solutions are
+    gathered into the replicated item factors. The Gram is the sum of
+    the ranks' Grams of their real users' rows. The transient is one
+    rank's ``[B / ranks, L, d]`` slab."""
+    d = user_f.shape[1]
+    with full_float32():
+      user_pad = torch.cat([user_f, user_f.new_zeros((1, d))])
+      gram = collectives.sum_over(_gram(user_f[:shards.valid]), None)
+      out = user_f.new_zeros((plan['n_rows'] + 1, d))
+      for c in plan['chunks']:
+        b, L = c['cols'].shape
+        slab = None
+        for j in range(shards.world):
+          ids = c['cols_all'][j * b:(j + 1) * b].reshape(-1).long()
+          part = user_pad.index_select(0, shards.local(ids)).view(b, L, d)
+          collectives.reduce_to(part, j, None)
+          if j == shards.index:
+            slab = part
+        valid = (c['cols'] < shards.num_users).to(c['vals'].dtype)
+        x = _solve_rows_from_slab(slab, gram, valid, c['vals'], self.alpha,
+                                  c['reg'])
+        x = collectives.gather_rows(x, None, [b] * shards.world)
+        out.index_copy_(0, c['rows'], x)
+    return out[:plan['n_rows']]
+
+  def _whole_user_factors(self):
+    """``[num_users, d]`` user factors: the row shards gathered after a
+    ``factor_sharding='users'`` fit (every rank calls it), else as they
+    are."""
+    if self.factor_sharding != 'users':
+      return self.user_factors
+    per = self.user_factors.shape[0]
+    world, _ = _mesh_ways(self.mesh)
+    return collectives.gather_rows(self.user_factors, None,
+                                   [per] * world)[:self.num_users]
+
+  def _chunk_plan(self, csr, chunk_elems=1 << 21, mesh=None,
+                  whole_cols=False):
     """Epoch-invariant padded chunk tensors for :meth:`_solve_side`,
     built in numpy as the JAX package builds them and moved to the
     device once.
@@ -265,11 +413,22 @@ class IALS:
     'n_rows': int}``; each chunk holds int64 ``rows`` [B] (the scatter's
     index type), int32 ``cols`` [B, L] and float32 ``vals`` [B, L] /
     ``reg`` [B].
+
+    With ``mesh`` B is padded to a multiple of the mesh's ranks (the
+    pad rows, id ``n_rows``, have zero weights and drop at the scatter)
+    and a rank keeps its ``B / ranks`` rows of ``cols``, ``vals`` and
+    ``reg`` (``rows`` stays whole: the scatter of the gathered
+    solutions reads it); ``whole_cols`` keeps the chunk's whole ``cols``
+    too, as ``cols_all`` (the users-sharded item solve fills the other
+    ranks' slots).
     """
     n_rows, n = csr.shape
     nnz = np.diff(csr.indptr).astype(np.int64)
+    world, index = _mesh_ways(mesh)
     chunks = []
     for rows, B, L in self._chunk_layout(nnz, chunk_elems):
+      # (B is a power of two: only chunks smaller than the mesh pad)
+      B = -(-B // world) * world
       cols = np.full((B, L), n, np.int32)
       vals = np.zeros((B, L), np.float32)
       # vectorized padded gather of the chunk's CSR slices
@@ -289,9 +448,14 @@ class IALS:
       # pad row ids scatter to the dropped row n_rows
       rows_pad = np.full(B, n_rows, np.int64)
       rows_pad[:len(rows)] = rows
-      chunks.append({k: torch.from_numpy(v).to(self.device)
-                     for k, v in (('rows', rows_pad), ('cols', cols),
-                                  ('vals', vals), ('reg', reg))})
+      b = B // world
+      mine = slice(index * b, (index + 1) * b)
+      arrays = [('rows', rows_pad), ('cols', cols[mine]),
+                ('vals', vals[mine]), ('reg', reg[mine])]
+      if whole_cols:
+        arrays.append(('cols_all', cols))
+      chunks.append({k: torch.from_numpy(np.ascontiguousarray(v)).to(
+          self.device) for k, v in arrays})
     return {'chunks': chunks, 'n_rows': n_rows}
 
   def _chunk_layout(self, nnz, chunk_elems=1 << 21):
@@ -315,15 +479,19 @@ class IALS:
       i += len(rows)
       yield rows, B, L
 
-  def _solve_side(self, csr, factors, chunk_elems=1 << 21, plan=None):
+  def _solve_side(self, csr, factors, chunk_elems=1 << 21, plan=None,
+                  mesh=None):
     """Solve every row of ``csr`` against the opposite-side
     ``factors``; returns the new [rows, d] factor matrix (device).
 
     With ``plan`` (a cached :meth:`_chunk_plan`), ``csr`` is ignored
-    and the whole solve runs off resident device tensors.
+    and the whole solve runs off resident device tensors. With ``mesh``
+    (the plan's) each rank solves its rows of a chunk and the chunk's
+    solutions are gathered: every rank returns the whole matrix.
     """
     if plan is None:
-      plan = self._chunk_plan(csr, chunk_elems)
+      plan = self._chunk_plan(csr, chunk_elems, mesh=mesh)
+    world, _ = _mesh_ways(mesh)
     d = factors.shape[1]
     n_rows = plan['n_rows']
     with full_float32():
@@ -334,16 +502,20 @@ class IALS:
       for c in plan['chunks']:
         x = _solve_rows(factors_pad, gram, c['cols'], c['vals'],
                         self.alpha, c['reg'])
+        if mesh is not None:
+          x = collectives.gather_rows(x, None, [x.shape[0]] * world)
         out.index_copy_(0, c['rows'], x)
     return out[:n_rows]
 
   def objective(self, train_matrix):
     """The exact iALS objective on the fitted factors (host float64;
-    diagnostic -- ALS decreases it monotonically every half-sweep)."""
+    diagnostic -- ALS decreases it monotonically every half-sweep). After
+    a ``factor_sharding='users'`` fit every rank calls it (the user
+    factors are gathered)."""
     assert self.item_factors is not None, 'call fit() first'
     m = sp.csr_matrix(train_matrix, copy=True).astype(np.float64)
     m.eliminate_zeros()  # same convention as fit()
-    u = self.user_factors.cpu().double().numpy()[:m.shape[0]]
+    u = self._whole_user_factors().cpu().double().numpy()[:m.shape[0]]
     v = self.item_factors.cpu().double().numpy()
 
     # sum over ALL pairs of 1 * (0 - x.y)^2 = tr(U^T U V^T V), then
@@ -410,17 +582,23 @@ class IALS:
   def save(self, path):
     """Write fitted factors + hyperparameters to ``path`` in the JAX
     package's npz format, plus ``init_scale`` and ``seed`` (which the
-    JAX package's reader ignores)."""
+    JAX package's reader ignores). After a mesh fit every rank calls it:
+    the factors are gathered, rank 0 writes the file a single device
+    writes, and the other ranks wait for it."""
     assert self.item_factors is not None, 'nothing to save: fit() first'
-    save_checkpoint(
-        path,
-        {'user_factors': self.user_factors,
-         'item_factors': self.item_factors},
-        {'model': 'ials', 'embedding_size': self.embedding_size,
-         'alpha': self.alpha, 'lam': self.lam, 'sweeps': self.sweeps,
-         'reg_scaling': self.reg_scaling, 'num_items': self.num_items,
-         'init_scale': self.init_scale, 'seed': self.seed,
-         'recoder_version': recoder_tpu_torch.__version__})
+    user_factors = self._whole_user_factors()
+    if self.mesh is None or torch.distributed.get_rank() == 0:
+      save_checkpoint(
+          path,
+          {'user_factors': user_factors,
+           'item_factors': self.item_factors},
+          {'model': 'ials', 'embedding_size': self.embedding_size,
+           'alpha': self.alpha, 'lam': self.lam, 'sweeps': self.sweeps,
+           'reg_scaling': self.reg_scaling, 'num_items': self.num_items,
+           'init_scale': self.init_scale, 'seed': self.seed,
+           'recoder_version': recoder_tpu_torch.__version__})
+    if self.mesh is not None:
+      torch.distributed.barrier()
     return path
 
   def load(self, path):
@@ -438,6 +616,7 @@ class IALS:
     self.init_scale = float(meta.get('init_scale', 1.0))
     self.seed = int(meta.get('seed', 0))
     self.num_items = int(meta['num_items'])
+    self.mesh = self.factor_sharding = None
     self.user_factors = torch.from_numpy(
         np.asarray(arrays['user_factors'], np.float32)).to(self.device)
     self.item_factors = torch.from_numpy(

@@ -57,6 +57,7 @@ class MatrixFactorization(FactorizationModel):
   """
 
   supports_mesh = True
+  fused_decode = True
 
   def __init__(self, embedding_size, activation_type='none',
                dropout_prob=0, sparse=False, compute_dtype=None,

@@ -85,7 +85,8 @@ class Partition:
   ``[lo, hi)`` of its 'data' slice, and of each 'model'-split table the
   rows of its axis's range (``ranges['item']``, ``ranges['user']``).
 
-  The models compute through it (``decode_operands(..., shard=...)``):
+  The models compute through it (``decode_operands(..., shard=...)``, and
+  in Mult-VAE's training ``forward(..., shard=...)``):
 
   * an item union's rows come from the rank's own rows, the columns it
     does not own zeroed (:meth:`take`, :meth:`owned`); the whole catalog

@@ -12,8 +12,12 @@ workspace with ``"device": "cpu"``.
 * a port ``train`` writes a checkpoint that the JAX package loads;
 * EASE and iALS go through train, evaluate, recommend and serve, against
   the JAX CLI on the same checkpoint;
-* settings whose modules are not ported raise NotImplementedError, and a
-  config without ``device`` asks for the card.
+* ``trainer.mesh_model`` for ials and ease fits on a (1, 1) mesh as the
+  JAX CLI fits on its mesh; iALS ``factor_sharding='users'`` without a
+  mesh and a mesh of more processes than the launch has raise
+  ValueError; EASE ``solve='newton'`` without a mesh (a TPU workaround)
+  raises NotImplementedError; and a config without ``device`` asks for
+  the card.
 """
 
 import contextlib
@@ -35,6 +39,7 @@ import recoder_tpu.cli as jax_cli
 import recoder_tpu_torch.cli as cli
 from recoder_tpu.model import Recoder as JaxRecoder
 from recoder_tpu.models import DynamicAutoencoder as JaxDynAE
+from recoder_tpu_torch.checkpoint import load_checkpoint
 from recoder_tpu_torch.data import UsersInteractions
 from recoder_tpu_torch.model import Recoder
 from recoder_tpu_torch.models import DynamicAutoencoder
@@ -361,13 +366,19 @@ def test_fit_models_go_through_every_command(workspace, model):
     # (a mesh of 2 needs a launch of 2 processes: torchrun)
     (lambda c: c['trainer'].update(mesh_model=2), ValueError,
      'torchrun --nproc_per_node=2'),
+    # (the JAX fit's own ValueError)
     (lambda c: c.update(model={'type': 'ials', 'embedding_size': 4,
                                'factor_sharding': 'users', 'device': 'cpu'}),
-     NotImplementedError, 'Queue 1 item 8'),
+     ValueError, 'requires a mesh'),
+    # (a (1, 1) mesh in this process: the fit runs, as the JAX CLI's on its
+    # mesh)
     (lambda c: c.update(model={'type': 'ials', 'embedding_size': 4,
                                'device': 'cpu'},
-                        trainer={'mesh_model': 2}),
-     NotImplementedError, 'Queue 1 item 8'),
+                        trainer={'mesh_model': 1}),
+     None, 'user_factors'),
+    (lambda c: c.update(model={'type': 'ease', 'lam': 5.0, 'device': 'cpu'},
+                        trainer={'mesh_model': 1}),
+     None, 'item_weights'),
     (lambda c: c.update(model={'type': 'ease', 'solve': 'newton',
                                'device': 'cpu'}),
      NotImplementedError, 'newton')])
@@ -375,9 +386,33 @@ def test_settings_not_ported_raise(workspace, change, error, match):
   tmp_path, _, _, port_cfg, _, _ = workspace
   cfg = json.loads(json.dumps(port_cfg))
   change(cfg)
-  path = _write(tmp_path / 'refused.json', cfg)
-  with pytest.raises(error, match=match):
-    run(cli, ['train', '--config', path])
+  if error is not None:
+    path = _write(tmp_path / 'refused.json', cfg)
+    with pytest.raises(error, match=match):
+      run(cli, ['train', '--config', path])
+    return
+  # the fit on the mesh against the JAX CLI's on its mesh of the 8
+  # virtual devices, each saved under its own prefix
+  saved = {}
+  for name, module in (('port', cli), ('jax', jax_cli)):
+    c = json.loads(json.dumps(cfg))
+    c['train'] = {'model_checkpoint_prefix': str(tmp_path / f'mesh_{name}')}
+    if name == 'jax':
+      del c['model']['device']
+    try:
+      run(module, ['train', '--config',
+                   _write(tmp_path / f'mesh_{name}.json', c)])
+    finally:
+      if name == 'port' and torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    saved[name] = load_checkpoint(str(tmp_path / f'mesh_{name}.model'))[0][
+        match]
+  if match == 'item_weights':
+    np.testing.assert_allclose(saved['port'], saved['jax'], rtol=5e-4,
+                               atol=5e-5)
+  else:  # (the packages' fits: tests/test_torch_ials.py's bound)
+    assert (np.max(np.abs(saved['port'] - saved['jax']))
+            <= 5e-5 * np.max(np.abs(saved['jax'])))
 
 
 def test_a_config_without_device_asks_for_the_card(workspace):

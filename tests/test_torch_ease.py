@@ -9,12 +9,15 @@
   for weighted values over ragged chunks.
 * ``recommend`` against the JAX ``recommend``, seen items masked and
   short lists trimmed; ``predict`` masks nothing.
-* Checkpoints both ways; the guards (``max_items``, ``solve='newton'``,
-  ``mesh``).
+* Checkpoints both ways; the guards (``max_items``, ``solve='newton'``
+  without a mesh), and a fit on a (1, 1) mesh, which runs the JAX mesh
+  path's Newton-Schulz solve (its B within the JAX mesh test's rtol 5e-4
+  / atol 5e-5 of the Cholesky B).
 """
 
 import numpy as np
 import pytest
+import torch
 from scipy.sparse import csr_matrix
 
 from recoder_tpu.data import UsersInteractions as JaxUsers
@@ -24,6 +27,7 @@ from recoder_tpu_torch.data import (RecommendationDataset,
                                     UsersInteractions)
 from recoder_tpu_torch.metrics import Recall, RecommenderEvaluator
 from recoder_tpu_torch.models import EASE
+from recoder_tpu_torch.parallel import MeshConfig, make_mesh
 from recoder_tpu_torch.recommender import InferenceRecommender
 
 B_TOL = 1e-4  # of max |B|
@@ -157,7 +161,14 @@ def test_guards():
     EASE(device='cpu').fit(m, max_items=20)
   with pytest.raises(NotImplementedError, match='TPU-only workarounds'):
     EASE(device='cpu').fit(m, solve='newton')
-  with pytest.raises(NotImplementedError, match='Queue 1 item 8'):
-    EASE(device='cpu').fit(m, mesh=object())
+  # (a mesh fit runs, as the JAX fit on a mesh does)
+  mesh = make_mesh(MeshConfig(1, 1), devices='cpu')
+  try:
+    got = EASE(device='cpu').fit(m, mesh=mesh)
+  finally:
+    torch.distributed.destroy_process_group()
+  np.testing.assert_allclose(got.item_weights.numpy(),
+                             EASE(device='cpu').fit(m).item_weights.numpy(),
+                             rtol=5e-4, atol=5e-5)
   with pytest.raises(RuntimeError, match='fit'):
     EASE(device='cpu').predict(UsersInteractions(np.arange(2), m[:2]))

@@ -29,6 +29,7 @@ from recoder_tpu_torch.metrics import NDCG, Recall, RecommenderEvaluator
 from recoder_tpu_torch.models import IALS
 from recoder_tpu_torch.models import ials as ials_lib
 from recoder_tpu_torch.ops import spd
+from recoder_tpu_torch.parallel import MeshConfig, make_mesh
 from recoder_tpu_torch.recommender import InferenceRecommender
 
 
@@ -334,11 +335,24 @@ def test_predict_rejects_wrong_width():
 
 
 def test_refuses_mesh_and_factor_sharding():
+  """The JAX fit's ValueErrors (``factor_sharding='users'`` without a
+  mesh, an unknown layout); on a (1, 1) mesh both layouts fit bitwise
+  what the fit without one fits."""
   m = _binary_matrix()
-  with pytest.raises(NotImplementedError, match='multi-GPU'):
+  with pytest.raises(ValueError, match='requires a mesh'):
     IALS(embedding_size=4, device='cpu').fit(m, factor_sharding='users')
-  with pytest.raises(NotImplementedError, match='multi-GPU'):
-    IALS(embedding_size=4, device='cpu').fit(m, mesh=object())
+  with pytest.raises(ValueError, match='unknown factor_sharding'):
+    IALS(embedding_size=4, device='cpu').fit(m, factor_sharding='items')
+  ref = IALS(embedding_size=4, sweeps=2, device='cpu').fit(m, chunk_elems=CE)
+  mesh = make_mesh(MeshConfig(1, 1), devices='cpu')
+  try:
+    for layout in (None, 'users'):
+      got = IALS(embedding_size=4, sweeps=2, device='cpu').fit(
+          m, chunk_elems=CE, mesh=mesh, factor_sharding=layout)
+      assert torch.equal(got.item_factors, ref.item_factors)
+      assert torch.equal(got._whole_user_factors(), ref.user_factors)
+  finally:
+    torch.distributed.destroy_process_group()
 
 
 def test_solve_goes_through_spd_solve():

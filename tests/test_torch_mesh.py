@@ -4,28 +4,33 @@ Each mesh shape is one spawn of 1, 2 or 4 processes (a file store, one
 thread each) that runs every case of ``torch_mesh_workers.CASES`` --
 DynamicAutoencoder with 'users' and 'blocks', full decode, logloss dense
 and sparse, a target matrix through the host loader, MatrixFactorization
-dense and sparse -- and writes what rank 0's ``save_state`` gathers. The
+dense and sparse, Mult-VAE over unions, over the full catalog and with
+sparse tables, a custom ``Loss`` over a union and over the full catalog,
+and the 'blocks' tables split over 'data' (``table_sharding='data'``:
+unions, full decode, dual CSRs, five blocks; their parameters also at the
+JAX ``tests/test_sharding.py``'s atol 2e-5, and on a (3, 1) mesh too) --
+and writes what rank 0's ``save_state`` gathers. The
 test holds them against the port's single-device runs: (1, 1) bitwise,
 (2, 1), (1, 2) and (2, 2) at the JAX mesh tests' tolerances (rtol 5e-4,
 atol 1e-5: ``tests/test_sharding.py``), the parameters and every Adam
 moment, ``predict``, ``recommend`` (one matrix and chunked), the
-validation loss and an evaluation too. On (2, 2) it also checks that no
-rank holds a whole table or its moments, that a checkpoint written on
+validation loss and an evaluation too. Under 'data'-sharded tables each
+rank's tables and CSR arrays are its share. On (2, 2) it also checks
+that no rank holds a whole table or its moments, that a checkpoint written on
 the mesh loads into the single-device port and into the JAX ``Recoder``
 and trains on back on the mesh, that the CLI's ``mesh_model`` builds
 the mesh inside the launch, and that the slice fixture of
 ``tests/test_torch_slice.py`` trains on the port's (2, 2) mesh to the
-JAX package's (4, 2) mesh (the conftest's 8 virtual CPU devices).
+JAX package's (4, 2) mesh (the conftest's 8 virtual CPU devices), the
+autoencoder and a Mult-VAE (eps = 0 in both packages).
 
-A spawn that does not end within ``TIMEOUT`` seconds is killed and
-fails its tests.
+A spawn that does not end within ``workers.TIMEOUT`` seconds is killed
+and fails its tests.
 """
 
 import functools
 import json
-import multiprocessing
 import os
-import time
 
 import jax
 import numpy as np
@@ -35,42 +40,17 @@ import torch_mesh_workers as workers
 from recoder_tpu.data import RecommendationDataset as JaxDataset
 from recoder_tpu.model import Recoder as JaxRecoder
 from recoder_tpu.models import DynamicAutoencoder as JaxDynAE
+from recoder_tpu.models import MultVAE as JaxMultVAE
 from recoder_tpu.parallel import MeshConfig as JaxMeshConfig
 from recoder_tpu.parallel import make_mesh as jax_make_mesh
 from recoder_tpu_torch.checkpoint import load_checkpoint
 from recoder_tpu_torch.model import Recoder
 from recoder_tpu_torch.models import DynamicAutoencoder
 
-TIMEOUT = 120
 SHAPES = [(1, 1), (2, 1), (1, 2), (2, 2)]
 CASES = list(workers.CASES)
+TABLE_CASES = [c for c in CASES if c.startswith('tables_')]
 RTOL, ATOL = 5e-4, 1e-5
-
-
-def _spawn(out, shape, cases):
-  """Run ``cases`` on a ``shape`` mesh of spawned gloo ranks; raise with
-  the ranks' tracebacks if one fails, and kill them all past
-  ``TIMEOUT``."""
-  os.makedirs(out, exist_ok=True)
-  ctx = multiprocessing.get_context('spawn')
-  world = shape[0] * shape[1]
-  procs = [ctx.Process(target=workers.main,
-                       args=(rank, world, out, shape, cases))
-           for rank in range(world)]
-  for p in procs:
-    p.start()
-  deadline = time.time() + TIMEOUT
-  for p in procs:
-    p.join(max(0.0, deadline - time.time()))
-  hung = [p for p in procs if p.is_alive()]
-  for p in procs:
-    if p.is_alive():
-      p.kill()
-      p.join()
-  errors = [open(os.path.join(out, f)).read()
-            for f in sorted(os.listdir(out)) if f.startswith('error_')]
-  assert not hung, f'{shape} mesh: {len(hung)} rank(s) hung past {TIMEOUT} s'
-  assert all(p.exitcode == 0 for p in procs), '\n'.join(errors)
 
 
 @pytest.fixture(scope='module')
@@ -79,17 +59,19 @@ def runs(tmp_path_factory):
   use."""
   root = tmp_path_factory.mktemp('mesh')
   slice_init = _jax_slice_init()
+  vae_init = _jax_slice_init(vae=True)
   done = {}
 
   def get(shape):
     if shape not in done:
       out = str(root / f'mesh_{shape[0]}x{shape[1]}')
       os.makedirs(out)
-      cases = CASES
+      cases = CASES if shape in SHAPES else TABLE_CASES
       if shape == (2, 2):
         np.savez(os.path.join(out, 'slice_init.npz'), **slice_init)
-        cases = CASES + ['resume', 'slice', 'cli']
-      _spawn(out, shape, cases)
+        np.savez(os.path.join(out, 'vae_slice_init.npz'), **vae_init)
+        cases = CASES + ['resume', 'slice', 'vae_slice', 'cli']
+      workers.spawn(out, shape, cases)
       done[shape] = out
     return done[shape]
   return get
@@ -119,6 +101,19 @@ def _arrays(ckpt):
 @pytest.mark.parametrize('shape', SHAPES, ids=lambda s: f'{s[0]}x{s[1]}')
 def test_mesh_training_matches_single_device(runs, tmp_path_factory, shape,
                                              case):
+  _held_to_single_device(runs, tmp_path_factory, shape, case)
+
+
+@pytest.mark.parametrize('case', TABLE_CASES)
+def test_data_sharded_tables_on_three_data_ranks(runs, tmp_path_factory,
+                                                 case):
+  """The table cases on a (3, 1) mesh, whose 'data' ways divide neither
+  the two blocks of most cases nor the five of ``tables_odd_blocks``,
+  against the single device's replicated tables."""
+  _held_to_single_device(runs, tmp_path_factory, (3, 1), case)
+
+
+def _held_to_single_device(runs, tmp_path_factory, shape, case):
   out = runs(shape)
   ref_root = str(tmp_path_factory.getbasetemp() / 'single')
   os.makedirs(ref_root, exist_ok=True)
@@ -138,11 +133,56 @@ def test_mesh_training_matches_single_device(runs, tmp_path_factory, shape,
     for k in ref:
       np.testing.assert_allclose(got[k], ref[k], rtol=RTOL, atol=ATOL,
                                  err_msg=k)
+      if case in TABLE_CASES and k.startswith('model/'):
+        # (tests/test_sharding.py's bound on parameters trained over
+        # 'data'-sharded tables against replicated ones)
+        np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=2e-5,
+                                   err_msg=k)
     for k in measures:
       np.testing.assert_allclose(scoring[k], ref_scoring[k], rtol=RTOL,
                                  atol=ATOL, err_msg=k)
   np.testing.assert_array_equal(scoring['top'], ref_scoring['top'])
   np.testing.assert_array_equal(scoring['top_chunked'], ref_scoring['top'])
+
+
+@pytest.mark.parametrize('case', TABLE_CASES)
+@pytest.mark.parametrize('shape', SHAPES + [(3, 1)],
+                         ids=lambda s: f'{s[0]}x{s[1]}')
+def test_data_sharded_tables_hold_the_ranks_share(runs, shape, case):
+  """Under ``table_sharding='data'`` on more than one 'data' rank each
+  rank holds its rows of the block union table (``ceil(n_blocks / D)``,
+  the table padded to a multiple of D) and its chunk of each flat CSR
+  array (``ceil((len - halo) / D)`` entries and the halo); the per-user
+  ``indptr`` and the widths stay whole, as in JAX. Full decode's slab
+  declines with the JAX reason. On one 'data' rank the tables stay
+  replicated, as JAX keeps them."""
+  out = runs(shape)
+  ways = shape[0]
+  for rank in range(shape[0] * shape[1]):
+    with open(os.path.join(out, f'{case}_tables_{rank}.json')) as f:
+      got = json.load(f)
+    if ways == 1:
+      assert got['sharding'] is None
+      assert got['decline'] != "'data'-sharded CSR storage"
+      assert all(held == whole for held, whole in got['shapes'].values())
+      continue
+    assert got['sharding'] == 'data'
+    split = 0
+    for key, (held, whole) in got['shapes'].items():
+      prefix = 'tg_' if key.startswith('tg_') else ''
+      name = key[len(prefix):]
+      want = list(whole)
+      if name == 'unions':
+        want[0] = -(-whole[0] // ways)
+      elif name in ('cols', 'raw', 'vals'):
+        halo = got['halo'][prefix]
+        want[0] = -(-(whole[0] - halo) // ways) + halo
+      split += want != whole
+      assert held == want, (case, rank, key, held, want)
+    assert split
+    if case == 'tables_full_decode':
+      assert got['decline'] == "'data'-sharded CSR storage"
+      assert 'raw' in got['shapes']
 
 
 @pytest.mark.parametrize('shape', [(1, 2), (2, 2)],
@@ -210,10 +250,19 @@ def test_mesh_checkpoint_loads_into_one_device_and_jax_and_resumes(
                                err_msg=k)
 
 
-def _jax_slice_init():
-  tr = JaxRecoder(JaxDynAE(workers.SLICE['hidden'], 'tanh', noise_prob=0.0),
-                  optimizer_type='adam', loss='mse',
-                  loss_params={'confidence': 3}, seed=3)
+def _jax_slice_trainer(vae=False, mesh=None):
+  """The slice fixture's JAX trainer (the autoencoder, or the Mult-VAE
+  under logloss)."""
+  if vae:
+    return JaxRecoder(JaxMultVAE(**workers.VAE_SLICE), optimizer_type='adam',
+                      loss='logloss', seed=3, mesh=mesh)
+  return JaxRecoder(JaxDynAE(workers.SLICE['hidden'], 'tanh', noise_prob=0.0),
+                    optimizer_type='adam', loss='mse',
+                    loss_params={'confidence': 3}, seed=3, mesh=mesh)
+
+
+def _jax_slice_init(vae=False):
+  tr = _jax_slice_trainer(vae)
   tr.num_items, tr.num_users = workers.SLICE['items'], workers.SLICE['users']
   tr._init_model()
   return {k: np.asarray(v) for k, v in tr.model.params.items()}
@@ -247,6 +296,35 @@ def test_port_mesh_matches_the_jax_mesh_on_the_slice_fixture(runs):
   jax_losses = _jax_slice_step_losses(init)
   np.testing.assert_allclose(np.load(os.path.join(out, 'slice_losses.npy')),
                              jax_losses, rtol=1e-4)
+
+
+def test_port_mesh_multvae_matches_the_jax_mesh_on_the_slice_fixture(
+    runs, monkeypatch):
+  """The slice fixture's Mult-VAE (no dropout, eps = 0 in both packages:
+  ``jax.random.normal`` set to zeros) trained 4 steps on the port's (2, 2)
+  mesh against the JAX package's (4, 2) mesh (atol 1e-5)."""
+  import jax.numpy as jnp
+  out = runs((2, 2))
+  s = workers.SLICE
+  init = _jax_slice_init(vae=True)
+  monkeypatch.setattr(jax.random, 'normal',
+                      lambda key, shape, dtype=jnp.float32:
+                      jnp.zeros(shape, dtype))
+  jtr = _jax_slice_trainer(vae=True,
+                           mesh=jax_make_mesh(JaxMeshConfig(data=4, model=2)))
+  jtr.num_items, jtr.num_users = s['items'], s['users']
+  jtr._init_model()
+  jtr.model.params = {k: jax.device_put(v, jtr.model.params[k].sharding)
+                      for k, v in init.items()}
+  jtr.train(JaxDataset(workers.slice_matrix()), num_epochs=s['steps'],
+            batch_size=s['batch'], lr=s['lr'], weight_decay=s['wd'],
+            negative_sampling=True, shuffle='blocks', full_decode=True,
+            slab_cache=True)
+  got, _ = load_checkpoint(os.path.join(out, 'vae_slice.npz'))
+  for k, v in jtr.model.params.items():
+    np.testing.assert_allclose(got['model'][k], np.asarray(v), atol=1e-5,
+                               err_msg=k)
+  assert len(np.load(os.path.join(out, 'vae_slice_losses.npy'))) == s['steps']
 
 
 def _jax_slice_step_losses(init):

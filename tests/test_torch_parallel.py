@@ -13,12 +13,14 @@ import torch.distributed as dist
 
 from recoder_tpu.models import DynamicAutoencoder as JaxDynAE
 from recoder_tpu.models import MatrixFactorization as JaxMF
+from recoder_tpu.models import MultVAE as JaxMultVAE
 from recoder_tpu.parallel import MeshConfig as JaxMeshConfig
 from recoder_tpu.parallel import host_user_shard as jax_host_user_shard
 from recoder_tpu.parallel import make_mesh as jax_make_mesh
 from recoder_tpu.parallel import param_pspecs as jax_param_pspecs
 from recoder_tpu_torch import parallel
-from recoder_tpu_torch.models import DynamicAutoencoder, MatrixFactorization
+from recoder_tpu_torch.models import (DynamicAutoencoder, MatrixFactorization,
+                                      MultVAE)
 from recoder_tpu_torch.ops.row_scatter import row_scatter_plain
 from recoder_tpu_torch.parallel import mesh as mesh_lib
 from recoder_tpu_torch.parallel import sharding
@@ -88,7 +90,8 @@ def _jax_specs(model):
     (DynamicAutoencoder, JaxDynAE, dict(hidden_layers=[64, 32])),
     (DynamicAutoencoder, JaxDynAE,
      dict(hidden_layers=[16, 8], is_constrained=True)),
-    (MatrixFactorization, JaxMF, dict(embedding_size=8))])
+    (MatrixFactorization, JaxMF, dict(embedding_size=8)),
+    (MultVAE, JaxMultVAE, dict(hidden_dim=16, latent_dim=8))])
 def test_param_pspecs_match_jax(make_port, make_jax, kw):
   port, jax_model = make_port(**kw), make_jax(**kw)
   port.init_model(num_items=300, num_users=50, seed=0)
@@ -100,6 +103,10 @@ def test_param_pspecs_match_jax(make_port, make_jax, kw):
     assert specs['en_embedding'] == ('model', None)
     assert specs['de_bias'] == ('model',)
     assert specs['encode_w_1'] == (None, None)
+  elif make_port is MultVAE:
+    assert specs['de_embedding'] == ('model', None)
+    assert specs['de_bias'] == ('model',)
+    assert specs['w_mu'] == (None, None)
   else:
     assert specs['user_embedding'] == ('model', None)
 

@@ -11,8 +11,9 @@ parameter names in order and their defaults must equal the JAX
 original's. The only differences allowed are named below:
 
 * port-only parameters: ``device`` (where a trainer, a fitted model or
-  a brute-force index lives), and the test draws ``keep_mask`` / ``eps`` of a model's
-  forward;
+  a brute-force index lives), the test draws ``keep_mask`` / ``eps`` of a
+  model's forward, and its ``shard`` (a mesh rank's share of a step,
+  which JAX leaves to the compiler);
 * the forward's translation of the JAX functional form: no ``params``
   (the module holds them), ``generator`` for ``rng``, and no
   ``items_sorted_unique`` (an XLA promise with no PyTorch counterpart);
@@ -21,8 +22,8 @@ original's. The only differences allowed are named below:
 
 The arguments whose modules Queue 1 still holds are taken at their JAX
 positions and raise NotImplementedError when set; that is checked too,
-and that the ones since ported (``eval_item_chunk``, ``eval_topk``)
-construct.
+and that the ones since ported (``mesh``, ``eval_item_chunk``,
+``eval_topk``, ``table_sharding``) construct or train.
 """
 
 import inspect
@@ -55,7 +56,7 @@ import recoder_tpu_torch.utils as utils
 from recoder_tpu_torch.data import RecommendationDataset
 
 #: parameters only the port has
-PORT_ONLY = {'device', 'keep_mask', 'eps'}
+PORT_ONLY = {'device', 'keep_mask', 'eps', 'shard'}
 #: the JAX functional form's parameters a module's forward drops
 JAX_FUNCTIONAL = {'params', 'items_sorted_unique'}
 RENAMED = {'rng': 'generator'}
@@ -208,7 +209,8 @@ def test_queue_one_arguments_of_the_trainer_raise(kw, where):
 
 @pytest.mark.parametrize('kw,where', [
     (dict(num_random_negatives=4), None),  # ported: it trains
-    (dict(table_sharding=True), 'Queue 1 item 8')])
+    # (ported: without a mesh the JAX trainer ignores it, and trains)
+    (dict(table_sharding=True), None)])
 def test_queue_one_arguments_of_train_raise(kw, where):
   tr = model.Recoder(models.DynamicAutoencoder([4]), optimizer_type='adam',
                      device='cpu')
