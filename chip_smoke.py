@@ -429,6 +429,38 @@ Phases, each of which raises on failure:
                 the elementwise tolerance, and every entry within 2 lr a
                 step.
 
+ 34. scripts -- the dataset pipelines and the scale script, through
+                their entry points. (a) The ML-20M pipeline at the full
+                width: a ratings.csv of the ML-20M-shaped CSR,
+                scripts/ml-20m/torch_preprocess.py (the vae-cf split),
+                torch_train.py for 10 epochs (float32: the decode-loss
+                kernels counted in its eager warm-up steps, Adam's step
+                count, the validation at epoch 10 and its checkpoint),
+                scripts/torch_build_embeddings.py, torch_test.py by
+                inference (within 1e-6 of Recoder.evaluate on the same
+                checkpoint, above a random recommender) and by similarity
+                (beside it); (a') the same scripts on the fixture's real
+                interactions (logloss, 30 epochs), both methods above a
+                random recommender; each step's seconds. (b) torchrun
+                --nproc_per_node=1 (a one-rank NCCL group) of
+                scripts/torch_stress_scale.py --items 200000 --mesh-model 1
+                --mesh-data 1 and of scripts/msd-big/torch_train.py
+                --mesh-model 1 against the same without a mesh on (a)'s
+                split (10 epochs: the two checkpoints bitwise equal), in
+                parallel; then scripts/torch_stress_scale.py at its
+                defaults (10,000,000 x 128, sparse Adam, 'users', the ANN
+                forest over 200,000 items) in this process: the steady ms
+                a step, the peak memory beside the arithmetic's bytes, the
+                ANN build seconds, and the launches a step of the
+                decode-loss pair and the row scatter in one more eager
+                epoch. (c) bench.py's ML-20M default trained captured,
+                save_state(backend='orbax', async_save=True), an npz at
+                once, 16 more steps, then the wait: the directory and the
+                npz bitwise equal, trainers loaded from each evaluate
+                bitwise alike; at msd-big's bf16 tables and moments, the
+                seconds until save_state returns, until the commit, and of
+                the npz write.
+
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
 Without CUDA, or without the rest of the repository, it exits non-zero
@@ -4798,17 +4830,9 @@ def run_cli(argv):
 
 def build_index(ckpt, path, index_type, device='cuda'):
   """scripts/torch_build_embeddings.py (on the card); returns the index."""
-  import runpy
-  script = runpy.run_path(os.path.join(HERE, 'scripts',
-                                       'torch_build_embeddings.py'))
-  old = sys.argv
-  sys.argv = ['torch_build_embeddings.py', '--model-file', ckpt,
-              '--index-file', path, '--index-type', index_type,
-              '--n-trees', str(ANN_TREES), '--device', device]
-  try:
-    return script['main']()
-  finally:
-    sys.argv = old
+  return run_script('torch_build_embeddings.py', [
+      '--model-file', ckpt, '--index-file', path, '--index-type', index_type,
+      '--n-trees', str(ANN_TREES), '--device', device])[0]
 
 
 class RandomRecommender:
@@ -5780,6 +5804,522 @@ def phase_mesh_fits(card):
   return one_rank, spawned, seconds
 
 
+# -- phase 34 --------------------------------------------------------------
+
+#: the items of the stress script's ANN forest (its catalog and width,
+#: STRESS_ITEMS x STRESS_DIM, are its defaults too)
+STRESS_ANN_ITEMS = 200_000
+#: the one-rank NCCL run of the stress script's mesh flags
+STRESS_MESH_ITEMS = 200_000
+#: seconds a script's subprocess may take before its session is killed
+SCRIPT_TIMEOUT = 420
+#: ML-20M's ratings kept by preprocess (> 3.5)
+ML20M_RATINGS = (4.0, 4.5, 5.0)
+#: steps trained after the async directory save, while it writes
+ORBAX_STEPS_AFTER = 16
+#: users of (c)'s msd-big-shaped trainer (the catalog sets its bytes)
+ORBAX_MSD_BIG_USERS = 5000
+
+
+def run_script(path, argv):
+  """``scripts/<path>``'s ``main()`` under ``argv`` in this process (so
+  that the launch counters see it; loaded by path: the dataset
+  directories have hyphens): ``(what it returned, its standard output
+  (echoed), seconds)``."""
+  import contextlib
+  import io
+  import runpy
+  main = runpy.run_path(os.path.join(HERE, 'scripts', path))['main']
+  old, out = sys.argv, io.StringIO()
+  sys.argv = [path] + argv
+  t0 = time.time()
+  try:
+    with contextlib.redirect_stdout(out):
+      returned = main()
+  finally:
+    sys.argv = old
+  seconds = time.time() - t0
+  for line in out.getvalue().splitlines():
+    say(f'  | {line}')
+  return returned, out.getvalue(), seconds
+
+
+def start_torchrun(argv, log):
+  """``torchrun --standalone --nproc_per_node=1 <argv>`` from the
+  checkout, in a session of its own, its output into ``log``."""
+  with open(log, 'w') as f:
+    return subprocess.Popen(
+        [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+         '--nproc_per_node=1', *argv], cwd=HERE, stdout=f,
+        stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def wait_all(procs, started, timeout=SCRIPT_TIMEOUT):
+  """Wait for ``{name: (Popen, log)}``, started at ``started``; kill every
+  session still running past ``timeout`` seconds from then. Returns
+  ``{name: (returncode, output, seconds since started)}``; raises if one
+  failed or hung."""
+  t0 = started
+  done, hung = {}, []
+  for name, (proc, log) in procs.items():
+    try:
+      proc.wait(max(1.0, t0 + timeout - time.time()))
+    except subprocess.TimeoutExpired:
+      hung.append(name)
+  stop_sessions(procs)
+  for name, (proc, log) in procs.items():
+    with open(log) as f:
+      done[name] = (proc.returncode, f.read(), time.time() - t0)
+  for name, (rc, text, _) in done.items():
+    say(f'  | [{name}] exit {rc}, last lines:')
+    for line in text.splitlines()[-6:]:
+      say(f'  |   {line}')
+  bad = {n: rc for n, (rc, _, _) in done.items() if rc != 0}
+  if hung or bad:
+    raise AssertionError(f'scripts hung past {timeout} s: {hung}; failed: '
+                         f'{bad}')
+  return done
+
+
+def stop_sessions(procs):
+  """Kill the sessions of ``{name: (Popen, log)}`` still running."""
+  import signal
+  for proc, _ in procs.values():
+    if proc.poll() is None:
+      os.killpg(proc.pid, signal.SIGKILL)
+      proc.wait()
+
+
+def _result_means(results):
+  return {str(m): float(np.mean(v)) for m, v in results.items()}
+
+
+def _printed_metrics(text):
+  return {name: float(value) for name, _, value in
+          (line.rpartition(': ') for line in text.splitlines())
+          if '@' in name}
+
+
+def stress_arithmetic_gib(items, dim):
+  """The stress defaults' resident bytes by arithmetic: two [N, dim]
+  float32 tables, the encoder bias [dim] and the decoder bias [N], each
+  with two Adam moments (N the catalog padded as the model pads it)."""
+  from recoder_tpu_torch.models.base import pad_dim
+  n = pad_dim(items)
+  return 3 * 4 * (2 * n * dim + n + dim) / 2 ** 30
+
+
+def phase_scripts(card, device='cuda', matrix=None, stress_items=None,
+                  heldout=None, big_items=MSD_BIG_ITEMS):
+  """Phase 34 in a temporary directory: (a) the ML-20M pipeline of
+  scripts/ml-20m/torch_*.py, (b) scripts/torch_stress_scale.py and the
+  scripts' mesh flags, (c) the async directory checkpoint. The keyword
+  arguments shrink it for a rehearsal on the CPU (the launch checks are
+  skipped there)."""
+  with tempfile.TemporaryDirectory() as work:
+    return scripts_surface(card, work, device, matrix, stress_items,
+                           heldout, big_items)
+
+
+def scripts_pipeline(what, data, models, train_argv, dev_flag, device, card,
+                     sec, sync):
+  """scripts/ml-20m/torch_train.py on ``data`` (a pro_sg directory) with
+  ``train_argv``, the launch counters from 0, its checkpoint of the
+  last epoch (validated there); scripts/torch_build_embeddings.py's ANN
+  index of it; scripts/ml-20m/torch_test.py by inference, held within
+  1e-6 of ``Recoder.evaluate`` on the checkpoint, and by similarity,
+  beside a random recommender. Returns ``(launches, {method: printed
+  means}, random means)``; ``sec`` gets each step's seconds."""
+  import logging
+
+  from recoder_tpu_torch.data import RecommendationDataset
+  from recoder_tpu_torch.metrics import NDCG, Recall, RecommenderEvaluator
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  if os.path.join(HERE, 'scripts') not in sys.path:
+    sys.path.insert(0, os.path.join(HERE, 'scripts'))
+  import torch_pipelines
+
+  records = []
+  handler = logging.Handler()
+  handler.emit = records.append
+  logging.getLogger('recoder_tpu_torch').addHandler(handler)
+  sync()
+  reset_launches()
+  try:
+    trainer, _, sec['train'] = run_script(
+        'ml-20m/torch_train.py', ['--data-dir', data, '--model-dir', models,
+                                  *train_argv])
+    sync()
+  finally:
+    logging.getLogger('recoder_tpu_torch').removeHandler(handler)
+  launches = read_launches()
+  epochs, loss = trainer.current_epoch, trainer.loss
+  ckpt = os.path.join(models, f'{loss}_ns_d_0.0_n_0.5_200_epoch_{epochs}'
+                      '.model')
+  steps = epochs * len(trainer.last_epoch_losses)
+  adam_steps = {int(s['step']) for s in trainer.optimizer.state.values()}
+  validated = [r.getMessage() for r in records
+               if f'Epoch {epochs}/{epochs}' in r.getMessage()
+               and 'val_loss=' in r.getMessage()]
+  say(f'  ({what}) torch_train.py, {epochs} epochs ({steps:,} steps, '
+      f'{trainer.last_epoch_dispatch}): {sec["train"]:.1f} s; hand kernel '
+      f'launches { {k: v for k, v in launches.items() if v} } (captured '
+      f'replays uncounted); float32 Adam (torch.optim.Adam, fused) steps '
+      f'{sorted(adam_steps)}; '
+      f'{validated[-1] if validated else "no validation"} ({card})')
+  if not os.path.isfile(ckpt) or not validated or adam_steps != {steps}:
+    raise AssertionError(f'torch_train.py: checkpoint {ckpt} written '
+                         f'{os.path.isfile(ckpt)}, validation {validated}, '
+                         f'Adam steps {adam_steps} of {steps}')
+  del trainer
+
+  _, _, sec['build_embeddings'] = run_script(
+      'torch_build_embeddings.py', ['--model-file', ckpt, *dev_flag])
+
+  metrics = [Recall(k=20), Recall(k=50), NDCG(k=100)]
+  _, te_tr, te_te = torch_pipelines.load_split(data, 'test')
+  test_ds = RecommendationDataset(te_tr, te_te)
+  printed = {}
+  for method in ('inference', 'similarity'):
+    results, text, sec[f'test {method}'] = run_script(
+        'ml-20m/torch_test.py', ['--data-dir', data, '--model-file', ckpt,
+                                 '--method', method, *dev_flag])
+    printed[method] = _printed_metrics(text)
+    if printed[method] != _result_means(results):
+      raise AssertionError(f'{method}: printed {printed[method]} != '
+                           f'{_result_means(results)}')
+  recoder = Recoder(DynamicAutoencoder(), device=device)
+  recoder.init_from_model_file(ckpt)
+  t0 = time.time()
+  direct = _result_means(recoder.evaluate(test_ds, 100, metrics,
+                                          batch_size=500))
+  sec['Recoder.evaluate'] = time.time() - t0
+  rand = _result_means(RecommenderEvaluator(
+      RandomRecommender(te_tr.shape[1], 100), metrics).evaluate(
+          test_ds, batch_size=500))
+  say(f'  ({what}) test metrics: ' + '; '.join(
+      f'{k}: inference {printed["inference"][k]:.6f}, evaluate '
+      f'{direct[k]:.6f}, similarity {printed["similarity"][k]:.6f}, random '
+      f'{rand[k]:.6f}' for k in direct) + f' ({card})')
+  gap = max(abs(printed['inference'][k] - direct[k]) for k in direct)
+  if gap > 1e-6:
+    raise AssertionError(f'torch_test.py inference {printed["inference"]} '
+                         f'vs Recoder.evaluate {direct}: {gap}')
+  return launches, printed, rand
+
+
+def scripts_beside_torchrun(out, sec, work, data, dev_flag, device, card,
+                            sync, on_card):
+  """Phase 34 (a) 3.-5. and (a'), while ``procs`` run."""
+  import pandas as pd
+
+  # (a) 3.-5. train 10 epochs at float32 (the decode-loss kernels of rows
+  # 1-2), with the validation and the checkpoint of epoch 10; the ANN
+  # index; test by inference (against Recoder.evaluate) and by similarity
+  got = scripts_pipeline('ML-20M', data, os.path.join(work, 'models'),
+                         ['--epochs', '10', *dev_flag], dev_flag, device,
+                         card, sec, sync)
+  train_launches, printed, rand = got
+  if on_card and not (train_launches['fused_decode_loss_fwd']
+                      and train_launches['fused_decode_loss_bwd']):
+    raise AssertionError(f'torch_train.py launched no float32 decode-loss '
+                         f'kernel: {train_launches}')
+  # the synthetic interactions are independent draws: no co-occurrence
+  # for item-item similarity to find, so only inference must beat random
+  # here; the fixture's real interactions hold both methods to it
+  if any(printed['inference'][k] <= rand[k] for k in rand):
+    raise AssertionError(f'inference {printed["inference"]} not above '
+                         f'random {rand}')
+  out.update(train_launches=train_launches, metrics=printed,
+             random_metrics=rand)
+
+  # (a') the same scripts on the fixture's real interactions
+  # (tests/test_model.py's protocol: logloss, 30 epochs; its validation
+  # users' interactions the input, their training ones the target)
+  fixture = os.path.join(work, 'fixture') + '/'
+  os.makedirs(fixture)
+  train_df = pd.read_csv(os.path.join(DATA_DIR, 'train.csv.gz'))
+  val_df = pd.read_csv(os.path.join(DATA_DIR, 'val.csv.gz'))
+  train_df.to_csv(fixture + 'train.csv', index=False)
+  for heldout in ('validation', 'test'):
+    val_df.to_csv(fixture + f'{heldout}_tr.csv', index=False)
+    train_df[train_df['uid'].isin(set(val_df['uid']))].to_csv(
+        fixture + f'{heldout}_te.csv', index=False)
+  fsec = {}
+  _, fixture_printed, fixture_rand = scripts_pipeline(
+      'fixture', fixture, os.path.join(work, 'fixture_models'),
+      ['--epochs', '30', '--loss', 'logloss', *dev_flag], dev_flag, device,
+      card, fsec, sync)
+  sec.update({f'fixture {k}': v for k, v in fsec.items()})
+  for method, got in fixture_printed.items():
+    if any(got[k] <= fixture_rand[k] for k in fixture_rand):
+      raise AssertionError(f'fixture {method} {got} not above random '
+                           f'{fixture_rand}')
+  out.update(fixture_metrics=fixture_printed,
+             fixture_random_metrics=fixture_rand)
+
+
+def scripts_surface(card, work, device, matrix, stress_items, heldout,
+                    big_items):
+  import pandas as pd
+  import torch
+
+  from recoder_tpu_torch.checkpoint import flatten_tree, load_checkpoint
+  from recoder_tpu_torch.data import RecommendationDataset, synthetic
+
+  on_card = device == 'cuda'
+  dev_flag = [] if on_card else ['--device', 'cpu']
+  sync = torch.cuda.synchronize if on_card else lambda: None
+  out = {'seconds': {}}
+  sec = out['seconds']
+
+  # (a) 1. ratings.csv of the ML-20M-shaped interactions
+  t0 = time.time()
+  if matrix is None:
+    matrix = synthetic.synthesize_ml20m()
+  coo = matrix.tocoo()
+  rng = np.random.default_rng(34)
+  raw = os.path.join(work, 'ml-20m')
+  os.makedirs(raw)
+  pd.DataFrame({'userId': coo.row + 1, 'movieId': coo.col + 1,
+                'rating': rng.choice(ML20M_RATINGS, coo.nnz),
+                'timestamp': rng.integers(789652009, 1427784002, coo.nnz)}
+               ).to_csv(os.path.join(raw, 'ratings.csv'), index=False)
+  sec['ratings.csv'] = time.time() - t0
+  say(f'  (a) ratings.csv: {coo.nnz:,} ratings of {matrix.shape[0]:,} users '
+      f'x {matrix.shape[1]:,} items written in {sec["ratings.csv"]:.1f} s')
+  del coo
+
+  # (a) 2. preprocess
+  _, _, sec['preprocess'] = run_script(
+      'ml-20m/torch_preprocess.py', ['--data-dir', raw] + (
+          [] if heldout is None else ['--heldout-users', str(heldout)]))
+  data = os.path.join(raw, 'pro_sg') + '/'
+
+  # (b) the mesh flags under torchrun, one rank over NCCL, started now and
+  # run beside (a): the stress script's, and msd-big's --mesh-model 1
+  # against its run without a mesh on (a)'s split
+  started = time.time()
+  msd_big = {'mesh': ['--mesh-model', '1'], 'plain': []}
+  log = os.path.join(work, 'stress_mesh.log')
+  procs = {'stress mesh': (start_torchrun(
+      ['scripts/torch_stress_scale.py', '--items', str(STRESS_MESH_ITEMS),
+       '--mesh-model', '1', '--mesh-data', '1']
+      + ([] if on_card else ['--cpu', '--users', '1000']), log), log)}
+  for name, flags in msd_big.items():
+    log = os.path.join(work, f'msd_big_{name}.log')
+    procs[f'msd-big {name}'] = (start_torchrun(
+        ['scripts/msd-big/torch_train.py', '--data-dir', data,
+         '--model-dir', os.path.join(work, f'msd_big_{name}'),
+         '--epochs', '10', *flags, *dev_flag], log), log)
+  say(f'  (a) and (a\') run beside the {len(procs)} torchrun processes of '
+      f'(b) on the same card: their seconds and rates are those of a '
+      f'shared card')
+
+  try:
+    scripts_beside_torchrun(out, sec, work, data, dev_flag, device, card,
+                            sync, on_card)
+  except BaseException:
+    stop_sessions(procs)
+    raise
+
+  # (b) the torchrun runs started after (a)'s split
+  done = wait_all(procs, started)
+  sec['torchrun (parallel)'] = max(s for _, _, s in done.values())
+  if "mesh: {'data': 1, 'model': 1}" not in done['stress mesh'][1]:
+    raise AssertionError('the stress script printed no mesh line')
+  if "mesh: {'data': 1, 'model': 1}" not in done['msd-big mesh'][1]:
+    raise AssertionError('msd-big --mesh-model 1 printed no mesh line')
+  ckpts = [load_checkpoint(os.path.join(
+      work, f'msd_big_{name}', 'logloss_ns_d_0.0_n_0.5_200_epoch_10.model'))
+      for name in msd_big]
+  (a_arrays, a_meta), (b_arrays, b_meta) = ckpts
+  fa, fb = flatten_tree(a_arrays), flatten_tree(b_arrays)
+  differ = [k for k in fa if k not in fb or fa[k].dtype != fb[k].dtype
+            or not np.array_equal(fa[k], fb[k])]
+  say(f'  (b) msd-big torch_train.py --mesh-model 1 (one NCCL rank) against '
+      f'no mesh, 10 epochs: {len(fa)} arrays, {len(differ)} differ; '
+      f'torchrun runs {sec["torchrun (parallel)"]:.1f} s ({card})')
+  if differ or fa.keys() != fb.keys() or a_meta != b_meta:
+    raise AssertionError(f'msd-big --mesh-model 1 differs from no mesh: '
+                         f'{differ[:5]}')
+
+  # (b) the stress script at its defaults, in this process
+  stress_argv = [] if stress_items is None else [
+      '--items', str(stress_items), '--users', '2000', '--ann-items', '500']
+  if not on_card:
+    stress_argv.append('--cpu')
+  sync()
+  reset_launches()
+  if on_card:
+    torch.cuda.empty_cache()
+  base = torch.cuda.memory_allocated() / 2 ** 30 if on_card else 0.0
+  stress_tr, text, sec['stress'] = run_script('torch_stress_scale.py',
+                                              stress_argv)
+  sync()
+  stress_launches = read_launches()
+  epoch_ms = 1e3 * stress_tr.last_epoch_seconds / len(
+      stress_tr.last_epoch_losses)
+  epoch_dispatch = stress_tr.last_epoch_dispatch
+  items = stress_items or STRESS_ITEMS
+  step_ms = float(re.search(r'= ([0-9.]+) ms/step', text).group(1))
+  ann_s = float(re.search(r'items built in ([0-9.]+)s', text).group(1))
+  peak = re.search(r'peak device memory allocated: ([0-9.]+) GiB', text)
+  peak = float(peak.group(1)) if peak else None
+  gib = stress_arithmetic_gib(items, STRESS_DIM)
+  # launches a step in one more epoch, eager (fused_steps_per_call=1)
+  stress = runpy_globals('torch_stress_scale.py')
+  ds = RecommendationDataset(stress['synthetic_matrix'](
+      stress_tr.num_users, items, 50, np.random.default_rng(0)))
+  reset_launches()
+  before = stress_tr._global_step
+  stress_tr.train(ds, num_epochs=stress_tr.current_epoch + 1,
+                  fused_steps_per_call=1, batch_size=500,
+                  negative_sampling=True, shuffle='users')
+  sync()
+  n_steps = stress_tr._global_step - before
+  per_step = {k: v / n_steps for k, v in read_launches().items()}
+  stress_kernels = ('fused_decode_loss_fwd', 'fused_decode_loss_bwd',
+                    'row_scatter')
+  say(f'  (b) torch_stress_scale.py {items:,} x {STRESS_DIM}: steady '
+      f'{step_ms:.1f} ms a step by the script\'s clock (its train() calls '
+      f'over their steps), {epoch_ms:.3f} ms a step in its last epoch '
+      f'({epoch_dispatch}), peak {peak} GiB allocated ({base:.2f} GiB of '
+      f'it held by this process before the script) against '
+      f'{gib:.2f} GiB of tables, moments and bias by arithmetic; ANN forest '
+      f'over {min(STRESS_ANN_ITEMS, items):,} items {ann_s:.1f} s; the whole '
+      f'script {sec["stress"]:.1f} s; hand kernel launches in the script '
+      f'{ {k: v for k, v in stress_launches.items() if v} }, a step in an '
+      f'eager epoch of {n_steps} steps '
+      f'{ {k: per_step[k] for k in stress_kernels} } ({card})')
+  if on_card and not all(stress_launches[k] and per_step[k]
+                         for k in stress_kernels):
+    raise AssertionError(f'the stress path missed a kernel: '
+                         f'{stress_launches}, {per_step}')
+  out['stress'] = dict(step_ms=step_ms, epoch_step_ms=epoch_ms,
+                       peak_gib=peak, base_gib=base, arithmetic_gib=gib,
+                       ann_s=ann_s, per_step=per_step,
+                       launches=stress_launches)
+  del stress_tr, ds
+  gc_collect(on_card)
+
+  # (c) the async directory checkpoint while the captured steps go on
+  out['orbax'] = orbax_on_card(card, device, matrix, work, sync, big_items)
+  say('  phase 34 seconds: ' + ', '.join(f'{k} {v:.1f}'
+                                         for k, v in sec.items()))
+  return out
+
+
+def runpy_globals(path):
+  import runpy
+  return runpy.run_path(os.path.join(HERE, 'scripts', path))
+
+
+def gc_collect(on_card):
+  import gc
+
+  import torch
+  gc.collect()
+  if on_card:
+    torch.cuda.empty_cache()
+
+
+def orbax_on_card(card, device, matrix, work, sync, big_items):
+  """(c): bench.py's ML-20M default trained captured, saved to a
+  directory (async) and to npz at once, trained on while the directory
+  is written: both load bitwise equal and evaluate bitwise alike; then
+  the save times of msd-big's bf16 tables and moments."""
+  from recoder_tpu_torch.checkpoint import flatten_tree, load_checkpoint
+  from recoder_tpu_torch.checkpoint_orbax import (load_checkpoint_orbax,
+                                                  wait_for_pending_saves)
+  from recoder_tpu_torch.data import RecommendationDataset, synthetic
+  from recoder_tpu_torch.metrics import NDCG, Recall
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+
+  def ml20m():
+    return Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5,
+                                      compute_dtype=BF16),
+                   optimizer_type='adam', loss='mse',
+                   loss_params={'confidence': 3}, opt_state_dtype=BF16,
+                   device=device)
+
+  out = {}
+  users = matrix.shape[0]
+  ds = RecommendationDataset(matrix[:users - 2000])
+  val_ds = RecommendationDataset(*split_held_out(matrix[users - 2000:]))
+  tr = ml20m()
+  tr.train(ds, num_epochs=1, **ML20M_TRAIN)
+  prefix = os.path.join(work, 'ml20m')
+  sync()
+  t0 = time.time()
+  directory = tr.save_state(prefix, backend='orbax', async_save=True)
+  returned = time.time() - t0
+  npz = tr.save_state(prefix)
+  tr.train(ds, num_epochs=2, iters_per_epoch=ORBAX_STEPS_AFTER,
+           **ML20M_TRAIN)
+  sync()
+  wait_for_pending_saves()
+  arrays, meta = load_checkpoint_orbax(directory)
+  want, want_meta = load_checkpoint(npz)
+  fa, fb = flatten_tree(arrays), flatten_tree(want)
+  differ = [k for k in fb if k not in fa or fa[k].dtype != fb[k].dtype
+            or not np.array_equal(fa[k], fb[k])]
+  evaluated = {}
+  for name, path in (('orbax', directory), ('npz', npz)):
+    back = ml20m()
+    back.init_from_model_file(path)
+    evaluated[name] = back._evaluate(val_ds, 100, [Recall(k=20), NDCG(k=100)],
+                                     batch_size=500)
+  same_eval = all(evaluated['orbax'][m] == evaluated['npz'][m]
+                  for m in evaluated['npz'])
+  say(f'  (c) ML-20M default ({tr.last_epoch_dispatch}): save_state(orbax, '
+      f'async) returned in {returned:.3f} s, npz saved at once, '
+      f'{ORBAX_STEPS_AFTER} steps trained on; the directory and the npz: '
+      f'{len(fb)} arrays, {len(differ)} differ, metadata equal '
+      f'{meta == want_meta}; evaluations from each bitwise equal '
+      f'{same_eval} ({card})')
+  if differ or fa.keys() != fb.keys() or meta != want_meta or not same_eval:
+    raise AssertionError(f'the directory checkpoint differs from the npz: '
+                         f'{differ[:5]}, evaluations equal {same_eval}')
+  del tr, back
+  gc_collect(device == 'cuda')
+
+  # msd-big's bf16 tables and moments: the three times
+  big = synthetic.synthesize(ORBAX_MSD_BIG_USERS, big_items,
+                             synthetic.MSD_MEAN_ITEMS_PER_USER, seed=1,
+                             mean_factor=0.68)
+  tr = Recoder(DynamicAutoencoder([200], 'tanh', noise_prob=0.5, sparse=True,
+                                  compute_dtype=BF16, params_dtype=BF16),
+               optimizer_type='adam', loss='logloss', user_based=False,
+               opt_state_dtype=BF16, device=device)
+  tr.train(RecommendationDataset(big), num_epochs=1, iters_per_epoch=4,
+           **MSD_BIG_TRAIN)
+  gib, _ = resident_gib(tr)
+  prefix = os.path.join(work, 'msd_big')
+  sync()
+  t0 = time.time()
+  directory = tr.save_state(prefix, backend='orbax', async_save=True)
+  out['return_s'] = time.time() - t0
+  wait_for_pending_saves()
+  out['commit_s'] = time.time() - t0
+  t0 = time.time()
+  npz = tr.save_state(prefix)
+  out['npz_s'] = time.time() - t0
+  written = sum(os.path.getsize(os.path.join(directory, f))
+                for f in os.listdir(directory)) / 2 ** 30
+  say(f'  (c) msd-big tables and moments in bf16 ({gib:.3f} GiB resident; '
+      f'{written:.3f} GiB written, float32): save_state(orbax, async) '
+      f'returned in {out["return_s"]:.3f} s, committed at '
+      f'{out["commit_s"]:.3f} s; npz save_state {out["npz_s"]:.3f} s '
+      f'({card})')
+  out.update(resident_gib=gib, written_gib=written)
+  del tr
+  gc_collect(device == 'cuda')
+  return out
+
+
 def run(name, fn, *args, **kwargs):
   say(f'== phase {name}')
   t0 = time.time()
@@ -5935,6 +6475,7 @@ def main():
   mesh_one_rank, mesh_spawned, mesh_which = run('32 mesh', phase_mesh, card)
   mesh_fits, mesh_fits_spawned, mesh_fits_s = run('33 mesh fits',
                                                   phase_mesh_fits, card)
+  scripts = run('34 scripts', phase_scripts, card)
   union_cells['msd_big_bf16'] = union_a
   users_cells['msd_big_users_bf16'] = users_a
   union_record = _union_capture_record(union_cells)
@@ -6094,7 +6635,14 @@ def main():
               # launches a step inside the replays of phase 32 (a)'s
               # (1, 1) mesh (ML-20M bf16), by the profile's names
               'mesh_launches_per_step': mesh_one_rank['counts'].get(
-                  MESH_NAMES.get(name))}
+                  MESH_NAMES.get(name)),
+              # launches of phase 34 (a)'s torch_train.py (captured: the
+              # eager warm-up steps), and a step of the stress script's
+              # path in an eager epoch (phase 34 (b))
+              'scripts_train_launches': scripts['train_launches'].get(name,
+                                                                      0),
+              'stress_launches_per_step': scripts['stress'][
+                  'per_step'].get(name, 0.0)}
              for name, (err, ms, plain_ms, library_ms, (bound_ms, by),
                         per_step) in measured.items()]
   # the packed kernel's mask-only launch (phase 17), beside its bound
@@ -6255,6 +6803,16 @@ def main():
       + '; spawned ' + ', '.join(
           f'{cell} {shape} {backend} {r["ratio"]:.3g} of the tolerance'
           for (backend, shape, cell), r in mesh_fits_spawned.items())
+      + '; scripts (phase 34): ML-20M test '
+      + ', '.join(f'{k} {v:.4f}' for k, v in
+                  scripts['metrics']['inference'].items())
+      + f'; stress {STRESS_ITEMS:,} x {STRESS_DIM} '
+      f'{scripts["stress"]["step_ms"]:.1f} ms a step, peak '
+      f'{scripts["stress"]["peak_gib"]} GiB (arithmetic '
+      f'{scripts["stress"]["arithmetic_gib"]:.2f}); async directory save '
+      f'returned {scripts["orbax"]["return_s"]:.3f} s, committed '
+      f'{scripts["orbax"]["commit_s"]:.3f} s, npz '
+      f'{scripts["orbax"]["npz_s"]:.3f} s'
       + f'; card {card}')
   say(json.dumps({'kernels': kernels}))
   say(card)

@@ -21,14 +21,16 @@ protocol, the serving path they need (chunked scoring of large catalogs,
 the asynchronous evaluator, the top-k in ``lax.top_k``'s order), iALS,
 and the serving surface (the CLI's train, evaluate, recommend and serve,
 the embeddings indexes with the C++ ANN forest, the similarity
-recommender and the preprocessing split), and every model on a
-('data', 'model') mesh of processes:
+recommender and the preprocessing split), every model on a
+('data', 'model') mesh of processes, the async directory checkpoint and
+the dataset and scale scripts:
 
   recoder_tpu/utils.py                  -> recoder_tpu_torch.utils
   recoder_tpu/data/dataset.py           -> recoder_tpu_torch.data.dataset
   recoder_tpu/data/loader.py            -> recoder_tpu_torch.data.loader
       (unpadded batches: the static-shape padding of the JAX loader and
-      recoder_tpu/data/buckets.py is not ported)
+      recoder_tpu/data/buckets.py is not ported; collate_fn: each
+      mega-batch collated whole and yielded once)
   recoder_tpu/data/device_pipeline.py   -> recoder_tpu_torch.data.device_pipeline
       (build_batch's 'blocks' branch, _csr_range and _unique_union ->
       DeviceDataSource.union_batch: static widths and windows, exact
@@ -42,6 +44,9 @@ recommender and the preprocessing split), and every model on a
       -> recoder_tpu_torch.ops.packed_rows
          + recoder_tpu_torch/kernels/packed_rows.cu
   recoder_tpu/checkpoint.py             -> recoder_tpu_torch.checkpoint
+  recoder_tpu/checkpoint_orbax.py       -> recoder_tpu_torch.checkpoint_orbax
+      (DCP format: torch.distributed.checkpoint, the same directory,
+      swap and async contract)
   (new) weights bridge                  -> recoder_tpu_torch.convert
   recoder_tpu/models/base.py            -> recoder_tpu_torch.models.base
       (params_dtype, and model.py's _adapt_array cast -> adapt_array)
@@ -100,6 +105,9 @@ recommender and the preprocessing split), and every model on a
   recoder_tpu/cli.py                    -> recoder_tpu_torch.cli
       (the same commands and config schema, plus "device")
   scripts/build_embeddings.py           -> scripts/torch_build_embeddings.py
+  scripts/**                            -> scripts/**/torch_*.py
+      (scripts/{ml-20m,msd,msd-big}/torch_{preprocess,train,test}.py over
+      scripts/torch_pipelines.py; scripts/torch_stress_scale.py)
   tools/bench_serving.py                -> tools/torch_bench_serving.py
   recoder_tpu/ops/spd.py                -> recoder_tpu_torch.ops.spd
                                            + recoder_tpu_torch/kernels/spd_solve.cu

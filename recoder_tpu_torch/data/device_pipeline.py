@@ -1193,6 +1193,27 @@ class DeviceDataSource:
             for prefix, side in self._static.items()
             for k, v in side.items() if torch.is_tensor(v)}
 
+  def shard_bytes(self):
+    """``{side + name: (bytes held, whole bytes, slack)}`` of the 'blocks'
+    tables and CSR arrays. Under 'data' sharding a split array holds
+    ``whole / D`` bytes and at most ``slack`` more: a block table's zero
+    rows that pad it to a multiple of D (one row a rank), a flat array's
+    halo and its chunk's rounding (``M_mega + 1`` entries). Every other
+    array is replicated: it holds its whole bytes (slack 0)."""
+    out = {}
+    for prefix, side in self._static.items():
+      for k, v in side.items():
+        if not torch.is_tensor(v):
+          continue
+        whole = side.get('whole', {}).get(k, v.shape)
+        size = v.element_size()
+        slack = 0
+        if self.table_sharding is not None and k in side.get('whole', {}):
+          slack = (math.prod(whole[1:]) * size if len(whole) > 1
+                   else (side['M_mega'] + 1) * size)
+        out[prefix + k] = (v.numel() * size, math.prod(whole) * size, slack)
+    return out
+
   def _static_unions(self, prefix):
     """:meth:`_static_side` with the side's union tables: the compressed
     columns padded by the window, the ``[n_blocks, W0]`` union table

@@ -28,7 +28,9 @@ collator's draw): at ``num_workers=0`` the batches are bitwise the JAX
 loader's; with workers, which mega draws first depends on scheduling,
 as in JAX.
 
-Not ported: custom collation (``collate_fn``).
+Custom collation (``collate_fn``) takes the JAX path: each mega-batch
+is passed to it whole and yielded once as ``(collate_fn(input),
+collate_fn(target) or None)``.
 """
 
 
@@ -138,6 +140,10 @@ class RecommendationDataLoader:
     num_sampling_users (int): mega-batch size (>= batch_size); 0 means
       equal to ``batch_size``.
     num_workers (int): background collation threads (0 = synchronous).
+    collate_fn (callable, optional): custom collation over
+      :class:`UsersInteractions`; each mega-batch then yields one
+      ``(collate_fn(input), collate_fn(target) or None)`` pair (the
+      evaluator passes the identity).
     shuffle (bool): shuffle users every epoch.
     seed (int): RNG seed for shuffling (and, plus 7, for the random
       negatives).
@@ -146,8 +152,8 @@ class RecommendationDataLoader:
   """
 
   def __init__(self, dataset, batch_size, negative_sampling=False,
-               num_sampling_users=0, num_workers=0, shuffle=True, seed=0,
-               num_random_negatives=0):
+               num_sampling_users=0, num_workers=0, collate_fn=None,
+               shuffle=True, seed=0, num_random_negatives=0):
     self.dataset = dataset
     self.batch_size = batch_size
     self.negative_sampling = negative_sampling
@@ -164,6 +170,8 @@ class RecommendationDataLoader:
         batch_size=batch_size, negative_sampling=negative_sampling,
         num_items=dataset.interactions_matrix.shape[1],
         num_random_negatives=num_random_negatives, seed=seed)
+    self._collate_fn = collate_fn or self.batch_collator.collate
+    self._identity_collate = collate_fn is not None
 
   def _mega_batches(self):
     n = len(self.dataset)
@@ -173,7 +181,7 @@ class RecommendationDataLoader:
 
   def _collate_mega(self, user_idx):
     input_inter, target_inter = self.dataset[user_idx]
-    collate = self.batch_collator.collate
+    collate = self._collate_fn
     return (collate(input_inter),
             collate(target_inter) if target_inter is not None else None)
 
@@ -184,6 +192,9 @@ class RecommendationDataLoader:
       gen = (self._collate_mega(idx) for idx in self._mega_batches())
 
     for input_out, target_out in gen:
+      if self._identity_collate:
+        yield input_out, target_out
+        continue
       for i, input_batch in enumerate(input_out):
         yield input_batch, (target_out[i] if target_out is not None else None)
 

@@ -7,8 +7,10 @@ the dual CSRs, a row scatter, a training from the bit-packed slab and its
 row unpack run on the CPU, MatrixFactorization (dense and sparse) and
 Mult-VAE train, EASE fits and recommends, the Mult-VAE protocol runs, a
 brute-force index answers a query, the C++ ANN forest builds (from the
-port's own source) and serves the similarity recommender, and
-afterwards neither JAX nor the JAX package is loaded."""
+port's own source) and serves the similarity recommender, every
+``scripts/**/torch_*.py`` imports, the ML-20M pipeline (preprocess, 10
+epochs, a directory checkpoint, test) and the stress script run at a
+tiny size, and afterwards neither JAX nor the JAX package is loaded."""
 
 import os
 import subprocess
@@ -115,6 +117,39 @@ SCRIPT = textwrap.dedent('''
     assert index.get_nns_by_id(4, 3)[0] == 4
     recs = SimilarityRecommender(index, 3, n=5).recommend(ui)
     assert len(recs) == 20 and all(len(r) <= 3 for r in recs)
+    import glob, os, runpy, tempfile
+    import pandas as pd
+    from recoder_tpu_torch.checkpoint_orbax import wait_for_pending_saves
+    scripts = sorted(glob.glob('scripts/**/torch_*.py', recursive=True))
+    assert len(scripts) == 12, scripts
+    for path in scripts:
+        runpy.run_path(path)
+    def script(path, *argv):
+        old = sys.argv
+        sys.argv = [path, *argv]
+        try:
+            return runpy.run_path(path)['main']()
+        finally:
+            sys.argv = old
+    work = tempfile.mkdtemp()
+    rng = np.random.default_rng(0)
+    pd.DataFrame({'userId': rng.integers(1, 200, 6000),
+                  'movieId': rng.integers(1, 80, 6000),
+                  'rating': 5.0, 'timestamp': 0}).drop_duplicates(
+        ['userId', 'movieId']).to_csv(os.path.join(work, 'ratings.csv'),
+                                      index=False)
+    script('scripts/ml-20m/torch_preprocess.py', '--data-dir', work,
+           '--heldout-users', '20')
+    data = os.path.join(work, 'pro_sg') + '/'
+    tr = script('scripts/ml-20m/torch_train.py', '--data-dir', data,
+                '--model-dir', work, '--epochs', '10', '--device', 'cpu')
+    ckpt = tr.save_state(os.path.join(work, 'dir'), backend='orbax')
+    wait_for_pending_saves()
+    results = script('scripts/ml-20m/torch_test.py', '--data-dir', data,
+                     '--model-file', ckpt, '--device', 'cpu')
+    assert len(results) == 3
+    script('scripts/torch_stress_scale.py', '--cpu', '--items', '500',
+           '--dim', '8', '--users', '100', '--ann-items', '50')
     loaded = [k for k, v in sys.modules.items() if v is not None and (
         k in ('jax', 'jaxlib', 'recoder_tpu') or k.startswith(
             ('jax.', 'jaxlib.', 'recoder_tpu.')))]

@@ -88,6 +88,31 @@ def test_batches_match_jax(case):
       _assert_same(a_tg, b_tg)
 
 
+@pytest.mark.parametrize('target', [False, True], ids=['input', 'target'])
+@pytest.mark.parametrize('num_workers', [0, 2])
+def test_collate_fn_yields_the_jax_megas(num_workers, target):
+  """``collate_fn=lambda x: x`` (the JAX evaluator's) yields each mega-batch
+  once, as the JAX loader does: the same users in the same order, the
+  same interactions, over two epochs."""
+  m, t = _matrices(2)
+  kw = dict(batch_size=BATCH, num_sampling_users=2 * BATCH, seed=4,
+            num_workers=num_workers, collate_fn=lambda x: x)
+  t = t if target else None
+  ours = RecommendationDataLoader(RecommendationDataset(m, t), **kw)
+  theirs = JaxLoader(JaxDataset(m, t), **kw)
+  for _ in range(2):
+    got, want = list(ours), list(theirs)
+    assert len(got) == len(want) == -(-N_USERS // (2 * BATCH))
+    for (a_in, a_tg), (b_in, b_tg) in zip(got, want):
+      for a, b in ((a_in, b_in), (a_tg, b_tg)):
+        if b is None:
+          assert a is None
+          continue
+        np.testing.assert_array_equal(a.users, b.users)
+        assert (a.interactions_matrix != b.interactions_matrix).nnz == 0
+        assert a.interactions_matrix.shape == b.interactions_matrix.shape
+
+
 @pytest.mark.parametrize('users,mega', [(45, 8), (48, 16), (50, 24), (7, 8)])
 def test_len_matches_jax(users, mega):
   m = sp.csr_matrix(np.ones((users, 5), np.float32))

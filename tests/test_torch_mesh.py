@@ -18,7 +18,9 @@ validation loss and an evaluation too. Under 'data'-sharded tables each
 rank's tables and CSR arrays are its share. On (2, 2) it also checks
 that no rank holds a whole table or its moments, that a checkpoint written on
 the mesh loads into the single-device port and into the JAX ``Recoder``
-and trains on back on the mesh, that the CLI's ``mesh_model`` builds
+and trains on back on the mesh, that a directory checkpoint
+(``backend='orbax'``) written on it loads back bitwise like its npz,
+that the CLI's ``mesh_model`` builds
 the mesh inside the launch, and that the slice fixture of
 ``tests/test_torch_slice.py`` trains on the port's (2, 2) mesh to the
 JAX package's (4, 2) mesh (the conftest's 8 virtual CPU devices), the
@@ -70,7 +72,7 @@ def runs(tmp_path_factory):
       if shape == (2, 2):
         np.savez(os.path.join(out, 'slice_init.npz'), **slice_init)
         np.savez(os.path.join(out, 'vae_slice_init.npz'), **vae_init)
-        cases = CASES + ['resume', 'slice', 'vae_slice', 'cli']
+        cases = CASES + ['resume', 'slice', 'vae_slice', 'cli', 'orbax']
       workers.spawn(out, shape, cases)
       done[shape] = out
     return done[shape]
@@ -248,6 +250,37 @@ def test_mesh_checkpoint_loads_into_one_device_and_jax_and_resumes(
   for k in ref:
     np.testing.assert_allclose(got[k], ref[k], rtol=RTOL, atol=ATOL,
                                err_msg=k)
+
+
+def test_mesh_directory_checkpoint_loads_bitwise_like_its_npz(runs):
+  """On (2, 2), save_state(backend='orbax', async_save=True) gathers as
+  the npz path does and rank 0 writes in the background; every rank
+  reads it back (its rows), and the state written again is the npz."""
+  from recoder_tpu_torch.checkpoint_orbax import load_checkpoint_orbax
+  out = runs((2, 2))
+  records = []
+  for rank in range(4):
+    with open(os.path.join(out, f'orbax_{rank}.json')) as f:
+      records.append(json.load(f))
+  assert len({(r['npz'], r['directory'], r['reloaded'])
+              for r in records}) == 1
+  record = records[0]
+  assert record['directory'].endswith('orbax_epoch_2.orbax')
+  npz, meta = load_checkpoint(record['npz'])
+  # (each rank read back its half of the whole table's rows)
+  whole = list(npz['model']['en_embedding'].shape)
+  assert record['shapes']['param/en_embedding'] == [whole[0] // 2, whole[1]]
+  arrays, got_meta = load_checkpoint_orbax(record['directory'])
+  assert got_meta == meta
+  want, got = _arrays(npz), _arrays(arrays)
+  assert want.keys() == got.keys() and 'sparse_optimizer' in ''.join(got)
+  for k in want:
+    np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+  # (the moments wait, as in JAX, for the next train() to be placed)
+  reloaded = load_checkpoint(record['reloaded'])[0]['model']
+  assert reloaded.keys() == npz['model'].keys()
+  for k, v in npz['model'].items():
+    np.testing.assert_array_equal(reloaded[k], v, err_msg=k)
 
 
 def _jax_slice_trainer(vae=False, mesh=None):

@@ -6,9 +6,11 @@ methods, and ``forward`` / ``apply_gathered`` against the JAX ``apply``
 / ``apply_gathered``), ``EASE``, ``IALS``,
 ``RecommenderEvaluator.evaluate``, the ``utils`` functions, and the
 serving surface (the CLI's functions, the embeddings indexes and the
-native ``AnnIndex``, ``SimilarityRecommender``, ``preprocessing``) -- the
-parameter names in order and their defaults must equal the JAX
-original's. The only differences allowed are named below:
+native ``AnnIndex``, ``SimilarityRecommender``, ``preprocessing``), the
+host loader (``RecommendationDataLoader``, ``BatchCollator``) and the
+directory checkpoint (``checkpoint_orbax``) -- the parameter names in
+order and their defaults must equal the JAX original's. The only
+differences allowed are named below:
 
 * port-only parameters: ``device`` (where a trainer, a fitted model or
   a brute-force index lives), the test draws ``keep_mask`` / ``eps`` of a
@@ -17,6 +19,9 @@ original's. The only differences allowed are named below:
 * the forward's translation of the JAX functional form: no ``params``
   (the module holds them), ``generator`` for ``rng``, and no
   ``items_sorted_unique`` (an XLA promise with no PyTorch counterpart);
+* the JAX loader's static-shape padding, which the port's unpadded
+  batches do not need (``data/buckets.py`` is not ported): the
+  parameters in ``JAX_PADDING``;
 * JAX-only methods whose modules are still in ROADMAP Queue 1 (none
   since ``Recoder.recommend_async`` was ported).
 
@@ -27,13 +32,16 @@ and that the ones since ported (``mesh``, ``eval_item_chunk``,
 """
 
 import inspect
+import os
 
 import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
 
+import recoder_tpu.checkpoint_orbax as jax_checkpoint_orbax
 import recoder_tpu.cli as jax_cli
+import recoder_tpu.data.loader as jax_loader
 import recoder_tpu.embedding as jax_embedding
 import recoder_tpu.metrics as jax_metrics
 import recoder_tpu.model as jax_model
@@ -43,7 +51,9 @@ import recoder_tpu.parallel as jax_parallel
 import recoder_tpu.preprocessing as jax_preprocessing
 import recoder_tpu.recommender as jax_recommender
 import recoder_tpu.utils as jax_utils
+import recoder_tpu_torch.checkpoint_orbax as checkpoint_orbax
 import recoder_tpu_torch.cli as cli
+import recoder_tpu_torch.data.loader as loader
 import recoder_tpu_torch.embedding as embedding
 import recoder_tpu_torch.metrics as metrics
 import recoder_tpu_torch.model as model
@@ -60,6 +70,11 @@ PORT_ONLY = {'device', 'keep_mask', 'eps', 'shard'}
 #: the JAX functional form's parameters a module's forward drops
 JAX_FUNCTIONAL = {'params', 'items_sorted_unique'}
 RENAMED = {'rng': 'generator'}
+#: the JAX loader's padding parameters (ladders, fixed widths, stable
+#: shapes): the port's batches are not padded
+JAX_PADDING = {'item_ladder', 'nnz_ladder', 'stable_shapes',
+               'pad_users_to_batch_size', 'fixed_union_width',
+               'fixed_nnz_width'}
 #: public JAX methods the port does not have yet, with their ROADMAP item
 JAX_ONLY_METHODS = {}
 #: Queue 1 items ported since their arguments were added: they construct
@@ -143,6 +158,15 @@ def _cases():
                'strong_generalization_split'):
     cases.append(('preprocessing', jax_preprocessing, preprocessing, name,
                   name))
+  # the host loader and the directory checkpoint
+  for cls in ('RecommendationDataLoader', 'BatchCollator'):
+    for name in _public(getattr(jax_loader, cls)):
+      cases.append((cls, getattr(jax_loader, cls), getattr(loader, cls),
+                    name, name))
+  for name in ('save_checkpoint_orbax', 'load_checkpoint_orbax',
+               'wait_for_pending_saves', 'is_orbax_checkpoint'):
+    cases.append(('checkpoint_orbax', jax_checkpoint_orbax, checkpoint_orbax,
+                  name, name))
   return cases
 
 
@@ -158,6 +182,8 @@ def test_signature_matches_jax(owner, jax_cls, port_cls, jax_name,
   # (the mesh package's functions take real parameter dicts: nothing of
   # the functional form to drop)
   functional = () if owner == 'parallel' else JAX_FUNCTIONAL
+  if owner in ('RecommendationDataLoader', 'BatchCollator'):
+    functional = JAX_PADDING
   want = _params(getattr(jax_cls, jax_name), drop=functional,
                  rename=RENAMED)
   got = _params(getattr(port_cls, port_name), drop=PORT_ONLY)
@@ -233,8 +259,14 @@ def test_save_state_backends(tmp_path):
   path = tr.save_state(str(tmp_path / 'a'), backend='npz', async_save=True)
   back = model.Recoder(models.DynamicAutoencoder(), device='cpu')
   back.init_from_model_file(path)
-  with pytest.raises(NotImplementedError, match='Queue 1 item 5'):
-    tr.save_state(str(tmp_path / 'b'), backend='orbax')
+  # (ported: the directory checkpoint constructs and writes)
+  for async_save in (True, False):
+    directory = tr.save_state(str(tmp_path / f'b{async_save}'),
+                              backend='orbax', async_save=async_save)
+    assert directory.endswith('_epoch_1.orbax')
+    back = model.Recoder(models.DynamicAutoencoder(), device='cpu')
+    back.init_from_model_file(directory)
+    assert os.path.isfile(os.path.join(directory, '.metadata'))
   with pytest.raises(ValueError, match='backend'):
     tr.save_state(str(tmp_path / 'c'), backend='zarr')
 

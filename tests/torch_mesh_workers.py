@@ -294,6 +294,21 @@ def run(rank, out, mesh, cases):
         json.dump({'loaded': loaded, 'trained': shapes, 'first': path,
                    'done': done}, f)
       continue
+    if case == 'orbax':
+      # the directory checkpoint of a sparse case, written by rank 0 in
+      # the background, read back onto the mesh by every rank at once
+      tr, npz = train_case('ae_sparse_logloss', mesh,
+                           os.path.join(out, 'orbax'))
+      directory = tr.save_state(os.path.join(out, 'orbax'), backend='orbax',
+                                async_save=True)
+      back = Recoder(DynamicAutoencoder(sparse=True), optimizer_type='adam',
+                     seed=7, mesh=mesh, device='cpu')
+      back.init_from_model_file(directory)
+      again = back.save_state(os.path.join(out, 'orbax_reloaded'))
+      with open(os.path.join(out, f'orbax_{rank}.json'), 'w') as f:
+        json.dump({'npz': npz, 'directory': directory, 'reloaded': again,
+                   'shapes': shard_shapes(back)}, f)
+      continue
     if case in FIT_CASES:
       FIT_CASES[case](rank, out, mesh)
       continue
