@@ -101,12 +101,17 @@ Phases, each of which raises on failure:
  14. bf16 kernels -- the bf16 variant of the decode-loss kernels against
                 its plain version ('mse' c=0, c=3, 'logistic'; loss rtol
                 1e-2, gradients within 2e-2 in relative Frobenius norm),
-                each case run twice (bitwise equal): the ragged shape and
-                an MSD union width [500, 200, 18,117] on the mma.sync
-                kernels, the ML-20M shape and an aligned [480, 200,
-                18,120] on the wgmma kernels (each route's counters
-                checked); both sets timed in turns at the ML-20M shape;
-                and the
+                each case run twice (bitwise equal): on the wgmma
+                kernels the MSD union width [500, 200, 18,117] (a target
+                at row stride 18,120, as the trainer's union targets are
+                built), [37, 24, 1,000], [480, 104, 18,120], [500, 128,
+                20,223], [37, 248, 45], the ML-20M shape and [480, 200,
+                18,120]; on the mma.sync kernels [500, 256, 18,117] (d >
+                248); each route's counters checked. At odd widths the
+                wgmma forward's E0 pad columns are zero and the backward
+                never reads them (bitwise the same with NaN there). Both
+                sets timed in turns at the ML-20M shape, the union width
+                and [500, 128, 20,223]; and the
                 fused bf16-moment Adam kernel against its plain version for 5
                 steps over the ML-20M parameter set and a ragged length
                 (m and v within 1 bf16 ulp, p within 2 float32 ulps);
@@ -178,8 +183,8 @@ Phases, each of which raises on failure:
                 eval_num_recommendations=100 on 10,000 users, and 2 epochs
                 without validation: bitwise equal, no graph captured
                 again after a validation, one no-E0 bf16 forward launch a
-                validation batch (of the route its union width takes)
-                and no backward; the validation seconds
+                validation batch (the wgmma one: no mma.sync launch) and
+                no backward; the validation seconds
                 and val batches/s an epoch, a profiled validation (the
                 device-idle share, the forward kernel once a batch), the
                 val loss through the kernel against the plain decode +
@@ -189,8 +194,8 @@ Phases, each of which raises on failure:
                 confidence 3, float32 and bf16 (with bf16 moments), through
                 the host loader ('users') and the dual CSRs ('blocks'):
                 one epoch with the decode-loss kernels (and Adam's at
-                bf16; either bf16 route, by the union's width) once a
-                step, whose first 20 losses must agree with
+                bf16; the wgmma pair at every union width, no mma.sync
+                launch) once a step, whose first 20 losses must agree with
                 20 steps of the plain path (the plain decode + loss, and
                 at bf16 Adam's plain twin: each loss after the first reads
                 the backward passes and optimizer steps before it); a
@@ -204,7 +209,10 @@ Phases, each of which raises on failure:
                 input and target unions folded into one row-sparse step),
                 against the plain decode + loss and the plain row scatter:
                 the 20 losses, and the en_embedding table within a
-                relative Frobenius norm of 1e-3.
+                relative Frobenius norm of 1e-3. Last, the mma.sync set's
+                path: 20 bf16 'users' steps at d = 256 (a width the wgmma
+                set does not take), its pair and Adam once a step,
+                against the plain path.
  23. mf     -- MatrixFactorization(200, tanh, dropout 0.2) on the
                 ML-20M-shaped CSR, weighted MSE (confidence 40,
                 tests/test_model.py's MF row at BASELINE.json's 200
@@ -253,11 +261,11 @@ Phases, each of which raises on failure:
                 --sparse default with them: 20 union steps, two row-scatter
                 launches each, against the plain path (float32, rtol 1e-3),
                 and the row scatter at a step's union width bitwise
-                index_copy_; (e) the bf16 union path, 20 steps: the
-                decode-loss route each takes (the mega union plus R is
-                rarely a multiple of 8: the mma.sync set), against the
-                plain path, and the mma.sync kernels at such a width
-                against their plain version. Then the fixture captured
+                index_copy_; (e) the bf16 union path, 20 steps: each
+                takes the wgmma decode-loss pair (the mega union plus R
+                is rarely a multiple of 8; the target's rows are padded
+                to 8), against the plain path, and the wgmma kernels at
+                such a width against their plain version. Then the fixture captured
                 bitwise eager with megas and random negatives (3 epochs,
                 bf16), and the fixture quality row (float32, logloss, 30
                 epochs) within 0.01 of the JAX package's pins
@@ -326,7 +334,8 @@ Phases, each of which raises on failure:
                 negatives: 20 steps captured bitwise equal to the same
                 steps eager (losses, parameters, moments, step counts);
                 with the noise off, 20 static-width steps against the
-                exact-width batches built before (rtol 1e-3, bf16 1e-2);
+                exact-width batches built before (rtol 1e-3, bf16 1e-2;
+                no exact-width step launches the mma.sync set);
                 captured and eager windows of 64 steps in turns
                 (user-batches/s), device ms and launches a profiled step,
                 the idle share, and each hand kernel of the cell and the
@@ -431,8 +440,10 @@ Phases, each of which raises on failure:
 
  34. scripts -- the dataset pipelines and the scale script, through
                 their entry points. (a) The ML-20M pipeline at the full
-                width: a ratings.csv of the ML-20M-shaped CSR,
-                scripts/ml-20m/torch_preprocess.py (the vae-cf split),
+                width, cut in depth: a ratings.csv of the first 40,000
+                users of the ML-20M-shaped CSR (all 20,108 items),
+                scripts/ml-20m/torch_preprocess.py (the vae-cf split,
+                4,000 held-out users a side),
                 torch_train.py for 10 epochs (float32: the decode-loss
                 kernels counted in its eager warm-up steps, Adam's step
                 count, the validation at epoch 10 and its checkpoint),
@@ -608,7 +619,7 @@ def phase_build():
   spills and tensor-core instructions."""
   from concurrent.futures import ThreadPoolExecutor
 
-  from recoder_tpu_torch.kernels import BUILD_LOGS
+  from recoder_tpu_torch.kernels import BUILD_LOGS, BUILD_SECONDS
   from recoder_tpu_torch.ops import adam
   from recoder_tpu_torch.ops import fused_decode_loss as fdl
   from recoder_tpu_torch.ops import packed_rows as pr
@@ -620,7 +631,8 @@ def phase_build():
     for fut in [pool.submit(lib) for lib in libs]:
       fut.result()
   say(f'build: fused_decode_loss, spd_solve, row_scatter, adam and '
-      f'packed_rows in {time.time() - t0:.1f} s')
+      f'packed_rows in {time.time() - t0:.1f} s (nvcc of each, all at once: '
+      + ', '.join(f'{k} {v:.1f} s' for k, v in BUILD_SECONDS.items()) + ')')
   for name in ('fused_decode_loss', 'spd_solve', 'row_scatter', 'adam'):
     for line in BUILD_LOGS.get(name, '').splitlines():
       if 'registers' in line or 'spill' in line or 'Compiling' in line:
@@ -730,13 +742,25 @@ def make_problem(B, d, W, device, seed=0):
   return [x.to(device) for x in (h, rows, bias, target, row_mask, col_mask)]
 
 
+def padded_rows(x):
+  """``x [B, W]`` in the ``[:B, :W]`` view of a matrix whose rows are W
+  rounded up to 8 elements long, zeros past W: the row stride of the
+  trainer's union targets (``Recoder._densify_union``)."""
+  import torch
+  B, W = x.shape
+  out = torch.zeros((B, -(-W // 8) * 8), dtype=x.dtype, device=x.device)
+  out[:, :W] = x
+  return out[:, :W]
+
+
 def _close(got, ref, rtol, atol):
   err = (got - ref).abs()
   return bool((err <= atol + rtol * ref.abs()).all()), float(err.max())
 
 
 def compare_kernel(B, d, W, kind, confidence, device, target_dtype=None,
-                   compute_dtype=None, route=None, rows_dtype=None):
+                   compute_dtype=None, route=None, rows_dtype=None,
+                   padded=False):
   """Kernel loss and gradients against autograd through the plain
   version; returns the largest abs errors (loss, grads) and the kernel's
   (loss, dh, drows, dbias). The bf16 variant (``compute_dtype``), and any
@@ -744,13 +768,15 @@ def compare_kernel(B, d, W, kind, confidence, device, target_dtype=None,
   whose drows and dbias are rounded to bf16), is held to loss rtol 1e-2
   and gradients within 2e-2 in relative Frobenius norm; ``route``: the
   bf16 kernels ('wgmma' or 'mma') that must have launched, once each
-  way."""
+  way; ``padded``: the target at a row stride of W rounded up to 8."""
   import torch
   from recoder_tpu_torch.ops.fused_decode_loss import (
       LAUNCHES, fused_decode_loss, fused_decode_loss_plain)
   h, rows, bias, target, rm, cm = make_problem(B, d, W, device)
   if target_dtype is not None:
     target = target.to(target_dtype)
+  if padded:
+    target = padded_rows(target)
   if rows_dtype is not None:
     rows, bias = rows.to(rows_dtype), bias.to(rows_dtype)
   before = dict(LAUNCHES)
@@ -764,6 +790,7 @@ def compare_kernel(B, d, W, kind, confidence, device, target_dtype=None,
   (lk, *gk), (lp, *gp) = results['kernel'], results['plain']
   bf16 = compute_dtype is not None or rows_dtype is not None
   what = (f'{kind} c={confidence} [{B},{d},{W}] target {target.dtype}'
+          f'{f" (row stride {target.stride(0)})" if padded else ""}'
           f'{" bf16 compute" if compute_dtype is not None else ""}'
           f'{" bf16 rows" if rows_dtype is not None else ""}')
   if route is not None:
@@ -794,6 +821,7 @@ def compare_kernel(B, d, W, kind, confidence, device, target_dtype=None,
   say(f'  {kind:8s} c={confidence:<3} [{B}, {d}, {W}] {str(target.dtype)[6:]:8s}'
       f'{" bf16" if compute_dtype is not None else ""}'
       f'{" bf16 rows" if rows_dtype is not None else ""}'
+      f'{f" row stride {target.stride(0)}" if padded else ""}'
       f'{f" ({route})" if route else ""}: loss '
       f'{float(lk):.6g} (plain {float(lp):.6g}), max abs err loss '
       f'{loss_err:.3g} grads '
@@ -891,7 +919,8 @@ def decode_loss_bounds(B, d, W, target_bytes=4, bf16=False, param_bytes=4):
 
 
 def time_kernel(B, d, W, kind, confidence, device, compute_dtype=None,
-                target_dtype=None, routes=('kernel',), rows_dtype=None):
+                target_dtype=None, routes=('kernel',), rows_dtype=None,
+                padded=False):
   """Forward (writing E0, as training runs it), forward under no_grad,
   backward from E0 and forward+backward, of each kernel set in
   ``routes`` and of the plain version, at one shape: 'kernel' is the
@@ -901,12 +930,15 @@ def time_kernel(B, d, W, kind, confidence, device, compute_dtype=None,
   device time (profiler) and by the median of CUDA events, in turns
   plain, routes..., routes reversed, plain; returns {'device'|'events':
   {name: {step: mean ms}}}. ``rows_dtype``: rows and bias in that dtype
-  (bf16 parameter storage)."""
+  (bf16 parameter storage); ``padded``: the target at a row stride of W
+  rounded up to 8."""
   import torch
   from recoder_tpu_torch.ops import fused_decode_loss as fdl
   h, rows, bias, target, rm, cm = make_problem(B, d, W, device)
   if target_dtype is not None:
     target = target.to(target_dtype)
+  if padded:
+    target = padded_rows(target)
   if rows_dtype is not None:
     rows, bias = rows.to(rows_dtype), bias.to(rows_dtype)
   g = torch.ones((), device=device)
@@ -2084,28 +2116,95 @@ def time_adam(shapes, device, storage=None):
   return {name: statistics.mean(v) for name, v in runs.items()}
 
 
-def phase_bf16_kernels(device='cuda', ragged=(37, 24, 1000),
-                       full=(500, 200, 20224), union=(500, 200, 18117),
-                       aligned=(480, 200, 18120), ragged_adam=1_000_003):
+#: phase 14's bf16 decode-loss cases: (B, d, W), whether the target is
+#: at the union targets' row stride (W rounded up to 8), and the kernel set
+#: that must take it
+BF16_KERNEL_CASES = (
+    ((500, 200, 18117), True, 'wgmma'),   # the MSD union width
+    ((37, 24, 1000), False, 'wgmma'),     # B < one tile, the 64-wide rung
+    ((480, 104, 18120), False, 'wgmma'),  # the 128-wide rung
+    ((500, 128, 20223), True, 'wgmma'),   # dh 128, drows 208
+    ((37, 248, 45), True, 'wgmma'),       # W < 64, the 256-wide rung
+    ((500, 200, 20224), False, 'wgmma'),  # bench.py's ML-20M step
+    ((480, 200, 18120), False, 'wgmma'),
+    ((500, 256, 18117), True, 'mma'),     # d > 248: the mma.sync set's
+)
+
+
+def check_e0_pad(B, d, W, device, kind='mse', confidence=3.0):
+  """The wgmma forward at a W that is not a multiple of 8 (a target at
+  row stride round8(W)): E0's pad columns [W, lde) are zeros, two runs
+  write the same bits, and the backward never reads the pad: with NaN
+  written there it gives the same gradients bit for bit. Returns the
+  share of E0's entries that differ from the plain version's (a score
+  summed in another order crosses a bf16 boundary rarely)."""
+  import torch
+  from recoder_tpu_torch.ops import fused_decode_loss as fdl
+  h, rows, bias, target, rm, cm = make_problem(B, d, W, device)
+  target = padded_rows(target.bfloat16())
+  args = (target, rm, cm, kind, confidence, 'bfloat16')
+  what = f'E0 pad [{B}, {d}, {W}]'
+  if W % 8 == 0 or fdl.bf16_route(h, rows, target) != 'wgmma':
+    raise AssertionError(f'{what}: not a padded wgmma shape')
+  before = fdl.LAUNCHES['fused_decode_loss_fwd_bf16_wgmma']
+  _, e0, copies = fdl._kernel_forward(h, rows, bias, *args, True)
+  _, again, _ = fdl._kernel_forward(h, rows, bias, *args, True)
+  if fdl.LAUNCHES['fused_decode_loss_fwd_bf16_wgmma'] != before + 2:
+    raise AssertionError(f'{what}: the wgmma forward did not run')
+  if e0.shape != (B, -(-W // 8) * 8) or not torch.equal(e0, again):
+    raise AssertionError(f'{what}: E0 {tuple(e0.shape)}, or two runs differ')
+  if e0[:, W:].any():
+    raise AssertionError(f'{what}: E0\'s pad columns are not zero')
+  g = torch.ones((), device=device)
+  grads = fdl._kernel_backward(g, e0, h, rows, copies)
+  poisoned = e0.clone()
+  poisoned[:, W:] = float('nan')
+  if not all(torch.equal(a, b) for a, b in zip(
+      grads, fdl._kernel_backward(g, poisoned, h, rows, copies))):
+    raise AssertionError(f'{what}: the backward read E0\'s pad columns')
+  _, plain = fdl._plain_forward(h, rows, bias, *args, True)
+  differ = float((e0[:, :W] != plain).float().mean())
+  if not differ < 1e-3:
+    raise AssertionError(f'{what}: {differ:.3g} of E0 differs from plain')
+  say(f'  {what} (lde {e0.shape[1]}): pad columns zero, two forwards bitwise '
+      f'equal, the backward bitwise the same with NaN in the pad; '
+      f'{differ:.3g} of E0 differs from the plain version\'s')
+  return differ
+
+
+def phase_bf16_kernels(device='cuda', full=(500, 200, 20224),
+                       union=(500, 200, 18117), other=(500, 128, 20223),
+                       ragged_adam=1_000_003):
   import torch
   cases = [('mse', 0.0), ('mse', 3.0), ('logistic', 0.0)]
   errs = {'mma': [], 'wgmma': []}
-  for shape, route in ((ragged, 'mma'), (union, 'mma'), (full, 'wgmma'),
-                       (aligned, 'wgmma')):
+  for shape, padded, route in BF16_KERNEL_CASES:
     for kind, c in cases:
       *err, first = compare_kernel(*shape, kind, c, device, torch.bfloat16,
-                                   'bfloat16', route)
+                                   'bfloat16', route, padded=padded)
       *_, again = compare_kernel(*shape, kind, c, device, torch.bfloat16,
-                                 'bfloat16', route)
+                                 'bfloat16', route, padded=padded)
       if not all(torch.equal(a, b) for a, b in zip(first, again)):
         raise AssertionError(f'{kind} c={c} {shape} ({route}): two runs '
                              'differ')
       errs[route].append(err)
   say('  two runs of each case bitwise equal')
+  check_e0_pad(*union, device)
+  check_e0_pad(37, 24, 1001, device, 'logistic', 0.0)
   times = time_kernel(*full, 'mse', 3.0, device, 'bfloat16', torch.bfloat16,
                       routes=('wgmma', 'mma'))
   report_times(times, full, f'bf16 mse c=3 {list(full)}', target_bytes=2,
                bf16=True)
+  # the exact union width the mma.sync set took before the target's rows
+  # were padded, and another rung, each against mma.sync forced there
+  shapes = {}
+  for shape in (union, other):
+    shapes[shape] = time_kernel(*shape, 'mse', 3.0, device, 'bfloat16',
+                                torch.bfloat16, routes=('wgmma', 'mma'),
+                                padded=True)
+    report_times(shapes[shape], shape, f'bf16 mse c=3 {list(shape)} (row '
+                 f'stride {-(-shape[2] // 8) * 8})', target_bytes=2,
+                 bf16=True)
   errs = {r: (max(e[0] for e in v), max(e[1] for e in v))
           for r, v in errs.items()}
   adam_err = max(check_adam(ML20M_PARAM_SHAPES, device),
@@ -2120,7 +2219,7 @@ def phase_bf16_kernels(device='cuda', ragged=(37, 24, 1000),
       f'{k} {v:.4f} ms' for k, v in adam_times.items())
       + f'; bound {adam_bound[0]:.4f} ms ({adam_bound[1]}: 20 B a parameter);'
       f' kernel at {100 * adam_bound[0] / adam_times["kernel"]:.1f}% of it')
-  return times, errs, adam_err, adam_times, adam_bound
+  return times, errs, adam_err, adam_times, adam_bound, shapes
 
 
 # -- phase 17 --------------------------------------------------------------
@@ -2723,6 +2822,10 @@ def phase_validation(matrix, held_out, device='cuda'):
   timing['forwards_per_batch'] = {
       fw: (counts[fw] - counts[bw]) / (2 * n_val)
       for fw, bw in BF16_ROUTE_COUNTERS.values()}
+  # (every validation batch's exact union, at the padded row stride:
+  # the wgmma forward)
+  if any(counts[k] for k in BF16_ROUTE_COUNTERS['mma']):
+    raise AssertionError(f'validation launched the mma.sync set: {counts}')
   say(f'  captured and eager-warm-up training bitwise equal with and without'
       f' validation; the graphs survived it ({tr.captures} captures either '
       f'way); {fwd - bwd} no-E0 forwards in 2 validations of {n_val} '
@@ -2892,6 +2995,8 @@ def phase_target(matrix, held_out, device='cuda', compared=20):
                 and all(counts[f] == counts[b] for f, b in pairs))
       else:
         once = all(v == steps for v in launches.values())
+      if cd:  # (d = 200, every target at the padded row stride)
+        once = once and not any(counts[k] for k in BF16_ROUTE_COUNTERS['mma'])
       if not once or any(v for k, v in counts.items() if k not in names):
         raise AssertionError(f'{cd} {shuffle}: launches in an epoch of '
                              f'{steps} steps: {counts}')
@@ -2999,7 +3104,48 @@ def phase_target(matrix, held_out, device='cuda', compared=20):
         f'{rel:.3g}; en_embedding relative Frobenius {table_rel:.3g}')
   launch_rates = {k: v / (epochs[k] * steps) for k, v in totals.items()}
   launch_rates['row_scatter'] = counts['row_scatter'] / compared
-  return out, workers, launch_rates, totals
+  # the mma.sync set's path: bf16 target training at a feature width the
+  # wgmma set does not take (d = 256: no room for hb's ones column)
+  mma = target_mma_path(dataset, compared)
+  return out, workers, launch_rates, (mma, compared)
+
+
+def target_mma_path(dataset, compared, device='cuda', d=256):
+  """``compared`` steps of bf16 target training ('users', the host
+  loader) at a feature width of ``d``, which only the mma.sync set
+  takes: each step launches its forward and backward once and no wgmma
+  kernel; the losses against the plain path. Returns the mma.sync
+  launches."""
+  import torch
+  from recoder_tpu_torch.model import Recoder
+  from recoder_tpu_torch.models import DynamicAutoencoder
+  from recoder_tpu_torch.ops.losses import MSELoss
+  kw = dict(ML20M_TRAIN, shuffle='users')
+
+  def trainer(loss='mse'):
+    return Recoder(DynamicAutoencoder([d], 'tanh', noise_prob=0.5,
+                                      compute_dtype='bfloat16'),
+                   optimizer_type='adam', loss=loss,
+                   loss_params={'confidence': 3} if loss == 'mse' else None,
+                   device=device, opt_state_dtype='bfloat16')
+
+  tr = trainer()
+  reset_launches()
+  tr.train(dataset, num_epochs=1, iters_per_epoch=compared,
+           fused_steps_per_call=1, **kw)
+  torch.cuda.synchronize()
+  counts = {k: v for k, v in read_launches().items() if v}
+  want = {k: compared for k in BF16_ROUTE_COUNTERS['mma'] + ('adam_bf16',)}
+  if counts != want:
+    raise AssertionError(f'bf16 d={d} users: launches {counts}, expected '
+                         f'{want}')
+  plain = plain_trainer_run(trainer(MSELoss(confidence=3, reduction='sum')),
+                            dataset, compared, kw)
+  rel = compare_losses(tr.last_epoch_losses, plain, BF16_PATHS_RTOL,
+                       f'bf16 d={d} users')
+  say(f'  bf16 users (host loader) at d = {d}: {compared} steps, launches '
+      f'{counts}; losses vs the plain path max rel {rel:.3g}')
+  return {k: counts[k] for k in BF16_ROUTE_COUNTERS['mma']}
 
 
 # -- phases 23-25: the other model families ----------------------------------
@@ -3363,9 +3509,9 @@ def phase_negatives(matrix, train_m, val_m):
   plain path, then captured and eager in turns; (b) the same through the
   per-step triplet scatter (slab_cache=False), eager: its 20 losses
   bitwise (a)'s, and against the plain path; (c) 'blocks' captured; (e)
-  the bf16 union path, 20 steps: how many take each decode-loss route
-  (the mega union plus R is rarely a multiple of 8), against the plain
-  path; the fixture captured bitwise eager with megas and random
+  the bf16 union path, 20 steps: each takes the wgmma decode-loss route
+  (the mega union plus R is rarely a multiple of 8; its target's rows
+  are padded to 8), against the plain path; the fixture captured bitwise eager with megas and random
   negatives; the fixture quality row against the JAX package's pins."""
   import torch
   from recoder_tpu_torch.data import RecommendationDataset
@@ -3443,7 +3589,7 @@ def phase_negatives(matrix, train_m, val_m):
   counts = {k: v for k, v in read_launches().items() if v}
   routes = {r: counts.get(names[0], 0)
             for r, names in BF16_ROUTE_COUNTERS.items()}
-  if (sum(routes.values()) != 20 or counts.get('adam_bf16') != 20
+  if (routes['wgmma'] != 20 or routes['mma'] or counts.get('adam_bf16') != 20
       or any(counts.get(b, 0) != counts.get(f, 0)
              for f, b in BF16_ROUTE_COUNTERS.values())):
     raise AssertionError(f'(e) 20 union steps launched {counts}')
@@ -3459,10 +3605,15 @@ def phase_negatives(matrix, train_m, val_m):
       f'{routes}, launches {counts}; losses vs the plain path max rel '
       f'{rel:.3g}')
   per_step['ml20m_mega_union'] = {k: v / 20 for k, v in counts.items()}
+  _, busy, launches, _ = profile_steps(
+      union, dataset, {k: v for k, v in union_kw.items()
+                       if k != 'fused_steps_per_call'})
+  say(f'  (e) the bf16 union path, eager: {busy:.3f} ms of device time and '
+      f'{launches:.1f} launches a profiled step')
   compare_kernel(500, 200, int(widths[widths % 8 != 0][0]) if odd
                  else int(widths[0]) + 1, 'mse', 3, 'cuda',
                  target_dtype=torch.bfloat16, compute_dtype='bfloat16',
-                 route='mma')
+                 route='wgmma', padded=True)
   del union
   torch.cuda.empty_cache()
 
@@ -4375,8 +4526,10 @@ def exact_width_losses(trainer, dataset, kw, steps, profiled=False):
   on before the static widths: each step's exact union and interactions
   (``build_union_batch``; on full decode ``build_fd_batch``, in 'users'
   mode without a slab the exact triplet scatter), with the random ids
-  the static path draws for the same global step. Returns the losses,
-  the union widths and, ``profiled``, the steps' device ms a step."""
+  the static path draws for the same global step; none may launch the
+  mma.sync decode-loss set (exact widths take the wgmma set through the
+  padded target rows). Returns the losses, the union widths and,
+  ``profiled``, the steps' device ms a step."""
   import torch
   from torch.profiler import ProfilerActivity, profile
   trainer.train(dataset, num_epochs=1, iters_per_epoch=0,
@@ -4392,6 +4545,7 @@ def exact_width_losses(trainer, dataset, kw, steps, profiled=False):
   if prof is not None:
     prof.start()
     settle_profiler()
+  reset_launches()
   for i in range(steps):
     if full_decode:
       batch = source.build_fd_batch(perm, i)
@@ -4405,11 +4559,18 @@ def exact_width_losses(trainer, dataset, kw, steps, profiled=False):
     step = trainer._sparse_step_math if sparse else trainer._dense_step_math
     losses.append(float(step(batch, ns)))
     trainer._global_step += 1
+  counts = read_launches()
+  if any(counts[k] for k in BF16_ROUTE_COUNTERS['mma']):
+    raise AssertionError(f'{steps} exact-width steps launched the mma.sync '
+                         f'set: {counts}')
   busy = None
   if prof is not None:
     torch.cuda.synchronize()
     prof.stop()
-    busy = sum(r[0] for r in device_rows(prof.key_averages())) / steps
+    rows = device_rows(prof.key_averages())
+    busy = sum(r[0] for r in rows) / steps
+    say(f'  the exact-width steps\' largest device rows, ms a step: '
+        + ', '.join(f'{key[:48]} {ms / steps:.4f}' for ms, _, key in rows[:8]))
   return losses, np.asarray(widths), busy
 
 
@@ -5813,6 +5974,9 @@ STRESS_ANN_ITEMS = 200_000
 STRESS_MESH_ITEMS = 200_000
 #: seconds a script's subprocess may take before its session is killed
 SCRIPT_TIMEOUT = 420
+#: (a)'s depth: the first users of the ML-20M-shaped CSR (they touch all
+#: of its items) and the held-out users of each side of the split
+SCRIPTS_USERS, SCRIPTS_HELDOUT = 40_000, 4_000
 #: ML-20M's ratings kept by preprocess (> 3.5)
 ML20M_RATINGS = (4.0, 4.5, 5.0)
 #: steps trained after the async directory save, while it writes
@@ -5910,7 +6074,7 @@ def stress_arithmetic_gib(items, dim):
 
 
 def phase_scripts(card, device='cuda', matrix=None, stress_items=None,
-                  heldout=None, big_items=MSD_BIG_ITEMS):
+                  heldout=SCRIPTS_HELDOUT, big_items=MSD_BIG_ITEMS):
   """Phase 34 in a temporary directory: (a) the ML-20M pipeline of
   scripts/ml-20m/torch_*.py, (b) scripts/torch_stress_scale.py and the
   scripts' mesh flags, (c) the async directory checkpoint. The keyword
@@ -6077,7 +6241,7 @@ def scripts_surface(card, work, device, matrix, stress_items, heldout,
   # (a) 1. ratings.csv of the ML-20M-shaped interactions
   t0 = time.time()
   if matrix is None:
-    matrix = synthetic.synthesize_ml20m()
+    matrix = synthetic.synthesize_ml20m()[:SCRIPTS_USERS]
   coo = matrix.tocoo()
   rng = np.random.default_rng(34)
   raw = os.path.join(work, 'ml-20m')
@@ -6409,8 +6573,8 @@ def main():
   union_cells = phase_union_capture_msd(msd)
   users_cells = {'msd_sparse_users': run('30 users capture (b): MSD --sparse',
                                          phase_users_capture_msd, msd)}
-  (bf16_times, bf16_errs, adam_err, adam_times,
-   adam_bound) = run('14 bf16 kernels', phase_bf16_kernels)
+  (bf16_times, bf16_errs, adam_err, adam_times, adam_bound,
+   bf16_shapes) = run('14 bf16 kernels', phase_bf16_kernels)
   matrix = synthetic.synthesize_ml20m()
   bf16_launches, bf16_first, bf16_rates, bf16_busy_ms, ml20m_cell = run(
       '15 bf16 slice', phase_bf16_slice, matrix, train_m, f32_profile,
@@ -6435,15 +6599,13 @@ def main():
       f'held out {held_out.nnz:,} ({time.time() - t0:.1f} s)')
   val_timing, val_rates, val_profile = run('21 validation', phase_validation,
                                            matrix, held_out)
-  target_rates, workers, target_per_step, target_launches = run(
+  target_rates, workers, target_per_step, (mma_launches, mma_steps) = run(
       '22 target training', phase_target, matrix, held_out)
   union_cells['ml20m_target_bf16'] = run(
       '29 union capture (d): bf16 target training', phase_union_capture_target,
       matrix, held_out)
-  # the mma.sync bf16 kernels' path: the union widths of bf16 target
-  # training
-  launches.update({k: target_launches[k]
-                   for k in BF16_ROUTE_COUNTERS['mma']})
+  # the mma.sync bf16 kernels' path: bf16 target training at d = 256
+  launches.update(mma_launches)
   del matrix, held_out
   t0 = time.time()
   matrix = synthetic.synthesize_ml20m()
@@ -6554,15 +6716,15 @@ def main():
           launches['row_scatter'] / msd_steps),
       # the mma.sync set timed at the full-decode shape (forced there)
       # beside the wgmma set; its launches are those of phase 22's bf16
-      # target training, whose union widths it takes
+      # target training at d = 256, a width only it takes
       'fused_decode_loss_fwd_bf16': (
           bf16_errs['mma'][0], bdev['mma']['fwd'], bdev['plain']['fwd'],
           None, bf16_bounds['fwd'],
-          target_per_step['fused_decode_loss_fwd_bf16']),
+          mma_launches['fused_decode_loss_fwd_bf16'] / mma_steps),
       'fused_decode_loss_bwd_bf16': (
           bf16_errs['mma'][1], bdev['mma']['bwd'], bdev['plain']['bwd'],
           None, bf16_bounds['bwd'],
-          target_per_step['fused_decode_loss_bwd_bf16']),
+          mma_launches['fused_decode_loss_bwd_bf16'] / mma_steps),
       'fused_decode_loss_fwd_bf16_wgmma': (
           bf16_errs['wgmma'][0], bdev['wgmma']['fwd'], bdev['plain']['fwd'],
           None, bf16_bounds['fwd'],
@@ -6645,6 +6807,23 @@ def main():
                   'per_step'].get(name, 0.0)}
              for name, (err, ms, plain_ms, library_ms, (bound_ms, by),
                         per_step) in measured.items()]
+  # the bf16 sets at the MSD union width (the target at row stride
+  # round8(W)) and at d = 128 (phase 14), each beside the other set
+  # forced there, the plain version and the bound
+  bf16_steps = {'fused_decode_loss_fwd_bf16': ('mma', 'fwd'),
+                'fused_decode_loss_bwd_bf16': ('mma', 'bwd'),
+                'fused_decode_loss_fwd_bf16_wgmma': ('wgmma', 'fwd'),
+                'fused_decode_loss_bwd_bf16_wgmma': ('wgmma', 'bwd')}
+  for k in kernels:
+    if k['name'] in bf16_steps:
+      route, step = bf16_steps[k['name']]
+      k['other_shapes'] = [
+          {'shape': list(shape), 'target_row_stride': -(-shape[2] // 8) * 8,
+           'ms': t['device'][route][step],
+           'plain_ms': t['device']['plain'][step],
+           'bound_ms': decode_loss_bounds(*shape, target_bytes=2,
+                                          bf16=True)[step][0]}
+          for shape, t in bf16_shapes.items()]
   # the packed kernel's mask-only launch (phase 17), beside its bound
   for k in kernels:
     if k['name'] == 'packed_rows':

@@ -29,6 +29,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), 'build',
@@ -42,6 +43,8 @@ _NAME_LOCKS = {}
 _LIBS = {}
 #: name -> the compiler's output (ptxas register / shared-memory report)
 BUILD_LOGS = {}
+#: name -> seconds its nvcc took, where this process built it
+BUILD_SECONDS = {}
 
 
 def capturing():
@@ -82,7 +85,9 @@ def load_library(name):
     if not os.path.exists(out):
       tmp = f'{out}.build.{os.getpid()}'
       cmd = [_nvcc(), *flags, '-o', tmp, src]
+      t0 = time.monotonic()
       proc = subprocess.run(cmd, capture_output=True, text=True)
+      BUILD_SECONDS[name] = time.monotonic() - t0
       if proc.returncode != 0:
         raise RuntimeError(f'nvcc failed building {name}.cu:\n'
                            f'{proc.stdout}{proc.stderr}')

@@ -92,10 +92,14 @@
 // ("mma", any shape) and a set designed for Hopper ("wgmma"), which also
 // replaces pallas_loss.py's _fwd_kernel and _bwd_kernel. The wgmma set
 // takes a call when TMA can describe every operand: a bf16 target [B, W]
-// with W % 8 == 0 (16-byte rows), the feature width d = 200 it is
-// compiled for (kWgD; wgmma's N is an immediate) and 16-byte aligned
-// bases. bench.py's ML-20M step, [500, 200, 20,224] with a bf16
-// slab target, is one; the ragged union widths (e.g. 18,117) are not.
+// at any W whose row stride is a multiple of 8 elements (16-byte runs;
+// the trainer's union targets are built at a row stride of W rounded up
+// to 8), a feature width d % 8 == 0 up to 248 (kWgMaxD: hb's row,
+// d + 8, is one wgmma N) and 16-byte aligned bases. Every bf16 training
+// path of the port at d = 200 takes it: bench.py's ML-20M step, [500,
+// 200, 20,224], and the exact union widths (e.g. 18,117). The mma.sync
+// set serves what TMA or the ladder cannot: d > 248, d % 8 != 0, a
+// float32 target, a misaligned pointer or row stride.
 // Both sets round at the same points and compute the same function.
 //
 // What bounds it is bytes: at the ML-20M step the forward moves 57.2 MB
@@ -115,23 +119,26 @@
 //     (dp = d rounded up to 8 past the ones column; 200 KB) once a forward:
 //     the forward's A operand, and drows' B operand, whose ones column
 //     sums E0's columns for dbias inside the product;
-//   * the forward (decode_loss_fwd_bf16_wgmma_kernel) is persistent: one
-//     block an SM walks its share of the units (a 64-item tile and half
-//     of the batch), loads each tile's float32 rows once (into registers,
-//     while the tile before it runs), rounds them into the swizzled bf16
-//     layout once (writing the bf16 rows copy rows_b [W, d] for the
-//     backward when one follows) and keeps them; two consumer warpgroups
-//     take the batch's 64-row tiles in turn, each fed hb tiles and target
-//     blocks by its own producer warp; the epilogue computes the loss and
-//     E0 in registers over the target's shared-memory tile and one TMA
-//     store writes E0 (nothing but the loss partials without a backward);
+//   * the forward (decode_loss_fwd_bf16_wgmma_kernel, compiled at the K
+//     ladder 64, 128, 208, 256: 13 k steps of 16 at d = 200) is
+//     persistent: one block an SM walks its share of the units (a 64-item
+//     tile and half of the batch), loads each tile's float32 rows once
+//     (into registers, while the tile before it runs), rounds them into
+//     the swizzled bf16 layout once (writing the bf16 rows copy rows_b
+//     [W, d] for the backward when one follows) and keeps them; two
+//     consumer warpgroups take the batch's 64-row tiles in turn, each fed
+//     hb tiles and target blocks by its own producer warp; the epilogue
+//     computes the loss and E0 in registers over the target's
+//     shared-memory tile and one TMA store writes E0 (nothing but the
+//     loss partials without a backward);
 //   * drows_dbias_bf16_wgmma_kernel: M = 64 items a warpgroup, N = dp
-//     (208 at d = 200: one wgmma, no pad tile), K = the batch, A = E0^T
-//     read MN-major from E0 as stored;
-//   * dh_bf16_wgmma_kernel: M = 64 batch rows a warpgroup, N = d, K = the
-//     items split into about one block an SM, A = E0 (K-major), B = rows_b
-//     (MN-major); the splits' partials summed in split order by
-//     sum_splits_bf16_kernel.
+//     on a ladder of compiled widths (64, 128, 208, 256; 208 at d = 200:
+//     one wgmma, no pad tile), K = the batch, A = E0^T read MN-major from
+//     E0 as stored;
+//   * dh_bf16_wgmma_kernel: M = 64 batch rows a warpgroup, N = d on the
+//     ladder 64, 128, 200, 256, K = the items split into about one block
+//     an SM, A = E0 (K-major), B = rows_b (MN-major); the splits'
+//     partials summed in split order by sum_splits_bf16_kernel.
 // The backward reads rows_b (8.1 MB) and hb as the forward left them:
 // keeping them costs the forward less than casting again would cost the
 // backward (measured, PERF.md). No atomics; every sum has a fixed order,
@@ -163,6 +170,7 @@
 
 #include <algorithm>
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -203,6 +211,7 @@ struct Params {
   const float* bias;
   const void* target;
   int target_bf16;
+  int ldt;  // the target's row stride (>= N)
   const float* row_mask;
   const float* col_mask;
   int kind;
@@ -483,7 +492,7 @@ __device__ __forceinline__ void tile_product(const Params& p) {
         const int row = m0 + wm + mi * 16 + g + 8 * hf;
         if (row >= p.M) continue;
         const float rm = p.row_mask[row];
-        const size_t trow = (size_t)row * p.N;
+        const size_t trow = (size_t)row * p.ldt;
 #pragma unroll
         for (int ni = 0; ni < kNT; ++ni) {
           const int col0 = n0 + wn + ni * 8 + 2 * t;
@@ -825,7 +834,7 @@ __device__ __forceinline__ void tile_product_bf16(const Params& p) {
         const int row = m0 + wm + mi * 16 + g + 8 * hf;
         if (row >= p.M) continue;
         const float rm = p.row_mask[row];
-        const size_t trow = (size_t)row * p.N;
+        const size_t trow = (size_t)row * p.ldt;
 #pragma unroll
         for (int ni = 0; ni < kNT; ++ni) {
           const int col0 = n0 + wn + ni * 8 + 2 * t;
@@ -935,17 +944,42 @@ __global__ void __launch_bounds__(kThreads)
 // lanes issue the TMA loads.
 constexpr int kBox = 64;
 constexpr int kBoxBytes = kBox * kBox * 2;
-// the feature width the route is compiled for (wgmma N is an immediate):
-// bench.py's ML-20M step
-constexpr int kWgD = 200;
 
 __host__ __device__ constexpr int ceil_div(int a, int b) {
   return (a + b - 1) / b;
 }
+// hb's row length: d, its ones column, zeros to a multiple of 8
 __host__ __device__ constexpr int pad_ones(int d) { return (d + 8) & ~7; }
-// hb's row length at kWgD: 208, one n208 wgmma and 4 K atoms
-constexpr int kWgDp = pad_ones(kWgD);
-static_assert(ceil_div(kWgDp, 64) == 4, "the forward's tiles hold 4 K atoms");
+
+// The feature widths: any d % 8 == 0 up to kWgMaxD, so that hb's row
+// (pad_ones(d) <= 256) is one wgmma N and the forward's tiles (4 K atoms
+// of 64) hold it. The forward's K (d), dh's N (d) and drows' N
+// (pad_ones(d)) are each compiled at a short ladder of widths (wgmma's N
+// is an immediate, and its accumulators want the K loop unrolled), and a
+// shape takes the smallest rung that holds its width; past d the
+// operands are zeros (hb's own, the rows tile's, TMA's fill past the
+// table's d) and nothing past d is written. The rungs of 200 / 208 are
+// bench.py's ML-20M step, which runs at its exact width.
+constexpr int kWgMaxD = 248;
+template <int... kN>
+struct Rungs {};
+using DhRungs = Rungs<64, 128, 200, 256>;
+// the forward's K and drows' N
+using KRungs = Rungs<64, 128, 208, 256>;
+
+// f(std::integral_constant<int, N>) for the smallest rung N >= n
+template <typename F, int... kN>
+void on_rung(Rungs<kN...>, int n, F f) {
+  bool done = false;
+  ((done = done || (n <= kN && (f(std::integral_constant<int, kN>{}), true))),
+   ...);
+}
+
+// f(std::integral_constant<int, N>) for every rung
+template <typename F, int... kN>
+void each_rung(Rungs<kN...>, F f) {
+  (f(std::integral_constant<int, kN>{}), ...);
+}
 
 // the backward kernels: 2 consumers (128 items or batch rows a block) and
 // one producer warp, a ring of 4 stages, each stage the two consumers' A
@@ -1179,12 +1213,109 @@ __device__ __forceinline__ void wgmma_n208(float (&d)[104], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d), "n"(kTA), "n"(kTB));
 }
 
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTA), "n"(kTB));
+}
+
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTA), "n"(kTB));
+}
+
 template <int kN, int kTA, int kTB>
 __device__ __forceinline__ void wgmma(float (&d)[kN / 2], uint64_t a,
                                       uint64_t b, int scale_d) {
+  static_assert(kN == 64 || kN == 128 || kN == 200 || kN == 208 ||
+                    kN == 256,
+                "no wgmma wrapper of this width");
   if constexpr (kN == 64) wgmma_n64<kTA, kTB>(d, a, b, scale_d);
+  else if constexpr (kN == 128) wgmma_n128<kTA, kTB>(d, a, b, scale_d);
   else if constexpr (kN == 200) wgmma_n200<kTA, kTB>(d, a, b, scale_d);
-  else wgmma_n208<kTA, kTB>(d, a, b, scale_d);
+  else if constexpr (kN == 208) wgmma_n208<kTA, kTB>(d, a, b, scale_d);
+  else wgmma_n256<kTA, kTB>(d, a, b, scale_d);
 }
 
 struct WgParams {
@@ -1257,8 +1388,11 @@ __host__ __device__ constexpr int fwd_units(int W) {
 
 // kRowsB16: the rows are a bf16 table (bf16 parameter storage), read 16
 // bytes (8 features) a thread as they are stored, and never copied (the
-// backward takes the table itself).
-template <int kKind, bool kRowsB16>
+// backward takes the table itself). kK: the K rung that holds d (64, 128,
+// 208 or 256 features: 1, 2, 4, 4 atoms of hb and the rows tile, and
+// kK / 16 wgmma k steps unrolled, as wgmma's accumulators want them);
+// past d the rows tile is zero, so hb's ones column adds nothing here.
+template <int kKind, bool kRowsB16, int kK>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     decode_loss_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap hmap,
                                       const __grid_constant__ CUtensorMap tmap,
@@ -1282,7 +1416,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   const int units = fwd_units(p.W);
   const int u0 = (int)((long long)blockIdx.x * units / gridDim.x);
   const int u1 = (int)((long long)(blockIdx.x + 1) * units / gridDim.x);
-  constexpr int atoms = ceil_div(kWgDp, kBox);
+  constexpr int atoms = ceil_div(kK, kBox);
   if (tid == 0) {
     for (int i = 0; i < 2 * kHSlots; ++i) {
       mbar_init(h_full + i, 1);
@@ -1359,7 +1493,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 
   const int c = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  constexpr int k16 = kWgDp / 16;
+  constexpr int k16 = kK / 16;
   float loss = 0.f;
   float bias_r[16], cm_r[16];  // this thread's 16 columns: 8jj + 2t + cc
   int k = 0;                   // this consumer's row tiles so far
@@ -1542,8 +1676,9 @@ __device__ __forceinline__ void bwd_mainloop(
 }
 
 // [drows | dbias] for 128 items (64 a consumer): M = items, A = E0^T
-// (MN-major, E0 as stored), B = hb (MN-major, N = dp: its ones column at
-// d makes accumulator column d the column sums of E0), K = the batch.
+// (MN-major, E0 as stored), B = hb (MN-major, N = the rung of dp: its
+// ones column at d makes accumulator column d the column sums of E0), K
+// = the batch.
 template <int kN>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     drows_dbias_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap emap,
@@ -1583,8 +1718,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 }
 
 // One split of dh for 128 batch rows (64 a consumer): M = the batch, A =
-// E0 (K-major), B = rows_b (MN-major, N = d), K = this split's items;
-// the partial [B, d] of the split goes to out + split * B * d, unscaled.
+// E0 (K-major), B = rows_b (MN-major, N = the rung of d), K = this
+// split's items; the partial [B, d] of the split goes to out + split * B
+// * d, unscaled.
 template <int kN>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     dh_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap emap,
@@ -1608,8 +1744,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     if (row >= p.B) continue;
 #pragma unroll
     for (int jj = 0; jj < kN / 8; ++jj)
-      *reinterpret_cast<float2*>(out + (size_t)row * p.d + 8 * jj + 2 * t) =
-          make_float2(acc[4 * jj + 2 * hf], acc[4 * jj + 2 * hf + 1]);
+      if (8 * jj + 2 * t < p.d)  // (d % 8 == 0: a pair lies on one side)
+        *reinterpret_cast<float2*>(out + (size_t)row * p.d + 8 * jj +
+                                   2 * t) =
+            make_float2(acc[4 * jj + 2 * hf], acc[4 * jj + 2 * hf + 1]);
   }
 }
 
@@ -1684,7 +1822,7 @@ cudaError_t bf16_map(CUtensorMap* map, const void* base, int rows, int cols,
 // what the wgmma route needs beyond bad_args: TMA-describable operands
 bool bad_wgmma_args(int B, int W, int d,
                     std::initializer_list<const void*> ptrs) {
-  if (bad_args(B, W, d) || W % 8 != 0 || d != kWgD) return true;
+  if (bad_args(B, W, d) || d % 8 != 0 || d > kWgMaxD) return true;
   for (const void* p : ptrs)
     if (p == nullptr || !aligned16(p)) return true;
   return false;
@@ -1757,36 +1895,44 @@ int fdl_configure(int device) {
     err = allow_smem(dh_splitk_bf16_kernel<true, true>, smem_bytes_bf16(kDh));
   if (err == cudaSuccess)
     err = allow_smem(dh_splitk_bf16_kernel<false, true>, smem_bytes_bf16(kDh));
-  if (err == cudaSuccess)
-    err = allow_smem(decode_loss_fwd_bf16_wgmma_kernel<kMse, false>,
-                     kFwdSmem);
-  if (err == cudaSuccess)
-    err = allow_smem(decode_loss_fwd_bf16_wgmma_kernel<kLogistic, false>,
-                     kFwdSmem);
-  if (err == cudaSuccess)
-    err = allow_smem(decode_loss_fwd_bf16_wgmma_kernel<kMse, true>, kFwdSmem);
-  if (err == cudaSuccess)
-    err = allow_smem(decode_loss_fwd_bf16_wgmma_kernel<kLogistic, true>,
-                     kFwdSmem);
-  if (err == cudaSuccess)
-    err = allow_smem(drows_dbias_bf16_wgmma_kernel<kWgDp>, bwd_smem(kWgDp));
-  if (err == cudaSuccess)
-    err = allow_smem(dh_bf16_wgmma_kernel<kWgD>, bwd_smem(kWgD));
+  each_rung(KRungs{}, [&](auto n) {
+    constexpr int kN = decltype(n)::value;
+    if (err == cudaSuccess)
+      err = allow_smem(decode_loss_fwd_bf16_wgmma_kernel<kMse, false, kN>,
+                       kFwdSmem);
+    if (err == cudaSuccess)
+      err = allow_smem(decode_loss_fwd_bf16_wgmma_kernel<kLogistic, false, kN>,
+                       kFwdSmem);
+    if (err == cudaSuccess)
+      err = allow_smem(decode_loss_fwd_bf16_wgmma_kernel<kMse, true, kN>,
+                       kFwdSmem);
+    if (err == cudaSuccess)
+      err = allow_smem(decode_loss_fwd_bf16_wgmma_kernel<kLogistic, true, kN>,
+                       kFwdSmem);
+    if (err == cudaSuccess)
+      err = allow_smem(drows_dbias_bf16_wgmma_kernel<kN>, bwd_smem(kN));
+  });
+  each_rung(DhRungs{}, [&](auto n) {
+    constexpr int kN = decltype(n)::value;
+    if (err == cudaSuccess)
+      err = allow_smem(dh_bf16_wgmma_kernel<kN>, bwd_smem(kN));
+  });
   return err;
 }
 
 // Forward: out[0] = masked sum loss; with e0 non-null also E0 [B, lde]
 // (float32, or bf16 when bf16 is set: the bf16 variant). target_bf16:
-// target holds bfloat16, else float32. rows_bf16 (the bf16 variant only):
+// target holds bfloat16, else float32; ldt: its row stride (>= W). rows_bf16 (the bf16 variant only):
 // rows is a bf16 table, else float32. partials: float[out[0] of
 // fdl_plan].
 int fdl_forward(const float* h, const void* rows, const float* bias,
-                const void* target, int target_bf16, const float* row_mask,
-                const float* col_mask, int B, int W, int d, int kind,
-                float confidence, int bf16, int rows_bf16, void* e0, int lde,
-                float* partials, float* out, int device, void* stream) {
+                const void* target, int target_bf16, int ldt,
+                const float* row_mask, const float* col_mask, int B, int W,
+                int d, int kind, float confidence, int bf16, int rows_bf16,
+                void* e0, int lde, float* partials, float* out, int device,
+                void* stream) {
   if (bad_args(B, W, d) || (kind != kMse && kind != kLogistic) ||
-      (rows_bf16 && !bf16) ||
+      (rows_bf16 && !bf16) || ldt < W ||
       (e0 != nullptr && lde != (bf16 ? round8(W) : round4(W))) ||
       (bf16 && e0 != nullptr && !aligned16(e0)))
     return cudaErrorInvalidValue;
@@ -1806,6 +1952,7 @@ int fdl_forward(const float* h, const void* rows, const float* bias,
   p.bias = bias;
   p.target = target;
   p.target_bf16 = target_bf16;
+  p.ldt = ldt;
   p.row_mask = row_mask;
   p.col_mask = col_mask;
   p.kind = kind;
@@ -1955,8 +2102,7 @@ int fdl_backward(const float* g, const void* e0, int lde, const float* h,
 // out[3] lde (W rounded up to 8), out[4] dp (hb's row length: d rounded up
 // to 8 past its ones column). Fails where the route does not take the shape.
 int fdl_plan_wgmma(int B, int W, int d, int sms, int* out) {
-  if (bad_args(B, W, d) || W % 8 != 0 || d != kWgD || sms < 1)
-    return cudaErrorInvalidValue;
+  if (bad_wgmma_args(B, W, d, {}) || sms < 1) return cudaErrorInvalidValue;
   const int chunks = cdiv(W, kBox);
   int splits =
       std::max(1, std::min(chunks, sms / cdiv(B, 2 * kBox)));
@@ -1970,19 +2116,23 @@ int fdl_plan_wgmma(int B, int W, int d, int sms, int* out) {
 }
 
 // The forward of the wgmma route. rows: float32 [W, d], or a bf16 table
-// when rows_bf16 is set; target: bf16 [B, W]; hb: bf16 [B, dp] scratch
+// when rows_bf16 is set; target: bf16 [B, W] with row stride ldt (a
+// multiple of 8, >= W: TMA reads whole 16-byte runs of a row and fills
+// the columns past W with zeros); hb: bf16 [B, dp] scratch
 // that this call fills (the backward's B operand of drows); rows_b (bf16
 // [W, d]; null with bf16 rows, which the backward reads as they are) and
 // e0 (bf16 [B, lde]) may be null: then no copy of rows / no E0 is
-// written. blocks, partials: out[0] of fdl_plan_wgmma and float[blocks].
+// written; E0's columns in [W, lde) are written, as zeros (their item
+// rows, bias, column mask and target are all zero there). blocks,
+// partials: out[0] of fdl_plan_wgmma and float[blocks].
 int fdl_forward_wgmma(const float* h, const void* rows, int rows_bf16,
-                      const float* bias, const void* target,
+                      const float* bias, const void* target, int ldt,
                       const float* row_mask, const float* col_mask, int B,
                       int W, int d, int kind, float confidence, void* hb,
                       void* rows_b, void* e0, int blocks, float* partials,
                       float* out, int device, void* stream) {
   if (bad_wgmma_args(B, W, d, {rows, target, hb}) || blocks < 1 ||
-      blocks > fwd_units(W) ||
+      blocks > fwd_units(W) || ldt < W || ldt % 8 != 0 ||
       (kind != kMse && kind != kLogistic) ||
       (rows_b != nullptr && (rows_bf16 || !aligned16(rows_b))) ||
       (e0 != nullptr && !aligned16(e0)))
@@ -1990,7 +2140,7 @@ int fdl_forward_wgmma(const float* h, const void* rows, int rows_bf16,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int dp = kWgDp, lde = round8(W);
+  const int dp = pad_ones(d), lde = round8(W);
   const long long n = (long long)B * dp / 8;
   const int cast_blocks =
       (int)std::min<long long>((n + kThreads - 1) / kThreads, 4096);
@@ -2000,11 +2150,11 @@ int fdl_forward_wgmma(const float* h, const void* rows, int rows_bf16,
   if (err != cudaSuccess) return err;
   CUtensorMap hmap, tmap, emap;
   err = bf16_map(&hmap, hb, B, dp, dp);
-  if (err == cudaSuccess) err = bf16_map(&tmap, target, B, W, W);
+  if (err == cudaSuccess) err = bf16_map(&tmap, target, B, W, ldt);
   // (without E0 the kernel never reads emap: any valid map will do)
   if (err == cudaSuccess)
-    err = e0 ? bf16_map(&emap, e0, B, lde, lde)
-             : bf16_map(&emap, target, B, W, W);
+    err = e0 ? bf16_map(&emap, e0, B, lde, lde) : bf16_map(&emap, target, B,
+                                                             W, ldt);
   if (err != cudaSuccess) return err;
   WgParams p = {};
   p.rows = rows;
@@ -2018,18 +2168,21 @@ int fdl_forward_wgmma(const float* h, const void* rows, int rows_bf16,
   p.d = d;
   p.confidence = confidence;
   p.write_e0 = e0 != nullptr;
-  if (kind == kMse && rows_bf16)
-    decode_loss_fwd_bf16_wgmma_kernel<kMse, true>
-        <<<blocks, kFwdThreads, kFwdSmem, s>>>(hmap, tmap, emap, p);
-  else if (kind == kMse)
-    decode_loss_fwd_bf16_wgmma_kernel<kMse, false>
-        <<<blocks, kFwdThreads, kFwdSmem, s>>>(hmap, tmap, emap, p);
-  else if (rows_bf16)
-    decode_loss_fwd_bf16_wgmma_kernel<kLogistic, true>
-        <<<blocks, kFwdThreads, kFwdSmem, s>>>(hmap, tmap, emap, p);
-  else
-    decode_loss_fwd_bf16_wgmma_kernel<kLogistic, false>
-        <<<blocks, kFwdThreads, kFwdSmem, s>>>(hmap, tmap, emap, p);
+  on_rung(KRungs{}, d, [&](auto n) {
+    constexpr int kK = decltype(n)::value;
+    if (kind == kMse && rows_bf16)
+      decode_loss_fwd_bf16_wgmma_kernel<kMse, true, kK>
+          <<<blocks, kFwdThreads, kFwdSmem, s>>>(hmap, tmap, emap, p);
+    else if (kind == kMse)
+      decode_loss_fwd_bf16_wgmma_kernel<kMse, false, kK>
+          <<<blocks, kFwdThreads, kFwdSmem, s>>>(hmap, tmap, emap, p);
+    else if (rows_bf16)
+      decode_loss_fwd_bf16_wgmma_kernel<kLogistic, true, kK>
+          <<<blocks, kFwdThreads, kFwdSmem, s>>>(hmap, tmap, emap, p);
+    else
+      decode_loss_fwd_bf16_wgmma_kernel<kLogistic, false, kK>
+          <<<blocks, kFwdThreads, kFwdSmem, s>>>(hmap, tmap, emap, p);
+  });
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   sum_partials_kernel<<<1, kThreads, 0, s>>>(partials, blocks, out);
@@ -2038,9 +2191,11 @@ int fdl_forward_wgmma(const float* h, const void* rows, int rows_bf16,
 
 // The backward of the wgmma route from the bf16 E0 [B, lde] and the
 // forward's bf16 operands hb [B, dp] and rows_b [W, d] (its copy of the
-// rows, or a bf16 table itself). drows_bf16: drows is written in bf16,
-// else float32 (holding bf16 values). per, nsplit: out[1], out[2] of
-// fdl_plan_wgmma; dh_partials: float[nsplit * B * d].
+// rows, or a bf16 table itself). E0 is read through a map of its W
+// columns, so that its pad columns are never read (TMA fills zeros past
+// W). drows_bf16: drows is written in bf16, else float32 (holding bf16
+// values). per, nsplit: out[1], out[2] of fdl_plan_wgmma; dh_partials:
+// float[nsplit * B * d].
 int fdl_backward_wgmma(const float* g, const void* e0, const void* hb,
                        const void* rows_b, int B, int W, int d, int per,
                        int nsplit, float* dh_partials, float* dh,
@@ -2054,9 +2209,9 @@ int fdl_backward_wgmma(const float* g, const void* e0, const void* hb,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int dp = kWgDp, lde = round8(W);
+  const int dp = pad_ones(d), lde = round8(W);
   CUtensorMap emap, hmap, rmap;
-  err = bf16_map(&emap, e0, B, lde, lde);
+  err = bf16_map(&emap, e0, B, W, lde);
   if (err == cudaSuccess) err = bf16_map(&hmap, hb, B, dp, dp);
   if (err == cudaSuccess) err = bf16_map(&rmap, rows_b, W, d, d);
   if (err != cudaSuccess) return err;
@@ -2070,15 +2225,21 @@ int fdl_backward_wgmma(const float* g, const void* e0, const void* hb,
   p.out = static_cast<float*>(drows);
   p.out_b16 = drows_bf16;
   p.dbias = dbias;
-  drows_dbias_bf16_wgmma_kernel<kWgDp>
-      <<<grid_rows, kBwdThreads, bwd_smem(kWgDp), s>>>(emap, hmap, p);
+  on_rung(KRungs{}, dp, [&](auto n) {
+    constexpr int kN = decltype(n)::value;
+    drows_dbias_bf16_wgmma_kernel<kN>
+        <<<grid_rows, kBwdThreads, bwd_smem(kN), s>>>(emap, hmap, p);
+  });
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   p.out = dh_partials;
   p.out_b16 = 0;
   p.dbias = nullptr;
-  dh_bf16_wgmma_kernel<kWgD>
-      <<<grid_dh, kBwdThreads, bwd_smem(kWgD), s>>>(emap, rmap, p);
+  on_rung(DhRungs{}, d, [&](auto n) {
+    constexpr int kN = decltype(n)::value;
+    dh_bf16_wgmma_kernel<kN>
+        <<<grid_dh, kBwdThreads, bwd_smem(kN), s>>>(emap, rmap, p);
+  });
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long n = (long long)B * d;

@@ -770,8 +770,7 @@ class Recoder:
       kind = self._fused_kind()
       if kind is not None and W > 0:
         loss = fused_decode_loss(
-            h, rows, bias, target.contiguous(), row_mask,
-            col_mask.contiguous(), kind,
+            h, rows, bias, target, row_mask, col_mask.contiguous(), kind,
             getattr(self.loss_module, 'confidence', 0.0), cd)
         return collectives.sum_forward(loss, None) / valid_users
       scores = model.decode(h, rows, bias)
@@ -817,14 +816,20 @@ class Recoder:
     CSRs (the on-device source's, or the host loader's over
     :func:`_canonical_dataset`). A static batch's entries past its
     slice's nnz hold row ``B``: they land in a spare row that is cut
-    off (the JAX ``mode='drop'``)."""
+    off (the JAX ``mode='drop'``).
+
+    The matrix is the ``[:B, :W]`` view of one whose rows are W rounded
+    up to 8 elements long (the extra columns zero): a bf16 target of any
+    W then has 16-byte rows, which the TMA-fed decode-loss kernels read
+    where they stand (``ops/fused_decode_loss.bf16_route``)."""
     dtype = dtype or torch.float32
     rows = batch[side + 'rows']
     spare = int(side + 'width_valid' in batch)
-    dense = torch.zeros((B + spare, W), device=rows.device, dtype=dtype)
+    dense = torch.zeros((B + spare, -(-W // 8) * 8), device=rows.device,
+                        dtype=dtype)
     dense.index_put_((rows, batch[side + 'cols']),
                      batch[side + 'vals'].to(dtype))
-    return dense[:B]
+    return dense[:B, :W]
 
   def _step_tensor(self):
     """The global step as a 0-dim int64 tensor on the device: the aux

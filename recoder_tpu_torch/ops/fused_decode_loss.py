@@ -55,9 +55,16 @@ launch the kernels of ``kernels/fused_decode_loss.cu`` for that dtype
 (:func:`_plain_forward`, :func:`_plain_backward`). The bf16 variant has
 two sets of hand kernels, chosen by shape (:func:`bf16_route`): 'wgmma'
 (TMA-fed tiles and warpgroup products, where TMA can describe every
-operand: bench.py's ML-20M step takes it) and 'mma' (the ``mma.sync``
-kernels, which take any shape: the ragged union widths). Each route has
-its launch counters; a call the route does not take raises.
+operand: every bf16 training path at d = 200, bench.py's ML-20M step and
+the exact union widths among them) and 'mma' (the ``mma.sync`` kernels,
+which take any shape: d > 248, d % 8 != 0, float32 targets, misaligned
+operands). Each route has its launch counters; a call the route does not
+take raises.
+
+The target may be a view whose rows are unit-stride runs at a row
+stride of its own (every kernel takes the stride; the trainer's union
+targets are ``[B, W]`` views of ``[B, round8(W)]`` matrices, so that TMA
+can describe them at any W).
 """
 
 import ctypes
@@ -80,9 +87,11 @@ LAUNCHES = {'fused_decode_loss_fwd': 0, 'fused_decode_loss_bwd': 0,
             'fused_decode_loss_fwd_bf16': 0, 'fused_decode_loss_bwd_bf16': 0,
             'fused_decode_loss_fwd_bf16_wgmma': 0,
             'fused_decode_loss_bwd_bf16_wgmma': 0}
-#: the feature widths d the wgmma kernels are compiled for (the wgmma
-#: width is an immediate; ``kWgD`` in the source): bench.py's ML-20M step
-WGMMA_WIDTHS = (200,)
+#: the feature widths d the wgmma kernels take: d % 8 == 0 and d <= 248
+#: (hb's row, d and a ones column padded to 8, is one wgmma N; the
+#: forward's K and the backward's N are compiled at a ladder of widths,
+#: ``KRungs`` / ``DhRungs`` in the source)
+WGMMA_WIDTHS = range(8, 249, 8)
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
@@ -95,15 +104,27 @@ def supported(kind):
   return kind in KINDS
 
 
+def target_stride(target):
+  """The row stride of a ``[B, W]`` target whose rows are unit-stride
+  runs (a single row's stride is never read: W at least), else None."""
+  B, W = target.shape
+  if W > 1 and target.stride(1) != 1:
+    return None
+  ld = target.stride(0) if B > 1 else max(target.stride(0), W)
+  return ld if ld >= W else None
+
+
 def bf16_route(h, rows, target):
   """Which bf16 kernels take a call of this shape: 'wgmma' where TMA can
-  describe every operand -- a bfloat16 target whose rows are whole
-  16-byte runs (W % 8 == 0), a feature width in ``WGMMA_WIDTHS``, 16-byte
-  aligned rows (read 16 bytes at a time) and target -- else 'mma'. (The kernels read h through a bf16 copy of
-  their own.)"""
-  d, W = h.shape[-1], rows.shape[0]
-  ok = (target.dtype == BF16 and W % 8 == 0 and d in WGMMA_WIDTHS
-        and rows.data_ptr() % 16 == 0 and target.data_ptr() % 16 == 0)
+  describe every operand -- a bfloat16 target at any W whose row stride
+  is whole 16-byte runs (a multiple of 8 elements), a feature width in
+  ``WGMMA_WIDTHS``, 16-byte aligned rows (read 16 bytes at a time) and
+  target -- else 'mma'. (The kernels read h through a bf16 copy of their
+  own.)"""
+  ld = target_stride(target)
+  ok = (target.dtype == BF16 and ld is not None and ld % 8 == 0
+        and h.shape[-1] in WGMMA_WIDTHS and rows.data_ptr() % 16 == 0
+        and target.data_ptr() % 16 == 0)
   return 'wgmma' if ok else 'mma'
 
 
@@ -194,9 +215,9 @@ def _lib():
       from recoder_tpu_torch.kernels import load_library
       lib = load_library('fused_decode_loss')
       ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-      lib.fdl_forward.argtypes = ([ptr] * 4 + [i32] + [ptr] * 2 + [i32] * 4
-                                  + [f32, i32, i32, ptr, i32, ptr, ptr, i32,
-                                     ptr])
+      lib.fdl_forward.argtypes = ([ptr] * 4 + [i32] * 2 + [ptr] * 2
+                                  + [i32] * 4 + [f32, i32, i32, ptr, i32,
+                                                 ptr, ptr, i32, ptr])
       lib.fdl_forward.restype = i32
       lib.fdl_backward.argtypes = ([ptr] * 2 + [i32] + [ptr] * 2 + [i32] * 7
                                    + [ptr] * 3 + [i32, ptr, i32, ptr])
@@ -207,9 +228,10 @@ def _lib():
       lib.fdl_plan.restype = i32
       lib.fdl_plan_wgmma.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
       lib.fdl_plan_wgmma.restype = i32
-      lib.fdl_forward_wgmma.argtypes = ([ptr] * 2 + [i32] + [ptr] * 4
-                                        + [i32] * 4 + [f32] + [ptr] * 3
-                                        + [i32] + [ptr] * 2 + [i32, ptr])
+      lib.fdl_forward_wgmma.argtypes = ([ptr] * 2 + [i32] + [ptr] * 2
+                                        + [i32] + [ptr] * 2 + [i32] * 4
+                                        + [f32] + [ptr] * 3 + [i32]
+                                        + [ptr] * 2 + [i32, ptr])
       lib.fdl_forward_wgmma.restype = i32
       lib.fdl_backward_wgmma.argtypes = ([ptr] * 4 + [i32] * 5 + [ptr] * 3
                                          + [i32, ptr, i32, ptr])
@@ -278,7 +300,11 @@ def _validate(h, rows, bias, target, row_mask, col_mask, kind, max_d):
                if name in ('h', 'rows', 'bias') else (torch.float32,))
     if x.dtype not in allowed:
       raise ValueError(f'{name} must be one of {allowed}, got {x.dtype}')
-    if not x.is_contiguous():
+    if name == 'target' and x.dim() == 2:
+      if target_stride(x) is None:
+        raise ValueError('target rows must be contiguous runs (a unit '
+                         'column stride), at a row stride of at least W')
+    elif not x.is_contiguous():
       raise ValueError(f'{name} must be contiguous')
   B, d = h.shape
   W = rows.shape[0]
@@ -325,10 +351,11 @@ def _kernel_forward(h, rows, bias, target, row_mask, col_mask, kind,
   stream = torch.cuda.current_stream(h.device).cuda_stream
   err = lib.fdl_forward(
       h.data_ptr(), rows.data_ptr(), bias.data_ptr(), target.data_ptr(),
-      int(target.dtype == torch.bfloat16), row_mask.data_ptr(),
-      col_mask.data_ptr(), B, W, d, KINDS[kind], float(confidence),
-      int(bf16), int(rows_bf16), e0.data_ptr() if stash else None, lde,
-      partials.data_ptr(), out.data_ptr(), h.device.index, stream)
+      int(target.dtype == torch.bfloat16), target_stride(target),
+      row_mask.data_ptr(), col_mask.data_ptr(), B, W, d, KINDS[kind],
+      float(confidence), int(bf16), int(rows_bf16),
+      e0.data_ptr() if stash else None, lde, partials.data_ptr(),
+      out.data_ptr(), h.device.index, stream)
   _check(lib, err, 'fused decode-loss forward launch')
   count_launch(LAUNCHES, 'fused_decode_loss_fwd_bf16' if bf16
                else 'fused_decode_loss_fwd')
@@ -352,8 +379,9 @@ def _wgmma_forward(lib, h, rows, bias, target, row_mask, col_mask, kind,
   stream = torch.cuda.current_stream(dev).cuda_stream
   err = lib.fdl_forward_wgmma(
       h.data_ptr(), rows.data_ptr(), int(rows_bf16), bias.data_ptr(),
-      target.data_ptr(), row_mask.data_ptr(), col_mask.data_ptr(), B, W, d,
-      KINDS[kind], float(confidence), hb.data_ptr(),
+      target.data_ptr(), target_stride(target), row_mask.data_ptr(),
+      col_mask.data_ptr(), B, W, d, KINDS[kind], float(confidence),
+      hb.data_ptr(),
       None if rows_b is None or rows_bf16 else rows_b.data_ptr(),
       None if e0 is None else e0.data_ptr(), n_partials, partials.data_ptr(),
       out.data_ptr(), dev.index, stream)

@@ -606,13 +606,61 @@ def test_bf16_wgmma_agrees_with_mma_and_without_e0(cuda, kind, confidence):
 
 
 def test_bf16_wgmma_refuses_what_it_cannot_describe(cuda):
-  """Forced onto the wgmma kernels, a shape that TMA cannot describe (W
-  % 8 != 0) raises rather than falling back."""
+  """Forced onto the wgmma kernels, a target that TMA cannot describe (a
+  contiguous one of W % 8 != 0: its row stride is not 16-byte runs)
+  raises rather than falling back."""
   h, rows, bias, target, rm, cm = _bf16_target(_problem(64, 200, 1001,
                                                         cuda))
   with pytest.raises(RuntimeError):
     fdl._kernel_forward(h, rows, bias, target, rm, cm, 'mse', 3.0,
                         'bfloat16', True, route='wgmma')
+
+
+def _padded(x):
+  """``x [B, W]`` in the ``[:B, :W]`` view of rows W rounded up to 8
+  elements long: the row stride of the trainer's union targets."""
+  B, W = x.shape
+  out = torch.zeros((B, -(-W // 8) * 8), dtype=x.dtype, device=x.device)
+  out[:, :W] = x
+  return out[:, :W]
+
+
+#: (B, d, W): union widths and the ladder's feature widths
+PADDED_WGMMA_SHAPES = [(500, 200, 18117), (37, 24, 1001), (64, 8, 130),
+                       (480, 104, 18120), (500, 128, 20223), (37, 248, 45)]
+
+
+@pytest.mark.parametrize('kind,confidence', [('mse', 3.0), ('logistic', 0.0)])
+@pytest.mark.parametrize('B,d,W', PADDED_WGMMA_SHAPES)
+def test_bf16_wgmma_at_every_width_matches_plain(cuda, B, d, W, kind,
+                                                 confidence):
+  """A bf16 target at the union targets' row stride (W rounded up to 8)
+  and a feature width d % 8 == 0 up to 248: the wgmma kernels, against
+  the plain composition at the bf16 tolerances, two runs bitwise equal;
+  E0's pad columns zero; the same target contiguous at W % 8 != 0 goes
+  to the mma.sync set."""
+  h, rows, bias, target, rm, cm = _bf16_target(_problem(B, d, W, cuda))
+  padded = _padded(target)
+  problem = [h, rows, bias, padded, rm, cm]
+  assert fdl.bf16_route(h, rows, padded) == 'wgmma'
+  before = dict(fdl.LAUNCHES)
+  got = _run_bf16(fdl.fused_decode_loss, problem, kind, confidence)
+  for name in ('fused_decode_loss_fwd_bf16_wgmma',
+               'fused_decode_loss_bwd_bf16_wgmma'):
+    assert fdl.LAUNCHES[name] == before[name] + 1
+  ref = _run_bf16(fdl.fused_decode_loss_plain, problem, kind, confidence)
+  np.testing.assert_allclose(got[0], ref[0], rtol=1e-2)
+  for a, b in zip(got[1], ref[1]):
+    assert _rel_fro(a, b) <= 2e-2
+  again = _run_bf16(fdl.fused_decode_loss, problem, kind, confidence)
+  assert again[0] == got[0]
+  for x, y in zip(again[1], got[1]):
+    np.testing.assert_array_equal(x, y)
+  _, e0, _ = fdl._kernel_forward(h, rows, bias, padded, rm, cm, kind,
+                                 confidence, 'bfloat16', True)
+  assert e0.shape == (B, -(-W // 8) * 8) and not e0[:, W:].any()
+  if W % 8:
+    assert fdl.bf16_route(h, rows, target) == 'mma'
 
 
 def test_bf16_trainer_on_cuda_matches_cpu(cuda):
@@ -971,7 +1019,7 @@ def test_reset_training_state_keeps_the_graphs(cuda):
 def test_captured_replays_run_each_kernel_once_a_step(cuda):
   """A profile of replays (epoch 1 again, as train resumes at the current
   epoch, and epoch 2: 44 steps): each hand kernel of the bf16 packed step
-  once a step, by kernel name."""
+  once a step, by kernel name (d = 32: the wgmma decode-loss set)."""
   from torch.profiler import ProfilerActivity, profile
   data = _capture_data()
   tr = _capture_train(_capture_trainer(cuda, 'bfloat16'), data, 16,
@@ -982,9 +1030,9 @@ def test_captured_replays_run_each_kernel_once_a_step(cuda):
   assert tr.last_epoch_dispatches == 7  # every step replayed
   counts = {}
   for ev in prof.key_averages():
-    for name in ('decode_loss_fwd_bf16_kernel', 'drows_dbias_bf16_kernel',
-                 'dh_splitk_bf16_kernel', 'adam_bf16_kernel',
-                 'packed_rows_kernel'):
+    for name in ('decode_loss_fwd_bf16_wgmma_kernel',
+                 'drows_dbias_bf16_wgmma_kernel', 'dh_bf16_wgmma_kernel',
+                 'adam_bf16_kernel', 'packed_rows_kernel'):
       if name in ev.key:
         counts[name] = counts.get(name, 0) + ev.count
   assert counts == dict.fromkeys(counts, 44) and len(counts) == 5, counts
@@ -1138,10 +1186,10 @@ def test_mf_fused_route_matches_plain(cuda, dtype):
              fused_steps_per_call=1)
     launched = {k: v - before[k] for k, v in fdl.LAUNCHES.items()
                 if v != before[k]}
-    if route == 'kernel':
+    if route == 'kernel':  # (bf16, d = 64: the wgmma pair)
       names = (('fused_decode_loss_fwd', 'fused_decode_loss_bwd')
-               if dtype is None else ('fused_decode_loss_fwd_bf16',
-                                      'fused_decode_loss_bwd_bf16'))
+               if dtype is None else ('fused_decode_loss_fwd_bf16_wgmma',
+                                      'fused_decode_loss_bwd_bf16_wgmma'))
       assert launched == dict.fromkeys(names, 3), launched
     else:
       assert not launched

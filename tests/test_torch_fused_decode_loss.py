@@ -128,8 +128,8 @@ ROUTE_CASES = [
     (500, 200, 18117, torch.bfloat16, (0, 0, 0), 'mma'),     # MSD union width
     (500, 200, 20220, torch.bfloat16, (0, 0, 0), 'mma'),     # W % 8 == 4
     (500, 200, 20224, torch.float32, (0, 0, 0), 'mma'),      # float32 target
-    (37, 24, 1000, torch.bfloat16, (0, 0, 0), 'mma'),        # d not compiled
-    (480, 104, 18120, torch.bfloat16, (0, 0, 0), 'mma'),     # d not compiled
+    (37, 24, 1000, torch.bfloat16, (0, 0, 0), 'wgmma'),      # d % 8 == 0
+    (480, 104, 18120, torch.bfloat16, (0, 0, 0), 'wgmma'),   # d % 8 == 0
     (64, 256, 2048, torch.bfloat16, (0, 0, 0), 'mma'),       # no room for 1s
     (500, 200, 20224, torch.bfloat16, (0, 0, 1), 'mma'),     # target 2 B off
     (500, 200, 20224, torch.bfloat16, (0, 2, 0), 'mma'),     # rows 8 B off
@@ -137,18 +137,109 @@ ROUTE_CASES = [
 ]
 
 
+def _wgmma_rule(d, target):
+  return (d % 8 == 0 and d <= 248 and target.dtype == torch.bfloat16
+          and fdl.target_stride(target) % 8 == 0)
+
+
 @pytest.mark.parametrize('B,d,W,tdtype,offsets,route', ROUTE_CASES)
 def test_bf16_route(B, d, W, tdtype, offsets, route):
   """The shape rule between the two bf16 kernel sets: the wgmma kernels
-  where TMA can describe every operand (a bf16 target with W % 8 == 0, a
-  compiled feature width, 16-byte aligned rows and target; h goes
-  through a bf16 copy), the mma.sync kernels elsewhere."""
+  where TMA can describe every operand (a bf16 target whose row stride
+  is a multiple of 8, d % 8 == 0 up to 248, 16-byte aligned rows and
+  target; h goes through a bf16 copy), the mma.sync kernels elsewhere.
+  These targets are contiguous: their row stride is W."""
   h = _aligned((B, d), torch.float32, offsets[0])
   rows = _aligned((W, d), torch.float32, offsets[1])
   target = _aligned((B, W), tdtype, offsets[2])
   assert fdl.bf16_route(h, rows, target) == route
   if route == 'wgmma':
-    assert d in fdl.WGMMA_WIDTHS and W % 8 == 0
+    assert d in fdl.WGMMA_WIDTHS and _wgmma_rule(d, target)
+
+
+def _padded(B, W, dtype, offset=0):
+  """A ``[B, W]`` view, ``offset`` elements into a 16-byte aligned
+  buffer, of rows W rounded up to 8 elements long: the trainer's union
+  targets (``Recoder._densify_union``)."""
+  ld = -(-W // 8) * 8
+  return _aligned((B, ld), dtype, offset)[:, :W]
+
+
+#: (B, d, W, target dtype, element offsets of h / rows / target, route),
+#: the target at a row stride of round8(W)
+PADDED_ROUTE_CASES = [
+    *[(64, 200, 1000 + r, torch.bfloat16, (0, 0, 0), 'wgmma')
+      for r in range(1, 8)],                                   # W % 8 = r
+    (500, 200, 18117, torch.bfloat16, (0, 0, 0), 'wgmma'),   # MSD union
+    (500, 200, 20224, torch.bfloat16, (0, 0, 0), 'wgmma'),   # stride W
+    *[(37, d, 18117, torch.bfloat16, (0, 0, 0), 'wgmma')
+      for d in (8, 24, 104, 128, 248)],                        # the ladder
+    (37, 256, 18117, torch.bfloat16, (0, 0, 0), 'mma'),      # no room for 1s
+    (37, 100, 18117, torch.bfloat16, (0, 0, 0), 'mma'),      # d % 8 != 0
+    (37, 7, 130, torch.bfloat16, (0, 0, 0), 'mma'),          # d % 8 != 0
+    (500, 200, 18117, torch.float32, (0, 0, 0), 'mma'),      # float32
+    (500, 200, 18117, torch.bfloat16, (0, 0, 1), 'mma'),     # target 2 B off
+    (500, 200, 18117, torch.bfloat16, (0, 2, 0), 'mma'),     # rows 8 B off
+    (500, 200, 18117, torch.bfloat16, (3, 0, 0), 'wgmma'),   # h: cast
+]
+
+
+@pytest.mark.parametrize('B,d,W,tdtype,offsets,route', PADDED_ROUTE_CASES)
+def test_bf16_route_at_a_padded_row_stride(B, d, W, tdtype, offsets, route):
+  """A target at the union targets' row stride, round8(W): the wgmma
+  kernels take every W, the ladder's feature widths and no other; the
+  same target made contiguous (row stride W) goes to mma.sync when W % 8
+  != 0."""
+  h = _aligned((B, d), torch.float32, offsets[0])
+  rows = _aligned((W, d), torch.float32, offsets[1])
+  target = _padded(B, W, tdtype, offsets[2])
+  assert fdl.target_stride(target) == -(-W // 8) * 8
+  assert fdl.bf16_route(h, rows, target) == route
+  assert (route == 'wgmma') == (_wgmma_rule(d, target)
+                                and rows.data_ptr() % 16 == 0
+                                and target.data_ptr() % 16 == 0)
+  if route == 'wgmma':
+    dense = target.contiguous()
+    assert fdl.bf16_route(h, rows, dense) == ('mma' if W % 8 else 'wgmma')
+
+
+def test_target_stride():
+  """The row stride the kernels are given: that of unit-stride rows,
+  whatever their padding; None where a row is not one run."""
+  t = torch.zeros(5, 16)
+  assert fdl.target_stride(t) == 16
+  assert fdl.target_stride(t[:, :11]) == 16
+  assert fdl.target_stride(t[1:4, 3:9]) == 16
+  assert fdl.target_stride(t[:1, :11]) == 16
+  assert fdl.target_stride(t.t().contiguous().t()) is None
+  assert fdl.target_stride(t[:, ::2]) is None
+  assert fdl.target_stride(torch.zeros(1, 7).t().t()) == 7
+  assert fdl.target_stride(torch.zeros(3, 1)) == 1
+
+
+@pytest.mark.parametrize('compute_dtype', [None, 'bfloat16'])
+@pytest.mark.parametrize('kind,confidence', CASES)
+def test_plain_versions_read_a_padded_target_bitwise(kind, confidence,
+                                                     compute_dtype):
+  """The plain forward and backward (what the CPU runs) give the same
+  loss, E0 and gradients, bit for bit, from a target at a row stride of
+  round8(W) as from the same target contiguous."""
+  p = _problem(37, 24, 1001, seed=7)
+  t = _as_torch(p, torch.bfloat16 if compute_dtype else torch.float32)
+  padded = _padded(37, 1001, t['target'].dtype)
+  padded.copy_(t['target'])
+  got = {}
+  for name, target in (('contiguous', t['target']), ('padded', padded)):
+    leaves = [t[k].clone().requires_grad_(True)
+              for k in ('h', 'rows', 'bias')]
+    args = (target, t['row_mask'], t['col_mask'], kind, confidence,
+            compute_dtype)
+    loss = fdl.fused_decode_loss(*leaves, *args)
+    loss.backward()
+    _, e0 = fdl._plain_forward(*leaves, *args, True)
+    got[name] = [loss.detach(), e0] + [x.grad for x in leaves]
+  for a, b in zip(got['contiguous'], got['padded']):
+    assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def test_bf16_route_on_the_cpu_runs_the_plain_twin():

@@ -151,3 +151,31 @@ def test_densify_matches_jax():
       m[np.minimum(batch['users'].numpy(), N_USERS - 1)].toarray()[
           :, batch['items'].numpy()] * (batch['users'].numpy()
                                         < N_USERS)[:, None])
+
+
+@pytest.mark.parametrize('spare', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_densify_rows_are_padded_to_eight(dtype, spare):
+  """The densified union is a ``[B, W]`` view at a row stride of W
+  rounded up to 8 (so that a bf16 target's rows are 16-byte runs at any
+  W), equal to the dense matrix built at row stride W, zero past W; a
+  static batch's spare row is cut off the same way."""
+  m = _matrix('ratings')
+  src = DeviceDataSource(m, BATCH, BATCH, N_ITEMS, shuffle='users',
+                         device='cpu')
+  batch = src.build_union_batch(src.epoch_permutation(1), 1)
+  W = len(batch['items'])
+  assert W % 8  # (the case this covers)
+  if spare:  # a static batch: entries past its nnz land in row B
+    batch = dict(batch, width_valid=W,
+                 rows=torch.cat([batch['rows'], torch.tensor([BATCH])]),
+                 cols=torch.cat([batch['cols'], torch.tensor([0])]),
+                 vals=torch.cat([batch['vals'], torch.tensor([5.0])]))
+  got = Recoder._densify_union(batch, BATCH, W, dtype)
+  assert got.shape == (BATCH, W) and got.dtype == dtype
+  assert got.stride() == (-(-W // 8) * 8, 1)
+  old = torch.zeros((BATCH + spare, W), dtype=dtype)
+  old.index_put_((batch['rows'], batch['cols']), batch['vals'].to(dtype))
+  assert torch.equal(got, old[:BATCH])
+  base = torch.as_strided(got, (BATCH, got.stride(0)), got.stride())
+  assert not base[:, W:].any()
