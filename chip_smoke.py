@@ -619,7 +619,8 @@ def phase_build():
   spills and tensor-core instructions."""
   from concurrent.futures import ThreadPoolExecutor
 
-  from recoder_tpu_torch.kernels import BUILD_LOGS, BUILD_SECONDS
+  from recoder_tpu_torch import trace
+  from recoder_tpu_torch.kernels import BUILD_LOGS
   from recoder_tpu_torch.ops import adam
   from recoder_tpu_torch.ops import fused_decode_loss as fdl
   from recoder_tpu_torch.ops import packed_rows as pr
@@ -630,9 +631,10 @@ def phase_build():
   with ThreadPoolExecutor(max_workers=len(libs)) as pool:
     for fut in [pool.submit(lib) for lib in libs]:
       fut.result()
+  count, seconds, _ = trace.totals().get('recoder.kernel_build', (0, 0.0, 0.0))
   say(f'build: fused_decode_loss, spd_solve, row_scatter, adam and '
-      f'packed_rows in {time.time() - t0:.1f} s (nvcc of each, all at once: '
-      + ', '.join(f'{k} {v:.1f} s' for k, v in BUILD_SECONDS.items()) + ')')
+      f'packed_rows in {time.time() - t0:.1f} s (all at once: {count} nvcc '
+      f'builds, {seconds:.1f} s of recoder.kernel_build spans in all)')
   for name in ('fused_decode_loss', 'spd_solve', 'row_scatter', 'adam'):
     for line in BUILD_LOGS.get(name, '').splitlines():
       if 'registers' in line or 'spill' in line or 'Compiling' in line:

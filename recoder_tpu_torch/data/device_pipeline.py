@@ -197,6 +197,7 @@ import numpy as np
 import torch
 
 from recoder_tpu_torch import device as device_lib
+from recoder_tpu_torch import trace
 from recoder_tpu_torch.ops.packed_rows import unpack_mask, unpack_rows
 from recoder_tpu_torch.parallel import collectives
 
@@ -894,8 +895,9 @@ class DeviceDataSource:
     if full_decode and self.d_slab is not None:
       return {'perm': self.epoch_permutation(epoch)}
     if self._epoch is None or self._epoch['key'] != key:
-      staged = self._prefetched.pop(key, None)
-      self._place_epoch(key, staged or self._build_epoch(*key))
+      with trace.span('recoder.epoch_tables'):
+        staged = self._prefetched.pop(key, None)
+        self._place_epoch(key, staged or self._build_epoch(*key))
     return self._epoch['state']
 
   def _build_epoch(self, epoch, full_decode):

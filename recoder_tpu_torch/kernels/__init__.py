@@ -29,7 +29,8 @@ import hashlib
 import os
 import subprocess
 import threading
-import time
+
+from recoder_tpu_torch import trace
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), 'build',
@@ -43,8 +44,6 @@ _NAME_LOCKS = {}
 _LIBS = {}
 #: name -> the compiler's output (ptxas register / shared-memory report)
 BUILD_LOGS = {}
-#: name -> seconds its nvcc took, where this process built it
-BUILD_SECONDS = {}
 
 
 def capturing():
@@ -68,7 +67,9 @@ def _nvcc():
 
 
 def load_library(name):
-  """Build (once per process and source) and load ``<name>.cu``."""
+  """Build (once per process and source) and load ``<name>.cu``; each
+  ``nvcc`` run is a ``recoder.kernel_build`` span
+  (:mod:`recoder_tpu_torch.trace`)."""
   with _LOCK:
     lock = _NAME_LOCKS.setdefault(name, threading.Lock())
   with lock:
@@ -85,9 +86,8 @@ def load_library(name):
     if not os.path.exists(out):
       tmp = f'{out}.build.{os.getpid()}'
       cmd = [_nvcc(), *flags, '-o', tmp, src]
-      t0 = time.monotonic()
-      proc = subprocess.run(cmd, capture_output=True, text=True)
-      BUILD_SECONDS[name] = time.monotonic() - t0
+      with trace.span('recoder.kernel_build'):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
       if proc.returncode != 0:
         raise RuntimeError(f'nvcc failed building {name}.cu:\n'
                            f'{proc.stdout}{proc.stderr}')

@@ -148,7 +148,7 @@ import time
 import numpy as np
 import torch
 
-from recoder_tpu_torch import __version__, convert
+from recoder_tpu_torch import __version__, convert, trace
 from recoder_tpu_torch import device as device_lib
 from recoder_tpu_torch.checkpoint import (flatten_tree, load_checkpoint,
                                           save_checkpoint, unflatten_tree)
@@ -973,6 +973,7 @@ class Recoder:
     self._source_cache = (matrix, cfg, source, target)
     return source
 
+  @trace.span('recoder.train')
   def train(self, train_dataset, val_dataset=None, lr=0.001,
             weight_decay=0, num_epochs=1, iters_per_epoch=None,
             batch_size=64, lr_milestones=None, negative_sampling=False,
@@ -1076,131 +1077,132 @@ class Recoder:
     mesh of more than one 'data' rank, and None (or any other value)
     keeps them replicated (``DeviceDataSource``).
     """
-    if full_decode not in ('auto', True, False):
-      raise ValueError(f"full_decode={full_decode!r}: expected 'auto', "
-                       'True or False')
-    if num_sampling_users == 0:
-      num_sampling_users = batch_size
-    if num_sampling_users < batch_size or num_sampling_users % batch_size:
-      raise ValueError('number of sampling users should be a multiple of '
-                       'the batch size')
-    if num_random_negatives and not negative_sampling:
-      raise ValueError('num_random_negatives requires negative_sampling')
-    if eval_batch_size is None:
-      eval_batch_size = batch_size
-    log.info('device %s; model %s; lr %s; weight decay %s; batch %s; '
-             'optimizer %s; loss %s; lr milestones %s', self.device,
-             self.model.model_params(), lr, weight_decay, batch_size,
-             self.optimizer_type, self.loss, lr_milestones)
+    with trace.span('recoder.prepare'):
+      if full_decode not in ('auto', True, False):
+        raise ValueError(f"full_decode={full_decode!r}: expected 'auto', "
+                         'True or False')
+      if num_sampling_users == 0:
+        num_sampling_users = batch_size
+      if num_sampling_users < batch_size or num_sampling_users % batch_size:
+        raise ValueError('number of sampling users should be a multiple of '
+                         'the batch size')
+      if num_random_negatives and not negative_sampling:
+        raise ValueError('num_random_negatives requires negative_sampling')
+      if eval_batch_size is None:
+        eval_batch_size = batch_size
+      log.info('device %s; model %s; lr %s; weight decay %s; batch %s; '
+               'optimizer %s; loss %s; lr milestones %s', self.device,
+               self.model.model_params(), lr, weight_decay, batch_size,
+               self.optimizer_type, self.loss, lr_milestones)
 
-    self._init_training(train_dataset, lr, weight_decay)
-    sparse = bool(self.model.sparse_param_paths())
-    target = train_dataset.target_interactions_matrix
-    loader_kw = dict(batch_size=batch_size,
-                     negative_sampling=negative_sampling,
-                     num_sampling_users=num_sampling_users,
-                     num_workers=num_data_workers,
-                     num_random_negatives=num_random_negatives)
-    # the JAX rule: a target matrix rides the on-device source's dual
-    # CSRs in 'blocks' mode with negative sampling and no random
-    # negatives, else (and where the source declines it) the host loader
-    loader = source = None
-    fd = False
-    if target is None or (shuffle == 'blocks' and negative_sampling
-                          and not num_random_negatives):
-      try:
-        source = self._data_source(train_dataset.interactions_matrix,
-                                   batch_size, num_sampling_users, shuffle,
-                                   target, num_random_negatives,
-                                   table_sharding)
-      except FusedPipelineUnavailable as e:
-        log.info('fused pipeline unavailable (%s); using host loader', e)
-    if source is None:
-      loader = RecommendationDataLoader(_canonical_dataset(train_dataset),
-                                        seed=self.seed, **loader_kw)
-      num_batches = len(loader)
-    else:
-      num_batches = source.steps_per_epoch
-      if not negative_sampling:
-        fd = True
-      elif sparse or full_decode is False or target is not None:
-        fd = False
-      elif full_decode is True:
-        fd = True
+      self._init_training(train_dataset, lr, weight_decay)
+      sparse = bool(self.model.sparse_param_paths())
+      target = train_dataset.target_interactions_matrix
+      loader_kw = dict(batch_size=batch_size,
+                       negative_sampling=negative_sampling,
+                       num_sampling_users=num_sampling_users,
+                       num_workers=num_data_workers,
+                       num_random_negatives=num_random_negatives)
+      # the JAX rule: a target matrix rides the on-device source's dual
+      # CSRs in 'blocks' mode with negative sampling and no random
+      # negatives, else (and where the source declines it) the host loader
+      loader = source = None
+      fd = False
+      if target is None or (shuffle == 'blocks' and negative_sampling
+                            and not num_random_negatives):
+        try:
+          source = self._data_source(train_dataset.interactions_matrix,
+                                     batch_size, num_sampling_users, shuffle,
+                                     target, num_random_negatives,
+                                     table_sharding)
+        except FusedPipelineUnavailable as e:
+          log.info('fused pipeline unavailable (%s); using host loader', e)
+      if source is None:
+        loader = RecommendationDataLoader(_canonical_dataset(train_dataset),
+                                          seed=self.seed, **loader_kw)
+        num_batches = len(loader)
       else:
-        fd = self.model.num_items_padded <= 4 * source.union_width()
-      if fd:
-        if source.maybe_cache_slabs(self.model.num_items_padded,
-                                    request=slab_cache):
-          log.info('full decode from the resident %s slab',
-                   'packed' if source._slab_packed else 'dense')
+        num_batches = source.steps_per_epoch
+        if not negative_sampling:
+          fd = True
+        elif sparse or full_decode is False or target is not None:
+          fd = False
+        elif full_decode is True:
+          fd = True
         else:
-          log.info('full decode through the per-step triplet scatter (%s)',
-                   source.decline_reason or 'slab_cache=False')
+          fd = self.model.num_items_padded <= 4 * source.union_width()
+        if fd:
+          if source.maybe_cache_slabs(self.model.num_items_padded,
+                                      request=slab_cache):
+            log.info('full decode from the resident %s slab',
+                     'packed' if source._slab_packed else 'dense')
+          else:
+            log.info('full decode through the per-step triplet scatter (%s)',
+                     source.decline_reason or 'slab_cache=False')
+        else:
+          source.maybe_cache_slabs(0, request=False)
+          source.prepare_union()
+      validation = None
+      if val_dataset is not None and eval_freq > 0:
+        validation = (RecommendationDataLoader(_canonical_dataset(val_dataset),
+                                               seed=self.seed + 1, **loader_kw),
+                      eval_freq, metrics, eval_num_recommendations,
+                      eval_num_users, eval_batch_size)
+
+      # the steps that read nothing on the host (the JAX ``table_step``):
+      # every 'blocks' step of the on-device source, full decode off the
+      # resident slab, and the 'users' steps over per-epoch tables
+      tables = (source is not None and shuffle == 'users' and negative_sampling
+                and source.users_precompute)
+      device_steps = source is not None and (
+          shuffle == 'blocks' or (fd and source.d_slab is not None) or tables)
+      if fused_steps_per_call in (None, 'auto'):
+        spc = AUTO_STEPS_PER_CALL if device_steps else 1
       else:
-        source.maybe_cache_slabs(0, request=False)
-        source.prepare_union()
-    validation = None
-    if val_dataset is not None and eval_freq > 0:
-      validation = (RecommendationDataLoader(_canonical_dataset(val_dataset),
-                                             seed=self.seed + 1, **loader_kw),
-                    eval_freq, metrics, eval_num_recommendations,
-                    eval_num_users, eval_batch_size)
+        spc = max(1, int(fused_steps_per_call))
+      if profile_dir is not None:
+        spc = 1
+      on_card = self.device.type == 'cuda'
+      gloo = (self.mesh is not None
+              and torch.distributed.get_backend() != 'nccl')
+      captured = (device_steps and spc >= 2 and on_card
+                  and self.optimizer_type == 'adam' and not gloo)
+      if source is not None and negative_sampling and not device_steps:
+        log.info("the 'users' %s steps run eagerly at their exact widths, one "
+                 'dispatch a step: the JAX source builds no epoch tables for '
+                 'them (%s), and its trainer does not scan them',
+                 'triplet-scatter' if fd else 'union', source.precompute_reason)
+      elif spc >= 2 and not device_steps:
+        log.info('fused_steps_per_call=%d: the host-loader step runs eagerly, '
+                 'one dispatch a step (it reads the host; the JAX trainer '
+                 'runs it one step a call too)', spc)
+      elif spc >= 2 and not on_card:
+        log.info('fused_steps_per_call=%d: off the card the steps of a '
+                 'dispatch run eagerly, one after another', spc)
+      elif spc >= 2 and gloo:
+        log.info('fused_steps_per_call=%d: the mesh runs over gloo, whose '
+                 'collectives a CUDA graph cannot record; the steps run '
+                 'eagerly, one dispatch a step', spc)
+      elif spc >= 2 and not captured:
+        log.info("fused_steps_per_call=%d: '%s' has no capturable step; the "
+                 'steps run eagerly, one dispatch a step', spc,
+                 self.optimizer_type)
 
-    # the steps that read nothing on the host (the JAX ``table_step``):
-    # every 'blocks' step of the on-device source, full decode off the
-    # resident slab, and the 'users' steps over per-epoch tables
-    tables = (source is not None and shuffle == 'users' and negative_sampling
-              and source.users_precompute)
-    device_steps = source is not None and (
-        shuffle == 'blocks' or (fd and source.d_slab is not None) or tables)
-    if fused_steps_per_call in (None, 'auto'):
-      spc = AUTO_STEPS_PER_CALL if device_steps else 1
-    else:
-      spc = max(1, int(fused_steps_per_call))
-    if profile_dir is not None:
-      spc = 1
-    on_card = self.device.type == 'cuda'
-    gloo = (self.mesh is not None
-            and torch.distributed.get_backend() != 'nccl')
-    captured = (device_steps and spc >= 2 and on_card
-                and self.optimizer_type == 'adam' and not gloo)
-    if source is not None and negative_sampling and not device_steps:
-      log.info("the 'users' %s steps run eagerly at their exact widths, one "
-               'dispatch a step: the JAX source builds no epoch tables for '
-               'them (%s), and its trainer does not scan them',
-               'triplet-scatter' if fd else 'union', source.precompute_reason)
-    elif spc >= 2 and not device_steps:
-      log.info('fused_steps_per_call=%d: the host-loader step runs eagerly, '
-               'one dispatch a step (it reads the host; the JAX trainer '
-               'runs it one step a call too)', spc)
-    elif spc >= 2 and not on_card:
-      log.info('fused_steps_per_call=%d: off the card the steps of a '
-               'dispatch run eagerly, one after another', spc)
-    elif spc >= 2 and gloo:
-      log.info('fused_steps_per_call=%d: the mesh runs over gloo, whose '
-               'collectives a CUDA graph cannot record; the steps run '
-               'eagerly, one dispatch a step', spc)
-    elif spc >= 2 and not captured:
-      log.info("fused_steps_per_call=%d: '%s' has no capturable step; the "
-               'steps run eagerly, one dispatch a step', spc,
-               self.optimizer_type)
-
-    if iters_per_epoch is None:
-      iters_per_epoch = num_batches
-    # a partly consumed epoch carries over only into a call with the
-    # same dataset, batching and path (or the first call after a
-    # checkpoint load, which continues the checkpoint's epoch on the
-    # on-device source; the host loader's restarts, as in JAX)
-    iter_key = (train_dataset, batch_size, num_sampling_users,
-                negative_sampling, shuffle, num_random_negatives, fd,
-                loader is not None)
-    if self._train_iterator_key != iter_key:
-      if self._train_iterator_key is not _RESUMED:
-        self._iters_consumed = 0
-      self._epoch_perm = None
-      self._drop_train_iterator()
-      self._train_iterator_key = iter_key
+      if iters_per_epoch is None:
+        iters_per_epoch = num_batches
+      # a partly consumed epoch carries over only into a call with the
+      # same dataset, batching and path (or the first call after a
+      # checkpoint load, which continues the checkpoint's epoch on the
+      # on-device source; the host loader's restarts, as in JAX)
+      iter_key = (train_dataset, batch_size, num_sampling_users,
+                  negative_sampling, shuffle, num_random_negatives, fd,
+                  loader is not None)
+      if self._train_iterator_key != iter_key:
+        if self._train_iterator_key is not _RESUMED:
+          self._iters_consumed = 0
+        self._epoch_perm = None
+        self._drop_train_iterator()
+        self._train_iterator_key = iter_key
 
     try:
       self._train_epochs(source, loader, fd, sparse, negative_sampling,
@@ -1225,45 +1227,48 @@ class Recoder:
     step counter (:meth:`_device_epoch`); ``tables``, they read the
     source's 'users' epoch tables, built at each epoch's start."""
     for epoch in range(self.current_epoch, num_epochs + 1):
-      self.current_epoch = epoch
-      epoch_lr = self._lr = _multistep_lr(lr, lr_milestones, epoch)
-      set_lr(self.optimizer, epoch_lr)
-      if loader is not None:
-        if (self._train_iterator is None
-            or self._iters_consumed >= num_batches):
-          self._drop_train_iterator()
-          self._train_iterator = self._device_batch_iter(loader)
-          self._iters_consumed = 0
-      else:
-        if self._iters_consumed >= num_batches:
-          self._epoch_perm = None
-          self._iters_consumed = 0
-        if self._epoch_perm is None:
-          self._epoch_perm = source.epoch_permutation(epoch)
-        if tables:  # (a no-op where the epoch's tables are placed)
-          source.epoch_state(epoch, full_decode=fd)
-      n_steps = min(iters_per_epoch, num_batches - self._iters_consumed)
-      # (the steps read their scalars off the device: no host read)
-      if isinstance(self.optimizer, Bf16Adam):
-        self.optimizer.schedule(n_steps, capacity=num_batches)
-      if self.sparse_states:
-        self.sparse_adam.schedule(self.sparse_states.values(), epoch_lr,
-                                  n_steps, capacity=num_batches)
-      reporter = None
-      if progress:
-        desc = f'Epoch {epoch}/{num_epochs}'
-        if self._progress_reporter is None:
-          self._progress_reporter = ProgressReporter(n_steps, desc)
+      with trace.span('recoder.epoch_start'):
+        self.current_epoch = epoch
+        epoch_lr = self._lr = _multistep_lr(lr, lr_milestones, epoch)
+        set_lr(self.optimizer, epoch_lr)
+        if loader is not None:
+          if (self._train_iterator is None
+              or self._iters_consumed >= num_batches):
+            self._drop_train_iterator()
+            self._train_iterator = self._device_batch_iter(loader)
+            self._iters_consumed = 0
         else:
-          self._progress_reporter.reset(n_steps, desc)
-        reporter = self._progress_reporter
+          if self._iters_consumed >= num_batches:
+            self._epoch_perm = None
+            self._iters_consumed = 0
+          if self._epoch_perm is None:
+            self._epoch_perm = source.epoch_permutation(epoch)
+          if tables:  # (a no-op where the epoch's tables are placed)
+            source.epoch_state(epoch, full_decode=fd)
+        n_steps = min(iters_per_epoch, num_batches - self._iters_consumed)
+        # (the steps read their scalars off the device: no host read)
+        if isinstance(self.optimizer, Bf16Adam):
+          self.optimizer.schedule(n_steps, capacity=num_batches)
+        if self.sparse_states:
+          self.sparse_adam.schedule(self.sparse_states.values(), epoch_lr,
+                                    n_steps, capacity=num_batches)
+        reporter = None
+        if progress:
+          desc = f'Epoch {epoch}/{num_epochs}'
+          if self._progress_reporter is None:
+            self._progress_reporter = ProgressReporter(n_steps, desc)
+          else:
+            self._progress_reporter.reset(n_steps, desc)
+          reporter = self._progress_reporter
 
-      t0 = time.time()
+        t0 = time.time()
+        path = (not fd, sparse, negative_sampling)
+        if device_loop:
+          loop = self._start_device_epoch(source, num_batches, captured,
+                                          path)
       if device_loop:
-        losses = self._device_epoch(
-            source, n_steps, num_batches, spc, captured,
-            (not fd, sparse, negative_sampling), profile_dir, profile_steps,
-            reporter)
+        losses = self._device_epoch(loop, n_steps, spc, captured, path,
+                                    profile_dir, profile_steps, reporter)
       elif loader is not None:
         losses = self._union_epoch(
             lambda: next(self._train_iterator, None), n_steps, sparse,
@@ -1508,12 +1513,12 @@ class Recoder:
 
   # -- device-counter epochs: eager steps or captured blocks of them --------
 
-  def _device_epoch(self, source, n_steps, num_batches, spc, captured, path,
-                    profile_dir, profile_steps, reporter):
-    """``n_steps`` steps that read the device step counter -- full decode,
-    or the static 'blocks' union batches -- from ``_iters_consumed`` on,
-    in dispatches of ``spc`` (then single) steps; returns their losses.
-    ``path``: ``(union, sparse, negative_sampling)``."""
+  def _start_device_epoch(self, source, num_batches, captured, path):
+    """The host work before an epoch's first device-counter step: the
+    loop's order and counters, the noise generators positioned, and on
+    the captured path the graphs of the epoch's width signature made
+    current; returns the loop. ``path``: ``(union, sparse,
+    negative_sampling)``."""
     loop = self._device_loop
     if (loop is None or loop.source is not source
         or loop.perm.numel() != self._epoch_perm.numel()
@@ -1523,8 +1528,7 @@ class Recoder:
     loop.perm.copy_(self._epoch_perm)
     loop.step.fill_(self._iters_consumed)
     loop.global_step.fill_(self._global_step)
-    on_card = self.device.type == 'cuda'
-    if on_card:
+    if self.device.type == 'cuda':
       self._position_noise(loop, path[0])
     if captured:
       key, widths = self._graph_key(loop, path)
@@ -1536,6 +1540,15 @@ class Recoder:
         self._warm_key = (loop, path)
       if widths != self._graph_widths:
         self._switch_graphs(widths)
+    return loop
+
+  def _device_epoch(self, loop, n_steps, spc, captured, path, profile_dir,
+                    profile_steps, reporter):
+    """``n_steps`` steps that read the device step counter -- full decode,
+    or the static 'blocks' union batches -- from ``_iters_consumed`` on,
+    in dispatches of ``spc`` (then single) steps, over ``loop``
+    (:meth:`_start_device_epoch`); returns their losses."""
+    on_card = self.device.type == 'cuda'
     first = self._iters_consumed
     dispatches = 0
     remaining = n_steps
@@ -1547,15 +1560,18 @@ class Recoder:
         self._warm_up(loop, path, block)
         dispatches += block
       elif captured:
-        self._graph(block, loop, path).replay()
-        if isinstance(self.optimizer, Bf16Adam):
-          self.optimizer.note_steps(block)
-        self.sparse_adam.note_steps(block)
+        graph = self._graph(block, loop, path)
+        with trace.span('recoder.replay'):
+          graph.replay()
+          if isinstance(self.optimizer, Bf16Adam):
+            self.optimizer.note_steps(block)
+          self.sparse_adam.note_steps(block)
         dispatches += 1
       else:
         for i in range(block):
-          self._device_step(loop, path,
-                            None if on_card else self._global_step + i)
+          with trace.span('recoder.eager'):
+            self._device_step(loop, path,
+                              None if on_card else self._global_step + i)
         dispatches += block
       s = self._iters_consumed
       self._iters_consumed += block
@@ -1566,7 +1582,8 @@ class Recoder:
     self.last_epoch_dispatch = (f'captured, {spc} steps a graph' if captured
                                 else 'eager')
     self.last_epoch_dispatches = dispatches
-    return loop.losses[first:first + n_steps].tolist()
+    with trace.span('recoder.losses'):
+      return loop.losses[first:first + n_steps].tolist()
 
   def _device_step(self, loop, path, reseed_step=None):
     """One step whose batch, loss slot and step all come from the device
@@ -1655,6 +1672,7 @@ class Recoder:
       self._capture_stream = torch.cuda.Stream(device=self.device)
     return self._capture_stream
 
+  @trace.span('recoder.warm_up')
   def _warm_up(self, loop, path, n):
     """``n`` real steps, eager, on the capture stream: they create what a
     step creates lazily (optimizer state, launch plans, library
@@ -1695,36 +1713,37 @@ class Recoder:
     the capture stream (after the warm-up)."""
     entry = self._graphs.get(block)
     if entry is None:
-      if self._graph_sig is None:
-        self._graph_sig = self._graph_key(loop, path)[0]
-      bf16_adam = isinstance(self.optimizer, Bf16Adam)
-      if bf16_adam:
-        self.optimizer.begin_capture(block)
-      graph = torch.cuda.CUDAGraph()
-      graph.register_generator_state(self._dropout_gen)
-      if loop.source.neg_gen is not None:
-        graph.register_generator_state(loop.source.neg_gen)
-      # ('thread_local': the progress thread may wait on an event
-      # meanwhile; the capture checks this thread's calls. No cyclic
-      # collection meanwhile: a dead cycle that holds CUDA graphs -- a
-      # dropped trainer's -- would destroy them inside the capture, which
-      # invalidates it)
-      collecting = gc.isenabled()
-      gc.disable()
-      try:
-        with torch.cuda.graph(graph, stream=self._side_stream(),
-                              capture_error_mode='thread_local'):
-          for _ in range(block):
-            self._device_step(loop, path)
-      finally:
-        if collecting:
-          gc.enable()
-      entry = self._graphs[block] = (
-          graph, self.optimizer.end_capture() if bf16_adam else None)
-      self.captures += 1
-      log.info('captured a CUDA graph of %d %s step(s)', block,
-               ('sparse ' if path[1] else '')
-               + ('union' if path[0] else 'full-decode'))
+      with trace.span('recoder.capture'):
+        if self._graph_sig is None:
+          self._graph_sig = self._graph_key(loop, path)[0]
+        bf16_adam = isinstance(self.optimizer, Bf16Adam)
+        if bf16_adam:
+          self.optimizer.begin_capture(block)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._dropout_gen)
+        if loop.source.neg_gen is not None:
+          graph.register_generator_state(loop.source.neg_gen)
+        # ('thread_local': the progress thread may wait on an event
+        # meanwhile; the capture checks this thread's calls. No cyclic
+        # collection meanwhile: a dead cycle that holds CUDA graphs -- a
+        # dropped trainer's -- would destroy them inside the capture, which
+        # invalidates it)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+          with torch.cuda.graph(graph, stream=self._side_stream(),
+                                capture_error_mode='thread_local'):
+            for _ in range(block):
+              self._device_step(loop, path)
+        finally:
+          if collecting:
+            gc.enable()
+        entry = self._graphs[block] = (
+            graph, self.optimizer.end_capture() if bf16_adam else None)
+        self.captures += 1
+        log.info('captured a CUDA graph of %d %s step(s)', block,
+                 ('sparse ' if path[1] else '')
+                 + ('union' if path[0] else 'full-decode'))
     return entry[0]
 
   def _drop_graphs(self):
@@ -1760,21 +1779,23 @@ class Recoder:
     losses = []
     for _ in range(n_steps):
       self._maybe_profile(profile_dir, profile_steps)
-      batch = next_batch()
-      if batch is None:
-        break
-      self._iters_consumed += 1
-      if sparse:
-        loss = self._sparse_step_math(batch)
-      else:
-        loss = self._dense_step_math(batch)
+      with trace.span('recoder.eager'):  # (the batch's host work too)
+        batch = next_batch()
+        if batch is None:
+          break
+        self._iters_consumed += 1
+        if sparse:
+          loss = self._sparse_step_math(batch)
+        else:
+          loss = self._dense_step_math(batch)
       self._global_step += 1
       losses.append(loss)
       if reporter is not None:
         reporter.put(1, loss_handle(loss.view(1)))
     self.last_epoch_dispatch = 'eager'
     self.last_epoch_dispatches = len(losses)
-    return torch.stack(losses).tolist() if losses else []
+    with trace.span('recoder.losses'):
+      return torch.stack(losses).tolist() if losses else []
 
   # -- profile window ---------------------------------------------------------
 

@@ -18,6 +18,7 @@ zero); bf16 as tests/test_torch_bf16.py: losses rtol 1e-2, parameters
 within 3 lr and within 0.1 lr on average. Port against port: bitwise.
 """
 
+import json
 import logging
 import os
 import re
@@ -380,6 +381,9 @@ def test_progress_prints_through_the_fallback_printer(monkeypatch, capsys):
 
 
 def test_profile_dir_writes_a_trace_and_dispatches_single_steps(tmp_path):
+  """The trace of steps 1-2 holds their ``recoder.eager`` ranges (the
+  spans opened while the profiler ran: the call's own ``recoder.train``
+  opened before the window, and has no range there)."""
   tr = _port_run(4, True, 'users', None, num_epochs=1,
                  profile_dir=str(tmp_path), profile_steps=(1, 3))
   traces = os.listdir(tmp_path)
@@ -387,6 +391,9 @@ def test_profile_dir_writes_a_trace_and_dispatches_single_steps(tmp_path):
   assert os.path.getsize(tmp_path / traces[0]) > 0
   assert tr.last_epoch_dispatch == 'eager'
   assert tr.last_epoch_dispatches == 5  # one a step, N = 1
+  with open(tmp_path / traces[0]) as f:
+    names = [ev.get('name') for ev in json.load(f)['traceEvents']]
+  assert names.count('recoder.eager') == 2
 
 
 def test_union_steps_run_eagerly_whatever_n(caplog):

@@ -44,8 +44,8 @@ sparse and triplet-scatter steps bitwise eager (and a resume), with the
 row scatter and the wgmma decode-loss route inside the replays; the
 captured 'users' union, sparse and triplet-scatter steps over each
 epoch's tables bitwise eager across an epoch whose width signature
-changes (and a resume), and no cyclic garbage collection inside a
-capture.
+changes (and a resume), the host spans of a captured 'users' run, and
+no cyclic garbage collection inside a capture.
 
 Every test skips where ``torch.cuda.is_available()`` is False. The file
 imports neither jax nor the JAX package, so it also runs on a machine
@@ -1852,6 +1852,27 @@ def test_captured_users_steps_are_bitwise_eager(cuda, case, tmp_path):
   _union_capture_run(cuda, case, 16, resume_from=resumed, **run)
   _assert_bitwise_trainers(resumed, captured)
   _assert_bitwise_sparse_states(resumed, captured)
+
+
+def test_spans_of_a_captured_users_run(cuda):
+  """Three captured 'users' epochs of sparse union steps: one
+  ``recoder.capture`` a capture (the change in ``Recoder.captures``),
+  one ``recoder.warm_up`` a new width signature (two captures each), one
+  ``recoder.epoch_tables`` an epoch (each builds its tables), a
+  ``recoder.replay`` a replayed graph and no ``recoder.eager``."""
+  from recoder_tpu_torch import trace
+  before = trace.totals()
+  tr = _union_capture_run(cuda, 'sparse union', 16, num_epochs=3,
+                          cases=USERS_CAPTURE_CASES, shuffle='users')
+  got = {name: total[0] - before.get(name, (0,))[0]
+         for name, total in trace.totals().items()}
+  assert tr.last_epoch_dispatch == 'captured, 16 steps a graph'
+  assert got['recoder.capture'] == tr.captures >= 2
+  assert got['recoder.warm_up'] == tr.captures // 2
+  assert got['recoder.epoch_tables'] == got['recoder.epoch_start'] == 3
+  assert got['recoder.train'] == 1 and got['recoder.losses'] == 3
+  assert got['recoder.replay'] >= tr.last_epoch_dispatches - 3
+  assert got.get('recoder.eager', 0) == 0
 
 
 def test_no_cyclic_collection_inside_a_capture(cuda, monkeypatch):
