@@ -471,6 +471,16 @@ Phases, each of which raises on failure:
                 bitwise alike; at msd-big's bf16 tables and moments, the
                 seconds until save_state returns, until the commit, and of
                 the npz write.
+ 35. noised input -- (run after phase 17) the one-pass input kernel
+                (kernels/noised_input.cu: the rows L2-normalized and the
+                noise mask applied) bitwise against the plain chain at
+                ML-20M's [500, 20,224] and MSD's [500, 41,216] over binary
+                rows, the one-byte draw advancing the generator as the
+                bf16 draw; its ptxas report (a spill fails); device times
+                in turns from a cold L2 of the kernel alone, the route
+                (the draw and the kernel) and the plain chain, beside the
+                kernel's bound, and the plain chain's kernels by name. Its
+                JSON record is printed before the kernels' record.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -623,18 +633,20 @@ def phase_build():
   from recoder_tpu_torch.kernels import BUILD_LOGS
   from recoder_tpu_torch.ops import adam
   from recoder_tpu_torch.ops import fused_decode_loss as fdl
+  from recoder_tpu_torch.ops import noised_input as ni
   from recoder_tpu_torch.ops import packed_rows as pr
   from recoder_tpu_torch.ops import row_scatter as rs
   from recoder_tpu_torch.ops import spd
   t0 = time.time()
-  libs = (fdl._lib, spd._lib, rs._lib, adam._lib, pr._lib)
+  libs = (fdl._lib, spd._lib, rs._lib, adam._lib, pr._lib, ni._lib)
   with ThreadPoolExecutor(max_workers=len(libs)) as pool:
     for fut in [pool.submit(lib) for lib in libs]:
       fut.result()
   count, seconds, _ = trace.totals().get('recoder.kernel_build', (0, 0.0, 0.0))
-  say(f'build: fused_decode_loss, spd_solve, row_scatter, adam and '
-      f'packed_rows in {time.time() - t0:.1f} s (all at once: {count} nvcc '
-      f'builds, {seconds:.1f} s of recoder.kernel_build spans in all)')
+  say(f'build: fused_decode_loss, spd_solve, row_scatter, adam, '
+      f'packed_rows and noised_input in {time.time() - t0:.1f} s (all at '
+      f'once: {count} nvcc builds, {seconds:.1f} s of recoder.kernel_build '
+      'spans in all)')
   for name in ('fused_decode_loss', 'spd_solve', 'row_scatter', 'adam'):
     for line in BUILD_LOGS.get(name, '').splitlines():
       if 'registers' in line or 'spill' in line or 'Compiling' in line:
@@ -6486,6 +6498,94 @@ def orbax_on_card(card, device, matrix, work, sync, big_items):
   return out
 
 
+# -- phase 35 --------------------------------------------------------------
+
+#: the encoder's input at the benchmark's two full-decode widths (ML-20M's
+#: and MSD's padded catalogs), batch 500, noise 0.5
+NOISED_SHAPES = ((500, 20224), (500, 41216))
+
+
+def noised_input_bytes(B, W, mask_bytes=1):
+  """What the one pass must move: the rows read and z written in bf16,
+  the mask read once."""
+  return (4.0 + mask_bytes) * B * W
+
+
+def phase_noised_input(device='cuda', shapes=NOISED_SHAPES, rate=0.5):
+  """The one-pass input kernel against the plain chain at the training
+  widths (bitwise over binary rows, the one-byte draw's bits and Philox
+  offset the bf16 draw's), then device times in turns from a cold L2:
+  the kernel alone (the mask drawn before), the route (the draw and the
+  kernel) and the plain chain (its bf16 draw included), each beside the
+  kernel's bound, and the plain chain's kernels by name."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+
+  from recoder_tpu_torch.kernels import BUILD_LOGS
+  from recoder_tpu_torch.models import base
+  from recoder_tpu_torch.ops import noised_input as ni
+  ni._lib()
+  log = BUILD_LOGS.get('noised_input', '')
+  frames = ptxas_frames(log)
+  if not frames or any(v[1] or v[2] for v in frames.values()):
+    raise AssertionError(f'noised_input: register spills, or no ptxas '
+                         f'report: {frames}')
+  for func in sorted(frames):
+    say(f'  {func}: {ptxas_registers(log, func)} registers, stack frame / '
+        f'spill stores / spill loads {frames[func]} B')
+
+  # a read of 256 MB (five times L2) before each timed call: a step finds
+  # its slab rows cold; the sweep is a float64 sum, which the sums leave out
+  # (a copy would leave L2 full of dirty lines for the timed call to write
+  # back)
+  sweep = torch.ones(2 ** 25, dtype=torch.float64, device=device)
+  out = {}
+  for B, W in shapes:
+    gen = torch.Generator(device=device).manual_seed(B + W)
+    x = (torch.rand(B, W, generator=gen, device=device) < 0.004).to(
+        torch.bfloat16)
+    a = torch.Generator(device=device).manual_seed(7 << 32)
+    b = torch.Generator(device=device).manual_seed(7 << 32)
+    got = base.noised_input(x, rate, a)
+    want = ni.noised_input_plain(x, rate, b)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want) or a.get_offset() != b.get_offset():
+      raise AssertionError(f'noised_input [{B}, {W}]: differs from the plain '
+                           'chain, or its draw advanced the generator '
+                           'otherwise')
+    mask = torch.empty((B, W), dtype=ni.MASK_DTYPE,
+                       device=device).bernoulli_(1 - rate, generator=a)
+    fns = {'kernel': lambda: ni.noised_input_kernel(x, rate, mask),
+           'route': lambda: base.noised_input(x, rate, a),
+           'plain': lambda: ni.noised_input_plain(x, rate, b)}
+    runs = {name: [] for name in fns}
+    for name in ('plain', 'kernel', 'route', 'route', 'kernel', 'plain'):
+      runs[name].append(device_ms(fns[name], between=sweep.sum,
+                                  skip='ReduceOp<double'))
+    times = {name: statistics.mean(v) for name, v in runs.items()}
+    nbytes = noised_input_bytes(B, W)
+    b_ms, by = bound(0.0, nbytes)
+    sweep.sum()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      settle_profiler()
+      for _ in range(10):
+        fns['plain']()
+      torch.cuda.synchronize()
+    chain = [(ms / 10, n / 10, name[:90]) for ms, n, name in
+             device_rows(prof.key_averages())]
+    say(f'  [{B}, {W}], noise {rate}, from a cold L2, device time (profiler, '
+        f'20 calls, in turns): kernel {times["kernel"]:.4f} ms, route (the '
+        f'one-byte draw and the kernel) {times["route"]:.4f} ms, plain chain '
+        f'{times["plain"]:.4f} ms; bound {b_ms:.4f} ms ({by}: '
+        f'{nbytes / 1e6:.2f} MB); kernel at {100 * b_ms / times["kernel"]:.1f}'
+        '% of it; the plain chain a call: '
+        + '; '.join(f'{name} {ms:.4f} ms x{n:g}' for ms, n, name in chain))
+    out[f'{B}x{W}'] = dict(times, bound_ms=b_ms, bound_by=by,
+                           share=b_ms / times['kernel'],
+                           plain_kernels=chain)
+  return out
+
+
 def run(name, fn, *args, **kwargs):
   say(f'== phase {name}')
   t0 = time.time()
@@ -6585,6 +6685,7 @@ def main():
   del matrix
   bf16_quality = run('16 bf16 quality', phase_bf16_quality, train_m, val_m)
   packed_times, packed_bound = run('17 packed kernel', phase_packed_kernel)
+  noised = run('35 noised input', phase_noised_input)
   (msd_dense_launches, msd_dense_first, msd_dense_rates,
    msd_dense_profile, msd_cell) = run('18 msd dense', phase_msd_dense, msd,
                                       train_m)
@@ -6995,6 +7096,7 @@ def main():
       f'{scripts["orbax"]["commit_s"]:.3f} s, npz '
       f'{scripts["orbax"]["npz_s"]:.3f} s'
       + f'; card {card}')
+  say(json.dumps({'noised_input': noised}))
   say(json.dumps({'kernels': kernels}))
   say(card)
   say(json.dumps({'ok': True, 'device': {

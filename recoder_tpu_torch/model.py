@@ -1634,10 +1634,11 @@ class Recoder:
 
   def _noise_increment(self, loop, union):
     """The Philox offset one step's noise draws take: a training forward
-    of the step's shapes from a scratch generator (no hand kernel runs in
-    it; every draw of the step -- a dropout mask, a Mult-VAE's eps -- is
-    in it). A union step's input spans the static union's width, a
-    full-decode step's the padded catalog: each layout is probed."""
+    of the step's shapes from a scratch generator, down the step's own
+    routes (the input's mask is drawn where the ``noised_input`` kernel's
+    route draws it; every draw of the step -- a dropout mask, a Mult-VAE's
+    eps -- is in it). A union step's input spans the static union's width,
+    a full-decode step's the padded catalog: each layout is probed."""
     probe = torch.Generator(device=self.device)
     probe.manual_seed(0)
     B = loop.source.batch_size

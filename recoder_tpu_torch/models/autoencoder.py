@@ -53,9 +53,8 @@ from torch import nn
 from recoder_tpu_torch.models.base import (FactorizationModel, activation,
                                            check_params_dtype, coo_encode,
                                            default_compute_dtype, dropout,
-                                           l2_normalize_rows,
-                                           linear, pad_dim, take_table_rows,
-                                           xavier_uniform)
+                                           linear, noised_input, pad_dim,
+                                           take_table_rows, xavier_uniform)
 from recoder_tpu_torch.ops.gather_matmul import (as_dtype, decode_matmul,
                                                   encode_matmul,
                                                   matmul_f32_out)
@@ -262,10 +261,9 @@ class DynamicAutoencoder(FactorizationModel):
              else rows.shape[0])
     if input.shape[1] < width:
       input = nn.functional.pad(input, (0, width - input.shape[1]))
-    z = l2_normalize_rows(input)
     draw_rows = None if shard is None else shard.draw_rows
-    if training and self.noise_prob > 0:
-      z = dropout(z, self.noise_prob, generator, rows=draw_rows)
+    z = noised_input(input, self.noise_prob if training else 0.0, generator,
+                     rows=draw_rows)
     if shard is None:
       z = encode_matmul(z, rows, self.en_bias, cd)
     else:

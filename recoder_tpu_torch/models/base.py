@@ -14,7 +14,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from recoder_tpu_torch.ops import noised_input as ni
 from recoder_tpu_torch.ops.gather_matmul import row_sums, take_rows
+# (the plain chain's two steps; the bottleneck and MF dropouts use dropout)
+from recoder_tpu_torch.ops.noised_input import dropout, l2_normalize_rows
 
 
 LANE_ALIGN = 256
@@ -49,14 +52,6 @@ def xavier_uniform(shape, fan_in, fan_out, generator=None):
   limit = math.sqrt(6.0 / (fan_in + fan_out))
   return torch.empty(shape, dtype=torch.float32).uniform_(
       -limit, limit, generator=generator)
-
-
-def l2_normalize_rows(x, eps=1e-12):
-  """Row-wise L2 normalize, as ``torch.nn.functional.normalize(p=2,
-  dim=1)``; the squared sum accumulates in float32."""
-  sq = torch.sum(torch.square(x.float()), dim=1, keepdim=True)
-  norm = torch.clamp(torch.sqrt(sq), min=eps)
-  return x / norm.to(x.dtype)
 
 
 def linear(z, w, bias, compute_dtype=None):
@@ -139,24 +134,26 @@ def take_table_rows(model, path, ids, shard=None):
           else shard.take(path, table, ids))
 
 
-def dropout(x, rate, generator=None, keep_mask=None, rows=None):
-  """Inverted dropout (``torch.nn.Dropout`` train-mode scaling).
+def noised_input(x, rate, generator=None, keep_mask=None, rows=None):
+  """The encoder's input: ``x``'s rows L2-normalized, then the noise
+  (inverted dropout at ``rate``; 0: the normalization alone), as
+  ``dropout(l2_normalize_rows(x), rate, generator, keep_mask, rows)``.
 
-  The keep mask is drawn from ``generator`` (on ``x``'s device) unless
-  ``keep_mask`` is given; tests pass one to feed both frameworks the
-  same mask. ``rows = (lo, hi, n)``: ``x`` is rows ``[lo, hi)`` of an
-  ``n``-row batch (a mesh rank's users), and the mask is those rows of
-  the whole batch's draw, the mask a single device draws.
-  """
-  keep = 1.0 - rate
-  if keep_mask is None and rows is not None:
-    lo, hi, n = rows
-    keep_mask = torch.empty((n, *x.shape[1:]), dtype=x.dtype,
-                            device=x.device).bernoulli_(
-                                keep, generator=generator)[lo:hi]
-  elif keep_mask is None:
-    keep_mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
-  return torch.where(keep_mask.bool(), x / keep, torch.zeros_like(x))
+  bf16 rows on the card outside a mesh (``rows`` None) take the
+  ``noised_input`` kernel, one pass; the mask is drawn as the plain chain
+  draws it, over the whole ``[B, W]`` from ``generator`` (one byte an
+  element: the same bits and Philox offset as the bf16 draw), or is the
+  given ``keep_mask``. Everything else (float32 rows, a mesh rank's rows,
+  the CPU) takes the plain chain."""
+  if rows is None and ni.takes(x):
+    if rate > 0 and keep_mask is None:
+      keep_mask = torch.empty(x.shape, dtype=ni.MASK_DTYPE,
+                              device=x.device).bernoulli_(
+                                  1.0 - rate, generator=generator)
+    elif rate > 0:
+      keep_mask = keep_mask.bool()
+    return ni.noised_input_kernel(x, rate, keep_mask if rate > 0 else None)
+  return ni.noised_input_plain(x, rate, generator, keep_mask, rows)
 
 
 class FactorizationModel(nn.Module):

@@ -46,8 +46,7 @@ import torch
 from torch import nn
 
 from recoder_tpu_torch.models.base import (FactorizationModel, activation,
-                                           coo_encode, dropout,
-                                           l2_normalize_rows, linear,
+                                           coo_encode, linear, noised_input,
                                            pad_dim, take_table_rows,
                                            xavier_uniform)
 from recoder_tpu_torch.ops.gather_matmul import (as_dtype, decode_matmul,
@@ -183,9 +182,8 @@ class MultVAE(FactorizationModel):
     the noise is the whole batch's and the encode's partial products are
     added over 'model'."""
     draw_rows = None if shard is None else shard.draw_rows
-    z = l2_normalize_rows(input)
-    if training and self.dropout_prob > 0:
-      z = dropout(z, self.dropout_prob, generator, keep_mask, draw_rows)
+    z = noised_input(input, self.dropout_prob if training else 0.0,
+                     generator, keep_mask, draw_rows)
     if shard is None:
       z = encode_matmul(z, en_rows, self.en_bias, cd)
     else:
