@@ -147,8 +147,8 @@ Phases, each of which raises on failure:
                 weight decay 2e-5, batch 500, negative sampling, block
                 shuffle, slab_cache='auto', full_decode='auto'): full
                 decode chosen, 'auto' on the 1-bit tier (the bf16 slab
-                exceeds half the card), the unpack kernel and the Adam
-                kernel once a step; one epoch, a steady epoch, a profile
+                exceeds half the card), the unpack, the Adam and the
+                multinomial loss kernels once a step; one epoch, a steady epoch, a profile
                 of steady steps, all eager as in phase 4. Then 20 fixture
                 steps from the packed and from the dense tier with one
                 seed, in both shuffles: the losses and parameters bitwise
@@ -233,9 +233,11 @@ Phases, each of which raises on failure:
                 (negative_sampling=False), logloss, bf16 compute and
                 moments at the ML-20M shape: 2 epochs captured and eager
                 bitwise equal while beta = step / 2,000 changes inside the
-                graphs; an eager epoch (Adam once a step) and the captured
-                cell as in phase 23; 20 steps of MultVAE(sparse=True)
-                (two row-scatter launches a step) against the plain path;
+                graphs; an eager epoch (Adam and the multinomial loss pair
+                once a step) and the captured cell as in phase 23; 20 steps
+                of MultVAE(sparse=True) (two row-scatter launches and the
+                loss pair a step) against the plain path (the loss's
+                elementwise chain);
                 tests/test_multvae.py's fixture gate (Recall@20 > 0.135,
                 NDCG@100 > 0.160) with evaluate_vae_protocol's summary, and
                 a checkpoint reload.
@@ -481,6 +483,22 @@ Phases, each of which raises on failure:
                 (the draw and the kernel) and the plain chain, beside the
                 kernel's bound, and the plain chain's kernels by name. Its
                 JSON record is printed before the kernels' record.
+ 36. multinomial loss -- (run after phase 35) the softmax NLL kernel
+                pair (kernels/multinomial_loss.cu) against the plain chain
+                summed at Mult-VAE's [500, 20,224] and MSD's [500, 41,216]
+                over bf16 scores and a binary bf16 target (the loss to 1e-5
+                relative, the bf16 gradient element by element: one ulp,
+                or the float32 cancellation of its two terms); its ptxas
+                report (a spill fails); device times in turns from a cold
+                L2 of the forward alone, of the pair (forward and
+                backward), of the plain chain and of PyTorch's
+                cross-entropy on probability targets (each with its
+                autograd backward, and forward alone), beside the pair's
+                bound, and the plain chain's kernels by name. Its JSON
+                record is printed after phase 35's; the kernels' record
+                holds mnll_fwd and mnll_bwd (Mult-VAE's paths; the logloss
+                phases 18, 24, 26 (d), 27, 28 (b), 29 and 30 expect the
+                pair once a step).
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -522,6 +540,8 @@ SOURCES = {
         'recoder_tpu_torch/kernels/fused_decode_loss.cu',
     'adam_bf16': 'recoder_tpu_torch/kernels/adam.cu',
     'packed_rows': 'recoder_tpu_torch/kernels/packed_rows.cu',
+    'mnll_fwd': 'recoder_tpu_torch/kernels/multinomial_loss.cu',
+    'mnll_bwd': 'recoder_tpu_torch/kernels/multinomial_loss.cu',
 }
 REPLACES = {
     'fused_decode_loss_fwd': 'recoder_tpu/experiments/pallas_loss.py:145',
@@ -538,6 +558,9 @@ REPLACES = {
     'adam_bf16': 'recoder_tpu/optim.py:157',
     # no Pallas ancestor: the packed tier's row fetch and _unpack_rows
     'packed_rows': 'recoder_tpu/data/device_pipeline.py:779',
+    # no Pallas ancestor: the JAX multinomial_nll_loss, which XLA fuses
+    'mnll_fwd': 'recoder_tpu/ops/losses.py:69',
+    'mnll_bwd': 'recoder_tpu/ops/losses.py:69',
 }
 #: reference values pinned in tests/test_model.py (atol 0.01)
 PINNED = {'Recall@20': 0.1417, 'Recall@50': 0.2393, 'NDCG@100': 0.1684}
@@ -553,6 +576,13 @@ BF16_ROUTE_COUNTERS = {
     'mma': ('fused_decode_loss_fwd_bf16', 'fused_decode_loss_bwd_bf16'),
     'wgmma': ('fused_decode_loss_fwd_bf16_wgmma',
               'fused_decode_loss_bwd_bf16_wgmma')}
+#: a logloss step's multinomial loss pair, by counter: once a step each
+MNLL_STEP = {'mnll_fwd': 1, 'mnll_bwd': 1}
+#: the hand kernels of Mult-VAE's bf16 step, by counter
+MULTVAE_STEP = ('adam_bf16', *MNLL_STEP)
+#: the pair's kernels by their names in a profile: the forward, its
+#: one-block combine and the backward, each once a step
+MNLL_KERNELS = ('mnll_fwd_kernel', 'mnll_finish_kernel', 'mnll_bwd_kernel')
 #: published peaks of one H100 SXM: TF32 tensor cores (the fastest rate
 #: at which it takes float32 operands), bf16 tensor cores (dense) and HBM3
 PEAK_FLOPS = 495e12
@@ -633,18 +663,20 @@ def phase_build():
   from recoder_tpu_torch.kernels import BUILD_LOGS
   from recoder_tpu_torch.ops import adam
   from recoder_tpu_torch.ops import fused_decode_loss as fdl
+  from recoder_tpu_torch.ops import multinomial_loss as mnl
   from recoder_tpu_torch.ops import noised_input as ni
   from recoder_tpu_torch.ops import packed_rows as pr
   from recoder_tpu_torch.ops import row_scatter as rs
   from recoder_tpu_torch.ops import spd
   t0 = time.time()
-  libs = (fdl._lib, spd._lib, rs._lib, adam._lib, pr._lib, ni._lib)
+  libs = (fdl._lib, spd._lib, rs._lib, adam._lib, pr._lib, ni._lib,
+          mnl._lib)
   with ThreadPoolExecutor(max_workers=len(libs)) as pool:
     for fut in [pool.submit(lib) for lib in libs]:
       fut.result()
   count, seconds, _ = trace.totals().get('recoder.kernel_build', (0, 0.0, 0.0))
   say(f'build: fused_decode_loss, spd_solve, row_scatter, adam, '
-      f'packed_rows and noised_input in {time.time() - t0:.1f} s (all at '
+      f'packed_rows, noised_input and multinomial_loss in {time.time() - t0:.1f} s (all at '
       f'once: {count} nvcc builds, {seconds:.1f} s of recoder.kernel_build '
       'spans in all)')
   for name in ('fused_decode_loss', 'spd_solve', 'row_scatter', 'adam'):
@@ -1074,9 +1106,10 @@ def load_fixture():
 def _launch_counts():
   from recoder_tpu_torch.ops import adam
   from recoder_tpu_torch.ops import fused_decode_loss as fdl
+  from recoder_tpu_torch.ops import multinomial_loss as mnl
   from recoder_tpu_torch.ops import packed_rows as pr
   from recoder_tpu_torch.ops import row_scatter as rs
-  return fdl.LAUNCHES, adam.LAUNCHES, pr.LAUNCHES, rs.LAUNCHES
+  return fdl.LAUNCHES, adam.LAUNCHES, pr.LAUNCHES, rs.LAUNCHES, mnl.LAUNCHES
 
 
 def reset_launches():
@@ -2407,12 +2440,13 @@ def phase_msd_dense(msd, train_m, device='cuda', epochs_timed=1):
   first_call_s = time.time() - t0
   counts = read_launches()
   steps = -(-msd.shape[0] // 500)
-  kernels = ('packed_rows', 'adam_bf16')
+  kernels = ('packed_rows', 'adam_bf16', *MNLL_STEP)
   launches = {k: counts[k] for k in kernels}
   others = {k: v for k, v in counts.items() if k not in kernels and v}
   if any(v != steps for v in launches.values()) or others:
     raise AssertionError(f'{steps} steps launched {counts}: expected the '
-                         'unpack and Adam kernels once a step, no other')
+                         'unpack, Adam and loss kernels once a step, no '
+                         'other')
 
   source = trainer.fused_data_source
   W = trainer.model.num_items_padded
@@ -2508,7 +2542,7 @@ CELL_KERNELS = {
               'drows_dbias_bf16_wgmma_kernel', 'dh_bf16_wgmma_kernel',
               'adam_bf16_kernel', 'decode_loss_fwd_bf16', 'drows_dbias_bf16',
               ('dh_splitk_bf16', 'dh_bf16_wgmma')),
-    'msd': ('packed_rows_kernel', 'adam_bf16_kernel'),
+    'msd': ('packed_rows_kernel', 'adam_bf16_kernel', *MNLL_KERNELS),
 }
 #: the kernels of the float32 fixture step (dense tier, mse)
 FIXTURE_F32_KERNELS = ('decode_loss_fwd_kernel', 'drows_dbias_kernel',
@@ -2904,8 +2938,10 @@ def compare_losses(kernel, plain, rtol, what):
 def plain_trainer_run(trainer, dataset, steps, kw):
   """``steps`` steps of ``trainer`` with every kernel but the decode-loss
   ones (which a plain ``MSELoss`` bypasses) replaced by its plain twin:
-  the bf16-moment Adam step, the row scatter and the packed-slab fetch."""
+  the bf16-moment Adam step, the row scatter, the packed-slab fetch and
+  the multinomial loss pair (its elementwise chain)."""
   from recoder_tpu_torch.ops import adam as adam_ops
+  from recoder_tpu_torch.ops import multinomial_loss as mnl
   from recoder_tpu_torch.ops import packed_rows as pr
   from recoder_tpu_torch.ops import row_scatter as rs
 
@@ -2919,7 +2955,8 @@ def plain_trainer_run(trainer, dataset, steps, kw):
   reset_launches()
   with mock.patch.object(adam_ops, 'adam_bf16_kernel_table', plain_adam), \
       mock.patch.object(rs, 'row_scatter_kernel', rs.row_scatter_plain), \
-      mock.patch.object(pr, 'unpack_rows_kernel', pr.unpack_rows_plain):
+      mock.patch.object(pr, 'unpack_rows_kernel', pr.unpack_rows_plain), \
+      mock.patch.object(mnl, 'takes', lambda *args, **kwargs: False):
     trainer.train(dataset, num_epochs=1, iters_per_epoch=steps,
                   **dict(kw, fused_steps_per_call=1))
   if any(read_launches().values()):
@@ -3189,7 +3226,7 @@ CELL_KERNELS.update({
     'mf': ('decode_loss_fwd_bf16_wgmma_kernel',
            'drows_dbias_bf16_wgmma_kernel', 'dh_bf16_wgmma_kernel',
            'adam_bf16_kernel'),
-    'multvae': ('adam_bf16_kernel',),
+    'multvae': ('adam_bf16_kernel', *MNLL_KERNELS),
 })
 
 
@@ -3351,17 +3388,19 @@ def phase_multvae(matrix, train_m, val_m, device='cuda'):
       f'and moments bitwise equal')
   del runs
   trainer = make('bfloat16')
-  counts, _ = eager_epoch(trainer, dataset, MULTVAE_TRAIN, ('adam_bf16',))
-  per_step['multvae'] = {'adam_bf16': counts['adam_bf16']
-                         / trainer.fused_data_source.steps_per_epoch}
+  counts, _ = eager_epoch(trainer, dataset, MULTVAE_TRAIN, MULTVAE_STEP)
+  per_step['multvae'] = {k: counts[k]
+                         / trainer.fused_data_source.steps_per_epoch
+                         for k in MULTVAE_STEP}
   cell = capture_cell('multvae', trainer, dataset, MULTVAE_TRAIN,
                       'ml20m_multvae_user_batches_per_sec',
                       ('captured', 'eager', 'eager', 'captured'))
   del trainer
   per_step['multvae_sparse'] = family_paths(
       dataset, make(sparse=True), make(sparse=True),
-      dict(MULTVAE_TRAIN, negative_sampling=True), {'row_scatter': 2},
-      PATHS_RTOL, 'sparse tables (union, float32)',
+      dict(MULTVAE_TRAIN, negative_sampling=True),
+      {'row_scatter': 2, **MNLL_STEP}, PATHS_RTOL,
+      'sparse tables (union, float32)',
       tables=('en_embedding', 'de_embedding'))
 
   train_ds, val_ds = (RecommendationDataset(train_m),
@@ -3385,7 +3424,7 @@ def phase_multvae(matrix, train_m, val_m, device='cuda'):
     raise AssertionError(f'Mult-VAE under its floors: {misses}')
   reload_metrics(tr, lambda: Recoder(MultVAE(), device=device), val_ds,
                  metrics, means)
-  return per_step, cell, {**means, **summary}
+  return per_step, cell, {**means, **summary}, counts
 
 
 def phase_ease(matrix, train_m, val_m, device='cuda', lam=200.0):
@@ -3658,8 +3697,9 @@ def phase_negatives_msd(msd):
   dataset = RecommendationDataset(msd)
   kw = dict(MSD_TRAIN, **NEGATIVES)
   trainer = make()
-  per_step = family_paths(dataset, trainer, make(), kw, {'row_scatter': 2},
-                          PATHS_RTOL, '(d) MSD sparse, mega 2000, R 1000')
+  per_step = family_paths(dataset, trainer, make(), kw,
+                          {'row_scatter': 2, **MNLL_STEP}, PATHS_RTOL,
+                          '(d) MSD sparse, mega 2000, R 1000')
   rate = 20 / trainer.last_epoch_seconds
   widths = union_widths(trainer)
   n_rows = trainer.model.params()['en_embedding'].shape[0]
@@ -3759,8 +3799,9 @@ def phase_msd_big(train_m, val_in, val_tg, device='cuda'):
 
   train_ds = RecommendationDataset(train_m)
   kernel, plain = make(), make()
-  family_paths(train_ds, kernel, plain, MSD_BIG_TRAIN, {'row_scatter': 2},
-               BF16_PATHS_RTOL, '(a) msd-big step', tables=(
+  family_paths(train_ds, kernel, plain, MSD_BIG_TRAIN,
+               {'row_scatter': 2, **MNLL_STEP}, BF16_PATHS_RTOL,
+               '(a) msd-big step', tables=(
                    'en_embedding', 'de_embedding'))
   widths = union_widths(kernel)
   n_rows = kernel.model.params()['en_embedding'].shape[0]
@@ -3782,9 +3823,14 @@ def phase_msd_big(train_m, val_in, val_tg, device='cuda'):
   call_s = time.time() - t0
   counts = {k: v for k, v in read_launches().items() if v}
   steps = len(trainer.last_epoch_losses)
-  if steps != -(-MSD_BIG_USERS // 500) or counts != {'row_scatter': 2 * steps}:
-    raise AssertionError(f'(a) {steps} steps launched {counts}: expected '
-                         'two row-scatter launches a step, nothing else')
+  # (the validation's batches, over their unions, take the loss's forward)
+  n_val = len(RecommendationDataLoader(val_ds, batch_size=500,
+                                       negative_sampling=True))
+  want = {'row_scatter': 2 * steps, 'mnll_fwd': steps + n_val,
+          'mnll_bwd': steps}
+  if steps != -(-MSD_BIG_USERS // 500) or counts != want:
+    raise AssertionError(f'(a) {steps} steps and {n_val} validation batches '
+                         f'launched {counts}: expected {want}')
   losses = np.asarray(trainer.last_epoch_losses)
   if not (np.all(np.isfinite(losses))
           and losses[-20:].mean() < losses[:20].mean()):
@@ -3795,7 +3841,8 @@ def phase_msd_big(train_m, val_in, val_tg, device='cuda'):
   say(f'  (a) 1 epoch of {steps} steps: {MSD_BIG_RATE} {rate:.2f} (the '
       f'train call with its validation {call_s:.1f} s); loss first 20 steps '
       f'{losses[:20].mean():.4f}, last 20 {losses[-20:].mean():.4f}; '
-      f'row_scatter {counts["row_scatter"]} launches (2 a step); union '
+      f'row_scatter {counts["row_scatter"]} launches (2 a step), the loss\'s '
+      f'pair {counts["mnll_fwd"]} / {counts["mnll_bwd"]}; union '
       f'widths mean {widths.mean():.1f}, min {widths.min()}, max '
       f'{widths.max()} over {len(widths)} blocks; peak device memory '
       f'{peak:.2f} GiB')
@@ -4030,7 +4077,7 @@ def phase_full_catalog_sparse(msd, device='cuda'):
   kw = dict(MSD_TRAIN, negative_sampling=False)
   trainer = make()
   per_step = family_paths(RecommendationDataset(msd), trainer, make(), kw,
-                          {'packed_rows': 1}, PATHS_RTOL,
+                          {'packed_rows': 1, **MNLL_STEP}, PATHS_RTOL,
                           '(d) MSD full-catalog sparse step',
                           tables=('en_embedding', 'de_embedding'))
   rate = 20 / trainer.last_epoch_seconds
@@ -4357,7 +4404,7 @@ def phase_storage_msd_big(train_m, device='cuda', steps=60):
   train_ds = RecommendationDataset(train_m)
   kernel, plain = make(), make()
   per_step = family_paths(train_ds, kernel, plain, MSD_BIG_TRAIN,
-                          {'row_scatter': 2, 'adam_bf16': 1},
+                          {'row_scatter': 2, 'adam_bf16': 1, **MNLL_STEP},
                           BF16_PATHS_RTOL, '(b) msd-big, bf16 storage',
                           tables=('en_embedding', 'de_embedding'))
   del plain
@@ -4487,9 +4534,11 @@ def phase_storage_scoring(device='cuda', reference_users=100):
 #: the hand kernels of each phase-29 cell and their launches a step, by the
 #: names in a profile: counted inside 32 replayed steps and 32 eager ones
 UNION_CELLS = {
-    'msd_big_bf16': {'row_scatter_kernel': 2, 'adam_bf16_kernel': 1},
-    'msd_sparse': {'row_scatter_kernel': 2},
-    'msd_full_catalog_sparse': {'packed_rows_kernel': 1},
+    'msd_big_bf16': {'row_scatter_kernel': 2, 'adam_bf16_kernel': 1,
+                     **dict.fromkeys(MNLL_KERNELS, 1)},
+    'msd_sparse': {'row_scatter_kernel': 2, **dict.fromkeys(MNLL_KERNELS, 1)},
+    'msd_full_catalog_sparse': {'packed_rows_kernel': 1,
+                                **dict.fromkeys(MNLL_KERNELS, 1)},
     'ml20m_target_bf16': {'decode_loss_fwd_bf16_wgmma_kernel': 1,
                           'drows_dbias_bf16_wgmma_kernel': 1,
                           'adam_bf16_kernel': 1},
@@ -4508,7 +4557,8 @@ PROFILE_NAMES = {'row_scatter_kernel': 'row_scatter',
                  'decode_loss_fwd_bf16_wgmma_kernel':
                      'fused_decode_loss_fwd_bf16_wgmma',
                  'drows_dbias_bf16_wgmma_kernel':
-                     'fused_decode_loss_bwd_bf16_wgmma'}
+                     'fused_decode_loss_bwd_bf16_wgmma',
+                 'mnll_fwd_kernel': 'mnll_fwd', 'mnll_bwd_kernel': 'mnll_bwd'}
 
 
 def _state_tensors(trainer):
@@ -6586,6 +6636,180 @@ def phase_noised_input(device='cuda', shapes=NOISED_SHAPES, rate=0.5):
   return out
 
 
+# -- phase 36 --------------------------------------------------------------
+
+#: the multinomial loss at Mult-VAE's ML-20M width and at MSD's, batch 500,
+#: with the logical catalogs' column masks
+MNLL_SHAPES = ((500, 20224, 20108), (500, 41216, 41140))
+
+
+def mnll_bytes(B, W, elem=2):
+  """What the pair must move: the scores and the target read by each
+  pass, the gradient written once (the masks and [B] statistics aside)."""
+  return {'fwd': 2.0 * elem * B * W, 'pair': 5.0 * elem * B * W}
+
+
+def mnll_library(s, t, rm, cm):
+  """The same sum by PyTorch's own softmax cross-entropy on probability
+  targets, in float32 as the configuration computes the loss: the masked
+  columns at -1e30 (out of the normalizer), the target weighted by both
+  masks; its backward is the library's too."""
+  import torch
+  import torch.nn.functional as F
+  logits = torch.where(cm.bool()[None, :], s.float(), -1e30)
+  return F.cross_entropy(logits, t.float() * rm[:, None] * cm[None, :],
+                         reduction='sum')
+
+
+def mnll_grad_gaps(got, want, s, t, rm, cm, go):
+  """The bf16 gradient ``got`` against the plain chain's ``want``, element
+  by element: within one bf16 ulp of the larger, but where the float32
+  difference of the gradient's two terms (go rm T p and go rm cm t)
+  cancels: there within 2^-19 of the terms' size (exp(s - m - log z) after
+  the subtraction of a log z up to ~11, rounded twice) and an ulp. Returns
+  the share of elements outside one ulp and the largest gap over its
+  allowance (at most 1); raises where an element is outside."""
+  import torch
+  g, w = got.double(), want.double()
+  diff = (g - w).abs()
+  e = torch.floor(torch.log2(torch.maximum(g.abs(), w.abs()).clamp(
+      min=2.0 ** -126)))
+  ulp = torch.exp2(e - 7)
+  s64, t64, cm64 = s.double(), t.double(), cm.double()
+  p = torch.softmax(torch.where(cm.bool()[None, :], s64, -torch.inf), dim=1)
+  T = torch.sum(cm64[None, :] * t64, dim=1, keepdim=True)
+  c = float(go) * rm.double()[:, None]
+  terms = (c * T * p).abs() + (c * cm64[None, :] * t64).abs()
+  allowed = torch.where(diff <= ulp, ulp, 2.0 ** -19 * terms + ulp)
+  worst = float((diff / allowed).max())
+  if not worst <= 1.0:
+    raise AssertionError(f'{int((diff > allowed).sum())} gradient elements '
+                         f'outside their allowance (worst {worst:.3g} of it)')
+  return float((diff > ulp).double().mean()), worst
+
+
+def phase_multinomial_loss(device='cuda', shapes=MNLL_SHAPES):
+  """The softmax NLL kernel pair against the plain chain summed at the
+  two training widths (bf16 scores ~N(0, 2), a binary bf16 target of ~80
+  items a row, the logical catalog's column mask): the loss to 1e-5
+  relative, the bf16 gradient element by element (``mnll_grad_gaps``);
+  then device times in turns from a cold L2: the forward alone (its
+  combine included), the pair (forward and backward, the upstream gradient
+  given), the plain chain with its autograd backward and PyTorch's own
+  cross-entropy on probability targets (``mnll_library``), the last two
+  also forward alone, each beside the pair's bound, and the plain chain's
+  kernels by name."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+
+  from recoder_tpu_torch.kernels import BUILD_LOGS
+  from recoder_tpu_torch.ops import multinomial_loss as mnl
+  mnl._lib()
+  log = BUILD_LOGS.get('multinomial_loss', '')
+  frames = ptxas_frames(log)
+  if not frames or any(v[1] or v[2] for v in frames.values()):
+    raise AssertionError(f'multinomial_loss: register spills, or no ptxas '
+                         f'report: {frames}')
+  for func in sorted(frames):
+    say(f'  {func}: {ptxas_registers(log, func)} registers, stack frame / '
+        f'spill stores / spill loads {frames[func]} B')
+
+  # as phase 35: a 256 MB float64 sum before each timed call
+  sweep = torch.ones(2 ** 25, dtype=torch.float64, device=device)
+  out = {}
+  for B, W, logical in shapes:
+    gen = torch.Generator(device=device).manual_seed(B + W)
+    s = (2 * torch.randn(B, W, generator=gen, device=device)).to(
+        torch.bfloat16)
+    t = (torch.rand(B, W, generator=gen, device=device) < 0.004).to(
+        torch.bfloat16)
+    rm = torch.ones(B, device=device)
+    cm = (torch.arange(W, device=device) < logical).float()
+    go = torch.full((), 1.0 / B, device=device)
+    xk, xp, xl = (s.clone().requires_grad_() for _ in range(3))
+    got = mnl.multinomial_nll_sum(xk, t, rm, cm)
+    want = mnl.multinomial_nll_plain(xp, t, rm, cm)
+    lib = mnll_library(xl, t, rm, cm)
+    for loss in (got, want, lib):
+      torch.autograd.backward(loss, go)
+    torch.cuda.synchronize()
+    rel = abs(float(got) - float(want)) / abs(float(want))
+    lib_rel = abs(float(lib) - float(want)) / abs(float(want))
+    if not (rel <= 1e-5 and lib_rel <= 1e-4):
+      raise AssertionError(f'multinomial_loss [{B}, {W}]: the kernels\' loss '
+                           f'{float(got)}, the library\'s {float(lib)}, the '
+                           f'plain chain\'s {float(want)}')
+    outside, worst = mnll_grad_gaps(xk.grad, xp.grad, s, t, rm, cm, go)
+    gap = float((xk.grad.float() - xp.grad.float()).abs().max())
+    lib_gap = float((xl.grad.float() - xp.grad.float()).abs().max())
+    del xk, xp, xl
+
+    def forward():
+      with torch.no_grad():
+        mnl.multinomial_nll_sum(s, t, rm, cm)
+
+    def timed(loss):
+      def call():
+        x = s.detach().requires_grad_()
+        torch.autograd.backward(loss(x, t, rm, cm), go)
+      return call
+
+    def timed_forward(loss):
+      def call():
+        with torch.no_grad():
+          loss(s, t, rm, cm)
+      return call
+
+    fns = {'forward': forward, 'pair': timed(mnl.multinomial_nll_sum),
+           'plain': timed(mnl.multinomial_nll_plain),
+           'plain_forward': timed_forward(mnl.multinomial_nll_plain),
+           'library': timed(mnll_library),
+           'library_forward': timed_forward(mnll_library)}
+    order = ('plain', 'pair', 'library', 'forward', 'plain_forward',
+             'library_forward')
+    runs = {name: [] for name in fns}
+    for name in order + order[::-1]:
+      runs[name].append(device_ms(fns[name], between=sweep.sum,
+                                  skip='ReduceOp<double'))
+    times = {name: statistics.mean(v) for name, v in runs.items()}
+    nbytes = mnll_bytes(B, W)
+    b_fwd, _ = bound(0.0, nbytes['fwd'])
+    b_ms, by = bound(0.0, nbytes['pair'])
+    sweep.sum()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      settle_profiler()
+      for _ in range(10):
+        fns['plain']()
+      torch.cuda.synchronize()
+    chain = [(ms / 10, n / 10, name[:90]) for ms, n, name in
+             device_rows(prof.key_averages())]
+    launches = sum(n for _, n, _ in chain)
+    say(f'  [{B}, {W}], bf16, from a cold L2, device time (profiler, 20 '
+        f'calls, in turns): forward {times["forward"]:.4f} ms (bound '
+        f'{b_fwd:.4f}, {100 * b_fwd / times["forward"]:.1f}%), pair '
+        f'{times["pair"]:.4f} ms; plain chain {times["plain"]:.4f} ms in '
+        f'{launches:g} launches (forward {times["plain_forward"]:.4f}); '
+        f'library cross-entropy {times["library"]:.4f} ms (forward '
+        f'{times["library_forward"]:.4f}); the pair\'s bound {b_ms:.4f} ms '
+        f'({by}: {nbytes["pair"] / 1e6:.2f} MB), the pair at '
+        f'{100 * b_ms / times["pair"]:.1f}% of it; loss rel. gap {rel:.2e} '
+        f'(library {lib_rel:.2e}); gradient: {outside:.2e} of the elements '
+        f'beyond one bf16 ulp, the worst at {worst:.3f} of its allowance, '
+        f'largest gap {gap:.3e} (library {lib_gap:.3e}); the plain chain a '
+        f'call: '
+        + '; '.join(f'{name} {ms:.4f} ms x{n:g}' for ms, n, name in chain))
+    out[f'{B}x{W}'] = dict(times, bound_ms=b_ms, bound_by=by,
+                           forward_bound_ms=b_fwd, share=b_ms / times['pair'],
+                           plain_launches=launches, plain_kernels=chain,
+                           loss_rel_gap=rel,
+                           loss_abs_gap=abs(float(got) - float(want)),
+                           library_loss_rel_gap=lib_rel, grad_gap=gap,
+                           grad_beyond_ulp_share=outside,
+                           grad_worst_of_allowance=worst,
+                           library_grad_gap=lib_gap)
+  return out
+
+
 def run(name, fn, *args, **kwargs):
   say(f'== phase {name}')
   t0 = time.time()
@@ -6686,6 +6910,7 @@ def main():
   bf16_quality = run('16 bf16 quality', phase_bf16_quality, train_m, val_m)
   packed_times, packed_bound = run('17 packed kernel', phase_packed_kernel)
   noised = run('35 noised input', phase_noised_input)
+  mnll = run('36 multinomial loss', phase_multinomial_loss)
   (msd_dense_launches, msd_dense_first, msd_dense_rates,
    msd_dense_profile, msd_cell) = run('18 msd dense', phase_msd_dense, msd,
                                       train_m)
@@ -6715,8 +6940,10 @@ def main():
   say(f'ML-20M-shaped CSR again ({time.time() - t0:.1f} s)')
   mf_per_step, (_, mf_cell), mf_quality = run('23 mf', phase_mf, matrix,
                                               train_m, val_m)
-  vae_per_step, (_, vae_cell), vae_quality = run(
+  vae_per_step, (_, vae_cell), vae_quality, vae_launches = run(
       '24 multvae', phase_multvae, matrix, train_m, val_m)
+  # the multinomial loss pair's main path: Mult-VAE's eager epoch
+  launches.update({k: vae_launches[k] for k in MNLL_STEP})
   ease = run('25 ease', phase_ease, matrix, train_m, val_m)
   (neg_per_step, (_, neg_cell), neg_blocks_rate, neg_scatter_rate,
    (neg_routes, neg_widths), neg_quality) = run(
@@ -6758,7 +6985,9 @@ def main():
               'decode_loss_fwd_bf16_wgmma_kernel',
           'fused_decode_loss_bwd_bf16_wgmma': 'drows_dbias_bf16_wgmma_kernel',
           'adam_bf16': 'adam_bf16_kernel'}),
-      ('multvae_captured', vae_cell, {'adam_bf16': 'adam_bf16_kernel'})):
+      ('multvae_captured', vae_cell, {'adam_bf16': 'adam_bf16_kernel',
+                                      'mnll_fwd': 'mnll_fwd_kernel',
+                                      'mnll_bwd': 'mnll_bwd_kernel'})):
     for name, key in names.items():
       family.setdefault(name, {})[path] = cell['captured']['counts'][key] / 64
   # launches a step on the paths of megas and random negatives (phase
@@ -6787,6 +7016,11 @@ def main():
           'adam_bf16_kernel'] / 64,
       'packed_rows': cells['msd'][1]['captured']['counts'][
           'packed_rows_kernel'] / 64,
+      # (the MSD cell is logloss: the loss pair inside its replays)
+      'mnll_fwd': cells['msd'][1]['captured']['counts'][
+          'mnll_fwd_kernel'] / 64,
+      'mnll_bwd': cells['msd'][1]['captured']['counts'][
+          'mnll_bwd_kernel'] / 64,
   }
 
   # device times at the training shape (phase 3); the others are the
@@ -6799,6 +7033,7 @@ def main():
                                    bf16=True)
   B_spd, d_spd = 16384, 128
   n_ids, d_msd = len(msd_ids), 200
+  mnll_vae = mnll['500x20224']
   measured = {
       'fused_decode_loss_fwd': (
           loss_err, dev['kernel']['fwd'], dev['plain']['fwd'], None,
@@ -6845,6 +7080,20 @@ def main():
       'packed_rows': (
           0.0, packed_times['kernel'], packed_times['plain'], None,
           packed_bound, launches['packed_rows'] / msd_steps),
+      # the multinomial loss at Mult-VAE's ML-20M width (phase 36): the
+      # forward alone, the backward as the pair less the forward; the
+      # library call is F.cross_entropy on probability targets
+      'mnll_fwd': (
+          mnll_vae['loss_abs_gap'], mnll_vae['forward'],
+          mnll_vae['plain_forward'], mnll_vae['library_forward'],
+          (mnll_vae['forward_bound_ms'], 'bytes'),
+          vae_per_step['multvae']['mnll_fwd']),
+      'mnll_bwd': (
+          mnll_vae['grad_gap'], mnll_vae['pair'] - mnll_vae['forward'],
+          mnll_vae['plain'] - mnll_vae['plain_forward'],
+          mnll_vae['library'] - mnll_vae['library_forward'],
+          (mnll_vae['bound_ms'] - mnll_vae['forward_bound_ms'], 'bytes'),
+          vae_per_step['multvae']['mnll_bwd']),
   }
   # launches a step on the large-catalog paths (phase 27): (a) msd-big's
   # sparse step, (d) the full-catalog sparse step
@@ -7097,6 +7346,7 @@ def main():
       f'{scripts["orbax"]["npz_s"]:.3f} s'
       + f'; card {card}')
   say(json.dumps({'noised_input': noised}))
+  say(json.dumps({'multinomial_loss': mnll}))
   say(json.dumps({'kernels': kernels}))
   say(card)
   say(json.dumps({'ok': True, 'device': {

@@ -6,11 +6,14 @@ with optional row and column validity masks so that padded users and
 padded or unsampled item columns contribute exactly zero.
 
 Functions return the elementwise ``[B, W]`` loss; the classes apply a
-reduction ('none' | 'elementwise_mean' | 'sum').
+reduction ('none' | 'elementwise_mean' | 'sum'). ``MultinomialNLLLoss``
+takes its sums from the CUDA kernel pair (``ops/multinomial_loss.py``)
+where the kernels take the operands.
 """
 
 import torch
 
+from recoder_tpu_torch.ops import multinomial_loss
 from recoder_tpu_torch.parallel import collectives
 
 
@@ -25,6 +28,13 @@ def _apply_masks(loss, row_mask=None, col_mask=None):
   return loss
 
 
+def _mean_count(shape, row_mask=None, col_mask=None):
+  """The number of valid elements 'elementwise_mean' divides by."""
+  rows = torch.sum(row_mask) if row_mask is not None else shape[0]
+  cols = torch.sum(col_mask) if col_mask is not None else shape[1]
+  return rows * cols
+
+
 def _reduce(loss, reduction, row_mask=None, col_mask=None):
   if reduction == 'none':
     return loss
@@ -33,9 +43,7 @@ def _reduce(loss, reduction, row_mask=None, col_mask=None):
   if reduction == 'elementwise_mean':
     if row_mask is None and col_mask is None:
       return torch.mean(loss)
-    rows = torch.sum(row_mask) if row_mask is not None else loss.shape[0]
-    cols = torch.sum(col_mask) if col_mask is not None else loss.shape[1]
-    return torch.sum(loss) / (rows * cols)
+    return torch.sum(loss) / _mean_count(loss.shape, row_mask, col_mask)
   raise ValueError(f'No such reduction {reduction} defined')
 
 
@@ -124,10 +132,26 @@ class LogisticLoss(Loss):
 
 
 class MultinomialNLLLoss(Loss):
-  """Negative log-likelihood of a multinomial over the item axis."""
+  """Negative log-likelihood of a multinomial over the item axis.
+
+  Its 'sum' and 'elementwise_mean' take the kernels' sum
+  (``multinomial_loss.multinomial_nll_sum``) where
+  ``multinomial_loss.takes`` the operands (the card, bf16 or float32 rows);
+  'none' and the CPU take the elementwise chain."""
 
   def __init__(self, reduction='elementwise_mean'):
     self.reduction = reduction
+
+  def __call__(self, input, target, row_mask=None, col_mask=None):
+    if (self.reduction in ('sum', 'elementwise_mean')
+        and multinomial_loss.takes(input, target)):
+      total = multinomial_loss.multinomial_nll_sum(input, target, row_mask,
+                                                   col_mask)
+      if self.reduction == 'sum':
+        return total
+      return total / _mean_count(input.shape, row_mask, col_mask)
+    return super().__call__(input, target, row_mask=row_mask,
+                            col_mask=col_mask)
 
   def elementwise(self, input, target, row_mask=None, col_mask=None):
     return multinomial_nll_loss(input, target, row_mask=row_mask,
