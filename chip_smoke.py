@@ -669,8 +669,8 @@ def phase_build():
   from recoder_tpu_torch.ops import row_scatter as rs
   from recoder_tpu_torch.ops import spd
   t0 = time.time()
-  libs = (fdl._lib, spd._lib, rs._lib, adam._lib, pr._lib, ni._lib,
-          mnl._lib)
+  libs = (fdl.LIBRARY, spd.LIBRARY, rs.LIBRARY, adam.LIBRARY, pr.LIBRARY,
+          ni.LIBRARY, mnl.LIBRARY)
   with ThreadPoolExecutor(max_workers=len(libs)) as pool:
     for fut in [pool.submit(lib) for lib in libs]:
       fut.result()
@@ -685,7 +685,7 @@ def phase_build():
         say('  ' + line.strip())
 
   frames = ptxas_frames(BUILD_LOGS.get('fused_decode_loss', ''))
-  opcodes = sass_opcodes(fdl._lib()._name)
+  opcodes = sass_opcodes(fdl.LIBRARY()._name)
   for kernel in DECODE_LOSS_KERNELS:
     found = {f: ops for f, ops in opcodes.items() if kernel in f}
     if not found:
@@ -2306,7 +2306,7 @@ def phase_packed_kernel(device='cuda', shape=(500, 1288)):
   import torch
   from recoder_tpu_torch.kernels import BUILD_LOGS
   from recoder_tpu_torch.ops import packed_rows as pr
-  pr._lib()
+  pr.LIBRARY()
   log = BUILD_LOGS.get('packed_rows', '')
   frames = ptxas_frames(log)
   if len(frames) < 3 or any(v[1] or v[2] for v in frames.values()):
@@ -6574,7 +6574,7 @@ def phase_noised_input(device='cuda', shapes=NOISED_SHAPES, rate=0.5):
   from recoder_tpu_torch.kernels import BUILD_LOGS
   from recoder_tpu_torch.models import base
   from recoder_tpu_torch.ops import noised_input as ni
-  ni._lib()
+  ni.LIBRARY()
   log = BUILD_LOGS.get('noised_input', '')
   frames = ptxas_frames(log)
   if not frames or any(v[1] or v[2] for v in frames.values()):
@@ -6704,7 +6704,7 @@ def phase_multinomial_loss(device='cuda', shapes=MNLL_SHAPES):
 
   from recoder_tpu_torch.kernels import BUILD_LOGS
   from recoder_tpu_torch.ops import multinomial_loss as mnl
-  mnl._lib()
+  mnl.LIBRARY()
   log = BUILD_LOGS.get('multinomial_loss', '')
   frames = ptxas_frames(log)
   if not frames or any(v[1] or v[2] for v in frames.values()):

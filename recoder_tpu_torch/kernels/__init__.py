@@ -15,6 +15,10 @@ two threads ask for them. ``EXTRA_FLAGS`` adds flags for one source:
 ``adam.cu`` builds with ``-fmad=false``, so that its arithmetic is the
 plain version's, operation for operation.
 
+Each wrapper declares the C functions it calls as a :class:`Library`,
+the one place that loads a source, binds its functions' argument types
+and turns a nonzero CUDA error code into a ``RuntimeError``.
+
 Each wrapper counts its launches (:func:`count_launch`). A launch that
 a CUDA graph capture records is not run then, and the graph's replays
 run it without Python: neither is counted, so a profile of the replays
@@ -39,8 +43,13 @@ NVCC_FLAGS = ('-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 EXTRA_FLAGS = {'adam': ('-fmad=false',)}
 
+#: the C types of the wrappers' tables (:class:`Library`)
+I32, I64, F32, PTR = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, \
+    ctypes.c_void_p
+
 _LOCK = threading.Lock()
 _NAME_LOCKS = {}
+#: name -> the loaded library, bound (:meth:`Library.bind`)
 _LIBS = {}
 #: name -> the compiler's output (ptxas register / shared-memory report)
 BUILD_LOGS = {}
@@ -66,9 +75,10 @@ def _nvcc():
   return os.path.join(CUDA_HOME, 'bin', 'nvcc')
 
 
-def load_library(name):
-  """Build (once per process and source) and load ``<name>.cu``; each
-  ``nvcc`` run is a ``recoder.kernel_build`` span
+def load_library(name, bind=None):
+  """Build (once per process and source) and load ``<name>.cu``, then
+  ``bind(lib)`` it (under the source's lock, before any other thread
+  sees it); each ``nvcc`` run is a ``recoder.kernel_build`` span
   (:mod:`recoder_tpu_torch.trace`)."""
   with _LOCK:
     lock = _NAME_LOCKS.setdefault(name, threading.Lock())
@@ -98,6 +108,57 @@ def load_library(name):
       with open(log_path) as f:
         BUILD_LOGS[name] = f.read()
     lib = ctypes.CDLL(out)
+    if bind is not None:
+      lib = bind(lib)
     _LIBS[name] = lib
     return lib
+
+
+class Library:
+  """The C functions of ``<name>.cu`` that a wrapper calls.
+
+  ``functions`` maps each one to ``(argument types, what)``. Every one
+  returns an ``int``: a CUDA error code where ``what`` names the call (a
+  launch, a plan, a configure), a value where ``what`` is None. A
+  nonzero error code raises ``RuntimeError(f'{what} failed: CUDA error
+  {err} ({text})')``, ``text`` from the source's
+  ``<prefix>_error_string``. ``constants(lib)``, the wrapper's checks and
+  reads of the source's constants, runs once, after the load.
+
+  Calling the object returns the bound ``ctypes`` library, built and
+  loaded at the first call of the process.
+  """
+
+  def __init__(self, name, prefix, functions, constants=None):
+    self.name, self.prefix = name, prefix
+    self.functions, self.constants = functions, constants
+
+  def __call__(self):
+    lib = _LIBS.get(self.name)
+    return lib if lib is not None else load_library(self.name, self.bind)
+
+  def bind(self, lib):
+    """``lib`` (this source's library, or a variant of it) with the
+    table applied and ``constants`` run."""
+    error_string = getattr(lib, f'{self.prefix}_error_string')
+    error_string.argtypes, error_string.restype = [I32], ctypes.c_char_p
+    for fname, (argtypes, what) in self.functions.items():
+      fn = getattr(lib, fname)
+      fn.argtypes, fn.restype = argtypes, I32
+      if what is not None:
+        fn.errcheck = _raise_on_error(what, error_string)
+    if self.constants is not None:
+      self.constants(lib)
+    return lib
+
+
+def _raise_on_error(what, error_string):
+  """A ctypes ``errcheck``: a nonzero return of the call ``what`` raises,
+  with the library's text for the code."""
+  def errcheck(err, fn, args):
+    if err != 0:
+      raise RuntimeError(f'{what} failed: CUDA error {err} '
+                         f'({error_string(err).decode()})')
+    return err
+  return errcheck
 

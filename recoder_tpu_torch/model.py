@@ -126,7 +126,7 @@ MultVAE on a ('data', 'model') mesh of processes
 (``recoder_tpu_torch.parallel``): each rank builds the whole batch,
 computes its users' rows against its rows of the item (and user)
 tables, and the shares are added over the mesh's process groups
-(:meth:`Recoder._mesh_forward_loss`); scoring and checkpoints gather the
+(:meth:`Recoder._forward_loss`); scoring and checkpoints gather the
 shares. ``train(table_sharding=...)`` splits the 'blocks' tables and the
 CSR of the on-device source over 'data' (``data/device_pipeline.py``).
 
@@ -620,14 +620,20 @@ class Recoder:
     and returns ``(scores, aux [B])``; ``sum(aux * row_mask)`` joins the
     loss before the division by the valid users.
 
-    On a mesh the batch is the whole one (every rank built it): the rank
-    densifies it, keeps its users' rows and, where the catalog is split,
-    its columns (and the rows of each union it holds), and returns the
-    loss of the whole batch (:meth:`_mesh_forward_loss`)."""
-    if self.mesh is not None:
-      return self._mesh_forward_loss(batch, training, negative_sampling,
-                                     generator, gathered, step)
-    model = self.model
+    On a mesh the batch is the whole one (every rank built it), and so
+    are the operands and the column mask built from it (the mega's
+    columns read off every user's row). The rank then takes its share
+    -- its users' rows, and of a split catalog its columns (a union: the
+    columns whose rows it holds; the whole catalog: its column range) --
+    scores through the model with ``shard``, and adds its loss sum over
+    the mesh. The aux loss (the KL of Mult-VAE, every 'model' rank's for
+    its users) is added over 'data' alone, so that it counts once, while
+    each rank's backward still reads it. A custom ``Loss`` over a split
+    catalog sees the whole scores: the rank's columns gathered over
+    'model' (a union's, whose other columns are zero, added), its
+    backward taking the rank's columns' gradient; its sum, the same on
+    every 'model' rank, is added over 'data'."""
+    model, mesh = self.model, self.mesh
     cd = getattr(model, 'compute_dtype', None)
     valid_users = batch['num_users']
     if 'slab' in batch:
@@ -661,150 +667,66 @@ class Recoder:
       logical = (model.num_items if tg_items is None
                  else batch.get(side + 'width_valid', W))
       col_mask = (torch.arange(W, device=target.device) < logical).float()
-    row_mask = (torch.arange(B, device=input_dense.device)
-                < valid_users).float()
+    if mesh is None:
+      part, shard, add = None, {}, lambda x, group: x
+      row_mask = (torch.arange(B, device=input_dense.device)
+                  < valid_users).float()
+    else:
+      part = self._partition(B)
+      shard, add = {'shard': part}, collectives.sum_forward
+      input_dense, target = part.rows(input_dense), part.rows(target)
+      whole_target, whole_mask = target, col_mask
+      if tg_items is None:
+        # (the rank's column range of the catalog)
+        target, col_mask = part.columns(target), part.columns(col_mask)
+      elif part.split:
+        col_mask = col_mask * part.owned('item', tg_items).float()
+      row_mask = part.row_mask(valid_users, input_dense.device)
     users = batch.get('users')
     if users is not None:
       users = users.to(input_dense.device)
 
-    if not getattr(model, 'fused_decode', False):
-      has_aux = training and getattr(model, 'has_aux', False)
-      kw = dict(input_users=users, input_items=items, target_items=tg_items,
-                generator=generator, training=training,
-                **({'step': step} if has_aux else {}))
-      out = (model(input_dense, **kw) if gathered is None
-             else model.apply_gathered(gathered, input_dense, **kw))
-      if has_aux:
-        out, aux = out
-      loss = self.loss_module(out, target, row_mask=row_mask,
-                              col_mask=col_mask)
-      if has_aux:
-        loss = loss + torch.sum(aux * row_mask)
-      return loss / valid_users
-    h, rows, bias = model.decode_operands(
-        input_dense, items, tg_items, gathered=gathered, training=training,
-        generator=generator, input_users=users)
-    kind = self._fused_kind()
-    if kind is not None and W > 0:
-      loss = fused_decode_loss(
-          h, rows, bias, target, row_mask, col_mask, kind,
-          getattr(self.loss_module, 'confidence', 0.0), cd)
-    else:
-      # (an empty union has no column for the kernel: its loss is 0)
-      loss = self.loss_module(model.decode(h, rows, bias), target,
-                              row_mask=row_mask, col_mask=col_mask)
-    return loss / valid_users
-
-  def _mesh_forward_loss(self, batch, training, negative_sampling, generator,
-                         gathered, step=None):
-    """:meth:`_forward_loss` on a mesh: this rank's share of the whole
-    batch's loss sum -- its users' rows, and of a split catalog its
-    columns (a union: the columns whose rows it holds; the whole catalog:
-    its column range) -- added over the mesh and divided by the batch's
-    valid users. The column mask is the whole batch's (the mega's
-    columns are read off every user's row) before the rank takes its
-    share of it.
-
-    A model without ``fused_decode`` scores through its ``forward``
-    (or ``apply_gathered``) with the rank's ``shard``; its aux loss (the
-    KL of Mult-VAE, every 'model' rank's for its users) is added over
-    'data' alone, so that it counts once, while each rank's backward
-    still reads it. A custom ``Loss`` over a split catalog sees the
-    whole scores: the rank's columns gathered over 'model' (a union's,
-    whose other columns are zero, added), its backward taking the
-    rank's columns' gradient; its sum, the same on every 'model' rank,
-    is added over 'data'."""
-    model = self.model
-    cd = getattr(model, 'compute_dtype', None)
-    valid_users = batch['num_users']
-    items = tg_items = None
-    if 'slab' in batch:
-      slab = batch['slab']
-      B, W = slab.shape
-      in_catalog = torch.arange(W, device=slab.device) < model.num_items
-      if not negative_sampling:
-        col_mask = in_catalog.float()
-      elif 'col_mask' in batch:
-        col_mask = batch['col_mask']
-      else:
-        col_mask = (torch.any(slab != 0, dim=0) & in_catalog).float()
-      part = self._partition(B)
-      shard = sharding_lib.shard_batch(
-          {'input': slab.to(cd or torch.float32), 'target': slab},
-          self.mesh)
-      input_dense, target = shard['input'], shard['target']
-      whole_mask = col_mask
-    else:
-      items = batch['items']
-      B = batch['users'].shape[0]
-      part = self._partition(B)
-      W = model.num_items_padded if items is None else items.shape[0]
-      input_dense = target = part.rows(self._densify_union(batch, B, W, cd))
-      tg_items, side = items, ''
-      if 'tg_rows' in batch:
-        tg_items, side = batch['tg_items'], 'tg_'
-        W = model.num_items_padded if tg_items is None else tg_items.shape[0]
-        target = part.rows(self._densify_union(batch, B, W, cd, side='tg_'))
-      logical = (model.num_items if tg_items is None
-                 else batch.get(side + 'width_valid', W))
-      col_mask = whole_mask = (torch.arange(W, device=target.device)
-                               < logical).float()
-    whole_target = target
-    if tg_items is None:
-      # (the rank's column range of the catalog)
-      target = part.columns(target)
-      col_mask = part.columns(col_mask)
-    else:
-      owned = part.owned('item', tg_items)
-      if owned is not None:
-        col_mask = col_mask * owned.float()
-    row_mask = part.row_mask(valid_users, input_dense.device)
-    users = batch.get('users')
-    if users is not None:
-      users = users.to(input_dense.device)
     aux = None
     if getattr(model, 'fused_decode', False):
       h, rows, bias = model.decode_operands(
           input_dense, items, tg_items, gathered=gathered, training=training,
-          generator=generator, input_users=users, shard=part)
+          generator=generator, input_users=users, **shard)
       kind = self._fused_kind()
       if kind is not None and W > 0:
         loss = fused_decode_loss(
-            h, rows, bias, target, row_mask, col_mask.contiguous(), kind,
+            h, rows, bias, target, row_mask, col_mask, kind,
             getattr(self.loss_module, 'confidence', 0.0), cd)
-        return collectives.sum_forward(loss, None) / valid_users
+        return add(loss, None) / valid_users
+      # (an empty union has no column for the kernel: its loss is 0)
       scores = model.decode(h, rows, bias)
     else:
       has_aux = training and getattr(model, 'has_aux', False)
       kw = dict(input_users=users, input_items=items, target_items=tg_items,
-                generator=generator, training=training, shard=part,
+                generator=generator, training=training, **shard,
                 **({'step': step} if has_aux else {}))
       scores = (model(input_dense, **kw) if gathered is None
                 else model.apply_gathered(gathered, input_dense, **kw))
       if has_aux:
         scores, aux = scores
-    if part.split and not isinstance(self.loss_module, SPLIT_LOSSES):
+    split = part is not None and part.split
+    if split and not isinstance(self.loss_module, SPLIT_LOSSES):
       # (a custom loss: every 'model' rank computes it whole)
-      group = self.mesh.model_group
+      group = mesh.model_group
       scores = (collectives.gather_columns_grad(
-          scores, group, sharding_lib.split_sizes(W, self.mesh))
+          scores, group, sharding_lib.split_sizes(W, mesh))
                 if tg_items is None else collectives.sum_forward(scores, group))
-      loss = collectives.sum_forward(
-          self.loss_module(scores, whole_target, row_mask=row_mask,
-                           col_mask=whole_mask), self.mesh.data_group)
-    elif part.split and isinstance(self.loss_module,
-                                   losses_lib.MultinomialNLLLoss):
-      loss = collectives.sum_forward(torch.sum(
-          losses_lib.multinomial_nll_loss(
-              scores, target, row_mask, col_mask,
-              group=self.mesh.model_group)), None)
+      loss = add(self.loss_module(scores, whole_target, row_mask=row_mask,
+                                  col_mask=whole_mask), mesh.data_group)
+    elif split and isinstance(self.loss_module,
+                              losses_lib.MultinomialNLLLoss):
+      loss = add(torch.sum(losses_lib.multinomial_nll_loss(
+          scores, target, row_mask, col_mask, group=mesh.model_group)), None)
     else:
-      loss = collectives.sum_forward(
-          self.loss_module(scores, target, row_mask=row_mask,
-                           col_mask=col_mask), None)
+      loss = add(self.loss_module(scores, target, row_mask=row_mask,
+                                  col_mask=col_mask), None)
     if aux is not None:
-      loss = loss + collectives.sum_forward(torch.sum(aux * row_mask),
-                                            self.mesh.data_group)
+      loss = loss + add(torch.sum(aux * row_mask),
+                        None if mesh is None else mesh.data_group)
     return loss / valid_users
 
   @staticmethod

@@ -35,15 +35,14 @@ graph's earlier nodes on every replay, which would overwrite a table
 written once from outside.
 """
 
-import ctypes
 import functools
-import threading
 from collections import namedtuple
 
 import numpy as np
 import torch
 
-from recoder_tpu_torch.kernels import capturing, count_launch
+from recoder_tpu_torch.kernels import (I32, PTR, Library, capturing,
+                                      count_launch)
 
 BF16 = torch.bfloat16
 #: kernel launches since the last reset
@@ -66,8 +65,21 @@ Scalars = namedtuple('Scalars',
 #: floats a row of the step-scalar table (kernels/adam.cu kTableCols)
 TABLE_COLS = 8
 
-_LIB = None
-_LIB_LOCK = threading.Lock()
+
+def _constants(lib):
+  """The table layout the source reads, and its chunk (elements a block
+  takes) kept as ``lib.chunk``."""
+  if lib.adam_table_cols() != TABLE_COLS:
+    raise RuntimeError('kernels/adam.cu and ops/adam.py disagree on '
+                       'the scalar table')
+  lib.chunk = lib.adam_chunk()
+
+
+LIBRARY = Library('adam', 'adam', {
+    'adam_bf16_step': ([PTR, I32, I32, PTR, I32, PTR, I32, I32, I32, PTR],
+                       'bf16-storage Adam launch'),
+    'adam_chunk': ([], None), 'adam_table_cols': ([], None)},
+    constants=_constants)
 
 
 def step_scalars(lr, step, betas, eps):
@@ -123,28 +135,6 @@ def adam_bf16_plain(params, grads, exp_avgs, exp_avg_sqs, weight_decays,
     p.copy_(p32 - (c.lr_bc1 * m1) / denom)
     m.copy_(m1)
     v.copy_(v1)
-
-
-def _lib():
-  global _LIB
-  with _LIB_LOCK:
-    if _LIB is None:
-      from recoder_tpu_torch.kernels import load_library
-      lib = load_library('adam')
-      ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-      lib.adam_bf16_step.argtypes = [ptr, i32, i32, ptr, i32, ptr, i32, i32,
-                                     i32, ptr]
-      lib.adam_bf16_step.restype = i32
-      lib.adam_chunk.restype = i32
-      lib.chunk = lib.adam_chunk()
-      lib.adam_table_cols.restype = i32
-      if lib.adam_table_cols() != TABLE_COLS:
-        raise RuntimeError('kernels/adam.cu and ops/adam.py disagree on '
-                           'the scalar table')
-      lib.adam_error_string.argtypes = [i32]
-      lib.adam_error_string.restype = ctypes.c_char_p
-      _LIB = lib
-    return _LIB
 
 
 def _pack(entries, chunk):
@@ -274,7 +264,7 @@ def adam_bf16_kernel_table(params, grads, exp_avgs, exp_avg_sqs,
   if any(p.device != device for p in params) or device.type != 'cuda':
     raise ValueError('the bf16-moment Adam kernel takes CUDA tensors on '
                      'one device')
-  lib = _lib()
+  lib = LIBRARY()
   p_dtype, m_dtype = storage(params, exp_avgs)
   p_bf16, m_bf16 = int(p_dtype == BF16), int(m_dtype == BF16)
   entries = []
@@ -292,13 +282,10 @@ def adam_bf16_kernel_table(params, grads, exp_avgs, exp_avg_sqs,
   _check_table(table, ctl, device)
   descs, nchunks = _descriptor_table(device, tuple(entries), lib.chunk,
                                      captured)
-  err = lib.adam_bf16_step(
+  lib.adam_bf16_step(
       descs.data_ptr(), len(entries), nchunks, table.data_ptr(),
       table.shape[0], ctl.data_ptr(), p_bf16, m_bf16, device.index,
       torch.cuda.current_stream(device).cuda_stream)
-  if err != 0:
-    raise RuntimeError(f'bf16-storage Adam launch failed: CUDA error {err} '
-                       f'({lib.adam_error_string(err).decode()})')
   count_launch(LAUNCHES, 'adam_bf16')
 
 

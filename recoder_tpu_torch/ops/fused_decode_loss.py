@@ -69,11 +69,10 @@ can describe them at any W).
 
 import ctypes
 import functools
-import threading
 
 import torch
 
-from recoder_tpu_torch.kernels import count_launch
+from recoder_tpu_torch.kernels import F32, I32, PTR, Library, count_launch
 from recoder_tpu_torch.ops import losses as losses_lib
 from recoder_tpu_torch.ops.gather_matmul import as_dtype, decode_matmul
 
@@ -93,8 +92,29 @@ LAUNCHES = {'fused_decode_loss_fwd': 0, 'fused_decode_loss_bwd': 0,
 #: ``KRungs`` / ``DhRungs`` in the source)
 WGMMA_WIDTHS = range(8, 249, 8)
 
-_LIB = None
-_LIB_LOCK = threading.Lock()
+
+def _constants(lib):
+  lib.max_d = lib.fdl_max_d()  # the widest feature axis it takes
+
+
+LIBRARY = Library('fused_decode_loss', 'fdl', {
+    'fdl_forward': ([PTR] * 4 + [I32] * 2 + [PTR] * 2 + [I32] * 4
+                    + [F32, I32, I32, PTR, I32, PTR, PTR, I32, PTR],
+                    'fused decode-loss forward launch'),
+    'fdl_backward': ([PTR] * 2 + [I32] + [PTR] * 2 + [I32] * 7 + [PTR] * 3
+                     + [I32, PTR, I32, PTR],
+                     'fused decode-loss backward launch'),
+    'fdl_forward_wgmma': ([PTR] * 2 + [I32] + [PTR] * 2 + [I32] + [PTR] * 2
+                          + [I32] * 4 + [F32] + [PTR] * 3 + [I32] + [PTR] * 2
+                          + [I32, PTR],
+                          'fused decode-loss forward launch (wgmma)'),
+    'fdl_backward_wgmma': ([PTR] * 4 + [I32] * 5 + [PTR] * 3
+                           + [I32, PTR, I32, PTR],
+                           'fused decode-loss backward launch (wgmma)'),
+    'fdl_plan': ([I32] * 5 + [ctypes.POINTER(I32)], 'fdl_plan'),
+    'fdl_plan_wgmma': ([I32] * 4 + [ctypes.POINTER(I32)], 'fdl_plan_wgmma'),
+    'fdl_configure': ([I32], 'fdl_configure'),
+    'fdl_max_d': ([], None)}, constants=_constants)
 #: device indices whose kernels have their shared-memory limits set
 _CONFIGURED = set()
 
@@ -208,55 +228,13 @@ def _plain_forward(h, rows, bias, target, row_mask, col_mask, kind,
   return loss, e0
 
 
-def _lib():
-  global _LIB
-  with _LIB_LOCK:
-    if _LIB is None:
-      from recoder_tpu_torch.kernels import load_library
-      lib = load_library('fused_decode_loss')
-      ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-      lib.fdl_forward.argtypes = ([ptr] * 4 + [i32] * 2 + [ptr] * 2
-                                  + [i32] * 4 + [f32, i32, i32, ptr, i32,
-                                                 ptr, ptr, i32, ptr])
-      lib.fdl_forward.restype = i32
-      lib.fdl_backward.argtypes = ([ptr] * 2 + [i32] + [ptr] * 2 + [i32] * 7
-                                   + [ptr] * 3 + [i32, ptr, i32, ptr])
-      lib.fdl_backward.restype = i32
-      lib.fdl_max_d.restype = i32
-      lib.max_d = lib.fdl_max_d()  # the widest feature axis it takes
-      lib.fdl_plan.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
-      lib.fdl_plan.restype = i32
-      lib.fdl_plan_wgmma.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
-      lib.fdl_plan_wgmma.restype = i32
-      lib.fdl_forward_wgmma.argtypes = ([ptr] * 2 + [i32] + [ptr] * 2
-                                        + [i32] + [ptr] * 2 + [i32] * 4
-                                        + [f32] + [ptr] * 3 + [i32]
-                                        + [ptr] * 2 + [i32, ptr])
-      lib.fdl_forward_wgmma.restype = i32
-      lib.fdl_backward_wgmma.argtypes = ([ptr] * 4 + [i32] * 5 + [ptr] * 3
-                                         + [i32, ptr, i32, ptr])
-      lib.fdl_backward_wgmma.restype = i32
-      lib.fdl_configure.argtypes = [i32]
-      lib.fdl_configure.restype = i32
-      lib.fdl_error_string.argtypes = [i32]
-      lib.fdl_error_string.restype = ctypes.c_char_p
-      _LIB = lib
-    return _LIB
-
-
-def _check(lib, err, what):
-  if err != 0:
-    raise RuntimeError(f'{what} failed: CUDA error {err} '
-                       f'({lib.fdl_error_string(err).decode()})')
-
-
 def _device_lib(device):
-  """The library, its kernels configured for ``device`` (once)."""
-  lib = _lib()
+  """The library, its kernels configured for ``device`` (once; a repeated
+  configure sets the same limits)."""
+  lib = LIBRARY()
   if device.index not in _CONFIGURED:
-    with _LIB_LOCK:
-      _check(lib, lib.fdl_configure(device.index), 'fdl_configure')
-      _CONFIGURED.add(device.index)
+    lib.fdl_configure(device.index)
+    _CONFIGURED.add(device.index)
   return lib
 
 
@@ -264,10 +242,9 @@ def _device_lib(device):
 def _plan(device_index, B, W, d, bf16):
   """(forward partials, k tiles per dh split, dh splits, E0 row stride)
   of one shape; about two dh blocks per SM."""
-  lib = _lib()
   sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-  out = (ctypes.c_int * 4)()
-  _check(lib, lib.fdl_plan(B, W, d, sms, int(bf16), out), 'fdl_plan')
+  out = (I32 * 4)()
+  LIBRARY().fdl_plan(B, W, d, sms, int(bf16), out)
   return tuple(out)
 
 
@@ -276,10 +253,9 @@ def _plan_wgmma(device_index, B, W, d):
   """(forward blocks and partials, 64-item chunks per dh split, dh
   splits, E0 row stride, hb row stride) of one shape on the wgmma route:
   one forward block an SM, about one dh block an SM."""
-  lib = _lib()
   sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-  out = (ctypes.c_int * 5)()
-  _check(lib, lib.fdl_plan_wgmma(B, W, d, sms, out), 'fdl_plan_wgmma')
+  out = (I32 * 5)()
+  LIBRARY().fdl_plan_wgmma(B, W, d, sms, out)
   return tuple(out)
 
 
@@ -349,14 +325,13 @@ def _kernel_forward(h, rows, bias, target, row_mask, col_mask, kind,
                     dtype=BF16 if bf16 else torch.float32)
         if stash else None)
   stream = torch.cuda.current_stream(h.device).cuda_stream
-  err = lib.fdl_forward(
+  lib.fdl_forward(
       h.data_ptr(), rows.data_ptr(), bias.data_ptr(), target.data_ptr(),
       int(target.dtype == torch.bfloat16), target_stride(target),
       row_mask.data_ptr(), col_mask.data_ptr(), B, W, d, KINDS[kind],
       float(confidence), int(bf16), int(rows_bf16),
       e0.data_ptr() if stash else None, lde, partials.data_ptr(),
       out.data_ptr(), h.device.index, stream)
-  _check(lib, err, 'fused decode-loss forward launch')
   count_launch(LAUNCHES, 'fused_decode_loss_fwd_bf16' if bf16
                else 'fused_decode_loss_fwd')
   return out, e0, None
@@ -377,7 +352,7 @@ def _wgmma_forward(lib, h, rows, bias, target, row_mask, col_mask, kind,
             torch.empty((W, d), device=dev, dtype=BF16)) if stash else None
   e0 = torch.empty((B, lde), device=dev, dtype=BF16) if stash else None
   stream = torch.cuda.current_stream(dev).cuda_stream
-  err = lib.fdl_forward_wgmma(
+  lib.fdl_forward_wgmma(
       h.data_ptr(), rows.data_ptr(), int(rows_bf16), bias.data_ptr(),
       target.data_ptr(), target_stride(target), row_mask.data_ptr(),
       col_mask.data_ptr(), B, W, d, KINDS[kind], float(confidence),
@@ -385,7 +360,6 @@ def _wgmma_forward(lib, h, rows, bias, target, row_mask, col_mask, kind,
       None if rows_b is None or rows_bf16 else rows_b.data_ptr(),
       None if e0 is None else e0.data_ptr(), n_partials, partials.data_ptr(),
       out.data_ptr(), dev.index, stream)
-  _check(lib, err, 'fused decode-loss forward launch (wgmma)')
   count_launch(LAUNCHES, 'fused_decode_loss_fwd_bf16_wgmma')
   return out, e0, (hb, rows_b) if stash else None
 
@@ -408,12 +382,11 @@ def _wgmma_backward(lib, g, e0, h, rows, copies, drows_dtype):
   drows = torch.empty((W, d), device=dev, dtype=drows_dtype)
   dbias = torch.empty((W,), device=dev)
   stream = torch.cuda.current_stream(dev).cuda_stream
-  err = lib.fdl_backward_wgmma(
+  lib.fdl_backward_wgmma(
       g.data_ptr(), e0.data_ptr(), hb.data_ptr(), rows_b.data_ptr(), B, W,
       d, per, nsplit, dh_partials.data_ptr(), dh.data_ptr(),
       drows.data_ptr(), int(drows_dtype == BF16), dbias.data_ptr(),
       dev.index, stream)
-  _check(lib, err, 'fused decode-loss backward launch (wgmma)')
   count_launch(LAUNCHES, 'fused_decode_loss_bwd_bf16_wgmma')
   return dh, drows, dbias
 
@@ -441,12 +414,11 @@ def _kernel_backward(g, e0, h, rows, copies=None):
   drows = torch.empty((W, d), device=h.device, dtype=drows_dtype)
   dbias = torch.empty((W,), device=h.device)
   stream = torch.cuda.current_stream(h.device).cuda_stream
-  err = lib.fdl_backward(
+  lib.fdl_backward(
       g.data_ptr(), e0.data_ptr(), lde, h.data_ptr(), rows.data_ptr(),
       int(rows_bf16), B, W, d, ktiles, nsplit, int(bf16),
       dh_partials.data_ptr(), dh.data_ptr(), drows.data_ptr(),
       int(drows_dtype == BF16), dbias.data_ptr(), h.device.index, stream)
-  _check(lib, err, 'fused decode-loss backward launch')
   count_launch(LAUNCHES, 'fused_decode_loss_bwd_bf16' if bf16
                else 'fused_decode_loss_bwd')
   return dh, drows, dbias

@@ -20,12 +20,9 @@ CPU, 'none' and a catalog split over a mesh's 'model' axis (``group``)
 keep the plain chain.
 """
 
-import ctypes
-import threading
-
 import torch
 
-from recoder_tpu_torch.kernels import count_launch
+from recoder_tpu_torch.kernels import I32, I64, PTR, Library, count_launch
 
 #: kernel launches since the last reset ('mnll_fwd': the forward pass with
 #: its one-block combine; 'mnll_bwd': the gradient's pass)
@@ -33,8 +30,14 @@ LAUNCHES = {'mnll_fwd': 0, 'mnll_bwd': 0}
 #: the storage dtypes the kernels read (and the gradient's: the scores')
 DTYPES = (torch.bfloat16, torch.float32)
 
-_LIB = None
-_LIB_LOCK = threading.Lock()
+#: a launch's operands (:func:`_operands`)
+_OPERANDS = [PTR, I32, I64, PTR, I32, I64, I32, I32, I32, PTR, PTR]
+LIBRARY = Library('multinomial_loss', 'mnll', {
+    'mnll_segments': ([I32, I32, I32], None),
+    'mnll_forward': (_OPERANDS + [PTR, PTR, PTR, I32, PTR],
+                     'multinomial_loss forward launch'),
+    'mnll_backward': (_OPERANDS + [PTR, PTR, PTR, I32, PTR],
+                      'multinomial_loss backward launch')})
 
 
 def multinomial_nll_plain(scores, target, row_mask=None, col_mask=None):
@@ -60,30 +63,10 @@ def takes(scores, target, group=None):
           and _rows_ok(target) and not target.requires_grad)
 
 
-def _lib():
-  global _LIB
-  with _LIB_LOCK:
-    if _LIB is None:
-      from recoder_tpu_torch.kernels import load_library
-      lib = load_library('multinomial_loss')
-      ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-      lib.mnll_segments.argtypes = [i32, i32, i32]
-      lib.mnll_segments.restype = i32
-      operands = [ptr, i32, i64, ptr, i32, i64, i32, i32, i32, ptr, ptr]
-      lib.mnll_forward.argtypes = operands + [ptr, ptr, ptr, i32, ptr]
-      lib.mnll_forward.restype = i32
-      lib.mnll_backward.argtypes = operands + [ptr, ptr, ptr, i32, ptr]
-      lib.mnll_backward.restype = i32
-      lib.mnll_error_string.argtypes = [i32]
-      lib.mnll_error_string.restype = ctypes.c_char_p
-      _LIB = lib
-    return _LIB
-
-
 def _segments(B, W, device):
   """The blocks a row is split over (the kernels' choice for B rows of W
   columns on this card)."""
-  S = _lib().mnll_segments(B, W, device)
+  S = LIBRARY().mnll_segments(B, W, device)
   if S < 1:
     raise RuntimeError(f'multinomial_loss: no launch shape for [{B}, {W}] on '
                        f'cuda:{device}')
@@ -104,12 +87,6 @@ def _mask(mask, n, scores, name):
   if mask.requires_grad:
     raise ValueError(f'the kernels give {name} no gradient')
   return mask.to(torch.float32).contiguous()
-
-
-def _check(err, what):
-  if err != 0:
-    raise RuntimeError(f'multinomial_loss {what} launch failed: CUDA error '
-                       f'{err} ({_lib().mnll_error_string(err).decode()})')
 
 
 def _operands(scores, target, B, W, S, cm, rm):
@@ -136,9 +113,9 @@ class _MultinomialNLLSum(torch.autograd.Function):
     stats = torch.empty((B, 3), dtype=torch.float32, device=scores.device)
     out = torch.empty((), dtype=torch.float32, device=scores.device)
     stream = torch.cuda.current_stream(scores.device).cuda_stream
-    _check(_lib().mnll_forward(*_operands(scores, target, B, W, S, cm, rm),
-                               part.data_ptr(), stats.data_ptr(),
-                               out.data_ptr(), device, stream), 'forward')
+    LIBRARY().mnll_forward(*_operands(scores, target, B, W, S, cm, rm),
+                           part.data_ptr(), stats.data_ptr(), out.data_ptr(),
+                           device, stream)
     count_launch(LAUNCHES, 'mnll_fwd')
     ctx.S = S
     ctx.save_for_backward(scores, target, rm, cm, stats)
@@ -157,9 +134,9 @@ class _MultinomialNLLSum(torch.autograd.Function):
     go = go.to(torch.float32).contiguous()
     g = torch.empty((B, W), dtype=scores.dtype, device=scores.device)
     stream = torch.cuda.current_stream(scores.device).cuda_stream
-    _check(_lib().mnll_backward(
+    LIBRARY().mnll_backward(
         *_operands(scores, target, B, W, ctx.S, cm, rm), stats.data_ptr(),
-        go.data_ptr(), g.data_ptr(), device, stream), 'backward')
+        go.data_ptr(), g.data_ptr(), device, stream)
     count_launch(LAUNCHES, 'mnll_bwd')
     return g, None, None, None
 

@@ -17,13 +17,10 @@ that the Philox stream, its offset and every bit stay those of the plain
 chain (``models/base.noised_input`` routes between the two).
 """
 
-import ctypes
-import threading
-
 import numpy as np
 import torch
 
-from recoder_tpu_torch.kernels import count_launch
+from recoder_tpu_torch.kernels import F32, I32, I64, PTR, Library, count_launch
 
 #: kernel launches since the last reset
 LAUNCHES = {'noised_input': 0}
@@ -32,8 +29,9 @@ LAUNCHES = {'noised_input': 0}
 #: float32 uniform an element whatever the output's dtype)
 MASK_DTYPE = torch.bool
 
-_LIB = None
-_LIB_LOCK = threading.Lock()
+LIBRARY = Library('noised_input', 'ni', {
+    'ni_noised_input': ([PTR, I64, I32, I32, PTR, F32, PTR, I32, PTR],
+                        'noised_input launch')})
 
 
 def l2_normalize_rows(x, eps=1e-12):
@@ -81,22 +79,6 @@ def takes(x):
           and x.stride(0) >= x.shape[1])
 
 
-def _lib():
-  global _LIB
-  with _LIB_LOCK:
-    if _LIB is None:
-      from recoder_tpu_torch.kernels import load_library
-      lib = load_library('noised_input')
-      ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-      lib.ni_noised_input.argtypes = [ptr, i64, i32, i32, ptr,
-                                      ctypes.c_float, ptr, i32, ptr]
-      lib.ni_noised_input.restype = i32
-      lib.ni_error_string.argtypes = [i32]
-      lib.ni_error_string.restype = ctypes.c_char_p
-      _LIB = lib
-    return _LIB
-
-
 def noised_input_kernel(x, rate, keep_mask=None):
   """The CUDA kernel: one launch on the current stream.
 
@@ -142,14 +124,10 @@ def noised_input_kernel(x, rate, keep_mask=None):
   z = torch.empty((B, W), dtype=torch.bfloat16, device=x.device)
   if z.numel() == 0:
     return z
-  lib = _lib()
   stream = torch.cuda.current_stream(x.device).cuda_stream
-  err = lib.ni_noised_input(
+  LIBRARY().ni_noised_input(
       x.data_ptr(), x.stride(0), B, W,
       keep_mask.data_ptr() if rate > 0 else None, scale, z.data_ptr(),
       x.device.index or 0, stream)
-  if err != 0:
-    raise RuntimeError(f'noised_input launch failed: CUDA error {err} '
-                       f'({lib.ni_error_string(err).decode()})')
   count_launch(LAUNCHES, 'noised_input')
   return z

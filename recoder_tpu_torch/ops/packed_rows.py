@@ -28,18 +28,16 @@ the kernel of ``kernels/packed_rows.cu`` (or raise), CPU tensors take
 :func:`unpack_rows_plain`.
 """
 
-import ctypes
-import threading
-
 import torch
 
-from recoder_tpu_torch.kernels import count_launch
+from recoder_tpu_torch.kernels import I32, I64, PTR, Library, count_launch
 
 #: kernel launches since the last reset
 LAUNCHES = {'packed_rows': 0}
 
-_LIB = None
-_LIB_LOCK = threading.Lock()
+LIBRARY = Library('packed_rows', 'pr', {
+    'pr_unpack_rows': ([PTR, I64, I32, I64, PTR, I32, I64, PTR, PTR, PTR,
+                        I32, PTR], 'packed_rows launch')})
 
 
 def _check_args(packed, num_items, start, index, count):
@@ -97,22 +95,6 @@ def unpack_mask_plain(packed, num_items, start=None, index=None,
   return unpack_rows_plain(packed, num_items, start, index, count)[1]
 
 
-def _lib():
-  global _LIB
-  with _LIB_LOCK:
-    if _LIB is None:
-      from recoder_tpu_torch.kernels import load_library
-      lib = load_library('packed_rows')
-      ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-      lib.pr_unpack_rows.argtypes = [ptr, i64, i32, i64, ptr, i32, i64, ptr,
-                                     ptr, ptr, i32, ptr]
-      lib.pr_unpack_rows.restype = i32
-      lib.pr_error_string.argtypes = [i32]
-      lib.pr_error_string.restype = ctypes.c_char_p
-      _LIB = lib
-    return _LIB
-
-
 def _launch(packed, num_items, start, index, count, write_rows):
   """One launch of the kernel (a memset of the mask words, the fetch
   with unpack -- or, without ``write_rows``, with no row written -- and
@@ -132,16 +114,12 @@ def _launch(packed, num_items, start, index, count, write_rows):
           if write_rows else None)
   mask_words = torch.empty(n_words, dtype=torch.int32, device=dev)
   col_mask = torch.empty(W, dtype=torch.float32, device=dev)
-  lib = _lib()
   stream = torch.cuda.current_stream(dev).cuda_stream
-  err = lib.pr_unpack_rows(
+  LIBRARY().pr_unpack_rows(
       packed.data_ptr(), n_rows, n_words, 0 if start is None else int(start),
       None if index is None else index.data_ptr(), B, int(num_items),
       None if rows is None else rows.data_ptr(), mask_words.data_ptr(),
       col_mask.data_ptr(), dev.index or 0, stream)
-  if err != 0:
-    raise RuntimeError(f'packed_rows launch failed: CUDA error {err} '
-                       f'({lib.pr_error_string(err).decode()})')
   count_launch(LAUNCHES, 'packed_rows')
   return rows, col_mask
 

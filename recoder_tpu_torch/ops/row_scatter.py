@@ -30,12 +30,9 @@ captured CUDA graph may record the launch (the captured sparse step);
 the launch counter counts only launches made outside a capture.
 """
 
-import ctypes
-import threading
-
 import torch
 
-from recoder_tpu_torch.kernels import count_launch
+from recoder_tpu_torch.kernels import I32, I64, PTR, Library, count_launch
 
 MAX_TABLES = 3
 #: the tables' dtypes the kernel copies
@@ -44,8 +41,18 @@ DTYPES = (torch.float32, torch.bfloat16)
 #: kernel launches since the last reset
 LAUNCHES = {'row_scatter': 0}
 
-_LIB = None
-_LIB_LOCK = threading.Lock()
+
+def _constants(lib):
+  if lib.rs_max_tables() != MAX_TABLES:
+    raise RuntimeError(f'row_scatter.cu takes {lib.rs_max_tables()} '
+                       f'tables, the wrapper expects {MAX_TABLES}')
+
+
+LIBRARY = Library('row_scatter', 'rs', {
+    'rs_row_scatter': ([I32] + [PTR] * 3 + [I64] * 3 + [PTR] * 3 + [I64] * 3
+                       + [I32] * 6 + [PTR, I64, I64, I32, PTR],
+                       'row_scatter launch'),
+    'rs_max_tables': ([], None)}, constants=_constants)
 
 
 def _check_args(tables, ids, rows):
@@ -91,27 +98,6 @@ def row_scatter_plain(tables, ids, rows):
     t.index_copy_(0, ids, r)
 
 
-def _lib():
-  global _LIB
-  with _LIB_LOCK:
-    if _LIB is None:
-      from recoder_tpu_torch.kernels import load_library
-      lib = load_library('row_scatter')
-      ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-      lib.rs_row_scatter.argtypes = ([i32] + [ptr] * 3 + [i64] * 3
-                                     + [ptr] * 3 + [i64] * 3 + [i32] * 6
-                                     + [ptr, i64, i64, i32, ptr])
-      lib.rs_row_scatter.restype = i32
-      lib.rs_error_string.argtypes = [i32]
-      lib.rs_error_string.restype = ctypes.c_char_p
-      lib.rs_max_tables.restype = i32
-      if lib.rs_max_tables() != MAX_TABLES:
-        raise RuntimeError(f'row_scatter.cu takes {lib.rs_max_tables()} '
-                           f'tables, the wrapper expects {MAX_TABLES}')
-      _LIB = lib
-    return _LIB
-
-
 def _unit_columns(x):
   return x.shape[1] == 1 or x.stride(1) == 1
 
@@ -148,7 +134,6 @@ def row_scatter_kernel(tables, ids, rows):
     if not _unit_columns(x):
       raise ValueError(f'tensor {i} must have contiguous rows (column '
                        f'stride 1), got strides {x.stride()}')
-  lib = _lib()
   k = len(tables)
   pad = MAX_TABLES - k
   dst = [t.data_ptr() for t in tables] + [None] * pad
@@ -158,12 +143,9 @@ def row_scatter_kernel(tables, ids, rows):
   es = [t.element_size() for t in tables] + [4] * pad
   vec = [int(_vector_path(t, r)) for t, r in zip(tables, rows)] + [0] * pad
   stream = torch.cuda.current_stream(ids.device).cuda_stream
-  err = lib.rs_row_scatter(k, *dst, *dld, *src, *sld, *es, *vec,
+  LIBRARY().rs_row_scatter(k, *dst, *dld, *src, *sld, *es, *vec,
                            ids.data_ptr(), W, d, ids.device.index or 0,
                            stream)
-  if err != 0:
-    raise RuntimeError(f'row_scatter launch failed: CUDA error {err} '
-                       f'({lib.rs_error_string(err).decode()})')
   count_launch(LAUNCHES, 'row_scatter')
 
 

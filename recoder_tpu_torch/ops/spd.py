@@ -30,10 +30,11 @@ A matrix that is not positive definite gives NaN on both routes, as
 """
 
 import ctypes
-import threading
 
 import torch
 import torch.nn.functional as F
+
+from recoder_tpu_torch.kernels import I32, PTR, Library, count_launch
 
 IMPLS = ('auto', 'blocked', 'kernel')
 #: widest system the kernel takes (its packed triangle in shared memory)
@@ -42,8 +43,18 @@ KERNEL_MAX_D = 256
 #: kernel launches since the last reset
 LAUNCHES = {'spd_solve': 0}
 
-_LIB = None
-_LIB_LOCK = threading.Lock()
+
+def _constants(lib):
+  if lib.spd_max_d() != KERNEL_MAX_D:
+    raise RuntimeError(f'spd_solve.cu takes d <= {lib.spd_max_d()}, '
+                       f'the wrapper expects {KERNEL_MAX_D}')
+
+
+LIBRARY = Library('spd_solve', 'spd', {
+    'spd_solve_batched': ([PTR, PTR, PTR, I32, I32, I32, PTR],
+                          'spd_solve launch'),
+    'spd_occupancy': ([I32, I32, PTR, PTR], 'spd_occupancy'),
+    'spd_max_d': ([], None)}, constants=_constants)
 
 
 def _t(x):
@@ -157,33 +168,6 @@ def spd_solve_blocked(a, b, base=16):
   return x[..., 0] if vec else x
 
 
-def _lib():
-  global _LIB
-  with _LIB_LOCK:
-    if _LIB is None:
-      from recoder_tpu_torch.kernels import load_library
-      lib = load_library('spd_solve')
-      ptr, i32 = ctypes.c_void_p, ctypes.c_int
-      lib.spd_solve_batched.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
-      lib.spd_solve_batched.restype = i32
-      lib.spd_error_string.argtypes = [i32]
-      lib.spd_error_string.restype = ctypes.c_char_p
-      lib.spd_max_d.restype = i32
-      lib.spd_occupancy.argtypes = [i32, i32, ptr, ptr]
-      lib.spd_occupancy.restype = i32
-      if lib.spd_max_d() != KERNEL_MAX_D:
-        raise RuntimeError(f'spd_solve.cu takes d <= {lib.spd_max_d()}, '
-                           f'the wrapper expects {KERNEL_MAX_D}')
-      _LIB = lib
-    return _LIB
-
-
-def _check(lib, err, what):
-  if err != 0:
-    raise RuntimeError(f'{what} failed: CUDA error {err} '
-                       f'({lib.spd_error_string(err).decode()})')
-
-
 def _validate(a, b):
   if a.device.type != 'cuda':
     raise ValueError(f'the spd_solve kernel needs CUDA tensors, a is on '
@@ -210,12 +194,10 @@ def spd_solve_kernel(a, b):
   x = torch.empty_like(b)
   if B == 0:
     return x
-  lib = _lib()
   stream = torch.cuda.current_stream(a.device).cuda_stream
-  err = lib.spd_solve_batched(a.data_ptr(), b.data_ptr(), x.data_ptr(), B,
-                              d, a.device.index or 0, stream)
-  _check(lib, err, 'spd_solve launch')
-  LAUNCHES['spd_solve'] += 1
+  LIBRARY().spd_solve_batched(a.data_ptr(), b.data_ptr(), x.data_ptr(), B, d,
+                              a.device.index or 0, stream)
+  count_launch(LAUNCHES, 'spd_solve')
   return x
 
 
@@ -225,11 +207,9 @@ def kernel_resources(d):
   resident."""
   if not 1 <= d <= KERNEL_MAX_D:
     raise ValueError(f'system width {d} outside 1..{KERNEL_MAX_D}')
-  lib = _lib()
-  smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-  err = lib.spd_occupancy(d, torch.cuda.current_device(), ctypes.byref(smem),
+  smem, blocks = I32(0), I32(0)
+  LIBRARY().spd_occupancy(d, torch.cuda.current_device(), ctypes.byref(smem),
                           ctypes.byref(blocks))
-  _check(lib, err, 'spd_occupancy')
   return {'smem_bytes': smem.value, 'blocks_per_sm': blocks.value}
 
 

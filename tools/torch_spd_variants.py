@@ -102,11 +102,12 @@ def build(name):
 
 
 def use(lib):
-  """Patch the wrapper to load ``lib`` (a ctypes library) afresh."""
+  """Patch the wrapper to run ``lib`` (a ctypes library), bound and put
+  in the kernels' cache in place of the source's build."""
   from recoder_tpu_torch import kernels
   from recoder_tpu_torch.ops import spd
-  spd._LIB = None
-  return mock.patch.object(kernels, 'load_library', lambda name: lib)
+  return mock.patch.dict(kernels._LIBS,
+                         {spd.LIBRARY.name: spd.LIBRARY.bind(lib)})
 
 
 def main(names):
