@@ -2135,6 +2135,59 @@ def check_adam(shapes, device, steps=5, storage=None):
   return err
 
 
+#: Mult-VAE [600, 200]'s parameters over ML-20M's padded catalog, in
+#: ``model.params()`` order: (shape, whether a training step's bf16
+#: products read it whole, so that it has a bf16 working copy)
+MULTVAE_PARAM_SHAPES = (
+    ((20224, 600), True), ((600,), False), ((600, 200), True),
+    ((200,), False), ((600, 200), True), ((200,), False), ((200, 600), True),
+    ((600,), False), ((20224, 600), True), ((20224,), False))
+
+
+def check_adam_copies(device, steps=5):
+  """The descriptor form that a Mult-VAE step launches: five float32
+  weights with bf16 gradients and bf16 working copies, and the biases
+  with float32 gradients and none, in one launch, five steps against the
+  plain version from the same state and gradients: the moments bitwise,
+  the parameters within 2 float32 ulps, every copy bitwise
+  ``p.to(bf16)`` of the parameter the kernel stored. Returns the largest
+  abs difference of p."""
+  import torch
+  from recoder_tpu_torch.ops import adam
+  shapes = [sh for sh, _ in MULTVAE_PARAM_SHAPES]
+  params, grads, ms, vs, wds = adam_problem(shapes, device, seed=2)
+  copied = [c for _, c in MULTVAE_PARAM_SHAPES]
+  grads = [g.to(torch.bfloat16) if c else g for g, c in zip(grads, copied)]
+  copies = [p.to(torch.bfloat16) if c else None
+            for p, c in zip(params, copied)]
+  kernel = [[None if x is None else x.clone() for x in xs]
+            for xs in (params, ms, vs, copies)]
+  for step in range(1, steps + 1):
+    sc = adam.step_scalars(1e-3, step, (0.9, 0.999), 1e-8)
+    adam.adam_bf16_kernel(kernel[0], grads, kernel[1], kernel[2], wds, sc,
+                          copies=kernel[3])
+    adam.adam_bf16_plain(params, grads, ms, vs, wds, sc, copies=copies)
+  torch.cuda.synchronize()
+  for a, b in zip(kernel[1] + kernel[2], ms + vs):
+    if not torch.equal(a, b):
+      raise AssertionError(f'adam kernel with copies {tuple(a.shape)}: a '
+                           'moment differs from the plain version')
+  for p, w in zip(kernel[0], kernel[3]):
+    if w is not None and not torch.equal(w, p.to(torch.bfloat16)):
+      raise AssertionError(f'adam kernel with copies {tuple(p.shape)}: the '
+                           'copy is not p.to(bf16)')
+  err = 0.0
+  for a, b in zip(kernel[0], params):
+    diff = (a - b).abs()
+    err = max(err, float(diff.max()))
+    if not bool((diff <= 2 * torch.finfo(torch.float32).eps
+                 * b.abs()).all()):
+      raise AssertionError(f'adam kernel with copies {tuple(a.shape)}: p '
+                           f'differs from the plain version beyond 2 float32'
+                           f' ulps (max abs {float(diff.max())})')
+  return err
+
+
 def time_adam(shapes, device, storage=None):
   """Device ms of one step over the parameter set: the kernel, its plain
   version and, as another function's yardstick, torch.optim.Adam(fused=
@@ -2260,6 +2313,12 @@ def phase_bf16_kernels(device='cuda', full=(500, 200, 20224),
   say(f'  adam kernel vs plain, 5 steps over the ML-20M parameter set ({n:,} '
       f'parameters) and a ragged length {ragged_adam:,}: max abs diff '
       f'{adam_err:.3g} (m, v within 1 bf16 ulp, p within 2 float32 ulps)')
+  copies_err = check_adam_copies(device)
+  n_copied = sum(int(np.prod(sh)) for sh, c in MULTVAE_PARAM_SHAPES if c)
+  say(f'  adam kernel vs plain, 5 steps over Mult-VAE\'s parameter set with '
+      f'bf16 gradients and working copies on its {n_copied:,} weight '
+      f'elements: m, v bitwise, copies bitwise p.to(bf16), p max abs diff '
+      f'{copies_err:.3g} (within 2 float32 ulps)')
   adam_times = time_adam(ML20M_PARAM_SHAPES, device)
   adam_bound = bound(0.0, 20.0 * n)
   say('  adam step, device time: ' + ', '.join(
@@ -2946,11 +3005,11 @@ def plain_trainer_run(trainer, dataset, steps, kw):
   from recoder_tpu_torch.ops import row_scatter as rs
 
   def plain_adam(params, grads, exp_avgs, exp_avg_sqs, weight_decays, table,
-                 ctl, captured=None):
+                 ctl, captured=None, copies=None):
     if captured is not None:
       raise AssertionError('a plain run captured a step')
     adam_ops.adam_bf16_plain_table(params, grads, exp_avgs, exp_avg_sqs,
-                                   weight_decays, table, ctl)
+                                   weight_decays, table, ctl, copies)
 
   reset_launches()
   with mock.patch.object(adam_ops, 'adam_bf16_kernel_table', plain_adam), \

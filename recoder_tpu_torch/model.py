@@ -138,6 +138,7 @@ workaround and is not ported: every ``eval_topk`` mode is exact here.
 """
 
 import collections
+import contextlib
 import gc
 import logging
 import os
@@ -165,7 +166,7 @@ from recoder_tpu_torch.models.base import FactorizationModel
 from recoder_tpu_torch.ops import losses as losses_lib
 from recoder_tpu_torch.ops.fused_decode_loss import (fused_decode_loss,
                                                      supported)
-from recoder_tpu_torch.ops.gather_matmul import as_dtype
+from recoder_tpu_torch.ops.gather_matmul import as_dtype, working_copies
 from recoder_tpu_torch.ops.topk import MODES as topk_modes
 from recoder_tpu_torch.ops.topk import merge_top_k, top_k
 from recoder_tpu_torch.optim import (KINDS, Bf16Adam, SparseRowAdam,
@@ -761,6 +762,14 @@ class Recoder:
       return None
     return torch.tensor(self._global_step, device=self.device)
 
+  def _working_copies(self):
+    """The training step's bf16 products read the dense optimizer's
+    working copies (``Bf16Adam.working_copy``), off a mesh: a mesh adds
+    the gradients over 'data' in the parameters' dtype, float32."""
+    if self.mesh is None and isinstance(self.optimizer, Bf16Adam):
+      return working_copies(self.optimizer.working_copy)
+    return contextlib.nullcontext()
+
   def _dense_step_math(self, batch, negative_sampling=True, reseed=True,
                        step=None):
     """One optimizer update; returns the step's loss (on the device).
@@ -774,9 +783,10 @@ class Recoder:
       self._dropout_gen.manual_seed((self.seed << 32) + self._global_step)
     step = self._step_tensor() if step is None else step
     self.optimizer.zero_grad(set_to_none=True)
-    loss = self._forward_loss(batch, training=True,
-                              negative_sampling=negative_sampling,
-                              generator=self._dropout_gen, step=step)
+    with self._working_copies():
+      loss = self._forward_loss(batch, training=True,
+                                negative_sampling=negative_sampling,
+                                generator=self._dropout_gen, step=step)
     loss.backward()
     if self.mesh is not None:
       collectives.all_reduce_grads(self.model.parameters(),
@@ -838,10 +848,11 @@ class Recoder:
         else part.mask(gathered[name], part.owned(path, ids))
         for name, path, ids in entries}
     self.optimizer.zero_grad(set_to_none=True)
-    loss = self._forward_loss(batch, training=True,
-                              negative_sampling=negative_sampling,
-                              generator=self._dropout_gen,
-                              gathered=used, step=step)
+    with self._working_copies():
+      loss = self._forward_loss(batch, training=True,
+                                negative_sampling=negative_sampling,
+                                generator=self._dropout_gen,
+                                gathered=used, step=step)
     loss.backward()
     if part is not None:
       collectives.all_reduce_grads(
@@ -1171,6 +1182,8 @@ class Recoder:
         # (the steps read their scalars off the device: no host read)
         if isinstance(self.optimizer, Bf16Adam):
           self.optimizer.schedule(n_steps, capacity=num_batches)
+          # (the parameters may have changed since: a load, a user)
+          self.optimizer.refresh_copies()
         if self.sparse_states:
           self.sparse_adam.schedule(self.sparse_states.values(), epoch_lr,
                                     n_steps, capacity=num_batches)
@@ -1620,6 +1633,7 @@ class Recoder:
                 if torch.is_tensor(g['lr'])]
     if isinstance(self.optimizer, Bf16Adam):
       tensors += [self.optimizer._ctl, self.optimizer._table]
+      tensors += self.optimizer.copies()
     for state in self.sparse_states.values():
       tensors += [state['step'], state['m'], state['v']]
     if self.sparse_states:

@@ -15,7 +15,8 @@ import torch
 from torch import nn
 
 from recoder_tpu_torch.ops import noised_input as ni
-from recoder_tpu_torch.ops.gather_matmul import row_sums, take_rows
+from recoder_tpu_torch.ops.gather_matmul import (bf16_operand, row_sums,
+                                                  take_rows)
 # (the plain chain's two steps; the bottleneck and MF dropouts use dropout)
 from recoder_tpu_torch.ops.noised_input import dropout, l2_normalize_rows
 
@@ -58,10 +59,12 @@ def linear(z, w, bias, compute_dtype=None):
   """``z @ w + bias`` of a hidden layer: in float32 (a bf16 weight
   upcast, as JAX promotes it), or (bf16 compute) the product of the
   bf16-rounded operands rounded to bf16, then float32 plus the bias (the
-  JAX ``(z.astype(cd) @ w.astype(cd)).astype(float32) + b``)."""
+  JAX ``(z.astype(cd) @ w.astype(cd)).astype(float32) + b``; ``w`` a
+  training step's working copy where it has one, ``ops/gather_matmul.
+  bf16_operand``)."""
   if compute_dtype in (None, torch.float32):
     return z.float() @ w.float() + bias
-  return (z.to(compute_dtype) @ w.to(compute_dtype)).float() + bias
+  return (z.to(compute_dtype) @ bf16_operand(w, compute_dtype)).float() + bias
 
 
 def coo_encode(table, rows, cols, vals, num_rows, compute_dtype=None):

@@ -12,6 +12,14 @@ ancestor; on the card it is ``kernels/adam.cu``, one launch for every
 tensor of a parameter set, for the storage pairs (parameters, moments)
 of :data:`STORAGE`.
 
+A float32 parameter may have a bf16 working copy (``optim.Bf16Adam``
+keeps one for each parameter a bf16 product reads whole): the step
+stores the copy from the float32 value it stores to the parameter,
+rounded to nearest even, so the copy stays bitwise ``p.to(bf16)``; its
+gradient then arrives in bf16 (the product's), which the step upcasts.
+Each tensor's descriptor says whether it has a copy and its gradient's
+dtype, so one launch steps a set of tensors with and without.
+
 Routing is by the tensors' device: CUDA tensors launch the kernel (or
 raise), CPU tensors take :func:`adam_bf16_plain`, which does the same
 float32 operations in the same order (the kernel is built without
@@ -47,18 +55,22 @@ from recoder_tpu_torch.kernels import (I32, PTR, Library, capturing,
 BF16 = torch.bfloat16
 #: kernel launches since the last reset
 LAUNCHES = {'adam_bf16': 0}
+#: the share of the parameter elements of the last launch built (or plain
+#: step) whose bf16 working copy it writes, in [0, 1]
+COPY_SHARE = {'adam_bf16': None}
 
-#: the (parameter and gradient, moment) storage dtypes the kernel is
-#: built for; float32 throughout is ``torch.optim.Adam``'s
+#: the (parameter, moment) storage dtypes the kernel is built for (a bf16
+#: parameter's gradient is bf16, a float32 one's float32 or bf16);
+#: float32 throughout is ``torch.optim.Adam``'s
 STORAGE = ((torch.float32, BF16), (BF16, BF16), (BF16, torch.float32))
 
 #: one tensor's descriptor, as ``struct Desc`` in kernels/adam.cu
-DESC = np.dtype({'names': ['p', 'g', 'm', 'v', 'n', 'chunk0', 'wd', 'vec',
-                           'p_bf16', 'm_bf16'],
-                 'formats': ['<u8', '<u8', '<u8', '<u8', '<i8', '<i8', '<f4',
-                             '<i4', '<i4', '<i4'],
-                 'offsets': [0, 8, 16, 24, 32, 40, 48, 52, 56, 60],
-                 'itemsize': 64})
+DESC = np.dtype({'names': ['p', 'g', 'm', 'v', 'w', 'n', 'chunk0', 'wd',
+                           'vec', 'p_bf16', 'm_bf16', 'g_bf16'],
+                 'formats': ['<u8', '<u8', '<u8', '<u8', '<u8', '<i8', '<i8',
+                             '<f4', '<i4', '<i4', '<i4', '<i4'],
+                 'offsets': [0, 8, 16, 24, 32, 40, 48, 56, 60, 64, 68, 72],
+                 'itemsize': 80})
 
 Scalars = namedtuple('Scalars',
                      'lr_bc1 b1 omb1 b2 omb2 sqrt_bc2 eps')
@@ -67,18 +79,22 @@ TABLE_COLS = 8
 
 
 def _constants(lib):
-  """The table layout the source reads, and its chunk (elements a block
-  takes) kept as ``lib.chunk``."""
-  if lib.adam_table_cols() != TABLE_COLS:
+  """The table and descriptor layouts the source reads, its chunk
+  (elements a block takes) kept as ``lib.chunk`` and its vector (elements
+  a thread moves a step) as ``lib.vec``."""
+  if (lib.adam_table_cols() != TABLE_COLS
+      or lib.adam_desc_bytes() != DESC.itemsize):
     raise RuntimeError('kernels/adam.cu and ops/adam.py disagree on '
-                       'the scalar table')
+                       'the scalar table or the descriptor')
   lib.chunk = lib.adam_chunk()
+  lib.vec = lib.adam_vec()
 
 
 LIBRARY = Library('adam', 'adam', {
     'adam_bf16_step': ([PTR, I32, I32, PTR, I32, PTR, I32, I32, I32, PTR],
                        'bf16-storage Adam launch'),
-    'adam_chunk': ([], None), 'adam_table_cols': ([], None)},
+    'adam_chunk': ([], None), 'adam_vec': ([], None),
+    'adam_desc_bytes': ([], None), 'adam_table_cols': ([], None)},
     constants=_constants)
 
 
@@ -117,15 +133,16 @@ def scalars_at(table, ctl):
 
 
 def adam_bf16_plain(params, grads, exp_avgs, exp_avg_sqs, weight_decays,
-                    scalars):
+                    scalars, copies=None):
   """The kernel's plain version, in place: each operation of
   kernels/adam.cu as one PyTorch op on the upcast buffers, divisions by
   tensors (CUDA divides by a host scalar as a multiply by its
   reciprocal), each buffer stored back once (``copy_`` rounds to nearest
-  even)."""
+  even), and a working copy (``copies``: one bf16 tensor or None a
+  parameter) stored from the stored parameter."""
   c = scalars
-  for p, g, m, v, wd in zip(params, grads, exp_avgs, exp_avg_sqs,
-                            weight_decays):
+  for p, g, m, v, wd, w in zip(params, grads, exp_avgs, exp_avg_sqs,
+                               weight_decays, _copies(copies, params)):
     sqrt_bc2 = torch.tensor(c.sqrt_bc2, device=p.device)
     p32 = p.float()
     g = g.float() + wd * p32
@@ -135,15 +152,32 @@ def adam_bf16_plain(params, grads, exp_avgs, exp_avg_sqs, weight_decays,
     p.copy_(p32 - (c.lr_bc1 * m1) / denom)
     m.copy_(m1)
     v.copy_(v1)
+    if w is not None:
+      w.copy_(p)
+
+
+def _copies(copies, params):
+  return [None] * len(params) if copies is None else copies
+
+
+def _note_copy_share(params, copies):
+  """Record in :data:`COPY_SHARE` the share of ``params``' elements that
+  have a working copy."""
+  total = sum(p.numel() for p in params)
+  copied = sum(p.numel() for p, w in zip(params, _copies(copies, params))
+               if w is not None)
+  COPY_SHARE['adam_bf16'] = copied / total if total else None
 
 
 def _pack(entries, chunk):
-  """The descriptors of ``entries`` ((p, g, m, v pointers, n, wd, vec,
-  p_bf16, m_bf16) per tensor) as bytes, and the launch's chunk count."""
+  """The descriptors of ``entries`` ((p, g, m, v, w pointers, n, wd, vec,
+  p_bf16, m_bf16, g_bf16) per tensor) as bytes, and the launch's chunk
+  count."""
   desc = np.zeros(len(entries), DESC)
   chunk0 = 0
-  for i, (p, g, m, v, n, wd, vec, p_bf16, m_bf16) in enumerate(entries):
-    desc[i] = (p, g, m, v, n, chunk0, wd, vec, p_bf16, m_bf16)
+  for i, (p, g, m, v, w, n, wd, vec, p_bf16, m_bf16,
+          g_bf16) in enumerate(entries):
+    desc[i] = (p, g, m, v, w, n, chunk0, wd, vec, p_bf16, m_bf16, g_bf16)
     chunk0 += -(-n // chunk)
   return desc.view(np.uint8), chunk0
 
@@ -212,16 +246,25 @@ def storage(params, exp_avgs):
   return pairs.pop()
 
 
-def _check_tensors(params, grads, exp_avgs, exp_avg_sqs):
+def _check_tensors(params, grads, exp_avgs, exp_avg_sqs, copies=None):
   p_dtype, m_dtype = storage(params, exp_avgs)
-  for p, g, m, v in zip(params, grads, exp_avgs, exp_avg_sqs):
-    for name, x, dtype in (('param', p, p_dtype), ('grad', g, p_dtype),
-                           ('exp_avg', m, m_dtype),
-                           ('exp_avg_sq', v, m_dtype)):
+  # (a float32 param's gradient may be bf16, the product's, and it may
+  # have a working copy)
+  g_dtypes = {p_dtype, BF16}
+  for p, g, m, v, w in zip(params, grads, exp_avgs, exp_avg_sqs,
+                           _copies(copies, params)):
+    if w is not None and p_dtype != torch.float32:
+      raise ValueError('a working copy belongs to a float32 param')
+    for name, x, dtypes in (('param', p, {p_dtype}), ('grad', g, g_dtypes),
+                            ('exp_avg', m, {m_dtype}),
+                            ('exp_avg_sq', v, {m_dtype}), ('copy', w, {BF16})):
+      if x is None:
+        continue
       if x.device != p.device:
         raise ValueError(f'{name} is on {x.device}, the param on {p.device}')
-      if x.dtype != dtype:
-        raise ValueError(f'{name} must be {dtype}, got {x.dtype}')
+      if x.dtype not in dtypes:
+        raise ValueError(f'{name} must be {" or ".join(map(str, dtypes))}, '
+                         f'got {x.dtype}')
       if not x.is_contiguous():
         raise ValueError(f'{name} must be contiguous')
       if x.shape != p.shape:
@@ -244,22 +287,24 @@ def _check_table(table, ctl, device):
 
 
 def adam_bf16_plain_table(params, grads, exp_avgs, exp_avg_sqs,
-                          weight_decays, table, ctl):
+                          weight_decays, table, ctl, copies=None):
   """The table launch's plain version: :func:`adam_bf16_plain` with the
   scalars of row ``ctl[0] - ctl[1]``, then ``ctl[0] += 1``."""
   _check_table(table, ctl, params[0].device)
   adam_bf16_plain(params, grads, exp_avgs, exp_avg_sqs, weight_decays,
-                  scalars_at(table, ctl))
+                  scalars_at(table, ctl), copies)
   ctl[0] += 1
 
 
 def adam_bf16_kernel_table(params, grads, exp_avgs, exp_avg_sqs,
-                           weight_decays, table, ctl, captured=None):
+                           weight_decays, table, ctl, captured=None,
+                           copies=None):
   """One launch of kernels/adam.cu over every tensor (on one card) with
   the scalars of row ``ctl[0] - ctl[1]`` of ``table``, then ``ctl[0] +=
   1`` on the device; no host read, so a capture may record it (with
-  ``captured``, the :class:`CapturedDescriptors` of that capture)."""
-  _check_tensors(params, grads, exp_avgs, exp_avg_sqs)
+  ``captured``, the :class:`CapturedDescriptors` of that capture).
+  ``copies``: each parameter's bf16 working copy, or None."""
+  _check_tensors(params, grads, exp_avgs, exp_avg_sqs, copies)
   device = params[0].device
   if any(p.device != device for p in params) or device.type != 'cuda':
     raise ValueError('the bf16-moment Adam kernel takes CUDA tensors on '
@@ -268,15 +313,19 @@ def adam_bf16_kernel_table(params, grads, exp_avgs, exp_avg_sqs,
   p_dtype, m_dtype = storage(params, exp_avgs)
   p_bf16, m_bf16 = int(p_dtype == BF16), int(m_dtype == BF16)
   entries = []
-  for p, g, m, v, wd in zip(params, grads, exp_avgs, exp_avg_sqs,
-                            weight_decays):
+  for p, g, m, v, wd, w in zip(params, grads, exp_avgs, exp_avg_sqs,
+                               weight_decays, _copies(copies, params)):
     if p.numel() == 0:
       continue
-    # (4 elements a thread: each buffer aligned to 4 of its elements)
-    vec = int(p.numel() % 4 == 0 and all(
-        x.data_ptr() % (4 * x.element_size()) == 0 for x in (p, g, m, v)))
+    # (lib.vec elements a thread: every buffer 16-byte aligned)
+    buffers = (p, g, m, v) + (() if w is None else (w,))
+    vec = int(p.numel() % lib.vec == 0
+              and all(x.data_ptr() % 16 == 0 for x in buffers))
     entries.append((p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-                    p.numel(), float(np.float32(wd)), vec, p_bf16, m_bf16))
+                    0 if w is None else w.data_ptr(), p.numel(),
+                    float(np.float32(wd)), vec, p_bf16, m_bf16,
+                    int(g.dtype == BF16)))
+  _note_copy_share(params, copies)
   if not entries:
     return
   _check_table(table, ctl, device)
@@ -290,7 +339,7 @@ def adam_bf16_kernel_table(params, grads, exp_avgs, exp_avg_sqs,
 
 
 def adam_bf16_kernel(params, grads, exp_avgs, exp_avg_sqs, weight_decays,
-                     scalars):
+                     scalars, copies=None):
   """The kernel with host ``scalars``: a one-row table and its control
   pair uploaded for this launch alone."""
   device = params[0].device
@@ -298,23 +347,25 @@ def adam_bf16_kernel(params, grads, exp_avgs, exp_avg_sqs, weight_decays,
                        dtype=torch.float32).to(device)
   ctl = torch.zeros(2, dtype=torch.int64, device=device)
   adam_bf16_kernel_table(params, grads, exp_avgs, exp_avg_sqs,
-                         weight_decays, table, ctl)
+                         weight_decays, table, ctl, copies=copies)
 
 
 def table_step(params, grads, exp_avgs, exp_avg_sqs, weight_decays, table,
-               ctl, captured=None):
+               ctl, captured=None, copies=None):
   """One Adam step with bf16 moments whose scalars are row ``ctl[0] -
   ctl[1]`` of ``table``, then ``ctl[0] += 1``: the kernel on CUDA
   tensors (``captured``: see :func:`adam_bf16_kernel_table`), its plain
-  twin on CPU tensors."""
+  twin on CPU tensors. ``copies``: each parameter's bf16 working copy, or
+  None."""
   device = params[0].device
   if device.type == 'cuda':
     adam_bf16_kernel_table(params, grads, exp_avgs, exp_avg_sqs,
-                           weight_decays, table, ctl, captured)
+                           weight_decays, table, ctl, captured, copies)
   elif device.type == 'cpu':
-    _check_tensors(params, grads, exp_avgs, exp_avg_sqs)
+    _check_tensors(params, grads, exp_avgs, exp_avg_sqs, copies)
+    _note_copy_share(params, copies)
     adam_bf16_plain_table(params, grads, exp_avgs, exp_avg_sqs,
-                          weight_decays, table, ctl)
+                          weight_decays, table, ctl, copies)
   else:
     raise ValueError(f'bf16-moment Adam runs on cuda or cpu, not {device}')
 

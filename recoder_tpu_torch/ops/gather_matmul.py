@@ -22,6 +22,20 @@ out_dtype=torch.float32)``); on the CPU, which has no such kernel, the
 float32 product of the bf16-rounded operands (the same products, summed
 in another order).
 
+The weight's gradient leaves cuBLAS as bf16 in the weight's own layout:
+``a.t() @ g`` for an operand ``b`` laid out row-major, and for the
+decoder's ``table.t()`` the swapped product ``g.t() @ a``, which lands in
+the table's ``[W, d]`` rows (on the CPU the float32 product rounded: the
+same values).
+
+A training step's float32 weight that a bf16 product reads whole may
+have a bf16 working copy (:func:`working_copies`, kept by
+``optim.Bf16Adam``, which writes it when it steps the weight, so that it
+is always ``p.to(bf16)``): the product reads the copy in place of
+``p.to(bf16)``, and the weight's bf16 gradient stays on the copy, where
+the optimizer reads it, in place of its upcast to float32 on ``p``. The
+values are the same; the casts are gone.
+
 bf16 parameter storage: a bf16 table enters the bf16 product as it is
 (its ``.to(bf16)`` is no copy), and its gradient is the bf16 one the
 product's backward rounds once from float32 -- the transpose of the JAX
@@ -30,10 +44,16 @@ table's dtype, as the JAX scatter-add of a bf16 cotangent does.
 """
 
 import contextlib
+import contextvars
 
 import torch
 
 BF16 = torch.bfloat16
+
+#: the working copies of the training step under way: a function of a
+#: float32 tensor that returns its bf16 working copy or None
+#: (:func:`working_copies`)
+_WORKING = contextvars.ContextVar('working_copies', default=None)
 
 
 @contextlib.contextmanager
@@ -87,10 +107,71 @@ def row_sums(values, rows, num_rows):
   return sums[:num_rows]
 
 
+@contextlib.contextmanager
+def working_copies(copy_of):
+  """Within the block, a bf16 product that reads a float32 weight whole
+  takes ``copy_of(weight)`` as its operand where that is not None: a bf16
+  working copy equal to ``weight.to(bf16)`` (``optim.Bf16Adam.
+  working_copy``), whose gradient the backward pass leaves in bf16."""
+  token = _WORKING.set(copy_of)
+  try:
+    yield
+  finally:
+    _WORKING.reset(token)
+
+
+def bf16_operand(w, compute_dtype):
+  """The weight ``w`` as a product's operand in ``compute_dtype``: its
+  working copy where the training step under way has one, else
+  ``w.to(compute_dtype)``."""
+  copy_of = _WORKING.get()
+  if copy_of is not None and compute_dtype == BF16:
+    copy = copy_of(w)
+    if copy is not None:
+      return copy
+  return w.to(compute_dtype)
+
+
 def _mm_f32(a, b):
   if a.device.type == 'cuda':
     return torch.mm(a, b, out_dtype=torch.float32)
   return torch.mm(a.float(), b.float())
+
+
+@contextlib.contextmanager
+def _float32_sums():
+  """bf16-output products whose sums stay float32 for the duration:
+  cuBLAS may split K, but reduces the parts in float32, never in the bf16
+  output (PyTorch allows that by default); the previous setting is
+  restored after."""
+  matmul = torch.backends.cuda.matmul
+  prev = now = matmul.allow_bf16_reduced_precision_reduction
+  try:  # (a torch with the split-K half of the setting keeps that half)
+    prev = (prev, matmul.allow_bf16_reduced_precision_reduction_split_k)
+    now = (False, prev[1])
+  except AttributeError:
+    now = False
+  matmul.allow_bf16_reduced_precision_reduction = now
+  try:
+    yield
+  finally:
+    matmul.allow_bf16_reduced_precision_reduction = prev
+
+
+def _weight_grad(a, g, b):
+  """The bf16 gradient ``a.t() @ g`` of the operand ``b`` of ``a @ b``,
+  laid out as ``b`` is: for a transposed operand (the decoder's
+  ``table.t()``) the transpose of ``g.t() @ a``, which fills the table's
+  rows. On the card one bf16-output GEMM with float32 sums, rounded once
+  to bf16 as ``_mm_f32(a.t(), g).to(bf16)`` is (the card tests hold it to
+  those bits at the training shapes, a mega-batch's and a union's); on
+  the CPU that rounded product."""
+  if a.device.type != 'cuda':
+    return _mm_f32(a.t(), g).to(BF16)
+  with _float32_sums():
+    if not b.is_contiguous() and b.t().is_contiguous():
+      return torch.mm(g.t(), a).t()
+    return torch.mm(a.t(), g)
 
 
 class _MatmulF32Out(torch.autograd.Function):
@@ -115,7 +196,7 @@ class _MatmulF32Out(torch.autograd.Function):
     if ctx.needs_input_grad[0]:
       da = _mm_f32(g, b.t()).to(BF16)
     if ctx.needs_input_grad[1]:
-      db = _mm_f32(a.t(), g).to(BF16)
+      db = _weight_grad(a, g, b)
     return da, db
 
 
@@ -126,7 +207,7 @@ def matmul_f32_out(a, b, compute_dtype=None):
   if cd in (None, torch.float32):
     # (a bf16 input of a float32 product is upcast, as JAX promotes it)
     return torch.matmul(a.float(), b.float())
-  return _MatmulF32Out.apply(a.to(cd), b.to(cd))
+  return _MatmulF32Out.apply(a.to(cd), bf16_operand(b, cd))
 
 
 def encode_matmul(z, table, bias, compute_dtype=None):
@@ -136,4 +217,7 @@ def encode_matmul(z, table, bias, compute_dtype=None):
 
 def decode_matmul(h, table, bias, compute_dtype=None):
   """``h[B, d] @ table[W, d].T + bias[W]``."""
-  return matmul_f32_out(h, table.t(), compute_dtype) + bias
+  cd = as_dtype(compute_dtype)
+  if cd in (None, torch.float32):
+    return matmul_f32_out(h, table.t()) + bias
+  return _MatmulF32Out.apply(h.to(cd), bf16_operand(table, cd).t()) + bias

@@ -36,6 +36,14 @@ parameters is :class:`Bf16Adam` for either moment dtype (never
 a plain eager update. :class:`SparseRowAdam` takes bf16 tables and bf16
 moments the same way.
 
+A float32 parameter that a training step's bf16 product reads whole has
+a bf16 working copy under :class:`Bf16Adam` (float32 parameters, bf16
+moments): the product reads the copy (``ops/gather_matmul.
+working_copies``), its backward leaves the parameter's gradient on it
+in bf16, and the kernel reads that gradient and writes the copy from
+the parameter it stores. The step is the same arithmetic; the product's
+cast of the parameter and the gradient's upcast are gone.
+
 On the card (``capturable=True``) every Adam step is one that a CUDA
 graph can record: the float32 state is ``torch.optim.Adam(fused=True,
 capturable=True)`` with its learning rate a device scalar
@@ -56,6 +64,7 @@ import torch
 
 from recoder_tpu_torch.kernels import capturing
 from recoder_tpu_torch.ops import adam as adam_ops
+from recoder_tpu_torch.ops.gather_matmul import BF16
 from recoder_tpu_torch.ops.row_scatter import row_scatter_
 
 KINDS = ('sgd', 'adam', 'adagrad', 'rmsprop')
@@ -186,6 +195,20 @@ class Bf16Adam(torch.optim.Optimizer):
   may record it. An eager step outside the scheduled rows (or after the
   learning rate changed) schedules one row itself, at the cost of one
   host read of the step count.
+
+  Working copies (:meth:`working_copy`): a float32 parameter that a
+  training step's bf16 product reads whole gets a bf16 copy at its first
+  such read (outside a capture), which the product reads in place of
+  ``p.to(bf16)``; the step takes the parameter's gradient from the copy
+  (bf16, the product's) and writes the copy from the new parameter. A
+  second read of the parameter in one step gets no copy: where a step
+  finds a gradient on both the copy and the parameter (read in another
+  way too, as a tied table), it adds the copy's into the parameter's, as
+  autograd would have (one addition of two values: the same bits). A
+  copy is derived state, in no ``state_dict``: :meth:`refresh_copies` writes
+  it anew from its parameter, which may have changed outside
+  :meth:`step` (a loaded state); :meth:`reset_state` calls it, and the
+  trainer at every epoch's start.
   """
 
   def __init__(self, params, lr, betas=(0.9, 0.999), eps=1e-8,
@@ -202,6 +225,11 @@ class Bf16Adam(torch.optim.Optimizer):
     self._span = None
     self._host_step = None
     self._capture = None  # the descriptors of a capture under way
+    #: the params stepped here; {param: its bf16 working copy}; the
+    #: params read so far in the step under way
+    self._own = {p for g in self.param_groups for p in g['params']}
+    self._copies = {}
+    self._read = set()
 
   def _hyper(self):
     hyper = {(g['lr'], g['betas'], g['eps']) for g in self.param_groups}
@@ -261,7 +289,7 @@ class Bf16Adam(torch.optim.Optimizer):
 
   def reset_state(self):
     """Zero the moments and the step count in place (tensors a graph
-    recorded stay valid)."""
+    recorded stay valid), and write the working copies anew."""
     for state in self.state.values():
       for key in ('exp_avg', 'exp_avg_sq'):
         if key in state:
@@ -269,15 +297,60 @@ class Bf16Adam(torch.optim.Optimizer):
     self._adopt_steps()
     self._ctl.zero_()
     self._span = self._host_step = None
+    self.refresh_copies()
+
+  def working_copy(self, p):
+    """The bf16 working copy that a training step's bf16 product reads in
+    place of ``p.to(bf16)`` (``ops/gather_matmul.working_copies``), or
+    None: ``p`` is no float32 parameter stepped here, takes no gradient
+    (no grad mode), was read already in this step, or has no copy yet
+    inside a capture."""
+    if (p.dtype != torch.float32 or not torch.is_grad_enabled()
+        or not p.requires_grad or p in self._read or p not in self._own):
+      return None
+    copy = self._copies.get(p)
+    if copy is None:
+      if capturing():
+        return None
+      copy = self._copies[p] = p.detach().to(
+          BF16, memory_format=torch.contiguous_format).requires_grad_()
+    self._read.add(p)
+    return copy
+
+  def copies(self):
+    """The working copies (the tensors a captured step reads)."""
+    return list(self._copies.values())
+
+  @torch.no_grad()
+  def refresh_copies(self):
+    """Write every working copy from its parameter, in place (a graph
+    that reads it stays valid): the parameters may have changed outside
+    :meth:`step`."""
+    for p, copy in self._copies.items():
+      copy.copy_(p)
+
+  def zero_grad(self, set_to_none=True):
+    super().zero_grad(set_to_none)
+    for copy in self._copies.values():
+      if set_to_none:
+        copy.grad = None
+      elif copy.grad is not None:
+        copy.grad.zero_()
+    self._read.clear()
 
   @torch.no_grad()
   def step(self, closure=None):
     if closure is not None:
       raise ValueError('Bf16Adam takes no closure')
-    tensors = ([], [], [], [], [])
+    tensors = ([], [], [], [], [], [])
     for group in self.param_groups:
       for p in group['params']:
-        if p.grad is None:
+        grad, copy = p.grad, self._copies.get(p)
+        if copy is not None and copy.grad is not None:
+          # (the product's, bf16; read in another way too, the two added
+          # as autograd adds them)
+          grad = copy.grad if grad is None else grad.add_(copy.grad)
+        if grad is None:
           continue
         state = self.state[p]
         if not state:
@@ -286,10 +359,11 @@ class Bf16Adam(torch.optim.Optimizer):
               p, dtype=self.state_dtype,
               memory_format=torch.contiguous_format)
           state['exp_avg_sq'] = torch.zeros_like(state['exp_avg'])
-        for out, x in zip(tensors, (p, p.grad, state['exp_avg'],
+        for out, x in zip(tensors, (p, grad, state['exp_avg'],
                                     state['exp_avg_sq'],
-                                    group['weight_decay'])):
+                                    group['weight_decay'], copy)):
           out.append(x)
+    self._read.clear()
     if not tensors[0]:
       return None
     recording = capturing()
@@ -300,7 +374,9 @@ class Bf16Adam(torch.optim.Optimizer):
       if (span is None or self._host_step is None or span[2] != lr
           or not span[0] <= self._host_step < span[1]):
         self.schedule(1)
-    adam_ops.table_step(*tensors, self._table, self._ctl, self._capture)
+    *tensors, copies = tensors
+    adam_ops.table_step(*tensors, self._table, self._ctl, self._capture,
+                        copies)
     if not recording:
       self._host_step += 1
     return None
